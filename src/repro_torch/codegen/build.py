@@ -1,0 +1,98 @@
+"""Build the port's CUDA sources with ``nvcc`` at first use, load with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface, so it compiles in seconds
+without PyTorch's headers:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
+
+The library lands in ``codegen/_build/`` (listed in ``.gitignore``), named by
+a hash of its source, so an edited kernel is rebuilt and an unchanged one
+is loaded as it is.  ``ptxas``'s report (registers, shared memory, spills
+per kernel) is kept beside it as ``<name>-<hash>.ptxas.txt``.  There is no
+fallback: without ``nvcc`` or a card the build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or at /usr/local/cuda/bin/nvcc: the "
+            "port's CUDA kernels are built from source at first use"
+        )
+    return path
+
+
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` is (or will be) built."""
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` output of the build of ``csrc/<name>.cu``."""
+    path = library_path(name)[: -len(".so")] + ".ptxas.txt"
+    with open(path) as f:
+        return f.read()
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns the path.
+
+    The compile writes to a temporary name and is renamed into place, so a
+    concurrent builder or an interrupted build never leaves a torn library.
+    """
+    out = library_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", tmp, os.path.join(CSRC, f"{name}.cu"),
+    ]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        with open(out[: -len(".so")] + ".ptxas.txt", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/<name>.cu``; one handle per process."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(build(name))
+        return lib

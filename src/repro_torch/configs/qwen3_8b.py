@@ -1,0 +1,9 @@
+"""Qwen3-8B — dense, GQA kv=8, qk-norm [hf:Qwen/Qwen3-8B]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="qwen3-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8,
+    head_dim=128, d_ff=12_288, vocab=151_936,
+    qk_norm=True, rope_theta=1_000_000.0,
+)

@@ -1,0 +1,99 @@
+"""Prefill and decode runners — the two compute phases of serving.
+
+Prefill is compute-bound (square-ish GEMMs over the whole prompt); decode
+is bandwidth-bound (skinny M = lanes GEMMs).  Each runner scopes its work
+with ``search.serving_phase(...)``, so ``ops._tuned_kernel`` consults the
+phase-qualified plan-DB entry first.  With page sizes that are multiples
+of 128, every prefill GEMM is 128-aligned and runs the contraction kernel;
+decode (M = lanes) is a plain ``torch.matmul``, as the reference leaves it
+to ``jnp.dot``.  PyTorch runs eagerly: there is nothing to trace.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from ... import obs
+from ...configs.base import ModelConfig
+from ...models.api import ModelAPI
+from ...search import serving_phase
+from . import paged
+
+
+class PrefillRunner:
+    """Batch-1 bucketed prefill: pads the context to a page multiple,
+    masks the pads via ``lengths``, and copies the resulting cache pages
+    into the physical pool."""
+
+    phase = "prefill"
+
+    def __init__(self, cfg: ModelConfig, api: ModelAPI, page_size: int,
+                 device: torch.device):
+        self.cfg = cfg
+        self.api = api
+        self.page_size = page_size
+        self.device = device
+
+    def __call__(self, params, pools: Dict, context: Sequence[int],
+                 pages: Sequence[int]) -> Tuple[int, Dict]:
+        """Prefill one request's context and store it into ``pages``.
+        Returns (first generated token, the pools, updated in place)."""
+        plen = len(context)
+        padded = len(pages) * self.page_size
+        if padded < plen:
+            raise ValueError(f"{len(pages)} page(s) cannot hold {plen} tokens")
+        toks = torch.zeros((1, padded), dtype=torch.long)
+        toks[0, :plen] = torch.as_tensor(context, dtype=torch.long)
+        toks = toks.to(self.device)
+        lengths = torch.full((1,), plen, dtype=torch.long, device=self.device)
+        with serving_phase(self.phase):
+            with obs.span("serve.prefill", tokens=plen, padded=padded):
+                logits, caches = self.api.prefill(
+                    params, self.cfg, {"tokens": toks, "lengths": lengths},
+                    padded,
+                )
+                tok = int(torch.argmax(logits[0, -1]))
+                pools = paged.store_prefill(
+                    pools, caches,
+                    torch.as_tensor(pages, dtype=torch.long,
+                                    device=self.device),
+                    self.page_size,
+                )
+        return tok, pools
+
+
+class DecodeRunner:
+    """One continuous-batching decode step over all lanes: gather the
+    block-table pages into the dense cache view, run the model's
+    ``decode_step``, write the appended KV row back to its page."""
+
+    phase = "decode"
+
+    def __init__(self, cfg: ModelConfig, api: ModelAPI, page_size: int,
+                 lanes: int, max_pages: int, device: torch.device):
+        self.cfg = cfg
+        self.api = api
+        self.page_size = page_size
+        self.lanes = lanes
+        self.max_pages = max_pages
+        self.device = device
+
+    def __call__(self, params, pools, block_table, lens, tokens):
+        """Returns (next token per lane as a host int64 tensor, the pools,
+        updated in place)."""
+        as_dev = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.long
+        ).to(self.device)
+        bt, lens, toks = as_dev(block_table), as_dev(lens), as_dev(tokens)
+        with serving_phase(self.phase):
+            caches = paged.paged_view(pools, bt, lens, self.page_size)
+            logits, new_caches = self.api.decode_step(
+                params, self.cfg, caches, toks[:, None]
+            )
+            pools = paged.scatter_token(
+                pools, new_caches, bt, lens, self.page_size
+            )
+            tok = torch.argmax(logits[:, -1], dim=-1)
+        return tok.cpu(), pools

@@ -1,0 +1,242 @@
+"""Ranked plan database, lookup side — what ``ops.dense`` consults first.
+
+The search (a later slice of the port) stores its whole ranked ladder per
+(spec, dtype, hardware[, mesh][, phase]) key; this module reads it.  The
+file format and the key derivation are the reference's, byte for byte, so
+a plan DB written by the reference's sweep (e.g.
+``tests/data/plan_db_golden.json``) resolves through the port.  Storage
+reuses ``codegen.cache.AutotuneCache`` (atomic JSON, concurrent-writer
+safe) in a separate file:
+
+    $REPRO_PLAN_DB if set, else ~/.cache/repro_torch/plans.json
+
+Keys come from ``codegen.cache.cache_key`` with a ``search.plan`` marker, so
+they are disjoint from autotune keys even if the files are merged by hand.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from ..codegen.cache import (
+    AutotuneCache,
+    cache_key,
+    dtype_name,
+    schedule_from_dict,
+    spec_signature,
+)
+from ..core.enumerate import ContractionSpec
+from ..core.schedule import Schedule
+
+#: bump when the ranked-entry layout changes.
+#: v2 (mesh tier): keys gained a ``mesh`` qualifier (None for
+#: single-device plans, '2x4'-style for sharded ones) and ranked entries
+#: an optional ``collective`` field naming the finishing-reduction
+#: lowering.  Every v1 key goes cold on upgrade — deliberate: v1 ladders
+#: carry no mesh provenance, so a sharded fleet could have picked up a
+#: single-device plan for a mesh-qualified lookup (or vice versa).
+#: v3 (observability / plan-explain): entries carry their own identity
+#: (``spec`` = ``spec_signature``, ``dtype``) so ``obs.explain`` can find
+#: them by human selector instead of sha256 key, each rung an ``explain``
+#: dict of the roofline terms the ranking was decided from (compute/HBM/
+#: collective seconds, penalty, shards — ``beam.CostEstimate``), and the
+#: entry a ``cuts`` sample of the sound bound cuts.  v2 keys go cold
+#: (their ladders lack the provenance v3 readers expose); ``PlanDB.get``
+#: counts such upgrades as ``plandb.version_miss`` in ``obs``.
+#: The golden fixture ``tests/data/plan_db_golden.json`` pins this format.
+PLAN_VERSION = 3
+
+
+def plan_key(
+    spec: ContractionSpec,
+    dtype: Any,
+    hardware: Optional[str] = None,
+    mesh: Optional[str] = None,
+    version: int = PLAN_VERSION,
+    phase: Optional[str] = None,
+) -> str:
+    """Plan-DB key; ``mesh`` is a ``search.space.mesh_descriptor`` string
+    ('2x4') qualifying sharded ladders — conceptually ``matmul@mesh=2x4``
+    — so one fleet DB serves single-device and mesh plans side by side.
+    ``phase`` ('prefill'/'decode') qualifies serving-phase ladders the
+    same way — conceptually ``matmul@phase=decode`` — so the decode
+    runner's skinny ``M=batch`` GEMMs rank their own ladder instead of
+    inheriting the compute-bound prefill winner for the same shape.  A
+    ``None`` phase is omitted from the hashed payload entirely, keeping
+    every pre-phase key byte-identical (the golden fixtures pin this).
+    ``version`` is overridable only so ``PlanDB.get`` can probe whether a
+    miss is really a stale-format entry (a *version* miss)."""
+    extra: Dict[str, Any] = {"what": "search.plan", "v": version, "mesh": mesh}
+    if phase is not None:
+        extra["phase"] = phase
+    return cache_key(
+        spec,
+        dtype=dtype_name(dtype),
+        hardware=hardware,
+        extra=extra,
+    )
+
+
+#: the serving phase the *calling context* is executing under — consulted
+#: by ``ops._tuned_kernel`` at dispatch time so the same GEMM shape resolves
+#: to its phase-qualified ladder inside a prefill vs a decode runner.
+#: contextvars (not a bare global) so threaded gateways each see their own
+#: phase.
+_ACTIVE_PHASE: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
+    "repro_torch_serving_phase", default=None
+)
+
+
+def active_phase() -> Optional[str]:
+    """The serving phase tag of the current context, or None."""
+    return _ACTIVE_PHASE.get()
+
+
+@contextlib.contextmanager
+def serving_phase(phase: Optional[str]) -> Iterator[None]:
+    """Scope a serving phase ('prefill'/'decode') over kernel dispatch.
+
+    Entered by the serving runners around their steps; while
+    active, ``ops._tuned_kernel`` consults the phase-qualified plan key
+    first and falls back to the unphased ladder on a miss.
+    """
+    tok = _ACTIVE_PHASE.set(phase)
+    try:
+        yield
+    finally:
+        _ACTIVE_PHASE.reset(tok)
+
+
+class PlanDB:
+    """Ranked schedules per (spec, dtype, hardware)."""
+
+    def __init__(self, path: str):
+        self._cache = AutotuneCache(path)
+        self._cache.metrics_prefix = "plandb"  # obs: plandb.hit/.miss
+
+    @property
+    def path(self) -> str:
+        return self._cache.path
+
+    @property
+    def lookup_hits(self) -> int:
+        """Successful plan lookups so far — the supported counter for
+        benches/tests asserting that ops consulted the DB."""
+        return self._cache.hits
+
+    def put(
+        self,
+        spec: ContractionSpec,
+        dtype: Any,
+        ranked: List[Dict[str, Any]],
+        stats: Optional[Dict[str, int]] = None,
+        hardware: Optional[str] = None,
+        mesh: Optional[str] = None,
+        cuts: Optional[List[Dict[str, Any]]] = None,
+        phase: Optional[str] = None,
+    ) -> str:
+        """Store ranked entries (best first). Each entry must carry a
+        ``schedule`` dict from ``schedule_to_dict``; score/measured_s/
+        lower_bound/collective/source/explain ride along verbatim.
+        ``mesh`` is the shape descriptor ('2x4') for a mesh-tier sweep,
+        None for single-device ladders; ``phase`` tags a serving-phase
+        ladder ('prefill'/'decode').  ``cuts`` is the bound-cut sample
+        ``obs.explain`` shows as the why-not side of the table.  The
+        entry records its own ``spec`` signature + ``dtype`` (since v3)
+        so explain selectors can find it without recomputing keys."""
+        key = plan_key(spec, dtype, hardware, mesh=mesh, phase=phase)
+        payload = {
+            "v": PLAN_VERSION,
+            "mesh": mesh,
+            "spec": spec_signature(spec),
+            "dtype": dtype_name(dtype),
+            "ranked": ranked,
+            "stats": stats or {},
+            "cuts": cuts or [],
+        }
+        if phase is not None:
+            payload["phase"] = phase
+        self._cache.put(key, payload)
+        return key
+
+    def get(
+        self, spec: ContractionSpec, dtype: Any,
+        hardware: Optional[str] = None,
+        mesh: Optional[str] = None,
+        phase: Optional[str] = None,
+    ) -> Optional[Dict[str, Any]]:
+        entry = self._cache.get(
+            plan_key(spec, dtype, hardware, mesh=mesh, phase=phase)
+        )
+        if entry is None and phase is None:
+            # classify the miss: an entry under an older PLAN_VERSION key
+            # means the fleet DB predates a format bump (plans went cold
+            # deliberately) rather than never having been swept — an
+            # operator reading the metrics dump re-sweeps instead of
+            # hunting a phantom sweep gap
+            for old_v in range(1, PLAN_VERSION):
+                if self._cache.contains(
+                    plan_key(spec, dtype, hardware, mesh=mesh, version=old_v)
+                ):
+                    from ..obs import counter
+
+                    counter("plandb.version_miss").inc()
+                    break
+        return entry
+
+    def best_schedule(
+        self, spec: ContractionSpec, dtype: Any,
+        hardware: Optional[str] = None,
+        mesh: Optional[str] = None,
+        phase: Optional[str] = None,
+    ) -> Optional[Schedule]:
+        """The stored winner, deserialized and validated — or None.
+
+        A corrupt or stale entry (e.g. an extent mismatch after a spec
+        change) degrades to a miss, never an error: callers fall back to
+        ``codegen.tune_schedule``.
+        """
+        sched, _ = self.best_entry(spec, dtype, hardware, mesh=mesh,
+                                   phase=phase)
+        return sched
+
+    def best_entry(
+        self, spec: ContractionSpec, dtype: Any,
+        hardware: Optional[str] = None,
+        mesh: Optional[str] = None,
+        phase: Optional[str] = None,
+    ) -> Tuple[Optional[Schedule], Dict[str, Any]]:
+        """(winner schedule, its raw entry dict) — or (None, {}).
+
+        The entry dict carries the plan metadata the schedule alone cannot
+        (notably ``collective`` — the finishing-reduction strategy a
+        mesh-sharded plan was measured with, for the mesh tier).
+        """
+        entry = self.get(spec, dtype, hardware, mesh=mesh, phase=phase)
+        if not entry or not entry.get("ranked"):
+            return None, {}
+        try:
+            rung = entry["ranked"][0]
+            return schedule_from_dict(rung["schedule"], spec.root()), rung
+        except Exception:
+            return None, {}
+
+    def clear(self) -> None:
+        self._cache.clear()
+
+
+_default: Optional[PlanDB] = None
+
+
+def default_plan_db() -> PlanDB:
+    """Process-wide DB at $REPRO_PLAN_DB or ~/.cache/repro_torch/plans.json."""
+    global _default
+    path = os.environ.get("REPRO_PLAN_DB") or os.path.join(
+        os.path.expanduser("~"), ".cache", "repro_torch", "plans.json"
+    )
+    if _default is None or _default.path != path:
+        _default = PlanDB(path)
+    return _default
