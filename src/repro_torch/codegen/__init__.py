@@ -4,8 +4,9 @@ The reference compiles a ``ContractionSpec`` + ``Schedule`` into a Pallas
 kernel.  The port keeps the pure half unchanged (``plan.build_plan``,
 ``schedules.default_schedule``, the tuner and its persistent cache, with
 the reference's key format) and lowers every two-operand contraction onto
-one hand-written CUDA kernel, ``csrc/contract.cu`` (``cuda_gen``), built by
-``nvcc`` at first use (``build``).
+one hand-written CUDA kernel, ``csrc/contract.cu`` (``cuda_gen``); the
+grouped (MoE) fused family lowers onto ``csrc/grouped.cu`` (``fused_gen``).
+Both are built by ``nvcc`` at first use (``build``).
 
 Entry point::
 
@@ -30,6 +31,7 @@ from .cuda_gen import (
     compile_kernel,
     contract_ref,
 )
+from .fused_gen import GROUPED, FusedKernel, compile_fused, grouped_ref
 from .plan import AxisPlan, KernelPlan, build_plan
 from .schedules import (
     batched_matmul_schedule,
@@ -47,6 +49,8 @@ __all__ = [
     "AxisPlan",
     "CONTRACT",
     "CompiledKernel",
+    "FusedKernel",
+    "GROUPED",
     "KernelPlan",
     "batched_matmul_schedule",
     "build_plan",
@@ -54,10 +58,12 @@ __all__ = [
     "cached_compile",
     "chain_matmul_schedule",
     "compile",
+    "compile_fused",
     "compile_kernel",
     "contract_ref",
     "default_cache",
     "default_schedule",
+    "grouped_ref",
     "dtype_name",
     "hardware_fingerprint",
     "schedule_from_dict",

@@ -28,8 +28,9 @@ on the tensor cores for bf16 operands, 128 x 64 on the FMA pipes for f32).
 
 Devices: on a CUDA tensor the call launches the kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
-falls back from one to the other.  Three-operand specs, epilogues, int8/fp8
-specs, fused families and meshes are later slices and raise
+falls back from one to the other.  Fused specs (``fused_kind`` set) go to
+``fused_gen.compile_fused`` (the grouped matmul, kernel B3).  Three-operand
+specs, epilogues, int8/fp8 specs and meshes are later slices and raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` queue-A item.
 """
 
@@ -260,10 +261,11 @@ def compile_kernel(
     ):
         raise ValueError("spec and schedule disagree on the root contraction")
     if getattr(root, "fused_kind", ""):
-        raise NotImplementedError(
-            f"fused family {root.fused_kind!r} (kernels B2-B4) comes with "
-            f"ROADMAP.md queue A item 5"
-        )
+        from .fused_gen import compile_fused
+
+        return compile_fused(spec, schedule, epilogue=epilogue,
+                             out_dtype=out_dtype, interpret=interpret,
+                             mesh=mesh)
     if mesh is not None:
         raise NotImplementedError(
             "mesh-bound kernels come with the mesh tier, ROADMAP.md queue A "

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-This slice registers the dense family; the other families' configs come
-with their models (ROADMAP.md queue A item 6).
+This slice registers the dense family and the two MoE configs; the other
+families' configs come with their models (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ _MODULES = {
     "qwen3-8b": "qwen3_8b",
     "granite-34b": "granite_34b",
     "qwen2-72b": "qwen2_72b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

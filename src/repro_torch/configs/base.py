@@ -1,7 +1,7 @@
 """Model/arch configuration schema, copied from the reference.
 
 One ``ModelConfig`` covers all the reference's families; this slice of the
-port registers the four dense ones.  ``param_dtype`` is a ``torch.dtype``.
+port registers the four dense ones and two MoE ones (kimi-k2, llama4).  ``param_dtype`` is a ``torch.dtype``.
 ``smoke()`` produces the reduced-config variant used by CPU smoke tests
 (same family/topology, tiny extents).
 """

@@ -7,8 +7,13 @@ drives a seeded synthetic trace through :class:`ContinuousEngine` and
 prints the engine's stats.  Every 128-aligned prefill GEMM runs the
 hand-written contraction kernel; the line ``contract kernel launches``
 says how many ran.  The default flags (``--prompt-len 16 --page-size 16``)
-give no 128-aligned GEMM, so they launch no kernel, exactly as the
-reference's defaults reach no Pallas kernel.
+give no 128-aligned GEMM, so they launch no contraction kernel, exactly as
+the reference's defaults reach no Pallas kernel.  The MoE family
+(``--arch kimi-k2-1t-a32b``, ``llama4-maverick-400b-a17b``) serves too;
+with ``REPRO_MOE_GROUPED=1`` in the environment its expert products run
+the grouped kernel on every prefill and decode step (``grouped kernel
+launches``).  ``run(cfg, args)`` serves a config the caller has cut (e.g.
+to fewer layers) with the flags of ``parse_args``.
 
 ``--device`` defaults to ``cuda`` and the run fails without a card; pass
 ``--device cpu`` for the plain PyTorch versions.  ``--smoke`` serves the
@@ -23,12 +28,12 @@ from __future__ import annotations
 import argparse
 
 from .. import obs
-from ..codegen import CONTRACT
+from ..codegen import CONTRACT, GROUPED
 from ..configs import get_config
 from ..obs import log
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--smoke", action="store_true")
@@ -64,12 +69,12 @@ def main(argv=None):
                     help="write the obs metrics registry as JSON")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="write the Chrome-trace span JSON")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.smoke()
 
+def run(cfg, args: argparse.Namespace):
+    """Serve ``cfg`` with the flags of ``parse_args``; returns (stats,
+    trace, engine)."""
     from .serving import ContinuousEngine, Gateway, synthetic_trace
 
     trace = synthetic_trace(
@@ -94,9 +99,10 @@ def main(argv=None):
         max_ctx=max_ctx,
         device=args.device,
     )
-    launches0 = CONTRACT.launches
+    launches0, grouped0 = CONTRACT.launches, GROUPED.launches
     stats = Gateway(engine).run(trace, eos_id=args.eos_id)
     stats["kernel_launches"] = CONTRACT.launches - launches0
+    stats["grouped_launches"] = GROUPED.launches - grouped0
     log.info(
         "serve",
         f"[continuous] prefill {stats['prefill_s']*1e3:.1f} ms over "
@@ -105,11 +111,22 @@ def main(argv=None):
         f"at {stats['tok_per_s']:.1f} decode tok/s on {engine.device}"
     )
     log.info("serve", f"contract kernel launches: {stats['kernel_launches']}")
+    if cfg.family == "moe":
+        log.info("serve", f"grouped kernel launches: "
+                 f"{stats['grouped_launches']}")
     if args.metrics_out:
         log.info("serve", f"metrics -> {obs.metrics_dump(args.metrics_out)}")
     if args.trace_out:
         log.info("serve", f"trace -> {obs.trace_dump(args.trace_out)}")
     return stats, trace, engine
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    return run(cfg, args)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Uniform model API, LM entry only (the dense family).
+"""Uniform model API, LM entry only (the dense and MoE families).
 
     api = get_api(cfg)
     params = api.init(cfg, generator, device)
@@ -37,7 +37,7 @@ def _lm_api() -> ModelAPI:
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} has no port yet (ROADMAP.md queue A)"
         )

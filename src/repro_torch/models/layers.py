@@ -1,6 +1,6 @@
-"""Shared model layers of the dense family: norms, rotary, GQA attention
-(blockwise online-softmax prefill path + cached decode path), the MLP,
-embeddings and logits.
+"""Shared model layers of the dense and MoE families: norms, rotary, GQA
+attention (blockwise online-softmax prefill path + cached decode path), the
+MLP, embeddings and logits.
 
 A port of the reference's ``models/layers.py``: parameter trees are nested
 dicts of tensors with the reference's names, shapes, dtypes and layouts
@@ -27,13 +27,31 @@ NEG_INF = -1e30
 
 
 def _init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
-          device, scale: Optional[float] = None) -> torch.Tensor:
+          device, scale: Optional[float] = None,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """N(0, 1) * scale drawn in f32 and cast, scale 1/sqrt(fan-in) by
-    default — the reference's ``_init``."""
+    default — the reference's ``_init``.
+
+    With ``out`` (a view into a stacked leaf, see ``transformer.init``)
+    the draw is written into it and ``out`` is returned.
+    """
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, device=device, dtype=F32)
-    return w.mul_(scale).to(dtype)
+    w = w.mul_(scale).to(dtype)
+    return w if out is None else out.copy_(w)
+
+
+def _fill(shape, value: float, dtype, device,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A constant leaf (norm scales, biases), or ``out`` filled with it."""
+    if out is None:
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return out.fill_(value)
+
+
+def _leaf(out: Optional[Dict], name: str) -> Optional[torch.Tensor]:
+    return None if out is None else out[name]
 
 
 # ---------------------------------------------------------------------------
@@ -41,9 +59,9 @@ def _init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm_init(cfg: ModelConfig, dim=None, device="cpu"):
+def rmsnorm_init(cfg: ModelConfig, dim=None, device="cpu", out=None):
     dim = dim or cfg.d_model
-    return {"scale": torch.ones((dim,), dtype=F32, device=device)}
+    return {"scale": _fill((dim,), 1.0, F32, device, _leaf(out, "scale"))}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -80,22 +98,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def attention_init(cfg: ModelConfig, generator: torch.Generator, device):
+def attention_init(cfg: ModelConfig, generator: torch.Generator, device,
+                   out=None):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.param_dtype
     p = {
-        "wq": _init(generator, (d, h * hd), dt, device),
-        "wk": _init(generator, (d, kv * hd), dt, device),
-        "wv": _init(generator, (d, kv * hd), dt, device),
-        "wo": _init(generator, (h * hd, d), dt, device),
+        "wq": _init(generator, (d, h * hd), dt, device, out=_leaf(out, "wq")),
+        "wk": _init(generator, (d, kv * hd), dt, device,
+                    out=_leaf(out, "wk")),
+        "wv": _init(generator, (d, kv * hd), dt, device,
+                    out=_leaf(out, "wv")),
+        "wo": _init(generator, (h * hd, d), dt, device, out=_leaf(out, "wo")),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((h * hd,), dtype=dt, device=device)
-        p["bk"] = torch.zeros((kv * hd,), dtype=dt, device=device)
-        p["bv"] = torch.zeros((kv * hd,), dtype=dt, device=device)
+        p["bq"] = _fill((h * hd,), 0.0, dt, device, _leaf(out, "bq"))
+        p["bk"] = _fill((kv * hd,), 0.0, dt, device, _leaf(out, "bk"))
+        p["bv"] = _fill((kv * hd,), 0.0, dt, device, _leaf(out, "bv"))
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((hd,), dtype=F32, device=device)
-        p["k_norm"] = torch.ones((hd,), dtype=F32, device=device)
+        p["q_norm"] = _fill((hd,), 1.0, F32, device, _leaf(out, "q_norm"))
+        p["k_norm"] = _fill((hd,), 1.0, F32, device, _leaf(out, "k_norm"))
     return p
 
 
@@ -299,20 +320,24 @@ def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(cfg: ModelConfig, generator: torch.Generator, device, d_ff=None):
+def mlp_init(cfg: ModelConfig, generator: torch.Generator, device, d_ff=None,
+             out=None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.param_dtype
     if cfg.act == "silu":  # SwiGLU
         return {
-            "w_gate": _init(generator, (d, f), dt, device),
-            "w_up": _init(generator, (d, f), dt, device),
-            "w_down": _init(generator, (f, d), dt, device),
+            "w_gate": _init(generator, (d, f), dt, device,
+                            out=_leaf(out, "w_gate")),
+            "w_up": _init(generator, (d, f), dt, device,
+                          out=_leaf(out, "w_up")),
+            "w_down": _init(generator, (f, d), dt, device,
+                            out=_leaf(out, "w_down")),
         }
     return {  # plain 2-layer (gelu)
-        "w1": _init(generator, (d, f), dt, device),
-        "b1": torch.zeros((f,), dtype=dt, device=device),
-        "w2": _init(generator, (f, d), dt, device),
-        "b2": torch.zeros((d,), dtype=dt, device=device),
+        "w1": _init(generator, (d, f), dt, device, out=_leaf(out, "w1")),
+        "b1": _fill((f,), 0.0, dt, device, _leaf(out, "b1")),
+        "w2": _init(generator, (f, d), dt, device, out=_leaf(out, "w2")),
+        "b2": _fill((d,), 0.0, dt, device, _leaf(out, "b2")),
     }
 
 

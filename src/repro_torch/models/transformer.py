@@ -1,10 +1,16 @@
-"""Decoder-only LM, dense family: init, KV caches, prefill and decode.
+"""Decoder-only LM covering the dense and MoE families: init, KV caches,
+prefill and decode.
 
-A port of the reference's ``models/transformer.py`` (dense segments only;
-the MoE family comes with its model).  Layers keep the reference's
-*segment* layout: each segment's parameters and caches are stacked along a
-leading ``layers`` axis (``params["seg0"]["dense"]["attn"]["wq"]`` is
-``(n_layers, d_model, heads * hd)``), and ``_run_segments`` walks that axis
+A port of the reference's ``models/transformer.py``.  Layers keep the
+reference's *segment* layout (``segment_plan``):
+
+  dense arch            ->  [ (('dense',), L) ]
+  kimi-style MoE        ->  [ (('dense',), first_dense), (('moe',), L-fd) ]
+  llama4-style MoE      ->  [ (('dense','moe'), L//2) ]   (interleaved)
+
+Each segment's parameters and caches are stacked along a leading
+``layers`` axis (``params["seg0"]["dense"]["attn"]["wq"]`` is
+``(layers, d_model, heads * hd)``), and ``_run_segments`` walks that axis
 in a Python loop where the reference uses ``lax.scan``.  The stacked caches
 are updated in place (``layers.attention_apply``).
 """
@@ -19,6 +25,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
+from .moe import moe_apply, moe_init
 
 
 # --------------------------------------------------------------------------
@@ -32,35 +39,57 @@ def _tree_map(fn: Callable, tree):
     return fn(tree)
 
 
-def _tree_zip(fn: Callable, a, b) -> None:
-    if isinstance(a, dict):
-        for k in a:
-            _tree_zip(fn, a[k], b[k])
-    else:
-        fn(a, b)
-
-
 # --------------------------------------------------------------------------
 # segment plan + params
 # --------------------------------------------------------------------------
 
 
 def segment_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense family; the "
-            f"others come with ROADMAP.md queue A items 5-6"
+            f"family {cfg.family!r}: the port serves the dense and MoE "
+            f"families; the others come with ROADMAP.md queue A item 6"
         )
-    return [(("dense",), cfg.n_layers)]
+    if cfg.family == "dense":
+        return [(("dense",), cfg.n_layers)]
+    m = cfg.moe
+    plan: List[Tuple[Tuple[str, ...], int]] = []
+    rest = cfg.n_layers
+    if m.first_dense:
+        plan.append((("dense",), m.first_dense))
+        rest -= m.first_dense
+    if m.moe_every == 1:
+        plan.append((("moe",), rest))
+    elif m.moe_every == 2:
+        if rest % 2:
+            raise ValueError(f"moe_every=2 needs an even number of layers "
+                             f"after the dense ones, got {rest}")
+        plan.append((("dense", "moe"), rest // 2))
+    else:
+        raise NotImplementedError(f"moe_every={m.moe_every}")
+    return plan
 
 
-def _layer_init(cfg: ModelConfig, generator: torch.Generator, device):
-    return {
-        "attn_norm": L.rmsnorm_init(cfg, device=device),
-        "attn": L.attention_init(cfg, generator, device),
-        "mlp_norm": L.rmsnorm_init(cfg, device=device),
-        "mlp": L.mlp_init(cfg, generator, device),
+def _layer_init(cfg: ModelConfig, kind: str, generator, device, out=None):
+    """One layer of ``kind``; with ``out`` (this layer's views into the
+    stacked leaves) every leaf is drawn straight into its view."""
+    d_ff = cfg.d_ff
+    if kind == "dense" and cfg.moe is not None and cfg.moe.dense_ff:
+        d_ff = cfg.moe.dense_ff
+    p = {
+        "attn_norm": L.rmsnorm_init(cfg, device=device,
+                                    out=L._leaf(out, "attn_norm")),
+        "attn": L.attention_init(cfg, generator, device,
+                                 out=L._leaf(out, "attn")),
+        "mlp_norm": L.rmsnorm_init(cfg, device=device,
+                                   out=L._leaf(out, "mlp_norm")),
     }
+    if kind == "moe":
+        p["moe"] = moe_init(cfg, generator, device, out=L._leaf(out, "moe"))
+    else:
+        p["mlp"] = L.mlp_init(cfg, generator, device, d_ff=d_ff,
+                              out=L._leaf(out, "mlp"))
+    return p
 
 
 def init(cfg: ModelConfig, generator: torch.Generator,
@@ -68,38 +97,42 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     """Seeded random params on ``device``, in the reference's tree, shapes,
     dtypes and scales (``generator`` must live on ``device``).
 
-    Each stacked leaf is allocated once and filled layer by layer, so the
-    peak is the model plus one layer's f32 draw.
+    Each stacked leaf is allocated once (its shape from a pass on the meta
+    device) and every layer is drawn straight into its slice of it, so the
+    peak is the model plus one leaf's f32 draw (one expert slab for the
+    MoE stacks).
     """
     device = resolve_device(device)
     params: Dict = {
         "embedding": L.embedding_init(cfg, generator, device),
         "final_norm": L.rmsnorm_init(cfg, device=device),
     }
+    meta = torch.device("meta")
     for si, (pattern, count) in enumerate(segment_plan(cfg)):
-        seg = None
+        seg = {
+            kind: _tree_map(
+                lambda t: torch.empty((count, *t.shape), dtype=t.dtype,
+                                      device=device),
+                _layer_init(cfg, kind, None, meta),
+            )
+            for kind in pattern
+        }
         for layer in range(count):
-            rep = {kind: _layer_init(cfg, generator, device)
-                   for kind in pattern}
-            if seg is None:
-                seg = _tree_map(lambda t: t.new_empty((count, *t.shape)), rep)
-
-            def put(dst, src, layer=layer):
-                dst[layer].copy_(src)
-
-            _tree_zip(put, seg, rep)
+            for kind in pattern:
+                _layer_init(cfg, kind, generator, device,
+                            out=_tree_map(lambda t: t[layer], seg[kind]))
         params[f"seg{si}"] = seg
     return params
 
 
 #: leaves the reference keeps in float32 whatever ``cfg.dtype`` is
-_F32_LEAVES = ("scale", "q_norm", "k_norm")
+_F32_LEAVES = ("scale", "q_norm", "k_norm", "router")
 
 
 def params_from_reference(cfg: ModelConfig, tree, device="cuda") -> Dict:
     """The reference's params (the same tree, leaves as numpy arrays) as
-    the port's tensors: weights in ``cfg.param_dtype``, norm scales in
-    float32, on ``device``."""
+    the port's tensors: weights in ``cfg.param_dtype``, norm scales and the
+    MoE router in float32, on ``device``."""
     device = resolve_device(device)
 
     def convert(tree, name=None):
@@ -117,7 +150,7 @@ def params_from_reference(cfg: ModelConfig, tree, device="cuda") -> Dict:
 # --------------------------------------------------------------------------
 
 
-def _block(lp, cfg: ModelConfig, x, *, positions, cache=None,
+def _block(lp, cfg: ModelConfig, kind: str, x, *, positions, cache=None,
            q_block=512, k_block=512, lengths=None):
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     y, new_cache = L.attention_apply(
@@ -127,6 +160,8 @@ def _block(lp, cfg: ModelConfig, x, *, positions, cache=None,
     )
     x = x + y
     h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    if kind == "moe":
+        return x + moe_apply(lp["moe"], cfg, h), new_cache
     return x + L.mlp_apply(lp["mlp"], cfg, h), new_cache
 
 
@@ -148,7 +183,7 @@ def _run_segments(params, cfg: ModelConfig, x, *, positions, caches=None,
                 c = (None if seg_cache is None
                      else _tree_map(lambda t: t[layer], seg_cache[kind]))
                 x, nc = _block(
-                    lp, cfg, x, positions=positions, cache=c,
+                    lp, cfg, kind, x, positions=positions, cache=c,
                     q_block=q_block, k_block=k_block, lengths=lengths,
                 )
                 if nc is not None:

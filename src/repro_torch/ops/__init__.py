@@ -12,6 +12,11 @@ off the device rule, so CPU tests reach the kernel's plain version.
 Everything else is ``torch.matmul`` with f32 accumulation, as the
 reference leaves it to ``jnp.dot(..., preferred_element_type=f32)``.
 
+``grouped_dense`` is the ragged grouped GEMM of the MoE experts.  It has
+no alignment rule: on a CUDA tensor (or with ``interpret=True``) every call
+with rows compiles the ``GroupedSpec`` through the same lookup and runs
+``csrc/grouped.cu`` (kernel B3); otherwise it is the plain per-group loop.
+
 Serving runs under ``torch.inference_mode()``; ``differentiable=`` is
 accepted for the reference's signature and the ``autograd.Function``
 comes with the training slice.  ``quant=`` comes with B1's int8/fp8 modes.
@@ -21,8 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from ..codegen import cached_compile, tune_schedule
-from ..core.enumerate import matmul_spec
+from ..codegen import cached_compile, grouped_ref, tune_schedule
+from ..core.enumerate import grouped_matmul_spec, matmul_spec
 from ..search import active_phase, default_plan_db
 
 
@@ -93,3 +98,50 @@ def dense(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
                              interpret=interpret)
         return kern(x, w).to(out_dtype)
     return _matmul_f32(x, w, out_dtype)
+
+
+def _grouped_kernel_ok(x: torch.Tensor, interpret: bool) -> bool:
+    return (x.is_cuda or interpret) and x.dim() == 2
+
+
+def _grouped_raw(x, w, group_sizes, out_dtype, interpret):
+    if x.shape[0] and _grouped_kernel_ok(x, interpret):
+        kern = _tuned_kernel(
+            grouped_matmul_spec(group_sizes, x.shape[1], w.shape[2]),
+            x.dtype, interpret=interpret,
+        )
+        # as in the reference, the kernel stores in x.dtype and only then
+        # casts: in bf16 the f32 accumulator is rounded to bf16 first
+        return kern(x, w).to(out_dtype)
+    # the static per-group loop, the semantic definition of the op
+    return grouped_ref(x, w, group_sizes, out_dtype=out_dtype)
+
+
+def grouped_dense(x: torch.Tensor, w: torch.Tensor, group_sizes, *,
+                  out_dtype=None, interpret: bool = False,
+                  differentiable: bool = True) -> torch.Tensor:
+    """Ragged grouped GEMM: row block g of ``x`` hits expert matrix w[g].
+
+    x: (N, K) with N = sum(group_sizes), w: (G, K, F) -> (N, F).  One
+    kernel launch walks the static group offsets (``codegen.fused_gen``)
+    instead of G separate products -- the MoE expert-FFN pattern
+    (``models.moe``).  Empty and size-1 groups are legal; empty groups
+    contribute no rows and launch no work.
+    """
+    out_dtype = out_dtype or x.dtype
+    group_sizes = tuple(int(s) for s in group_sizes)
+    if x.dim() != 2 or w.dim() != 3:
+        raise ValueError(
+            f"grouped_dense expects x (N, K) and w (G, K, F); got "
+            f"{tuple(x.shape)}, {tuple(w.shape)}"
+        )
+    if len(group_sizes) != w.shape[0]:
+        raise ValueError(
+            f"{len(group_sizes)} group sizes for {w.shape[0]} expert slabs"
+        )
+    if sum(group_sizes) != x.shape[0]:
+        raise ValueError(
+            f"group sizes sum to {sum(group_sizes)} but x has "
+            f"{x.shape[0]} rows"
+        )
+    return _grouped_raw(x, w, group_sizes, out_dtype, interpret)

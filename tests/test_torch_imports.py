@@ -47,6 +47,11 @@ def _imports(path: pathlib.Path):
 
 def test_port_sources_exist():
     assert (PORT / "codegen" / "csrc" / "contract.cu").is_file()
+    assert (PORT / "codegen" / "csrc" / "grouped.cu").is_file()
+    for module in ("codegen/fused_gen.py", "models/moe.py",
+                   "configs/kimi_k2_1t_a32b.py",
+                   "configs/llama4_maverick_400b_a17b.py"):
+        assert PORT / module in SOURCES, module
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 20
 
@@ -64,7 +69,10 @@ def test_serve_imports_with_jax_unimportable():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import repro_torch.launch.serve, repro_torch.ops\n"
-        "import repro_torch.codegen.build\n"
+        "import repro_torch.codegen.build, repro_torch.codegen.fused_gen\n"
+        "import repro_torch.models.moe\n"
+        "from repro_torch.configs import get_config\n"
+        "get_config('kimi-k2-1t-a32b'), get_config('llama4-maverick-400b-a17b')\n"
         "assert 'repro' not in sys.modules, 'reference package imported'\n"
         "print('ok')\n"
     )
