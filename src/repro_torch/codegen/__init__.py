@@ -5,8 +5,9 @@ kernel.  The port keeps the pure half unchanged (``plan.build_plan``,
 ``schedules.default_schedule``, the tuner and its persistent cache, with
 the reference's key format) and lowers every two-operand contraction onto
 one hand-written CUDA kernel, ``csrc/contract.cu`` (``cuda_gen``); the
-grouped (MoE) fused family lowers onto ``csrc/grouped.cu`` (``fused_gen``).
-Both are built by ``nvcc`` at first use (``build``).
+grouped (MoE) fused family lowers onto ``csrc/grouped.cu`` (forward and
+dX) and ``csrc/grouped_dw.cu`` (dW) (``fused_gen``).  All are built by
+``nvcc`` at first use (``build``).
 
 Entry point::
 
@@ -31,7 +32,14 @@ from .cuda_gen import (
     compile_kernel,
     contract_ref,
 )
-from .fused_gen import GROUPED, FusedKernel, compile_fused, grouped_ref
+from .fused_gen import (
+    GROUPED,
+    GROUPED_DW,
+    FusedKernel,
+    compile_fused,
+    grouped_dw_ref,
+    grouped_ref,
+)
 from .plan import AxisPlan, KernelPlan, build_plan
 from .schedules import (
     batched_matmul_schedule,
@@ -51,6 +59,7 @@ __all__ = [
     "CompiledKernel",
     "FusedKernel",
     "GROUPED",
+    "GROUPED_DW",
     "KernelPlan",
     "batched_matmul_schedule",
     "build_plan",
@@ -63,6 +72,7 @@ __all__ = [
     "contract_ref",
     "default_cache",
     "default_schedule",
+    "grouped_dw_ref",
     "grouped_ref",
     "dtype_name",
     "hardware_fingerprint",

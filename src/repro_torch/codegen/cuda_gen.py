@@ -19,7 +19,9 @@ the reference's ``_contract`` sums it), the operands are passed as permuted
 views with their strides (a copy only where a group of indices cannot be
 flattened into one stride), and the (batch, m, n) result is permuted back
 to ``spec.output`` order.  Matmul, transposed, batched and tensor
-contractions all run on the same kernel.
+contractions all run on the same kernel.  A bf16 operand whose innermost
+folded axis is not unit-stride (the backward's transposed operands) is
+copied contiguous first, so the kernel takes its 16-byte load body.
 
 The plan still decides shapes (operand checks, the memo key), but not the
 kernel's grid: the reference tuner scores a TPU and often picks a single
@@ -181,6 +183,15 @@ def _launch_cuda(spec: ContractionSpec, a: torch.Tensor, b: torch.Tensor,
     b3 = b.permute([ib.index(i) for i in batch + k + n]).reshape(
         size(batch), size(k), size(n)
     )
+    if a3.dtype == torch.bfloat16:
+        # the bf16 body loads 16 bytes at a time only where A is k-major
+        # and B n-major; a transposed operand (the backward's W of
+        # matmul.dA, x of matmul.dB) is copied so once instead of loaded
+        # element by element
+        if a3.stride(2) != 1:
+            a3 = a3.contiguous()
+        if b3.stride(2) != 1:
+            b3 = b3.contiguous()
     c = CONTRACT(a3, b3, out_dtype).reshape([ext[i] for i in batch + m + n])
     produced = batch + m + n
     perm = [produced.index(i) for i in spec.output]

@@ -1,30 +1,38 @@
-"""Fused-family lowering: the ragged grouped (MoE) matmul, kernel B3.
+"""Fused-family lowering: the ragged grouped (MoE) matmul, kernels B3 and B4.
 
 The reference's ``codegen/fused_gen.py`` lowers the two fused spec
 families (``core.enumerate.AttentionSpec`` / ``GroupedSpec``) to Pallas
-kernels.  The port lowers the grouped family's row mode, the forward
+kernels.  The port lowers the grouped family's three modes onto two
+hand-written CUDA kernels.  The row mode, the forward
 
     out[n, f] = x[n, :] @ w[group(n), :, f]
 
 and its dX orientation (``grouped_matmul.dX``: the shared axis is w's LAST
-trailing axis, ``out[n, k] = dout[n, :] @ w[group(n), k, :]``), onto ONE
-hand-written CUDA kernel, ``csrc/grouped.cu``: one CTA per (non-empty
-group, 128-column block of the output), the group's row range read from a
-device table of the non-empty groups, K streamed through shared memory
-and the accumulator kept in f32.  The dX orientation is the same kernel
-with w's two trailing strides swapped.
+trailing axis, ``out[n, k] = dout[n, :] @ w[group(n), k, :]``), run
+``csrc/grouped.cu`` (B3): one CTA per (non-empty group, 128-column block of
+the output), the group's row range read from a device table of the
+non-empty groups, K streamed through shared memory and the accumulator
+kept in f32.  The dX orientation is the same kernel with w's two trailing
+strides swapped.  The dW mode (``grouped_matmul.dW``, a spec whose output
+is ``(g, ., .)``)
+
+    out[g, k1, k2] = sum_{n in group g} lhs[n, k1] * rhs[n, k2]
+
+runs ``csrc/grouped_dw.cu`` (B4): one CTA per (group, K1 block, K2 block)
+over a table of every group, empty ones included, whose CTAs store exact
+zeros.  As in the reference, either operand may come first in the spec.
 
 Devices decide, as for ``cuda_gen``: CUDA tensors launch the kernel (or
-raise), CPU tensors run ``grouped_ref``, the plain per-group loop that
-upcasts to f32 and stores in the kernel's dtype.  Group offsets are static:
-they live on the spec (``group_sizes``), so the table is built once per
-compiled kernel and device.  The plan fixes the operand shapes and the memo
-key; the kernel takes its own grid, not the plan's blocks.
+raise), CPU tensors run the plain version (``grouped_ref``, the per-group
+loop that upcasts to f32 and stores in the kernel's dtype, or
+``grouped_dw_ref``).  Group offsets are static: they live on the spec
+(``group_sizes``), so the table is built once per compiled kernel and
+device.  The plan fixes the operand shapes and the memo key; the kernels
+take their own grids, not the plan's blocks.
 
-Still to port: the flash-attention kind (B2, ``_attention_fn``) and the
-grouped dW mode (B4, ``_grouped_dw_fn``) raise ``NotImplementedError``.
-``compile_fused`` keeps the reference's refusals of an epilogue and a mesh,
-with its messages.
+Still to port: the flash-attention kind (B2, ``_attention_fn``) raises
+``NotImplementedError``.  ``compile_fused`` keeps the reference's refusals
+of an epilogue and a mesh, with its messages.
 """
 
 from __future__ import annotations
@@ -72,6 +80,23 @@ def grouped_ref(x: torch.Tensor, w: torch.Tensor,
             wg = w[g].float()
             out[o:o + s] = x[o:o + s].float() @ (wg.T if contract_last
                                                  else wg)
+    return out.to(out_dtype)
+
+
+def grouped_dw_ref(lhs: torch.Tensor, rhs: torch.Tensor,
+                   group_sizes: Tuple[int, ...], *,
+                   out_dtype) -> torch.Tensor:
+    """The plain PyTorch version of the dW mode: a per-group loop.
+
+    ``out[g] = lhs[rows of g].T @ rhs[rows of g]`` over f32 upcasts, cast
+    once to ``out_dtype``; an empty group's slab is exact zeros.
+    """
+    out = torch.zeros((len(group_sizes), lhs.shape[1], rhs.shape[1]),
+                      dtype=torch.float32, device=lhs.device)
+    for g, (o, s) in enumerate(zip(_group_offsets(group_sizes),
+                                   group_sizes)):
+        if s:
+            out[g] = lhs[o:o + s].float().T @ rhs[o:o + s].float()
     return out.to(out_dtype)
 
 
@@ -168,6 +193,91 @@ class GroupedLauncher:
 GROUPED = GroupedLauncher()
 
 
+class GroupedDwLauncher:
+    """The ctypes wrapper of ``grouped_dw_launch`` (kernel B4); counts its
+    launches, one per call, and nothing else."""
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+
+    def _fn(self):
+        if self._lib is None:
+            from .build import load
+
+            lib = load("grouped_dw")
+            lib.grouped_dw_launch.argtypes = (
+                [ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * 4
+                + [ctypes.c_int] * 3
+                + [ctypes.c_longlong] * 7
+                + [ctypes.c_void_p]
+            )
+            lib.grouped_dw_launch.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, lhs: torch.Tensor, rhs: torch.Tensor,
+                 table: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        """lhs (N, K1) and rhs (N, K2) -> new (G, K1, K2) tensor, G the
+        rows of ``table``: the int32 (G, 3) table of every group (id,
+        first row, rows) on lhs's device."""
+        if lhs.device.type != "cuda" or rhs.device != lhs.device or (
+            table.device != lhs.device
+        ):
+            raise ValueError(
+                f"grouped dW kernel takes CUDA tensors on one device, got "
+                f"{lhs.device}, {rhs.device} and table on {table.device}"
+            )
+        if lhs.dtype != rhs.dtype or lhs.dtype not in _KERNEL_DTYPES:
+            raise TypeError(
+                f"grouped dW kernel takes two float32 or two bfloat16 "
+                f"operands, got {lhs.dtype} and {rhs.dtype}"
+            )
+        if out_dtype not in _KERNEL_DTYPES:
+            raise TypeError(f"grouped dW kernel writes float32 or bfloat16, "
+                            f"not {out_dtype}")
+        if lhs.dim() != 2 or rhs.dim() != 2 or lhs.shape[0] != rhs.shape[0]:
+            raise ValueError(f"grouped dW kernel takes lhs (N, K1) and rhs "
+                             f"(N, K2), got {tuple(lhs.shape)} and "
+                             f"{tuple(rhs.shape)}")
+        if table.dtype != torch.int32 or table.dim() != 2 or (
+            table.shape[1] != 3 or not table.is_contiguous()
+        ):
+            raise ValueError("grouped dW kernel takes a contiguous int32 "
+                             "(G, 3) group table")
+        if min(lhs.stride()) < 0 or min(rhs.stride()) < 0:
+            raise ValueError("grouped dW kernel takes non-negative strides")
+        n_groups = table.shape[0]
+        k1, k2 = lhs.shape[1], rhs.shape[1]
+        if n_groups > _MAX_GRID_Y or -(-k1 // 64) > _MAX_GRID_Y:
+            raise ValueError(f"grouped dW kernel grid too large: {n_groups} "
+                             f"groups, K1 {k1}")
+        if max(lhs.shape[0], k1, k2, *lhs.stride(), *rhs.stride()) >= 2**31:
+            raise ValueError("grouped dW kernel takes extents and strides "
+                             "below 2**31")
+        out = torch.empty((n_groups, k1, k2), dtype=out_dtype,
+                          device=lhs.device)
+        if out.numel() == 0:
+            return out
+        lib = self._fn()
+        rc = lib.grouped_dw_launch(
+            _KERNEL_DTYPES[lhs.dtype], _KERNEL_DTYPES[out_dtype],
+            lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), table.data_ptr(),
+            n_groups, k1, k2, *lhs.stride(), *rhs.stride(), *out.stride(),
+            torch.cuda.current_stream(lhs.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"grouped dW kernel launch failed: "
+                               f"cudaGetLastError() = {rc}")
+        self.launches += 1
+        return out
+
+
+#: the process's one B4 launcher; ``GROUPED_DW.launches`` is its count
+GROUPED_DW = GroupedDwLauncher()
+
+
 def group_table(group_sizes: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
     """(group id, first row, rows) of every non-empty group, in order."""
     return [(g, o, s) for g, (o, s) in
@@ -179,8 +289,9 @@ class FusedKernel:
     """A grouped-matmul kernel bound to one (spec, schedule) pair.
 
     Call with the operand tensors in ``spec.operands`` order, shaped as the
-    plan's local extents.  CUDA tensors launch ``csrc/grouped.cu``; CPU
-    tensors run ``grouped_ref``.
+    plan's local extents.  CUDA tensors launch ``csrc/grouped.cu`` (row
+    mode) or ``csrc/grouped_dw.cu`` (dW mode); CPU tensors run
+    ``grouped_ref`` or ``grouped_dw_ref``.
     """
 
     spec: ContractionSpec
@@ -198,16 +309,35 @@ class FusedKernel:
         return tuple(self.spec.operands)
 
     @property
+    def dw(self) -> bool:
+        """True for the dW mode: the output carries the group axis."""
+        return "g" in self.spec.output
+
+    @property
     def contract_last(self) -> bool:
         """True for the dX orientation: the shared axis is w's last."""
         xname, wname = self.names
         c_ax = self.spec.operands[xname][1]
         return self.spec.operands[wname].index(c_ax) == 2
 
+    def _dw_operands(self, arrays) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(lhs (n, o1), rhs (n, o2)) for the output (g, o1, o2), whichever
+        order the spec lists them in, as the reference's ``order``."""
+        _, o1, o2 = self.spec.output
+        by_name = dict(zip(self.names, arrays))
+        lhs = next(n for n in self.names if o1 in self.spec.operands[n])
+        rhs = next(n for n in self.names if o2 in self.spec.operands[n])
+        return by_name[lhs], by_name[rhs]
+
     def _table(self, device: torch.device) -> torch.Tensor:
         table = self._tables.get(device)
         if table is None:
-            rows = group_table(tuple(self.spec.root().group_sizes))
+            sizes = tuple(self.spec.root().group_sizes)
+            if self.dw:  # every group: an empty one's CTAs store zeros
+                rows = [(g, o, s) for g, (o, s) in
+                        enumerate(zip(_group_offsets(sizes), sizes))]
+            else:
+                rows = group_table(sizes)
             table = torch.tensor(rows, dtype=torch.int32,
                                  device=device).reshape(-1, 3)
             self._tables[device] = table
@@ -236,6 +366,12 @@ class FusedKernel:
         out_dtype = self.out_dtype or x.dtype
         sizes = tuple(self.spec.root().group_sizes)
         devices = {arr.device.type for arr in arrays}
+        if self.dw and devices == {"cpu"}:
+            return grouped_dw_ref(*self._dw_operands(arrays), sizes,
+                                  out_dtype=out_dtype)
+        if self.dw and devices == {"cuda"}:
+            return GROUPED_DW(*self._dw_operands(arrays),
+                              self._table(x.device), out_dtype)
         if devices == {"cpu"}:
             return grouped_ref(x, w, sizes, out_dtype=out_dtype,
                                contract_last=self.contract_last)
@@ -269,11 +405,6 @@ def compile_fused(
         raise NotImplementedError(
             "fused attention (kernel B2, fused_gen._attention_fn) is not "
             "ported yet: ROADMAP.md queue A item 5"
-        )
-    if "g" in root.output:
-        raise NotImplementedError(
-            "grouped dW (kernel B4, fused_gen._grouped_dw_fn) is not ported "
-            "yet: it comes with MoE training, ROADMAP.md queue A item 5"
         )
     from ..obs import span
 

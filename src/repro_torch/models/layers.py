@@ -14,7 +14,8 @@ float32 as the reference does.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+import os
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +25,29 @@ from ..configs.base import ModelConfig
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+
+def remat(fn: Callable) -> Callable:
+    """Activation-checkpoint a layer step under the active remat policy.
+
+    ``$REPRO_REMAT_POLICY`` as in the reference: ``nothing`` (the default)
+    saves nothing inside the step and recomputes it in the backward, which
+    is ``torch.utils.checkpoint(use_reentrant=False)``.  The reference's
+    ``dots`` and ``dots_no_batch`` (save the matmul outputs) have no port
+    yet and raise.
+    """
+    pol = os.environ.get("REPRO_REMAT_POLICY", "nothing")
+    if pol != "nothing":
+        raise NotImplementedError(
+            f"REPRO_REMAT_POLICY={pol!r}: only 'nothing' (recompute the "
+            f"whole layer) is ported"
+        )
+    from torch.utils.checkpoint import checkpoint
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+    return wrapped
 
 
 def _init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
@@ -384,3 +408,16 @@ def logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.reshape(B * S, D).to(F32), w.to(F32)).reshape(
         B, S, -1
     )
+
+
+def cross_entropy(logits_: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL, numerically stable, f32: the reference's value.
+
+    The reference extracts the gold logit with a one-hot multiply-reduce;
+    here it is a ``gather`` (the one-hot would be a (tokens, vocab) f32
+    tensor, 1.24 GB at 2048 x 151936).
+    """
+    logits_ = logits_.to(F32)
+    lse = torch.logsumexp(logits_, dim=-1)
+    gold = torch.gather(logits_, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

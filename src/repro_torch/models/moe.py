@@ -164,3 +164,14 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if "shared" in params:
         out = out + mlp_apply(params["shared"], cfg, x).reshape(N, D)
     return out.reshape(B, S, D)
+
+
+def load_balance_loss(cfg: ModelConfig, router_logits: torch.Tensor,
+                      expert_idx: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary loss: mean_prob * mean_assignment per expert."""
+    E = cfg.moe.n_experts
+    probs = torch.softmax(router_logits.to(F32), dim=-1)
+    me = probs.mean(dim=0)
+    one_hot = F.one_hot(expert_idx[:, 0].long(), E).to(F32)
+    fe = one_hot.mean(dim=0)
+    return E * torch.sum(me * fe)

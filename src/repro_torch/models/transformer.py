@@ -1,5 +1,5 @@
-"""Decoder-only LM covering the dense and MoE families: init, KV caches,
-prefill and decode.
+"""Decoder-only LM covering the dense and MoE families: init, the training
+forward and loss, KV caches, prefill and decode.
 
 A port of the reference's ``models/transformer.py``.  Layers keep the
 reference's *segment* layout (``segment_plan``):
@@ -11,8 +11,11 @@ reference's *segment* layout (``segment_plan``):
 Each segment's parameters and caches are stacked along a leading
 ``layers`` axis (``params["seg0"]["dense"]["attn"]["wq"]`` is
 ``(layers, d_model, heads * hd)``), and ``_run_segments`` walks that axis
-in a Python loop where the reference uses ``lax.scan``.  The stacked caches
-are updated in place (``layers.attention_apply``).
+in a Python loop where the reference uses ``lax.scan``, taking the layers
+of each stacked leaf with one ``unbind``.  The stacked caches are updated
+in place (``layers.attention_apply``).  ``params_from_reference`` and
+``opt_state_from_reference`` carry the reference's weights and optimizer
+state across as numpy arrays.
 """
 
 from __future__ import annotations
@@ -145,6 +148,41 @@ def params_from_reference(cfg: ModelConfig, tree, device="cuda") -> Dict:
     return convert(tree)
 
 
+def opt_state_from_reference(state, device="cuda"):
+    """The reference's ``AdamWState`` (``step``, ``m``, ``v``; leaves as
+    numpy arrays, moments ``Quantized`` for ``moments_dtype='int8'``) as
+    the port's ``optim.AdamWState`` on ``device``.  f32 and bf16 moments
+    keep their dtype; a quantized moment keeps its int8 payload, f32
+    scales, shape and dtype, bit for bit."""
+    from ..optim import AdamWState, Quantized
+
+    device = resolve_device(device)
+
+    def moment(leaf):
+        if isinstance(leaf, dict):
+            return {k: moment(v) for k, v in leaf.items()}
+        if hasattr(leaf, "q"):
+            return Quantized(
+                q=torch.tensor(np.asarray(leaf.q), dtype=torch.int8,
+                               device=device),
+                scale=torch.tensor(np.asarray(leaf.scale, np.float32),
+                                   device=device),
+                shape=tuple(int(d) for d in leaf.shape),
+                dtype=getattr(torch, np.dtype(leaf.dtype).name),
+            )
+        arr = np.asarray(leaf)
+        return torch.tensor(arr.astype(np.float32),
+                            dtype=getattr(torch, arr.dtype.name),
+                            device=device)
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        m=moment(state.m),
+        v=moment(state.v),
+    )
+
+
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
@@ -174,20 +212,33 @@ def _run_segments(params, cfg: ModelConfig, x, *, positions, caches=None,
     """
     new_caches: Dict = {}
     for si, (pattern, count) in enumerate(segment_plan(cfg)):
-        seg = params[f"seg{si}"]
+        # one unbind per stacked leaf: its backward stacks the per-layer
+        # grads once, where t[layer] would allocate a zero tensor the size
+        # of the whole leaf for every layer
+        seg = {kind: _tree_map(lambda t: t.unbind(0), params[f"seg{si}"][kind])
+               for kind in pattern}
         seg_cache = None if caches is None else caches[f"seg{si}"]
         lens: Dict[str, list] = {kind: [] for kind in pattern}
-        for layer in range(count):
+
+        def step(h, lps, layer, pattern=pattern, seg_cache=seg_cache,
+                 lens=lens):
             for kind in pattern:
-                lp = _tree_map(lambda t: t[layer], seg[kind])
                 c = (None if seg_cache is None
                      else _tree_map(lambda t: t[layer], seg_cache[kind]))
-                x, nc = _block(
-                    lp, cfg, kind, x, positions=positions, cache=c,
+                h, nc = _block(
+                    lps[kind], cfg, kind, h, positions=positions, cache=c,
                     q_block=q_block, k_block=k_block, lengths=lengths,
                 )
                 if nc is not None:
                     lens[kind].append(nc["len"])
+            return h
+
+        if cfg.remat and caches is None:
+            step = L.remat(step)
+        for layer in range(count):
+            lps = {kind: _tree_map(lambda t: t[layer], seg[kind])
+                   for kind in pattern}
+            x = step(x, lps, layer)
         if seg_cache is not None:
             new_caches[f"seg{si}"] = {
                 kind: {"k": seg_cache[kind]["k"], "v": seg_cache[kind]["v"],
@@ -195,6 +246,24 @@ def _run_segments(params, cfg: ModelConfig, x, *, positions, caches=None,
                 for kind in pattern
             }
     return x, (new_caches if caches is not None else None)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, q_block=512, k_block=512):
+    """Training forward without cache: tokens (B, S) -> f32 logits
+    (B, S, vocab).  With ``cfg.remat`` each layer step is checkpointed
+    (``layers.remat``) and recomputed in the backward, as the reference
+    wraps its scan body."""
+    x = L.embed(params["embedding"], tokens).to(cfg.param_dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x, _ = _run_segments(params, cfg, x, positions=positions,
+                         q_block=q_block, k_block=k_block)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.logits(params["embedding"], cfg, x)
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, **kw):
+    lg = forward(params, cfg, tokens, **kw)
+    return L.cross_entropy(lg, labels)
 
 
 # --------------------------------------------------------------------------

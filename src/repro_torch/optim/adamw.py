@@ -1,0 +1,185 @@
+"""AdamW with optional block-quantized 8-bit moments and global-norm clip.
+
+A port of the reference's ``optim/adamw.py``.  State mirrors the params
+tree; with ``moments_dtype='int8'`` each moment leaf is a ``Quantized``.
+The arithmetic is the reference's, in its order: the global norm of the
+grads, the clip ``scale``, the bias corrections ``1 - b ** step`` in f32,
+then per element ``m``, ``v``, the update and the decayed parameter, one
+rounding to the parameter's dtype at the end.
+
+Where the reference's jitted step lets XLA fuse the f32 round trip, the
+port works leaf by leaf on flat chunks of ``CHUNK`` elements (a multiple
+of ``quant.BLOCK``, so a chunk covers whole quantization blocks and the
+int8 moments come out bit for bit as a whole-leaf ``quantize``): no f32
+copy of a whole leaf's g, m, v or p ever exists, whatever the leaf's
+size.  ``update`` writes the new parameters and moments IN PLACE into
+``params`` and ``state.m``/``state.v`` (the moments alone are 22 GB of f32
+for qwen3-8b cut to 8 layers; a second copy would not fit beside them) and
+returns those same trees; only ``state.step`` is a new tensor.  Leaves are
+visited in sorted-key order, as JAX flattens a dict.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
+
+import torch
+
+from .quant import BLOCK, Quantized, dequantize_blocks, quantize_blocks
+
+#: elements per f32 temporary in ``update`` and ``global_norm``: 64 MiB
+CHUNK = 1 << 24
+assert CHUNK % BLOCK == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moments_dtype: str = "float32"  # float32 | bfloat16 | int8
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # int32, 0-d
+    m: Any
+    v: Any
+
+
+def leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """(key path, leaf) of a nested dict, keys in sorted order; a
+    ``Quantized`` is one leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def at_path(tree, path):
+    """The leaf of a nested dict at a key path of ``leaves``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _zeros_moment(p: torch.Tensor, how: str):
+    if how == "int8":
+        n = p.numel()
+        nblocks = -(-n // BLOCK)
+        # quantize(zeros): every block's absmax is 0, so its scale is 1
+        return Quantized(
+            q=torch.zeros((nblocks, BLOCK), dtype=torch.int8, device=p.device),
+            scale=torch.ones((nblocks, 1), dtype=torch.float32,
+                             device=p.device),
+            shape=tuple(p.shape), dtype=torch.float32,
+        )
+    return torch.zeros(p.shape, dtype=getattr(torch, how), device=p.device)
+
+
+def init(params, cfg: AdamWConfig) -> AdamWState:
+    if cfg.moments_dtype not in ("float32", "bfloat16", "int8"):
+        raise ValueError(f"moments_dtype {cfg.moments_dtype!r}")
+    m = tree_map(lambda p: _zeros_moment(p, cfg.moments_dtype), params)
+    v = tree_map(lambda p: _zeros_moment(p, cfg.moments_dtype), params)
+    device = next(t for _, t in leaves(params)).device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      m=m, v=v)
+
+
+def _chunks(n: int):
+    for a in range(0, n, CHUNK):
+        yield a, min(n, a + CHUNK)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(g**2) in f32, each leaf summed
+    chunk by chunk."""
+    total = None
+    with torch.no_grad():
+        for _, g in leaves(tree):
+            flat = g.reshape(-1)
+            for a, b in _chunks(flat.numel()):
+                s = torch.sum(torch.square(flat[a:b].to(torch.float32)))
+                total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _decode(m, a: int, b: int) -> torch.Tensor:
+    if isinstance(m, Quantized):
+        return dequantize_blocks(m.q[a // BLOCK: -(-b // BLOCK)],
+                                 m.scale[a // BLOCK: -(-b // BLOCK)], b - a)
+    return m.reshape(-1)[a:b].to(torch.float32)
+
+
+def _encode_into(m, a: int, b: int, new: torch.Tensor) -> None:
+    if isinstance(m, Quantized):
+        q, scale = quantize_blocks(new)
+        m.q[a // BLOCK: -(-b // BLOCK)] = q
+        m.scale[a // BLOCK: -(-b // BLOCK)] = scale
+    else:
+        m.view(-1)[a:b] = new.to(m.dtype)
+
+
+def update(grads, state: AdamWState, params, cfg: AdamWConfig,
+           lr_scale=1.0):
+    """Returns (params, new_state, metrics); params and moments are updated
+    in place (see the module docstring)."""
+    with torch.no_grad():
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+        step = state.step + 1
+        stepf = step.to(torch.float32)
+        b1c = 1 - torch.pow(cfg.b1, stepf)
+        b2c = 1 - torch.pow(cfg.b2, stepf)
+        lr = cfg.lr * lr_scale
+        for path, p in leaves(params):
+            g = at_path(grads, path).reshape(-1)
+            m, v = at_path(state.m, path), at_path(state.v, path)
+            if not p.is_contiguous():
+                raise ValueError(f"parameter {'/'.join(path)} is not "
+                                 f"contiguous; the update writes it in place")
+            flat = p.view(-1)
+            for a, b in _chunks(flat.numel()):
+                gc = g[a:b].to(torch.float32) * scale
+                m_new = cfg.b1 * _decode(m, a, b) + (1 - cfg.b1) * gc
+                v_new = cfg.b2 * _decode(v, a, b) + (1 - cfg.b2) * gc * gc
+                upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
+                pf = flat[a:b].to(torch.float32)
+                flat[a:b] = (pf - lr * (upd + cfg.weight_decay * pf)).to(
+                    p.dtype
+                )
+                _encode_into(m, a, b, m_new)
+                _encode_into(v, a, b, v_new)
+    metrics: Dict[str, torch.Tensor] = {"grad_norm": gnorm,
+                                        "clip_scale": scale}
+    return params, AdamWState(step, state.m, state.v), metrics
+
+
+# ---------------------------------------------------------------------------
+# LR schedules
+# ---------------------------------------------------------------------------
+
+
+def warmup_cosine(warmup: int, total: int, min_ratio: float = 0.1) -> Callable:
+    def fn(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = torch.clamp(step / max(warmup, 1), max=1.0)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = min_ratio + (1 - min_ratio) * 0.5 * (
+            1 + torch.cos(math.pi * frac)
+        )
+        return warm * cos
+
+    return fn

@@ -1,6 +1,7 @@
 """The hand-written kernels on the card: the contraction kernel
-(``codegen/csrc/contract.cu``, B1) and the grouped MoE kernel
-(``codegen/csrc/grouped.cu``, B3).
+(``codegen/csrc/contract.cu``, B1), the grouped MoE kernel
+(``codegen/csrc/grouped.cu``, B3) and the grouped dW kernel
+(``codegen/csrc/grouped_dw.cu``, B4), and autograd through them.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided inside the ``cuda_device`` fixture).  The file imports torch and
@@ -9,8 +10,10 @@ the port only, so it runs on a machine without jax:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py -q
 
 Each case holds the kernel against its plain version (``contract_ref``,
-``grouped_ref``) on the same CUDA tensors at the reference's tolerances
-(``TOL``), on outputs scaled by their largest magnitude.
+``grouped_ref``, ``grouped_dw_ref``) on the same CUDA tensors at the
+reference's tolerances (``TOL``), on outputs scaled by their largest
+magnitude; the autograd cases hold gradients on the card to the same
+computation on the CPU.
 """
 
 from __future__ import annotations
@@ -258,3 +261,157 @@ def test_grouped_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         fused_gen.GROUPED(x, w, table.long(), 2, torch.float32)
     with pytest.raises(ValueError, match="K on axis 1"):
         fused_gen.GROUPED(x[:, :4], w, table, 2, torch.float32)
+
+
+# --------------------------------------------------------------------------
+# kernel B4 (grouped dW) and autograd through B1, B3 and B4
+# --------------------------------------------------------------------------
+
+
+def _dw_spec(sizes, k1, k2):
+    return PE.GroupedSpec(
+        name="grouped_matmul.dW",
+        operands={"dout": ("n", "f"), "X": ("n", "k")},
+        output=("g", "k", "f"),
+        extents={"n": max(sum(sizes), 1), "k": k1, "f": k2, "g": len(sizes)},
+        group_sizes=tuple(sizes),
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,k1,k2,dtype", [
+    ((28,) * 384, 512, 256, torch.bfloat16),     # kimi-k2's C at a 1024 step
+    ((320,) * 4, 896, 256, torch.bfloat16),      # the training path's C
+    (RAGGED, 200, 136, torch.bfloat16),          # ragged, unaligned
+    (RAGGED, 77, 45, torch.bfloat16),            # element-wise loads
+    (RAGGED, 77, 45, torch.float32),
+    ((0, 0, 5), 64, 128, torch.float32),         # leading empties
+    ((1, 1, 0, 1), 32, 8, torch.bfloat16),       # size 1 and empty
+])
+def test_grouped_dw_kernel_matches_plain_version(cuda_device, sizes, k1, k2,
+                                                 dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(k1 + k2)
+    x = torch.randn(sum(sizes), k1, generator=g, device=cuda_device).to(dtype)
+    d = torch.randn(sum(sizes), k2, generator=g, device=cuda_device).to(dtype)
+    spec = _dw_spec(sizes, k1, k2)
+    kern = codegen.compile(spec, codegen.default_schedule(spec))
+    assert kern.dw
+    before = fused_gen.GROUPED_DW.launches
+    got = kern(d, x)
+    assert fused_gen.GROUPED_DW.launches == before + 1
+    assert got.dtype == dtype and got.shape == (len(sizes), k1, k2)
+    want = fused_gen.grouped_dw_ref(x, d, sizes, out_dtype=dtype)
+    torch.cuda.synchronize()
+    _assert_close_scaled(got, want, dtype)
+    for gi, size in enumerate(sizes):
+        if not size:
+            assert bool((got[gi] == 0).all()), gi
+
+
+@pytest.mark.gpu
+def test_grouped_dw_kernel_takes_strided_operands_and_f32_output(cuda_device):
+    sizes = (5, 0, 40, 1)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    xt = torch.randn(128, 46, generator=g, device=cuda_device).bfloat16()
+    x = xt.T  # (46, 128) with unit stride along rows: element-wise loads
+    d = torch.randn(46, 64, generator=g, device=cuda_device).bfloat16()
+    table = torch.tensor(
+        [(i, o, s) for i, (o, s) in
+         enumerate(zip(fused_gen._group_offsets(sizes), sizes))],
+        dtype=torch.int32, device=cuda_device)
+    got = fused_gen.GROUPED_DW(x, d, table, torch.float32)
+    want = fused_gen.grouped_dw_ref(x, d, sizes, out_dtype=torch.float32)
+    _assert_close_scaled(got, want, torch.float32)
+    with pytest.raises(TypeError, match="two float32 or two bfloat16"):
+        fused_gen.GROUPED_DW(x, d.float(), table, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_gen.GROUPED_DW(x, d.cpu(), table, torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        fused_gen.GROUPED_DW(x, d, table.long(), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_backward_runs_b1_on_the_derived_specs(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(256, 384, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(384, 128, generator=g, device=cuda_device).to(dtype)
+    cot = torch.randn(256, 128, generator=g, device=cuda_device).to(dtype)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    before = cuda_gen.CONTRACT.launches
+    out = ops.dense(x, w)
+    assert out.grad_fn is not None
+    out.backward(cot)
+    assert cuda_gen.CONTRACT.launches == before + 3  # forward, dA, dB
+    xc, wc = (t.detach().cpu().requires_grad_(True) for t in (x, w))
+    ops.dense(xc, wc, interpret=True).backward(cot.cpu())
+    _assert_close_scaled(x.grad.cpu(), xc.grad, dtype)
+    _assert_close_scaled(w.grad.cpu(), wc.grad, dtype)
+    assert x.grad.dtype == w.grad.dtype == dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_backward_runs_b3_dx_and_b4(cuda_device, dtype):
+    sizes = (3, 0, 40, 1, 17)
+    x, w = _grouped_operands(cuda_device, sizes, 256, 128, dtype, False,
+                             seed=13)
+    cot = torch.randn(sum(sizes), 128, device=cuda_device).to(dtype)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    b3, b4 = fused_gen.GROUPED.launches, fused_gen.GROUPED_DW.launches
+    ops.grouped_dense(x, w, sizes).backward(cot)
+    assert fused_gen.GROUPED.launches == b3 + 2  # forward and dX
+    assert fused_gen.GROUPED_DW.launches == b4 + 1
+    xc, wc = (t.detach().cpu().requires_grad_(True) for t in (x, w))
+    ops.grouped_dense(xc, wc, sizes, interpret=True).backward(cot.cpu())
+    _assert_close_scaled(x.grad.cpu(), xc.grad, dtype)
+    _assert_close_scaled(w.grad.cpu(), wc.grad, dtype)
+    assert bool((w.grad[1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_every_parameter_gets_a_finite_gradient_on_the_card(
+        cuda_device, moe, monkeypatch):
+    """A train step's autograd on the card: 128-aligned layers, so every
+    projection runs B1 (and under REPRO_MOE_GROUPED=1 the experts B3 and
+    B4); every parameter's gradient is finite and non-zero and agrees with
+    the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_api
+    from repro_torch.optim.adamw import leaves, tree_map
+
+    monkeypatch.setenv("REPRO_MOE_GROUPED", "1")
+    base = get_config("kimi-k2-1t-a32b" if moe else "qwen3-8b")
+    cfg = dataclasses.replace(
+        base, n_layers=2, d_model=128, n_heads=2, n_kv_heads=2, head_dim=64,
+        d_ff=256, vocab=256, dtype="float32",
+        moe=(dataclasses.replace(base.moe, n_experts=4, top_k=2,
+                                 expert_ff=128, shared_expert_ff=128,
+                                 dense_ff=256, first_dense=1)
+             if moe else None),
+    )
+    api = get_api(cfg)
+    cpu_params = T.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    gpu_params = tree_map(lambda t: t.to(cuda_device), cpu_params)
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = (cuda_gen.CONTRACT.launches, fused_gen.GROUPED_DW.launches)
+    _, grads = value_and_grad(
+        lambda p, b: api.loss(p, cfg, b), gpu_params,
+        {k: v.to(cuda_device) for k, v in batch.items()})
+    assert cuda_gen.CONTRACT.launches - before[0] == 4 * 7 * cfg.n_layers
+    assert fused_gen.GROUPED_DW.launches - before[1] == (3 if moe else 0)
+    _, want = value_and_grad(lambda p, b: api.loss(p, cfg, b), cpu_params,
+                             batch)
+    for (path, gg), (_, gc) in zip(leaves(grads), leaves(want)):
+        assert bool(torch.isfinite(gg).all()), path
+        assert bool((gg != 0).any()), path
+        _assert_close_scaled(gg.cpu(), gc, torch.float32)
