@@ -11,9 +11,10 @@ raises and the script exits non-zero without the final result line:
 1. device — the card's name, the device count, and ``nvidia-smi``'s name
    and power limit;
 2. build — ``nvcc`` builds ``codegen/csrc/contract.cu`` (B1),
-   ``codegen/csrc/grouped.cu`` (B3) and ``codegen/csrc/grouped_dw.cu``
-   (B4) for sm_90a from the checkout, one ``nvcc`` per source, all
-   started together; prints ptxas's registers, shared memory, spills;
+   ``codegen/csrc/grouped.cu`` (B3), ``codegen/csrc/grouped_dw.cu`` (B4)
+   and ``codegen/csrc/baselines.cu`` (B5, B6, B7) for sm_90a from the
+   checkout, one ``nvcc`` per source, all started together; prints
+   ptxas's registers, shared memory, spills;
 3. kernel — the contraction kernel's wrapper against its plain PyTorch
    version (``contract_ref``) at the serving GEMM shapes, M in {128, 512}
    x (K, N) in {(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)}
@@ -44,6 +45,18 @@ raises and the script exits non-zero without the final result line:
    of C = 320), a ragged partition with empty and size-1 groups (whose
    slabs must be exact zeros), one float32 case; timed as above with
    ``torch.bmm`` of x^T and dout over the (E, C, K) layout;
+6b. b1-modes — B1's epilogue and weighted-family modes against
+   ``contract_ref`` at the fused path's shape (M = 2048, D = 4096, F =
+   12288): every epilogue variant (5 activations x norm on/off x
+   bf16/f32), then ``weighted_matmul`` and its derived ``.dA``, ``.dB``
+   and ``.dg`` in bf16 (``.dg`` twice: the same bits), timed as phase 3
+   with ``torch.matmul`` plus the same tail in eager PyTorch as the
+   library yardstick;
+6c. baselines — B5, B6 (gelu) and B7 against ``matmul_ref``,
+   ``fused_dense_act_ref``, ``weighted_matmul_ref`` at that shape in bf16
+   and at one ragged f32 shape, B7 also with g = 0 (exact zeros); library
+   ``torch.matmul``, ``torch.matmul`` + the eager epilogue,
+   ``torch.matmul(a * g, b)``;
 7. small model — a 2-layer, 128-aligned qwen3-8b variant in float32 served
    on the card (kernel path) and on the CPU (plain path) from the same
    seeded weights: prefill/decode logits agree and greedy tokens are equal;
@@ -56,7 +69,21 @@ raises and the script exits non-zero without the final result line:
    gets a finite non-zero gradient on the card; gradients, loss, grad norm
    and updated parameters agree at the reference's f32 TOL (2e-4, 2e-4);
    B1 launches 28 times per layer, B3 9 and B4 3 times per MoE layer;
-10. train — the slice's main path: ``launch.train``'s ``parse_args``,
+9b. fused small — the fused path's seven calls (below) at M = 192, D =
+    256, F = 320 in f32 on the card and on the CPU: outputs and gradients
+    agree at the f32 TOL (2e-4, 2e-4), each call with its launch counts;
+9c. fused path — the fused single-contraction path at full width
+    (qwen3-8b's MLP projection, M = 4 x 512, D = 4096, F = 12288, bf16)
+    through its public entries only: ``ops.dense_act(act="gelu")`` and
+    ``ops.weighted_dense`` forward and ``backward()`` (1 B1 launch forward
+    and 3 backward each), ``kernels.matmul.ops.matmul`` and
+    ``kernels.fused_dense_act.ops.fused_dense_act`` with ``use_generated``
+    true (1 B1 launch) and false (1 launch of B5, B6), and
+    ``kernels.fused_rnz.ops.weighted_matmul`` (1 B7 launch); outputs and
+    gradients against the plain path on the card at the bf16 TOL; then
+    the same calls under ``torch.profiler`` (``profile_fused.json``): no
+    library GEMM on the path, and each kernel's device time;
+10. train — the dense training path: ``launch.train``'s ``parse_args``,
     ``run_from_args`` and ``train()`` on qwen3-8b at full width (d_model
     4096, 32 heads, 8 KV heads, d_ff 12288, vocab 151936, bf16) cut to 8
     of 36 layers, batch 4 x 512, 5 steps, f32 moments, peak lr 3e-4,
@@ -98,7 +125,8 @@ raises and the script exits non-zero without the final result line:
 16. MoE profile — phase 14 for the kimi-k2 model
     (``$CHIP_SMOKE_OUT/profile_moe_{prefill,decode}.json``);
 17. the phases' seconds, the ``kernels`` JSON line (contract, grouped,
-    grouped_dw), then the card's line, then the result line
+    grouped_dw, matmul, fused_dense_act, fused_rnz), then the card's line,
+    then the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Every launch count is read from counters set to 0 just before the run it
@@ -135,6 +163,14 @@ SERVE_ARGS = ["--arch", "qwen3-8b", "--requests", "4", "--prompt-len", "512",
 LAYER_GEMMS = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2,
                (12288, 4096): 1}
 KERNELS = ("contract", "grouped", "grouped_dw")
+#: the CUDA sources the build phase compiles: B1, B3, B4 and B5-B7
+SOURCES = KERNELS + ("baselines",)
+#: the hand-written baselines of repro_torch.kernels, by launcher name
+BASELINES = ("matmul", "fused_dense_act", "fused_rnz")
+#: the fused single-contraction path: qwen3-8b's MLP projection at the
+#: train path's M = 4 x 512 tokens, D = 4096, F = 12288, bf16
+FUSED_M, FUSED_D, FUSED_F = 4 * 512, 4096, 12288
+ACTS = ("relu", "gelu", "tanh", "silu", "id")
 MOE_ARCH = "kimi-k2-1t-a32b"
 MOE_LAYERS = 2  # the one cut: depth (one dense layer, one MoE layer)
 MOE_SERVE_ARGS = ["--arch", MOE_ARCH] + SERVE_ARGS[2:]
@@ -213,9 +249,9 @@ def phase_build():
         build.build(name)
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        took = dict(zip(KERNELS, pool.map(one, KERNELS)))
-    for name in KERNELS:
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        took = dict(zip(SOURCES, pool.map(one, SOURCES)))
+    for name in SOURCES:
         build.load(name)
         print(f"[build] {name}.cu -> "
               f"{os.path.relpath(build.library_path(name), HERE)} in "
@@ -576,6 +612,493 @@ def phase_grouped_dw():
     return rows
 
 
+def _bound(ops, nbytes, dt_name):
+    """(bound ms, ops ms, bytes ms, what bounds it) on an H100 SXM."""
+    ops_ms = ops / PEAK_OPS[dt_name] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms), ops_ms, bytes_ms,
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _case_row(tag, what, got, want, dt_name, run, plain, library, ops,
+              nbytes, flush, **extra):
+    """Check ``got`` against ``want`` and time the kernel call ``run``, its
+    plain version and the library yardstick (L2 flushed before each
+    launch); one report row, printed."""
+    import torch
+
+    torch.cuda.synchronize()
+    max_abs, scaled_err = _check_close(got, want, dt_name, f"{tag} {what}")
+    ms = _timed(run, flush)
+    plain_ms = _timed(plain, flush)
+    library_ms = _timed(library, flush) if library is not None else None
+    bound_ms, ops_ms, bytes_ms, by = _bound(ops, nbytes, dt_name)
+    row = dict(case=what, dtype=dt_name, max_abs_err=max_abs,
+               scaled_err=scaled_err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, ops_ms=ops_ms,
+               bytes_ms=bytes_ms, bound_by=by, tflops=ops / ms / 1e9,
+               **extra)
+    lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+    print(f"[{tag}] {what} {dt_name}: scaled err {scaled_err:.3g}, "
+          f"{ms:.4f} ms (plain {plain_ms:.4f}, library {lib}, bound "
+          f"{bound_ms:.4f} by {by}), {row['tflops']:.1f} TFLOP/s",
+          flush=True)
+    return row
+
+
+def _matmul_then_tail(a, b, epi, vectors):
+    """The library yardstick of a product with an epilogue: one
+    ``torch.matmul``, then the tail in eager PyTorch ops
+    (``Epilogue.apply``)."""
+    import torch
+
+    return epi.apply(torch.matmul(a, b).float(), vectors).to(a.dtype)
+
+
+def phase_b1_modes():
+    """B1's new modes against ``contract_ref`` at the fused path's shape
+    (M = 2048, D = 4096, F = 12288): every epilogue variant (5 activations
+    x norm on/off x bf16/f32; norm off takes scale and bias, norm on bias
+    and (mean, var) as ``ops.dense_act``), then ``weighted_matmul`` and its
+    derived ``.dA``, ``.dB`` (vector mode) and ``.dg`` (row-reduce mode)
+    in bf16, each as the backward launches it.  Library yardsticks:
+    ``torch.matmul`` then the same element-wise tail in eager PyTorch."""
+    import torch
+
+    from repro_torch import codegen, ops
+    from repro_torch.codegen import contract_ref
+    from repro_torch.core.enumerate import matmul_spec, weighted_matmul_spec
+    from repro_torch.grad import derived_specs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    m, d, f = FUSED_M, FUSED_D, FUSED_F
+    spec = matmul_spec(m, d, f)
+    vec = {"scale": torch.randn(f, generator=gen, device=dev),
+           "bias": torch.randn(f, generator=gen, device=dev),
+           "mean": torch.randn(f, generator=gen, device=dev) * 0.1,
+           "var": torch.rand(f, generator=gen, device=dev) + 0.5}
+    rows = []
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        x = (torch.randn(m, d, generator=gen, device=dev) / 8).to(dt)
+        w = (torch.randn(d, f, generator=gen, device=dev) / 8).to(dt)
+        for norm in (False, True):
+            for act in ACTS:
+                epi = codegen.Epilogue(act=act, bias=True, scale=not norm,
+                                       norm=norm)
+                vs = {k: vec[k] for k in epi.vector_names}
+                kern = ops._tuned_kernel(spec, dt, epilogue=epi)
+                got = kern(x, w, **vs)
+                want = contract_ref(spec, x, w, out_dtype=dt, epilogue=epi,
+                                    vectors=vs)
+                lib = (lambda: _matmul_then_tail(x, w, epi,  # noqa: E731
+                                                 vs))
+                nbytes = (m * d + d * f + m * f) * x.element_size() + (
+                    4 * f * len(vs))
+                rows.append(_case_row(
+                    "b1-modes", f"epilogue {act} {'norm' if norm else 'scale'}"
+                    f" M={m} K={d} N={f}", got, want, dt_name,
+                    lambda: kern(x, w, **vs),
+                    lambda: contract_ref(spec, x, w, out_dtype=dt,
+                                         epilogue=epi, vectors=vs),
+                    lib, 2.0 * m * d * f, nbytes, flush, mode="epilogue",
+                    act=act, norm=norm))
+                del got, want
+        del x, w
+    dt, dt_name = torch.bfloat16, "bfloat16"
+    x = (torch.randn(m, d, generator=gen, device=dev) / 8).to(dt)
+    w = (torch.randn(d, f, generator=gen, device=dev) / 8).to(dt)
+    g = torch.randn(d, generator=gen, device=dev).to(dt)
+    dout = (torch.randn(m, f, generator=gen, device=dev) / 8).to(dt)
+    wspec = weighted_matmul_spec(m, d, f)
+    dsp = derived_specs(wspec)
+    cases = (
+        ("weighted_matmul", wspec, (x, w, g),
+         lambda: torch.matmul(x * g, w)),
+        ("weighted_matmul.dA", dsp["A"], (dout, w, g),
+         lambda: torch.matmul(dout, w.T) * g),
+        ("weighted_matmul.dB", dsp["B"], (dout, x, g),
+         lambda: torch.matmul(x.T, dout) * g[:, None]),
+        ("weighted_matmul.dg", dsp["g"], (dout, x, w),
+         lambda: (torch.matmul(dout, w.T) * x).sum(0)),
+    )
+    for what, sp, args, lib in cases:
+        kern = ops._tuned_kernel(sp, dt)
+        got = kern(*args)
+        want = contract_ref(sp, *args, out_dtype=dt)
+        out_elems = want.numel()
+        nbytes = (sum(a.numel() for a in args) + out_elems) * 2
+        rows.append(_case_row(
+            "b1-modes", f"{what} M={m} D={d} F={f}", got, want, dt_name,
+            lambda: kern(*args),
+            lambda: contract_ref(sp, *args, out_dtype=dt), lib,
+            2.0 * m * d * f, nbytes, flush, mode="weighted", spec=what))
+        if what.endswith(".dg"):
+            again = kern(*args)
+            if not torch.equal(again, got):
+                raise AssertionError("weighted_matmul.dg differs between two "
+                                     "runs on the same inputs")
+        del got, want
+    del x, w, g, dout, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_baselines():
+    """The hand-written baselines B5 (``matmul_cuda``), B6
+    (``fused_dense_act_cuda``, gelu) and B7 (``weighted_matmul_cuda``)
+    against their plain versions at the fused path's shape in bf16, and at
+    one ragged f32 shape (M = 1000, K = 999, N = 1001, blocks = the
+    extents); library yardsticks ``torch.matmul``, ``torch.matmul`` then
+    the epilogue in eager PyTorch, ``torch.matmul(a * g, b)``."""
+    import torch
+
+    from repro_torch.codegen import Epilogue
+    from repro_torch.kernels.fused_dense_act.fused_dense_act import (
+        fused_dense_act_cuda,
+    )
+    from repro_torch.kernels.fused_dense_act.ref import fused_dense_act_ref
+    from repro_torch.kernels.fused_rnz.fused_rnz import weighted_matmul_cuda
+    from repro_torch.kernels.fused_rnz.ref import weighted_matmul_ref
+    from repro_torch.kernels.matmul.matmul import matmul_cuda
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = []
+    for (m, k, n), dt_name in (((FUSED_M, FUSED_D, FUSED_F), "bfloat16"),
+                               ((1000, 999, 1001), "float32")):
+        dt = getattr(torch, dt_name)
+        a = (torch.randn(m, k, generator=gen, device=dev) / 8).to(dt)
+        b = (torch.randn(k, n, generator=gen, device=dev) / 8).to(dt)
+        g = torch.randn(k, generator=gen, device=dev).to(dt)
+        beta = torch.randn(n, generator=gen, device=dev)
+        mean = torch.randn(n, generator=gen, device=dev) * 0.1
+        var = torch.rand(n, generator=gen, device=dev) + 0.5
+        blk = dict(block_m=m, block_n=n, block_k=k)
+        fblk = dict(block_b=m, block_k=n, block_i=k)
+        io = (m * k + k * n + m * n) * a.element_size()
+        ops_ = 2.0 * m * n * k
+        shape = f"M={m} K={k} N={n}"
+        cases = (
+            ("matmul", lambda: matmul_cuda(a, b, **blk),
+             lambda: matmul_ref(a, b), lambda: torch.matmul(a, b), io),
+            ("fused_dense_act",
+             lambda: fused_dense_act_cuda(a, b, beta, mean, var, act="gelu",
+                                          **fblk),
+             lambda: fused_dense_act_ref(a, b, beta, mean, var, act="gelu"),
+             lambda: _matmul_then_tail(
+                 a, b, Epilogue(act="gelu", bias=True, norm=True),
+                 {"bias": beta, "mean": mean, "var": var}),
+             io + 3 * 4 * n),
+            ("fused_rnz", lambda: weighted_matmul_cuda(a, b, g, **blk),
+             lambda: weighted_matmul_ref(a, b, g),
+             lambda: torch.matmul(a * g, b), io + k * a.element_size()),
+        )
+        for name, run, plain, lib, nbytes in cases:
+            got, want = run(), plain()
+            rows.append(_case_row("baselines", f"{name} {shape}", got, want,
+                                  dt_name, run, plain, lib, ops_, nbytes,
+                                  flush, kernel=name, M=m, K=k, N=n))
+            del got, want
+        if dt_name == "bfloat16":
+            zero = weighted_matmul_cuda(a, b, torch.zeros_like(g), **blk)
+            if not bool((zero == 0).all()):
+                raise AssertionError("fused_rnz with g = 0 is not exact zeros")
+        del a, b
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _baseline_counts():
+    from repro_torch.kernels import _baselines
+
+    return {"matmul": _baselines.MATMUL.launches,
+            "fused_dense_act": _baselines.FUSED_DENSE_ACT.launches,
+            "fused_rnz": _baselines.FUSED_RNZ.launches}
+
+
+def _zero_baseline_counts():
+    from repro_torch.kernels import _baselines
+
+    for k in (_baselines.MATMUL, _baselines.FUSED_DENSE_ACT,
+              _baselines.FUSED_RNZ):
+        k.launches = 0
+
+
+def _fused_inputs(m, d, f, dt, device, seed):
+    """The fused path's operands: x, w, g, the (F,) epilogue vectors and a
+    cotangent, from a seed (on the CPU, then moved)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    t = {"x": torch.randn(m, d, generator=gen) / 8,
+         "w": torch.randn(d, f, generator=gen) / 8,
+         "g": torch.randn(d, generator=gen),
+         "beta": torch.randn(f, generator=gen),
+         "mean": torch.randn(f, generator=gen) * 0.1,
+         "var": torch.rand(f, generator=gen) + 0.5,
+         "cot": torch.randn(m, f, generator=gen)}
+    return {k: v.to(device=device, dtype=dt if k in ("x", "w", "g", "cot")
+                    else torch.float32) for k, v in t.items()}
+
+
+def _fused_calls(t, interpret=False):
+    """The slice's public entries, in order: (name, forward, backward
+    operands or None).  ``interpret`` routes CPU tensors down the kernel
+    paths (their plain versions), as the reference's interpret mode."""
+    from repro_torch import ops
+    from repro_torch.kernels.fused_dense_act.ops import fused_dense_act
+    from repro_torch.kernels.fused_rnz.ops import weighted_matmul
+    from repro_torch.kernels.matmul.ops import matmul
+
+    x, w, g = t["x"], t["w"], t["g"]
+    vec = (t["beta"], t["mean"], t["var"])
+    it = dict(interpret=interpret)
+    return [
+        ("ops.dense_act", lambda *a: ops.dense_act(*a, act="gelu", **it),
+         (x, w) + vec),
+        ("ops.weighted_dense", lambda *a: ops.weighted_dense(*a, **it),
+         (x, w, g)),
+        ("kernels.matmul generated", lambda: matmul(x, w, **it), None),
+        ("kernels.matmul hand-written",
+         lambda: matmul(x, w, use_generated=False, **it), None),
+        ("kernels.fused_dense_act generated",
+         lambda: fused_dense_act(x, w, *vec, act="gelu", **it), None),
+        ("kernels.fused_dense_act hand-written",
+         lambda: fused_dense_act(x, w, *vec, act="gelu",
+                                 use_generated=False, **it), None),
+        ("kernels.fused_rnz", lambda: weighted_matmul(x, w, g, **it), None),
+    ]
+
+
+def _run_fused_calls(t, interpret=False, launches=None):
+    """Every call of ``_fused_calls``; the differentiable ones also run
+    ``backward()`` with the cotangent.  Returns {name: output} and
+    {name: [grads]}; with ``launches`` (a dict) records each call's B1 and
+    B5-B7 launch deltas (forward and backward apart)."""
+    import torch
+
+    from repro_torch.codegen import CONTRACT
+
+    outs, grads = {}, {}
+    for name, fn, args in _fused_calls(t, interpret):
+        c0, b0 = CONTRACT.launches, _baseline_counts()
+        if args is None:
+            outs[name] = fn()
+        else:
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            out = fn(*leaves)
+            c1 = CONTRACT.launches
+            out.backward(t["cot"])
+            outs[name] = out.detach()
+            grads[name] = [leaf.grad for leaf in leaves]
+        if launches is not None:
+            b1 = _baseline_counts()
+            row = {"contract": CONTRACT.launches - c0,
+                   **{k: b1[k] - b0[k] for k in b1}}
+            if args is not None:
+                row["contract_forward"] = c1 - c0
+                row["contract_backward"] = CONTRACT.launches - c1
+            launches[name] = row
+    if t["x"].is_cuda:
+        torch.cuda.synchronize()
+    return outs, grads
+
+
+#: the launches each call of the fused path must make
+FUSED_WANT = {
+    "ops.dense_act": {"contract": 4, "contract_forward": 1,
+                      "contract_backward": 3},
+    "ops.weighted_dense": {"contract": 4, "contract_forward": 1,
+                           "contract_backward": 3},
+    "kernels.matmul generated": {"contract": 1},
+    "kernels.matmul hand-written": {"matmul": 1},
+    "kernels.fused_dense_act generated": {"contract": 1},
+    "kernels.fused_dense_act hand-written": {"fused_dense_act": 1},
+    "kernels.fused_rnz": {"fused_rnz": 1},
+}
+
+
+def _plain_fused(t):
+    """The plain path of every call on the same tensors: f32 upcasts,
+    ``torch.matmul`` and eager element-wise ops, with autograd for the
+    gradients."""
+    import torch
+
+    from repro_torch.kernels.fused_dense_act.ref import fused_dense_act_ref
+    from repro_torch.kernels.fused_rnz.ref import weighted_matmul_ref
+
+    x, w, g = t["x"], t["w"], t["g"]
+    vec = (t["beta"], t["mean"], t["var"])
+    outs, grads = {}, {}
+    leaves = [a.detach().float().requires_grad_(True) for a in (x, w) + vec]
+    out = fused_dense_act_ref(*leaves, act="gelu")
+    out.backward(t["cot"].float())
+    outs["ops.dense_act"], grads["ops.dense_act"] = out.detach(), [
+        leaf.grad for leaf in leaves]
+    leaves = [a.detach().float().requires_grad_(True) for a in (x, w, g)]
+    out = torch.matmul(leaves[0] * leaves[2], leaves[1])
+    out.backward(t["cot"].float())
+    outs["ops.weighted_dense"], grads["ops.weighted_dense"] = out.detach(), [
+        leaf.grad for leaf in leaves]
+    with torch.no_grad():
+        mm = torch.matmul(x.float(), w.float())
+        fda = fused_dense_act_ref(x, w, *vec, act="gelu")
+        for kind in ("generated", "hand-written"):
+            outs[f"kernels.matmul {kind}"] = mm
+            outs[f"kernels.fused_dense_act {kind}"] = fda
+        outs["kernels.fused_rnz"] = weighted_matmul_ref(x, w, g)
+    return outs, grads
+
+
+def _compare_fused(got, want, dt_name, tag, tol=None, f32_grad_tol=None):
+    """Worst scaled error over every output and gradient; with
+    ``f32_grad_tol`` (for a bf16 comparison), every f32 gradient is held
+    to it and its worst error is returned apart, as
+    ``(worst, f32_worst)``."""
+    (gout, ggrad), (wout, wgrad) = got, want
+    worst = f32_worst = 0.0
+    for name in wout:
+        _, err = _check_close(gout[name].cpu(), wout[name].cpu(), dt_name,
+                              f"{tag} {name} output", tol=tol)
+        worst = max(worst, err)
+    for name in wgrad:
+        for i, (a, b) in enumerate(zip(ggrad[name], wgrad[name])):
+            if f32_grad_tol and str(b.dtype) == "torch.float32":
+                _, err = _check_close(a.cpu(), b.cpu(), "float32",
+                                      f"{tag} {name} f32 grad {i}",
+                                      tol=f32_grad_tol)
+                f32_worst = max(f32_worst, err)
+                continue
+            _, err = _check_close(a.cpu(), b.cpu(), dt_name,
+                                  f"{tag} {name} grad {i}", tol=tol)
+            worst = max(worst, err)
+    return (worst, f32_worst) if f32_grad_tol else worst
+
+
+#: scaled limit for an f32 gradient (dense_act's beta, mean, var) of a
+#: bf16 call, card against CPU: both recompute the accumulator and round it
+#: to bf16, so one element that rounds to the neighbouring value moves the
+#: gradient by about one bf16 ulp of its summed term, far below bf16's TOL
+F32_GRAD_OF_BF16_TOL = (5e-3, 5e-3)
+
+
+def phase_fused_small():
+    """The fused path's calls at a small shape (M = 192, D = 256, F = 320)
+    on the card (kernels) and on the CPU (plain versions, which the CPU
+    tests hold to the JAX reference): in f32, outputs and gradients agree
+    at the reference's f32 TOL (2e-4, 2e-4 on gradients); in bf16, at the
+    bf16 TOL, and the f32 gradients of the bf16 calls at
+    ``F32_GRAD_OF_BF16_TOL``, whose worst reading is printed."""
+    import torch
+
+    result = {}
+    for dt in (torch.float32, torch.bfloat16):
+        cpu = _fused_inputs(192, 256, 320, dt, "cpu", 32)
+        card = {k: v.to("cuda") for k, v in cpu.items()}
+        launches = {}
+        got = _run_fused_calls(card, launches=launches)
+        want = _run_fused_calls(cpu, interpret=True)
+        name = str(dt).replace("torch.", "")
+        if dt == torch.float32:
+            worst = _compare_fused(got, want, name, "fused small",
+                                   tol=(2e-4, 2e-4))
+            extra = ""
+        else:
+            worst, f32_worst = _compare_fused(
+                got, want, name, "fused small bf16",
+                f32_grad_tol=F32_GRAD_OF_BF16_TOL)
+            result["bf16_f32_grad_worst_scaled_err"] = f32_worst
+            extra = (f"; f32 gradients of the bf16 calls within scaled "
+                     f"{f32_worst:.3g} (limit {F32_GRAD_OF_BF16_TOL[0]})")
+        for call, need in FUSED_WANT.items():
+            have = {k: v for k, v in launches[call].items() if v}
+            if have != need:
+                raise AssertionError(f"fused small {name}: {call} launched "
+                                     f"{have}, expected {need}")
+        result[f"{name}_worst_scaled_err"] = worst
+        print(f"[fused-small] 7 calls, M=192 D=256 F=320 {name}: card vs "
+              f"CPU outputs and gradients within scaled {worst:.3g}{extra}; "
+              f"launches as expected", flush=True)
+    return result
+
+
+def phase_fused_path():
+    """The slice's path at full width through the public entries only:
+    ``ops.dense_act(act="gelu")`` and ``ops.weighted_dense`` forward and
+    ``backward()``, ``kernels.matmul.ops.matmul`` and
+    ``kernels.fused_dense_act.ops.fused_dense_act`` with ``use_generated``
+    true and false, ``kernels.fused_rnz.ops.weighted_matmul``, at qwen3-8b's
+    MLP projection (M = 2048, D = 4096, F = 12288, bf16).  Launch counts
+    from counters zeroed just before; outputs and gradients against the
+    plain path on the card at the bf16 TOL; then the same calls once more
+    under ``torch.profiler``: no device kernel of the path may be a
+    library GEMM (cuBLAS, CUTLASS), and each kernel's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.codegen import CONTRACT
+
+    t = _fused_inputs(FUSED_M, FUSED_D, FUSED_F, torch.bfloat16, "cuda", 33)
+    CONTRACT.launches = 0
+    _zero_baseline_counts()
+    launches = {}
+    t0 = time.perf_counter()
+    got = _run_fused_calls(t, launches=launches)
+    wall = time.perf_counter() - t0
+    totals = {"contract": CONTRACT.launches, **_baseline_counts()}
+    for name, need in FUSED_WANT.items():
+        have = {k: v for k, v in launches[name].items() if v}
+        if have != need:
+            raise AssertionError(f"fused path: {name} launched {have}, "
+                                 f"expected {need}")
+    want = _plain_fused(t)
+    worst = _compare_fused(got, want, "bfloat16", "fused path")
+    del got, want
+    gc.collect()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run_fused_calls(t)
+    path = os.path.join(OUT, "profile_fused.json")
+    prof.export_chrome_trace(path)
+    busy, events, by_name = _device_time(path)
+    library = {k: v for k, v in by_name.items()
+               if _category(k) == "cublas"}
+    if library:
+        raise AssertionError(f"fused path: library GEMMs on the path: "
+                             f"{sorted(library)}")
+    kern_ms = {}
+    for k, (ms, n) in by_name.items():
+        kern = _kernel_of(k)
+        if kern:
+            row = kern_ms.setdefault(kern, [0.0, 0])
+            row[0] += ms
+            row[1] += n
+    measured = (f"device busy {busy:.3f} ms over {events} events; "
+                + "; ".join(f"{k} {v[0]:.3f} ms over {v[1]}"
+                            for k, v in sorted(kern_ms.items()))
+                if by_name else "device time not measured (the profiler saw "
+                "no device events)")
+    print(f"[fused-path] M={FUSED_M} D={FUSED_D} F={FUSED_F} bf16: launches "
+          f"{totals} (per call {json.dumps(launches)}); outputs and "
+          f"gradients within scaled {worst:.3g} of the plain path; wall "
+          f"{wall * 1e3:.1f} ms; no library GEMM; {measured}", flush=True)
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=totals, per_call=launches, worst_scaled_err=worst,
+                wall_ms=wall * 1e3, device_busy_ms=busy if by_name else None,
+                kernels={k: {"ms": v[0], "launches": v[1]}
+                         for k, v in kern_ms.items()})
+
+
 def _small_dense_config():
     from repro_torch.configs import get_config
 
@@ -922,8 +1445,8 @@ def _kernel_of(name):
     """The port's kernel a device-kernel name belongs to, or None."""
     import re
 
-    hit = re.search(r"\b(grouped_dw|grouped|contract)_(bf16_mma|f32)_kernel",
-                    name)
+    hit = re.search(r"\b(grouped_dw|grouped|contract|baseline)_"
+                    r"(bf16_mma|bf16|f32)(_fused)?_kernel", name)
     return hit.group(1) if hit else None
 
 
@@ -1283,15 +1806,18 @@ def phase_profile(engine, first, tag=""):
     return out
 
 
-def kernels_line(k_rows, b1_rows, g_rows, dw_rows, launches):
+def kernels_line(k_rows, b1_rows, g_rows, dw_rows, base_rows, launches):
     """One entry per kernel of the paths, each summed over one layer of one
     training step at the path's shapes (the remat recompute aside): B1 the
     7 forward GEMMs and their 14 derived backward GEMMs of a qwen3-8b
     layer at M = 2048; B3 the gate, up and down forward products and
     their 3 dX of a kimi-k2 MoE layer at 32 experts of C = 320; B4 the 3
-    dW of that layer.  ``launches`` are those of the dense training run
-    (B1) and of the MoE training run (B3, B4).  Each number is measured
-    above; ``max_abs_err`` is the worst over every case of the kernel."""
+    dW of that layer.  B5, B6, B7 (``matmul``, ``fused_dense_act``,
+    ``fused_rnz``): one call at the fused path's shape (M = 2048, K = 4096,
+    N = 12288, bf16).  ``launches`` are those of the dense training run
+    (B1), of the MoE training run (B3, B4) and of the fused path's run
+    (B5-B7).  Each number is measured above; ``max_abs_err`` is the worst
+    over every case of the kernel."""
     mult = {"gate/up": 2, "down": 1}
     b1 = [(r, LAYER_GEMMS[(r["K"], r["N"])]) for r in b1_rows]
     b3 = [(r, mult[r["case"].split()[-1]]) for r in g_rows
@@ -1323,6 +1849,17 @@ def kernels_line(k_rows, b1_rows, g_rows, dw_rows, launches):
               "src/repro/codegen/fused_gen.py:243", b3, g_rows),
         entry("grouped_dw", "src/repro_torch/codegen/csrc/grouped_dw.cu",
               "src/repro/codegen/fused_gen.py:309", b4, dw_rows),
+    ] + [
+        entry(name, "src/repro_torch/codegen/csrc/baselines.cu", replaces,
+              [(r, 1) for r in base_rows
+               if r["kernel"] == name and r["dtype"] == "bfloat16"],
+              [r for r in base_rows if r["kernel"] == name])
+        for name, replaces in (
+            ("matmul", "src/repro/kernels/matmul/matmul.py:67"),
+            ("fused_dense_act",
+             "src/repro/kernels/fused_dense_act/fused_dense_act.py:75"),
+            ("fused_rnz", "src/repro/kernels/fused_rnz/fused_rnz.py:59"),
+        )
     ]}
 
 
@@ -1362,12 +1899,17 @@ def main() -> int:
     b1_rows = _phase("b1-train", phase_b1_train)
     grows = _phase("grouped", phase_grouped)
     dw_rows = _phase("grouped-dw", phase_grouped_dw)
+    b1_mode_rows = _phase("b1-modes", phase_b1_modes)
+    base_rows = _phase("baselines", phase_baselines)
     _phase("small", phase_small_model)
     os.environ["REPRO_MOE_GROUPED"] = "1"
     _phase("small-moe", phase_small_moe)
     small_train = _phase("small-train", phase_small_train)
+    fused_small = _phase("fused-small", phase_fused_small)
+    # this slice's path: the fused single-contraction ops at full width
+    fused = _phase("fused-path", phase_fused_path)
 
-    # the slice's main path: dense training, then MoE training
+    # the training paths of the earlier slice: dense, then MoE
     train, cfg, run, params, state = _phase(
         "train", phase_train, "train", "qwen3-8b", TRAIN_FLAGS,
         lambda c: dataclasses.replace(c, n_layers=TRAIN_LAYERS))
@@ -1386,7 +1928,8 @@ def main() -> int:
     _free()
     launches = {"contract": train["launches"]["contract"],
                 "grouped": moe_train["launches"]["grouped"],
-                "grouped_dw": moe_train["launches"]["grouped_dw"]}
+                "grouped_dw": moe_train["launches"]["grouped_dw"],
+                **{k: fused["launches"][k] for k in BASELINES}}
 
     # the serving paths of the earlier slices
     serve_launches, stats, peak, trace, engine = _phase("serve", phase_serve)
@@ -1400,13 +1943,16 @@ def main() -> int:
     del moe_trace, moe_engine
     _free()
 
-    line = kernels_line(rows, b1_rows, grows, dw_rows, launches)
+    line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches)
     SECONDS["total"] = time.perf_counter() - t_start
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
                    "b1_train_cases": b1_rows,
                    "grouped_cases": grows,
                    "grouped_dw_cases": dw_rows,
+                   "b1_mode_cases": b1_mode_rows,
+                   "baseline_cases": base_rows,
+                   "fused_small": fused_small, "fused_path": fused,
                    "small_train": small_train,
                    "train": train, "train_profile": train_profile,
                    "moe_train": moe_train,

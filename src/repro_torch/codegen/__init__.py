@@ -4,8 +4,9 @@ The reference compiles a ``ContractionSpec`` + ``Schedule`` into a Pallas
 kernel.  The port keeps the pure half unchanged (``plan.build_plan``,
 ``schedules.default_schedule``, the tuner and its persistent cache, with
 the reference's key format) and lowers every two-operand contraction onto
-one hand-written CUDA kernel, ``csrc/contract.cu`` (``cuda_gen``); the
-grouped (MoE) fused family lowers onto ``csrc/grouped.cu`` (forward and
+one hand-written CUDA kernel, ``csrc/contract.cu`` (``cuda_gen``), which
+also runs the epilogue (``epilogue.Epilogue``) and the weighted
+three-operand family; the grouped (MoE) fused family lowers onto ``csrc/grouped.cu`` (forward and
 dX) and ``csrc/grouped_dw.cu`` (dW) (``fused_gen``).  All are built by
 ``nvcc`` at first use (``build``).
 
@@ -32,6 +33,7 @@ from .cuda_gen import (
     compile_kernel,
     contract_ref,
 )
+from .epilogue import ACTIVATIONS, Epilogue
 from .fused_gen import (
     GROUPED,
     GROUPED_DW,
@@ -53,10 +55,12 @@ from .tune import tune_schedule
 compile = compile_kernel
 
 __all__ = [
+    "ACTIVATIONS",
     "AutotuneCache",
     "AxisPlan",
     "CONTRACT",
     "CompiledKernel",
+    "Epilogue",
     "FusedKernel",
     "GROUPED",
     "GROUPED_DW",

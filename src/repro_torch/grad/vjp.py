@@ -10,7 +10,9 @@ as the forward pass (``ops._tuned_kernel``: the plan DB first, the tuner
 second), so on a CUDA tensor the backward GEMMs run the hand-written
 kernels too: ``matmul.dA``/``.dB`` on B1 (``csrc/contract.cu``),
 ``grouped_matmul.dX`` on B3's dX orientation (``csrc/grouped.cu``) and
-``grouped_matmul.dW`` on B4 (``csrc/grouped_dw.cu``).
+``grouped_matmul.dW`` on B4 (``csrc/grouped_dw.cu``); the weighted
+family's ``weighted_matmul.dA``/``.dB`` on B1's vector mode and ``.dg`` on
+its row-reduce mode.
 
 The reference's rules hold:
 
@@ -25,9 +27,11 @@ Unlike the reference, a backward computes only the cotangents autograd
 asks for (``ctx.needs_input_grad``); in training every operand needs one.
 The factories are memoized on their static parameters (dtype name,
 ``interpret``, group sizes) as the reference's ``custom_vjp`` factories
-are, and return a plain function of the tensors.  ``weighted``, ``chain``,
-``dense_act`` and ``attention`` VJPs wait for their forward modes and
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` item.
+are, and return a plain function of the tensors.  ``dense_act`` recomputes
+its f32 accumulator with one extra B1 launch and differentiates the
+element-wise epilogue with torch autograd on ``Epilogue.apply``.  The
+``chain`` and ``attention`` VJPs wait for their forward modes and raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
-from ..core.enumerate import einsum_formula
+from ..codegen.cuda_gen import contract_ref
+from ..codegen.epilogue import Epilogue
 from .derive import COTANGENT, derived_specs
 
 
@@ -51,8 +56,9 @@ def apply_spec(spec, arrays: Dict[str, torch.Tensor], *, out_dtype,
     """Evaluate ``spec`` over named tensors: generated kernel or einsum.
 
     The kernel path is the exact ``ops._tuned_kernel`` pipeline the primal
-    uses, keyed by this (possibly derived) spec.  The other path is an
-    einsum over f32 upcasts, the reference's f32-accumulated einsum.
+    uses, keyed by this (possibly derived) spec.  The other path is the
+    kernel's plain version (``contract_ref``: a product-sum over f32
+    upcasts), the reference's f32-accumulated einsum.
     """
     if use_kernel:
         from ..ops import _tuned_kernel
@@ -60,9 +66,8 @@ def apply_spec(spec, arrays: Dict[str, torch.Tensor], *, out_dtype,
         first = next(iter(spec.operands))
         kern = _tuned_kernel(spec, arrays[first].dtype, interpret=interpret)
         return kern(*(arrays[n] for n in spec.operands)).to(out_dtype)
-    return torch.einsum(
-        einsum_formula(spec), *(arrays[n].float() for n in spec.operands)
-    ).to(out_dtype)
+    return contract_ref(spec, *(arrays[n] for n in spec.operands),
+                        out_dtype=out_dtype)
 
 
 def _cotangent_gemms(spec, g, operands, *, interpret, use_kernel,
@@ -185,6 +190,78 @@ class _DenseTransposed(torch.autograd.Function):
         return cots.get("A"), cots.get("B"), None, None
 
 
+class _WeightedDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, g, out_dtype, interpret):
+        from .. import ops
+
+        ctx.save_for_backward(x, w, g)
+        ctx.interpret = interpret
+        return ops._weighted_dense_raw(x, w, g, out_dtype, interpret)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from .. import ops
+        from ..core.enumerate import weighted_matmul_spec
+
+        x, w, g = ctx.saved_tensors
+        m, d = x.shape
+        spec = weighted_matmul_spec(m, d, w.shape[1])
+        with _annotate("weighted_dense"):
+            cots = _cotangent_gemms(
+                spec, grad_out, {"A": x, "B": w, "g": g},
+                interpret=ctx.interpret,
+                use_kernel=ops._weighted_kernel_ok(x, ctx.interpret),
+                wrt=_wanted(ctx, ("A", "B", "g")),
+            )
+        return cots.get("A"), cots.get("B"), cots.get("g"), None, None
+
+
+class _DenseAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, beta, mean, var, act, eps, out_dtype, interpret):
+        from .. import ops
+
+        ctx.save_for_backward(x, w, beta, mean, var)
+        ctx.act, ctx.eps, ctx.interpret = act, eps, interpret
+        return ops._dense_act_raw(x, w, beta, mean, var, act=act, eps=eps,
+                                  out_dtype=out_dtype, interpret=interpret)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .. import ops
+        from ..core.enumerate import matmul_spec
+
+        x, w, beta, mean, var = ctx.saved_tensors
+        m, d = x.shape
+        spec = matmul_spec(m, d, w.shape[1])
+        use_kernel = ops._generic_kernel_ok(x, ctx.interpret)
+        epi = Epilogue(act=ctx.act, bias=True, norm=True, eps=ctx.eps)
+        with _annotate("dense_act"):
+            # the fused forward never stored its accumulator: recompute it
+            # (same spec, same plan as the primal), then the element-wise
+            # epilogue VJP on it
+            acc = apply_spec(spec, {"A": x, "B": w}, out_dtype=torch.float32,
+                             interpret=ctx.interpret, use_kernel=use_kernel)
+            leaves = [acc] + [v.detach().requires_grad_(True)
+                              for v in (beta, mean, var)]
+            leaves[0].requires_grad_(True)
+            with torch.enable_grad():
+                out = epi.apply(leaves[0], {
+                    name: v.float().reshape(1, -1)
+                    for name, v in zip(("bias", "mean", "var"), leaves[1:])
+                })
+                dacc, dbeta, dmean, dvar = torch.autograd.grad(
+                    out, leaves, g.float())
+            cots = _cotangent_gemms(
+                spec, dacc, {"A": x, "B": w}, interpret=ctx.interpret,
+                use_kernel=use_kernel, wrt=_wanted(ctx, ("A", "B")),
+            )
+        return (cots.get("A"), cots.get("B"), dbeta.to(beta.dtype),
+                dmean.to(mean.dtype), dvar.to(var.dtype), None, None, None,
+                None)
+
+
 class _Grouped(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, group_sizes, out_dtype, interpret):
@@ -280,24 +357,31 @@ def grouped_vjp(group_sizes: tuple, out_dtype: str, interpret: bool):
     return lambda x, w: _Grouped.apply(x, w, sizes, dt, interpret)
 
 
+@functools.lru_cache(maxsize=None)
 def weighted_dense_vjp(out_dtype: str, interpret: bool):
-    raise NotImplementedError(
-        "weighted_dense and its VJP (a 3-operand derived dg spec) come with "
-        "B1's 3-operand mode, ROADMAP.md queue A item 2"
-    )
+    """sum_j x_ij w_jk g_j with every cotangent a derived-spec contraction:
+    ``weighted_matmul.dA``/``.dB`` (g scales an output column or row) and
+    ``.dg``, a three-operand contraction over (i, k) producing a vector,
+    each one B1 launch on the kernel path."""
+    dt = _torch_dtype(out_dtype)
+    return lambda x, w, g: _WeightedDense.apply(x, w, g, dt, interpret)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_act_vjp(act: str, eps: float, out_dtype: str, interpret: bool):
+    """Fused dense+bias+norm+act with an epilogue-aware backward: one B1
+    launch recomputes the accumulator, torch autograd differentiates
+    ``Epilogue.apply`` on it, and dacc goes through ``matmul.dA``/``.dB``
+    (three B1 launches in all on the kernel path)."""
+    dt = _torch_dtype(out_dtype)
+    return lambda x, w, beta, mean, var: _DenseAct.apply(
+        x, w, beta, mean, var, act, eps, dt, interpret)
 
 
 def chain_dense_vjp(out_dtype: str, interpret: bool):
     raise NotImplementedError(
-        "chain_dense and its VJP (3-operand derived specs) come with B1's "
-        "3-operand mode, ROADMAP.md queue A item 2"
-    )
-
-
-def dense_act_vjp(act: str, eps: float, out_dtype: str, interpret: bool):
-    raise NotImplementedError(
-        "dense_act and its VJP come with B1's epilogue, ROADMAP.md queue A "
-        "item 2"
+        "chain_dense and its VJP (3-operand derived specs, two reductions) "
+        "come with B1's chain mode, ROADMAP.md queue A item 2b"
     )
 
 

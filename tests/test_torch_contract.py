@@ -8,7 +8,7 @@
   launcher replaced by a CPU batched product, against ``contract_ref``;
 * ``ops.dense(interpret=True)`` on both sides at a 128-aligned shape, and
   an unaligned shape taking the ``torch.matmul`` route on both sides;
-* ``NotImplementedError`` for mesh, fused, epilogue, 3-operand and quant
+* ``NotImplementedError`` for mesh, fused, dequant-epilogue, chain and quant
   requests.
 
 The CUDA kernel itself is tested on a card by ``tests/test_torch_gpu.py``.
@@ -225,15 +225,17 @@ def test_unsupported_requests_raise_not_implemented():
     sched = port_codegen.default_schedule(spec)
     with pytest.raises(NotImplementedError, match="mesh"):
         port_codegen.compile(spec, sched, mesh=object())
+    # the dequant epilogue waits for the int8/fp8 modes (item 2b)
     with pytest.raises(NotImplementedError, match="epilogue"):
-        port_codegen.compile(spec, sched, epilogue=object())
+        port_codegen.compile(spec, sched,
+                             epilogue=port_codegen.Epilogue(dequant=True))
     attn = PE.attention_spec(2, 8, 8, 4)
     with pytest.raises(NotImplementedError, match="fused"):
         port_codegen.compile(attn, port_codegen.default_schedule(attn))
-    weighted = PE.weighted_matmul_spec(8, 8, 8)
+    # the weighted family is ported; the chain (two reductions) is not
+    chain = PE.chain_matmul_spec(8, 8, 8, 8)
     with pytest.raises(NotImplementedError, match="3-operand"):
-        port_codegen.compile(weighted,
-                             port_codegen.default_schedule(weighted))
+        port_codegen.compile(chain, port_codegen.default_schedule(chain))
     q = PE.quantize_spec(spec, fmt="int8")
     with pytest.raises(NotImplementedError, match="int8"):
         port_codegen.compile(q, port_codegen.default_schedule(q))

@@ -1,7 +1,9 @@
 """The hand-written kernels on the card: the contraction kernel
-(``codegen/csrc/contract.cu``, B1), the grouped MoE kernel
-(``codegen/csrc/grouped.cu``, B3) and the grouped dW kernel
-(``codegen/csrc/grouped_dw.cu``, B4), and autograd through them.
+(``codegen/csrc/contract.cu``, B1, with its epilogue and the weighted
+family's vector and row-reduce modes), the grouped MoE kernel
+(``codegen/csrc/grouped.cu``, B3), the grouped dW kernel
+(``codegen/csrc/grouped_dw.cu``, B4) and the hand-written baselines B5, B6
+and B7 (``codegen/csrc/baselines.cu``), and autograd through them.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided inside the ``cuda_device`` fixture).  The file imports torch and
@@ -10,7 +12,8 @@ the port only, so it runs on a machine without jax:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py -q
 
 Each case holds the kernel against its plain version (``contract_ref``,
-``grouped_ref``, ``grouped_dw_ref``) on the same CUDA tensors at the
+``grouped_ref``, ``grouped_dw_ref``, ``matmul_ref``,
+``fused_dense_act_ref``, ``weighted_matmul_ref``) on the same CUDA tensors at the
 reference's tolerances (``TOL``), on outputs scaled by their largest
 magnitude; the autograd cases hold gradients on the card to the same
 computation on the CPU.
@@ -29,6 +32,9 @@ TOL = {  # the reference's tests/test_differential.py tolerances
     torch.float32: (1e-4, 1e-4),
     torch.bfloat16: (6e-2, 6e-2),
 }
+#: scaled limit for an f32 gradient of a bf16 call (see
+#: ``test_weighted_dense_and_dense_act_run_b1_both_ways``)
+F32_GRAD_OF_BF16_TOL = 5e-3
 
 
 @pytest.fixture(autouse=True)
@@ -415,3 +421,284 @@ def test_every_parameter_gets_a_finite_gradient_on_the_card(
         assert bool(torch.isfinite(gg).all()), path
         assert bool((gg != 0).any()), path
         _assert_close_scaled(gg.cpu(), gc, torch.float32)
+
+
+# --------------------------------------------------------------------------
+# B1's epilogue and the weighted family
+# --------------------------------------------------------------------------
+
+ACTS = ("relu", "gelu", "tanh", "silu", "id")
+
+
+def _vectors(device, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "scale": torch.randn(n, generator=g, device=device),
+        "bias": torch.randn(n, generator=g, device=device),
+        "mean": torch.randn(n, generator=g, device=device) * 0.1,
+        "var": torch.rand(n, generator=g, device=device) + 0.5,
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [False, True], ids=["nonorm", "norm"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("m,k,n", [(77, 130, 45), (128, 256, 384)])
+def test_cuda_epilogue_matches_plain_version(cuda_device, m, k, n, act, norm,
+                                             dtype):
+    spec = PE.matmul_spec(m, k, n)
+    epi = codegen.Epilogue(act=act, bias=True, scale=not norm, norm=norm)
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    a = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+    b = torch.randn(k, n, generator=g, device=cuda_device).to(dtype)
+    vecs = {name: v for name, v in _vectors(cuda_device, n, 21).items()
+            if name in epi.vector_names}
+    kern = codegen.compile(spec, codegen.default_schedule(spec),
+                           epilogue=epi)
+    before = cuda_gen.CONTRACT.launches
+    got = kern(a, b, **vecs)
+    assert cuda_gen.CONTRACT.launches == before + 1
+    want = cuda_gen.contract_ref(spec, a, b, out_dtype=dtype, epilogue=epi,
+                                 vectors=vecs)
+    assert got.dtype == dtype
+    _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_epilogue_vector_on_m_and_batch_axes(cuda_device, dtype):
+    """The epilogue's vectors follow ``spec.output[-1]`` into whichever
+    folded group holds it: m (output (k, i)) and batch (output (k, i, b))."""
+    specs = [
+        PE.ContractionSpec(name="mt", operands={"A": ("i", "j"),
+                                                "B": ("j", "k")},
+                           output=("k", "i"),
+                           extents={"i": 70, "j": 96, "k": 40}),
+        PE.ContractionSpec(name="bt", operands={"A": ("b", "i", "j"),
+                                                "B": ("b", "j", "k")},
+                           output=("k", "i", "b"),
+                           extents={"b": 3, "i": 33, "j": 64, "k": 24}),
+    ]
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    for spec in specs:
+        arrays = [torch.randn([spec.extents[i] for i in ax], generator=g,
+                              device=cuda_device).to(dtype)
+                  for ax in spec.operands.values()]
+        last = spec.extents[spec.output[-1]]
+        epi = codegen.Epilogue(act="gelu", scale=True, bias=True, norm=True)
+        vecs = _vectors(cuda_device, last, 23)
+        got = codegen.compile(spec, codegen.default_schedule(spec),
+                              epilogue=epi)(*arrays, **vecs)
+        want = cuda_gen.contract_ref(spec, *arrays, out_dtype=dtype,
+                                     epilogue=epi, vectors=vecs)
+        _assert_close_scaled(got, want, dtype)
+
+
+def _weighted_operands(device, spec, dtype, seed, zero_g=False):
+    g = torch.Generator(device=device).manual_seed(seed)
+    arrays = []
+    for name, axes in spec.operands.items():
+        t = torch.randn([spec.extents[i] for i in axes], generator=g,
+                        device=device)
+        if name == "g" and zero_g:
+            t = torch.zeros_like(t)
+        arrays.append(t.to(dtype))
+    return arrays
+
+
+def _weighted_specs(m, d, f):
+    from repro_torch.grad import derived_specs
+
+    spec = PE.weighted_matmul_spec(m, d, f)
+    return [spec] + list(derived_specs(spec).values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zero_g", [False, True], ids=["g", "zero_g"])
+@pytest.mark.parametrize("m,d,f", [(77, 130, 45), (128, 256, 384),
+                                   (300, 40, 200)])
+def test_cuda_weighted_family_matches_plain_version(cuda_device, m, d, f,
+                                                    zero_g, dtype):
+    """``weighted_matmul`` and its derived ``.dA``, ``.dB`` (vector mode)
+    and ``.dg`` (row-reduce mode), one launch each."""
+    for spec in _weighted_specs(m, d, f):
+        arrays = _weighted_operands(cuda_device, spec, dtype, 24,
+                                    zero_g=zero_g)
+        kern = codegen.compile(spec, codegen.default_schedule(spec))
+        before = cuda_gen.CONTRACT.launches
+        got = kern(*arrays)
+        assert cuda_gen.CONTRACT.launches == before + 1, spec.name
+        want = cuda_gen.contract_ref(spec, *arrays, out_dtype=dtype)
+        assert got.shape == want.shape and got.dtype == dtype, spec.name
+        if zero_g and spec.name != "weighted_matmul.dg":
+            assert bool((got == 0).all()), spec.name
+        else:
+            _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_row_reduce_is_deterministic(cuda_device, dtype):
+    spec = _weighted_specs(700, 300, 500)[3]
+    assert spec.name == "weighted_matmul.dg"
+    arrays = _weighted_operands(cuda_device, spec, dtype, 25)
+    kern = codegen.compile(spec, codegen.default_schedule(spec))
+    first = kern(*arrays)
+    for _ in range(3):
+        assert torch.equal(kern(*arrays), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weighted_dense_and_dense_act_run_b1_both_ways(cuda_device, dtype):
+    """``ops.weighted_dense`` and ``ops.dense_act`` on the card: one B1
+    launch forward and three backward each; gradients agree with the CPU's
+    plain path."""
+    g = torch.Generator(device=cuda_device).manual_seed(26)
+    m, d, f = 192, 256, 320
+    x = torch.randn(m, d, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(d, f, generator=g, device=cuda_device).to(dtype)
+    gv = torch.randn(d, generator=g, device=cuda_device).to(dtype)
+    vec = _vectors(cuda_device, f, 27)
+    cot = torch.randn(m, f, generator=g, device=cuda_device).to(dtype)
+    cases = {
+        "weighted": ((x, w, gv), lambda *t: ops.weighted_dense(*t),
+                     lambda *t: ops.weighted_dense(*t, interpret=True)),
+        "dense_act": ((x, w, vec["bias"], vec["mean"], vec["var"]),
+                      lambda *t: ops.dense_act(*t, act="gelu"),
+                      lambda *t: ops.dense_act(*t, act="gelu",
+                                               interpret=True)),
+    }
+    for name, (inputs, card, cpu) in cases.items():
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        before = cuda_gen.CONTRACT.launches
+        out = card(*leaves)
+        assert cuda_gen.CONTRACT.launches == before + 1, name
+        out.backward(cot)
+        assert cuda_gen.CONTRACT.launches == before + 4, name
+        ref = [t.detach().cpu().requires_grad_(True) for t in inputs]
+        want = cpu(*ref)
+        _assert_close_scaled(out.detach().cpu(), want.detach(), dtype)
+        want.backward(cot.cpu())
+        for got_leaf, ref_leaf in zip(leaves, ref):
+            assert got_leaf.grad.dtype == ref_leaf.grad.dtype
+            if ref_leaf.grad.dtype == torch.float32 != dtype:
+                # the f32 (beta, mean, var) gradients of a bf16 call: the
+                # backward recomputes the accumulator and rounds it to the
+                # operand dtype, as the reference's does, so one element
+                # that rounds to the neighbouring bf16 value moves them.
+                # Their largest scaled gap on an H100 was 7.1e-4; the limit
+                # leaves room on both sides of that reading
+                rtol = atol = F32_GRAD_OF_BF16_TOL
+                scale = ref_leaf.grad.abs().max().clamp_min(1e-30)
+                torch.testing.assert_close(got_leaf.grad.cpu() / scale,
+                                           ref_leaf.grad / scale,
+                                           rtol=rtol, atol=atol)
+            else:
+                _assert_close_scaled(got_leaf.grad.cpu(), ref_leaf.grad,
+                                     dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weighted_dense_and_dense_act_fold_leading_axes_onto_b1(cuda_device,
+                                                                 dtype):
+    """A 3-D x on the card runs B1 too, its leading axes folded into M:
+    one launch forward and three backward, never a library product; the
+    output and every gradient are those of the 2-D call on the folded x,
+    bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    b, s, d, f = 2, 96, 256, 320
+    x = torch.randn(b, s, d, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(d, f, generator=g, device=cuda_device).to(dtype)
+    gv = torch.randn(d, generator=g, device=cuda_device).to(dtype)
+    vec = _vectors(cuda_device, f, 32)
+    cot = torch.randn(b, s, f, generator=g, device=cuda_device).to(dtype)
+    cases = {
+        "weighted": ((w, gv), ops.weighted_dense),
+        "dense_act": ((w, vec["bias"], vec["mean"], vec["var"]),
+                      lambda *t: ops.dense_act(*t, act="gelu")),
+    }
+    for name, (rest, call) in cases.items():
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x,) + rest]
+        before = cuda_gen.CONTRACT.launches
+        out = call(*leaves)
+        assert cuda_gen.CONTRACT.launches == before + 1, name
+        assert out.shape == (b, s, f), name
+        out.backward(cot)
+        assert cuda_gen.CONTRACT.launches == before + 4, name
+        flat = [t.detach().clone().requires_grad_(True)
+                for t in (x.reshape(b * s, d),) + rest]
+        want = call(*flat)
+        want.backward(cot.reshape(b * s, f))
+        # the same launches on the same data: the same bits
+        torch.testing.assert_close(out.detach().reshape(b * s, f),
+                                   want.detach(), rtol=0, atol=0)
+        for got_leaf, ref_leaf in zip(leaves, flat):
+            torch.testing.assert_close(got_leaf.grad.reshape(ref_leaf.shape),
+                                       ref_leaf.grad, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# the hand-written baselines B5, B6, B7
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(128, 256, 384), (77, 130, 45),
+                                   (64, 40, 200), (1, 8, 8)])
+def test_baselines_match_plain_versions(cuda_device, m, k, n, dtype):
+    from repro_torch.kernels import _baselines
+    from repro_torch.kernels.fused_dense_act.fused_dense_act import (
+        fused_dense_act_cuda,
+    )
+    from repro_torch.kernels.fused_dense_act.ref import fused_dense_act_ref
+    from repro_torch.kernels.fused_rnz.fused_rnz import weighted_matmul_cuda
+    from repro_torch.kernels.fused_rnz.ref import weighted_matmul_ref
+    from repro_torch.kernels.matmul.matmul import matmul_cuda
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    g = torch.Generator(device=cuda_device).manual_seed(28)
+    a = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+    b = torch.randn(k, n, generator=g, device=cuda_device).to(dtype)
+    gv = torch.randn(k, generator=g, device=cuda_device).to(dtype)
+    vec = _vectors(cuda_device, n, 29)
+    blocks = dict(block_m=m, block_n=n, block_k=k)
+    counts = lambda: (_baselines.MATMUL.launches,  # noqa: E731
+                      _baselines.FUSED_DENSE_ACT.launches,
+                      _baselines.FUSED_RNZ.launches)
+    before = counts()
+    _assert_close_scaled(matmul_cuda(a, b, **blocks), matmul_ref(a, b),
+                         dtype)
+    for act in ("relu", "gelu", "tanh", "id"):
+        got = fused_dense_act_cuda(a, b, vec["bias"], vec["mean"],
+                                   vec["var"], act=act, block_b=m,
+                                   block_k=n, block_i=k)
+        _assert_close_scaled(got, fused_dense_act_ref(
+            a, b, vec["bias"], vec["mean"], vec["var"], act=act), dtype)
+    got = weighted_matmul_cuda(a, b, gv, **blocks)
+    _assert_close_scaled(got, weighted_matmul_ref(a, b, gv), dtype)
+    zero = weighted_matmul_cuda(a, b, torch.zeros_like(gv), **blocks)
+    assert bool((zero == 0).all())
+    after = counts()
+    assert (after[0] - before[0], after[1] - before[1],
+            after[2] - before[2]) == (1, 4, 2)
+
+
+@pytest.mark.gpu
+def test_baseline_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    from repro_torch.kernels import _baselines
+
+    a = torch.randn(8, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="one dtype"):
+        _baselines.MATMUL(a, a.bfloat16(), torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _baselines.MATMUL(a, a.cpu(), torch.float32)
+    with pytest.raises(TypeError, match="vector operands"):
+        _baselines.FUSED_RNZ(a, a, torch.float32)
+    with pytest.raises(TypeError, match="one dtype"):
+        _baselines.FUSED_RNZ(a, a, torch.float32,
+                             g=torch.ones(8, device=cuda_device).bfloat16())

@@ -48,7 +48,16 @@ def _imports(path: pathlib.Path):
 def test_port_sources_exist():
     assert (PORT / "codegen" / "csrc" / "contract.cu").is_file()
     assert (PORT / "codegen" / "csrc" / "grouped.cu").is_file()
+    assert (PORT / "codegen" / "csrc" / "baselines.cu").is_file()
     for module in ("codegen/fused_gen.py", "models/moe.py",
+                   "codegen/epilogue.py", "core/autotune.py",
+                   "kernels/_baselines.py", "kernels/matmul/matmul.py",
+                   "kernels/matmul/ops.py", "kernels/matmul/ref.py",
+                   "kernels/fused_dense_act/fused_dense_act.py",
+                   "kernels/fused_dense_act/ops.py",
+                   "kernels/fused_dense_act/ref.py",
+                   "kernels/fused_rnz/fused_rnz.py",
+                   "kernels/fused_rnz/ops.py", "kernels/fused_rnz/ref.py",
                    "configs/kimi_k2_1t_a32b.py",
                    "configs/llama4_maverick_400b_a17b.py"):
         assert PORT / module in SOURCES, module
@@ -73,6 +82,32 @@ def test_serve_imports_with_jax_unimportable():
         "import repro_torch.models.moe\n"
         "from repro_torch.configs import get_config\n"
         "get_config('kimi-k2-1t-a32b'), get_config('llama4-maverick-400b-a17b')\n"
+        "assert 'repro' not in sys.modules, 'reference package imported'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_fused_ops_and_kernels_import_with_jax_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from repro_torch import ops\n"
+        "from repro_torch.codegen import Epilogue\n"
+        "from repro_torch.core.autotune import choose_matmul_blocks\n"
+        "from repro_torch.kernels.matmul.ops import matmul\n"
+        "from repro_torch.kernels.fused_dense_act.ops import "
+        "fused_dense_act\n"
+        "from repro_torch.kernels.fused_rnz.ops import weighted_matmul\n"
+        "x, v = torch.ones(4, 4), torch.ones(4)\n"
+        "ops.dense_act(x, x, v, v, v), ops.weighted_dense(x, x, v)\n"
+        "matmul(x, x), fused_dense_act(x, x, v, v, v)\n"
+        "weighted_matmul(x, x, v), choose_matmul_blocks(4, 4, 4)\n"
         "assert 'repro' not in sys.modules, 'reference package imported'\n"
         "print('ok')\n"
     )
