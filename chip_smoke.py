@@ -11,8 +11,10 @@ raises and the script exits non-zero without the final result line:
 1. device — the card's name, the device count, and ``nvidia-smi``'s name
    and power limit;
 2. build — ``nvcc`` builds ``codegen/csrc/contract.cu`` (B1),
-   ``codegen/csrc/grouped.cu`` (B3), ``codegen/csrc/grouped_dw.cu`` (B4)
-   and ``codegen/csrc/baselines.cu`` (B5, B6, B7) for sm_90a from the
+   ``codegen/csrc/contract_q8.cu`` and ``codegen/csrc/contract_chain.cu``
+   (B1's int8/fp8, upcast and chain modes), ``codegen/csrc/grouped.cu``
+   (B3), ``codegen/csrc/grouped_dw.cu`` (B4) and
+   ``codegen/csrc/baselines.cu`` (B5, B6, B7) for sm_90a from the
    checkout, one ``nvcc`` per source, all started together; prints
    ptxas's registers, shared memory, spills;
 3. kernel — the contraction kernel's wrapper against its plain PyTorch
@@ -57,6 +59,15 @@ raises and the script exits non-zero without the final result line:
    and at one ragged f32 shape, B7 also with g = 0 (exact zeros); library
    ``torch.matmul``, ``torch.matmul`` + the eager epilogue,
    ``torch.matmul(a * g, b)``;
+6d. b1-quant — B1's 8-bit modes against ``contract_ref``, no epilogue:
+    int8 (int32 out, exact equality) and fp8 e4m3 (f32 out, f32 TOL
+    scaled) at qwen3-8b's MLP shapes (up 2048 x 4096 x 12288, down 2048 x
+    12288 x 4096, W k-major), a ragged product (1000 x 999 x 1001), a
+    batched and a transposed fold; library ``torch._int_mm`` /
+    ``torch._scaled_mm``, bound at 1979 TOP/s; then one counted pass
+    through ``codegen.compile`` of the int8 and fp8 ``weighted_matmul``
+    with its derived specs (the upcast body, 8 launches) and the quantized
+    chain (2 launches), each held and timed;
 7. small model — a 2-layer, 128-aligned qwen3-8b variant in float32 served
    on the card (kernel path) and on the CPU (plain path) from the same
    seeded weights: prefill/decode logits agree and greedy tokens are equal;
@@ -83,6 +94,23 @@ raises and the script exits non-zero without the final result line:
     gradients against the plain path on the card at the bf16 TOL; then
     the same calls under ``torch.profiler`` (``profile_fused.json``): no
     library GEMM on the path, and each kernel's device time;
+9d. quant path — ``ops.dense(x, w, quant=fmt)`` through the public entry
+    at the two MLP shapes and a ragged one (1000 x 999 x 1001), int8 and
+    fp8, bf16 inputs: one 8-bit launch
+    per call, the output against the plain path of the same call at the
+    f32 TOL, the end-to-end error against ``x @ w`` under 0.05 (int8) /
+    0.1 (fp8); under ``torch.profiler`` no library GEMM, device time of
+    the kernels and of the quantize passes (``profile_quant_path.json``);
+9e. chain — ``ops.chain_dense`` forward and ``backward()`` at (R, P, Q, C)
+    = (4096, 128, 4096, 128), one qwen3-8b head's (QK^T)V without softmax,
+    f32 and bf16: 1 + 3 chain launches, output and cotangents against
+    their plain versions (f32 / bf16 TOL), each spec timed against
+    ``torch.linalg.multi_dot``, no library GEMM in the path's trace
+    (``profile_chain_*.json``);
+9f. quant small — card vs CPU: the 2-layer f32 model served with
+    ``quant="int8"`` (greedy tokens equal, logits within 1e-4 scaled),
+    ``ops.dense(quant=)`` (f32 TOL) and ``ops.chain_dense`` with its
+    gradients (f32 2e-4, bf16 6e-2);
 10. train — the dense training path: ``launch.train``'s ``parse_args``,
     ``run_from_args`` and ``train()`` on qwen3-8b at full width (d_model
     4096, 32 heads, 8 KV heads, d_ff 12288, vocab 151936, bf16) cut to 8
@@ -124,8 +152,15 @@ raises and the script exits non-zero without the final result line:
     first;
 16. MoE profile — phase 14 for the kimi-k2 model
     (``$CHIP_SMOKE_OUT/profile_moe_{prefill,decode}.json``);
+16b. serve int8 — phase 13's serving path with ``--quant int8``: the tree
+    quantized once at load, expanded before every step; requests complete,
+    B1 7 x 36 x prefills launches, the ``serve.quant_bytes`` gauge equal
+    to the int8 leaves' bytes from their shapes, request 0's prefill
+    again with finite logits giving the engine's first token; prefill
+    ms, decode tok/s, p50 and peak memory;
 17. the phases' seconds, the ``kernels`` JSON line (contract, grouped,
-    grouped_dw, matmul, fused_dense_act, fused_rnz), then the card's line,
+    grouped_dw, matmul, fused_dense_act, fused_rnz, contract_int8,
+    contract_fp8, contract_upcast, contract_chain), then the card's line,
     then the result line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -153,7 +188,9 @@ SRC = os.path.join(HERE, "src")
 OUT = os.path.abspath(os.environ.get("CHIP_SMOKE_OUT",
                                      os.path.join(HERE, "smoke_out")))
 
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
+#: H100 SXM, dense: bf16, f32 (CUDA cores), int8 and fp8 tensor cores
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+            "fp8": 1979e12}
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": (6e-2, 6e-2), "float32": (1e-4, 1e-4)}
 SERVE_ARGS = ["--arch", "qwen3-8b", "--requests", "4", "--prompt-len", "512",
@@ -163,8 +200,9 @@ SERVE_ARGS = ["--arch", "qwen3-8b", "--requests", "4", "--prompt-len", "512",
 LAYER_GEMMS = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2,
                (12288, 4096): 1}
 KERNELS = ("contract", "grouped", "grouped_dw")
-#: the CUDA sources the build phase compiles: B1, B3, B4 and B5-B7
-SOURCES = KERNELS + ("baselines",)
+#: the CUDA sources the build phase compiles: B1 (contract, its 8-bit and
+#: upcast modes, its chain mode), B3, B4 and B5-B7
+SOURCES = KERNELS + ("baselines", "contract_q8", "contract_chain")
 #: the hand-written baselines of repro_torch.kernels, by launcher name
 BASELINES = ("matmul", "fused_dense_act", "fused_rnz")
 #: the fused single-contraction path: qwen3-8b's MLP projection at the
@@ -1445,6 +1483,14 @@ def _kernel_of(name):
     """The port's kernel a device-kernel name belongs to, or None."""
     import re
 
+    hit = re.search(r"\b(q8_mma_kernel<(true|false)>|upcast_kernel|"
+                    r"chain_(bf16|scalar)_kernel)", name)
+    if hit:
+        word = hit.group(1)
+        if word.startswith("q8"):
+            return "contract_int8" if "true" in word else "contract_fp8"
+        return "contract_upcast" if word.startswith("up") else (
+            "contract_chain")
     hit = re.search(r"\b(grouped_dw|grouped|contract|baseline)_"
                     r"(bf16_mma|bf16|f32)(_fused)?_kernel", name)
     return hit.group(1) if hit else None
@@ -1806,6 +1852,719 @@ def phase_profile(engine, first, tag=""):
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 5: B1's int8 / fp8 modes, the upcast body and the chain
+# --------------------------------------------------------------------------
+
+#: launchers of the slice's kernels, by kernels-line name
+NEW_KERNELS = ("contract_int8", "contract_fp8", "contract_upcast",
+               "contract_chain")
+#: qwen3-8b's MLP products at the train path's M = 4 x 512 tokens: up
+#: (D = 4096 -> F = 12288) and down (12288 -> 4096)
+QUANT_SHAPES = ((FUSED_M, FUSED_D, FUSED_F), (FUSED_M, FUSED_F, FUSED_D))
+#: a ragged ``ops.dense(quant=)`` call: no extent a multiple of 128 (or 16)
+QUANT_RAGGED = (1000, 999, 1001)
+#: one qwen3-8b head's (QK^T)V without softmax over a 4096-token context
+CHAIN_SHAPE = (4096, 128, 4096, 128)
+
+
+def _new_launchers():
+    from repro_torch.codegen import modes
+
+    return {"contract_int8": modes.CONTRACT_INT8,
+            "contract_fp8": modes.CONTRACT_FP8,
+            "contract_upcast": modes.CONTRACT_UPCAST,
+            "contract_chain": modes.CONTRACT_CHAIN}
+
+
+def _zero_new_counts():
+    from repro_torch.codegen import CONTRACT
+
+    CONTRACT.launches = 0
+    for launcher in _new_launchers().values():
+        launcher.launches = 0
+
+
+def _new_counts():
+    from repro_torch.codegen import CONTRACT
+
+    return {"contract": CONTRACT.launches,
+            **{k: v.launches for k, v in _new_launchers().items()}}
+
+
+def _q_operand(shape, fmt, gen):
+    """Seeded 8-bit operands on the card: ints in [-127, 127], or normals
+    rounded to e4m3."""
+    import torch
+
+    if fmt == "int8":
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+    return (torch.randn(shape, generator=gen, device="cuda") * 4).to(
+        torch.float8_e4m3fn)
+
+
+def _check_exact(got, want, what):
+    """int8's hold: the int32 outputs equal, element for element."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or not bool(
+        torch.equal(got, want)
+    ):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{what}: int32 output differs from its plain "
+                             f"version in {bad} elements")
+    return 0.0, 0.0
+
+
+def _quant_row(tag, what, fmt, got, want, run, plain, library, ops, nbytes,
+               flush, **extra):
+    """One b1-quant row: int8 exact, fp8 at the f32 TOL (scaled); timed as
+    ``_case_row`` against the 1979 TOP/s 8-bit tensor-core rate."""
+    if fmt == "int8":
+        max_abs, scaled_err = _check_exact(got, want, f"{tag} {what}")
+    else:
+        max_abs, scaled_err = _check_close(got, want, "float32",
+                                           f"{tag} {what}")
+    ms = _timed(run, flush)
+    plain_ms = _timed(plain, flush)
+    library_ms = None
+    if library is not None:
+        try:
+            library_ms = _timed(library, flush)
+        except RuntimeError as e:  # the library call refuses this layout
+            print(f"[{tag}] {what}: library call refused ({str(e)[:120]}); "
+                  f"library_ms null", flush=True)
+    bound_ms, ops_ms, bytes_ms, by = _bound(ops, nbytes, fmt)
+    row = dict(case=what, dtype=fmt, max_abs_err=max_abs,
+               scaled_err=scaled_err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, ops_ms=ops_ms,
+               bytes_ms=bytes_ms, bound_by=by, tops=ops / ms / 1e9, **extra)
+    lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+    held = "exact" if fmt == "int8" else f"scaled err {scaled_err:.3g}"
+    print(f"[{tag}] {what} {fmt}: {held}, {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, library {lib}, bound {bound_ms:.4f} by {by}), "
+          f"{row['tops']:.1f} TOP/s", flush=True)
+    return row
+
+
+def _int_mm(a, bt):
+    import torch
+
+    return torch._int_mm(a, bt.t())
+
+
+def _scaled_mm(a, bt, one):
+    import torch
+
+    return torch._scaled_mm(a, bt.t(), scale_a=one, scale_b=one,
+                            out_dtype=torch.float32)
+
+
+def phase_b1_quant():
+    """B1's 8-bit modes against ``contract_ref``, no epilogue: int8 (int32
+    out, exact) and fp8 (f32 out, f32 TOL scaled) at qwen3-8b's MLP shapes
+    (up M = 2048, D = 4096, F = 12288; down 2048, 12288, 4096) with W
+    k-major as ``ops.dense(quant=)`` writes it, a ragged product (1000 x
+    999 x 1001, W n-major), a batched fold (8 x 512 x 1024 x 512) and a
+    transposed one (A stored (K, M)).  Library yardsticks (timed, used
+    nowhere in the port): ``torch._int_mm`` and ``torch._scaled_mm`` (scales
+    1) where they take the shape, else null.  Then the upcast body through
+    ``codegen.compile``: the int8 and fp8 ``weighted_matmul`` and its
+    derived ``.dA``, ``.dB``, ``.dg`` at M = 2048, D = 4096, F = 12288 (one
+    launch each, counted from 0), and the quantized chain at CHAIN_SHAPE,
+    against their plain versions; no one library call computes them."""
+    import torch
+
+    from repro_torch import codegen
+    from repro_torch.codegen import contract_ref
+    from repro_torch.codegen.cuda_gen import _default_out_dtype
+    from repro_torch.core import enumerate as E
+    from repro_torch.grad import derived_specs
+
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    one = torch.ones((), device="cuda")
+    rows = []
+    launchers = _new_launchers()
+    for fmt in ("int8", "fp8"):
+        launcher = launchers[f"contract_{fmt}"]
+        int_acc = fmt == "int8"
+        out_dt = torch.int32 if int_acc else torch.float32
+        lib_fn = _int_mm if int_acc else (
+            lambda a, bt: _scaled_mm(a, bt, one))
+        for m, k, n, kmajor, tag in (
+            *((m, k, n, True, f"mlp {'up' if n > k else 'down'}")
+              for m, k, n in QUANT_SHAPES),
+            (1000, 999, 1001, False, "ragged"),
+        ):
+            a = _q_operand((m, k), fmt, gen)
+            bt = _q_operand((n, k), fmt, gen)
+            b = bt.t() if kmajor else bt.t().contiguous()
+            spec = E.quantize_spec(E.matmul_spec(m, k, n), fmt=fmt)
+            got = launcher(a[None], b[None], out_dt, int_acc=int_acc)[0]
+            want = contract_ref(spec, a, b, out_dtype=out_dt)
+            lib = ((lambda: lib_fn(a, bt)) if kmajor else None)  # noqa: E731
+            rows.append(_quant_row(
+                "b1-quant", f"{tag} M={m} K={k} N={n}", fmt, got, want,
+                lambda: launcher(a[None], b[None], out_dt, int_acc=int_acc),
+                lambda: contract_ref(spec, a, b, out_dtype=out_dt), lib,
+                2.0 * m * k * n, m * k + k * n + 4 * m * n, flush,
+                shape=tag))
+            del a, bt, b, got, want
+        # the batched and transposed folds through codegen.compile
+        for spec in (E.batched_matmul_spec(8, 512, 1024, 512),
+                     E.transposed_matmul_spec(1024, 2048, 1024)):
+            spec = E.quantize_spec(spec, fmt=fmt)
+            args = [_q_operand([spec.extents[i] for i in ax], fmt, gen)
+                    for ax in spec.operands.values()]
+            kern = codegen.compile(spec, codegen.default_schedule(spec))
+            got = kern(*args)
+            want = contract_ref(spec, *args, out_dtype=out_dt)
+            ext = spec.extents
+            size = math.prod(ext.values())
+            outs = math.prod(ext[i] for i in spec.output)
+            rows.append(_quant_row(
+                "b1-quant", f"{spec.name} {dict(ext)}", fmt, got, want,
+                lambda: kern(*args),
+                lambda: contract_ref(spec, *args, out_dtype=out_dt), None,
+                2.0 * size, sum(x.numel() for x in args) + 4 * outs, flush,
+                shape=spec.name))
+            del args, got, want
+    # the upcast body and the quantized chain through codegen.compile, the
+    # public entry: one counted pass (counters from 0), then the checks and
+    # the timings
+    m, d, f = FUSED_M, FUSED_D, FUSED_F
+    cases = []
+    for fmt in ("int8", "fp8"):
+        base = E.weighted_matmul_spec(m, d, f)
+        for spec in [base, *derived_specs(base).values(),
+                     E.chain_matmul_spec(*CHAIN_SHAPE)]:
+            spec = E.quantize_spec(spec, fmt=fmt)
+            args = [_q_operand([spec.extents[i] for i in ax], fmt, gen)
+                    for ax in spec.operands.values()]
+            cases.append((fmt, spec, args, codegen.compile(
+                spec, codegen.default_schedule(spec))))
+    torch.cuda.synchronize()
+    _zero_new_counts()
+    outs = [kern(*args) for _, _, args, kern in cases]
+    torch.cuda.synchronize()
+    counts = _new_counts()
+    want_counts = {"contract": 0, "contract_int8": 0, "contract_fp8": 0,
+                   "contract_upcast": 8, "contract_chain": 2}
+    if counts != want_counts:
+        raise AssertionError(f"b1-quant compile path launched {counts}, "
+                             f"expected {want_counts}")
+    upcast = []
+    for (fmt, spec, args, kern), got in zip(cases, outs):
+        out_dt = _default_out_dtype(spec, None, args[0].dtype)
+        want = contract_ref(spec, *args, out_dtype=out_dt)
+        ext = spec.extents
+        if spec.name == "chain_matmul":
+            r, p, q, c = CHAIN_SHAPE
+            ops = 2.0 * min(r * p * q + r * q * c, p * q * c + r * p * c)
+        else:
+            ops = 2.0 * m * d * f
+        n_out = math.prod(ext[i] for i in spec.output)
+        upcast.append(_quant_row(
+            "b1-quant", f"{spec.name} {dict(ext)}", fmt, got, want,
+            lambda: kern(*args),
+            lambda: contract_ref(spec, *args, out_dtype=out_dt), None,
+            ops, sum(x.numel() for x in args) + 4 * n_out, flush,
+            shape=spec.name,
+            mode="chain" if spec.name == "chain_matmul" else "upcast"))
+        del want
+    del cases, outs, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, upcast=upcast, launches=counts)
+
+
+def _library_gemms(path):
+    """Device kernels of a trace that are library GEMMs (cuBLAS, CUTLASS)."""
+    _, _, by_name = _device_time(path)
+    return sorted(k for k in by_name if _category(k) == "cublas")
+
+
+def _profile(run, name):
+    """``run()`` once under ``torch.profiler``; (trace path, busy ms,
+    events, {kernel name: [ms, count]})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT, f"profile_{name}.json")
+    prof.export_chrome_trace(path)
+    busy, events, by_name = _device_time(path)
+    return path, busy, events, by_name
+
+
+def phase_quant_path():
+    """``ops.dense(x, w, quant=fmt)`` through the public entry at qwen3-8b's
+    two MLP shapes (bf16 x and w, seeded, M = 2048) and at the ragged
+    QUANT_RAGGED, int8 and fp8, f32 out:
+    one 8-bit kernel launch per call and no other (counters from 0), the
+    output against the plain path of the same call (the same quantization,
+    then ``contract_ref`` of the quantized spec with its dequant epilogue)
+    at the f32 TOL scaled, and the end-to-end error against the
+    unquantized product under the reference's limits (0.05 int8, 0.1 fp8).
+    Then the six calls under ``torch.profiler``: no library GEMM, device
+    time split into the quantize passes (plain PyTorch ops, as the
+    reference's ``jnp`` ops) and the kernel."""
+    import torch
+
+    from repro_torch import codegen, ops
+    from repro_torch.codegen import contract_ref
+    from repro_torch.core import enumerate as E
+    from repro_torch.optim.quant import quantize_channels, quantize_tensor
+
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    inputs = []
+    for m, d, f in (*QUANT_SHAPES, QUANT_RAGGED):
+        x = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(d, f, generator=gen, device="cuda")
+             / math.sqrt(d)).bfloat16()
+        inputs.append((x, w))
+    calls = [(fmt, x, w) for fmt in ("int8", "fp8") for x, w in inputs]
+    torch.cuda.synchronize()
+    _zero_new_counts()
+    per_call = []
+    outs = []
+    for fmt, x, w in calls:
+        before = _new_counts()
+        outs.append(ops.dense(x, w, quant=fmt, out_dtype=torch.float32))
+        after = _new_counts()
+        per_call.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+    torch.cuda.synchronize()
+    counts = _new_counts()
+    for (fmt, _, _), have in zip(calls, per_call):
+        if have != {f"contract_{fmt}": 1}:
+            raise AssertionError(f"quant path: ops.dense(quant={fmt!r}) "
+                                 f"launched {have}, expected one "
+                                 f"contract_{fmt}")
+    rows = []
+    for (fmt, x, w), got in zip(calls, outs):
+        m, d = x.shape
+        f = w.shape[1]
+        qx, sx = quantize_tensor(x, fmt)
+        qw, sw = quantize_channels(w, fmt)
+        spec = E.quantized_matmul_spec(m, d, f, fmt)
+        want = contract_ref(spec, qx, qw, out_dtype=torch.float32,
+                            epilogue=codegen.Epilogue(dequant=True),
+                            vectors={"qscale": (sx * sw).float()})
+        max_abs, scaled = _check_close(got, want, "float32",
+                                       f"quant path {fmt} M={m} D={d} F={f}")
+        full = torch.matmul(x.float(), w.float())
+        e2e = ((got - full).abs().max() / full.abs().max().clamp_min(1.0)
+               ).item()
+        limit = 0.05 if fmt == "int8" else 0.1
+        if not e2e < limit:
+            raise AssertionError(f"quant path {fmt}: end-to-end error "
+                                 f"{e2e} against the bf16 product, limit "
+                                 f"{limit}")
+        rows.append(dict(fmt=fmt, M=m, D=d, F=f, max_abs_err=max_abs,
+                         scaled_err=scaled, e2e_rel_err=e2e))
+        del qx, qw, want, full
+    del outs
+
+    def run_all():
+        for fmt, x, w in calls:
+            ops.dense(x, w, quant=fmt, out_dtype=torch.float32)
+
+    run_all()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_all()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    path, busy, events, by_name = _profile(run_all, "quant_path")
+    library = _library_gemms(path)
+    if library:
+        raise AssertionError(f"quant path: library GEMMs on the path: "
+                             f"{library}")
+    kern_ms = sum(v[0] for k, v in by_name.items() if _kernel_of(k))
+    split = dict(device_busy_ms=busy, kernel_ms=kern_ms,
+                 quantize_ms=sum(v[0] for k, v in by_name.items()
+                                 if not _kernel_of(k)),
+                 kernels={k[:80]: v for k, v in by_name.items()
+                          if _kernel_of(k)})
+    for r in rows:
+        print(f"[quant-path] ops.dense(quant={r['fmt']!r}) M={r['M']} "
+              f"D={r['D']} F={r['F']}: kernel vs plain scaled err "
+              f"{r['scaled_err']:.3g}, end-to-end {r['e2e_rel_err']:.4g} of "
+              f"max |x @ w|", flush=True)
+    measured = (f"device busy {busy:.3f} ms over {events} events: 8-bit "
+                f"kernels {kern_ms:.3f} ms, quantize passes and the rest "
+                f"{split['quantize_ms']:.3f} ms" if by_name else
+                "device time not measured (the profiler saw no device events)")
+    print(f"[quant-path] {len(calls)} calls: launches {counts} (1 per "
+          f"call); wall "
+          f"{wall:.1f} ms; no library GEMM; {measured}", flush=True)
+    del calls, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=counts, per_call=per_call, wall_ms=wall,
+                **split)
+
+
+def _chain_library(spec, arrays):
+    """One PyTorch call for the same function: ``torch.linalg.multi_dot``
+    over the three matrices in chain order."""
+    import torch
+
+    from repro_torch.codegen.cuda_gen import _classify
+
+    fold = _classify(spec)
+    ops_ = spec.operands
+    r, c = spec.output
+    (p,) = [i for i in ops_[fold.a] if i != r]
+    (q,) = [i for i in ops_[fold.extra] if i != c]
+    mat = lambda name, rows: (arrays[name] if ops_[name][0] == rows  # noqa
+                              else arrays[name].t())
+    mats = [mat(fold.a, r), mat(fold.b, p), mat(fold.extra, q)]
+    return lambda: torch.linalg.multi_dot(mats)
+
+
+def phase_chain():
+    """``ops.chain_dense`` forward and ``backward()`` at CHAIN_SHAPE, f32
+    and bf16, through the public entry: 1 + 3 chain launches (counters from
+    0), the output and the three cotangents against the plain versions
+    (``contract_ref`` of ``chain_matmul`` and its derived specs on the same
+    inputs) at the f32 / bf16 TOL; each spec timed (kernel, plain, the
+    library call ``torch.linalg.multi_dot``) against its bound (operations
+    of the cheaper association without recomputation); then forward and
+    backward under ``torch.profiler``: no library GEMM."""
+    import torch
+
+    from repro_torch import codegen, ops
+    from repro_torch.codegen import contract_ref
+    from repro_torch.core import enumerate as E
+    from repro_torch.grad import COTANGENT, derived_specs
+
+    r, p, q, c = CHAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rows, paths = [], {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        a, b, cm = ((torch.randn(s, generator=gen, device="cuda")
+                     / math.sqrt(s[0])).to(dt)
+                    for s in ((r, p), (p, q), (q, c)))
+        dout = torch.randn(r, c, generator=gen, device="cuda").to(dt)
+        leaves = [t.clone().requires_grad_(True) for t in (a, b, cm)]
+        torch.cuda.synchronize()
+        _zero_new_counts()
+        out = ops.chain_dense(*leaves)
+        fwd_launches = _new_counts()["contract_chain"]
+        out.backward(dout)
+        torch.cuda.synchronize()
+        counts = _new_counts()
+        if fwd_launches != 1 or counts != {
+            "contract": 0, "contract_int8": 0, "contract_fp8": 0,
+            "contract_upcast": 0, "contract_chain": 4,
+        }:
+            raise AssertionError(f"chain {dt_name}: launches {counts} "
+                                 f"(forward {fwd_launches}), expected 1 + 3 "
+                                 f"chain launches")
+        spec = E.chain_matmul_spec(r, p, q, c)
+        named = {"A": a, "B": b, "C": cm}
+        cases = [(spec, named, out.detach())]
+        for wrt, dspec in derived_specs(spec).items():
+            arrays = {COTANGENT: dout, **{k: v for k, v in named.items()
+                                          if k != wrt}}
+            cases.append((dspec, arrays, leaves["ABC".index(wrt)].grad))
+        for sp, arrays, got in cases:
+            args = [arrays[n] for n in sp.operands]
+            want = contract_ref(sp, *args, out_dtype=dt)
+            kern = codegen.compile(sp, codegen.default_schedule(sp))
+            ext = sp.extents
+            fold = kern.fold
+            rr, cc = sp.output
+            (pp,) = [i for i in sp.operands[fold.a] if i != rr]
+            (qq,) = [i for i in sp.operands[fold.extra] if i != cc]
+            R, P, Q, C = ext[rr], ext[pp], ext[qq], ext[cc]
+            ops_min = 2.0 * min(R * P * Q + R * Q * C, P * Q * C + R * P * C)
+            nbytes = (sum(x.numel() for x in args) + R * C) * dt.itemsize
+            rows.append(_case_row(
+                "chain", f"{sp.name} (R, P, Q, C)={(R, P, Q, C)}", got, want,
+                dt_name, lambda: kern(*args),
+                lambda: contract_ref(sp, *args, out_dtype=dt),
+                _chain_library(sp, arrays), ops_min, nbytes, flush,
+                spec=sp.name, launches=1))
+            del want
+
+        def run_path():
+            ls = [t.detach().clone().requires_grad_(True)
+                  for t in (a, b, cm)]
+            ops.chain_dense(*ls).backward(dout)
+
+        path, busy, events, by_name = _profile(run_path, f"chain_{dt_name}")
+        library = _library_gemms(path)
+        if library:
+            raise AssertionError(f"chain {dt_name}: library GEMMs on the "
+                                 f"path: {library}")
+        chain_ms = sum(v[0] for k, v in by_name.items()
+                       if _kernel_of(k) == "contract_chain")
+        paths[dt_name] = dict(launches=counts, device_busy_ms=busy,
+                              chain_kernel_ms=chain_ms, events=events)
+        print(f"[chain] ops.chain_dense {dt_name} (R, P, Q, C) = "
+              f"{CHAIN_SHAPE}: forward + backward launches {counts}; no "
+              f"library GEMM; device busy {busy:.3f} ms, chain kernel "
+              f"{chain_ms:.3f} ms", flush=True)
+        del a, b, cm, dout, leaves, out, cases
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, paths=paths)
+
+
+def phase_quant_small():
+    """Card vs CPU at small sizes: the 2-layer f32 model served with
+    ``quant="int8"`` (greedy tokens equal; prefill logits of the expanded
+    tree within 1e-4 scaled), the operand quantization of f32 and bf16
+    tensors (the same bits), ``ops.dense(quant=)`` in int8 and fp8 (f32
+    out, f32 TOL scaled) and ``ops.chain_dense`` forward and gradients in
+    f32 (2e-4) and bf16 (6e-2)."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.launch.serving import ContinuousEngine, synthetic_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.quant import (dequantize_tree, quantize_channels,
+                                         quantize_tensor, quantize_tree)
+
+    cfg = _small_dense_config()
+    cpu_params = T.init(cfg, torch.Generator().manual_seed(6), device="cpu")
+    outs = {}
+    for device in ("cpu", "cuda"):
+        params = T._tree_map(lambda t: t.to(device), cpu_params)
+        trace = synthetic_trace(3, vocab=cfg.vocab, seed=7, rate_hz=0.0,
+                                prompt_lens=(60, 128), max_news=(4, 6))
+        ContinuousEngine(cfg, lanes=2, page_size=128, n_pages=5, max_ctx=256,
+                         params=params, device=device, quant="int8").run(trace)
+        outs[device] = [r.out_tokens for r in trace]
+    if outs["cpu"] != outs["cuda"]:
+        raise AssertionError(f"quant small: int8 greedy tokens differ, card "
+                             f"{outs['cuda']} vs CPU {outs['cpu']}")
+    rng = torch.Generator().manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab, (1, 128), generator=rng)
+    with torch.inference_mode():
+        lc, _ = T.prefill(dequantize_tree(quantize_tree(cpu_params)), cfg,
+                          tokens, 128)
+        lg, _ = T.prefill(dequantize_tree(quantize_tree(T._tree_map(
+            lambda t: t.to("cuda"), cpu_params))), cfg, tokens.cuda(), 128)
+    logit_err = ((lg.cpu() - lc).abs().max() / lc.abs().max()).item()
+    if not logit_err <= 1e-4:
+        raise AssertionError(f"quant small: card and CPU logits of the int8 "
+                             f"tree differ by {logit_err} (scaled)")
+    gen = torch.Generator().manual_seed(9)
+    dense_err = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(256, 384, generator=gen).to(dt)
+        w = (torch.randn(384, 512, generator=gen) / 8).to(dt)
+        for fmt in ("int8", "fp8"):
+            # the quantization itself: the same bits on the card
+            for fn in (quantize_tensor, quantize_channels):
+                for a, b in zip(fn(x.cuda(), fmt), fn(x, fmt)):
+                    if not torch.equal(a.cpu().view(torch.uint8)
+                                       if a.element_size() == 1 else a.cpu(),
+                                       b.view(torch.uint8)
+                                       if b.element_size() == 1 else b):
+                        raise AssertionError(f"quant small: {fn.__name__}"
+                                             f"({fmt}) differs card vs CPU")
+            got = ops.dense(x.cuda(), w.cuda(), quant=fmt,
+                            out_dtype=torch.float32)
+            want = ops.dense(x, w, quant=fmt, interpret=True,
+                             out_dtype=torch.float32)
+            dense_err[f"{fmt} {str(dt)[6:]}"] = _check_close(
+                got.cpu(), want, "float32", f"quant small dense {fmt}")[1]
+    chain_err = {}
+    for dt_name, tol in (("float32", (2e-4, 2e-4)),
+                         ("bfloat16", (6e-2, 6e-2))):
+        dt = getattr(torch, dt_name)
+        base = [(torch.randn(s, generator=gen) / 4).to(dt)
+                for s in ((96, 40), (40, 130), (130, 24))]
+        dout = torch.randn(96, 24, generator=gen).to(dt)
+        res = {}
+        for device in ("cpu", "cuda"):
+            leaves = [t.detach().clone().to(device).requires_grad_(True)
+                      for t in base]
+            out = ops.chain_dense(*leaves, interpret=device == "cpu")
+            out.backward(dout.to(device))
+            res[device] = [out.detach().cpu()] + [t.grad.cpu()
+                                                  for t in leaves]
+        chain_err[dt_name] = max(
+            _check_close(g, w_, dt_name, f"quant small chain {dt_name}",
+                         tol=tol)[1]
+            for g, w_ in zip(res["cuda"], res["cpu"]))
+    print(f"[quant-small] int8-served 2-layer f32 model: greedy tokens equal "
+          f"{outs['cuda']}, prefill logits scaled diff {logit_err:.3g}; "
+          f"dense(quant) card vs CPU {dense_err}; chain_dense (and grads) "
+          f"{chain_err}", flush=True)
+    return dict(tokens=outs["cuda"], logit_err=logit_err,
+                dense_err=dense_err, chain_err=chain_err)
+
+
+def phase_serve_int8():
+    """qwen3-8b at full width and depth served with ``--quant int8`` and
+    the serve phase's flags, through ``serve.main``: every request complete
+    with tokens in the vocab, B1 launched 7 x 36 x prefills times (the
+    projections run on the expanded bf16 weights, as in the reference),
+    the ``serve.quant_bytes`` gauge equal to the bytes of the int8 leaves
+    counted from their shapes (1 byte per value, 4 per 256-value block);
+    then request 0's prefill again from the expanded tree: finite logits
+    that give the engine's first token.  Peak memory is read twice: over
+    the load (the bf16 tree drawn, then quantized beside it) and over the
+    serving that follows it."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.codegen import CONTRACT
+    from repro_torch.launch import serve
+    from repro_torch.launch.serving import ContinuousEngine
+    from repro_torch.optim.quant import BLOCK, Quantized, dequantize_tree
+
+    torch.cuda.reset_peak_memory_stats()
+    obs.metrics_reset()
+    CONTRACT.launches = 0
+    loaded = {}
+    engine_run = ContinuousEngine.run
+
+    def run_after_load(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        loaded.update(peak=torch.cuda.max_memory_allocated(),
+                      held=torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return engine_run(self, *args, **kwargs)
+
+    ContinuousEngine.run = run_after_load
+    t0 = time.perf_counter()
+    try:
+        stats, trace, engine = serve.main(SERVE_ARGS + ["--quant", "int8"])
+    finally:
+        ContinuousEngine.run = engine_run
+    took = time.perf_counter() - t0
+    launches = CONTRACT.launches
+    cfg = engine.cfg
+    for r in trace:
+        if len(r.out_tokens) != r.max_new or r.state != "finished":
+            raise AssertionError(f"serve-int8: request {r.rid} ended with "
+                                 f"{len(r.out_tokens)}/{r.max_new} tokens")
+        if not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            raise AssertionError(f"serve-int8: request {r.rid}: token "
+                                 f"outside the vocab")
+    want = 7 * cfg.n_layers * stats["prefills"]
+    if launches != want:
+        raise AssertionError(f"serve-int8: contract kernel launched "
+                             f"{launches} times, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, Quantized):
+            leaves.append(math.prod(t.shape))
+
+    walk(engine.params)
+    expected = sum(n + 4 * -(-n // BLOCK) for n in leaves)
+    gauge = obs.metrics_json()["gauges"].get("serve.quant_bytes")
+    if gauge != expected:
+        raise AssertionError(f"serve-int8: serve.quant_bytes {gauge}, "
+                             f"expected {expected} from the leaf shapes")
+    first = trace[0]
+    plen = len(first.prompt)
+    padded = -(-plen // engine.page_size) * engine.page_size
+    toks = torch.zeros((1, padded), dtype=torch.long)
+    toks[0, :plen] = torch.as_tensor(first.prompt, dtype=torch.long)
+    with torch.inference_mode():
+        logits, _ = engine.api.prefill(
+            dequantize_tree(engine.params), cfg,
+            {"tokens": toks.cuda(),
+             "lengths": torch.tensor([plen], device="cuda")}, padded)
+        finite = bool(torch.isfinite(logits).all())
+        tok = int(torch.argmax(logits[0, -1]))
+    if not finite or tok != first.out_tokens[0]:
+        raise AssertionError(f"serve-int8: prefill logits finite {finite}, "
+                             f"token {tok} vs the engine's "
+                             f"{first.out_tokens[0]}")
+    summary = {k: v for k, v in stats.items() if k != "tenant_tokens"}
+    print(f"[serve-int8] {cfg.arch_id} {cfg.n_layers} layers d_model "
+          f"{cfg.d_model} {cfg.dtype} --quant int8: {json.dumps(summary)}",
+          flush=True)
+    print(f"[serve-int8] {len(leaves)} int8 leaves, serve.quant_bytes "
+          f"{gauge} = {gauge / 1e9:.3f} GB (expected from the shapes); "
+          f"prefill {stats['prefill_s'] * 1e3:.1f} ms over "
+          f"{stats['prefills']}, decode {stats['tok_per_s']:.2f} tok/s, p50 "
+          f"{stats['p50_s'] * 1e3:.1f} ms; kernel launches {launches} = 7 x "
+          f"{cfg.n_layers} x {stats['prefills']}; max_memory_allocated "
+          f"{loaded['peak'] / 2**30:.2f} GiB over the load, "
+          f"{loaded['held'] / 2**30:.2f} GiB held after it, "
+          f"{peak / 2**30:.2f} GiB over the serving; wall {took:.1f} s",
+          flush=True)
+    del engine, trace
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(stats=summary, launches=launches, quant_bytes=gauge,
+                max_memory_allocated=peak, load_peak=loaded["peak"],
+                load_held=loaded["held"], wall_s=took)
+
+
+def new_kernel_entries(quant, quant_path, chain):
+    """The ``kernels`` entries of this slice's modes.  int8 / fp8: the raw
+    kernel at the quant path's two MLP shapes (up + down), launches of the
+    quant path's run.  upcast: the int8 weighted family's four specs
+    through ``codegen.compile`` (no one library call computes them),
+    launches of that counted pass.  chain: ``chain_matmul`` and its three
+    derived specs at CHAIN_SHAPE in bf16, launches of the chain path's bf16
+    run, library ``torch.linalg.multi_dot``.  ``max_abs_err`` is the worst
+    over every case of the mode."""
+
+    def entry(name, source, parts, errs, launches):
+        total = lambda key: sum(r[key] for r in parts)  # noqa: E731
+        libs = [r["library_ms"] for r in parts]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": "src/repro/codegen/pallas_gen.py:263",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in errs),
+            "ms": total("ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
+                         else "bytes"),
+            "library_ms": None if None in libs else sum(libs),
+        }
+
+    q8 = "src/repro_torch/codegen/csrc/contract_q8.cu"
+    out = []
+    for fmt in ("int8", "fp8"):
+        rows = [r for r in quant["rows"] if r["dtype"] == fmt]
+        out.append(entry(f"contract_{fmt}", q8,
+                         [r for r in rows if r["shape"].startswith("mlp")],
+                         rows, quant_path["launches"][f"contract_{fmt}"]))
+    up = [r for r in quant["upcast"] if r["mode"] == "upcast"]
+    out.append(entry("contract_upcast", q8,
+                     [r for r in up if r["dtype"] == "int8"], up,
+                     quant["launches"]["contract_upcast"]))
+    bf16 = [r for r in chain["rows"] if r["dtype"] == "bfloat16"]
+    qchain = [r for r in quant["upcast"] if r["mode"] == "chain"]
+    out.append(entry("contract_chain",
+                     "src/repro_torch/codegen/csrc/contract_chain.cu", bf16,
+                     chain["rows"] + qchain,
+                     chain["paths"]["bfloat16"]["launches"]
+                     ["contract_chain"]))
+    return out
+
+
 def kernels_line(k_rows, b1_rows, g_rows, dw_rows, base_rows, launches):
     """One entry per kernel of the paths, each summed over one layer of one
     training step at the path's shapes (the remat recompute aside): B1 the
@@ -1901,13 +2660,19 @@ def main() -> int:
     dw_rows = _phase("grouped-dw", phase_grouped_dw)
     b1_mode_rows = _phase("b1-modes", phase_b1_modes)
     base_rows = _phase("baselines", phase_baselines)
+    quant = _phase("b1-quant", phase_b1_quant)
     _phase("small", phase_small_model)
     os.environ["REPRO_MOE_GROUPED"] = "1"
     _phase("small-moe", phase_small_moe)
     small_train = _phase("small-train", phase_small_train)
     fused_small = _phase("fused-small", phase_fused_small)
-    # this slice's path: the fused single-contraction ops at full width
+    # the fused single-contraction ops at full width (the earlier slice)
     fused = _phase("fused-path", phase_fused_path)
+    # this slice's paths: ops.dense(quant=), ops.chain_dense with its
+    # backward, and the small card-vs-CPU checks
+    quant_path = _phase("quant-path", phase_quant_path)
+    chain = _phase("chain", phase_chain)
+    quant_small = _phase("quant-small", phase_quant_small)
 
     # the training paths of the earlier slice: dense, then MoE
     train, cfg, run, params, state = _phase(
@@ -1942,8 +2707,12 @@ def main() -> int:
                           moe_trace[0], tag="moe_")
     del moe_trace, moe_engine
     _free()
+    # this slice's serving path: weight-only int8 at full width and depth
+    serve_int8 = _phase("serve-int8", phase_serve_int8)
+    _free()
 
     line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches)
+    line["kernels"] += new_kernel_entries(quant, quant_path, chain)
     SECONDS["total"] = time.perf_counter() - t_start
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
@@ -1965,6 +2734,9 @@ def main() -> int:
                    "moe_launches": moe_launches,
                    "moe_profile": moe_profiled,
                    "moe_max_memory_allocated": moe_peak,
+                   "b1_quant": quant, "quant_path": quant_path,
+                   "chain": chain, "quant_small": quant_small,
+                   "serve_int8": serve_int8,
                    "seconds": SECONDS, **line}, f, indent=1)
     print(f"[time] phases {json.dumps({k: round(v, 1) for k, v in SECONDS.items()})}",
           flush=True)

@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""B1's plain product, one tree against another, in turns on one card.
+
+    python3 scripts/chip_compare.py OLD_CHECKOUT NEW_CHECKOUT
+
+Runs, in a fresh process per turn and in the order old, new, new, old,
+three phases of each checkout's own ``chip_smoke.py``: ``kernel`` (B1 at
+the serving GEMMs), ``b1-train`` (B1 at one qwen3-8b layer's training
+GEMMs, forward and backward) and ``train`` (qwen3-8b at full width cut to
+8 layers, 5 steps), after building that checkout's ``contract.cu``.  Each
+turn prints one line ``COMPARE {...}``: the tree, B1's time per serve
+layer (the 7 GEMMs at M = 512), per train layer (the 7 forward and 14
+backward GEMMs at M = 2048) and the steady train step.  Needs one NVIDIA
+card; compare two versions only within one run of this script.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+TURN = r"""
+import dataclasses, json, os, sys
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cs.OUT, "autotune.json")
+os.environ["REPRO_PLAN_DB"] = os.path.join(cs.OUT, "plans.json")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+from repro_torch.codegen import build
+build.build("contract")
+build.load("contract")
+rows = cs.phase_kernel()
+b1 = cs.phase_b1_train()
+train, *_ = cs.phase_train(
+    "train", "qwen3-8b", cs.TRAIN_FLAGS,
+    lambda c: dataclasses.replace(c, n_layers=cs.TRAIN_LAYERS))
+serve = sum(r["ms"] * cs.LAYER_GEMMS[(r["K"], r["N"])] for r in rows
+            if r["M"] == 512 and r["dtype"] == "bfloat16")
+layer = sum(r["ms"] * cs.LAYER_GEMMS[(r["K"], r["N"])] for r in b1)
+print("COMPARE " + json.dumps({
+    "tree": sys.argv[1], "serve_layer_ms": serve, "train_layer_ms": layer,
+    "steady_step_ms": train["steady_step_s"] * 1e3,
+    "step_ms": [s * 1e3 for s in train["step_s"]]}), flush=True)
+"""
+
+
+def main(argv) -> int:
+    if len(argv) != 3:
+        raise SystemExit(__doc__)
+    old, new = (os.path.abspath(p) for p in argv[1:])
+    for tree in (old, new, new, old):
+        out = subprocess.run([sys.executable, "-c", TURN, tree], cwd=tree,
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
+            raise SystemExit(f"chip_compare: the turn in {tree} failed "
+                             f"(exit {out.returncode})")
+        print([ln for ln in out.stdout.splitlines()
+               if ln.startswith("COMPARE ")][-1], flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

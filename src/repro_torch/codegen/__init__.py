@@ -3,10 +3,12 @@
 The reference compiles a ``ContractionSpec`` + ``Schedule`` into a Pallas
 kernel.  The port keeps the pure half unchanged (``plan.build_plan``,
 ``schedules.default_schedule``, the tuner and its persistent cache, with
-the reference's key format) and lowers every two-operand contraction onto
-one hand-written CUDA kernel, ``csrc/contract.cu`` (``cuda_gen``), which
-also runs the epilogue (``epilogue.Epilogue``) and the weighted
-three-operand family; the grouped (MoE) fused family lowers onto ``csrc/grouped.cu`` (forward and
+the reference's key format) and lowers every product-reduce contraction
+onto B1's hand-written CUDA kernels (``cuda_gen``): ``csrc/contract.cu``
+for f32/bf16 operands, with the epilogue (``epilogue.Epilogue``) and the
+weighted three-operand family; ``csrc/contract_q8.cu`` for int8/fp8 specs
+and ``csrc/contract_chain.cu`` for the chain (their launchers in
+``modes``); the grouped (MoE) fused family lowers onto ``csrc/grouped.cu`` (forward and
 dX) and ``csrc/grouped_dw.cu`` (dW) (``fused_gen``).  All are built by
 ``nvcc`` at first use (``build``).
 

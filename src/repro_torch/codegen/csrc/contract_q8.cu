@@ -1,0 +1,624 @@
+// B1's 8-bit modes for Hopper: the int8 and fp8 (e4m3) contraction
+// C[b,m,n] = sum_k A[b,m,k] * B[b,k,n] on the tensor cores, and the upcast
+// body that runs every other spec over 8-bit (or mixed) operands on the
+// CUDA cores.
+//
+// Replaces the reference's generated Pallas contraction kernel for
+// quantized specs (src/repro/codegen/pallas_gen.py: CompiledKernel._build
+// -> _make_kernel, pl.pallas_call at :263).  There an int8 spec upcasts
+// its 1-byte operand blocks and accumulates exactly in an int32 VMEM
+// scratch (:158-163, :219-226); an fp8 spec accumulates in f32.  The
+// Python side (codegen/cuda_gen.py) folds the spec onto (batch, m, k, n)
+// as for the bf16/f32 kernel (contract.cu) and passes element strides.
+//
+// q8_mma_kernel<INT> (two 8-bit operands of one type):
+//   * int8: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, int32
+//     accumulators, exact (the same bits as the reference's int32 sums,
+//     which wrap modulo 2^32 like these);
+//   * fp8 e4m3: mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32.  The
+//     tensor cores keep fewer bits than f32 when they add into a running
+//     accumulator, so every k32 step's mma starts from zero and its four
+//     partial sums are added into f32 registers on the CUDA cores: the
+//     accumulation over K is the reference's f32 accumulation.
+//   A 64 x 128 CTA tile over 4 warps of 32 x 64, K in steps of 64 bytes.
+//   The 8-bit B fragment holds 4 consecutive k per register, which
+//   ldmatrix.trans (a b16 instruction) cannot build from an n-major tile,
+//   so shared memory holds both tiles k-major: As[m][k] and Bs[n][k], rows
+//   padded to 80 bytes (the 8 row groups x 4 lanes of a fragment load hit
+//   32 distinct banks).  Global loads are 16 bytes where the strides allow:
+//   A k-contiguous; B k-contiguous (``ops.dense(quant=)`` writes its
+//   quantized W that way, quantize_channels_kmajor) or n-contiguous (16
+//   bytes read along n, scattered into the k-major tile); else element by
+//   element.
+// upcast_kernel<INT>: the contraction on the CUDA cores over operands of
+//   any type the codes name (int8, fp8, int32, f32, bf16), each upcast to
+//   the accumulator type as it is staged, as the reference upcasts before
+//   its dot (pallas_gen.py:160-163): int32 IMAD for int8 specs, f32 FMA for
+//   fp8.  It runs the 3-operand modes of contract.cu on such operands: a
+//   per-k scale of the A tile (the weighted spec's g; the product a * g no
+//   longer fits 8 bits, so the tensor cores cannot take it), a multiplier
+//   of the accumulator (its .dA/.dB) and the deterministic row reduce (its
+//   .dg).  A 128 x 64 tile, 8 x 4 outputs per thread, as contract.cu's
+//   f32 body.  It is correct and not on a hot path.
+// Both end in the same epilogue on the accumulator converted to f32, in
+// the reference's order: dequant (qscale), scale, bias, (y - mean) *
+// rsqrt(var + eps), activation.  With no epilogue the accumulator is
+// stored as it is: an int8 spec's int32 result is exact.
+//
+// What bounds it on the H100: at qwen3-8b's MLP shapes (M = 2048, D =
+// 4096, F = 12288) an 8-bit product is 206 GOP on about 160 MB (1-byte
+// operands, f32 output), bound by the 1979 TOPS int8/fp8 tensor-core rate
+// (0.104 ms) over the bytes (0.048 ms).  This body is simple and right:
+// loads and math alternate, no cp.async or TMA pipeline, no wgmma; the
+// fp8 promotion costs four FADDs per mma.
+
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+extern "C" {
+
+// One vector operand: element (coord / div) % len of p, where coord is the
+// folded batch (axis 0), m (1), n (2) or k (3) coordinate.  kscale and mul
+// hold the accumulator type (int32 for int accumulation, else f32); the
+// epilogue vectors are f32.  p == nullptr means the stage is off.
+struct Vec {
+  const void* p;
+  long long div;
+  long long len;
+  int axis;
+  int pad;
+};
+
+// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 float8_e4m3fn, 4 int32.
+struct Q8Params {
+  const void* A;
+  const void* B;
+  void* C;
+  const void* T;  // row reduce: third operand T[m, n]
+  long long batch, M, N, K;
+  long long sAb, sAm, sAk, sBb, sBk, sBn, sCb, sCm, sCn, sTm, sTn;
+  Vec kscale;                  // prologue: A[b, m, k] *= kscale[k]
+  Vec mul;                     // the accumulator times a vector
+  Vec qscale, scale, bias, mean, var;  // the epilogue
+  void* partial;               // row reduce: (row blocks, N) accumulators
+  int* counter;                // row reduce: one zeroed int per column block
+  float eps;
+  int act;                     // 0 id, 1 relu, 2 gelu (tanh), 3 tanh, 4 silu
+  int a_dtype, b_dtype, t_dtype, out_dtype;
+  int acc_int;                 // 1: int32 accumulation, 0: f32
+  int pad;
+};
+
+}  // extern "C"
+
+namespace {
+
+constexpr int QBM = 64;
+constexpr int QBN = 128;
+constexpr int QBK = 64;  // bytes of k per stage: two m16n8k32 steps
+constexpr int QTHREADS = 128;
+constexpr int QLD = QBK + 16;  // padded row: 80 bytes = 20 banks
+
+constexpr int UBM = 128;
+constexpr int UBN = 64;
+constexpr int UBK = 32;
+constexpr int UTHREADS = 256;
+constexpr int UTM = 8;
+constexpr int UTN = 4;
+
+template <bool INT>
+struct AccOf {
+  using type = float;
+};
+template <>
+struct AccOf<true> {
+  using type = int;
+};
+
+__device__ __forceinline__ float fp8_to_f32(uint8_t v) {
+  __nv_fp8_e4m3 x;
+  x.__x = v;
+  return static_cast<float>(x);
+}
+
+__device__ __forceinline__ float load_f32(const void* p, long long i,
+                                          int code) {
+  switch (code) {
+    case 0:
+      return static_cast<const float*>(p)[i];
+    case 1:
+      return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+    case 2:
+      return static_cast<float>(static_cast<const int8_t*>(p)[i]);
+    case 3:
+      return fp8_to_f32(static_cast<const uint8_t*>(p)[i]);
+    default:
+      return static_cast<float>(static_cast<const int*>(p)[i]);
+  }
+}
+
+// int accumulation takes int8 or int32 operands (the Python side checks)
+__device__ __forceinline__ int load_i32(const void* p, long long i,
+                                        int code) {
+  return code == 2 ? static_cast<int>(static_cast<const int8_t*>(p)[i])
+                   : static_cast<const int*>(p)[i];
+}
+
+template <typename TAcc>
+__device__ __forceinline__ TAcc load_as(const void* p, long long i, int code);
+template <>
+__device__ __forceinline__ float load_as<float>(const void* p, long long i,
+                                                int code) {
+  return load_f32(p, i, code);
+}
+template <>
+__device__ __forceinline__ int load_as<int>(const void* p, long long i,
+                                            int code) {
+  return load_i32(p, i, code);
+}
+
+__device__ __noinline__ long long vec_index_slow(long long c, long long div,
+                                                 long long len) {
+  return (c / div) % len;
+}
+
+__device__ __forceinline__ long long vec_index(const Vec& v, long long b,
+                                               long long m, long long n,
+                                               long long k) {
+  const long long c = v.axis == 0 ? b : v.axis == 1 ? m : v.axis == 2 ? n : k;
+  return v.div == 1 && c < v.len ? c : vec_index_slow(c, v.div, v.len);
+}
+
+template <typename T>
+__device__ __forceinline__ T vec_at(const Vec& v, long long b, long long m,
+                                    long long n, long long k) {
+  return static_cast<const T*>(v.p)[vec_index(v, b, m, n, k)];
+}
+
+__device__ __forceinline__ float activate(int act, float z) {
+  switch (act) {
+    case 1:
+      return fmaxf(z, 0.f);
+    case 2: {
+      // jax.nn.gelu's default: the tanh approximation
+      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * z * (1.f + tanhf(c * (z + 0.044715f * z * z * z)));
+    }
+    case 3:
+      return tanhf(z);
+    case 4:
+      return z / (1.f + expf(-z));
+    default:
+      return z;
+  }
+}
+
+__device__ __forceinline__ bool has_epilogue(const Q8Params& p) {
+  return p.qscale.p || p.scale.p || p.bias.p || p.mean.p || p.act;
+}
+
+__device__ __forceinline__ float epilogue(const Q8Params& p, long long b,
+                                          long long m, long long n, float y) {
+  if (p.qscale.p) y *= vec_at<float>(p.qscale, b, m, n, 0);
+  if (p.scale.p) y *= vec_at<float>(p.scale, b, m, n, 0);
+  if (p.bias.p) y += vec_at<float>(p.bias, b, m, n, 0);
+  if (p.mean.p)
+    y = (y - vec_at<float>(p.mean, b, m, n, 0)) *
+        rsqrtf(vec_at<float>(p.var, b, m, n, 0) + p.eps);
+  return activate(p.act, y);
+}
+
+// Store one element: with no epilogue the accumulator itself (an int32
+// accumulator into an int32 output is exact), else the f32 epilogue of it,
+// converted as the reference's astype does (round to nearest even for
+// bf16, toward zero for int32).
+template <typename TAcc>
+__device__ __forceinline__ void store_out(const Q8Params& p, bool epi,
+                                          long long off, long long b,
+                                          long long m, long long n, TAcc acc) {
+  if (!epi) {
+    if (p.out_dtype == 4) {
+      static_cast<int*>(p.C)[off] = static_cast<int>(acc);
+      return;
+    }
+    const float y = static_cast<float>(acc);
+    if (p.out_dtype == 1)
+      static_cast<__nv_bfloat16*>(p.C)[off] = __float2bfloat16_rn(y);
+    else
+      static_cast<float*>(p.C)[off] = y;
+    return;
+  }
+  const float y = epilogue(p, b, m, n, static_cast<float>(acc));
+  if (p.out_dtype == 4)
+    static_cast<int*>(p.C)[off] = static_cast<int>(y);
+  else if (p.out_dtype == 1)
+    static_cast<__nv_bfloat16*>(p.C)[off] = __float2bfloat16_rn(y);
+  else
+    static_cast<float*>(p.C)[off] = y;
+}
+
+__device__ __forceinline__ uint32_t lds_u32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_k32(int (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_k32(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  // one k32 step from zero, added into the f32 accumulator on the CUDA
+  // cores (see the header)
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(s[0]), "+f"(s[1]), "+f"(s[2]), "+f"(s[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += s[e];
+}
+
+template <bool INT>
+__global__ void __launch_bounds__(QTHREADS) q8_mma_kernel(const Q8Params p) {
+  using TAcc = typename AccOf<INT>::type;
+  __shared__ __align__(16) uint8_t As[QBM][QLD];  // [m][k]
+  __shared__ __align__(16) uint8_t Bs[QBN][QLD];  // [n][k]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const int wm = (warp >> 1) * 32;
+  const int wn = (warp & 1) * 64;
+  const long long M = p.M, N = p.N, K = p.K;
+  const long long m0 = (long long)blockIdx.y * QBM;
+  const long long n0 = (long long)blockIdx.x * QBN;
+  const long long b = blockIdx.z;
+  const uint8_t* A = static_cast<const uint8_t*>(p.A) + b * p.sAb;
+  const uint8_t* B = static_cast<const uint8_t*>(p.B) + b * p.sBb;
+  const bool batch_ok = p.batch == 1 || (p.sAb % 16 == 0 && p.sBb % 16 == 0);
+  const bool a_vec = p.sAk == 1 && K % 16 == 0 && p.sAm % 16 == 0 &&
+                     batch_ok &&
+                     reinterpret_cast<uintptr_t>(p.A) % 16 == 0;
+  const bool b_kvec = p.sBk == 1 && K % 16 == 0 && p.sBn % 16 == 0 &&
+                      batch_ok &&
+                      reinterpret_cast<uintptr_t>(p.B) % 16 == 0;
+  const bool b_nvec = !b_kvec && p.sBn == 1 && N % 16 == 0 &&
+                      p.sBk % 16 == 0 && batch_ok &&
+                      reinterpret_cast<uintptr_t>(p.B) % 16 == 0;
+
+  TAcc acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  for (long long k0 = 0; k0 < K; k0 += QBK) {
+    if (a_vec) {
+      // 64 rows x 4 chunks of 16 k
+#pragma unroll
+      for (int i = 0; i < QBM * QBK / 16 / QTHREADS; ++i) {
+        const int v = tid + i * QTHREADS;
+        const int r = v >> 2;
+        const int c = (v & 3) * 16;
+        const long long m = m0 + r, k = k0 + c;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (m < M && k < K)
+          val = *reinterpret_cast<const uint4*>(A + m * p.sAm + k);
+        *reinterpret_cast<uint4*>(&As[r][c]) = val;
+      }
+    } else {
+      // k fastest unless A is m-contiguous
+      const bool kfast = p.sAk == 1 || p.sAm != 1;
+      for (int i = 0; i < QBM * QBK / QTHREADS; ++i) {
+        const int e = tid + i * QTHREADS;
+        const int r = kfast ? e / QBK : e % QBM;
+        const int c = kfast ? e % QBK : e / QBM;
+        const long long m = m0 + r, k = k0 + c;
+        As[r][c] = (m < M && k < K) ? A[m * p.sAm + k * p.sAk] : 0;
+      }
+    }
+    if (b_kvec) {
+      // 128 n rows x 4 chunks of 16 k
+#pragma unroll
+      for (int i = 0; i < QBN * QBK / 16 / QTHREADS; ++i) {
+        const int v = tid + i * QTHREADS;
+        const int r = v >> 2;
+        const int c = (v & 3) * 16;
+        const long long n = n0 + r, k = k0 + c;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (n < N && k < K)
+          val = *reinterpret_cast<const uint4*>(B + n * p.sBn + k);
+        *reinterpret_cast<uint4*>(&Bs[r][c]) = val;
+      }
+    } else if (b_nvec) {
+      // 64 k rows x 8 chunks of 16 n, scattered into the k-major tile
+#pragma unroll
+      for (int i = 0; i < QBN * QBK / 16 / QTHREADS; ++i) {
+        const int v = tid + i * QTHREADS;
+        const int kk = v & (QBK - 1);
+        const int c = (v / QBK) * 16;
+        const long long k = k0 + kk, n = n0 + c;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (k < K && n < N)
+          val = *reinterpret_cast<const uint4*>(B + k * p.sBk + n);
+        const uint8_t* e = reinterpret_cast<const uint8_t*>(&val);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) Bs[c + j][kk] = e[j];
+      }
+    } else {
+      const bool nfast = p.sBn == 1 && p.sBk != 1;
+      for (int i = 0; i < QBN * QBK / QTHREADS; ++i) {
+        const int e = tid + i * QTHREADS;
+        const int c = nfast ? e % QBN : e / QBK;
+        const int kk = nfast ? e / QBN : e % QBK;
+        const long long n = n0 + c, k = k0 + kk;
+        Bs[c][kk] = (k < K && n < N) ? B[k * p.sBk + n * p.sBn] : 0;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < QBK; ks += 32) {
+      uint32_t af[2][4];
+      uint32_t bf[8][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm + mi * 16 + g;
+        af[mi][0] = lds_u32(&As[r][ks + 4 * t]);
+        af[mi][1] = lds_u32(&As[r + 8][ks + 4 * t]);
+        af[mi][2] = lds_u32(&As[r][ks + 16 + 4 * t]);
+        af[mi][3] = lds_u32(&As[r + 8][ks + 16 + 4 * t]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int c = wn + ni * 8 + g;
+        bf[ni][0] = lds_u32(&Bs[c][ks + 4 * t]);
+        bf[ni][1] = lds_u32(&Bs[c][ks + 16 + 4 * t]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) mma_k32(acc[mi][ni], af[mi], bf[ni]);
+    }
+    __syncthreads();
+  }
+
+  // accumulator fragment: e = 2h + j holds row g + 8h, column 2t + j
+  const bool epi = has_epilogue(p);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = m0 + wm + mi * 16 + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const long long n = n0 + wn + ni * 8 + 2 * t + j;
+          if (n < N)
+            store_out<TAcc>(p, epi, b * p.sCb + m * p.sCm + n * p.sCn, b, m,
+                            n, acc[mi][ni][2 * h + j]);
+        }
+    }
+}
+
+// The row-reduce mode's last step (contract.cu's, in the accumulator
+// type): the last CTA of this column block sums the partial rows in
+// row-block order and stores C[n].
+template <typename TAcc>
+__device__ __forceinline__ void finish_row_reduce(const Q8Params& p,
+                                                  long long N, long long n) {
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(p.counter + blockIdx.x, 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!is_last || n >= N) return;
+  __threadfence();
+  const TAcc* part = static_cast<const TAcc*>(p.partial);
+  TAcc s = 0;
+  for (int r = 0; r < (int)gridDim.y; ++r)
+    s += __ldcg(part + (long long)r * N + n);
+  store_out<TAcc>(p, false, n * p.sCn, 0, 0, n, s);
+}
+
+template <bool INT>
+__global__ void __launch_bounds__(UTHREADS) upcast_kernel(const Q8Params p) {
+  using TAcc = typename AccOf<INT>::type;
+  // A is stored k-major with one pad column (conflict-free transposing
+  // stores, as contract.cu's f32 body)
+  __shared__ TAcc As[UBK][UBM + 1];
+  __shared__ TAcc Bs[UBK][UBN];
+  __shared__ TAcc Red[UTHREADS / 32][UBN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const long long M = p.M, N = p.N, K = p.K;
+  const long long m0 = (long long)blockIdx.y * UBM;
+  const long long n0 = (long long)blockIdx.x * UBN;
+  const long long b = blockIdx.z;
+  const char* A = static_cast<const char*>(p.A);
+  const char* B = static_cast<const char*>(p.B);
+  const long long aoff = b * p.sAb, boff = b * p.sBb;
+  const bool kscale = p.kscale.p != nullptr;
+
+  TAcc acc[UTM][UTN];
+#pragma unroll
+  for (int i = 0; i < UTM; ++i)
+#pragma unroll
+    for (int j = 0; j < UTN; ++j) acc[i][j] = 0;
+
+  for (long long k0 = 0; k0 < K; k0 += UBK) {
+    for (int i = 0; i < UBM * UBK / UTHREADS; ++i) {
+      const int e = tid + i * UTHREADS;
+      const int r = e / UBK;
+      const int c = e % UBK;
+      const long long m = m0 + r, k = k0 + c;
+      TAcc v = 0;
+      if (m < M && k < K) {
+        v = load_as<TAcc>(A, aoff + m * p.sAm + k * p.sAk, p.a_dtype);
+        if (kscale) v *= vec_at<TAcc>(p.kscale, b, m, 0, k);
+      }
+      As[c][r] = v;
+    }
+    for (int i = 0; i < UBK * UBN / UTHREADS; ++i) {
+      const int e = tid + i * UTHREADS;
+      const int r = e / UBN;
+      const int c = e % UBN;
+      const long long k = k0 + r, n = n0 + c;
+      Bs[r][c] = (k < K && n < N)
+                     ? load_as<TAcc>(B, boff + k * p.sBk + n * p.sBn,
+                                     p.b_dtype)
+                     : TAcc(0);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < UBK; ++kk) {
+      TAcc a[UTM];
+      TAcc bv[UTN];
+#pragma unroll
+      for (int i = 0; i < UTM; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < UTN; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < UTM; ++i)
+#pragma unroll
+        for (int j = 0; j < UTN; ++j) acc[i][j] += a[i] * bv[j];
+    }
+    __syncthreads();
+  }
+
+  if (p.mul.p) {
+#pragma unroll
+    for (int i = 0; i < UTM; ++i) {
+      const long long m = m0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < UTN; ++j) {
+        const long long n = n0 + tx + 16 * j;
+        if (m < M && n < N) acc[i][j] *= vec_at<TAcc>(p.mul, b, m, n, 0);
+      }
+    }
+  }
+
+  if (p.T) {
+    // row reduce: column sums of acc * T over this CTA's 128 rows
+    TAcc cs[UTN];
+#pragma unroll
+    for (int j = 0; j < UTN; ++j) cs[j] = 0;
+#pragma unroll
+    for (int i = 0; i < UTM; ++i) {
+      const long long m = m0 + ty + 16 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < UTN; ++j) {
+        const long long n = n0 + tx + 16 * j;
+        if (n < N)
+          cs[j] += acc[i][j] *
+                   load_as<TAcc>(p.T, m * p.sTm + n * p.sTn, p.t_dtype);
+      }
+    }
+    // lanes l and l + 16 of a warp share columns: rows ty and ty + 1
+#pragma unroll
+    for (int j = 0; j < UTN; ++j)
+      cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 16);
+    if ((tid & 31) < 16)
+#pragma unroll
+      for (int j = 0; j < UTN; ++j) Red[tid / 32][tx + 16 * j] = cs[j];
+    __syncthreads();
+    long long n = N;
+    if (tid < UBN) {
+      n = n0 + tid;
+      TAcc s = 0;
+#pragma unroll
+      for (int w = 0; w < UTHREADS / 32; ++w) s += Red[w][tid];
+      if (n < N)
+        static_cast<TAcc*>(p.partial)[(long long)blockIdx.y * N + n] = s;
+    }
+    finish_row_reduce<TAcc>(p, N, n);
+    return;
+  }
+
+  const bool epi = has_epilogue(p);
+#pragma unroll
+  for (int i = 0; i < UTM; ++i) {
+    const long long m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < UTN; ++j) {
+      const long long n = n0 + tx + 16 * j;
+      if (n < N)
+        store_out<TAcc>(p, epi, b * p.sCb + m * p.sCm + n * p.sCn, b, m, n,
+                        acc[i][j]);
+    }
+  }
+}
+
+bool valid(const Q8Params& p) {
+  const bool out_ok = p.out_dtype == 0 || p.out_dtype == 1 ||
+                      p.out_dtype == 4;
+  return out_ok && (p.mean.p == nullptr) == (p.var.p == nullptr) &&
+         p.act >= 0 && p.act <= 4 && (!p.T || p.batch == 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Two 8-bit operands of one type (a_dtype == b_dtype, 2 int8 or 3 fp8) on
+// the tensor cores.  Strides are in elements (bytes).  Returns
+// cudaGetLastError() after the launch (0 = launched); nothing is
+// synchronised or allocated here.
+int q8_launch(const Q8Params* p, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!valid(*p) || p->a_dtype != p->b_dtype ||
+      (p->a_dtype != 2 && p->a_dtype != 3) || p->T || p->kscale.p ||
+      p->mul.p || p->acc_int != (p->a_dtype == 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)((p->N + QBN - 1) / QBN),
+                  (unsigned)((p->M + QBM - 1) / QBM), (unsigned)p->batch);
+  if (p->a_dtype == 2)
+    q8_mma_kernel<true><<<grid, QTHREADS, 0, s>>>(*p);
+  else
+    q8_mma_kernel<false><<<grid, QTHREADS, 0, s>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Any operand types on the CUDA cores (int accumulation: int8 or int32
+// operands only), with the k-scale, multiplier and row-reduce modes.  The
+// row reduce needs batch 1, a (row blocks, N) partial buffer of the
+// accumulator type and one zeroed int per column block (upcast_tile_*).
+int upcast_launch(const Q8Params* p, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)((p->N + UBN - 1) / UBN),
+                  (unsigned)((p->M + UBM - 1) / UBM), (unsigned)p->batch);
+  if (p->acc_int)
+    upcast_kernel<true><<<grid, UTHREADS, 0, s>>>(*p);
+  else
+    upcast_kernel<false><<<grid, UTHREADS, 0, s>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int q8_tile_m(void) { return QBM; }
+int q8_tile_n(void) { return QBN; }
+int upcast_tile_m(void) { return UBM; }
+int upcast_tile_n(void) { return UBN; }
+
+// sizeof(Q8Params), checked against the ctypes mirror at load.
+int q8_params_size(void) { return (int)sizeof(Q8Params); }
+
+}  // extern "C"

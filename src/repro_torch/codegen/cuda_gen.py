@@ -2,8 +2,8 @@
 
 The reference lowers a (spec, schedule) pair to a Pallas kernel whose grid
 and blocks follow the ``KernelPlan``.  The port lowers every product-reduce
-spec it takes onto ONE hand-written Hopper kernel (``csrc/contract.cu``),
-the strided batched contraction
+spec onto hand-written Hopper kernels, B1's modes; f32 and bf16 operands
+run ``csrc/contract.cu``, the strided batched contraction
 
     C[b, m, n] = sum_k A[b, m, k] * B[b, k, n]      (f32 accumulation)
 
@@ -14,9 +14,9 @@ by folding two operands' indices into four groups:
     n      output indices of B only
     k      reduce indices shared by A and B
 
-A reduce index held by one operand only is summed out first (in f32, as
-the reference's ``_contract`` sums it), the operands are passed as permuted
-views with their strides (a copy only where a group of indices cannot be
+A reduce index held by one operand only is summed out first (in the
+accumulator's type, as the reference's ``_contract`` sums it), the
+operands are passed as permuted views with their strides (a copy only where a group of indices cannot be
 flattened into one stride), and the (batch, m, n) result is permuted back
 to ``spec.output`` order.  Matmul, transposed, batched and tensor
 contractions all run on the same kernel.  A bf16 operand whose innermost
@@ -24,7 +24,7 @@ folded axis is not unit-stride (the backward's transposed operands) is
 copied contiguous first, so the kernel takes its 16-byte load body.
 
 Three-operand specs are classified by their index sets, not their names
-(``_classify``), into the kernel's two extra modes, one launch each:
+(``_classify``), into the kernel's extra modes, one launch each:
 
     vector      a 1-D operand whose index lies in a group of the other two's
                 product: on k it scales the A tile as it is staged (in f32,
@@ -37,30 +37,44 @@ Three-operand specs are classified by their index sets, not their names
                 (the derived ``weighted_matmul.dg``,
                 dg_j = sum_i A_ij (dout . B^T)_ij), summed deterministically
                 (per-CTA partial rows, then the last CTA of each column
-                block adds them in order; no float atomics).
+                block adds them in order; no float atomics);
+    chain       three matrices X(r,p), Y(p,q), Z(q,c) into (r, c), two
+                reductions: ``chain_matmul`` A@B@C and its derived ``.dA``,
+                ``.dB``, ``.dC`` (``csrc/contract_chain.cu``; the
+                intermediate X.Y never reaches device memory).  Of the two
+                associations the kernel runs the one that recomputes less,
+                the counterpart of the reference's smallest intermediate
+                first.
 
-Any other spec of three or more operands (the chain A@B@C, two reductions)
-raises ``NotImplementedError`` naming ROADMAP.md queue A item 2b.
+Int8 and fp8 specs (``QuantMeta``) accumulate as the reference's do
+(``pallas_gen.py:219-226``): int32 for int8, exact; f32 for fp8.  A
+product of two 8-bit operands runs on the tensor cores
+(``csrc/contract_q8.cu``, ``CONTRACT_INT8`` / ``CONTRACT_FP8``); their
+vector and row-reduce modes upcast on the CUDA cores (``CONTRACT_UPCAST``);
+the quantized chain runs the chain kernel's CUDA-core body.  The launchers
+are in ``codegen.modes``.
 
-The ``Epilogue`` (``codegen.epilogue``: scale, bias, normalization,
-activation) runs on the f32 accumulator before the one store; its vectors
-run along ``spec.output[-1]``, which the kernel finds in whichever folded
-group (batch, m or n) holds it.  ``CompiledKernel.__call__`` takes them by
-keyword, as the reference's does.  The output dtype follows the
-reference's rule (``pallas_gen.py:249-261``): ``out_dtype`` when given,
-else the first operand's.
+The ``Epilogue`` (``codegen.epilogue``: dequant, scale, bias,
+normalization, activation) runs on the accumulator, converted to f32,
+before the one store; its vectors run along ``spec.output[-1]``, which the
+kernel finds in whichever folded group (batch, m or n) holds it.
+``CompiledKernel.__call__`` takes them by keyword, as the reference's
+does.  The output dtype follows the reference's rule
+(``pallas_gen.py:246-261``): ``out_dtype`` when given; else for an int8
+spec int32 and for an fp8 spec f32, or f32 under a dequant epilogue; else
+the first operand's.
 
 The plan still decides shapes (operand checks, the memo key), but not the
 kernel's grid: the reference tuner scores a TPU and often picks a single
-block, while the CUDA kernel tiles the output into its own CTAs (64 x 128
-on the tensor cores for bf16 operands, 128 x 64 on the FMA pipes for f32).
+block, while the CUDA kernels tile the output into their own CTAs (64 x
+128 on the tensor cores, 128 x 64 on the FMA pipes for f32).
 
-Devices: on a CUDA tensor the call launches the kernel (or raises); on a
+Devices: on a CUDA tensor the call launches a kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
 falls back from one to the other.  Fused specs (``fused_kind`` set) go to
 ``fused_gen.compile_fused`` (the grouped matmul, kernels B3 and B4).
-Int8/fp8 specs and meshes are later slices and raise
-``NotImplementedError`` naming the ``ROADMAP.md`` queue-A item.
+Meshes are a later slice and raise ``NotImplementedError`` naming the
+``ROADMAP.md`` queue-A item.
 """
 
 from __future__ import annotations
@@ -69,14 +83,25 @@ import ctypes
 import dataclasses
 import json
 import math
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..core.enumerate import ContractionSpec, einsum_formula
 from ..core.schedule import Schedule
 from .cache import dtype_name
-from .epilogue import ACT_CODES, Epilogue
+from .epilogue import Epilogue
+from .modes import (
+    CONTRACT_CHAIN,
+    CONTRACT_FP8,
+    CONTRACT_INT8,
+    CONTRACT_UPCAST,
+    VecArg,
+    _Vec,
+    chain_tile_n,
+    set_epilogue,
+    set_vec,
+)
 from .plan import KernelPlan, build_plan
 
 #: operand / output dtypes the kernel takes, with its dtype codes
@@ -88,17 +113,76 @@ def _torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype_name(dtype))
 
 
-def _einsum_f32(spec: ContractionSpec, operands) -> torch.Tensor:
-    """The spec's product-sum over f32 upcasts.  A three-operand spec (only
-    ``_classify``'s weighted family is taken) folds its third operand as
-    the reference's ``_contract`` does, never through an (i, j, k)
-    intermediate: a vector multiplies the operand that holds its index; a
-    row reduce forms the product of the other two on T's indices, then
-    multiplies by T and sums."""
-    arrays = {name: o.float() for name, o in zip(spec.operands, operands)}
+def _int_accum(spec: ContractionSpec) -> bool:
+    quant = getattr(spec.root(), "quant", None)
+    return quant is not None and quant.accum == "int32"
+
+
+def _greedy_fold(spec: ContractionSpec, arrays: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    """The reference's ``_contract`` fold (``pallas_gen.py:42-108``):
+    operands are contracted pairwise, the pair with the smallest result
+    first; an index shared with a later operand or the output stays."""
+    letters = {i: chr(ord("a") + n) for n, i in enumerate(spec.root().indices)}
+    sub = lambda axes: "".join(letters[i] for i in axes)  # noqa: E731
+    out = spec.output
+    terms = [(arrays[n], list(spec.operands[n])) for n in spec.operands]
+    while len(terms) > 1:
+        best = None
+        for x in range(len(terms)):
+            for y in range(x + 1, len(terms)):
+                (a, ax), (b, bx) = terms[x], terms[y]
+                rest = {i for z, (_, axs) in enumerate(terms)
+                        if z not in (x, y) for i in axs}
+                shared = [i for i in ax if i in bx]
+                batch = [i for i in shared if i in out or i in rest]
+                res = (batch + [i for i in ax if i not in shared]
+                       + [i for i in bx if i not in shared])
+                sizes = {**dict(zip(bx, b.shape)), **dict(zip(ax, a.shape))}
+                elems = math.prod(sizes[i] for i in res)
+                if best is None or elems < best[0]:
+                    best = (elems, x, y, res)
+        _, x, y, res = best
+        (a, ax), (b, bx) = terms[x], terms[y]
+        val = torch.einsum(f"{sub(ax)},{sub(bx)}->{sub(res)}", a, b)
+        terms = [t for z, t in enumerate(terms) if z not in (x, y)]
+        terms.insert(0, (val, res))
+    val, axes = terms[0]
+    extra = [i for i in axes if i not in out]
+    if extra:  # reduce axes touched by a single operand
+        val = val.sum(dim=[axes.index(i) for i in extra])
+        axes = [i for i in axes if i not in extra]
+    return val.permute([axes.index(i) for i in out])
+
+
+def _accumulate(spec: ContractionSpec, operands) -> torch.Tensor:
+    """The spec's product-sum in its accumulator: f32 over f32 upcasts, or
+    int32 for an int8 spec.  Int32 sums are exact here (int64 on the CPU;
+    float64 on the card, which has no integer matmul, exact below 2**53),
+    then wrap to int32 as the kernel's and the reference's do.  A
+    three-operand spec folds as the reference's ``_contract`` does, never
+    through an (i, j, k) intermediate: a vector multiplies the operand
+    that holds its index; a row reduce forms the product of the other two
+    on T's indices, then multiplies by T and sums; the chain contracts the
+    pair with the smaller intermediate first."""
+    dev = operands[0].device
+    wide = torch.float32
+    if _int_accum(spec):
+        wide = torch.int64 if dev.type == "cpu" else torch.float64
+    arrays = {name: o.to(wide) for name, o in zip(spec.operands, operands)}
     if len(arrays) <= 2:
-        return torch.einsum(einsum_formula(spec), *arrays.values())
+        acc = torch.einsum(einsum_formula(spec), *arrays.values())
+    else:
+        acc = _fold_three(spec, arrays)
+    if wide is not torch.float32:
+        acc = acc.to(torch.int64).to(torch.int32)
+    return acc
+
+
+def _fold_three(spec: ContractionSpec, arrays) -> torch.Tensor:
     fold = _classify(spec)
+    if fold.kind == "chain":
+        return _greedy_fold(spec, arrays)
     ops = spec.operands
     letters = {i: chr(ord("a") + n) for n, i in enumerate(spec.root().indices)}
     sub = lambda axes: "".join(letters[i] for i in axes)  # noqa: E731
@@ -121,26 +205,18 @@ def contract_ref(spec: ContractionSpec, *operands: torch.Tensor,
                  out_dtype, epilogue: Optional[Epilogue] = None,
                  vectors: Optional[Dict[str, torch.Tensor]] = None
                  ) -> torch.Tensor:
-    """The plain PyTorch version: the product-sum over float32 upcasts
-    (a three-operand spec's third operand folded first),
-    then the epilogue with its vectors along the last output axis, then
-    the cast."""
-    acc = _einsum_f32(spec, operands)
+    """The plain PyTorch version: the product-sum in the spec's
+    accumulator (``_accumulate``), then the epilogue with its vectors
+    along the last output axis (on the accumulator converted to f32),
+    then the cast."""
+    acc = _accumulate(spec, operands)
     if epilogue is not None and not epilogue.is_identity:
         lead = (1,) * (len(spec.output) - 1)
-        acc = epilogue.apply(acc, {
+        acc = epilogue.apply(acc.float(), {
             name: vectors[name].float().reshape(lead + (-1,))
             for name in epilogue.vector_names
         })
     return acc.to(_torch_dtype(out_dtype))
-
-
-class _Vec(ctypes.Structure):
-    """``struct Vec`` of contract.cu."""
-
-    _fields_ = [("p", ctypes.c_void_p), ("div", ctypes.c_longlong),
-                ("len", ctypes.c_longlong), ("axis", ctypes.c_int),
-                ("pad", ctypes.c_int)]
 
 
 class _Params(ctypes.Structure):
@@ -160,16 +236,6 @@ class _Params(ctypes.Structure):
            ("act", ctypes.c_int), ("in_dtype", ctypes.c_int),
            ("out_dtype", ctypes.c_int)]
     )
-
-
-class VecArg(NamedTuple):
-    """A vector operand of the kernel: element ``(coord // div) % len`` of
-    ``tensor`` (f32, contiguous, on the card) scales or shifts the output
-    at folded coordinate ``coord`` of ``axis`` (0 batch, 1 m, 2 n, 3 k)."""
-
-    tensor: torch.Tensor
-    axis: int
-    div: int = 1
 
 
 class ContractLauncher:
@@ -258,35 +324,13 @@ class ContractLauncher:
         p.sAb, p.sAm, p.sAk = a.stride()
         p.sBb, p.sBk, p.sBn = b.stride()
         extents = (batch, m, n, k)
-        for field, vec in (("kscale", kscale), ("mul", mul),
-                           *(((name, v) for name, v in
-                              (vectors or {}).items()))):
-            if vec is None:
-                continue
-            x = vec.tensor
-            if x.device != a.device or x.dtype != torch.float32 or (
-                x.dim() != 1 or not x.is_contiguous()
-            ):
-                raise ValueError(f"contract kernel: vector {field} must be a "
-                                 f"contiguous 1-D float32 tensor on "
-                                 f"{a.device}")
-            axes = (3,) if field == "kscale" else (0, 1, 2)
-            if vec.axis not in axes or vec.div < 1 or x.numel() < 1 or (
-                x.numel() * vec.div > max(extents[vec.axis], 1)
-            ):
-                raise ValueError(f"contract kernel: vector {field} of "
-                                 f"{x.numel()} elements (div {vec.div}) does "
-                                 f"not fit axis {vec.axis}")
-            setattr(p, field, _Vec(p=x.data_ptr(), div=vec.div,
-                                   len=x.numel(), axis=vec.axis))
-        if epilogue is not None:
-            want = set(epilogue.vector_names)
-            if want != set(vectors or {}):
-                raise TypeError(f"contract kernel: epilogue vectors "
-                                f"{sorted(vectors or {})}, expected "
-                                f"{sorted(want)}")
-            p.act = ACT_CODES[epilogue.act]
-            p.eps = epilogue.eps
+        if kscale is not None:
+            set_vec(p, "kscale", kscale, a.device, torch.float32, (3,),
+                    extents)
+        if mul is not None:
+            set_vec(p, "mul", mul, a.device, torch.float32, (0, 1, 2),
+                    extents)
+        set_epilogue(p, epilogue, vectors, a.device, (0, 1, 2), extents)
         if t is not None:
             if batch != 1 or tuple(t.shape) != (m, n) or t.dtype != a.dtype or (
                 t.device != a.device or min(t.stride()) < 0
@@ -353,9 +397,10 @@ def _two_sided(ia, ib, out) -> bool:
 class Fold:
     """How a spec reaches the kernel: ``a`` and ``b`` are the GEMM's
     operands, folded into ``target`` (the spec's output, or T's indices
-    for a row reduce); ``extra`` is the vector or T."""
+    for a row reduce); ``extra`` is the vector or T.  A chain is X(r,p)
+    = ``a``, Y(p,q) = ``b``, Z(q,c) = ``extra``."""
 
-    kind: str                   # "gemm" | "vector" | "row_reduce"
+    kind: str                   # "gemm" | "vector" | "row_reduce" | "chain"
     a: str
     b: str
     target: Tuple[str, ...]
@@ -387,11 +432,35 @@ def _classify(spec: ContractionSpec) -> Fold:
                 return Fold("row_reduce", x, y, it, t)
             if tuple(m) == tuple(out):
                 return Fold("row_reduce", y, x, it, t)
+        chain = _chain_fold(ops, out)
+        if chain is not None:
+            return chain
     raise NotImplementedError(
-        f"{spec.name}: {len(names)}-operand specs outside the weighted "
-        f"family (the chain A@B@C, two reductions) come with B1's chain "
-        f"mode, ROADMAP.md queue A item 2b"
+        f"{spec.name}: {len(names)} operands {dict(ops)} -> {out} fit none "
+        f"of the kernel's modes (a product of two, a vector on one side, a "
+        f"row reduce, a chain of three matrices)"
     )
+
+
+def _chain_fold(ops, out) -> Optional[Fold]:
+    """Three matrices X(r,p), Y(p,q), Z(q,c) into (r, c), with p, q, r and c
+    distinct: the chain and its derived specs, whatever each operand's
+    orientation."""
+    if len(out) != 2 or any(len(ix) != 2 for ix in ops.values()):
+        return None
+    r, c = out
+    holds = lambda i: [n for n, ix in ops.items() if i in ix]  # noqa: E731
+    if len(holds(r)) != 1 or len(holds(c)) != 1:
+        return None
+    (x,), (z,) = holds(r), holds(c)
+    if x == z:
+        return None
+    (y,) = [n for n in ops if n not in (x, z)]
+    (p,) = [i for i in ops[x] if i != r]
+    (q,) = [i for i in ops[z] if i != c]
+    if len({r, c, p, q}) != 4 or set(ops[y]) != {p, q}:
+        return None
+    return Fold("chain", x, y, out, z)
 
 
 def _group_of(index, batch, m, n, k, ext) -> Tuple[int, int]:
@@ -403,13 +472,69 @@ def _group_of(index, batch, m, n, k, ext) -> Tuple[int, int]:
     raise AssertionError(f"index {index} in no folded group")
 
 
+def _chain_cost(r, p, q, c, tile_n) -> int:
+    """Multiply-adds of the chain kernel on X(r,p) Y(p,q) Z(q,c): each CTA
+    recomputes its rows of T = X.Y once per column block."""
+    return r * p * q * -(-c // tile_n) + r * q * c
+
+
+def _launch_chain(spec: ContractionSpec, fold: Fold, operands, out_dtype,
+                  epilogue, vectors) -> torch.Tensor:
+    """One launch of the chain kernel, in the association that recomputes
+    less: (X.Y).Z as written, or X.(Y.Z) as the transposed chain
+    Z^T Y^T X^T written into C^T.  Operands go as (transposed) views with
+    their strides: no copies."""
+    arrays = dict(zip(spec.operands, operands))
+    ops = spec.operands
+    r, c = spec.output
+    (p,) = [i for i in ops[fold.a] if i != r]
+    (q,) = [i for i in ops[fold.extra] if i != c]
+    mat = lambda name, rows: (arrays[name] if ops[name][0] == rows  # noqa
+                              else arrays[name].t())
+    x, y, z = mat(fold.a, r), mat(fold.b, p), mat(fold.extra, q)
+    if len({x.dtype, y.dtype, z.dtype}) != 1:
+        dt = torch.promote_types(torch.promote_types(x.dtype, y.dtype),
+                                 z.dtype)
+        x, y, z = x.to(dt), y.to(dt), z.to(dt)
+    ext = spec.extents
+    tile_n = chain_tile_n(x.dtype)
+    right = _chain_cost(ext[c], ext[q], ext[p], ext[r], tile_n) < _chain_cost(
+        ext[r], ext[p], ext[q], ext[c], tile_n)
+    kw = {}
+    if epilogue is not None and not epilogue.is_identity:
+        vecs = {}
+        for name in epilogue.vector_names:
+            v = vectors[name].float().reshape(-1).contiguous()
+            if v.numel() != ext[c]:
+                raise ValueError(f"epilogue vector {name}: {v.numel()} "
+                                 f"elements for output axis {c!r} of extent "
+                                 f"{ext[c]}")
+            vecs[name] = VecArg(v, 1 if right else 2)
+        kw.update(epilogue=epilogue, vectors=vecs)
+    out = torch.empty((ext[r], ext[c]), dtype=out_dtype, device=x.device)
+    if right:
+        CONTRACT_CHAIN(z.t(), y.t(), x.t(), out_dtype, out=out.t(), **kw)
+    else:
+        CONTRACT_CHAIN(x, y, z, out_dtype, out=out, **kw)
+    return out
+
+
 def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
                  out_dtype: torch.dtype, epilogue: Optional[Epilogue] = None,
                  vectors: Optional[Dict[str, torch.Tensor]] = None,
                  fold: Optional[Fold] = None) -> torch.Tensor:
-    """Fold the spec onto the kernel (``fold``: ``_classify``'s, computed
-    here when not given), launch it once and unfold the result."""
+    """Fold the spec onto a kernel (``fold``: ``_classify``'s, computed
+    here when not given), launch it once and unfold the result.
+
+    Launcher by operands: a chain runs ``CONTRACT_CHAIN``; two int8 or two
+    fp8 operands of a product ``CONTRACT_INT8`` / ``CONTRACT_FP8``; any
+    other 8-bit or integer operands (an int8/fp8 spec's vector and
+    row-reduce modes) ``CONTRACT_UPCAST``; f32 and bf16 ``CONTRACT``."""
     fold = fold or _classify(spec)
+    if fold.kind == "chain":
+        return _launch_chain(spec, fold, operands, out_dtype, epilogue,
+                             vectors)
+    int_acc = _int_accum(spec)
     arrays = dict(zip(spec.operands, operands))
     ext = spec.extents
     a, b = arrays[fold.a], arrays[fold.b]
@@ -419,15 +544,22 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
         a_only = [i for i in ia if i not in ib and i not in target]
         b_only = [i for i in ib if i not in ia and i not in target]
         if a_only or b_only:
-            # summed out first, in f32 like the reference's single-operand
-            # sum
-            a = (a.float().sum(dim=[ia.index(i) for i in a_only])
-                 if a_only else a)
-            b = (b.float().sum(dim=[ib.index(i) for i in b_only])
-                 if b_only else b)
+            # summed out first in the accumulator's type, like the
+            # reference's single-operand sum
+            def side_sum(x, axes, dims):
+                if not dims:
+                    return x
+                if int_acc:
+                    return x.to(torch.int64).sum(
+                        dim=[axes.index(i) for i in dims]).to(torch.int32)
+                return x.float().sum(dim=[axes.index(i) for i in dims])
+
+            a, b = side_sum(a, ia, a_only), side_sum(b, ib, b_only)
             ia = tuple(i for i in ia if i not in a_only)
             ib = tuple(i for i in ib if i not in b_only)
-    if a.dtype != b.dtype:
+    wide = {torch.float32, torch.bfloat16}
+    plain = a.dtype in wide and b.dtype in wide
+    if plain and a.dtype != b.dtype:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
     batch, m, n, k = _fold(ia, ib, target)
@@ -438,7 +570,7 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
     b3 = b.permute([ib.index(i) for i in batch + k + n]).reshape(
         size(batch), size(k), size(n)
     )
-    if a3.dtype == torch.bfloat16:
+    if plain and a3.dtype == torch.bfloat16:
         # the bf16 body loads 16 bytes at a time only where A is k-major
         # and B n-major; a transposed operand (the backward's W of
         # matmul.dA, x of matmul.dB) is copied so once instead of loaded
@@ -447,19 +579,33 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
             a3 = a3.contiguous()
         if b3.stride(2) != 1:
             b3 = b3.contiguous()
+    if plain:
+        launcher, kw, vec_dtype = CONTRACT, {}, torch.float32
+    else:
+        vec_dtype = torch.int32 if int_acc else torch.float32
+        kw = {"int_acc": int_acc}
+        eight = (torch.int8, torch.float8_e4m3fn)
+        if fold.kind == "gemm" and a3.dtype == b3.dtype and (
+            a3.dtype in eight
+        ) and int_acc == (a3.dtype == torch.int8):
+            launcher = (CONTRACT_INT8 if a3.dtype == torch.int8
+                        else CONTRACT_FP8)
+        else:
+            launcher = CONTRACT_UPCAST
     if fold.kind == "row_reduce":
         it = spec.operands[fold.extra]
-        t = arrays[fold.extra].to(a3.dtype)
+        t = arrays[fold.extra]
+        if plain:
+            t = t.to(a3.dtype)
         t2 = t.permute([it.index(i) for i in m + n]).reshape(size(m), size(n))
-        return CONTRACT(a3, b3, out_dtype, t=t2).reshape(
+        return launcher(a3, b3, out_dtype, t=t2, **kw).reshape(
             [ext[i] for i in spec.output])
     groups = (batch, m, n, k)
-    kw = {}
     if fold.kind == "vector":
         (j,) = spec.operands[fold.extra]
         axis, div = _group_of(j, *groups, ext)
-        vec = VecArg(arrays[fold.extra].float().reshape(-1).contiguous(),
-                     axis, div)
+        vec = VecArg(arrays[fold.extra].to(vec_dtype).reshape(-1)
+                     .contiguous(), axis, div)
         kw["kscale" if axis == 3 else "mul"] = vec
     if epilogue is not None and not epilogue.is_identity:
         last = spec.output[-1]
@@ -472,14 +618,40 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
                                  f"elements for output axis {last!r} of "
                                  f"extent {ext[last]}")
             vecs[name] = VecArg(v, axis, div)
-        kw.update(epilogue=epilogue, vectors=vecs)
-    c = CONTRACT(a3, b3, out_dtype, **kw).reshape(
+        if plain and epilogue.dequant:
+            # contract.cu has no qscale stage: its multiplier vector comes
+            # first in its epilogue, exactly where dequant does
+            if "mul" in kw:
+                raise NotImplementedError(
+                    f"{spec.name}: a dequant epilogue on the weighted "
+                    f"family's multiplier mode of f32/bf16 operands")
+            kw["mul"] = vecs.pop("qscale")
+            epilogue = dataclasses.replace(epilogue, dequant=False)
+            if epilogue.is_identity:
+                epilogue, vecs = None, None
+        if epilogue is not None:
+            kw.update(epilogue=epilogue, vectors=vecs)
+    c = launcher(a3, b3, out_dtype, **kw).reshape(
         [ext[i] for i in batch + m + n])
     produced = batch + m + n
     perm = [produced.index(i) for i in spec.output]
     if perm != list(range(len(perm))):
         c = c.permute(perm).contiguous()
     return c
+
+
+def _default_out_dtype(spec: ContractionSpec, epilogue: Optional[Epilogue],
+                       first: torch.dtype) -> torch.dtype:
+    """The reference's rule (``pallas_gen.py:246-261``) without an explicit
+    ``out_dtype``: an int8 spec writes its int32 accumulator and an fp8
+    spec its f32 one, unless a dequant epilogue rescaled it to real values
+    (f32); any other spec writes its first operand's dtype."""
+    quant = getattr(spec.root(), "quant", None)
+    if quant is None:
+        return first
+    if epilogue is not None and epilogue.dequant:
+        return torch.float32
+    return torch.int32 if quant.accum == "int32" else torch.float32
 
 
 @dataclasses.dataclass
@@ -529,7 +701,8 @@ class CompiledKernel:
         if extra:
             raise TypeError(f"unexpected epilogue vectors {sorted(extra)} "
                             f"(the epilogue takes {list(vec_names)})")
-        out_dtype = self.out_dtype or arrays[0].dtype
+        out_dtype = self.out_dtype or _default_out_dtype(
+            self.spec, self.epilogue, arrays[0].dtype)
         tensors: List[torch.Tensor] = list(arrays) + [vectors[v]
                                                       for v in vec_names]
         devices = {x.device.type for x in tensors}
@@ -580,11 +753,6 @@ def compile_kernel(
     if epilogue is not None and not isinstance(epilogue, Epilogue):
         raise TypeError(f"epilogue must be a codegen.Epilogue, got "
                         f"{type(epilogue).__name__}")
-    if getattr(root, "quant", None) is not None:
-        raise NotImplementedError(
-            "int8/fp8 specs come with B1's int8/fp8 modes, ROADMAP.md "
-            "queue A item 2b"
-        )
     if root.reducer != "+":
         raise NotImplementedError(f"reducer {root.reducer!r}: the kernel "
                                   f"is a product-sum")

@@ -7,15 +7,15 @@ matmul epilogue saves the device-memory round trips of materializing ``y``
 and ``z``.  The contraction kernel (``csrc/contract.cu``) runs the epilogue
 on its float32 accumulator right before the store:
 
-    y = acc * scale + bias            (bias/scale broadcast over the last
+    a = f32(acc) * qscale             (dequant: int8/fp8 accumulators)
+    y = a * scale + bias              (vectors broadcast over the last
     z = (y - mean) * rsqrt(var+eps)    output axis, each optional)
     r = act(z)
 
-Vector operands (bias/mean/var/scale) are passed to the kernel by keyword
-and indexed along the last output axis.  ``apply`` is the plain PyTorch
-version of the same tail; the card's kernel and the CPU path share its
-arithmetic (gelu is the tanh approximation, ``jax.nn.gelu``'s default).
-The ``dequant`` stage (``qscale``) comes with the int8/fp8 modes and raises.
+Vector operands (qscale/scale/bias/mean/var) are passed to the kernel by
+keyword and indexed along the last output axis.  ``apply`` is the plain
+PyTorch version of the same tail; the card's kernels and the CPU path share
+its arithmetic (gelu is the tanh approximation, ``jax.nn.gelu``'s default).
 """
 
 from __future__ import annotations
@@ -47,7 +47,9 @@ class Epilogue:
     scale: bool = False
     norm: bool = False          # normalize with given (mean, var) stats
     eps: float = 1e-5
-    #: dequantize first (int8/fp8 accumulators); not ported yet
+    #: dequantize first: cast the (possibly int32) accumulator to f32 and
+    #: multiply by the ``qscale`` row (combined input scales, one per
+    #: output column; a constant row for per-tensor scales)
     dequant: bool = False
 
     def __post_init__(self):
@@ -55,16 +57,13 @@ class Epilogue:
             raise ValueError(
                 f"unknown activation {self.act!r}; have {sorted(ACTIVATIONS)}"
             )
-        if self.dequant:
-            raise NotImplementedError(
-                "the dequant epilogue (qscale) comes with B1's int8/fp8 "
-                "modes, ROADMAP.md queue A item 2b"
-            )
 
     @property
     def vector_names(self) -> Tuple[str, ...]:
         """Extra kernel operands, in argument order."""
         names = []
+        if self.dequant:
+            names.append("qscale")
         if self.scale:
             names.append("scale")
         if self.bias:
@@ -82,6 +81,10 @@ class Epilogue:
         """Run the tail on the accumulator; vectors are f32 rows
         broadcastable against ``acc``."""
         y = acc
+        if self.dequant:
+            # scales come first: everything downstream (bias/act/norm)
+            # sees real-valued activations, as on the bf16/f32 path
+            y = y.to(torch.float32) * vectors["qscale"]
         if self.scale:
             y = y * vectors["scale"]
         if self.bias:

@@ -1,0 +1,363 @@
+"""ctypes launchers of B1's 8-bit and chain modes.
+
+``csrc/contract_q8.cu`` holds the int8 / fp8 (e4m3) tensor-core
+contraction and the CUDA-core upcast body; ``csrc/contract_chain.cu`` the
+chain ``C = (X @ Y) @ Z`` with two reductions in one launch.  Each is built
+by ``build.load`` at first use, like ``contract.cu``.  One launcher object
+per mode, each with its own ``launches`` count, which goes up by one for
+every kernel launch and for nothing else:
+
+    CONTRACT_INT8    two int8 operands on the tensor cores (int32 sums)
+    CONTRACT_FP8     two fp8 e4m3 operands on the tensor cores (f32 sums)
+    CONTRACT_UPCAST  operands of any type the kernel names, upcast on the
+                     CUDA cores (int32 or f32 sums), with contract.cu's
+                     k-scale, multiplier and row-reduce modes
+    CONTRACT_CHAIN   the chain: bf16 on the tensor cores, f32 / int8 /
+                     fp8 / int32 operands on the CUDA cores
+
+``codegen.cuda_gen`` folds a spec onto them; ``cuda_gen.contract_ref`` is
+the plain version of every mode.  Each launcher takes CUDA tensors, checks
+what its kernel takes and raises otherwise; it allocates its output (or
+writes into ``out``) and launches once on the current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from .epilogue import ACT_CODES, Epilogue
+
+#: the kernels' dtype codes (operands; outputs take 0, 1 and 4)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3, torch.int32: 4}
+OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 4}
+_MAX_GRID_YZ = 65535
+
+
+class _Vec(ctypes.Structure):
+    """``struct Vec`` of contract.cu and contract_q8.cu, ``struct
+    ChainVec`` of contract_chain.cu: one layout."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("div", ctypes.c_longlong),
+                ("len", ctypes.c_longlong), ("axis", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
+class _Q8Params(ctypes.Structure):
+    """``struct Q8Params`` of contract_q8.cu, field for field."""
+
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in ("A", "B", "C", "T")]
+        + [(f, ctypes.c_longlong) for f in (
+            "batch", "M", "N", "K", "sAb", "sAm", "sAk", "sBb", "sBk", "sBn",
+            "sCb", "sCm", "sCn", "sTm", "sTn")]
+        + [(f, _Vec) for f in ("kscale", "mul", "qscale", "scale", "bias",
+                               "mean", "var")]
+        + [("partial", ctypes.c_void_p), ("counter", ctypes.c_void_p),
+           ("eps", ctypes.c_float), ("act", ctypes.c_int)]
+        + [(f, ctypes.c_int) for f in ("a_dtype", "b_dtype", "t_dtype",
+                                       "out_dtype", "acc_int", "pad")]
+    )
+
+
+class _ChainParams(ctypes.Structure):
+    """``struct ChainParams`` of contract_chain.cu, field for field."""
+
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in ("X", "Y", "Z", "C")]
+        + [(f, ctypes.c_longlong) for f in (
+            "R", "P", "Q", "N", "sXr", "sXp", "sYp", "sYq", "sZq", "sZn",
+            "sCr", "sCn")]
+        + [(f, _Vec) for f in ("qscale", "scale", "bias", "mean", "var")]
+        + [("eps", ctypes.c_float), ("act", ctypes.c_int),
+           ("in_dtype", ctypes.c_int), ("out_dtype", ctypes.c_int)]
+    )
+
+
+class VecArg(NamedTuple):
+    """A vector operand: element ``(coord // div) % len`` of ``tensor``
+    (contiguous, 1-D, on the card) at folded coordinate ``coord`` of
+    ``axis`` (0 batch, 1 m / row, 2 n / column, 3 k)."""
+
+    tensor: torch.Tensor
+    axis: int
+    div: int = 1
+
+
+def _load(source: str, params, entries):
+    from .build import load
+
+    lib = load(source)
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(params), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    size = getattr(lib, f"{source.split('_')[-1]}_params_size")
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(params):
+        raise RuntimeError(f"{source}.cu's parameter struct is {size()} "
+                           f"bytes, its ctypes mirror "
+                           f"{ctypes.sizeof(params)}")
+    return lib
+
+
+def set_vec(p, field: str, vec: VecArg, device, dtype, axes, extents):
+    """Check ``vec`` against the launch and write it into ``p.<field>``
+    (``extents``: the folded (batch, m, n, k) sizes the axes index)."""
+    x = vec.tensor
+    if x.device != device or x.dtype != dtype or x.dim() != 1 or (
+        not x.is_contiguous()
+    ):
+        raise ValueError(f"vector {field} must be a contiguous 1-D {dtype} "
+                         f"tensor on {device}")
+    if vec.axis not in axes or vec.div < 1 or x.numel() < 1 or (
+        x.numel() * vec.div > max(extents[vec.axis], 1)
+    ):
+        raise ValueError(f"vector {field} of {x.numel()} elements (div "
+                         f"{vec.div}) does not fit axis {vec.axis}")
+    setattr(p, field, _Vec(p=x.data_ptr(), div=vec.div, len=x.numel(),
+                           axis=vec.axis))
+
+
+def set_epilogue(p, epilogue: Optional[Epilogue],
+                 vectors: Optional[Dict[str, VecArg]], device, axes,
+                 extents):
+    """Write the epilogue's stages and f32 vectors into ``p``."""
+    if epilogue is None:
+        if vectors:
+            raise TypeError(f"epilogue vectors {sorted(vectors)} without an "
+                            f"epilogue")
+        return
+    want = set(epilogue.vector_names)
+    if want != set(vectors or {}):
+        raise TypeError(f"epilogue vectors {sorted(vectors or {})}, "
+                        f"expected {sorted(want)}")
+    for name, vec in (vectors or {}).items():
+        set_vec(p, name, vec, device, torch.float32, axes, extents)
+    p.act = ACT_CODES[epilogue.act]
+    p.eps = epilogue.eps
+
+
+def _check_strides(*tensors):
+    for x in tensors:
+        if min(x.stride(), default=0) < 0:
+            raise ValueError("the kernel takes non-negative strides")
+        if max((*x.shape, *x.stride()), default=0) >= 2**31:
+            raise ValueError("the kernel takes extents and strides below "
+                             "2**31")
+
+
+def _launch(lib, entry: str, p, device):
+    rc = getattr(lib, entry)(ctypes.byref(p),
+                             torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: cudaGetLastError() = {rc}")
+
+
+class Contract8Launcher:
+    """``contract_q8.cu``: ``entry`` ``"q8_launch"`` (two operands of
+    ``dtype``, int8 or fp8, on the tensor cores) or ``"upcast_launch"``
+    (any operand types, CUDA cores)."""
+
+    def __init__(self, entry: str, dtype: Optional[torch.dtype] = None):
+        self.entry = entry
+        self.dtype = dtype
+        self.launches = 0
+        self._lib = None
+
+    def _fn(self):
+        if self._lib is None:
+            lib = _load("contract_q8", _Q8Params,
+                        ("q8_launch", "upcast_launch"))
+            for name in ("q8_tile_m", "q8_tile_n", "upcast_tile_m",
+                         "upcast_tile_n"):
+                getattr(lib, name).restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor,
+                 out_dtype: torch.dtype, *, int_acc: bool,
+                 kscale: Optional[VecArg] = None,
+                 mul: Optional[VecArg] = None,
+                 epilogue: Optional[Epilogue] = None,
+                 vectors: Optional[Dict[str, VecArg]] = None,
+                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """a (batch, M, K) @ b (batch, K, N) -> new (batch, M, N) tensor,
+        accumulated in int32 (``int_acc``) or f32.  ``kscale`` scales A
+        along k as it is staged, ``mul`` multiplies the accumulator (both
+        in the accumulator's type); the ``epilogue`` runs on it in f32.
+        With ``t`` (M, N) (batch 1) the result is the (N,) vector
+        ``sum_m (a @ b)[m, n] * t[m, n]``."""
+        tc = self.entry == "q8_launch"
+        if a.device.type != "cuda" or b.device != a.device:
+            raise ValueError(f"the 8-bit kernels take CUDA tensors on one "
+                             f"device, got {a.device} and {b.device}")
+        codes = [DTYPE_CODES.get(x.dtype) for x in (a, b)]
+        if None in codes or out_dtype not in OUT_CODES:
+            raise TypeError(f"the 8-bit kernels take {list(DTYPE_CODES)} "
+                            f"and write {list(OUT_CODES)}; got {a.dtype}, "
+                            f"{b.dtype} -> {out_dtype}")
+        if tc and (a.dtype != self.dtype or b.dtype != self.dtype):
+            raise TypeError(f"{self.entry} ({self.dtype}) takes two "
+                            f"{self.dtype} operands, got {a.dtype} and "
+                            f"{b.dtype}")
+        if tc and int_acc != (self.dtype == torch.int8):
+            acc = "int32" if self.dtype == torch.int8 else "f32"
+            raise TypeError(f"{self.dtype} accumulates in {acc}")
+        if int_acc and any(x.dtype not in (torch.int8, torch.int32)
+                           for x in (a, b)):
+            raise TypeError("int32 accumulation takes int8 or int32 "
+                            "operands")
+        if tc and (kscale is not None or mul is not None or t is not None):
+            raise ValueError("the tensor-core mode takes no k-scale, "
+                             "multiplier or row reduce")
+        if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or (
+            a.shape[2] != b.shape[1]
+        ):
+            raise ValueError(f"the 8-bit kernels take (batch, M, K) and "
+                             f"(batch, K, N), got {tuple(a.shape)} and "
+                             f"{tuple(b.shape)}")
+        _check_strides(a, b)
+        batch, m, k = a.shape
+        n = b.shape[2]
+        lib = self._fn()
+        tile_m = lib.q8_tile_m() if tc else lib.upcast_tile_m()
+        tile_n = lib.q8_tile_n() if tc else lib.upcast_tile_n()
+        if batch > _MAX_GRID_YZ or -(-m // tile_m) > _MAX_GRID_YZ:
+            raise ValueError(f"grid too large for batch {batch}, M {m}")
+        acc_dtype = torch.int32 if int_acc else torch.float32
+        p = _Q8Params(A=a.data_ptr(), B=b.data_ptr(), batch=batch, M=m, N=n,
+                      K=k, a_dtype=codes[0], b_dtype=codes[1],
+                      out_dtype=OUT_CODES[out_dtype], acc_int=int(int_acc))
+        p.sAb, p.sAm, p.sAk = a.stride()
+        p.sBb, p.sBk, p.sBn = b.stride()
+        extents = (batch, m, n, k)
+        if kscale is not None:
+            set_vec(p, "kscale", kscale, a.device, acc_dtype, (3,), extents)
+        if mul is not None:
+            set_vec(p, "mul", mul, a.device, acc_dtype, (0, 1, 2), extents)
+        set_epilogue(p, epilogue, vectors, a.device, (0, 1, 2), extents)
+        if t is not None:
+            if batch != 1 or tuple(t.shape) != (m, n) or (
+                t.device != a.device or t.dtype not in DTYPE_CODES
+            ):
+                raise ValueError(f"row reduce takes batch 1 and t ({m}, {n}) "
+                                 f"on {a.device}, got batch {batch}, t "
+                                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
+            if epilogue is not None or mul is not None or kscale is not None:
+                raise ValueError("row reduce takes no epilogue and no vector")
+            _check_strides(t)
+            c = torch.empty((n,), dtype=out_dtype, device=a.device)
+            if n == 0:
+                return c
+            if m == 0:  # no row blocks: an empty sum
+                return c.zero_()
+            partial = torch.empty((-(-m // tile_m), n), dtype=acc_dtype,
+                                  device=a.device)
+            counter = torch.zeros(-(-n // tile_n), dtype=torch.int32,
+                                  device=a.device)
+            p.T, p.partial, p.counter = (t.data_ptr(), partial.data_ptr(),
+                                         counter.data_ptr())
+            p.sTm, p.sTn = t.stride()
+            p.t_dtype = DTYPE_CODES[t.dtype]
+            p.sCn = c.stride(0)
+        else:
+            c = torch.empty((batch, m, n), dtype=out_dtype, device=a.device)
+            if c.numel() == 0:
+                return c
+            p.sCb, p.sCm, p.sCn = c.stride()
+        p.C = c.data_ptr()
+        _launch(lib, self.entry, p, a.device)
+        self.launches += 1
+        return c
+
+
+class ChainLauncher:
+    """``contract_chain.cu``: C = (X @ Y) @ Z in one launch."""
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+
+    def _fn(self):
+        if self._lib is None:
+            lib = _load("contract_chain", _ChainParams, ("chain_launch",))
+            for name in ("chain_tile_m", "chain_tile_n"):
+                getattr(lib, name).argtypes = [ctypes.c_int]
+                getattr(lib, name).restype = ctypes.c_int
+            for dt, code in DTYPE_CODES.items():
+                if lib.chain_tile_n(code) != chain_tile_n(dt):
+                    raise RuntimeError(f"contract_chain.cu's tile for {dt} "
+                                       f"is {lib.chain_tile_n(code)}, "
+                                       f"CHAIN_TILE_N says "
+                                       f"{chain_tile_n(dt)}")
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                 out_dtype: torch.dtype, *,
+                 epilogue: Optional[Epilogue] = None,
+                 vectors: Optional[Dict[str, VecArg]] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (R, P) @ y (P, Q) @ z (Q, N) -> (R, N), into ``out`` when
+        given (any strides, e.g. the transposed view of a (N, R) tensor).
+        Epilogue vectors run along axis 1 (rows) or 2 (columns)."""
+        ts = (x, y, z)
+        if any(t.device.type != "cuda" or t.device != x.device for t in ts):
+            raise ValueError("the chain kernel takes CUDA tensors on one "
+                             "device")
+        if len({t.dtype for t in ts}) != 1 or x.dtype not in DTYPE_CODES:
+            raise TypeError(f"the chain kernel takes three operands of one "
+                            f"of {list(DTYPE_CODES)}, got "
+                            f"{[t.dtype for t in ts]}")
+        if out_dtype not in OUT_CODES:
+            raise TypeError(f"the chain kernel writes {list(OUT_CODES)}, "
+                            f"not {out_dtype}")
+        if any(t.dim() != 2 for t in ts) or x.shape[1] != y.shape[0] or (
+            y.shape[1] != z.shape[0]
+        ):
+            raise ValueError(f"the chain kernel takes (R, P), (P, Q), (Q, N), "
+                             f"got {[tuple(t.shape) for t in ts]}")
+        r, pdim = x.shape
+        q, n = z.shape
+        if out is None:
+            out = torch.empty((r, n), dtype=out_dtype, device=x.device)
+        elif tuple(out.shape) != (r, n) or out.dtype != out_dtype or (
+            out.device != x.device
+        ):
+            raise ValueError(f"out must be ({r}, {n}) {out_dtype} on "
+                             f"{x.device}")
+        _check_strides(*ts, out)
+        code = DTYPE_CODES[x.dtype]
+        lib = self._fn()
+        if -(-r // lib.chain_tile_m(code)) > _MAX_GRID_YZ:
+            raise ValueError(f"chain kernel grid too large for R {r}")
+        if out.numel() == 0:
+            return out
+        p = _ChainParams(X=x.data_ptr(), Y=y.data_ptr(), Z=z.data_ptr(),
+                         C=out.data_ptr(), R=r, P=pdim, Q=q, N=n,
+                         in_dtype=code, out_dtype=OUT_CODES[out_dtype])
+        p.sXr, p.sXp = x.stride()
+        p.sYp, p.sYq = y.stride()
+        p.sZq, p.sZn = z.stride()
+        p.sCr, p.sCn = out.stride()
+        set_epilogue(p, epilogue, vectors, x.device, (1, 2), (0, r, n, 0))
+        _launch(lib, "chain_launch", p, x.device)
+        self.launches += 1
+        return out
+
+
+def chain_tile_n(dtype: torch.dtype) -> int:
+    """CTA columns of the chain body that takes ``dtype`` operands (the
+    association choice reads it; checked against ``chain_tile_n`` of
+    contract_chain.cu at load)."""
+    return 128 if dtype == torch.bfloat16 else 64
+
+
+CONTRACT_INT8 = Contract8Launcher("q8_launch", torch.int8)
+CONTRACT_FP8 = Contract8Launcher("q8_launch", torch.float8_e4m3fn)
+CONTRACT_UPCAST = Contract8Launcher("upcast_launch")
+CONTRACT_CHAIN = ChainLauncher()

@@ -12,7 +12,7 @@ kernels too: ``matmul.dA``/``.dB`` on B1 (``csrc/contract.cu``),
 ``grouped_matmul.dX`` on B3's dX orientation (``csrc/grouped.cu``) and
 ``grouped_matmul.dW`` on B4 (``csrc/grouped_dw.cu``); the weighted
 family's ``weighted_matmul.dA``/``.dB`` on B1's vector mode and ``.dg`` on
-its row-reduce mode.
+its row-reduce mode; ``chain_matmul.dA``/``.dB``/``.dC`` on its chain mode.
 
 The reference's rules hold:
 
@@ -30,7 +30,7 @@ The factories are memoized on their static parameters (dtype name,
 are, and return a plain function of the tensors.  ``dense_act`` recomputes
 its f32 accumulator with one extra B1 launch and differentiates the
 element-wise epilogue with torch autograd on ``Epilogue.apply``.  The
-``chain`` and ``attention`` VJPs wait for their forward modes and raise
+``attention`` VJP waits for its forward kernel (B2) and raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item.
 """
 
@@ -262,6 +262,32 @@ class _DenseAct(torch.autograd.Function):
                 None)
 
 
+class _ChainDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c, out_dtype, interpret):
+        from .. import ops
+
+        ctx.save_for_backward(a, b, c)
+        ctx.interpret = interpret
+        return ops._chain_dense_raw(a, b, c, out_dtype, interpret)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .. import ops
+        from ..core.enumerate import chain_matmul_spec
+
+        a, b, c = ctx.saved_tensors
+        m, k1 = a.shape
+        spec = chain_matmul_spec(m, k1, b.shape[1], c.shape[1])
+        with _annotate("chain_dense"):
+            cots = _cotangent_gemms(
+                spec, g, {"A": a, "B": b, "C": c}, interpret=ctx.interpret,
+                use_kernel=ops._generic_kernel_ok(a, ctx.interpret),
+                wrt=_wanted(ctx, ("A", "B", "C")),
+            )
+        return cots.get("A"), cots.get("B"), cots.get("C"), None, None
+
+
 class _Grouped(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, group_sizes, out_dtype, interpret):
@@ -378,11 +404,14 @@ def dense_act_vjp(act: str, eps: float, out_dtype: str, interpret: bool):
         x, w, beta, mean, var, act, eps, dt, interpret)
 
 
+@functools.lru_cache(maxsize=None)
 def chain_dense_vjp(out_dtype: str, interpret: bool):
-    raise NotImplementedError(
-        "chain_dense and its VJP (3-operand derived specs, two reductions) "
-        "come with B1's chain mode, ROADMAP.md queue A item 2b"
-    )
+    """a @ b @ c with the three cotangents through the derived
+    ``chain_matmul.dA``/``.dB``/``.dC`` specs, each a chain of three
+    (transposed) matrices on B1's chain mode: one launch forward, three
+    backward, on the kernel path."""
+    dt = _torch_dtype(out_dtype)
+    return lambda a, b, c: _ChainDense.apply(a, b, c, dt, interpret)
 
 
 def attention_vjp(causal: bool, out_dtype: str, interpret: bool):

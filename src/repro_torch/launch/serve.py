@@ -17,10 +17,14 @@ to fewer layers) with the flags of ``parse_args``.
 
 ``--device`` defaults to ``cuda`` and the run fails without a card; pass
 ``--device cpu`` for the plain PyTorch versions.  ``--smoke`` serves the
-reduced same-family config.  ``--engine fixed``, ``--capture``,
-``--quant``, ``--mesh``, ``--search-gemms`` and ``--warm-gemms`` are later
-slices (ROADMAP.md queue A).  ``--metrics-out`` / ``--trace-out`` write the
-``obs`` registry and the Chrome trace after the run.
+reduced same-family config.  ``--quant int8`` serves weight-only int8:
+the parameters are quantized once at load (block-wise int8 + per-block f32
+scales) and expanded before every prefill and decode step, so the live
+weights stay 8-bit; the projections still run the contraction kernel on
+the expanded weights, as in the reference.  ``--engine fixed``,
+``--capture``, ``--mesh``, ``--search-gemms`` and ``--warm-gemms`` are
+later slices (ROADMAP.md queue A).  ``--metrics-out`` / ``--trace-out``
+write the ``obs`` registry and the Chrome trace after the run.
 """
 
 from __future__ import annotations
@@ -65,6 +69,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     ap.add_argument("--seed", type=int, default=0,
                     help="trace seed (prompts, lengths, arrivals)")
+    ap.add_argument(
+        "--quant", choices=("none", "int8"), default="none",
+        help="weight-only serving quantization: parameters are quantized "
+             "once at load (block-wise int8 + per-block f32 scales, "
+             "optim.quant.quantize_tree) and expanded before every prefill "
+             "and decode step, so live weights stay 8-bit in device memory",
+    )
     ap.add_argument("--metrics-out", default=None, metavar="FILE",
                     help="write the obs metrics registry as JSON")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
@@ -98,6 +109,7 @@ def run(cfg, args: argparse.Namespace):
         n_pages=args.pages or (1 + args.lanes * pages_per_req),
         max_ctx=max_ctx,
         device=args.device,
+        quant=None if args.quant == "none" else args.quant,
     )
     launches0, grouped0 = CONTRACT.launches, GROUPED.launches
     stats = Gateway(engine).run(trace, eos_id=args.eos_id)

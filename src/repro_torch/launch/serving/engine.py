@@ -21,8 +21,13 @@ reference engine's on the same weights and trace
 The engine runs on ``device`` ("cuda" by default, and it raises when no
 card is visible); the whole run is under ``torch.inference_mode()``, with
 TF32 and reduced-precision bf16 reductions off, since the reference
-accumulates every product in f32.  The fixed-slot engine, ``--quant`` and
-plan sweeps are later slices (ROADMAP.md queue A).
+accumulates every product in f32.  ``quant="int8"`` is the weight-only
+tier (``serve --quant int8``): the parameter tree is quantized once at load
+(``optim.quant.quantize_tree``, block-wise int8 + f32 scales, the
+reference's bits), the ``serve.quant_bytes`` gauge records what it holds,
+and every prefill and decode step expands it one layer at a time
+(``runners``).  The
+fixed-slot engine and plan sweeps are later slices (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ class ContinuousEngine:
         watermark: Optional[int] = None,
         params=None,
         device="cuda",
+        quant: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -82,12 +88,25 @@ class ContinuousEngine:
             if params is None:
                 gen = torch.Generator(device=self.device).manual_seed(0)
                 params = self.api.init(cfg, gen, self.device)
+            # --quant int8: the weight-only tier, quantized once here and
+            # expanded layer by layer inside each model call
+            self.quant = quant
+            if quant:
+                from ...obs import log
+                from ...optim.quant import quantize_tree, tree_quant_bytes
+
+                params = quantize_tree(params, fmt=quant)
+                qb = tree_quant_bytes(params)
+                obs.gauge("serve.quant_bytes").set(qb)
+                log.info("serve", f"weight-only {quant}: "
+                         f"{qb / 2**20:.2f} MiB held as quantized leaves")
             self.params = params
             self.pools = paged.pool_init(cfg, n_pages, page_size,
                                          device=self.device)
-        self.prefill = PrefillRunner(cfg, self.api, page_size, self.device)
+        self.prefill = PrefillRunner(cfg, self.api, page_size, self.device,
+                                     quant=quant)
         self.decode = DecodeRunner(cfg, self.api, page_size, lanes,
-                                   self.max_pages, self.device)
+                                   self.max_pages, self.device, quant=quant)
         # pre-register so a metrics dump always carries the cache counters
         for name in ("plandb.hit", "plandb.miss",
                      "autotune.hit", "autotune.miss"):

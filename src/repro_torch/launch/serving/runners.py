@@ -7,11 +7,18 @@ phase-qualified plan-DB entry first.  With page sizes that are multiples
 of 128, every prefill GEMM is 128-aligned and runs the contraction kernel;
 decode (M = lanes) is a plain ``torch.matmul``, as the reference leaves it
 to ``jnp.dot``.  PyTorch runs eagerly: there is nothing to trace.
+
+With ``quant`` (weight-only ``--quant int8``) the runners take the
+quantized tree, as the reference's jitted closures do, and the weights
+are expanded for the call only: the embedding and final norm before it,
+each stacked layer inside the model's layer loop, so at most one layer
+is live at full precision beside the 8-bit tree.  The values are those
+of ``dequantize_tree``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,6 +29,20 @@ from ...search import serving_phase
 from . import paged
 
 
+def _deq_fn(quant: Optional[str]):
+    """The parameter expansion of the weight-only tier: identity at full
+    precision.  Under ``--quant`` the embedding and final norm are
+    expanded for the call (``optim.quant.dequantize_tree``); the stacked
+    layers (``seg*``) stay quantized and the model expands them one layer
+    at a time (``models.transformer._run_segments``)."""
+    if not quant:
+        return lambda p: p
+    from ...optim.quant import dequantize_tree
+
+    return lambda p: {k: v if k.startswith("seg") else dequantize_tree(v)
+                      for k, v in p.items()}
+
+
 class PrefillRunner:
     """Batch-1 bucketed prefill: pads the context to a page multiple,
     masks the pads via ``lengths``, and copies the resulting cache pages
@@ -30,11 +51,12 @@ class PrefillRunner:
     phase = "prefill"
 
     def __init__(self, cfg: ModelConfig, api: ModelAPI, page_size: int,
-                 device: torch.device):
+                 device: torch.device, quant: Optional[str] = None):
         self.cfg = cfg
         self.api = api
         self.page_size = page_size
         self.device = device
+        self.deq = _deq_fn(quant)
 
     def __call__(self, params, pools: Dict, context: Sequence[int],
                  pages: Sequence[int]) -> Tuple[int, Dict]:
@@ -51,7 +73,8 @@ class PrefillRunner:
         with serving_phase(self.phase):
             with obs.span("serve.prefill", tokens=plen, padded=padded):
                 logits, caches = self.api.prefill(
-                    params, self.cfg, {"tokens": toks, "lengths": lengths},
+                    self.deq(params), self.cfg,
+                    {"tokens": toks, "lengths": lengths},
                     padded,
                 )
                 tok = int(torch.argmax(logits[0, -1]))
@@ -72,13 +95,15 @@ class DecodeRunner:
     phase = "decode"
 
     def __init__(self, cfg: ModelConfig, api: ModelAPI, page_size: int,
-                 lanes: int, max_pages: int, device: torch.device):
+                 lanes: int, max_pages: int, device: torch.device,
+                 quant: Optional[str] = None):
         self.cfg = cfg
         self.api = api
         self.page_size = page_size
         self.lanes = lanes
         self.max_pages = max_pages
         self.device = device
+        self.deq = _deq_fn(quant)
 
     def __call__(self, params, pools, block_table, lens, tokens):
         """Returns (next token per lane as a host int64 tensor, the pools,
@@ -90,7 +115,7 @@ class DecodeRunner:
         with serving_phase(self.phase):
             caches = paged.paged_view(pools, bt, lens, self.page_size)
             logits, new_caches = self.api.decode_step(
-                params, self.cfg, caches, toks[:, None]
+                self.deq(params), self.cfg, caches, toks[:, None]
             )
             pools = paged.scatter_token(
                 pools, new_caches, bt, lens, self.page_size

@@ -12,7 +12,8 @@ Each segment's parameters and caches are stacked along a leading
 ``layers`` axis (``params["seg0"]["dense"]["attn"]["wq"]`` is
 ``(layers, d_model, heads * hd)``), and ``_run_segments`` walks that axis
 in a Python loop where the reference uses ``lax.scan``, taking the layers
-of each stacked leaf with one ``unbind``.  The stacked caches are updated
+of each stacked leaf with one ``unbind`` (a leaf quantized for weight-only
+serving is expanded one layer at a time instead).  The stacked caches are updated
 in place (``layers.attention_apply``).  ``params_from_reference`` and
 ``opt_state_from_reference`` carry the reference's weights and optimizer
 state across as numpy arrays.
@@ -27,6 +28,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..optim.quant import Quantized, QuantizedLayers
 from . import layers as L
 from .moe import moe_apply, moe_init
 
@@ -203,6 +205,15 @@ def _block(lp, cfg: ModelConfig, kind: str, x, *, positions, cache=None,
     return x + L.mlp_apply(lp["mlp"], cfg, h), new_cache
 
 
+def _unstack(t):
+    """The layers of a stacked leaf: ``unbind(0)`` views of a tensor, or,
+    for a leaf of the weight-only serving tier, a sequence that expands
+    one layer when it is taken (``optim.quant.QuantizedLayers``)."""
+    if isinstance(t, Quantized):
+        return QuantizedLayers(t)
+    return t.unbind(0)
+
+
 def _run_segments(params, cfg: ModelConfig, x, *, positions, caches=None,
                   q_block=512, k_block=512, lengths=None):
     """caches: same segment structure, stacked; returns (x, new_caches).
@@ -215,7 +226,7 @@ def _run_segments(params, cfg: ModelConfig, x, *, positions, caches=None,
         # one unbind per stacked leaf: its backward stacks the per-layer
         # grads once, where t[layer] would allocate a zero tensor the size
         # of the whole leaf for every layer
-        seg = {kind: _tree_map(lambda t: t.unbind(0), params[f"seg{si}"][kind])
+        seg = {kind: _tree_map(_unstack, params[f"seg{si}"][kind])
                for kind in pattern}
         seg_cache = None if caches is None else caches[f"seg{si}"]
         lens: Dict[str, list] = {kind: [] for kind in pattern}

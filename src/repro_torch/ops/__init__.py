@@ -46,8 +46,21 @@ without the wrapper a kernel path would give no gradient at all.
 ``differentiable=False`` on a kernel path returns an output detached from
 the graph (nothing can be differentiated through it, as the reference's
 bare Pallas primal has no VJP); the non-kernel paths stay plain torch ops
-that autograd differentiates natively.  ``quant=`` and ``chain_dense``
-come with B1's int8/fp8 and chain modes (ROADMAP.md queue A item 2b).
+that autograd differentiates natively.
+
+``dense(quant="int8"|"fp8")`` is the low-precision tier: x is quantized
+per tensor and w per output channel (plain PyTorch ops, as the reference's
+``jnp`` ops), and every non-empty CUDA call (and, off the card, a
+128-aligned one with ``interpret``) runs the ``quantized_matmul_spec`` on
+B1's 8-bit tensor-core mode with ``Epilogue(dequant=True)`` applying
+``qscale = sx * sw`` to its int32 (int8) or f32 (fp8) accumulator; the
+quantized W is written k-major (the 8-bit mma's B fragment wants
+consecutive k), the same values.  Other calls dequantize and multiply in
+f32 with the same quantization.  The kernel path has no
+gradient, as the reference's bare ``pallas_call`` has none: its output's
+backward raises.  ``chain_dense`` is ``a @ b @ c`` on B1's chain mode, the
+intermediate never in device memory, forward and (``grad.chain_dense_vjp``)
+the three derived backward specs, one launch each.
 """
 
 from __future__ import annotations
@@ -56,9 +69,12 @@ import torch
 
 from ..codegen import Epilogue, cached_compile, grouped_ref, tune_schedule
 from ..core.enumerate import (
+    QUANT_FORMATS,
     batched_matmul_spec,
+    chain_matmul_spec,
     grouped_matmul_spec,
     matmul_spec,
+    quantized_matmul_spec,
     transposed_matmul_spec,
     weighted_matmul_spec,
 )
@@ -143,6 +159,74 @@ def _dense_raw(x, w, out_dtype, interpret):
     return _matmul_f32(x, w, out_dtype)
 
 
+class _NoGradient(torch.autograd.Function):
+    """Marks a kernel output that has no gradient rule: the forward passes
+    it through, a backward through it raises (as ``jax.grad`` over the
+    reference's bare ``pallas_call`` does), so a caller that asked for a
+    gradient is never handed a silent zero."""
+
+    @staticmethod
+    def forward(ctx, out, *inputs):
+        ctx.what = "the quantized kernel path of ops.dense(quant=)"
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(f"{ctx.what} is not differentiable (int8/fp8 "
+                           f"storage, as in the reference); call it under "
+                           f"torch.no_grad() or without quant=")
+
+
+def _quant_kernel_ok(x2: torch.Tensor, w: torch.Tensor,
+                     interpret: bool) -> bool:
+    # every non-empty CUDA call runs B1's 8-bit mode, ragged shapes too;
+    # off the card ``interpret`` reaches the kernel's plain version for the
+    # 128-aligned shapes the reference's kernel path takes
+    if not x2.shape[0]:
+        return False
+    return x2.is_cuda or _dense_kernel_ok(x2, w, interpret)
+
+
+def _dense_quant(x, w, fmt, out_dtype, interpret):
+    """Dynamic-quantized dense: int8/fp8 storage, dequant epilogue.
+
+    ``x`` is quantized per tensor (one absmax scale), ``w`` per output
+    channel (one scale per column of F): the combined ``qscale = sx * sw``
+    row is what the kernel's dequant epilogue multiplies into the
+    accumulator, so the kernel streams 1-byte operands and writes
+    real-valued output in one pass.  ``w`` is quantized k-major (the 8-bit
+    kernel reads its k axis contiguous) and taken as the (D, F) view.  An
+    empty batch, and a CPU call without ``interpret``, take the
+    dequantize-then-dot fallback with the same quantization.
+    """
+    from ..optim.quant import quantize_channels_kmajor, quantize_tensor
+
+    if fmt not in QUANT_FORMATS:
+        raise ValueError(
+            f"quant must be one of {sorted(QUANT_FORMATS)}, got {fmt!r}"
+        )
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    qx, sx = quantize_tensor(x2, fmt)
+    qwt, sw = quantize_channels_kmajor(w, fmt)
+    qw = qwt.t()
+    qscale = (sx * sw).to(torch.float32)
+    if _quant_kernel_ok(x2, w, interpret):
+        m, d = x2.shape
+        kern = _tuned_kernel(
+            quantized_matmul_spec(m, d, w.shape[1], fmt), qx.dtype,
+            epilogue=Epilogue(dequant=True), out_dtype=torch.float32,
+            interpret=interpret,
+        )
+        with torch.no_grad():
+            out = kern(qx, qw, qscale=qscale)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _NoGradient.apply(out, x, w)
+    else:
+        out = torch.matmul(qx.float(), qw.float()) * qscale[None, :]
+    return out.reshape(*lead, w.shape[1]).to(out_dtype)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
           interpret: bool = False, differentiable: bool = True,
           quant=None) -> torch.Tensor:
@@ -151,13 +235,16 @@ def dense(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
     On the kernel path, ``differentiable`` (the default) goes through
     ``grad.dense_vjp``: the same primal plus a backward whose dA/dB GEMMs
     run the derived specs ``matmul.dA``/``matmul.dB`` on the kernel.
+
+    ``quant`` ('int8' | 'fp8') takes the low-precision tier instead
+    (``_dense_quant``): dynamic quantization, the dtype-qualified plan
+    (``matmul@...@dtype=int8``) and B1's 8-bit mode with the dequant
+    epilogue, one launch.  It is inference-oriented: only the fallback
+    path is differentiable (through the scales, as in the reference).
     """
-    if quant is not None:
-        raise NotImplementedError(
-            "quantized dense (quant=) comes with B1's int8/fp8 modes, "
-            "ROADMAP.md queue A item 2b"
-        )
     out_dtype = out_dtype or x.dtype
+    if quant is not None:
+        return _dense_quant(x, w, quant, out_dtype, interpret)
     if _dense_kernel_ok(x, w, interpret):
         if differentiable:
             from ..grad import dense_vjp
@@ -242,6 +329,41 @@ def batched_dense(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
         with torch.no_grad():
             return _batched_dense_raw(x, w, out_dtype, interpret)
     return _batched_dense_raw(x, w, out_dtype, interpret)
+
+
+def _chain_dense_raw(a, b, c, out_dtype, interpret):
+    if _generic_kernel_ok(a, interpret):
+        m, k1 = a.shape
+        kern = _tuned_kernel(
+            chain_matmul_spec(m, k1, b.shape[1], c.shape[1]), a.dtype,
+            interpret=interpret)
+        return kern(a, b, c).to(out_dtype)
+    # the reference's fallback: a @ b accumulated in f32 and rounded to
+    # a's dtype, then the second product
+    ab = torch.matmul(a.float(), b.float()).to(a.dtype)
+    return torch.matmul(ab.float(), c.float()).to(out_dtype)
+
+
+def chain_dense(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                out_dtype=None, interpret: bool = False,
+                differentiable: bool = True) -> torch.Tensor:
+    """a @ b @ c without materializing the intermediate in device memory.
+
+    B1's chain mode: one launch, two reductions (``chain_matmul``).  The
+    backward specs are three-operand contractions (e.g.
+    ``chain_matmul.dB``: dB[j,k] = sum_il A[i,j] g[i,l] C[k,l]), each one
+    more chain launch (``grad.chain_dense_vjp``).
+    """
+    out_dtype = out_dtype or a.dtype
+    if _generic_kernel_ok(a, interpret):
+        if differentiable:
+            from ..grad import chain_dense_vjp
+
+            return chain_dense_vjp(_dt_name(out_dtype),
+                                   bool(interpret))(a, b, c)
+        with torch.no_grad():
+            return _chain_dense_raw(a, b, c, out_dtype, interpret)
+    return _chain_dense_raw(a, b, c, out_dtype, interpret)
 
 
 def _dense_transposed_raw(a, b, out_dtype, interpret):

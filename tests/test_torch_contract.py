@@ -8,8 +8,10 @@
   launcher replaced by a CPU batched product, against ``contract_ref``;
 * ``ops.dense(interpret=True)`` on both sides at a 128-aligned shape, and
   an unaligned shape taking the ``torch.matmul`` route on both sides;
-* ``NotImplementedError`` for mesh, fused, dequant-epilogue, chain and quant
-  requests.
+* ``NotImplementedError`` for mesh requests, attention specs and an
+  unported tuner option; the dequant epilogue, the chain and the quant
+  specs, once refused, now compile (``tests/test_torch_quant.py`` and
+  ``tests/test_torch_chain.py`` hold them to the reference).
 
 The CUDA kernel itself is tested on a card by ``tests/test_torch_gpu.py``.
 """
@@ -225,24 +227,28 @@ def test_unsupported_requests_raise_not_implemented():
     sched = port_codegen.default_schedule(spec)
     with pytest.raises(NotImplementedError, match="mesh"):
         port_codegen.compile(spec, sched, mesh=object())
-    # the dequant epilogue waits for the int8/fp8 modes (item 2b)
-    with pytest.raises(NotImplementedError, match="epilogue"):
-        port_codegen.compile(spec, sched,
-                             epilogue=port_codegen.Epilogue(dequant=True))
     attn = PE.attention_spec(2, 8, 8, 4)
     with pytest.raises(NotImplementedError, match="fused"):
         port_codegen.compile(attn, port_codegen.default_schedule(attn))
-    # the weighted family is ported; the chain (two reductions) is not
-    chain = PE.chain_matmul_spec(8, 8, 8, 8)
-    with pytest.raises(NotImplementedError, match="3-operand"):
-        port_codegen.compile(chain, port_codegen.default_schedule(chain))
-    q = PE.quantize_spec(spec, fmt="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        port_codegen.compile(q, port_codegen.default_schedule(q))
-    with pytest.raises(NotImplementedError, match="quant"):
-        port_ops.dense(torch.randn(8, 8), torch.randn(8, 8), quant="int8")
     with pytest.raises(NotImplementedError, match="measure"):
         port_codegen.tune_schedule(spec, measure_with={})
+    # once refused, now ported (B1's chain and int8/fp8 modes): the dequant
+    # epilogue, the chain, a quantized spec and dense(quant=) compute
+    x = torch.randn(8, 8)
+    kern = port_codegen.compile(spec, sched,
+                                epilogue=port_codegen.Epilogue(dequant=True))
+    torch.testing.assert_close(kern(x, x, qscale=torch.full((8,), 2.0)),
+                               2 * (x @ x))
+    chain = PE.chain_matmul_spec(8, 8, 8, 8)
+    out = port_codegen.compile(chain, port_codegen.default_schedule(chain))(
+        x, x, x)
+    torch.testing.assert_close(out, x @ x @ x, rtol=1e-4, atol=1e-4)
+    q = PE.quantize_spec(spec, fmt="int8")
+    ones = torch.ones(8, 8, dtype=torch.int8)
+    out = port_codegen.compile(q, port_codegen.default_schedule(q))(ones,
+                                                                    ones)
+    assert out.dtype == torch.int32 and bool((out == 8).all())
+    assert port_ops.dense(x, x, quant="int8").shape == (8, 8)
 
 
 def test_compiled_kernel_checks_shapes_and_devices():

@@ -11,10 +11,11 @@ tolerances are that file's ``TOL`` on values scaled by max(|ref|, 1): f32
 
 Also: ``Epilogue.apply`` for every activation and field, the derived
 ``weighted_matmul.*`` specs with their tuned schedules and plan keys, the
-refusals that wait for queue A item 2b (chain and int8/fp8 specs), and the
-CUDA launch path's folding of every new mode (``cuda_gen._launch_cuda``)
-run against an emulation of the kernel's arithmetic, since the kernel
-itself needs the card.
+refusals that remain (an epilogue on the row-reduce mode or a fused spec),
+the chain and int8/fp8 specs compiling beside them, and the CUDA launch
+path's folding of every new mode (``cuda_gen._launch_cuda``) run against
+an emulation of the kernel's arithmetic, since the kernel itself needs
+the card.
 """
 
 from __future__ import annotations
@@ -114,8 +115,9 @@ def test_epilogue_apply_matches_reference(act, fields):
 def test_epilogue_refusals():
     with pytest.raises(ValueError, match="unknown activation"):
         port_codegen.Epilogue(act="swish")
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        port_codegen.Epilogue(dequant=True)
+    # the dequant stage, once refused, is ported: qscale comes first
+    assert port_codegen.Epilogue(dequant=True, bias=True).vector_names == (
+        "qscale", "bias")
     assert port_codegen.Epilogue().is_identity
     # gelu is the tanh approximation, jax.nn.gelu's default
     z = torch.linspace(-4, 4, 33)
@@ -351,16 +353,20 @@ def test_weighted_specs_classify_by_index_sets():
 
 
 def test_chain_and_quant_specs_still_raise_naming_item_2b():
+    """The chain and int8/fp8 specs this slice refused are ported since
+    (queue A item 2b): they compile and compute.  What stays refused: an
+    epilogue on the row-reduce mode and on a fused spec."""
     chain = PE.chain_matmul_spec(4, 6, 8, 10)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        port_codegen.compile(chain, port_codegen.default_schedule(chain))
+    kern = port_codegen.compile(chain, port_codegen.default_schedule(chain))
+    a, b, c = torch.randn(4, 6), torch.randn(6, 8), torch.randn(8, 10)
+    torch.testing.assert_close(kern(a, b, c), a @ b @ c, rtol=1e-4,
+                               atol=1e-4)
     q = PE.quantize_spec(PE.matmul_spec(8, 8, 8), fmt="int8")
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        port_codegen.compile(q, port_codegen.default_schedule(q))
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        port_ops.dense(torch.randn(8, 8), torch.randn(8, 8), quant="fp8")
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        port_grad.chain_dense_vjp("float32", False)
+    assert port_codegen.compile(q, port_codegen.default_schedule(q)) \
+        .spec.root().quant is not None
+    assert port_ops.dense(torch.randn(8, 8), torch.randn(8, 8),
+                          quant="fp8").shape == (8, 8)
+    assert callable(port_grad.chain_dense_vjp("float32", False))
     # an epilogue on the row-reduce mode and on a fused spec is refused
     dg = port_grad.derived_specs(PE.weighted_matmul_spec(4, 6, 8))["g"]
     with pytest.raises(NotImplementedError, match="no epilogue"):

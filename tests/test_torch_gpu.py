@@ -1,9 +1,13 @@
 """The hand-written kernels on the card: the contraction kernel
 (``codegen/csrc/contract.cu``, B1, with its epilogue and the weighted
-family's vector and row-reduce modes), the grouped MoE kernel
+family's vector and row-reduce modes; ``contract_q8.cu``, its int8/fp8
+tensor-core mode and upcast body; ``contract_chain.cu``, its chain mode),
+the grouped MoE kernel
 (``codegen/csrc/grouped.cu``, B3), the grouped dW kernel
 (``codegen/csrc/grouped_dw.cu``, B4) and the hand-written baselines B5, B6
-and B7 (``codegen/csrc/baselines.cu``), and autograd through them.
+and B7 (``codegen/csrc/baselines.cu``), and autograd through them
+(``ops.chain_dense``'s 1 + 3 launches; ``ops.dense(quant=)``'s one launch
+and its refused gradient).
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided inside the ``cuda_device`` fixture).  The file imports torch and
@@ -11,7 +15,8 @@ the port only, so it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py -q
 
-Each case holds the kernel against its plain version (``contract_ref``,
+Each case holds the kernel against its plain version (``contract_ref``
+-- int8 by exact equality --,
 ``grouped_ref``, ``grouped_dw_ref``, ``matmul_ref``,
 ``fused_dense_act_ref``, ``weighted_matmul_ref``) on the same CUDA tensors at the
 reference's tolerances (``TOL``), on outputs scaled by their largest
@@ -702,3 +707,259 @@ def test_baseline_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="one dtype"):
         _baselines.FUSED_RNZ(a, a, torch.float32,
                              g=torch.ones(8, device=cuda_device).bfloat16())
+
+
+# --------------------------------------------------------------------------
+# B1's int8 / fp8 modes, the upcast body and the chain
+# --------------------------------------------------------------------------
+
+QFMT_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _q_operand(shape, fmt, gen, device):
+    """Seeded 8-bit values: ints in [-127, 127], or normals rounded to e4m3."""
+    if fmt == "int8":
+        return torch.randint(-127, 128, shape, generator=gen, device=device,
+                             dtype=torch.int32).to(torch.int8)
+    return (torch.randn(shape, generator=gen, device=device) * 4).to(
+        torch.float8_e4m3fn)
+
+
+def _launcher_of(fmt):
+    return cuda_gen.CONTRACT_INT8 if fmt == "int8" else cuda_gen.CONTRACT_FP8
+
+
+def _assert_quant_close(got, want, fmt):
+    """int8 exactly; fp8 at the f32 TOL scaled."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if fmt == "int8":
+        assert torch.equal(got, want)
+    else:
+        _assert_close_scaled(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("kmajor", [False, True], ids=["w_nmajor", "w_kmajor"])
+@pytest.mark.parametrize("m,k,n", [(128, 256, 384), (77, 130, 45),
+                                   (3, 5, 7), (1000, 999, 1001),
+                                   (256, 4096, 512), (64, 48, 32)])
+def test_cuda_8bit_mode_matches_plain_version(cuda_device, m, k, n, kmajor,
+                                              fmt):
+    """The raw quantized spec (no epilogue): int32 out for int8, exact;
+    f32 out for fp8; W either n-major or k-major (a transposed view)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(40)
+    a = _q_operand((m, k), fmt, gen, cuda_device)
+    b = _q_operand((n, k) if kmajor else (k, n), fmt, gen, cuda_device)
+    if kmajor:
+        b = b.t()
+    spec = PE.quantize_spec(PE.matmul_spec(m, k, n), fmt=fmt)
+    kern = codegen.compile(spec, codegen.default_schedule(spec))
+    before = _launcher_of(fmt).launches
+    got = kern(a, b)
+    assert _launcher_of(fmt).launches == before + 1
+    want = cuda_gen.contract_ref(spec, a, b,
+                                 out_dtype=cuda_gen._default_out_dtype(
+                                     spec, None, a.dtype))
+    assert got.dtype == (torch.int32 if fmt == "int8" else torch.float32)
+    _assert_quant_close(got, want, fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("family,extents", [
+    ("matvec", (300, 70)),
+    ("batched_matmul", (3, 40, 50, 60)),
+    ("transposed_matmul", (96, 64, 80)),
+    ("weighted_matmul", (77, 130, 45)),
+    ("chain_matmul", (70, 30, 50, 20)),
+])
+def test_cuda_quantized_families(cuda_device, family, extents, fmt):
+    """Every family of tests/test_differential.py at the 8-bit tier, and
+    the derived backward specs of the three-operand ones: two-operand
+    products on the tensor cores, the weighted family on the upcast body,
+    the chain on the chain kernel's CUDA-core body."""
+    from repro_torch.grad import derived_specs
+
+    base = getattr(PE, f"{family}_spec")(*extents)
+    specs = [base] + (list(derived_specs(base).values())
+                      if len(base.operands) == 3 else [])
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    for root in specs:
+        spec = PE.quantize_spec(root, fmt=fmt)
+        arrays = [_q_operand([spec.extents[i] for i in ax], fmt, gen,
+                             cuda_device) for ax in spec.operands.values()]
+        launchers = (cuda_gen.CONTRACT_INT8, cuda_gen.CONTRACT_FP8,
+                     cuda_gen.CONTRACT_UPCAST, cuda_gen.CONTRACT_CHAIN)
+        before = sum(x.launches for x in launchers)
+        got = codegen.compile(spec, codegen.default_schedule(spec))(*arrays)
+        assert sum(x.launches for x in launchers) == before + 1, spec.name
+        want = cuda_gen.contract_ref(
+            spec, *arrays,
+            out_dtype=cuda_gen._default_out_dtype(spec, None, arrays[0].dtype))
+        _assert_quant_close(got, want, fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("act", ["id", "gelu"])
+def test_cuda_dequant_epilogue(cuda_device, fmt, act):
+    """dequant -> scale -> bias -> act on the int32/f32 accumulator, f32
+    out, against the plain version."""
+    m, k, n = 192, 256, 320
+    gen = torch.Generator(device=cuda_device).manual_seed(42)
+    a = _q_operand((m, k), fmt, gen, cuda_device)
+    b = _q_operand((k, n), fmt, gen, cuda_device)
+    epi = codegen.Epilogue(dequant=True, scale=True, bias=True, act=act)
+    vecs = {"qscale": torch.rand(n, generator=gen, device=cuda_device) / 100,
+            "scale": torch.randn(n, generator=gen, device=cuda_device),
+            "bias": torch.randn(n, generator=gen, device=cuda_device)}
+    spec = PE.quantize_spec(PE.matmul_spec(m, k, n), fmt=fmt)
+    got = codegen.compile(spec, codegen.default_schedule(spec),
+                          epilogue=epi)(a, b, **vecs)
+    want = cuda_gen.contract_ref(spec, a, b, out_dtype=torch.float32,
+                                 epilogue=epi, vectors=vecs)
+    assert got.dtype == torch.float32
+    _assert_close_scaled(got, want, torch.float32)
+
+
+def _chain_arrays(spec, dtype, gen, device):
+    return [(torch.randn([spec.extents[i] for i in ax], generator=gen,
+                         device=device) / 4).to(dtype)
+            for ax in spec.operands.values()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extents", [(4096 // 16, 128, 4096 // 16, 128),
+                                     (77, 33, 130, 45), (3, 5, 7, 2),
+                                     (40, 300, 20, 500), (200, 16, 8, 300)])
+def test_cuda_chain_matches_plain_version(cuda_device, extents, dtype):
+    """``chain_matmul`` and its derived ``.dA``, ``.dB``, ``.dC``, one
+    chain launch each, whichever association the cost picks."""
+    from repro_torch.grad import derived_specs
+
+    base = PE.chain_matmul_spec(*extents)
+    gen = torch.Generator(device=cuda_device).manual_seed(43)
+    for spec in [base] + list(derived_specs(base).values()):
+        arrays = _chain_arrays(spec, dtype, gen, cuda_device)
+        kern = codegen.compile(spec, codegen.default_schedule(spec))
+        before = cuda_gen.CONTRACT_CHAIN.launches
+        got = kern(*arrays)
+        assert cuda_gen.CONTRACT_CHAIN.launches == before + 1, spec.name
+        want = cuda_gen.contract_ref(spec, *arrays, out_dtype=dtype)
+        assert got.shape == want.shape and got.dtype == dtype
+        _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chain_epilogue(cuda_device, dtype):
+    spec = PE.chain_matmul_spec(70, 40, 90, 50)
+    gen = torch.Generator(device=cuda_device).manual_seed(44)
+    arrays = _chain_arrays(spec, dtype, gen, cuda_device)
+    epi = codegen.Epilogue(act="silu", scale=True, bias=True, norm=True)
+    vecs = _vectors(cuda_device, 50, 45)
+    got = codegen.compile(spec, codegen.default_schedule(spec),
+                          epilogue=epi)(*arrays, **vecs)
+    want = cuda_gen.contract_ref(spec, *arrays, out_dtype=dtype,
+                                 epilogue=epi, vectors=vecs)
+    _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_dense_autograd_on_the_card(cuda_device, dtype):
+    """``ops.chain_dense`` forward and backward: 1 + 3 chain launches, and
+    the output and the three gradients of the CPU's plain path."""
+    gen = torch.Generator(device=cuda_device).manual_seed(46)
+    shapes = ((96, 40), (40, 130), (130, 24))
+    leaves = [(torch.randn(s, generator=gen, device=cuda_device) / 4).to(
+        dtype).requires_grad_(True) for s in shapes]
+    cpu = [t.detach().cpu().requires_grad_(True) for t in leaves]
+    dout = torch.randn(96, 24, generator=gen, device=cuda_device).to(dtype)
+    before = cuda_gen.CONTRACT_CHAIN.launches
+    out = ops.chain_dense(*leaves)
+    assert cuda_gen.CONTRACT_CHAIN.launches == before + 1
+    out.backward(dout)
+    assert cuda_gen.CONTRACT_CHAIN.launches == before + 4
+    ref = ops.chain_dense(*cpu, interpret=True)
+    ref.backward(dout.cpu())
+    _assert_close_scaled(out.cpu(), ref.detach(), dtype)
+    for got, want in zip(leaves, cpu):
+        _assert_close_scaled(got.grad.cpu(), want.grad, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantization_on_the_card_is_bit_for_bit(cuda_device, fmt, dtype):
+    """``optim.quant`` on a CUDA tensor gives the CPU's bits (true f32
+    divisions, not PyTorch's reciprocal for a host-scalar divisor)."""
+    from repro_torch.optim import quant as Q
+
+    gen = torch.Generator(device=cuda_device).manual_seed(48)
+    x = (torch.randn(300, 257, generator=gen, device=cuda_device) * 3).to(
+        dtype)
+    raw = lambda t: t.cpu().view(torch.uint8) if t.element_size() == 1 \
+        else t.cpu()  # noqa: E731
+    for fn in (Q.quantize_tensor, Q.quantize_channels):
+        for a, b in zip(fn(x, fmt), fn(x.cpu(), fmt)):
+            assert torch.equal(raw(a), raw(b)), fn.__name__
+    qt, st = Q.quantize_channels_kmajor(x, fmt)
+    q, s = Q.quantize_channels(x.cpu(), fmt)
+    assert torch.equal(raw(qt.t().contiguous()), raw(q))
+    assert torch.equal(st.cpu(), s)
+    for a, b in ((Q.quantize(x), Q.quantize(x.cpu())),):
+        assert torch.equal(a.q.cpu(), b.q) and torch.equal(a.scale.cpu(),
+                                                             b.scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_dense_quant_on_the_card(cuda_device, fmt):
+    """``ops.dense(quant=)``: one 8-bit launch, the CPU kernel path's
+    output at the f32 TOL (scaled), and no silent gradient."""
+    gen = torch.Generator(device=cuda_device).manual_seed(47)
+    x = torch.randn(256, 384, generator=gen, device=cuda_device).bfloat16()
+    w = (torch.randn(384, 512, generator=gen, device=cuda_device) / 8
+         ).bfloat16()
+    before = _launcher_of(fmt).launches
+    got = ops.dense(x, w, quant=fmt, out_dtype=torch.float32)
+    assert _launcher_of(fmt).launches == before + 1
+    want = ops.dense(x.cpu(), w.cpu(), quant=fmt, interpret=True,
+                     out_dtype=torch.float32)
+    _assert_close_scaled(got.cpu(), want, torch.float32)
+    assert ops.dense(x, w, quant=fmt).dtype == torch.bfloat16
+    xg = x.clone().requires_grad_(True)
+    out = ops.dense(xg, w, quant=fmt)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        out.float().sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("m,d,f", [(77, 130, 45), (3, 5, 7),
+                                   (1000, 999, 1001)])
+def test_dense_quant_ragged_on_the_card(cuda_device, monkeypatch, m, d, f,
+                                        fmt):
+    """A ragged ``ops.dense(quant=)`` on the card runs the 8-bit kernel
+    too: one launch and no library GEMM (``torch.matmul`` is barred for
+    the call), the CPU's dequantize-then-dot of the same call at the f32
+    TOL (scaled)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(48)
+    x = torch.randn(m, d, generator=gen, device=cuda_device).bfloat16()
+    w = (torch.randn(d, f, generator=gen, device=cuda_device) / 8
+         ).bfloat16()
+
+    def barred(*args, **kwargs):
+        raise AssertionError("a library GEMM on the 8-bit kernel path")
+
+    before = _launcher_of(fmt).launches
+    with monkeypatch.context() as patch:
+        patch.setattr(torch, "matmul", barred)
+        got = ops.dense(x, w, quant=fmt, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+    assert _launcher_of(fmt).launches == before + 1
+    want = ops.dense(x.cpu(), w.cpu(), quant=fmt, out_dtype=torch.float32)
+    _assert_close_scaled(got.cpu(), want, torch.float32)

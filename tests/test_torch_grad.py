@@ -17,8 +17,9 @@ max|ref|: f32 (2e-4, 2e-4), bf16 (6e-2, 6e-2).
   reached through ``codegen.compile``) against the reference's
   ``_grouped_dw_fn`` in interpret mode, in both operand orders;
 * ``differentiable=False`` on a kernel path leaves nothing to
-  differentiate, and the VJPs of modes not yet ported (chain, attention)
-  raise.
+  differentiate; the attention VJP, whose kernel is not ported yet,
+  raises (the chain VJP and ``dense(quant=)`` are held in
+  ``tests/test_torch_chain.py`` and ``tests/test_torch_quant.py``).
 """
 
 from __future__ import annotations
@@ -391,15 +392,10 @@ def test_plain_paths_stay_natively_differentiable():
 
 
 @pytest.mark.parametrize("factory,args,item", [
-    (port_grad.chain_dense_vjp, ("float32", False), "item 2b"),
-    (port_grad.chain_dense_vjp, ("bfloat16", True), "item 2b"),
-    (lambda *a: port_ops.dense(*a, quant="int8"),
-     (torch.ones(4, 4), torch.ones(4, 4)), "item 2b"),
     (port_grad.attention_vjp, (True, "float32", False), "item 5"),
 ])
 def test_unported_vjps_name_their_roadmap_item(factory, args, item):
-    """The VJPs (and the quant tier) still waiting for their forward modes
-    raise, naming their ROADMAP.md queue-A item; ``weighted_dense_vjp`` and
-    ``dense_act_vjp`` are ported (tests/test_torch_fused.py)."""
+    """The VJPs still waiting for their forward kernels raise, naming their
+    ROADMAP.md queue-A item (attention, item 5)."""
     with pytest.raises(NotImplementedError, match=item):
         factory(*args)

@@ -49,6 +49,8 @@ def test_port_sources_exist():
     assert (PORT / "codegen" / "csrc" / "contract.cu").is_file()
     assert (PORT / "codegen" / "csrc" / "grouped.cu").is_file()
     assert (PORT / "codegen" / "csrc" / "baselines.cu").is_file()
+    assert (PORT / "codegen" / "csrc" / "contract_q8.cu").is_file()
+    assert (PORT / "codegen" / "csrc" / "contract_chain.cu").is_file()
     for module in ("codegen/fused_gen.py", "models/moe.py",
                    "codegen/epilogue.py", "core/autotune.py",
                    "kernels/_baselines.py", "kernels/matmul/matmul.py",
@@ -58,6 +60,7 @@ def test_port_sources_exist():
                    "kernels/fused_dense_act/ref.py",
                    "kernels/fused_rnz/fused_rnz.py",
                    "kernels/fused_rnz/ops.py", "kernels/fused_rnz/ref.py",
+                   "codegen/modes.py", "optim/quant.py",
                    "configs/kimi_k2_1t_a32b.py",
                    "configs/llama4_maverick_400b_a17b.py"):
         assert PORT / module in SOURCES, module
@@ -108,6 +111,28 @@ def test_fused_ops_and_kernels_import_with_jax_unimportable():
         "ops.dense_act(x, x, v, v, v), ops.weighted_dense(x, x, v)\n"
         "matmul(x, x), fused_dense_act(x, x, v, v, v)\n"
         "weighted_matmul(x, x, v), choose_matmul_blocks(4, 4, 4)\n"
+        "assert 'repro' not in sys.modules, 'reference package imported'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_quant_and_chain_import_with_jax_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from repro_torch import ops\n"
+        "from repro_torch.codegen import modes\n"
+        "from repro_torch.optim.quant import quantize_tree, dequantize_tree\n"
+        "x = torch.ones(4, 4)\n"
+        "ops.dense(x, x, quant='int8'), ops.dense(x, x, quant='fp8')\n"
+        "ops.chain_dense(x, x, x, interpret=True)\n"
+        "dequantize_tree(quantize_tree({'w': torch.ones(64, 64)}))\n"
         "assert 'repro' not in sys.modules, 'reference package imported'\n"
         "print('ok')\n"
     )
