@@ -13,13 +13,15 @@ raises and the script exits non-zero without the final result line:
 2. build — ``nvcc`` builds ``codegen/csrc/contract.cu`` (B1),
    ``codegen/csrc/contract_q8.cu`` and ``codegen/csrc/contract_chain.cu``
    (B1's int8/fp8, upcast and chain modes), ``codegen/csrc/grouped.cu``
-   (B3), ``codegen/csrc/grouped_dw.cu`` (B4) and
-   ``codegen/csrc/baselines.cu`` (B5, B6, B7) for sm_90a from the
+   (B3), ``codegen/csrc/grouped_dw.cu`` (B4),
+   ``codegen/csrc/baselines.cu`` (B5, B6, B7) and
+   ``codegen/csrc/attention.cu`` (B2) for sm_90a from the
    checkout, one ``nvcc`` per source, all started together; prints
    ptxas's registers, shared memory, spills;
 3. kernel — the contraction kernel's wrapper against its plain PyTorch
-   version (``contract_ref``) at the serving GEMM shapes, M in {128, 512}
-   x (K, N) in {(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)}
+   version (``contract_ref``) at the serving GEMM shapes, M in {4, 128,
+   512} (a decode step of 4 lanes, prefills) x (K, N) in {(4096, 4096),
+   (4096, 1024), (4096, 12288), (12288, 4096)}
    in bfloat16, plus one float32 case; tolerances are the reference's on
    outputs scaled by max|ref|: float32 (1e-4, 1e-4), bfloat16 (6e-2, 6e-2).
    Each case is timed with CUDA events (L2 flushed before every launch)
@@ -70,7 +72,9 @@ raises and the script exits non-zero without the final result line:
     chain (2 launches), each held and timed;
 7. small model — a 2-layer, 128-aligned qwen3-8b variant in float32 served
    on the card (kernel path) and on the CPU (plain path) from the same
-   seeded weights: prefill/decode logits agree and greedy tokens are equal;
+   seeded weights: prefill/decode logits agree, greedy tokens are equal,
+   and B1 launches 7 x n_layers times in the prefill and in each decode
+   step;
 8. small MoE model — the same check for a 2-layer, 128-aligned kimi-k2
    variant (one dense layer, one MoE layer of 8 experts top-2) under
    ``REPRO_MOE_GROUPED=1``; the grouped kernel must launch 3 times per MoE
@@ -111,6 +115,24 @@ raises and the script exits non-zero without the final result line:
     ``quant="int8"`` (greedy tokens equal, logits within 1e-4 scaled),
     ``ops.dense(quant=)`` (f32 TOL) and ``ops.chain_dense`` with its
     gradients (f32 2e-4, bf16 6e-2);
+9g. attn-small — ``ops.attention`` card vs CPU at the reference's test
+    shapes (d in (4, 8), (s, t) in ((8, 8), (8, 16), (16, 8)), full and
+    causal) and a ragged head_dim-128 case (S = 100, T = 77), f32 and bf16:
+    outputs and the three gradients, 1 B2 + 3 B1 launches each;
+    ``kv_lengths`` with a 0 entry, forward and backward: exact zeros in
+    that head; every comparison scaled per row;
+9h. attn-path — ``ops.attention`` at full width through the public entry:
+    one qwen3-8b prefill's attention as capture's rewrite folds it (128
+    heads, S = T = 512, d = 128, bf16): (a) causal, (b) causal with the
+    serve trace's prompt lengths, (c) causal forward and backward, (d) f32
+    at 32 heads, (e) a 4096-token prompt at 32 heads: 5 B2 and 3 B1
+    launches; each forward against ``attention_ref`` and (c)'s cotangents
+    against the plain path on the card, each row scaled by its own largest
+    magnitude (every case checked before any fails); B2, the plain
+    version and
+    ``scaled_dot_product_attention`` (the library yardstick) timed beside
+    the bound; no library attention or GEMM in (a) and (b)'s trace
+    (``profile_attn_path.json``);
 10. train — the dense training path: ``launch.train``'s ``parse_args``,
     ``run_from_args`` and ``train()`` on qwen3-8b at full width (d_model
     4096, 32 heads, 8 KV heads, d_ff 12288, vocab 151936, bf16) cut to 8
@@ -133,9 +155,10 @@ raises and the script exits non-zero without the final result line:
     ``main``) on qwen3-8b at full width and depth (36 layers, d_model 4096,
     bf16, about 16.4 GB of seeded random weights) with ``--requests 4
     --prompt-len 512 --max-new 16 --lanes 4 --page-size 128 --rate-hz 0
-    --seed 0``; every prefill is 128-aligned, so the kernel's launch count
-    must equal 7 x 36 x prefills (q, k, v, o, gate, up, down), with every
-    request complete and every token in the vocab;
+    --seed 0``; every ``ops.dense`` of a prefill and of a decode step runs
+    the kernel, so its launch count must equal 7 x 36 x (prefills + decode
+    steps) (q, k, v, o, gate, up, down), with every request complete and
+    every token in the vocab;
 14. profile — outside the counted run, request 0's prefill again (finite
     logits that give the engine's first token) and one batch-1 decode step,
     each on the host clock and then under ``torch.profiler``: device busy
@@ -148,19 +171,22 @@ raises and the script exits non-zero without the final result line:
     flags as phase 13 and ``REPRO_MOE_GROUPED=1``; the grouped kernel must
     launch 3 x (prefills + decode steps) times and the contraction kernel
     the count derived from the segment plan (7 per dense layer, 4 + 3 per
-    MoE layer with a shared expert) x prefills; phase 13's engine is freed
+    MoE layer with a shared expert) x (prefills + decode steps); phase
+    13's engine is freed
     first;
 16. MoE profile — phase 14 for the kimi-k2 model
     (``$CHIP_SMOKE_OUT/profile_moe_{prefill,decode}.json``);
 16b. serve int8 — phase 13's serving path with ``--quant int8``: the tree
     quantized once at load, expanded before every step; requests complete,
-    B1 7 x 36 x prefills launches, the ``serve.quant_bytes`` gauge equal
+    B1 7 x 36 x (prefills + decode steps) launches, the
+    ``serve.quant_bytes`` gauge equal
     to the int8 leaves' bytes from their shapes, request 0's prefill
     again with finite logits giving the engine's first token; prefill
     ms, decode tok/s, p50 and peak memory;
 17. the phases' seconds, the ``kernels`` JSON line (contract, grouped,
     grouped_dw, matmul, fused_dense_act, fused_rnz, contract_int8,
-    contract_fp8, contract_upcast, contract_chain), then the card's line,
+    contract_fp8, contract_upcast, contract_chain, attention), then the
+    card's line,
     then the result line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -201,8 +227,9 @@ LAYER_GEMMS = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2,
                (12288, 4096): 1}
 KERNELS = ("contract", "grouped", "grouped_dw")
 #: the CUDA sources the build phase compiles: B1 (contract, its 8-bit and
-#: upcast modes, its chain mode), B3, B4 and B5-B7
-SOURCES = KERNELS + ("baselines", "contract_q8", "contract_chain")
+#: upcast modes, its chain mode), B3, B4, B5-B7 and B2 (attention)
+SOURCES = KERNELS + ("baselines", "contract_q8", "contract_chain",
+                     "attention")
 #: the hand-written baselines of repro_torch.kernels, by launcher name
 BASELINES = ("matmul", "fused_dense_act", "fused_rnz")
 #: the fused single-contraction path: qwen3-8b's MLP projection at the
@@ -327,6 +354,32 @@ def _check_close(got, want, dt_name, what, tol=None):
     return max_abs, scaled_err
 
 
+def _row_err(got, want):
+    """(max abs, row-scaled) error: each row (the last axis) divided by its
+    own largest |want| (1 for an all-zero row).  Attention's rows differ
+    in size by far -- a late causal row averages many values, row 0 is one
+    value of v -- so one scale for the whole tensor would let a late row
+    drift by many times its own size."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)}, expected "
+                             f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    scale = scale.masked_fill(scale == 0, 1.0)
+    return diff.max().item(), (diff / scale).max().item()
+
+
+def _check_rows(got, want, dt_name, what, tol=None):
+    """``_row_err`` within the atol of ``TOL`` (or ``tol``); raises."""
+    limit = (tol or TOL[dt_name])[1]
+    max_abs, row_err = _row_err(got, want)
+    if not row_err <= limit:
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"row-scaled error {row_err} above {limit}")
+    return max_abs, row_err
+
+
 def phase_kernel():
     import torch
 
@@ -338,7 +391,9 @@ def phase_kernel():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    cases = [(m, k, n, "bfloat16") for m in (128, 512)
+    # M = 4: one decode step of the serve path's 4 lanes; 128 and 512:
+    # prefills
+    cases = [(m, k, n, "bfloat16") for m in (4, 128, 512)
              for (k, n) in LAYER_GEMMS]
     cases.append((128, 4096, 4096, "float32"))
     rows = []
@@ -659,14 +714,16 @@ def _bound(ops, nbytes, dt_name):
 
 
 def _case_row(tag, what, got, want, dt_name, run, plain, library, ops,
-              nbytes, flush, **extra):
-    """Check ``got`` against ``want`` and time the kernel call ``run``, its
+              nbytes, flush, err=None, **extra):
+    """Check ``got`` against ``want`` (unless ``err``, its (max abs, scaled)
+    error, was checked already) and time the kernel call ``run``, its
     plain version and the library yardstick (L2 flushed before each
     launch); one report row, printed."""
     import torch
 
     torch.cuda.synchronize()
-    max_abs, scaled_err = _check_close(got, want, dt_name, f"{tag} {what}")
+    max_abs, scaled_err = err or _check_close(got, want, dt_name,
+                                              f"{tag} {what}")
     ms = _timed(run, flush)
     plain_ms = _timed(plain, flush)
     library_ms = _timed(library, flush) if library is not None else None
@@ -1173,9 +1230,10 @@ def phase_small_model():
             lg, cg = T.decode_step(gpu_params, cfg, cg, nxt.cuda())
             worst = max(worst, (lg.cpu() - lc).abs().max().item()
                         / lc.abs().max().item())
-    if CONTRACT.launches - before != 7 * cfg.n_layers:
-        raise AssertionError("small-model prefill did not run the kernel "
-                             "for all 7 x n_layers GEMMs")
+    if CONTRACT.launches - before != 7 * cfg.n_layers * 3:
+        raise AssertionError("small model: a prefill and two decode steps "
+                             "did not run the kernel for all 7 x n_layers "
+                             "GEMMs of each")
     if not worst <= 1e-4:
         raise AssertionError(f"small model: card and CPU logits differ by "
                              f"{worst} (scaled)")
@@ -1245,11 +1303,11 @@ def phase_small_moe():
         raise AssertionError(f"small MoE model: grouped kernel launched "
                              f"{GROUPED.launches - g0} times over 3 "
                              f"forwards, expected {3 * n_moe * 3}")
-    want = len(_prefill_gemms(cfg))
+    want = len(_forward_gemms(cfg)) * 3
     if CONTRACT.launches - c0 != want:
         raise AssertionError(f"small MoE model: contraction kernel launched "
-                             f"{CONTRACT.launches - c0} times in a prefill, "
-                             f"expected {want}")
+                             f"{CONTRACT.launches - c0} times in a prefill "
+                             f"and two decode steps, expected {want}")
     if not worst <= 1e-4:
         raise AssertionError(f"small MoE model: card and CPU logits differ "
                              f"by {worst} (scaled)")
@@ -1483,6 +1541,8 @@ def _kernel_of(name):
     """The port's kernel a device-kernel name belongs to, or None."""
     import re
 
+    if re.search(r"\battn_(bf16|f32)_kernel", name):
+        return "attention"
     hit = re.search(r"\b(q8_mma_kernel<(true|false)>|upcast_kernel|"
                     r"chain_(bf16|scalar)_kernel)", name)
     if hit:
@@ -1648,11 +1708,14 @@ def phase_serve():
                                  f"{len(r.out_tokens)}/{r.max_new} tokens")
         if not all(0 <= t < cfg.vocab for t in r.out_tokens):
             raise AssertionError(f"request {r.rid}: token outside the vocab")
-    want = 7 * cfg.n_layers * stats["prefills"]
+    forwards = stats["prefills"] + stats["decode_steps"]
+    want = 7 * cfg.n_layers * forwards
     if launches != want:
         raise AssertionError(f"contract kernel launched {launches} times, "
-                             f"expected 7 x {cfg.n_layers} x "
-                             f"{stats['prefills']} = {want}")
+                             f"expected 7 x {cfg.n_layers} x ("
+                             f"{stats['prefills']} prefills + "
+                             f"{stats['decode_steps']} decode steps) = "
+                             f"{want}")
     peak = torch.cuda.max_memory_allocated()
     summary = {k: v for k, v in stats.items() if k != "tenant_tokens"}
     print(f"[serve] {cfg.arch_id} {cfg.n_layers} layers d_model "
@@ -1661,18 +1724,19 @@ def phase_serve():
           flush=True)
     print(f"[serve] prompts {[len(r.prompt) for r in trace]}, max_new "
           f"{[r.max_new for r in trace]}, kernel launches {launches} = 7 x "
-          f"{cfg.n_layers} x {stats['prefills']} prefills, "
+          f"{cfg.n_layers} x ({stats['prefills']} prefills + "
+          f"{stats['decode_steps']} decode steps), "
           f"max_memory_allocated {peak / 2**30:.2f} GiB, wall {took:.1f} s",
           flush=True)
     return launches, stats, peak, trace, engine
 
 
-def _prefill_gemms(cfg):
-    """(K, N) of every ``ops.dense`` a prefill runs, from the segment plan:
-    q, k, v, o and the MLP's gate, up, down in a dense layer (``dense_ff``
-    in an MoE config); q, k, v, o and the shared expert's three in an MoE
-    layer.  All must be 128-aligned, so a 128-aligned prefill launches
-    the contraction kernel once for each."""
+def _forward_gemms(cfg):
+    """(K, N) of every ``ops.dense`` a forward (prefill or decode step)
+    runs, from the segment plan: q, k, v, o and the MLP's gate, up, down
+    in a dense layer (``dense_ff`` in an MoE config); q, k, v, o and the
+    shared expert's three in an MoE layer.  On the card each launches the
+    contraction kernel once, at any shape."""
     from repro_torch.models.transformer import segment_plan
 
     d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
@@ -1684,12 +1748,8 @@ def _prefill_gemms(cfg):
                             else cfg.d_ff),
         "moe": attn + mlp(m.shared_expert_ff if m is not None else 0),
     }
-    gemms = [g for pattern, count in segment_plan(cfg)
-             for kind in pattern for g in per_kind[kind] * count]
-    if any(k % 128 or n % 128 for k, n in gemms):
-        raise AssertionError(f"{cfg.arch_id}: a prefill GEMM is not "
-                             f"128-aligned: {sorted(set(gemms))}")
-    return gemms
+    return [g for pattern, count in segment_plan(cfg)
+            for kind in pattern for g in per_kind[kind] * count]
 
 
 def phase_moe_serve():
@@ -1704,8 +1764,6 @@ def phase_moe_serve():
     cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
     n_moe = _moe_layers(cfg)
     args = serve.parse_args(MOE_SERVE_ARGS)
-    if args.page_size % 128:  # prefills are padded to whole pages
-        raise AssertionError("MoE serve: prefills must be 128-aligned")
     print(f"[moe-serve] reduced: n_layers {full.n_layers} -> {cfg.n_layers} "
           f"(first_dense {cfg.moe.first_dense} + {n_moe} MoE layer); every "
           f"width as published", flush=True)
@@ -1723,14 +1781,13 @@ def phase_moe_serve():
         if not all(0 <= t < cfg.vocab for t in r.out_tokens):
             raise AssertionError(f"request {r.rid}: token outside the vocab")
     forwards = stats["prefills"] + stats["decode_steps"]
-    want = {"grouped": 3 * n_moe * forwards,
-            "contract": len(_prefill_gemms(cfg)) * stats["prefills"]}
+    gemms = len(_forward_gemms(cfg))
+    want = {"grouped": 3 * n_moe * forwards, "contract": gemms * forwards}
     if launches != want:
         raise AssertionError(f"MoE serve: kernel launches {launches}, "
                              f"expected {want} (3 x {n_moe} MoE layer x "
-                             f"{forwards} forwards; "
-                             f"{len(_prefill_gemms(cfg))} GEMMs x "
-                             f"{stats['prefills']} prefills)")
+                             f"{forwards} forwards; {gemms} GEMMs x "
+                             f"{forwards} forwards)")
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     if peak >= total:
@@ -1749,8 +1806,8 @@ def phase_moe_serve():
           flush=True)
     print(f"[moe-serve] prompts {[len(r.prompt) for r in trace]}, kernel "
           f"launches {launches} = grouped 3 x {n_moe} x {forwards} forwards, "
-          f"contract {len(_prefill_gemms(cfg))} x {stats['prefills']} "
-          f"prefills; max_memory_allocated {peak / 2**30:.2f} GiB of "
+          f"contract {gemms} x {forwards} forwards; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB of "
           f"{total / 2**30:.2f}, wall {took:.1f} s", flush=True)
     return launches, stats, peak, trace, engine
 
@@ -2413,7 +2470,8 @@ def phase_quant_small():
 def phase_serve_int8():
     """qwen3-8b at full width and depth served with ``--quant int8`` and
     the serve phase's flags, through ``serve.main``: every request complete
-    with tokens in the vocab, B1 launched 7 x 36 x prefills times (the
+    with tokens in the vocab, B1 launched 7 x 36 x (prefills + decode
+    steps) times (the
     projections run on the expanded bf16 weights, as in the reference),
     the ``serve.quant_bytes`` gauge equal to the bytes of the int8 leaves
     counted from their shapes (1 byte per value, 4 per 256-value block);
@@ -2458,7 +2516,7 @@ def phase_serve_int8():
         if not all(0 <= t < cfg.vocab for t in r.out_tokens):
             raise AssertionError(f"serve-int8: request {r.rid}: token "
                                  f"outside the vocab")
-    want = 7 * cfg.n_layers * stats["prefills"]
+    want = 7 * cfg.n_layers * (stats["prefills"] + stats["decode_steps"])
     if launches != want:
         raise AssertionError(f"serve-int8: contract kernel launched "
                              f"{launches} times, expected {want}")
@@ -2503,7 +2561,8 @@ def phase_serve_int8():
           f"prefill {stats['prefill_s'] * 1e3:.1f} ms over "
           f"{stats['prefills']}, decode {stats['tok_per_s']:.2f} tok/s, p50 "
           f"{stats['p50_s'] * 1e3:.1f} ms; kernel launches {launches} = 7 x "
-          f"{cfg.n_layers} x {stats['prefills']}; max_memory_allocated "
+          f"{cfg.n_layers} x ({stats['prefills']} prefills + "
+          f"{stats['decode_steps']} decode steps); max_memory_allocated "
           f"{loaded['peak'] / 2**30:.2f} GiB over the load, "
           f"{loaded['held'] / 2**30:.2f} GiB held after it, "
           f"{peak / 2**30:.2f} GiB over the serving; wall {took:.1f} s",
@@ -2514,6 +2573,321 @@ def phase_serve_int8():
     return dict(stats=summary, launches=launches, quant_bytes=gauge,
                 max_memory_allocated=peak, load_peak=loaded["peak"],
                 load_held=loaded["held"], wall_s=took)
+
+
+# --------------------------------------------------------------------------
+# slice 6: flash attention (B2), ops.attention and its backward
+# --------------------------------------------------------------------------
+
+#: one qwen3-8b prefill's attention in the layout capture's rewrite hands to
+#: ``ops.attention``: the serve trace's 4 prompts x 32 heads folded over the
+#: batch (KV heads repeated), S = T = 512, head_dim 128
+ATTN_HEADS, ATTN_SEQ, ATTN_DIM = 4 * 32, 512, 128
+#: the serve trace's prompt lengths, each repeated over its 32 heads
+ATTN_PROMPTS = (512, 128, 512, 256)
+#: a long prompt: 32 heads, S = T = 4096
+ATTN_LONG_HEADS, ATTN_LONG_SEQ = 32, 4096
+#: library attention kernels (the SDPA yardstick's) that must not appear
+LIBRARY_ATTENTION = ("flash", "fmha", "attention", "sdpa", "mem_eff")
+
+
+def _attn_counts():
+    from repro_torch.codegen import ATTENTION, CONTRACT
+
+    return {"attention": ATTENTION.launches, "contract": CONTRACT.launches}
+
+
+def _zero_attn_counts():
+    from repro_torch.codegen import ATTENTION, CONTRACT
+
+    ATTENTION.launches = CONTRACT.launches = 0
+
+
+def _attn_work(h, s, t, d, e, causal, lengths, itemsize):
+    """(operations, bytes) this call's data needs: the two products over
+    the visible (row, column) pairs only; q and o whole, k and v up to each
+    head's length."""
+    total_pairs = 0
+    kv_rows = 0
+    for hh in range(h):
+        tl = t if lengths is None else max(0, min(t, int(lengths[hh])))
+        kv_rows += tl
+        if causal:
+            # sum over rows r of min(r + 1, tl)
+            full = min(s, tl)
+            total_pairs += full * (full + 1) // 2 + max(0, s - full) * tl
+        else:
+            total_pairs += s * tl
+    ops = 2.0 * total_pairs * (d + e)
+    nbytes = (h * s * (d + e) + kv_rows * (d + e)) * itemsize
+    return ops, nbytes
+
+
+def _library_attention(path):
+    """Device kernels of a trace that are a library's attention or GEMM."""
+    _, _, by_name = _device_time(path)
+    return sorted(k for k in by_name if _category(k) == "cublas" or (
+        _kernel_of(k) is None
+        and any(w in k.lower() for w in LIBRARY_ATTENTION)))
+
+
+def _sdpa(q, k, v, causal, lengths):
+    """The library yardstick: one ``scaled_dot_product_attention`` call
+    with the same mask (timed here, called nowhere in the port), on the
+    folded heads as one batch of H heads (4-D, which its fused backends
+    take)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = q[None], k[None], v[None]
+    if lengths is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    _, h, s, _ = q.shape
+    t = k.shape[2]
+    col = torch.arange(t, device=q.device)
+    mask = col[None, None, :] < lengths.to(q.device).reshape(h, 1, 1)
+    if causal:
+        mask = mask & (col[None, :] <= torch.arange(s, device=q.device)
+                       [:, None])[None]
+    return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                  attn_mask=mask[None])
+
+
+def phase_attn_small():
+    """Card vs CPU at the reference's test shapes: ``ops.attention`` in f32
+    and bf16, d in (4, 8), (s, t) in ((8, 8), (8, 16), (16, 8)), full and
+    causal, then one ragged head_dim-128 case (S = 100, T = 77), and
+    ``kv_lengths`` with a 0 entry on a causal case: outputs at the f32 /
+    bf16 TOL, the three gradients at (2e-4, 2e-4) / bf16 TOL, each row
+    scaled by its own largest magnitude, one B2 and three B1 launches
+    each; the head of length 0 exact zeros, output and cotangents."""
+    import torch
+
+    from repro_torch import ops
+
+    gen = torch.Generator().manual_seed(60)
+    cases = [(3, s, t, d, causal, None) for d in (4, 8)
+             for s, t in ((8, 8), (8, 16), (16, 8))
+             for causal in (False, True)]
+    cases += [(4, 100, 77, 128, False, None), (4, 100, 77, 128, True, None),
+              (3, 16, 8, 8, True, (8, 3, 0))]
+    worst = {}
+    for dt_name, grad_tol in (("float32", (2e-4, 2e-4)),
+                              ("bfloat16", (6e-2, 6e-2))):
+        dt = getattr(torch, dt_name)
+        for h, s, t, d, causal, lens in cases:
+            base = [torch.randn(shape, generator=gen).to(dt)
+                    for shape in ((h, s, d), (h, t, d), (h, t, d))]
+            dout = torch.randn(h, s, d, generator=gen).to(dt)
+            res = {}
+            for device in ("cpu", "cuda"):
+                leaves = [x.detach().clone().to(device).requires_grad_(True)
+                          for x in base]
+                lengths = None if lens is None else torch.tensor(
+                    lens, dtype=torch.int32, device=device)
+                before = _attn_counts()
+                out = ops.attention(*leaves, causal=causal,
+                                    kv_lengths=lengths,
+                                    interpret=device == "cpu")
+                out.backward(dout.to(device))
+                after = _attn_counts()
+                if device == "cuda" and (
+                    after["attention"] - before["attention"],
+                    after["contract"] - before["contract"],
+                ) != (1, 3):
+                    raise AssertionError(f"attn-small: {before} -> {after}, "
+                                         f"expected 1 B2 and 3 B1 launches")
+                res[device] = [out.detach().cpu()] + [x.grad.cpu()
+                                                      for x in leaves]
+            what = (f"attn-small h={h} s={s} t={t} d={d} causal={causal} "
+                    f"kv_lengths={lens}")
+            if lens is not None and not all(bool((x[lens.index(0)] == 0)
+                                                 .all())
+                                            for x in res["cuda"]):
+                raise AssertionError(f"{what}: the head of length 0 is not "
+                                     f"exact zeros (output or cotangents)")
+            errs = [_check_rows(res["cuda"][0], res["cpu"][0], dt_name,
+                                what)]
+            errs += [_check_rows(g, w, dt_name, f"{what} grad",
+                                 tol=grad_tol)
+                     for g, w in zip(res["cuda"][1:], res["cpu"][1:])]
+            worst[dt_name] = max(worst.get(dt_name, (0.0, 0.0)),
+                                 max(errs, key=lambda x: x[1]),
+                                 key=lambda x: x[1])
+    print(f"[attn-small] {len(cases)} cases x f32/bf16 (one with kv_lengths "
+          f"and a 0 head: exact zeros), forward and backward card vs CPU, "
+          f"1 + 3 launches each; worst (max abs, row-scaled) "
+          f"{ {k: tuple(round(x, 9) for x in v) for k, v in worst.items()} }",
+          flush=True)
+    return dict(cases=len(cases), worst=worst)
+
+
+def phase_attn_path():
+    """``ops.attention`` at full width, through the public entry, on one
+    qwen3-8b prefill's attention (128 folded heads, S = T = 512, d = 128,
+    bf16): (a) causal forward, (b) causal with the trace's prompt lengths,
+    (c) causal forward and backward, (d) f32 at 32 heads, (e) a 4096-token
+    prompt (32 heads, causal, bf16, forward).  Counters from 0 over the
+    five calls: 5 B2 launches and 3 B1 (c's backward).  Then each forward
+    against ``attention_ref`` on the card and c's output and cotangents
+    against the card's plain path (``attention_ref`` under autograd), each
+    row scaled by its own largest magnitude, at the bf16 / f32 TOL's atol;
+    every reading is printed before any failure is raised.  Each forward
+    timed (B2, ``attention_ref``, the library
+    ``scaled_dot_product_attention`` with the same mask) beside its bound;
+    (a) and (b) under ``torch.profiler``: no library attention or GEMM."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.codegen import ATTENTION, attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def qkv(h, s, dt):
+        return [torch.randn(h, s, ATTN_DIM, generator=gen,
+                            device="cuda").to(dt) for _ in range(3)]
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    lengths = torch.tensor([n for n in ATTN_PROMPTS for _ in range(32)],
+                           dtype=torch.int32, device="cuda")
+    x_a = qkv(ATTN_HEADS, ATTN_SEQ, bf16)
+    x_d = qkv(32, ATTN_SEQ, f32)
+    x_e = qkv(ATTN_LONG_HEADS, ATTN_LONG_SEQ, bf16)
+    dout = torch.randn(ATTN_HEADS, ATTN_SEQ, ATTN_DIM, generator=gen,
+                       device="cuda").to(bf16)
+    leaves = [x.clone().requires_grad_(True) for x in x_a]
+    torch.cuda.synchronize()
+    _zero_attn_counts()
+    out_a = ops.attention(*x_a, causal=True)
+    out_b = ops.attention(*x_a, causal=True, kv_lengths=lengths)
+    out_c = ops.attention(*leaves, causal=True)
+    out_c.backward(dout)
+    out_d = ops.attention(*x_d, causal=True)
+    out_e = ops.attention(*x_e, causal=True)
+    torch.cuda.synchronize()
+    counts = _attn_counts()
+    if counts != {"attention": 5, "contract": 3}:
+        raise AssertionError(f"attn-path: launches {counts}, expected 5 B2 "
+                             f"(a-e) and 3 B1 (c's backward)")
+    for out, tag in ((out_a, "a"), (out_b, "b"), (out_c, "c"),
+                     (out_d, "d"), (out_e, "e")):
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"attn-path ({tag}): non-finite output")
+
+    cases = [
+        ("a", "causal", x_a, out_a, None),
+        ("b", "causal + kv_lengths", x_a, out_b, lengths),
+        ("d", "causal f32", x_d, out_d, None),
+        ("e", "causal long prompt", x_e, out_e, None),
+    ]
+    # every reading first, then the verdict: a fault shows in each case
+    readings, failed = {}, []
+
+    def read(key, got, want, dt_name):
+        limit = TOL[dt_name][1]
+        readings[key] = _row_err(got, want)
+        print(f"[attn-path] {key}: max abs err {readings[key][0]:.4g}, "
+              f"row-scaled err {readings[key][1]:.4g} (limit {limit:g})",
+              flush=True)
+        if not readings[key][1] <= limit:
+            failed.append(key)
+
+    for tag, what, (q, k, v), got, lens in cases:
+        read(f"({tag})", got, attention_ref(q, k, v, causal=True,
+                                            kv_lengths=lens,
+                                            out_dtype=q.dtype),
+             str(q.dtype).replace("torch.", ""))
+    # (c): output and cotangents against the card's plain path
+    plain = [x.clone().requires_grad_(True) for x in x_a]
+    want_c = attention_ref(*plain, causal=True, kv_lengths=None,
+                           out_dtype=bf16)
+    want_c.backward(dout)
+    read("(c) output", out_c.detach(), want_c.detach(), "bfloat16")
+    for name, g, w in zip(("dQ", "dK", "dV"), leaves, plain):
+        read(f"(c) {name}", g.grad, w.grad, "bfloat16")
+    del plain, want_c
+    if failed:
+        raise AssertionError(f"attn-path: {failed} disagree with the plain "
+                             f"version (row-scaled errors "
+                             f"{ {k: readings[k][1] for k in failed} })")
+
+    rows = []
+    for tag, what, (q, k, v), got, lens in cases:
+        h, s, d = q.shape
+        dt_name = str(q.dtype).replace("torch.", "")
+        ops_, nbytes = _attn_work(h, s, k.shape[1], d, v.shape[2], True,
+                                  None if lens is None else lens.tolist(),
+                                  q.element_size())
+        rows.append(_case_row(
+            "attn-path", f"({tag}) {what} H={h} S=T={s} d={d}", None, None,
+            dt_name, lambda q=q, k=k, v=v, lens=lens: ATTENTION(
+                q, k, v, True, lens, q.dtype),
+            lambda q=q, k=k, v=v, lens=lens: attention_ref(
+                q, k, v, causal=True, kv_lengths=lens, out_dtype=q.dtype),
+            _sdpa(q, k, v, True, lens), ops_, nbytes, flush,
+            err=readings[f"({tag})"], case_tag=tag, launches=1))
+
+    def run_c():
+        ls = [x.detach().clone().requires_grad_(True) for x in x_a]
+        ops.attention(*ls, causal=True).backward(dout)
+
+    _, busy_c, _, by_c = _profile(run_c, "attn_backward")
+    b1_c = sum(v[0] for k, v in by_c.items() if _kernel_of(k) == "contract")
+    b2_c = sum(v[0] for k, v in by_c.items() if _kernel_of(k) == "attention")
+
+    def run_ab():
+        ops.attention(*x_a, causal=True)
+        ops.attention(*x_a, causal=True, kv_lengths=lengths)
+
+    path, busy, events, by_name = _profile(run_ab, "attn_path")
+    library = _library_attention(path)
+    if library:
+        raise AssertionError(f"attn-path: library attention or GEMM kernels "
+                             f"on the path: {library}")
+    b2_ms = sum(v[0] for k, v in by_name.items() if _kernel_of(k) ==
+                "attention")
+    measured = (f"device busy {busy:.3f} ms over {events} events, B2 "
+                f"{b2_ms:.3f} ms" if by_name else
+                "device time not measured (the profiler saw no device events)")
+    grad_err = [readings[k] for k in ("(c) output", "(c) dQ", "(c) dK",
+                                      "(c) dV")]
+    print(f"[attn-path] launches {counts} (a-e: 5 B2; c's backward: 3 B1); "
+          f"(c) output and dQ, dK, dV vs the plain path row-scaled err "
+          f"{max(e[1] for e in grad_err):.3g}; (c) forward + backward device "
+          f"busy {busy_c:.3f} ms (B2 {b2_c:.3f}, B1 {b1_c:.3f}); (a) + (b) "
+          f"under the profiler: no library attention or GEMM, {measured}",
+          flush=True)
+    del x_a, x_d, x_e, leaves, flush, out_a, out_b, out_c, out_d, out_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=counts, grad_err=grad_err,
+                backward_busy_ms=busy_c, backward_b1_ms=b1_c,
+                backward_b2_ms=b2_c, profile_busy_ms=busy, profile_b2_ms=b2_ms)
+
+
+def attention_entry(small, path):
+    """The ``kernels`` entry of B2: the sums over the attn-path's four timed
+    forwards (a, b, d, e), its launches over that path's run (a-e), the
+    worst error over every B2 case of attn-small and attn-path."""
+    rows = path["rows"]
+    total = lambda key: sum(r[key] for r in rows)  # noqa: E731
+    return {
+        "name": "attention",
+        "route": "cuda",
+        "source": "src/repro_torch/codegen/csrc/attention.cu",
+        "replaces": "src/repro/codegen/fused_gen.py:140",
+        "launches": path["launches"]["attention"],
+        "max_abs_err": max([r["max_abs_err"] for r in rows]
+                           + [w[0] for w in small["worst"].values()]),
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
+                     else "bytes"),
+        "library_ms": total("library_ms"),
+    }
 
 
 def new_kernel_entries(quant, quant_path, chain):
@@ -2668,11 +3042,14 @@ def main() -> int:
     fused_small = _phase("fused-small", phase_fused_small)
     # the fused single-contraction ops at full width (the earlier slice)
     fused = _phase("fused-path", phase_fused_path)
-    # this slice's paths: ops.dense(quant=), ops.chain_dense with its
-    # backward, and the small card-vs-CPU checks
+    # the earlier slice's paths: ops.dense(quant=), ops.chain_dense with
+    # its backward, and the small card-vs-CPU checks
     quant_path = _phase("quant-path", phase_quant_path)
     chain = _phase("chain", phase_chain)
     quant_small = _phase("quant-small", phase_quant_small)
+    # this slice's path: ops.attention forward and backward through B2
+    attn_small = _phase("attn-small", phase_attn_small)
+    attn = _phase("attn-path", phase_attn_path)
 
     # the training paths of the earlier slice: dense, then MoE
     train, cfg, run, params, state = _phase(
@@ -2707,12 +3084,14 @@ def main() -> int:
                           moe_trace[0], tag="moe_")
     del moe_trace, moe_engine
     _free()
-    # this slice's serving path: weight-only int8 at full width and depth
+    # the earlier slice's serving path: weight-only int8 at full width and
+    # depth
     serve_int8 = _phase("serve-int8", phase_serve_int8)
     _free()
 
     line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches)
     line["kernels"] += new_kernel_entries(quant, quant_path, chain)
+    line["kernels"].append(attention_entry(attn_small, attn))
     SECONDS["total"] = time.perf_counter() - t_start
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "cases": rows,
@@ -2736,6 +3115,7 @@ def main() -> int:
                    "moe_max_memory_allocated": moe_peak,
                    "b1_quant": quant, "quant_path": quant_path,
                    "chain": chain, "quant_small": quant_small,
+                   "attn_small": attn_small, "attn_path": attn,
                    "serve_int8": serve_int8,
                    "seconds": SECONDS, **line}, f, indent=1)
     print(f"[time] phases {json.dumps({k: round(v, 1) for k, v in SECONDS.items()})}",

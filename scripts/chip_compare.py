@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""B1's plain product, one tree against another, in turns on one card.
+"""One tree against another, in turns on one card.
 
-    python3 scripts/chip_compare.py OLD_CHECKOUT NEW_CHECKOUT
+    python3 scripts/chip_compare.py [--serve] OLD_CHECKOUT NEW_CHECKOUT
 
 Runs, in a fresh process per turn and in the order old, new, new, old,
-three phases of each checkout's own ``chip_smoke.py``: ``kernel`` (B1 at
-the serving GEMMs), ``b1-train`` (B1 at one qwen3-8b layer's training
-GEMMs, forward and backward) and ``train`` (qwen3-8b at full width cut to
-8 layers, 5 steps), after building that checkout's ``contract.cu``.  Each
-turn prints one line ``COMPARE {...}``: the tree, B1's time per serve
-layer (the 7 GEMMs at M = 512), per train layer (the 7 forward and 14
-backward GEMMs at M = 2048) and the steady train step.  Needs one NVIDIA
-card; compare two versions only within one run of this script.
+phases of each checkout's own ``chip_smoke.py``, after building that
+checkout's ``contract.cu``.  By default: ``kernel`` (B1 at the serving
+GEMMs), ``b1-train`` (B1 at one qwen3-8b layer's training GEMMs, forward
+and backward) and ``train`` (qwen3-8b at full width cut to 8 layers, 5
+steps); each turn prints one line ``COMPARE {...}``: the tree, B1's time
+per serve layer (the 7 GEMMs at M = 512), per train layer (the 7 forward
+and 14 backward GEMMs at M = 2048) and the steady train step.  With
+``--serve``: ``serve`` (qwen3-8b at full width and depth, the smoke's
+serving flags) and ``profile`` (request 0's prefill and one batch-1 decode
+step on the host clock and under ``torch.profiler``); each turn prints the
+tree, decode tok/s, prefill ms, p50, B1's launches over the serving run,
+and the profiled decode step's wall ms, device busy ms and B1 launches and
+ms.  Needs one NVIDIA card; compare two versions only within one run of
+this script.
 """
 
 from __future__ import annotations
@@ -48,13 +54,44 @@ print("COMPARE " + json.dumps({
     "step_ms": [s * 1e3 for s in train["step_s"]]}), flush=True)
 """
 
+SERVE_TURN = r"""
+import json, os, sys
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cs.OUT, "autotune.json")
+os.environ["REPRO_PLAN_DB"] = os.path.join(cs.OUT, "plans.json")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+from repro_torch.codegen import build
+build.build("contract")
+build.load("contract")
+launches, stats, peak, trace, engine = cs.phase_serve()
+prof = cs.phase_profile(engine, trace[0])
+dec = prof["decode"]
+print("COMPARE " + json.dumps({
+    "tree": sys.argv[1], "decode_tok_s": stats["tok_per_s"],
+    "prefill_ms": stats["prefill_s"] * 1e3, "p50_ms": stats["p50_s"] * 1e3,
+    "decode_steps": stats["decode_steps"], "contract_launches": launches,
+    "decode_step_wall_ms": dec["wall_ms"],
+    "decode_step_busy_ms": dec["device_busy_ms"],
+    "decode_step_contract_ms": dec["contract_ms"],
+    "decode_step_contract_launches": dec["contract_launches"]}), flush=True)
+"""
+
 
 def main(argv) -> int:
+    turn = TURN
+    if len(argv) == 4 and argv[1] == "--serve":
+        turn = SERVE_TURN
+        argv = argv[:1] + argv[2:]
     if len(argv) != 3:
         raise SystemExit(__doc__)
     old, new = (os.path.abspath(p) for p in argv[1:])
     for tree in (old, new, new, old):
-        out = subprocess.run([sys.executable, "-c", TURN, tree], cwd=tree,
+        out = subprocess.run([sys.executable, "-c", turn, tree], cwd=tree,
                              capture_output=True, text=True)
         if out.returncode != 0:
             sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])

@@ -8,8 +8,9 @@ onto B1's hand-written CUDA kernels (``cuda_gen``): ``csrc/contract.cu``
 for f32/bf16 operands, with the epilogue (``epilogue.Epilogue``) and the
 weighted three-operand family; ``csrc/contract_q8.cu`` for int8/fp8 specs
 and ``csrc/contract_chain.cu`` for the chain (their launchers in
-``modes``); the grouped (MoE) fused family lowers onto ``csrc/grouped.cu`` (forward and
-dX) and ``csrc/grouped_dw.cu`` (dW) (``fused_gen``).  All are built by
+``modes``); the fused families lower onto ``csrc/attention.cu`` (flash
+attention, B2), ``csrc/grouped.cu`` (the grouped MoE forward and dX) and
+``csrc/grouped_dw.cu`` (dW) (``fused_gen``).  All are built by
 ``nvcc`` at first use (``build``).
 
 Entry point::
@@ -37,9 +38,12 @@ from .cuda_gen import (
 )
 from .epilogue import ACTIVATIONS, Epilogue
 from .fused_gen import (
+    ATTENTION,
     GROUPED,
     GROUPED_DW,
     FusedKernel,
+    attention_mask,
+    attention_ref,
     compile_fused,
     grouped_dw_ref,
     grouped_ref,
@@ -58,6 +62,7 @@ compile = compile_kernel
 
 __all__ = [
     "ACTIVATIONS",
+    "ATTENTION",
     "AutotuneCache",
     "AxisPlan",
     "CONTRACT",
@@ -67,6 +72,8 @@ __all__ = [
     "GROUPED",
     "GROUPED_DW",
     "KernelPlan",
+    "attention_mask",
+    "attention_ref",
     "batched_matmul_schedule",
     "build_plan",
     "cache_key",

@@ -72,7 +72,8 @@ block, while the CUDA kernels tile the output into their own CTAs (64 x
 Devices: on a CUDA tensor the call launches a kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
 falls back from one to the other.  Fused specs (``fused_kind`` set) go to
-``fused_gen.compile_fused`` (the grouped matmul, kernels B3 and B4).
+``fused_gen.compile_fused`` (flash attention, kernel B2; the grouped
+matmul, kernels B3 and B4).
 Meshes are a later slice and raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` queue-A item.
 """

@@ -1,9 +1,24 @@
-"""Fused-family lowering: the ragged grouped (MoE) matmul, kernels B3 and B4.
+"""Fused-family lowering: flash attention (B2) and the ragged grouped (MoE)
+matmul (B3, B4).
 
 The reference's ``codegen/fused_gen.py`` lowers the two fused spec
 families (``core.enumerate.AttentionSpec`` / ``GroupedSpec``) to Pallas
-kernels.  The port lowers the grouped family's three modes onto two
-hand-written CUDA kernels.  The row mode, the forward
+kernels.  The port lowers them onto three hand-written CUDA kernels.
+
+Attention, ``out = softmax_t(Q.K^T / sqrt(d) + mask) . V`` over folded
+heads (Q (h, s, d), K (h, t, d), V (h, t, e)), runs ``csrc/attention.cu``
+(B2): one CTA per (head, 64-row block of s) walks the KV axis in 64-column
+blocks, carrying the running max, sum and f32 accumulator in registers
+(the reference's sequential third grid axis and its VMEM scratch).
+Masked scores take the finite ``MASK_VALUE`` and masked probabilities are
+re-zeroed, so a fully masked block adds nothing to the running sum; rows
+with no valid column store exact zeros.  ``kv_lengths`` (int32, one per
+folded head) reaches the kernel as a device vector each CTA reads itself.
+A CPU tensor runs ``attention_ref``, the plain version of the kernel's
+semantics.
+
+The grouped family's three modes run two kernels.  The row mode, the
+forward
 
     out[n, f] = x[n, :] @ w[group(n), :, f]
 
@@ -30,9 +45,8 @@ loop that upcasts to f32 and stores in the kernel's dtype, or
 device.  The plan fixes the operand shapes and the memo key; the kernels
 take their own grids, not the plan's blocks.
 
-Still to port: the flash-attention kind (B2, ``_attention_fn``) raises
-``NotImplementedError``.  ``compile_fused`` keeps the reference's refusals
-of an epilogue and a mesh, with its messages.
+``compile_fused`` keeps the reference's refusals of an epilogue and a mesh,
+with its messages.
 """
 
 from __future__ import annotations
@@ -51,6 +65,155 @@ from .plan import KernelPlan, build_plan
 #: operand / output dtypes the kernel takes, with its dtype codes
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+
+#: large-but-finite score for masked positions: exp(MASK - m) underflows to
+#: 0 while exp(-inf - (-inf)) would be NaN (the reference's value)
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+#: B2's widest head: d and e up to this many elements
+ATTN_MAX_HEAD = 256
+
+
+def attention_mask(h: int, s: int, t: int, *, causal: bool,
+                   kv_lengths: Optional[torch.Tensor],
+                   device) -> torch.Tensor:
+    """Bool (1 or h, s, t): True where row s sees column t -- ``causal``:
+    column <= row; ``kv_lengths`` (one per head): column < length."""
+    col = torch.arange(t, device=device)
+    valid = torch.ones((1, s, t), dtype=torch.bool, device=device)
+    if causal:
+        valid = valid & (col[None, :] <= torch.arange(s, device=device)
+                         [:, None])
+    if kv_lengths is not None:
+        valid = valid & (col < kv_lengths.to(device).reshape(h, 1, 1))
+    return valid
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                    kv_lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """The f32 probabilities (h, s, t) of kernel B2's semantics.
+
+    Scores ``q.k^T * d^-0.5``; masked ones (``causal``: column after the
+    row; ``kv_lengths``: column at or past the head's length) take the
+    finite ``MASK_VALUE``, probabilities are re-zeroed where masked, and a
+    row with no visible column is all zeros -- the reference kernel's
+    arithmetic without its blocking.  Natively differentiable; the
+    attention backward recomputes P through it.
+    """
+    h, s, d = q.shape
+    t = k.shape[1]
+    sc = torch.matmul(q.float(), k.float().transpose(1, 2)) * float(d) ** -0.5
+    valid = attention_mask(h, s, t, causal=causal, kv_lengths=kv_lengths,
+                           device=q.device)
+    sc = torch.where(valid, sc, MASK_VALUE)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True).detach())
+    p = torch.where(valid, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    return p / torch.where(l == 0.0, 1.0, l)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, kv_lengths: Optional[torch.Tensor],
+                  out_dtype) -> torch.Tensor:
+    """The plain PyTorch version of kernel B2: ``attention_probs`` times v
+    in f32; rows with no visible column store exact zeros."""
+    p = attention_probs(q, k, causal=causal, kv_lengths=kv_lengths)
+    return torch.matmul(p, v.float()).to(out_dtype)
+
+
+class AttentionLauncher:
+    """The ctypes wrapper of ``attention_launch`` (kernel B2); counts its
+    launches, one per call, and nothing else."""
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+
+    def _fn(self):
+        if self._lib is None:
+            from .build import load
+
+            lib = load("attention")
+            lib.attention_launch.argtypes = (
+                [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * 5
+                + [ctypes.c_int] * 5
+                + [ctypes.c_longlong] * 8
+                + [ctypes.c_void_p]
+            )
+            lib.attention_launch.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, kv_lengths: Optional[torch.Tensor],
+                 out_dtype: torch.dtype) -> torch.Tensor:
+        """q (H, S, D), k (H, T, D), v (H, T, E) -> new (H, S, E) tensor;
+        ``kv_lengths`` is None or an int32 (H,) tensor on q's device."""
+        tensors = (q, k, v) + (() if kv_lengths is None else (kv_lengths,))
+        if q.device.type != "cuda" or any(x.device != q.device
+                                          for x in tensors):
+            raise ValueError(
+                f"attention kernel takes CUDA tensors on one device, got "
+                f"{[str(x.device) for x in tensors]}"
+            )
+        if not q.dtype == k.dtype == v.dtype or q.dtype not in _KERNEL_DTYPES:
+            raise TypeError(
+                f"attention kernel takes float32 or bfloat16 q, k and v of "
+                f"one dtype, got {q.dtype}, {k.dtype} and {v.dtype}"
+            )
+        if out_dtype not in _KERNEL_DTYPES:
+            raise TypeError(f"attention kernel writes float32 or bfloat16, "
+                            f"not {out_dtype}")
+        if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or (
+            k.shape[0] != q.shape[0] or v.shape[0] != q.shape[0]
+            or k.shape[2] != q.shape[2] or v.shape[1] != k.shape[1]
+        ):
+            raise ValueError(f"attention kernel takes q (H, S, D), k (H, T, "
+                             f"D) and v (H, T, E), got {tuple(q.shape)}, "
+                             f"{tuple(k.shape)} and {tuple(v.shape)}")
+        h, s, d = q.shape
+        t, e = k.shape[1], v.shape[2]
+        if max(d, e) > ATTN_MAX_HEAD:
+            raise ValueError(f"attention kernel takes d and e up to "
+                             f"{ATTN_MAX_HEAD}, got d {d}, e {e}")
+        if kv_lengths is not None and (
+            kv_lengths.dtype != torch.int32 or tuple(kv_lengths.shape) != (h,)
+            or not kv_lengths.is_contiguous()
+        ):
+            raise ValueError(f"attention kernel takes kv_lengths as a "
+                             f"contiguous int32 ({h},) tensor")
+        # rows must be unit-stride along d / e; heads and rows any stride
+        q, k, v = (x if x.stride(2) == 1 or x.shape[2] == 1 else
+                   x.contiguous() for x in (q, k, v))
+        if min(min(x.stride()) for x in (q, k, v)) < 0:
+            raise ValueError("attention kernel takes non-negative strides")
+        if h > _MAX_GRID_Y:
+            raise ValueError(f"attention kernel grid too large: {h} heads")
+        if max(s, t, *q.stride(), *k.stride(), *v.stride()) >= 2**31:
+            raise ValueError("attention kernel takes extents and strides "
+                             "below 2**31")
+        out = torch.empty((h, s, e), dtype=out_dtype, device=q.device)
+        if out.numel() == 0:
+            return out
+        lib = self._fn()
+        rc = lib.attention_launch(
+            _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[out_dtype], int(causal),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if kv_lengths is None else kv_lengths.data_ptr(),
+            h, s, t, d, e,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"attention kernel launch failed: "
+                               f"cudaGetLastError() = {rc}")
+        self.launches += 1
+        return out
+
+
+#: the process's one B2 launcher; ``ATTENTION.launches`` is its count
+ATTENTION = AttentionLauncher()
 
 
 def _group_offsets(group_sizes: Tuple[int, ...]) -> List[int]:
@@ -286,12 +449,14 @@ def group_table(group_sizes: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
 
 @dataclasses.dataclass
 class FusedKernel:
-    """A grouped-matmul kernel bound to one (spec, schedule) pair.
+    """A fused kernel bound to one (spec, schedule) pair.
 
     Call with the operand tensors in ``spec.operands`` order, shaped as the
-    plan's local extents.  CUDA tensors launch ``csrc/grouped.cu`` (row
-    mode) or ``csrc/grouped_dw.cu`` (dW mode); CPU tensors run
-    ``grouped_ref`` or ``grouped_dw_ref``.
+    plan's local extents; attention also takes ``kv_lengths=`` (one int32
+    per folded head).  CUDA tensors launch ``csrc/attention.cu``,
+    ``csrc/grouped.cu`` (row mode) or ``csrc/grouped_dw.cu`` (dW mode);
+    CPU tensors run ``attention_ref``, ``grouped_ref`` or
+    ``grouped_dw_ref``.
     """
 
     spec: ContractionSpec
@@ -360,12 +525,14 @@ class FusedKernel:
                     f"operand {name}: expected local shape {want}, "
                     f"got {tuple(arr.shape)}"
                 )
+        devices = {arr.device.type for arr in arrays}
+        if self.kind == "attention":
+            return self._attention(arrays, kv_lengths, devices)
         if kv_lengths is not None:
             raise TypeError("kv_lengths only applies to attention kernels")
         x, w = arrays
         out_dtype = self.out_dtype or x.dtype
         sizes = tuple(self.spec.root().group_sizes)
-        devices = {arr.device.type for arr in arrays}
         if self.dw and devices == {"cpu"}:
             return grouped_dw_ref(*self._dw_operands(arrays), sizes,
                                   out_dtype=out_dtype)
@@ -378,6 +545,26 @@ class FusedKernel:
         if devices == {"cuda"}:
             return GROUPED(x, w, self._table(x.device), max(sizes),
                            out_dtype, contract_last=self.contract_last)
+        raise ValueError(f"{self.spec.name}: operands on {sorted(devices)}; "
+                         f"all CPU (plain version) or all CUDA (kernel)")
+
+    def _attention(self, arrays, kv_lengths, devices):
+        q, k, v = arrays
+        out_dtype = self.out_dtype or q.dtype
+        causal = bool(self.spec.root().causal)
+        lengths = None
+        if kv_lengths is not None:
+            lengths = torch.as_tensor(kv_lengths, device=q.device).to(
+                torch.int32).reshape(-1).contiguous()
+            h = self.spec.extents["h"]
+            if lengths.shape[0] != h:
+                raise ValueError(f"kv_lengths: expected {h} entries, got "
+                                 f"{lengths.shape[0]}")
+        if devices == {"cpu"}:
+            return attention_ref(q, k, v, causal=causal, kv_lengths=lengths,
+                                 out_dtype=out_dtype)
+        if devices == {"cuda"}:
+            return ATTENTION(q, k, v, causal, lengths, out_dtype)
         raise ValueError(f"{self.spec.name}: operands on {sorted(devices)}; "
                          f"all CPU (plain version) or all CUDA (kernel)")
 
@@ -401,11 +588,6 @@ def compile_fused(
         raise NotImplementedError("fused kernels take no epilogue")
     if mesh is not None:
         raise NotImplementedError("fused families have no mesh tier yet")
-    if kind == "attention":
-        raise NotImplementedError(
-            "fused attention (kernel B2, fused_gen._attention_fn) is not "
-            "ported yet: ROADMAP.md queue A item 5"
-        )
     from ..obs import span
 
     with span("codegen.compile_fused", spec=root.name, kind=kind):

@@ -326,7 +326,7 @@ def transposed_matmul_spec(n: int, m: int, k: int) -> ContractionSpec:
 # A fused spec is still a ContractionSpec — its operands/output/extents
 # drive the generic enumerate->search->plan machinery unchanged — but the
 # innermost semantics are NOT a plain product-reduce: `fused_kind` names a
-# dedicated fused lowering (not yet ported) and every einsum-based
+# dedicated fused lowering (``codegen.fused_gen``) and every einsum-based
 # consumer (measurement oracle, grad fallbacks) must branch on it.
 # ``whole_indices`` are axes the fused kernel keeps unblocked (attention's
 # head dims; grouped's group/contraction axes) — the search space pins them.

@@ -12,7 +12,8 @@ kernels too: ``matmul.dA``/``.dB`` on B1 (``csrc/contract.cu``),
 ``grouped_matmul.dX`` on B3's dX orientation (``csrc/grouped.cu``) and
 ``grouped_matmul.dW`` on B4 (``csrc/grouped_dw.cu``); the weighted
 family's ``weighted_matmul.dA``/``.dB`` on B1's vector mode and ``.dg`` on
-its row-reduce mode; ``chain_matmul.dA``/``.dB``/``.dC`` on its chain mode.
+its row-reduce mode; ``chain_matmul.dA``/``.dB``/``.dC`` on its chain mode;
+``attention.dQ``/``.dK``/``.dV`` on B1 as batched products over the heads.
 
 The reference's rules hold:
 
@@ -30,8 +31,8 @@ The factories are memoized on their static parameters (dtype name,
 are, and return a plain function of the tensors.  ``dense_act`` recomputes
 its f32 accumulator with one extra B1 launch and differentiates the
 element-wise epilogue with torch autograd on ``Epilogue.apply``.  The
-``attention`` VJP waits for its forward kernel (B2) and raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item.
+``attention`` VJP runs its forward on B2 and recomputes the probabilities
+in its backward, whose three GEMMs ``attention.dQ/.dK/.dV`` run on B1.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 
 from ..codegen.cuda_gen import contract_ref
+from ..codegen.fused_gen import attention_probs
 from ..codegen.epilogue import Epilogue
 from .derive import COTANGENT, derived_specs
 
@@ -414,8 +416,74 @@ def chain_dense_vjp(out_dtype: str, interpret: bool):
     return lambda a, b, c: _ChainDense.apply(a, b, c, dt, interpret)
 
 
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, causal, out_dtype, interpret):
+        from .. import ops
+
+        ctx.save_for_backward(q, k, v)
+        ctx.kv_lengths = kv_lengths
+        ctx.causal, ctx.interpret = causal, interpret
+        return ops._attention_raw(q, k, v, causal=causal,
+                                  kv_lengths=kv_lengths, out_dtype=out_dtype,
+                                  interpret=interpret)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .. import ops
+        from ..core.enumerate import attention_spec
+
+        q, k, v = ctx.saved_tensors
+        h, s, d = q.shape
+        t, e = k.shape[1], v.shape[2]
+        dsp = derived_specs(attention_spec(h, s, t, d, e=e,
+                                           causal=ctx.causal))
+        use_kernel = ops._attention_kernel_ok(q, ctx.interpret)
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        scale = d ** -0.5
+        dq = dk = dv = None
+        with _annotate("attention"):
+            # the forward kept no probabilities: recompute them in f32
+            # under the forward's masks (plain products, as the reference's
+            # einsums outside a kernel); a row with no visible column has
+            # P = 0, hence dS = 0
+            big_p = attention_probs(q, k, causal=ctx.causal,
+                                    kv_lengths=ctx.kv_lengths)
+            if need_v:
+                dv = apply_spec(
+                    dsp["V"], {COTANGENT: g.to(v.dtype),
+                               "P": big_p.to(v.dtype)},
+                    out_dtype=v.dtype, interpret=ctx.interpret,
+                    use_kernel=use_kernel)
+            if need_q or need_k:
+                dp = torch.matmul(g.float(), v.float().transpose(1, 2))
+                dterm = (dp * big_p).sum(dim=-1, keepdim=True)
+                ds = big_p * (dp - dterm) * scale
+                del dp
+                if need_q:
+                    dq = apply_spec(
+                        dsp["Q"], {COTANGENT: ds.to(q.dtype), "K": k},
+                        out_dtype=q.dtype, interpret=ctx.interpret,
+                        use_kernel=use_kernel)
+                if need_k:
+                    dk = apply_spec(
+                        dsp["K"], {COTANGENT: ds.to(k.dtype), "Q": q},
+                        out_dtype=k.dtype, interpret=ctx.interpret,
+                        use_kernel=use_kernel)
+        return dq, dk, dv, None, None, None, None
+
+
+@functools.lru_cache(maxsize=None)
 def attention_vjp(causal: bool, out_dtype: str, interpret: bool):
-    raise NotImplementedError(
-        "ops.attention and its VJP come with the fused attention kernel "
-        "(B2), ROADMAP.md queue A item 5"
-    )
+    """Fused attention with a recompute backward.
+
+    The forward (``ops._attention_raw``, one B2 launch) never stores the
+    (s, t) probability matrix; the backward recomputes scores and P in
+    f32, forms dS = P * (dP - D) * scale element-wise and routes the three
+    GEMMs through the derived specs ``attention.dQ/.dK/.dV``, each one B1
+    launch on the kernel path.  ``kv_lengths`` (None or an int32 tensor,
+    one entry per head) masks the forward and the recompute alike.
+    """
+    dt = _torch_dtype(out_dtype)
+    return lambda q, k, v, kv_lengths=None: _Attention.apply(
+        q, k, v, kv_lengths, bool(causal), dt, interpret)

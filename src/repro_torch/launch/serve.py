@@ -4,11 +4,10 @@
       --prompt-len 512 --max-new 16 --lanes 4 --page-size 128 --rate-hz 0
 
 drives a seeded synthetic trace through :class:`ContinuousEngine` and
-prints the engine's stats.  Every 128-aligned prefill GEMM runs the
-hand-written contraction kernel; the line ``contract kernel launches``
-says how many ran.  The default flags (``--prompt-len 16 --page-size 16``)
-give no 128-aligned GEMM, so they launch no contraction kernel, exactly as
-the reference's defaults reach no Pallas kernel.  The MoE family
+prints the engine's stats.  On the card every projection and MLP GEMM of
+a prefill or decode step runs the hand-written contraction kernel, at any
+shape; the line ``contract kernel launches`` says how many ran.  The MoE
+family
 (``--arch kimi-k2-1t-a32b``, ``llama4-maverick-400b-a17b``) serves too;
 with ``REPRO_MOE_GROUPED=1`` in the environment its expert products run
 the grouped kernel on every prefill and decode step (``grouped kernel

@@ -3,10 +3,9 @@
 Prefill is compute-bound (square-ish GEMMs over the whole prompt); decode
 is bandwidth-bound (skinny M = lanes GEMMs).  Each runner scopes its work
 with ``search.serving_phase(...)``, so ``ops._tuned_kernel`` consults the
-phase-qualified plan-DB entry first.  With page sizes that are multiples
-of 128, every prefill GEMM is 128-aligned and runs the contraction kernel;
-decode (M = lanes) is a plain ``torch.matmul``, as the reference leaves it
-to ``jnp.dot``.  PyTorch runs eagerly: there is nothing to trace.
+phase-qualified plan-DB entry first.  On the card every prefill and
+decode GEMM (M = lanes in decode) runs the contraction kernel, whatever
+its shape.  PyTorch runs eagerly: there is nothing to trace.
 
 With ``quant`` (weight-only ``--quant int8``) the runners take the
 quantized tree, as the reference's jitted closures do, and the weights

@@ -1,14 +1,15 @@
 """Framework-level dense ops, routed through the kernel generator.
 
 ``dense`` is the single entry point every model projection goes through.
-As in the reference, a 2-D GEMM whose M, K and N are all multiples of 128
-is *eligible*: it compiles through ``repro_torch.codegen`` with the
-schedule from the plan DB (serving-phase ladder first, then the unphased
-one) or else the tuner (``codegen.tune_schedule``), and runs
-``csrc/contract.cu`` on CUDA tensors.  The device decides, never a probe
-for a card: the reference's "on a TPU" becomes "on a CUDA tensor", and
-``interpret=True`` keeps its reference meaning of making a call eligible
-off the device rule, so CPU tests reach the kernel's plain version.
+Every non-empty call on a CUDA tensor is *eligible* (x's leading axes
+folded into M; B1 masks ragged edges, so no alignment rule): it compiles
+through ``repro_torch.codegen`` with the schedule from the plan DB
+(serving-phase ladder first, then the unphased one) or else the tuner
+(``codegen.tune_schedule``), and runs ``csrc/contract.cu``.  The device
+decides, never a probe for a card: the reference's "on a TPU" becomes "on
+a CUDA tensor".  Off the card ``interpret=True`` keeps the reference's
+gate, a 2-D GEMM whose M, K and N are all multiples of 128, so CPU tests
+reach the kernel's plain version where the reference reaches its kernel.
 Everything else is ``torch.matmul`` with f32 accumulation, as the
 reference leaves it to ``jnp.dot(..., preferred_element_type=f32)``.
 ``batched_dense`` and ``dense_transposed`` are the reference's batched and
@@ -61,15 +62,31 @@ gradient, as the reference's bare ``pallas_call`` has none: its output's
 backward raises.  ``chain_dense`` is ``a @ b @ c`` on B1's chain mode, the
 intermediate never in device memory, forward and (``grad.chain_dense_vjp``)
 the three derived backward specs, one launch each.
+
+``attention`` is fused QK^T -> online softmax -> PV over folded heads, q
+(H, S, D), k (H, T, D), v (H, T, E): on a CUDA tensor (or with
+``interpret=True``) a 3-D call compiles the ``AttentionSpec`` and runs
+``csrc/attention.cu`` (kernel B2, one launch), the (S, T) probabilities
+never in device memory; its backward (``grad.attention_vjp``) recomputes
+them in f32 and runs the three derived specs ``attention.dQ/.dK/.dV`` on
+B1, with or without ``kv_lengths``.  Off the card it is the plain f32
+version ``codegen.attention_ref``, natively differentiable.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..codegen import Epilogue, cached_compile, grouped_ref, tune_schedule
+from ..codegen import (
+    Epilogue,
+    attention_ref,
+    cached_compile,
+    grouped_ref,
+    tune_schedule,
+)
 from ..core.enumerate import (
     QUANT_FORMATS,
+    attention_spec,
     batched_matmul_spec,
     chain_matmul_spec,
     grouped_matmul_spec,
@@ -121,7 +138,12 @@ def _dt_name(dtype) -> str:
 
 def _dense_kernel_ok(x: torch.Tensor, w: torch.Tensor,
                      interpret: bool) -> bool:
-    return (x.is_cuda or interpret) and x.dim() == 2 and all(
+    # every non-empty 2-D CUDA call runs B1 (``dense`` folds x's leading
+    # axes into M first; B1 masks ragged edges); off the card ``interpret``
+    # keeps the reference's gate, a 2-D GEMM with M, K and N multiples of 128
+    if x.is_cuda:
+        return x.dim() == 2 and x.numel() > 0 and w.numel() > 0
+    return interpret and x.dim() == 2 and all(
         s % 128 == 0 for s in (*x.shape, w.shape[1])
     )
 
@@ -245,6 +267,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
     out_dtype = out_dtype or x.dtype
     if quant is not None:
         return _dense_quant(x, w, quant, out_dtype, interpret)
+    if x.is_cuda and x.dim() != 2:
+        return _fold_rows(dense, x, w, out_dtype=out_dtype,
+                          interpret=interpret, differentiable=differentiable)
     if _dense_kernel_ok(x, w, interpret):
         if differentiable:
             from ..grad import dense_vjp
@@ -489,4 +514,65 @@ def dense_act(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
             return _dense_act_raw(x, w, beta, mean, var, act=act, eps=eps,
                                   out_dtype=out_dtype, interpret=interpret)
     return _dense_act_raw(x, w, beta, mean, var, act=act, eps=eps,
+                          out_dtype=out_dtype, interpret=interpret)
+
+
+def _attention_kernel_ok(q: torch.Tensor, interpret: bool) -> bool:
+    return (q.is_cuda or interpret) and q.dim() == 3
+
+
+def _attention_raw(q, k, v, *, causal, kv_lengths, out_dtype, interpret):
+    if _attention_kernel_ok(q, interpret):
+        h, s, d = q.shape
+        kern = _tuned_kernel(
+            attention_spec(h, s, k.shape[1], d, e=v.shape[2],
+                           causal=causal),
+            q.dtype, interpret=interpret,
+        )
+        return kern(q, k, v, kv_lengths=kv_lengths).to(out_dtype)
+    return attention_ref(q, k, v, causal=causal, kv_lengths=kv_lengths,
+                         out_dtype=out_dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = False, kv_lengths=None, out_dtype=None,
+              interpret: bool = False,
+              differentiable: bool = True) -> torch.Tensor:
+    """Fused QK^T -> online-softmax -> PV through the searched kernel.
+
+    q: (H, S, D), k: (H, T, D), v: (H, T, E) -> (H, S, E).  Scores are
+    scaled by D^-0.5 and accumulated in f32; kernel B2 walks the KV axis
+    inside each CTA carrying the running max and sum, so the (S, T)
+    probability matrix never exists in device memory
+    (``codegen.fused_gen``).  ``causal`` masks columns after the row;
+    ``kv_lengths`` (int32, one per folded head) masks columns ``>=
+    length``; rows with no valid column return exact zeros.
+
+    On the kernel path a differentiable call goes through
+    ``grad.attention_vjp`` (a recompute backward, masked as the forward,
+    whose GEMMs are the derived ``attention.dQ/.dK/.dV`` specs).  Unlike
+    the reference, whose differentiable call with ``kv_lengths`` takes its
+    plain version, lengths reach the kernel here too.  Off the kernel path
+    the plain version is natively differentiable.
+    """
+    out_dtype = out_dtype or q.dtype
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(
+            f"attention expects 3-D (H, S|T, D|E) operands; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if kv_lengths is not None:
+        kv_lengths = torch.as_tensor(kv_lengths, device=q.device).to(
+            torch.int32).reshape(-1).contiguous()
+    if _attention_kernel_ok(q, interpret):
+        if differentiable:
+            from ..grad import attention_vjp
+
+            return attention_vjp(bool(causal), _dt_name(out_dtype),
+                                 bool(interpret))(q, k, v, kv_lengths)
+        with torch.no_grad():
+            return _attention_raw(q, k, v, causal=causal,
+                                  kv_lengths=kv_lengths, out_dtype=out_dtype,
+                                  interpret=interpret)
+    return _attention_raw(q, k, v, causal=causal, kv_lengths=kv_lengths,
                           out_dtype=out_dtype, interpret=interpret)

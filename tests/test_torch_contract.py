@@ -8,10 +8,11 @@
   launcher replaced by a CPU batched product, against ``contract_ref``;
 * ``ops.dense(interpret=True)`` on both sides at a 128-aligned shape, and
   an unaligned shape taking the ``torch.matmul`` route on both sides;
-* ``NotImplementedError`` for mesh requests, attention specs and an
-  unported tuner option; the dequant epilogue, the chain and the quant
-  specs, once refused, now compile (``tests/test_torch_quant.py`` and
-  ``tests/test_torch_chain.py`` hold them to the reference).
+* ``NotImplementedError`` for mesh requests and an unported tuner
+  option; the dequant epilogue, the chain and the quant specs, once
+  refused, now compile (``tests/test_torch_quant.py`` and
+  ``tests/test_torch_chain.py`` hold them to the reference; attention
+  specs, ``tests/test_torch_attention.py``).
 
 The CUDA kernel itself is tested on a card by ``tests/test_torch_gpu.py``.
 """
@@ -227,9 +228,6 @@ def test_unsupported_requests_raise_not_implemented():
     sched = port_codegen.default_schedule(spec)
     with pytest.raises(NotImplementedError, match="mesh"):
         port_codegen.compile(spec, sched, mesh=object())
-    attn = PE.attention_spec(2, 8, 8, 4)
-    with pytest.raises(NotImplementedError, match="fused"):
-        port_codegen.compile(attn, port_codegen.default_schedule(attn))
     with pytest.raises(NotImplementedError, match="measure"):
         port_codegen.tune_schedule(spec, measure_with={})
     # once refused, now ported (B1's chain and int8/fp8 modes): the dequant

@@ -7,7 +7,9 @@ the grouped MoE kernel
 (``codegen/csrc/grouped_dw.cu``, B4) and the hand-written baselines B5, B6
 and B7 (``codegen/csrc/baselines.cu``), and autograd through them
 (``ops.chain_dense``'s 1 + 3 launches; ``ops.dense(quant=)``'s one launch
-and its refused gradient).
+and its refused gradient; ``ops.dense`` at any shape), and the
+flash-attention kernel (``codegen/csrc/attention.cu``, B2) with
+``ops.attention``'s 1 + 3 launches, with and without ``kv_lengths``.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided inside the ``cuda_device`` fixture).  The file imports torch and
@@ -18,9 +20,9 @@ the port only, so it runs on a machine without jax:
 Each case holds the kernel against its plain version (``contract_ref``
 -- int8 by exact equality --,
 ``grouped_ref``, ``grouped_dw_ref``, ``matmul_ref``,
-``fused_dense_act_ref``, ``weighted_matmul_ref``) on the same CUDA tensors at the
+``fused_dense_act_ref``, ``weighted_matmul_ref``, ``attention_ref``) on the same CUDA tensors at the
 reference's tolerances (``TOL``), on outputs scaled by their largest
-magnitude; the autograd cases hold gradients on the card to the same
+magnitude (attention's per row); the autograd cases hold gradients on the card to the same
 computation on the CPU.
 """
 
@@ -60,6 +62,19 @@ def _assert_close_scaled(got, want, dtype):
     scale = want.float().abs().max().clamp_min(1e-30)
     torch.testing.assert_close(got.float() / scale, want.float() / scale,
                                rtol=rtol, atol=atol)
+
+
+def _assert_rows_close(got, want, dtype):
+    """Attention's check: each row (the last axis) scaled by its own
+    largest magnitude (1 for an all-zero row), so that late causal rows,
+    whose values are small, are held as tightly as row 0."""
+    atol = TOL[dtype][1]
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(scale == 0, 1.0, scale)
+    err = ((got - want).abs() / scale).max().item()
+    assert err <= atol, f"row-scaled error {err} above {atol}"
 
 
 def _spec(mod_name, *extents):
@@ -160,19 +175,35 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
 
 
 @pytest.mark.gpu
-def test_dense_on_cuda_launches_only_when_aligned(cuda_device):
-    """A 128-aligned ``ops.dense`` runs the kernel; an unaligned one is a
-    plain ``torch.matmul`` and launches nothing."""
+def test_dense_on_cuda_launches_at_any_shape(cuda_device):
+    """Every non-empty ``ops.dense`` on a CUDA tensor runs the kernel, the
+    128-aligned call and the 100-row one alike; a 3-D x folds its leading
+    axes into M: one launch forward, two more (dA, dB) backward."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     w = torch.randn(256, 384, generator=g, device=cuda_device).bfloat16()
-    for rows, launched in ((128, 1), (100, 0)):
+    for rows in (128, 100):
         x = torch.randn(rows, 256, generator=g,
                         device=cuda_device).bfloat16()
         before = cuda_gen.CONTRACT.launches
         got = ops.dense(x, w)
-        assert cuda_gen.CONTRACT.launches - before == launched
+        assert cuda_gen.CONTRACT.launches - before == 1
         _assert_close_scaled(got, torch.matmul(x.float(), w.float()),
                              torch.bfloat16)
+    x = torch.randn(4, 3, 256, generator=g, device=cuda_device)
+    wf = w.float().requires_grad_(True)
+    x.requires_grad_(True)
+    dout = torch.randn(4, 3, 384, generator=g, device=cuda_device)
+    before = cuda_gen.CONTRACT.launches
+    got = ops.dense(x, wf)
+    assert cuda_gen.CONTRACT.launches - before == 1
+    assert got.shape == (4, 3, 384)
+    got.backward(dout)
+    assert cuda_gen.CONTRACT.launches - before == 3
+    xc, wc = (t.detach().cpu().requires_grad_(True) for t in (x, wf))
+    want = torch.matmul(xc, wc)
+    want.backward(dout.cpu())
+    for a, b in ((got, want), (x.grad, xc.grad), (wf.grad, wc.grad)):
+        _assert_close_scaled(a.detach().cpu(), b.detach(), torch.float32)
 
 
 # --------------------------------------------------------------------------
@@ -963,3 +994,136 @@ def test_dense_quant_ragged_on_the_card(cuda_device, monkeypatch, m, d, f,
     assert _launcher_of(fmt).launches == before + 1
     want = ops.dense(x.cpu(), w.cpu(), quant=fmt, out_dtype=torch.float32)
     _assert_close_scaled(got.cpu(), want, torch.float32)
+
+
+# --------------------------------------------------------------------------
+# flash attention, B2
+# --------------------------------------------------------------------------
+
+ATTN_MASKS = ("full", "causal", "lengths", "causal+lengths")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", ATTN_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 8, 112, 128])
+def test_attention_kernel_matches_plain_version(cuda_device, d, dtype, mask):
+    """B2 against ``attention_ref`` on the same CUDA tensors at ragged S and
+    T; ``kv_lengths`` has a 0 entry (exact zeros) and one past T."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    h, s, t = 3, 100, 77
+    q = torch.randn(h, s, d, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(h, t, d, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(h, t, d, generator=g, device=cuda_device).to(dtype)
+    causal = "causal" in mask
+    lengths = (torch.tensor([50, 0, 200], dtype=torch.int32,
+                            device=cuda_device)
+               if "lengths" in mask else None)
+    before = fused_gen.ATTENTION.launches
+    got = fused_gen.ATTENTION(q, k, v, causal, lengths, dtype)
+    torch.cuda.synchronize()
+    assert fused_gen.ATTENTION.launches == before + 1
+    want = fused_gen.attention_ref(q, k, v, causal=causal,
+                                   kv_lengths=lengths, out_dtype=dtype)
+    assert got.shape == (h, s, d) and got.dtype == dtype
+    _assert_rows_close(got, want, dtype)
+    if lengths is not None:
+        assert bool((got[1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,e", [(256, 256), (196, 72), (64, 256)])
+def test_attention_kernel_wide_and_unequal_heads(cuda_device, d, e, dtype):
+    """The widest heads (d, e up to 256, the most shared memory), d not a
+    multiple of 8 (element-wise loads) and e wider than d; strided q."""
+    g = torch.Generator(device=cuda_device).manual_seed(e)
+    h, s, t = 2, 130, 190
+    q = torch.randn(s, h, d, generator=g, device=cuda_device).to(dtype)
+    q = q.transpose(0, 1)  # heads not outermost in memory
+    k = torch.randn(h, t, d, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(h, t, e, generator=g, device=cuda_device).to(dtype)
+    for causal in (False, True):
+        got = fused_gen.ATTENTION(q, k, v, causal, None, dtype)
+        want = fused_gen.attention_ref(q, k, v, causal=causal,
+                                       kv_lengths=None, out_dtype=dtype)
+        _assert_rows_close(got, want, dtype)
+    with pytest.raises(ValueError, match="up to 256"):
+        fused_gen.ATTENTION(q, k, torch.zeros(h, t, 257, device=cuda_device,
+                                              dtype=dtype),
+                            False, None, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_forward_and_backward_launches(cuda_device, causal, dtype):
+    """``ops.attention`` on the card: one B2 launch forward, three B1
+    launches backward (``attention.dQ/.dK/.dV``), nothing else; output
+    and cotangents held to the same call on the CPU."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    h, s, t, d = 4, 96, 80, 64
+    base = [torch.randn(h, n, d, generator=g, device=cuda_device).to(dtype)
+            for n in (s, t, t)]
+    dout = torch.randn(h, s, d, generator=g, device=cuda_device).to(dtype)
+    leaves = [x.clone().requires_grad_(True) for x in base]
+    b2, b1 = fused_gen.ATTENTION.launches, cuda_gen.CONTRACT.launches
+    out = ops.attention(*leaves, causal=causal)
+    assert (fused_gen.ATTENTION.launches - b2,
+            cuda_gen.CONTRACT.launches - b1) == (1, 0)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fused_gen.ATTENTION.launches - b2,
+            cuda_gen.CONTRACT.launches - b1) == (1, 3)
+    cpu = [x.detach().cpu().requires_grad_(True) for x in base]
+    want = ops.attention(*cpu, causal=causal, interpret=True)
+    want.backward(dout.cpu())
+    for a, b in zip([out] + [x.grad for x in leaves],
+                    [want] + [x.grad for x in cpu]):
+        _assert_rows_close(a.detach().cpu(), b.detach(), dtype)
+    # kv_lengths without a gradient reaches the kernel too
+    lengths = torch.tensor([80, 0, 5, 33], dtype=torch.int32)
+    before = fused_gen.ATTENTION.launches
+    got = ops.attention(*base, causal=causal, kv_lengths=lengths.cuda(),
+                        differentiable=False)
+    assert fused_gen.ATTENTION.launches == before + 1
+    want = ops.attention(*(x.cpu() for x in base), causal=causal,
+                         kv_lengths=lengths, differentiable=False,
+                         interpret=True)
+    _assert_rows_close(got.cpu(), want, dtype)
+    assert bool((got[1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_with_lengths_backward_launches(cuda_device, causal,
+                                                  dtype):
+    """The default (differentiable) call with ``kv_lengths`` runs on the
+    kernels too: one B2 launch forward, three B1 backward; the head of
+    length 0 gets zeros and zero cotangents; output and cotangents held to
+    the same call on the CPU."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    h, s, t, d = 4, 96, 80, 64
+    base = [torch.randn(h, n, d, generator=g, device=cuda_device).to(dtype)
+            for n in (s, t, t)]
+    dout = torch.randn(h, s, d, generator=g, device=cuda_device).to(dtype)
+    lengths = torch.tensor([80, 0, 5, 33], dtype=torch.int32)
+    leaves = [x.clone().requires_grad_(True) for x in base]
+    b2, b1 = fused_gen.ATTENTION.launches, cuda_gen.CONTRACT.launches
+    out = ops.attention(*leaves, causal=causal, kv_lengths=lengths.cuda())
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fused_gen.ATTENTION.launches - b2,
+            cuda_gen.CONTRACT.launches - b1) == (1, 3)
+    cpu = [x.detach().cpu().requires_grad_(True) for x in base]
+    want = ops.attention(*cpu, causal=causal, kv_lengths=lengths,
+                         interpret=True)
+    want.backward(dout.cpu())
+    assert bool((out[1] == 0).all())
+    for a, b in zip([out] + [x.grad for x in leaves],
+                    [want] + [x.grad for x in cpu]):
+        assert bool(torch.isfinite(a).all())
+        _assert_rows_close(a.detach().cpu(), b.detach(), dtype)
+    for x in leaves:
+        assert bool((x.grad[1] == 0).all())

@@ -17,8 +17,8 @@ max|ref|: f32 (2e-4, 2e-4), bf16 (6e-2, 6e-2).
   reached through ``codegen.compile``) against the reference's
   ``_grouped_dw_fn`` in interpret mode, in both operand orders;
 * ``differentiable=False`` on a kernel path leaves nothing to
-  differentiate; the attention VJP, whose kernel is not ported yet,
-  raises (the chain VJP and ``dense(quant=)`` are held in
+  differentiate (the attention VJP, the chain VJP and ``dense(quant=)``
+  are held in ``tests/test_torch_attention.py``,
   ``tests/test_torch_chain.py`` and ``tests/test_torch_quant.py``).
 """
 
@@ -389,13 +389,3 @@ def test_plain_paths_stay_natively_differentiable():
     x = torch.randn(6, 4, requires_grad=True)
     out = port_ops.dense(x, torch.randn(4, 5), differentiable=False)
     assert out.requires_grad  # not a kernel path: a plain torch op
-
-
-@pytest.mark.parametrize("factory,args,item", [
-    (port_grad.attention_vjp, (True, "float32", False), "item 5"),
-])
-def test_unported_vjps_name_their_roadmap_item(factory, args, item):
-    """The VJPs still waiting for their forward kernels raise, naming their
-    ROADMAP.md queue-A item (attention, item 5)."""
-    with pytest.raises(NotImplementedError, match=item):
-        factory(*args)

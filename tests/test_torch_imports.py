@@ -51,6 +51,7 @@ def test_port_sources_exist():
     assert (PORT / "codegen" / "csrc" / "baselines.cu").is_file()
     assert (PORT / "codegen" / "csrc" / "contract_q8.cu").is_file()
     assert (PORT / "codegen" / "csrc" / "contract_chain.cu").is_file()
+    assert (PORT / "codegen" / "csrc" / "attention.cu").is_file()
     for module in ("codegen/fused_gen.py", "models/moe.py",
                    "codegen/epilogue.py", "core/autotune.py",
                    "kernels/_baselines.py", "kernels/matmul/matmul.py",

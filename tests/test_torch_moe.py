@@ -207,10 +207,12 @@ def test_fused_kinds_still_to_port_raise():
     spec = PE.grouped_matmul_spec((2, 3), 4, 4)
     dw = to_port_spec(ref_derived_specs(RE.grouped_matmul_spec((2, 3), 4, 4))
                       ["W"])
+    # B2 (attention) and B4 (the dW mode) are ported: each compiles and
+    # runs its plain version; the refusals left are the reference's own
     attn = PE.attention_spec(2, 8, 8, 4)
-    with pytest.raises(NotImplementedError, match="B2"):
-        port_codegen.compile(attn, port_codegen.default_schedule(attn))
-    # B4 (the dW mode) is ported: it compiles and runs its plain version
+    out = port_codegen.compile(attn, port_codegen.default_schedule(attn))(
+        torch.zeros(2, 8, 4), torch.zeros(2, 8, 4), torch.ones(2, 8, 4))
+    torch.testing.assert_close(out, torch.ones(2, 8, 4))
     kern = port_codegen.compile(dw, port_codegen.default_schedule(dw))
     assert kern.dw
     assert kern(torch.ones(5, 4), torch.ones(5, 4)).shape == (2, 4, 4)
