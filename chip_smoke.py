@@ -38,8 +38,10 @@ raises and the script exits non-zero without the final result line:
    (384 x C, 7168) @ (384, 7168, 2048) and down (384 x C, 2048) @
    (384, 2048, 7168) for C in {16, 8, 4}, one ragged partition with empty,
    size-1 and multi-pass groups, the dX orientation (w's contract axis
-   last), one float32 case, and the MoE training path's shapes (32
-   experts of C = 320: gate/up and down, forward and dX), at the same
+   last), one float32 case, a ragged partition with groups of 0 to 700
+   rows (several 128-row blocks each) in both orientations, and the MoE
+   training path's shapes (32 experts of C = 320: gate/up and down,
+   forward and dX), at the same
    tolerances; timed as above, with ``torch.bmm`` over the uniform
    (E, C, K) layout as the library yardstick and the bound counting the
    expert slabs that hold rows;
@@ -108,7 +110,8 @@ raises and the script exits non-zero without the final result line:
 9e. chain — ``ops.chain_dense`` forward and ``backward()`` at (R, P, Q, C)
     = (4096, 128, 4096, 128), one qwen3-8b head's (QK^T)V without softmax,
     f32 and bf16: 1 + 3 chain launches, output and cotangents against
-    their plain versions (f32 / bf16 TOL), each spec timed against
+    their plain versions (f32 / bf16 TOL), two launches of each spec on
+    the same inputs equal bit for bit, each spec timed against
     ``torch.linalg.multi_dot``, no library GEMM in the path's trace
     (``profile_chain_*.json``);
 9f. quant small — card vs CPU: the 2-layer f32 model served with
@@ -259,6 +262,8 @@ MOE_TRAIN_FLAGS = ["--arch", MOE_ARCH, "--steps", "3", "--batch", "2",
                    "--seq", "512", "--moments", "int8", "--lr", "3e-4",
                    "--device", "cuda"]
 MOE_TRAIN_C = 320  # capacity: 1.25 x 1024 tokens x top-8 / 32 experts
+#: ragged groups of 0 to 700 rows, several of them larger than B3's M tile
+GROUPED_LARGE = (0, 1, 129, 700, 64, 65, 320, 200)
 #: the B1 launches of one layer of a train step: 7 eligible GEMMs, each run
 #: forward, again in the remat recompute, and twice in the backward (dA, dB)
 B1_PER_LAYER_STEP = 7 * 4
@@ -266,6 +271,11 @@ B1_PER_LAYER_STEP = 7 * 4
 #: B4: the 3 dW
 B3_PER_MOE_STEP, B4_PER_MOE_STEP = 9, 3
 SECONDS = {}  # phase -> wall seconds
+
+
+#: launches of a plain version per timing (they are the slowest calls
+#: timed, and no yardstick of speed): one warm-up and three timed
+PLAIN_REPS = dict(reps=3, warmup=1)
 
 
 def _timed(fn, flush, reps=10, warmup=2):
@@ -411,7 +421,7 @@ def phase_kernel():
         )
         ms = _timed(lambda: CONTRACT(a[None], b[None], dt), flush)
         plain_ms = _timed(lambda: contract_ref(spec, a, b, out_dtype=dt),
-                          flush)
+                          flush, **PLAIN_REPS)
         library_ms = _timed(lambda: torch.matmul(a, b), flush)
         ops = 2.0 * m * n * k
         nbytes = (m * k + k * n + m * n) * a.element_size()
@@ -464,6 +474,9 @@ def phase_grouped():
          False),
         ("dX of gate/up", (16,) * E, GROUPED_GATE, "bfloat16", True),
         ("f32", (4,) * E, (1024, 1024), "float32", False),
+        # groups larger than one M tile (128-row blocks, ragged tails)
+        ("ragged large", GROUPED_LARGE, GROUPED_GATE, "bfloat16", False),
+        ("ragged large dX", GROUPED_LARGE, GROUPED_GATE, "bfloat16", True),
     ]
     # the MoE training path: 32 experts of C = 320, forward and dX
     train = (MOE_TRAIN_C,) * MOE_TRAIN_EXPERTS
@@ -503,7 +516,8 @@ def phase_grouped():
         )
         ms = _timed(lambda: kern(x, w), flush)
         plain_ms = _timed(lambda: codegen.grouped_ref(
-            x, w, sizes, out_dtype=dt, contract_last=contract_last), flush)
+            x, w, sizes, out_dtype=dt, contract_last=contract_last), flush,
+            **PLAIN_REPS)
         library_ms = None
         if len(set(sizes)) == 1:  # one bmm over the (E, C, K) layout
             xb = x.view(G, sizes[0], kx)
@@ -576,7 +590,7 @@ def phase_b1_train():
                 f"K={k} N={n}")
             ms = _timed(lambda: kern(*args), flush)
             plain_ms = _timed(lambda: contract_ref(sp, *args, out_dtype=dt),
-                              flush)
+                              flush, **PLAIN_REPS)
             library_ms = _timed(library, flush)
             ops_ = 2.0 * m * n * k
             out_elems = got.numel()
@@ -671,7 +685,8 @@ def phase_grouped_dw():
         torch.cuda.empty_cache()
         ms = _timed(lambda: kern(dout, x), flush)
         plain_ms = _timed(lambda: grouped_dw_ref(x, dout, sizes,
-                                                 out_dtype=dt), flush)
+                                                 out_dtype=dt), flush,
+                          **PLAIN_REPS)
         library_ms = None
         if len(set(sizes)) == 1:
             xb = x.view(G, sizes[0], k1).transpose(1, 2)
@@ -725,7 +740,7 @@ def _case_row(tag, what, got, want, dt_name, run, plain, library, ops,
     max_abs, scaled_err = err or _check_close(got, want, dt_name,
                                               f"{tag} {what}")
     ms = _timed(run, flush)
-    plain_ms = _timed(plain, flush)
+    plain_ms = _timed(plain, flush, **PLAIN_REPS)
     library_ms = _timed(library, flush) if library is not None else None
     bound_ms, ops_ms, bytes_ms, by = _bound(ops, nbytes, dt_name)
     row = dict(case=what, dtype=dt_name, max_abs_err=max_abs,
@@ -1804,6 +1819,8 @@ def phase_moe_serve():
           f"tok/s over {stats['decode_steps']} steps, p50 "
           f"{stats['p50_s'] * 1e3:.1f} ms, p99 {stats['p99_s'] * 1e3:.1f} ms",
           flush=True)
+    print(f"[moe-serve] greedy tokens {[list(r.out_tokens) for r in trace]}",
+          flush=True)
     print(f"[moe-serve] prompts {[len(r.prompt) for r in trace]}, kernel "
           f"launches {launches} = grouped 3 x {n_moe} x {forwards} forwards, "
           f"contract {gemms} x {forwards} forwards; max_memory_allocated "
@@ -1985,7 +2002,7 @@ def _quant_row(tag, what, fmt, got, want, run, plain, library, ops, nbytes,
         max_abs, scaled_err = _check_close(got, want, "float32",
                                            f"{tag} {what}")
     ms = _timed(run, flush)
-    plain_ms = _timed(plain, flush)
+    plain_ms = _timed(plain, flush, **PLAIN_REPS)
     library_ms = None
     if library is not None:
         try:
@@ -2339,6 +2356,13 @@ def phase_chain():
             args = [arrays[n] for n in sp.operands]
             want = contract_ref(sp, *args, out_dtype=dt)
             kern = codegen.compile(sp, codegen.default_schedule(sp))
+            # the cluster sums T in rank order, no atomics: equal bits
+            first, second = kern(*args), kern(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                raise AssertionError(f"chain {sp.name} {dt_name}: two "
+                                     f"launches on the same inputs differ")
+            del first, second
             ext = sp.extents
             fold = kern.fold
             rr, cc = sp.output
@@ -2352,7 +2376,7 @@ def phase_chain():
                 dt_name, lambda: kern(*args),
                 lambda: contract_ref(sp, *args, out_dtype=dt),
                 _chain_library(sp, arrays), ops_min, nbytes, flush,
-                spec=sp.name, launches=1))
+                spec=sp.name, launches=1, bit_equal=True))
             del want
 
         def run_path():

@@ -56,6 +56,15 @@ def ptxas_report(name: str) -> str:
         return f.read()
 
 
+def nvcc_command(name: str, out: str) -> list:
+    """The nvcc command that compiles ``csrc/<name>.cu`` into ``out``."""
+    return [
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", out, os.path.join(CSRC, f"{name}.cu"),
+    ]
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the path.
 
@@ -68,13 +77,9 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, os.path.join(CSRC, f"{name}.cu"),
-    ]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run(nvcc_command(name, tmp), capture_output=True,
+                              text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"

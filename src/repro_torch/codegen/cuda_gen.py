@@ -99,6 +99,7 @@ from .modes import (
     CONTRACT_UPCAST,
     VecArg,
     _Vec,
+    chain_cluster,
     chain_tile_n,
     set_epilogue,
     set_vec,
@@ -473,10 +474,13 @@ def _group_of(index, batch, m, n, k, ext) -> Tuple[int, int]:
     raise AssertionError(f"index {index} in no folded group")
 
 
-def _chain_cost(r, p, q, c, tile_n) -> int:
-    """Multiply-adds of the chain kernel on X(r,p) Y(p,q) Z(q,c): each CTA
-    recomputes its rows of T = X.Y once per column block."""
-    return r * p * q * -(-c // tile_n) + r * q * c
+def _chain_cost(r, p, q, c, dtype) -> int:
+    """Multiply-adds of the chain kernel on X(r,p) Y(p,q) Z(q,c) of
+    ``dtype``: the CTAs of one cluster split the p reduction of their rows
+    of T = X.Y and share the sum, so T is formed once per cluster of column
+    blocks (``chain_cluster`` CTAs of ``chain_tile_n`` columns)."""
+    blocks = -(-c // chain_tile_n(dtype))
+    return r * p * q * -(-blocks // chain_cluster(dtype, p)) + r * q * c
 
 
 def _launch_chain(spec: ContractionSpec, fold: Fold, operands, out_dtype,
@@ -498,9 +502,8 @@ def _launch_chain(spec: ContractionSpec, fold: Fold, operands, out_dtype,
                                  z.dtype)
         x, y, z = x.to(dt), y.to(dt), z.to(dt)
     ext = spec.extents
-    tile_n = chain_tile_n(x.dtype)
-    right = _chain_cost(ext[c], ext[q], ext[p], ext[r], tile_n) < _chain_cost(
-        ext[r], ext[p], ext[q], ext[c], tile_n)
+    right = _chain_cost(ext[c], ext[q], ext[p], ext[r], x.dtype) < (
+        _chain_cost(ext[r], ext[p], ext[q], ext[c], x.dtype))
     kw = {}
     if epilogue is not None and not epilogue.is_identity:
         vecs = {}

@@ -24,12 +24,13 @@ forward
 
 and its dX orientation (``grouped_matmul.dX``: the shared axis is w's LAST
 trailing axis, ``out[n, k] = dout[n, :] @ w[group(n), k, :]``), run
-``csrc/grouped.cu`` (B3): one CTA per (non-empty group, 128-column block of
-the output), the group's row range read from a device table of the
-non-empty groups, K streamed through shared memory and the accumulator
+``csrc/grouped.cu`` (B3): one CTA per (row block, 128-column block of the
+output), the block's rows read from a device table (``group_table``: each
+non-empty group cut into blocks of at most the body's M tile,
+``grouped_tile_m``), K streamed through shared memory and the accumulator
 kept in f32.  The dX orientation is the same kernel with w's two trailing
-strides swapped.  The dW mode (``grouped_matmul.dW``, a spec whose output
-is ``(g, ., .)``)
+strides swapped; it keeps its W tiles k-contiguous as they lie.  The dW
+mode (``grouped_matmul.dW``, a spec whose output is ``(g, ., .)``)
 
     out[g, k1, k2] = sum_{n in group g} lhs[n, k1] * rhs[n, k2]
 
@@ -65,6 +66,10 @@ from .plan import KernelPlan, build_plan
 #: operand / output dtypes the kernel takes, with its dtype codes
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+#: B3's M tiles (rows of a CTA); a table's blocks hold at most the largest
+#: (checked against ``grouped_max_rows`` of grouped.cu at load)
+GROUPED_TILES = (16, 32, 64, 128)
+GROUPED_MAX_ROWS = GROUPED_TILES[-1]
 
 #: large-but-finite score for masked positions: exp(MASK - m) underflows to
 #: 0 while exp(-inf - (-inf)) would be NaN (the reference's value)
@@ -282,21 +287,30 @@ class GroupedLauncher:
             lib.grouped_launch.argtypes = (
                 [ctypes.c_int, ctypes.c_int]
                 + [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 4
+                + [ctypes.c_int] * 5
                 + [ctypes.c_longlong] * 7
                 + [ctypes.c_void_p]
             )
             lib.grouped_launch.restype = ctypes.c_int
+            lib.grouped_max_rows.restype = ctypes.c_int
+            if lib.grouped_max_rows() != GROUPED_MAX_ROWS:
+                raise RuntimeError(f"grouped.cu takes row blocks of up to "
+                                   f"{lib.grouped_max_rows()} rows, "
+                                   f"GROUPED_MAX_ROWS says "
+                                   f"{GROUPED_MAX_ROWS}")
             self._lib = lib
         return self._lib
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, table: torch.Tensor,
                  max_rows: int, out_dtype: torch.dtype,
-                 contract_last: bool = False) -> torch.Tensor:
+                 contract_last: bool = False, band: int = 1) -> torch.Tensor:
         """x (rows, K) and w (G, K, N) (``(G, N, K)`` with
         ``contract_last``) -> new (rows, N) tensor.  ``table`` is the int32
-        (n_live, 3) table of the non-empty groups (id, first row, rows) on
-        x's device; ``max_rows`` its largest row count."""
+        (n_blocks, 3) table of row blocks (group id, first row, rows; no
+        block across two groups, ``group_table``) on x's device;
+        ``max_rows`` its largest row count (at most ``GROUPED_MAX_ROWS``),
+        which picks the M tile; ``band`` the row blocks rasterized side by
+        side (the most any group has)."""
         if x.device.type != "cuda" or w.device != x.device or (
             table.device != x.device
         ):
@@ -324,12 +338,18 @@ class GroupedLauncher:
                              "(n_live, 3) group table")
         if min(x.stride()) < 0 or min(w.stride()) < 0:
             raise ValueError("grouped kernel takes non-negative strides")
+        if not 1 <= max_rows <= GROUPED_MAX_ROWS or band < 1:
+            raise ValueError(f"grouped kernel takes row blocks of 1 to "
+                             f"{GROUPED_MAX_ROWS} rows and a band of 1 or "
+                             f"more, got {max_rows} and {band}")
         rows, k = x.shape
         n = w.shape[n_ax]
         n_live = table.shape[0]
-        if n_live > _MAX_GRID_Y:
+        # the f32 and the 16-row serving bodies put the blocks on grid y
+        if (n_live > _MAX_GRID_Y if x.dtype == torch.float32 or max_rows <= 16
+                else n_live * -(-n // 128) >= 2**31):
             raise ValueError(f"grouped kernel grid too large: {n_live} "
-                             f"non-empty groups")
+                             f"row blocks")
         if max(rows, n, k, *x.stride(), *w.stride()) >= 2**31:
             raise ValueError("grouped kernel takes extents and strides "
                              "below 2**31")
@@ -340,7 +360,7 @@ class GroupedLauncher:
         rc = lib.grouped_launch(
             _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[out_dtype],
             x.data_ptr(), w.data_ptr(), out.data_ptr(), table.data_ptr(),
-            n_live, max_rows, n, k,
+            n_live, max_rows, band, n, k,
             *x.stride(), w.stride(0), w.stride(k_ax), w.stride(n_ax),
             *out.stride(),
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -441,10 +461,26 @@ class GroupedDwLauncher:
 GROUPED_DW = GroupedDwLauncher()
 
 
+def grouped_tile_m(group_sizes: Tuple[int, ...]) -> int:
+    """B3's M tile for these group sizes: the smallest of ``GROUPED_TILES``
+    that holds the largest group, and at most 64 rows unless the non-empty
+    groups average more than 64 (training's C = 320), where the 128-row
+    body pays; a few large groups among small ones (ragged serving) take
+    more 64-row blocks instead."""
+    live = [s for s in group_sizes if s]
+    cap = GROUPED_MAX_ROWS if live and sum(live) > 64 * len(live) else 64
+    return next(t for t in GROUPED_TILES if min(max(live, default=0), cap)
+                <= t)
+
+
 def group_table(group_sizes: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
-    """(group id, first row, rows) of every non-empty group, in order."""
-    return [(g, o, s) for g, (o, s) in
-            enumerate(zip(_group_offsets(group_sizes), group_sizes)) if s]
+    """(group id, first row, rows) of every row block, in order: each
+    non-empty group cut into blocks of ``grouped_tile_m`` rows and a ragged
+    tail, so no block spans two groups and empty groups have none."""
+    tile_m = grouped_tile_m(group_sizes)
+    return [(g, o + r, min(tile_m, s - r)) for g, (o, s) in
+            enumerate(zip(_group_offsets(group_sizes), group_sizes))
+            for r in range(0, s, tile_m)]
 
 
 @dataclasses.dataclass
@@ -465,9 +501,8 @@ class FusedKernel:
     out_dtype: Optional[torch.dtype]
     interpret: bool
     kind: str
-    _tables: Dict[torch.device, torch.Tensor] = dataclasses.field(
-        repr=False, default_factory=dict
-    )
+    _tables: Dict[torch.device, Tuple[torch.Tensor, int, int]] = (
+        dataclasses.field(repr=False, default_factory=dict))
 
     @property
     def names(self) -> Tuple[str, ...]:
@@ -494,19 +529,25 @@ class FusedKernel:
         rhs = next(n for n in self.names if o2 in self.spec.operands[n])
         return by_name[lhs], by_name[rhs]
 
-    def _table(self, device: torch.device) -> torch.Tensor:
-        table = self._tables.get(device)
-        if table is None:
+    def _table(self, device: torch.device) -> Tuple[torch.Tensor, int, int]:
+        """(the device table, its largest row count, the band): every group
+        for the dW mode (an empty one's CTAs store zeros), else
+        ``group_table``'s row blocks."""
+        entry = self._tables.get(device)
+        if entry is None:
             sizes = tuple(self.spec.root().group_sizes)
-            if self.dw:  # every group: an empty one's CTAs store zeros
+            if self.dw:
                 rows = [(g, o, s) for g, (o, s) in
                         enumerate(zip(_group_offsets(sizes), sizes))]
+                band = 1
             else:
                 rows = group_table(sizes)
+                band = max(1, -(-max(sizes) // grouped_tile_m(sizes)))
             table = torch.tensor(rows, dtype=torch.int32,
                                  device=device).reshape(-1, 3)
-            self._tables[device] = table
-        return table
+            entry = (table, max((r[2] for r in rows), default=0), band)
+            self._tables[device] = entry
+        return entry
 
     def __call__(self, *arrays: torch.Tensor, kv_lengths=None):
         names = self.names
@@ -538,13 +579,14 @@ class FusedKernel:
                                   out_dtype=out_dtype)
         if self.dw and devices == {"cuda"}:
             return GROUPED_DW(*self._dw_operands(arrays),
-                              self._table(x.device), out_dtype)
+                              self._table(x.device)[0], out_dtype)
         if devices == {"cpu"}:
             return grouped_ref(x, w, sizes, out_dtype=out_dtype,
                                contract_last=self.contract_last)
         if devices == {"cuda"}:
-            return GROUPED(x, w, self._table(x.device), max(sizes),
-                           out_dtype, contract_last=self.contract_last)
+            table, max_rows, band = self._table(x.device)
+            return GROUPED(x, w, table, max(max_rows, 1), out_dtype,
+                           contract_last=self.contract_last, band=band)
         raise ValueError(f"{self.spec.name}: operands on {sorted(devices)}; "
                          f"all CPU (plain version) or all CUDA (kernel)")
 

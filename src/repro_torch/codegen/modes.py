@@ -13,7 +13,8 @@ every kernel launch and for nothing else:
                      CUDA cores (int32 or f32 sums), with contract.cu's
                      k-scale, multiplier and row-reduce modes
     CONTRACT_CHAIN   the chain: bf16 on the tensor cores, f32 / int8 /
-                     fp8 / int32 operands on the CUDA cores
+                     fp8 / int32 operands on the CUDA cores; the CTAs of a
+                     cluster split the first reduction (``chain_cluster``)
 
 ``codegen.cuda_gen`` folds a spec onto them; ``cuda_gen.contract_ref`` is
 the plain version of every mode.  Each launcher takes CUDA tensors, checks
@@ -288,12 +289,20 @@ class ChainLauncher:
             for name in ("chain_tile_m", "chain_tile_n"):
                 getattr(lib, name).argtypes = [ctypes.c_int]
                 getattr(lib, name).restype = ctypes.c_int
+            lib.chain_cluster.argtypes = [ctypes.c_int, ctypes.c_longlong]
+            lib.chain_cluster.restype = ctypes.c_int
             for dt, code in DTYPE_CODES.items():
                 if lib.chain_tile_n(code) != chain_tile_n(dt):
                     raise RuntimeError(f"contract_chain.cu's tile for {dt} "
                                        f"is {lib.chain_tile_n(code)}, "
-                                       f"CHAIN_TILE_N says "
+                                       f"chain_tile_n says "
                                        f"{chain_tile_n(dt)}")
+                for p in (1, 100, 128, 255, 256, 300, 1000, 4096, 10**6):
+                    if lib.chain_cluster(code, p) != chain_cluster(dt, p):
+                        raise RuntimeError(
+                            f"contract_chain.cu's cluster for {dt} at P "
+                            f"{p} is {lib.chain_cluster(code, p)}, "
+                            f"chain_cluster says {chain_cluster(dt, p)}")
             self._lib = lib
         return self._lib
 
@@ -355,6 +364,26 @@ def chain_tile_n(dtype: torch.dtype) -> int:
     association choice reads it; checked against ``chain_tile_n`` of
     contract_chain.cu at load)."""
     return 128 if dtype == torch.bfloat16 else 64
+
+
+#: the chain's largest thread-block cluster
+CHAIN_MAX_CLUSTER = 8
+
+
+def chain_cluster(dtype: torch.dtype, p: int) -> int:
+    """CTAs of one cluster of the chain body for ``dtype`` at a p reduction
+    of extent ``p``: they split p and share T, so T is formed once per
+    cluster of column blocks.  The largest power of two up to
+    ``CHAIN_MAX_CLUSTER`` that leaves each CTA two p steps (64 for bf16,
+    32 otherwise) or more.  contract_chain.cu's ``cluster_for`` owns the
+    rule; this copy exists because the association choice
+    (``cuda_gen._chain_cost``) runs on the CPU too, where there is no
+    library to ask, and the launcher checks the two agree at load."""
+    steps = -(-p // (64 if dtype == torch.bfloat16 else 32))
+    cs = 1
+    while cs < CHAIN_MAX_CLUSTER and steps >= 4 * cs:
+        cs *= 2
+    return cs
 
 
 CONTRACT_INT8 = Contract8Launcher("q8_launch", torch.int8)

@@ -374,11 +374,16 @@ def test_launch_folding_of_the_chain_against_an_emulation(monkeypatch,
 def test_association_cost_counts_the_recomputed_intermediate():
     # one qwen3-8b head's (QK^T)V shape, (R, P, Q, C) = (4096, 128, 4096,
     # 128), one 128-column block: as written each CTA forms its rows of
-    # the 4096 x 4096 T once; transposed, each of the 32 column blocks
-    # re-forms its slice of the 128 x 128 Y.Z, which is half the work
-    left = cuda_gen._chain_cost(4096, 128, 4096, 128, 128)
-    right = cuda_gen._chain_cost(128, 4096, 128, 4096, 128)
+    # the 4096 x 4096 T once (P = 128 is two p steps: no cluster split);
+    # transposed, the 32 column blocks run in clusters of 8 that split the
+    # 4096-long p and share T, so the 128 x 128 Y.Z is formed 4 times
+    bf16 = torch.bfloat16
+    left = cuda_gen._chain_cost(4096, 128, 4096, 128, bf16)
+    right = cuda_gen._chain_cost(128, 4096, 128, 4096, bf16)
     assert left == 2 * 4096 * 128 * 4096
-    assert right == 128 * 4096 * 128 * 32 + 128 * 128 * 4096 < left
-    assert cuda_gen._chain_cost(300, 200, 3, 8, 64) < cuda_gen._chain_cost(
-        8, 3, 200, 300, 64)
+    assert right == 128 * 4096 * 128 * 4 + 128 * 128 * 4096 < left
+    # the CUDA-core body: 64-column blocks, 64 of them, 8 clusters
+    assert cuda_gen._chain_cost(128, 4096, 128, 4096, torch.float32) == (
+        128 * 4096 * 128 * 8 + 128 * 128 * 4096)
+    assert cuda_gen._chain_cost(300, 200, 3, 8, torch.float32) < (
+        cuda_gen._chain_cost(8, 3, 200, 300, torch.float32))

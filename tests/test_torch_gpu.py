@@ -213,6 +213,8 @@ def test_dense_on_cuda_launches_at_any_shape(cuda_device):
 #: kimi-k2's expert products: (K, N) of gate/up and of down
 KIMI_GATE, KIMI_DOWN = (7168, 2048), (2048, 7168)
 RAGGED = (0, 1, 17, 0, 100, 3, 0, 45, 1, 16)
+#: groups of 0, 1, 129 and 700 rows: several M tiles, ragged tails
+LARGE = (0, 1, 129, 700, 64, 65)
 
 
 def _grouped_operands(device, sizes, k, n, dtype, contract_last, seed):
@@ -248,6 +250,16 @@ def _grouped_spec(sizes, k, n, contract_last):
     (RAGGED, 77, 45, torch.float32, True),
     ((0, 0, 5), 64, 128, torch.bfloat16, False),        # leading empties
     ((1, 1, 1, 1), 32, 8, torch.float32, False),        # all size 1
+    # groups larger than one M tile: 128-row blocks, ragged tails
+    ((320,) * 4, *KIMI_GATE, torch.bfloat16, False),
+    ((320,) * 4, *KIMI_GATE, torch.bfloat16, True),
+    ((320,) * 4, *KIMI_DOWN, torch.bfloat16, True),     # dX at train widths
+    (LARGE, 256, 384, torch.bfloat16, False),
+    (LARGE, 256, 384, torch.bfloat16, True),
+    (LARGE, 200, 136, torch.float32, False),
+    (LARGE, 200, 136, torch.float32, True),
+    (LARGE, 77, 45, torch.bfloat16, True),              # element-wise dX
+    (LARGE, 77, 45, torch.bfloat16, False),
 ])
 def test_grouped_kernel_matches_plain_version(cuda_device, sizes, k, n,
                                               dtype, contract_last):
@@ -264,6 +276,35 @@ def test_grouped_kernel_matches_plain_version(cuda_device, sizes, k, n,
                                  contract_last=contract_last)
     torch.cuda.synchronize()
     _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,band", [(128, 1), (128, 2), (128, 4),
+                                       (128, 16), (64, 3), (32, 5)])
+@pytest.mark.parametrize("contract_last", [False, True])
+def test_grouped_kernel_any_band_covers_every_tile(cuda_device, tile, band,
+                                                   contract_last):
+    """The band rasterization writes every (row block, column block) once,
+    at bands that split a group and bands past the table's end.  Each case
+    draws its own inputs, so a tile left unwritten cannot hold an earlier
+    case's answer."""
+    sizes, k, n = LARGE, 256, 384
+    x, w = _grouped_operands(cuda_device, sizes, k, n, torch.bfloat16,
+                             contract_last, seed=100 * tile + band)
+    offs = [sum(sizes[:g]) for g in range(len(sizes))]
+    rows = [(g, o + r, min(tile, s - r))
+            for g, (o, s) in enumerate(zip(offs, sizes))
+            for r in range(0, s, tile)]
+    table = torch.tensor(rows, dtype=torch.int32, device=cuda_device)
+    before = fused_gen.GROUPED.launches
+    got = fused_gen.GROUPED(x, w, table, max(r[2] for r in rows),
+                            torch.bfloat16, contract_last=contract_last,
+                            band=band)
+    assert fused_gen.GROUPED.launches == before + 1
+    want = fused_gen.grouped_ref(x, w, sizes, out_dtype=torch.bfloat16,
+                                 contract_last=contract_last)
+    torch.cuda.synchronize()
+    _assert_close_scaled(got, want, torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -854,6 +895,10 @@ def test_cuda_dequant_epilogue(cuda_device, fmt, act):
     _assert_close_scaled(got, want, torch.float32)
 
 
+#: one qwen3-8b head's (QK^T)V without softmax over a 4096-token context
+CHAIN_SHAPE = (4096, 128, 4096, 128)
+
+
 def _chain_arrays(spec, dtype, gen, device):
     return [(torch.randn([spec.extents[i] for i in ax], generator=gen,
                          device=device) / 4).to(dtype)
@@ -862,9 +907,14 @@ def _chain_arrays(spec, dtype, gen, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("extents", [(4096 // 16, 128, 4096 // 16, 128),
-                                     (77, 33, 130, 45), (3, 5, 7, 2),
-                                     (40, 300, 20, 500), (200, 16, 8, 300)])
+@pytest.mark.parametrize("extents", [
+    CHAIN_SHAPE, (4096 // 16, 128, 4096 // 16, 128),
+    (77, 33, 130, 45), (3, 5, 7, 2), (40, 300, 20, 500), (200, 16, 8, 300),
+    # run as written: R under one tile, P = 900 not a multiple of the
+    # cluster's split, N = 100 narrower than a cluster's columns
+    (20, 900, 24, 100),
+    (200, 1000, 130, 1000),
+])
 def test_cuda_chain_matches_plain_version(cuda_device, extents, dtype):
     """``chain_matmul`` and its derived ``.dA``, ``.dB``, ``.dC``, one
     chain launch each, whichever association the cost picks."""
@@ -881,6 +931,34 @@ def test_cuda_chain_matches_plain_version(cuda_device, extents, dtype):
         want = cuda_gen.contract_ref(spec, *arrays, out_dtype=dtype)
         assert got.shape == want.shape and got.dtype == dtype
         _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8",
+                                   "fp8"])
+@pytest.mark.parametrize("extents", [CHAIN_SHAPE, (20, 900, 24, 100)])
+def test_cuda_chain_two_launches_give_equal_bits(cuda_device, extents,
+                                                 dtype):
+    """The cluster sums T's partials in rank order, with no atomics: two
+    launches on the same inputs give the same bits, for every spec."""
+    from repro_torch.grad import derived_specs
+
+    base = PE.chain_matmul_spec(*extents)
+    gen = torch.Generator(device=cuda_device).manual_seed(47)
+    for spec in [base] + list(derived_specs(base).values()):
+        if isinstance(dtype, str):
+            spec = PE.quantize_spec(spec, fmt=dtype)
+            arrays = [_q_operand([spec.extents[i] for i in ax], dtype, gen,
+                                 cuda_device)
+                      for ax in spec.operands.values()]
+        else:
+            arrays = _chain_arrays(spec, dtype, gen, cuda_device)
+        kern = codegen.compile(spec, codegen.default_schedule(spec))
+        before = cuda_gen.CONTRACT_CHAIN.launches
+        first, second = kern(*arrays), kern(*arrays)
+        assert cuda_gen.CONTRACT_CHAIN.launches == before + 2, spec.name
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), spec.name
 
 
 @pytest.mark.gpu
