@@ -28,11 +28,15 @@ raises and the script exits non-zero without the final result line:
    for the kernel, the plain version and ``torch.matmul`` (the library
    yardstick, used nowhere in the port), beside its bound on an H100 SXM:
    max(operations / peak rate, bytes / 3.35 TB/s), bf16 at 989 TFLOP/s,
-   f32 at 67 TFLOP/s;
+   f32 at 67 TFLOP/s; each row names the body that ran (``ring`` with its
+   tile and K split, ``mma``, ``fma``) and the kernel's device ms on the
+   profiler beside the event-timed ms, which include the host's path to
+   the launch;
 4. b1-train — B1 at one qwen3-8b layer's training GEMMs at M = 2048 (4 x
    512 tokens): each forward product and its derived backward specs
    ``matmul.dA`` and ``matmul.dB`` as the backward launches them, timed
-   as phase 3, with per-layer sums;
+   as phase 3, with per-layer sums; every row on the ring body with no
+   other device kernel in its trace (no copy of a transposed operand);
 5. grouped — the grouped MoE kernel's wrapper against its plain version
    (``grouped_ref``) at kimi-k2's expert shapes, bf16: gate/up
    (384 x C, 7168) @ (384, 7168, 2048) and down (384 x C, 2048) @
@@ -71,7 +75,8 @@ raises and the script exits non-zero without the final result line:
     ``torch._scaled_mm``, bound at 1979 TOP/s; then one counted pass
     through ``codegen.compile`` of the int8 and fp8 ``weighted_matmul``
     with its derived specs (the upcast body, 8 launches) and the quantized
-    chain (2 launches), each held and timed;
+    chain (2 launches), each held and timed; each row with its body (the
+    MLP shapes on the 8-bit ring) and device ms, as phase 3;
 7. small model — a 2-layer, 128-aligned qwen3-8b variant in float32 served
    on the card (kernel path) and on the CPU (plain path) from the same
    seeded weights: prefill/decode logits agree, greedy tokens are equal,
@@ -298,6 +303,50 @@ def _timed(fn, flush, reps=10, warmup=2):
     return total / reps
 
 
+def _kernel_ms(run, flush, kernel, reps=5):
+    """(device ms a ``run()`` spends in the port's ``kernel`` (a
+    ``_kernel_of`` name), the other device kernels it launched): ``reps``
+    calls under ``torch.profiler`` after one warm-up, L2 flushed before
+    each.  The flush's fill and the ring's zeroed split counters are not
+    counted as others.  ``_timed``'s ms include the host's path to the
+    launch (about 0.15 ms through ``ops``), which hides a short kernel;
+    this is the kernel alone.  A trace that holds fewer of the kernel's
+    launches than calls, or not a whole number a call, lost events: it is
+    taken again, and after three such traces the ms are NaN."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                run()
+            torch.cuda.synchronize()
+        path = os.path.join(OUT, "profile_case.json")
+        prof.export_chrome_trace(path)
+        _, _, by_name = _device_time(path)
+        mine = [v for k, v in by_name.items() if _kernel_of(k) == kernel]
+        count = sum(v[1] for v in mine)
+        if count >= reps and count % reps == 0:
+            break
+    else:
+        print(f"[profile] {kernel}: {count} launches traced over {reps} "
+              f"calls three times; device ms not measured", flush=True)
+        return float("nan"), []
+    others = sorted(k for k in by_name if _kernel_of(k) != kernel
+                    and "FillFunctor" not in k and not k.startswith("Memset"))
+    return sum(v[0] for v in mine) / reps, others
+
+
+def _body(launcher):
+    """The body of the launcher's latest launch, with the ring's tile."""
+    plan = getattr(launcher, "last_plan", None)
+    return launcher.last_body + (
+        f" {plan.tile_n}x{plan.splits}" if plan is not None else "")
+
+
 def phase_device():
     import torch
 
@@ -413,6 +462,7 @@ def phase_kernel():
         b = torch.randn(k, n, generator=gen, device=dev).to(dt)
         spec = matmul_spec(m, k, n)
         got = CONTRACT(a[None], b[None], dt)[0]
+        body = _body(CONTRACT)
         want = contract_ref(spec, a, b, out_dtype=dt)
         torch.cuda.synchronize()
         max_abs, scaled_err = _check_close(
@@ -420,6 +470,8 @@ def phase_kernel():
             f"{dt_name}"
         )
         ms = _timed(lambda: CONTRACT(a[None], b[None], dt), flush)
+        device_ms, _ = _kernel_ms(lambda: CONTRACT(a[None], b[None], dt),
+                                  flush, "contract")
         plain_ms = _timed(lambda: contract_ref(spec, a, b, out_dtype=dt),
                           flush, **PLAIN_REPS)
         library_ms = _timed(lambda: torch.matmul(a, b), flush)
@@ -427,19 +479,20 @@ def phase_kernel():
         nbytes = (m * k + k * n + m * n) * a.element_size()
         ops_ms = ops / PEAK_OPS[dt_name] * 1e3
         bytes_ms = nbytes / PEAK_BYTES * 1e3
-        row = dict(M=m, K=k, N=n, dtype=dt_name,
+        row = dict(M=m, K=k, N=n, dtype=dt_name, body=body,
                    max_abs_err=max_abs, scaled_err=scaled_err,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
                    bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
                    bytes_ms=bytes_ms,
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                    tflops=ops / ms / 1e9)
         rows.append(row)
-        print(f"[kernel] M={m} K={k} N={n} {dt_name}: scaled err "
-              f"{scaled_err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"torch.matmul {library_ms:.4f}, bound {row['bound_ms']:.4f} "
-              f"by {row['bound_by']}), {row['tflops']:.1f} TFLOP/s",
-              flush=True)
+        print(f"[kernel] M={m} K={k} N={n} {dt_name} ({body}): scaled err "
+              f"{scaled_err:.3g}, {ms:.4f} ms, device {device_ms:.4f} "
+              f"(plain {plain_ms:.4f}, torch.matmul {library_ms:.4f}, bound "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}), "
+              f"{row['tflops']:.1f} TFLOP/s", flush=True)
     return rows
 
 
@@ -555,11 +608,13 @@ def phase_b1_train():
     ``matmul.dA`` (dout . W^T) and ``matmul.dB`` (x^T . dout), compiled
     through ``ops._tuned_kernel`` and called with the operands the
     backward hands them, against ``contract_ref``; timed as phase 3, with
-    ``torch.matmul`` of the same product as the library yardstick."""
+    ``torch.matmul`` of the same product as the library yardstick.  Every
+    row must run on the ring body and launch no other device kernel (no
+    copy of a transposed operand or of the result)."""
     import torch
 
     from repro_torch import ops
-    from repro_torch.codegen import contract_ref
+    from repro_torch.codegen import CONTRACT, contract_ref
     from repro_torch.core.enumerate import matmul_spec
     from repro_torch.grad import derived_specs
 
@@ -583,12 +638,20 @@ def phase_b1_train():
         for what, sp, args, library in cases:
             kern = ops._tuned_kernel(sp, dt)
             got = kern(*args)
+            body = _body(CONTRACT)
             want = contract_ref(sp, *args, out_dtype=dt)
             torch.cuda.synchronize()
             max_abs, scaled_err = _check_close(
                 got, want, dt_name, f"contract kernel {sp.name} at M={m} "
                 f"K={k} N={n}")
             ms = _timed(lambda: kern(*args), flush)
+            device_ms, others = _kernel_ms(lambda: kern(*args), flush,
+                                           "contract")
+            if CONTRACT.last_body != "ring" or others:
+                raise AssertionError(
+                    f"b1-train {sp.name} M={m} K={k} N={n}: body {body}, "
+                    f"other device kernels {others}; expected the ring "
+                    f"alone")
             plain_ms = _timed(lambda: contract_ref(sp, *args, out_dtype=dt),
                               flush, **PLAIN_REPS)
             library_ms = _timed(library, flush)
@@ -599,7 +662,8 @@ def phase_b1_train():
             ops_ms = ops_ / PEAK_OPS[dt_name] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             row = dict(gemm=what, spec=sp.name, M=m, K=k, N=n, dtype=dt_name,
-                       max_abs_err=max_abs, scaled_err=scaled_err, ms=ms,
+                       body=body, max_abs_err=max_abs, scaled_err=scaled_err,
+                       ms=ms, device_ms=device_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
                        bytes_ms=bytes_ms,
@@ -607,20 +671,22 @@ def phase_b1_train():
                        else "bytes",
                        tflops=ops_ / ms / 1e9)
             rows.append(row)
-            print(f"[b1-train] {sp.name} M={m} K={k} N={n}: scaled err "
-                  f"{scaled_err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f}, "
-                  f"torch.matmul {library_ms:.4f}, bound "
-                  f"{row['bound_ms']:.4f} by {row['bound_by']}), "
-                  f"{row['tflops']:.1f} TFLOP/s", flush=True)
+            print(f"[b1-train] {sp.name} M={m} K={k} N={n} ({body}): "
+                  f"scaled err {scaled_err:.3g}, {ms:.4f} ms, device "
+                  f"{device_ms:.4f} (plain {plain_ms:.4f}, torch.matmul "
+                  f"{library_ms:.4f}, bound {row['bound_ms']:.4f} by "
+                  f"{row['bound_by']}), {row['tflops']:.1f} TFLOP/s",
+                  flush=True)
     for what in ("fwd", "dA", "dB"):
         part = [(r, LAYER_GEMMS[(r["K"], r["N"])]) for r in rows
                 if r["gemm"] == what]
         tot = {key: sum(r[key] * c for r, c in part)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        print(f"[b1-train] per layer, {what} (7 GEMMs): {tot['ms']:.4f} ms "
-              f"(plain {tot['plain_ms']:.4f}, torch.matmul "
-              f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f})",
-              flush=True)
+               for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                           "bound_ms")}
+        print(f"[b1-train] per layer, {what} (7 GEMMs): {tot['ms']:.4f} ms, "
+              f"device {tot['device_ms']:.4f} (plain {tot['plain_ms']:.4f}, "
+              f"torch.matmul {tot['library_ms']:.4f}, bound "
+              f"{tot['bound_ms']:.4f})", flush=True)
     del x, w, dout, got, want, flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -1558,7 +1624,7 @@ def _kernel_of(name):
 
     if re.search(r"\battn_(bf16|f32)_kernel", name):
         return "attention"
-    hit = re.search(r"\b(q8_mma_kernel<(true|false)>|upcast_kernel|"
+    hit = re.search(r"\b(q8_(mma|ring)_kernel<(true|false)>|upcast_kernel|"
                     r"chain_(bf16|scalar)_kernel)", name)
     if hit:
         word = hit.group(1)
@@ -1567,7 +1633,7 @@ def _kernel_of(name):
         return "contract_upcast" if word.startswith("up") else (
             "contract_chain")
     hit = re.search(r"\b(grouped_dw|grouped|contract|baseline)_"
-                    r"(bf16_mma|bf16|f32)(_fused)?_kernel", name)
+                    r"(bf16_ring|bf16_mma|bf16|f32)(_fused)?_kernel", name)
     return hit.group(1) if hit else None
 
 
@@ -1993,15 +2059,17 @@ def _check_exact(got, want, what):
 
 
 def _quant_row(tag, what, fmt, got, want, run, plain, library, ops, nbytes,
-               flush, **extra):
+               flush, kernel, body, **extra):
     """One b1-quant row: int8 exact, fp8 at the f32 TOL (scaled); timed as
-    ``_case_row`` against the 1979 TOP/s 8-bit tensor-core rate."""
+    ``_case_row`` against the 1979 TOP/s 8-bit tensor-core rate, with the
+    device ms of ``kernel`` (``_kernel_ms``) and the ``body`` that ran."""
     if fmt == "int8":
         max_abs, scaled_err = _check_exact(got, want, f"{tag} {what}")
     else:
         max_abs, scaled_err = _check_close(got, want, "float32",
                                            f"{tag} {what}")
     ms = _timed(run, flush)
+    device_ms, _ = _kernel_ms(run, flush, kernel)
     plain_ms = _timed(plain, flush, **PLAIN_REPS)
     library_ms = None
     if library is not None:
@@ -2011,15 +2079,16 @@ def _quant_row(tag, what, fmt, got, want, run, plain, library, ops, nbytes,
             print(f"[{tag}] {what}: library call refused ({str(e)[:120]}); "
                   f"library_ms null", flush=True)
     bound_ms, ops_ms, bytes_ms, by = _bound(ops, nbytes, fmt)
-    row = dict(case=what, dtype=fmt, max_abs_err=max_abs,
-               scaled_err=scaled_err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, ops_ms=ops_ms,
-               bytes_ms=bytes_ms, bound_by=by, tops=ops / ms / 1e9, **extra)
+    row = dict(case=what, dtype=fmt, body=body, max_abs_err=max_abs,
+               scaled_err=scaled_err, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               ops_ms=ops_ms, bytes_ms=bytes_ms, bound_by=by,
+               tops=ops / ms / 1e9, **extra)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
     held = "exact" if fmt == "int8" else f"scaled err {scaled_err:.3g}"
-    print(f"[{tag}] {what} {fmt}: {held}, {ms:.4f} ms (plain "
-          f"{plain_ms:.4f}, library {lib}, bound {bound_ms:.4f} by {by}), "
-          f"{row['tops']:.1f} TOP/s", flush=True)
+    print(f"[{tag}] {what} {fmt} ({body}): {held}, {ms:.4f} ms, device "
+          f"{device_ms:.4f} (plain {plain_ms:.4f}, library {lib}, bound "
+          f"{bound_ms:.4f} by {by}), {row['tops']:.1f} TOP/s", flush=True)
     return row
 
 
@@ -2078,6 +2147,7 @@ def phase_b1_quant():
             b = bt.t() if kmajor else bt.t().contiguous()
             spec = E.quantize_spec(E.matmul_spec(m, k, n), fmt=fmt)
             got = launcher(a[None], b[None], out_dt, int_acc=int_acc)[0]
+            body = launcher.last_body
             want = contract_ref(spec, a, b, out_dtype=out_dt)
             lib = ((lambda: lib_fn(a, bt)) if kmajor else None)  # noqa: E731
             rows.append(_quant_row(
@@ -2085,7 +2155,7 @@ def phase_b1_quant():
                 lambda: launcher(a[None], b[None], out_dt, int_acc=int_acc),
                 lambda: contract_ref(spec, a, b, out_dtype=out_dt), lib,
                 2.0 * m * k * n, m * k + k * n + 4 * m * n, flush,
-                shape=tag))
+                f"contract_{fmt}", body, shape=tag))
             del a, bt, b, got, want
         # the batched and transposed folds through codegen.compile
         for spec in (E.batched_matmul_spec(8, 512, 1024, 512),
@@ -2095,6 +2165,7 @@ def phase_b1_quant():
                     for ax in spec.operands.values()]
             kern = codegen.compile(spec, codegen.default_schedule(spec))
             got = kern(*args)
+            body = launcher.last_body
             want = contract_ref(spec, *args, out_dtype=out_dt)
             ext = spec.extents
             size = math.prod(ext.values())
@@ -2104,7 +2175,7 @@ def phase_b1_quant():
                 lambda: kern(*args),
                 lambda: contract_ref(spec, *args, out_dtype=out_dt), None,
                 2.0 * size, sum(x.numel() for x in args) + 4 * outs, flush,
-                shape=spec.name))
+                f"contract_{fmt}", body, shape=spec.name))
             del args, got, want
     # the upcast body and the quantized chain through codegen.compile, the
     # public entry: one counted pass (counters from 0), then the checks and
@@ -2141,13 +2212,13 @@ def phase_b1_quant():
         else:
             ops = 2.0 * m * d * f
         n_out = math.prod(ext[i] for i in spec.output)
+        mode = "chain" if spec.name == "chain_matmul" else "upcast"
         upcast.append(_quant_row(
             "b1-quant", f"{spec.name} {dict(ext)}", fmt, got, want,
             lambda: kern(*args),
             lambda: contract_ref(spec, *args, out_dtype=out_dt), None,
             ops, sum(x.numel() for x in args) + 4 * n_out, flush,
-            shape=spec.name,
-            mode="chain" if spec.name == "chain_matmul" else "upcast"))
+            f"contract_{mode}", mode, shape=spec.name, mode=mode))
         del want
     del cases, outs, flush
     gc.collect()

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """One tree against another, in turns on one card.
 
-    python3 scripts/chip_compare.py [--serve | --kernels | --moe-serve] \
-        OLD_CHECKOUT NEW_CHECKOUT
+    python3 scripts/chip_compare.py \
+        [--serve | --kernels | --moe-serve | --quant] OLD_CHECKOUT NEW_CHECKOUT
 
 Runs, in a fresh process per turn and in the order old, new, new, old,
 phases of each checkout's own ``chip_smoke.py``, after building the
@@ -10,8 +10,11 @@ checkout's sources that they run.  By default: ``kernel`` (B1 at the serving
 GEMMs), ``b1-train`` (B1 at one qwen3-8b layer's training GEMMs, forward
 and backward) and ``train`` (qwen3-8b at full width cut to 8 layers, 5
 steps); each turn prints one line ``COMPARE {...}``: the tree, B1's time
-per serve layer (the 7 GEMMs at M = 512), per train layer (the 7 forward
-and 14 backward GEMMs at M = 2048) and the steady train step.  With
+per serve layer (the 7 GEMMs at M = 512), per decode layer (M = 4), per
+train layer (the 7 forward and 14 backward GEMMs at M = 2048), each also
+as profiler device ms where the tree's smoke records it, the decode
+layer's mma.sync device ms timed first by the turn itself, and the steady
+train step.  With
 ``--serve``: ``serve`` (qwen3-8b at full width and depth, the smoke's
 serving flags) and ``profile`` (request 0's prefill and one batch-1 decode
 step on the host clock and under ``torch.profiler``); each turn prints the
@@ -27,8 +30,16 @@ bf16 entry (its four specs) and the profiled device ms of the chain
 kernel over ``chain_dense``'s forward and backward.  With ``--moe-serve``: ``moe-serve``
 (kimi-k2 at full width cut to 2 layers, the smoke's serving flags, under
 ``REPRO_MOE_GROUPED=1``); each turn prints the tree, every request's greedy
-tokens, prefill ms, decode tok/s and the B3 launches.  Needs one NVIDIA
-card; compare two versions only within one run of this script.
+tokens, prefill ms, decode tok/s and the B3 launches.  With ``--quant``:
+``b1-quant`` (B1's int8 and fp8 modes at qwen3-8b's MLP products, up and
+down at M = 2048, W k-major, the ragged, batched and transposed folds,
+and the upcast body and the 8-bit chain through ``codegen.compile``);
+each turn prints the tree, the MLP rows' event-timed ms and (where the
+tree's smoke records it) their profiler device ms, every other row's ms,
+and, timed first on the device by the turn itself, the cases that stay
+on ``q8_mma_kernel`` (the ragged product, the batched and transposed
+folds).  Needs one NVIDIA card; compare two versions only within one run of
+this script.
 """
 
 from __future__ import annotations
@@ -36,6 +47,32 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+
+#: device ms of the kernels whose names hold ``word`` in one ``run()``:
+#: ``reps`` calls under torch.profiler, L2 flushed before each (the same
+#: code in both trees, so bodies a tree's smoke does not time on the
+#: device are held side by side)
+DEVICE_MS = r"""
+def device_ms(run, word, reps=10):
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that lost launches is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                run()
+            torch.cuda.synchronize()
+        path = os.path.join(cs.OUT, "profile_turn.json")
+        prof.export_chrome_trace(path)
+        _, _, by_name = cs._device_time(path)
+        mine = [v for k, v in by_name.items() if word in k]
+        count = sum(v[1] for v in mine)
+        if count >= reps and count % reps == 0:
+            return sum(v[0] for v in mine) / reps
+    return float("nan")
+"""
 
 TURN = r"""
 import dataclasses, json, os, sys
@@ -48,19 +85,36 @@ os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cs.OUT, "autotune.json")
 os.environ["REPRO_PLAN_DB"] = os.path.join(cs.OUT, "plans.json")
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-from repro_torch.codegen import build
+from repro_torch.codegen import CONTRACT, build
 build.build("contract")
 build.load("contract")
+""" + DEVICE_MS + r"""
+# decode's GEMMs (M = 4) stay on the mma.sync body: its device time first
+gen = torch.Generator(device="cuda").manual_seed(9)
+decode_device = 0.0
+for (k, n), count in cs.LAYER_GEMMS.items():
+    a = torch.randn(1, 4, k, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(1, k, n, generator=gen, device="cuda").bfloat16()
+    decode_device += count * device_ms(
+        lambda: CONTRACT(a, b, torch.bfloat16), "contract_bf16_mma_kernel")
 rows = cs.phase_kernel()
 b1 = cs.phase_b1_train()
 train, *_ = cs.phase_train(
     "train", "qwen3-8b", cs.TRAIN_FLAGS,
     lambda c: dataclasses.replace(c, n_layers=cs.TRAIN_LAYERS))
-serve = sum(r["ms"] * cs.LAYER_GEMMS[(r["K"], r["N"])] for r in rows
-            if r["M"] == 512 and r["dtype"] == "bfloat16")
-layer = sum(r["ms"] * cs.LAYER_GEMMS[(r["K"], r["N"])] for r in b1)
+def per_layer(rows, key):
+    if any(key not in r for r in rows):  # a tree that does not record it
+        return None
+    return sum(r[key] * cs.LAYER_GEMMS[(r["K"], r["N"])] for r in rows)
+serve = [r for r in rows if r["M"] == 512 and r["dtype"] == "bfloat16"]
+decode = [r for r in rows if r["M"] == 4]
 print("COMPARE " + json.dumps({
-    "tree": sys.argv[1], "serve_layer_ms": serve, "train_layer_ms": layer,
+    "tree": sys.argv[1], "serve_layer_ms": per_layer(serve, "ms"),
+    "serve_layer_device_ms": per_layer(serve, "device_ms"),
+    "decode_layer_ms": per_layer(decode, "ms"),
+    "decode_layer_mma_device_ms": decode_device,
+    "train_layer_ms": per_layer(b1, "ms"),
+    "train_layer_device_ms": per_layer(b1, "device_ms"),
     "steady_step_ms": train["steady_step_s"] * 1e3,
     "step_ms": [s * 1e3 for s in train["step_s"]]}), flush=True)
 """
@@ -162,8 +216,56 @@ print("COMPARE " + json.dumps({
     "grouped_launches": launches["grouped"]}), flush=True)
 """
 
+QUANT_TURN = r"""
+import json, os, sys
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cs.OUT, "autotune.json")
+os.environ["REPRO_PLAN_DB"] = os.path.join(cs.OUT, "plans.json")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+from repro_torch import codegen
+from repro_torch.codegen import build, modes
+from repro_torch.core import enumerate as E
+for name in ("contract", "contract_q8", "contract_chain"):
+    build.build(name)
+    build.load(name)
+""" + DEVICE_MS + r"""
+# the cases that stay on q8_mma_kernel, on the device, before anything runs
+gen = torch.Generator(device="cuda").manual_seed(51)
+mma_device = {}
+for fmt in ("int8", "fp8"):
+    launcher = modes.CONTRACT_INT8 if fmt == "int8" else modes.CONTRACT_FP8
+    out_dt = torch.int32 if fmt == "int8" else torch.float32
+    a = cs._q_operand((1000, 999), fmt, gen)
+    b = cs._q_operand((999, 1001), fmt, gen)
+    mma_device[f"ragged {fmt}"] = device_ms(
+        lambda: launcher(a[None], b[None], out_dt, int_acc=fmt == "int8"),
+        "q8_mma_kernel")
+    for spec in (E.batched_matmul_spec(8, 512, 1024, 512),
+                 E.transposed_matmul_spec(1024, 2048, 1024)):
+        spec = E.quantize_spec(spec, fmt=fmt)
+        args = [cs._q_operand([spec.extents[i] for i in ax], fmt, gen)
+                for ax in spec.operands.values()]
+        kern = codegen.compile(spec, codegen.default_schedule(spec))
+        mma_device[f"{spec.name} {fmt}"] = device_ms(lambda: kern(*args),
+                                                     "q8_mma_kernel")
+quant = cs.phase_b1_quant()
+key = lambda r: f"{r['case']} {r['dtype']}"
+mlp = [r for r in quant["rows"] if r["shape"].startswith("mlp")]
+print("COMPARE " + json.dumps({
+    "tree": sys.argv[1], "mlp_ms": {key(r): r["ms"] for r in mlp},
+    "mlp_device_ms": {key(r): r.get("device_ms") for r in mlp},
+    "mma_device_ms": mma_device,
+    "other_ms": {key(r): r["ms"] for r in quant["rows"] + quant["upcast"]
+                 if r not in mlp}}), flush=True)
+"""
+
 TURNS = {"--serve": SERVE_TURN, "--kernels": KERNELS_TURN,
-         "--moe-serve": MOE_SERVE_TURN}
+         "--moe-serve": MOE_SERVE_TURN, "--quant": QUANT_TURN}
 
 
 def main(argv) -> int:

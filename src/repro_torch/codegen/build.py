@@ -7,10 +7,15 @@ without PyTorch's headers:
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``codegen/_build/`` (listed in ``.gitignore``), named by
-a hash of its source, so an edited kernel is rebuilt and an unchanged one
-is loaded as it is.  ``ptxas``'s report (registers, shared memory, spills
-per kernel) is kept beside it as ``<name>-<hash>.ptxas.txt``.  There is no
-fallback: without ``nvcc`` or a card the build raises.
+a hash of its source and of the ``csrc/`` headers it includes (``#include
+"hopper.cuh"``: the TMA, mbarrier and wgmma helpers of B1's ring bodies),
+so an edited kernel or header is rebuilt and an unchanged one is loaded as
+it is.  No source links libcuda: the one libcuda call the rings need,
+``cuTensorMapEncodeTiled``, is reached through the runtime's entry-point
+query (``cudaGetDriverEntryPoint``, ``csrc/hopper.cuh``).  ``ptxas``'s report
+(registers, shared memory, spills per kernel) is kept beside it as
+``<name>-<hash>.ptxas.txt``.  There is no fallback: without ``nvcc`` or a
+card the build raises.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,10 +48,29 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes with
+    quotes, transitively, in the order first met."""
+    out, todo = [], [os.path.join(CSRC, f"{name}.cu")]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        with open(path) as f:
+            todo += [os.path.join(CSRC, inc) for inc in
+                     re.findall(r'^\s*#include\s+"([^"]+)"', f.read(), re.M)]
+    return out
+
+
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` is (or will be) built."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is (or will be) built: named by a hash of
+    the source, the headers it includes and the arch flags."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(ARCH_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

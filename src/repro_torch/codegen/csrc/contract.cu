@@ -39,18 +39,40 @@
 // on about 2(MK + KN + MN) bytes, 100..800 operations per byte, so the bound
 // is the tensor-core rate from M = 512 up and the weight bytes at M = 128.
 // The epilogue and the prologue add O(MN) and O(MK) arithmetic, nothing to
-// that bound.  This version is simple and right rather than fast.  Two
-// bodies, chosen by the operand type; both take their own CTA grid (the TPU
-// plan's grid, often a single block, is not used), stream K through shared
-// memory in steps of 32, accumulate in f32 in a fixed order per output, and
-// mask ragged edges on load and store, so any M, N, K is legal:
-//   * bf16 operands run on the tensor cores: mma.sync m16n8k16 (bf16 in,
-//     f32 accumulate), a 64 x 128 CTA tile over 4 warps of 32 x 64.  A is
-//     staged row-major and B transposed (n-major) with rows padded to 40
-//     elements, so every fragment load of a warp hits 32 distinct banks.
-//     Global loads are 16 bytes where the strides allow (unit stride along
-//     k for A and along n for B, 8-element aligned), else element-wise.
-//     No cp.async/TMA pipelining yet: loads and math alternate.
+// that bound.  Three bodies; each takes its own CTA grid (the TPU plan's
+// grid, often a single block, is not used), accumulates in f32 in a fixed
+// order per output and masks ragged edges, so any M, N, K is legal:
+//   * the ring body (body 1), for plain bf16 products at M >= 64 whose
+//     operands TMA can read (each with unit stride on one of its two axes,
+//     the other strides multiples of 16 bytes, 16-byte aligned bases;
+//     codegen.cuda_gen.contract_body picks it, and contract_launch refuses
+//     it for anything else): hopper.cuh's skeleton.  A CTA of three
+//     warpgroups owns a 128 x BN tile (BN = 128 or 256).  One producer
+//     thread keeps TMA loads of 64-deep K steps in flight into a ring of
+//     192 KB (6 stages at BN 128, 4 at 256), full and empty mbarriers per
+//     stage; two consumer warpgroups run wgmma m64nBNk16 on 64 rows each,
+//     one wgmma group in flight across K steps, registers moved from the
+//     producer by setmaxnreg.  Every layout is read as it lies: the tensor
+//     maps and the descriptors' transpose bits take A K-major or M-major
+//     and B K-major or N-major, so the backward's transposed operands
+//     (matmul.dA's W^T, matmul.dB's x^T) need no copy; the batch is the
+//     maps' third dimension.  TMA zero-fills out-of-bounds boxes, so ragged
+//     M, N and K cost nothing on the load side; the store is masked.
+//     Where the output has few tiles (M = 128, or N = 1024 at M = 512), the
+//     K steps are split across CTAs so the grid fills the card; each writes
+//     its f32 partial tile to scratch and the last CTA of a tile to arrive
+//     sums them in split order and stores (one launch, the same bits every
+//     run).  Python picks BN and the split (cuda_gen.ring_tiles).  The
+//     libcuda's cuTensorMapEncodeTiled is reached through the runtime's
+//     entry-point query (hopper.cuh), so the library links no libcuda;
+//   * every other bf16 product (decode's M < 64, unaligned or
+//     element-strided operands) and the fused modes run mma.sync m16n8k16
+//     (bf16 in, f32 accumulate) on a 64 x 128 CTA tile over 4 warps of 32 x
+//     64, K in steps of 32.  A is staged row-major and B transposed
+//     (n-major) with rows padded to 40 elements, so every fragment load of
+//     a warp hits 32 distinct banks.  Global loads are 16 bytes where the
+//     strides allow (unit stride along k for A and along n for B, 8-element
+//     aligned), else element-wise.  Loads and math alternate;
 //   * f32 operands keep exact f32 math on the FMA pipes: a 128 x 64 CTA
 //     tile, each of 256 threads owning an 8 x 4 micro-tile (rows ty + 16 i,
 //     columns tx + 16 j, so a warp's shared reads are conflict-free).
@@ -60,6 +82,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 extern "C" {
 
@@ -85,12 +109,18 @@ struct ContractParams {
   Vec var;                     // ... mean and var together (norm)
   const void* T;               // row reduce: third operand T[m, n] ...
   long long sTm, sTn;
-  float* partial;              // ... (row blocks, N) f32 scratch
-  int* counter;                // ... one zeroed int per column block
+  float* partial;              // ... (row blocks, N) f32 scratch; the
+                               // ring's split partial tiles
+  int* counter;                // ... one zeroed int per column block; the
+                               // ring's: one per output tile
   float eps;
   int act;                     // 0 id, 1 relu, 2 gelu (tanh), 3 tanh, 4 silu
   int in_dtype;                // 0 float32, 1 bfloat16
   int out_dtype;
+  int body;                    // 0 mma.sync / FMA bodies, 1 the ring
+  int tile_n;                  // the ring's BN: 128 or 256
+  int splits;                  // the ring's K split (1: none)
+  int pad;
 };
 
 }  // extern "C"
@@ -610,6 +640,281 @@ void launch_bf16(const ContractParams& p, cudaStream_t stream) {
     launch_bf16_vec<TOut, false>(p, grid, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The ring body: plain bf16 products on hopper.cuh's TMA / mbarrier / wgmma
+// skeleton (see the header of this file).
+// ---------------------------------------------------------------------------
+constexpr int R_BM = 128;
+constexpr int R_BK = 64;  // one 128-byte swizzled row of bf16
+constexpr int R_THREADS = 384;
+constexpr int R_CONSUMERS = 256;
+constexpr int R_A_BYTES = R_BM * R_BK * 2;
+constexpr int R_RING_BYTES = 192 * 1024;
+constexpr int R_BAND = 8;    // row tiles of a rasterization band
+constexpr int A_MMAJOR = 1;  // layout bits: A stored (k, m), m contiguous
+constexpr int B_NMAJOR = 2;  // ... B stored (k, n), n contiguous
+
+template <int BN>
+struct Ring {
+  static constexpr int STAGE = R_A_BYTES + BN * R_BK * 2;
+  static constexpr int STAGES = R_RING_BYTES / STAGE;  // 6 at BN 128, 4 at 256
+  static constexpr int ACC = BN / 2;  // f32 accumulators of a consumer thread
+  // the ring, 1024 bytes to align it, full and empty barriers, a flag
+  static constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8 + 16;
+};
+
+__device__ __forceinline__ void store2_from_f32(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2_from_f32(__nv_bfloat16* p, float a,
+                                                float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One consumer warpgroup's K loop: its 64 rows (``half``) of each stage's A
+// tile against the stage's whole B tile, four k16 wgmmas a stage.  The
+// stage before is released once its group has retired (wait_group 1).
+template <int BN, bool AT, bool BT>
+__device__ __forceinline__ void ring_mainloop(float (&acc)[BN / 2],
+                                              uint32_t tiles, uint64_t* full,
+                                              uint64_t* empty, int steps,
+                                              int half) {
+  using R = Ring<BN>;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % R::STAGES;
+    hopper::mbar_wait(&full[s], (i / R::STAGES) & 1);
+    const uint32_t a = tiles + s * R::STAGE + half * 8192;
+    const uint32_t bt = tiles + s * R::STAGE + R_A_BYTES;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      hopper::wgmma_bf16<AT, BT>(
+          acc,
+          AT ? hopper::desc(a + ks * 2048, 8192, 1024)
+             : hopper::desc(a + ks * 32, 16, 1024),
+          BT ? hopper::desc(bt + ks * 2048, 8192, 1024)
+             : hopper::desc(bt + ks * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(acc);
+    if (i > 0 && threadIdx.x % 128 == 0)
+      hopper::mbar_arrive(&empty[(i - 1) % R::STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+}
+
+// The masked store of a consumer thread's fragment: rows r0 and r0 + 8,
+// columns c0 + 8j and c0 + 8j + 1 (wgmma's accumulator layout), adjacent
+// pairs as one word where ``pair``.
+template <typename TOut, int ACC>
+__device__ __forceinline__ void ring_store(TOut* C, const float (&acc)[ACC],
+                                           int r0, int c0, int M, int N,
+                                           long long sCm, long long sCn,
+                                           bool pair) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = r0 + 8 * h;
+    if (m >= M) continue;
+    TOut* row = C + m * sCm;
+#pragma unroll
+    for (int j = 0; j < ACC / 4; ++j) {
+      const int n = c0 + 8 * j;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (pair && n + 1 < N) {
+        store2_from_f32(row + n, v0, v1);
+      } else {
+        if (n < N) store_from_f32(row + n * sCn, v0);
+        if (n + 1 < N) store_from_f32(row + (n + 1) * sCn, v1);
+      }
+    }
+  }
+}
+
+// Grid (tiles, 1, batch x splits): the (M / 128) x (N / BN) tiles in bands
+// of R_BAND row tiles (hopper::raster); 384 threads: warpgroup 0 the
+// producer, 1 and 2 the consumers.  ``layout``: A_MMAJOR | B_NMAJOR bits,
+// matching the boxes of tmA (K-major: 64 k x 128 m; M-major: 64 m x 64 k)
+// and tmB (K-major: 64 k x BN n; N-major: 64 n x 64 k).
+template <int BN>
+__global__ void __launch_bounds__(R_THREADS, 1)
+contract_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
+                          const __grid_constant__ CUtensorMap tmB, void* C,
+                          int M, int N, int K, long long sCb, long long sCm,
+                          long long sCn, int layout, int out_bf16, int splits,
+                          float* partial, int* counter) {
+  using R = Ring<BN>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* tiles =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  int* last = reinterpret_cast<int*>(empty + R::STAGES);
+
+  const int gx = (N + BN - 1) / BN;
+  const int gy = (M + R_BM - 1) / R_BM;
+  int m_t, n_t;
+  hopper::raster(blockIdx.x, gx, gy, R_BAND, m_t, n_t);
+  const int n0 = n_t * BN;
+  const int m0 = m_t * R_BM;
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int nk = (K + R_BK - 1) / R_BK;
+  const int per = (nk + splits - 1) / splits;
+  const int k_first = split * per;
+  const int steps = min(nk, k_first + per) - k_first;  // >= 1 (the host's)
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer group
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tmA);
+      hopper::tma_prefetch(&tmB);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % R::STAGES;
+        hopper::mbar_wait(&empty[s], ((i / R::STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_tx(&full[s], R::STAGE);
+        unsigned char* a = tiles + s * R::STAGE;
+        unsigned char* bt = a + R_A_BYTES;
+        const int k0 = (k_first + i) * R_BK;
+        if (layout & A_MMAJOR) {  // two 64-row atoms
+          hopper::tma_load(a, &tmA, &full[s], m0, k0, b);
+          hopper::tma_load(a + 8192, &tmA, &full[s], m0 + 64, k0, b);
+        } else {
+          hopper::tma_load(a, &tmA, &full[s], k0, m0, b);
+        }
+        if (layout & B_NMAJOR) {  // BN / 64 column atoms
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            hopper::tma_load(bt + j * 8192, &tmB, &full[s], n0 + 64 * j, k0,
+                             b);
+        } else {
+          hopper::tma_load(bt, &tmB, &full[s], k0, n0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::regs_inc<232>();
+  const int ct = threadIdx.x - 128;  // consumer thread 0..255
+  const int half = ct >> 7;          // its warpgroup's 64 rows
+  float acc[R::ACC];
+#pragma unroll
+  for (int i = 0; i < R::ACC; ++i) acc[i] = 0.f;
+  const uint32_t base = hopper::smem_u32(tiles);
+  switch (layout) {
+    case 0:
+      ring_mainloop<BN, false, false>(acc, base, full, empty, steps, half);
+      break;
+    case A_MMAJOR:
+      ring_mainloop<BN, true, false>(acc, base, full, empty, steps, half);
+      break;
+    case B_NMAJOR:
+      ring_mainloop<BN, false, true>(acc, base, full, empty, steps, half);
+      break;
+    default:
+      ring_mainloop<BN, true, true>(acc, base, full, empty, steps, half);
+      break;
+  }
+
+  if (splits > 1) {
+    // this split's partial tile to scratch ([tile][split][i][thread]), then
+    // the last CTA of the tile to arrive sums every split in split order
+    const long long tile = ((long long)b * gy + m_t) * gx + n_t;
+    float* mine = partial + (tile * splits + split) * (R_BM * BN);
+#pragma unroll
+    for (int i = 0; i < R::ACC; ++i)
+      __stcg(mine + i * R_CONSUMERS + ct, acc[i]);
+    __threadfence();
+    hopper::bar_sync(1, R_CONSUMERS);
+    if (ct == 0) *last = atomicAdd(counter + tile, 1) == splits - 1;
+    hopper::bar_sync(1, R_CONSUMERS);
+    if (!*last) return;
+    __threadfence();
+    const float* all = partial + tile * splits * (R_BM * BN);
+#pragma unroll
+    for (int i = 0; i < R::ACC; ++i) acc[i] = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+#pragma unroll
+      for (int i = 0; i < R::ACC; ++i)
+        acc[i] += __ldcg(all + sp * (R_BM * BN) + i * R_CONSUMERS + ct);
+  }
+
+  const int lane = ct & 31;
+  const int r0 = m0 + half * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
+  const bool pair = sCn == 1 && sCm % 2 == 0 && sCb % 2 == 0;
+  if (out_bf16)
+    ring_store(static_cast<__nv_bfloat16*>(C) + b * sCb, acc, r0, c0, M, N,
+               sCm, sCn, pair);
+  else
+    ring_store(static_cast<float*>(C) + b * sCb, acc, r0, c0, M, N, sCm, sCn,
+               pair);
+}
+
+// The ring's launch: checks its preconditions (cudaErrorInvalidValue when
+// one fails; nothing switches body), encodes the two tensor maps and
+// launches.  An operand is taken K-major where it has unit stride along k,
+// else M-major (A) / N-major (B) where it has unit stride there; the other
+// strides must be what TMA reads (hopper::tma_ok).
+template <int BN>
+int launch_ring(const ContractParams& p, cudaStream_t stream) {
+  using R = Ring<BN>;
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const long long nk = (p.K + R_BK - 1) / R_BK;
+  if (p.in_dtype != 1 || features(p) != FEAT_PLAIN || p.M < 64 || p.K < 1 ||
+      p.N < 1 || p.batch < 1 || p.splits < 1 || p.splits > nk ||
+      (p.splits > 1 && (!p.partial || !p.counter)))
+    return invalid;
+  const long long per = (nk + p.splits - 1) / p.splits;
+  const long long tiles = ((p.M + R_BM - 1) / R_BM) * ((p.N + BN - 1) / BN);
+  const long long gz = p.batch * p.splits;
+  if ((p.splits - 1) * per >= nk || tiles >= (1LL << 31) || gz > 65535)
+    return invalid;
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap ta, tb;
+  int layout = 0;
+  const hopper::Operand a_k{p.A, p.K, p.M, p.sAm, p.batch, p.sAb};
+  const hopper::Operand a_m{p.A, p.M, p.K, p.sAk, p.batch, p.sAb};
+  if ((p.sAk == 1 || p.K == 1) && hopper::tma_ok(a_k, 2)) {
+    if (!hopper::make_map(&ta, a_k, 2, bf16, R_BK, R_BM)) return invalid;
+  } else if (p.sAm == 1 && hopper::tma_ok(a_m, 2)) {
+    if (!hopper::make_map(&ta, a_m, 2, bf16, 64, R_BK)) return invalid;
+    layout |= A_MMAJOR;
+  } else {
+    return invalid;
+  }
+  const hopper::Operand b_k{p.B, p.K, p.N, p.sBn, p.batch, p.sBb};
+  const hopper::Operand b_n{p.B, p.N, p.K, p.sBk, p.batch, p.sBb};
+  if ((p.sBk == 1 || p.K == 1) && hopper::tma_ok(b_k, 2)) {
+    if (!hopper::make_map(&tb, b_k, 2, bf16, R_BK, BN)) return invalid;
+  } else if ((p.sBn == 1 || p.N == 1) && hopper::tma_ok(b_n, 2)) {
+    if (!hopper::make_map(&tb, b_n, 2, bf16, 64, R_BK)) return invalid;
+    layout |= B_NMAJOR;
+  } else {
+    return invalid;
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      contract_bf16_ring_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((unsigned)tiles, 1, (unsigned)gz);
+  contract_bf16_ring_kernel<BN><<<grid, R_THREADS, R::SMEM, stream>>>(
+      ta, tb, p.C, (int)p.M, (int)p.N, (int)p.K, p.sCb, p.sCm, p.sCn, layout,
+      p.out_dtype == 1, (int)p.splits, p.partial, p.counter);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -617,15 +922,24 @@ extern "C" {
 // Strides are in elements.  The row-reduce mode (T set) needs batch 1, a
 // (row blocks, N) f32 partial buffer and one zeroed int per column block
 // (the row and column block counts of the chosen body: contract_tile_*).
-// Returns cudaGetLastError() after the launch (0 = launched); nothing is
-// synchronised, and nothing is allocated here.
+// body 1 runs the ring (tile_n, splits; with splits > 1 a partial buffer
+// of batch x row tiles x column tiles x splits x 128 x tile_n floats and
+// one zeroed int per output tile, (batch, row tile, column tile) order),
+// or refuses.  Returns cudaGetLastError()
+// after the launch (0 = launched); nothing is synchronised, and nothing is
+// allocated here.
 int contract_launch(const ContractParams* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->in_dtype < 0 || p->in_dtype > 1 || p->out_dtype < 0 ||
       p->out_dtype > 1 || (p->T && p->batch != 1) ||
       (p->mean.p == nullptr) != (p->var.p == nullptr) || p->act < 0 ||
-      p->act > 4)
+      p->act > 4 || p->body < 0 || p->body > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (p->body == 1) {
+    if (p->tile_n == 128) return launch_ring<128>(*p, s);
+    if (p->tile_n == 256) return launch_ring<256>(*p, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (p->in_dtype * 2 + p->out_dtype) {
     case 0:
       launch_f32<float>(*p, s);
@@ -649,6 +963,10 @@ int contract_launch(const ContractParams* p, void* stream) {
 // the row-reduce scratch with the kernel's own numbers.
 int contract_tile_m(int in_dtype) { return in_dtype == 1 ? TC_BM : BM; }
 int contract_tile_n(int in_dtype) { return in_dtype == 1 ? TC_BN : BN; }
+
+// The ring's CTA rows, checked against cuda_gen.RING_BM at load: the
+// wrapper sizes the split scratch and counters with it.
+int contract_ring_tile_m(void) { return R_BM; }
 
 // sizeof(ContractParams), checked against the ctypes mirror at load.
 int contract_params_size(void) { return (int)sizeof(ContractParams); }

@@ -45,17 +45,45 @@
 // rsqrt(var + eps), activation.  With no epilogue the accumulator is
 // stored as it is: an int8 spec's int32 result is exact.
 //
+// q8_ring_kernel<INT> (body 1): the same product on hopper.cuh's skeleton,
+//   for K-major operands at M >= 64 (codegen.modes.q8_body picks it; the
+//   launch refuses anything else): A k-contiguous and B k-contiguous as
+//   ``ops.dense(quant=)`` writes its W (quantize_channels_kmajor), row
+//   strides multiples of 16 bytes, 16-byte aligned bases.  8-bit wgmma
+//   takes only K-major operands, so the n-major B (the ragged case), the
+//   transposed fold (A stored (K, M)) and unaligned operands run
+//   q8_mma_kernel.  A CTA of three warpgroups owns a 128 x 128 tile; one
+//   producer thread keeps TMA loads of 128 k-bytes a stage (four k32
+//   steps, 128-byte swizzled boxes) in flight on a six-stage ring of 192
+//   KB with full and empty mbarriers; two consumer warpgroups run wgmma
+//   m64n128k32 on 64 rows each.
+//   * int8: .s32.s8.s8 into int32 accumulators, one group in flight across
+//     K steps; no .satfinite, so it wraps modulo 2^32 like the reference
+//     and stays exact.
+//   * fp8: .f32.e4m3.e4m3.  The tensor cores keep fewer bits than f32 when
+//     they add into a running accumulator, so, as in q8_mma_kernel, every
+//     k32 wgmma starts from zero and its partial sums are promoted into
+//     the f32 accumulator on the CUDA cores: the accumulation over K stays
+//     the reference's f32 one.  Two partial accumulators alternate, so one
+//     wgmma is in flight while the other partial is added (interval k32:
+//     the numerics of q8_mma_kernel, measured at 2.6e-7 / 4.1e-7 scaled at
+//     the MLP shapes; a longer interval would trade them for FADDs).
+//
 // What bounds it on the H100: at qwen3-8b's MLP shapes (M = 2048, D =
 // 4096, F = 12288) an 8-bit product is 206 GOP on about 160 MB (1-byte
 // operands, f32 output), bound by the 1979 TOPS int8/fp8 tensor-core rate
-// (0.104 ms) over the bytes (0.048 ms).  This body is simple and right:
-// loads and math alternate, no cp.async or TMA pipeline, no wgmma; the
-// fp8 promotion costs four FADDs per mma.
+// (0.104 ms) over the bytes (0.048 ms).  q8_mma_kernel is simple and
+// right: loads and math alternate, no pipeline, no wgmma, and its fp8
+// promotion costs four FADDs per mma.sync; the ring body keeps loads in
+// flight and the tensor cores on wgmma, and its fp8 promotion is one FADD
+// per accumulator per k32 step.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 extern "C" {
 
@@ -88,7 +116,7 @@ struct Q8Params {
   int act;                     // 0 id, 1 relu, 2 gelu (tanh), 3 tanh, 4 silu
   int a_dtype, b_dtype, t_dtype, out_dtype;
   int acc_int;                 // 1: int32 accumulation, 0: f32
-  int pad;
+  int body;                    // q8_launch: 0 q8_mma_kernel, 1 the ring
 };
 
 }  // extern "C"
@@ -567,6 +595,187 @@ __global__ void __launch_bounds__(UTHREADS) upcast_kernel(const Q8Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The ring body (see the header): 128 x 128 tiles, 128 k-bytes a stage.
+// ---------------------------------------------------------------------------
+constexpr int QR_BM = 128;
+constexpr int QR_BN = 128;
+constexpr int QR_BK = 128;  // bytes of k a stage: four k32 wgmmas
+constexpr int QR_THREADS = 384;
+constexpr int QR_A_BYTES = QR_BM * QR_BK;
+constexpr int QR_STAGE = QR_A_BYTES + QR_BN * QR_BK;
+constexpr int QR_STAGES = 6;
+constexpr int QR_SMEM = QR_STAGES * QR_STAGE + 1024 + 2 * QR_STAGES * 8;
+
+// Grid (tiles, 1, batch): the (M / 128) x (N / 128) tiles in bands of 8
+// row tiles (hopper::raster); 384 threads: warpgroup 0 the producer, 1 and
+// 2 the consumers.  tmA: boxes of 128 k x 128 m; tmB: 128 k x 128 n.
+template <bool INT>
+__global__ void __launch_bounds__(QR_THREADS, 1)
+q8_ring_kernel(const __grid_constant__ CUtensorMap tmA,
+               const __grid_constant__ CUtensorMap tmB,
+               const __grid_constant__ Q8Params p) {
+  using TAcc = typename AccOf<INT>::type;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* tiles =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + QR_STAGES * QR_STAGE);
+  uint64_t* empty = full + QR_STAGES;
+
+  int m_t, n_t;
+  hopper::raster(blockIdx.x, (int)((p.N + QR_BN - 1) / QR_BN),
+                 (int)((p.M + QR_BM - 1) / QR_BM), 8, m_t, n_t);
+  const int n0 = n_t * QR_BN;
+  const int m0 = m_t * QR_BM;
+  const int b = blockIdx.z;
+  const int steps = (int)((p.K + QR_BK - 1) / QR_BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < QR_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer group
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tmA);
+      hopper::tma_prefetch(&tmB);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % QR_STAGES;
+        hopper::mbar_wait(&empty[s], ((i / QR_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_tx(&full[s], QR_STAGE);
+        unsigned char* a = tiles + s * QR_STAGE;
+        hopper::tma_load(a, &tmA, &full[s], i * QR_BK, m0, b);
+        hopper::tma_load(a + QR_A_BYTES, &tmB, &full[s], i * QR_BK, n0, b);
+      }
+    }
+    return;
+  }
+
+  hopper::regs_inc<232>();
+  const int ct = threadIdx.x - 128;  // consumer thread 0..255
+  const int half = ct >> 7;          // its warpgroup's 64 rows
+  const uint32_t base = hopper::smem_u32(tiles);
+  TAcc acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0;
+
+  if constexpr (INT) {
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % QR_STAGES;
+      hopper::mbar_wait(&full[s], (i / QR_STAGES) & 1);
+      const uint32_t a = base + s * QR_STAGE + half * 8192;
+      const uint32_t bt = base + s * QR_STAGE + QR_A_BYTES;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hopper::wgmma_s8(acc, hopper::desc(a + ks * 32, 16, 1024),
+                         hopper::desc(bt + ks * 32, 16, 1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (i > 0 && threadIdx.x % 128 == 0)
+        hopper::mbar_arrive(&empty[(i - 1) % QR_STAGES]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+  } else {
+    // every k32 wgmma from zero into one of two partials; the other, whose
+    // group has retired (wait_group 1), is added into acc meanwhile
+    float part[2][64];
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % QR_STAGES;
+      hopper::mbar_wait(&full[s], (i / QR_STAGES) & 1);
+      const uint32_t a = base + s * QR_STAGE + half * 8192;
+      const uint32_t bt = base + s * QR_STAGE + QR_A_BYTES;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        float (&cur)[64] = part[ks & 1];
+        float (&prev)[64] = part[(ks + 1) & 1];
+        hopper::fence_regs(cur);
+        hopper::wgmma_fence();
+        hopper::wgmma_e4m3(cur, hopper::desc(a + ks * 32, 16, 1024),
+                           hopper::desc(bt + ks * 32, 16, 1024));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(prev);
+        if (i > 0 || ks > 0) {
+#pragma unroll
+          for (int e = 0; e < 64; ++e) acc[e] += prev[e];
+        }
+        // stage i - 1's last group (its ks = 3) has retired
+        if (ks == 0 && i > 0 && threadIdx.x % 128 == 0)
+          hopper::mbar_arrive(&empty[(i - 1) % QR_STAGES]);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part[1]);  // the last step's (ks = 3) partial
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] += part[1][e];
+  }
+
+  // warp w of the consumer group: rows 16 w + g (+ 8); per n8 block j,
+  // acc[4j + 2h + e] is (row g + 8h, column 8j + 2t + e)
+  const bool epi = has_epilogue(p);
+  const int lane = ct & 31;
+  const long long r0 = m0 + half * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
+  const long long c0 = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long m = r0 + 8 * h;
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long n = c0 + 8 * j + e;
+        if (n < p.N)
+          store_out<TAcc>(p, epi, b * p.sCb + m * p.sCm + n * p.sCn, b, m, n,
+                          acc[4 * j + 2 * h + e]);
+      }
+  }
+}
+
+// The ring's launch: checks its preconditions (cudaErrorInvalidValue when
+// one fails; nothing switches body), encodes the two tensor maps and
+// launches.
+int q8_ring_launch(const Q8Params& p, cudaStream_t stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles =
+      ((p.M + QR_BM - 1) / QR_BM) * ((p.N + QR_BN - 1) / QR_BN);
+  if (p.M < 64 || p.K < 1 || p.N < 1 || p.batch < 1 || p.batch > 65535 ||
+      tiles >= (1LL << 31))
+    return invalid;
+  const hopper::Operand a{p.A, p.K, p.M, p.sAm, p.batch, p.sAb};
+  const hopper::Operand bo{p.B, p.K, p.N, p.sBn, p.batch, p.sBb};
+  if (!(p.sAk == 1 || p.K == 1) || !(p.sBk == 1 || p.K == 1)) return invalid;
+  CUtensorMap ta, tb;
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!hopper::make_map(&ta, a, 1, u8, QR_BK, QR_BM) ||
+      !hopper::make_map(&tb, bo, 1, u8, QR_BK, QR_BN))
+    return invalid;
+  const dim3 grid((unsigned)tiles, 1, (unsigned)p.batch);
+  if (p.a_dtype == 2) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        q8_ring_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        QR_SMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    q8_ring_kernel<true><<<grid, QR_THREADS, QR_SMEM, stream>>>(ta, tb, p);
+  } else {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        q8_ring_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        QR_SMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    q8_ring_kernel<false><<<grid, QR_THREADS, QR_SMEM, stream>>>(ta, tb, p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool valid(const Q8Params& p) {
   const bool out_ok = p.out_dtype == 0 || p.out_dtype == 1 ||
                       p.out_dtype == 4;
@@ -579,15 +788,18 @@ bool valid(const Q8Params& p) {
 extern "C" {
 
 // Two 8-bit operands of one type (a_dtype == b_dtype, 2 int8 or 3 fp8) on
-// the tensor cores.  Strides are in elements (bytes).  Returns
+// the tensor cores: q8_mma_kernel (body 0) or the ring (body 1, or
+// refused).  Strides are in elements (bytes).  Returns
 // cudaGetLastError() after the launch (0 = launched); nothing is
 // synchronised or allocated here.
 int q8_launch(const Q8Params* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid(*p) || p->a_dtype != p->b_dtype ||
       (p->a_dtype != 2 && p->a_dtype != 3) || p->T || p->kscale.p ||
-      p->mul.p || p->acc_int != (p->a_dtype == 2))
+      p->mul.p || p->acc_int != (p->a_dtype == 2) || p->body < 0 ||
+      p->body > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (p->body == 1) return q8_ring_launch(*p, s);
   const dim3 grid((unsigned)((p->N + QBN - 1) / QBN),
                   (unsigned)((p->M + QBM - 1) / QBM), (unsigned)p->batch);
   if (p->a_dtype == 2)
@@ -603,7 +815,8 @@ int q8_launch(const Q8Params* p, void* stream) {
 // accumulator type and one zeroed int per column block (upcast_tile_*).
 int upcast_launch(const Q8Params* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(*p) || p->body != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((unsigned)((p->N + UBN - 1) / UBN),
                   (unsigned)((p->M + UBM - 1) / UBM), (unsigned)p->batch);
   if (p->acc_int)

@@ -1,0 +1,331 @@
+// Hopper building blocks of B1's ring bodies (contract.cu's bf16 ring and
+// contract_q8.cu's 8-bit ring): mbarriers, TMA tensor loads, wgmma
+// descriptors, fences and register rebalancing, and the host side of a TMA
+// tensor map.  Header only; codegen/build.py hashes it into the library
+// name of every source that includes it, so an edit rebuilds them.
+//
+// The skeleton both rings share: one CTA of three warpgroups owns a 128-row
+// output tile.  Warpgroup 0 gives its registers away (setmaxnreg) and one of
+// its threads keeps TMA loads of the A and B tiles in flight into a ring of
+// stages in dynamic shared memory; each stage has a "full" mbarrier (the
+// TMA's bytes arrive on it) and an "empty" one (each consumer warpgroup
+// arrives once its wgmmas on the stage have retired).  Warpgroups 1 and 2
+// take 64 rows each and run wgmma on the stages as they fill, keeping one
+// wgmma group in flight across K steps.  The tiles are 128-byte swizzled:
+// row r of a 128-byte-row tile holds its 16-byte chunk c at (c ^ r % 8),
+// 1024-byte aligned atoms of 8 rows, the layout TMA writes under
+// CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads through a descriptor.
+//
+// The host encodes a tensor map with libcuda's cuTensorMapEncodeTiled,
+// reached through the runtime's entry-point query
+// (cudaGetDriverEntryPointByVersion): no source links libcuda.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the inits, made visible to the other threads and to the async proxy
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// arrive, and expect ``bytes`` of TMA transactions before the phase ends
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait for the phase of parity ``parity`` to complete (a fresh barrier is
+// in phase 0, so waiting on parity 1 returns at once)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a named barrier over ``threads`` threads (the consumers; the producer
+// warpgroup has left)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Grouped rasterization of a one-dimensional grid over gy x gx output
+// tiles: tile ``t`` is row tile ``m_t``, column tile ``n_t``, the row tiles
+// of a band of ``band`` walked first for each column tile in turn, so the
+// CTAs resident together share a few B tiles and a few A row blocks
+// through L2 (a row-major walk of a 48-tile-wide output reads all of B
+// once per row of tiles).
+__device__ __forceinline__ void raster(int t, int gx, int gy, int band,
+                                       int& m_t, int& n_t) {
+  const int per_band = band * gx;
+  const int first = t / per_band * band;
+  const int rows = min(band, gy - first);
+  const int r = t - first * gx;
+  m_t = first + r % rows;
+  n_t = r / rows;
+}
+
+// ---- TMA ------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// The box of a 3-D map at coordinates (c0, c1, c2) into ``dst`` (1024-byte
+// aligned), its bytes counted on ``bar``.  Elements outside the tensor are
+// written as zeros and counted too.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+// Matrix descriptor of a 128-byte-swizzled tile at shared address ``addr``:
+// leading and stride byte offsets.  K-major (rows of 128 bytes along k):
+// lbo unused (16), sbo 1024 between 8-row atoms, and a k step of 32 bytes
+// moves ``addr`` along the row.  MN-major (rows of 64 bf16 along m or n,
+// one row per k): lbo the offset between 64-wide atoms, sbo 1024 between
+// groups of 8 k rows, and a k16 step moves ``addr`` by 2048.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin accumulator registers in place around the asynchronous wgmma (the
+// compiler must not move their reads or writes across a wait).
+__device__ __forceinline__ void fence_reg(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void fence_reg(int& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+template <typename T, int R>
+__device__ __forceinline__ void fence_regs(T (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) fence_reg(d[i]);
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+#define HOPPER_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31," \
+  "%32, %33, %34, %35, %36, %37, %38, %39," \
+  "%40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55," \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define HOPPER_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31," \
+  "%32, %33, %34, %35, %36, %37, %38, %39," \
+  "%40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55," \
+  "%56, %57, %58, %59, %60, %61, %62, %63," \
+  "%64, %65, %66, %67, %68, %69, %70, %71," \
+  "%72, %73, %74, %75, %76, %77, %78, %79," \
+  "%80, %81, %82, %83, %84, %85, %86, %87," \
+  "%88, %89, %90, %91, %92, %93, %94, %95," \
+  "%96, %97, %98, %99, %100, %101, %102, %103," \
+  "%104, %105, %106, %107, %108, %109, %110, %111," \
+  "%112, %113, %114, %115, %116, %117, %118, %119," \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
+#define HOPPER_OP8(c, d, i)                                           \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]),        \
+      c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define HOPPER_OP64(c, d)                                             \
+  HOPPER_OP8(c, d, 0), HOPPER_OP8(c, d, 8), HOPPER_OP8(c, d, 16),     \
+      HOPPER_OP8(c, d, 24), HOPPER_OP8(c, d, 32), HOPPER_OP8(c, d, 40), \
+      HOPPER_OP8(c, d, 48), HOPPER_OP8(c, d, 56)
+#define HOPPER_OP128(c, d)                                            \
+  HOPPER_OP64(c, d), HOPPER_OP8(c, d, 64), HOPPER_OP8(c, d, 72),      \
+      HOPPER_OP8(c, d, 80), HOPPER_OP8(c, d, 88), HOPPER_OP8(c, d, 96), \
+      HOPPER_OP8(c, d, 104), HOPPER_OP8(c, d, 112), HOPPER_OP8(c, d, 120)
+#define HOPPER_F "+f"
+#define HOPPER_R "+r"
+
+// d += A(64 x 16) . B(16 x 128 or 256), bf16 in, f32 accumulate; TA / TB:
+// A M-major / B N-major (transposed)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : HOPPER_OP64(HOPPER_F, d)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_REGS128
+      ", %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : HOPPER_OP128(HOPPER_F, d)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += A(64 x 32) . B(32 x 128), int8 in, int32 accumulate (wraps modulo
+// 2^32; no .satfinite)
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " HOPPER_REGS64
+      ", %64, %65, p;\n}\n"
+      : HOPPER_OP64(HOPPER_R, d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d = A(64 x 32) . B(32 x 128), e4m3 in, from zero (the caller adds d into
+// its f32 accumulator)
+__device__ __forceinline__ void wgmma_e4m3(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 " HOPPER_REGS64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : HOPPER_OP64(HOPPER_F, d)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// ---- host: tensor maps ----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A matrix operand as the rings take it: ``rows`` x ``cols`` elements of
+// ``elem`` bytes, stride 1 along cols, ``row_stride`` elements along rows,
+// ``batch`` matrices ``batch_stride`` elements apart.  Element strides.
+struct Operand {
+  const void* base;
+  long long cols, rows, row_stride, batch, batch_stride;
+};
+
+// Can TMA read the operand: a 16-byte aligned base, and every stride of an
+// axis longer than 1 a positive multiple of 16 bytes below 2^40.
+inline bool tma_ok(const Operand& o, int elem) {
+  const auto stride_ok = [&](long long extent, long long s) {
+    return extent == 1 || (s > 0 && (s * elem) % 16 == 0 &&
+                           s * elem < (1LL << 40));
+  };
+  return reinterpret_cast<uintptr_t>(o.base) % 16 == 0 && o.cols >= 1 &&
+         o.rows >= 1 && o.batch >= 1 && stride_ok(o.rows, o.row_stride) &&
+         stride_ok(o.batch, o.batch_stride);
+}
+
+// The 3-D map (cols, rows, batch) of ``o``, 128-byte swizzle, zero fill out
+// of bounds, boxes of box_cols x box_rows x 1.  The stride of an axis of
+// extent 1 is never used; it is set to one TMA takes.
+inline bool make_map(CUtensorMap* map, const Operand& o, int elem,
+                     CUtensorMapDataType type, int box_cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || !tma_ok(o, elem)) return false;
+  const auto up16 = [](long long bytes) { return (bytes + 15) / 16 * 16; };
+  const long long rs =
+      o.rows == 1 ? up16(o.cols * elem) : o.row_stride * elem;
+  const long long bs =
+      o.batch == 1 ? up16(rs * o.rows) : o.batch_stride * elem;
+  const cuuint64_t dims[3] = {(cuuint64_t)o.cols, (cuuint64_t)o.rows,
+                              (cuuint64_t)o.batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)rs, (cuuint64_t)bs};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(o.base), dims, strides, box,
+                estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

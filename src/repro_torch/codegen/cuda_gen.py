@@ -19,9 +19,13 @@ accumulator's type, as the reference's ``_contract`` sums it), the
 operands are passed as permuted views with their strides (a copy only where a group of indices cannot be
 flattened into one stride), and the (batch, m, n) result is permuted back
 to ``spec.output`` order.  Matmul, transposed, batched and tensor
-contractions all run on the same kernel.  A bf16 operand whose innermost
-folded axis is not unit-stride (the backward's transposed operands) is
-copied contiguous first, so the kernel takes its 16-byte load body.
+contractions all run on the same kernel.  A plain bf16 product at M >= 64
+whose operands TMA can read runs the ring body (``contract_body``: each
+operand with unit stride on one of its two axes, so the backward's
+transposed operands go as the views they are); on the other bf16 body
+(decode's M < 64, unaligned operands, the fused modes) an operand whose
+innermost folded axis is not unit-stride is copied contiguous first, so
+that body takes its 16-byte loads.
 
 Three-operand specs are classified by their index sets, not their names
 (``_classify``), into the kernel's extra modes, one launch each:
@@ -66,8 +70,9 @@ the first operand's.
 
 The plan still decides shapes (operand checks, the memo key), but not the
 kernel's grid: the reference tuner scores a TPU and often picks a single
-block, while the CUDA kernels tile the output into their own CTAs (64 x
-128 on the tensor cores, 128 x 64 on the FMA pipes for f32).
+block, while the CUDA kernels tile the output into their own CTAs (128 x
+128 or 128 x 256 on the ring, ``ring_tiles``; 64 x 128 on the mma.sync
+body; 128 x 64 on the FMA pipes for f32).
 
 Devices: on a CUDA tensor the call launches a kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
@@ -84,7 +89,7 @@ import ctypes
 import dataclasses
 import json
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -103,6 +108,7 @@ from .modes import (
     chain_tile_n,
     set_epilogue,
     set_vec,
+    tma_operand,
 )
 from .plan import KernelPlan, build_plan
 
@@ -236,8 +242,94 @@ class _Params(ctypes.Structure):
            ("sTn", ctypes.c_longlong), ("partial", ctypes.c_void_p),
            ("counter", ctypes.c_void_p), ("eps", ctypes.c_float),
            ("act", ctypes.c_int), ("in_dtype", ctypes.c_int),
-           ("out_dtype", ctypes.c_int)]
+           ("out_dtype", ctypes.c_int), ("body", ctypes.c_int),
+           ("tile_n", ctypes.c_int), ("splits", ctypes.c_int),
+           ("pad", ctypes.c_int)]
     )
+
+
+#: the ring body's CTA rows (checked against contract.cu's R_BM at load) and
+#: K step (R_BK; the kernel refuses a split that leaves a CTA no step)
+RING_BM, RING_BK = 128, 64
+#: an H100 SXM's streaming multiprocessors (the ring's grid is sized
+#: against the card's own count at launch)
+H100_SMS = 132
+
+
+def contract_body(a: torch.Tensor, b: torch.Tensor, *,
+                  plain: bool = True) -> str:
+    """Which body of ``contract.cu`` takes a (batch, M, K) @ b (batch, K,
+    N): ``"ring"`` (TMA and wgmma) for a ``plain`` product (no epilogue,
+    vector or row reduce) of two bf16 operands at M >= 64 whose layouts
+    TMA reads as they lie -- each operand with unit stride on one of its
+    two axes (A on k or m, B on k or n), every other stride of an axis
+    longer than 1 a positive multiple of 8 elements, 16-byte aligned
+    data; else ``"mma"`` (bf16, the mma.sync body: decode's M < 64,
+    unaligned or element-strided operands, the fused modes) or ``"fma"``
+    (f32).  A pure function of the tensors' dtypes, shapes, strides and
+    addresses; ``contract.cu``'s ``launch_ring`` checks the same rules
+    and refuses what fails them."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        return "fma" if a.dtype == torch.float32 else "mma"
+    _, m, k = a.shape
+    n = b.shape[2]
+    if not plain or m < 64 or k < 1 or n < 1:
+        return "mma"
+    a_ok = tma_operand(a, 2, 2) or tma_operand(a, 1, 2)
+    b_ok = tma_operand(b, 1, 2) or tma_operand(b, 2, 2)
+    return "ring" if a_ok and b_ok else "mma"
+
+
+class RingPlan(NamedTuple):
+    """The ring body's tile: ``tile_n`` columns (128 or 256) by 128 rows,
+    the K steps split across ``splits`` CTAs per output tile."""
+
+    tile_n: int
+    splits: int
+
+
+def ring_tiles(batch: int, m: int, n: int, k: int,
+               sms: int = H100_SMS) -> RingPlan:
+    """The ring's tile for a (batch, M, K) @ (batch, K, N) product on a card
+    of ``sms`` multiprocessors (one CTA each).  ``tile_n`` 256 where there
+    are at least ``sms`` such tiles and their waves cost less than those of
+    128-wide tiles, counting a 128-wide tile at 85 % of the wider one's
+    rate; else 128.  Where the output has fewer tiles than ``sms / 2``, the
+    K steps are split over up to 16 CTAs a tile (at least 4 steps each) so
+    the grid fills the card, evened out so no split is empty."""
+    nk = -(-k // RING_BK)
+    rows = batch * -(-m // RING_BM)
+
+    def tiles(bn):
+        return rows * -(-n // bn)
+
+    def waves(bn):
+        return -(-tiles(bn) // sms)
+
+    bn = 128
+    if n > 128 and tiles(256) >= sms and (
+        waves(256) * 256 * 0.85 < waves(128) * 128
+    ):
+        bn = 256
+    splits = 1
+    if tiles(bn) < sms // 2:
+        splits = max(1, min(sms // tiles(bn), nk // 4, 16,
+                            _MAX_GRID_YZ // batch))
+        per = -(-nk // splits)
+        splits = -(-nk // per)
+    return RingPlan(bn, splits)
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 class ContractLauncher:
@@ -245,10 +337,15 @@ class ContractLauncher:
 
     ``launches`` goes up by one for every kernel launch and for nothing
     else, so a run can show that its GEMMs went through the kernel.
+    ``last_body`` names the body of the latest launch (``"ring"``,
+    ``"mma"`` or ``"fma"``, ``contract_body``'s words) and ``last_plan``
+    its ``RingPlan`` (None off the ring).
     """
 
     def __init__(self):
         self.launches = 0
+        self.last_body = None
+        self.last_plan = None
         self._lib = None
         self._tiles = {}  # dtype code -> (CTA rows, CTA columns)
 
@@ -270,6 +367,12 @@ class ContractLauncher:
                     f"{lib.contract_params_size()} bytes, its ctypes mirror "
                     f"{ctypes.sizeof(_Params)}"
                 )
+            lib.contract_ring_tile_m.restype = ctypes.c_int
+            if lib.contract_ring_tile_m() != RING_BM:
+                raise RuntimeError(
+                    f"contract.cu's ring tile has "
+                    f"{lib.contract_ring_tile_m()} rows, RING_BM says "
+                    f"{RING_BM}")
             self._lib = lib
         return self._lib
 
@@ -278,13 +381,16 @@ class ContractLauncher:
                  mul: Optional[VecArg] = None,
                  epilogue: Optional[Epilogue] = None,
                  vectors: Optional[Dict[str, VecArg]] = None,
-                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 t: Optional[torch.Tensor] = None,
+                 body: Optional[str] = None) -> torch.Tensor:
         """a (batch, M, K) @ b (batch, K, N) -> new (batch, M, N) tensor.
 
         ``kscale`` scales A along k as it is staged; ``mul`` and the
         ``epilogue`` with its ``vectors`` act on the accumulator before the
         store.  With ``t`` (M, N) (batch 1) the result is instead the (N,)
-        vector ``sum_m (a @ b)[m, n] * t[m, n]``.
+        vector ``sum_m (a @ b)[m, n] * t[m, n]``.  ``body`` forces a body
+        (``"ring"`` or ``"mma"``); by default ``contract_body`` picks it.
+        The kernel refuses a forced ring it cannot take, and this raises.
         """
         if a.device.type != "cuda" or b.device != a.device:
             raise ValueError(
@@ -321,8 +427,16 @@ class ContractLauncher:
         if max(batch, m, n, k, *a.stride(), *b.stride()) >= 2**31:
             raise ValueError("contract kernel takes extents and strides "
                              "below 2**31")
+        plain = kscale is None and mul is None and t is None and (
+            epilogue is None or epilogue.is_identity)
+        if body is None:
+            body = contract_body(a, b, plain=plain)
+        elif body not in ("ring", "mma"):
+            raise ValueError(f"contract kernel body {body!r}: 'ring' or "
+                             f"'mma'")
         p = _Params(A=a.data_ptr(), B=b.data_ptr(), batch=batch, M=m, N=n,
-                    K=k, in_dtype=code, out_dtype=_KERNEL_DTYPES[out_dtype])
+                    K=k, in_dtype=code, out_dtype=_KERNEL_DTYPES[out_dtype],
+                    body=int(body == "ring"), tile_n=0, splits=1)
         p.sAb, p.sAm, p.sAk = a.stride()
         p.sBb, p.sBk, p.sBn = b.stride()
         extents = (batch, m, n, k)
@@ -362,14 +476,27 @@ class ContractLauncher:
             if c.numel() == 0:
                 return c
             p.sCb, p.sCm, p.sCn = c.stride()
+        plan = None
+        if body == "ring" and t is None:
+            plan = ring_tiles(batch, m, n, k, _sm_count(a.device))
+            p.tile_n, p.splits = plan
+            if plan.splits > 1:  # partial tiles, one counter per tile
+                tiles = batch * -(-m // RING_BM) * -(-n // plan.tile_n)
+                partial = torch.empty(tiles * plan.splits * RING_BM *
+                                      plan.tile_n, dtype=torch.float32,
+                                      device=a.device)
+                counter = torch.zeros(tiles, dtype=torch.int32,
+                                      device=a.device)
+                p.partial, p.counter = partial.data_ptr(), counter.data_ptr()
         p.C = c.data_ptr()
         rc = lib.contract_launch(
             ctypes.byref(p), torch.cuda.current_stream(a.device).cuda_stream
         )
         if rc != 0:
-            raise RuntimeError(f"contract kernel launch failed: "
-                               f"cudaGetLastError() = {rc}")
+            raise RuntimeError(f"contract kernel launch failed ({body} "
+                               f"body): cudaGetLastError() = {rc}")
         self.launches += 1
+        self.last_body, self.last_plan = body, plan
         return c
 
 
@@ -567,6 +694,13 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
     batch, m, n, k = _fold(ia, ib, target)
+    if fold.kind == "gemm" and batch + m + n != list(target) and (
+        batch + n + m == list(target)
+    ):
+        # the product the other way round lands in the output's order: no
+        # transposing copy of the result (matmul.dB: A = x^T, B = dout)
+        a, b, ia, ib = b, a, ib, ia
+        batch, m, n, k = _fold(ia, ib, target)
     size = lambda idx: math.prod(ext[i] for i in idx)  # noqa: E731
     a3 = a.permute([ia.index(i) for i in batch + m + k]).reshape(
         size(batch), size(m), size(k)
@@ -574,10 +708,12 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
     b3 = b.permute([ib.index(i) for i in batch + k + n]).reshape(
         size(batch), size(k), size(n)
     )
-    if plain and a3.dtype == torch.bfloat16:
-        # the bf16 body loads 16 bytes at a time only where A is k-major
-        # and B n-major; a transposed operand (the backward's W of
-        # matmul.dA, x of matmul.dB) is copied so once instead of loaded
+    if plain and a3.dtype == torch.bfloat16 and contract_body(
+        a3, b3, plain=fold.kind == "gemm" and (
+            epilogue is None or epilogue.is_identity)) != "ring":
+        # the ring reads every layout as it lies; the mma.sync body loads
+        # 16 bytes at a time only where A is k-major and B n-major, so
+        # there a transposed operand is copied so once instead of loaded
         # element by element
         if a3.stride(2) != 1:
             a3 = a3.contiguous()

@@ -8,7 +8,9 @@ per mode, each with its own ``launches`` count, which goes up by one for
 every kernel launch and for nothing else:
 
     CONTRACT_INT8    two int8 operands on the tensor cores (int32 sums)
-    CONTRACT_FP8     two fp8 e4m3 operands on the tensor cores (f32 sums)
+    CONTRACT_FP8     two fp8 e4m3 operands on the tensor cores (f32 sums);
+                     both on the TMA / wgmma ring where ``q8_body`` says
+                     so, else on the mma.sync body
     CONTRACT_UPCAST  operands of any type the kernel names, upcast on the
                      CUDA cores (int32 or f32 sums), with contract.cu's
                      k-scale, multiplier and row-reduce modes
@@ -60,7 +62,7 @@ class _Q8Params(ctypes.Structure):
         + [("partial", ctypes.c_void_p), ("counter", ctypes.c_void_p),
            ("eps", ctypes.c_float), ("act", ctypes.c_int)]
         + [(f, ctypes.c_int) for f in ("a_dtype", "b_dtype", "t_dtype",
-                                       "out_dtype", "acc_int", "pad")]
+                                       "out_dtype", "acc_int", "body")]
     )
 
 
@@ -86,6 +88,53 @@ class VecArg(NamedTuple):
     tensor: torch.Tensor
     axis: int
     div: int = 1
+
+
+def tma_operand(x: torch.Tensor, unit: int, elem: int) -> bool:
+    """Can TMA read the (batch, rows, cols) operand ``x`` of ``elem``-byte
+    elements with axis ``unit`` (1 rows, 2 cols) as its contiguous one:
+    unit stride there (or extent 1), every other stride of an axis longer
+    than 1 a positive multiple of 16 bytes, and 16-byte aligned data
+    (``hopper.cuh``'s ``tma_ok``; the rings of ``contract.cu`` and
+    ``contract_q8.cu`` refuse what fails it)."""
+    other = 3 - unit
+    ok = lambda ext, st: ext == 1 or (  # noqa: E731
+        st > 0 and st * elem % 16 == 0)
+    return ((x.stride(unit) == 1 or x.shape[unit] == 1)
+            and ok(x.shape[other], x.stride(other))
+            and ok(x.shape[0], x.stride(0)) and x.data_ptr() % 16 == 0)
+
+
+#: the shortest K an fp8 product takes the ring at.  The ring's e4m3
+#: wgmma sums each k32 step with fewer bits than f32 (mma.sync keeps
+#: f32's), so its error against the exact product, scaled by max |ref| as
+#: the f32 TOL (1e-4) scales it, reaches 1.1e-4 to 1.35e-4 at K <= 64,
+#: 7.8e-5 to 8.5e-5 at K = 128..320, and 6.4e-5 or less from K = 384 up
+#: to 12288 (an H100, ``scripts/fp8_ring_error.py``; PERF.md).  int8 is
+#: exact at any K.
+FP8_RING_MIN_K = 384
+
+
+def q8_body(a: torch.Tensor, b: torch.Tensor) -> str:
+    """Which body of ``contract_q8.cu`` takes the tensor-core product of two
+    int8 or two fp8 operands a (batch, M, K) @ b (batch, K, N): ``"ring"``
+    (TMA and wgmma, which takes only K-major operands) at M >= 64 with A
+    and B both k-contiguous as TMA reads them (``tma_operand``: B as
+    ``ops.dense(quant=)`` writes its W, ``quantize_channels_kmajor``), and
+    for fp8 at K >= ``FP8_RING_MIN_K``; else ``"mma"`` (the n-major B of
+    the ragged case, the transposed fold, unaligned operands, decode's
+    M < 64, a short fp8 K).  The ring's launch checks the layout rules
+    and refuses what fails them."""
+    _, m, k = a.shape
+    n = b.shape[2]
+    if a.dtype != b.dtype or a.dtype not in (torch.int8,
+                                             torch.float8_e4m3fn):
+        return "mma"
+    min_k = FP8_RING_MIN_K if a.dtype == torch.float8_e4m3fn else 1
+    if m < 64 or k < min_k or n < 1:
+        return "mma"
+    return ("ring" if tma_operand(a, 2, 1) and tma_operand(b, 1, 1)
+            else "mma")
 
 
 def _load(source: str, params, entries):
@@ -160,13 +209,15 @@ def _launch(lib, entry: str, p, device):
 
 class Contract8Launcher:
     """``contract_q8.cu``: ``entry`` ``"q8_launch"`` (two operands of
-    ``dtype``, int8 or fp8, on the tensor cores) or ``"upcast_launch"``
-    (any operand types, CUDA cores)."""
+    ``dtype``, int8 or fp8, on the tensor cores: the ring or the mma.sync
+    body, ``q8_body``) or ``"upcast_launch"`` (any operand types, CUDA
+    cores).  ``last_body`` names the body of the latest launch."""
 
     def __init__(self, entry: str, dtype: Optional[torch.dtype] = None):
         self.entry = entry
         self.dtype = dtype
         self.launches = 0
+        self.last_body = None
         self._lib = None
 
     def _fn(self):
@@ -185,13 +236,17 @@ class Contract8Launcher:
                  mul: Optional[VecArg] = None,
                  epilogue: Optional[Epilogue] = None,
                  vectors: Optional[Dict[str, VecArg]] = None,
-                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 t: Optional[torch.Tensor] = None,
+                 body: Optional[str] = None) -> torch.Tensor:
         """a (batch, M, K) @ b (batch, K, N) -> new (batch, M, N) tensor,
         accumulated in int32 (``int_acc``) or f32.  ``kscale`` scales A
         along k as it is staged, ``mul`` multiplies the accumulator (both
         in the accumulator's type); the ``epilogue`` runs on it in f32.
         With ``t`` (M, N) (batch 1) the result is the (N,) vector
-        ``sum_m (a @ b)[m, n] * t[m, n]``."""
+        ``sum_m (a @ b)[m, n] * t[m, n]``.  ``body`` forces the
+        tensor-core mode's body (``"ring"`` or ``"mma"``; ``q8_body`` by
+        default); the kernel refuses a forced ring it cannot take, and
+        this raises."""
         tc = self.entry == "q8_launch"
         if a.device.type != "cuda" or b.device != a.device:
             raise ValueError(f"the 8-bit kernels take CUDA tensors on one "
@@ -215,6 +270,9 @@ class Contract8Launcher:
         if tc and (kscale is not None or mul is not None or t is not None):
             raise ValueError("the tensor-core mode takes no k-scale, "
                              "multiplier or row reduce")
+        if body is not None and (not tc or body not in ("ring", "mma")):
+            raise ValueError(f"body {body!r}: the tensor-core mode's 'ring' "
+                             f"or 'mma'")
         if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or (
             a.shape[2] != b.shape[1]
         ):
@@ -230,9 +288,12 @@ class Contract8Launcher:
         if batch > _MAX_GRID_YZ or -(-m // tile_m) > _MAX_GRID_YZ:
             raise ValueError(f"grid too large for batch {batch}, M {m}")
         acc_dtype = torch.int32 if int_acc else torch.float32
+        if tc and body is None:
+            body = q8_body(a, b)
         p = _Q8Params(A=a.data_ptr(), B=b.data_ptr(), batch=batch, M=m, N=n,
                       K=k, a_dtype=codes[0], b_dtype=codes[1],
-                      out_dtype=OUT_CODES[out_dtype], acc_int=int(int_acc))
+                      out_dtype=OUT_CODES[out_dtype], acc_int=int(int_acc),
+                      body=int(body == "ring"))
         p.sAb, p.sAm, p.sAk = a.stride()
         p.sBb, p.sBk, p.sBn = b.stride()
         extents = (batch, m, n, k)
@@ -273,6 +334,7 @@ class Contract8Launcher:
         p.C = c.data_ptr()
         _launch(lib, self.entry, p, a.device)
         self.launches += 1
+        self.last_body = body if tc else "upcast"
         return c
 
 

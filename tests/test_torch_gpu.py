@@ -9,7 +9,10 @@ and B7 (``codegen/csrc/baselines.cu``), and autograd through them
 (``ops.chain_dense``'s 1 + 3 launches; ``ops.dense(quant=)``'s one launch
 and its refused gradient; ``ops.dense`` at any shape), and the
 flash-attention kernel (``codegen/csrc/attention.cu``, B2) with
-``ops.attention``'s 1 + 3 launches, with and without ``kv_lengths``.
+``ops.attention``'s 1 + 3 launches, with and without ``kv_lengths``, and
+B1's ring bodies (TMA and wgmma: the bf16 ring in its four operand
+layouts, batched and split, the 8-bit ring, two launches equal bit for
+bit, a forced ring refused where it cannot read the layout).
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided inside the ``cuda_device`` fixture).  The file imports torch and
@@ -33,7 +36,7 @@ import torch
 
 import repro_torch.core.enumerate as PE
 from repro_torch import codegen, ops
-from repro_torch.codegen import cuda_gen, fused_gen
+from repro_torch.codegen import cuda_gen, fused_gen, modes
 
 TOL = {  # the reference's tests/test_differential.py tolerances
     torch.float32: (1e-4, 1e-4),
@@ -1205,3 +1208,151 @@ def test_attention_with_lengths_backward_launches(cuda_device, causal,
         _assert_rows_close(a.detach().cpu(), b.detach(), dtype)
     for x in leaves:
         assert bool((x.grad[1] == 0).all())
+
+
+# --------------------------------------------------------------------------
+# B1's ring bodies (TMA and wgmma): contract.cu's bf16 ring and
+# contract_q8.cu's 8-bit ring
+# --------------------------------------------------------------------------
+
+
+def _bf16_view(rows, cols, gen, device, transposed):
+    """A (rows, cols) bf16 operand whose rows are padded to a multiple of 8
+    plus 8 elements; ``transposed``: stored (cols, rows), the view its
+    transpose (unit stride along rows)."""
+    pad = lambda v: (v + 7) // 8 * 8 + 8  # noqa: E731
+    if transposed:
+        return torch.randn(cols, pad(rows), generator=gen, device=device
+                           ).bfloat16()[:, :rows].t()
+    return torch.randn(rows, pad(cols), generator=gen, device=device
+                       ).bfloat16()[:, :cols]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b_kmajor", [False, True], ids=["B_nmajor",
+                                                         "B_kmajor"])
+@pytest.mark.parametrize("a_mmajor", [False, True], ids=["A_kmajor",
+                                                         "A_mmajor"])
+@pytest.mark.parametrize("m,k,n", [(200, 1000, 264), (130, 776, 520),
+                                   (2048, 256, 1000)])
+def test_ring_body_every_layout(cuda_device, m, k, n, a_mmajor, b_kmajor,
+                                out_dtype):
+    """The bf16 ring in each of its four operand layouts, M, N and K off
+    every tile multiple (K long enough to wrap the 6- or 4-stage ring
+    several times, the last shape on 256-column tiles), bf16 and f32
+    output, against the f32 product of the same operands."""
+    gen = torch.Generator(device=cuda_device).manual_seed(60)
+    a = _bf16_view(m, k, gen, cuda_device, a_mmajor)
+    b = _bf16_view(k, n, gen, cuda_device, b_kmajor)
+    got = cuda_gen.CONTRACT(a[None], b[None], out_dtype)[0]
+    assert cuda_gen.CONTRACT.last_body == "ring"
+    want = a.float() @ b.float()
+    _assert_close_scaled(got, want, out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_ring_body_batched_strides_and_split(cuda_device, out_dtype):
+    """A batch of 3 taken from a larger tensor (batch stride of its own),
+    B k-major; and the split K of a few-tile shape (M = 128, N = 1024, 16
+    CTAs a tile summed by the last to arrive), twice with equal bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(61)
+    big = torch.randn(5, 256, 392, generator=gen, device=cuda_device
+                      ).bfloat16()
+    a = big[1:4, :, :384]
+    bt = torch.randn(3, 320, 384, generator=gen, device=cuda_device
+                     ).bfloat16()
+    got = cuda_gen.CONTRACT(a, bt.transpose(1, 2), out_dtype)
+    assert cuda_gen.CONTRACT.last_body == "ring"
+    _assert_close_scaled(got, torch.bmm(a.float(), bt.float().transpose(1, 2)),
+                         out_dtype)
+    a = torch.randn(1, 128, 4096, generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn(1, 4096, 1024, generator=gen, device=cuda_device
+                    ).bfloat16()
+    first = cuda_gen.CONTRACT(a, b, out_dtype)
+    assert cuda_gen.CONTRACT.last_plan.splits == 16
+    again = cuda_gen.CONTRACT(a, b, out_dtype)
+    assert torch.equal(first, again)
+    _assert_close_scaled(first, torch.bmm(a.float(), b.float()), out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("m,k,n", [(256, 512, 384), (200, 12288, 136),
+                                   (2048, 1024, 4096)])
+def test_8bit_ring_matches_plain_version(cuda_device, m, k, n, fmt):
+    """The 8-bit ring, W k-major as ``ops.dense(quant=)`` writes it: int8
+    exactly, fp8 within the f32 TOL (scaled), K = 12288 included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(62)
+    a = _q_operand((m, k), fmt, gen, cuda_device)
+    wt = _q_operand((n, k), fmt, gen, cuda_device)
+    spec = PE.quantize_spec(PE.matmul_spec(m, k, n), fmt=fmt)
+    out_dtype = torch.int32 if fmt == "int8" else torch.float32
+    got = _launcher_of(fmt)(a[None], wt.t()[None], out_dtype,
+                            int_acc=fmt == "int8")[0]
+    assert _launcher_of(fmt).last_body == "ring"
+    want = cuda_gen.contract_ref(spec, a, wt.t(), out_dtype=out_dtype)
+    _assert_quant_close(got, want, fmt)
+
+
+@pytest.mark.gpu
+def test_rings_give_equal_bits_twice(cuda_device):
+    """Two launches of each ring on the same inputs give the same bits: a
+    train shape (M = 2048, K = N = 4096, bf16) and an 8-bit MLP product
+    (M = 2048, K = 4096, N = 12288) in int8 and fp8."""
+    gen = torch.Generator(device=cuda_device).manual_seed(63)
+    a = torch.randn(1, 2048, 4096, generator=gen, device=cuda_device
+                    ).bfloat16()
+    b = torch.randn(1, 4096, 4096, generator=gen, device=cuda_device
+                    ).bfloat16()
+    first = cuda_gen.CONTRACT(a, b, torch.bfloat16)
+    assert cuda_gen.CONTRACT.last_body == "ring"
+    assert torch.equal(first, cuda_gen.CONTRACT(a, b, torch.bfloat16))
+    for fmt in ("int8", "fp8"):
+        a = _q_operand((2048, 4096), fmt, gen, cuda_device)
+        wt = _q_operand((12288, 4096), fmt, gen, cuda_device)
+        out_dtype = torch.int32 if fmt == "int8" else torch.float32
+        run = lambda: _launcher_of(fmt)(  # noqa: E731
+            a[None], wt.t()[None], out_dtype, int_acc=fmt == "int8")
+        first = run()
+        assert _launcher_of(fmt).last_body == "ring"
+        assert torch.equal(first, run())
+
+
+@pytest.mark.gpu
+def test_forced_ring_refuses_what_it_cannot_take(cuda_device):
+    """A ring forced on a layout TMA cannot read (rows of 130 bf16 or 999
+    bytes, an n-major 8-bit B, M < 64) or on a fused mode is refused by the
+    kernel's launch and the wrapper raises; nothing switches body."""
+    gen = torch.Generator(device=cuda_device).manual_seed(64)
+    a = torch.randn(1, 128, 130, generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn(1, 130, 64, generator=gen, device=cuda_device).bfloat16()
+    before = cuda_gen.CONTRACT.launches
+    with pytest.raises(RuntimeError, match="ring body"):
+        cuda_gen.CONTRACT(a, b, torch.bfloat16, body="ring")
+    a = torch.randn(1, 32, 64, generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn(1, 64, 64, generator=gen, device=cuda_device).bfloat16()
+    with pytest.raises(RuntimeError, match="ring body"):
+        cuda_gen.CONTRACT(a, b, torch.bfloat16, body="ring")
+    a = torch.randn(1, 128, 64, generator=gen, device=cuda_device).bfloat16()
+    with pytest.raises(RuntimeError, match="ring body"):
+        cuda_gen.CONTRACT(a, b, torch.bfloat16, body="ring",
+                          mul=modes.VecArg(torch.ones(64, device=cuda_device),
+                                           2))
+    assert cuda_gen.CONTRACT.launches == before
+    for fmt in ("int8", "fp8"):
+        launcher = _launcher_of(fmt)
+        out_dtype = torch.int32 if fmt == "int8" else torch.float32
+        before = launcher.launches
+        a = _q_operand((128, 256), fmt, gen, cuda_device)
+        with pytest.raises(RuntimeError, match="q8_launch"):
+            launcher(a[None], _q_operand((256, 128), fmt, gen,
+                                         cuda_device)[None],
+                     out_dtype, int_acc=fmt == "int8", body="ring")
+        a = _q_operand((128, 999), fmt, gen, cuda_device)
+        with pytest.raises(RuntimeError, match="q8_launch"):
+            launcher(a[None], _q_operand((128, 999), fmt, gen,
+                                         cuda_device).t()[None],
+                     out_dtype, int_acc=fmt == "int8", body="ring")
+        assert launcher.launches == before
