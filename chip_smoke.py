@@ -29,9 +29,12 @@ raises and the script exits non-zero without the final result line:
    yardstick, used nowhere in the port), beside its bound on an H100 SXM:
    max(operations / peak rate, bytes / 3.35 TB/s), bf16 at 989 TFLOP/s,
    f32 at 67 TFLOP/s; each row names the body that ran (``ring`` with its
-   tile and K split, ``mma``, ``fma``) and the kernel's device ms on the
-   profiler beside the event-timed ms, which include the host's path to
-   the launch;
+   tile and K split, ``narrow`` with its token width and K split, ``mma``,
+   ``fma``) and the kernel's device ms on the profiler beside the
+   event-timed ms, which include the host's path to the launch; the M = 4
+   rows must run the narrow body, one launch and no other device work
+   each (no counter fill, no copy), and so must a decode layer's 7 GEMMs
+   through ``ops.dense``; per-layer sums at M = 4, 128 and 512;
 4. b1-train — B1 at one qwen3-8b layer's training GEMMs at M = 2048 (4 x
    512 tokens): each forward product and its derived backward specs
    ``matmul.dA`` and ``matmul.dB`` as the backward launches them, timed
@@ -61,7 +64,9 @@ raises and the script exits non-zero without the final result line:
    bf16/f32), then ``weighted_matmul`` and its derived ``.dA``, ``.dB``
    and ``.dg`` in bf16 (``.dg`` twice: the same bits), timed as phase 3
    with ``torch.matmul`` plus the same tail in eager PyTorch as the
-   library yardstick;
+   library yardstick; every bf16 row must run the fused ring alone (one
+   launch, no copy, cast or fill kernel), each with its body and device
+   ms;
 6c. baselines — B5, B6 (gelu) and B7 against ``matmul_ref``,
    ``fused_dense_act_ref``, ``weighted_matmul_ref`` at that shape in bf16
    and at one ragged f32 shape, B7 also with g = 0 (exact zeros); library
@@ -170,8 +175,9 @@ raises and the script exits non-zero without the final result line:
 14. profile — outside the counted run, request 0's prefill again (finite
     logits that give the engine's first token) and one batch-1 decode step,
     each on the host clock and then under ``torch.profiler``: device busy
-    time and device time by kernel; the traces land in
-    ``$CHIP_SMOKE_OUT/profile_{prefill,decode}.json``;
+    time and device time by kernel, fills (of ints: B1's counters) and
+    copies; the decode step must launch B1 7 x 36 times and fill no ints;
+    the traces land in ``$CHIP_SMOKE_OUT/profile_{prefill,decode}.json``;
 15. MoE serve — the MoE path: ``serve.run`` on kimi-k2-1t-a32b at full width
     (d_model 7168, 64 heads of 112, 384 experts top-8, expert_ff 2048, a
     shared expert, dense_ff 18432, vocab 163840, bf16) cut to 2 layers (one
@@ -307,8 +313,9 @@ def _kernel_ms(run, flush, kernel, reps=5):
     """(device ms a ``run()`` spends in the port's ``kernel`` (a
     ``_kernel_of`` name), the other device kernels it launched): ``reps``
     calls under ``torch.profiler`` after one warm-up, L2 flushed before
-    each.  The flush's fill and the ring's zeroed split counters are not
-    counted as others.  ``_timed``'s ms include the host's path to the
+    each.  The flush's fill (of bytes) is not counted as another; B1's
+    split counters are zeroed once, when their pool grows, so a fill of
+    ints in a traced call is one.  ``_timed``'s ms include the host's path to the
     launch (about 0.15 ms through ``ops``), which hides a short kernel;
     this is the kernel alone.  A trace that holds fewer of the kernel's
     launches than calls, or not a whole number a call, lost events: it is
@@ -336,8 +343,41 @@ def _kernel_ms(run, flush, kernel, reps=5):
               f"calls three times; device ms not measured", flush=True)
         return float("nan"), []
     others = sorted(k for k in by_name if _kernel_of(k) != kernel
-                    and "FillFunctor" not in k and not k.startswith("Memset"))
+                    and "FillFunctor<unsigned char>" not in k
+                    and not k.startswith("Memset"))
     return sum(v[0] for v in mine) / reps, others
+
+
+def _device_kernels(run, reps=3):
+    """{device kernel name: launches} of ``reps`` calls of ``run()`` under
+    ``torch.profiler``, after one warm-up, with nothing else traced (no
+    flush): what a call launches on the card, fills and copies included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT, "profile_case.json")
+    prof.export_chrome_trace(path)
+    _, _, by_name = _device_time(path)
+    return {k: v[1] for k, v in by_name.items()}
+
+
+def _alone(run, kernel, launches, what, reps=3):
+    """Raise unless ``reps`` calls of ``run()`` launch ``kernel`` (a
+    ``_kernel_of`` name) ``launches`` times each and no other device
+    kernel, fill, copy or memset."""
+    seen = _device_kernels(run, reps)
+    mine = sum(n for k, n in seen.items() if _kernel_of(k) == kernel)
+    others = sorted(k for k in seen if _kernel_of(k) != kernel)
+    if mine != launches * reps or others:
+        raise AssertionError(
+            f"{what}: {mine} {kernel} launches over {reps} calls (expected "
+            f"{launches * reps}), other device work {others}")
 
 
 def _body(launcher):
@@ -479,6 +519,14 @@ def phase_kernel():
         nbytes = (m * k + k * n + m * n) * a.element_size()
         ops_ms = ops / PEAK_OPS[dt_name] * 1e3
         bytes_ms = nbytes / PEAK_BYTES * 1e3
+        if m < 64 and dt_name == "bfloat16":
+            # decode: the narrow body, one launch and nothing else (no
+            # counter fill, no operand copy)
+            if CONTRACT.last_body != "narrow":
+                raise AssertionError(f"kernel M={m} K={k} N={n}: body "
+                                     f"{body}, expected the narrow body")
+            _alone(lambda: CONTRACT(a[None], b[None], dt), "contract", 1,
+                   f"kernel M={m} K={k} N={n}")
         row = dict(M=m, K=k, N=n, dtype=dt_name, body=body,
                    max_abs_err=max_abs, scaled_err=scaled_err,
                    ms=ms, device_ms=device_ms, plain_ms=plain_ms,
@@ -493,7 +541,40 @@ def phase_kernel():
               f"(plain {plain_ms:.4f}, torch.matmul {library_ms:.4f}, bound "
               f"{row['bound_ms']:.4f} by {row['bound_by']}), "
               f"{row['tflops']:.1f} TFLOP/s", flush=True)
+    for m in (4, 128, 512):
+        part = [(r, LAYER_GEMMS[(r["K"], r["N"])]) for r in rows
+                if r["M"] == m and r["dtype"] == "bfloat16"]
+        tot = {key: sum(r[key] * c for r, c in part)
+               for key in ("ms", "device_ms", "library_ms", "bound_ms")}
+        print(f"[kernel] per layer at M={m} (7 GEMMs, "
+              f"{part[0][0]['body'].split()[0]}): {tot['ms']:.4f} ms, device "
+              f"{tot['device_ms']:.4f} (torch.matmul {tot['library_ms']:.4f}, "
+              f"bound {tot['bound_ms']:.4f}; "
+              f"{nbytes_per_layer(m) / tot['device_ms'] / 1e9:.3f} TB/s on "
+              f"the device)", flush=True)
+    # one decode layer's 7 GEMMs through ops.dense, as the serve path calls
+    # them: 7 launches and no other device work
+    from repro_torch import ops
+
+    xs = torch.randn(4, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    ws = [torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+          for (k, n), c in LAYER_GEMMS.items() for _ in range(c)]
+    hs = {4096: xs, 12288: torch.randn(4, 12288, generator=gen,
+                                       device=dev).to(torch.bfloat16)}
+
+    def layer():
+        for w in ws:
+            ops.dense(hs[w.shape[0]], w)
+
+    _alone(layer, "contract", len(ws), "ops.dense at a decode layer's GEMMs")
     return rows
+
+
+def nbytes_per_layer(m):
+    """Bytes of a qwen3-8b layer's 7 bf16 GEMMs at M tokens: each input
+    read once, each output written once."""
+    return sum(c * 2 * (m * k + k * n + m * n)
+               for (k, n), c in LAYER_GEMMS.items())
 
 
 def phase_grouped():
@@ -815,11 +896,27 @@ def _case_row(tag, what, got, want, dt_name, run, plain, library, ops,
                bytes_ms=bytes_ms, bound_by=by, tflops=ops / ms / 1e9,
                **extra)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-    print(f"[{tag}] {what} {dt_name}: scaled err {scaled_err:.3g}, "
+    on = (f" ({extra['body']}, device {extra['device_ms']:.4f})"
+          if "device_ms" in extra else "")
+    print(f"[{tag}] {what} {dt_name}{on}: scaled err {scaled_err:.3g}, "
           f"{ms:.4f} ms (plain {plain_ms:.4f}, library {lib}, bound "
           f"{bound_ms:.4f} by {by}), {row['tflops']:.1f} TFLOP/s",
           flush=True)
     return row
+
+
+def _mode_body(launcher, dt_name, run, what):
+    """The body of ``launcher``'s latest launch (a b1-modes call); a bf16
+    call must have run the fused ring and launch nothing else on the
+    device (no copy of an operand or of the result, no cast of g, no
+    counter fill)."""
+    body = _body(launcher)
+    if dt_name == "bfloat16":
+        if launcher.last_body != "ring":
+            raise AssertionError(f"b1-modes {what}: body {body}, expected "
+                                 f"the fused ring")
+        _alone(run, "contract", 1, f"b1-modes {what}")
+    return body
 
 
 def _matmul_then_tail(a, b, epi, vectors):
@@ -842,7 +939,7 @@ def phase_b1_modes():
     import torch
 
     from repro_torch import codegen, ops
-    from repro_torch.codegen import contract_ref
+    from repro_torch.codegen import CONTRACT, contract_ref
     from repro_torch.core.enumerate import matmul_spec, weighted_matmul_spec
     from repro_torch.grad import derived_specs
 
@@ -867,6 +964,10 @@ def phase_b1_modes():
                 vs = {k: vec[k] for k in epi.vector_names}
                 kern = ops._tuned_kernel(spec, dt, epilogue=epi)
                 got = kern(x, w, **vs)
+                body = _mode_body(CONTRACT, dt_name, lambda: kern(x, w, **vs),
+                                  f"epilogue {act}")
+                device_ms, _ = _kernel_ms(lambda: kern(x, w, **vs), flush,
+                                          "contract")
                 want = contract_ref(spec, x, w, out_dtype=dt, epilogue=epi,
                                     vectors=vs)
                 lib = (lambda: _matmul_then_tail(x, w, epi,  # noqa: E731
@@ -880,7 +981,7 @@ def phase_b1_modes():
                     lambda: contract_ref(spec, x, w, out_dtype=dt,
                                          epilogue=epi, vectors=vs),
                     lib, 2.0 * m * d * f, nbytes, flush, mode="epilogue",
-                    act=act, norm=norm))
+                    act=act, norm=norm, body=body, device_ms=device_ms))
                 del got, want
         del x, w
     dt, dt_name = torch.bfloat16, "bfloat16"
@@ -903,6 +1004,8 @@ def phase_b1_modes():
     for what, sp, args, lib in cases:
         kern = ops._tuned_kernel(sp, dt)
         got = kern(*args)
+        body = _mode_body(CONTRACT, dt_name, lambda: kern(*args), what)
+        device_ms, _ = _kernel_ms(lambda: kern(*args), flush, "contract")
         want = contract_ref(sp, *args, out_dtype=dt)
         out_elems = want.numel()
         nbytes = (sum(a.numel() for a in args) + out_elems) * 2
@@ -910,7 +1013,8 @@ def phase_b1_modes():
             "b1-modes", f"{what} M={m} D={d} F={f}", got, want, dt_name,
             lambda: kern(*args),
             lambda: contract_ref(sp, *args, out_dtype=dt), lib,
-            2.0 * m * d * f, nbytes, flush, mode="weighted", spec=what))
+            2.0 * m * d * f, nbytes, flush, mode="weighted", spec=what,
+            body=body, device_ms=device_ms))
         if what.endswith(".dg"):
             again = kern(*args)
             if not torch.equal(again, got):
@@ -1633,7 +1737,8 @@ def _kernel_of(name):
         return "contract_upcast" if word.startswith("up") else (
             "contract_chain")
     hit = re.search(r"\b(grouped_dw|grouped|contract|baseline)_"
-                    r"(bf16_ring|bf16_mma|bf16|f32)(_fused)?_kernel", name)
+                    r"(bf16_ring|bf16_narrow|bf16_mma|bf16|f32)(_fused)?_kernel",
+                    name)
     return hit.group(1) if hit else None
 
 
@@ -1971,6 +2076,22 @@ def phase_profile(engine, first, tag=""):
                 hits = [v for k, v in by_name.items() if f"{kernel}_" in k]
                 row[f"{kernel}_ms"] = sum(v[0] for v in hits)
                 row[f"{kernel}_launches"] = sum(v[1] for v in hits)
+            # B1's split counters used to be zeroed (an int fill) before
+            # every split GEMM; the pool zeroes them once
+            row["int_fills"] = sum(v[1] for k, v in by_name.items()
+                                   if "FillFunctor<int>" in k)
+            row["fills"] = sum(v[1] for k, v in by_name.items()
+                               if "FillFunctor" in k or k.startswith("Memset"))
+            row["copies"] = sum(v[1] for k, v in by_name.items()
+                                if _category(k) == "copy")
+            if by_name and name == "decode" and not tag and (
+                row["contract_launches"] != 7 * cfg.n_layers
+                or row["int_fills"]
+            ):
+                raise AssertionError(
+                    f"profiled decode step: {row['contract_launches']} "
+                    f"contract launches (expected 7 x {cfg.n_layers}), "
+                    f"{row['int_fills']} int fills (expected 0)")
             out[name] = row
             busy_txt = (f"device busy {busy:.3f} ms over {events} device "
                         f"events under the profiler"
@@ -1985,7 +2106,9 @@ def phase_profile(engine, first, tag=""):
                 f"device busy)" for kernel in KERNELS
             )
             print(f"[{tag}profile] {name} ({what}, batch 1): wall "
-                  f"{wall:.3f} ms, {busy_txt}; {kernels}", flush=True)
+                  f"{wall:.3f} ms, {busy_txt}; {kernels}; {row['fills']} "
+                  f"fills ({row['int_fills']} of ints), {row['copies']} "
+                  f"copies", flush=True)
             for k, (ms, n) in top:
                 print(f"[{tag}profile]   {ms:9.3f} ms {n:6d}x {k[:100]}",
                       flush=True)

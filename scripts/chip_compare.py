@@ -2,7 +2,8 @@
 """One tree against another, in turns on one card.
 
     python3 scripts/chip_compare.py \
-        [--serve | --kernels | --moe-serve | --quant] OLD_CHECKOUT NEW_CHECKOUT
+        [--serve | --kernels | --moe-serve | --quant | --modes] \
+        OLD_CHECKOUT NEW_CHECKOUT
 
 Runs, in a fresh process per turn and in the order old, new, new, old,
 phases of each checkout's own ``chip_smoke.py``, after building the
@@ -13,14 +14,21 @@ steps); each turn prints one line ``COMPARE {...}``: the tree, B1's time
 per serve layer (the 7 GEMMs at M = 512), per decode layer (M = 4), per
 train layer (the 7 forward and 14 backward GEMMs at M = 2048), each also
 as profiler device ms where the tree's smoke records it, the decode
-layer's mma.sync device ms timed first by the turn itself, and the steady
-train step.  With
+layer's device ms (B1's kernels, whatever body) timed first by the turn
+itself, and the steady train step.  With
 ``--serve``: ``serve`` (qwen3-8b at full width and depth, the smoke's
 serving flags) and ``profile`` (request 0's prefill and one batch-1 decode
 step on the host clock and under ``torch.profiler``); each turn prints the
 tree, decode tok/s, prefill ms, p50, B1's launches over the serving run,
-and the profiled decode step's wall ms, device busy ms and B1 launches and
-ms.  With ``--kernels``: ``grouped`` (B3 at every case of the phase) and
+the profiled decode step's wall ms, device busy ms and B1 launches and
+ms, and the host ms an ``ops.dense`` call takes at a decode layer's GEMMs
+(4 tokens; 20 layers' calls enqueued back to back, the host clock over
+them divided by the calls: the card is idle while the host enqueues).
+With ``--modes``: B1's fused modes at the fused path's shape (M = 2048, D
+= 4096, F = 12288, bf16), each epilogue variant and the weighted family
+(``weighted_matmul``, ``.dA``, ``.dB``, ``.dg``), built as ``b1-modes``
+builds them; each turn prints the tree and every case's profiler device
+ms, B1's kernels whatever body.  With ``--kernels``: ``grouped`` (B3 at every case of the phase) and
 ``chain`` (``ops.chain_dense`` and the chain kernel at each spec of
 CHAIN_SHAPE, f32 and bf16), plus the int8 and fp8 chain at CHAIN_SHAPE
 through ``codegen.compile``; each turn prints the tree, every case's
@@ -89,14 +97,14 @@ from repro_torch.codegen import CONTRACT, build
 build.build("contract")
 build.load("contract")
 """ + DEVICE_MS + r"""
-# decode's GEMMs (M = 4) stay on the mma.sync body: its device time first
+# decode's GEMMs (M = 4): their device time first, whatever body runs them
 gen = torch.Generator(device="cuda").manual_seed(9)
 decode_device = 0.0
 for (k, n), count in cs.LAYER_GEMMS.items():
     a = torch.randn(1, 4, k, generator=gen, device="cuda").bfloat16()
     b = torch.randn(1, k, n, generator=gen, device="cuda").bfloat16()
     decode_device += count * device_ms(
-        lambda: CONTRACT(a, b, torch.bfloat16), "contract_bf16_mma_kernel")
+        lambda: CONTRACT(a, b, torch.bfloat16), "contract_bf16_")
 rows = cs.phase_kernel()
 b1 = cs.phase_b1_train()
 train, *_ = cs.phase_train(
@@ -112,7 +120,7 @@ print("COMPARE " + json.dumps({
     "tree": sys.argv[1], "serve_layer_ms": per_layer(serve, "ms"),
     "serve_layer_device_ms": per_layer(serve, "device_ms"),
     "decode_layer_ms": per_layer(decode, "ms"),
-    "decode_layer_mma_device_ms": decode_device,
+    "decode_layer_turn_device_ms": decode_device,
     "train_layer_ms": per_layer(b1, "ms"),
     "train_layer_device_ms": per_layer(b1, "device_ms"),
     "steady_step_ms": train["steady_step_s"] * 1e3,
@@ -130,13 +138,34 @@ os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cs.OUT, "autotune.json")
 os.environ["REPRO_PLAN_DB"] = os.path.join(cs.OUT, "plans.json")
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+import time
+from repro_torch import ops
 from repro_torch.codegen import build
 build.build("contract")
 build.load("contract")
+# the host's ms an ops.dense call takes at a decode layer's GEMMs
+gen = torch.Generator(device="cuda").manual_seed(9)
+hs = {k: torch.randn(4, k, generator=gen, device="cuda").bfloat16()
+      for k in (4096, 12288)}
+ws = [torch.randn(k, n, generator=gen, device="cuda").bfloat16()
+      for (k, n), c in cs.LAYER_GEMMS.items() for _ in range(c)]
+for w in ws:
+    ops.dense(hs[w.shape[0]], w)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(20):
+    for w in ws:
+        ops.dense(hs[w.shape[0]], w)
+dense_host_ms = (time.perf_counter() - t0) * 1e3 / (20 * len(ws))
+torch.cuda.synchronize()
+del hs, ws
 launches, stats, peak, trace, engine = cs.phase_serve()
 prof = cs.phase_profile(engine, trace[0])
 dec = prof["decode"]
 print("COMPARE " + json.dumps({
+    "dense_host_ms": dense_host_ms,
+    "decode_step_fills": dec.get("fills"),
+    "decode_step_copies": dec.get("copies"),
     "tree": sys.argv[1], "decode_tok_s": stats["tok_per_s"],
     "prefill_ms": stats["prefill_s"] * 1e3, "p50_ms": stats["p50_s"] * 1e3,
     "decode_steps": stats["decode_steps"], "contract_launches": launches,
@@ -264,8 +293,60 @@ print("COMPARE " + json.dumps({
                  if r not in mlp}}), flush=True)
 """
 
+MODES_TURN = r"""
+import json, os, sys
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cs.OUT, "autotune.json")
+os.environ["REPRO_PLAN_DB"] = os.path.join(cs.OUT, "plans.json")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+from repro_torch import codegen, ops
+from repro_torch.codegen import build
+from repro_torch.core.enumerate import matmul_spec, weighted_matmul_spec
+from repro_torch.grad import derived_specs
+build.build("contract")
+build.load("contract")
+""" + DEVICE_MS + r"""
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(30)
+m, d, f = cs.FUSED_M, cs.FUSED_D, cs.FUSED_F
+dt = torch.bfloat16
+vec = {"scale": torch.randn(f, generator=gen, device=dev),
+       "bias": torch.randn(f, generator=gen, device=dev),
+       "mean": torch.randn(f, generator=gen, device=dev) * 0.1,
+       "var": torch.rand(f, generator=gen, device=dev) + 0.5}
+x = (torch.randn(m, d, generator=gen, device=dev) / 8).to(dt)
+w = (torch.randn(d, f, generator=gen, device=dev) / 8).to(dt)
+g = torch.randn(d, generator=gen, device=dev).to(dt)
+dout = (torch.randn(m, f, generator=gen, device=dev) / 8).to(dt)
+out = {}
+spec = matmul_spec(m, d, f)
+for norm in (False, True):
+    for act in cs.ACTS:
+        epi = codegen.Epilogue(act=act, bias=True, scale=not norm, norm=norm)
+        vs = {k: vec[k] for k in epi.vector_names}
+        kern = ops._tuned_kernel(spec, dt, epilogue=epi)
+        out[f"epilogue {act} {'norm' if norm else 'scale'}"] = device_ms(
+            lambda: kern(x, w, **vs), "contract_bf16")
+wspec = weighted_matmul_spec(m, d, f)
+dsp = derived_specs(wspec)
+for what, sp, args in (("weighted_matmul", wspec, (x, w, g)),
+                       ("weighted_matmul.dA", dsp["A"], (dout, w, g)),
+                       ("weighted_matmul.dB", dsp["B"], (dout, x, g)),
+                       ("weighted_matmul.dg", dsp["g"], (dout, x, w))):
+    kern = ops._tuned_kernel(sp, dt)
+    out[what] = device_ms(lambda: kern(*args), "contract_bf16")
+print("COMPARE " + json.dumps({"tree": sys.argv[1],
+                               "modes_device_ms": out}), flush=True)
+"""
+
 TURNS = {"--serve": SERVE_TURN, "--kernels": KERNELS_TURN,
-         "--moe-serve": MOE_SERVE_TURN, "--quant": QUANT_TURN}
+         "--moe-serve": MOE_SERVE_TURN, "--quant": QUANT_TURN,
+         "--modes": MODES_TURN}
 
 
 def main(argv) -> int:

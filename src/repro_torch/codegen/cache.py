@@ -173,10 +173,28 @@ def schedule_from_dict(d: Dict[str, Any], root: ContractionSpec) -> Schedule:
     return Schedule(spec, levels).validate()
 
 
+#: bumped whenever an ``AutotuneCache`` (the tuner's, or a ``PlanDB``'s)
+#: is opened, written or cleared: ``ops._tuned_kernel``'s process memo
+#: keeps an answer only while this is unchanged, so it returns what a
+#: lookup would
+_GENERATION = 0
+
+
+def generation() -> int:
+    """The caches' change count (``_GENERATION``)."""
+    return _GENERATION
+
+
+def _changed() -> None:
+    global _GENERATION
+    _GENERATION += 1
+
+
 class AutotuneCache:
     """get/put JSON values keyed by ``cache_key`` strings."""
 
     def __init__(self, path: str):
+        _changed()
         self.path = path
         self._lock = threading.Lock()
         self._data: Optional[Dict[str, Any]] = None
@@ -230,6 +248,7 @@ class AutotuneCache:
             return key in self._load()
 
     def put(self, key: str, value: Any) -> None:
+        _changed()
         with self._lock:
             d = os.path.dirname(self.path)
             if d:
@@ -254,6 +273,7 @@ class AutotuneCache:
                     raise
 
     def clear(self) -> None:
+        _changed()
         with self._lock:
             self._data = {}
             for p in (self.path, self.path + ".lock"):

@@ -37,14 +37,16 @@
 // What bounds it on the H100: at the serving and training shapes (M = 128
 // .. 2048 tokens, K and N = 1024..12288) a bf16 product does 2MNK operations
 // on about 2(MK + KN + MN) bytes, 100..800 operations per byte, so the bound
-// is the tensor-core rate from M = 512 up and the weight bytes at M = 128.
-// The epilogue and the prologue add O(MN) and O(MK) arithmetic, nothing to
-// that bound.  Three bodies; each takes its own CTA grid (the TPU plan's
-// grid, often a single block, is not used), accumulates in f32 in a fixed
-// order per output and masks ragged edges, so any M, N, K is legal:
-//   * the ring body (body 1), for plain bf16 products at M >= 64 whose
-//     operands TMA can read (each with unit stride on one of its two axes,
-//     the other strides multiples of 16 bytes, 16-byte aligned bases;
+// is the tensor-core rate from M = 512 up and the weight bytes at M = 128;
+// at decode (M = 1..63) it does 2M operations a weight, and the weight
+// bytes alone bound it.  The epilogue and the prologue add O(MN) and O(MK)
+// arithmetic, nothing to that bound.  Four bodies; each takes its own CTA
+// grid (the TPU plan's grid, often a single block, is not used),
+// accumulates in f32 in a fixed order per output and masks ragged edges,
+// so any M, N, K is legal:
+//   * the ring body (body 1), for bf16 products at M >= 64 whose operands
+//     TMA can read (each with unit stride on one of its two axes, the
+//     other strides multiples of 16 bytes, 16-byte aligned bases;
 //     codegen.cuda_gen.contract_body picks it, and contract_launch refuses
 //     it for anything else): hopper.cuh's skeleton.  A CTA of three
 //     warpgroups owns a 128 x BN tile (BN = 128 or 256).  One producer
@@ -63,10 +65,43 @@
 //     its f32 partial tile to scratch and the last CTA of a tile to arrive
 //     sums them in split order and stores (one launch, the same bits every
 //     run).  Python picks BN and the split (cuda_gen.ring_tiles).  The
-//     libcuda's cuTensorMapEncodeTiled is reached through the runtime's
-//     entry-point query (hopper.cuh), so the library links no libcuda;
-//   * every other bf16 product (decode's M < 64, unaligned or
-//     element-strided operands) and the fused modes run mma.sync m16n8k16
+//     fused modes run the same body as contract_bf16_ring_fused_kernel
+//     (BN = 128 or 256; 128 for the k-scale and row-reduce modes).  The
+//     epilogue runs after the split sum (an activation needs the whole
+//     sum) on the f32 tile staged in the drained ring: each vector is
+//     staged once a tile as row and column factors in shared memory, a
+//     thread holds its columns' factors in registers, and a loop over the
+//     rows applies every stage without a branch (an unset one is the
+//     identity) and stores each row contiguously.  Applied to the
+//     fragments in registers, with the activation's switch at every one of
+//     a thread's 64-128 values, the same epilogue took the kernel to
+//     2-3x the plain ring's time.  The k-scale prologue takes A through
+//     registers: ldmatrix from the swizzled tile, scaled in f32 and
+//     rounded once to bf16, the register-A wgmma (A K-major only); the
+//     stage's 64 scale values come by TMA with the stage.  Rewriting the
+//     A tile in shared memory (by the consumers, or by the producer's idle
+//     warps) and loading the values from device memory in the loop each
+//     left the tensor cores waiting.  The row reduce multiplies the
+//     fragments by T, sums rows by shuffles and the two warpgroups' rows
+//     in shared memory in warp order, one partial row a 128-row tile, and
+//     the last CTA of the column block sums them in row-tile order (no
+//     float atomics).
+//     The libcuda's cuTensorMapEncodeTiled is reached through the
+//     runtime's entry-point query (hopper.cuh), so the library links no
+//     libcuda;
+//   * the narrow body (body 2), for plain bf16 products at M < 64 (decode)
+//     whose x has unit stride along k and whose W TMA reads K- or N-major:
+//     the same ring with the operands' roles swapped, C^T = W^T x^T, so the
+//     weights' N fills wgmma's 64-row side and x^T, M tokens zero-filled
+//     to BN = 8, 16, 32 or 64 columns, is the m64nBNk16 B operand (W
+//     N-major through the transposed descriptor).  A CTA owns 128 of N;
+//     the K steps are split across CTAs so the grid holds up to two CTAs
+//     an SM (104 KB rings, 4-6 stages in flight each), and the last CTA of
+//     a tile sums the partials in split order and stores C transposed,
+//     masked to the M tokens (cuda_gen.narrow_tiles);
+//   * every other bf16 product (unaligned or element-strided operands,
+//     x not k-contiguous at M < 64) and the fused modes at M < 64 run
+//     mma.sync m16n8k16
 //     (bf16 in, f32 accumulate) on a 64 x 128 CTA tile over 4 warps of 32 x
 //     64, K in steps of 32.  A is staged row-major and B transposed
 //     (n-major) with rows padded to 40 elements, so every fragment load of
@@ -76,6 +111,9 @@
 //   * f32 operands keep exact f32 math on the FMA pipes: a 128 x 64 CTA
 //     tile, each of 256 threads owning an 8 x 4 micro-tile (rows ty + 16 i,
 //     columns tx + 16 j, so a warp's shared reads are conflict-free).
+// Every split and row-reduce counter is set back to 0 by the CTA that
+// finishes with it, so the wrapper zeroes its counters once and a launch
+// is one kernel and nothing else.
 // The store rounds to the output type (round to nearest even for bf16),
 // as the reference does.
 
@@ -87,15 +125,16 @@
 
 extern "C" {
 
-// One vector operand: element (coord / div) % len of p (f32, contiguous),
-// where coord is the folded batch (axis 0), m (1), n (2) or k (3)
-// coordinate.  p == nullptr means the stage is off.
+// One vector operand: element (coord / div) % len of p (contiguous; f32,
+// or bf16 where ``bf16`` is set), where coord is the folded batch (axis
+// 0), m (1), n (2) or k (3) coordinate.  p == nullptr means the stage is
+// off.
 struct Vec {
-  const float* p;
+  const void* p;
   long long div;
   long long len;
   int axis;
-  int pad;
+  int bf16;
 };
 
 struct ContractParams {
@@ -160,7 +199,10 @@ __device__ __forceinline__ float vec_at(const Vec& v, long long b, int m,
   const long long c = v.axis == 0 ? b : v.axis == 1 ? m : v.axis == 2 ? n : k;
   // the common case (the vector's index is its group's only one) needs no
   // division
-  return v.p[v.div == 1 && c < v.len ? c : vec_index_slow(c, v.div, v.len)];
+  const long long i =
+      v.div == 1 && c < v.len ? c : vec_index_slow(c, v.div, v.len);
+  return v.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(v.p)[i])
+                : static_cast<const float*>(v.p)[i];
 }
 
 // FEAT_PLAIN: the product alone.  FEAT_FUSED: the k-scale prologue, the
@@ -201,7 +243,8 @@ __device__ __forceinline__ float epilogue(const ContractParams& p, long long b,
 
 // The row-reduce mode's last step, after every thread with a column wrote
 // its partial sum for column n (n >= N: no column): the last CTA of this
-// column block sums the partial rows in row-block order and stores C[n].
+// column block sums the partial rows in row-block order and stores C[n],
+// and sets the block's counter back to 0.
 template <typename TOut>
 __device__ __forceinline__ void finish_row_reduce(const ContractParams& p,
                                                   int N, int n) {
@@ -211,8 +254,10 @@ __device__ __forceinline__ void finish_row_reduce(const ContractParams& p,
   if (threadIdx.x == 0)
     is_last = atomicAdd(p.counter + blockIdx.x, 1) == (int)gridDim.y - 1;
   __syncthreads();
-  if (!is_last || n >= N) return;
+  if (!is_last) return;
   __threadfence();
+  if (threadIdx.x == 0) p.counter[blockIdx.x] = 0;  // for the next launch
+  if (n >= N) return;
   float s = 0.f;
   for (int r = 0; r < (int)gridDim.y; ++r)
     s += __ldcg(p.partial + (long long)r * N + n);
@@ -641,8 +686,9 @@ void launch_bf16(const ContractParams& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The ring body: plain bf16 products on hopper.cuh's TMA / mbarrier / wgmma
-// skeleton (see the header of this file).
+// The ring bodies on hopper.cuh's TMA / mbarrier / wgmma skeleton (see the
+// header of this file): the plain ring, its fused instantiation, and the
+// narrow body of decode's products.
 // ---------------------------------------------------------------------------
 constexpr int R_BM = 128;
 constexpr int R_BK = 64;  // one 128-byte swizzled row of bf16
@@ -650,18 +696,50 @@ constexpr int R_THREADS = 384;
 constexpr int R_CONSUMERS = 256;
 constexpr int R_A_BYTES = R_BM * R_BK * 2;
 constexpr int R_RING_BYTES = 192 * 1024;
+// the narrow body's ring: two CTAs an SM (2 x 104 KB of its 228 KB)
+constexpr int N_RING_BYTES = 104 * 1024;
+// the fused ring's tile width for the k-scale and row-reduce modes (the
+// epilogue and multiplier modes also take 256, as the plain ring does)
+constexpr int R_FUSED_BN = 128;
 constexpr int R_BAND = 8;    // row tiles of a rasterization band
 constexpr int A_MMAJOR = 1;  // layout bits: A stored (k, m), m contiguous
 constexpr int B_NMAJOR = 2;  // ... B stored (k, n), n contiguous
 
-template <int BN>
+template <int BN, int RING_BYTES = R_RING_BYTES>
 struct Ring {
   static constexpr int STAGE = R_A_BYTES + BN * R_BK * 2;
-  static constexpr int STAGES = R_RING_BYTES / STAGE;  // 6 at BN 128, 4 at 256
+  // 6 at BN 128, 4 at 256; narrow: 6 at BN 8, 5 at 16 and 32, 4 at 64
+  static constexpr int STAGES = RING_BYTES / STAGE;
   static constexpr int ACC = BN / 2;  // f32 accumulators of a consumer thread
   // the ring, 1024 bytes to align it, full and empty barriers, a flag
   static constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8 + 16;
 };
+
+// The fused ring's shared memory after the ring's: the epilogue's vectors,
+// staged once a tile at the tile's local row (a vector along m) or column
+// (along n) coordinate, entry 0 for a vector along batch; and the row
+// reduce's column sums of the 8 consumer warps.
+struct FusedSmem {
+  float ksv[8][R_BK];  // each stage's 64 k-scale values (TMA, f32 or bf16)
+  // the epilogue's mul, scale, bias, mean and rsqrt(var + eps) as a row
+  // factor (a vector along m or batch) and a column factor (along n), the
+  // other one the stage's identity (1, 1, 0, 0, 1)
+  float vr[5][R_BM];
+  float vc[5][256];
+  float red[8][R_FUSED_BN];
+};
+static_assert(Ring<R_FUSED_BN>::STAGES <= 8, "a k-scale slot a stage");
+// the fused epilogue's f32 tile in the drained ring: 128 rows of BN + 8
+// floats (the pad spreads a fragment's rows over banks); a warp takes 4
+// columns a thread of 128 columns of a row a pass
+template <int BN>
+struct ETile {
+  static_assert(BN % 128 == 0 && BN <= 256, "a staged vector per column");
+  static constexpr int LD = BN + 8;
+  static_assert(R_BM * LD * 4 <= Ring<BN>::STAGES * Ring<BN>::STAGE,
+                "the epilogue tile fits the drained ring");
+};
+
 
 __device__ __forceinline__ void store2_from_f32(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -674,12 +752,11 @@ __device__ __forceinline__ void store2_from_f32(__nv_bfloat16* p, float a,
 // One consumer warpgroup's K loop: its 64 rows (``half``) of each stage's A
 // tile against the stage's whole B tile, four k16 wgmmas a stage.  The
 // stage before is released once its group has retired (wait_group 1).
-template <int BN, bool AT, bool BT>
-__device__ __forceinline__ void ring_mainloop(float (&acc)[BN / 2],
+template <typename R, bool AT, bool BT>
+__device__ __forceinline__ void ring_mainloop(float (&acc)[R::ACC],
                                               uint32_t tiles, uint64_t* full,
                                               uint64_t* empty, int steps,
                                               int half) {
-  using R = Ring<BN>;
   for (int i = 0; i < steps; ++i) {
     const int s = i % R::STAGES;
     hopper::mbar_wait(&full[s], (i / R::STAGES) & 1);
@@ -703,6 +780,78 @@ __device__ __forceinline__ void ring_mainloop(float (&acc)[BN / 2],
   }
   hopper::wgmma_wait<0>();
   hopper::fence_regs(acc);
+}
+
+// The k-scale prologue's K loop (the fused ring, A K-major): A goes
+// through registers.  Each k16 step's A fragment of the warp's 16 rows is
+// read from the swizzled tile by ldmatrix (lane l: row l % 8 + 8 (l / 8 %
+// 2), 16-byte chunk 2 ks + l / 16, stored at chunk ^ row % 8), scaled in
+// f32 and rounded once to bf16 (as contract_bf16_body scales as it
+// stages: the thread's k are 2t, 2t + 1, 2t + 8 and 2t + 9 of the step),
+// and fed to the register-A wgmma; B stays in shared memory.  The stage's
+// 64 scale values arrive with it, by TMA into ``ksv`` (zero past K):
+// loaded from device memory in the loop, they left the tensor cores
+// waiting on their latency.  A warpgroup waits for its own group before
+// it writes the next fragments (ptxas serializes every wgmma of a kernel
+// whose registers feeding a wgmma are written while another is in
+// flight, C7513); the other consumer warpgroup's group keeps the tensor
+// cores busy meanwhile.  KBF16: the vector is bf16, else f32.
+template <typename R, bool BT, bool KBF16>
+__device__ __forceinline__ void ring_mainloop_ks(float (&acc)[R::ACC],
+                                                 uint32_t tiles,
+                                                 uint64_t* full,
+                                                 uint64_t* empty, int steps,
+                                                 int half, const float* ksv) {
+  static_assert(R::ACC == 64, "the register-A wgmma is m64n128k16");
+  const int lane = threadIdx.x & 31;
+  const int row = ((threadIdx.x >> 5) & 3) * 16 + (lane & 7) +
+                  8 * ((lane >> 3) & 1);
+  const uint32_t mine = tiles + half * 8192 + row * 128;
+  const int kt = 2 * (lane & 3);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % R::STAGES;
+    hopper::mbar_wait(&full[s], (i / R::STAGES) & 1);
+    // the thread's (k, k + 1) pairs of the stage: 16 q + kt (+ 8)
+    float2 sv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = 16 * (j >> 1) + kt + 8 * (j & 1);
+      if (KBF16)
+        sv[j] = __bfloat1622float2(
+            reinterpret_cast<const __nv_bfloat162*>(ksv + s * R_BK)[k / 2]);
+      else
+        sv[j] = reinterpret_cast<const float2*>(ksv + s * R_BK)[k / 2];
+    }
+    const uint32_t a = mine + s * R::STAGE;
+    uint32_t af[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      hopper::ldmatrix_x4(
+          af[q], a + ((((2 * q + (lane >> 4)) ^ (row & 7))) << 4));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&af[q][r]));
+        const float2 g = sv[2 * q + (r >> 1)];
+        const __nv_bfloat162 y = __floats2bfloat162_rn(f.x * g.x, f.y * g.y);
+        af[q][r] = *reinterpret_cast<const uint32_t*>(&y);
+      }
+    }
+    const uint32_t bt = tiles + s * R::STAGE + R_A_BYTES;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      hopper::wgmma_bf16_rs<BT>(acc, af[q],
+                                BT ? hopper::desc(bt + q * 2048, 8192, 1024)
+                                   : hopper::desc(bt + q * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) hopper::fence_regs(af[q]);
+    if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[s]);
+  }
 }
 
 // The masked store of a consumer thread's fragment: rows r0 and r0 + 8,
@@ -732,19 +881,213 @@ __device__ __forceinline__ void ring_store(TOut* C, const float (&acc)[ACC],
   }
 }
 
-// Grid (tiles, 1, batch x splits): the (M / 128) x (N / BN) tiles in bands
-// of R_BAND row tiles (hopper::raster); 384 threads: warpgroup 0 the
-// producer, 1 and 2 the consumers.  ``layout``: A_MMAJOR | B_NMAJOR bits,
-// matching the boxes of tmA (K-major: 64 k x 128 m; M-major: 64 m x 64 k)
-// and tmB (K-major: 64 k x BN n; N-major: 64 n x 64 k).
+// Stage the epilogue's vectors of the tile at (b, m0, n0) (consumer thread
+// ``ct`` writes entry ct of each): a vector along n as column factors,
+// along m as row factors, along batch as the one row factor of every
+// row; var as rsqrt(var + eps), the factor epilogue() computes per
+// element.  An unset stage, and the side a vector does not run along,
+// hold the identity, so fused_store applies every stage without a branch
+// and gets epilogue()'s values exactly.
 template <int BN>
-__global__ void __launch_bounds__(R_THREADS, 1)
-contract_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
-                          const __grid_constant__ CUtensorMap tmB, void* C,
-                          int M, int N, int K, long long sCb, long long sCm,
-                          long long sCn, int layout, int out_bf16, int splits,
-                          float* partial, int* counter) {
-  using R = Ring<BN>;
+__device__ __forceinline__ void stage_vectors(FusedSmem* fs,
+                                              const ContractParams& p,
+                                              long long b, int m0, int n0,
+                                              int ct) {
+  const Vec* vs[5] = {&p.mul, &p.scale, &p.bias, &p.mean, &p.var};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const Vec& v = *vs[i];
+    const float id = i == 2 || i == 3 ? 0.f : 1.f;
+    const int m = m0 + ct, n = n0 + ct;
+    if (ct < BN) {
+      float x = id;
+      if (v.p && v.axis == 2 && n < p.N) {
+        x = vec_at(v, b, m0, n, 0);
+        if (i == 4) x = rsqrtf(x + p.eps);
+      }
+      fs->vc[i][ct] = x;
+    }
+    if (ct < R_BM) {
+      float x = id;
+      if (v.p && (v.axis == 0 || (v.axis == 1 && m < p.M))) {
+        x = vec_at(v, b, m, n0, 0);
+        if (i == 4) x = rsqrtf(x + p.eps);
+      }
+      fs->vr[i][ct] = x;
+    }
+  }
+}
+
+// The fused epilogue and store from the f32 tile staged in the drained
+// ring (``tile``, 128 x ETile<BN>::LD): a loop over the rows, 8 a pass, a
+// warp's 32 threads on 4 columns each of 128 columns of one row, so the
+// stores of a row are contiguous (4 values a thread, two pairs, where C
+// has unit column stride and even strides).  Every stage is applied, from
+// the row factors of the row and the thread's column factors (held in
+// registers), in epilogue()'s order; ACT is the activation.
+template <int BN, int ACT, typename TOut>
+__device__ __forceinline__ void fused_store(const float* tile,
+                                            const ContractParams& p,
+                                            const FusedSmem* fs, TOut* C,
+                                            int m0, int n0, int ct) {
+  constexpr int LD = ETile<BN>::LD;
+  constexpr int G = BN / 128;
+  const int M = (int)p.M, N = (int)p.N;
+  const bool pairs = p.sCn == 1 && p.sCm % 2 == 0 && p.sCb % 2 == 0;
+  float4 cf[5][G];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      cf[i][g] = *reinterpret_cast<const float4*>(
+          &fs->vc[i][(ct & 31) * 4 + 128 * g]);
+#pragma unroll 2
+  for (int r = ct >> 5; r < R_BM; r += R_CONSUMERS / 32) {
+    const int m = m0 + r;
+    if (m >= M) break;
+    const float rf[5] = {fs->vr[0][r], fs->vr[1][r], fs->vr[2][r],
+                         fs->vr[3][r], fs->vr[4][r]};
+    TOut* row = C + m * p.sCm;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int c = (ct & 31) * 4 + 128 * g;
+      const int n = n0 + c;
+      const float4 v = *reinterpret_cast<const float4*>(tile + r * LD + c);
+      float y[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const auto col = [&](int i) {
+          return reinterpret_cast<const float*>(&cf[i][g])[e];
+        };
+        float z = y[e] * (rf[0] * col(0));
+        z *= rf[1] * col(1);
+        z += rf[2] + col(2);
+        z = (z - (rf[3] + col(3))) * (rf[4] * col(4));
+        y[e] = activate(ACT, z);
+      }
+      if (pairs && n + 3 < N) {
+        store2_from_f32(row + n, y[0], y[1]);
+        store2_from_f32(row + n + 2, y[2], y[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) store_from_f32(row + (n + e) * p.sCn, y[e]);
+      }
+    }
+  }
+}
+
+// fused_store with the activation as a template argument (the loop holds
+// one activation's code, not five)
+template <int BN, typename TOut>
+__device__ __forceinline__ void fused_store_act(const float* tile,
+                                                const ContractParams& p,
+                                                const FusedSmem* fs, TOut* C,
+                                                int m0, int n0, int ct) {
+  switch (p.act) {
+    case 1:
+      fused_store<BN, 1>(tile, p, fs, C, m0, n0, ct);
+      break;
+    case 2:
+      fused_store<BN, 2>(tile, p, fs, C, m0, n0, ct);
+      break;
+    case 3:
+      fused_store<BN, 3>(tile, p, fs, C, m0, n0, ct);
+      break;
+    case 4:
+      fused_store<BN, 4>(tile, p, fs, C, m0, n0, ct);
+      break;
+    default:
+      fused_store<BN, 0>(tile, p, fs, C, m0, n0, ct);
+      break;
+  }
+}
+
+// The row-reduce mode on the ring (batch 1, no K split): C[n] = sum_m
+// acc[m, n] T[m, n].  A thread sums its two rows, shuffles sum the 8 row
+// groups of a warp, and the 8 consumer warps' rows are summed in shared
+// memory in warp order: one partial row a 128-row tile.  The last CTA of
+// the column block to arrive sums the partial rows in row-tile order,
+// stores, and sets the block's counter back to 0 for the next launch.
+template <typename TOut, int ACC>
+__device__ __forceinline__ void ring_row_reduce(const float (&acc)[ACC],
+                                                const ContractParams& p,
+                                                FusedSmem* fs, int* last,
+                                                int r0, int c0, int n0,
+                                                int m_t, int n_t, int gy,
+                                                int ct) {
+  const int M = (int)p.M, N = (int)p.N;
+  const __nv_bfloat16* T = static_cast<const __nv_bfloat16*>(p.T);
+  float cs[ACC / 2];
+#pragma unroll
+  for (int i = 0; i < ACC / 2; ++i) cs[i] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = r0 + 8 * h;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < ACC / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = c0 + 8 * j + e;
+        if (n < N)
+          cs[2 * j + e] += acc[4 * j + 2 * h + e] *
+                           __bfloat162float(T[m * p.sTm + n * p.sTn]);
+      }
+  }
+  // lanes t, t + 4, .., t + 28 share columns
+#pragma unroll
+  for (int i = 0; i < ACC / 2; ++i)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], off);
+  const int lane = ct & 31;
+  if (lane < 4)
+#pragma unroll
+    for (int j = 0; j < ACC / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        fs->red[ct >> 5][8 * j + 2 * lane + e] = cs[2 * j + e];
+  hopper::bar_sync(1, R_CONSUMERS);
+  const int n = n0 + ct;
+  const bool mine = ct < 2 * ACC && n < N;  // 2 ACC: the tile's columns
+  if (mine) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += fs->red[w][ct];
+    __stcg(p.partial + (long long)m_t * N + n, s);
+  }
+  __threadfence();
+  hopper::bar_sync(1, R_CONSUMERS);
+  if (ct == 0) *last = atomicAdd(p.counter + n_t, 1) == gy - 1;
+  hopper::bar_sync(1, R_CONSUMERS);
+  if (!*last) return;
+  __threadfence();
+  if (ct == 0) p.counter[n_t] = 0;
+  if (mine) {
+    float s = 0.f;
+    for (int r = 0; r < gy; ++r)
+      s += __ldcg(p.partial + (long long)r * N + n);
+    store_from_f32(static_cast<TOut*>(p.C) + n * p.sCn, s);
+  }
+}
+
+// The body of the three ring kernels.  Grid (tiles, 1, batch x splits):
+// the (M / 128) x (N / BN) tiles in bands of R_BAND row tiles
+// (hopper::raster); 384 threads: warpgroup 0 the producer, 1 and 2 the
+// consumers.  ``layout``: A_MMAJOR | B_NMAJOR bits, matching the boxes of
+// tmA (K-major: 64 k x 128 m; M-major: 64 m x 64 k) and tmB (K-major: 64 k
+// x BN n; N-major: 64 n x 64 k).  FEAT_FUSED reads ``p``'s k-scale,
+// epilogue and row-reduce modes (null for FEAT_PLAIN); tmK maps the
+// k-scale vector (boxes of 64).  NARROW: two CTAs
+// an SM, so no register rebalancing (setmaxnreg's pool is the SM's).
+template <int BN, int RING_BYTES, int FEAT, bool NARROW>
+__device__ __forceinline__ void ring_body(
+    const CUtensorMap* tmA, const CUtensorMap* tmB, void* C, int M, int N,
+    int K, long long sCb, long long sCm, long long sCn, int layout,
+    int out_bf16, int splits, float* partial, int* counter,
+    const ContractParams* p, const CUtensorMap* tmK = nullptr) {
+  using R = Ring<BN, RING_BYTES>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* tiles =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -765,6 +1108,11 @@ contract_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
   const int k_first = split * per;
   const int steps = min(nk, k_first + per) - k_first;  // >= 1 (the host's)
 
+  // the fused kernel's shared memory, 128-byte aligned for TMA
+  FusedSmem* fs = reinterpret_cast<FusedSmem*>(
+      (reinterpret_cast<uintptr_t>(last + 4) + 127) & ~uintptr_t(127));
+  const int ks_bytes =
+      FEAT == FEAT_FUSED && p->kscale.p ? R_BK * (p->kscale.bf16 ? 2 : 4) : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::STAGES; ++s) {
       hopper::mbar_init(&full[s], 1);
@@ -775,61 +1123,93 @@ contract_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
   __syncthreads();
 
   if (threadIdx.x < 128) {  // the producer warpgroup
-    hopper::regs_dec<40>();
+    if constexpr (!NARROW) hopper::regs_dec<40>();
     if (threadIdx.x == 0) {
-      hopper::tma_prefetch(&tmA);
-      hopper::tma_prefetch(&tmB);
+      hopper::tma_prefetch(tmA);
+      hopper::tma_prefetch(tmB);
       for (int i = 0; i < steps; ++i) {
         const int s = i % R::STAGES;
         hopper::mbar_wait(&empty[s], ((i / R::STAGES) & 1) ^ 1);
-        hopper::mbar_arrive_tx(&full[s], R::STAGE);
+        hopper::mbar_arrive_tx(&full[s], R::STAGE + ks_bytes);
         unsigned char* a = tiles + s * R::STAGE;
         unsigned char* bt = a + R_A_BYTES;
         const int k0 = (k_first + i) * R_BK;
+        if (ks_bytes)  // the k-scale prologue's 64 values of the stage
+          hopper::tma_load(fs->ksv[s], tmK, &full[s], k0, 0, 0);
         if (layout & A_MMAJOR) {  // two 64-row atoms
-          hopper::tma_load(a, &tmA, &full[s], m0, k0, b);
-          hopper::tma_load(a + 8192, &tmA, &full[s], m0 + 64, k0, b);
+          hopper::tma_load(a, tmA, &full[s], m0, k0, b);
+          hopper::tma_load(a + 8192, tmA, &full[s], m0 + 64, k0, b);
         } else {
-          hopper::tma_load(a, &tmA, &full[s], k0, m0, b);
+          hopper::tma_load(a, tmA, &full[s], k0, m0, b);
         }
         if (layout & B_NMAJOR) {  // BN / 64 column atoms
+          if constexpr (BN >= 64) {
 #pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            hopper::tma_load(bt + j * 8192, &tmB, &full[s], n0 + 64 * j, k0,
-                             b);
+            for (int j = 0; j < BN / 64; ++j)
+              hopper::tma_load(bt + j * 8192, tmB, &full[s], n0 + 64 * j,
+                               k0, b);
+          }
         } else {
-          hopper::tma_load(bt, &tmB, &full[s], k0, n0, b);
+          hopper::tma_load(bt, tmB, &full[s], k0, n0, b);
         }
       }
     }
     return;
   }
 
-  hopper::regs_inc<232>();
+  if constexpr (!NARROW) hopper::regs_inc<232>();
   const int ct = threadIdx.x - 128;  // consumer thread 0..255
   const int half = ct >> 7;          // its warpgroup's 64 rows
   float acc[R::ACC];
 #pragma unroll
   for (int i = 0; i < R::ACC; ++i) acc[i] = 0.f;
   const uint32_t base = hopper::smem_u32(tiles);
-  switch (layout) {
-    case 0:
-      ring_mainloop<BN, false, false>(acc, base, full, empty, steps, half);
-      break;
-    case A_MMAJOR:
-      ring_mainloop<BN, true, false>(acc, base, full, empty, steps, half);
-      break;
-    case B_NMAJOR:
-      ring_mainloop<BN, false, true>(acc, base, full, empty, steps, half);
-      break;
-    default:
-      ring_mainloop<BN, true, true>(acc, base, full, empty, steps, half);
-      break;
+  bool done = false;
+  if constexpr (FEAT == FEAT_FUSED) {
+    stage_vectors<BN>(fs, *p, b, m0, n0, ct);
+    if constexpr (BN == R_FUSED_BN) if (ks_bytes) {  // A K-major
+      const float* ksv = &fs->ksv[0][0];
+      if (layout & B_NMAJOR) {
+        if (p->kscale.bf16)
+          ring_mainloop_ks<R, true, true>(acc, base, full, empty, steps,
+                                          half, ksv);
+        else
+          ring_mainloop_ks<R, true, false>(acc, base, full, empty, steps,
+                                           half, ksv);
+      } else {
+        if (p->kscale.bf16)
+          ring_mainloop_ks<R, false, true>(acc, base, full, empty, steps,
+                                           half, ksv);
+        else
+          ring_mainloop_ks<R, false, false>(acc, base, full, empty, steps,
+                                            half, ksv);
+      }
+      done = true;
+    }
+  }
+  if (!done) {
+    switch (layout) {
+      case 0:
+        ring_mainloop<R, false, false>(acc, base, full, empty, steps, half);
+        break;
+      case A_MMAJOR:
+        ring_mainloop<R, true, false>(acc, base, full, empty, steps, half);
+        break;
+      case B_NMAJOR:
+        if constexpr (BN >= 64)
+          ring_mainloop<R, false, true>(acc, base, full, empty, steps, half);
+        break;
+      default:
+        if constexpr (BN >= 64)
+          ring_mainloop<R, true, true>(acc, base, full, empty, steps, half);
+        break;
+    }
   }
 
   if (splits > 1) {
     // this split's partial tile to scratch ([tile][split][i][thread]), then
     // the last CTA of the tile to arrive sums every split in split order
+    // and sets the tile's counter back to 0 for the next launch
     const long long tile = ((long long)b * gy + m_t) * gx + n_t;
     float* mine = partial + (tile * splits + split) * (R_BM * BN);
 #pragma unroll
@@ -841,6 +1221,7 @@ contract_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
     hopper::bar_sync(1, R_CONSUMERS);
     if (!*last) return;
     __threadfence();
+    if (ct == 0) counter[tile] = 0;
     const float* all = partial + tile * splits * (R_BM * BN);
 #pragma unroll
     for (int i = 0; i < R::ACC; ++i) acc[i] = 0.f;
@@ -853,6 +1234,37 @@ contract_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
   const int lane = ct & 31;
   const int r0 = m0 + half * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
   const int c0 = n0 + 2 * (lane & 3);
+  if constexpr (FEAT == FEAT_FUSED) {
+    if constexpr (BN == R_FUSED_BN) if (p->T) {
+      if (out_bf16)
+        ring_row_reduce<__nv_bfloat16>(acc, *p, fs, last, r0, c0, n0, m_t,
+                                       n_t, gy, ct);
+      else
+        ring_row_reduce<float>(acc, *p, fs, last, r0, c0, n0, m_t, n_t, gy,
+                               ct);
+      return;
+    }
+    // both warpgroups are past their last wgmma (and the producer
+    // warpgroup past its loads): the ring is free for the f32 tile
+    hopper::bar_sync(1, R_CONSUMERS);
+    float* tile = reinterpret_cast<float*>(tiles);
+#pragma unroll
+    for (int j = 0; j < R::ACC / 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(tile + (r0 - m0 + 8 * h) * ETile<BN>::LD +
+                                   (c0 - n0) + 8 * j) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    hopper::bar_sync(1, R_CONSUMERS);
+    if (out_bf16)
+      fused_store_act<BN>(tile, *p, fs,
+                          static_cast<__nv_bfloat16*>(C) + b * sCb, m0, n0,
+                          ct);
+    else
+      fused_store_act<BN>(tile, *p, fs, static_cast<float*>(C) + b * sCb,
+                          m0, n0, ct);
+    return;
+  }
   const bool pair = sCn == 1 && sCm % 2 == 0 && sCb % 2 == 0;
   if (out_bf16)
     ring_store(static_cast<__nv_bfloat16*>(C) + b * sCb, acc, r0, c0, M, N,
@@ -862,55 +1274,186 @@ contract_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
                pair);
 }
 
-// The ring's launch: checks its preconditions (cudaErrorInvalidValue when
-// one fails; nothing switches body), encodes the two tensor maps and
-// launches.  An operand is taken K-major where it has unit stride along k,
-// else M-major (A) / N-major (B) where it has unit stride there; the other
-// strides must be what TMA reads (hopper::tma_ok).
+// The plain ring: scalar parameters only (handing a plain product the
+// ContractParams struct measured up to 2.5x slower).
 template <int BN>
-int launch_ring(const ContractParams& p, cudaStream_t stream) {
-  using R = Ring<BN>;
-  const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  const long long nk = (p.K + R_BK - 1) / R_BK;
-  if (p.in_dtype != 1 || features(p) != FEAT_PLAIN || p.M < 64 || p.K < 1 ||
-      p.N < 1 || p.batch < 1 || p.splits < 1 || p.splits > nk ||
-      (p.splits > 1 && (!p.partial || !p.counter)))
-    return invalid;
-  const long long per = (nk + p.splits - 1) / p.splits;
-  const long long tiles = ((p.M + R_BM - 1) / R_BM) * ((p.N + BN - 1) / BN);
-  const long long gz = p.batch * p.splits;
-  if ((p.splits - 1) * per >= nk || tiles >= (1LL << 31) || gz > 65535)
-    return invalid;
+__global__ void __launch_bounds__(R_THREADS, 1)
+contract_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
+                          const __grid_constant__ CUtensorMap tmB, void* C,
+                          int M, int N, int K, long long sCb, long long sCm,
+                          long long sCn, int layout, int out_bf16, int splits,
+                          float* partial, int* counter) {
+  ring_body<BN, R_RING_BYTES, FEAT_PLAIN, false>(
+      &tmA, &tmB, C, M, N, K, sCb, sCm, sCn, layout, out_bf16, splits,
+      partial, counter, nullptr);
+}
+
+// The fused modes on the ring: the k-scale prologue, the epilogue (after
+// the split sum where K is split) and the row reduce, each where ``p``
+// sets it (the k-scale and row-reduce modes at BN = R_FUSED_BN).
+template <int BN>
+__global__ void __launch_bounds__(R_THREADS, 1)
+contract_bf16_ring_fused_kernel(const __grid_constant__ CUtensorMap tmA,
+                                const __grid_constant__ CUtensorMap tmB,
+                                const __grid_constant__ CUtensorMap tmK,
+                                const __grid_constant__ ContractParams p,
+                                int layout) {
+  ring_body<BN, R_RING_BYTES, FEAT_FUSED, false>(
+      &tmA, &tmB, p.C, (int)p.M, (int)p.N, (int)p.K, p.sCb, p.sCm, p.sCn,
+      layout, p.out_dtype == 1, (int)p.splits, p.partial, p.counter, &p,
+      &tmK);
+}
+
+// The narrow body: C^T = B^T A^T on the ring, two CTAs an SM.  Launched
+// with the roles swapped (launch_narrow): its "A" is W^T (N rows of K),
+// its "B" x^T (K x BN tokens), its "M" the product's N and its "N" the
+// product's M, and the strides of C exchanged, so ring_store writes C
+// transposed and masked to the M tokens.
+template <int BN>
+__global__ void __launch_bounds__(R_THREADS, 2)
+contract_bf16_narrow_kernel(const __grid_constant__ CUtensorMap tmA,
+                            const __grid_constant__ CUtensorMap tmB, void* C,
+                            int M, int N, int K, long long sCb, long long sCm,
+                            long long sCn, int layout, int out_bf16,
+                            int splits, float* partial, int* counter) {
+  ring_body<BN, N_RING_BYTES, FEAT_PLAIN, true>(
+      &tmA, &tmB, C, M, N, K, sCb, sCm, sCn, layout, out_bf16, splits,
+      partial, counter, nullptr);
+}
+
+// The two tensor maps of a ring launch and its layout bits: A taken
+// K-major where it has unit stride along k, else M-major where it has unit
+// stride there; B K-major, else N-major; the other strides what TMA reads
+// (hopper::tma_ok).  false: the ring cannot read them.
+template <int BN>
+bool ring_maps(const ContractParams& p, CUtensorMap* ta, CUtensorMap* tb,
+               int* layout) {
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap ta, tb;
-  int layout = 0;
+  *layout = 0;
   const hopper::Operand a_k{p.A, p.K, p.M, p.sAm, p.batch, p.sAb};
   const hopper::Operand a_m{p.A, p.M, p.K, p.sAk, p.batch, p.sAb};
   if ((p.sAk == 1 || p.K == 1) && hopper::tma_ok(a_k, 2)) {
-    if (!hopper::make_map(&ta, a_k, 2, bf16, R_BK, R_BM)) return invalid;
+    if (!hopper::make_map(ta, a_k, 2, bf16, R_BK, R_BM)) return false;
   } else if (p.sAm == 1 && hopper::tma_ok(a_m, 2)) {
-    if (!hopper::make_map(&ta, a_m, 2, bf16, 64, R_BK)) return invalid;
-    layout |= A_MMAJOR;
+    if (!hopper::make_map(ta, a_m, 2, bf16, 64, R_BK)) return false;
+    *layout |= A_MMAJOR;
   } else {
-    return invalid;
+    return false;
   }
   const hopper::Operand b_k{p.B, p.K, p.N, p.sBn, p.batch, p.sBb};
   const hopper::Operand b_n{p.B, p.N, p.K, p.sBk, p.batch, p.sBb};
   if ((p.sBk == 1 || p.K == 1) && hopper::tma_ok(b_k, 2)) {
-    if (!hopper::make_map(&tb, b_k, 2, bf16, R_BK, BN)) return invalid;
+    if (!hopper::make_map(tb, b_k, 2, bf16, R_BK, BN)) return false;
   } else if ((p.sBn == 1 || p.N == 1) && hopper::tma_ok(b_n, 2)) {
-    if (!hopper::make_map(&tb, b_n, 2, bf16, 64, R_BK)) return invalid;
-    layout |= B_NMAJOR;
+    if (!hopper::make_map(tb, b_n, 2, bf16, 64, R_BK)) return false;
+    *layout |= B_NMAJOR;
   } else {
+    return false;
+  }
+  return true;
+}
+
+// The K split's checks shared by the ring launches: at least one K step
+// for every split, scratch where K is split, a grid within its limits.
+bool split_ok(const ContractParams& p, long long tiles) {
+  const long long nk = (p.K + R_BK - 1) / R_BK;
+  if (p.K < 1 || p.N < 1 || p.batch < 1 || p.splits < 1 || p.splits > nk ||
+      (p.splits > 1 && (!p.partial || !p.counter)))
+    return false;
+  const long long per = (nk + p.splits - 1) / p.splits;
+  return (p.splits - 1) * per < nk && tiles < (1LL << 31) &&
+         p.batch * p.splits <= 65535;
+}
+
+// The ring's launch: checks its preconditions (cudaErrorInvalidValue when
+// one fails; nothing switches body), encodes the two tensor maps and
+// launches the plain ring, or the fused one where ``p`` sets a mode (the
+// k-scale and row-reduce modes at tile width R_FUSED_BN; the row reduce
+// unsplit, with its scratch).
+template <int BN>
+int launch_ring(const ContractParams& p, cudaStream_t stream) {
+  using R = Ring<BN>;
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const bool fused = features(p) != FEAT_PLAIN;
+  const long long tiles = ((p.M + R_BM - 1) / R_BM) * ((p.N + BN - 1) / BN);
+  if (p.in_dtype != 1 || p.M < 64 || !split_ok(p, tiles) ||
+      ((p.T || p.kscale.p) && BN != R_FUSED_BN) ||
+      (p.T && (p.splits != 1 || !p.partial || !p.counter)))
     return invalid;
+  CUtensorMap ta, tb;
+  int layout = 0;
+  if (!ring_maps<BN>(p, &ta, &tb, &layout)) return invalid;
+  CUtensorMap tk{};
+  if (p.kscale.p) {
+    // the k-scale prologue reads K-major A tiles, and its vector by TMA:
+    // element k at index k (div 1, len K), 16-byte aligned, zero past K
+    const int elem = p.kscale.bf16 ? 2 : 4;
+    const hopper::Operand v{p.kscale.p, p.K, 1, 0, 1, 0};
+    if ((layout & A_MMAJOR) || p.kscale.div != 1 || p.kscale.len != p.K ||
+        !hopper::make_map(&tk, v, elem,
+                          p.kscale.bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                          R_BK, 1, false))
+      return invalid;
+  }
+  const dim3 grid((unsigned)tiles, 1, (unsigned)(p.batch * p.splits));
+  if (fused) {
+    constexpr int smem = R::SMEM + (int)sizeof(FusedSmem) + 128;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        contract_bf16_ring_fused_kernel<BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    contract_bf16_ring_fused_kernel<BN>
+        <<<grid, R_THREADS, smem, stream>>>(ta, tb, tk, p, layout);
+    return static_cast<int>(cudaGetLastError());
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
       contract_bf16_ring_kernel<BN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((unsigned)tiles, 1, (unsigned)gz);
   contract_bf16_ring_kernel<BN><<<grid, R_THREADS, R::SMEM, stream>>>(
       ta, tb, p.C, (int)p.M, (int)p.N, (int)p.K, p.sCb, p.sCm, p.sCn, layout,
+      p.out_dtype == 1, (int)p.splits, p.partial, p.counter);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The narrow body's launch (1 <= M <= BN, a plain bf16 product): x (the
+// product's A) must have unit stride along k, so x^T is the MMA's K-major
+// B, boxes of 64 k x BN tokens (rows past M zero-filled); W (the product's
+// B) is read K-major (unit stride along k) or N-major (the transposed
+// descriptor), 128 of its N a CTA.
+template <int BN>
+int launch_narrow(const ContractParams& p, cudaStream_t stream) {
+  using R = Ring<BN, N_RING_BYTES>;
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (p.N + R_BM - 1) / R_BM;
+  if (p.in_dtype != 1 || features(p) != FEAT_PLAIN || p.M < 1 ||
+      p.M > BN || !split_ok(p, tiles))
+    return invalid;
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tw, tx;
+  int layout = 0;
+  const hopper::Operand w_k{p.B, p.K, p.N, p.sBn, p.batch, p.sBb};
+  const hopper::Operand w_n{p.B, p.N, p.K, p.sBk, p.batch, p.sBb};
+  if ((p.sBk == 1 || p.K == 1) && hopper::tma_ok(w_k, 2)) {
+    if (!hopper::make_map(&tw, w_k, 2, bf16, R_BK, R_BM)) return invalid;
+  } else if ((p.sBn == 1 || p.N == 1) && hopper::tma_ok(w_n, 2)) {
+    if (!hopper::make_map(&tw, w_n, 2, bf16, 64, R_BK)) return invalid;
+    layout |= A_MMAJOR;
+  } else {
+    return invalid;
+  }
+  const hopper::Operand x_k{p.A, p.K, p.M, p.sAm, p.batch, p.sAb};
+  if (!((p.sAk == 1 || p.K == 1) && hopper::tma_ok(x_k, 2)) ||
+      !hopper::make_map(&tx, x_k, 2, bf16, R_BK, BN))
+    return invalid;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      contract_bf16_narrow_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((unsigned)tiles, 1, (unsigned)(p.batch * p.splits));
+  contract_bf16_narrow_kernel<BN><<<grid, R_THREADS, R::SMEM, stream>>>(
+      tw, tx, p.C, (int)p.N, (int)p.M, (int)p.K, p.sCb, p.sCn, p.sCm, layout,
       p.out_dtype == 1, (int)p.splits, p.partial, p.counter);
   return static_cast<int>(cudaGetLastError());
 }
@@ -921,24 +1464,42 @@ extern "C" {
 
 // Strides are in elements.  The row-reduce mode (T set) needs batch 1, a
 // (row blocks, N) f32 partial buffer and one zeroed int per column block
-// (the row and column block counts of the chosen body: contract_tile_*).
-// body 1 runs the ring (tile_n, splits; with splits > 1 a partial buffer
-// of batch x row tiles x column tiles x splits x 128 x tile_n floats and
-// one zeroed int per output tile, (batch, row tile, column tile) order),
-// or refuses.  Returns cudaGetLastError()
-// after the launch (0 = launched); nothing is synchronised, and nothing is
-// allocated here.
+// (the row and column block counts of the chosen body: contract_tile_* for
+// bodies 0, 128 x contract_ring_fused_tile_n() on the ring).  body 1 runs
+// the ring (tile_n, splits; with splits > 1 a partial buffer of batch x
+// row tiles x column tiles x splits x 128 x tile_n floats and one zeroed
+// int per output tile, (batch, row tile, column tile) order; the fused
+// modes at tile_n 128), body 2 the narrow body (tile_n 8, 16, 32 or 64 >=
+// M; with splits > 1 batch x (N / 128) x splits x 128 x tile_n floats and
+// one zeroed int per 128 columns of N), or refuses.  Every counter is 0
+// again when the launch ends, so the caller zeroes a counter buffer once
+// and reuses it.  Returns cudaGetLastError() after the launch (0 =
+// launched); nothing is synchronised, and nothing is allocated here.
 int contract_launch(const ContractParams* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->in_dtype < 0 || p->in_dtype > 1 || p->out_dtype < 0 ||
       p->out_dtype > 1 || (p->T && p->batch != 1) ||
       (p->mean.p == nullptr) != (p->var.p == nullptr) || p->act < 0 ||
-      p->act > 4 || p->body < 0 || p->body > 1)
+      p->act > 4 || p->body < 0 || p->body > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p->body == 1) {
     if (p->tile_n == 128) return launch_ring<128>(*p, s);
     if (p->tile_n == 256) return launch_ring<256>(*p, s);
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (p->body == 2) {
+    switch (p->tile_n) {
+      case 8:
+        return launch_narrow<8>(*p, s);
+      case 16:
+        return launch_narrow<16>(*p, s);
+      case 32:
+        return launch_narrow<32>(*p, s);
+      case 64:
+        return launch_narrow<64>(*p, s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   switch (p->in_dtype * 2 + p->out_dtype) {
     case 0:
@@ -964,9 +1525,14 @@ int contract_launch(const ContractParams* p, void* stream) {
 int contract_tile_m(int in_dtype) { return in_dtype == 1 ? TC_BM : BM; }
 int contract_tile_n(int in_dtype) { return in_dtype == 1 ? TC_BN : BN; }
 
-// The ring's CTA rows, checked against cuda_gen.RING_BM at load: the
-// wrapper sizes the split scratch and counters with it.
+// The ring's CTA rows (the narrow body's columns of N a CTA), checked
+// against cuda_gen.RING_BM at load: the wrapper sizes the split scratch
+// and counters with it.
 int contract_ring_tile_m(void) { return R_BM; }
+
+// The fused ring's tile width, checked against cuda_gen.RING_FUSED_BN at
+// load: the wrapper sizes the ring's row-reduce scratch with it.
+int contract_ring_fused_tile_n(void) { return R_FUSED_BN; }
 
 // sizeof(ContractParams), checked against the ctypes mirror at load.
 int contract_params_size(void) { return (int)sizeof(ContractParams); }

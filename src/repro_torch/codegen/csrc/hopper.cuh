@@ -156,6 +156,9 @@ __device__ __forceinline__ void fence_reg(float& x) {
 __device__ __forceinline__ void fence_reg(int& x) {
   asm volatile("" : "+r"(x)::"memory");
 }
+__device__ __forceinline__ void fence_reg(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
 template <typename T, int R>
 __device__ __forceinline__ void fence_regs(T (&d)[R]) {
 #pragma unroll
@@ -197,6 +200,15 @@ __device__ __forceinline__ void regs_inc() {
   "%104, %105, %106, %107, %108, %109, %110, %111," \
   "%112, %113, %114, %115, %116, %117, %118, %119," \
   "%120, %121, %122, %123, %124, %125, %126, %127}"
+#define HOPPER_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOPPER_REGS16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15}"
+#define HOPPER_REGS32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
 #define HOPPER_OP8(c, d, i)                                           \
   c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]),        \
       c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
@@ -211,8 +223,50 @@ __device__ __forceinline__ void regs_inc() {
 #define HOPPER_F "+f"
 #define HOPPER_R "+r"
 
-// d += A(64 x 16) . B(16 x 128 or 256), bf16 in, f32 accumulate; TA / TB:
-// A M-major / B N-major (transposed)
+// d += A(64 x 16) . B(16 x 8, 16, 32, 64, 128 or 256), bf16 in, f32
+// accumulate; TA / TB: A M-major / B N-major (transposed).  The narrow
+// widths are decode's x^T (8 to 64 token columns).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[4], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " HOPPER_REGS8
+      ", %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : HOPPER_OP8(HOPPER_F, d, 0)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_REGS16
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : HOPPER_OP8(HOPPER_F, d, 0), HOPPER_OP8(HOPPER_F, d, 8)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : HOPPER_OP8(HOPPER_F, d, 0), HOPPER_OP8(HOPPER_F, d, 8),
+        HOPPER_OP8(HOPPER_F, d, 16), HOPPER_OP8(HOPPER_F, d, 24)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
                                            uint64_t db) {
@@ -232,6 +286,35 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da,
       ", %128, %129, p, 1, 1, %131, %132;\n}\n"
       : HOPPER_OP128(HOPPER_F, d)
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += A(64 x 16, in registers) . B(16 x 128) from shared memory, bf16
+// in, f32 accumulate.  ``a`` is the warp's 16-row slice in mma.m16n8k16's
+// A fragment order (ldmatrix.x4's four 8 x 8 matrices: rows 0-7 and 8-15
+// of k 0-7, then of k 8-15); TB: B N-major.  The registers must hold until
+// the wgmma has retired (wgmma_wait).
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+      : HOPPER_OP64(HOPPER_F, d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB),
+        "r"(1));
+}
+
+// four 8 x 8 b16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
 // d += A(64 x 32) . B(32 x 128), int8 in, int32 accumulate (wraps modulo
@@ -305,11 +388,12 @@ inline bool tma_ok(const Operand& o, int elem) {
          stride_ok(o.batch, o.batch_stride);
 }
 
-// The 3-D map (cols, rows, batch) of ``o``, 128-byte swizzle, zero fill out
-// of bounds, boxes of box_cols x box_rows x 1.  The stride of an axis of
-// extent 1 is never used; it is set to one TMA takes.
+// The 3-D map (cols, rows, batch) of ``o``, 128-byte swizzle (or none),
+// zero fill out of bounds, boxes of box_cols x box_rows x 1.  The stride
+// of an axis of extent 1 is never used; it is set to one TMA takes.
 inline bool make_map(CUtensorMap* map, const Operand& o, int elem,
-                     CUtensorMapDataType type, int box_cols, int box_rows) {
+                     CUtensorMapDataType type, int box_cols, int box_rows,
+                     bool swizzle = true) {
   const EncodeTiled encode = encode_tiled();
   if (!encode || !tma_ok(o, elem)) return false;
   const auto up16 = [](long long bytes) { return (bytes + 15) / 16 * 16; };
@@ -324,7 +408,9 @@ inline bool make_map(CUtensorMap* map, const Operand& o, int elem,
   const cuuint32_t estride[3] = {1, 1, 1};
   return encode(map, type, 3, const_cast<void*>(o.base), dims, strides, box,
                 estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -19,13 +19,15 @@ accumulator's type, as the reference's ``_contract`` sums it), the
 operands are passed as permuted views with their strides (a copy only where a group of indices cannot be
 flattened into one stride), and the (batch, m, n) result is permuted back
 to ``spec.output`` order.  Matmul, transposed, batched and tensor
-contractions all run on the same kernel.  A plain bf16 product at M >= 64
-whose operands TMA can read runs the ring body (``contract_body``: each
-operand with unit stride on one of its two axes, so the backward's
-transposed operands go as the views they are); on the other bf16 body
-(decode's M < 64, unaligned operands, the fused modes) an operand whose
-innermost folded axis is not unit-stride is copied contiguous first, so
-that body takes its 16-byte loads.
+contractions all run on the same kernel.  A bf16 product at M >= 64
+whose operands TMA can read runs the ring body, plain or with its fused
+modes (``contract_body``: each operand with unit stride on one of its two
+axes, so the backward's transposed operands go as the views they are); a
+plain one at M < 64 (decode) the narrow body, C^T = W^T x^T on the same
+ring (``narrow_tiles``); on the mma.sync body (unaligned operands, the
+fused modes at M < 64) an operand whose innermost folded axis is not
+unit-stride is copied contiguous first, so that body takes its 16-byte
+loads.
 
 Three-operand specs are classified by their index sets, not their names
 (``_classify``), into the kernel's extra modes, one launch each:
@@ -71,8 +73,9 @@ the first operand's.
 The plan still decides shapes (operand checks, the memo key), but not the
 kernel's grid: the reference tuner scores a TPU and often picks a single
 block, while the CUDA kernels tile the output into their own CTAs (128 x
-128 or 128 x 256 on the ring, ``ring_tiles``; 64 x 128 on the mma.sync
-body; 128 x 64 on the FMA pipes for f32).
+128 or 128 x 256 on the ring, ``ring_tiles``; 128 of N by 8 to 64 tokens
+on the narrow body, ``narrow_tiles``; 64 x 128 on the mma.sync body; 128 x
+64 on the FMA pipes for f32).
 
 Devices: on a CUDA tensor the call launches a kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
@@ -114,6 +117,9 @@ from .plan import KernelPlan, build_plan
 
 #: operand / output dtypes the kernel takes, with its dtype codes
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: vector dtypes contract.cu reads as they are (no cast kernel before a
+#: launch)
+_VEC_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
 
 
@@ -248,35 +254,58 @@ class _Params(ctypes.Structure):
     )
 
 
-#: the ring body's CTA rows (checked against contract.cu's R_BM at load) and
-#: K step (R_BK; the kernel refuses a split that leaves a CTA no step)
+#: the ring body's CTA rows (checked against contract.cu's R_BM at load;
+#: the narrow body's columns of N a CTA) and K step (R_BK; the kernel
+#: refuses a split that leaves a CTA no step)
 RING_BM, RING_BK = 128, 64
+#: the fused ring's tile width in its k-scale and row-reduce modes
+#: (contract.cu's R_FUSED_BN, checked at load)
+RING_FUSED_BN = 128
 #: an H100 SXM's streaming multiprocessors (the ring's grid is sized
 #: against the card's own count at launch)
 H100_SMS = 132
+#: the narrow body's token widths (wgmma m64nBNk16's B), its CTAs resident
+#: on one SM (two 104 KB rings), the fewest K steps a split takes and the
+#: most splits a tile
+NARROW_WIDTHS = (8, 16, 32, 64)
+NARROW_PER_SM, NARROW_MIN_STEPS, NARROW_MAX_SPLITS = 2, 2, 32
+#: the bodies a launch may be forced onto
+BODIES = ("ring", "narrow", "mma")
 
 
 def contract_body(a: torch.Tensor, b: torch.Tensor, *,
-                  plain: bool = True) -> str:
+                  plain: bool = True, kscale: Optional[VecArg] = None) -> str:
     """Which body of ``contract.cu`` takes a (batch, M, K) @ b (batch, K,
-    N): ``"ring"`` (TMA and wgmma) for a ``plain`` product (no epilogue,
-    vector or row reduce) of two bf16 operands at M >= 64 whose layouts
-    TMA reads as they lie -- each operand with unit stride on one of its
-    two axes (A on k or m, B on k or n), every other stride of an axis
-    longer than 1 a positive multiple of 8 elements, 16-byte aligned
-    data; else ``"mma"`` (bf16, the mma.sync body: decode's M < 64,
-    unaligned or element-strided operands, the fused modes) or ``"fma"``
-    (f32).  A pure function of the tensors' dtypes, shapes, strides and
-    addresses; ``contract.cu``'s ``launch_ring`` checks the same rules
-    and refuses what fails them."""
+    N).  Two bf16 operands: ``"ring"`` (TMA and wgmma) at M >= 64 where
+    TMA reads both layouts as they lie -- each operand with unit stride
+    on one of its two axes (A on k or m, B on k or n), every other stride
+    of an axis longer than 1 a positive multiple of 8 elements, 16-byte
+    aligned data -- for a ``plain`` product or the fused modes (epilogue,
+    vector, row reduce; a ``kscale`` vector only with A k-contiguous and
+    the vector as its TMA map reads it: element k at index k, K elements,
+    16-byte aligned); ``"narrow"`` (decode's C^T = W^T x^T on the ring)
+    for a ``plain`` product at 1 <= M < 64 whose A (x) is k-contiguous and
+    whose B (W) is k- or n-contiguous, as TMA reads them; else ``"mma"``
+    (the mma.sync body: unaligned or element-strided operands, the fused
+    modes at M < 64).  f32: ``"fma"``.  A pure function of the tensors'
+    dtypes, shapes, strides and addresses; ``contract.cu``'s
+    ``launch_ring`` / ``launch_narrow`` check the same rules and refuse
+    what fails them."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         return "fma" if a.dtype == torch.float32 else "mma"
     _, m, k = a.shape
     n = b.shape[2]
-    if not plain or m < 64 or k < 1 or n < 1:
+    if m < 1 or k < 1 or n < 1:
         return "mma"
-    a_ok = tma_operand(a, 2, 2) or tma_operand(a, 1, 2)
     b_ok = tma_operand(b, 1, 2) or tma_operand(b, 2, 2)
+    if m < 64:
+        return "narrow" if plain and b_ok and tma_operand(a, 2, 2) else "mma"
+    if kscale is not None:
+        v = kscale.tensor
+        a_ok = tma_operand(a, 2, 2) and kscale.div == 1 and (
+            v.numel() == k and v.data_ptr() % 16 == 0)
+    else:
+        a_ok = tma_operand(a, 2, 2) or tma_operand(a, 1, 2)
     return "ring" if a_ok and b_ok else "mma"
 
 
@@ -289,14 +318,16 @@ class RingPlan(NamedTuple):
 
 
 def ring_tiles(batch: int, m: int, n: int, k: int,
-               sms: int = H100_SMS) -> RingPlan:
+               sms: int = H100_SMS, narrow_tile: bool = False) -> RingPlan:
     """The ring's tile for a (batch, M, K) @ (batch, K, N) product on a card
     of ``sms`` multiprocessors (one CTA each).  ``tile_n`` 256 where there
     are at least ``sms`` such tiles and their waves cost less than those of
     128-wide tiles, counting a 128-wide tile at 85 % of the wider one's
-    rate; else 128.  Where the output has fewer tiles than ``sms / 2``, the
-    K steps are split over up to 16 CTAs a tile (at least 4 steps each) so
-    the grid fills the card, evened out so no split is empty."""
+    rate; else 128, and always 128 where ``narrow_tile`` (the fused ring's
+    k-scale and row-reduce modes).  Where the
+    output has fewer tiles than ``sms / 2``, the K steps are split over up
+    to 16 CTAs a tile (at least 4 steps each) so the grid fills the card,
+    evened out so no split is empty."""
     nk = -(-k // RING_BK)
     rows = batch * -(-m // RING_BM)
 
@@ -307,7 +338,7 @@ def ring_tiles(batch: int, m: int, n: int, k: int,
         return -(-tiles(bn) // sms)
 
     bn = 128
-    if n > 128 and tiles(256) >= sms and (
+    if not narrow_tile and n > 128 and tiles(256) >= sms and (
         waves(256) * 256 * 0.85 < waves(128) * 128
     ):
         bn = 256
@@ -318,6 +349,59 @@ def ring_tiles(batch: int, m: int, n: int, k: int,
         per = -(-nk // splits)
         splits = -(-nk // per)
     return RingPlan(bn, splits)
+
+
+class NarrowPlan(NamedTuple):
+    """The narrow body's tile: ``rows`` of the product's N a CTA by
+    ``tile_n`` token columns, the K steps split across ``splits`` CTAs."""
+
+    tile_n: int
+    rows: int
+    splits: int
+
+
+def narrow_tiles(m: int, n: int, k: int, sms: int = H100_SMS,
+                 batch: int = 1) -> NarrowPlan:
+    """The narrow body's tile for a decode product of ``m`` tokens, (batch,
+    m, K) @ (batch, K, N), on a card of ``sms`` multiprocessors:
+    ``tile_n`` the narrowest of ``NARROW_WIDTHS`` that holds the M tokens
+    (64 past it; the kernel refuses M > tile_n), 128 of N a CTA, and the
+    K steps split so the grid holds as many CTAs as fit on the card at
+    once (``NARROW_PER_SM`` an SM) without a second wave, each split at
+    least ``NARROW_MIN_STEPS`` steps and at most ``NARROW_MAX_SPLITS``,
+    evened out so no split is empty.  The weights' bytes bound a decode
+    product, so what counts is a full card of CTAs each with its ring of
+    TMA loads in flight."""
+    tile_n = next((w for w in NARROW_WIDTHS if w >= m), NARROW_WIDTHS[-1])
+    nk = -(-k // RING_BK)
+    tiles = batch * -(-n // RING_BM)
+    splits = max(1, min(NARROW_PER_SM * sms // tiles,
+                        nk // NARROW_MIN_STEPS, NARROW_MAX_SPLITS,
+                        _MAX_GRID_YZ // batch))
+    per = -(-nk // splits)
+    return NarrowPlan(tile_n, RING_BM, -(-nk // per))
+
+
+def scratch_sizes(body: str, batch: int, m: int, n: int, plan=None, *,
+                  row_reduce: bool = False,
+                  tile: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
+    """(f32 partials, int counters) a launch of ``body`` needs: the row
+    reduce one partial row per row block of the body's CTA tile (the
+    ring's 128 x ``RING_FUSED_BN``, else ``tile``, the mma.sync or FMA
+    body's (rows, columns)) and a counter per column block; a K split
+    (``plan.splits`` > 1) one partial tile per split of every output tile
+    and a counter per tile (the ring's 128 x ``plan.tile_n`` tiles; the
+    narrow body's 128 of N by ``plan.tile_n`` tokens); else none."""
+    if row_reduce:
+        tm, tn = (RING_BM, RING_FUSED_BN) if body == "ring" else tile
+        return -(-m // tm) * n, -(-n // tn)
+    if plan is None or plan.splits == 1:
+        return 0, 0
+    if body == "narrow":
+        tiles = batch * -(-n // RING_BM)
+    else:
+        tiles = batch * -(-m // RING_BM) * -(-n // plan.tile_n)
+    return tiles * plan.splits * RING_BM * plan.tile_n, tiles
 
 
 _SM_COUNT: Dict[int, int] = {}
@@ -332,14 +416,44 @@ def _sm_count(device: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
+class _Scratch:
+    """B1's split and row-reduce scratch, one pair of buffers per (device,
+    stream), grown and reused.  The partials are written before they are
+    read; the counters are zeroed once, when a buffer is allocated, and
+    every launch sets those it used back to 0, so a launch fills nothing
+    (no ``torch.zeros`` kernel before every split GEMM).  Launches on one
+    stream run in order, so they share a pair safely."""
+
+    def __init__(self):
+        self._bufs: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def get(self, device: torch.device, stream: int, floats: int,
+            ints: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        key = (device, stream)
+        part, count = self._bufs.get(key, (None, None))
+        if part is None or part.numel() < floats:
+            have = 0 if part is None else part.numel()
+            part = torch.empty(max(floats, 2 * have), dtype=torch.float32,
+                               device=device)
+        if count is None or count.numel() < ints:
+            have = 0 if count is None else count.numel()
+            count = torch.zeros(max(ints, 2 * have, 1024), dtype=torch.int32,
+                                device=device)
+        self._bufs[key] = (part, count)
+        return part, count
+
+
 class ContractLauncher:
     """The ctypes wrapper of ``contract_launch``; counts its launches.
 
     ``launches`` goes up by one for every kernel launch and for nothing
     else, so a run can show that its GEMMs went through the kernel.
     ``last_body`` names the body of the latest launch (``"ring"``,
-    ``"mma"`` or ``"fma"``, ``contract_body``'s words) and ``last_plan``
-    its ``RingPlan`` (None off the ring).
+    ``"narrow"``, ``"mma"`` or ``"fma"``, ``contract_body``'s words) and
+    ``last_plan`` its ``RingPlan`` or ``NarrowPlan`` (None off those two).
+    Split and row-reduce scratch comes from a pool that grows and is
+    reused (``_Scratch``), so a launch allocates nothing in the common
+    case and launches no other kernel.
     """
 
     def __init__(self):
@@ -348,6 +462,7 @@ class ContractLauncher:
         self.last_plan = None
         self._lib = None
         self._tiles = {}  # dtype code -> (CTA rows, CTA columns)
+        self._scratch = _Scratch()
 
     def _fn(self):
         if self._lib is None:
@@ -367,12 +482,15 @@ class ContractLauncher:
                     f"{lib.contract_params_size()} bytes, its ctypes mirror "
                     f"{ctypes.sizeof(_Params)}"
                 )
-            lib.contract_ring_tile_m.restype = ctypes.c_int
-            if lib.contract_ring_tile_m() != RING_BM:
-                raise RuntimeError(
-                    f"contract.cu's ring tile has "
-                    f"{lib.contract_ring_tile_m()} rows, RING_BM says "
-                    f"{RING_BM}")
+            for fn, want, what in (
+                (lib.contract_ring_tile_m, RING_BM, "RING_BM"),
+                (lib.contract_ring_fused_tile_n, RING_FUSED_BN,
+                 "RING_FUSED_BN"),
+            ):
+                fn.restype = ctypes.c_int
+                if fn() != want:
+                    raise RuntimeError(f"contract.cu's {fn.__name__}() is "
+                                       f"{fn()}, {what} says {want}")
             self._lib = lib
         return self._lib
 
@@ -389,8 +507,9 @@ class ContractLauncher:
         ``epilogue`` with its ``vectors`` act on the accumulator before the
         store.  With ``t`` (M, N) (batch 1) the result is instead the (N,)
         vector ``sum_m (a @ b)[m, n] * t[m, n]``.  ``body`` forces a body
-        (``"ring"`` or ``"mma"``); by default ``contract_body`` picks it.
-        The kernel refuses a forced ring it cannot take, and this raises.
+        (``BODIES``); by default ``contract_body`` picks it.  The kernel
+        refuses a forced ring or narrow body it cannot take, and this
+        raises.
         """
         if a.device.type != "cuda" or b.device != a.device:
             raise ValueError(
@@ -420,7 +539,7 @@ class ContractLauncher:
         if code not in self._tiles:
             self._tiles[code] = (lib.contract_tile_m(code),
                                  lib.contract_tile_n(code))
-        tile_m, tile_n = self._tiles[code]
+        tile_m = self._tiles[code][0]
         if batch > _MAX_GRID_YZ or -(-m // tile_m) > _MAX_GRID_YZ:
             raise ValueError(f"contract kernel grid too large for batch "
                              f"{batch}, M {m}")
@@ -430,23 +549,25 @@ class ContractLauncher:
         plain = kscale is None and mul is None and t is None and (
             epilogue is None or epilogue.is_identity)
         if body is None:
-            body = contract_body(a, b, plain=plain)
-        elif body not in ("ring", "mma"):
-            raise ValueError(f"contract kernel body {body!r}: 'ring' or "
-                             f"'mma'")
+            body = contract_body(a, b, plain=plain, kscale=kscale)
+        elif body not in BODIES:
+            raise ValueError(f"contract kernel body {body!r}: one of "
+                             f"{BODIES}")
         p = _Params(A=a.data_ptr(), B=b.data_ptr(), batch=batch, M=m, N=n,
                     K=k, in_dtype=code, out_dtype=_KERNEL_DTYPES[out_dtype],
-                    body=int(body == "ring"), tile_n=0, splits=1)
+                    body={"ring": 1, "narrow": 2}.get(body, 0), tile_n=0,
+                    splits=1)
         p.sAb, p.sAm, p.sAk = a.stride()
         p.sBb, p.sBk, p.sBn = b.stride()
         extents = (batch, m, n, k)
         if kscale is not None:
-            set_vec(p, "kscale", kscale, a.device, torch.float32, (3,),
+            set_vec(p, "kscale", kscale, a.device, _VEC_DTYPES, (3,),
                     extents)
         if mul is not None:
-            set_vec(p, "mul", mul, a.device, torch.float32, (0, 1, 2),
+            set_vec(p, "mul", mul, a.device, _VEC_DTYPES, (0, 1, 2),
                     extents)
-        set_epilogue(p, epilogue, vectors, a.device, (0, 1, 2), extents)
+        set_epilogue(p, epilogue, vectors, a.device, (0, 1, 2), extents,
+                     _VEC_DTYPES)
         if t is not None:
             if batch != 1 or tuple(t.shape) != (m, n) or t.dtype != a.dtype or (
                 t.device != a.device or min(t.stride()) < 0
@@ -463,12 +584,7 @@ class ContractLauncher:
                 return c
             if m == 0:  # no row blocks: an empty sum
                 return c.zero_()
-            partial = torch.empty((-(-m // tile_m), n), dtype=torch.float32,
-                                  device=a.device)
-            counter = torch.zeros(-(-n // tile_n), dtype=torch.int32,
-                                  device=a.device)
-            p.T, p.partial, p.counter = (t.data_ptr(), partial.data_ptr(),
-                                         counter.data_ptr())
+            p.T = t.data_ptr()
             p.sTm, p.sTn = t.stride()
             p.sCn = c.stride(0)
         else:
@@ -477,21 +593,24 @@ class ContractLauncher:
                 return c
             p.sCb, p.sCm, p.sCn = c.stride()
         plan = None
-        if body == "ring" and t is None:
-            plan = ring_tiles(batch, m, n, k, _sm_count(a.device))
-            p.tile_n, p.splits = plan
-            if plan.splits > 1:  # partial tiles, one counter per tile
-                tiles = batch * -(-m // RING_BM) * -(-n // plan.tile_n)
-                partial = torch.empty(tiles * plan.splits * RING_BM *
-                                      plan.tile_n, dtype=torch.float32,
-                                      device=a.device)
-                counter = torch.zeros(tiles, dtype=torch.int32,
-                                      device=a.device)
-                p.partial, p.counter = partial.data_ptr(), counter.data_ptr()
+        if body == "ring":
+            plan = (RingPlan(RING_FUSED_BN, 1) if t is not None else
+                    ring_tiles(batch, m, n, k, _sm_count(a.device),
+                               narrow_tile=kscale is not None))
+        elif body == "narrow":
+            plan = narrow_tiles(m, n, k, _sm_count(a.device), batch=batch)
+        if plan is not None:
+            p.tile_n, p.splits = plan.tile_n, plan.splits
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        floats, ints = scratch_sizes(body, batch, m, n, plan,
+                                     row_reduce=t is not None,
+                                     tile=self._tiles[code])
+        if floats or ints:
+            partial, counter = self._scratch.get(a.device, stream, floats,
+                                                 ints)
+            p.partial, p.counter = partial.data_ptr(), counter.data_ptr()
         p.C = c.data_ptr()
-        rc = lib.contract_launch(
-            ctypes.byref(p), torch.cuda.current_stream(a.device).cuda_stream
-        )
+        rc = lib.contract_launch(ctypes.byref(p), stream)
         if rc != 0:
             raise RuntimeError(f"contract kernel launch failed ({body} "
                                f"body): cudaGetLastError() = {rc}")
@@ -694,11 +813,12 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
     batch, m, n, k = _fold(ia, ib, target)
-    if fold.kind == "gemm" and batch + m + n != list(target) and (
-        batch + n + m == list(target)
-    ):
+    if fold.kind in ("gemm", "vector") and batch + m + n != list(
+        target
+    ) and batch + n + m == list(target):
         # the product the other way round lands in the output's order: no
-        # transposing copy of the result (matmul.dB: A = x^T, B = dout)
+        # transposing copy of the result (matmul.dB: A = x^T, B = dout;
+        # weighted_matmul.dB likewise, g then on the rows)
         a, b, ia, ib = b, a, ib, ia
         batch, m, n, k = _fold(ia, ib, target)
     size = lambda idx: math.prod(ext[i] for i in idx)  # noqa: E731
@@ -708,21 +828,37 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
     b3 = b.permute([ib.index(i) for i in batch + k + n]).reshape(
         size(batch), size(k), size(n)
     )
+    groups = (batch, m, n, k)
+    vec_dtype = torch.int32 if int_acc else torch.float32
+
+    def as_vec(x):
+        # contract.cu reads f32 and bf16 vectors as they are; the 8-bit
+        # kernels take vec_dtype
+        if not (plain and x.dtype in _VEC_DTYPES):
+            x = x.to(vec_dtype)
+        return x.reshape(-1).contiguous()
+
+    vec = None
+    if fold.kind == "vector":
+        (j,) = spec.operands[fold.extra]
+        vec = VecArg(as_vec(arrays[fold.extra]),
+                     *_group_of(j, *groups, ext))
     if plain and a3.dtype == torch.bfloat16 and contract_body(
         a3, b3, plain=fold.kind == "gemm" and (
-            epilogue is None or epilogue.is_identity)) != "ring":
-        # the ring reads every layout as it lies; the mma.sync body loads
-        # 16 bytes at a time only where A is k-major and B n-major, so
-        # there a transposed operand is copied so once instead of loaded
-        # element by element
+            epilogue is None or epilogue.is_identity),
+            kscale=vec if vec is not None and vec.axis == 3 else None
+    ) == "mma":
+        # the ring and narrow bodies read their layouts as they lie; the
+        # mma.sync body loads 16 bytes at a time only where A is k-major
+        # and B n-major, so there a transposed operand is copied so once
+        # instead of loaded element by element
         if a3.stride(2) != 1:
             a3 = a3.contiguous()
         if b3.stride(2) != 1:
             b3 = b3.contiguous()
     if plain:
-        launcher, kw, vec_dtype = CONTRACT, {}, torch.float32
+        launcher, kw = CONTRACT, {}
     else:
-        vec_dtype = torch.int32 if int_acc else torch.float32
         kw = {"int_acc": int_acc}
         eight = (torch.int8, torch.float8_e4m3fn)
         if fold.kind == "gemm" and a3.dtype == b3.dtype and (
@@ -740,19 +876,15 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
         t2 = t.permute([it.index(i) for i in m + n]).reshape(size(m), size(n))
         return launcher(a3, b3, out_dtype, t=t2, **kw).reshape(
             [ext[i] for i in spec.output])
-    groups = (batch, m, n, k)
-    if fold.kind == "vector":
-        (j,) = spec.operands[fold.extra]
-        axis, div = _group_of(j, *groups, ext)
-        vec = VecArg(arrays[fold.extra].to(vec_dtype).reshape(-1)
-                     .contiguous(), axis, div)
-        kw["kscale" if axis == 3 else "mul"] = vec
+    if vec is not None:
+        kw["kscale" if vec.axis == 3 else "mul"] = vec
     if epilogue is not None and not epilogue.is_identity:
         last = spec.output[-1]
         axis, div = _group_of(last, *groups, ext)
         vecs = {}
         for name in epilogue.vector_names:
-            v = vectors[name].float().reshape(-1).contiguous()
+            v = (as_vec(vectors[name]) if plain
+                 else vectors[name].float().reshape(-1).contiguous())
             if v.numel() != ext[last]:
                 raise ValueError(f"epilogue vector {name}: {v.numel()} "
                                  f"elements for output axis {last!r} of "

@@ -42,11 +42,12 @@ _MAX_GRID_YZ = 65535
 
 class _Vec(ctypes.Structure):
     """``struct Vec`` of contract.cu and contract_q8.cu, ``struct
-    ChainVec`` of contract_chain.cu: one layout."""
+    ChainVec`` of contract_chain.cu: one layout.  ``bf16`` marks a bf16
+    vector, which only contract.cu reads (the others' ``pad``, 0)."""
 
     _fields_ = [("p", ctypes.c_void_p), ("div", ctypes.c_longlong),
                 ("len", ctypes.c_longlong), ("axis", ctypes.c_int),
-                ("pad", ctypes.c_int)]
+                ("bf16", ctypes.c_int)]
 
 
 class _Q8Params(ctypes.Structure):
@@ -156,26 +157,31 @@ def _load(source: str, params, entries):
 
 def set_vec(p, field: str, vec: VecArg, device, dtype, axes, extents):
     """Check ``vec`` against the launch and write it into ``p.<field>``
-    (``extents``: the folded (batch, m, n, k) sizes the axes index)."""
+    (``extents``: the folded (batch, m, n, k) sizes the axes index;
+    ``dtype``: the vector's dtype, or a tuple of those the kernel reads)."""
     x = vec.tensor
-    if x.device != device or x.dtype != dtype or x.dim() != 1 or (
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if x.device != device or x.dtype not in dtypes or x.dim() != 1 or (
         not x.is_contiguous()
     ):
-        raise ValueError(f"vector {field} must be a contiguous 1-D {dtype} "
-                         f"tensor on {device}")
+        raise ValueError(f"vector {field} must be a contiguous 1-D "
+                         f"{' or '.join(map(str, dtypes))} tensor on "
+                         f"{device}")
     if vec.axis not in axes or vec.div < 1 or x.numel() < 1 or (
         x.numel() * vec.div > max(extents[vec.axis], 1)
     ):
         raise ValueError(f"vector {field} of {x.numel()} elements (div "
                          f"{vec.div}) does not fit axis {vec.axis}")
     setattr(p, field, _Vec(p=x.data_ptr(), div=vec.div, len=x.numel(),
-                           axis=vec.axis))
+                           axis=vec.axis,
+                           bf16=int(x.dtype == torch.bfloat16)))
 
 
 def set_epilogue(p, epilogue: Optional[Epilogue],
                  vectors: Optional[Dict[str, VecArg]], device, axes,
-                 extents):
-    """Write the epilogue's stages and f32 vectors into ``p``."""
+                 extents, dtype=torch.float32):
+    """Write the epilogue's stages and vectors (``dtype``, as ``set_vec``
+    takes it: f32 unless the kernel reads others) into ``p``."""
     if epilogue is None:
         if vectors:
             raise TypeError(f"epilogue vectors {sorted(vectors)} without an "
@@ -186,7 +192,7 @@ def set_epilogue(p, epilogue: Optional[Epilogue],
         raise TypeError(f"epilogue vectors {sorted(vectors or {})}, "
                         f"expected {sorted(want)}")
     for name, vec in (vectors or {}).items():
-        set_vec(p, name, vec, device, torch.float32, axes, extents)
+        set_vec(p, name, vec, device, dtype, axes, extents)
     p.act = ACT_CODES[epilogue.act]
     p.eps = epilogue.eps
 

@@ -95,7 +95,28 @@ from ..core.enumerate import (
     transposed_matmul_spec,
     weighted_matmul_spec,
 )
+from ..codegen.cache import default_cache
+from ..codegen.cache import generation as cache_generation
+from ..obs import counter
 from ..search import active_phase, default_plan_db
+
+
+#: ``_tuned_kernel``'s answers for the process: key -> (cache generation
+#: at the lookup's end, kernel); emptied past ``_MEMO_MAX`` keys
+_LOOKUPS: dict = {}
+_MEMO_MAX = 4096
+
+
+def _spec_key(spec) -> tuple:
+    """The root contraction's identity as ``codegen.cache.spec_signature``
+    defines it, as a hashable tuple (no JSON on the hot path)."""
+    root = spec.root()
+    q = root.quant
+    kind = getattr(root, "fused_kind", "")
+    return (root.name, tuple(root.operands.items()), root.output,
+            tuple(root.extents.items()), root.reducer,
+            None if q is None else (q.dtype, q.accum, q.scale),
+            (kind, repr(sorted(root.fused_meta().items()))) if kind else None)
 
 
 def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
@@ -104,19 +125,36 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
 
     Lookup order as in the reference (no mesh tier yet): the active
     serving phase's ladder, then the unphased ladder, then the analytic
-    tuner with its persistent cache.
+    tuner with its persistent cache.  The answer is kept for the process
+    (the reference looks up once per trace), keyed on the spec, dtype,
+    epilogue, output dtype, ``interpret``, the active phase and the plan
+    DB's and tuner cache's paths, and dropped when either cache is opened,
+    written or cleared (``codegen.cache.generation``); ``obs`` counts
+    ``ops.lookup.memo_hit`` / ``.memo_miss``.  A hit skips the plan DB,
+    the tuner cache and ``cached_compile``, and their counters.
     """
     db = default_plan_db()
-    schedule = None
     phase = active_phase()
+    key = (_spec_key(spec), dtype, epilogue, out_dtype, interpret, phase,
+           getattr(db, "path", None), default_cache().path)
+    kept = _LOOKUPS.get(key)
+    if kept is not None and kept[0] == cache_generation():
+        counter("ops.lookup.memo_hit").inc()
+        return kept[1]
+    counter("ops.lookup.memo_miss").inc()
+    schedule = None
     if phase is not None:
         schedule = db.best_schedule(spec, dtype, phase=phase)
     if schedule is None:
         schedule = db.best_schedule(spec, dtype)
     if schedule is None:
         schedule = tune_schedule(spec, dtype=dtype)
-    return cached_compile(spec, schedule, epilogue=epilogue,
+    kern = cached_compile(spec, schedule, epilogue=epilogue,
                           out_dtype=out_dtype, interpret=interpret)
+    if len(_LOOKUPS) >= _MEMO_MAX:
+        _LOOKUPS.clear()
+    _LOOKUPS[key] = (cache_generation(), kern)
+    return kern
 
 
 def warm_dense_cache(shapes, dtype=torch.bfloat16) -> int:

@@ -191,9 +191,10 @@ def test_dense_interpret_matches_reference_at_aligned_shape():
     got = port_ops.dense(torch.from_numpy(x), torch.from_numpy(w),
                          interpret=True)
     counters = obs.metrics_json()["counters"]
-    # the call went through the generated-kernel pipeline
+    # the call went through the generated-kernel pipeline: one lookup,
+    # answered by ops' process memo or by cached_compile
     assert counters.get("codegen.memo.miss", 0) + counters.get(
-        "codegen.memo.hit", 0) == 1
+        "codegen.memo.hit", 0) + counters.get("ops.lookup.memo_hit", 0) == 1
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
@@ -209,6 +210,8 @@ def test_dense_unaligned_takes_matmul_route_on_both_sides():
     counters = obs.metrics_json()["counters"]
     assert "codegen.memo.miss" not in counters
     assert "codegen.memo.hit" not in counters
+    assert "ops.lookup.memo_hit" not in counters
+    assert "ops.lookup.memo_miss" not in counters
     assert not port_ops._dense_kernel_ok(torch.from_numpy(x),
                                          torch.from_numpy(w), True)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

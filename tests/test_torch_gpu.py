@@ -12,7 +12,10 @@ flash-attention kernel (``codegen/csrc/attention.cu``, B2) with
 ``ops.attention``'s 1 + 3 launches, with and without ``kv_lengths``, and
 B1's ring bodies (TMA and wgmma: the bf16 ring in its four operand
 layouts, batched and split, the 8-bit ring, two launches equal bit for
-bit, a forced ring refused where it cannot read the layout).
+bit, a forced ring refused where it cannot read the layout; the fused
+ring in every mode and layout, split, its row reduce bit for bit; the
+narrow body at decode's token counts and GEMMs, one launch a GEMM and
+nothing else).
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided inside the ``cuda_device`` fixture).  The file imports torch and
@@ -1323,8 +1326,9 @@ def test_rings_give_equal_bits_twice(cuda_device):
 @pytest.mark.gpu
 def test_forced_ring_refuses_what_it_cannot_take(cuda_device):
     """A ring forced on a layout TMA cannot read (rows of 130 bf16 or 999
-    bytes, an n-major 8-bit B, M < 64) or on a fused mode is refused by the
-    kernel's launch and the wrapper raises; nothing switches body."""
+    bytes, an n-major 8-bit B, M < 64) or on the k-scale mode with an
+    m-major A is refused by the kernel's launch and the wrapper raises;
+    nothing switches body."""
     gen = torch.Generator(device=cuda_device).manual_seed(64)
     a = torch.randn(1, 128, 130, generator=gen, device=cuda_device).bfloat16()
     b = torch.randn(1, 130, 64, generator=gen, device=cuda_device).bfloat16()
@@ -1335,11 +1339,14 @@ def test_forced_ring_refuses_what_it_cannot_take(cuda_device):
     b = torch.randn(1, 64, 64, generator=gen, device=cuda_device).bfloat16()
     with pytest.raises(RuntimeError, match="ring body"):
         cuda_gen.CONTRACT(a, b, torch.bfloat16, body="ring")
-    a = torch.randn(1, 128, 64, generator=gen, device=cuda_device).bfloat16()
+    # the fused ring's k-scale pass rewrites K-major A tiles only
+    a = torch.randn(1, 64, 128, generator=gen, device=cuda_device
+                    ).bfloat16().transpose(1, 2)
     with pytest.raises(RuntimeError, match="ring body"):
         cuda_gen.CONTRACT(a, b, torch.bfloat16, body="ring",
-                          mul=modes.VecArg(torch.ones(64, device=cuda_device),
-                                           2))
+                          kscale=modes.VecArg(torch.ones(64,
+                                                         device=cuda_device),
+                                              3))
     assert cuda_gen.CONTRACT.launches == before
     for fmt in ("int8", "fp8"):
         launcher = _launcher_of(fmt)
@@ -1356,3 +1363,202 @@ def test_forced_ring_refuses_what_it_cannot_take(cuda_device):
                                          cuda_device).t()[None],
                      out_dtype, int_acc=fmt == "int8", body="ring")
         assert launcher.launches == before
+
+
+# --------------------------------------------------------------------------
+# contract.cu's fused ring and narrow body
+# --------------------------------------------------------------------------
+
+
+def _fused_case(mode, m, n, k, gen, device):
+    """(launcher keywords, the f32 reference's tail) of one fused mode on a
+    (m, k) @ (k, n) product: the epilogue (gelu with norm; relu with scale
+    and bias), the k-scale prologue, a multiplier along n or m, and the
+    row reduce with its T."""
+    VA = modes.VecArg
+    vec = lambda length: torch.randn(length, generator=gen,  # noqa: E731
+                                     device=device)
+    if mode.startswith("epilogue"):
+        norm = mode.endswith("norm")
+        epi = codegen.Epilogue(act="gelu" if norm else "relu", bias=True,
+                               scale=not norm, norm=norm)
+        vs = {"scale": vec(n), "bias": vec(n), "mean": vec(n) * 0.1,
+              "var": torch.rand(n, generator=gen, device=device) + 0.5}
+        vs = {name: vs[name] for name in epi.vector_names}
+        return ({"epilogue": epi,
+                 "vectors": {k_: VA(v, 2) for k_, v in vs.items()}},
+                lambda acc: epi.apply(acc, {k_: v[None] for k_, v in
+                                            vs.items()}))
+    if mode == "kscale":
+        g = vec(k).bfloat16()
+        return {"kscale": VA(g, 3)}, g
+    if mode in ("mul_n", "mul_m"):
+        g = vec(n if mode == "mul_n" else m).bfloat16()
+        shape = (1, n) if mode == "mul_n" else (m, 1)
+        return ({"mul": VA(g, 2 if mode == "mul_n" else 1)},
+                lambda acc: acc * g.float().reshape(shape))
+    t = torch.randn(m, n, generator=gen, device=device).bfloat16()
+    return {"t": t}, lambda acc: (acc * t.float()).sum(0)
+
+
+def _fused_reference(mode, a, b, tail):
+    if mode == "kscale":  # A scaled in f32, rounded once to bf16
+        a = (a.float() * tail.float()[None]).bfloat16()
+        return a.float() @ b.float()
+    return tail(a.float() @ b.float())
+
+
+FUSED_MODES = ("epilogue_norm", "epilogue_scale", "kscale", "mul_n", "mul_m",
+               "row_reduce")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b_kmajor", [False, True], ids=["B_nmajor",
+                                                         "B_kmajor"])
+@pytest.mark.parametrize("a_mmajor", [False, True], ids=["A_kmajor",
+                                                         "A_mmajor"])
+@pytest.mark.parametrize("mode", FUSED_MODES)
+def test_fused_ring_every_mode_and_layout(cuda_device, mode, a_mmajor,
+                                          b_kmajor, out_dtype):
+    """Every fused mode on the ring in the four operand layouts (M, N and K
+    off the tile multiples), bf16 and f32 output, against the f32
+    product with the same tail; the k-scale mode with an m-major A keeps
+    the mma.sync body (its pass rewrites K-major tiles only)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(70)
+    m, k, n = 200, 1000, 264
+    a = _bf16_view(m, k, gen, cuda_device, a_mmajor)
+    b = _bf16_view(k, n, gen, cuda_device, b_kmajor)
+    kw, tail = _fused_case(mode, m, n, k, gen, cuda_device)
+    got = cuda_gen.CONTRACT(a[None], b[None], out_dtype, **kw)
+    want = _fused_reference(mode, a, b, tail)
+    assert cuda_gen.CONTRACT.last_body == (
+        "mma" if mode == "kscale" and a_mmajor else "ring")
+    _assert_close_scaled(got.reshape(want.shape), want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["epilogue_norm", "mul_m", "kscale"])
+def test_fused_ring_split_k(cuda_device, mode):
+    """A few-tile shape (M = 128, N = 1024) splits K over 16 CTAs; the last
+    to arrive sums the partials, then applies the epilogue (a non-linear
+    activation needs the whole sum): within the TOL, and equal bits on
+    two launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(71)
+    m, k, n = 128, 4096, 1024
+    a = torch.randn(m, k, generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn(k, n, generator=gen, device=cuda_device).bfloat16()
+    kw, tail = _fused_case(mode, m, n, k, gen, cuda_device)
+    first = cuda_gen.CONTRACT(a[None], b[None], torch.bfloat16, **kw)
+    assert cuda_gen.CONTRACT.last_body == "ring"
+    assert cuda_gen.CONTRACT.last_plan.splits > 1
+    assert torch.equal(first, cuda_gen.CONTRACT(a[None], b[None],
+                                                torch.bfloat16, **kw))
+    _assert_close_scaled(first[0], _fused_reference(mode, a, b, tail),
+                         torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_fused_ring_row_reduce_gives_equal_bits(cuda_device):
+    """``weighted_matmul.dg`` on the ring, compiled and called as the
+    backward does at a mid size: two launches equal bit for bit (no float
+    atomics), within the TOL of ``contract_ref``."""
+    from repro_torch.grad import derived_specs
+
+    gen = torch.Generator(device=cuda_device).manual_seed(72)
+    spec = derived_specs(PE.weighted_matmul_spec(512, 1024, 1536))["g"]
+    args = [torch.randn([spec.extents[i] for i in ax], generator=gen,
+                        device=cuda_device).bfloat16()
+            for ax in spec.operands.values()]
+    kern = codegen.compile(spec, codegen.default_schedule(spec))
+    first = kern(*args)
+    assert cuda_gen.CONTRACT.last_body == "ring"
+    assert torch.equal(first, kern(*args))
+    want = cuda_gen.contract_ref(spec, *args, out_dtype=torch.bfloat16)
+    _assert_close_scaled(first, want, torch.bfloat16)
+
+
+#: qwen3-8b's decode GEMMs (K, N): q/o, k/v, gate/up, down
+DECODE_GEMMS = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 33, 63])
+def test_narrow_body_at_the_decode_gemms(cuda_device, m):
+    """The narrow body (C^T = W^T x^T) at M tokens over a qwen3-8b layer's
+    GEMMs, W n-major as the model holds it and k-major (W^T's storage):
+    within the bf16 TOL of the f32 product, equal bits on two launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(73)
+    for k, n in DECODE_GEMMS:
+        x = torch.randn(1, m, k, generator=gen, device=cuda_device).bfloat16()
+        w = torch.randn(1, k, n, generator=gen, device=cuda_device).bfloat16()
+        for wv in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
+            got = cuda_gen.CONTRACT(x, wv, torch.bfloat16)
+            assert cuda_gen.CONTRACT.last_body == "narrow"
+            assert torch.equal(got, cuda_gen.CONTRACT(x, wv, torch.bfloat16))
+            _assert_close_scaled(got, x.float() @ w.float(), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_narrow_body_batched_f32_out_and_forced_refusals(cuda_device):
+    """A batch of 3 decode products (f32 output); a forced narrow body it
+    cannot take -- M = 100 tokens, an m-contiguous x, a fused mode -- is
+    refused by the kernel's launch and the wrapper raises."""
+    gen = torch.Generator(device=cuda_device).manual_seed(74)
+    x = torch.randn(3, 5, 512, generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn(3, 512, 640, generator=gen, device=cuda_device).bfloat16()
+    got = cuda_gen.CONTRACT(x, w, torch.float32)
+    assert cuda_gen.CONTRACT.last_body == "narrow"
+    _assert_close_scaled(got, torch.bmm(x.float(), w.float()),
+                         torch.bfloat16)
+    before = cuda_gen.CONTRACT.launches
+    big = torch.randn(1, 100, 512, generator=gen, device=cuda_device
+                      ).bfloat16()
+    with pytest.raises(RuntimeError, match="narrow body"):
+        cuda_gen.CONTRACT(big, w[:1], torch.bfloat16, body="narrow")
+    xt = torch.randn(1, 512, 8, generator=gen, device=cuda_device
+                     ).bfloat16().transpose(1, 2)
+    with pytest.raises(RuntimeError, match="narrow body"):
+        cuda_gen.CONTRACT(xt, w[:1], torch.bfloat16, body="narrow")
+    with pytest.raises(RuntimeError, match="narrow body"):
+        cuda_gen.CONTRACT(x[:1], w[:1], torch.bfloat16, body="narrow",
+                          mul=modes.VecArg(torch.ones(640,
+                                                      device=cuda_device), 2))
+    assert cuda_gen.CONTRACT.launches == before
+
+
+@pytest.mark.gpu
+def test_decode_layer_launches_only_the_contract_kernel(cuda_device,
+                                                        tmp_path):
+    """A decode step's GEMMs of one qwen3-8b layer through ``ops.dense``
+    (4 tokens; q, k, v, o, gate, up, down) under ``torch.profiler``: one
+    contract launch each, and no other device work -- no counter fill, no
+    operand copy."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda_device).manual_seed(75)
+    xs = {k: torch.randn(4, k, generator=gen, device=cuda_device).bfloat16()
+          for k in (4096, 12288)}
+    ws = [torch.randn(k, n, generator=gen, device=cuda_device).bfloat16()
+          for k, n in ((4096, 4096), (4096, 1024), (4096, 1024),
+                       (4096, 4096), (4096, 12288), (4096, 12288),
+                       (12288, 4096))]
+
+    def layer():
+        for w in ws:
+            ops.dense(xs[w.shape[0]], w)
+
+    layer()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        layer()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in (
+                  "kernel", "gpu_memcpy", "gpu_memset")]
+    ours = [e for e in events if "contract_bf16_narrow_kernel" in e]
+    assert len(ours) == len(ws) and len(events) == len(ws), events
