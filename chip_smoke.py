@@ -17,7 +17,8 @@ raises and the script exits non-zero without the final result line:
    ``codegen/csrc/baselines.cu`` (B5, B6, B7) and
    ``codegen/csrc/attention.cu`` (B2) for sm_90a from the
    checkout, one ``nvcc`` per source, all started together; prints
-   ptxas's registers, shared memory, spills;
+   ptxas's registers and spills per kernel, any ptxas warning and any
+   C75xx message (a ``wgmma`` serialization);
 3. kernel — the contraction kernel's wrapper against its plain PyTorch
    version (``contract_ref``) at the serving GEMM shapes, M in {4, 128,
    512} (a decode step of 4 lanes, prefills) x (K, N) in {(4096, 4096),
@@ -28,7 +29,7 @@ raises and the script exits non-zero without the final result line:
    for the kernel, the plain version and ``torch.matmul`` (the library
    yardstick, used nowhere in the port), beside its bound on an H100 SXM:
    max(operations / peak rate, bytes / 3.35 TB/s), bf16 at 989 TFLOP/s,
-   f32 at 67 TFLOP/s; each row names the body that ran (``ring`` with its
+   f32 at 67 TFLOP/s (B2's 3xTF32 body: 495 / 3); each row names the body that ran (``ring`` with its
    tile and K split, ``narrow`` with its token width and K split, ``mma``,
    ``fma``) and the kernel's device ms on the profiler beside the
    event-timed ms, which include the host's path to the launch; the M = 4
@@ -130,16 +131,22 @@ raises and the script exits non-zero without the final result line:
     gradients (f32 2e-4, bf16 6e-2);
 9g. attn-small — ``ops.attention`` card vs CPU at the reference's test
     shapes (d in (4, 8), (s, t) in ((8, 8), (8, 16), (16, 8)), full and
-    causal) and a ragged head_dim-128 case (S = 100, T = 77), f32 and bf16:
-    outputs and the three gradients, 1 B2 + 3 B1 launches each;
-    ``kv_lengths`` with a 0 entry, forward and backward: exact zeros in
-    that head; every comparison scaled per row;
+    causal), a ragged head_dim-128 case (S = 100, T = 77) and a ragged
+    causal head_dim-192 one, f32 and bf16: outputs and the three
+    gradients, 1 B2 + 3 B1 launches each, every B2 body run (ring, mma,
+    tc32, fma); ``kv_lengths`` with a 0 entry, forward and backward: exact
+    zeros in that head; every comparison scaled per row;
 9h. attn-path — ``ops.attention`` at full width through the public entry:
     one qwen3-8b prefill's attention as capture's rewrite folds it (128
     heads, S = T = 512, d = 128, bf16): (a) causal, (b) causal with the
     serve trace's prompt lengths, (c) causal forward and backward, (d) f32
     at 32 heads, (e) a 4096-token prompt at 32 heads: 5 B2 and 3 B1
-    launches; each forward against ``attention_ref`` and (c)'s cotangents
+    launches, (a), (b), (c) and (e) on B2's ring body and (d) on its
+    3xTF32 body, each timed row one launch with no other device work and
+    its profiler device ms printed beside its body, its launches counted
+    again between CUDA events; (d)'s bound at 3xTF32's rate (495 / 3
+    TFLOP/s), the FMA rate's beside it; each forward against
+    ``attention_ref`` and (c)'s cotangents
     against the plain path on the card, each row scaled by its own largest
     magnitude (every case checked before any fails); B2, the plain
     version and
@@ -231,6 +238,9 @@ OUT = os.path.abspath(os.environ.get("CHIP_SMOKE_OUT",
 #: H100 SXM, dense: bf16, f32 (CUDA cores), int8 and fp8 tensor cores
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
             "fp8": 1979e12}
+#: f32 products in 3xTF32 (three TF32 products each) on the tensor cores:
+#: TF32's dense 495 TFLOP/s over 3, the ceiling of B2's tc32 body
+PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": (6e-2, 6e-2), "float32": (1e-4, 1e-4)}
 SERVE_ARGS = ["--arch", "qwen3-8b", "--requests", "4", "--prompt-len", "512",
@@ -348,36 +358,111 @@ def _kernel_ms(run, flush, kernel, reps=5):
     return sum(v[0] for v in mine) / reps, others
 
 
+#: the device kernel of ``_device_kernels``' marker (a float64 fill)
+MARKER_KERNEL = "FillFunctor<double>"
+
+
 def _device_kernels(run, reps=3):
     """{device kernel name: launches} of ``reps`` calls of ``run()`` under
     ``torch.profiler``, after one warm-up, with nothing else traced (no
-    flush): what a call launches on the card, fills and copies included."""
+    flush): what a call launches on the card, fills and copies included.
+    The session opens with a marker (one float64 fill); the session's
+    first device record is left out where it is the marker's, and no other
+    record: a trace may drop the first kernel of a session, whichever it
+    is (seen at every B2 row: three launches, two records; ``_launch_witness``
+    counts them again)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    marker = torch.zeros(1, dtype=torch.float64, device="cuda")
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marker.fill_(1.0)
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
     path = os.path.join(OUT, "profile_case.json")
     prof.export_chrome_trace(path)
+    return _kernels_after_marker(path)
+
+
+def _kernels_after_marker(path):
+    """{device kernel name: records} of a trace whose session opened with
+    ``_device_kernels``' marker: the first device record is left out where
+    it is the marker's, and no other (a later float64 fill counts)."""
+    records = _device_events(path)
+    if records and MARKER_KERNEL in records[0][2]:
+        records = records[1:]
+    seen = {}
+    for _, _, name in records:
+        seen[name] = seen.get(name, 0) + 1
+    return seen
+
+
+def _launch_witness(run, kernel, reps=3):
+    """A second count of ``run()``'s launches of ``kernel`` (a
+    ``_kernel_of`` name), beside ``_device_kernels``': ``reps`` calls after
+    one warm-up under ``torch.profiler`` with no marker, each between two
+    CUDA events; (the kernel's records in that trace, the ms between each
+    call's events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for start, end in marks:
+            start.record()
+            run()
+            end.record()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT, "profile_witness.json")
+    prof.export_chrome_trace(path)
     _, _, by_name = _device_time(path)
-    return {k: v[1] for k, v in by_name.items()}
+    records = sum(v[1] for k, v in by_name.items() if _kernel_of(k) == kernel)
+    return records, [start.elapsed_time(end) for start, end in marks]
+
+
+def _launcher(kernel):
+    """The launcher of the port's ``kernel`` (a ``_kernel_of`` name) that
+    ``_alone`` counts."""
+    from repro_torch.codegen import ATTENTION, CONTRACT
+
+    return {"contract": CONTRACT, "attention": ATTENTION}[kernel]
 
 
 def _alone(run, kernel, launches, what, reps=3):
     """Raise unless ``reps`` calls of ``run()`` launch ``kernel`` (a
     ``_kernel_of`` name) ``launches`` times each and no other device
-    kernel, fill, copy or memset."""
-    seen = _device_kernels(run, reps)
-    mine = sum(n for k, n in seen.items() if _kernel_of(k) == kernel)
-    others = sorted(k for k in seen if _kernel_of(k) != kernel)
-    if mine != launches * reps or others:
-        raise AssertionError(
-            f"{what}: {mine} {kernel} launches over {reps} calls (expected "
-            f"{launches * reps}), other device work {others}")
+    kernel, fill, copy or memset.  The launches are the launcher's own
+    count.  The trace shows what else ran; it can lose device records,
+    whole sessions of them at times (``scripts/profiler_window.py``), so a
+    trace that holds fewer of the kernel's records and nothing else is
+    taken again, three in all; more records than launches, or any other
+    record, fail at once."""
+    launcher = _launcher(kernel)
+    want = launches * reps
+    for take in range(3):
+        before = launcher.launches
+        seen = _device_kernels(run, reps)  # one warm-up call, then reps
+        counted = launcher.launches - before - launches
+        mine = sum(n for k, n in seen.items() if _kernel_of(k) == kernel)
+        others = sorted(k for k in seen if _kernel_of(k) != kernel)
+        if counted != want or mine > want or others:
+            raise AssertionError(
+                f"{what}: {counted} {kernel} launches over {reps} calls by "
+                f"its counter, {mine} in the trace (expected {want}), other "
+                f"device work {others}")
+        if mine == want:
+            return
+        print(f"[profile] {what}: trace {take + 1} kept {mine} of {want} "
+              f"{kernel} records and no other; taken again", flush=True)
+    print(f"[profile] {what}: {want} {kernel} launches by its counter; three "
+          f"traces lost some of their records, and held no other device "
+          f"work", flush=True)
 
 
 def _body(launcher):
@@ -420,9 +505,31 @@ def phase_build():
         print(f"[build] {name}.cu -> "
               f"{os.path.relpath(build.library_path(name), HERE)} in "
               f"{took[name]:.1f} s", flush=True)
-        for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+        for line in _ptxas_lines(build.ptxas_report(name)):
+            print(f"[build] {name}: {line}", flush=True)
+
+
+def _ptxas_lines(report):
+    """One line per kernel of a ``-Xptxas -v`` report (its mangled name,
+    registers, spill stores and loads), then every warning and every
+    C75xx message (``wgmma`` serialized, a ``warpgroup.arrive`` injected)
+    as it is."""
+    import re
+
+    out, warnings, kernel, spill = [], [], None, ""
+    for line in report.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            kernel, spill = hit.group(1), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{kernel}: {regs} registers; {spill}")
+            kernel = None
+        elif "warning" in line.lower() or "(C75" in line:
+            warnings.append(line.strip())
+    return out + warnings
 
 
 def _check_close(got, want, dt_name, what, tol=None):
@@ -867,20 +974,22 @@ def phase_grouped_dw():
     return rows
 
 
-def _bound(ops, nbytes, dt_name):
-    """(bound ms, ops ms, bytes ms, what bounds it) on an H100 SXM."""
-    ops_ms = ops / PEAK_OPS[dt_name] * 1e3
+def _bound(ops, nbytes, dt_name, peak=None):
+    """(bound ms, ops ms, bytes ms, what bounds it) on an H100 SXM, the
+    operations at ``peak`` (default: ``PEAK_OPS`` of the dtype)."""
+    ops_ms = ops / (peak or PEAK_OPS[dt_name]) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (max(ops_ms, bytes_ms), ops_ms, bytes_ms,
             "operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def _case_row(tag, what, got, want, dt_name, run, plain, library, ops,
-              nbytes, flush, err=None, **extra):
+              nbytes, flush, err=None, peak=None, **extra):
     """Check ``got`` against ``want`` (unless ``err``, its (max abs, scaled)
     error, was checked already) and time the kernel call ``run``, its
     plain version and the library yardstick (L2 flushed before each
-    launch); one report row, printed."""
+    launch) beside its bound (operations at ``peak``, by default the
+    dtype's); one report row, printed."""
     import torch
 
     torch.cuda.synchronize()
@@ -889,7 +998,7 @@ def _case_row(tag, what, got, want, dt_name, run, plain, library, ops,
     ms = _timed(run, flush)
     plain_ms = _timed(plain, flush, **PLAIN_REPS)
     library_ms = _timed(library, flush) if library is not None else None
-    bound_ms, ops_ms, bytes_ms, by = _bound(ops, nbytes, dt_name)
+    bound_ms, ops_ms, bytes_ms, by = _bound(ops, nbytes, dt_name, peak)
     row = dict(case=what, dtype=dt_name, max_abs_err=max_abs,
                scaled_err=scaled_err, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, ops_ms=ops_ms,
@@ -1726,7 +1835,7 @@ def _kernel_of(name):
     """The port's kernel a device-kernel name belongs to, or None."""
     import re
 
-    if re.search(r"\battn_(bf16|f32)_kernel", name):
+    if re.search(r"\battn_(bf16|f32)(_ring|_tc)?_kernel", name):
         return "attention"
     hit = re.search(r"\b(q8_(mma|ring)_kernel<(true|false)>|upcast_kernel|"
                     r"chain_(bf16|scalar)_kernel)", name)
@@ -2000,19 +2109,25 @@ def phase_moe_serve():
     return launches, stats, peak, trace, engine
 
 
+def _device_events(path):
+    """[(start us, duration us, name)] of a Chrome trace's device events
+    (kernels, copies, memsets), in order of start."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted((e["ts"], e["dur"], e["name"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in (
+                      "kernel", "gpu_memcpy", "gpu_memset"))
+
+
 def _device_time(path):
     """(busy ms, device events, {name: [ms, count]}) over the device
     events of a Chrome trace; busy time is the union of their intervals."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
     spans, by_name = [], {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
-                                                   "gpu_memset"):
-            spans.append((e["ts"], e["ts"] + e["dur"]))
-            row = by_name.setdefault(e["name"], [0.0, 0])
-            row[0] += e["dur"] / 1e3
-            row[1] += 1
+    for ts, dur, name in _device_events(path):
+        spans.append((ts, ts + dur))
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += dur / 1e3
+        row[1] += 1
     busy, end = 0.0, float("-inf")
     for s, t in sorted(spans):
         if t > end:
@@ -2030,6 +2145,8 @@ def phase_profile(engine, first, tag=""):
     the trace files and the printed lines."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.codegen import CONTRACT
 
     cfg = engine.cfg
     plen = len(first.prompt)
@@ -2062,10 +2179,12 @@ def phase_profile(engine, first, tag=""):
                     raise AssertionError("re-run prefill disagrees with the "
                                          "engine's first token")
                 caches = new_caches  # the decode step reads these
+            counted = CONTRACT.launches
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 step()
                 torch.cuda.synchronize()
+            counted = CONTRACT.launches - counted
             path = os.path.join(OUT, f"profile_{tag}{name}.json")
             prof.export_chrome_trace(path)
             busy, events, by_name = _device_time(path)
@@ -2084,14 +2203,18 @@ def phase_profile(engine, first, tag=""):
                                if "FillFunctor" in k or k.startswith("Memset"))
             row["copies"] = sum(v[1] for k, v in by_name.items()
                                 if _category(k) == "copy")
-            if by_name and name == "decode" and not tag and (
-                row["contract_launches"] != 7 * cfg.n_layers
-                or row["int_fills"]
+            row["contract_counted"] = counted
+            # the launches by B1's counter; the trace, which can lose
+            # records (see _alone), must hold no more and no int fill
+            if name == "decode" and not tag and (
+                counted != 7 * cfg.n_layers
+                or row["contract_launches"] > counted or row["int_fills"]
             ):
                 raise AssertionError(
-                    f"profiled decode step: {row['contract_launches']} "
-                    f"contract launches (expected 7 x {cfg.n_layers}), "
-                    f"{row['int_fills']} int fills (expected 0)")
+                    f"profiled decode step: {counted} contract launches by "
+                    f"its counter, {row['contract_launches']} in the trace "
+                    f"(expected 7 x {cfg.n_layers}), {row['int_fills']} int "
+                    f"fills (expected 0)")
             out[name] = row
             busy_txt = (f"device busy {busy:.3f} ms over {events} device "
                         f"events under the profiler"
@@ -2807,6 +2930,9 @@ ATTN_PROMPTS = (512, 128, 512, 256)
 ATTN_LONG_HEADS, ATTN_LONG_SEQ = 32, 4096
 #: library attention kernels (the SDPA yardstick's) that must not appear
 LIBRARY_ATTENTION = ("flash", "fmha", "attention", "sdpa", "mem_eff")
+#: the B2 body each attn-path row must run (``fused_gen.attention_body``)
+ATTN_PATH_BODIES = {"a": "ring", "b": "ring", "c": "ring", "d": "tc32",
+                    "e": "ring"}
 
 
 def _attn_counts():
@@ -2875,22 +3001,29 @@ def _sdpa(q, k, v, causal, lengths):
 def phase_attn_small():
     """Card vs CPU at the reference's test shapes: ``ops.attention`` in f32
     and bf16, d in (4, 8), (s, t) in ((8, 8), (8, 16), (16, 8)), full and
-    causal, then one ragged head_dim-128 case (S = 100, T = 77), and
-    ``kv_lengths`` with a 0 entry on a causal case: outputs at the f32 /
-    bf16 TOL, the three gradients at (2e-4, 2e-4) / bf16 TOL, each row
-    scaled by its own largest magnitude, one B2 and three B1 launches
-    each; the head of length 0 exact zeros, output and cotangents."""
+    causal, then one ragged head_dim-128 case (S = 100, T = 77),
+    ``kv_lengths`` with a 0 entry on a causal case, and a ragged causal
+    head_dim-192 case: outputs at the f32 / bf16 TOL, the three gradients
+    at (2e-4, 2e-4) / bf16 TOL, each row scaled by its own largest
+    magnitude, one B2 and three B1 launches each; the head of length 0
+    exact zeros, output and cotangents.  The cases run every B2 body
+    (ring: bf16 d = 8, 128; mma: bf16 d = 4, 192; tc32: f32 up to 128;
+    fma: f32 d = 192)."""
     import torch
 
     from repro_torch import ops
+
+    from repro_torch.codegen import ATTENTION
+    from repro_torch.codegen.fused_gen import ATTENTION_BODIES
 
     gen = torch.Generator().manual_seed(60)
     cases = [(3, s, t, d, causal, None) for d in (4, 8)
              for s, t in ((8, 8), (8, 16), (16, 8))
              for causal in (False, True)]
     cases += [(4, 100, 77, 128, False, None), (4, 100, 77, 128, True, None),
-              (3, 16, 8, 8, True, (8, 3, 0))]
+              (3, 16, 8, 8, True, (8, 3, 0)), (2, 40, 50, 192, True, None)]
     worst = {}
+    bodies = {}  # body -> cases it ran
     for dt_name, grad_tol in (("float32", (2e-4, 2e-4)),
                               ("bfloat16", (6e-2, 6e-2))):
         dt = getattr(torch, dt_name)
@@ -2916,6 +3049,9 @@ def phase_attn_small():
                 ) != (1, 3):
                     raise AssertionError(f"attn-small: {before} -> {after}, "
                                          f"expected 1 B2 and 3 B1 launches")
+                if device == "cuda":
+                    bodies[ATTENTION.last_body] = bodies.get(
+                        ATTENTION.last_body, 0) + 1
                 res[device] = [out.detach().cpu()] + [x.grad.cpu()
                                                       for x in leaves]
             what = (f"attn-small h={h} s={s} t={t} d={d} causal={causal} "
@@ -2935,10 +3071,14 @@ def phase_attn_small():
                                  key=lambda x: x[1])
     print(f"[attn-small] {len(cases)} cases x f32/bf16 (one with kv_lengths "
           f"and a 0 head: exact zeros), forward and backward card vs CPU, "
-          f"1 + 3 launches each; worst (max abs, row-scaled) "
+          f"1 + 3 launches each; cases by B2 body {bodies}; worst (max abs, "
+          f"row-scaled) "
           f"{ {k: tuple(round(x, 9) for x in v) for k, v in worst.items()} }",
           flush=True)
-    return dict(cases=len(cases), worst=worst)
+    if set(bodies) != set(ATTENTION_BODIES):
+        raise AssertionError(f"attn-small: B2 bodies {sorted(bodies)} ran, "
+                             f"expected every one of {ATTENTION_BODIES}")
+    return dict(cases=len(cases), worst=worst, bodies=bodies)
 
 
 def phase_attn_path():
@@ -2947,13 +3087,19 @@ def phase_attn_path():
     bf16): (a) causal forward, (b) causal with the trace's prompt lengths,
     (c) causal forward and backward, (d) f32 at 32 heads, (e) a 4096-token
     prompt (32 heads, causal, bf16, forward).  Counters from 0 over the
-    five calls: 5 B2 launches and 3 B1 (c's backward).  Then each forward
+    five calls: 5 B2 launches and 3 B1 (c's backward); (a), (b), (c) and
+    (e) on B2's ring body, (d) on its 3xTF32 body, each timed row one
+    launch and no other device work, its device ms from the profiler
+    beside the event-timed ms.  Then each forward
     against ``attention_ref`` on the card and c's output and cotangents
     against the card's plain path (``attention_ref`` under autograd), each
     row scaled by its own largest magnitude, at the bf16 / f32 TOL's atol;
     every reading is printed before any failure is raised.  Each forward
     timed (B2, ``attention_ref``, the library
-    ``scaled_dot_product_attention`` with the same mask) beside its bound;
+    ``scaled_dot_product_attention`` with the same mask) beside its bound
+    ((d)'s operations at 3xTF32's rate, its body's; the FMA rate's bound
+    printed beside); each timed row's launches counted again by CUDA
+    events (``_launch_witness``);
     (a) and (b) under ``torch.profiler``: no library attention or GEMM."""
     import torch
 
@@ -2977,18 +3123,28 @@ def phase_attn_path():
                        device="cuda").to(bf16)
     leaves = [x.clone().requires_grad_(True) for x in x_a]
     torch.cuda.synchronize()
+    bodies = {}
+
+    def call(tag, *args, **kwargs):
+        out = ops.attention(*args, **kwargs)
+        bodies[tag] = ATTENTION.last_body
+        return out
+
     _zero_attn_counts()
-    out_a = ops.attention(*x_a, causal=True)
-    out_b = ops.attention(*x_a, causal=True, kv_lengths=lengths)
-    out_c = ops.attention(*leaves, causal=True)
+    out_a = call("a", *x_a, causal=True)
+    out_b = call("b", *x_a, causal=True, kv_lengths=lengths)
+    out_c = call("c", *leaves, causal=True)
     out_c.backward(dout)
-    out_d = ops.attention(*x_d, causal=True)
-    out_e = ops.attention(*x_e, causal=True)
+    out_d = call("d", *x_d, causal=True)
+    out_e = call("e", *x_e, causal=True)
     torch.cuda.synchronize()
     counts = _attn_counts()
     if counts != {"attention": 5, "contract": 3}:
         raise AssertionError(f"attn-path: launches {counts}, expected 5 B2 "
                              f"(a-e) and 3 B1 (c's backward)")
+    if bodies != ATTN_PATH_BODIES:
+        raise AssertionError(f"attn-path: B2 bodies {bodies}, expected "
+                             f"{ATTN_PATH_BODIES}")
     for out, tag in ((out_a, "a"), (out_b, "b"), (out_c, "c"),
                      (out_d, "d"), (out_e, "e")):
         if not bool(torch.isfinite(out).all()):
@@ -3038,16 +3194,52 @@ def phase_attn_path():
         ops_, nbytes = _attn_work(h, s, k.shape[1], d, v.shape[2], True,
                                   None if lens is None else lens.tolist(),
                                   q.element_size())
+        run = (lambda q=q, k=k, v=v, lens=lens: ATTENTION(
+            q, k, v, True, lens, q.dtype))
+        # one launch of the row's body, and no other device work
+        _alone(run, "attention", 1, f"attn-path ({tag})")
+        device_ms, _ = _kernel_ms(run, flush, "attention")
+        # the second witness: three calls between CUDA events, each as long
+        # as the kernel's device time (a call that ran no kernel would take
+        # microseconds), in a trace that opens with no marker
+        records, event_ms = _launch_witness(run, "attention")
+        print(f"[attn-path] ({tag}) witness: {records} of 3 B2 records in a "
+              f"trace without the marker; CUDA events a call "
+              f"{[round(x, 4) for x in event_ms]} ms (device "
+              f"{device_ms:.4f})", flush=True)
+        if device_ms == device_ms and min(event_ms) < 0.5 * device_ms:
+            raise AssertionError(f"attn-path ({tag}): a call took "
+                                 f"{min(event_ms):.4f} ms between its CUDA "
+                                 f"events, under half the kernel's "
+                                 f"{device_ms:.4f} ms")
+        tc32 = bodies[tag] == "tc32"
+        library = _sdpa(q, k, v, True, lens)
+        # the yardstick's backend, by its device kernels' names
+        library_kernels = sorted(_device_kernels(library, reps=1))
+        print(f"[attn-path] ({tag}) library kernels: {library_kernels}",
+              flush=True)
         rows.append(_case_row(
             "attn-path", f"({tag}) {what} H={h} S=T={s} d={d}", None, None,
-            dt_name, lambda q=q, k=k, v=v, lens=lens: ATTENTION(
-                q, k, v, True, lens, q.dtype),
+            dt_name, run,
             lambda q=q, k=k, v=v, lens=lens: attention_ref(
                 q, k, v, causal=True, kv_lengths=lens, out_dtype=q.dtype),
-            _sdpa(q, k, v, True, lens), ops_, nbytes, flush,
-            err=readings[f"({tag})"], case_tag=tag, launches=1))
+            library, ops_, nbytes, flush,
+            err=readings[f"({tag})"], peak=PEAK_3XTF32 if tc32 else None,
+            case_tag=tag, launches=1, body=bodies[tag], device_ms=device_ms,
+            witness_records=records, witness_event_ms=event_ms,
+            library_kernels=library_kernels))
+        if tc32:  # the FMA body's ceiling, as this row's bound was before
+            rows[-1]["fma_bound_ms"] = _bound(ops_, nbytes, dt_name)[0]
+            print(f"[attn-path] ({tag}) bound at 3xTF32 "
+                  f"{rows[-1]['bound_ms']:.4f} ms, at the FMA rate "
+                  f"{rows[-1]['fma_bound_ms']:.4f} ms", flush=True)
+
+    # each traced run opens with the marker: a trace drops the first
+    # kernel of a session (see _device_kernels)
+    marker = torch.zeros(1, dtype=torch.float64, device="cuda")
 
     def run_c():
+        marker.fill_(1.0)
         ls = [x.detach().clone().requires_grad_(True) for x in x_a]
         ops.attention(*ls, causal=True).backward(dout)
 
@@ -3056,6 +3248,7 @@ def phase_attn_path():
     b2_c = sum(v[0] for k, v in by_c.items() if _kernel_of(k) == "attention")
 
     def run_ab():
+        marker.fill_(1.0)
         ops.attention(*x_a, causal=True)
         ops.attention(*x_a, causal=True, kv_lengths=lengths)
 

@@ -2,8 +2,8 @@
 """One tree against another, in turns on one card.
 
     python3 scripts/chip_compare.py \
-        [--serve | --kernels | --moe-serve | --quant | --modes] \
-        OLD_CHECKOUT NEW_CHECKOUT
+        [--serve | --kernels | --moe-serve | --quant | --modes |
+         --attention] OLD_CHECKOUT NEW_CHECKOUT
 
 Runs, in a fresh process per turn and in the order old, new, new, old,
 phases of each checkout's own ``chip_smoke.py``, after building the
@@ -46,8 +46,13 @@ each turn prints the tree, the MLP rows' event-timed ms and (where the
 tree's smoke records it) their profiler device ms, every other row's ms,
 and, timed first on the device by the turn itself, the cases that stay
 on ``q8_mma_kernel`` (the ragged product, the batched and transposed
-folds).  Needs one NVIDIA card; compare two versions only within one run of
-this script.
+folds).  With ``--attention``: B2 through its launcher at the attn-path
+rows (a) (128 heads, S = T = 512, d = 128, causal, bf16), (b) (the same
+with the serve trace's prompt lengths), (d) (f32 at 32 heads) and (e) (a
+4096-token prompt at 32 heads); each turn prints the tree, every row's
+profiler device ms and event-timed ms (L2 flushed before each launch),
+and the body that ran where the tree records it.  Needs one NVIDIA card;
+compare two versions only within one run of this script.
 """
 
 from __future__ import annotations
@@ -344,9 +349,44 @@ print("COMPARE " + json.dumps({"tree": sys.argv[1],
                                "modes_device_ms": out}), flush=True)
 """
 
+ATTENTION_TURN = r"""
+import json, os, sys
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+from repro_torch.codegen import ATTENTION, build
+build.build("attention")
+build.load("attention")
+""" + DEVICE_MS + r"""
+gen = torch.Generator(device="cuda").manual_seed(61)
+flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+bf16, f32 = torch.bfloat16, torch.float32
+def qkv(h, s, dt):
+    return [torch.randn(h, s, cs.ATTN_DIM, generator=gen,
+                        device="cuda").to(dt) for _ in range(3)]
+lengths = torch.tensor([n for n in cs.ATTN_PROMPTS for _ in range(32)],
+                       dtype=torch.int32, device="cuda")
+x_a = qkv(cs.ATTN_HEADS, cs.ATTN_SEQ, bf16)
+rows = {"a": (x_a, None), "b": (x_a, lengths),
+        "d": (qkv(32, cs.ATTN_SEQ, f32), None),
+        "e": (qkv(cs.ATTN_LONG_HEADS, cs.ATTN_LONG_SEQ, bf16), None)}
+device, event, body = {}, {}, {}
+for tag, ((q, k, v), lens) in rows.items():
+    run = lambda: ATTENTION(q, k, v, True, lens, q.dtype)
+    device[tag] = device_ms(run, "attn_")
+    event[tag] = cs._timed(run, flush)
+    body[tag] = getattr(ATTENTION, "last_body", None)
+print("COMPARE " + json.dumps({"tree": sys.argv[1],
+                               "attention_device_ms": device,
+                               "attention_ms": event, "body": body}),
+      flush=True)
+"""
+
 TURNS = {"--serve": SERVE_TURN, "--kernels": KERNELS_TURN,
          "--moe-serve": MOE_SERVE_TURN, "--quant": QUANT_TURN,
-         "--modes": MODES_TURN}
+         "--modes": MODES_TURN, "--attention": ATTENTION_TURN}
 
 
 def main(argv) -> int:

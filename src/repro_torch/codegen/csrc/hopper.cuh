@@ -1,11 +1,13 @@
-// Hopper building blocks of B1's ring bodies (contract.cu's bf16 ring and
-// contract_q8.cu's 8-bit ring): mbarriers, TMA tensor loads, wgmma
-// descriptors, fences and register rebalancing, and the host side of a TMA
-// tensor map.  Header only; codegen/build.py hashes it into the library
-// name of every source that includes it, so an edit rebuilds them.
+// Hopper building blocks of the ring bodies (contract.cu's bf16 ring,
+// contract_q8.cu's 8-bit ring, attention.cu's bf16 ring): mbarriers, TMA
+// tensor loads, wgmma descriptors, fences and register rebalancing, and the
+// host side of a TMA tensor map.  Header only; codegen/build.py hashes it
+// into the library name of every source that includes it, so an edit
+// rebuilds them.
 //
-// The skeleton both rings share: one CTA of three warpgroups owns a 128-row
-// output tile.  Warpgroup 0 gives its registers away (setmaxnreg) and one of
+// The skeleton B1's rings share (attention.cu's walks KV blocks on it):
+// one CTA of three warpgroups owns a 128-row output tile.  Warpgroup 0
+// gives its registers away (setmaxnreg) and one of
 // its threads keeps TMA loads of the A and B tiles in flight into a ring of
 // stages in dynamic shared memory; each stage has a "full" mbarrier (the
 // TMA's bytes arrive on it) and an "empty" one (each consumer warpgroup
@@ -267,15 +269,16 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
         HOPPER_OP8(HOPPER_F, d, 16), HOPPER_OP8(HOPPER_F, d, 24)
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
+// (accumulate 0: d = A . B, the accumulator's old values unread)
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
-                                           uint64_t db) {
+                                           uint64_t db, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
       ", %64, %65, p, 1, 1, %67, %68;\n}\n"
       : HOPPER_OP64(HOPPER_F, d)
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da,
@@ -302,6 +305,21 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
       : HOPPER_OP64(HOPPER_F, d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB),
+        "r"(1));
+}
+
+// The same at n64 (attention.cu's P.V where e <= 64).
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : HOPPER_OP8(HOPPER_F, d, 0), HOPPER_OP8(HOPPER_F, d, 8),
+        HOPPER_OP8(HOPPER_F, d, 16), HOPPER_OP8(HOPPER_F, d, 24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB),
         "r"(1));
 }

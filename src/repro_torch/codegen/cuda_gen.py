@@ -417,8 +417,8 @@ def _sm_count(device: torch.device) -> int:
 
 
 class _Scratch:
-    """B1's split and row-reduce scratch, one pair of buffers per (device,
-    stream), grown and reused.  The partials are written before they are
+    """B1's split and row-reduce scratch (and B2's ring tile counter), one
+    pair of buffers per (device, stream), grown and reused.  The partials are written before they are
     read; the counters are zeroed once, when a buffer is allocated, and
     every launch sets those it used back to 0, so a launch fills nothing
     (no ``torch.zeros`` kernel before every split GEMM).  Launches on one

@@ -7,15 +7,17 @@ kernels.  The port lowers them onto three hand-written CUDA kernels.
 
 Attention, ``out = softmax_t(Q.K^T / sqrt(d) + mask) . V`` over folded
 heads (Q (h, s, d), K (h, t, d), V (h, t, e)), runs ``csrc/attention.cu``
-(B2): one CTA per (head, 64-row block of s) walks the KV axis in 64-column
-blocks, carrying the running max, sum and f32 accumulator in registers
-(the reference's sequential third grid axis and its VMEM scratch).
-Masked scores take the finite ``MASK_VALUE`` and masked probabilities are
-re-zeroed, so a fully masked block adds nothing to the running sum; rows
-with no valid column store exact zeros.  ``kv_lengths`` (int32, one per
-folded head) reaches the kernel as a device vector each CTA reads itself.
-A CPU tensor runs ``attention_ref``, the plain version of the kernel's
-semantics.
+(B2): one CTA per (head, block of rows of s) walks the KV axis, carrying
+the running max, sum and f32 accumulator in registers (the reference's
+sequential third grid axis and its VMEM scratch).  ``attention_body``
+picks its body: bf16 on a TMA ring feeding wgmma (``"ring"``) or on
+mma.sync (``"mma"``), f32 in 3xTF32 on the tensor cores (``"tc32"``) or on
+the FMA pipes (``"fma"``).  Masked scores take the finite ``MASK_VALUE``
+and masked probabilities are re-zeroed, so a fully masked block adds
+nothing to the running sum; rows with no valid column store exact zeros.
+``kv_lengths`` (int32, one per folded head) reaches the kernel as a device
+vector each CTA reads itself.  A CPU tensor runs ``attention_ref``, the
+plain version of the kernel's semantics.
 
 The grouped family's three modes run two kernels.  The row mode, the
 forward
@@ -60,7 +62,8 @@ import torch
 
 from ..core.enumerate import ContractionSpec
 from ..core.schedule import Schedule
-from .cuda_gen import _torch_dtype
+from .cuda_gen import _Scratch, _torch_dtype
+from .modes import tma_operand
 from .plan import KernelPlan, build_plan
 
 #: operand / output dtypes the kernel takes, with its dtype codes
@@ -76,6 +79,35 @@ GROUPED_MAX_ROWS = GROUPED_TILES[-1]
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 #: B2's widest head: d and e up to this many elements
 ATTN_MAX_HEAD = 256
+#: B2's bodies, in ``attention_launch``'s codes (0 .. 3)
+ATTENTION_BODIES = ("ring", "mma", "tc32", "fma")
+#: the widest d and e of the bf16 ring and of the 3xTF32 body
+#: (attention.cu's RG_MAX_HEAD and TC_MAX_HEAD)
+ATTN_RING_MAX_HEAD = ATTN_TC32_MAX_HEAD = 128
+
+
+def attention_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which body of ``attention.cu`` takes q (H, S, D), k (H, T, D), v (H,
+    T, E).  bf16 q, k and v: ``"ring"`` (TMA and wgmma) where d and e are
+    multiples of 8 up to 128, T >= 1, and TMA reads each as it lies (unit
+    stride along d or e, every other stride of an axis longer than 1 a
+    positive multiple of 8 elements, 16-byte aligned data), else ``"mma"``
+    (the mma.sync body: wide or unaligned heads, element strides).  f32:
+    ``"tc32"`` (3xTF32 on the tensor cores) where d and e are at most 128,
+    else ``"fma"``.  Mixed dtypes name the body of q's dtype (the launcher
+    refuses them).  A pure function of the tensors' dtypes, shapes,
+    strides and addresses; ``attention_launch`` checks the same rules and
+    refuses a body they exclude."""
+    d, e = q.shape[2], v.shape[2]
+    if q.dtype == k.dtype == v.dtype == torch.float32:
+        return "tc32" if max(d, e) <= ATTN_TC32_MAX_HEAD else "fma"
+    if q.dtype != torch.bfloat16:
+        return "fma"
+    ring = (k.dtype == v.dtype == torch.bfloat16 and d % 8 == 0
+            and e % 8 == 0 and max(d, e) <= ATTN_RING_MAX_HEAD
+            and k.shape[1] >= 1
+            and all(tma_operand(x, 2, 2) for x in (q, k, v)))
+    return "ring" if ring else "mma"
 
 
 def attention_mask(h: int, s: int, t: int, *, causal: bool,
@@ -127,11 +159,17 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class AttentionLauncher:
     """The ctypes wrapper of ``attention_launch`` (kernel B2); counts its
-    launches, one per call, and nothing else."""
+    launches, one per call, and nothing else.  ``last_body`` names the body
+    of the latest launch (``attention_body``'s).  The ring's tile counter
+    (two ints, which each launch leaves at zero) comes from a pool kept per
+    (device, stream), as B1's scratch (``cuda_gen._Scratch``): launches on
+    one stream run in order, so they share it safely."""
 
     def __init__(self):
         self.launches = 0
+        self.last_body = None
         self._lib = None
+        self._scratch = _Scratch()
 
     def _fn(self):
         if self._lib is None:
@@ -139,8 +177,8 @@ class AttentionLauncher:
 
             lib = load("attention")
             lib.attention_launch.argtypes = (
-                [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-                + [ctypes.c_void_p] * 5
+                [ctypes.c_int] * 4
+                + [ctypes.c_void_p] * 6
                 + [ctypes.c_int] * 5
                 + [ctypes.c_longlong] * 8
                 + [ctypes.c_void_p]
@@ -153,7 +191,8 @@ class AttentionLauncher:
                  causal: bool, kv_lengths: Optional[torch.Tensor],
                  out_dtype: torch.dtype) -> torch.Tensor:
         """q (H, S, D), k (H, T, D), v (H, T, E) -> new (H, S, E) tensor;
-        ``kv_lengths`` is None or an int32 (H,) tensor on q's device."""
+        ``kv_lengths`` is None or an int32 (H,) tensor on q's device.
+        ``attention_body`` picks the body."""
         tensors = (q, k, v) + (() if kv_lengths is None else (kv_lengths,))
         if q.device.type != "cuda" or any(x.device != q.device
                                           for x in tensors):
@@ -197,23 +236,27 @@ class AttentionLauncher:
         if max(s, t, *q.stride(), *k.stride(), *v.stride()) >= 2**31:
             raise ValueError("attention kernel takes extents and strides "
                              "below 2**31")
+        body = attention_body(q, k, v)
         out = torch.empty((h, s, e), dtype=out_dtype, device=q.device)
         if out.numel() == 0:
             return out
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _, sched = self._scratch.get(q.device, stream, 0, 2)
         lib = self._fn()
         rc = lib.attention_launch(
             _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[out_dtype], int(causal),
+            ATTENTION_BODIES.index(body),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if kv_lengths is None else kv_lengths.data_ptr(),
-            h, s, t, d, e,
+            sched.data_ptr(), h, s, t, d, e,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1), stream,
         )
         if rc != 0:
-            raise RuntimeError(f"attention kernel launch failed: "
-                               f"cudaGetLastError() = {rc}")
+            raise RuntimeError(f"attention kernel launch failed ({body} "
+                               f"body): cudaGetLastError() = {rc}")
         self.launches += 1
+        self.last_body = body
         return out
 
 

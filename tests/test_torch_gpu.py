@@ -8,7 +8,10 @@ the grouped MoE kernel
 and B7 (``codegen/csrc/baselines.cu``), and autograd through them
 (``ops.chain_dense``'s 1 + 3 launches; ``ops.dense(quant=)``'s one launch
 and its refused gradient; ``ops.dense`` at any shape), and the
-flash-attention kernel (``codegen/csrc/attention.cu``, B2) with
+flash-attention kernel (``codegen/csrc/attention.cu``, B2: each of its
+bodies, the bf16 TMA/wgmma ring and the f32 3xTF32 body at ragged,
+transposed, masked and unequal-width heads, two launches equal bit for
+bit, a forced body refused where its rules fail) with
 ``ops.attention``'s 1 + 3 launches, with and without ``kv_lengths``, and
 B1's ring bodies (TMA and wgmma: the bf16 ring in its four operand
 layouts, batched and split, the 8-bit ring, two launches equal bit for
@@ -1211,6 +1214,184 @@ def test_attention_with_lengths_backward_launches(cuda_device, causal,
         _assert_rows_close(a.detach().cpu(), b.detach(), dtype)
     for x in leaves:
         assert bool((x.grad[1] == 0).all())
+
+
+#: the body each dtype's main-path shapes take (d and e up to 128, aligned)
+ATTN_NEW_BODY = {torch.bfloat16: "ring", torch.float32: "tc32"}
+
+
+def _attn_operands(device, h, s, t, d, e, dtype, seed):
+    """q as a transposed view (stored (s, h, d): heads not outermost), k
+    and v contiguous."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(s, h, d, generator=g, device=device).to(dtype)
+    k = torch.randn(h, t, d, generator=g, device=device).to(dtype)
+    v = torch.randn(h, t, e, generator=g, device=device).to(dtype)
+    return q.transpose(0, 1), k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", ATTN_MASKS)
+@pytest.mark.parametrize("s,t", [(100, 77), (130, 190)])
+@pytest.mark.parametrize("d", [64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_ring_and_tc32_bodies_match_plain_version(
+        cuda_device, dtype, d, s, t, mask):
+    """B2's bf16 ring and f32 3xTF32 bodies against ``attention_ref`` at
+    ragged S and T (S < T and S > T, so causal rows see fewer or more
+    columns than there are rows), a transposed q view, d in {64, 112, 128}
+    (112: the second TMA box zero-filled past d); ``kv_lengths`` with a 0
+    entry (exact zeros) and one past T."""
+    h = 3
+    q, k, v = _attn_operands(cuda_device, h, s, t, d, d, dtype, d + s)
+    causal = "causal" in mask
+    lengths = (torch.tensor([50, 0, t + 20], dtype=torch.int32,
+                            device=cuda_device)
+               if "lengths" in mask else None)
+    before = fused_gen.ATTENTION.launches
+    got = fused_gen.ATTENTION(q, k, v, causal, lengths, dtype)
+    torch.cuda.synchronize()
+    assert fused_gen.ATTENTION.launches == before + 1
+    assert fused_gen.ATTENTION.last_body == ATTN_NEW_BODY[dtype]
+    want = fused_gen.attention_ref(q, k, v, causal=causal,
+                                   kv_lengths=lengths, out_dtype=dtype)
+    assert got.shape == (h, s, d) and got.dtype == dtype
+    _assert_rows_close(got, want, dtype)
+    if lengths is not None:
+        assert bool((got[1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,e", [(64, 128), (128, 64), (8, 24), (128, 128),
+                                 (40, 96)])
+def test_attention_new_bodies_unequal_heads_and_other_output(cuda_device, d,
+                                                             e, dtype):
+    """Every (d, e) width pair of the ring (one or two TMA boxes each; e <=
+    64 on the n64 register-A wgmma) and of the 3xTF32 body (e <= 64 and
+    above), causal with S != T, the output in the other dtype (f32 from
+    bf16 inputs, bf16 from f32)."""
+    h, s, t = 2, 200, 130
+    q, k, v = _attn_operands(cuda_device, h, s, t, d, e, dtype, d * e)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    for out_dtype in (dtype, other):
+        got = fused_gen.ATTENTION(q, k, v, True, None, out_dtype)
+        assert fused_gen.ATTENTION.last_body == ATTN_NEW_BODY[dtype]
+        assert got.dtype == out_dtype
+        want = fused_gen.attention_ref(q, k, v, causal=True,
+                                       kv_lengths=None, out_dtype=torch.float32)
+        _assert_rows_close(got, want, torch.bfloat16 if torch.bfloat16 in (
+            dtype, out_dtype) else dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_new_bodies_two_launches_give_equal_bits(cuda_device,
+                                                           dtype):
+    """Two launches of the ring (bf16) or the 3xTF32 body (f32) on the same
+    inputs give the same bits: no atomics, no order that changes."""
+    h, s, t, d = 4, 300, 260, 128
+    q, k, v = _attn_operands(cuda_device, h, s, t, d, d, dtype, 5)
+    lengths = torch.tensor([260, 0, 7, 300], dtype=torch.int32,
+                           device=cuda_device)
+    first = fused_gen.ATTENTION(q, k, v, True, lengths, dtype)
+    again = fused_gen.ATTENTION(q, k, v, True, lengths, dtype)
+    assert fused_gen.ATTENTION.last_body == ATTN_NEW_BODY[dtype]
+    assert torch.equal(first, again)
+
+
+def _attention_with_body(q, k, v, causal, out_dtype, body):
+    """(rc, out): one ``attention_launch`` of the named body, called through
+    the C entry (the launcher always takes ``attention_body``'s choice),
+    on a tile counter of its own; ``out`` is meaningful only where rc is
+    0."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    h, s, _ = q.shape
+    t, e = k.shape[1], v.shape[2]
+    out = torch.empty((h, s, e), dtype=out_dtype, device=q.device)
+    sched = torch.zeros(2, dtype=torch.int32, device=q.device)
+    rc = fused_gen.ATTENTION._fn().attention_launch(
+        codes[q.dtype], codes[out_dtype], int(causal),
+        fused_gen.ATTENTION_BODIES.index(body),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+        sched.data_ptr(), h, s, t, q.shape[2], e,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    torch.cuda.synchronize()
+    return rc, out
+
+
+@pytest.mark.gpu
+def test_attention_bodies_agree_and_refuse_what_they_cannot_take(
+        cuda_device):
+    """Each body through the C entry: the ring and the mma.sync body agree
+    on a shape both take (as do the 3xTF32 and FMA bodies); the kernel
+    refuses a body whose rules the call fails (the ring at d = 4 or on
+    f32, the 3xTF32 body on bf16 or at d = 196, an element-strided ring
+    operand) with cudaErrorInvalidValue, launching nothing."""
+    h, s, t, d = 2, 150, 170, 64
+    for dtype, bodies in ((torch.bfloat16, ("ring", "mma")),
+                          (torch.float32, ("tc32", "fma"))):
+        q, k, v = _attn_operands(cuda_device, h, s, t, d, d, dtype, 11)
+        want = fused_gen.attention_ref(q, k, v, causal=True,
+                                       kv_lengths=None, out_dtype=dtype)
+        assert fused_gen.attention_body(q, k, v) == bodies[0]
+        for body in bodies:
+            rc, got = _attention_with_body(q, k, v, True, dtype, body)
+            assert rc == 0
+            _assert_rows_close(got, want, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+
+    def qkv(d, dtype):
+        return [torch.randn(h, n, d, generator=g, device=cuda_device)
+                .to(dtype) for n in (s, t, t)]
+
+    strided = qkv(64, torch.bfloat16)
+    strided[1] = torch.randn(h, t, 68, generator=g, device=cuda_device
+                             ).bfloat16()[:, :, :64]  # row stride 68
+    refused = [(qkv(4, torch.bfloat16), "ring"),
+               (qkv(64, torch.float32), "ring"),
+               (qkv(64, torch.bfloat16), "tc32"),
+               (qkv(196, torch.float32), "tc32"),
+               (qkv(64, torch.float32), "mma"),
+               (qkv(64, torch.bfloat16), "fma"),
+               (strided, "ring")]
+    invalid = 1  # cudaErrorInvalidValue
+    for (q, k, v), body in refused:
+        rc, _ = _attention_with_body(q, k, v, False, q.dtype, body)
+        assert rc == invalid, body
+    assert fused_gen.attention_body(*strided) == "mma"
+
+
+@pytest.mark.gpu
+def test_attention_ring_on_two_streams_gives_equal_bits(cuda_device):
+    """Ring launches on two streams at once give the bits of a launch on
+    the default stream: each stream takes its tiles from a counter of its
+    own, which every launch leaves at zero.  16 tiles of 64 KV blocks each,
+    so the two grids run side by side; each output's memory is filled with
+    NaN just before its launch, so a tile that no CTA wrote shows."""
+    h, s, t, d = 8, 256, 8192, 128
+    q, k, v = _attn_operands(cuda_device, h, s, t, d, d, torch.bfloat16, 13)
+    want = fused_gen.ATTENTION(q, k, v, False, None, torch.bfloat16)
+    assert fused_gen.ATTENTION.last_body == "ring"
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        outs = []
+        for st in streams:
+            with torch.cuda.stream(st):
+                # the block the launcher's output takes next on this stream
+                torch.full_like(want, float("nan"))
+                outs.append(fused_gen.ATTENTION(q, k, v, False, None,
+                                                torch.bfloat16))
+        torch.cuda.synchronize()
+        for got in outs:
+            assert torch.equal(got, want)
+    counters = [fused_gen.ATTENTION._scratch.get(
+        q.device, st.cuda_stream, 0, 2)[1] for st in streams]
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert not any(bool(c[:2].any()) for c in counters)
 
 
 # --------------------------------------------------------------------------
