@@ -3,7 +3,7 @@
 
     python3 scripts/chip_compare.py \
         [--serve | --kernels | --moe-serve | --quant | --modes |
-         --attention] OLD_CHECKOUT NEW_CHECKOUT
+         --attention | --baselines] OLD_CHECKOUT NEW_CHECKOUT
 
 Runs, in a fresh process per turn and in the order old, new, new, old,
 phases of each checkout's own ``chip_smoke.py``, after building the
@@ -51,7 +51,12 @@ rows (a) (128 heads, S = T = 512, d = 128, causal, bf16), (b) (the same
 with the serve trace's prompt lengths), (d) (f32 at 32 heads) and (e) (a
 4096-token prompt at 32 heads); each turn prints the tree, every row's
 profiler device ms and event-timed ms (L2 flushed before each launch),
-and the body that ran where the tree records it.  Needs one NVIDIA card;
+and the body that ran where the tree records it.  With ``--baselines``:
+the hand-written baselines B5 (``matmul``), B6 (``fused_dense_act``,
+gelu) and B7 (``fused_rnz``) through their launchers at the fused path's
+shape (M = 2048, K = 4096, N = 12288, bf16); each turn prints the tree,
+each kernel's profiler device ms and event-timed ms (L2 flushed before
+each launch), and its body where the tree records it.  Needs one NVIDIA card;
 compare two versions only within one run of this script.
 """
 
@@ -384,9 +389,46 @@ print("COMPARE " + json.dumps({"tree": sys.argv[1],
       flush=True)
 """
 
+BASELINES_TURN = r"""
+import json, os, sys
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+from repro_torch.codegen import build
+build.build("baselines")
+build.load("baselines")
+from repro_torch.kernels import _baselines as B
+""" + DEVICE_MS + r"""
+gen = torch.Generator(device="cuda").manual_seed(62)
+flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+m, k, n = cs.FUSED_M, cs.FUSED_D, cs.FUSED_F
+a = (torch.randn(m, k, generator=gen, device="cuda") / 8).bfloat16()
+b = (torch.randn(k, n, generator=gen, device="cuda") / 8).bfloat16()
+g = torch.randn(k, generator=gen, device="cuda").bfloat16()
+beta, mean = torch.randn(n, device="cuda"), torch.randn(n, device="cuda") * .1
+var = torch.rand(n, device="cuda") + 0.5
+bf16 = torch.bfloat16
+rows = {"matmul": (B.MATMUL, lambda: B.MATMUL(a, b, bf16)),
+        "fused_dense_act": (B.FUSED_DENSE_ACT, lambda: B.FUSED_DENSE_ACT(
+            a, b, bf16, beta=beta, mean=mean, var=var, act="gelu")),
+        "fused_rnz": (B.FUSED_RNZ, lambda: B.FUSED_RNZ(a, b, bf16, g=g))}
+device, event, body = {}, {}, {}
+for name, (launcher, run) in rows.items():
+    device[name] = device_ms(run, "baseline_")
+    event[name] = cs._timed(run, flush)
+    body[name] = getattr(launcher, "last_body", None)
+print("COMPARE " + json.dumps({"tree": sys.argv[1],
+                               "baselines_device_ms": device,
+                               "baselines_ms": event, "body": body}),
+      flush=True)
+"""
+
 TURNS = {"--serve": SERVE_TURN, "--kernels": KERNELS_TURN,
          "--moe-serve": MOE_SERVE_TURN, "--quant": QUANT_TURN,
-         "--modes": MODES_TURN, "--attention": ATTENTION_TURN}
+         "--modes": MODES_TURN, "--attention": ATTENTION_TURN,
+         "--baselines": BASELINES_TURN}
 
 
 def main(argv) -> int:

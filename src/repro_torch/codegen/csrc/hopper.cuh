@@ -1,7 +1,7 @@
 // Hopper building blocks of the ring bodies (contract.cu's bf16 ring,
-// contract_q8.cu's 8-bit ring, attention.cu's bf16 ring): mbarriers, TMA
-// tensor loads, wgmma descriptors, fences and register rebalancing, and the
-// host side of a TMA tensor map.  Header only; codegen/build.py hashes it
+// contract_q8.cu's 8-bit ring, attention.cu's bf16 ring, baselines.cu's
+// ring of B5 and B7): mbarriers, TMA tensor loads, wgmma descriptors,
+// fences and register rebalancing, and the host side of a TMA tensor map.  Header only; codegen/build.py hashes it
 // into the library name of every source that includes it, so an edit
 // rebuilds them.
 //
@@ -305,6 +305,20 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
       : HOPPER_OP64(HOPPER_F, d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB),
+        "r"(1));
+}
+
+// The same at n256 (baselines.cu's B7 ring, a g-scaled A).
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %134, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_REGS128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, %133;\n}\n"
+      : HOPPER_OP128(HOPPER_F, d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB),
         "r"(1));
 }

@@ -422,7 +422,9 @@ class _Scratch:
     read; the counters are zeroed once, when a buffer is allocated, and
     every launch sets those it used back to 0, so a launch fills nothing
     (no ``torch.zeros`` kernel before every split GEMM).  Launches on one
-    stream run in order, so they share a pair safely."""
+    stream run in order, so they share a pair safely.  A launch that fails
+    may leave its counters set: the launcher drops the stream's pair
+    (``drop``), and the next launch there gets a freshly zeroed one."""
 
     def __init__(self):
         self._bufs: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -441,6 +443,10 @@ class _Scratch:
                                 device=device)
         self._bufs[key] = (part, count)
         return part, count
+
+    def drop(self, device: torch.device, stream: int) -> None:
+        """Forget the (device, stream) pair (after a failed launch)."""
+        self._bufs.pop((device, stream), None)
 
 
 class ContractLauncher:
@@ -612,6 +618,7 @@ class ContractLauncher:
         p.C = c.data_ptr()
         rc = lib.contract_launch(ctypes.byref(p), stream)
         if rc != 0:
+            self._scratch.drop(a.device, stream)
             raise RuntimeError(f"contract kernel launch failed ({body} "
                                f"body): cudaGetLastError() = {rc}")
         self.launches += 1

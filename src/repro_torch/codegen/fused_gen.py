@@ -253,6 +253,7 @@ class AttentionLauncher:
             v.stride(0), v.stride(1), out.stride(0), out.stride(1), stream,
         )
         if rc != 0:
+            self._scratch.drop(q.device, stream)
             raise RuntimeError(f"attention kernel launch failed ({body} "
                                f"body): cudaGetLastError() = {rc}")
         self.launches += 1

@@ -3,8 +3,11 @@
 One library holds the three hand-written kernels; each has its own
 ``BaselineLauncher`` with its own ``launches`` count (``MATMUL``,
 ``FUSED_DENSE_ACT``, ``FUSED_RNZ``), which goes up by one for every launch
-of that kernel and for nothing else.  A launcher takes CUDA tensors only:
-the CPU path is each kernel module's plain version.
+of that kernel and for nothing else, and its ``last_body``.  A launcher
+takes CUDA tensors only: the CPU path is each kernel module's plain
+version.  ``baseline_body`` picks the body a call runs (``BODIES``): the
+TMA / ``wgmma`` ring for B5 and B7 where TMA can read the bf16 operands,
+``mma.sync`` for other bf16 calls and B6, the FMA body for f32.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: shares contract.cu's codes for them
 B6_ACTS = ("relu", "gelu", "tanh", "id")
 _MAX_GRID_Y = 65535
+#: baselines.cu's body codes, in order
+BODIES = ("mma", "ring", "fma")
 _lock = threading.Lock()
 _lib = None
 
@@ -35,8 +40,43 @@ class _Params(ctypes.Structure):
         + [(f, ctypes.c_longlong) for f in ("M", "N", "K")]
         + [("eps", ctypes.c_float)]
         + [(f, ctypes.c_int) for f in ("act", "kind", "in_dtype",
-                                       "out_dtype", "pad")]
+                                       "out_dtype", "body")]
     )
+
+
+def ring_refusal(kind: int, a: torch.Tensor, b: torch.Tensor,
+                 g: Optional[torch.Tensor] = None) -> Optional[str]:
+    """Why the ring body cannot take ``a`` (M, K) @ ``b`` (K, N) of kernel
+    ``kind`` as they lie (with B7's ``g``), or None where it can: bf16
+    operands, kind 0 or 2, contiguous (the launcher copies a strided one
+    first), 16-byte aligned bases (TMA), K and N multiples of 8 (16-byte
+    rows).  baselines.cu's ``ring_ok`` holds the same rules."""
+    if kind not in (0, 2):
+        return f"kind {kind} has no ring body"
+    if a.dtype != torch.bfloat16:
+        return f"{a.dtype} operands"
+    m, k = a.shape
+    n = b.shape[1]
+    if min(m, n, k) < 1:
+        return "an empty extent"
+    if k % 8 or n % 8:
+        return f"K {k} and N {n} must be multiples of 8"
+    operands = (a, b) if g is None else (a, b, g)
+    if any(not x.is_contiguous() for x in operands):
+        return "a strided operand"
+    if any(x.data_ptr() % 16 for x in operands):
+        return "an operand not 16-byte aligned"
+    return None
+
+
+def baseline_body(kind: int, a: torch.Tensor, b: torch.Tensor,
+                  g: Optional[torch.Tensor] = None) -> str:
+    """The body a launch of kernel ``kind`` runs on these operands (as the
+    launcher passes them, contiguous): ``"ring"`` where ``ring_refusal``
+    finds nothing, else ``"mma"`` for bf16 and ``"fma"`` for f32."""
+    if ring_refusal(kind, a, b, g) is None:
+        return "ring"
+    return "mma" if a.dtype == torch.bfloat16 else "fma"
 
 
 def _library():
@@ -64,21 +104,26 @@ def _library():
 
 class BaselineLauncher:
     """One kernel of baselines.cu: ``kind`` 0 matmul (B5), 1
-    fused_dense_act (B6), 2 weighted_matmul (B7)."""
+    fused_dense_act (B6), 2 weighted_matmul (B7).  ``last_body`` names the
+    body of the latest launch (``BODIES``)."""
 
     def __init__(self, name: str, kind: int):
         self.name = name
         self.kind = kind
         self.launches = 0
+        self.last_body: Optional[str] = None
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor,
                  out_dtype: torch.dtype, *, g: Optional[torch.Tensor] = None,
                  beta: Optional[torch.Tensor] = None,
                  mean: Optional[torch.Tensor] = None,
                  var: Optional[torch.Tensor] = None, act: str = "id",
-                 eps: float = 0.0) -> torch.Tensor:
+                 eps: float = 0.0, body: Optional[str] = None
+                 ) -> torch.Tensor:
         """a (M, K) @ b (K, N) -> new (M, N) tensor, with B7's ``g`` (K,)
-        prologue or B6's (N,) ``beta``/``mean``/``var`` epilogue."""
+        prologue or B6's (N,) ``beta``/``mean``/``var`` epilogue.
+        ``body`` forces a body (``BODIES``; default ``baseline_body``'s
+        choice); one the operands cannot take raises."""
         operands = [a, b] + [v for v in (g, beta, mean, var) if v is not None]
         if any(x.device.type != "cuda" or x.device != a.device
                for x in operands):
@@ -111,15 +156,32 @@ class BaselineLauncher:
         if max(m, n, k) >= 2**31:
             raise ValueError(f"{self.name} kernel takes extents below 2**31")
         code = _KERNEL_DTYPES[a.dtype]
-        lib = _library()
-        if -(-m // lib.baseline_tile_m(code)) > _MAX_GRID_Y:
-            raise ValueError(f"{self.name} kernel grid too large for M {m}")
         a, b = a.contiguous(), b.contiguous()
-        p = _Params(A=a.data_ptr(), B=b.data_ptr(), M=m, N=n, K=k,
-                    kind=self.kind, in_dtype=code,
-                    out_dtype=_KERNEL_DTYPES[out_dtype])
         if g is not None:
             g = g.contiguous()
+        chosen = baseline_body(self.kind, a, b, g)
+        if body is None:
+            body = chosen
+        elif body not in BODIES:
+            raise ValueError(f"{self.name} kernel: unknown body {body!r}; "
+                             f"have {BODIES}")
+        elif body == "ring" and chosen != "ring":
+            raise ValueError(f"{self.name} kernel: the ring body cannot "
+                             f"take this call: "
+                             f"{ring_refusal(self.kind, a, b, g)}")
+        elif body != "ring" and body != ("mma" if code else "fma"):
+            raise ValueError(f"{self.name} kernel: the {body} body does not "
+                             f"take {a.dtype} operands")
+        lib = _library()
+        if body != "ring" and -(-m // lib.baseline_tile_m(code)) > (
+            _MAX_GRID_Y
+        ):
+            raise ValueError(f"{self.name} kernel grid too large for M {m}")
+        p = _Params(A=a.data_ptr(), B=b.data_ptr(), M=m, N=n, K=k,
+                    kind=self.kind, in_dtype=code,
+                    out_dtype=_KERNEL_DTYPES[out_dtype],
+                    body=BODIES.index(body))
+        if g is not None:
             p.g = g.data_ptr()
         if self.kind == 1:
             rows = []
@@ -142,9 +204,10 @@ class BaselineLauncher:
             ctypes.byref(p), torch.cuda.current_stream(a.device).cuda_stream
         )
         if rc != 0:
-            raise RuntimeError(f"{self.name} kernel launch failed: "
-                               f"cudaGetLastError() = {rc}")
+            raise RuntimeError(f"{self.name} kernel launch failed ({body} "
+                               f"body): cudaGetLastError() = {rc}")
         self.launches += 1
+        self.last_body = body
         return c
 
 

@@ -6,14 +6,16 @@ Replaces the reference's ``kernels/fused_rnz/fused_rnz.py::
 weighted_matmul_pallas``.  The paper's point: BLAS-style libraries form
 ``A' = A .* g`` (a temporary the size of A) before the GEMM; the rnz-nzip
 fusion rule (eq 27) folds the scaling into the reduction zipper.  Here the
-kernel is kind 2 of ``codegen/csrc/baselines.cu`` (its prologue hook): the
-g chunk of each K step rides the ``cp.async`` ring beside the A and B
-tiles and scales the A fragments in registers, with ``a * g`` rounded to
-the input dtype as the TPU kernel multiplies its VMEM block (the
-generated kernel B1 instead scales in f32 and rounds once for the
-product: each is held to its own reference).  The CUDA kernel tiles by
-its own CTA tile (64 x 128 for bf16, 128 x 64 for f32); the caller's
-blocks are checked to divide the extents, as the reference asserts.
+kernel is kind 2 of ``codegen/csrc/baselines.cu`` (its prologue): the g
+chunk of each K step rides the ring beside the A and B tiles (by TMA on
+the ``wgmma`` ring body that bf16 operands TMA can read take, by
+``cp.async`` on the ``mma.sync`` body) and scales the A fragments in
+registers, with ``a * g`` rounded to the input dtype as the TPU kernel
+multiplies its VMEM block (the generated kernel B1 instead scales in f32
+and rounds once for the product: each is held to its own reference).
+The CUDA kernel tiles by its own CTA tile (128 x 256 on the ring, 64 x
+128 on ``mma.sync``, 128 x 64 for f32); the caller's blocks are checked
+to divide the extents, as the reference asserts.
 
 On a CUDA tensor ``weighted_matmul_cuda`` launches the kernel
 (``FUSED_RNZ.launches`` counts it); on CPU tensors it runs

@@ -3,12 +3,15 @@
 Replaces the reference's ``kernels/matmul/matmul.py::matmul_pallas``, a
 3-D-grid Pallas kernel (M/bm, N/bn, K/bk) that streams K blocks through
 VMEM into a resident f32 accumulator.  Here the kernel is kind 0 of
-``codegen/csrc/baselines.cu``: one CTA owns an output tile and loops over K
-through a three-stage ``cp.async`` ring into an f32 accumulator held in
-registers, on ``mma.sync`` for bf16 and the FMA pipes for f32.  The CUDA
-kernel tiles by its own CTA tile (64 x 128 for bf16, 128 x 64 for f32),
-not by the caller's blocks: those are checked to divide the extents, as
-the reference asserts, and otherwise do not change the result.
+``codegen/csrc/baselines.cu``: a CTA owns an output tile and loops over K
+into an f32 accumulator held in registers.  bf16 operands that TMA can
+read run the ring body (a persistent grid of 128 x 256 tiles, TMA loads
+into a four-stage mbarrier ring feeding ``wgmma``); other bf16 operands a
+three-stage ``cp.async`` ring on ``mma.sync`` (64 x 128 tiles); f32 the
+FMA pipes (128 x 64).  ``_baselines.baseline_body`` picks the body.  The
+CUDA tile is the kernel's own, not the caller's blocks: those are checked
+to divide the extents, as the reference asserts, and otherwise do not
+change the result.
 
 On a CUDA tensor ``matmul_cuda`` launches the kernel (``MATMUL.launches``
 counts it); on CPU tensors it runs ``matmul_ref``.

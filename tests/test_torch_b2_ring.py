@@ -479,23 +479,29 @@ def test_tc32_row_is_bounded_at_its_bodys_rate():
 
 
 @pytest.mark.parametrize("traces,launched,passes,takes", [
-    # every record in the first trace
-    ([{"ring": 3}], 4, True, 1),
-    # a trace that lost records and holds nothing else is taken again
-    ([{}, {"ring": 2}, {"ring": 3}], 4, True, 3),
-    # three such traces: the launcher's count decides
-    ([{"ring": 2}, {}, {"ring": 1}], 4, True, 3),
+    # every record in the first trace, after the marker's
+    ([["marker", "ring", "ring", "ring"]], 4, True, 1),
+    # a trace that lost the marker's record is taken again
+    ([[], ["ring", "ring"], ["marker", "ring", "ring", "ring"]], 4, True,
+     3),
+    # no whole trace in TAKES (the last trace repeats): the check fails
+    # (the launcher's count alone does not show that nothing else ran)
+    ([["ring", "ring"], [], ["ring"], ["ring", "ring", "ring"]], 4, False,
+     "TAKES"),
     # a call that launched nothing, by the launcher's count
-    ([{"ring": 2}], 3, False, 1),
+    ([["marker", "ring", "ring"]], 3, False, 1),
     # other device work fails at once
-    ([{"ring": 2, "copy": 1}], 4, False, 1),
+    ([["marker", "ring", "ring", "copy"]], 4, False, 1),
     # more records than launches fail at once
-    ([{"ring": 4}], 4, False, 1),
+    ([["marker"] + ["ring"] * 4], 4, False, 1),
+    # fewer records with the marker's kept fail at once
+    ([["marker", "ring", "ring"]], 4, False, 1),
 ])
 def test_alone_counts_launches_by_the_launcher_and_takes_short_traces_again(
         monkeypatch, traces, launched, passes, takes):
     """``_alone`` over 3 calls of one launch (and its warm-up call): the
-    launcher counts ``launched`` a trace, the trace holds ``traces``."""
+    launcher counts ``launched`` a take, the take's trace holds
+    ``traces`` ("marker" the session's marker record)."""
     cs = _chip_smoke()
     launcher = types.SimpleNamespace(launches=0)
     calls = []
@@ -503,9 +509,10 @@ def test_alone_counts_launches_by_the_launcher_and_takes_short_traces_again(
     def fake(run, reps=3):
         calls.append(reps)
         launcher.launches += launched
-        return dict(traces[len(calls) - 1])
+        return [cs.MARKER_KERNEL if n == "marker" else n
+                for n in traces[min(len(calls), len(traces)) - 1]]
 
-    monkeypatch.setattr(cs, "_device_kernels", fake)
+    monkeypatch.setattr(cs, "_marker_records", fake)
     monkeypatch.setattr(cs, "_launcher", lambda kernel: launcher)
     monkeypatch.setattr(cs, "_kernel_of",
                         lambda name: "attention" if name == "ring" else None)
@@ -514,4 +521,4 @@ def test_alone_counts_launches_by_the_launcher_and_takes_short_traces_again(
     else:
         with pytest.raises(AssertionError):
             cs._alone(None, "attention", 1, "case")
-    assert len(calls) == takes
+    assert len(calls) == (cs.TAKES if takes == "TAKES" else takes)

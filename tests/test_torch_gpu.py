@@ -18,7 +18,10 @@ layouts, batched and split, the 8-bit ring, two launches equal bit for
 bit, a forced ring refused where it cannot read the layout; the fused
 ring in every mode and layout, split, its row reduce bit for bit; the
 narrow body at decode's token counts and GEMMs, one launch a GEMM and
-nothing else).
+nothing else), B5 and B7's ring body (TMA and wgmma: the fused path's
+shape, ragged, M < 128, bf16 and f32 outputs, B7 with g = 0 and of mixed
+sign, two streams at once, forced and refused bodies), and a failed
+launch of B1 or B2 dropping its stream's counters.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided inside the ``cuda_device`` fixture).  The file imports torch and
@@ -36,6 +39,8 @@ computation on the CPU.
 """
 
 from __future__ import annotations
+
+import types
 
 import pytest
 import torch
@@ -788,6 +793,165 @@ def test_baseline_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="one dtype"):
         _baselines.FUSED_RNZ(a, a, torch.float32,
                              g=torch.ones(8, device=cuda_device).bfloat16())
+
+
+def _baseline_case(device, m, k, n, seed, g_kind="randn"):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = (torch.randn(m, k, generator=gen, device=device) / 8).bfloat16()
+    b = (torch.randn(k, n, generator=gen, device=device) / 8).bfloat16()
+    if g_kind == "zero":
+        g = torch.zeros(k, device=device).bfloat16()
+    elif g_kind == "signs":  # mixed sign, every magnitude of randn
+        g = torch.randn(k, generator=gen, device=device).abs() * (
+            1 - 2 * (torch.arange(k, device=device) % 3 == 0).float())
+        g = g.bfloat16()
+    else:
+        g = torch.randn(k, generator=gen, device=device).bfloat16()
+    return a, b, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32],
+                         ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("m,k,n", [
+    (2048, 4096, 12288),  # the fused path's shape: 768 tiles
+    (1000, 1000, 1000),   # ragged on every side: TMA zero-fill, masked store
+    (77, 256, 512),       # M < 128: half a row tile
+    (1, 8, 8),            # one row, one K step
+    (300, 4096, 264),     # ragged N past a 256-wide tile
+])
+def test_baseline_ring_matches_plain_versions(cuda_device, m, k, n, out):
+    from repro_torch.kernels import _baselines
+    from repro_torch.kernels.fused_rnz.ref import weighted_matmul_ref
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    a, b, g = _baseline_case(cuda_device, m, k, n, 40)
+    got = _baselines.MATMUL(a, b, out)
+    assert _baselines.MATMUL.last_body == "ring"
+    _assert_close_scaled(got, matmul_ref(a, b, out), torch.bfloat16)
+    for g_kind in ("randn", "signs"):
+        _, _, g = _baseline_case(cuda_device, m, k, n, 41, g_kind)
+        got = _baselines.FUSED_RNZ(a, b, out, g=g)
+        assert _baselines.FUSED_RNZ.last_body == "ring"
+        _assert_close_scaled(got, weighted_matmul_ref(a, b, g, out),
+                             torch.bfloat16)
+    zero = _baselines.FUSED_RNZ(a, b, out, g=torch.zeros_like(g))
+    assert _baselines.FUSED_RNZ.last_body == "ring"
+    assert bool((zero == 0).all())
+
+
+@pytest.mark.gpu
+def test_baseline_ring_on_two_streams_at_once(cuda_device):
+    """B5 and B7 launched on two streams at once give the bits each gives
+    alone (the ring keeps no state between launches)."""
+    from repro_torch.kernels import _baselines
+
+    a, b, g = _baseline_case(cuda_device, 1024, 2048, 2048, 42)
+    want = (_baselines.MATMUL(a, b, torch.bfloat16),
+            _baselines.FUSED_RNZ(a, b, torch.bfloat16, g=g))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    got = []
+    for _ in range(3):
+        with torch.cuda.stream(streams[0]):
+            x = _baselines.MATMUL(a, b, torch.bfloat16)
+        with torch.cuda.stream(streams[1]):
+            y = _baselines.FUSED_RNZ(a, b, torch.bfloat16, g=g)
+        got.append((x, y))
+    torch.cuda.synchronize()
+    for x, y in got:
+        assert torch.equal(x, want[0]) and torch.equal(y, want[1])
+
+
+@pytest.mark.gpu
+def test_baseline_bodies_forced_and_refused(cuda_device):
+    """A forced body runs where the operands allow it and raises where
+    they do not; the ring and the mma.sync body agree."""
+    from repro_torch.kernels import _baselines
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    a, b, g = _baseline_case(cuda_device, 256, 512, 384, 43)
+    ring = _baselines.MATMUL(a, b, torch.float32, body="ring")
+    mma = _baselines.MATMUL(a, b, torch.float32, body="mma")
+    assert _baselines.MATMUL.last_body == "mma"
+    _assert_close_scaled(ring, matmul_ref(a, b, torch.float32),
+                         torch.bfloat16)
+    torch.testing.assert_close(ring, mma, rtol=1e-4, atol=1e-4)
+    before = _baselines.MATMUL.launches
+    flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=cuda_device)
+    offset = flat[1:].view(a.shape)
+    with pytest.raises(ValueError, match="ring body cannot take"):
+        _baselines.MATMUL(offset, b, torch.float32, body="ring")
+    with pytest.raises(ValueError, match="ring body cannot take"):
+        _baselines.FUSED_RNZ(a.float(), b.float(), torch.float32,
+                             g=g.float(), body="ring")
+    with pytest.raises(ValueError, match="ring body cannot take"):
+        _baselines.FUSED_DENSE_ACT(
+            a, b, torch.float32, beta=torch.zeros(384, device=cuda_device),
+            mean=torch.zeros(384, device=cuda_device),
+            var=torch.ones(384, device=cuda_device), body="ring")
+    with pytest.raises(ValueError, match="fma body does not take"):
+        _baselines.MATMUL(a, b, torch.float32, body="fma")
+    assert _baselines.MATMUL.launches == before
+    # the offset view runs the mma.sync body by default
+    _baselines.MATMUL(offset, b, torch.float32)
+    assert _baselines.MATMUL.last_body == "mma"
+
+
+# --------------------------------------------------------------------------
+# a failed launch drops its stream's scratch (B1's and B2's counters)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_failed_contract_launch_drops_its_streams_counters(cuda_device):
+    """Counters left set (a launch cut off), then a launch that fails on
+    the same stream: the launcher drops the stream's scratch, so the next
+    split GEMM there starts from zeroed counters and is right."""
+    from repro_torch.codegen import CONTRACT, contract_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(44)
+    a = torch.randn(1, 128, 4096, generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn(1, 4096, 1024, generator=gen,
+                    device=cuda_device).bfloat16()
+    spec = PE.matmul_spec(128, 4096, 1024)
+    want = contract_ref(spec, a[0], b[0], out_dtype=torch.bfloat16)
+    _assert_close_scaled(CONTRACT(a, b, torch.bfloat16)[0], want,
+                         torch.bfloat16)
+    assert CONTRACT.last_body == "ring" and CONTRACT.last_plan.splits > 1
+    # the pool's key is the operands' device (with its index)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    _, counter = CONTRACT._scratch.get(a.device, stream, 0, 1)
+    counter.fill_(1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        CONTRACT(a.float(), b.float(), torch.float32, body="ring")
+    assert (a.device, stream) not in CONTRACT._scratch._bufs
+    got = CONTRACT(a, b, torch.bfloat16)[0]
+    assert CONTRACT.last_plan.splits > 1
+    _assert_close_scaled(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_failed_attention_launch_drops_its_streams_counter(cuda_device,
+                                                           monkeypatch):
+    from repro_torch.codegen import fused_gen
+
+    launcher = fused_gen.AttentionLauncher()
+    q, k, v = (torch.randn(2, 64, 64, device=cuda_device).bfloat16()
+               for _ in range(3))
+    out = launcher(q, k, v, True, None, torch.bfloat16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _, sched = launcher._scratch.get(q.device, stream, 0, 2)
+    real = launcher._fn()
+    monkeypatch.setattr(launcher, "_fn", lambda: types.SimpleNamespace(
+        attention_launch=lambda *args: 9))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launcher(q, k, v, True, None, torch.bfloat16)
+    assert (q.device, stream) not in launcher._scratch._bufs
+    monkeypatch.setattr(launcher, "_fn", lambda: real)
+    again = launcher(q, k, v, True, None, torch.bfloat16)
+    assert launcher._scratch.get(q.device, stream, 0, 2)[1] is not sched
+    assert torch.equal(again, out)
 
 
 # --------------------------------------------------------------------------
