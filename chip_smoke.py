@@ -29,13 +29,15 @@ raises and the script exits non-zero without the final result line:
    for the kernel, the plain version and ``torch.matmul`` (the library
    yardstick, used nowhere in the port), beside its bound on an H100 SXM:
    max(operations / peak rate, bytes / 3.35 TB/s), bf16 at 989 TFLOP/s,
-   f32 at 67 TFLOP/s (B2's 3xTF32 body: 495 / 3); each row names the body that ran (``ring`` with its
+   f32 at 67 TFLOP/s (B1's and B2's 3xTF32 bodies: 495 / 3); each row names the body that ran (``ring`` with its
    tile and K split, ``narrow`` with its token width and K split, ``mma``,
-   ``fma``) and the kernel's device ms on the profiler beside the
+   ``tc32``, ``fma``) and the kernel's device ms on the profiler beside the
    event-timed ms, which include the host's path to the launch; the M = 4
    rows must run the narrow body, one launch and no other device work
    each (no counter fill, no copy), and so must a decode layer's 7 GEMMs
-   through ``ops.dense``; per-layer sums at M = 4, 128 and 512;
+   through ``ops.dense``; the f32 row must run the tc32 body, one launch
+   alone, its bound at 3xTF32's rate with the FMA pipes' beside it;
+   per-layer sums at M = 4, 128 and 512;
 4. b1-train — B1 at one qwen3-8b layer's training GEMMs at M = 2048 (4 x
    512 tokens): each forward product and its derived backward specs
    ``matmul.dA`` and ``matmul.dB`` as the backward launches them, timed
@@ -58,16 +60,22 @@ raises and the script exits non-zero without the final result line:
    2048 x 7168, an 11.27 GB output each), the training path's (32 groups
    of C = 320), a ragged partition with empty and size-1 groups (whose
    slabs must be exact zeros), one float32 case; timed as above with
-   ``torch.bmm`` of x^T and dout over the (E, C, K) layout;
+   ``torch.bmm`` of x^T and dout over the (E, C, K) layout; each row
+   names its body (bf16 the persistent TMA / ``wgmma`` ring, f32 the FMA
+   pipes) and its device ms, and runs one launch and no other device
+   work (no fill of the output);
 6b. b1-modes — B1's epilogue and weighted-family modes against
    ``contract_ref`` at the fused path's shape (M = 2048, D = 4096, F =
    12288): every epilogue variant (5 activations x norm on/off x
    bf16/f32), then ``weighted_matmul`` and its derived ``.dA``, ``.dB``
    and ``.dg`` in bf16 (``.dg`` twice: the same bits), timed as phase 3
    with ``torch.matmul`` plus the same tail in eager PyTorch as the
-   library yardstick; every bf16 row must run the fused ring alone (one
-   launch, no copy, cast or fill kernel), each with its body and device
-   ms;
+   library yardstick, and a plain f32 row against one ``torch.matmul``
+   (TF32 off); every bf16 row must run the fused ring and every f32 row
+   the tc32 body (3xTF32), each alone (one launch, no copy, cast or fill
+   kernel) and witnessed between CUDA events, each with its body and
+   device ms; the f32 rows' bound at 3xTF32's rate, the FMA pipes' beside
+   it;
 6c. baselines — B5, B6 (gelu) and B7 against ``matmul_ref``,
    ``fused_dense_act_ref``, ``weighted_matmul_ref`` at that shape in bf16,
    at a ragged shape the ring takes (1000 x 1000 x 1000, bf16) and at a
@@ -520,10 +528,11 @@ def _launch_witness(run, kernel, what, device_ms=None, reps=3):
 def _launcher(kernel):
     """The launcher of the port's ``kernel`` (a ``_kernel_of`` name) that
     ``_alone`` counts."""
-    from repro_torch.codegen import ATTENTION, CONTRACT
+    from repro_torch.codegen import ATTENTION, CONTRACT, GROUPED_DW
     from repro_torch.kernels import _baselines
 
     return {"contract": CONTRACT, "attention": ATTENTION,
+            "grouped_dw": GROUPED_DW,
             "matmul": _baselines.MATMUL,
             "fused_dense_act": _baselines.FUSED_DENSE_ACT,
             "fused_rnz": _baselines.FUSED_RNZ}[kernel]
@@ -726,6 +735,19 @@ def phase_kernel():
         ops_ms = ops / PEAK_OPS[dt_name] * 1e3
         bytes_ms = nbytes / PEAK_BYTES * 1e3
         extra = {}
+        if dt_name == "float32":
+            # the tc32 body, one launch and nothing else; its bound at
+            # 3xTF32's rate, the FMA pipes' beside it
+            if CONTRACT.last_body != "tc32":
+                raise AssertionError(f"kernel M={m} K={k} N={n} float32: "
+                                     f"body {body}, expected tc32")
+            run = lambda: CONTRACT(a[None], b[None], dt)  # noqa: E731
+            what = f"kernel M={m} K={k} N={n} float32"
+            extra["takes"] = _alone(run, "contract", 1, what)
+            extra["witness_records"], extra["witness_event_ms"] = (
+                _launch_witness(run, "contract", what, device_ms))
+            extra["fma_bound_ms"] = max(ops_ms, bytes_ms)
+            ops_ms = ops / PEAK_3XTF32 * 1e3
         if m < 64 and dt_name == "bfloat16":
             # decode: the narrow body, one launch and nothing else (no
             # counter fill, no operand copy)
@@ -746,10 +768,12 @@ def phase_kernel():
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                    tflops=ops / ms / 1e9)
         rows.append(row)
+        fma = (f", {extra['fma_bound_ms']:.4f} at the FMA pipes"
+               if "fma_bound_ms" in extra else "")
         print(f"[kernel] M={m} K={k} N={n} {dt_name} ({body}): scaled err "
               f"{scaled_err:.3g}, {ms:.4f} ms, device {device_ms:.4f} "
               f"(plain {plain_ms:.4f}, torch.matmul {library_ms:.4f}, bound "
-              f"{row['bound_ms']:.4f} by {row['bound_by']}), "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}{fma}), "
               f"{row['tflops']:.1f} TFLOP/s", flush=True)
     for m in (4, 128, 512):
         part = [(r, LAYER_GEMMS[(r["K"], r["N"])]) for r in rows
@@ -996,7 +1020,7 @@ def phase_grouped_dw():
     import torch
 
     from repro_torch import ops
-    from repro_torch.codegen import grouped_dw_ref
+    from repro_torch.codegen import GROUPED_DW, grouped_dw_ref
     from repro_torch.core.enumerate import GroupedSpec
 
     dev = torch.device("cuda")
@@ -1031,6 +1055,10 @@ def phase_grouped_dw():
         )
         kern = ops._tuned_kernel(spec, dt)
         got = kern(dout, x)
+        body = _body(GROUPED_DW)
+        if body != DW_BODIES[dt_name]:
+            raise AssertionError(f"grouped dW kernel ({name}): body {body}, "
+                                 f"expected {DW_BODIES[dt_name]}")
         want = grouped_dw_ref(x, dout, sizes, out_dtype=dt)
         torch.cuda.synchronize()
         max_abs, scaled_err = _check_close(
@@ -1041,7 +1069,11 @@ def phase_grouped_dw():
                                  f"group's slab is not exact zeros")
         del got, want
         torch.cuda.empty_cache()
-        ms = _timed(lambda: kern(dout, x), flush)
+        run = lambda: kern(dout, x)  # noqa: E731
+        # one launch and no other device record: no fill of the output
+        takes = _alone(run, "grouped_dw", 1, f"grouped-dw {name}")
+        ms = _timed(run, flush)
+        device_ms, _ = _kernel_ms(run, flush, "grouped_dw")
         plain_ms = _timed(lambda: grouped_dw_ref(x, dout, sizes,
                                                  out_dtype=dt), flush,
                           **PLAIN_REPS)
@@ -1057,6 +1089,7 @@ def phase_grouped_dw():
         row = dict(case=name, C=sizes[0] if len(set(sizes)) == 1 else None,
                    rows=n_rows, groups=G,
                    empty_groups=len(empty), K1=k1, K2=k2, dtype=dt_name,
+                   body=body, takes=takes, device_ms=device_ms,
                    max_abs_err=max_abs, scaled_err=scaled_err, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
@@ -1066,7 +1099,8 @@ def phase_grouped_dw():
         rows.append(row)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         print(f"[grouped-dw] {name} rows={n_rows} groups={G} (empty "
-              f"{len(empty)}) K1={k1} K2={k2} {dt_name}: scaled err "
+              f"{len(empty)}) K1={k1} K2={k2} {dt_name} ({body}, device "
+              f"{device_ms:.4f}): scaled err "
               f"{scaled_err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f}, "
               f"torch.bmm {lib}, bound {row['bound_ms']:.4f} by "
               f"{row['bound_by']}), {row['gbps']:.0f} GB/s", flush=True)
@@ -1076,6 +1110,10 @@ def phase_grouped_dw():
     gc.collect()
     torch.cuda.empty_cache()
     return rows
+
+
+#: the body each grouped-dw row must run, by its operands' dtype
+DW_BODIES = {"bfloat16": "ring", "float32": "fma"}
 
 
 def _bound(ops, nbytes, dt_name, peak=None):
@@ -1111,25 +1149,37 @@ def _case_row(tag, what, got, want, dt_name, run, plain, library, ops,
     lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
     on = (f" ({extra['body']}, device {extra['device_ms']:.4f})"
           if "device_ms" in extra else "")
+    fma = (f", {extra['fma_bound_ms']:.4f} at the FMA pipes"
+           if "fma_bound_ms" in extra else "")
     print(f"[{tag}] {what} {dt_name}{on}: scaled err {scaled_err:.3g}, "
           f"{ms:.4f} ms (plain {plain_ms:.4f}, library {lib}, bound "
-          f"{bound_ms:.4f} by {by}), {row['tflops']:.1f} TFLOP/s",
+          f"{bound_ms:.4f} by {by}{fma}), {row['tflops']:.1f} TFLOP/s",
           flush=True)
     return row
 
 
+#: the body each b1-modes row must run, by its operands' dtype
+MODE_BODIES = {"bfloat16": "ring", "float32": "tc32"}
+
+
 def _mode_body(launcher, dt_name, run, what):
-    """The body of ``launcher``'s latest launch (a b1-modes call); a bf16
-    call must have run the fused ring and launch nothing else on the
-    device (no copy of an operand or of the result, no cast of g, no
-    counter fill)."""
+    """The body of ``launcher``'s latest launch (a b1-modes call): a bf16
+    call must have run the fused ring, an f32 one the tc32 body, and
+    launch nothing else on the device (no copy of an operand or of the
+    result, no cast of g, no counter fill)."""
     body = _body(launcher)
-    if dt_name == "bfloat16":
-        if launcher.last_body != "ring":
-            raise AssertionError(f"b1-modes {what}: body {body}, expected "
-                                 f"the fused ring")
-        _alone(run, "contract", 1, f"b1-modes {what}")
+    if launcher.last_body != MODE_BODIES[dt_name]:
+        raise AssertionError(f"b1-modes {what}: body {body}, expected "
+                             f"{MODE_BODIES[dt_name]}")
+    _alone(run, "contract", 1, f"b1-modes {what} {dt_name}")
     return body
+
+
+def _f32_bound(ops, nbytes):
+    """An f32 row's bound at 3xTF32's rate (the tc32 body), and the FMA
+    pipes' bound beside it."""
+    return dict(peak=PEAK_3XTF32,
+                fma_bound_ms=_bound(ops, nbytes, "float32")[0])
 
 
 def _matmul_then_tail(a, b, epi, vectors):
@@ -1182,24 +1232,48 @@ def phase_b1_modes():
                                   what)
                 device_ms, _ = _kernel_ms(lambda: kern(x, w, **vs), flush,
                                           "contract")
-                if dt_name == "bfloat16":
-                    _launch_witness(lambda: kern(x, w, **vs), "contract",
-                                    f"b1-modes {what}", device_ms)
+                _launch_witness(lambda: kern(x, w, **vs), "contract",
+                                f"b1-modes {what} {dt_name}", device_ms)
                 want = contract_ref(spec, x, w, out_dtype=dt, epilogue=epi,
                                     vectors=vs)
                 lib = (lambda: _matmul_then_tail(x, w, epi,  # noqa: E731
                                                  vs))
                 nbytes = (m * d + d * f + m * f) * x.element_size() + (
                     4 * f * len(vs))
+                ops_ = 2.0 * m * d * f
+                f32 = (_f32_bound(ops_, nbytes) if dt_name == "float32"
+                       else {})
                 rows.append(_case_row(
                     "b1-modes", f"{what} M={m} K={d} N={f}", got, want,
                     dt_name,
                     lambda: kern(x, w, **vs),
                     lambda: contract_ref(spec, x, w, out_dtype=dt,
                                          epilogue=epi, vectors=vs),
-                    lib, 2.0 * m * d * f, nbytes, flush, mode="epilogue",
-                    act=act, norm=norm, body=body, device_ms=device_ms))
+                    lib, ops_, nbytes, flush, mode="epilogue",
+                    act=act, norm=norm, body=body, device_ms=device_ms,
+                    **f32))
                 del got, want
+        if dt_name == "float32":
+            # the plain f32 product at the same shape against one
+            # torch.matmul in full f32 (main turns TF32 off)
+            kern = ops._tuned_kernel(spec, dt)
+            got = kern(x, w)
+            what = "plain"
+            body = _mode_body(CONTRACT, dt_name, lambda: kern(x, w), what)
+            device_ms, _ = _kernel_ms(lambda: kern(x, w), flush, "contract")
+            _launch_witness(lambda: kern(x, w), "contract",
+                            f"b1-modes {what} {dt_name}", device_ms)
+            want = contract_ref(spec, x, w, out_dtype=dt)
+            nbytes = (m * d + d * f + m * f) * 4
+            ops_ = 2.0 * m * d * f
+            rows.append(_case_row(
+                "b1-modes", f"{what} M={m} K={d} N={f}", got, want, dt_name,
+                lambda: kern(x, w),
+                lambda: contract_ref(spec, x, w, out_dtype=dt),
+                lambda: torch.matmul(x, w), ops_, nbytes, flush,
+                mode="plain", body=body, device_ms=device_ms,
+                **_f32_bound(ops_, nbytes)))
+            del got, want
         del x, w
     dt, dt_name = torch.bfloat16, "bfloat16"
     x = (torch.randn(m, d, generator=gen, device=dev) / 8).to(dt)
@@ -1985,8 +2059,8 @@ def _kernel_of(name):
     if hit:  # B5, B6, B7 by the kind, the template's second argument
         return BASELINES[int(hit.group(2))]
     hit = re.search(r"\b(grouped_dw|grouped|contract)_"
-                    r"(bf16_ring|bf16_narrow|bf16_mma|bf16|f32)(_fused)?_kernel",
-                    name)
+                    r"(bf16_ring|bf16_narrow|bf16_mma|bf16|f32_tc|f32)"
+                    r"(_fused)?_kernel", name)
     return hit.group(1) if hit else None
 
 
@@ -3449,6 +3523,7 @@ def attention_entry(small, path):
         "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                      else "bytes"),
         "library_ms": total("library_ms"),
+        "body": _bodies(rows),
     }
 
 
@@ -3478,6 +3553,7 @@ def new_kernel_entries(quant, quant_path, chain):
             "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                          else "bytes"),
             "library_ms": None if None in libs else sum(libs),
+            "body": _bodies(parts),
         }
 
     q8 = "src/repro_torch/codegen/csrc/contract_q8.cu"
@@ -3501,7 +3577,19 @@ def new_kernel_entries(quant, quant_path, chain):
     return out
 
 
-def kernels_line(k_rows, b1_rows, g_rows, dw_rows, base_rows, launches):
+def _bodies(rows):
+    """The bodies that ran ``rows`` (each row's ``body`` without its
+    tile), in order of first appearance, joined by "/"."""
+    out = []
+    for r in rows:
+        body = (r.get("body") or "").split(" ")[0]
+        if body and body not in out:
+            out.append(body)
+    return "/".join(out) or None
+
+
+def kernels_line(k_rows, b1_rows, g_rows, dw_rows, base_rows, launches,
+                 mode_rows):
     """One entry per kernel of the paths, each summed over one layer of one
     training step at the path's shapes (the remat recompute aside): B1 the
     7 forward GEMMs and their 14 derived backward GEMMs of a qwen3-8b
@@ -3513,7 +3601,11 @@ def kernels_line(k_rows, b1_rows, g_rows, dw_rows, base_rows, launches):
     those of the dense training run
     (B1), of the MoE training run (B3, B4) and of the fused path's run
     (B5-B7).  Each number is measured above; ``max_abs_err`` is the worst
-    over every case of the kernel."""
+    over every case of the kernel.  ``body`` names the body that ran the
+    entry's rows (B3: its M tile at the training shapes), and B1's
+    ``bodies`` every body its measured rows ran (``mode_rows``: b1-modes,
+    the f32 rows on tc32)."""
+    from repro_torch.codegen.fused_gen import grouped_tile_m
     mult = {"gate/up": 2, "down": 1}
     b1 = [(r, LAYER_GEMMS[(r["K"], r["N"])]) for r in b1_rows]
     b3 = [(r, mult[r["case"].split()[-1]]) for r in g_rows
@@ -3546,13 +3638,19 @@ def kernels_line(k_rows, b1_rows, g_rows, dw_rows, base_rows, launches):
                           [r for r in base_rows if r["kernel"] == name]),
                     body=main[0]["body"])
 
+    train_tile = grouped_tile_m((MOE_TRAIN_C,) * MOE_TRAIN_EXPERTS)
     return {"kernels": [
-        entry("contract", "src/repro_torch/codegen/csrc/contract.cu",
-              "src/repro/codegen/pallas_gen.py:263", b1, b1_rows + k_rows),
-        entry("grouped", "src/repro_torch/codegen/csrc/grouped.cu",
-              "src/repro/codegen/fused_gen.py:243", b3, g_rows),
-        entry("grouped_dw", "src/repro_torch/codegen/csrc/grouped_dw.cu",
-              "src/repro/codegen/fused_gen.py:309", b4, dw_rows),
+        dict(entry("contract", "src/repro_torch/codegen/csrc/contract.cu",
+                   "src/repro/codegen/pallas_gen.py:263", b1,
+                   b1_rows + k_rows),
+             body=_bodies(r for r, _ in b1),
+             bodies=_bodies(list(b1_rows) + list(k_rows) + list(mode_rows))),
+        dict(entry("grouped", "src/repro_torch/codegen/csrc/grouped.cu",
+                   "src/repro/codegen/fused_gen.py:243", b3, g_rows),
+             body=f"{train_tile}-row tile"),
+        dict(entry("grouped_dw", "src/repro_torch/codegen/csrc/grouped_dw.cu",
+                   "src/repro/codegen/fused_gen.py:309", b4, dw_rows),
+             body=_bodies(r for r, _ in b4)),
     ] + [base_entry(name, replaces) for name, replaces in (
         ("matmul", "src/repro/kernels/matmul/matmul.py:67"),
         ("fused_dense_act",
@@ -3654,7 +3752,8 @@ def main() -> int:
     serve_int8 = _phase("serve-int8", phase_serve_int8)
     _free()
 
-    line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches)
+    line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches,
+                        b1_mode_rows)
     line["kernels"] += new_kernel_entries(quant, quant_path, chain)
     line["kernels"].append(attention_entry(attn_small, attn))
     SECONDS["total"] = time.perf_counter() - t_start

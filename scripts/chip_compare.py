@@ -3,7 +3,7 @@
 
     python3 scripts/chip_compare.py \
         [--serve | --kernels | --moe-serve | --quant | --modes |
-         --attention | --baselines] OLD_CHECKOUT NEW_CHECKOUT
+         --attention | --baselines | --f32 | --dw] OLD_CHECKOUT NEW_CHECKOUT
 
 Runs, in a fresh process per turn and in the order old, new, new, old,
 phases of each checkout's own ``chip_smoke.py``, after building the
@@ -56,7 +56,18 @@ the hand-written baselines B5 (``matmul``), B6 (``fused_dense_act``,
 gelu) and B7 (``fused_rnz``) through their launchers at the fused path's
 shape (M = 2048, K = 4096, N = 12288, bf16); each turn prints the tree,
 each kernel's profiler device ms and event-timed ms (L2 flushed before
-each launch), and its body where the tree records it.  Needs one NVIDIA card;
+each launch), and its body where the tree records it.  With ``--f32``:
+B1's f32 products through ``ops`` at the fused path's shape (M = 2048, K
+= 4096, N = 12288): the plain product and the ten epilogue variants of
+``b1-modes``, and phase ``kernel``'s f32 case (M = 128, K = N = 4096)
+through the launcher; each turn prints the tree, every row's profiler
+device ms of B1's f32 kernels (whatever body) and event-timed ms, and the
+body that ran.  With ``--dw``: B4 through ``ops`` at the MoE training
+path's shapes (32 groups of C = 320, gate/up and down) and kimi-k2's full
+expert shapes (384 groups of C = 28); each turn prints the tree, every
+row's profiler device ms and event-timed ms, the body where the tree
+records it, and the training step's three dW calls of a MoE layer
+summed.  Needs one NVIDIA card;
 compare two versions only within one run of this script.
 """
 
@@ -425,10 +436,106 @@ print("COMPARE " + json.dumps({"tree": sys.argv[1],
       flush=True)
 """
 
+F32_TURN = r"""
+import json, os, sys
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cs.OUT, "autotune.json")
+os.environ["REPRO_PLAN_DB"] = os.path.join(cs.OUT, "plans.json")
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch import codegen, ops
+from repro_torch.codegen import CONTRACT, build
+from repro_torch.core.enumerate import matmul_spec
+build.build("contract")
+build.load("contract")
+""" + DEVICE_MS + r"""
+gen = torch.Generator(device="cuda").manual_seed(31)
+flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+m, d, f = cs.FUSED_M, cs.FUSED_D, cs.FUSED_F
+f32 = torch.float32
+x = torch.randn(m, d, generator=gen, device="cuda") / 8
+w = torch.randn(d, f, generator=gen, device="cuda") / 8
+vec = {"scale": torch.randn(f, generator=gen, device="cuda"),
+       "bias": torch.randn(f, generator=gen, device="cuda"),
+       "mean": torch.randn(f, generator=gen, device="cuda") * 0.1,
+       "var": torch.rand(f, generator=gen, device="cuda") + 0.5}
+spec = matmul_spec(m, d, f)
+plain = ops._tuned_kernel(spec, f32)
+runs = {"plain": lambda: plain(x, w)}
+for norm in (False, True):
+    for act in cs.ACTS:
+        epi = codegen.Epilogue(act=act, bias=True, scale=not norm, norm=norm)
+        vs = {key: vec[key] for key in epi.vector_names}
+        kern = ops._tuned_kernel(spec, f32, epilogue=epi)
+        runs[f"epilogue {act} {'norm' if norm else 'scale'}"] = (
+            lambda kern=kern, vs=vs: kern(x, w, **vs))
+a = torch.randn(1, 128, 4096, generator=gen, device="cuda")
+b = torch.randn(1, 4096, 4096, generator=gen, device="cuda")
+runs["kernel M=128 K=4096 N=4096"] = lambda: CONTRACT(a, b, f32)
+device, event, body = {}, {}, {}
+for name, run in runs.items():
+    device[name] = device_ms(run, "contract_f32")
+    event[name] = cs._timed(run, flush)
+    body[name] = CONTRACT.last_body
+print("COMPARE " + json.dumps({"tree": sys.argv[1], "f32_device_ms": device,
+                               "f32_ms": event, "body": body}), flush=True)
+"""
+
+DW_TURN = r"""
+import json, os, sys
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cs.OUT, "autotune.json")
+os.environ["REPRO_PLAN_DB"] = os.path.join(cs.OUT, "plans.json")
+from repro_torch import ops
+from repro_torch.codegen import GROUPED_DW, build
+from repro_torch.core.enumerate import GroupedSpec
+build.build("grouped_dw")
+build.load("grouped_dw")
+""" + DEVICE_MS + r"""
+gen = torch.Generator(device="cuda").manual_seed(32)
+flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+train = (cs.MOE_TRAIN_C,) * cs.MOE_TRAIN_EXPERTS
+full = (28,) * cs.N_EXPERTS
+cases = {"train gate/up": (train, cs.GROUPED_GATE),
+         "train down": (train, cs.GROUPED_DOWN),
+         "gate/up": (full, cs.GROUPED_GATE), "down": (full, cs.GROUPED_DOWN)}
+device, event, body = {}, {}, {}
+for name, (sizes, (k1, k2)) in cases.items():
+    n = sum(sizes)
+    x = torch.randn(n, k1, generator=gen, device="cuda").bfloat16()
+    dout = torch.randn(n, k2, generator=gen, device="cuda").bfloat16()
+    spec = GroupedSpec(name="grouped_matmul.dW",
+                       operands={"dout": ("n", "f"), "X": ("n", "k")},
+                       output=("g", "k", "f"),
+                       extents={"n": n, "k": k1, "f": k2, "g": len(sizes)},
+                       group_sizes=sizes)
+    kern = ops._tuned_kernel(spec, torch.bfloat16)
+    run = lambda: kern(dout, x)
+    device[name] = device_ms(run, "grouped_dw_")
+    event[name] = cs._timed(run, flush)
+    body[name] = getattr(GROUPED_DW, "last_body", None)
+    del x, dout
+    torch.cuda.empty_cache()
+# the MoE train step's three dW calls of one layer: gate, up, down
+three = lambda by: 2 * by["train gate/up"] + by["train down"]
+print("COMPARE " + json.dumps({"tree": sys.argv[1], "dw_device_ms": device,
+                               "dw_ms": event, "body": body,
+                               "train_three_device_ms": three(device),
+                               "train_three_ms": three(event)}), flush=True)
+"""
+
 TURNS = {"--serve": SERVE_TURN, "--kernels": KERNELS_TURN,
          "--moe-serve": MOE_SERVE_TURN, "--quant": QUANT_TURN,
          "--modes": MODES_TURN, "--attention": ATTENTION_TURN,
-         "--baselines": BASELINES_TURN}
+         "--baselines": BASELINES_TURN, "--f32": F32_TURN,
+         "--dw": DW_TURN}
 
 
 def main(argv) -> int:

@@ -789,18 +789,7 @@ struct TcLayout {
   static constexpr int FLOATS = VS4 + 4 * (TC_BC / 2) * LDV4;
 };
 
-// f32 rounded to TF32 (10 explicit mantissa bits), to nearest with ties
-// away from zero (cvt.rna's rounding; two integer operations)
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, each rounded to TF32: together about 2^-21 of x
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
+using hopper::split_tf32;  // hi + lo, each rounded to TF32 (hopper.cuh)
 
 // {hi0, hi1, lo0, lo1}: a B fragment's hi and lo register pairs
 __device__ __forceinline__ float4 split_pair(float x0, float x1) {

@@ -40,7 +40,10 @@
 // is the tensor-core rate from M = 512 up and the weight bytes at M = 128;
 // at decode (M = 1..63) it does 2M operations a weight, and the weight
 // bytes alone bound it.  The epilogue and the prologue add O(MN) and O(MK)
-// arithmetic, nothing to that bound.  Four bodies; each takes its own CTA
+// arithmetic, nothing to that bound.  An f32 product at the fused path's
+// shape (M = 2048, K = 4096, N = 12288) is bound by its operations: 1.25
+// ms at 3xTF32's 165 TFLOP/s (TF32's 495 over three products), 6.2 ms at
+// the FMA pipes' 67.  Five bodies; each takes its own CTA
 // grid (the TPU plan's grid, often a single block, is not used),
 // accumulates in f32 in a fixed order per output and masks ragged edges,
 // so any M, N, K is legal:
@@ -108,9 +111,38 @@
 //     a warp hits 32 distinct banks.  Global loads are 16 bytes where the
 //     strides allow (unit stride along k for A and along n for B, 8-element
 //     aligned), else element-wise.  Loads and math alternate;
-//   * f32 operands keep exact f32 math on the FMA pipes: a 128 x 64 CTA
-//     tile, each of 256 threads owning an 8 x 4 micro-tile (rows ty + 16 i,
-//     columns tx + 16 j, so a warp's shared reads are conflict-free).
+//   * the tc32 body (body 3), for f32 products, plain or with the
+//     epilogue and multiplier modes, whose x (A) has unit stride along k
+//     and whose W (B) unit stride along n or k, as TMA reads them
+//     (codegen.cuda_gen.contract_body; launch_tc32 refuses the rest):
+//     3xTF32 on the tensor cores.  Each operand is split into hi + lo,
+//     each rounded to TF32 (to nearest, ties away: cvt.rna's rounding),
+//     and each product accumulates lo.hi + hi.lo + hi.hi in f32, about
+//     2^-21 relative against TF32's 2^-11 (B2's tc32 body, held at the f32
+//     tolerance).  tf32 wgmma reads shared-memory operands K-major only
+//     (no transpose bits), and the fused path's W is N-major, so the
+//     roles are swapped as in the narrow body: C^T = W^T x^T, W^T
+//     wgmma's register A operand and x^T its K-major shared B.  A CTA of
+//     three warpgroups owns 128 of N by 128 of M: thread 0 keeps TMA
+//     loads of 32-deep K steps in flight into a ring of four 48 KB
+//     stages; warps 1-3 split each landed x tile into hi (in place) and
+//     lo rows, fence them for the async proxy and release the stage on a
+//     second ("ready") mbarrier; the two consumer warpgroups read W^T's
+//     fragments with 8-byte shared loads (either of W's layouts), split
+//     them in registers and run three m64n128k8 wgmmas a k8 step.  Where
+//     the output has few tiles (M = 128) the K steps are split across
+//     CTAs as the ring's (cuda_gen.tc32_tiles).  The
+//     tensor cores round their own accumulation toward zero, so a sum
+//     over all of K drifts with K; each stage's twelve products are
+//     summed from zero and added to the accumulator in f32 instead.  The
+//     epilogue and the multiplier vector run on the f32 tile staged in
+//     the drained ring, as the fused ring's (fused_store); a plain
+//     product stores its fragments, two neighbouring n a word;
+//   * the other f32 products (the k-scale prologue, the row reduce,
+//     layouts TMA cannot read) keep exact f32 math on the FMA pipes: a
+//     128 x 64 CTA tile, each of 256 threads owning an 8 x 4 micro-tile
+//     (rows ty + 16 i, columns tx + 16 j, so a warp's shared reads are
+//     conflict-free).
 // Every split and row-reduce counter is set back to 0 by the CTA that
 // finishes with it, so the wrapper zeroes its counters once and a launch
 // is one kernel and nothing else.
@@ -156,7 +188,8 @@ struct ContractParams {
   int act;                     // 0 id, 1 relu, 2 gelu (tanh), 3 tanh, 4 silu
   int in_dtype;                // 0 float32, 1 bfloat16
   int out_dtype;
-  int body;                    // 0 mma.sync / FMA bodies, 1 the ring
+  int body;                    // 0 mma.sync / FMA bodies, 1 the ring, 2
+                               // the narrow body, 3 tc32 (3xTF32)
   int tile_n;                  // the ring's BN: 128 or 256
   int splits;                  // the ring's K split (1: none)
   int pad;
@@ -1458,6 +1491,424 @@ int launch_narrow(const ContractParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The tc32 body (body 3): f32 products in 3xTF32 on the tensor cores, with
+// the operands' roles swapped, C^T = W^T x^T (see the header of this file).
+// ---------------------------------------------------------------------------
+constexpr int T_BN = 128;  // the product's N a CTA: wgmma's 128 rows
+constexpr int T_BM = 128;  // the product's M a CTA: wgmma's n128
+constexpr int T_BK = 32;   // k a stage: one 128-byte swizzled row of f32
+constexpr int T_X_BYTES = T_BM * T_BK * 4;  // x's tile (split hi in place)
+constexpr int T_W_BYTES = T_BN * T_BK * 4;  // W's tile
+// a stage: x (hi), x's lo, W; 48 KB
+constexpr int T_STAGE = 2 * T_X_BYTES + T_W_BYTES;
+constexpr int T_STAGES = 4;
+constexpr int T_SPLIT = 96;  // the splitting threads: warps 1-3
+// the ring, 1024 bytes to align it, full, ready and empty barriers
+constexpr int T_SMEM = T_STAGES * T_STAGE + 1024 + 3 * T_STAGES * 8 + 16;
+static_assert(R_BM * ETile<T_BN>::LD * 4 <= T_STAGES * T_STAGE,
+              "the epilogue tile fits the drained ring");
+static_assert(T_BM == R_BM, "fused_store's 128 rows");
+
+// The stage's k order.  wgmma k8 step q's slot j (j < 4: A's registers a0
+// and a1, j >= 4: a2 and a3, at thread t = j % 4) holds
+//   k = 2 (j % 4) + (q & 1) + 16 (q >> 1) + 8 (j >= 4)
+// of the stage's 32, a permutation of them: a thread's two k of steps 0
+// and 1 (and of 2 and 3) are neighbours, and the rows of W it reads hit
+// distinct banks in either layout.  The splitting threads write x's hi
+// and lo rows in this order, so each product pairs equal k.
+//
+// One half of a row of the landed x tile (32 f32 along k, 128-byte
+// swizzled: chunk c of 4 k at c ^ row % 8) split into hi (in place) and lo
+// (at the stage's lo tile), each permuted to the k order: output chunk o =
+// 2q + h holds k-slots 4h .. 4h + 3 of step q.  Half u, chunks 4u .. 4u +
+// 3 (k 16u .. 16u + 15), holds exactly the k of steps 2u and 2u + 1, so a
+// half is read whole and then written over by one thread, and no other
+// thread touches it.
+__device__ __forceinline__ void tc32_split_half(unsigned char* xs, int row,
+                                                int u) {
+  float4* hi = reinterpret_cast<float4*>(xs + row * 128);
+  float4* lo = reinterpret_cast<float4*>(xs + T_X_BYTES + row * 128);
+  const int sw = row & 7;
+  float in[4][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 v = hi[(4 * u + c) ^ sw];
+    in[c][0] = v.x;
+    in[c][1] = v.y;
+    in[c][2] = v.z;
+    in[c][3] = v.w;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int o = 4 * u + c, q = c >> 1, h = c & 1;
+    uint32_t hb[4], lb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      hopper::split_tf32(in[(i >> 1) + 2 * h][2 * (i & 1) + (q & 1)], hb[i],
+                         lb[i]);
+    hi[o ^ sw] = make_float4(__uint_as_float(hb[0]), __uint_as_float(hb[1]),
+                             __uint_as_float(hb[2]), __uint_as_float(hb[3]));
+    lo[o ^ sw] = make_float4(__uint_as_float(lb[0]), __uint_as_float(lb[1]),
+                             __uint_as_float(lb[2]), __uint_as_float(lb[3]));
+  }
+}
+
+// A consumer thread's register-A fragments of W^T for the stage's four k8
+// steps, split: ah / al[q] the hi / lo parts of (row g: local n ``nl``, k
+// slot t), (row g + 8: nl + 1, slot t), (nl, slot t + 4), (nl + 1, slot
+// t + 4) in the stage's k order.  The wgmma's rows are the product's n
+// permuted, row g of a warp's 16 holding n 2g and row g + 8 n 2g + 1, so a
+// thread's two n are neighbours.  WK: W's tile is K-major (rows of 128 n,
+// 32 k each, one box; matmul.dA's W^T), else N-major (four boxes of 32 n,
+// rows of 32 k).  Each read is 8 bytes, and a half warp's reads hit 32
+// distinct banks in either layout.
+template <bool WK>
+__device__ __forceinline__ void tc32_fragments(const unsigned char* ws,
+                                               int nl, int t,
+                                               uint32_t (&ah)[4][4],
+                                               uint32_t (&al)[4][4]) {
+  float a[4][4];
+  if (WK) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = nl + h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // k 2t + 8j and its neighbour: steps 2 (j >> 1) and 2 (j >> 1) + 1
+        const int k = 2 * t + 8 * j;
+        const float2 v = *reinterpret_cast<const float2*>(
+            ws + r * 128 + ((((k >> 2) ^ (r & 7))) << 4) + (k & 3) * 4);
+        a[2 * (j >> 1)][h + 2 * (j & 1)] = v.x;
+        a[2 * (j >> 1) + 1][h + 2 * (j & 1)] = v.y;
+      }
+    }
+  } else {
+    const unsigned char* box = ws + (nl >> 5) * 4096;
+    const int nb = nl & 31;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 2 * t + (q & 1) + 16 * (q >> 1) + 8 * h;
+        const float2 v = *reinterpret_cast<const float2*>(
+            box + k * 128 + (((nb >> 2) ^ (k & 7)) << 4) + (nb & 3) * 4);
+        a[q][2 * h] = v.x;
+        a[q][2 * h + 1] = v.y;
+      }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) hopper::split_tf32(a[q][r], ah[q][r], al[q][r]);
+}
+
+// The body of the two tc32 kernels.  Grid (tiles, 1, batch x splits): the
+// (N / 128) x (M / 128) tiles in bands of R_BAND row tiles (rows: the
+// product's N), the K steps of each split across ``splits`` CTAs as the
+// ring's (the last CTA of a tile sums the partial tiles in split order).
+// Warpgroup 0: thread 0 keeps TMA loads of x (tmX: (K, M, batch), boxes of
+// 32 k x 128 m) and W (tmW: N-major (N, K, batch), four boxes of 32 n x 32
+// k; WK: K-major (K, N, batch), one box of 32 k x 128 n) in flight; warps
+// 1-3 split each landed x tile (tc32_split_half), fence it for the async
+// proxy and arrive on the stage's ready barrier.  Warpgroups 1 and 2 take
+// 64 of the tile's n each: W^T's fragments by 8-byte shared loads, split
+// in registers, and x^T's hi and lo tiles from shared memory, three
+// m64n128k8 wgmmas a k8 step (lo.hi, hi.lo, then hi.hi), a stage's twelve
+// summed from zero and added to the accumulator in f32.  A warpgroup
+// waits for its own group before it writes the next fragments (C7513
+// otherwise, as ring_mainloop_ks); the other one's keeps the tensor cores
+// busy.  FEAT_FUSED applies ``p``'s epilogue and multiplier through the
+// staged tile (fused_store), else the fragments are stored as they are,
+// two neighbouring n of one row a word where C allows.
+template <int FEAT, bool WK>
+__device__ __forceinline__ void tc32_body(const CUtensorMap* tmX,
+                                          const CUtensorMap* tmW, void* C,
+                                          int M, int N, int K, long long sCb,
+                                          long long sCm, long long sCn,
+                                          int out_bf16, int splits,
+                                          float* partial, int* counter,
+                                          const ContractParams* p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* tiles =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + T_STAGES * T_STAGE);
+  uint64_t* ready = full + T_STAGES;
+  uint64_t* empty = ready + T_STAGES;
+  int* last = reinterpret_cast<int*>(empty + T_STAGES);
+  FusedSmem* fs = reinterpret_cast<FusedSmem*>(
+      (reinterpret_cast<uintptr_t>(last + 4) + 127) & ~uintptr_t(127));
+
+  const int gx = (M + T_BM - 1) / T_BM;
+  const int gy = (N + T_BN - 1) / T_BN;
+  int r_t, c_t;
+  hopper::raster(blockIdx.x, gx, gy, R_BAND, r_t, c_t);
+  const int n0 = r_t * T_BN;
+  const int m0 = c_t * T_BM;
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int nk = (K + T_BK - 1) / T_BK;
+  const int per = (nk + splits - 1) / splits;
+  const int k_first = split * per;
+  const int steps = min(nk, k_first + per) - k_first;  // >= 1 (the host's)
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&ready[s], T_SPLIT);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer group
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {  // the producer
+      hopper::tma_prefetch(tmX);
+      hopper::tma_prefetch(tmW);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % T_STAGES;
+        hopper::mbar_wait(&empty[s], ((i / T_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_tx(&full[s], T_X_BYTES + T_W_BYTES);
+        unsigned char* xs = tiles + s * T_STAGE;
+        unsigned char* ws = xs + 2 * T_X_BYTES;
+        const int k0 = (k_first + i) * T_BK;
+        hopper::tma_load(xs, tmX, &full[s], k0, m0, b);
+        if (WK) {
+          hopper::tma_load(ws, tmW, &full[s], k0, n0, b);
+        } else {
+#pragma unroll
+          for (int j = 0; j < T_BN / 32; ++j)
+            hopper::tma_load(ws + j * 4096, tmW, &full[s], n0 + 32 * j, k0,
+                             b);
+        }
+      }
+    } else if (threadIdx.x >= 32) {  // the splitters
+      const int st = threadIdx.x - 32;
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % T_STAGES;
+        hopper::mbar_wait(&full[s], (i / T_STAGES) & 1);
+        // 256 half rows over 96 threads: 3, 3 and 2 a thread by warp
+        for (int task = st; task < 2 * T_BM; task += T_SPLIT)
+          tc32_split_half(tiles + s * T_STAGE, task >> 1, task & 1);
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(&ready[s]);
+      }
+    }
+    return;
+  }
+
+  hopper::regs_inc<232>();
+  const int ct = threadIdx.x - 128;  // consumer thread 0..255
+  const int half = ct >> 7;
+  const int lane = ct & 31;
+  const int t = lane & 3;
+  // the thread's two neighbouring n of the tile (wgmma rows g and g + 8)
+  const int nl = 64 * half + 16 * ((ct >> 5) & 3) + 2 * (lane >> 2);
+  // acc: the sum over the stages, each stage's 12 wgmmas summed in part
+  // (its first from zero) and added to acc in f32 (the tensor cores' own
+  // accumulation rounds toward zero, so a running sum over all of K would
+  // drift with K)
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  if constexpr (FEAT == FEAT_FUSED) stage_vectors<T_BN>(fs, *p, b, m0, n0, ct);
+  const uint32_t base = hopper::smem_u32(tiles);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % T_STAGES;
+    const uint32_t parity = (i / T_STAGES) & 1;
+    hopper::mbar_wait(&full[s], parity);
+    hopper::mbar_wait(&ready[s], parity);
+    uint32_t ah[4][4], al[4][4];
+    tc32_fragments<WK>(tiles + s * T_STAGE + 2 * T_X_BYTES, nl, t, ah, al);
+    const uint32_t xh = base + s * T_STAGE;
+    const uint32_t xl = xh + T_X_BYTES;
+    hopper::fence_regs(part);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      hopper::wgmma_tf32_rs(part, al[q], hopper::desc(xh + q * 32, 16, 1024),
+                            q > 0);
+      hopper::wgmma_tf32_rs(part, ah[q], hopper::desc(xl + q * 32, 16, 1024));
+      hopper::wgmma_tf32_rs(part, ah[q], hopper::desc(xh + q * 32, 16, 1024));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      hopper::fence_regs(ah[q]);
+      hopper::fence_regs(al[q]);
+    }
+    if (ct % 128 == 0) hopper::mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] += part[j];
+  }
+
+  if (splits > 1) {
+    // as the ring's: this split's partial tile to scratch
+    // ([tile][split][i][thread]), then the last CTA of the tile to arrive
+    // sums every split in split order and sets the tile's counter back to
+    // 0 for the next launch
+    const long long tile = ((long long)b * gy + r_t) * gx + c_t;
+    float* mine = partial + (tile * splits + split) * (T_BM * T_BN);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) __stcg(mine + i * R_CONSUMERS + ct, acc[i]);
+    __threadfence();
+    hopper::bar_sync(1, R_CONSUMERS);
+    if (ct == 0) *last = atomicAdd(counter + tile, 1) == splits - 1;
+    hopper::bar_sync(1, R_CONSUMERS);
+    if (!*last) return;
+    __threadfence();
+    if (ct == 0) counter[tile] = 0;
+    const float* all = partial + tile * splits * (T_BM * T_BN);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        acc[i] += __ldcg(all + sp * (T_BM * T_BN) + i * R_CONSUMERS + ct);
+  }
+
+  // accumulator d[4j + 2h + e]: wgmma row g + 8h (n0 + nl + h), column
+  // 8j + 2t + e (m0 + 8j + 2t + e)
+  if constexpr (FEAT == FEAT_FUSED) {
+    // both warpgroups are past their last wgmma, every stage consumed:
+    // the ring is free for the f32 tile, rows m, columns n
+    hopper::bar_sync(1, R_CONSUMERS);
+    float* tile = reinterpret_cast<float*>(tiles);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(tile + (8 * j + 2 * t + e) *
+                                              ETile<T_BN>::LD + nl) =
+            make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+    hopper::bar_sync(1, R_CONSUMERS);
+    if (out_bf16)
+      fused_store_act<T_BN>(tile, *p, fs,
+                            static_cast<__nv_bfloat16*>(C) + b * sCb, m0, n0,
+                            ct);
+    else
+      fused_store_act<T_BN>(tile, *p, fs, static_cast<float*>(C) + b * sCb,
+                            m0, n0, ct);
+    return;
+  }
+  const bool pair = sCn == 1 && sCm % 2 == 0 && sCb % 2 == 0;
+  const int n = n0 + nl;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * j + 2 * t + e;
+      if (m >= M) continue;
+      const float v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
+      const long long at = b * sCb + m * sCm;
+      if (out_bf16) {
+        __nv_bfloat16* row = static_cast<__nv_bfloat16*>(C) + at;
+        if (pair && n + 1 < N) {
+          store2_from_f32(row + n, v0, v1);
+        } else {
+          if (n < N) store_from_f32(row + n * sCn, v0);
+          if (n + 1 < N) store_from_f32(row + (n + 1) * sCn, v1);
+        }
+      } else {
+        float* row = static_cast<float*>(C) + at;
+        if (pair && n + 1 < N) {
+          store2_from_f32(row + n, v0, v1);
+        } else {
+          if (n < N) store_from_f32(row + n * sCn, v0);
+          if (n + 1 < N) store_from_f32(row + (n + 1) * sCn, v1);
+        }
+      }
+    }
+}
+
+// The plain product in 3xTF32: scalar parameters only, as the plain ring.
+template <bool WK>
+__global__ void __launch_bounds__(R_THREADS, 1)
+contract_f32_tc_kernel(const __grid_constant__ CUtensorMap tmX,
+                       const __grid_constant__ CUtensorMap tmW, void* C, int M,
+                       int N, int K, long long sCb, long long sCm,
+                       long long sCn, int out_bf16, int splits,
+                       float* partial, int* counter) {
+  tc32_body<FEAT_PLAIN, WK>(&tmX, &tmW, C, M, N, K, sCb, sCm, sCn, out_bf16,
+                            splits, partial, counter, nullptr);
+}
+
+// The epilogue and the multiplier vector in 3xTF32.
+template <bool WK>
+__global__ void __launch_bounds__(R_THREADS, 1)
+contract_f32_tc_fused_kernel(const __grid_constant__ CUtensorMap tmX,
+                             const __grid_constant__ CUtensorMap tmW,
+                             const __grid_constant__ ContractParams p) {
+  tc32_body<FEAT_FUSED, WK>(&tmX, &tmW, p.C, (int)p.M, (int)p.N, (int)p.K,
+                            p.sCb, p.sCm, p.sCn, p.out_dtype == 1,
+                            (int)p.splits, p.partial, p.counter, &p);
+}
+
+template <bool WK>
+int launch_tc32_maps(const ContractParams& p, const CUtensorMap& tx,
+                     const CUtensorMap& tw, cudaStream_t stream) {
+  const long long tiles = ((p.M + T_BM - 1) / T_BM) * ((p.N + T_BN - 1) / T_BN);
+  const dim3 grid((unsigned)tiles, 1, (unsigned)(p.batch * p.splits));
+  if (features(p) != FEAT_PLAIN) {
+    constexpr int smem = T_SMEM + (int)sizeof(FusedSmem) + 128;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        contract_f32_tc_fused_kernel<WK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    contract_f32_tc_fused_kernel<WK><<<grid, R_THREADS, smem, stream>>>(tx, tw,
+                                                                       p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      contract_f32_tc_kernel<WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  contract_f32_tc_kernel<WK><<<grid, R_THREADS, T_SMEM, stream>>>(
+      tx, tw, p.C, (int)p.M, (int)p.N, (int)p.K, p.sCb, p.sCm, p.sCn,
+      p.out_dtype == 1, (int)p.splits, p.partial, p.counter);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tc32 body's launch: f32 operands, no k-scale and no row reduce, x
+// (the product's A) with unit stride along k and W (B) with unit stride
+// along n (N-major) or k (K-major), as TMA reads them (hopper::tma_ok:
+// 16-byte aligned bases, other strides multiples of 16 bytes); a K split
+// that leaves every CTA a step, with its scratch; grid limits.
+// cudaErrorInvalidValue for anything else: nothing switches body
+// (codegen.cuda_gen.contract_body states the same rule).
+int launch_tc32(const ContractParams& p, cudaStream_t stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = ((p.M + T_BM - 1) / T_BM) * ((p.N + T_BN - 1) / T_BN);
+  const long long nk = (p.K + T_BK - 1) / T_BK;
+  if (p.in_dtype != 0 || p.T || p.kscale.p || p.M < 1 || p.N < 1 ||
+      p.K < 1 || p.batch < 1 || tiles >= (1LL << 31) || p.splits < 1 ||
+      p.splits > nk || p.batch * p.splits > 65535 ||
+      (p.splits > 1 && (!p.partial || !p.counter)))
+    return invalid;
+  const long long per = (nk + p.splits - 1) / p.splits;
+  if ((p.splits - 1) * per >= nk) return invalid;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tx, tw;
+  const hopper::Operand x_k{p.A, p.K, p.M, p.sAm, p.batch, p.sAb};
+  if (!((p.sAk == 1 || p.K == 1) && hopper::tma_ok(x_k, 4)) ||
+      !hopper::make_map(&tx, x_k, 4, f32, T_BK, T_BM))
+    return invalid;
+  const hopper::Operand w_n{p.B, p.N, p.K, p.sBk, p.batch, p.sBb};
+  const hopper::Operand w_k{p.B, p.K, p.N, p.sBn, p.batch, p.sBb};
+  if ((p.sBn == 1 || p.N == 1) && hopper::tma_ok(w_n, 4)) {
+    if (!hopper::make_map(&tw, w_n, 4, f32, 32, T_BK)) return invalid;
+    return launch_tc32_maps<false>(p, tx, tw, stream);
+  }
+  if ((p.sBk == 1 || p.K == 1) && hopper::tma_ok(w_k, 4)) {
+    if (!hopper::make_map(&tw, w_k, 4, f32, T_BK, T_BN)) return invalid;
+    return launch_tc32_maps<true>(p, tx, tw, stream);
+  }
+  return invalid;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1471,7 +1922,11 @@ extern "C" {
 // int per output tile, (batch, row tile, column tile) order; the fused
 // modes at tile_n 128), body 2 the narrow body (tile_n 8, 16, 32 or 64 >=
 // M; with splits > 1 batch x (N / 128) x splits x 128 x tile_n floats and
-// one zeroed int per 128 columns of N), or refuses.  Every counter is 0
+// one zeroed int per 128 columns of N), body 3 the tc32 body (f32
+// operands, no k-scale, no row reduce; tile_n 128; with splits > 1 a
+// partial buffer of batch x row tiles x column tiles x splits x 128 x 128
+// floats and one zeroed int per output tile, as the ring's), or
+// refuses.  Body 0 runs mma.sync for bf16 and the FMA pipes for f32.  Every counter is 0
 // again when the launch ends, so the caller zeroes a counter buffer once
 // and reuses it.  Returns cudaGetLastError() after the launch (0 =
 // launched); nothing is synchronised, and nothing is allocated here.
@@ -1480,8 +1935,9 @@ int contract_launch(const ContractParams* p, void* stream) {
   if (p->in_dtype < 0 || p->in_dtype > 1 || p->out_dtype < 0 ||
       p->out_dtype > 1 || (p->T && p->batch != 1) ||
       (p->mean.p == nullptr) != (p->var.p == nullptr) || p->act < 0 ||
-      p->act > 4 || p->body < 0 || p->body > 2)
+      p->act > 4 || p->body < 0 || p->body > 3)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (p->body == 3) return launch_tc32(*p, s);
   if (p->body == 1) {
     if (p->tile_n == 128) return launch_ring<128>(*p, s);
     if (p->tile_n == 256) return launch_ring<256>(*p, s);

@@ -10,7 +10,8 @@
 //
 // The TPU kernel runs one grid step per (group, column block) and reads all
 // N rows of both operands each time, zeroing the rows outside the group with
-// a mask, so an empty group comes out as exact zeros.  Here one CTA owns one
+// a mask, so an empty group comes out as exact zeros.  Here every body reads
+// only its group's rows; in the mma.sync body one CTA owns one
 // (group, 64-row block of K1, 128-column block of K2) tile of the output and
 // reads only its own group's rows: they stream through shared memory in
 // steps of 32 (the reduction axis is the row axis n), and the f32
@@ -22,13 +23,27 @@
 // 1024 tokens puts C = 28 rows in each of 384 groups, and the output is the
 // whole expert slab (384 x 7168 x 2048 bf16 = 11.27 GB) against 0.3 GB of
 // operands and 0.3 ms of bf16 tensor-core math: the kernel is bound by the
-// bytes it stores.  On the MoE training path's cut (32 groups of C = 320)
-// it is bound by neither by much; the math is 0.09 ms a call, the output
-// 0.94 GB.  This first version is simple and right: its stores are 4 bytes
-// a thread straight from the mma fragments (rows of 16 bytes per quad), not
-// staged through shared memory.
-// Two bodies, chosen by the operand type:
-//   * bf16 operands run on the tensor cores, mma.sync m16n8k16 (bf16 in, f32
+// bytes it stores (3.4 ms).  On the MoE training path's cut (32 groups of
+// C = 320) the two sides are near balance: 0.30 ms of tensor-core math and
+// 0.34 ms of bytes a call (the output's 0.94 GB most of them), so a body
+// that does not overlap its stores with the next tile's products cannot
+// approach the bound.
+// Three bodies (codegen.fused_gen.grouped_dw_body picks; the C side
+// refuses a body the call cannot take):
+//   * the ring (body 1), for bf16 operands TMA can read (unit stride along
+//     K1 and K2, K1 and K2 multiples of 8, row strides multiples of 16
+//     bytes, 16-byte aligned bases): hopper.cuh's skeleton, persistent.
+//     One CTA an SM walks the (group, 128-row K1 tile, 256-column K2
+//     tile) tiles with a static stride (no tile counter, so no scratch);
+//     one producer thread keeps TMA loads of 64-row K steps in flight
+//     across tiles into three 48 KB stages; two consumer warpgroups run
+//     wgmma m64n256k16 with x_g^T (M-major) and dout_g (N-major) read
+//     through the transposed descriptors.  A group's last step zeroes
+//     the next group's rows in x's tile before its wgmmas.  A finished
+//     tile is staged per warpgroup (2 x 32 KB outside the ring) and
+//     written by TMA stores that run on while the next tile's products
+//     start (see grouped_dw_bf16_ring_kernel);
+//   * other bf16 operands run on the tensor cores, mma.sync m16n8k16 (bf16 in, f32
 //     accumulate), 4 warps of 32 x 64.  Both operand tiles are n-major as
 //     they lie in memory (x as [n][k1], dout as [n][k2], rows padded by 8
 //     elements so the eight rows of an ldmatrix phase hit distinct banks),
@@ -37,6 +52,7 @@
 //     Tiles stream with 16-byte cp.async into a three-stage ring when both
 //     operands have unit stride along their columns and 16-byte aligned
 //     rows; otherwise the same body loads element-wise.
+//     Its stores are 4 bytes a thread straight from the mma fragments;
 //   * f32 operands keep exact f32 math on the FMA pipes (a 64 x 64 tile,
 //     256 threads of 4 x 4 outputs).
 // Accumulation is f32; the store rounds once to the output type (round to
@@ -45,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -343,6 +361,275 @@ grouped_dw_f32_kernel(const float* __restrict__ X, const float* __restrict__ D,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The ring body (body 1): bf16 operands TMA can read, on hopper.cuh's
+// skeleton, persistent
+// ---------------------------------------------------------------------------
+constexpr int W_BM = 128;  // K1 rows of the output tile: 64 a warpgroup
+constexpr int W_BN = 256;  // K2 columns
+constexpr int W_BK = 64;   // group rows a step (the reduction)
+constexpr int W_THREADS = 384;
+constexpr int W_A_BYTES = W_BM * W_BK * 2;               // 16 KB of x
+constexpr int W_STAGE = W_A_BYTES + W_BK * W_BN * 2;     // + 32 KB of dout
+constexpr int W_STAGES = 3;
+constexpr int W_ACC = W_BN / 2;  // f32 accumulators of a consumer thread
+constexpr int W_HALF_OUT = 64 * W_BN * 2;  // a warpgroup's staged bf16 rows
+// the ring, the two warpgroups' staged output, 1024 bytes to align them,
+// full and empty barriers
+constexpr int W_SMEM =
+    W_STAGES * W_STAGE + 2 * W_HALF_OUT + 1024 + 2 * W_STAGES * 8;
+
+// The ring's tile walk: tile ``t`` of the (group, K1 tile, K2 tile)
+// tiles, the K1 tiles of one K2 tile of a group walked first, so CTAs
+// resident together share dout's tile through L2.  Tiles of an empty
+// group run no step.
+struct DwTile {
+  int gid, start, size, m_t, n_t;
+};
+__device__ __forceinline__ DwTile dw_tile(const int* table, int t, int tm,
+                                          int tn) {
+  const int per = tm * tn;
+  const int e = t / per, r = t - e * per;
+  return {__ldg(table + 3 * e), __ldg(table + 3 * e + 1),
+          __ldg(table + 3 * e + 2), r % tm, r / tm};
+}
+
+// The ring kernel, persistent: CTA b takes tiles b, b + grid, ... of the
+// walk (dw_tile) and keeps the ring running across them.  Warpgroup 0's
+// thread 0 loads each 64-row K step of the tile's group: x's rows by tmX
+// ((K1, rows), two boxes of 64 k1 x 64 rows, read M-major through the
+// transposed descriptor) and dout's by tmD ((K2, rows), four boxes of 64
+// k2 x 64 rows, N-major); TMA zero-fills past the tensor's last row.
+// Warpgroups 1 and 2 take 64 of the tile's K1 rows each and run wgmma
+// m64n256k16 (A = x_g^T, B = dout_g, both transposed).  A group's last
+// step reads the next group's first rows: before its wgmmas each
+// warpgroup writes zeros over those rows of its own x atom (whole
+// 128-byte rows, so the swizzle does not matter) and fences them for the
+// async proxy, so they add nothing (one operand suffices: the reduction
+// runs over rows).  A finished tile is stored from shared memory: each
+// warpgroup writes its 64 x 256 bf16 rows into its staging buffer in the
+// 128-byte swizzled layout (conflict-free) and one thread stores them
+// with four TMA stores (tmO: (K2, K1, groups), boxes of 64 x 64,
+// clipped at the edges), which run on while the warpgroup starts the
+// next tile; the buffer is written again once those stores have read it.
+// f32 output is stored from the fragments.  An empty group's tiles store
+// zeros, the reference's exact-zero slab.
+template <typename TOut>
+__global__ void __launch_bounds__(W_THREADS, 1)
+grouped_dw_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmX,
+                            const __grid_constant__ CUtensorMap tmD,
+                            const __grid_constant__ CUtensorMap tmO,
+                            TOut* __restrict__ O,
+                            const int* __restrict__ table, int n_groups,
+                            int K1, int K2, long long sOg, long long sOm,
+                            long long sOn) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* tiles =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* staged = tiles + W_STAGES * W_STAGE;  // 1024-aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + 2 * W_HALF_OUT);
+  uint64_t* empty = full + W_STAGES;
+
+  const int tm = (K1 + W_BM - 1) / W_BM;
+  const int tn = (K2 + W_BN - 1) / W_BN;
+  const int count = n_groups * tm * tn;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer group
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tmX);
+      hopper::tma_prefetch(&tmD);
+      int it = 0;
+      for (int t = blockIdx.x; t < count; t += gridDim.x) {
+        const DwTile d = dw_tile(table, t, tm, tn);
+        const int steps = (d.size + W_BK - 1) / W_BK;
+        for (int i = 0; i < steps; ++i, ++it) {
+          const int s = it % W_STAGES;
+          hopper::mbar_wait(&empty[s], ((it / W_STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_tx(&full[s], W_STAGE);
+          unsigned char* a = tiles + s * W_STAGE;
+          unsigned char* b = a + W_A_BYTES;
+          const int row = d.start + i * W_BK;
+          hopper::tma_load(a, &tmX, &full[s], d.m_t * W_BM, row, 0);
+          hopper::tma_load(a + 8192, &tmX, &full[s], d.m_t * W_BM + 64, row,
+                           0);
+#pragma unroll
+          for (int j = 0; j < W_BN / 64; ++j)
+            hopper::tma_load(b + j * 8192, &tmD, &full[s],
+                             d.n_t * W_BN + 64 * j, row, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::regs_inc<232>();
+  const int ct = threadIdx.x - 128;  // consumer thread 0..255
+  const int half = ct >> 7;          // its warpgroup's 64 rows of K1
+  const int wt = ct & 127;           // thread of the warpgroup
+  const int lane = ct & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int r_w = 16 * ((ct >> 5) & 3) + g;  // the thread's rows r_w, + 8
+  const uint32_t base = hopper::smem_u32(tiles);
+  unsigned char* mine = staged + half * W_HALF_OUT;
+  float acc[W_ACC];
+  int it = 0;
+  for (int t = blockIdx.x; t < count; t += gridDim.x) {
+    const DwTile d = dw_tile(table, t, tm, tn);
+    const int steps = (d.size + W_BK - 1) / W_BK;
+#pragma unroll
+    for (int i = 0; i < W_ACC; ++i) acc[i] = 0.f;
+    for (int i = 0; i < steps; ++i, ++it) {
+      const int s = it % W_STAGES;
+      hopper::mbar_wait(&full[s], (it / W_STAGES) & 1);
+      const uint32_t a = base + s * W_STAGE + half * 8192;
+      const uint32_t b = base + s * W_STAGE + W_A_BYTES;
+      const int valid = d.size - i * W_BK;
+      if (valid < W_BK) {
+        // rows [valid, 64) of this warpgroup's x atom are the next group's
+        uint4* atom = reinterpret_cast<uint4*>(tiles + s * W_STAGE +
+                                               half * 8192 + valid * 128);
+        for (int c = wt; c < (W_BK - valid) * 8; c += 128)
+          atom[c] = make_uint4(0u, 0u, 0u, 0u);
+        hopper::fence_proxy_async();
+        hopper::bar_sync(2 + half, 128);
+      }
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hopper::wgmma_bf16<1, 1>(acc, hopper::desc(a + ks * 2048, 8192, 1024),
+                                 hopper::desc(b + ks * 2048, 8192, 1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (i > 0 && wt == 0)
+        hopper::mbar_arrive(&empty[(it - 1) % W_STAGES]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (steps > 0 && wt == 0) hopper::mbar_arrive(&empty[(it - 1) % W_STAGES]);
+
+    // accumulator d[4j + 2h + e]: row r_w + 8h of the warpgroup's 64,
+    // column 8j + 2q + e of the tile's 256
+    const int row0 = d.m_t * W_BM + half * 64;
+    const int col0 = d.n_t * W_BN;
+    if constexpr (sizeof(TOut) == 2) {
+      if (wt == 0) hopper::bulk_wait_read<0>();  // the last tile's stores
+      hopper::bar_sync(2 + half, 128);
+#pragma unroll
+      for (int j = 0; j < W_ACC / 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r_w + 8 * h;
+          const __nv_bfloat162 v = __floats2bfloat162_rn(
+              acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(
+              mine + (j >> 3) * 8192 + r * 128 + (((j & 7) ^ (r & 7)) << 4) +
+              4 * q) = v;
+        }
+      hopper::fence_proxy_async();
+      hopper::bar_sync(2 + half, 128);
+      if (wt == 0) {
+#pragma unroll
+        for (int j = 0; j < W_BN / 64; ++j)
+          hopper::tma_store(&tmO, mine + j * 8192, col0 + 64 * j, row0,
+                            d.gid);
+        hopper::bulk_commit();
+      }
+    } else {
+      const bool pair = sOn == 1 && sOm % 2 == 0 && sOg % 2 == 0;
+      TOut* Og = O + d.gid * sOg;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r_w + 8 * h;
+        if (row >= K1) continue;
+        TOut* Orow = Og + row * sOm;
+#pragma unroll
+        for (int j = 0; j < W_ACC / 4; ++j) {
+          const int n = col0 + 8 * j + 2 * q;
+          const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (pair && n + 1 < K2) {
+            store_pair(Orow + n, v0, v1);
+          } else {
+            if (n < K2) store_from_f32(Orow + n * sOn, v0);
+            if (n + 1 < K2) store_from_f32(Orow + (n + 1) * sOn, v1);
+          }
+        }
+      }
+    }
+  }
+  if (sizeof(TOut) == 2 && wt == 0) hopper::bulk_wait_all();
+}
+
+// Can the ring take the call: bf16 x and dout with unit stride along K1 /
+// K2, K1 and K2 multiples of 8, row strides multiples of 8 elements (16
+// bytes), 16-byte aligned bases, at least one row; a bf16 output stored
+// by TMA must be the same (unit stride along K2, the other strides
+// multiples of 16 bytes, 16-byte aligned); a tile count within int.
+// codegen.fused_gen.grouped_dw_body states the operands' part of it.
+bool ring_ok(int in_dtype, int out_dtype, const void* X, const void* D,
+             const void* O, int n_rows, int n_groups, int K1, int K2,
+             long long sXn, long long sXk, long long sDn, long long sDk,
+             long long sOg, long long sOm, long long sOn) {
+  const auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  const auto row_ok = [&](long long s) {
+    return n_rows == 1 || (s > 0 && s % 8 == 0);
+  };
+  const long long tiles = (long long)n_groups * ((K1 + W_BM - 1) / W_BM) *
+                          ((K2 + W_BN - 1) / W_BN);
+  return in_dtype == 1 && n_rows >= 1 && K1 % 8 == 0 && K2 % 8 == 0 &&
+         (sXk == 1 || K1 == 1) && (sDk == 1 || K2 == 1) && row_ok(sXn) &&
+         row_ok(sDn) && aligned(X) && aligned(D) && tiles < (1LL << 31) &&
+         (out_dtype == 0 ||
+          (aligned(O) && sOn == 1 && sOm % 8 == 0 && sOg % 8 == 0));
+}
+
+template <typename TOut>
+int launch_ring(const void* X, const void* D, void* O, const int* table,
+                int n_rows, int n_groups, int K1, int K2, long long sXn,
+                long long sDn, long long sOg, long long sOm, long long sOn,
+                cudaStream_t stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tx, td, to{};
+  const hopper::Operand x{X, K1, n_rows, sXn, 1, 0};
+  const hopper::Operand d{D, K2, n_rows, sDn, 1, 0};
+  if (!hopper::make_map(&tx, x, 2, bf16, 64, W_BK) ||
+      !hopper::make_map(&td, d, 2, bf16, 64, W_BK))
+    return invalid;
+  if (sizeof(TOut) == 2) {
+    const hopper::Operand o{O, K2, K1, sOm, n_groups, sOg};
+    if (!hopper::make_map(&to, o, 2, bf16, 64, 64)) return invalid;
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      grouped_dw_bf16_ring_kernel<TOut>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = (long long)n_groups * ((K1 + W_BM - 1) / W_BM) *
+                          ((K2 + W_BN - 1) / W_BN);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  grouped_dw_bf16_ring_kernel<TOut><<<grid, W_THREADS, W_SMEM, stream>>>(
+      tx, td, to, static_cast<TOut*>(O), table, n_groups, K1, K2, sOg, sOm,
+      sOn);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename TOut>
 void launch_bf16(const void* X, const void* D, void* O, const int* table,
                  int n_groups, int K1, int K2, long long sXn, long long sXk,
@@ -380,22 +667,38 @@ void launch_f32(const void* X, const void* D, void* O, const int* table,
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Strides are in elements.  table
-// is a device array of n_groups (group id, first row, row count) triples,
-// one for every group of the partition, empty ones included; x is (N, K1)
-// and dout (N, K2) with element (n, k) at n * sXn + k * sXk (sDn, sDk), and
+// dtype codes: 0 = float32, 1 = bfloat16; body codes: 0 mma.sync (bf16)
+// or FMA (f32) by the operands' dtype, 1 the ring (bf16 operands TMA can
+// read, ring_ok).  A body the call cannot take is refused
+// (cudaErrorInvalidValue), never swapped.  Strides are in elements.
+// table is a device array of n_groups (group id, first row, row count)
+// triples, one for every group of the partition, empty ones included, in
+// row order and covering rows [0, n_rows); x is (n_rows, K1) and dout
+// (n_rows, K2) with element (n, k) at n * sXn + k * sXk (sDn, sDk), and
 // out's element (g, k1, k2) is at g * sOg + k1 * sOm + k2 * sOn.  Returns
 // cudaGetLastError() after the launch (0 = launched); nothing is
 // synchronised, and nothing is allocated here.
-int grouped_dw_launch(int in_dtype, int out_dtype, const void* X,
-                      const void* D, void* O, const int* table, int n_groups,
-                      int K1, int K2, long long sXn, long long sXk,
-                      long long sDn, long long sDk, long long sOg,
-                      long long sOm, long long sOn, void* stream) {
+int grouped_dw_launch(int body, int in_dtype, int out_dtype, const void* X,
+                      const void* D, void* O, const int* table, int n_rows,
+                      int n_groups, int K1, int K2, long long sXn,
+                      long long sXk, long long sDn, long long sDk,
+                      long long sOg, long long sOm, long long sOn,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1 ||
-      n_groups < 1 || K1 < 1 || K2 < 1)
+      n_groups < 1 || K1 < 1 || K2 < 1 || body < 0 || body > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 1) {
+    if (!ring_ok(in_dtype, out_dtype, X, D, O, n_rows, n_groups, K1, K2, sXn,
+                 sXk, sDn, sDk, sOg, sOm, sOn))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return out_dtype == 1
+               ? launch_ring<__nv_bfloat16>(X, D, O, table, n_rows, n_groups,
+                                            K1, K2, sXn, sDn, sOg, sOm, sOn,
+                                            s)
+               : launch_ring<float>(X, D, O, table, n_rows, n_groups, K1, K2,
+                                    sXn, sDn, sOg, sOm, sOn, s);
+  }
   switch (in_dtype * 2 + out_dtype) {
     case 0:
       launch_f32<float>(X, D, O, table, n_groups, K1, K2, sXn, sXk, sDn, sDk,

@@ -1,7 +1,9 @@
-// Hopper building blocks of the ring bodies (contract.cu's bf16 ring,
-// contract_q8.cu's 8-bit ring, attention.cu's bf16 ring, baselines.cu's
-// ring of B5 and B7): mbarriers, TMA tensor loads, wgmma descriptors,
-// fences and register rebalancing, and the host side of a TMA tensor map.  Header only; codegen/build.py hashes it
+// Hopper building blocks of the ring bodies (contract.cu's bf16 ring and
+// f32 tc32 ring, contract_q8.cu's 8-bit ring, attention.cu's bf16 ring,
+// baselines.cu's ring of B5 and B7, grouped_dw.cu's ring of B4):
+// mbarriers, TMA tensor loads and stores, wgmma descriptors (bf16, int8,
+// e4m3 and tf32), the 3xTF32 split, fences and register rebalancing, and
+// the host side of a TMA tensor map.  Header only; codegen/build.py hashes it
 // into the library name of every source that includes it, so an edit
 // rebuilds them.
 //
@@ -121,6 +123,57 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// The box at (c0, c1, c2) of a 3-D map from ``src`` in shared memory
+// (1024-byte aligned where the map swizzles) to device memory, in the
+// thread's bulk group; elements outside the tensor are not written.  The
+// caller fences its generic writes of ``src`` (fence_proxy_async) first.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of the thread's bulk groups still read their
+// shared memory (the source may then be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until every bulk group of the thread has completed (its writes
+// done)
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes of shared memory made visible to the async proxy
+// (a wgmma's or a TMA store's reads) that follow a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- 3xTF32 ---------------------------------------------------------------
+
+// f32 rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+// away from zero (cvt.rna's rounding; two integer operations)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each rounded to TF32: together about 2^-21 of x (B2's tc32
+// body, B1's tc32 body)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -338,6 +391,27 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32],
         "r"(1));
 }
 
+// d += A(64 x 8, in registers) . B(8 x 128) from shared memory, tf32 in
+// (the low 13 bits of each f32 word are not read), f32 accumulate.  ``a``
+// is the warp's 16-row slice in mma.m16n8k8's tf32 A order: (row g, k t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4), g = lane / 4, t = lane % 4.  B is
+// K-major only (tf32 takes no transpose bits): rows of 128 bytes along k,
+// 128-byte swizzled, a k8 step 32 bytes along the row.  The registers
+// must hold until the wgmma has retired (wgmma_wait).
+// (accumulate 0: d = A . B, the accumulator's old values unread)
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " HOPPER_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : HOPPER_OP64(HOPPER_F, d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // four 8 x 8 b16 matrices from shared memory, lane l giving the address of
 // row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
@@ -438,12 +512,22 @@ inline bool make_map(CUtensorMap* map, const Operand& o, int elem,
   const cuuint64_t strides[2] = {(cuuint64_t)rs, (cuuint64_t)bs};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t estride[3] = {1, 1, 1};
-  return encode(map, type, 3, const_cast<void*>(o.base), dims, strides, box,
-                estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const auto encoded = [&]() {
+    return encode(map, type, 3, const_cast<void*>(o.base), dims, strides,
+                  box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  if (encoded()) return true;
+  // The encode checks the address against the calling thread's current
+  // context, and a thread that has made no runtime call yet has none (a
+  // fresh host thread; the autograd engine's, whose first work is this
+  // launch): bind the device that holds the operand and encode again.
+  cudaPointerAttributes at;
+  return cudaPointerGetAttributes(&at, o.base) == cudaSuccess &&
+         cudaSetDevice(at.device) == cudaSuccess && encoded();
 }
 
 }  // namespace hopper

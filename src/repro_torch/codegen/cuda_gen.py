@@ -24,7 +24,9 @@ whose operands TMA can read runs the ring body, plain or with its fused
 modes (``contract_body``: each operand with unit stride on one of its two
 axes, so the backward's transposed operands go as the views they are); a
 plain one at M < 64 (decode) the narrow body, C^T = W^T x^T on the same
-ring (``narrow_tiles``); on the mma.sync body (unaligned operands, the
+ring (``narrow_tiles``); an f32 product whose x is k-contiguous the tc32
+body (3xTF32 on wgmma, the same swap; the k-scale prologue and the row
+reduce keep the FMA pipes); on the mma.sync body (unaligned operands, the
 fused modes at M < 64) an operand whose innermost folded axis is not
 unit-stride is copied contiguous first, so that body takes its 16-byte
 loads.
@@ -74,8 +76,8 @@ The plan still decides shapes (operand checks, the memo key), but not the
 kernel's grid: the reference tuner scores a TPU and often picks a single
 block, while the CUDA kernels tile the output into their own CTAs (128 x
 128 or 128 x 256 on the ring, ``ring_tiles``; 128 of N by 8 to 64 tokens
-on the narrow body, ``narrow_tiles``; 64 x 128 on the mma.sync body; 128 x
-64 on the FMA pipes for f32).
+on the narrow body, ``narrow_tiles``; 64 x 128 on the mma.sync body; 128
+of N by 128 of M on the tc32 body; 128 x 64 on the FMA pipes for f32).
 
 Devices: on a CUDA tensor the call launches a kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
@@ -269,14 +271,26 @@ H100_SMS = 132
 #: most splits a tile
 NARROW_WIDTHS = (8, 16, 32, 64)
 NARROW_PER_SM, NARROW_MIN_STEPS, NARROW_MAX_SPLITS = 2, 2, 32
-#: the bodies a launch may be forced onto
-BODIES = ("ring", "narrow", "mma")
+#: the bodies a launch may be forced onto: bf16 ``ring``, ``narrow`` and
+#: ``mma``; f32 ``tc32`` and ``fma``
+BODIES = ("ring", "narrow", "mma", "tc32", "fma")
+#: ``ContractParams.body``'s code of each body (0: mma.sync for bf16 and
+#: the FMA pipes for f32, by the operands' dtype)
+BODY_CODES = {"ring": 1, "narrow": 2, "mma": 0, "tc32": 3, "fma": 0}
 
 
 def contract_body(a: torch.Tensor, b: torch.Tensor, *,
-                  plain: bool = True, kscale: Optional[VecArg] = None) -> str:
+                  plain: bool = True, kscale: Optional[VecArg] = None,
+                  row_reduce: bool = False) -> str:
     """Which body of ``contract.cu`` takes a (batch, M, K) @ b (batch, K,
-    N).  Two bf16 operands: ``"ring"`` (TMA and wgmma) at M >= 64 where
+    N).  Two f32 operands: ``"tc32"`` (3xTF32 on wgmma, C^T = W^T x^T)
+    for a product with no ``kscale`` vector and no ``row_reduce`` (plain,
+    or the epilogue and multiplier modes) whose A (x) TMA reads
+    k-contiguous and whose B (W) TMA reads n- or k-contiguous, at any M,
+    N, K >= 1; else ``"fma"`` (the k-scale prologue and the row reduce
+    stay on the FMA pipes, as do unaligned bases, element strides and an
+    m-contiguous A such as ``matmul.dB``'s x^T).  Two bf16 operands:
+    ``"ring"`` (TMA and wgmma) at M >= 64 where
     TMA reads both layouts as they lie -- each operand with unit stride
     on one of its two axes (A on k or m, B on k or n), every other stride
     of an axis longer than 1 a positive multiple of 8 elements, 16-byte
@@ -287,14 +301,19 @@ def contract_body(a: torch.Tensor, b: torch.Tensor, *,
     for a ``plain`` product at 1 <= M < 64 whose A (x) is k-contiguous and
     whose B (W) is k- or n-contiguous, as TMA reads them; else ``"mma"``
     (the mma.sync body: unaligned or element-strided operands, the fused
-    modes at M < 64).  f32: ``"fma"``.  A pure function of the tensors'
-    dtypes, shapes, strides and addresses; ``contract.cu``'s
-    ``launch_ring`` / ``launch_narrow`` check the same rules and refuse
+    modes at M < 64).  A pure function of the tensors' dtypes, shapes,
+    strides and addresses; ``contract.cu``'s ``launch_ring`` /
+    ``launch_narrow`` / ``launch_tc32`` check the same rules and refuse
     what fails them."""
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        return "fma" if a.dtype == torch.float32 else "mma"
     _, m, k = a.shape
     n = b.shape[2]
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        takes = kscale is None and not row_reduce and min(m, k, n) >= 1 and (
+            tma_operand(a, 2, 4)) and (tma_operand(b, 2, 4)
+                                       or tma_operand(b, 1, 4))
+        return "tc32" if takes else "fma"
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        return "mma"
     if m < 1 or k < 1 or n < 1:
         return "mma"
     b_ok = tma_operand(b, 1, 2) or tma_operand(b, 2, 2)
@@ -351,6 +370,30 @@ def ring_tiles(batch: int, m: int, n: int, k: int,
     return RingPlan(bn, splits)
 
 
+#: the tc32 body's tile (128 of N by 128 of M), its K step (32 f32) and
+#: the fewest K steps a split of it takes (contract.cu's T_BN, T_BM, T_BK)
+TC32_TILE, TC32_BK, TC32_MIN_STEPS = 128, 32, 8
+
+
+def tc32_tiles(batch: int, m: int, n: int, k: int,
+               sms: int = H100_SMS) -> RingPlan:
+    """The tc32 body's tile for a (batch, M, K) @ (batch, K, N) f32 product
+    on a card of ``sms`` multiprocessors (one CTA each): 128 x 128, and
+    where the output has fewer tiles than ``sms / 2`` (phase ``kernel``'s
+    M = 128: 32 tiles) the K steps split over up to 16 CTAs a tile, at
+    least ``TC32_MIN_STEPS`` steps each, so the grid fills the card,
+    evened out so no split is empty."""
+    nk = -(-k // TC32_BK)
+    tiles = batch * -(-m // TC32_TILE) * -(-n // TC32_TILE)
+    splits = 1
+    if tiles < sms // 2:
+        splits = max(1, min(sms // tiles, nk // TC32_MIN_STEPS, 16,
+                            _MAX_GRID_YZ // batch))
+        per = -(-nk // splits)
+        splits = -(-nk // per)
+    return RingPlan(TC32_TILE, splits)
+
+
 class NarrowPlan(NamedTuple):
     """The narrow body's tile: ``rows`` of the product's N a CTA by
     ``tile_n`` token columns, the K steps split across ``splits`` CTAs."""
@@ -390,8 +433,9 @@ def scratch_sizes(body: str, batch: int, m: int, n: int, plan=None, *,
     ring's 128 x ``RING_FUSED_BN``, else ``tile``, the mma.sync or FMA
     body's (rows, columns)) and a counter per column block; a K split
     (``plan.splits`` > 1) one partial tile per split of every output tile
-    and a counter per tile (the ring's 128 x ``plan.tile_n`` tiles; the
-    narrow body's 128 of N by ``plan.tile_n`` tokens); else none."""
+    and a counter per tile (the ring's 128 x ``plan.tile_n`` tiles, the
+    tc32 body's 128 x 128; the narrow body's 128 of N by ``plan.tile_n``
+    tokens); else none."""
     if row_reduce:
         tm, tn = (RING_BM, RING_FUSED_BN) if body == "ring" else tile
         return -(-m // tm) * n, -(-n // tn)
@@ -455,8 +499,9 @@ class ContractLauncher:
     ``launches`` goes up by one for every kernel launch and for nothing
     else, so a run can show that its GEMMs went through the kernel.
     ``last_body`` names the body of the latest launch (``"ring"``,
-    ``"narrow"``, ``"mma"`` or ``"fma"``, ``contract_body``'s words) and
-    ``last_plan`` its ``RingPlan`` or ``NarrowPlan`` (None off those two).
+    ``"narrow"``, ``"mma"``, ``"tc32"`` or ``"fma"``, ``contract_body``'s
+    words) and ``last_plan`` its ``RingPlan`` (the ring's, the tc32
+    body's) or ``NarrowPlan`` (None on the mma.sync and FMA bodies).
     Split and row-reduce scratch comes from a pool that grows and is
     reused (``_Scratch``), so a launch allocates nothing in the common
     case and launches no other kernel.
@@ -513,9 +558,9 @@ class ContractLauncher:
         ``epilogue`` with its ``vectors`` act on the accumulator before the
         store.  With ``t`` (M, N) (batch 1) the result is instead the (N,)
         vector ``sum_m (a @ b)[m, n] * t[m, n]``.  ``body`` forces a body
-        (``BODIES``); by default ``contract_body`` picks it.  The kernel
-        refuses a forced ring or narrow body it cannot take, and this
-        raises.
+        (``BODIES``, of the operands' dtype); by default ``contract_body``
+        picks it.  The kernel refuses a forced ring, narrow or tc32 body
+        it cannot take, and this raises.
         """
         if a.device.type != "cuda" or b.device != a.device:
             raise ValueError(
@@ -555,14 +600,22 @@ class ContractLauncher:
         plain = kscale is None and mul is None and t is None and (
             epilogue is None or epilogue.is_identity)
         if body is None:
-            body = contract_body(a, b, plain=plain, kscale=kscale)
+            body = contract_body(a, b, plain=plain, kscale=kscale,
+                                 row_reduce=t is not None)
         elif body not in BODIES:
             raise ValueError(f"contract kernel body {body!r}: one of "
                              f"{BODIES}")
+        elif BODY_CODES[body] == 0 and body != (
+            "fma" if a.dtype == torch.float32 else "mma"
+        ):
+            # body code 0 is mma.sync or FMA by the operands' dtype, so the
+            # kernel cannot tell a forced one of the other dtype (the ring,
+            # narrow and tc32 bodies refuse the wrong dtype themselves)
+            raise ValueError(f"contract kernel body {body!r} does not take "
+                             f"{a.dtype} operands")
         p = _Params(A=a.data_ptr(), B=b.data_ptr(), batch=batch, M=m, N=n,
                     K=k, in_dtype=code, out_dtype=_KERNEL_DTYPES[out_dtype],
-                    body={"ring": 1, "narrow": 2}.get(body, 0), tile_n=0,
-                    splits=1)
+                    body=BODY_CODES[body], tile_n=0, splits=1)
         p.sAb, p.sAm, p.sAk = a.stride()
         p.sBb, p.sBk, p.sBn = b.stride()
         extents = (batch, m, n, k)
@@ -605,6 +658,8 @@ class ContractLauncher:
                                narrow_tile=kscale is not None))
         elif body == "narrow":
             plan = narrow_tiles(m, n, k, _sm_count(a.device), batch=batch)
+        elif body == "tc32":
+            plan = tc32_tiles(batch, m, n, k, _sm_count(a.device))
         if plan is not None:
             p.tile_n, p.splits = plan.tile_n, plan.splits
         stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -36,9 +36,12 @@ mode (``grouped_matmul.dW``, a spec whose output is ``(g, ., .)``)
 
     out[g, k1, k2] = sum_{n in group g} lhs[n, k1] * rhs[n, k2]
 
-runs ``csrc/grouped_dw.cu`` (B4): one CTA per (group, K1 block, K2 block)
-over a table of every group, empty ones included, whose CTAs store exact
-zeros.  As in the reference, either operand may come first in the spec.
+runs ``csrc/grouped_dw.cu`` (B4) over a table of every group, empty ones
+included, whose tiles store exact zeros: bf16 operands TMA reads on a
+persistent TMA / wgmma ring of 128 x 256 tiles with staged TMA stores
+(``grouped_dw_body``), others on mma.sync or the FMA pipes, one CTA per
+(group, K1 block, K2 block).  As in the reference, either operand may
+come first in the spec.
 
 Devices decide, as for ``cuda_gen``: CUDA tensors launch the kernel (or
 raise), CPU tensors run the plain version (``grouped_ref``, the per-group
@@ -420,12 +423,42 @@ class GroupedLauncher:
 GROUPED = GroupedLauncher()
 
 
+#: B4's bodies: the TMA / wgmma ring and mma.sync (bf16 operands), the FMA
+#: pipes (f32)
+DW_BODIES = ("ring", "mma", "fma")
+
+
+def grouped_dw_body(lhs: torch.Tensor, rhs: torch.Tensor) -> str:
+    """Which body of ``grouped_dw.cu`` takes lhs (N, K1) and rhs (N, K2):
+    ``"ring"`` for two bf16 operands TMA reads as they lie -- unit stride
+    along K1 and K2, K1 and K2 multiples of 8, row strides positive
+    multiples of 8 elements (16 bytes) where N > 1, 16-byte aligned data,
+    at least one row; ``"mma"`` for other bf16 operands; ``"fma"`` for
+    f32.  A pure function of the tensors' dtypes, shapes, strides and
+    addresses; ``grouped_dw.cu``'s ``ring_ok`` checks the same (and the
+    output the launcher allocates, contiguous) and refuses what fails
+    it."""
+    if lhs.dtype == torch.float32:
+        return "fma"
+
+    def ok(x):
+        n, k = x.shape
+        return (k % 8 == 0 and x.stride(1) == 1 and n >= 1 and (
+            n == 1 or (x.stride(0) > 0 and x.stride(0) % 8 == 0))
+            and x.data_ptr() % 16 == 0)
+
+    both = lhs.dtype == rhs.dtype == torch.bfloat16
+    return "ring" if both and ok(lhs) and ok(rhs) else "mma"
+
+
 class GroupedDwLauncher:
     """The ctypes wrapper of ``grouped_dw_launch`` (kernel B4); counts its
-    launches, one per call, and nothing else."""
+    launches, one per call, and nothing else.  ``last_body`` names the
+    body of the latest launch (``DW_BODIES``)."""
 
     def __init__(self):
         self.launches = 0
+        self.last_body: Optional[str] = None
         self._lib = None
 
     def _fn(self):
@@ -434,9 +467,9 @@ class GroupedDwLauncher:
 
             lib = load("grouped_dw")
             lib.grouped_dw_launch.argtypes = (
-                [ctypes.c_int, ctypes.c_int]
+                [ctypes.c_int] * 3
                 + [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 3
+                + [ctypes.c_int] * 4
                 + [ctypes.c_longlong] * 7
                 + [ctypes.c_void_p]
             )
@@ -445,10 +478,13 @@ class GroupedDwLauncher:
         return self._lib
 
     def __call__(self, lhs: torch.Tensor, rhs: torch.Tensor,
-                 table: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+                 table: torch.Tensor, out_dtype: torch.dtype, *,
+                 body: Optional[str] = None) -> torch.Tensor:
         """lhs (N, K1) and rhs (N, K2) -> new (G, K1, K2) tensor, G the
         rows of ``table``: the int32 (G, 3) table of every group (id,
-        first row, rows) on lhs's device."""
+        first row, rows), in row order, on lhs's device.  ``body`` forces
+        a body (``DW_BODIES``; default ``grouped_dw_body``'s choice); one
+        the operands cannot take raises."""
         if lhs.device.type != "cuda" or rhs.device != lhs.device or (
             table.device != lhs.device
         ):
@@ -475,12 +511,30 @@ class GroupedDwLauncher:
                              "(G, 3) group table")
         if min(lhs.stride()) < 0 or min(rhs.stride()) < 0:
             raise ValueError("grouped dW kernel takes non-negative strides")
+        chosen = grouped_dw_body(lhs, rhs)
+        if body is None:
+            body = chosen
+        elif body not in DW_BODIES:
+            raise ValueError(f"grouped dW kernel: unknown body {body!r}; "
+                             f"have {DW_BODIES}")
+        elif body == "ring" and chosen != "ring":
+            raise ValueError(f"grouped dW kernel: the ring body cannot take "
+                             f"{lhs.dtype} operands of shapes "
+                             f"{tuple(lhs.shape)}, {tuple(rhs.shape)} and "
+                             f"strides {lhs.stride()}, {rhs.stride()}")
+        elif body != "ring" and body != (
+            "fma" if lhs.dtype == torch.float32 else "mma"
+        ):
+            raise ValueError(f"grouped dW kernel: the {body} body does not "
+                             f"take {lhs.dtype} operands")
         n_groups = table.shape[0]
-        k1, k2 = lhs.shape[1], rhs.shape[1]
-        if n_groups > _MAX_GRID_Y or -(-k1 // 64) > _MAX_GRID_Y:
+        n_rows, k1, k2 = lhs.shape[0], lhs.shape[1], rhs.shape[1]
+        if body != "ring" and (n_groups > _MAX_GRID_Y
+                               or -(-k1 // 64) > _MAX_GRID_Y):
             raise ValueError(f"grouped dW kernel grid too large: {n_groups} "
                              f"groups, K1 {k1}")
-        if max(lhs.shape[0], k1, k2, *lhs.stride(), *rhs.stride()) >= 2**31:
+        if max(n_rows, n_groups, k1, k2, *lhs.stride(),
+               *rhs.stride()) >= 2**31:
             raise ValueError("grouped dW kernel takes extents and strides "
                              "below 2**31")
         out = torch.empty((n_groups, k1, k2), dtype=out_dtype,
@@ -489,15 +543,18 @@ class GroupedDwLauncher:
             return out
         lib = self._fn()
         rc = lib.grouped_dw_launch(
+            1 if body == "ring" else 0,
             _KERNEL_DTYPES[lhs.dtype], _KERNEL_DTYPES[out_dtype],
             lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), table.data_ptr(),
-            n_groups, k1, k2, *lhs.stride(), *rhs.stride(), *out.stride(),
+            n_rows, n_groups, k1, k2, *lhs.stride(), *rhs.stride(),
+            *out.stride(),
             torch.cuda.current_stream(lhs.device).cuda_stream,
         )
         if rc != 0:
-            raise RuntimeError(f"grouped dW kernel launch failed: "
-                               f"cudaGetLastError() = {rc}")
+            raise RuntimeError(f"grouped dW kernel launch failed ({body} "
+                               f"body): cudaGetLastError() = {rc}")
         self.launches += 1
+        self.last_body = body
         return out
 
 

@@ -159,10 +159,10 @@ def test_attention_backward_folds(monkeypatch, h, s, t, d, body):
 
 
 def test_ragged_and_strided_operands_take_the_mma_body(monkeypatch):
-    """Rows that are not 16-byte multiples, element strides, an odd base
-    address and f32 keep the mma.sync (or FMA) body, the fused modes take
-    the ring, and the transposed operands of the mma.sync body are copied
-    as before."""
+    """Rows that are not 16-byte multiples, element strides and an odd
+    base address keep the mma.sync body (f32 the FMA body), the fused
+    modes take the ring, aligned f32 the tc32 body, and the transposed
+    operands of the mma.sync body are copied as before."""
     body = cuda_gen.contract_body
     x, w = _bf16(1, 256, 130), _bf16(1, 130, 256)
     assert body(x, w) == "mma"                          # K = 130
@@ -173,7 +173,14 @@ def test_ragged_and_strided_operands_take_the_mma_body(monkeypatch):
     assert body(_bf16(1, 256, 64), _bf16(1, 64, 64)) == "ring"
     assert body(_bf16(1, 256, 64), _bf16(1, 64, 64), plain=False) == "ring"
     f32 = torch.empty(1, 256, 64)
-    assert body(f32, torch.empty(1, 64, 64)) == "fma"
+    assert body(f32, torch.empty(1, 64, 64)) == "tc32"
+    # f32 that TMA cannot read keeps the FMA body: an element stride
+    # along k, rows of 130 floats (not 16-byte multiples), an odd base
+    assert body(torch.empty(1, 256, 128)[:, :, ::2],
+                torch.empty(1, 64, 64)) == "fma"
+    assert body(torch.empty(1, 256, 130), torch.empty(1, 130, 64)) == "fma"
+    odd32 = torch.empty(256 * 64 + 1)[1:].view(1, 256, 64)  # 4-byte offset
+    assert body(odd32, torch.empty(1, 64, 64)) == "fma"
     # a zero batch stride (an expanded operand) is no TMA layout
     assert body(_bf16(1, 256, 64).expand(3, 256, 64),
                 _bf16(3, 64, 64)) == "mma"
@@ -211,13 +218,17 @@ def _weighted_case(what, m, d, f, dt=torch.bfloat16):
 def test_fused_modes_pick_their_body(monkeypatch, m, what):
     """The fused modes (k-scale, multiplier on n and on m, row reduce, the
     epilogue) of two bf16 operands take the ring where the product's M is
-    64 or more and keep the mma.sync body below; f32 keeps the FMA body.
-    ``.dB``'s product is x^T . dout, whose M is D (256) whatever m."""
+    64 or more and keep the mma.sync body below.  f32 takes the tc32 body
+    at any M for the epilogue and ``.dA``'s multiplier (x k-contiguous,
+    W^T k-contiguous); the k-scale prologue, the row reduce and ``.dB``
+    (whose A, x^T, is m-contiguous) keep the FMA body.  ``.dB``'s product
+    is x^T . dout, whose M is D (256) whatever m."""
     rec = _Recorder()
     monkeypatch.setattr(cuda_gen, "CONTRACT", rec)
     rows = 256 if what == "dB" else m
+    f32 = "tc32" if what in ("dA", "epilogue") else "fma"
     for dt, want in ((torch.bfloat16, "ring" if rows >= 64 else "mma"),
-                     (torch.float32, "fma")):
+                     (torch.float32, f32)):
         rec.calls.clear()
         if what == "epilogue":
             spec = PE.matmul_spec(m, 256, 384)
@@ -232,7 +243,9 @@ def test_fused_modes_pick_their_body(monkeypatch, m, what):
         (a3, b3, kw), = rec.calls
         assert set(kw) & {"kscale", "mul", "epilogue", "t"}
         assert a3.shape[1] == rows
-        assert cuda_gen.contract_body(a3, b3, plain=False) == want
+        assert cuda_gen.contract_body(a3, b3, plain=False,
+                                      kscale=kw.get("kscale"),
+                                      row_reduce="t" in kw) == want
 
 
 @pytest.mark.parametrize("what", ["dA", "dB"])

@@ -1,4 +1,4 @@
-"""Two repairs of the card's checks, on the CPU.
+"""Repairs of the card's checks, on the CPU.
 
 * ``chip_smoke._judge_take``: a profiled check (a row that must run one
   kernel alone, a profiled serving step) counts only a whole trace.  Its
@@ -10,6 +10,9 @@
   short with the marker kept, an extra record, other work, an int fill
   (each a failure).  ``_alone`` fails when no take is whole, and the
   serving profile reads its numbers without the marker's records.
+* ``chip_smoke._kernel_of`` names B1's tc32 kernels and B4's ring kernel
+  (a name it misses would count as other device work), and ``_alone``
+  counts B4 by its own launcher.
 * ``cuda_gen._Scratch``: B1's split and row-reduce counters and B2's tile
   counter are zeroed once, when a (device, stream) pair is allocated; a
   launch that fails may leave them set, so its launcher drops the pair,
@@ -192,6 +195,39 @@ def test_the_launcher_and_kernel_names_of_the_baselines():
                          "true>(BaselineParams)") == "fused_dense_act"
     assert cs._kernel_of(ns + "baseline_f32_kernel<float, 2>"
                          "(BaselineParams)") == "fused_rnz"
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("contract_f32_tc_kernel<false>(CUtensorMap_st, CUtensorMap_st, void*, "
+     "int, int, int, long long, long long, long long, int)", "contract"),
+    ("contract_f32_tc_fused_kernel<true>(CUtensorMap_st, CUtensorMap_st, "
+     "ContractParams)", "contract"),
+    ("contract_f32_fused_kernel<float>(ContractParams)", "contract"),
+    ("contract_f32_kernel<__nv_bfloat16>(float const*, float const*, "
+     "__nv_bfloat16*, int, int, int)", "contract"),
+    ("grouped_dw_bf16_ring_kernel<__nv_bfloat16>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, int const*, int, "
+     "int, int, long long, long long, long long)", "grouped_dw"),
+    ("grouped_dw_bf16_ring_kernel<float>(...)", "grouped_dw"),
+    ("grouped_dw_bf16_mma_kernel<float, true>(...)", "grouped_dw"),
+    ("grouped_dw_f32_kernel<float>(...)", "grouped_dw"),
+    ("grouped_bf16_ring_kernel<float>(...)", "grouped"),
+])
+def test_the_new_bodies_kernel_names(name, kernel):
+    """``_kernel_of`` gives B1's tc32 kernels and B4's ring kernel to their
+    port kernel, not to "other device work", beside the older names."""
+    cs = _chip_smoke()
+    assert cs._kernel_of("void (anonymous namespace)::" + name) == kernel
+    assert cs._category("void (anonymous namespace)::" + name) == kernel
+
+
+def test_grouped_dw_has_its_launcher_for_alone():
+    """``_alone`` counts B4 by its own launcher (the grouped-dw rows' check
+    that one launch runs and nothing else, no fill of the output)."""
+    cs = _chip_smoke()
+    assert cs._launcher("grouped_dw") is fused_gen.GROUPED_DW
+    assert cs.DW_BODIES == {"bfloat16": "ring", "float32": "fma"}
+    assert cs.MODE_BODIES == {"bfloat16": "ring", "float32": "tc32"}
 
 
 # --------------------------------------------------------------------------

@@ -1907,3 +1907,276 @@ def test_decode_layer_launches_only_the_contract_kernel(cuda_device,
                   "kernel", "gpu_memcpy", "gpu_memset")]
     ours = [e for e in events if "contract_bf16_narrow_kernel" in e]
     assert len(ours) == len(ws) and len(events) == len(ws), events
+
+
+# --------------------------------------------------------------------------
+# B1's tc32 body (f32 in 3xTF32 on wgmma) and B4's ring body
+# --------------------------------------------------------------------------
+
+
+def _f32_operands(device, batch, m, k, n, w_layout, seed):
+    """(a (batch, m, k) k-contiguous, b (batch, k, n) n-contiguous or, for
+    ``w_layout == "k"``, a k-contiguous view), f32, scaled by 1/8."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(batch, m, k, generator=g, device=device) / 8
+    if w_layout == "n":
+        b = torch.randn(batch, k, n, generator=g, device=device) / 8
+    else:
+        b = (torch.randn(batch, n, k, generator=g, device=device) /
+             8).transpose(1, 2)
+    return a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32_out", "bf16_out"])
+@pytest.mark.parametrize("batch,m,k,n,w_layout", [
+    (1, 256, 4096, 384, "n"),   # a long K: the stage sums hold the TOL
+    (1, 100, 100, 136, "n"),    # ragged M, N, K (K a multiple of 4)
+    (3, 70, 64, 200, "n"),      # batched
+    (2, 129, 96, 72, "k"),      # W k-contiguous (matmul.dA's W^T)
+    (1, 4, 512, 1024, "k"),     # decode's M
+    (1, 1, 8, 1, "n"),          # one output
+    (1, 128, 4096, 512, "n"),   # 4 tiles: K split 16 ways
+    (2, 64, 1024, 256, "k"),    # batched, K split 4 ways
+])
+def test_tc32_body_matches_plain_version(cuda_device, batch, m, k, n,
+                                         w_layout, out):
+    """Aligned f32 operands take the tc32 body, one launch, at ragged
+    shapes, batched, with W n- or k-contiguous, K split where the grid is
+    short, and f32 or bf16 output, within the f32 TOL of the f64 product
+    (bf16 output: its own TOL); a second launch gives the same bits."""
+    a, b = _f32_operands(cuda_device, batch, m, k, n, w_layout, m + k + n)
+    assert cuda_gen.contract_body(a, b) == "tc32"
+    before = cuda_gen.CONTRACT.launches
+    got = cuda_gen.CONTRACT(a, b, out)
+    assert cuda_gen.CONTRACT.launches == before + 1
+    assert cuda_gen.CONTRACT.last_body == "tc32"
+    want = (a.double() @ b.double()).to(out)
+    torch.cuda.synchronize()
+    _assert_close_scaled(got, want, out)
+    assert cuda_gen.CONTRACT.last_plan == cuda_gen.tc32_tiles(
+        batch, m, n, k, torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count)
+    assert torch.equal(cuda_gen.CONTRACT(a, b, out), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [1, 2], ids=["mul_m", "mul_n"])
+def test_tc32_body_epilogue_and_multiplier(cuda_device, axis):
+    """The tc32 body's fused modes through the launcher: a multiplier on
+    m or n with the whole epilogue (scale, bias, norm, gelu), against
+    ``Epilogue.apply`` on the f64 product."""
+    from repro_torch.codegen.modes import VecArg
+
+    a, b = _f32_operands(cuda_device, 1, 192, 256, 320, "n", 31)
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    mul = torch.randn(a.shape[1] if axis == 1 else b.shape[2], generator=g,
+                      device=cuda_device)
+    epi = codegen.Epilogue(act="gelu", scale=True, bias=True, norm=True)
+    vecs = _vectors(cuda_device, 320, 33)
+    got = cuda_gen.CONTRACT(
+        a, b, torch.float32, mul=VecArg(mul, axis),
+        epilogue=epi, vectors={k: VecArg(v, 2) for k, v in vecs.items()})
+    assert cuda_gen.CONTRACT.last_body == "tc32"
+    acc = a.double() @ b.double()
+    acc = acc * (mul[None, :, None] if axis == 1 else mul[None, None, :])
+    want = epi.apply(acc.float(), vecs)
+    torch.cuda.synchronize()
+    _assert_close_scaled(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+def test_tc32_body_forced_and_refused(cuda_device):
+    """A forced mma.sync body on f32 raises before any launch; a forced
+    tc32 body the kernel cannot take (bf16 operands, an unaligned row, the
+    k-scale prologue) is refused by the kernel and raises; the tc32 and
+    FMA bodies agree; unaligned and element-strided f32 runs the FMA
+    body."""
+    from repro_torch.codegen.modes import VecArg
+
+    a, b = _f32_operands(cuda_device, 1, 128, 256, 192, "n", 34)
+    tc = cuda_gen.CONTRACT(a, b, torch.float32)
+    fma = cuda_gen.CONTRACT(a, b, torch.float32, body="fma")
+    assert cuda_gen.CONTRACT.last_body == "fma"
+    torch.testing.assert_close(tc, fma, rtol=1e-4, atol=1e-4)
+    before = cuda_gen.CONTRACT.launches
+    with pytest.raises(ValueError, match="does not take torch.float32"):
+        cuda_gen.CONTRACT(a, b, torch.float32, body="mma")
+    with pytest.raises(RuntimeError, match="tc32 body"):
+        cuda_gen.CONTRACT(a.bfloat16(), b.bfloat16(), torch.float32,
+                          body="tc32")
+    odd = torch.randn(1, 64, 37, device=cuda_device)
+    with pytest.raises(RuntimeError, match="tc32 body"):
+        cuda_gen.CONTRACT(odd, torch.randn(1, 37, 64, device=cuda_device),
+                          torch.float32, body="tc32")
+    ks = VecArg(torch.randn(256, device=cuda_device), 3)
+    with pytest.raises(RuntimeError, match="tc32 body"):
+        cuda_gen.CONTRACT(a, b, torch.float32, kscale=ks, body="tc32")
+    assert cuda_gen.CONTRACT.launches == before
+    strided = torch.randn(1, 128, 512, device=cuda_device)[:, :, ::2]
+    got = cuda_gen.CONTRACT(strided, b, torch.float32)
+    assert cuda_gen.CONTRACT.last_body == "fma"
+    _assert_close_scaled(got, strided.double() @ b.double(), torch.float32)
+
+
+@pytest.mark.gpu
+def test_tc32_body_equal_bits_on_two_streams(cuda_device):
+    """Two launches give equal bits, also on two streams at once (the body
+    keeps no state between launches)."""
+    a, b = _f32_operands(cuda_device, 1, 512, 1024, 768, "n", 35)
+    c, d = _f32_operands(cuda_device, 2, 130, 256, 256, "k", 36)
+    want = (cuda_gen.CONTRACT(a, b, torch.float32),
+            cuda_gen.CONTRACT(c, d, torch.bfloat16))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    got = []
+    for _ in range(3):
+        with torch.cuda.stream(streams[0]):
+            x = cuda_gen.CONTRACT(a, b, torch.float32)
+        with torch.cuda.stream(streams[1]):
+            y = cuda_gen.CONTRACT(c, d, torch.bfloat16)
+        got.append((x, y))
+    torch.cuda.synchronize()
+    for x, y in got:
+        assert torch.equal(x, want[0]) and torch.equal(y, want[1])
+
+
+def _dw_table(sizes, device):
+    return torch.tensor(
+        [(i, o, s) for i, (o, s) in
+         enumerate(zip(fused_gen._group_offsets(sizes), sizes))],
+        dtype=torch.int32, device=device).reshape(-1, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32],
+                         ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("sizes,k1,k2", [
+    ((0, 1, 63, 64, 65, 320), 256, 512),   # the step's edges; the last
+    ((320,) * 4, 7168 // 8, 2048 // 8),    # group ends at the tensor's end
+    ((0, 1, 63, 64, 65, 320, 0), 136, 264),  # ragged K1, K2; empty last
+    ((28,) * 48, 128, 256),                # kimi-k2's C, one step a group
+    ((700,), 8, 8),                        # one group of 11 steps
+])
+def test_grouped_dw_ring_matches_plain_version(cuda_device, sizes, k1, k2,
+                                               out):
+    """bf16 operands TMA reads take B4's ring, one launch: groups of 0, 1,
+    63, 64, 65 and 320 rows (the last K step's next-group rows zeroed),
+    ragged K1 and K2, bf16 and f32 output; empty groups exact zeros."""
+    g = torch.Generator(device=cuda_device).manual_seed(k1 + 7 * k2)
+    n = sum(sizes)
+    x = torch.randn(n, k1, generator=g, device=cuda_device).bfloat16()
+    d = torch.randn(n, k2, generator=g, device=cuda_device).bfloat16()
+    assert fused_gen.grouped_dw_body(x, d) == "ring"
+    before = fused_gen.GROUPED_DW.launches
+    got = fused_gen.GROUPED_DW(x, d, _dw_table(sizes, cuda_device), out)
+    assert fused_gen.GROUPED_DW.launches == before + 1
+    assert fused_gen.GROUPED_DW.last_body == "ring"
+    want = fused_gen.grouped_dw_ref(x, d, sizes, out_dtype=out)
+    torch.cuda.synchronize()
+    _assert_close_scaled(got, want, out)
+    for gi, size in enumerate(sizes):
+        if not size:
+            assert bool((got[gi] == 0).all()), gi
+
+
+@pytest.mark.gpu
+def test_grouped_dw_ring_forced_and_refused(cuda_device):
+    """A forced ring on operands it cannot read, or a body of the other
+    dtype, raises before any launch; the ring and the mma.sync body
+    agree; a row stride TMA cannot read runs mma.sync by default."""
+    sizes = (5, 0, 130, 64)
+    table = _dw_table(sizes, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(37)
+    x = torch.randn(199, 128, generator=g, device=cuda_device).bfloat16()
+    d = torch.randn(199, 264, generator=g, device=cuda_device).bfloat16()
+    ring = fused_gen.GROUPED_DW(x, d, table, torch.float32)
+    mma = fused_gen.GROUPED_DW(x, d, table, torch.float32, body="mma")
+    assert fused_gen.GROUPED_DW.last_body == "mma"
+    torch.testing.assert_close(ring, mma, rtol=1e-5, atol=1e-5)
+    before = fused_gen.GROUPED_DW.launches
+    wide = torch.randn(199, 132, generator=g, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="ring body cannot take"):
+        fused_gen.GROUPED_DW(wide[:, :130], d, table, torch.float32,
+                             body="ring")
+    with pytest.raises(ValueError, match="ring body cannot take"):
+        fused_gen.GROUPED_DW(x.float(), d.float(), table, torch.float32,
+                             body="ring")
+    with pytest.raises(ValueError, match="fma body does not take"):
+        fused_gen.GROUPED_DW(x, d, table, torch.float32, body="fma")
+    assert fused_gen.GROUPED_DW.launches == before
+    # rows of 132 elements (264 bytes): not 16-byte multiples
+    got = fused_gen.GROUPED_DW(wide[:, :128], d, table, torch.float32)
+    assert fused_gen.GROUPED_DW.last_body == "mma"
+    _assert_close_scaled(got, fused_gen.grouped_dw_ref(
+        wide[:, :128], d, sizes, out_dtype=torch.float32), torch.float32)
+
+
+@pytest.mark.gpu
+def test_grouped_dw_ring_equal_bits_on_two_streams(cuda_device):
+    """B4's ring on two streams at once gives the bits each call gives
+    alone (no tile counter: the walk is static)."""
+    sizes = (320,) * 8
+    table = _dw_table(sizes, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(38)
+    x = torch.randn(2560, 1024, generator=g, device=cuda_device).bfloat16()
+    d = torch.randn(2560, 512, generator=g, device=cuda_device).bfloat16()
+    want = fused_gen.GROUPED_DW(x, d, table, torch.bfloat16)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    got = []
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append(fused_gen.GROUPED_DW(x, d, table, torch.bfloat16))
+    torch.cuda.synchronize()
+    for y in got:
+        assert torch.equal(y, want)
+
+
+@pytest.mark.gpu
+def test_ring_bodies_launch_from_a_fresh_thread(cuda_device):
+    """A host thread whose first CUDA work is a ring launch (the autograd
+    engine's thread, when a backward begins with one) has no current
+    context, and encoding a TMA map needs one: each ring body -- B1's
+    bf16 ring and tc32, B4's ring, B5's ring -- binds the operands'
+    device first and launches."""
+    import threading
+
+    from repro_torch.kernels import _baselines
+
+    g = torch.Generator(device=cuda_device).manual_seed(39)
+    a = torch.randn(1, 128, 384, generator=g, device=cuda_device)
+    b = torch.randn(1, 384, 256, generator=g, device=cuda_device)
+    sizes = (100, 0, 28)
+    x = torch.randn(128, 256, generator=g, device=cuda_device).bfloat16()
+    d = torch.randn(128, 512, generator=g, device=cuda_device).bfloat16()
+    table = _dw_table(sizes, cuda_device)
+    calls = {
+        "tc32": lambda: cuda_gen.CONTRACT(a, b, torch.float32),
+        "ring": lambda: cuda_gen.CONTRACT(a.bfloat16(), b.bfloat16(),
+                                          torch.float32),
+        "dw ring": lambda: fused_gen.GROUPED_DW(x, d, table, torch.float32),
+        "matmul ring": lambda: _baselines.MATMUL(a[0].bfloat16(),
+                                                 b[0].bfloat16(),
+                                                 torch.float32),
+    }
+    want = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    got, errors = {}, {}
+
+    def run(name, fn):
+        try:
+            got[name] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors[name] = e
+
+    for name, fn in calls.items():
+        t = threading.Thread(target=run, args=(name, fn))
+        t.start()
+        t.join()
+    assert not errors, errors
+    for name in calls:
+        assert torch.equal(got[name], want[name]), name
