@@ -78,9 +78,11 @@ raises and the script exits non-zero without the final result line:
    it;
 6c. baselines — B5, B6 (gelu) and B7 against ``matmul_ref``,
    ``fused_dense_act_ref``, ``weighted_matmul_ref`` at that shape in bf16,
-   at a ragged shape the ring takes (1000 x 1000 x 1000, bf16) and at a
-   ragged f32 shape, B7 also with g = 0 (exact zeros); each row with its
-   body and profiler device ms, B5 and B7 in bf16 on the TMA / ``wgmma``
+   at a ragged shape the ring takes (1000 x 1000 x 1000, bf16), at one it
+   refuses by rule (1000 x 999 x 1001, bf16: the ``mma.sync`` body) and
+   at that shape in f32 (the FMA body), B7 also with g = 0 (exact zeros);
+   each row with its body (asserted) and profiler device ms, B5, B6 and
+   B7 at aligned bf16 on the TMA / ``wgmma``
    ring, at the fused path's shape one launch alone with no other device
    work (no cast or copy of a, b or g); library ``torch.matmul``,
    ``torch.matmul`` + the eager epilogue, ``torch.matmul(a * g, b)``;
@@ -342,7 +344,8 @@ def _timed(fn, flush, reps=10, warmup=2):
 
 def _kernel_ms(run, flush, kernel, reps=5):
     """(device ms a ``run()`` spends in the port's ``kernel`` (a
-    ``_kernel_of`` name), the other device kernels it launched): ``reps``
+    ``_kernel_of`` name), the other device kernels it launched, and their
+    device ms a call): ``reps``
     calls under ``torch.profiler`` after one warm-up, L2 flushed before
     each, in a session opened by the marker.  The flush's fill (of bytes)
     is not counted as another; B1's split counters are zeroed once, when
@@ -379,11 +382,12 @@ def _kernel_ms(run, flush, kernel, reps=5):
         print(f"[profile] {kernel}: {TAKES} traces lost the marker's "
               f"records or held {count} launches over {reps} calls; device "
               f"ms not measured", flush=True)
-        return float("nan"), []
+        return float("nan"), [], float("nan")
     others = sorted(k for k in by_name if _kernel_of(k) != kernel
                     and "FillFunctor<unsigned char>" not in k
                     and not k.startswith("Memset"))
-    return sum(v[0] for v in mine) / reps, others
+    ms = sum(v[0] for v in mine) / reps
+    return ms, others, sum(by_name[k][0] for k in others) / reps
 
 
 #: the device kernel of a profiled session's marker (a float64 fill)
@@ -725,7 +729,7 @@ def phase_kernel():
             f"{dt_name}"
         )
         ms = _timed(lambda: CONTRACT(a[None], b[None], dt), flush)
-        device_ms, _ = _kernel_ms(lambda: CONTRACT(a[None], b[None], dt),
+        device_ms, _, _ = _kernel_ms(lambda: CONTRACT(a[None], b[None], dt),
                                   flush, "contract")
         plain_ms = _timed(lambda: contract_ref(spec, a, b, out_dtype=dt),
                           flush, **PLAIN_REPS)
@@ -961,7 +965,7 @@ def phase_b1_train():
                 got, want, dt_name, f"contract kernel {sp.name} at M={m} "
                 f"K={k} N={n}")
             ms = _timed(lambda: kern(*args), flush)
-            device_ms, others = _kernel_ms(lambda: kern(*args), flush,
+            device_ms, others, _ = _kernel_ms(lambda: kern(*args), flush,
                                            "contract")
             if CONTRACT.last_body != "ring" or others:
                 raise AssertionError(
@@ -1073,7 +1077,7 @@ def phase_grouped_dw():
         # one launch and no other device record: no fill of the output
         takes = _alone(run, "grouped_dw", 1, f"grouped-dw {name}")
         ms = _timed(run, flush)
-        device_ms, _ = _kernel_ms(run, flush, "grouped_dw")
+        device_ms, _, _ = _kernel_ms(run, flush, "grouped_dw")
         plain_ms = _timed(lambda: grouped_dw_ref(x, dout, sizes,
                                                  out_dtype=dt), flush,
                           **PLAIN_REPS)
@@ -1230,7 +1234,7 @@ def phase_b1_modes():
                 what = f"epilogue {act} {'norm' if norm else 'scale'}"
                 body = _mode_body(CONTRACT, dt_name, lambda: kern(x, w, **vs),
                                   what)
-                device_ms, _ = _kernel_ms(lambda: kern(x, w, **vs), flush,
+                device_ms, _, _ = _kernel_ms(lambda: kern(x, w, **vs), flush,
                                           "contract")
                 _launch_witness(lambda: kern(x, w, **vs), "contract",
                                 f"b1-modes {what} {dt_name}", device_ms)
@@ -1260,7 +1264,7 @@ def phase_b1_modes():
             got = kern(x, w)
             what = "plain"
             body = _mode_body(CONTRACT, dt_name, lambda: kern(x, w), what)
-            device_ms, _ = _kernel_ms(lambda: kern(x, w), flush, "contract")
+            device_ms, _, _ = _kernel_ms(lambda: kern(x, w), flush, "contract")
             _launch_witness(lambda: kern(x, w), "contract",
                             f"b1-modes {what} {dt_name}", device_ms)
             want = contract_ref(spec, x, w, out_dtype=dt)
@@ -1296,7 +1300,7 @@ def phase_b1_modes():
         kern = ops._tuned_kernel(sp, dt)
         got = kern(*args)
         body = _mode_body(CONTRACT, dt_name, lambda: kern(*args), what)
-        device_ms, _ = _kernel_ms(lambda: kern(*args), flush, "contract")
+        device_ms, _, _ = _kernel_ms(lambda: kern(*args), flush, "contract")
         _launch_witness(lambda: kern(*args), "contract", f"b1-modes {what}",
                         device_ms)
         want = contract_ref(sp, *args, out_dtype=dt)
@@ -1323,11 +1327,13 @@ def phase_b1_modes():
 def phase_baselines():
     """The hand-written baselines B5 (``matmul_cuda``), B6
     (``fused_dense_act_cuda``, gelu) and B7 (``weighted_matmul_cuda``)
-    against their plain versions at the fused path's shape in bf16 (B5
-    and B7 on the ring body, each also one launch alone with no other
-    device work, B7 with g = 0 exact zeros), at a ragged shape the ring
-    takes (M = K = N = 1000, bf16) and at a ragged f32 shape (M = 1000, K
-    = 999, N = 1001); blocks = the extents.  Each row with its body and
+    against their plain versions at the fused path's shape in bf16 (all
+    three on the ring body, each also one launch alone with no other
+    device work and a launch witness, B7 with g = 0 exact zeros), at a
+    ragged shape the ring takes (M = K = N = 1000, bf16), at one it
+    refuses by rule (M = 1000, K = 999, N = 1001, bf16: rows of 16 bytes
+    TMA cannot read, so ``mma.sync``) and at that shape in f32 (the FMA
+    body); blocks = the extents.  Each row with its body (asserted) and
     profiler device ms; library yardsticks ``torch.matmul``,
     ``torch.matmul`` then the epilogue in eager PyTorch,
     ``torch.matmul(a * g, b)``."""
@@ -1347,9 +1353,12 @@ def phase_baselines():
     gen = torch.Generator(device=dev).manual_seed(31)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     rows = []
-    for (m, k, n), dt_name in (((FUSED_M, FUSED_D, FUSED_F), "bfloat16"),
-                               ((1000, 1000, 1000), "bfloat16"),
-                               ((1000, 999, 1001), "float32")):
+    for (m, k, n), dt_name, want_body in (
+        ((FUSED_M, FUSED_D, FUSED_F), "bfloat16", "ring"),
+        ((1000, 1000, 1000), "bfloat16", "ring"),
+        ((1000, 999, 1001), "bfloat16", "mma"),
+        ((1000, 999, 1001), "float32", "fma"),
+    ):
         dt = getattr(torch, dt_name)
         main = (m, k, n) == (FUSED_M, FUSED_D, FUSED_F)
         a = (torch.randn(m, k, generator=gen, device=dev) / 8).to(dt)
@@ -1382,12 +1391,10 @@ def phase_baselines():
             launcher = _launcher(name)
             got, want = run(), plain()
             body = launcher.last_body
-            if dt_name == "bfloat16" and name != "fused_dense_act" and (
-                body != "ring"
-            ):
-                raise AssertionError(f"baselines {name} {shape}: body "
-                                     f"{body}, expected the ring")
-            device_ms, _ = _kernel_ms(run, flush, name)
+            if body != want_body:
+                raise AssertionError(f"baselines {name} {shape} {dt_name}: "
+                                     f"body {body}, expected {want_body}")
+            device_ms, _, _ = _kernel_ms(run, flush, name)
             extra = {}
             if main and body == "ring":
                 # one launch and no other device work (no cast or copy of
@@ -2046,8 +2053,8 @@ def _kernel_of(name):
 
     if re.search(r"\battn_(bf16|f32)(_ring|_tc)?_kernel", name):
         return "attention"
-    hit = re.search(r"\b(q8_(mma|ring)_kernel<(true|false)>|upcast_kernel|"
-                    r"chain_(bf16|scalar)_kernel)", name)
+    hit = re.search(r"\b(q8_(mma|ring)_kernel<(true|false)(, \d)?>|"
+                    r"upcast_kernel|chain_(bf16|scalar)_kernel)", name)
     if hit:
         word = hit.group(1)
         if word.startswith("q8"):
@@ -2549,7 +2556,7 @@ def _quant_row(tag, what, fmt, got, want, run, plain, library, ops, nbytes,
         max_abs, scaled_err = _check_close(got, want, "float32",
                                            f"{tag} {what}")
     ms = _timed(run, flush)
-    device_ms, _ = _kernel_ms(run, flush, kernel)
+    device_ms, others, other_ms = _kernel_ms(run, flush, kernel)
     plain_ms = _timed(plain, flush, **PLAIN_REPS)
     library_ms = None
     if library is not None:
@@ -2559,16 +2566,20 @@ def _quant_row(tag, what, fmt, got, want, run, plain, library, ops, nbytes,
             print(f"[{tag}] {what}: library call refused ({str(e)[:120]}); "
                   f"library_ms null", flush=True)
     bound_ms, ops_ms, bytes_ms, by = _bound(ops, nbytes, fmt)
-    row = dict(case=what, dtype=fmt, body=body, max_abs_err=max_abs,
-               scaled_err=scaled_err, ms=ms, device_ms=device_ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               ops_ms=ops_ms, bytes_ms=bytes_ms, bound_by=by,
-               tops=ops / ms / 1e9, **extra)
+    row = dict(case=what, dtype=fmt, body=body, kernel=kernel,
+               max_abs_err=max_abs, scaled_err=scaled_err, ms=ms,
+               device_ms=device_ms, other_device_ms=other_ms,
+               other_kernels=others, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, ops_ms=ops_ms,
+               bytes_ms=bytes_ms, bound_by=by, tops=ops / ms / 1e9, **extra)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
     held = "exact" if fmt == "int8" else f"scaled err {scaled_err:.3g}"
-    print(f"[{tag}] {what} {fmt} ({body}): {held}, {ms:.4f} ms, device "
-          f"{device_ms:.4f} (plain {plain_ms:.4f}, library {lib}, bound "
-          f"{bound_ms:.4f} by {by}), {row['tops']:.1f} TOP/s", flush=True)
+    other = (f", other device work {other_ms:.4f} in {len(others)} "
+             f"kernels" if others else "")
+    print(f"[{tag}] {what} {fmt} ({kernel}, {body}): {held}, {ms:.4f} ms, "
+          f"device {device_ms:.4f}{other} (plain {plain_ms:.4f}, library "
+          f"{lib}, bound {bound_ms:.4f} by {by}), {row['tops']:.1f} TOP/s",
+          flush=True)
     return row
 
 
@@ -2593,16 +2604,21 @@ def phase_b1_quant():
     999 x 1001, W n-major), a batched fold (8 x 512 x 1024 x 512) and a
     transposed one (A stored (K, M)).  Library yardsticks (timed, used
     nowhere in the port): ``torch._int_mm`` and ``torch._scaled_mm`` (scales
-    1) where they take the shape, else null.  Then the upcast body through
-    ``codegen.compile``: the int8 and fp8 ``weighted_matmul`` and its
-    derived ``.dA``, ``.dB``, ``.dg`` at M = 2048, D = 4096, F = 12288 (one
-    launch each, counted from 0), and the quantized chain at CHAIN_SHAPE,
-    against their plain versions; no one library call computes them."""
+    1) where they take the shape, else null.  Then, through
+    ``codegen.compile``, one pass counted from 0: the int8 and fp8
+    ``weighted_matmul`` and its derived ``.dA``, ``.dB``, ``.dg`` at M =
+    2048, D = 4096, F = 12288 on the rings (``FAMILY_ROUTES``: int8 on
+    the 8-bit ring, fp8's forward on the bf16 k-scale ring and the rest on
+    the 8-bit ring; one launch each, none on the upcast body) and the
+    quantized chain at CHAIN_SHAPE; then a second pass counted from 0 of
+    the upcast body's remaining calls (``_upcast_cases``); each against its
+    plain version, its device ms beside the other device work of the call
+    (the int8 forward's byte planes and K-major copies); no one library
+    call computes them."""
     import torch
 
     from repro_torch import codegen
     from repro_torch.codegen import contract_ref
-    from repro_torch.codegen.cuda_gen import _default_out_dtype
     from repro_torch.core import enumerate as E
     from repro_torch.grad import derived_specs
 
@@ -2657,9 +2673,9 @@ def phase_b1_quant():
                 2.0 * size, sum(x.numel() for x in args) + 4 * outs, flush,
                 f"contract_{fmt}", body, shape=spec.name))
             del args, got, want
-    # the upcast body and the quantized chain through codegen.compile, the
-    # public entry: one counted pass (counters from 0), then the checks and
-    # the timings
+    # the weighted family and the quantized chain through codegen.compile,
+    # the public entry: one counted pass (counters from 0), then the checks
+    # and the timings
     m, d, f = FUSED_M, FUSED_D, FUSED_F
     cases = []
     for fmt in ("int8", "fp8"):
@@ -2671,39 +2687,134 @@ def phase_b1_quant():
                     for ax in spec.operands.values()]
             cases.append((fmt, spec, args, codegen.compile(
                 spec, codegen.default_schedule(spec))))
-    torch.cuda.synchronize()
-    _zero_new_counts()
-    outs = [kern(*args) for _, _, args, kern in cases]
-    torch.cuda.synchronize()
-    counts = _new_counts()
-    want_counts = {"contract": 0, "contract_int8": 0, "contract_fp8": 0,
-                   "contract_upcast": 8, "contract_chain": 2}
-    if counts != want_counts:
-        raise AssertionError(f"b1-quant compile path launched {counts}, "
-                             f"expected {want_counts}")
-    upcast = []
-    for (fmt, spec, args, kern), got in zip(cases, outs):
-        out_dt = _default_out_dtype(spec, None, args[0].dtype)
-        want = contract_ref(spec, *args, out_dtype=out_dt)
-        ext = spec.extents
+    ran, counts, outs = _counted_pass(cases, {
+        "contract": 1, "contract_int8": 4, "contract_fp8": 3,
+        "contract_upcast": 0, "contract_chain": 2}, "compile path")
+    compiled = []
+    for (fmt, spec, args, kern), got, (kernel, body) in zip(cases, outs,
+                                                            ran):
         if spec.name == "chain_matmul":
             r, p, q, c = CHAIN_SHAPE
             ops = 2.0 * min(r * p * q + r * q * c, p * q * c + r * p * c)
         else:
             ops = 2.0 * m * d * f
-        n_out = math.prod(ext[i] for i in spec.output)
-        mode = "chain" if spec.name == "chain_matmul" else "upcast"
-        upcast.append(_quant_row(
-            "b1-quant", f"{spec.name} {dict(ext)}", fmt, got, want,
-            lambda: kern(*args),
-            lambda: contract_ref(spec, *args, out_dtype=out_dt), None,
-            ops, sum(x.numel() for x in args) + 4 * n_out, flush,
-            f"contract_{mode}", mode, shape=spec.name, mode=mode))
-        del want
+            if (kernel, body.split(" ")[0]) != FAMILY_ROUTES[fmt][spec.name]:
+                raise AssertionError(f"b1-quant {spec.name} {fmt}: ran "
+                                     f"{kernel} ({body}), expected "
+                                     f"{FAMILY_ROUTES[fmt][spec.name]}")
+        mode = "chain" if spec.name == "chain_matmul" else "family"
+        compiled.append(_compiled_row(fmt, spec, args, kern, got, ops,
+                                      flush, kernel, body, mode))
+    del cases, outs
+    # the upcast body on its remaining calls, counted from 0 apart
+    cases, names = [], []
+    for name, spec, dtypes in _upcast_cases(m, d, f):
+        args = [_q_operand([spec.extents[i] for i in ax], "int8", gen)
+                .to(dt) for ax, dt in zip(spec.operands.values(), dtypes)]
+        cases.append(("int8", spec, args, codegen.compile(
+            spec, codegen.default_schedule(spec))))
+        names.append(name)
+    ran, upcast_counts, outs = _counted_pass(cases, {
+        "contract": 0, "contract_int8": 0, "contract_fp8": 0,
+        "contract_upcast": 2, "contract_chain": 0}, "upcast path")
+    direct = [_compiled_row(fmt, spec, args, kern, got, 2.0 * m * d * f,
+                            flush, kernel, body, "upcast", name)
+              for (fmt, spec, args, kern), got, (kernel, body), name
+              in zip(cases, outs, ran, names)]
     del cases, outs, flush
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(rows=rows, upcast=upcast, launches=counts)
+    return dict(rows=rows, compiled=compiled, upcast=direct,
+                launches=counts, upcast_launches=upcast_counts)
+
+
+#: the launcher (``_kernel_of`` name) and body each spec of the 8-bit
+#: weighted family runs at the fused path's shape
+#: (``cuda_gen.eight_bit_route``)
+FAMILY_ROUTES = {
+    "int8": {"weighted_matmul": ("contract_int8", "ring"),
+             "weighted_matmul.dA": ("contract_int8", "ring"),
+             "weighted_matmul.dB": ("contract_int8", "ring"),
+             "weighted_matmul.dg": ("contract_int8", "ring")},
+    "fp8": {"weighted_matmul": ("contract", "ring"),
+            "weighted_matmul.dA": ("contract_fp8", "ring"),
+            "weighted_matmul.dB": ("contract_fp8", "ring"),
+            "weighted_matmul.dg": ("contract_fp8", "ring")},
+}
+
+
+def _upcast_cases(m, d, f):
+    """The upcast body's remaining calls at the fused path's shape, as
+    (row name, int8 spec, operand dtypes): a one-sided reduce (A (i, j, r)
+    summed over r in int32 first, so the product takes an int32 and an
+    int8 operand) and the weighted forward with an int32 g."""
+    import torch
+
+    from repro_torch.core import enumerate as E
+
+    one = E.ContractionSpec(name="one_side_reduce",
+                            operands={"A": ("i", "j", "r"), "B": ("j", "k")},
+                            output=("i", "k"),
+                            extents={"i": m, "j": d, "r": 4, "k": f})
+    i8 = torch.int8
+    return [("one_side_reduce", E.quantize_spec(one, fmt="int8"), (i8, i8)),
+            ("weighted_matmul, int32 g",
+             E.quantize_spec(E.weighted_matmul_spec(m, d, f), fmt="int8"),
+             (i8, i8, torch.int32))]
+
+
+def _counted_pass(cases, want, what):
+    """Run each ``(fmt, spec, args, kern)`` once with the launch counts
+    from 0; raise unless they end at ``want`` with one launch a call.
+    Returns ([(the launcher's kernel name, its body with the tile)] a
+    call, the counts, the outputs)."""
+    import torch
+
+    from repro_torch.codegen import CONTRACT
+
+    launchers = dict(_new_launchers(), contract=CONTRACT)
+    torch.cuda.synchronize()
+    _zero_new_counts()
+    ran, outs = [], []
+    for fmt, spec, args, kern in cases:
+        before = _new_counts()
+        outs.append(kern(*args))
+        after = _new_counts()
+        moved = [k for k in after if after[k] != before[k]]
+        if len(moved) != 1 or after[moved[0]] != before[moved[0]] + 1:
+            raise AssertionError(f"b1-quant {what}: {spec.name} {fmt} "
+                                 f"launched {moved}")
+        launcher = launchers[moved[0]]
+        ran.append((moved[0], _body(launcher)
+                    if hasattr(launcher, "last_body") else "chain"))
+        print(f"[b1-quant] {what}: {spec.name} {fmt} -> {moved[0]} "
+              f"({ran[-1][1]})", flush=True)
+    torch.cuda.synchronize()
+    counts = _new_counts()
+    if counts != want:
+        raise AssertionError(f"b1-quant {what} launched {counts}, expected "
+                             f"{want}")
+    return ran, counts, outs
+
+
+def _compiled_row(fmt, spec, args, kern, got, ops, flush, kernel, body,
+                  mode, name=None):
+    """A b1-quant row of a ``codegen.compile`` call against
+    ``contract_ref``, named ``name`` (default: the spec's) and its
+    extents."""
+    from repro_torch.codegen import contract_ref
+    from repro_torch.codegen.cuda_gen import _default_out_dtype
+
+    out_dt = _default_out_dtype(spec, None, args[0].dtype)
+    want = contract_ref(spec, *args, out_dtype=out_dt)
+    n_out = math.prod(spec.extents[i] for i in spec.output)
+    return _quant_row(
+        "b1-quant", f"{name or spec.name} {dict(spec.extents)}", fmt, got,
+        want,
+        lambda: kern(*args),
+        lambda: contract_ref(spec, *args, out_dtype=out_dt), None, ops,
+        sum(x.numel() * x.element_size() for x in args) + 4 * n_out, flush,
+        kernel, body, shape=spec.name, mode=mode)
 
 
 def _library_gemms(path):
@@ -3432,7 +3543,7 @@ def phase_attn_path():
             q, k, v, True, lens, q.dtype))
         # one launch of the row's body, and no other device work
         _alone(run, "attention", 1, f"attn-path ({tag})")
-        device_ms, _ = _kernel_ms(run, flush, "attention")
+        device_ms, _, _ = _kernel_ms(run, flush, "attention")
         # the second witness: three calls between CUDA events, each as long
         # as the kernel's device time, in a trace that opens with no marker
         records, event_ms = _launch_witness(
@@ -3530,12 +3641,15 @@ def attention_entry(small, path):
 def new_kernel_entries(quant, quant_path, chain):
     """The ``kernels`` entries of this slice's modes.  int8 / fp8: the raw
     kernel at the quant path's two MLP shapes (up + down), launches of the
-    quant path's run.  upcast: the int8 weighted family's four specs
-    through ``codegen.compile`` (no one library call computes them),
-    launches of that counted pass.  chain: ``chain_matmul`` and its three
-    derived specs at CHAIN_SHAPE in bf16, launches of the chain path's bf16
-    run, library ``torch.linalg.multi_dot``.  ``max_abs_err`` is the worst
-    over every case of the mode."""
+    quant path's run; beside them ``weighted_family``, the format's four
+    weighted specs through ``codegen.compile`` summed (no one library call
+    computes them; fp8's forward runs ``contract``), launches of b1-quant's
+    counted compile pass.  upcast: its two remaining calls
+    (``_upcast_cases``), launches of their counted pass.  chain:
+    ``chain_matmul`` and its three derived specs at CHAIN_SHAPE in bf16,
+    launches of the chain path's bf16 run, library
+    ``torch.linalg.multi_dot``.  ``max_abs_err`` is the worst over every
+    case of the mode."""
 
     def entry(name, source, parts, errs, launches):
         total = lambda key: sum(r[key] for r in parts)  # noqa: E731
@@ -3560,15 +3674,28 @@ def new_kernel_entries(quant, quant_path, chain):
     out = []
     for fmt in ("int8", "fp8"):
         rows = [r for r in quant["rows"] if r["dtype"] == fmt]
-        out.append(entry(f"contract_{fmt}", q8,
-                         [r for r in rows if r["shape"].startswith("mlp")],
-                         rows, quant_path["launches"][f"contract_{fmt}"]))
-    up = [r for r in quant["upcast"] if r["mode"] == "upcast"]
-    out.append(entry("contract_upcast", q8,
-                     [r for r in up if r["dtype"] == "int8"], up,
-                     quant["launches"]["contract_upcast"]))
+        family = [r for r in quant["compiled"]
+                  if r["mode"] == "family" and r["dtype"] == fmt]
+        mine = [r for r in family if r["kernel"] == f"contract_{fmt}"]
+        total = lambda key: sum(r[key] for r in family)  # noqa: E731
+        out.append(dict(
+            entry(f"contract_{fmt}", q8,
+                  [r for r in rows if r["shape"].startswith("mlp")],
+                  rows + mine, quant_path["launches"][f"contract_{fmt}"]),
+            weighted_family={
+                "launches": {k: sum(r["kernel"] == k for r in family)
+                             for k in sorted({r["kernel"] for r in family})},
+                "body": _bodies(family),
+                "max_abs_err": max(r["max_abs_err"] for r in family),
+                "scaled_err": max(r["scaled_err"] for r in family),
+                **{key: total(key) for key in (
+                    "ms", "device_ms", "other_device_ms", "plain_ms",
+                    "bound_ms")}}))
+    up = quant["upcast"]
+    out.append(entry("contract_upcast", q8, up, up,
+                     quant["upcast_launches"]["contract_upcast"]))
     bf16 = [r for r in chain["rows"] if r["dtype"] == "bfloat16"]
-    qchain = [r for r in quant["upcast"] if r["mode"] == "chain"]
+    qchain = [r for r in quant["compiled"] if r["mode"] == "chain"]
     out.append(entry("contract_chain",
                      "src/repro_torch/codegen/csrc/contract_chain.cu", bf16,
                      chain["rows"] + qchain,

@@ -41,7 +41,8 @@ kernel over ``chain_dense``'s forward and backward.  With ``--moe-serve``: ``moe
 tokens, prefill ms, decode tok/s and the B3 launches.  With ``--quant``:
 ``b1-quant`` (B1's int8 and fp8 modes at qwen3-8b's MLP products, up and
 down at M = 2048, W k-major, the ragged, batched and transposed folds,
-and the upcast body and the 8-bit chain through ``codegen.compile``);
+the 8-bit weighted family and chain through ``codegen.compile``, and the
+upcast body's remaining calls);
 each turn prints the tree, the MLP rows' event-timed ms and (where the
 tree's smoke records it) their profiler device ms, every other row's ms,
 and, timed first on the device by the turn itself, the cases that stay
@@ -310,7 +311,8 @@ print("COMPARE " + json.dumps({
     "tree": sys.argv[1], "mlp_ms": {key(r): r["ms"] for r in mlp},
     "mlp_device_ms": {key(r): r.get("device_ms") for r in mlp},
     "mma_device_ms": mma_device,
-    "other_ms": {key(r): r["ms"] for r in quant["rows"] + quant["upcast"]
+    "other_ms": {key(r): r["ms"] for r in quant["rows"]
+                 + quant.get("compiled", []) + quant["upcast"]
                  if r not in mlp}}), flush=True)
 """
 

@@ -31,8 +31,8 @@
 // TFLOP/s).  Three bodies, picked by the caller (kernels/_baselines.py,
 // baseline_body) and checked here (a body the operands cannot take is
 // refused, never swapped):
-//   * the ring body (body 1), B5 and B7 with bf16 operands that TMA can
-//     read (16-byte aligned A, B and g, K and N multiples of 8), on
+//   * the ring body (body 1), B5, B6 and B7 with bf16 operands that TMA
+//     can read (16-byte aligned A, B and g, K and N multiples of 8), on
 //     hopper.cuh's building blocks.  A CTA of three warpgroups owns a 128
 //     x 256 tile: warpgroup 0 gives its registers away (setmaxnreg) and
 //     one of its threads keeps TMA loads of 64-deep K steps in flight into
@@ -55,9 +55,18 @@
 //     written while a group is in flight, C7513); the other warpgroup's
 //     group keeps the tensor cores busy meanwhile, and at n256 each
 //     fragment feeds twice the work it feeds at B1's n128 (contract.cu's
-//     k-scale ring);
+//     k-scale ring).  B6's epilogue runs on the f32 fragments before the
+//     store: at the start of each tile the 256 consumer threads stage the
+//     tile's columns of beta, mean and rsqrt(var + eps) in shared memory,
+//     one column each, and meet at a named barrier (the producer is
+//     elsewhere in the ring); the factors are double-buffered by the
+//     CTA's tile parity, so a slow warpgroup still storing the last tile
+//     reads its own buffer (the barrier of the tile between orders the
+//     next write after it).  The store reads each column pair's factors
+//     as float2s, so no factor lives in a register array beside the 128
+//     accumulators;
 //   * the mma.sync body (body 0), every other bf16 call (unaligned
-//     operands, K or N not a multiple of 8, and B6): mma.sync m16n8k16
+//     operands, K or N not a multiple of 8): mma.sync m16n8k16
 //     (bf16 in, f32 accumulate) on a 64 x 128 tile, 4 warps of 64 x 32;
 //     K streams in steps of 32 through a three-stage cp.async ring
 //     (16-byte copies, two K steps in flight while a third is computed).
@@ -441,7 +450,7 @@ baseline_f32_kernel(const BaselineParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// The ring body (body 1): B5 and B7, bf16 operands that TMA can read
+// The ring body (body 1): B5, B6 and B7, bf16 operands that TMA can read
 // ---------------------------------------------------------------------------
 constexpr int R_BM = 128;
 constexpr int R_BN = 256;
@@ -453,9 +462,13 @@ constexpr int R_STAGES = 4;
 constexpr int R_G_BYTES = R_BK * 2;  // a stage's 64 values of g (B7)
 constexpr int R_ACC = R_BN / 2;      // f32 accumulators of a consumer thread
 constexpr int R_BAND = 8;            // row tiles of a rasterization band
-// the ring, 1024 bytes to align it, the g slots, full and empty barriers
-constexpr int R_SMEM =
-    R_STAGES * R_STAGE + 1024 + R_STAGES * R_G_BYTES + 2 * R_STAGES * 8;
+// B6's column factors (beta, mean, rsqrt(var + eps)) of a tile, two buffers
+constexpr int R_F_BYTES = 2 * 3 * R_BN * 4;
+constexpr int R_CONSUMERS = 256;
+// the ring, 1024 bytes to align it, the g slots, B6's factors, full and
+// empty barriers
+constexpr int R_SMEM = R_STAGES * R_STAGE + 1024 + R_STAGES * R_G_BYTES +
+                       R_F_BYTES + 2 * R_STAGES * 8;
 
 // One consumer warpgroup's K loop over a tile (kind 0): its 64 rows
 // (``half``) of each stage's A tile against the stage's whole B tile, four
@@ -548,10 +561,14 @@ __device__ __forceinline__ void ring_loop_scaled(float (&acc)[R_ACC],
 
 // The masked store of a consumer thread's fragment: rows r0 and r0 + 8,
 // columns c0 + 8j and c0 + 8j + 1 (wgmma's accumulator layout), each pair
-// one word (N is a multiple of 8 and c0 even).
-template <typename TOut>
+// one word (N is a multiple of 8 and c0 even).  B6 (KIND 1) first runs its
+// epilogue on each pair, in finish()'s order, from the tile's staged
+// factors ``fac`` (beta, mean, rsqrt(var + eps), R_BN each; the pair's
+// columns at ``cl0`` + 8j in the tile).
+template <typename TOut, int KIND>
 __device__ __forceinline__ void ring_store(TOut* C, const float (&acc)[R_ACC],
-                                           int r0, int c0, int M, int N) {
+                                           const float* fac, int act, int r0,
+                                           int c0, int cl0, int M, int N) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int m = r0 + 8 * h;
@@ -560,8 +577,18 @@ __device__ __forceinline__ void ring_store(TOut* C, const float (&acc)[R_ACC],
 #pragma unroll
     for (int j = 0; j < R_ACC / 4; ++j) {
       const int n = c0 + 8 * j;
-      if (n < N) store2_from_f32(row + n, acc[4 * j + 2 * h],
-                                 acc[4 * j + 2 * h + 1]);
+      if (n >= N) continue;
+      float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+      if (KIND == 1) {
+        const int c = cl0 + 8 * j;
+        const float2 bt = *reinterpret_cast<const float2*>(fac + c);
+        const float2 mu = *reinterpret_cast<const float2*>(fac + R_BN + c);
+        const float2 rs =
+            *reinterpret_cast<const float2*>(fac + 2 * R_BN + c);
+        x = activate(act, ((x + bt.x) - mu.x) * rs.x);
+        y = activate(act, ((y + bt.y) - mu.y) * rs.y);
+      }
+      store2_from_f32(row + n, x, y);
     }
   }
 }
@@ -569,19 +596,24 @@ __device__ __forceinline__ void ring_store(TOut* C, const float (&acc)[R_ACC],
 // The ring kernel, persistent: CTA b takes tiles b, b + grid, ... of the
 // (M / 128) x (N / 256) tiles in bands of R_BAND row tiles.  tmA: A as
 // (K, M), boxes of 64 k x 128 m; tmB: B as (N, K), boxes of 64 n x 64 k;
-// tmG (B7): g as (K, 1), boxes of 64.
+// tmG (B7): g as (K, 1), boxes of 64.  B6 reads beta, mean, var, eps and
+// act from ``p``.
 template <typename TOut, int KIND>
 __global__ void __launch_bounds__(R_THREADS, 1)
 baseline_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
                           const __grid_constant__ CUtensorMap tmB,
-                          const __grid_constant__ CUtensorMap tmG, TOut* C,
-                          int M, int N, int K) {
+                          const __grid_constant__ CUtensorMap tmG,
+                          const __grid_constant__ BaselineParams p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* tiles =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* gs = tiles + R_STAGES * R_STAGE;  // 128-byte slots
-  uint64_t* full = reinterpret_cast<uint64_t*>(gs + R_STAGES * R_G_BYTES);
+  float* fac = reinterpret_cast<float*>(gs + R_STAGES * R_G_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(fac) + R_F_BYTES);
   uint64_t* empty = full + R_STAGES;
+  TOut* C = static_cast<TOut*>(p.C);
+  const int M = (int)p.M, N = (int)p.N, K = (int)p.K;
 
   const int gx = (N + R_BN - 1) / R_BN;
   const int gy = (M + R_BM - 1) / R_BM;
@@ -634,9 +666,20 @@ baseline_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
   const uint32_t base = hopper::smem_u32(tiles);
   float acc[R_ACC];
   int it = 0;
-  for (int t = blockIdx.x; t < count; t += gridDim.x, it += nk) {
+  for (int t = blockIdx.x, parity = 0; t < count;
+       t += gridDim.x, it += nk, parity ^= 1) {
     int m_t, n_t;
     hopper::raster(t, gx, gy, R_BAND, m_t, n_t);
+    float* f = fac + parity * 3 * R_BN;
+    if (KIND == 1) {
+      // the tile's column factors, one column a consumer thread
+      const int n = n_t * R_BN + ct;
+      const bool in = n < N;
+      f[ct] = in ? p.beta[n] : 0.f;
+      f[R_BN + ct] = in ? p.mean[n] : 0.f;
+      f[2 * R_BN + ct] = in ? rsqrtf(p.var[n] + p.eps) : 0.f;
+      hopper::bar_sync(1, R_CONSUMERS);
+    }
 #pragma unroll
     for (int i = 0; i < R_ACC; ++i) acc[i] = 0.f;
     if (KIND == 2)
@@ -645,18 +688,20 @@ baseline_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmA,
       ring_loop(acc, base, full, empty, it, nk, half);
     const int r0 = m_t * R_BM + half * 64 + ((ct >> 5) & 3) * 16 +
                    (lane >> 2);
-    ring_store(C, acc, r0, n_t * R_BN + 2 * (lane & 3), M, N);
+    const int cl0 = 2 * (lane & 3);
+    ring_store<TOut, KIND>(C, acc, f, p.act, r0, n_t * R_BN + cl0, cl0, M,
+                           N);
   }
 }
 
-// Can the ring take the call: kinds 0 and 2, bf16 operands, 16-byte
-// aligned bases, K and N multiples of 8 (16-byte rows for TMA), a tile
-// count within int.
+// Can the ring take the call: any kind, bf16 operands, 16-byte aligned
+// bases, K and N multiples of 8 (16-byte rows for TMA), a tile count
+// within int.
 bool ring_ok(const BaselineParams& p) {
   const auto aligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
-  return p.in_dtype == 1 && (p.kind == 0 || p.kind == 2) && p.M >= 1 &&
+  return p.in_dtype == 1 && p.M >= 1 &&
          p.N >= 1 && p.K >= 1 && p.K % 8 == 0 && p.N % 8 == 0 &&
          aligned(p.A) && aligned(p.B) && (p.kind != 2 || aligned(p.g)) &&
          ((p.M + R_BM - 1) / R_BM) * ((p.N + R_BN - 1) / R_BN) < (1LL << 31);
@@ -693,7 +738,7 @@ int launch_ring(const BaselineParams& p, cudaStream_t stream) {
       ((p.M + R_BM - 1) / R_BM) * ((p.N + R_BN - 1) / R_BN);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   baseline_bf16_ring_kernel<TOut, KIND><<<grid, R_THREADS, R_SMEM, stream>>>(
-      ta, tb, tg, static_cast<TOut*>(p.C), (int)p.M, (int)p.N, (int)p.K);
+      ta, tb, tg, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -718,11 +763,14 @@ void launch_f32(const BaselineParams& p, cudaStream_t stream) {
   baseline_f32_kernel<TOut, KIND><<<grid, F_THREADS, 0, stream>>>(p);
 }
 
-// The ring's four kernels: kind 0 or 2, f32 or bf16 output.
+// The ring's six kernels: kind 0, 1 or 2, f32 or bf16 output.
 int launch_ring_kind(const BaselineParams& p, cudaStream_t s) {
   if (p.kind == 0)
     return p.out_dtype == 1 ? launch_ring<__nv_bfloat16, 0>(p, s)
                             : launch_ring<float, 0>(p, s);
+  if (p.kind == 1)
+    return p.out_dtype == 1 ? launch_ring<__nv_bfloat16, 1>(p, s)
+                            : launch_ring<float, 1>(p, s);
   if (p.kind == 2)
     return p.out_dtype == 1 ? launch_ring<__nv_bfloat16, 2>(p, s)
                             : launch_ring<float, 2>(p, s);
@@ -752,7 +800,7 @@ void launch_kind(const BaselineParams& p, cudaStream_t s) {
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16; body codes: 0 mma.sync (bf16
-// operands), 1 the ring (bf16, kinds 0 and 2, ring_ok), 2 FMA (f32
+// operands), 1 the ring (bf16, any kind, ring_ok), 2 FMA (f32
 // operands).  A body the operands cannot take is refused
 // (cudaErrorInvalidValue), never swapped.  Returns cudaGetLastError()
 // after the launch (0 = launched); nothing is synchronised, and nothing is

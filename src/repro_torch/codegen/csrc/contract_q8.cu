@@ -1,7 +1,8 @@
 // B1's 8-bit modes for Hopper: the int8 and fp8 (e4m3) contraction
-// C[b,m,n] = sum_k A[b,m,k] * B[b,k,n] on the tensor cores, and the upcast
-// body that runs every other spec over 8-bit (or mixed) operands on the
-// CUDA cores.
+// C[b,m,n] = sum_k A[b,m,k] * B[b,k,n] on the tensor cores (with the
+// weighted family's multiplier, row reduce and int8 byte planes on the
+// ring), and the upcast body that runs what the tensor cores cannot take
+// (mixed or int32 operands, M < 64) on the CUDA cores.
 //
 // Replaces the reference's generated Pallas contraction kernel for
 // quantized specs (src/repro/codegen/pallas_gen.py: CompiledKernel._build
@@ -35,28 +36,30 @@
 //   the accumulator type as it is staged, as the reference upcasts before
 //   its dot (pallas_gen.py:160-163): int32 IMAD for int8 specs, f32 FMA for
 //   fp8.  It runs the 3-operand modes of contract.cu on such operands: a
-//   per-k scale of the A tile (the weighted spec's g; the product a * g no
-//   longer fits 8 bits, so the tensor cores cannot take it), a multiplier
-//   of the accumulator (its .dA/.dB) and the deterministic row reduce (its
-//   .dg).  A 128 x 64 tile, 8 x 4 outputs per thread, as contract.cu's
-//   f32 body.  It is correct and not on a hot path.
+//   per-k scale of the A tile, a multiplier of the accumulator and the
+//   deterministic row reduce.  A 128 x 64 tile, 8 x 4 outputs per thread,
+//   as contract.cu's f32 body.  It is correct and off the main paths: the
+//   8-bit weighted family takes the ring where every operand is 8-bit of
+//   one format (codegen.cuda_gen.eight_bit_route); what is left here is a
+//   mixed or int32 operand (a one-sided reduce's int32 sum, an int32 g),
+//   M < 64 and layouts TMA cannot read even after a K-major copy.
 // Both end in the same epilogue on the accumulator converted to f32, in
 // the reference's order: dequant (qscale), scale, bias, (y - mean) *
 // rsqrt(var + eps), activation.  With no epilogue the accumulator is
 // stored as it is: an int8 spec's int32 result is exact.
 //
-// q8_ring_kernel<INT> (body 1): the same product on hopper.cuh's skeleton,
-//   for K-major operands at M >= 64 (codegen.modes.q8_body picks it; the
-//   launch refuses anything else): A k-contiguous and B k-contiguous as
-//   ``ops.dense(quant=)`` writes its W (quantize_channels_kmajor), row
-//   strides multiples of 16 bytes, 16-byte aligned bases.  8-bit wgmma
-//   takes only K-major operands, so the n-major B (the ragged case), the
-//   transposed fold (A stored (K, M)) and unaligned operands run
-//   q8_mma_kernel.  A CTA of three warpgroups owns a 128 x 128 tile; one
-//   producer thread keeps TMA loads of 128 k-bytes a stage (four k32
-//   steps, 128-byte swizzled boxes) in flight on a six-stage ring of 192
-//   KB with full and empty mbarriers; two consumer warpgroups run wgmma
-//   m64n128k32 on 64 rows each.
+// q8_ring_kernel<INT, PLANES> (body 1): the same product on hopper.cuh's
+//   skeleton, for K-major operands at M >= 64 (codegen.modes.q8_body picks
+//   it; the launch refuses anything else): A k-contiguous and B
+//   k-contiguous as ``ops.dense(quant=)`` writes its W
+//   (quantize_channels_kmajor), row strides multiples of 16 bytes, 16-byte
+//   aligned bases.  8-bit wgmma takes only K-major operands, so the
+//   n-major B (the ragged case), the transposed fold (A stored (K, M)) and
+//   unaligned operands run q8_mma_kernel.  A CTA of three warpgroups owns
+//   a 128 x 128 tile; one producer thread keeps TMA loads of 128 k-bytes a
+//   stage (four k32 steps, 128-byte swizzled boxes) in flight on a
+//   six-stage ring of 192 KB with full and empty mbarriers; two consumer
+//   warpgroups run wgmma m64n128k32 on 64 rows each.
 //   * int8: .s32.s8.s8 into int32 accumulators, one group in flight across
 //     K steps; no .satfinite, so it wraps modulo 2^32 like the reference
 //     and stays exact.
@@ -68,6 +71,26 @@
 //     wgmma is in flight while the other partial is added (interval k32:
 //     the numerics of q8_mma_kernel, measured at 2.6e-7 / 4.1e-7 scaled at
 //     the MLP shapes; a longer interval would trade them for FADDs).
+//   Three modes of the weighted family (weighted_matmul and its .dA, .dB,
+//   .dg over 8-bit operands and an 8-bit g or T):
+//   * a multiplier of the accumulator (``mul``, g on an output group:
+//     .dA, .dB), in the accumulator's type after the sums; exact modulo
+//     2^32 for int8, since (sum a b) g == sum (a b g) there;
+//   * the deterministic row reduce (``T``: .dg), contract.cu's ring
+//     row reduce in the accumulator's type: column sums of acc * T per
+//     CTA into a (row blocks, N) buffer, summed in row-block order by the
+//     last CTA of each column block;
+//   * int8 byte planes (PLANES 2: weighted_matmul's k-scale).  a * g no
+//     longer fits 8 bits, but x = a g lies in [-16256, 16384], so h = (x +
+//     128) >> 8 in [-63, 64] and l = x - 256 h in [-128, 127] are both s8
+//     and C = 256 H.B + L.B exactly modulo 2^32 (the wrapper writes H and
+//     L, codegen.modes.int8_planes).  The ring walks K twice over the same
+//     B, H's walk then L's, with acc *= 256 between them after a
+//     wait_group 0: no second accumulator (the consumers' registers stay
+//     at 64 int32 sums), no wgmma under a branch, and B's second read
+//     comes from L2.  (The fp8 k-scale runs on contract.cu's bf16 k-scale
+//     ring instead: an e4m3 x e4m3 product has at most 8 significant bits,
+//     so a g and the upcast B are exact in bf16.)
 //
 // What bounds it on the H100: at qwen3-8b's MLP shapes (M = 2048, D =
 // 4096, F = 12288) an 8-bit product is 206 GOP on about 160 MB (1-byte
@@ -76,7 +99,11 @@
 // right: loads and math alternate, no pipeline, no wgmma, and its fp8
 // promotion costs four FADDs per mma.sync; the ring body keeps loads in
 // flight and the tensor cores on wgmma, and its fp8 promotion is one FADD
-// per accumulator per k32 step.
+// per accumulator per k32 step.  Its tile's epilogue is not overlapped
+// with the next tile's loads (one CTA a tile), so it stores a thread's two
+// neighbouring outputs as one word: whole 32-byte sectors a row and half
+// the store instructions, which matters most where the output is large
+// against the work (weighted_matmul.dB writes 201 MB of int32).
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -117,6 +144,7 @@ struct Q8Params {
   int a_dtype, b_dtype, t_dtype, out_dtype;
   int acc_int;                 // 1: int32 accumulation, 0: f32
   int body;                    // q8_launch: 0 q8_mma_kernel, 1 the ring
+  int planes;                  // the ring: 1, or 2 int8 planes of A (H, L)
 };
 
 }  // extern "C"
@@ -265,6 +293,34 @@ __device__ __forceinline__ void store_out(const Q8Params& p, bool epi,
     static_cast<__nv_bfloat16*>(p.C)[off] = __float2bfloat16_rn(y);
   else
     static_cast<float*>(p.C)[off] = y;
+}
+
+// Store two neighbouring elements (n, n + 1) of a row at ``off`` (even;
+// the output n-contiguous), as store_out does each, in one store.
+template <typename TAcc>
+__device__ __forceinline__ void store_pair(const Q8Params& p, bool epi,
+                                           long long off, long long b,
+                                           long long m, long long n, TAcc a0,
+                                           TAcc a1) {
+  if (!epi && p.out_dtype == 4) {
+    *reinterpret_cast<int2*>(static_cast<int*>(p.C) + off) =
+        make_int2(static_cast<int>(a0), static_cast<int>(a1));
+    return;
+  }
+  float y0 = static_cast<float>(a0), y1 = static_cast<float>(a1);
+  if (epi) {
+    y0 = epilogue(p, b, m, n, y0);
+    y1 = epilogue(p, b, m, n + 1, y1);
+  }
+  if (p.out_dtype == 4)
+    *reinterpret_cast<int2*>(static_cast<int*>(p.C) + off) =
+        make_int2(static_cast<int>(y0), static_cast<int>(y1));
+  else if (p.out_dtype == 1)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.C) +
+                                       off) = __floats2bfloat162_rn(y0, y1);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(p.C) + off) =
+        make_float2(y0, y1);
 }
 
 __device__ __forceinline__ uint32_t lds_u32(const uint8_t* p) {
@@ -600,17 +656,144 @@ __global__ void __launch_bounds__(UTHREADS) upcast_kernel(const Q8Params p) {
 // ---------------------------------------------------------------------------
 constexpr int QR_BM = 128;
 constexpr int QR_BN = 128;
+static_assert(QR_BM == QR_BN, "q8_ring_tile() names one square tile");
 constexpr int QR_BK = 128;  // bytes of k a stage: four k32 wgmmas
 constexpr int QR_THREADS = 384;
+constexpr int QR_CONSUMERS = 256;
 constexpr int QR_A_BYTES = QR_BM * QR_BK;
 constexpr int QR_STAGE = QR_A_BYTES + QR_BN * QR_BK;
 constexpr int QR_STAGES = 6;
-constexpr int QR_SMEM = QR_STAGES * QR_STAGE + 1024 + 2 * QR_STAGES * 8;
+// the row reduce's column sums of the 8 consumer warps (4-byte sums)
+constexpr int QR_RED_BYTES = 8 * QR_BN * 4;
+// the ring, 1024 bytes to align it, the row reduce's sums, full and empty
+// barriers, the row reduce's "last CTA" flag
+constexpr int QR_SMEM =
+    QR_STAGES * QR_STAGE + 1024 + QR_RED_BYTES + 2 * QR_STAGES * 8 + 16;
+
+// The accumulator times a multiplier, wrapping modulo 2^32 for int32
+// (unsigned arithmetic: (sum a b) g == sum (a b g) there, as the
+// reference's int32 sums of a * b * g)
+__device__ __forceinline__ int acc_mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) *
+                          static_cast<unsigned>(b));
+}
+__device__ __forceinline__ float acc_mul(float a, float b) { return a * b; }
+// The accumulator's sum, wrapping modulo 2^32 for int32 as acc_mul does
+__device__ __forceinline__ int acc_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) +
+                          static_cast<unsigned>(b));
+}
+__device__ __forceinline__ float acc_add(float a, float b) { return a + b; }
+
+// One consumer warpgroup's int8 K walk: ``steps`` ring steps from the
+// ring's step ``i0``, one wgmma group in flight across steps, each stage
+// released once its group has retired (the walk's last after
+// wait_group 0).
+__device__ __forceinline__ void q8_int_walk(int (&acc)[64], uint32_t base,
+                                            uint64_t* full, uint64_t* empty,
+                                            int i0, int steps, int half) {
+  for (int j = 0; j < steps; ++j) {
+    const int i = i0 + j;
+    const int s = i % QR_STAGES;
+    hopper::mbar_wait(&full[s], (i / QR_STAGES) & 1);
+    const uint32_t a = base + s * QR_STAGE + half * 8192;
+    const uint32_t bt = base + s * QR_STAGE + QR_A_BYTES;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      hopper::wgmma_s8(acc, hopper::desc(a + ks * 32, 16, 1024),
+                       hopper::desc(bt + ks * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(acc);
+    if (j > 0 && threadIdx.x % 128 == 0)
+      hopper::mbar_arrive(&empty[(i - 1) % QR_STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  if (steps > 0 && threadIdx.x % 128 == 0)
+    hopper::mbar_arrive(&empty[(i0 + steps - 1) % QR_STAGES]);
+}
+
+// The row reduce on the ring (contract.cu's ring_row_reduce, in the
+// accumulator's type): each consumer thread's column sums of acc * T over
+// its two rows, summed across the 8 row groups of its warp by shuffles and
+// across the 8 consumer warps in shared memory in warp order; the tile's
+// 128 sums go to ``partial`` row m_t; the last CTA of the column block
+// (``counter``) sums the partial rows in row-block order, stores C[n] and
+// sets the counter back to 0.  Deterministic: no float atomics, a fixed
+// order everywhere.
+template <typename TAcc>
+__device__ __forceinline__ void q8_ring_row_reduce(
+    const TAcc (&acc)[64], const Q8Params& p, TAcc (*red)[QR_BN], int* last,
+    long long r0, long long c0, int m_t, int n_t, int gy, int ct) {
+  TAcc cs[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) cs[i] = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long m = r0 + 8 * h;
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long n = c0 + 8 * j + e;
+        if (n < p.N)
+          cs[2 * j + e] = acc_add(
+              cs[2 * j + e],
+              acc_mul(acc[4 * j + 2 * h + e],
+                      load_as<TAcc>(p.T, m * p.sTm + n * p.sTn, p.t_dtype)));
+      }
+  }
+  // lanes t, t + 4, .., t + 28 share columns
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      cs[i] = acc_add(cs[i], __shfl_xor_sync(0xffffffffu, cs[i], off));
+  const int lane = ct & 31;
+  if (lane < 4)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) red[ct >> 5][8 * j + 2 * lane + e] =
+          cs[2 * j + e];
+  hopper::bar_sync(1, QR_CONSUMERS);
+  const long long n = (long long)n_t * QR_BN + ct;
+  const bool mine = ct < QR_BN && n < p.N;
+  TAcc* partial = static_cast<TAcc*>(p.partial);
+  if (mine) {
+    TAcc s = 0;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s = acc_add(s, red[w][ct]);
+    __stcg(partial + (long long)m_t * p.N + n, s);
+  }
+  __threadfence();
+  hopper::bar_sync(1, QR_CONSUMERS);
+  if (ct == 0) *last = atomicAdd(p.counter + n_t, 1) == gy - 1;
+  hopper::bar_sync(1, QR_CONSUMERS);
+  if (!*last) return;
+  __threadfence();
+  if (ct == 0) p.counter[n_t] = 0;
+  if (mine) {
+    TAcc s = 0;
+    for (int r = 0; r < gy; ++r)
+      s = acc_add(s, __ldcg(partial + (long long)r * p.N + n));
+    store_out<TAcc>(p, false, n * p.sCn, 0, 0, n, s);
+  }
+}
 
 // Grid (tiles, 1, batch): the (M / 128) x (N / 128) tiles in bands of 8
 // row tiles (hopper::raster); 384 threads: warpgroup 0 the producer, 1 and
 // 2 the consumers.  tmA: boxes of 128 k x 128 m; tmB: 128 k x 128 n.
-template <bool INT>
+// PLANES 2 (int8): A's two byte planes H and L (tmA's batch coordinate
+// 0 and 1, batch 1) are walked over the same B in turn, K twice, with acc
+// *= 256 between the walks: C = 256 H.B + L.B modulo 2^32.  After the sums,
+// ``p.mul`` multiplies the accumulator; with ``p.T`` the tile goes to the
+// row reduce instead of the store.
+template <bool INT, int PLANES>
 __global__ void __launch_bounds__(QR_THREADS, 1)
 q8_ring_kernel(const __grid_constant__ CUtensorMap tmA,
                const __grid_constant__ CUtensorMap tmB,
@@ -619,16 +802,21 @@ q8_ring_kernel(const __grid_constant__ CUtensorMap tmA,
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* tiles =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + QR_STAGES * QR_STAGE);
+  TAcc (*red)[QR_BN] =
+      reinterpret_cast<TAcc (*)[QR_BN]>(tiles + QR_STAGES * QR_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + QR_STAGES * QR_STAGE +
+                                               QR_RED_BYTES);
   uint64_t* empty = full + QR_STAGES;
+  int* last = reinterpret_cast<int*>(empty + QR_STAGES);
 
+  const int gx = (int)((p.N + QR_BN - 1) / QR_BN);
+  const int gy = (int)((p.M + QR_BM - 1) / QR_BM);
   int m_t, n_t;
-  hopper::raster(blockIdx.x, (int)((p.N + QR_BN - 1) / QR_BN),
-                 (int)((p.M + QR_BM - 1) / QR_BM), 8, m_t, n_t);
+  hopper::raster(blockIdx.x, gx, gy, 8, m_t, n_t);
   const int n0 = n_t * QR_BN;
   const int m0 = m_t * QR_BM;
   const int b = blockIdx.z;
-  const int steps = (int)((p.K + QR_BK - 1) / QR_BK);
+  const int nk = (int)((p.K + QR_BK - 1) / QR_BK);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < QR_STAGES; ++s) {
@@ -644,13 +832,15 @@ q8_ring_kernel(const __grid_constant__ CUtensorMap tmA,
     if (threadIdx.x == 0) {
       hopper::tma_prefetch(&tmA);
       hopper::tma_prefetch(&tmB);
-      for (int i = 0; i < steps; ++i) {
+      for (int i = 0; i < PLANES * nk; ++i) {
         const int s = i % QR_STAGES;
+        const int plane = i / nk;
+        const int k0 = (i - plane * nk) * QR_BK;
         hopper::mbar_wait(&empty[s], ((i / QR_STAGES) & 1) ^ 1);
         hopper::mbar_arrive_tx(&full[s], QR_STAGE);
         unsigned char* a = tiles + s * QR_STAGE;
-        hopper::tma_load(a, &tmA, &full[s], i * QR_BK, m0, b);
-        hopper::tma_load(a + QR_A_BYTES, &tmB, &full[s], i * QR_BK, n0, b);
+        hopper::tma_load(a, &tmA, &full[s], k0, m0, b + plane);
+        hopper::tma_load(a + QR_A_BYTES, &tmB, &full[s], k0, n0, b);
       }
     }
     return;
@@ -665,30 +855,19 @@ q8_ring_kernel(const __grid_constant__ CUtensorMap tmA,
   for (int e = 0; e < 64; ++e) acc[e] = 0;
 
   if constexpr (INT) {
-    for (int i = 0; i < steps; ++i) {
-      const int s = i % QR_STAGES;
-      hopper::mbar_wait(&full[s], (i / QR_STAGES) & 1);
-      const uint32_t a = base + s * QR_STAGE + half * 8192;
-      const uint32_t bt = base + s * QR_STAGE + QR_A_BYTES;
-      hopper::fence_regs(acc);
-      hopper::wgmma_fence();
+    q8_int_walk(acc, base, full, empty, 0, nk, half);
+    if constexpr (PLANES == 2) {
+      // H's walk has retired (wait_group 0): C = 256 H.B, then + L.B
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        hopper::wgmma_s8(acc, hopper::desc(a + ks * 32, 16, 1024),
-                         hopper::desc(bt + ks * 32, 16, 1024));
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<1>();
-      hopper::fence_regs(acc);
-      if (i > 0 && threadIdx.x % 128 == 0)
-        hopper::mbar_arrive(&empty[(i - 1) % QR_STAGES]);
+      for (int e = 0; e < 64; ++e)
+        acc[e] = static_cast<int>(static_cast<unsigned>(acc[e]) << 8);
+      q8_int_walk(acc, base, full, empty, nk, nk, half);
     }
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
   } else {
     // every k32 wgmma from zero into one of two partials; the other, whose
     // group has retired (wait_group 1), is added into acc meanwhile
     float part[2][64];
-    for (int i = 0; i < steps; ++i) {
+    for (int i = 0; i < nk; ++i) {
       const int s = i % QR_STAGES;
       hopper::mbar_wait(&full[s], (i / QR_STAGES) & 1);
       const uint32_t a = base + s * QR_STAGE + half * 8192;
@@ -721,37 +900,83 @@ q8_ring_kernel(const __grid_constant__ CUtensorMap tmA,
 
   // warp w of the consumer group: rows 16 w + g (+ 8); per n8 block j,
   // acc[4j + 2h + e] is (row g + 8h, column 8j + 2t + e)
-  const bool epi = has_epilogue(p);
   const int lane = ct & 31;
   const long long r0 = m0 + half * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
   const long long c0 = n0 + 2 * (lane & 3);
+  if (p.mul.p) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = r0 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const long long n = c0 + 8 * j + e;
+          if (m < p.M && n < p.N)
+            acc[4 * j + 2 * h + e] = acc_mul(
+                acc[4 * j + 2 * h + e], vec_at<TAcc>(p.mul, b, m, n, 0));
+        }
+    }
+  }
+  if (p.T) {
+    q8_ring_row_reduce<TAcc>(acc, p, red, last, r0, c0, m_t, n_t, gy, ct);
+    return;
+  }
+  // a thread's two neighbouring columns go out as one 8-byte store (4 for
+  // bf16) where the output is n-contiguous with even row and batch strides
+  // and an 8-byte aligned base: a warp then writes whole 32-byte sectors
+  // of each row
+  const bool epi = has_epilogue(p);
+  const bool pair = p.sCn == 1 && p.sCm % 2 == 0 &&
+                    (p.batch == 1 || p.sCb % 2 == 0) &&
+                    reinterpret_cast<uintptr_t>(p.C) % 8 == 0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const long long m = r0 + 8 * h;
     if (m >= p.M) continue;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const long long n = c0 + 8 * j + e;
-        if (n < p.N)
-          store_out<TAcc>(p, epi, b * p.sCb + m * p.sCm + n * p.sCn, b, m, n,
-                          acc[4 * j + 2 * h + e]);
+    for (int j = 0; j < 16; ++j) {
+      const long long n = c0 + 8 * j;
+      const long long off = b * p.sCb + m * p.sCm + n * p.sCn;
+      if (pair && n + 1 < p.N) {
+        store_pair<TAcc>(p, epi, off, b, m, n, acc[4 * j + 2 * h],
+                         acc[4 * j + 2 * h + 1]);
+        continue;
       }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (n + e < p.N)
+          store_out<TAcc>(p, epi, off + e * p.sCn, b, m, n + e,
+                          acc[4 * j + 2 * h + e]);
+    }
   }
+}
+
+template <bool INT, int PLANES>
+int q8_ring_start(const CUtensorMap& ta, const CUtensorMap& tb,
+                  const Q8Params& p, dim3 grid, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      q8_ring_kernel<INT, PLANES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, QR_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  q8_ring_kernel<INT, PLANES><<<grid, QR_THREADS, QR_SMEM, stream>>>(ta, tb,
+                                                                      p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The ring's launch: checks its preconditions (cudaErrorInvalidValue when
 // one fails; nothing switches body), encodes the two tensor maps and
-// launches.
+// launches.  With ``planes`` 2, A holds the two int8 planes as its batch.
 int q8_ring_launch(const Q8Params& p, cudaStream_t stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   const long long tiles =
       ((p.M + QR_BM - 1) / QR_BM) * ((p.N + QR_BN - 1) / QR_BN);
   if (p.M < 64 || p.K < 1 || p.N < 1 || p.batch < 1 || p.batch > 65535 ||
-      tiles >= (1LL << 31))
+      tiles >= (1LL << 31) ||
+      (p.planes == 2 && (p.a_dtype != 2 || p.batch != 1 || p.T)))
     return invalid;
-  const hopper::Operand a{p.A, p.K, p.M, p.sAm, p.batch, p.sAb};
+  const hopper::Operand a{p.A, p.K, p.M, p.sAm, p.planes == 2 ? 2 : p.batch,
+                          p.sAb};
   const hopper::Operand bo{p.B, p.K, p.N, p.sBn, p.batch, p.sBb};
   if (!(p.sAk == 1 || p.K == 1) || !(p.sBk == 1 || p.K == 1)) return invalid;
   CUtensorMap ta, tb;
@@ -760,20 +985,9 @@ int q8_ring_launch(const Q8Params& p, cudaStream_t stream) {
       !hopper::make_map(&tb, bo, 1, u8, QR_BK, QR_BN))
     return invalid;
   const dim3 grid((unsigned)tiles, 1, (unsigned)p.batch);
-  if (p.a_dtype == 2) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        q8_ring_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        QR_SMEM);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    q8_ring_kernel<true><<<grid, QR_THREADS, QR_SMEM, stream>>>(ta, tb, p);
-  } else {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        q8_ring_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        QR_SMEM);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    q8_ring_kernel<false><<<grid, QR_THREADS, QR_SMEM, stream>>>(ta, tb, p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (p.a_dtype != 2) return q8_ring_start<false, 1>(ta, tb, p, grid, stream);
+  if (p.planes == 2) return q8_ring_start<true, 2>(ta, tb, p, grid, stream);
+  return q8_ring_start<true, 1>(ta, tb, p, grid, stream);
 }
 
 bool valid(const Q8Params& p) {
@@ -789,15 +1003,19 @@ extern "C" {
 
 // Two 8-bit operands of one type (a_dtype == b_dtype, 2 int8 or 3 fp8) on
 // the tensor cores: q8_mma_kernel (body 0) or the ring (body 1, or
-// refused).  Strides are in elements (bytes).  Returns
-// cudaGetLastError() after the launch (0 = launched); nothing is
+// refused).  Only the ring takes the multiplier, the row reduce (its
+// partial buffer (row blocks of 128, N) and one int per 128-column block,
+// zeroed) and two int8 planes (the k-scale the wrapper folded into A);
+// no body takes a k-scale vector.  Strides are in elements (bytes).
+// Returns cudaGetLastError() after the launch (0 = launched); nothing is
 // synchronised or allocated here.
 int q8_launch(const Q8Params* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid(*p) || p->a_dtype != p->b_dtype ||
-      (p->a_dtype != 2 && p->a_dtype != 3) || p->T || p->kscale.p ||
-      p->mul.p || p->acc_int != (p->a_dtype == 2) || p->body < 0 ||
-      p->body > 1)
+      (p->a_dtype != 2 && p->a_dtype != 3) || p->kscale.p ||
+      p->acc_int != (p->a_dtype == 2) || p->body < 0 || p->body > 1 ||
+      p->planes < 1 || p->planes > 2 ||
+      (p->body == 0 && (p->T || p->mul.p || p->planes != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p->body == 1) return q8_ring_launch(*p, s);
   const dim3 grid((unsigned)((p->N + QBN - 1) / QBN),
@@ -815,7 +1033,7 @@ int q8_launch(const Q8Params* p, void* stream) {
 // accumulator type and one zeroed int per column block (upcast_tile_*).
 int upcast_launch(const Q8Params* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!valid(*p) || p->body != 0)
+  if (!valid(*p) || p->body != 0 || p->planes != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((unsigned)((p->N + UBN - 1) / UBN),
                   (unsigned)((p->M + UBM - 1) / UBM), (unsigned)p->batch);
@@ -830,6 +1048,9 @@ int q8_tile_m(void) { return QBM; }
 int q8_tile_n(void) { return QBN; }
 int upcast_tile_m(void) { return UBM; }
 int upcast_tile_n(void) { return UBN; }
+// the ring's square tile (rows and columns), which sizes the row reduce's
+// partial buffer and counters
+int q8_ring_tile(void) { return QR_BM; }
 
 // sizeof(Q8Params), checked against the ctypes mirror at load.
 int q8_params_size(void) { return (int)sizeof(Q8Params); }

@@ -57,10 +57,13 @@ Three-operand specs are classified by their index sets, not their names
 Int8 and fp8 specs (``QuantMeta``) accumulate as the reference's do
 (``pallas_gen.py:219-226``): int32 for int8, exact; f32 for fp8.  A
 product of two 8-bit operands runs on the tensor cores
-(``csrc/contract_q8.cu``, ``CONTRACT_INT8`` / ``CONTRACT_FP8``); their
-vector and row-reduce modes upcast on the CUDA cores (``CONTRACT_UPCAST``);
-the quantized chain runs the chain kernel's CUDA-core body.  The launchers
-are in ``codegen.modes``.
+(``csrc/contract_q8.cu``, ``CONTRACT_INT8`` / ``CONTRACT_FP8``), and so
+do their vector and row-reduce modes (the weighted family) where every
+operand is 8-bit of the spec's format and the ring takes the operands
+after K-major copies (``eight_bit_route``); fp8's k-scale runs on
+contract.cu's bf16 k-scale ring over exact bf16 upcasts; the rest upcasts
+on the CUDA cores (``CONTRACT_UPCAST``); the quantized chain runs the
+chain kernel's CUDA-core body.  The launchers are in ``codegen.modes``.
 
 The ``Epilogue`` (``codegen.epilogue``: dequant, scale, bias,
 normalization, activation) runs on the accumulator, converted to f32,
@@ -111,6 +114,7 @@ from .modes import (
     _Vec,
     chain_cluster,
     chain_tile_n,
+    q8_ring_refusal,
     set_epilogue,
     set_vec,
     tma_operand,
@@ -831,6 +835,67 @@ def _launch_chain(spec: ContractionSpec, fold: Fold, operands, out_dtype,
     return out
 
 
+def _kmajor(x: torch.Tensor, unit: int, meta: bool = False
+            ) -> torch.Tensor:
+    """``x`` (batch, rows, cols), with axis ``unit`` (1 rows, 2 cols) the
+    unit-stride one as TMA reads it: ``x`` itself where it already is
+    (``tma_operand``), else a copy laid out (batch, other axis, ``unit``),
+    viewed back in ``x``'s axis order.  ``meta``: the same layout on the
+    meta device, which moves no data (the route's rule reads it)."""
+    if tma_operand(x, unit, x.element_size()):
+        return x
+    if meta:
+        x = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                device="meta")
+    order = (0, 3 - unit, unit)  # its own inverse
+    return x.permute(order).contiguous().permute(order)
+
+
+def eight_bit_route(kind: str, a3: torch.Tensor, b3: torch.Tensor,
+                    extra: Optional[torch.Tensor] = None,
+                    kscale: Optional[VecArg] = None, *, int_acc: bool,
+                    out_dtype: torch.dtype = torch.float32) -> str:
+    """Which launcher takes the folded product a3 (batch, M, K) @ b3
+    (batch, K, N) of an 8-bit spec of fold ``kind``, with its vector or
+    T ``extra`` (``kscale``: the vector when it lies on k).  A rule on
+    the operands' dtypes, shapes and strides; nothing is retried.
+
+    ``"tensor cores"`` (``CONTRACT_INT8`` / ``CONTRACT_FP8``): a product
+    of two 8-bit operands of one format, as before; and the vector and
+    row-reduce modes where g or T is 8-bit of that format too and
+    ``q8_ring_refusal`` finds nothing once A and B are K-major (``_kmajor``
+    copies a transposed operand; int8's k-scale makes A's two byte planes,
+    contiguous, at batch 1): M >= 64, and for fp8 K >= FP8_RING_MIN_K.
+    ``"bf16"`` (``CONTRACT``): fp8's k-scale, where ``contract_body``
+    gives its k-scale ring to the bf16 upcasts (exact: an e4m3 x e4m3
+    product has at most 8 significant bits) and the output is f32 or
+    bf16.  ``"upcast"`` (``CONTRACT_UPCAST``): everything else -- a mixed
+    or int32 operand (a one-sided reduce's int32 sum, an int32 g), M <
+    64, a short fp8 K, a layout the ring cannot take."""
+    dt = a3.dtype
+    if b3.dtype != dt or dt not in (torch.int8, torch.float8_e4m3fn) or (
+        int_acc != (dt == torch.int8)
+    ):
+        return "upcast"
+    if kind == "gemm":
+        return "tensor cores"
+    if extra is None or extra.dtype != dt:
+        return "upcast"
+    meta = lambda x, dtype=None: torch.empty_strided(  # noqa: E731
+        x.shape, x.stride(), dtype=dtype or x.dtype, device="meta")
+    if kscale is not None and dt == torch.float8_e4m3fn:
+        if out_dtype not in _KERNEL_DTYPES:
+            return "upcast"
+        g = VecArg(meta(kscale.tensor, torch.bfloat16), 3, kscale.div)
+        return "bf16" if contract_body(
+            meta(a3, torch.bfloat16), meta(b3, torch.bfloat16),
+            plain=False, kscale=g) == "ring" else "upcast"
+    # int8's k-scale reads A as its byte planes, made by the launcher
+    a = a3 if kscale is not None else _kmajor(a3, 2, meta=True)
+    return ("tensor cores" if q8_ring_refusal(
+        a, _kmajor(b3, 1, meta=True), kscale) is None else "upcast")
+
+
 def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
                  out_dtype: torch.dtype, epilogue: Optional[Epilogue] = None,
                  vectors: Optional[Dict[str, torch.Tensor]] = None,
@@ -838,10 +903,12 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
     """Fold the spec onto a kernel (``fold``: ``_classify``'s, computed
     here when not given), launch it once and unfold the result.
 
-    Launcher by operands: a chain runs ``CONTRACT_CHAIN``; two int8 or two
-    fp8 operands of a product ``CONTRACT_INT8`` / ``CONTRACT_FP8``; any
-    other 8-bit or integer operands (an int8/fp8 spec's vector and
-    row-reduce modes) ``CONTRACT_UPCAST``; f32 and bf16 ``CONTRACT``."""
+    Launcher by operands: a chain runs ``CONTRACT_CHAIN``; f32 and bf16
+    ``CONTRACT``; 8-bit or integer operands as ``eight_bit_route`` says:
+    ``CONTRACT_INT8`` / ``CONTRACT_FP8`` (a product of two 8-bit operands
+    of one format; the weighted family's modes on the ring, after K-major
+    copies of a transposed operand), ``CONTRACT`` (fp8's k-scale over
+    bf16 upcasts) or ``CONTRACT_UPCAST``."""
     fold = fold or _classify(spec)
     if fold.kind == "chain":
         return _launch_chain(spec, fold, operands, out_dtype, epilogue,
@@ -903,8 +970,26 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
     vec = None
     if fold.kind == "vector":
         (j,) = spec.operands[fold.extra]
-        vec = VecArg(as_vec(arrays[fold.extra]),
+        vec = VecArg(arrays[fold.extra].reshape(-1).contiguous(),
                      *_group_of(j, *groups, ext))
+    route = None
+    if not plain:
+        route = eight_bit_route(
+            fold.kind, a3, b3, arrays.get(fold.extra),
+            vec if vec is not None and vec.axis == 3 else None,
+            int_acc=int_acc, out_dtype=out_dtype)
+        if route == "bf16":
+            # fp8's k-scale on contract.cu's bf16 ring: a * g and the
+            # upcast B are exact in bf16, the sums f32 as the reference's
+            a3, b3, plain = a3.bfloat16(), b3.bfloat16(), True
+            vec = vec._replace(tensor=vec.tensor.bfloat16())
+        elif route == "tensor cores" and fold.kind != "gemm":
+            if vec is None or vec.axis != 3:  # int8's planes are K-major
+                a3 = _kmajor(a3, 2)
+            b3 = _kmajor(b3, 1)
+    if vec is not None and not (route == "tensor cores" and vec.axis == 3):
+        # int8's byte planes take g as it is (int8)
+        vec = vec._replace(tensor=as_vec(vec.tensor))
     if plain and a3.dtype == torch.bfloat16 and contract_body(
         a3, b3, plain=fold.kind == "gemm" and (
             epilogue is None or epilogue.is_identity),
@@ -922,10 +1007,7 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
         launcher, kw = CONTRACT, {}
     else:
         kw = {"int_acc": int_acc}
-        eight = (torch.int8, torch.float8_e4m3fn)
-        if fold.kind == "gemm" and a3.dtype == b3.dtype and (
-            a3.dtype in eight
-        ) and int_acc == (a3.dtype == torch.int8):
+        if route == "tensor cores":
             launcher = (CONTRACT_INT8 if a3.dtype == torch.int8
                         else CONTRACT_FP8)
         else:

@@ -10,7 +10,9 @@ every kernel launch and for nothing else:
     CONTRACT_INT8    two int8 operands on the tensor cores (int32 sums)
     CONTRACT_FP8     two fp8 e4m3 operands on the tensor cores (f32 sums);
                      both on the TMA / wgmma ring where ``q8_body`` says
-                     so, else on the mma.sync body
+                     so, else on the mma.sync body; the ring also takes
+                     the multiplier and the row reduce, and int8 a k-scale
+                     (as two byte planes of A, ``int8_planes``)
     CONTRACT_UPCAST  operands of any type the kernel names, upcast on the
                      CUDA cores (int32 or f32 sums), with contract.cu's
                      k-scale, multiplier and row-reduce modes
@@ -63,7 +65,8 @@ class _Q8Params(ctypes.Structure):
         + [("partial", ctypes.c_void_p), ("counter", ctypes.c_void_p),
            ("eps", ctypes.c_float), ("act", ctypes.c_int)]
         + [(f, ctypes.c_int) for f in ("a_dtype", "b_dtype", "t_dtype",
-                                       "out_dtype", "acc_int", "body")]
+                                       "out_dtype", "acc_int", "body",
+                                       "planes")]
     )
 
 
@@ -136,6 +139,60 @@ def q8_body(a: torch.Tensor, b: torch.Tensor) -> str:
         return "mma"
     return ("ring" if tma_operand(a, 2, 1) and tma_operand(b, 1, 1)
             else "mma")
+
+
+def q8_ring_refusal(a: torch.Tensor, b: torch.Tensor,
+                    kscale: Optional[VecArg] = None) -> Optional[str]:
+    """Why the 8-bit ring cannot take a (batch, M, K) @ b (batch, K, N)
+    with a k-scale, a multiplier or a row reduce (the modes only the ring
+    takes on the tensor cores), or None where it can: ``q8_body`` gives
+    the ring for A as the kernel reads it.  A ``kscale`` must be an int8
+    vector of K elements on k (div 1) at batch 1 over int8 operands; A is
+    then read as its two byte planes (``int8_planes``: contiguous,
+    K-major).  Takes meta tensors (``cuda_gen.eight_bit_route``'s K-major
+    copies); the ring's launch checks the layout rules again and refuses
+    what fails them."""
+    batch, m, k = a.shape
+    if kscale is not None:
+        v = kscale.tensor
+        if a.dtype != torch.int8 or v.dtype != torch.int8 or (
+            kscale.axis != 3 or kscale.div != 1 or v.dim() != 1
+            or v.numel() != k or batch != 1
+        ):
+            return (f"a k-scale goes in as int8 planes: an int8 vector of "
+                    f"{k} elements on k (div 1) at batch 1, int8 operands; "
+                    f"got {a.dtype} operands, g {v.dtype} {tuple(v.shape)} "
+                    f"on axis {kscale.axis} (div {kscale.div}), batch "
+                    f"{batch}")
+        a = torch.empty((1, m, k), dtype=torch.int8, device="meta")
+    body = q8_body(a, b)
+    return None if body == "ring" else f"q8_body gives the {body} body"
+
+
+#: the 8-bit ring's square CTA tile (contract_q8.cu's QR_BM, checked at
+#: load): the row reduce's partial rows and counters are per 128 x 128 tile
+Q8_RING_TILE = 128
+
+
+def int8_planes(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The two int8 byte planes (H, L) of ``a * g`` (a (..., K) and g (K,)
+    int8, the weighted spec's k-scale), stacked as a new (2, ..., K)
+    int8 tensor: x = a g lies in [-16256, 16384], so h = (x + 128) >> 8
+    (in [-63, 64]) and l = x - 256 h (in [-128, 127]) are both int8 and
+    256 h + l == x exactly.  A product over k then splits as C = 256 H.B
+    + L.B, which the 8-bit ring sums modulo 2^32 as the reference's int32
+    sums of a g b.  Plain PyTorch elementwise ops, on whatever device
+    ``a`` lies (the pre-pass of ``CONTRACT_INT8``'s k-scale)."""
+    if a.dtype != torch.int8 or g.dtype != torch.int8:
+        raise TypeError(f"int8_planes takes int8 a and g, got {a.dtype} and "
+                        f"{g.dtype}")
+    x = a.to(torch.int16) * g.to(torch.int16)
+    h = torch.bitwise_right_shift(x + 128, 8)
+    out = torch.empty((2,) + tuple(a.shape), dtype=torch.int8,
+                      device=a.device)
+    out[0] = h
+    out[1] = x - h * 256
+    return out
 
 
 def _load(source: str, params, entries):
@@ -231,8 +288,12 @@ class Contract8Launcher:
             lib = _load("contract_q8", _Q8Params,
                         ("q8_launch", "upcast_launch"))
             for name in ("q8_tile_m", "q8_tile_n", "upcast_tile_m",
-                         "upcast_tile_n"):
+                         "upcast_tile_n", "q8_ring_tile"):
                 getattr(lib, name).restype = ctypes.c_int
+            if lib.q8_ring_tile() != Q8_RING_TILE:
+                raise RuntimeError(f"contract_q8.cu's ring tile is "
+                                   f"{lib.q8_ring_tile()}, Q8_RING_TILE "
+                                   f"says {Q8_RING_TILE}")
             self._lib = lib
         return self._lib
 
@@ -246,13 +307,16 @@ class Contract8Launcher:
                  body: Optional[str] = None) -> torch.Tensor:
         """a (batch, M, K) @ b (batch, K, N) -> new (batch, M, N) tensor,
         accumulated in int32 (``int_acc``) or f32.  ``kscale`` scales A
-        along k as it is staged, ``mul`` multiplies the accumulator (both
-        in the accumulator's type); the ``epilogue`` runs on it in f32.
-        With ``t`` (M, N) (batch 1) the result is the (N,) vector
-        ``sum_m (a @ b)[m, n] * t[m, n]``.  ``body`` forces the
-        tensor-core mode's body (``"ring"`` or ``"mma"``; ``q8_body`` by
-        default); the kernel refuses a forced ring it cannot take, and
-        this raises."""
+        along k, ``mul`` multiplies the accumulator (both in the
+        accumulator's type; on the tensor cores ``kscale`` is an int8
+        vector of K elements, batch 1, which becomes A's two byte planes,
+        ``int8_planes``); the ``epilogue`` runs on it in f32.  With ``t``
+        (M, N) (batch 1) the result is the (N,) vector ``sum_m (a @
+        b)[m, n] * t[m, n]``.  ``body`` forces the tensor-core mode's body
+        (``"ring"`` or ``"mma"``; ``q8_body`` by default); the kernel
+        refuses a forced ring it cannot take, and this raises.  On the
+        tensor cores only the ring takes ``kscale``, ``mul`` or ``t``: a
+        call with one that ``q8_body`` sends to the mma.sync body raises."""
         tc = self.entry == "q8_launch"
         if a.device.type != "cuda" or b.device != a.device:
             raise ValueError(f"the 8-bit kernels take CUDA tensors on one "
@@ -273,9 +337,6 @@ class Contract8Launcher:
                            for x in (a, b)):
             raise TypeError("int32 accumulation takes int8 or int32 "
                             "operands")
-        if tc and (kscale is not None or mul is not None or t is not None):
-            raise ValueError("the tensor-core mode takes no k-scale, "
-                             "multiplier or row reduce")
         if body is not None and (not tc or body not in ("ring", "mma")):
             raise ValueError(f"body {body!r}: the tensor-core mode's 'ring' "
                              f"or 'mma'")
@@ -288,6 +349,18 @@ class Contract8Launcher:
         _check_strides(a, b)
         batch, m, k = a.shape
         n = b.shape[2]
+        fused = kscale is not None or mul is not None or t is not None
+        if tc and fused:
+            why = ("the mma body is forced" if body == "mma"
+                   else q8_ring_refusal(a, b, kscale))
+            if why is not None:
+                raise ValueError(f"the tensor-core mode takes a k-scale, "
+                                 f"multiplier or row reduce on the ring "
+                                 f"only: {why}")
+            if kscale is not None and kscale.tensor.device != a.device:
+                raise ValueError(f"k-scale on {kscale.tensor.device}, "
+                                 f"operands on {a.device}")
+            body = "ring"
         lib = self._fn()
         tile_m = lib.q8_tile_m() if tc else lib.upcast_tile_m()
         tile_n = lib.q8_tile_n() if tc else lib.upcast_tile_n()
@@ -296,14 +369,21 @@ class Contract8Launcher:
         acc_dtype = torch.int32 if int_acc else torch.float32
         if tc and body is None:
             body = q8_body(a, b)
+        if fused and tc:
+            tile_m = tile_n = Q8_RING_TILE
         p = _Q8Params(A=a.data_ptr(), B=b.data_ptr(), batch=batch, M=m, N=n,
                       K=k, a_dtype=codes[0], b_dtype=codes[1],
                       out_dtype=OUT_CODES[out_dtype], acc_int=int(int_acc),
-                      body=int(body == "ring"))
+                      body=int(body == "ring"), planes=1)
         p.sAb, p.sAm, p.sAk = a.stride()
         p.sBb, p.sBk, p.sBn = b.stride()
+        planes = None  # int8's k-scale on the ring: A's byte planes
+        if tc and kscale is not None:
+            planes = int8_planes(a[0], kscale.tensor)
+            p.A, p.planes = planes.data_ptr(), 2
+            p.sAb, p.sAm, p.sAk = planes.stride()
         extents = (batch, m, n, k)
-        if kscale is not None:
+        if kscale is not None and planes is None:
             set_vec(p, "kscale", kscale, a.device, acc_dtype, (3,), extents)
         if mul is not None:
             set_vec(p, "mul", mul, a.device, acc_dtype, (0, 1, 2), extents)

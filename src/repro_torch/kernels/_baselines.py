@@ -6,8 +6,8 @@ One library holds the three hand-written kernels; each has its own
 of that kernel and for nothing else, and its ``last_body``.  A launcher
 takes CUDA tensors only: the CPU path is each kernel module's plain
 version.  ``baseline_body`` picks the body a call runs (``BODIES``): the
-TMA / ``wgmma`` ring for B5 and B7 where TMA can read the bf16 operands,
-``mma.sync`` for other bf16 calls and B6, the FMA body for f32.
+TMA / ``wgmma`` ring for B5, B6 and B7 where TMA can read the bf16
+operands, ``mma.sync`` for other bf16 calls, the FMA body for f32.
 """
 
 from __future__ import annotations
@@ -47,11 +47,12 @@ class _Params(ctypes.Structure):
 def ring_refusal(kind: int, a: torch.Tensor, b: torch.Tensor,
                  g: Optional[torch.Tensor] = None) -> Optional[str]:
     """Why the ring body cannot take ``a`` (M, K) @ ``b`` (K, N) of kernel
-    ``kind`` as they lie (with B7's ``g``), or None where it can: bf16
-    operands, kind 0 or 2, contiguous (the launcher copies a strided one
+    ``kind`` (0, 1 or 2) as they lie (with B7's ``g``), or None where it
+    can: bf16 operands, contiguous (the launcher copies a strided one
     first), 16-byte aligned bases (TMA), K and N multiples of 8 (16-byte
-    rows).  baselines.cu's ``ring_ok`` holds the same rules."""
-    if kind not in (0, 2):
+    rows).  B6's (N,) epilogue vectors are read by plain loads and set no
+    rule.  baselines.cu's ``ring_ok`` holds the same rules."""
+    if kind not in (0, 1, 2):
         return f"kind {kind} has no ring body"
     if a.dtype != torch.bfloat16:
         return f"{a.dtype} operands"

@@ -9,8 +9,10 @@ Replaces the reference's
 The last two stages are low arithmetic density, so they run on the f32
 accumulator before the one store instead of round-tripping device memory.
 Here the kernel is kind 1 of ``codegen/csrc/baselines.cu`` (its epilogue
-hook); the CUDA kernel tiles by its own CTA tile (64 x 128 for bf16,
-128 x 64 for f32), and the caller's blocks are checked to divide the
+hook): bf16 operands TMA can read run its persistent TMA / ``wgmma`` ring
+(128 x 256 tiles, the epilogue on the f32 fragments from each tile's
+staged column factors), other bf16 calls ``mma.sync`` (64 x 128), f32 the
+FMA body (128 x 64); the caller's blocks are checked to divide the
 extents, as the reference asserts.  Activations: relu, gelu (the tanh
 approximation), tanh, id, as the reference's kernel.
 

@@ -525,9 +525,10 @@ def test_kernel_names_map_to_their_launchers():
     assert of(ns + "contract_bf16_ring_kernel<256>(CUtensorMap_st, "
               "CUtensorMap_st, void*, int)") == "contract"
     assert of(ns + "contract_bf16_ring_kernel<128>(...)") == "contract"
-    assert of(ns + "q8_ring_kernel<true>(CUtensorMap_st, CUtensorMap_st, "
+    assert of(ns + "q8_ring_kernel<true, 1>(CUtensorMap_st, CUtensorMap_st, "
               "Q8Params)") == "contract_int8"
-    assert of(ns + "q8_ring_kernel<false>(...)") == "contract_fp8"
+    assert of(ns + "q8_ring_kernel<true, 2>(...)") == "contract_int8"
+    assert of(ns + "q8_ring_kernel<false, 1>(...)") == "contract_fp8"
     assert of(ns + "contract_bf16_mma_kernel<__nv_bfloat16, true>(...)") == (
         "contract")
     assert of(ns + "contract_bf16_ring_fused_kernel<128>(CUtensorMap_st, "

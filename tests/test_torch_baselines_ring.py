@@ -1,18 +1,19 @@
-"""B5 and B7's ring body on the CPU: which body each call takes, the
+"""B5, B6 and B7's ring body on the CPU: which body each call takes, the
 launch struct, the ring's fragment arithmetic, and B7's rounding.
 
 ``codegen/csrc/baselines.cu`` has three bodies (``_baselines.BODIES``):
-the TMA / ``wgmma`` ring for B5 and B7 with bf16 operands TMA can read,
-``mma.sync`` for every other bf16 call and for B6, and the FMA body for
+the TMA / ``wgmma`` ring for B5, B6 and B7 with bf16 operands TMA can
+read, ``mma.sync`` for every other bf16 call, and the FMA body for
 f32.  The kernels run only on a card (``tests/test_torch_gpu.py``); what
 is tested here is what the host decides and what the ring computes:
 
 * ``_baselines.baseline_body`` at the fused path's shape, at M < 128 and
-  where the ring refuses (K or N not a multiple of 8, an offset view, f32,
-  kind 1, a misaligned g, an empty extent);
+  where the ring refuses (K or N not a multiple of 8, an offset view, f32
+  for every kind, a misaligned g, an empty extent);
 * the ctypes ``_Params`` mirror against ``struct BaselineParams`` and the
   body codes against the source, the source's header (``hopper.cuh``) in
-  its library's hash, the ring's shared memory within the card's 227 KB;
+  its library's hash, the ring's shared memory (B6's double-buffered
+  column factors included) within the card's 227 KB;
 * B7's register path: each thread's A fragment read by ``ldmatrix`` from
   the 128-byte-swizzled tile, and the g values it scales them by, against
   ``mma``'s A fragment layout (emulated in numpy);
@@ -69,10 +70,12 @@ def _offset(shape, dtype=BF16):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kind", [0, 2])
+@pytest.mark.parametrize("kind", [0, 1, 2])
 @pytest.mark.parametrize("m,k,n", [FUSED, (1000, 1000, 1000), (77, 256, 512),
                                    (1, 8, 8), (64, 96, 48)])
 def test_aligned_bf16_b5_and_b7_take_the_ring(m, k, n, kind):
+    """B5, B6 (kind 1, since its epilogue runs on the ring's fragments)
+    and B7 with aligned bf16 operands take the ring."""
     device = "meta" if m * k > 2**20 else "cpu"
     a, b, g = _ops(m, k, n, device=device)
     g = g if kind == 2 else None
@@ -99,7 +102,8 @@ def test_aligned_bf16_b5_and_b7_take_the_ring(m, k, n, kind):
      "float32 operands"),
     ("f32 B7", 2, lambda: _ops(64, 64, 64, torch.float32), "fma",
      "float32 operands"),
-    ("B6", 1, lambda: _ops(64, 64, 64), "mma", "kind 1"),
+    ("f32 B6", 1, lambda: _ops(64, 64, 64, torch.float32), "fma",
+     "float32 operands"),
     ("an empty extent", 0, lambda: _ops(0, 64, 64), "mma", "empty"),
     ("a strided A", 0,
      lambda: (torch.zeros(64, 128, dtype=BF16)[:, ::2],) + _ops(64, 64,
@@ -175,17 +179,20 @@ def test_the_source_hashes_the_hopper_header():
 
 def test_the_ring_fits_the_cards_shared_memory():
     """128 x 256 tiles, 64-deep K steps, 4 stages of A (16 KB) and B (32
-    KB), g's 128 bytes a stage, barriers: within the 227 KB a block can
-    take; 768 tiles at the fused path's shape."""
+    KB), g's 128 bytes a stage, B6's column factors (beta, mean, rsqrt(var
+    + eps) of 256 columns, two buffers), barriers: within the 227 KB a
+    block can take; 768 tiles at the fused path's shape."""
     src = _source()
     const = {k: int(v) for k, v in re.findall(
         r"constexpr int (R_BM|R_BN|R_BK|R_STAGES|R_THREADS) = (\d+);", src)}
     assert const == {"R_BM": 128, "R_BN": 256, "R_BK": 64, "R_STAGES": 4,
                      "R_THREADS": 384}
+    assert "constexpr int R_F_BYTES = 2 * 3 * R_BN * 4;" in src
     stage = const["R_BM"] * const["R_BK"] * 2 + const["R_BK"] * const[
         "R_BN"] * 2
+    factors = 2 * 3 * const["R_BN"] * 4
     smem = const["R_STAGES"] * (stage + const["R_BK"] * 2) + 1024 + (
-        2 * const["R_STAGES"] * 8)
+        factors + 2 * const["R_STAGES"] * 8)
     assert stage == 48 * 1024 and smem <= 232448
     m, _, n = FUSED
     assert (m // const["R_BM"]) * (n // const["R_BN"]) == 768

@@ -18,10 +18,13 @@ layouts, batched and split, the 8-bit ring, two launches equal bit for
 bit, a forced ring refused where it cannot read the layout; the fused
 ring in every mode and layout, split, its row reduce bit for bit; the
 narrow body at decode's token counts and GEMMs, one launch a GEMM and
-nothing else), B5 and B7's ring body (TMA and wgmma: the fused path's
-shape, ragged, M < 128, bf16 and f32 outputs, B7 with g = 0 and of mixed
-sign, two streams at once, forced and refused bodies), and a failed
-launch of B1 or B2 dropping its stream's counters.
+nothing else; the 8-bit weighted family on the rings -- int8 bit for
+bit, fp8 at the f32 TOL, its row reduce equal over five launches, the
+ring's modes refused off it), B5, B6 and B7's ring body (TMA and wgmma:
+the fused path's shape, ragged, M < 128, bf16 and f32 outputs, B6 with
+every activation, B7 with g = 0 and of mixed sign, two streams at once,
+forced and refused bodies), and a failed launch of B1 or B2 dropping its
+stream's counters.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided inside the ``cuda_device`` fixture).  The file imports torch and
@@ -841,6 +844,39 @@ def test_baseline_ring_matches_plain_versions(cuda_device, m, k, n, out):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32],
+                         ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("m,k,n", [
+    (2048, 4096, 12288),  # the fused path's shape
+    (1000, 1000, 1000),   # ragged on every side
+    (300, 4096, 264),     # ragged N past a 256-wide tile
+])
+def test_b6_ring_matches_its_plain_version(cuda_device, m, k, n, out):
+    """B6 (fused_dense_act) on the ring, every activation: the epilogue
+    from the tile's staged column factors against
+    ``fused_dense_act_ref``; against the mma.sync body's output (the same
+    epilogue per element) within a few f32 roundings of the sum order."""
+    from repro_torch.kernels import _baselines
+    from repro_torch.kernels.fused_dense_act.ref import fused_dense_act_ref
+
+    a, b, _ = _baseline_case(cuda_device, m, k, n, 48)
+    vec = _vectors(cuda_device, n, 49)
+    kw = dict(beta=vec["bias"], mean=vec["mean"], var=vec["var"], eps=1e-5)
+    for act in _baselines.B6_ACTS:
+        got = _baselines.FUSED_DENSE_ACT(a, b, out, act=act, **kw)
+        assert _baselines.FUSED_DENSE_ACT.last_body == "ring"
+        want = fused_dense_act_ref(a, b, vec["bias"], vec["mean"],
+                                   vec["var"], act=act, eps=1e-5,
+                                   out_dtype=out)
+        _assert_close_scaled(got, want, torch.bfloat16)
+        if out == torch.float32:
+            mma = _baselines.FUSED_DENSE_ACT(a, b, out, act=act, body="mma",
+                                             **kw)
+            assert _baselines.FUSED_DENSE_ACT.last_body == "mma"
+            torch.testing.assert_close(got, mma, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_baseline_ring_on_two_streams_at_once(cuda_device):
     """B5 and B7 launched on two streams at once give the bits each gives
     alone (the ring keeps no state between launches)."""
@@ -885,14 +921,21 @@ def test_baseline_bodies_forced_and_refused(cuda_device):
     with pytest.raises(ValueError, match="ring body cannot take"):
         _baselines.FUSED_RNZ(a.float(), b.float(), torch.float32,
                              g=g.float(), body="ring")
+    b6 = dict(beta=torch.randn(384, device=cuda_device),
+              mean=torch.zeros(384, device=cuda_device),
+              var=torch.ones(384, device=cuda_device), act="gelu")
+    b6_before = _baselines.FUSED_DENSE_ACT.launches
     with pytest.raises(ValueError, match="ring body cannot take"):
-        _baselines.FUSED_DENSE_ACT(
-            a, b, torch.float32, beta=torch.zeros(384, device=cuda_device),
-            mean=torch.zeros(384, device=cuda_device),
-            var=torch.ones(384, device=cuda_device), body="ring")
+        _baselines.FUSED_DENSE_ACT(offset, b, torch.float32, body="ring",
+                                   **b6)
     with pytest.raises(ValueError, match="fma body does not take"):
         _baselines.MATMUL(a, b, torch.float32, body="fma")
     assert _baselines.MATMUL.launches == before
+    assert _baselines.FUSED_DENSE_ACT.launches == b6_before
+    # B6 takes the ring like B5 and B7, and agrees with its mma.sync body
+    ring = _baselines.FUSED_DENSE_ACT(a, b, torch.float32, body="ring", **b6)
+    mma = _baselines.FUSED_DENSE_ACT(a, b, torch.float32, body="mma", **b6)
+    torch.testing.assert_close(ring, mma, rtol=1e-4, atol=1e-4)
     # the offset view runs the mma.sync body by default
     _baselines.MATMUL(offset, b, torch.float32)
     assert _baselines.MATMUL.last_body == "mma"
@@ -1066,6 +1109,115 @@ def test_cuda_dequant_epilogue(cuda_device, fmt, act):
                                  epilogue=epi, vectors=vecs)
     assert got.dtype == torch.float32
     _assert_close_scaled(got, want, torch.float32)
+
+
+#: the launcher and body each spec of the 8-bit weighted family takes
+#: where every operand is 8-bit and the rings take the shapes
+#: (``cuda_gen.eight_bit_route``): (launcher, body) by spec name
+WEIGHTED_RING_ROUTES = {
+    "int8": {"weighted_matmul": ("CONTRACT_INT8", "ring"),
+             "weighted_matmul.dA": ("CONTRACT_INT8", "ring"),
+             "weighted_matmul.dB": ("CONTRACT_INT8", "ring"),
+             "weighted_matmul.dg": ("CONTRACT_INT8", "ring")},
+    "fp8": {"weighted_matmul": ("CONTRACT", "ring"),
+            "weighted_matmul.dA": ("CONTRACT_FP8", "ring"),
+            "weighted_matmul.dB": ("CONTRACT_FP8", "ring"),
+            "weighted_matmul.dg": ("CONTRACT_FP8", "ring")},
+}
+
+
+def _weighted_8bit_cases(fmt, m, d, f, seed, device):
+    from repro_torch.grad import derived_specs
+
+    base = PE.weighted_matmul_spec(m, d, f)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for root in [base, *derived_specs(base).values()]:
+        spec = PE.quantize_spec(root, fmt=fmt)
+        arrays = [_q_operand([spec.extents[i] for i in ax], fmt, gen, device)
+                  for ax in spec.operands.values()]
+        out.append((spec, arrays))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("m,d,f", [
+    (2048, 4096, 12288),  # the fused path's shape
+    (1040, 400, 1008),    # M and N past whole 128-wide tiles
+    (384, 80, 400),       # the CPU emulation's shape
+])
+def test_8bit_weighted_family_runs_its_rings(cuda_device, m, d, f, fmt):
+    """The int8 weighted family on the 8-bit ring (byte planes, the
+    multiplier, the row reduce), bit for bit against ``contract_ref``;
+    the fp8 family on the 8-bit ring and its forward on the bf16 k-scale
+    ring, at the f32 TOL; one launch a spec, none on the upcast body."""
+    launchers = {"CONTRACT": cuda_gen.CONTRACT,
+                 "CONTRACT_INT8": cuda_gen.CONTRACT_INT8,
+                 "CONTRACT_FP8": cuda_gen.CONTRACT_FP8,
+                 "CONTRACT_UPCAST": cuda_gen.CONTRACT_UPCAST}
+    for spec, arrays in _weighted_8bit_cases(fmt, m, d, f, 45, cuda_device):
+        name, body = WEIGHTED_RING_ROUTES[fmt][spec.name]
+        before = {k: v.launches for k, v in launchers.items()}
+        got = codegen.compile(spec, codegen.default_schedule(spec))(*arrays)
+        torch.cuda.synchronize()
+        after = {k: v.launches for k, v in launchers.items()}
+        assert {k: after[k] - before[k] for k in launchers} == {
+            k: int(k == name) for k in launchers}, spec.name
+        assert launchers[name].last_body == body, spec.name
+        want = cuda_gen.contract_ref(
+            spec, *arrays,
+            out_dtype=cuda_gen._default_out_dtype(spec, None,
+                                                  arrays[0].dtype))
+        _assert_quant_close(got, want, fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_8bit_ring_row_reduce_is_deterministic(cuda_device, fmt):
+    """``weighted_matmul.dg`` on the 8-bit ring: five launches give the
+    same bits (per-CTA column sums in a fixed order, then the last CTA of
+    each column block sums the rows in order; its counter is set back to
+    0)."""
+    spec, arrays = _weighted_8bit_cases(fmt, 1040, 400, 1008, 46,
+                                        cuda_device)[3]
+    assert spec.name == "weighted_matmul.dg"
+    kern = codegen.compile(spec, codegen.default_schedule(spec))
+    runs = [kern(*arrays) for _ in range(5)]
+    assert _launcher_of(fmt).last_body == "ring"
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+
+
+@pytest.mark.gpu
+def test_8bit_ring_modes_refused_off_the_ring(cuda_device):
+    """The 8-bit launchers take a multiplier, a row reduce or a k-scale
+    on the ring only: forced onto mma.sync, or on operands the ring
+    cannot read, they raise before launching; a k-scale must be int8."""
+    gen = torch.Generator(device=cuda_device).manual_seed(47)
+    a = _q_operand((1, 128, 256), "int8", gen, cuda_device)
+    b = _q_operand((1, 384, 256), "int8", gen, cuda_device).transpose(1, 2)
+    g = _q_operand((256,), "int8", gen, cuda_device)
+    mul = modes.VecArg(torch.ones(384, dtype=torch.int32,
+                                  device=cuda_device), 2)
+    launcher = cuda_gen.CONTRACT_INT8
+    before = launcher.launches
+    with pytest.raises(ValueError, match="on the ring only"):
+        launcher(a, b, torch.int32, int_acc=True, mul=mul, body="mma")
+    with pytest.raises(ValueError, match="on the ring only"):
+        launcher(a, b.contiguous(), torch.int32, int_acc=True, mul=mul)
+    with pytest.raises(ValueError, match="int8 planes"):
+        launcher(a, b, torch.int32, int_acc=True,
+                 kscale=modes.VecArg(g.int(), 3))
+    assert launcher.launches == before
+    got = launcher(a, b, torch.int32, int_acc=True,
+                   kscale=modes.VecArg(g, 3))
+    assert launcher.last_body == "ring"
+    # float64 holds these sums exactly (below 2**53); the card has no
+    # integer matmul
+    want = ((a[0].double() * g.double()) @ b[0].double()).to(
+        torch.int64).to(torch.int32)
+    assert torch.equal(got[0], want)
 
 
 #: one qwen3-8b head's (QK^T)V without softmax over a 4096-token context

@@ -605,11 +605,22 @@ def test_int32_accumulation_is_exact_past_2_to_the_24():
 def _emulated_8bit(record, name):
     """contract_q8.cu's arithmetic on CPU tensors: operands upcast to the
     accumulator (int64 standing in for int32's exact sums), vectors
-    indexed as (coord // div) % len, the epilogue on the f32 accumulator."""
+    indexed as (coord // div) % len, the epilogue on the f32 accumulator.
+    On the tensor cores an int8 k-scale runs as the ring does: A's byte
+    planes (``modes.int8_planes``), 256 H.B + L.B wrapped to int32; the
+    modes the ring alone takes (k-scale, multiplier, row reduce) are
+    recorded with the body they need, ``name + "/ring"``."""
+    from repro_torch.codegen import modes
 
     def run(a, b, out_dtype, *, int_acc, kscale=None, mul=None,
             epilogue=None, vectors=None, t=None):
-        record.append(name)
+        tc = name != "CONTRACT_UPCAST"
+        fused = kscale is not None or mul is not None or t is not None
+        record.append(name + ("/ring" if tc and fused else ""))
+        if tc and fused:
+            # the ring's rule: both operands K-major as TMA reads them
+            assert modes.q8_ring_refusal(a, b, kscale) is None, (
+                a.stride(), b.stride())
         batch, m, k = a.shape
         n = b.shape[2]
         coords = (torch.arange(batch), torch.arange(m), torch.arange(n),
@@ -621,10 +632,18 @@ def _emulated_8bit(record, name):
             x = vec.tensor
             return x[(coords[vec.axis] // vec.div) % x.numel()].to(dtype)
 
-        af = a.to(wide)
-        if kscale is not None:
-            af = af * at(kscale)[None, None, :]
-        acc = torch.bmm(af, b.to(wide))
+        if tc and kscale is not None:
+            assert kscale.tensor.dtype == torch.int8
+            h, low = modes.int8_planes(a[0], kscale.tensor).to(wide)
+            bw = b[0].to(wide)
+            acc = (256 * (h @ bw) + low @ bw)[None]
+        else:
+            af = a.to(wide)
+            if kscale is not None:
+                af = af * at(kscale)[None, None, :]
+            acc = torch.bmm(af, b.to(wide))
+        if int_acc:  # the kernel's int32 sums wrap
+            acc = acc.to(torch.int32).to(wide)
         if t is not None:
             s = (acc[0] * t.to(wide)).sum(0)
             return (s.to(torch.int32) if int_acc else s).to(out_dtype)
@@ -641,17 +660,55 @@ def _emulated_8bit(record, name):
     return run
 
 
+def _emulated_bf16(record):
+    """contract.cu's bf16 k-scale ring on CPU tensors (the fp8 family's
+    forward over exact bf16 upcasts), recorded as ``"CONTRACT"``."""
+    from test_torch_fused import _emulated_contract
+
+    def run(a, b, out_dtype, **kw):
+        record.append("CONTRACT")
+        assert a.dtype == b.dtype == kw["kscale"].tensor.dtype == (
+            torch.bfloat16)
+        assert cuda_gen.contract_body(a, b, plain=False,
+                                      kscale=kw["kscale"]) == "ring"
+        return _emulated_contract(a, b, out_dtype, **kw)
+
+    return run
+
+
+#: a weighted family the 8-bit rings take: every M >= 64, every K a
+#: multiple of 16 and, for fp8's ring, at least FP8_RING_MIN_K (384)
+RING_WEIGHTED = (384, 80, 400)
+
+
+def _weighted_family(extents):
+    w = PE.weighted_matmul_spec(*extents)
+    return (w, *port_grad.derived_specs(w).values())
+
+
+#: the launcher each of the weighted family's specs takes at
+#: RING_WEIGHTED, by format: the forward's k-scale (int8 byte planes on
+#: the ring; fp8 on contract.cu's bf16 ring), .dA / .dB (multiplier) and
+#: .dg (row reduce) on the 8-bit ring
+RING_ROUTES = {
+    "int8": ("CONTRACT_INT8/ring",) * 4,
+    "fp8": ("CONTRACT",) + ("CONTRACT_FP8/ring",) * 3,
+}
+
+
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_launch_folding_of_8bit_modes_against_an_emulation(monkeypatch, fmt):
     """Every 8-bit route of ``_launch_cuda``: two-operand products of every
-    family on the tensor-core launcher, the weighted family (and its
-    derived specs) and a one-sided reduce on the upcast launcher, with and
-    without the dequant epilogue, give ``contract_ref``'s values."""
+    family on the tensor-core launcher; the weighted family (and its
+    derived specs) on the rings where every operand is 8-bit and the
+    shapes allow it (``RING_ROUTES``), on the upcast launcher at M < 64;
+    a one-sided reduce on the upcast launcher; with and without the
+    dequant epilogue, each gives ``contract_ref``'s values."""
     record = []
     for name in ("CONTRACT_INT8", "CONTRACT_FP8", "CONTRACT_UPCAST"):
         monkeypatch.setattr(cuda_gen, name, _emulated_8bit(record, name))
+    monkeypatch.setattr(cuda_gen, "CONTRACT", _emulated_bf16(record))
     store = STORE[fmt][0]
-    w = PE.weighted_matmul_spec(7, 10, 5)
     cases = [
         (PE.matmul_spec(6, 9, 4), None, "CONTRACT_INT8"),
         (PE.matvec_spec(6, 9), None, "CONTRACT_INT8"),
@@ -670,7 +727,9 @@ def test_launch_folding_of_8bit_modes_against_an_emulation(monkeypatch, fmt):
                             extents={"i": 4, "j": 5, "r": 3, "k": 6}),
          None, "CONTRACT_UPCAST"),
     ] + [(s, None, "CONTRACT_UPCAST")
-         for s in (w, *port_grad.derived_specs(w).values())]
+         for s in _weighted_family((7, 10, 5))] + [
+        (s, None, route) for s, route in zip(
+            _weighted_family(RING_WEIGHTED), RING_ROUTES[fmt])]
     rng = np.random.default_rng(750)
     for base, epi, launcher in cases:
         if fmt == "fp8" and launcher == "CONTRACT_INT8":
@@ -699,6 +758,163 @@ def test_launch_folding_of_8bit_modes_against_an_emulation(monkeypatch, fmt):
             assert torch.equal(got, want), spec.name
         else:
             _close_scaled(got, want, 1e-5, spec.name)
+
+
+# --------------------------------------------------------------------------
+# the weighted family's 8-bit routes: the arithmetic they rest on
+# --------------------------------------------------------------------------
+
+
+def test_int8_planes_split_every_product_exactly():
+    """Over all 256 x 256 int8 pairs (a, g): H and L are int8, 256 H + L
+    == a g; and at a small shape with the extremes in it, 256 H.B + L.B
+    equals (A g).B modulo 2^32, the reference's int32 sums (in numpy)."""
+    from repro_torch.codegen import modes
+
+    vals = np.arange(-128, 128, dtype=np.int8)
+    a = np.repeat(vals[:, None], 256, axis=1)  # a[i, k] = vals[i]
+    planes = modes.int8_planes(torch.from_numpy(a),
+                               torch.from_numpy(vals)).numpy()
+    assert planes.dtype == np.int8 and planes.shape == (2, 256, 256)
+    h, low = planes.astype(np.int64)
+    assert np.array_equal(256 * h + low,
+                          a.astype(np.int64) * vals.astype(np.int64))
+    assert h.min() == -63 and h.max() == 64
+    assert low.min() == -128 and low.max() == 127
+    rng = np.random.default_rng(23)
+    m, k, n = 5, 300, 7
+    A = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    B = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    g = rng.integers(-128, 128, (k,)).astype(np.int8)
+    A[0], B[:, 0], g[:] = -128, -128, np.where(g < 0, -128, 127)
+    h, low = modes.int8_planes(torch.from_numpy(A),
+                               torch.from_numpy(g)).numpy().astype(np.int64)
+    b64 = B.astype(np.int64)
+    got = (256 * (h @ b64) + low @ b64).astype(np.int32)
+    want = ((A.astype(np.int64) * g.astype(np.int64)) @ b64).astype(np.int32)
+    assert np.array_equal(got, want)
+    assert np.abs(want.astype(np.int64)).max() > 2**24  # past f32's ints
+    with pytest.raises(TypeError, match="int8"):
+        modes.int8_planes(torch.from_numpy(A).int(), torch.from_numpy(g))
+
+
+def test_every_e4m3_product_is_exact_in_bf16():
+    """All 2^16 pairs of e4m3 values (NaN aside): the bf16 upcasts are
+    exact, and a * g rounded to bf16 is the exact product (at most 8
+    significant bits, exponents well inside bf16's), so fp8's k-scale on
+    the bf16 ring sums the values the reference's f32 upcasts do."""
+    bits = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    vals = bits.view(torch.float8_e4m3fn).float()
+    vals = vals[~torch.isnan(vals)]
+    assert vals.numel() == 254
+    assert torch.equal(vals.bfloat16().float(), vals)
+    prod = vals[:, None] * vals[None, :]  # exact in f32 (8 x 8 bits)
+    assert torch.equal(prod.bfloat16().float(), prod)
+    scaled = (vals.bfloat16()[:, None] * vals.bfloat16()[None, :]).float()
+    assert torch.equal(scaled, prod)
+
+
+@pytest.mark.parametrize("case", ["int32 g", "M < 64", "mixed operand",
+                                  "fp8 short K", "int8 K not 16-aligned"])
+def test_weighted_family_routes_that_stay_on_the_upcast_body(case):
+    """``eight_bit_route`` keeps the upcast body where the rings cannot
+    take the operands: an int32 g (not 8-bit), M < 64, an int32 operand
+    (a one-sided reduce's sum), an fp8 K below FP8_RING_MIN_K, an int8
+    K whose K-major copy TMA cannot read (rows not 16 bytes apart)."""
+    i8, f8 = torch.int8, torch.float8_e4m3fn
+    m, k, n, dt, g_dt = 128, 64, 96, i8, i8
+    if case == "M < 64":
+        m = 63
+    elif case == "fp8 short K":
+        k, dt, g_dt = 128, f8, f8
+    elif case == "int8 K not 16-aligned":
+        k = 72
+    elif case == "int32 g":
+        g_dt = torch.int32
+    a3 = torch.zeros(1, m, k, dtype=dt)
+    b3 = torch.zeros(n, k, dtype=dt).t()[None]  # K-major
+    if case == "mixed operand":
+        a3 = a3.int()
+    int_acc = dt == i8
+    g = torch.zeros(n, dtype=g_dt)
+    assert cuda_gen.eight_bit_route("vector", a3, b3, g,
+                                    int_acc=int_acc) == "upcast"
+    t = torch.zeros(m, n, dtype=g_dt)
+    assert cuda_gen.eight_bit_route("row_reduce", a3, b3, t,
+                                    int_acc=int_acc) == "upcast"
+    # the k-scale (g on k) of the forward
+    gk = port_codegen.modes.VecArg(torch.zeros(k, dtype=g_dt), 3)
+    assert cuda_gen.eight_bit_route("vector", a3, b3, gk.tensor, gk,
+                                    int_acc=int_acc) == (
+        "bf16" if case == "fp8 short K" else "upcast")
+
+
+@pytest.mark.parametrize("case,why", [
+    ("k-scale", None), ("multiplier", None), ("int32 g", "int8 planes"),
+    ("batch 2", "int8 planes"), ("g on n", "int8 planes"),
+    ("n-major B", "mma body"), ("M < 64", "mma body"),
+])
+def test_q8_ring_refusal_is_the_rule_route_and_launcher_share(case, why):
+    """``modes.q8_ring_refusal``: None where the 8-bit ring takes the
+    product with its k-scale or multiplier, else why not; and
+    ``eight_bit_route`` sends the product to the tensor cores exactly
+    where it finds nothing once B is K-major (the route copies an n-major
+    B; the launcher raises with the same reason)."""
+    modes = port_codegen.modes
+    batch, m, k, n = 1, 128, 64, 96
+    if case == "batch 2":
+        batch = 2
+    elif case == "M < 64":
+        m = 63
+    a = torch.zeros(batch, m, k, dtype=torch.int8)
+    b = torch.zeros(batch, n, k, dtype=torch.int8).transpose(1, 2)
+    if case == "n-major B":
+        b = b.contiguous()
+    g = torch.zeros(n if case == "g on n" else k,
+                    dtype=torch.int32 if case == "int32 g" else torch.int8)
+    kscale = None if case == "multiplier" else modes.VecArg(g, 3)
+    got = modes.q8_ring_refusal(a, b, kscale)
+    if why is None:
+        assert got is None
+    else:
+        assert why in got, got
+    if batch == 1 and case != "g on n":
+        route = cuda_gen.eight_bit_route(
+            "vector", a, b, g, kscale, int_acc=True)
+        assert (route == "tensor cores") == (
+            why is None or case == "n-major B"), route
+
+
+def test_weighted_family_routes_at_the_main_shape():
+    """At the fused path's M = 2048, D = 4096, F = 12288 (meta tensors: no
+    data), every spec of the 8-bit weighted family takes its ring: the
+    vector and row-reduce modes on the 8-bit ring (transposed operands
+    K-major after copies), fp8's forward on the bf16 ring."""
+    m, d, f = 2048, 4096, 12288
+    for fmt, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        int_acc = fmt == "int8"
+        meta = dict(dtype=dt, device="meta")
+        x = torch.empty(m, d, **meta)      # A (i, j)
+        w = torch.empty(d, f, **meta)      # B (j, k)
+        dout = torch.empty(m, f, **meta)   # (i, k)
+        g = torch.empty(d, **meta)
+        gk = port_codegen.modes.VecArg(g, 3)
+        route = lambda *a, **kw: cuda_gen.eight_bit_route(  # noqa: E731
+            *a, int_acc=int_acc, **kw)
+        assert route("vector", x[None], w[None], g, gk) == (
+            "tensor cores" if int_acc else "bf16")
+        # .dA: dout (i, k) @ B^T (k, j), g on n
+        assert route("vector", dout[None], w.t()[None], g) == "tensor cores"
+        # .dB: A^T (j, i) @ dout (i, k), g on m: both need K-major copies
+        assert route("vector", x.t()[None], dout[None], g) == "tensor cores"
+        # .dg: dout @ B^T into (i, j), T = A
+        assert route("row_reduce", dout[None], w.t()[None], x) == (
+            "tensor cores")
+        a_copy = cuda_gen._kmajor(x.t()[None], 2, meta=True)
+        b_copy = cuda_gen._kmajor(dout[None], 1, meta=True)
+        assert a_copy.stride() == (m * d, m, 1)
+        assert b_copy.stride() == (m * f, 1, m)
+        assert cuda_gen._kmajor(dout[None], 2, meta=True).shape == (1, m, f)
 
 
 def test_dequant_epilogue_on_f32_operands_rides_the_multiplier(monkeypatch):
