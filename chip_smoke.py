@@ -166,6 +166,23 @@ raises and the script exits non-zero without the final result line:
     ``scaled_dot_product_attention`` (the library yardstick) timed beside
     the bound; no library attention or GEMM in (a) and (b)'s trace
     (``profile_attn_path.json``);
+9i. hof — the paper's HoF formalism on the card: (a) B1 through
+    ``codegen.compile`` (``default_schedule`` of the drawn blocks) on CUDA
+    f32 tensors at the reference differential suite's six families,
+    three seeds each as its ``_draw_case`` draws them plus one case a
+    family at extent 32: B1 and the HoF interpreter (``evaluate_variant``,
+    numpy, in worker processes meanwhile) against the f64
+    einsum at the f32 TOL (1e-4, 1e-4), ``contraction_to_torch`` on CUDA
+    f64 at 1e-10, one B1 launch a case by the launchers' counters; (b)
+    ``repro_torch.paper``'s Table 1 and Table 2 (b = 16) at n = 384 and
+    Fig 3 at n = 1024, b = 64 through ``execute`` and ``lower``, Table 1
+    lowered at n = 1024, in f64: every variant equal to ``torch.matmul``
+    at rtol 1e-8, its median event-timed ms of 3 after a warm-up, its
+    ``cpu_cost`` and einsum calls, the Spearman values and ``torch.matmul``
+    f64's ms beside the f64 bound (one ``[hof]`` line a table); (c)
+    ``core.autotune.tune`` of a 256^3 matmul with j split by 16 or 64,
+    measured on CUDA f64 tensors: the winner correct, a second call a hit
+    in ``$CHIP_SMOKE_OUT/hof_tune.json`` with the same ranking;
 10. train — the dense training path: ``launch.train``'s ``parse_args``,
     ``run_from_args`` and ``train()`` on qwen3-8b at full width (d_model
     4096, 32 heads, 8 KV heads, d_ff 12288, vocab 151936, bf16) cut to 8
@@ -3614,6 +3631,251 @@ def phase_attn_path():
                 backward_b2_ms=b2_c, profile_busy_ms=busy, profile_b2_ms=b2_ms)
 
 
+# ---------------------------------------------------------------------------
+# hof: the paper's HoF formalism (core.interp / lower / execute / autotune
+# and repro_torch.paper) on the card
+# ---------------------------------------------------------------------------
+
+#: the differential families of the reference's fuzz suite: spec builder
+#: name -> (arity, seed offset), with its extent pool and f32 tolerance
+HOF_FAMILIES = {
+    "matmul": ("matmul_spec", 3, 1000),
+    "matvec": ("matvec_spec", 2, 2000),
+    "weighted_matmul": ("weighted_matmul_spec", 3, 3000),
+    "batched_matmul": ("batched_matmul_spec", 4, 4000),
+    "transposed_matmul": ("transposed_matmul_spec", 3, 5000),
+    "chain_matmul": ("chain_matmul_spec", 4, 6000),
+}
+HOF_EXTENTS = (2, 3, 4, 6, 8)
+HOF_SEEDS = (0, 1, 2)
+#: one more case a family with every extent at this size
+HOF_WIDE = 32
+HOF_TOL = (1e-4, 1e-4)
+#: the lowered form in f64 against the f64 einsum
+HOF_LOWER_TOL = 1e-10
+#: Table 1 and Table 2 at the reference scripts' size, the lowered Table 1
+#: also at the paper's; Fig 3 at the paper's size and block
+HOF_N, HOF_PAPER_N, HOF_B2, HOF_FIG3 = 384, 1024, 16, (1024, 64)
+HOF_TUNE_N, HOF_TUNE_SPLITS = 256, {"j": [16, 64]}
+#: worker processes for the interpreter's cases (the card's host has 8
+#: cores; the two 4-index cases at extent 32 take about 10 s each)
+HOF_WORKERS = 6
+
+
+def _hof_case(family, seed, wide=False):
+    """(spec, blocks) as the reference's ``_draw_case`` draws them: extents
+    from ``HOF_EXTENTS`` (all ``HOF_WIDE`` for the wide case), the loop
+    order shuffled from the same stream (kept for the stream's sake: the
+    schedule here is ``default_schedule``'s), blocks from divisors."""
+    import numpy as np
+
+    from repro_torch.core import enumerate as en
+
+    builder, arity, offset = HOF_FAMILIES[family]
+    rng = np.random.default_rng(offset + seed)
+    extents = [int(rng.choice(HOF_EXTENTS)) for _ in range(arity)]
+    if wide:
+        extents = [HOF_WIDE] * arity
+    spec = getattr(en, builder)(*extents)
+    order = list(spec.indices)
+    rng.shuffle(order)
+    blocks = {i: int(rng.choice([d for d in range(1, spec.extents[i] + 1)
+                                 if spec.extents[i] % d == 0]))
+              for i in spec.indices}
+    return spec, blocks
+
+
+def _hof_arrays(spec, seed):
+    """The reference's ``reference_arrays``: standard normal f32 operands
+    in ``spec.operands`` order from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {name: rng.standard_normal(
+                tuple(spec.extents[i] for i in axes)).astype(np.float32)
+            for name, axes in spec.operands.items()}
+
+
+def _hof_interpret(case):
+    """``evaluate_variant`` of one case (the HoF interpreter, numpy on the
+    host); run in worker processes, so it imports the port itself."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    from repro_torch.core.enumerate import evaluate_variant
+
+    family, seed, wide = case
+    spec, _ = _hof_case(family, seed, wide)
+    return evaluate_variant(spec, spec.indices, _hof_arrays(spec, seed))
+
+
+def _hof_differential(cases, interpreted):
+    """(a): B1 through ``codegen.compile`` on CUDA f32 and the interpreter
+    (``interpreted``: case -> the future of its result) against the f64
+    einsum at the reference's f32 TOL, ``contraction_to_torch`` on CUDA
+    f64 at ``HOF_LOWER_TOL``; each case one B1 launch by its launcher's
+    count."""
+    import numpy as np
+    import torch
+
+    from repro_torch import codegen
+    from repro_torch.core.enumerate import einsum_formula
+    from repro_torch.core.lower import contraction_to_torch
+
+    rtol, atol = HOF_TOL
+    rows = []
+    for case in cases:
+        family, seed, wide = case
+        spec, blocks = _hof_case(family, seed, wide)
+        arrays = _hof_arrays(spec, seed)
+        ref = np.einsum(einsum_formula(spec),
+                        *(a.astype(np.float64) for a in arrays.values()))
+        what = f"{family} seed {seed} extents {spec.extents} blocks {blocks}"
+        kern = codegen.compile(spec, codegen.default_schedule(spec, blocks))
+        cuda = [torch.as_tensor(a).cuda() for a in arrays.values()]
+        _zero_new_counts()
+        out = kern(*cuda)
+        torch.cuda.synchronize()
+        counts = _new_counts()
+        launcher = "contract_chain" if family == "chain_matmul" else "contract"
+        want = {k: int(k == launcher) for k in counts}
+        if counts != want:
+            raise AssertionError(f"hof {what}: launches {counts}, expected "
+                                 f"{want}")
+        got = out.double().cpu().numpy()
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
+                                   err_msg=f"hof: B1 != einsum for {what}")
+        lowered = contraction_to_torch(spec, spec.indices)(
+            *(c.double() for c in cuda)).cpu().numpy()
+        np.testing.assert_allclose(
+            lowered, ref, rtol=HOF_LOWER_TOL, atol=HOF_LOWER_TOL,
+            err_msg=f"hof: contraction_to_torch != einsum for {what}")
+        interp = np.asarray(interpreted[case].result(), np.float64)
+        np.testing.assert_allclose(
+            interp, ref, rtol=rtol, atol=atol,
+            err_msg=f"hof: interpreter != einsum for {what}")
+        rows.append(dict(case=what, launcher=launcher,
+                         b1_err=float(np.abs(got - ref).max()),
+                         interp_err=float(np.abs(interp - ref).max()),
+                         lower_err=float(np.abs(lowered - ref).max())))
+    return rows
+
+
+def _hof_line(name, result):
+    """One ``[hof]`` line of a table run: each variant's ms, ``cpu_cost``
+    and einsum calls, the Spearman values, ``torch.matmul`` f64's ms and
+    the f64 bound."""
+    rows = " ".join(f"{r['label']}={r['s'] * 1e3:.3f}ms/"
+                    f"{r['cost']:.4g}/{r['einsums']}" for r in result["rows"])
+    rhos = " ".join(f"{k}={result[k]:.2f}" for k in ("rho_paper", "rho_model")
+                    if k in result)
+    print(f"[hof] {name} {result['executor']} n={result['n']}: "
+          f"variant=ms/cpu_cost/einsums {rows}; {rhos}; torch.matmul f64 "
+          f"{result['matmul_s'] * 1e3:.4f} ms, bound "
+          f"{result['bound_s'] * 1e3:.4f} ms", flush=True)
+
+
+def phase_hof():
+    """The paper's HoF formalism on the card.  (a) B1 against the
+    interpreter: the reference's six differential families, three seeds
+    each as its fuzz suite draws them plus one case a family at extent 32,
+    compiled with ``default_schedule`` and run on CUDA f32 tensors; B1 and
+    ``evaluate_variant`` (on the host, in worker processes meanwhile; the
+    pool is closed before (b)) against the f64 einsum at the f32 TOL
+    (1e-4, 1e-4), ``contraction_to_torch`` on CUDA f64 at 1e-10, one B1
+    launch a case.
+    (b) The paper's tables in f64 through ``repro_torch.paper``: Table 1
+    and Table 2 (b = 16) at n = 384 through ``execute`` and ``lower``,
+    Table 1 lowered at n = 1024, Fig 3 at n = 1024, b = 64 through both;
+    each variant against ``torch.matmul`` at rtol 1e-8 and timed (median
+    of 3 event-timed runs after a warm-up).  (c) The tuner:
+    ``tune(matmul_spec(256, 256, 256), j in (16, 64), keep=4)`` measured
+    on CUDA f64 tensors, its winner correct, and a second call through an
+    ``AutotuneCache`` under ``OUT`` a hit with the same ranking."""
+    import contextlib
+    import io
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.codegen import AutotuneCache
+    from repro_torch.core.autotune import tune
+    from repro_torch.core.enumerate import matmul_spec
+    from repro_torch.core.execute import execute_variant
+    from repro_torch.paper import fig3, table1, table2
+
+    cases = [(f, s, False) for f in HOF_FAMILIES for s in HOF_SEEDS]
+    cases += [(f, 0, True) for f in HOF_FAMILIES]
+    # the interpreter's cases in worker processes, the slowest (extent
+    # 32) first, while (a) runs on the card; the pool is closed before
+    # (b) and (c), whose host-bound timings it would disturb
+    with concurrent.futures.ProcessPoolExecutor(
+            HOF_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending = {case: pool.submit(_hof_interpret, case)
+                   for case in sorted(cases, key=lambda c: not c[2])}
+        diff = _hof_differential(cases, pending)
+    worst = {k: max(r[k] for r in diff)
+             for k in ("b1_err", "interp_err", "lower_err")}
+    print(f"[hof] differential: {len(diff)} cases (6 families x "
+          f"{len(HOF_SEEDS)} seeds + 6 at extent {HOF_WIDE}), one B1 launch "
+          f"each; max abs err vs the f64 einsum: B1 f32 {worst['b1_err']:.3g}, "
+          f"interpreter f32 {worst['interp_err']:.3g}, contraction_to_torch "
+          f"f64 {worst['lower_err']:.3g}", flush=True)
+
+    # (b) the paper's tables; their CSV rows go to the report
+    csv = io.StringIO()
+    tables = {}
+    with contextlib.redirect_stdout(csv):
+        for executor in ("execute", "lower"):
+            tables[f"table1.{executor}"] = table1.run(HOF_N, executor=executor)
+            tables[f"table2.{executor}"] = table2.run(HOF_N, HOF_B2,
+                                                      executor=executor)
+            tables[f"fig3.{executor}"] = fig3.run(*HOF_FIG3,
+                                                  executor=executor)
+        tables["table1.lower.paper_n"] = table1.run(HOF_PAPER_N,
+                                                    executor="lower")
+    for name, result in tables.items():
+        _hof_line(name.split(".")[0], result)
+
+    # (c) the variant tuner, measured on the card, then from its cache
+    dev = torch.device("cuda")
+    n = HOF_TUNE_N
+    spec = matmul_spec(n, n, n)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    arrays = {k: torch.randn(n, n, generator=gen, device=dev,
+                             dtype=torch.float64) for k in ("A", "B")}
+    cache = AutotuneCache(os.path.join(OUT, "hof_tune.json"))
+    cache.clear()
+    kw = dict(subdiv_candidates=HOF_TUNE_SPLITS, keep=4, measure_with=arrays,
+              cache=cache)
+    first = tune(spec, **kw)
+    second = tune(spec, **kw)
+    win = first[0]
+    if win.measured_s is None:
+        raise AssertionError("hof: the tuner's winner was not measured")
+    got = execute_variant(win.spec, win.order, arrays)
+    if not torch.allclose(got, arrays["A"] @ arrays["B"], rtol=1e-8,
+                          atol=1e-8):
+        raise AssertionError(f"hof: the tuner's winner {win.order} is wrong")
+    ranking = lambda tvs: [(tv.order, tv.spec.split_chain(), tv.measured_s)  # noqa: E731
+                           for tv in tvs]
+    if (cache.hits, cache.misses) != (1, 1) or ranking(second) != ranking(first):
+        raise AssertionError(f"hof: the tuner's second call did not hit "
+                             f"(hits {cache.hits}, misses {cache.misses}) or "
+                             f"ranked otherwise")
+    tuned = [dict(order="/".join(tv.order), splits=tv.spec.split_chain(),
+                  cpu_cost=tv.predicted_cost, ms=tv.measured_s * 1e3)
+             for tv in first]
+    print(f"[hof] tune matmul {n}^3, j in {HOF_TUNE_SPLITS['j']}: "
+          + " ".join(f"{t['order']}{t['splits']}={t['ms']:.3f}ms/"
+                     f"{t['cpu_cost']:.4g}" for t in tuned)
+          + "; the second call hit the cache with the same ranking",
+          flush=True)
+    _free()
+    return dict(differential=diff, worst=worst, tables=tables, tune=tuned,
+                csv=csv.getvalue().splitlines())
+
+
 def attention_entry(small, path):
     """The ``kernels`` entry of B2: the sums over the attn-path's four timed
     forwards (a, b, d, e), its launches over that path's run (a-e), the
@@ -3840,6 +4102,9 @@ def main() -> int:
     # this slice's path: ops.attention forward and backward through B2
     attn_small = _phase("attn-small", phase_attn_small)
     attn = _phase("attn-path", phase_attn_path)
+    # the paper's HoF formalism: B1 against the interpreter, the paper's
+    # tables through both executors, the variant tuner
+    hof = _phase("hof", phase_hof)
 
     # the training paths of the earlier slice: dense, then MoE
     train, cfg, run, params, state = _phase(
@@ -3907,6 +4172,7 @@ def main() -> int:
                    "b1_quant": quant, "quant_path": quant_path,
                    "chain": chain, "quant_small": quant_small,
                    "attn_small": attn_small, "attn_path": attn,
+                   "hof": hof,
                    "serve_int8": serve_int8,
                    "takes": TAKEN, "seconds": SECONDS, **line}, f, indent=1)
     # the takes each profiled check needed for a whole trace

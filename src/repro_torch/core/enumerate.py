@@ -18,8 +18,9 @@ the subdivision structure").
 This is the port's copy of the reference's spec layer, pure Python and
 numpy: the same specs, the same index names and the same SJT walk, so the
 schedules, plans and cache keys the port derives from them equal the
-reference's (``tests/test_torch_foundation.py``).  The variant
-interpreter (``evaluate_variant``) waits for the port of ``core.interp``.
+reference's (``tests/test_torch_foundation.py``).  ``evaluate_variant``
+interprets a variant with the port's copy of the reference interpreter
+(``core.interp``), the oracle the lowered and executed forms are held to.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import dataclasses
 import math
 from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
+import numpy as np
 
 from . import expr as E
 from .expr import App, Flip, Lam, MapN, Prim, RNZ, Subdiv, Var, fresh
@@ -614,3 +616,20 @@ def paper_fig3_variants(n: int, m: int, b: int):
         ("2b", ("io", "j", "ii"), s2),
         ("2c", ("io", "ii", "j"), s2),
     ]
+
+
+def evaluate_variant(
+    spec: ContractionSpec, order: Sequence[str], arrays: Dict[str, np.ndarray]
+) -> np.ndarray:
+    """Interpret the variant and canonicalize the output to spec.output order."""
+    from .interp import run
+
+    out = np.asarray(run(nest_to_expr(spec, order), **arrays))
+    produced = output_axis_order(spec, order)
+    perm = tuple(produced.index(i) for i in spec.output)
+    out = np.transpose(out, perm)
+    # merge split output axes back (outer,inner are adjacent in spec.output)
+    root_shape = tuple(
+        spec.root().extents[i] for i in spec.root().output
+    )
+    return out.reshape(root_shape)

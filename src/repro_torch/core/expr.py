@@ -339,3 +339,14 @@ def ncomp(i: int, f: Expr, g: Expr, n: int, m: int) -> Lam:
         inner if k == i else Var(a_params[k]) for k in range(n)
     )
     return Lam(tuple(params), App(f, args))
+
+
+def arity(f: Expr) -> int | None:
+    """Syntactic arity of a function expression, if known."""
+    from .interp import PRIMS  # local import to avoid cycle
+
+    if isinstance(f, Lam):
+        return len(f.params)
+    if isinstance(f, Prim):
+        return PRIMS[f.name].arity
+    return None

@@ -2332,3 +2332,73 @@ def test_ring_bodies_launch_from_a_fresh_thread(cuda_device):
     assert not errors, errors
     for name in calls:
         assert torch.equal(got[name], want[name]), name
+
+
+# ---------------------------------------------------------------------------
+# the HoF formalism on the card: the lowered and executed variants and the
+# variant tuner, each against the same computation on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _f64_operands(spec, seed):
+    g = torch.Generator().manual_seed(seed)
+    root = spec.root()
+    return {n: torch.randn(tuple(root.extents[i] for i in ax), generator=g,
+                           dtype=torch.float64)
+            for n, ax in root.operands.items()}
+
+
+HOF_SPECS = {
+    "table1": lambda: PE.matmul_spec(48, 32, 40),
+    "table2": lambda: PE.matmul_spec(48, 32, 40).subdivide("j", 8),
+    "weighted": lambda: PE.weighted_matmul_spec(24, 16, 32),
+    "chain": lambda: PE.chain_matmul_spec(8, 12, 6, 10),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(HOF_SPECS))
+def test_hof_variants_on_the_card_match_the_cpu(cuda_device, case):
+    from repro_torch.core.execute import execute_variant
+    from repro_torch.core.lower import contraction_to_torch
+
+    spec = HOF_SPECS[case]()
+    cpu = _f64_operands(spec, 3)
+    card = {n: t.to(cuda_device) for n, t in cpu.items()}
+    names = list(spec.root().operands)
+    for order in PE.variant_orders(spec)[:8]:
+        for run in (
+            lambda a: execute_variant(spec, order, a),
+            lambda a: contraction_to_torch(spec, order)(*(a[n] for n in names)),
+        ):
+            want = run(cpu)
+            got = run(card)
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-10,
+                                       atol=1e-10)
+
+
+@pytest.mark.gpu
+def test_tune_measures_on_the_card(cuda_device, tmp_path):
+    from repro_torch.core.autotune import tune
+    from repro_torch.core.execute import execute_variant
+
+    spec = PE.matmul_spec(64, 64, 64)
+    cpu = _f64_operands(spec, 5)
+    card = {n: t.to(cuda_device) for n, t in cpu.items()}
+    cache = codegen.AutotuneCache(str(tmp_path / "tune.json"))
+    kw = dict(subdiv_candidates={"j": [16]}, keep=3, repeats=1, cache=cache)
+    tuned = tune(spec, measure_with=card, **kw)
+    on_cpu = tune(spec, measure_with=cpu, **{**kw, "cache": None})
+    assert all(tv.measured_s is not None for tv in tuned)
+    # the same survivors, measured on each device
+    assert sorted((tv.order, tv.spec.split_chain()) for tv in tuned) == sorted(
+        (tv.order, tv.spec.split_chain()) for tv in on_cpu)
+    win = tuned[0]
+    torch.testing.assert_close(
+        execute_variant(win.spec, win.order, card).cpu(),
+        cpu["A"] @ cpu["B"], rtol=1e-10, atol=1e-10)
+    again = tune(spec, measure_with=card, **kw)
+    assert cache.hits == 1
+    assert [(tv.order, tv.measured_s) for tv in again] == [
+        (tv.order, tv.measured_s) for tv in tuned]
