@@ -236,6 +236,17 @@ raises and the script exits non-zero without the final result line:
     to the int8 leaves' bytes from their shapes, request 0's prefill
     again with finite logits giving the engine's first token; prefill
     ms, decode tok/s, p50 and peak memory;
+16c. search — the variant search on the card under its own plan DB: the
+    sweep CLI's ``run`` on qwen3-8b's four prefill projection shapes in
+    bf16 with their backward specs (twelve card ladders of B1 tile plans,
+    every plan checked and launched once a timed call on its plan; a
+    winner other than the launcher's heuristic re-timed against it and
+    no slower beyond the timings' spread; winner's and heuristic's event
+    and device ms, the model's Spearman value), then phase 13's serving
+    run with ``--search-gemms`` (every launch on its ladder's plan, by a
+    tally of the launcher's calls, 7 x 36 x (prefills + decode steps) of
+    them), a restart that hits every ladder in the plan DB, and
+    ``tune_schedule(measure_with=)`` on CUDA operands;
 17. the phases' seconds, the ``kernels`` JSON line (contract, grouped,
     grouped_dw, matmul, fused_dense_act, fused_rnz, contract_int8,
     contract_fp8, contract_upcast, contract_chain, attention), then the
@@ -3279,6 +3290,359 @@ def phase_serve_int8():
 
 
 # --------------------------------------------------------------------------
+# slice 15: the variant search, measured tuning, B1 tiles by the search
+# --------------------------------------------------------------------------
+
+#: the four distinct projection shapes of a 512-token qwen3-8b prefill, (M,
+#: K, N): q and o, k and v, gate and up, down (the launcher folds the
+#: prompt to M = 512: the serving run's launches show it)
+SEARCH_SHAPES = ((512, 4096, 4096), (512, 4096, 1024), (512, 4096, 12288),
+                 (512, 12288, 4096))
+#: card plans a ladder measures beside the launcher's heuristic one
+SEARCH_TOPK = 4
+#: (M, K, N) of the measured tuning check: a 384-token prompt's k and v
+#: projections, a shape no ladder of the sweep or the serving run holds
+TUNE_SHAPE = (384, 4096, 1024)
+#: ladders the serving run sweeps: 4 prefill shapes with their .dA and .dB,
+#: and 4 decode shapes at M = lanes
+SEARCH_LADDERS = 4 * 3 + 4
+
+
+def _rank_rho(a, b):
+    """Spearman's rho with tied values at their average rank (a model
+    that gives two plans one score ranks neither above the other)."""
+    import numpy as np
+
+    def ranks(x):
+        x = np.asarray(x, dtype=float)
+        order = np.argsort(x, kind="stable")
+        r = np.empty(len(x))
+        r[order] = np.arange(len(x), dtype=float)
+        for v in np.unique(x):
+            r[x == v] = r[x == v].mean()
+        return r - r.mean()
+
+    ra, rb = ranks(a), ranks(b)
+    denom = float(np.sqrt((ra ** 2).sum() * (rb ** 2).sum()))
+    return float((ra * rb).sum() / denom) if denom else float("nan")
+
+
+def _ladder_line(label, spec, res, dev):
+    """One ``[search]`` line of a card ladder."""
+    spearman = _rank_rho
+    s = res.stats
+    rungs = res.ranked
+    rho = spearman([p.score for p in rungs], [p.measured_s for p in rungs])
+    base, best = res.baseline(), res.best
+    ext = "x".join(str(spec.extents[i]) for i in spec.indices)
+    plans = " ".join(f"{p.card.tile_n}x{p.card.splits}="
+                     f"{p.measured_s * 1e3:.4f}ms/{p.score * 1e3:.4f}ms"
+                     for p in rungs)
+    gain = base.measured_s / best.measured_s
+    retimed = ("" if dev["retimed"] is None else
+               "; re-timed winner %.4f ms, heuristic %.4f ms, spread %.4f ms"
+               % dev["retimed"])
+    print(f"[search] {spec.name} {ext} [{label}] {best.card.body}: "
+          f"considered {s.considered}, cut by the bound {s.pruned_bound}, "
+          f"by the beam {s.pruned_beam}, measured {s.measured}; winner "
+          f"{best.card.tile_n}x{best.card.splits} {best.measured_s * 1e3:.4f}"
+          f" ms, device {dev['winner']:.4f} ms; heuristic "
+          f"{base.card.tile_n}x{base.card.splits} "
+          f"{base.measured_s * 1e3:.4f} ms, device {dev['heuristic']:.4f} ms"
+          f" ({gain:.3f}x){retimed}; plan=measured/predicted {plans}; "
+          f"Spearman {rho:.2f}", flush=True)
+    return dict(spec=spec.name, extents=ext, label=label,
+                body=best.card.body, stats=s.as_dict(),
+                winner=tuple(best.card), winner_ms=best.measured_s * 1e3,
+                winner_device_ms=dev["winner"], heuristic=tuple(base.card),
+                heuristic_ms=base.measured_s * 1e3,
+                heuristic_device_ms=dev["heuristic"], rho=rho,
+                retimed=dev["retimed"],
+                rungs=[dict(plan=tuple(p.card), ms=p.measured_s * 1e3,
+                            predicted_ms=p.score * 1e3, err=p.max_err)
+                       for p in rungs])
+
+
+def phase_search(serve13):
+    """The variant search on the card, under its own plan DB
+    (``$CHIP_SMOKE_OUT/plans_search.json``; ``REPRO_PLAN_DB`` restored
+    after).  (a) ``python -m repro_torch.search.sweep`` (its ``run``) on
+    ``matmul`` at ``SEARCH_SHAPES`` in bf16 with ``--with-grads``: twelve
+    card ladders, each the launcher's heuristic plan and the top
+    ``SEARCH_TOPK`` plans of ``card_candidates`` by ``card_plan_cost``,
+    every one checked against the f64 oracle at the bf16 TOL with one B1
+    launch a timed call on its plan (``search.measure``); where the
+    winner is not the heuristic's plan, the two re-timed by
+    ``measure_schedules`` and the winner no slower than the heuristic by
+    more than the larger of their spreads (interquartile ranges); for
+    each ladder the winner's and the heuristic's device ms on the
+    profiler, and the Spearman value of the model's prediction against
+    the measurement.  (b) ``serve.main`` with
+    phase 13's flags and ``--search-gemms`` of those shapes: the prefill
+    runner ladders them with their backward specs, the decode runner at M
+    = lanes (the narrow body); every request complete with tokens in the
+    vocab, B1 launched 7 x 36 x (prefills + decode steps) times while
+    serving, each launch on the plan its shape's phase ladder names (the
+    heuristic's where no ladder holds the shape), by a tally of
+    ``CONTRACT``'s calls by shape and ``last_card``;
+    then a second engine start on the same weights finds every ladder in
+    the plan DB (``plandb.hit``) and measures and launches nothing.
+    Prefill ms and decode tok/s beside phase 13's.  (c)
+    ``codegen.tune_schedule(measure_with=)`` on CUDA bf16 operands at
+    ``TUNE_SHAPE`` (no ladder of (a) or (b) holds it): the search
+    measures its card ladder into the plan DB, the stored entry is
+    measured with the ladder winner's time and plan, and a second call is
+    a hit."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.codegen import (CONTRACT, AutotuneCache, cached_compile,
+                                     tune_schedule)
+    from repro_torch.codegen.cuda_gen import (CardPlan, ContractLauncher,
+                                              _sm_count, card_of,
+                                              launch_plan)
+    from repro_torch.core.enumerate import matmul_spec
+    from repro_torch.launch import serve
+    from repro_torch.launch.serving import ContinuousEngine
+    from repro_torch.search import (PlanDB, measure_schedules,
+                                    reference_arrays, sweep)
+
+    path = os.path.join(OUT, "plans_search.json")
+    for leftover in (path, path + ".lock"):
+        if os.path.exists(leftover):
+            os.remove(leftover)
+    old = os.environ.get("REPRO_PLAN_DB")
+    os.environ["REPRO_PLAN_DB"] = path
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    shapes = ";".join(",".join(map(str, s)) for s in SEARCH_SHAPES)
+    try:
+        # (a) the sweep
+        t0 = time.perf_counter()
+        rc, results = sweep.run(["--spec", "matmul", "--shapes", shapes,
+                                 "--dtype", "bfloat16", "--with-grads",
+                                 "--topk", str(SEARCH_TOPK),
+                                 "--device", "cuda"])
+        if rc or len(results) != 3 * len(SEARCH_SHAPES):
+            raise AssertionError(f"search: the sweep returned {rc} over "
+                                 f"{len(results)} ladders")
+        ladders = []
+        for label, spec, _, res in results:
+            cards = [p.card for p in res.ranked]
+            base = res.baseline()
+            if None in cards or len(set(cards)) != len(cards) or base is None:
+                raise AssertionError(f"search {spec.name}: plans {cards}: "
+                                     f"each rung must be a distinct plan, "
+                                     f"the heuristic's among them")
+            if any(p.measured_s is None or not p.max_err <= 5e-2
+                   for p in res.ranked):
+                raise AssertionError(f"search {spec.name}: a rung unmeasured "
+                                     f"or off the bf16 TOL")
+            arrays = reference_arrays(spec, "bfloat16")
+            args = [torch.from_numpy(arrays[n]).cuda().to(torch.bfloat16)
+                    for n in spec.operands]
+            dev = {"retimed": None}
+            if res.best.card != base.card:
+                # the winner won one timing: it must not lose a second
+                again = measure_schedules(
+                    spec, [res.best.schedule, base.schedule],
+                    arrays=dict(zip(spec.operands, args)),
+                    dtype=torch.bfloat16, cards=[res.best.card, base.card])
+                slack = max(r.spread_s for r in again)
+                dev["retimed"] = (again[0].seconds * 1e3,
+                                  again[1].seconds * 1e3, slack * 1e3)
+                if again[0].seconds > again[1].seconds + slack:
+                    raise AssertionError(
+                        f"search {spec.name}: the winner "
+                        f"{tuple(res.best.card)} re-timed at "
+                        f"{dev['retimed'][0]:.4f} ms, the heuristic "
+                        f"{tuple(base.card)} at {dev['retimed'][1]:.4f} ms, "
+                        f"spread {dev['retimed'][2]:.4f} ms")
+            for tag, rung in (("winner", res.best), ("heuristic", base)):
+                kern = cached_compile(spec, rung.schedule, card=rung.card)
+                dev[tag] = _kernel_ms(lambda k=kern: k(*args), flush,
+                                      "contract")[0]
+            ladders.append(_ladder_line(label, spec, res, dev))
+            del args
+        sweep_s = time.perf_counter() - t0
+
+        # (b) serving with the search: B1's launches while serving, by
+        # ((batch, M, N, K), the CardPlan each ran)
+        snap, tally = {}, collections.Counter()
+        engine_run = ContinuousEngine.run
+        launcher_call = ContractLauncher.__call__
+
+        def tallied_call(self, a, b, *args, **kw):
+            n0 = self.launches
+            out = launcher_call(self, a, b, *args, **kw)
+            if self is CONTRACT and self.launches > n0:
+                tally[((a.shape[0], a.shape[1], b.shape[2], a.shape[2]),
+                       self.last_card)] += 1
+            return out
+
+        def run_after_search(self, *a, **kw):
+            torch.cuda.synchronize()
+            snap.update(launches=CONTRACT.launches)
+            ContractLauncher.__call__ = tallied_call
+            return engine_run(self, *a, **kw)
+
+        ContinuousEngine.run = run_after_search
+        t0 = time.perf_counter()
+        try:
+            stats, trace, engine = serve.main(SERVE_ARGS + [
+                "--search-gemms", shapes])
+        finally:
+            ContinuousEngine.run = engine_run
+            ContractLauncher.__call__ = launcher_call
+        serve_s = time.perf_counter() - t0
+        cfg = engine.cfg
+        for r in trace:
+            if len(r.out_tokens) != r.max_new or r.state != "finished":
+                raise AssertionError(f"search serve: request {r.rid} ended "
+                                     f"with {len(r.out_tokens)}/{r.max_new}")
+            if not all(0 <= t < cfg.vocab for t in r.out_tokens):
+                raise AssertionError(f"search serve: request {r.rid}: token "
+                                     f"outside the vocab")
+        launches = CONTRACT.launches - snap["launches"]
+        want = 7 * cfg.n_layers * (stats["prefills"] + stats["decode_steps"])
+        if launches != want or stats["kernel_launches"] != want:
+            raise AssertionError(f"search serve: {launches} B1 launches, "
+                                 f"expected {want}")
+        db = PlanDB(path)
+        sms = _sm_count(torch.device("cuda"))
+        by_source = collections.Counter()
+        if sum(tally.values()) != launches:
+            raise AssertionError(f"search serve: {sum(tally.values())} "
+                                 f"launches tallied of {launches}")
+        for ((batch, m, n, k), card), count in tally.items():
+            phase = ("prefill" if (m, k, n) in SEARCH_SHAPES else
+                     "decode" if m == engine.lanes and (
+                         SEARCH_SHAPES[0][0], k, n) in SEARCH_SHAPES
+                     else None)
+            if phase:
+                _, rung = db.best_entry(matmul_spec(m, k, n), torch.bfloat16,
+                                        phase=phase)
+                plan = CardPlan.from_dict(rung.get("card"))
+            else:
+                plan = card_of(card.body, launch_plan(
+                    card.body, None, batch, m, n, k, sms)[0])
+            if card != plan:
+                raise AssertionError(f"search serve: (M, N, K) = {(m, n, k)}"
+                                     f" launched {card}, its {phase or 'no'}"
+                                     f" ladder names {plan}")
+            by_source[f"{phase or 'heuristic'} M={m} {card.body} "
+                      f"{card.tile_n}x{card.splits}"] += count
+        served = []
+        for phase, m in (("prefill", SEARCH_SHAPES[0][0]),
+                         ("decode", engine.lanes)):
+            for _, k, n in SEARCH_SHAPES:
+                rungs = db.get(matmul_spec(m, k, n), torch.bfloat16,
+                               phase=phase)["ranked"]
+                base = next(r for r in rungs if r["source"] == "default")
+                row = dict(phase=phase, shape=(m, k, n),
+                           winner=rungs[0]["card"],
+                           winner_ms=rungs[0]["measured_s"] * 1e3,
+                           heuristic=base["card"],
+                           heuristic_ms=base["measured_s"] * 1e3)
+                served.append(row)
+                print(f"[search] {phase} ladder {m}x{k}x{n}: "
+                      + " ".join(f"{r['card']['tile_n']}x"
+                                 f"{r['card']['splits']}="
+                                 f"{r['measured_s'] * 1e3:.4f}ms"
+                                 + ("*" if r is base else "")
+                                 for r in rungs)
+                      + f" (* the heuristic; winner "
+                      f"{row['heuristic_ms'] / row['winner_ms']:.3f}x)",
+                      flush=True)
+        if not any(key.startswith(f"prefill M={SEARCH_SHAPES[0][0]} ")
+                   for key in by_source):
+            raise AssertionError(f"search serve: no launch at M = "
+                                 f"{SEARCH_SHAPES[0][0]}: {dict(by_source)}")
+        laddered = sum(n for key, n in by_source.items()
+                       if not key.startswith("heuristic"))
+        if (stats["card_plans_applied"], stats["card_plans_skipped"]) != (
+                laddered, 0):
+            raise AssertionError(
+                f"search serve: plans applied {stats['card_plans_applied']}"
+                f", skipped {stats['card_plans_skipped']}; {laddered} "
+                f"launches ran on a ladder's plan")
+        print(f"[search] serve --search-gemms: {launches} B1 launches = 7 x "
+              f"{cfg.n_layers} x ({stats['prefills']} prefills + "
+              f"{stats['decode_steps']} decode steps), each on its ladder's "
+              f"plan (ops.card_plan.applied {stats['card_plans_applied']}, "
+              f".skipped {stats['card_plans_skipped']}): "
+              f"{json.dumps(dict(sorted(by_source.items())))}; prefill"
+              f" {stats['prefill_s'] * 1e3:.1f} ms (phase 13: "
+              f"{serve13['prefill_s'] * 1e3:.1f}), decode "
+              f"{stats['tok_per_s']:.2f} tok/s (phase 13: "
+              f"{serve13['tok_per_s']:.2f}); wall with the sweep "
+              f"{serve_s:.1f} s", flush=True)
+        obs.metrics_reset()
+        n0 = CONTRACT.launches
+        t0 = time.perf_counter()
+        again = ContinuousEngine(
+            cfg, lanes=engine.lanes, page_size=engine.page_size,
+            n_pages=1 + engine.lanes * engine.max_pages,
+            max_ctx=engine.max_ctx, params=engine.params, device="cuda",
+            search_gemms=SEARCH_SHAPES, search_grads=True)
+        restart_s = time.perf_counter() - t0
+        counters = obs.metrics_json()["counters"]
+        hits = counters.get("plandb.hit", 0)
+        if hits < SEARCH_LADDERS or counters.get("search.measured", 0) or (
+                CONTRACT.launches != n0):
+            raise AssertionError(f"search restart: {hits} plan-DB hits of "
+                                 f"{SEARCH_LADDERS} ladders, "
+                                 f"{counters.get('search.measured', 0)} "
+                                 f"measured, {CONTRACT.launches - n0} "
+                                 f"launches")
+        print(f"[search] restart: {hits} plan-DB hits for {SEARCH_LADDERS} "
+              f"ladders, nothing measured or launched, {restart_s:.2f} s",
+              flush=True)
+        del again, engine, trace
+        _free()
+
+        # (c) measured tuning: the tuner defers to the card search, whose
+        # ladder the plan DB keeps for ops
+        m, k, n = TUNE_SHAPE
+        spec = matmul_spec(m, k, n)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        arrays = {"A": torch.randn(m, k, generator=gen, device="cuda").to(
+                      torch.bfloat16),
+                  "B": torch.randn(k, n, generator=gen, device="cuda").to(
+                      torch.bfloat16)}
+        cache = AutotuneCache(os.path.join(OUT, "tune_search.json"))
+        cache.clear()
+        first = tune_schedule(spec, dtype=torch.bfloat16, cache=cache,
+                              measure_with=arrays)
+        second = tune_schedule(spec, dtype=torch.bfloat16, cache=cache,
+                               measure_with=arrays)
+        with open(cache.path) as f:
+            (entry,) = json.load(f).values()
+        _, rung = PlanDB(path).best_entry(spec, torch.bfloat16)
+        if (cache.hits, cache.misses) != (1, 1) or not entry["measured"] or (
+                "card" not in entry or rung.get("card") != entry["card"]
+                or rung.get("measured_s") != entry.get("measured_s")) or (
+                first.levels != second.levels):
+            raise AssertionError(f"search tune: hits {cache.hits}, misses "
+                                 f"{cache.misses}, entry {entry}, the plan "
+                                 f"DB's winner {rung}")
+        print(f"[search] tune_schedule(measure_with=) {m}x{k}x{n} bf16 on the"
+              f" card: measured plan {entry['card']} at "
+              f"{entry['measured_s'] * 1e3:.4f} ms, the plan DB's winner; "
+              f"the second call a hit", flush=True)
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_PLAN_DB", None)
+        else:
+            os.environ["REPRO_PLAN_DB"] = old
+    return dict(ladders=ladders, sweep_s=sweep_s,
+                serve={k: v for k, v in stats.items()
+                       if k != "tenant_tokens"},
+                serve_plans=dict(by_source), serve_ladders=served,
+                serve_s=serve_s,
+                restart_hits=hits, restart_s=restart_s, tune=entry)
+
+
+# --------------------------------------------------------------------------
 # slice 6: flash attention (B2), ops.attention and its backward
 # --------------------------------------------------------------------------
 
@@ -3663,10 +4027,11 @@ HOF_WORKERS = 6
 
 
 def _hof_case(family, seed, wide=False):
-    """(spec, blocks) as the reference's ``_draw_case`` draws them: extents
-    from ``HOF_EXTENTS`` (all ``HOF_WIDE`` for the wide case), the loop
-    order shuffled from the same stream (kept for the stream's sake: the
-    schedule here is ``default_schedule``'s), blocks from divisors."""
+    """(spec, order, blocks) as the reference's ``_draw_case`` draws them:
+    extents from ``HOF_EXTENTS`` (all ``HOF_WIDE`` for the wide case), a
+    random loop order shuffled from the same stream, blocks from
+    divisors; ``search.candidate_schedule(spec, order, blocks)`` is the
+    schedule the reference's differential test compiles."""
     import numpy as np
 
     from repro_torch.core import enumerate as en
@@ -3682,7 +4047,7 @@ def _hof_case(family, seed, wide=False):
     blocks = {i: int(rng.choice([d for d in range(1, spec.extents[i] + 1)
                                  if spec.extents[i] % d == 0]))
               for i in spec.indices}
-    return spec, blocks
+    return spec, tuple(order), blocks
 
 
 def _hof_arrays(spec, seed):
@@ -3704,15 +4069,17 @@ def _hof_interpret(case):
     from repro_torch.core.enumerate import evaluate_variant
 
     family, seed, wide = case
-    spec, _ = _hof_case(family, seed, wide)
+    spec, _, _ = _hof_case(family, seed, wide)
     return evaluate_variant(spec, spec.indices, _hof_arrays(spec, seed))
 
 
 def _hof_differential(cases, interpreted):
-    """(a): B1 through ``codegen.compile`` on CUDA f32 and the interpreter
-    (``interpreted``: case -> the future of its result) against the f64
-    einsum at the reference's f32 TOL, ``contraction_to_torch`` on CUDA
-    f64 at ``HOF_LOWER_TOL``; each case one B1 launch by its launcher's
+    """(a): B1 through ``codegen.compile`` on CUDA f32, under
+    ``default_schedule`` and under ``search.candidate_schedule`` of the
+    case's random order and blocks, and the interpreter (``interpreted``:
+    case -> the future of its result) against the f64 einsum at the
+    reference's f32 TOL, ``contraction_to_torch`` on CUDA f64 at
+    ``HOF_LOWER_TOL``; each compiled case one B1 launch by its launcher's
     count."""
     import numpy as np
     import torch
@@ -3720,30 +4087,37 @@ def _hof_differential(cases, interpreted):
     from repro_torch import codegen
     from repro_torch.core.enumerate import einsum_formula
     from repro_torch.core.lower import contraction_to_torch
+    from repro_torch.search import candidate_schedule
 
     rtol, atol = HOF_TOL
     rows = []
     for case in cases:
         family, seed, wide = case
-        spec, blocks = _hof_case(family, seed, wide)
+        spec, order, blocks = _hof_case(family, seed, wide)
         arrays = _hof_arrays(spec, seed)
         ref = np.einsum(einsum_formula(spec),
                         *(a.astype(np.float64) for a in arrays.values()))
-        what = f"{family} seed {seed} extents {spec.extents} blocks {blocks}"
-        kern = codegen.compile(spec, codegen.default_schedule(spec, blocks))
+        what = (f"{family} seed {seed} extents {spec.extents} order "
+                f"{'/'.join(order)} blocks {blocks}")
         cuda = [torch.as_tensor(a).cuda() for a in arrays.values()]
-        _zero_new_counts()
-        out = kern(*cuda)
-        torch.cuda.synchronize()
-        counts = _new_counts()
         launcher = "contract_chain" if family == "chain_matmul" else "contract"
-        want = {k: int(k == launcher) for k in counts}
-        if counts != want:
-            raise AssertionError(f"hof {what}: launches {counts}, expected "
-                                 f"{want}")
-        got = out.double().cpu().numpy()
-        np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
-                                   err_msg=f"hof: B1 != einsum for {what}")
+        errs = []
+        for sched in (codegen.default_schedule(spec, blocks),
+                      candidate_schedule(spec, order, blocks)):
+            kern = codegen.compile(spec, sched)
+            _zero_new_counts()
+            out = kern(*cuda)
+            torch.cuda.synchronize()
+            counts = _new_counts()
+            want = {k: int(k == launcher) for k in counts}
+            if counts != want:
+                raise AssertionError(f"hof {what}: launches {counts}, "
+                                     f"expected {want}")
+            got = out.double().cpu().numpy()
+            np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
+                                       err_msg=f"hof: B1 != einsum for "
+                                               f"{what}")
+            errs.append(float(np.abs(got - ref).max()))
         lowered = contraction_to_torch(spec, spec.indices)(
             *(c.double() for c in cuda)).cpu().numpy()
         np.testing.assert_allclose(
@@ -3754,7 +4128,7 @@ def _hof_differential(cases, interpreted):
             interp, ref, rtol=rtol, atol=atol,
             err_msg=f"hof: interpreter != einsum for {what}")
         rows.append(dict(case=what, launcher=launcher,
-                         b1_err=float(np.abs(got - ref).max()),
+                         b1_err=errs[0], b1_candidate_err=errs[1],
                          interp_err=float(np.abs(interp - ref).max()),
                          lower_err=float(np.abs(lowered - ref).max())))
     return rows
@@ -3790,7 +4164,10 @@ def phase_hof():
     of 3 event-timed runs after a warm-up).  (c) The tuner:
     ``tune(matmul_spec(256, 256, 256), j in (16, 64), keep=4)`` measured
     on CUDA f64 tensors, its winner correct, and a second call through an
-    ``AutotuneCache`` under ``OUT`` a hit with the same ranking."""
+    ``AutotuneCache`` under ``OUT`` a hit with the same ranking; beside
+    the measured times each variant's ``cpu_cost`` and ``core.cost``'s
+    ``h100_cost`` (host einsum calls plus the card's roofline) with the
+    Spearman value of each against the measurement."""
     import contextlib
     import io
     import multiprocessing
@@ -3799,6 +4176,7 @@ def phase_hof():
 
     from repro_torch.codegen import AutotuneCache
     from repro_torch.core.autotune import tune
+    from repro_torch.core.cost import h100_cost
     from repro_torch.core.enumerate import matmul_spec
     from repro_torch.core.execute import execute_variant
     from repro_torch.paper import fig3, table1, table2
@@ -3815,10 +4193,13 @@ def phase_hof():
                    for case in sorted(cases, key=lambda c: not c[2])}
         diff = _hof_differential(cases, pending)
     worst = {k: max(r[k] for r in diff)
-             for k in ("b1_err", "interp_err", "lower_err")}
+             for k in ("b1_err", "b1_candidate_err", "interp_err",
+                       "lower_err")}
     print(f"[hof] differential: {len(diff)} cases (6 families x "
           f"{len(HOF_SEEDS)} seeds + 6 at extent {HOF_WIDE}), one B1 launch "
-          f"each; max abs err vs the f64 einsum: B1 f32 {worst['b1_err']:.3g}, "
+          f"each under default_schedule and under candidate_schedule of a "
+          f"random order and blocks; max abs err vs the f64 einsum: B1 f32 "
+          f"{worst['b1_err']:.3g} / {worst['b1_candidate_err']:.3g}, "
           f"interpreter f32 {worst['interp_err']:.3g}, contraction_to_torch "
           f"f64 {worst['lower_err']:.3g}", flush=True)
 
@@ -3864,16 +4245,27 @@ def phase_hof():
                              f"(hits {cache.hits}, misses {cache.misses}) or "
                              f"ranked otherwise")
     tuned = [dict(order="/".join(tv.order), splits=tv.spec.split_chain(),
-                  cpu_cost=tv.predicted_cost, ms=tv.measured_s * 1e3)
+                  cpu_cost=tv.predicted_cost,
+                  h100_cost=h100_cost(tv.spec, tv.order),
+                  ms=tv.measured_s * 1e3)
              for tv in first]
+    ms = [t["ms"] for t in tuned]
+    # ties at their average rank: cpu_cost may give every variant one cost
+    rho = {k: _rank_rho([t[k] for t in tuned], ms)
+           for k in ("cpu_cost", "h100_cost")}
     print(f"[hof] tune matmul {n}^3, j in {HOF_TUNE_SPLITS['j']}: "
           + " ".join(f"{t['order']}{t['splits']}={t['ms']:.3f}ms/"
-                     f"{t['cpu_cost']:.4g}" for t in tuned)
-          + "; the second call hit the cache with the same ranking",
-          flush=True)
+                     f"{t['cpu_cost']:.4g}/{t['h100_cost'] * 1e3:.3f}ms"
+                     for t in tuned)
+          + f" (variant=measured/cpu_cost/h100_cost); the second call hit "
+          f"the cache with the same ranking; Spearman vs measured: "
+          f"cpu_cost {rho['cpu_cost']:.2f}, h100_cost "
+          f"{rho['h100_cost']:.2f}; h100_cost ranks "
+          + " > ".join(t["order"] + str(t["splits"]) for t in sorted(
+              tuned, key=lambda t: t["h100_cost"])), flush=True)
     _free()
     return dict(differential=diff, worst=worst, tables=tables, tune=tuned,
-                csv=csv.getvalue().splitlines())
+                tune_rho=rho, csv=csv.getvalue().splitlines())
 
 
 def attention_entry(small, path):
@@ -4143,6 +4535,9 @@ def main() -> int:
     # depth
     serve_int8 = _phase("serve-int8", phase_serve_int8)
     _free()
+    # this slice's path: the variant search, its ladders served
+    search = _phase("search", phase_search, stats)
+    _free()
 
     line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches,
                         b1_mode_rows)
@@ -4173,7 +4568,7 @@ def main() -> int:
                    "chain": chain, "quant_small": quant_small,
                    "attn_small": attn_small, "attn_path": attn,
                    "hof": hof,
-                   "serve_int8": serve_int8,
+                   "serve_int8": serve_int8, "search": search,
                    "takes": TAKEN, "seconds": SECONDS, **line}, f, indent=1)
     # the takes each profiled check needed for a whole trace
     print(f"[takes] {json.dumps(TAKEN)}", flush=True)

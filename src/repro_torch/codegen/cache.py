@@ -92,6 +92,18 @@ def hardware_fingerprint() -> str:
     return "cpu"
 
 
+def measured_on(device: str) -> str:
+    """The ``hardware`` key part of an entry measured on ``device``
+    ("cpu", "cuda", "cuda:0"): the fingerprint, except that a measurement
+    on the host of a machine with a card is keyed ``cpu``, so that a
+    ladder timed on the host never stands in for one timed on the card
+    (nor the other way round)."""
+    fp = hardware_fingerprint()
+    if str(device).startswith("cuda") or not fp.startswith("cuda/"):
+        return fp
+    return "cpu"
+
+
 def dtype_name(dtype: Any) -> str:
     """numpy's name for a dtype given as ``torch.dtype``, numpy dtype or str.
 

@@ -81,6 +81,9 @@ block, while the CUDA kernels tile the output into their own CTAs (128 x
 128 or 128 x 256 on the ring, ``ring_tiles``; 128 of N by 8 to 64 tokens
 on the narrow body, ``narrow_tiles``; 64 x 128 on the mma.sync body; 128
 of N by 128 of M on the tc32 body; 128 x 64 on the FMA pipes for f32).
+A searched ``CardPlan`` (the plan DB's ``card`` field, ``search``) takes
+the place of the ring's, the narrow body's or tc32's heuristic tile width
+and K split where a launch runs its body.
 
 Devices: on a CUDA tensor the call launches a kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
@@ -452,6 +455,89 @@ def scratch_sizes(body: str, batch: int, m: int, n: int, plan=None, *,
     return tiles * plan.splits * RING_BM * plan.tile_n, tiles
 
 
+class CardPlan(NamedTuple):
+    """One tile plan of B1 as the search ranks it and the plan DB keeps it
+    (a rung's ``card`` field): the ``body`` (``"ring"``, ``"narrow"``,
+    ``"tc32"``; ``"mma"`` / ``"fma"`` with ``tile_n`` 0 where a body takes
+    no plan), its ``tile_n`` (the ring's 128 or 256 columns, the narrow
+    body's token width, tc32's 128) and its K ``splits``."""
+
+    body: str
+    tile_n: int
+    splits: int
+
+    def as_dict(self) -> Dict[str, object]:
+        return {"body": self.body, "tile_n": int(self.tile_n),
+                "splits": int(self.splits)}
+
+    @classmethod
+    def from_dict(cls, d) -> Optional["CardPlan"]:
+        """The plan of a rung's ``card`` field, or None without one."""
+        if not d:
+            return None
+        return cls(str(d["body"]), int(d["tile_n"]), int(d["splits"]))
+
+
+#: the bodies that take a tile plan
+PLAN_BODIES = ("ring", "narrow", "tc32")
+
+
+def _heuristic_tiles(body: str, batch: int, m: int, n: int, k: int,
+                     sms: int, kscale: bool, row_reduce: bool):
+    """The launcher's ``RingPlan`` / ``NarrowPlan`` for ``body`` without a
+    searched plan: ``ring_tiles`` (the fused ring's 128 x 128, unsplit,
+    for the row reduce), ``narrow_tiles`` or ``tc32_tiles``; None for a
+    body with no plan."""
+    if body == "ring":
+        return (RingPlan(RING_FUSED_BN, 1) if row_reduce else
+                ring_tiles(batch, m, n, k, sms, narrow_tile=kscale))
+    if body == "narrow":
+        return narrow_tiles(m, n, k, sms, batch=batch)
+    if body == "tc32":
+        return tc32_tiles(batch, m, n, k, sms)
+    return None
+
+
+def heuristic_plan(body: str, batch: int, m: int, n: int, k: int,
+                   sms: int = H100_SMS, *, kscale: bool = False,
+                   row_reduce: bool = False) -> Optional[CardPlan]:
+    """The ``CardPlan`` the launcher takes for ``body`` without a searched
+    one (``_heuristic_tiles``); None for a body with no plan."""
+    tiles = _heuristic_tiles(body, batch, m, n, k, sms, kscale, row_reduce)
+    return None if tiles is None else card_of(body, tiles)
+
+
+def _tiles_of(card: CardPlan):
+    """The launcher's ``RingPlan`` / ``NarrowPlan`` of a ``CardPlan``."""
+    if card.body == "narrow":
+        return NarrowPlan(card.tile_n, RING_BM, card.splits)
+    if card.body == "tc32" and card.tile_n != TC32_TILE:
+        raise ValueError(f"tc32 plan {card}: the tc32 body's tile is "
+                         f"{TC32_TILE} wide")
+    return RingPlan(card.tile_n, card.splits)
+
+
+def launch_plan(body: str, plan: Optional[CardPlan], batch: int, m: int,
+                n: int, k: int, sms: int = H100_SMS, *, kscale: bool = False,
+                row_reduce: bool = False):
+    """(the launch's ``RingPlan`` / ``NarrowPlan`` or None, what became of
+    the searched ``plan``: "applied", "skipped" or None without one): the
+    plan's tile and split where the launch runs ``plan.body``, else the
+    body's heuristic plan (``_heuristic_tiles``)."""
+    if plan is not None and plan.body == body:
+        return _tiles_of(plan), "applied"
+    return (_heuristic_tiles(body, batch, m, n, k, sms, kscale, row_reduce),
+            None if plan is None else "skipped")
+
+
+def card_of(body: str, plan) -> CardPlan:
+    """The ``CardPlan`` a launch ran: its body and ``RingPlan`` /
+    ``NarrowPlan`` (tile_n 0, splits 1 on a body with no plan)."""
+    if plan is None:
+        return CardPlan(body, 0, 1)
+    return CardPlan(body, plan.tile_n, plan.splits)
+
+
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -505,7 +591,8 @@ class ContractLauncher:
     ``last_body`` names the body of the latest launch (``"ring"``,
     ``"narrow"``, ``"mma"``, ``"tc32"`` or ``"fma"``, ``contract_body``'s
     words) and ``last_plan`` its ``RingPlan`` (the ring's, the tc32
-    body's) or ``NarrowPlan`` (None on the mma.sync and FMA bodies).
+    body's) or ``NarrowPlan`` (None on the mma.sync and FMA bodies);
+    ``last_card`` is the two as a ``CardPlan``.
     Split and row-reduce scratch comes from a pool that grows and is
     reused (``_Scratch``), so a launch allocates nothing in the common
     case and launches no other kernel.
@@ -555,7 +642,8 @@ class ContractLauncher:
                  epilogue: Optional[Epilogue] = None,
                  vectors: Optional[Dict[str, VecArg]] = None,
                  t: Optional[torch.Tensor] = None,
-                 body: Optional[str] = None) -> torch.Tensor:
+                 body: Optional[str] = None,
+                 plan: Optional[CardPlan] = None) -> torch.Tensor:
         """a (batch, M, K) @ b (batch, K, N) -> new (batch, M, N) tensor.
 
         ``kscale`` scales A along k as it is staged; ``mul`` and the
@@ -564,7 +652,12 @@ class ContractLauncher:
         vector ``sum_m (a @ b)[m, n] * t[m, n]``.  ``body`` forces a body
         (``BODIES``, of the operands' dtype); by default ``contract_body``
         picks it.  The kernel refuses a forced ring, narrow or tc32 body
-        it cannot take, and this raises.
+        it cannot take, and this raises.  ``plan`` (a searched
+        ``CardPlan``) takes the place of the body's heuristic plan
+        (``heuristic_plan``) where the launch runs the plan's body
+        (``obs`` counts ``ops.card_plan.applied``); on another body the
+        heuristic's stays (``ops.card_plan.skipped``).  A plan the kernel
+        refuses raises, as a refused body does.
         """
         if a.device.type != "cuda" or b.device != a.device:
             raise ValueError(
@@ -655,15 +748,14 @@ class ContractLauncher:
             if c.numel() == 0:
                 return c
             p.sCb, p.sCm, p.sCn = c.stride()
-        plan = None
-        if body == "ring":
-            plan = (RingPlan(RING_FUSED_BN, 1) if t is not None else
-                    ring_tiles(batch, m, n, k, _sm_count(a.device),
-                               narrow_tile=kscale is not None))
-        elif body == "narrow":
-            plan = narrow_tiles(m, n, k, _sm_count(a.device), batch=batch)
-        elif body == "tc32":
-            plan = tc32_tiles(batch, m, n, k, _sm_count(a.device))
+        plan, taken = launch_plan(body, plan, batch, m, n, k,
+                                  _sm_count(a.device),
+                                  kscale=kscale is not None,
+                                  row_reduce=t is not None)
+        if taken:
+            from ..obs import counter
+
+            counter(f"ops.card_plan.{taken}").inc()
         if plan is not None:
             p.tile_n, p.splits = plan.tile_n, plan.splits
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -683,6 +775,13 @@ class ContractLauncher:
         self.launches += 1
         self.last_body, self.last_plan = body, plan
         return c
+
+    @property
+    def last_card(self) -> Optional[CardPlan]:
+        """The latest launch's body and plan as a ``CardPlan``."""
+        if self.last_body is None:
+            return None
+        return card_of(self.last_body, self.last_plan)
 
 
 #: the process's one launcher; ``CONTRACT.launches`` is the launch count
@@ -896,25 +995,15 @@ def eight_bit_route(kind: str, a3: torch.Tensor, b3: torch.Tensor,
         a, _kmajor(b3, 1, meta=True), kscale) is None else "upcast")
 
 
-def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
-                 out_dtype: torch.dtype, epilogue: Optional[Epilogue] = None,
-                 vectors: Optional[Dict[str, torch.Tensor]] = None,
-                 fold: Optional[Fold] = None) -> torch.Tensor:
-    """Fold the spec onto a kernel (``fold``: ``_classify``'s, computed
-    here when not given), launch it once and unfold the result.
-
-    Launcher by operands: a chain runs ``CONTRACT_CHAIN``; f32 and bf16
-    ``CONTRACT``; 8-bit or integer operands as ``eight_bit_route`` says:
-    ``CONTRACT_INT8`` / ``CONTRACT_FP8`` (a product of two 8-bit operands
-    of one format; the weighted family's modes on the ring, after K-major
-    copies of a transposed operand), ``CONTRACT`` (fp8's k-scale over
-    bf16 upcasts) or ``CONTRACT_UPCAST``."""
-    fold = fold or _classify(spec)
-    if fold.kind == "chain":
-        return _launch_chain(spec, fold, operands, out_dtype, epilogue,
-                             vectors)
-    int_acc = _int_accum(spec)
-    arrays = dict(zip(spec.operands, operands))
+def _product_views(spec: ContractionSpec, fold: Fold, arrays, int_acc: bool):
+    """(a3 (batch, M, K), b3 (batch, K, N), (batch, m, n, k) index groups)
+    of the product ``fold`` makes of ``arrays``: the operands as permuted
+    views with their strides (a copy only where a group of indices cannot
+    be flattened), a reduce index held by one operand summed out first in
+    the accumulator's type, mixed f32 / bf16 promoted, and the product
+    taken the other way round where that lands in the output's order.
+    ``_launch_cuda`` launches on these views; ``card_views`` gives them
+    to the search, so what it measures is the body the caller runs."""
     ext = spec.extents
     a, b = arrays[fold.a], arrays[fold.b]
     ia, ib = spec.operands[fold.a], spec.operands[fold.b]
@@ -937,8 +1026,7 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
             ia = tuple(i for i in ia if i not in a_only)
             ib = tuple(i for i in ib if i not in b_only)
     wide = {torch.float32, torch.bfloat16}
-    plain = a.dtype in wide and b.dtype in wide
-    if plain and a.dtype != b.dtype:
+    if a.dtype in wide and b.dtype in wide and a.dtype != b.dtype:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
     batch, m, n, k = _fold(ia, ib, target)
@@ -957,7 +1045,61 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
     b3 = b.permute([ib.index(i) for i in batch + k + n]).reshape(
         size(batch), size(k), size(n)
     )
-    groups = (batch, m, n, k)
+    return a3, b3, (batch, m, n, k)
+
+
+def card_views(spec: ContractionSpec, *operands: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (batch, M, K) and (batch, K, N) views B1 launches on for the
+    plain product of a two-operand ``spec`` (the ``gemm`` fold) of f32 or
+    bf16 operands, given in ``spec.operands`` order as the caller passes
+    them (``ops.dense``'s folded x; the backward's cotangent and saved
+    operands for ``.dA`` / ``.dB``): the layouts ``contract_body`` and the
+    search's ``card_candidates`` read.  Raises for any other fold."""
+    spec = spec.root()
+    fold = _classify(spec)
+    if fold.kind != "gemm" or _int_accum(spec) or getattr(spec, "quant",
+                                                          None):
+        raise ValueError(f"{spec.name}: B1's tile plans are searched for "
+                         f"the plain product of two f32 / bf16 operands")
+    a3, b3, _ = _product_views(spec, fold, dict(zip(spec.operands,
+                                                    operands)), False)
+    return a3, b3
+
+
+def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
+                 out_dtype: torch.dtype, epilogue: Optional[Epilogue] = None,
+                 vectors: Optional[Dict[str, torch.Tensor]] = None,
+                 fold: Optional[Fold] = None,
+                 card: Optional[CardPlan] = None) -> torch.Tensor:
+    """Fold the spec onto a kernel (``fold``: ``_classify``'s, computed
+    here when not given), launch it once and unfold the result.  ``card``
+    (a searched ``CardPlan``) goes to ``CONTRACT``, which takes it where
+    the launch runs its body; the other launchers take no plan and count
+    it ``ops.card_plan.skipped``.
+
+    Launcher by operands: a chain runs ``CONTRACT_CHAIN``; f32 and bf16
+    ``CONTRACT``; 8-bit or integer operands as ``eight_bit_route`` says:
+    ``CONTRACT_INT8`` / ``CONTRACT_FP8`` (a product of two 8-bit operands
+    of one format; the weighted family's modes on the ring, after K-major
+    copies of a transposed operand), ``CONTRACT`` (fp8's k-scale over
+    bf16 upcasts) or ``CONTRACT_UPCAST``."""
+    fold = fold or _classify(spec)
+    if fold.kind == "chain":
+        if card is not None:
+            from ..obs import counter
+
+            counter("ops.card_plan.skipped").inc()
+        return _launch_chain(spec, fold, operands, out_dtype, epilogue,
+                             vectors)
+    int_acc = _int_accum(spec)
+    arrays = dict(zip(spec.operands, operands))
+    ext = spec.extents
+    a3, b3, groups = _product_views(spec, fold, arrays, int_acc)
+    batch, m, n, k = groups
+    wide = {torch.float32, torch.bfloat16}
+    plain = a3.dtype in wide and b3.dtype in wide
+    size = lambda idx: math.prod(ext[i] for i in idx)  # noqa: E731
     vec_dtype = torch.int32 if int_acc else torch.float32
 
     def as_vec(x):
@@ -1004,8 +1146,12 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
         if b3.stride(2) != 1:
             b3 = b3.contiguous()
     if plain:
-        launcher, kw = CONTRACT, {}
+        launcher, kw = CONTRACT, ({} if card is None else {"plan": card})
     else:
+        if card is not None:
+            from ..obs import counter
+
+            counter("ops.card_plan.skipped").inc()
         kw = {"int_acc": int_acc}
         if route == "tensor cores":
             launcher = (CONTRACT_INT8 if a3.dtype == torch.int8
@@ -1087,6 +1233,8 @@ class CompiledKernel:
     interpret: bool
     epilogue: Optional[Epilogue] = None
     fold: Optional[Fold] = None
+    #: the searched tile plan of B1 (a plan-DB rung's ``card``), or None
+    card: Optional[CardPlan] = None
 
     @property
     def names(self) -> Tuple[str, ...]:
@@ -1128,7 +1276,7 @@ class CompiledKernel:
         if devices == {"cuda"}:
             return _launch_cuda(self.spec, *arrays, out_dtype=out_dtype,
                                 epilogue=self.epilogue, vectors=vectors,
-                                fold=self.fold)
+                                fold=self.fold, card=self.card)
         raise ValueError(f"{self.spec.name}: operands on {sorted(devices)}; "
                          f"all CPU (plain version) or all CUDA (kernel)")
 
@@ -1141,13 +1289,16 @@ def compile_kernel(
     out_dtype=None,
     interpret: bool = False,
     mesh=None,
+    card: Optional[CardPlan] = None,
 ) -> CompiledKernel:
     """Compile a ContractionSpec + Schedule into a kernel.
 
     ``spec`` may be the root spec or the schedule's own (subdivided) spec;
     they must share a root.  ``interpret`` keeps its reference meaning at
     the ``ops`` level (eligibility off the device rule); the kernel itself
-    is chosen by the operands' device.
+    is chosen by the operands' device.  ``card`` is a searched tile plan
+    for B1 (``CardPlan``), which its launches take where they run its
+    body; a fused spec takes none.
     """
     root = spec.root()
     if root is not schedule.spec.root() and (
@@ -1158,6 +1309,9 @@ def compile_kernel(
     if getattr(root, "fused_kind", ""):
         from .fused_gen import compile_fused
 
+        if card is not None:
+            raise ValueError(f"{root.name}: the fused kernels take no B1 "
+                             f"tile plan, got {card}")
         return compile_fused(spec, schedule, epilogue=epilogue,
                              out_dtype=out_dtype, interpret=interpret,
                              mesh=mesh)
@@ -1192,6 +1346,7 @@ def compile_kernel(
             interpret=interpret,
             epilogue=epilogue,
             fold=fold,
+            card=card,
         )
 
 
@@ -1206,9 +1361,10 @@ def cached_compile(
     out_dtype=None,
     interpret: bool = False,
     mesh=None,
+    card: Optional[CardPlan] = None,
 ) -> CompiledKernel:
     """compile_kernel memoized on (spec, schedule, epilogue, dtype,
-    interpret).
+    interpret, card plan).
 
     Hot-path entry for ``ops``: repeated calls with the same contraction
     reuse one ``CompiledKernel``; feeds ``codegen.memo.hit/miss``.
@@ -1218,18 +1374,21 @@ def cached_compile(
 
     if mesh is not None:
         return compile_kernel(spec, schedule, epilogue=epilogue, mesh=mesh,
-                              out_dtype=out_dtype, interpret=interpret)
+                              out_dtype=out_dtype, interpret=interpret,
+                              card=card)
     key = (
         json.dumps(spec_signature(spec), sort_keys=True),
         json.dumps(schedule_to_dict(schedule), sort_keys=True),
         epilogue,
         dtype_name(out_dtype) if out_dtype is not None else None,
         interpret,
+        card,
     )
     kern = _KERNEL_MEMO.get(key)
     counter(f"codegen.memo.{'miss' if kern is None else 'hit'}").inc()
     if kern is None:
         kern = compile_kernel(spec, schedule, epilogue=epilogue,
-                              out_dtype=out_dtype, interpret=interpret)
+                              out_dtype=out_dtype, interpret=interpret,
+                              card=card)
         _KERNEL_MEMO[key] = kern
     return kern

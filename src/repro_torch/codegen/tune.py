@@ -10,8 +10,21 @@ same schedule for the same spec (``tests/test_torch_foundation.py``).
 The model scores a TPU-style kernel that keeps whole reduce axes resident
 and often picks a one-block grid; the CUDA kernel therefore takes its own
 CTA grid and only the plan's shapes, never its blocking
-(``codegen.cuda_gen``).  Measured tuning (``measure_with=``) and a
-Hopper-aware score come with the search slice.
+(``codegen.cuda_gen``).
+
+``measure_with=`` (operand arrays) times candidates before the winner is
+stored, as the reference's does, under a key of its own (``"measured":
+True``, and the hardware it was measured on, ``cache.measured_on``), so an
+analytic entry never satisfies a measured request, nor a host-timed one a
+card request.  On CPU arrays the analytic top-``keep`` schedules run the
+kernel's plain version on the host clock (the reference's interpreter
+role).  On CUDA tensors the schedules would all launch the same kernel,
+so the tuner defers to the search: ``search.search_schedule`` on the
+card, at ``topk=keep``, into the default plan DB (where ``ops`` reads the
+winner's B1 tile plan).  Its ladder measures B1's tile plans where the
+spec is a plain product and the default once where not; the entry keeps
+the analytic winner's schedule with the ladder winner's ``measured_s``
+and, where it has one, its ``card``.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from .cache import (
     default_cache,
     dtype_itemsize,
     dtype_name,
+    measured_on,
     schedule_from_dict,
     schedule_to_dict,
 )
@@ -152,25 +166,23 @@ def tune_schedule(
 ) -> Schedule:
     """Pick (and persist) a Schedule for ``spec``.
 
-    Cache hit -> deserialize, no enumeration.  Miss -> analytic search,
-    winner stored.  ``dtype`` is a ``torch.dtype``, a numpy dtype or its
-    name.  ``measure_with`` (timing the analytic top-``keep``) is not
-    ported yet and raises.
+    Cache hit -> deserialize, no enumeration, no measurement.  Miss ->
+    analytic search; if ``measure_with`` provides operand arrays (numpy
+    or tensors, by operand name) the candidates are timed before the
+    winner is stored (see the module docstring).  ``dtype`` is a
+    ``torch.dtype``, a numpy dtype or its name.
     """
     from ..obs import span
 
-    if measure_with is not None:
-        raise NotImplementedError(
-            "measured tuning (measure_with=) comes with the search slice "
-            "(ROADMAP.md queue A, item 4)"
-        )
     spec = spec.root()
     if cache is None and use_default_cache:
         cache = default_cache()
     elem = dtype_itemsize(dtype)
+    device = None if measure_with is None else _device_of(spec, measure_with)
     key = cache_key(
         spec,
         dtype=dtype_name(dtype),
+        hardware=None if device is None else measured_on(device),
         extra={
             "tuner": TUNER_VERSION,
             "keep": keep,
@@ -180,7 +192,7 @@ def tune_schedule(
                 if isinstance(v, (int, float))
             ),
             # an analytic-only winner must not satisfy a measured request
-            "measured": False,
+            "measured": measure_with is not None,
         },
     )
     if cache is not None:
@@ -188,7 +200,9 @@ def tune_schedule(
         if hit is not None:
             return schedule_from_dict(hit["schedule"], spec)
 
-    with span("codegen.tune", spec=spec.name, measured=False):
+    measured = {}
+    with span("codegen.tune", spec=spec.name,
+              measured=measure_with is not None):
         scored = []
         for blocks in candidate_blocks(spec, hw):
             s = _score(spec, blocks, elem, hw)
@@ -205,16 +219,55 @@ def tune_schedule(
                 for i in spec.indices
             }
             scored = [(math.inf, 0, tuple(sorted(blocks.items())))]
-        best = dict(min(scored)[2])
+        scored.sort()
+        top = [dict(b) for _, _, b in scored[:keep]]
+        best = top[0]
+        if measure_with is not None:
+            best, measured = _measured_pick(spec, top, measure_with, dtype,
+                                            keep, device)
 
     schedule = default_schedule(spec, best)
     if cache is not None:
-        cache.put(
-            key,
-            {
-                "schedule": schedule_to_dict(schedule),
-                "blocks": {k: int(v) for k, v in best.items()},
-                "measured": False,
-            },
-        )
+        entry = {
+            "schedule": schedule_to_dict(schedule),
+            "blocks": {k: int(v) for k, v in best.items()},
+            "measured": measure_with is not None,
+        }
+        entry.update(measured)
+        cache.put(key, entry)
     return schedule
+
+
+def _device_of(spec: ContractionSpec, measure_with) -> str:
+    """"cuda" where the operands are CUDA tensors, else "cpu"."""
+    import torch
+
+    return "cuda" if any(
+        isinstance(measure_with[n], torch.Tensor) and measure_with[n].is_cuda
+        for n in spec.operands) else "cpu"
+
+
+def _measured_pick(spec: ContractionSpec, top: List[Dict[str, int]],
+                   measure_with, dtype, keep: int, device: str):
+    """(blocks, the entry's measured fields): the fastest of the analytic
+    ``top`` on CPU arrays; on CUDA tensors the analytic winner's blocks
+    with the card search's winner (``measured_s``, and ``card`` where it
+    has a plan)."""
+    from ..search import default_plan_db, measure_schedules, search_schedule
+
+    arrays = {n: measure_with[n] for n in spec.operands}
+    if device == "cpu":
+        if len(top) == 1:
+            return top[0], {}
+        ms = measure_schedules(
+            spec, [default_schedule(spec, b) for b in top], arrays=arrays,
+            dtype=dtype, repeats=1, check=False)
+        return top[min(range(len(ms)), key=lambda i: ms[i].seconds)], {}
+    win = search_schedule(spec, dtype=dtype, topk=keep, arrays=arrays,
+                          device=device, plan_db=default_plan_db()).best
+    if win.measured_s is None:
+        raise RuntimeError(f"{spec.name}: the card search measured nothing")
+    out = {"measured_s": float(win.measured_s)}
+    if win.card is not None:
+        out["card"] = win.card.as_dict()
+    return top[0], out

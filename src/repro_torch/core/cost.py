@@ -14,22 +14,31 @@ Both consume a ``ContractionSpec`` + loop order, i.e. they work on the same
 objects the rewrite rules produce, so "enumerate -> cut -> lower" is a single
 pipeline (see autotune.py).
 
-They model the reference's machines, not the card this package runs on:
-``CPU_HIERARCHY`` is the paper's laptop CPU and ``TPU`` the reference's
-accelerator.  ``TPU`` is kept verbatim because ``codegen.tune._score`` still
-ranks candidate schedules with it: the port must pick the same schedules
-as the reference (``cache_key`` folds the dict's numeric items into every
+Those two model the reference's machines: ``CPU_HIERARCHY`` is the
+paper's laptop CPU and ``TPU`` the reference's accelerator.  ``TPU`` is
+kept verbatim because ``codegen.tune._score`` and ``search.beam`` still
+rank candidate schedules with it: the port must pick the same schedules as
+the reference (``cache_key`` folds the dict's numeric items into every
 autotune key, so the golden cache file only reads back if they are
-byte-identical).  The CUDA kernels take their own CTA grid and ignore the
-plan's blocking (``codegen.cuda_gen``).  A Hopper model beside them is
-``ROADMAP.md`` queue A item 4b.
+byte-identical).
+
+The card this package runs on has its own dict, ``H100``, and two models:
+
+* ``h100_cost`` -- the counterpart of ``cpu_cost`` / ``tpu_cost`` for
+  ``core.autotune.tune(cost_fn=...)``: a HoF variant run by
+  ``core.execute`` costs its host einsum calls plus the device roofline;
+* ``card_plan_cost`` -- one tile plan of B1's ring, narrow or tc32 body
+  (``search.space.card_candidates``): waves of CTAs over the SMs, each
+  CTA's share of the operations and operand bytes, and the split-K
+  partials, with a lower bound beside the score as ``search.beam``'s
+  ``CostEstimate`` has.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 from .enumerate import ContractionSpec
 
@@ -213,3 +222,131 @@ def roofline_terms(
         memory_s=hbm_bytes / (chips * hw["hbm_bw"]),
         collective_s=collective_bytes / (chips * hw["ici_bw"]),
     )
+
+
+# ---------------------------------------------------------------------------
+# H100 flavour
+# ---------------------------------------------------------------------------
+
+#: one H100 SXM (NVIDIA's data sheet: dense rates at the 700 W limit) and
+#: one measured host constant
+H100 = dict(
+    sms=132,
+    smem_per_block=232448,
+    l2_bytes=50e6,
+    hbm_bw=3.35e12,
+    peak_bf16=989e12,
+    peak_int8=1979e12,
+    peak_fp8=1979e12,
+    peak_tf32=495e12,
+    #: f32 products in 3xTF32 (three TF32 products each), B1's tc32 body
+    peak_3xtf32=495e12 / 3,
+    #: the FMA pipes outside the tensor cores (f32); f64 takes the data
+    #: sheet's f64 tensor-core rate, the same 67 TFLOP/s
+    peak_f32=67e12,
+    peak_f64=67e12,
+    #: a 128-wide tile of B1's ring against a 256-wide one, the rate
+    #: ``codegen.cuda_gen.ring_tiles`` counts it at (a model constant)
+    ring_narrow_rate=0.85,
+    #: host seconds of one ``core.execute`` einsum call on the card's
+    #: machine: 48-60 us in Table 1's runs (``chip_smoke.py`` phase
+    #: ``hof``; PERF.md section 6)
+    host_call_s=60e-6,
+)
+
+#: peak rate key by element size in bytes (a HoF variant's operands)
+_PEAK_BY_BYTES = {1: "peak_int8", 2: "peak_bf16", 4: "peak_f32",
+                  8: "peak_f64"}
+
+
+def einsum_calls(spec: ContractionSpec, order: Sequence[str],
+                 vector_levels: int = 2) -> int:
+    """Host einsum calls ``core.execute.execute_variant`` makes for
+    ``order``: one a point of the loops above its ``vector_levels``
+    innermost levels (every index lies on some operand, so each of those
+    levels loops over its extent)."""
+    cut = max(len(order) - vector_levels, 0)
+    return math.prod(spec.extents[i] for i in order[:cut])
+
+
+def h100_cost(
+    spec: ContractionSpec,
+    order: Sequence[str],
+    elem_bytes: int = 8,
+    hw: dict = H100,
+) -> float:
+    """Estimated seconds of a variant through ``core.execute`` on the card:
+    ``einsum_calls`` x ``hw["host_call_s"]`` (the executor's loops run on
+    the host, one launch an einsum) plus the device roofline, max(flops /
+    peak, (operands + output) bytes / HBM rate), at the peak of
+    ``elem_bytes``-byte elements (f64 by default: the paper's tables)."""
+    views = _operand_views(spec)
+    moved = sum(math.prod(spec.extents[i] for i in axes)
+                for axes in views.values()) * elem_bytes
+    peak = hw[_PEAK_BY_BYTES.get(elem_bytes, "peak_f32")]
+    device = max(spec.flops() / peak, moved / hw["hbm_bw"])
+    return einsum_calls(spec, order) * hw["host_call_s"] + device
+
+
+#: B1's tile geometry by body: (rows of the product's M a CTA -- of N on
+#: the narrow body --, K elements a step, CTAs resident on one SM).  They
+#: are ``codegen.cuda_gen``'s ``RING_BM`` / ``RING_BK``, ``TC32_TILE`` /
+#: ``TC32_BK`` and ``NARROW_PER_SM`` (``tests/test_torch_search.py``
+#: holds them equal)
+CARD_BODIES = {"ring": (128, 64, 1), "narrow": (128, 64, 2),
+               "tc32": (128, 32, 1)}
+
+
+class PlanCost(NamedTuple):
+    """``card_plan_cost``'s answer, in seconds."""
+
+    score: float
+    lower_bound: float
+    compute_s: float
+    hbm_s: float
+    waves: int
+
+
+def card_plan_cost(body: str, plan, batch: int, m: int, n: int, k: int,
+                   dtype: str = "bfloat16", hw: dict = H100) -> PlanCost:
+    """Score one tile plan (``plan.tile_n``, ``plan.splits``) of B1's
+    ``body`` for a (batch, M, K) @ (batch, K, N) product of ``dtype``
+    ("bfloat16" or "float32") on the card.
+
+    The grid is the body's tiles times the K splits; its CTAs run in
+    waves over the card's slots (``sms`` x CTAs resident an SM).  Each CTA
+    computes a full tile over its share of the K steps, padded tiles
+    included, at a slot's share of the peak (a 128-wide ring tile at
+    ``hw["ring_narrow_rate"]`` of it): the compute term is the waves times
+    one CTA's time.  The bytes -- each operand read once (re-reads hit the
+    L2), the output written once, and with a K split 4 bytes an output
+    element a split written and read again
+    (``codegen.cuda_gen.scratch_sizes``) -- stream at the HBM rate times
+    the share of slots the grid fills (``ctas / (waves x slots)``): a grid
+    of few CTAs cannot pull the card's bandwidth.  ``score`` = max(compute,
+    bytes); ``lower_bound`` = max(compute, (operands + output) bytes / HBM
+    rate) leaves out the fill and the partials, so it is never above the
+    score, and never below the product's roofline."""
+    rows, bk, per_sm = CARD_BODIES[body]
+    elem = 4 if dtype == "float32" else 2
+    peak = hw["peak_3xtf32"] if dtype == "float32" else hw["peak_bf16"]
+    tile_n, splits = int(plan.tile_n), int(plan.splits)
+    if body == "narrow":  # C^T = W^T x^T: 128 of N by tile_n tokens a CTA
+        tiles = batch * -(-n // rows)
+    else:
+        tiles = batch * -(-m // rows) * -(-n // tile_n)
+    nk = -(-k // bk)
+    per = -(-nk // splits)
+    ctas = tiles * splits
+    slots = hw["sms"] * per_sm
+    waves = -(-ctas // slots)
+    rate = peak / slots
+    if body == "ring" and tile_n == 128:
+        rate *= hw["ring_narrow_rate"]
+    compute_s = waves * (2.0 * rows * tile_n * per * bk) / rate
+    moved = batch * (m * k + k * n + m * n) * elem
+    split_bytes = 0 if splits == 1 else 2 * 4 * batch * m * n * splits
+    fill = ctas / (waves * slots)
+    hbm_s = (moved + split_bytes) / (hw["hbm_bw"] * fill)
+    lower = max(compute_s, moved / hw["hbm_bw"])
+    return PlanCost(max(compute_s, hbm_s), lower, compute_s, hbm_s, waves)

@@ -20,10 +20,18 @@ reduced same-family config.  ``--quant int8`` serves weight-only int8:
 the parameters are quantized once at load (block-wise int8 + per-block f32
 scales) and expanded before every prefill and decode step, so the live
 weights stay 8-bit; the projections still run the contraction kernel on
-the expanded weights, as in the reference.  ``--engine fixed``,
-``--capture``, ``--mesh``, ``--search-gemms`` and ``--warm-gemms`` are
-later slices (ROADMAP.md queue A).  ``--metrics-out`` / ``--trace-out``
-write the ``obs`` registry and the Chrome trace after the run.
+the expanded weights, as in the reference.  ``--search-gemms
+"M,K,N;..."`` runs the variant search on those GEMMs before the first
+request: the prefill runner ladders them (with their derived backward
+specs unless ``--no-search-grads``), the decode runner ladders (lanes, K,
+N), each under its phase key, and on the card each ladder ranks and
+measures B1's tile plans, so the projections then launch with the
+measured winner's plan; a restart finds the ladders in the plan DB.
+``--warm-gemms`` pre-tunes schedules through the codegen cache
+(``ops.warm_dense_cache``).  ``--engine fixed``, ``--capture`` and
+``--mesh`` are later slices (ROADMAP.md queue A).  ``--metrics-out`` /
+``--trace-out`` write the ``obs`` registry and the Chrome trace after the
+run.
 """
 
 from __future__ import annotations
@@ -75,11 +83,54 @@ def parse_args(argv=None) -> argparse.Namespace:
              "optim.quant.quantize_tree) and expanded before every prefill "
              "and decode step, so live weights stay 8-bit in device memory",
     )
+    ap.add_argument(
+        "--warm-gemms", default="",
+        help="semicolon-separated M,K,N GEMM shapes to pre-tune through "
+             "the codegen cache, e.g. '4096,4096,4096;128,4096,512'",
+    )
+    ap.add_argument(
+        "--search-gemms", default="",
+        help="semicolon-separated M,K,N GEMM shapes to run the variant "
+             "search on (enumerate -> prune -> measure) and persist as "
+             "ranked plans; ops.dense then serves the measured winner.  "
+             "Derived backward specs are swept alongside each shape "
+             "unless --no-search-grads",
+    )
+    ap.add_argument(
+        "--no-search-grads", action="store_true",
+        help="with --search-gemms, sweep only the forward specs",
+    )
     ap.add_argument("--metrics-out", default=None, metavar="FILE",
                     help="write the obs metrics registry as JSON")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="write the Chrome-trace span JSON")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    args.warm_gemms = _parse_shapes(ap, "--warm-gemms", args.warm_gemms)
+    args.search_gemms = _parse_shapes(ap, "--search-gemms",
+                                      args.search_gemms)
+    return args
+
+
+def _parse_shapes(ap: argparse.ArgumentParser, flag: str, raw: str):
+    """'M,K,N;M,K,N' -> ((M, K, N), ...), as the reference's CLI parses."""
+    try:
+        shapes = tuple(
+            tuple(int(x) for x in part.split(","))
+            for part in raw.split(";")
+            if part.strip()
+        )
+        if any(len(t) != 3 for t in shapes):
+            raise ValueError(shapes)
+        return shapes
+    except ValueError:
+        ap.error(f"{flag} expects 'M,K,N[;M,K,N...]', got {raw!r}")
+
+
+def _card_plan_counts():
+    """``ops.card_plan.applied`` / ``.skipped`` so far (``obs``)."""
+    counters = obs.metrics_json()["counters"]
+    return {what: counters.get(f"ops.card_plan.{what}", 0)
+            for what in ("applied", "skipped")}
 
 
 def run(cfg, args: argparse.Namespace):
@@ -101,6 +152,14 @@ def run(cfg, args: argparse.Namespace):
     )
     max_ctx = args.prompt_len + args.max_new + 1
     pages_per_req = -(-max_ctx // args.page_size)
+    if args.warm_gemms:
+        from ..codegen import default_cache
+        from ..ops import warm_dense_cache
+
+        cache = default_cache()
+        n = warm_dense_cache(args.warm_gemms)
+        log.info("serve", f"warmed {n} GEMM schedule(s) (cache "
+                 f"{cache.path}: {cache.hits} hit, {cache.misses} miss)")
     engine = ContinuousEngine(
         cfg,
         lanes=args.lanes,
@@ -109,11 +168,16 @@ def run(cfg, args: argparse.Namespace):
         max_ctx=max_ctx,
         device=args.device,
         quant=None if args.quant == "none" else args.quant,
+        search_gemms=args.search_gemms,
+        search_grads=not args.no_search_grads,
     )
     launches0, grouped0 = CONTRACT.launches, GROUPED.launches
+    plans0 = _card_plan_counts()
     stats = Gateway(engine).run(trace, eos_id=args.eos_id)
     stats["kernel_launches"] = CONTRACT.launches - launches0
     stats["grouped_launches"] = GROUPED.launches - grouped0
+    for what, n in _card_plan_counts().items():
+        stats[f"card_plans_{what}"] = n - plans0[what]
     log.info(
         "serve",
         f"[continuous] prefill {stats['prefill_s']*1e3:.1f} ms over "
@@ -122,6 +186,10 @@ def run(cfg, args: argparse.Namespace):
         f"at {stats['tok_per_s']:.1f} decode tok/s on {engine.device}"
     )
     log.info("serve", f"contract kernel launches: {stats['kernel_launches']}")
+    if stats["card_plans_applied"] or stats["card_plans_skipped"]:
+        log.info("serve", f"searched B1 plans: applied to "
+                 f"{stats['card_plans_applied']} launch(es), skipped by "
+                 f"{stats['card_plans_skipped']} (another body ran)")
     if cfg.family == "moe":
         log.info("serve", f"grouped kernel launches: "
                  f"{stats['grouped_launches']}")

@@ -26,8 +26,11 @@ tier (``serve --quant int8``): the parameter tree is quantized once at load
 (``optim.quant.quantize_tree``, block-wise int8 + f32 scales, the
 reference's bits), the ``serve.quant_bytes`` gauge records what it holds,
 and every prefill and decode step expands it one layer at a time
-(``runners``).  The
-fixed-slot engine and plan sweeps are later slices (ROADMAP.md queue A).
+(``runners``).  ``search_gemms`` ((m, k, n) shapes, ``serve
+--search-gemms``) has each runner search and persist its phase's ladders
+before the first request (the prefill runner with the derived backward
+specs when ``search_grads``); a restart finds them in the plan DB.  The
+fixed-slot engine is a later slice (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -63,6 +66,8 @@ class ContinuousEngine:
         params=None,
         device="cuda",
         quant: Optional[str] = None,
+        search_gemms=(),
+        search_grads: bool = False,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -107,6 +112,10 @@ class ContinuousEngine:
                                      quant=quant)
         self.decode = DecodeRunner(cfg, self.api, page_size, lanes,
                                    self.max_pages, self.device, quant=quant)
+        if search_gemms:
+            # each runner ladders the shapes it runs, under its phase key
+            self.prefill.sweep(search_gemms, with_grads=search_grads)
+            self.decode.sweep(search_gemms)
         # pre-register so a metrics dump always carries the cache counters
         for name in ("plandb.hit", "plandb.miss",
                      "autotune.hit", "autotune.miss"):

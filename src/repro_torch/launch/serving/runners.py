@@ -3,9 +3,11 @@
 Prefill is compute-bound (square-ish GEMMs over the whole prompt); decode
 is bandwidth-bound (skinny M = lanes GEMMs).  Each runner scopes its work
 with ``search.serving_phase(...)``, so ``ops._tuned_kernel`` consults the
-phase-qualified plan-DB entry first.  On the card every prefill and
-decode GEMM (M = lanes in decode) runs the contraction kernel, whatever
-its shape.  PyTorch runs eagerly: there is nothing to trace.
+phase-qualified plan-DB entry first, and ``sweep`` searches and persists
+those phase ladders (``serve --search-gemms``).  On the card every
+prefill and decode GEMM (M = lanes in decode) runs the contraction kernel,
+whatever its shape, on the tile plan its ladder names.  PyTorch runs
+eagerly: there is nothing to trace.
 
 With ``quant`` (weight-only ``--quant int8``) the runners take the
 quantized tree, as the reference's jitted closures do, and the weights
@@ -26,6 +28,26 @@ from ...configs.base import ModelConfig
 from ...models.api import ModelAPI
 from ...search import serving_phase
 from . import paged
+
+
+def _sweep(phase: str, shapes, *, with_grads: bool,
+           device: torch.device) -> int:
+    """Search (``search.search_gemm_plans``) and persist the ``phase``
+    ladders of (m, k, n) GEMMs in bf16, the dtype ``ops.dense`` derives
+    the serving plan keys from (as the reference sweeps), measured on
+    ``device``: the card's tile plans there, the plain version on the
+    CPU."""
+    from ...obs import log
+    from ...search import default_plan_db, search_gemm_plans
+
+    db = default_plan_db()
+    n = search_gemm_plans(
+        shapes, dtype=torch.bfloat16, plan_db=db, with_grads=with_grads,
+        phase=phase, device=device.type,
+    )
+    log.info("serve", f"searched {n} {phase}-phase GEMM plan(s) -> "
+             f"{db.path}")
+    return n
 
 
 def _deq_fn(quant: Optional[str]):
@@ -56,6 +78,12 @@ class PrefillRunner:
         self.page_size = page_size
         self.device = device
         self.deq = _deq_fn(quant)
+
+    def sweep(self, shapes, *, with_grads: bool = True) -> int:
+        """Search the prefill ladders of (m, k, n) GEMMs (with their
+        derived backward specs unless ``with_grads`` is off)."""
+        return _sweep(self.phase, shapes, with_grads=with_grads,
+                      device=self.device)
 
     def __call__(self, params, pools: Dict, context: Sequence[int],
                  pages: Sequence[int]) -> Tuple[int, Dict]:
@@ -103,6 +131,14 @@ class DecodeRunner:
         self.max_pages = max_pages
         self.device = device
         self.deq = _deq_fn(quant)
+
+    def sweep(self, shapes, *, with_grads: bool = False) -> int:
+        """Search the decode ladders: decode dispatches M = lanes
+        activations whatever the fleet swept for training or prefill, so
+        each (m, k, n) is laddered as (lanes, k, n)."""
+        skinny = tuple((self.lanes, k, n) for (_, k, n) in shapes)
+        return _sweep(self.phase, skinny, with_grads=with_grads,
+                      device=self.device)
 
     def __call__(self, params, pools, block_table, lens, tokens):
         """Returns (next token per lane as a host int64 tensor, the pools,

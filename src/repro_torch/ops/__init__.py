@@ -97,6 +97,7 @@ from ..core.enumerate import (
 )
 from ..codegen.cache import default_cache
 from ..codegen.cache import generation as cache_generation
+from ..codegen.cuda_gen import CardPlan
 from ..obs import counter
 from ..search import active_phase, default_plan_db
 
@@ -125,11 +126,17 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
 
     Lookup order as in the reference (no mesh tier yet): the active
     serving phase's ladder, then the unphased ladder, then the analytic
-    tuner with its persistent cache.  The answer is kept for the process
+    tuner with its persistent cache.  A winning rung's ``card`` (the B1
+    tile plan a card ladder measured) is compiled into the kernel
+    (``cached_compile(card=)``, whose memo keys it), except under an
+    epilogue, where the launch runs another body than the measured plain
+    product.  The answer is kept for the process
     (the reference looks up once per trace), keyed on the spec, dtype,
     epilogue, output dtype, ``interpret``, the active phase and the plan
     DB's and tuner cache's paths, and dropped when either cache is opened,
-    written or cleared (``codegen.cache.generation``); ``obs`` counts
+    written or cleared (``codegen.cache.generation``), so a new ladder's
+    plan replaces the kept kernel (whose ``card`` is the plan it was
+    compiled with); ``obs`` counts
     ``ops.lookup.memo_hit`` / ``.memo_miss``.  A hit skips the plan DB,
     the tuner cache and ``cached_compile``, and their counters.
     """
@@ -142,15 +149,21 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
         counter("ops.lookup.memo_hit").inc()
         return kept[1]
     counter("ops.lookup.memo_miss").inc()
-    schedule = None
+    schedule, rung = None, {}
     if phase is not None:
-        schedule = db.best_schedule(spec, dtype, phase=phase)
+        schedule, rung = db.best_entry(spec, dtype, phase=phase)
     if schedule is None:
-        schedule = db.best_schedule(spec, dtype)
+        schedule, rung = db.best_entry(spec, dtype)
     if schedule is None:
         schedule = tune_schedule(spec, dtype=dtype)
+    # a card ladder's winner carries the B1 tile plan it was measured with
+    card = CardPlan.from_dict(rung.get("card"))
+    if card is not None and (epilogue is not None or getattr(
+            spec.root(), "fused_kind", "")):
+        card = None  # measured on the plain product: not this call's body
     kern = cached_compile(spec, schedule, epilogue=epilogue,
-                          out_dtype=out_dtype, interpret=interpret)
+                          out_dtype=out_dtype, interpret=interpret,
+                          card=card)
     if len(_LOOKUPS) >= _MEMO_MAX:
         _LOOKUPS.clear()
     _LOOKUPS[key] = (cache_generation(), kern)

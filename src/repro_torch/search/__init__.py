@@ -1,24 +1,671 @@
-"""Plan-DB lookup and serving-phase scoping (the search itself comes later).
+"""repro_torch.search — cost-guided variant search, rewrite rules to measured
+kernels.
 
-``ops.dense`` asks ``default_plan_db()`` for a measured winner before it
-falls back to the analytic tuner; the serving runners scope their steps
-with ``serving_phase`` so the phase-qualified ladder is consulted first.
+``search_schedule`` chains the pieces end to end, as the reference's does:
+
+    ContractionSpec + shapes
+      │  space.candidate_orders      SJT walk, deduped by lowering identity
+      │  space.block_choices         subdivision choices per hierarchy tier
+      ▼
+    beam.beam_search                 analytic roofline prune (sound bound
+      │                              cut + configurable-width beam trim)
+      ▼
+    measure.measure_schedules        top-K compiled via codegen, checked
+      │                              against the f64 oracle and timed
+      ▼
+    plandb.PlanDB                    ranked plans persisted next to the
+                                     autotune cache; ops.dense asks here
+                                     before falling back to tune_schedule
+
+On CPU tensors (``device="cpu"``, the default where no card is
+visible) the ladder is the reference's: the ``TPU``-scored beam's schedules plus the default, timed
+through the kernel's plain version on the host clock (the reference's
+interpret-mode role), persisted with the same fields.
+
+On the card (``device="cuda"``) B1 ignores a schedule's blocks, so timing
+several schedules would time one kernel several times.  What a launch runs
+is its body's tile plan (``codegen.cuda_gen.CardPlan``), so a card ladder
+pairs the analytic winner's ``Schedule`` (kept for parity) with the top
+``topk`` plans of ``space.card_candidates`` ranked by
+``core.cost.card_plan_cost`` (``beam.card_beam``), plus the launcher's own
+heuristic plan in the reference's ``source="default"`` role: the measured
+winner is by construction never slower than the heuristic on the
+measurement harness.  Every measured candidate differs in what B1
+launches.  The rungs carry their plan (``card``), and ``ops._tuned_kernel``
+compiles the winner's.  Fused families (attention, grouped) and the other
+B1 modes (weighted, chain, 8-bit) take no plan yet: they keep the analytic
+ladder, and only its default is measured.  A card ladder persists under
+the card's hardware fingerprint (``cuda/<device name>``), a ladder timed
+on the host of that machine under ``cpu`` (``codegen.cache.measured_on``).
+
+``ops.dense`` & friends consult ``default_plan_db()`` first, so one offline
+sweep (``python -m repro_torch.search.sweep``) or one ``serve
+--search-gemms`` warmup upgrades every later call for the same
+spec/shape/dtype.  With ``--with-grads`` (or ``search_schedule_with_grads``)
+the sweep also covers the derived backward specs of ``repro_torch.grad``.
+Mesh searches raise (``ROADMAP.md`` queue A item 6c).
 """
 
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .. import obs
+from ..core.cost import TPU
+from ..core.enumerate import (
+    ContractionSpec,
+    attention_spec,
+    batched_matmul_spec,
+    chain_matmul_spec,
+    matmul_spec,
+    matvec_spec,
+    transposed_matmul_spec,
+    uniform_grouped_spec,
+    weighted_matmul_spec,
+)
+from ..core.schedule import Schedule
+from .beam import (
+    CostEstimate,
+    ScoredCandidate,
+    SearchStats,
+    beam_search,
+    card_beam,
+    estimate,
+)
+from .measure import (
+    Measurement,
+    einsum_reference,
+    measure_schedules,
+    mesh_for_schedules,
+    reference_arrays,
+    schedule_mesh_axes,
+)
 from .plandb import (
     PLAN_VERSION,
     PlanDB,
     active_phase,
     default_plan_db,
+    entry_from,
+    grad_plan_keys,
     plan_key,
     serving_phase,
 )
+from .space import (
+    QUANT_TIERS,
+    Candidate,
+    MeshVariant,
+    block_choices,
+    candidate_orders,
+    candidate_schedule,
+    card_candidates,
+    dtype_tier_specs,
+    make_candidate,
+    mesh_descriptor,
+    mesh_variants,
+    parse_mesh_shape,
+    sweep_specs,
+)
+
+#: spec families the sweep CLI / serve warmup can name; value = (ctor, arity)
+SPEC_FAMILIES = {
+    "matmul": (matmul_spec, 3),
+    "matvec": (matvec_spec, 2),
+    "weighted_matmul": (weighted_matmul_spec, 3),
+    "batched_matmul": (batched_matmul_spec, 4),
+    "chain_matmul": (chain_matmul_spec, 4),
+    "transposed_matmul": (transposed_matmul_spec, 3),
+    # fused families: attention takes (heads, q_seq, kv_seq, head_dim);
+    # grouped_matmul takes (groups, rows_per_group, k, f) — the CLI's
+    # uniform-partition entry into the ragged GroupedSpec
+    "attention": (attention_spec, 4),
+    "grouped_matmul": (uniform_grouped_spec, 4),
+}
+
+
+def spec_from_name(name: str, shape: Sequence[int]) -> ContractionSpec:
+    if name not in SPEC_FAMILIES:
+        raise ValueError(
+            f"unknown spec {name!r}; choose from {sorted(SPEC_FAMILIES)}"
+        )
+    ctor, arity = SPEC_FAMILIES[name]
+    if len(shape) != arity:
+        raise ValueError(f"{name} takes {arity} extents, got {list(shape)}")
+    return ctor(*shape)
+
+
+@dataclasses.dataclass
+class RankedPlan:
+    """One rung of the search output ladder."""
+
+    schedule: Schedule
+    score: float
+    lower_bound: float
+    fits_vmem: bool
+    measured_s: Optional[float] = None
+    max_err: Optional[float] = None
+    #: the interquartile range of a card rung's timed launches (seconds;
+    #: ``Measurement.spread_s``); not persisted
+    spread_s: Optional[float] = None
+    source: str = "search"  # "default"/"mesh-naive" for baseline entries
+    collective: str = ""    # finishing-collective strategy of a mesh plan
+    #: roofline terms the rank was decided from (beam.CostEstimate:
+    #: compute_s/hbm_s/comm_s/penalty/seq_steps/shards; a card rung
+    #: core.cost.PlanCost's) — persisted into the plan DB
+    explain: Dict[str, float] = dataclasses.field(default_factory=dict)
+    #: the B1 tile plan of a card rung (codegen.cuda_gen.CardPlan)
+    card: Optional[object] = None
+
+    @property
+    def sharded(self) -> bool:
+        return bool(schedule_mesh_axes(self.schedule))
+
+
+@dataclasses.dataclass
+class SearchResult:
+    spec: ContractionSpec
+    dtype: str
+    ranked: List[RankedPlan]  # best first
+    stats: SearchStats
+    db_key: Optional[str] = None
+    mesh: Optional[str] = None  # mesh descriptor ('2x4') of a mesh search
+
+    @property
+    def best(self) -> RankedPlan:
+        return self.ranked[0]
+
+    def baseline(self) -> Optional[RankedPlan]:
+        for p in self.ranked:
+            if p.source == "default":
+                return p
+        return None
+
+    def mesh_baseline(self) -> Optional[RankedPlan]:
+        """The naive-psum lowering of the best sharded subdivision."""
+        for p in self.ranked:
+            if p.source == "mesh-naive":
+                return p
+        return None
+
+    def best_sharded(self) -> Optional[RankedPlan]:
+        for p in self.ranked:
+            if p.sharded:
+                return p
+        return None
+
+
+def _mesh_refusal(mesh_shape) -> None:
+    if isinstance(mesh_shape, str):
+        mesh_shape = parse_mesh_shape(mesh_shape)
+    if mesh_descriptor(mesh_shape) is not None:
+        raise NotImplementedError(
+            f"a mesh search ({mesh_descriptor(mesh_shape)}) comes with the "
+            f"mesh tier, ROADMAP.md queue A item 6c")
+
+
+def _ladder_from(cached: dict, spec: ContractionSpec) -> List[RankedPlan]:
+    from ..codegen.cuda_gen import CardPlan
+
+    ranked = []
+    for e in cached["ranked"]:
+        try:
+            sched = _sched_from(e["schedule"], spec)
+        except Exception:
+            continue
+        ranked.append(
+            RankedPlan(
+                schedule=sched,
+                score=e.get("score", float("inf")),
+                lower_bound=e.get("lower_bound", 0.0),
+                fits_vmem=e.get("fits_vmem", True),
+                measured_s=e.get("measured_s"),
+                source=e.get("source", "search"),
+                collective=e.get("collective", ""),
+                explain=dict(e.get("explain") or {}),
+                card=CardPlan.from_dict(e.get("card")),
+            )
+        )
+    return ranked
+
+
+def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device):
+    """The card ladder of a plain two-operand product: (plans, stats,
+    tensors) -- the analytic winner's schedule with each plan of
+    ``beam.card_beam`` over ``space.card_candidates`` and the heuristic's,
+    or None where the spec is not such a product.  ``arrays`` (numpy,
+    placed on ``device``, or tensors, kept as given) default to
+    ``reference_arrays``."""
+    import torch
+
+    from ..codegen import cuda_gen
+    from ..codegen.cache import dtype_name
+    from ..codegen.schedules import default_schedule
+
+    tdt = getattr(torch, dtype_name(dt))
+    if not (len(spec.operands) == 2 and not getattr(spec, "fused_kind", "")
+            and spec.quant is None
+            and tdt in (torch.float32, torch.bfloat16)
+            and cuda_gen._classify(spec).kind == "gemm"):
+        return None
+    if arrays is None:
+        arrays = reference_arrays(spec, dtype=tdt)
+    tensors = {n: a if isinstance(a, torch.Tensor) else
+               torch.from_numpy(np.ascontiguousarray(a)).to(device).to(tdt)
+               for n, a in arrays.items()}
+    a3, b3 = cuda_gen.card_views(spec, *(tensors[n] for n in spec.operands))
+    batch, m, k = a3.shape
+    n = b3.shape[2]
+    sched = (survivors[0].candidate.to_schedule() if survivors
+             else default_schedule(spec))
+    plans = card_candidates(spec, a3, b3)
+    stats = SearchStats()
+    if not plans:  # the mma.sync / FMA body: no plan, one measurement
+        return [RankedPlan(schedule=sched, score=float("inf"),
+                           lower_bound=0.0, fits_vmem=True,
+                           source="default")], stats, tensors
+    heur = cuda_gen.heuristic_plan(plans[0].body, batch, m, n, k,
+                                   cuda_gen._sm_count(a3.device))
+    scored, stats = card_beam(plans, batch, m, n, k, dtype_name(tdt),
+                              beam_width=beam_width, topk=topk,
+                              heuristic=heur, stats=stats)
+    ladder = [
+        RankedPlan(
+            schedule=sched, score=cost.score, lower_bound=cost.lower_bound,
+            fits_vmem=True, source="default" if plan == heur else "search",
+            explain={"compute_s": float(cost.compute_s),
+                     "hbm_s": float(cost.hbm_s), "waves": int(cost.waves)},
+            card=plan,
+        )
+        for plan, cost in scored
+    ]
+    return ladder, stats, tensors
+
+
+def _default_device(device: Optional[str]) -> str:
+    """``device``, or the card where one is visible, else "cpu"."""
+    if device is not None:
+        return str(device)
+    import torch
+
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def search_schedule(
+    spec: ContractionSpec,
+    *,
+    dtype=np.float32,
+    beam_width: int = 8,
+    topk: int = 4,
+    elem_bytes: Optional[int] = None,
+    hw: dict = TPU,
+    measure: bool = True,
+    interpret: bool = True,
+    repeats: int = 2,
+    arrays: Optional[Dict[str, np.ndarray]] = None,
+    include_default: bool = True,
+    plan_db: Optional[PlanDB] = None,
+    use_cached_plan: bool = True,
+    mesh_shape=None,
+    phase: Optional[str] = None,
+    device: Optional[str] = None,
+) -> SearchResult:
+    """The end-to-end pipeline: enumerate -> prune -> measure -> persist.
+
+    Returns the ranked ladder best-first.  When ``measure`` is on, the
+    ranking is by measured seconds and — because ``include_default`` puts
+    the un-searched ``codegen.default_schedule`` (on the card: the
+    launcher's heuristic plan) into the measured set — the winner is by
+    construction never slower than the default on the measurement harness
+    used.  ``device`` places the operands: "cpu" (the reference's ladder,
+    the plain version timed on the host) or "cuda" (the card ladder, see
+    the package docstring); by default the card where one is visible.
+    The ladder is keyed by where it was measured
+    (``codegen.cache.measured_on``): on a machine with a card, a ladder
+    timed on the host goes under ``cpu`` and one timed on the card under
+    the card's fingerprint, so neither answers a search of the other.
+
+    ``plan_db`` (or pass ``default_plan_db()``) persists the ladder;
+    ``use_cached_plan`` short-circuits a repeated search of the same
+    spec/dtype/hardware from the DB, except that an analytic-only
+    (``measure=False``) ladder never satisfies a measured request.
+    ``phase`` ('prefill'/'decode') persists the ladder under the
+    serving-phase-qualified key (``plandb.plan_key(phase=...)``), the one
+    the serving runners consult via ``plandb.serving_phase``.  A
+    ``mesh_shape`` raises (the mesh tier, queue A item 6c).
+    """
+    from ..codegen.cache import dtype_itemsize, dtype_name, measured_on
+
+    spec = spec.root()
+    _mesh_refusal(mesh_shape)
+    device = _default_device(device)
+    hardware = measured_on(device)
+    dt = dtype
+    if elem_bytes is None:
+        elem_bytes = dtype_itemsize(dt)
+
+    if plan_db is not None and use_cached_plan:
+        cached = plan_db.get(spec, dt, hardware, phase=phase)
+        if (
+            cached
+            and cached.get("ranked")
+            and measure
+            and cached["ranked"][0].get("measured_s") is None
+        ):
+            # an analytic-only (--no-measure) ladder must not satisfy a
+            # measured request: fall through and run the full pipeline
+            cached = None
+        if cached and cached.get("ranked"):
+            ranked = _ladder_from(cached, spec)
+            if ranked:
+                stats = SearchStats()
+                for k, v in (cached.get("stats") or {}).items():
+                    if hasattr(stats, k):
+                        setattr(stats, k, v)
+                return SearchResult(
+                    spec=spec, dtype=dtype_name(dt), ranked=ranked,
+                    stats=stats,
+                    db_key=plan_key(spec, dt, hardware, phase=phase),
+                )
+
+    with obs.span("search.beam", spec=spec.name, mesh=None):
+        survivors, stats = beam_search(
+            spec, beam_width=beam_width, topk=topk,
+            elem_bytes=elem_bytes, hw=hw,
+        )
+    obs.counter("search.candidates").inc(stats.considered)
+    obs.counter("search.pruned_bound").inc(stats.pruned_bound)
+    obs.counter("search.pruned_beam").inc(stats.pruned_beam)
+    obs.counter("search.mesh_variants").inc(stats.mesh_variants)
+    plans: List[RankedPlan] = [
+        RankedPlan(
+            schedule=sc.candidate.to_schedule(),
+            score=sc.cost.score,
+            lower_bound=sc.cost.lower_bound,
+            fits_vmem=sc.cost.fits_vmem,
+            collective=sc.candidate.collective,
+            explain=_explain_of(sc.cost),
+        )
+        for sc in survivors
+    ]
+    if include_default:
+        from ..codegen import default_schedule
+
+        base_sched = default_schedule(spec)
+        base_dict = _sched_dict(base_sched)
+        if not any(_sched_dict(p.schedule) == base_dict for p in plans):
+            est = estimate(
+                spec, spec.indices,
+                {i: spec.extents[i] for i in spec.indices},
+                elem_bytes=elem_bytes, hw=hw,
+            )
+            plans.append(
+                RankedPlan(
+                    schedule=base_sched,
+                    score=est.score,
+                    lower_bound=est.lower_bound,
+                    fits_vmem=est.fits_vmem,
+                    source="default",
+                    explain=_explain_of(est),
+                )
+            )
+        else:
+            for p in plans:
+                if _sched_dict(p.schedule) == base_dict:
+                    p.source = "default"
+
+    on_card = device != "cpu"
+    measured: List[RankedPlan] = []
+    tensors = arrays
+    if measure and on_card:
+        card = _card_ladder(spec, survivors, arrays, dt, beam_width, topk,
+                            device)
+        if card is not None:
+            plans, stats, tensors = card
+            measured = list(plans)
+        else:
+            # no B1 plan to search: one measurement of the default
+            measured = [p for p in plans if p.source == "default"][:1]
+    elif measure:
+        measured = list(plans)
+    if measured:
+        with obs.span("search.measure", spec=spec.name, n=len(measured)):
+            ms = measure_schedules(
+                spec, [p.schedule for p in measured],
+                arrays=tensors, dtype=dt, interpret=interpret,
+                repeats=repeats, device=device,
+                cards=[p.card for p in measured],
+            )
+        for p, m in zip(measured, ms):
+            p.measured_s = m.seconds
+            p.max_err = m.max_err
+            p.spread_s = m.spread_s
+        stats.measured += len(ms)
+        obs.counter("search.measured").inc(len(ms))
+    if measure:
+        plans.sort(
+            key=lambda p: (
+                p.measured_s is None,
+                p.measured_s if p.measured_s is not None else p.score,
+                p.score,
+            )
+        )
+    else:
+        plans.sort(key=lambda p: (not p.fits_vmem, p.score))
+
+    result = SearchResult(
+        spec=spec, dtype=dtype_name(dt), ranked=plans, stats=stats,
+    )
+    if plan_db is not None and plans:
+        with obs.span("search.persist", spec=spec.name, mesh=None):
+            result.db_key = plan_db.put(
+                spec, dt,
+                [
+                    entry_from(
+                        p.schedule,
+                        score=p.score,
+                        lower_bound=p.lower_bound,
+                        fits_vmem=p.fits_vmem,
+                        measured_s=p.measured_s,
+                        source=p.source,
+                        collective=p.collective,
+                        explain=p.explain,
+                        card=None if p.card is None else p.card.as_dict(),
+                    )
+                    for p in plans
+                ],
+                stats=stats.as_dict(),
+                hardware=hardware,
+                mesh=None,
+                cuts=[
+                    {"key": k, "lower_bound": lb, "best_score": bs}
+                    for k, lb, bs in stats.bound_log[:_MAX_CUTS]
+                ],
+                phase=phase,
+            )
+    return result
+
+
+#: bound-cut sample size persisted per entry — enough for the explain
+#: table's why-not side without bloating the fleet DB on big sweeps
+_MAX_CUTS = 12
+
+
+def _explain_of(est: CostEstimate) -> Dict[str, float]:
+    """The CostEstimate terms a plan-DB rung keeps (``explain`` field)."""
+    return {
+        "compute_s": float(est.compute_s),
+        "hbm_s": float(est.hbm_s),
+        "comm_s": float(est.comm_s),
+        "penalty": float(est.penalty),
+        "seq_steps": int(est.seq_steps),
+        "shards": int(est.shards),
+    }
+
+
+def _sched_dict(s: Schedule) -> str:
+    import json
+
+    from ..codegen.cache import schedule_to_dict
+
+    return json.dumps(schedule_to_dict(s), sort_keys=True)
+
+
+def _sched_from(d, root: ContractionSpec) -> Schedule:
+    from ..codegen.cache import schedule_from_dict
+
+    return schedule_from_dict(d, root)
+
+
+def search_schedule_with_grads(
+    spec: ContractionSpec, **kwargs
+) -> Dict[str, SearchResult]:
+    """Sweep a forward spec together with its derived backward specs.
+
+    Runs the full ``search_schedule`` pipeline once per point of
+    ``space.sweep_specs(spec, with_grads=True)`` — the forward contraction
+    plus every cotangent GEMM from ``grad.derive`` (dA = g·Bᵀ etc.), each
+    persisted under its own plan key.  Returns ``{label -> SearchResult}``
+    with labels ``fwd``, ``dA``, ``dB``, ...  On the card the backward
+    specs are measured on the layouts the backward passes them in (the
+    cotangent and the saved operands as stored), so ``.dB``'s ring may
+    read an m-major x^T where the forward's reads x k-major.
+    """
+    return {
+        label: search_schedule(s, **kwargs)
+        for label, s in sweep_specs(spec, with_grads=True)
+    }
+
+
+def search_dtype_ladder(
+    spec: ContractionSpec,
+    *,
+    dtype=np.float32,
+    tiers: Sequence[str] = QUANT_TIERS,
+    **kwargs,
+) -> Dict[str, SearchResult]:
+    """Search the dtype axis: the baseline tier plus each quant tier.
+
+    Runs the full ``search_schedule`` pipeline once per point of
+    ``space.dtype_tier_specs`` — the caller's spec at its full/half
+    precision, then the int8 and fp8 re-taggings at their 1-byte storage
+    dtypes.  Every tier persists under its own dtype-qualified plan key,
+    so ``ops.dense(quant=...)`` picks up the matching ladder.  Returns
+    ``{tier -> SearchResult}`` with ``"baseline"`` always present; rank
+    tiers against each other with ``best_dtype_tier``.
+    """
+    return {
+        tier: search_schedule(s, dtype=dt, **kwargs)
+        for tier, s, dt in dtype_tier_specs(spec, dtype=dtype, tiers=tiers)
+    }
+
+
+def best_dtype_tier(results: Dict[str, SearchResult]) -> str:
+    """The precision tier the roofline ranks fastest for this shape.
+
+    Compared on the *analytic* score of each tier's best plan — the
+    quant-aware byte model is exactly what distinguishes tiers (operand
+    traffic shrinks 4x at matched shapes).  Accuracy policy stays with
+    the caller; this only says what the hardware model prefers.
+    """
+    if not results:
+        raise ValueError("no tiers searched")
+    return min(
+        results,
+        key=lambda t: (
+            not results[t].best.fits_vmem,
+            results[t].best.score,
+            t,
+        ),
+    )
+
+
+def search_gemm_plans(
+    shapes: Sequence[Tuple[int, int, int]],
+    *,
+    dtype=np.float32,
+    beam_width: int = 8,
+    topk: int = 3,
+    interpret: bool = True,
+    measure: bool = True,
+    plan_db: Optional[PlanDB] = None,
+    with_grads: bool = False,
+    mesh_shape=None,
+    phase: Optional[str] = None,
+    device: Optional[str] = None,
+) -> int:
+    """Search + persist plans for (m, k, n) GEMMs; returns #plans readied.
+
+    The serving analogue of ``ops.warm_dense_cache``: where warmup fills
+    the autotune cache with the analytic pick, this runs the full
+    enumerate->prune->measure pipeline and stores the ranked ladder, so
+    ``ops.dense`` serves the *searched* plan from then on.  With
+    ``with_grads`` each GEMM's derived backward specs are swept too (the
+    count then includes them).  With ``phase`` the ladders persist under
+    the serving-phase-qualified keys — how the prefill/decode runners each
+    sweep their own ladder for the same shape family.  ``device`` as in
+    ``search_schedule``; a ``mesh_shape`` raises (queue A item 6c).
+    """
+    _mesh_refusal(mesh_shape)
+    db = plan_db if plan_db is not None else default_plan_db()
+    n = 0
+    for m, k, nn in shapes:
+        spec = matmul_spec(m, k, nn)
+        kw = dict(
+            dtype=dtype, beam_width=beam_width, topk=topk,
+            interpret=interpret, measure=measure, plan_db=db,
+            phase=phase, device=device,
+        )
+        if with_grads:
+            n += len(search_schedule_with_grads(spec, **kw))
+        else:
+            search_schedule(spec, **kw)
+            n += 1
+    return n
+
 
 __all__ = [
+    "Candidate",
+    "CostEstimate",
+    "Measurement",
+    "MeshVariant",
     "PLAN_VERSION",
     "PlanDB",
+    "RankedPlan",
+    "ScoredCandidate",
+    "SearchResult",
+    "SearchStats",
+    "SPEC_FAMILIES",
+    "QUANT_TIERS",
     "active_phase",
+    "beam_search",
+    "best_dtype_tier",
+    "block_choices",
+    "candidate_orders",
+    "candidate_schedule",
+    "card_beam",
+    "card_candidates",
     "default_plan_db",
+    "dtype_tier_specs",
+    "einsum_reference",
+    "entry_from",
+    "estimate",
+    "grad_plan_keys",
+    "make_candidate",
+    "measure_schedules",
+    "mesh_descriptor",
+    "mesh_for_schedules",
+    "mesh_variants",
+    "parse_mesh_shape",
     "plan_key",
+    "reference_arrays",
+    "schedule_mesh_axes",
+    "search_dtype_ladder",
+    "search_gemm_plans",
+    "search_schedule",
+    "search_schedule_with_grads",
     "serving_phase",
+    "spec_from_name",
+    "sweep_specs",
 ]

@@ -1,0 +1,351 @@
+"""Measure surviving candidates through the kernel generator.
+
+The paper measures *every* variant; after the analytic cut only the beam's
+top-K reach this stage.  Each survivor is compiled with
+``codegen.cached_compile`` (the path ``ops.dense`` takes) and timed with
+the same operand data, after a check against the f64 einsum oracle: a
+candidate that computes a wrong answer raises and is never ranked.
+
+The operands' device decides what is timed, as everywhere in the port:
+
+* CPU tensors (numpy arrays by default) run the kernel's plain version
+  (``contract_ref``) on the host clock, min over ``repeats`` after a
+  warm-up -- the reference's interpret-mode role: it closes the loop on a
+  machine without a card and says nothing about speed;
+* CUDA tensors launch the kernel.  Each candidate is timed between CUDA
+  events: a warm-up launch (which is also the checked one), then the
+  median of at least ``CARD_REPEATS`` launches, taken in rounds that time
+  every candidate once in turn (``Measurement.spread_s`` their
+  interquartile range), the 50 MB L2 flushed before each (a
+  serving step meets its weights cold; the flush also keeps the device
+  busy while the host enqueues the launch).  Candidates
+  carry B1's tile plan (``cards``, ``codegen.cuda_gen.CardPlan``), since
+  on the card B1 ignores a schedule's blocks; every timed call of a
+  plain product must be one B1 launch, run on the requested plan
+  (``CONTRACT.last_card``).  The operands go as the views the caller
+  passes (``ops.dense``'s folded x, the backward's cotangent and saved
+  operands for ``.dA`` / ``.dB``), so the measured body is the served one.
+
+Schedules with ``mesh:*`` levels need the mesh tier (``ROADMAP.md`` queue
+A, item 6c) and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..core.enumerate import ContractionSpec
+from ..core.schedule import MESH_TIERS, Schedule
+
+#: the fewest rounds of event-timed launches a candidate's median is
+#: taken over (each round times every candidate once, in turns)
+CARD_REPEATS = 15
+#: bytes zeroed before each timed launch: twenty times the card's 50 MB
+#: L2, and long enough (about 0.3 ms at the HBM rate) that the host has
+#: enqueued the launch before the device reaches it, so the events time
+#: the kernel and not the host's path to it (which is the same for every
+#: plan of a ladder)
+FLUSH_BYTES = 2**30
+#: storage dtypes numpy has no plain type for: drawn in f64 and rounded
+#: to storage through torch (the reference draws them with ml_dtypes)
+_TORCH_ONLY = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
+
+
+@dataclasses.dataclass
+class Measurement:
+    schedule: Schedule
+    seconds: float
+    max_err: Optional[float]  # vs einsum reference; None when skipped
+    #: the B1 tile plan the timed launches ran (card path), or None
+    card: Optional[object] = None
+    #: the interquartile range of the event-timed launches (card path),
+    #: or None
+    spread_s: Optional[float] = None
+
+
+def schedule_mesh_axes(schedule: Schedule) -> Dict[str, int]:
+    """{mesh axis -> size} a schedule's mesh levels require (may be {})."""
+    out: Dict[str, int] = {}
+    for l in schedule.levels:
+        if l.tier in MESH_TIERS:
+            axis = l.tier.split(":", 1)[1]
+            out[axis] = out.get(axis, 1) * l.extent
+    return out
+
+
+def mesh_for_schedules(schedules: Sequence[Schedule]):
+    """None where no schedule has mesh levels; a sharded schedule needs
+    the mesh tier and raises."""
+    for s in schedules:
+        if schedule_mesh_axes(s):
+            raise NotImplementedError(
+                f"schedule {s.levels} is sharded over a device mesh: the "
+                f"mesh tier comes with ROADMAP.md queue A item 6c")
+    return None
+
+
+def reference_arrays(
+    spec: ContractionSpec, dtype=np.float32, seed: int = 0
+) -> Dict[str, np.ndarray]:
+    """Standard-normal operand arrays in ``spec.operands`` order.
+
+    Integer dtypes (the int8 quant tier) draw small ints instead — every
+    product and partial sum is then exactly representable, so the f64
+    einsum oracle doubles as the *dequantized* oracle.  bf16 and fp8 draw
+    the same f64 normals and round them to storage precision, which
+    charges input quantization to the data, not to the kernel under test;
+    numpy has no plain type for them, so their arrays are float32 holding
+    the storage values exactly (``measure_schedules`` casts them back).
+    ``dtype`` is a numpy or torch dtype or its name.
+    """
+    from ..codegen.cache import dtype_name
+
+    rng = np.random.default_rng(seed)
+    spec = spec.root()
+    name = dtype_name(dtype)
+
+    def draw(shape):
+        if name in _TORCH_ONLY:
+            import torch
+
+            x = torch.from_numpy(rng.standard_normal(shape))
+            return x.to(getattr(torch, name)).float().numpy()
+        dt = np.dtype(name)
+        if dt.kind in ("i", "u"):
+            return rng.integers(-4, 5, size=shape).astype(dt)
+        return rng.standard_normal(shape).astype(dt)
+
+    return {
+        name_: draw(tuple(spec.extents[i] for i in axes))
+        for name_, axes in spec.operands.items()
+    }
+
+
+def einsum_reference(
+    spec: ContractionSpec, arrays: Dict[str, np.ndarray]
+) -> np.ndarray:
+    """np.einsum oracle for a root spec (f64 accumulation).
+
+    Fused families are not single einsums — attention gets a stable f64
+    softmax oracle, grouped_matmul a per-group f64 loop.
+    """
+    from ..core.enumerate import einsum_formula
+
+    spec = spec.root()
+    kind = getattr(spec, "fused_kind", "")
+    if kind == "attention":
+        q, k, v = (
+            np.asarray(arrays[n], np.float64) for n in ("Q", "K", "V")
+        )
+        s = np.einsum("hsd,htd->hst", q, k) * spec.extents["d"] ** -0.5
+        if spec.causal:
+            t_ids = np.arange(spec.extents["t"])[None, None, :]
+            s_ids = np.arange(spec.extents["s"])[None, :, None]
+            s = np.where(t_ids <= s_ids, s, -np.inf)
+        p = np.exp(s - s.max(axis=-1, keepdims=True))
+        p = p / p.sum(axis=-1, keepdims=True)
+        return np.einsum("hst,hte->hse", p, v)
+    if kind == "grouped_matmul":
+        names = tuple(spec.operands)
+        vals = {n: np.asarray(arrays[n], np.float64) for n in names}
+        sizes = spec.group_sizes
+        if "g" in spec.output:  # dW orientation: out[g,o1,o2]
+            _, o1, o2 = spec.output
+            lhs = next(n for n in names if o1 in spec.operands[n])
+            rhs = next(n for n in names if o2 in spec.operands[n])
+            out = np.zeros(
+                tuple(spec.extents[i] for i in spec.output), np.float64
+            )
+            o = 0
+            for g, s_g in enumerate(sizes):
+                out[g] = vals[lhs][o : o + s_g].T @ vals[rhs][o : o + s_g]
+                o += s_g
+            return out
+        # row orientation (fwd / dX): out[n, oc]
+        xname, wname = names
+        oc = spec.output[1]
+        c = spec.operands[xname][1]
+        w_axes = spec.operands[wname]
+        out = np.zeros(
+            tuple(spec.extents[i] for i in spec.output), np.float64
+        )
+        o = 0
+        for g, s_g in enumerate(sizes):
+            wg = vals[wname][g]
+            if w_axes.index(c) == 2:  # shared axis last -> transpose
+                wg = wg.T
+            out[o : o + s_g] = vals[xname][o : o + s_g] @ wg
+            o += s_g
+        return out
+    return np.einsum(
+        einsum_formula(spec),
+        *(np.asarray(arrays[n], np.float64) for n in spec.operands),
+    )
+
+
+def _oracle(spec: ContractionSpec, tensors):
+    """The f64 oracle of ``tensors`` on their device: ``torch.einsum`` in
+    f64 for a plain contraction (on the card a full-width product takes
+    milliseconds there, minutes in numpy's loops), ``einsum_reference``
+    for a fused family."""
+    import torch
+
+    from ..core.enumerate import einsum_formula
+
+    spec = spec.root()
+    if getattr(spec, "fused_kind", ""):
+        host = {n: t.double().cpu().numpy()
+                for n, t in zip(spec.operands, tensors)}
+        return torch.from_numpy(einsum_reference(spec, host)).to(
+            tensors[0].device)
+    return torch.einsum(einsum_formula(spec), *(t.double() for t in tensors))
+
+
+def _plain_product(spec: ContractionSpec, dtype) -> bool:
+    """A two-operand f32 / bf16 product: one B1 launch a call."""
+    import torch
+
+    root = spec.root()
+    return (len(root.operands) == 2 and not getattr(root, "fused_kind", "")
+            and getattr(root, "quant", None) is None
+            and dtype in (torch.float32, torch.bfloat16))
+
+
+def measure_schedules(
+    spec: ContractionSpec,
+    schedules: Sequence[Schedule],
+    *,
+    arrays: Optional[Dict[str, object]] = None,
+    dtype=np.float32,
+    interpret: bool = True,
+    repeats: int = 2,
+    check: bool = True,
+    tol: Optional[float] = None,
+    mesh=None,
+    collectives: Optional[Sequence[str]] = None,
+    device: Optional[str] = None,
+    cards: Optional[Sequence[object]] = None,
+) -> List[Measurement]:
+    """Compile + time each schedule; same operand data for every candidate.
+
+    With ``check=True`` every measured kernel is verified against the
+    einsum oracle and a mismatch raises — a schedule that computes the
+    wrong answer must never win the search.  The default tolerance is
+    dtype-appropriate: 1e-3 relative for >= 32-bit floats and 8-bit
+    operands, 5e-2 for half-precision (bf16 rounds the *stored* output
+    even though the kernels accumulate in f32).
+
+    ``arrays`` maps operand names to numpy arrays (default:
+    ``reference_arrays``), placed on ``device`` ("cpu" unless given), or
+    to tensors, whose device and layout are kept.  On CUDA tensors each
+    schedule's ``cards`` entry (a ``CardPlan`` or None) is the B1 plan its
+    launches must run; see the module docstring for the timing.
+    ``interpret`` is the reference's flag and changes nothing here: the
+    device decides.  ``mesh`` and ``collectives`` belong to the mesh tier,
+    which raises.
+    """
+    import torch
+
+    from ..codegen import cached_compile
+    from ..codegen.cache import dtype_name
+
+    spec = spec.root()
+    if mesh is not None:
+        raise NotImplementedError("measuring on a device mesh comes with "
+                                  "ROADMAP.md queue A item 6c")
+    mesh_for_schedules(schedules)
+    tdt = getattr(torch, dtype_name(dtype))
+    quantized = tdt.itemsize == 1
+    if tol is None:
+        # quantized operands (itemsize 1) are exactly representable by
+        # construction (reference_arrays), so the kernel only differs from
+        # the f64 oracle by f32 accumulation order — full-precision tol
+        tol = 1e-3 if tdt.itemsize >= 4 or quantized else 5e-2
+    if arrays is None:
+        arrays = reference_arrays(spec, dtype=tdt)
+    tensors = []
+    for n in spec.operands:
+        a = arrays[n]
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a)).to(
+                device or "cpu").to(tdt)
+        tensors.append(a)
+    card = tensors[0].is_cuda
+    if card and not torch.cuda.is_available():
+        raise RuntimeError("measuring on CUDA tensors needs a card")
+    cards = list(cards) if cards is not None else [None] * len(schedules)
+    b1 = card and _plain_product(spec, tensors[0].dtype)
+    ref = _oracle(spec, tensors) if check else None
+    scale = max(float(ref.abs().max()), 1e-30) if check else 1.0
+    flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                         device=tensors[0].device) if card else None)
+
+    checked = []
+    for sched, plan in zip(schedules, cards):
+        kern = cached_compile(
+            spec, sched, interpret=interpret,
+            # 1-byte operands must not round-trip the accumulator through
+            # int8/fp8 storage on the way out — measure the f32 result
+            out_dtype=torch.float32 if quantized else None,
+            card=plan,
+        )
+        what = f"schedule {sched.levels}" + (f", plan {tuple(plan)}"
+                                             if plan is not None else "")
+        result = _call(kern, tensors, b1, plan, what)  # warm-up, checked
+        err = None
+        if check:
+            err = float((result.double() - ref).abs().max()) / scale
+            if not err <= tol:
+                raise AssertionError(
+                    f"{what} produced wrong output (rel err {err:.3g} > "
+                    f"{tol}) — refusing to rank it")
+        checked.append((sched, plan, kern, what, err))
+    if not card:
+        out = []
+        for sched, plan, kern, _, err in checked:
+            seconds = float("inf")
+            for _ in range(max(repeats, 1)):
+                t0 = time.perf_counter()
+                kern(*tensors)
+                seconds = min(seconds, time.perf_counter() - t0)
+            out.append(Measurement(schedule=sched, seconds=seconds,
+                                   max_err=err, card=plan))
+        return out
+    # the candidates in turns, a round at a time, so that a slow spell of
+    # the card falls on every candidate alike
+    times = [[] for _ in checked]
+    for _ in range(max(repeats, CARD_REPEATS)):
+        for row, (_, plan, kern, what, _) in zip(times, checked):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _call(kern, tensors, b1, plan, what)
+            end.record()
+            end.synchronize()
+            row.append(start.elapsed_time(end) * 1e-3)
+    out = []
+    for row, (sched, plan, _, _, err) in zip(times, checked):
+        q1, _, q3 = statistics.quantiles(row, n=4)
+        out.append(Measurement(schedule=sched, seconds=statistics.median(row),
+                               max_err=err, card=plan, spread_s=q3 - q1))
+    return out
+
+
+def _call(kern, tensors, b1: bool, plan, what: str):
+    """One call of ``kern``; for a plain product on the card, exactly one
+    B1 launch, on ``plan`` where one is given (else raises)."""
+    from ..codegen import CONTRACT
+
+    n0 = CONTRACT.launches
+    out = kern(*tensors)
+    if b1 and (CONTRACT.launches - n0 != 1 or (
+            plan is not None and CONTRACT.last_card != plan)):
+        raise AssertionError(f"{what}: {CONTRACT.launches - n0} B1 launches "
+                             f"in a call, the last on {CONTRACT.last_card}")
+    return out

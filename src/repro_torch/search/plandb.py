@@ -1,12 +1,22 @@
-"""Ranked plan database, lookup side — what ``ops.dense`` consults first.
+"""Ranked plan database — the search pipeline's persistent output.
 
-The search (a later slice of the port) stores its whole ranked ladder per
-(spec, dtype, hardware[, mesh][, phase]) key; this module reads it.  The
-file format and the key derivation are the reference's, byte for byte, so
-a plan DB written by the reference's sweep (e.g.
-``tests/data/plan_db_golden.json``) resolves through the port.  Storage
-reuses ``codegen.cache.AutotuneCache`` (atomic JSON, concurrent-writer
-safe) in a separate file:
+Where ``codegen.cache`` stores *one* tuned schedule per key, the plan DB
+stores the search's whole ranked ladder (schedule + analytic score +
+roofline bound + measured time + search stats) per (spec, dtype,
+hardware[, mesh][, phase]) key, so ops can take the winner today and an
+operator can inspect or re-rank the runners-up tomorrow without
+re-searching.  ``ops.dense`` consults it first.  The file format and the
+key derivation are the reference's, byte for byte, so a plan DB written by
+the reference's sweep (e.g. ``tests/data/plan_db_golden.json``) resolves
+through the port, and a rung the port writes (``entry_from``) is the
+reference's JSON.  The one addition: a rung measured on the card may carry
+a ``card`` field, the B1 tile plan it ran (``{"body", "tile_n",
+"splits"}``, ``codegen.cuda_gen.CardPlan``), which ``ops._tuned_kernel``
+hands to the compiled kernel; a rung without one is the reference's.  A
+card ladder lives under the card's hardware fingerprint
+(``cuda/<device name>``), which no reference key carries.  Storage reuses
+``codegen.cache.AutotuneCache`` (atomic JSON, concurrent-writer safe) in a
+separate file:
 
     $REPRO_PLAN_DB if set, else ~/.cache/repro_torch/plans.json
 
@@ -26,6 +36,7 @@ from ..codegen.cache import (
     cache_key,
     dtype_name,
     schedule_from_dict,
+    schedule_to_dict,
     spec_signature,
 )
 from ..core.enumerate import ContractionSpec
@@ -108,6 +119,27 @@ def serving_phase(phase: Optional[str]) -> Iterator[None]:
         yield
     finally:
         _ACTIVE_PHASE.reset(tok)
+
+
+def grad_plan_keys(
+    spec: ContractionSpec,
+    dtype: Any,
+    hardware: Optional[str] = None,
+    mesh: Optional[str] = None,
+) -> Dict[str, str]:
+    """Plan keys of a forward spec's derived backward specs.
+
+    ``{operand -> key}`` for each cotangent GEMM (``grad.derive``): the
+    keys ``ops``'s custom VJPs look up at training time, and the ones a
+    ``--with-grads`` sweep fills.  Disjoint from the forward key because
+    ``spec_signature`` includes the derived spec's name and structure.
+    """
+    from ..grad import derived_specs
+
+    return {
+        wrt: plan_key(d, dtype, hardware, mesh=mesh)
+        for wrt, d in derived_specs(spec).items()
+    }
 
 
 class PlanDB:
@@ -213,7 +245,9 @@ class PlanDB:
 
         The entry dict carries the plan metadata the schedule alone cannot
         (notably ``collective`` — the finishing-reduction strategy a
-        mesh-sharded plan was measured with, for the mesh tier).
+        mesh-sharded plan was measured with, for the mesh tier — and a
+        card ladder's ``card``, the B1 tile plan ``ops._tuned_kernel``
+        compiles with).
         """
         entry = self.get(spec, dtype, hardware, mesh=mesh, phase=phase)
         if not entry or not entry.get("ranked"):
@@ -240,3 +274,36 @@ def default_plan_db() -> PlanDB:
     if _default is None or _default.path != path:
         _default = PlanDB(path)
     return _default
+
+
+def entry_from(
+    schedule: Schedule,
+    *,
+    score: float,
+    lower_bound: float,
+    fits_vmem: bool,
+    measured_s: Optional[float] = None,
+    source: str = "search",
+    collective: str = "",
+    explain: Optional[Dict[str, Any]] = None,
+    card: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """One ranked rung.  ``explain`` carries the roofline terms the rank
+    was decided from (``beam.CostEstimate``: compute_s/hbm_s/comm_s/
+    penalty/seq_steps/shards).  ``card`` (``CardPlan.as_dict()``: body,
+    tile_n, splits) is the B1 tile plan a card ladder measured; it is
+    written only when given, so a rung without one is the reference's
+    JSON byte for byte."""
+    out = {
+        "schedule": schedule_to_dict(schedule),
+        "score": float(score),
+        "lower_bound": float(lower_bound),
+        "fits_vmem": bool(fits_vmem),
+        "measured_s": None if measured_s is None else float(measured_s),
+        "source": source,
+        "collective": collective,
+        "explain": dict(explain or {}),
+    }
+    if card is not None:
+        out["card"] = dict(card)
+    return out

@@ -1,0 +1,150 @@
+"""Offline variant-search sweep: rewrite rules -> ranked, measured plans.
+
+    python -m repro_torch.search.sweep --spec matmul \\
+        --shapes "512,4096,4096;512,4096,1024" --dtype bfloat16 --with-grads
+
+runs the full ``repro_torch.search`` pipeline for each spec/shape point
+(and with ``--with-grads`` each point's derived backward specs), persists
+the ranked ladders in the plan DB, prints each ladder, and checks that the
+winner round-trips through the plan DB -- the same lookup ``ops.dense``
+performs, the B1 tile plan included.  ``--device`` defaults to ``cuda``:
+there the ladder ranks and measures B1's tile plans on the card (the
+package docstring of ``repro_torch.search``); ``--device cpu`` gives the
+reference's ladder with the kernel's plain version timed on the host,
+keyed ``cpu`` where a card is visible (``codegen.cache.measured_on``).
+``--no-measure`` ranks analytically only.  ``--from-model`` (the capture
+harvest, ``ROADMAP.md`` queue A item 6b) and ``--mesh`` (the mesh tier,
+item 6c) are later slices and raise.
+
+The exit code is non-zero if any sweep point produces no plan or its
+persisted winner does not round-trip.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional, Tuple
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description="cost-guided variant search "
+                                             "sweep")
+    ap.add_argument("--spec", default="matmul",
+                    help="spec family (matmul, matvec, weighted_matmul, "
+                         "batched_matmul, chain_matmul, transposed_matmul, "
+                         "attention, grouped_matmul)")
+    ap.add_argument("--shapes", default=None,
+                    help="semicolon-separated extent tuples, e.g. "
+                         "'512,4096,4096;4,4096,4096' (required)")
+    ap.add_argument("--from-model", default=None, metavar="ARCH",
+                    help="harvest the points from a model (queue A item 6b)")
+    ap.add_argument("--mesh", default=None, metavar="AxB",
+                    help="also sweep the mesh tier (queue A item 6c)")
+    ap.add_argument("--beam", type=int, default=8, help="beam width")
+    ap.add_argument("--topk", type=int, default=4,
+                    help="survivors compiled + measured")
+    ap.add_argument("--dtype", default="float32",
+                    help="operand dtype: float32 or bfloat16 (int8 / "
+                         "float8_e4m3fn for a quantized spec)")
+    ap.add_argument("--no-measure", action="store_true",
+                    help="analytic ranking only, no compile or timing")
+    ap.add_argument("--repeats", type=int, default=2,
+                    help="timed runs a candidate (at least 5 on the card)")
+    ap.add_argument("--plan-db", default=None,
+                    help="plan DB path (default: $REPRO_PLAN_DB or "
+                         "~/.cache/repro_torch/plans.json)")
+    ap.add_argument("--fresh", action="store_true",
+                    help="ignore previously stored plans for these keys")
+    ap.add_argument("--with-grads", action="store_true",
+                    help="also sweep each spec's derived backward specs "
+                         "(grad.derive: dA, dB, ...)")
+    ap.add_argument("--device", default="cuda",
+                    help="where candidates are measured; 'cpu' times the "
+                         "plain versions on the host")
+    return ap.parse_args(argv)
+
+
+def _fmt_sched(sched) -> str:
+    return " ".join(f"{l.index}:{l.tier}:{l.extent}" for l in sched.levels)
+
+
+def run(argv=None) -> Tuple[int, List[tuple]]:
+    """(exit code, [(label, spec, shape, SearchResult)]) of one sweep."""
+    import json
+
+    from ..codegen.cache import measured_on, schedule_to_dict
+    from ..device import resolve_device
+    from . import PlanDB, default_plan_db, search_schedule, spec_from_name
+    from .space import sweep_specs
+
+    args = parse_args(argv)
+    if args.from_model:
+        raise NotImplementedError(
+            "--from-model harvests a model's GEMMs through capture, "
+            "ROADMAP.md queue A item 6b")
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh sweeps the mesh tier, ROADMAP.md queue A item 6c")
+    if not args.shapes:
+        raise SystemExit("sweep: --shapes is required")
+    device = str(resolve_device(args.device).type)
+    db = PlanDB(args.plan_db) if args.plan_db else default_plan_db()
+    shapes = [tuple(int(x) for x in part.split(","))
+              for part in args.shapes.split(";") if part.strip()]
+    points = [(label, spec, shape)
+              for shape in shapes
+              for label, spec in sweep_specs(spec_from_name(args.spec, shape),
+                                             with_grads=args.with_grads)]
+    failures, results = 0, []
+    for label, spec, shape in points:
+        print(f"== {args.spec} {'x'.join(map(str, shape))} [{label}] "
+              f"(beam={args.beam}, topk={args.topk}, dtype={args.dtype}, "
+              f"device={device}) ==", flush=True)
+        res = search_schedule(
+            spec, dtype=args.dtype, beam_width=args.beam, topk=args.topk,
+            measure=not args.no_measure, repeats=args.repeats, plan_db=db,
+            use_cached_plan=not args.fresh, device=device,
+        )
+        results.append((label, spec, shape, res))
+        s = res.stats
+        print(f"   candidates considered={s.considered} "
+              f"deduped={s.deduped} pruned(bound)={s.pruned_bound} "
+              f"pruned(beam)={s.pruned_beam} measured={s.measured}")
+        for rank, p in enumerate(res.ranked):
+            t = ("-" if p.measured_s is None
+                 else f"{p.measured_s * 1e3:8.4f}ms")
+            plan = "" if p.card is None else f" plan={tuple(p.card)}"
+            print(f"   #{rank} [{p.source:10s}] measured={t} "
+                  f"score={p.score:.3e} bound={p.lower_bound:.3e} "
+                  f"vmem_ok={p.fits_vmem}{plan}")
+            print(f"      {_fmt_sched(p.schedule)}")
+        if not res.ranked:
+            print("   FAIL: search produced no plan")
+            failures += 1
+            continue
+        # the lookup ops.dense performs must return the winner just stored
+        stored, rung = db.best_entry(spec, args.dtype, measured_on(device))
+        want = None if res.best.card is None else res.best.card.as_dict()
+        if stored is None or rung.get("card") != want or (
+            json.dumps(schedule_to_dict(stored), sort_keys=True)
+            != json.dumps(schedule_to_dict(res.best.schedule),
+                          sort_keys=True)
+        ):
+            print("   FAIL: winner did not round-trip through the plan DB")
+            failures += 1
+            continue
+        print(f"   plan persisted & round-tripped (db={db.path})", flush=True)
+    if failures:
+        print(f"{failures} sweep point(s) failed")
+        return 1, results
+    print("sweep OK")
+    return 0, results
+
+
+def main(argv: Optional[list] = None) -> int:
+    return run(argv)[0]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -231,8 +231,6 @@ def test_unsupported_requests_raise_not_implemented():
     sched = port_codegen.default_schedule(spec)
     with pytest.raises(NotImplementedError, match="mesh"):
         port_codegen.compile(spec, sched, mesh=object())
-    with pytest.raises(NotImplementedError, match="measure"):
-        port_codegen.tune_schedule(spec, measure_with={})
     # once refused, now ported (B1's chain and int8/fp8 modes): the dequant
     # epilogue, the chain, a quantized spec and dense(quant=) compute
     x = torch.randn(8, 8)
@@ -250,6 +248,40 @@ def test_unsupported_requests_raise_not_implemented():
                                                                     ones)
     assert out.dtype == torch.int32 and bool((out == 8).all())
     assert port_ops.dense(x, x, quant="int8").shape == (8, 8)
+
+
+@pytest.mark.parametrize("keep", (1, 3))
+def test_measured_tuning_picks_among_the_reference_top(keep, tmp_path):
+    """``tune_schedule(measure_with=)``, refused until the search slice:
+    the winner is one of the reference tuner's analytic top-``keep``
+    (exactly its winner at ``keep=1``, where nothing is timed), stored
+    under a measured key that an analytic request never reads."""
+    from repro.codegen import tune as ref_tune
+    from repro.core.cost import TPU
+
+    spec_r, spec_p = RE.matmul_spec(64, 32, 128), PE.matmul_spec(64, 32, 128)
+    rng = np.random.default_rng(5)
+    arrays = {"A": rng.standard_normal((64, 32)).astype(np.float32),
+              "B": rng.standard_normal((32, 128)).astype(np.float32)}
+    scored = sorted(
+        (s, sum(spec_r.extents[i] // b[i] for i in spec_r.indices
+                if i not in spec_r.output), tuple(sorted(b.items())))
+        for b in ref_tune.candidate_blocks(spec_r, TPU)
+        for s in [ref_tune._score(spec_r, b, 4, TPU)] if s is not None)
+    top = [dict(b) for _, _, b in scored[:keep]]
+    cache = port_codegen.AutotuneCache(str(tmp_path / "c.json"))
+    sched = port_codegen.tune_schedule(spec_p, cache=cache, keep=keep,
+                                       measure_with=arrays)
+    want = [port_codegen.cache.schedule_to_dict(
+        port_codegen.default_schedule(spec_p, b)) for b in top]
+    assert port_codegen.cache.schedule_to_dict(sched) in want
+    if keep == 1:
+        ref = ref_codegen.tune_schedule(spec_r, keep=1,
+                                        use_default_cache=False)
+        assert port_codegen.cache.schedule_to_dict(sched) == \
+            ref_codegen.cache.schedule_to_dict(ref)
+    port_codegen.tune_schedule(spec_p, cache=cache, keep=keep)
+    assert (cache.hits, cache.misses) == (0, 2)
 
 
 def test_compiled_kernel_checks_shapes_and_devices():

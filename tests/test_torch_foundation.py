@@ -251,9 +251,10 @@ def test_tuned_kernel_consults_active_phase_first(tmp_path, monkeypatch):
     lookups = []
 
     class Recording:
-        def best_schedule(self, spec, dtype, phase=None):
+        # ops reads the winning rung with its schedule (its ``card`` plan)
+        def best_entry(self, spec, dtype, phase=None):
             lookups.append(phase)
-            return None                      # force the tuner fallback
+            return None, {}                  # force the tuner fallback
 
     monkeypatch.setattr(port_ops, "default_plan_db", lambda: Recording())
     spec = PE.matmul_spec(128, 128, 128)

@@ -2402,3 +2402,143 @@ def test_tune_measures_on_the_card(cuda_device, tmp_path):
     assert cache.hits == 1
     assert [(tv.order, tv.measured_s) for tv in again] == [
         (tv.order, tv.measured_s) for tv in tuned]
+
+
+#: (M, K, N, dtype): a ring shape, decode's narrow body, a narrow M of 40,
+#: a ragged ring shape, and tc32
+CARD_SHAPES = [(256, 1024, 512, torch.bfloat16),
+               (4, 2048, 1024, torch.bfloat16),
+               (40, 512, 640, torch.bfloat16),
+               (200, 1000, 136, torch.bfloat16),
+               (128, 1024, 384, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,dtype", CARD_SHAPES,
+                         ids=[f"{m}x{k}x{n}-{str(d)[6:]}"
+                              for m, k, n, d in CARD_SHAPES])
+def test_every_card_candidate_matches_the_plain_version(cuda_device, m, k,
+                                                        n, dtype):
+    """Every tile plan the search may measure, on the body it names: one
+    launch each, ``CONTRACT.last_card`` the requested plan, the output
+    the plain version's -- the forward and ``matmul.dB``'s transposed
+    views (the ring reads an m-major x^T)."""
+    from repro_torch.grad import derived_specs
+    from repro_torch.search import card_candidates
+
+    spec = PE.matmul_spec(m, k, n)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn(k, n, generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn(m, n, generator=gen, device=cuda_device).to(dtype)
+    cases = [(spec, (x, w))]
+    if m >= 64:
+        cases.append((derived_specs(spec)["B"], (g, x)))
+    for s, args in cases:
+        a3, b3 = cuda_gen.card_views(s, *args)
+        plans = card_candidates(s, a3, b3)
+        body = cuda_gen.contract_body(a3, b3)
+        # f32's matmul.dB reads an m-major x^T: the FMA body, no plan
+        assert bool(plans) == (body in cuda_gen.PLAN_BODIES), (s.name, body)
+        want = cuda_gen.contract_ref(s, *args, out_dtype=dtype)
+        sched = codegen.default_schedule(s)
+        for plan in plans or [None]:
+            kern = codegen.cached_compile(s, sched, card=plan)
+            n0 = cuda_gen.CONTRACT.launches
+            got = kern(*args)
+            torch.cuda.synchronize()
+            assert cuda_gen.CONTRACT.launches == n0 + 1
+            assert cuda_gen.CONTRACT.last_card == (
+                plan or cuda_gen.CardPlan(body, 0, 1)), (s.name, plan)
+            _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_refused_card_plan_raises(cuda_device):
+    spec = PE.matmul_spec(256, 512, 512)
+    x = torch.randn(256, 512, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.randn(512, 512, device=cuda_device, dtype=torch.bfloat16)
+    sched = codegen.default_schedule(spec)
+    for plan in (cuda_gen.CardPlan("ring", 64, 1),    # no such tile
+                 cuda_gen.CardPlan("ring", 128, 9)):  # 8 K steps, 9 splits
+        with pytest.raises(RuntimeError, match="launch failed"):
+            codegen.cached_compile(spec, sched, card=plan)(x, w)
+    # the launch after a refused one runs
+    out = codegen.cached_compile(spec, sched)(x, w)
+    _assert_close_scaled(out, x.float() @ w.float(), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_card_search_serves_its_winner(cuda_device, tmp_path):
+    """A card ladder: distinct plans, the heuristic's among them, the
+    winner no slower than it; ``ops.dense`` then launches the winner's
+    plan (``ops.card_plan.applied``)."""
+    from repro_torch import obs, search
+
+    db = search.default_plan_db()
+    spec = PE.matmul_spec(512, 1024, 768)
+    res = search.search_schedule(spec, dtype=torch.bfloat16, topk=3,
+                                 plan_db=db, device="cuda")
+    cards = [p.card for p in res.ranked]
+    assert None not in cards and len(set(cards)) == len(cards)
+    base = res.baseline()
+    assert base is not None and base.card == cuda_gen.heuristic_plan(
+        "ring", 1, 512, 768, 1024, cuda_gen._sm_count(cuda_device))
+    assert res.best.measured_s <= base.measured_s
+    assert all(p.max_err <= 5e-2 for p in res.ranked)
+    obs.metrics_reset()
+    x = torch.randn(512, 1024, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.randn(1024, 768, device=cuda_device, dtype=torch.bfloat16)
+    out = ops.dense(x, w)
+    assert cuda_gen.CONTRACT.last_card == res.best.card
+    assert obs.metrics_json()["counters"]["ops.card_plan.applied"] == 1
+    _assert_close_scaled(out, x.float() @ w.float(), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_measured_tuning_on_the_card(cuda_device, tmp_path):
+    from repro_torch import search
+
+    spec = PE.matmul_spec(256, 1024, 512)
+    arrays = {"A": torch.randn(256, 1024, device=cuda_device,
+                               dtype=torch.bfloat16),
+              "B": torch.randn(1024, 512, device=cuda_device,
+                               dtype=torch.bfloat16)}
+    cache = codegen.AutotuneCache(str(tmp_path / "tune.json"))
+    a = codegen.tune_schedule(spec, dtype=torch.bfloat16, cache=cache,
+                              measure_with=arrays)
+    b = codegen.tune_schedule(spec, dtype=torch.bfloat16, cache=cache,
+                              measure_with=arrays)
+    assert (cache.hits, cache.misses) == (1, 1)
+    assert codegen.schedule_to_dict(a) == codegen.schedule_to_dict(b)
+    import json
+
+    (entry,) = json.load(open(cache.path)).values()
+    assert entry["measured"] is True and entry["card"]["body"] == "ring"
+    # the tuner deferred to the card search, whose ladder ops reads
+    _, rung = search.default_plan_db().best_entry(spec, torch.bfloat16)
+    assert rung["card"] == entry["card"]
+    assert rung["measured_s"] == entry["measured_s"] > 0
+
+
+@pytest.mark.gpu
+def test_measured_tuning_on_the_card_without_a_plan(cuda_device, tmp_path):
+    """A product on the mma.sync body (K = 999: x's rows are not 16-byte
+    aligned for TMA) has no tile plan to search: the card search times its
+    default once, and the tuner stores that time and no ``card``."""
+    m, k, n = 64, 999, 136
+    spec = PE.matmul_spec(m, k, n)
+    arrays = {"A": torch.randn(m, k, device=cuda_device,
+                               dtype=torch.bfloat16),
+              "B": torch.randn(k, n, device=cuda_device,
+                               dtype=torch.bfloat16)}
+    assert cuda_gen.contract_body(*cuda_gen.card_views(
+        spec, arrays["A"], arrays["B"])) == "mma"
+    cache = codegen.AutotuneCache(str(tmp_path / "tune.json"))
+    codegen.tune_schedule(spec, dtype=torch.bfloat16, cache=cache,
+                          measure_with=arrays)
+    import json
+
+    (entry,) = json.load(open(cache.path)).values()
+    assert entry["measured"] is True and "card" not in entry
+    assert entry["measured_s"] > 0

@@ -52,6 +52,9 @@ def test_port_sources_exist():
     assert (PORT / "codegen" / "csrc" / "contract_q8.cu").is_file()
     assert (PORT / "codegen" / "csrc" / "contract_chain.cu").is_file()
     assert (PORT / "codegen" / "csrc" / "attention.cu").is_file()
+    for module in ("search/space.py", "search/beam.py", "search/measure.py",
+                   "search/sweep.py", "roofline/analysis.py"):
+        assert PORT / module in SOURCES, module
     for module in ("codegen/fused_gen.py", "models/moe.py",
                    "codegen/epilogue.py", "core/autotune.py",
                    "kernels/_baselines.py", "kernels/matmul/matmul.py",
@@ -134,6 +137,26 @@ def test_quant_and_chain_import_with_jax_unimportable():
         "ops.dense(x, x, quant='int8'), ops.dense(x, x, quant='fp8')\n"
         "ops.chain_dense(x, x, x, interpret=True)\n"
         "dequantize_tree(quantize_tree({'w': torch.ones(64, 64)}))\n"
+        "assert 'repro' not in sys.modules, 'reference package imported'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_search_imports_with_jax_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch.search, repro_torch.roofline.analysis\n"
+        "import repro_torch.search.sweep\n"
+        "from repro_torch.core.enumerate import matmul_spec\n"
+        "res = repro_torch.search.search_schedule(matmul_spec(16, 16, 16),"
+        " beam_width=2, topk=1)\n"
+        "assert res.best.measured_s is not None\n"
         "assert 'repro' not in sys.modules, 'reference package imported'\n"
         "print('ok')\n"
     )
