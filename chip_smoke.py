@@ -217,6 +217,35 @@ raises and the script exits non-zero without the final result line:
     many B1 records as B1's counter: ``_judge_take``); the decode step
     must launch B1 7 x 36 times and fill no ints;
     the traces land in ``$CHIP_SMOKE_OUT/profile_{prefill,decode}.json``;
+14b. fixed-serve — phase 13's trace through ``FixedEngine`` on phase
+    13's qwen3-8b parameters (``params=``, no second copy): every request
+    complete with tokens in the vocabulary, B1 7 x 36 x (prefill groups +
+    decode steps) launches; each request's first-token logits from the
+    batched (right-padded) prefill within 6e-2 of max |logit| of a batch-1
+    ``api.prefill`` of its prompt; one batched decode step profiled (a
+    whole trace): 7 x 36 B1 records, and library GEMMs exactly those of
+    36 cached attentions and the f32 unembedding profiled alone; prefill
+    ms, decode tok/s and peak memory beside phase 13's;
+14c. families — mamba2-130m, zamba2-2.7b, whisper-base and internvl2-1b
+    at full width and depth, bf16, seeded weights, through
+    ``FixedEngine``: 4 requests of one prompt length (512; whisper 128
+    beside 1500 seeded frame embeddings a lane; internvl2 512 after 256
+    seeded patches of width 1024), max_new 16, lanes 4: every request
+    complete, tokens in the vocabulary, finite prefill and decode logits,
+    B1 launches a prefill and a decode step as the config implies (0; 9
+    sites x 7 = 63; 72 and 36; 24 x 7 = 168) and over the run; each
+    request's first-token logits from the batched prefill within 6e-2 of
+    max |logit| of a batch-1 prefill and of a batch of its own prompt in
+    every lane (the batched shapes, no other prompt), and, on the same
+    weights and inputs in f32, of a batch-1 prefill within 2e-3; batch-1
+    bf16 against f32 printed beside them; prefill ms, decode tok/s, peak
+    memory;
+14d. fixed-small — the f32 smoke config of each of the six families
+    (dense, MoE under ``REPRO_MOE_GROUPED=1``, ssm, hybrid, encdec, vlm)
+    and ``quant="int8"`` dense and hybrid through ``FixedEngine`` on the
+    card and on the CPU: greedy tokens equal, the first group's prefill
+    logits within 1e-4 of max |ref|, B1 (and B3 for MoE) launched on the
+    card;
 15. MoE serve — the MoE path: ``serve.run`` on kimi-k2-1t-a32b at full width
     (d_model 7168, 64 heads of 112, 384 experts top-8, expert_ff 2048, a
     shared expert, dense_ff 18432, vocab 163840, bf16) cut to 2 layers (one
@@ -2398,12 +2427,8 @@ def phase_profile(engine, first, tag=""):
     time by kernel (the breakdown ``PERF.md`` reads).  ``tag`` prefixes
     the trace files and the printed lines."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.codegen import CONTRACT
 
     cfg = engine.cfg
-    marker = torch.zeros(1, dtype=torch.float64, device="cuda")
     plen = len(first.prompt)
     padded = -(-plen // engine.page_size) * engine.page_size
     toks = torch.zeros((1, padded), dtype=torch.long)
@@ -2438,32 +2463,10 @@ def phase_profile(engine, first, tag=""):
             # B1 records as many as B1's counter, after a marker record;
             # the decode step of the dense model also fills no int (B1's
             # split counters are zeroed once, by the pool)
-            path = os.path.join(OUT, f"profile_{tag}{name}.json")
             other_ok = ((lambda k: "FillFunctor<int>" not in k)
                         if name == "decode" and not tag else (lambda k: True))
-            for take in range(1, TAKES + 1):
-                counted = CONTRACT.launches
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    _open_session(marker)
-                    step()
-                    torch.cuda.synchronize()
-                counted = CONTRACT.launches - counted
-                prof.export_chrome_trace(path)
-                verdict = _judge_take(
-                    [k for _, _, k in _device_events(path)], "contract",
-                    counted, other_ok)
-                if verdict == WHOLE:
-                    break
-                if verdict != LOST:
-                    raise AssertionError(f"profiled {tag}{name} step: "
-                                         f"{verdict}")
-                print(f"[{tag}profile] {name}: take {take} lost the marker's "
-                      f"records; taken again", flush=True)
-            else:
-                raise AssertionError(f"profiled {tag}{name} step: {TAKES} "
-                                     f"traces lost the marker's records")
-            TAKEN[f"{tag}profile {name}"] = take
+            path, counted, take = _whole_take(
+                step, f"{tag}{name}", f"{tag}profile {name}", other_ok)
             busy, events, by_name = _device_time(path, marker=True)
             top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
             row = dict(wall_ms=wall, device_busy_ms=busy, device_events=events,
@@ -3371,7 +3374,9 @@ def phase_search(serve13):
     card ladders, each the launcher's heuristic plan and the top
     ``SEARCH_TOPK`` plans of ``card_candidates`` by ``card_plan_cost``,
     every one checked against the f64 oracle at the bf16 TOL with one B1
-    launch a timed call on its plan (``search.measure``); where the
+    launch a timed call on its plan (``search.measure``); the search
+    keeps the heuristic's plan first unless another beat its median by
+    more than the larger of their spreads; where the
     winner is not the heuristic's plan, the two re-timed by
     ``measure_schedules`` and the winner no slower than the heuristic by
     more than the larger of their spreads (interquartile ranges); for
@@ -4268,6 +4273,545 @@ def phase_hof():
                 tune_rho=rho, csv=csv.getvalue().splitlines())
 
 
+# --------------------------------------------------------------------------
+# slice 16: the fixed-slot server and the four families only it serves
+# --------------------------------------------------------------------------
+
+#: the families' full-width runs: arch -> prompt length (whisper's inside
+#: its 448-token decoder context, beside 1500 encoder frames a lane: 30 s
+#: of audio; internvl2's after its 256 image patches)
+FAMILY_PROMPTS = {"mamba2-130m": 512, "zamba2-2.7b": 512,
+                  "whisper-base": 128, "internvl2-1b": 512}
+WHISPER_FRAMES = 1500
+FAMILY_LANES, FAMILY_NEW = 4, 16
+#: f32 batched vs batch-1 first-token logits, of max |logit|: five times
+#: the most a sound run has shown on the card (4.0e-4, zamba2-2.7b), and
+#: far below what a row that read another row's state would move
+F32_BATCH_TOL = 2e-3
+#: the f32 smoke configs of the six families, card vs CPU
+FIXED_SMALL = ("qwen3-8b", "kimi-k2-1t-a32b", "mamba2-130m", "zamba2-2.7b",
+               "whisper-base", "internvl2-1b")
+
+
+def _b1_per_forward(cfg):
+    """B1 launches of one prefill and of one decode step, from the
+    config: every ``ops.dense`` of an attention block (q, k, v, o) and of
+    an MLP (gate, up, down for SwiGLU; w1, w2 for the GELU MLP).  The
+    SSM projections, the cross-attention, the VLM projector and the
+    logits are plain products, as the reference's ``jnp.dot``s are."""
+    mlp = 3 if cfg.act == "silu" else 2
+    if cfg.family in ("dense", "moe", "vlm"):
+        n = len(_forward_gemms(cfg))
+        return n, n
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        n = (4 + mlp) * (cfg.n_layers // cfg.attn_every)
+        return n, n
+    if cfg.family == "encdec":
+        dec = (4 + mlp) * cfg.n_layers
+        return (4 + mlp) * cfg.enc_layers + dec, dec
+    raise KeyError(cfg.family)
+
+
+def _extra_inputs(cfg, lanes, seed, device, frames=WHISPER_FRAMES,
+                  dtype=None):
+    """The seeded frontend embeddings of encdec (``frames`` of them a
+    lane) and vlm (``N_PATCHES`` patches a lane)."""
+    import torch
+
+    from repro_torch.models import vlm
+    from repro_torch.models.api import N_PATCHES
+
+    gen = torch.Generator().manual_seed(seed)
+    dtype = dtype or cfg.param_dtype
+    shape = {"encdec": ("frames", (lanes, frames, cfg.d_model)),
+             "vlm": ("patches", (lanes, N_PATCHES, vlm.VIT_DIM))}
+    if cfg.family not in shape:
+        return {}
+    key, dims = shape[cfg.family]
+    return {key: torch.randn(dims, generator=gen).to(dtype).to(device)}
+
+
+def _as_requests(trace):
+    from repro_torch.launch.serve import Request
+
+    return [Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+            for r in trace]
+
+
+def _first_logits(server, params, cfg, reqs, max_ctx):
+    """The first-token logits of ``reqs`` from one batched prefill (packed
+    as the server packs them) and from a batch-1 ``api.prefill`` of each
+    prompt with its own frontend row, on ``params`` under ``cfg`` (the
+    served ones, or an f32 copy).  Returns (batched (B, V) f32 logits,
+    their caches, B1's launches in the batched prefill, [solo (V,) f32
+    logits])."""
+    import torch
+
+    from repro_torch.codegen import CONTRACT
+
+    extra = {k: v.to(cfg.param_dtype) for k, v in server.extra_batch.items()}
+    toks, lengths = server._pack(reqs)
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.long,
+                                       device="cuda"), **extra}
+    if lengths is not None:
+        batch["lengths"] = torch.as_tensor(lengths, dtype=torch.long,
+                                           device="cuda")
+    with torch.inference_mode():
+        before = CONTRACT.launches
+        logits, caches = server.api.prefill(params, cfg, batch, max_ctx)
+        launches = CONTRACT.launches - before
+        solos = []
+        for i, r in enumerate(reqs):
+            one = {"tokens": torch.as_tensor(r.prompt, dtype=torch.long,
+                                             device="cuda")[None]}
+            one.update({k: v[i:i + 1] for k, v in extra.items()})
+            solo, _ = server.api.prefill(params, cfg, one, max_ctx)
+            solos.append(solo[0, -1].float())
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.arch_id}: non-finite prefill logits")
+    return logits[:, -1].float(), caches, launches, solos
+
+
+def _scaled(got, want):
+    """max |got - want| over max |want|."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _replicated(server, params, cfg, reqs, logits, max_ctx):
+    """For each request, a batch of its prompt (and frontend row) repeated
+    in every lane, prefilled: the batched run's shapes with no other
+    prompt beside it.  Returns, per request, max over lanes of each lane's
+    first-token logits against the batched run's row, scaled."""
+    import torch
+
+    extra = {k: v.to(cfg.param_dtype) for k, v in server.extra_batch.items()}
+    lanes = logits.shape[0]
+    out = []
+    with torch.inference_mode():
+        for i, r in enumerate(reqs):
+            toks, lengths = server._pack([r] * lanes)
+            batch = {"tokens": torch.as_tensor(toks, dtype=torch.long,
+                                               device="cuda"),
+                     **{k: v[i:i + 1].repeat(lanes, *[1] * (v.dim() - 1))
+                        for k, v in extra.items()}}
+            if lengths is not None:
+                batch["lengths"] = torch.as_tensor(lengths, dtype=torch.long,
+                                                   device="cuda")
+            rep, _ = server.api.prefill(params, cfg, batch, max_ctx)
+            rep = rep[:, -1].float()
+            out.append(max(_scaled(rep[j], logits[i])
+                           for j in range(lanes)))
+    return out
+
+
+def _fixed_run(engine, trace, what):
+    """``Gateway(engine).run(trace)`` with B1's count zeroed just before:
+    every request complete with tokens in the vocabulary.  Returns (stats,
+    B1 launches, peak bytes, wall s)."""
+    import torch
+
+    from repro_torch.codegen import CONTRACT, GROUPED
+    from repro_torch.launch.serving import Gateway
+
+    cfg = engine.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CONTRACT.launches = 0
+    GROUPED.launches = 0
+    t0 = time.perf_counter()
+    stats = Gateway(engine).run(trace)
+    took = time.perf_counter() - t0
+    launches = CONTRACT.launches
+    for r in trace:
+        if len(r.out_tokens) != r.max_new or r.state != "finished":
+            raise AssertionError(f"{what}: request {r.rid} ended with "
+                                 f"{len(r.out_tokens)}/{r.max_new} tokens")
+        if not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            raise AssertionError(f"{what}: request {r.rid}: token outside "
+                                 f"the vocab")
+    return stats, launches, torch.cuda.max_memory_allocated(), took
+
+
+def _check_b1(launches, stats, per, what):
+    want = per[0] * stats["prefills"] + per[1] * stats["decode_steps"]
+    if launches != want:
+        raise AssertionError(
+            f"{what}: B1 launched {launches} times, expected {per[0]} x "
+            f"{stats['prefills']} prefill(s) + {per[1]} x "
+            f"{stats['decode_steps']} decode step(s) = {want}")
+    return want
+
+
+def _library_gemm_records(path):
+    """{library GEMM kernel: records} of a trace's marker session."""
+    return {k: n for k, n in _kernels_after_marker(path).items()
+            if _category(k) == "cublas"}
+
+
+def _whole_take(run, name, key, other_ok=lambda k: True):
+    """``run()`` once under ``torch.profiler`` in a session opened by the
+    marker, taken again while the trace lost the marker's records, up to
+    ``TAKES`` times; a take that is neither whole nor lost fails
+    (``_judge_take``: B1's records equal its counter, other device work
+    where ``other_ok`` allows it).  The trace goes to
+    ``profile_<name>.json`` and the takes it needed to ``TAKEN[key]``.
+    Returns (trace path, B1 launches counted, takes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.codegen import CONTRACT
+
+    marker = torch.zeros(1, dtype=torch.float64, device="cuda")
+    path = os.path.join(OUT, f"profile_{name}.json")
+    for take in range(1, TAKES + 1):
+        counted = CONTRACT.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _open_session(marker)
+            run()
+            torch.cuda.synchronize()
+        counted = CONTRACT.launches - counted
+        prof.export_chrome_trace(path)
+        verdict = _judge_take([k for _, _, k in _device_events(path)],
+                              "contract", counted, other_ok)
+        if verdict == WHOLE:
+            TAKEN[key] = take
+            return path, counted, take
+        if verdict != LOST:
+            raise AssertionError(f"profiled {name}: {verdict}")
+        print(f"[profile] {name}: take {take} lost the marker's records; "
+              f"taken again", flush=True)
+    raise AssertionError(f"profiled {name}: {TAKES} traces lost the "
+                         f"marker's records")
+
+
+def _fixed_decode_profile(engine, caches, nxt):
+    """One batched decode step of the fixed server under ``torch.profiler``
+    (a whole trace): B1's records equal its count, 7 x n_layers, and the
+    step's library GEMMs are exactly those of the plain products the
+    reference also leaves outside its kernels: n_layers x the cached
+    attention (``layers.decode_attention``'s two einsums) and the f32
+    unembedding (``layers.logits``), each profiled alone at the step's
+    shapes.  So no projection or MLP product runs off B1.  Returns (device
+    busy ms, B1 device ms, wall ms, library records)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    server = engine.server
+    cfg = server.cfg
+    b = nxt.shape[0]
+    kv = caches["seg0"]["dense"]
+    step = lambda: server.api.decode_step(  # noqa: E731
+        server.params, cfg, caches, nxt[:, None])
+    q = torch.randn((b, 1, cfg.n_heads, cfg.hd), device="cuda").to(
+        cfg.param_dtype)
+    x = torch.randn((b, 1, cfg.d_model), device="cuda").to(cfg.param_dtype)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("fixed decode step: non-finite logits")
+        path, counted, _ = _whole_take(step, "fixed_decode",
+                                       "fixed-serve decode")
+        attn, _, _ = _whole_take(lambda: L.decode_attention(
+            q, kv["k"][0], kv["v"][0], kv["len"][0] + 1), "fixed_attention",
+            "fixed-serve attention")
+        unembed, _, _ = _whole_take(lambda: L.logits(
+            server.params["embedding"], cfg, x), "fixed_unembed",
+            "fixed-serve unembedding")
+    if counted != 7 * cfg.n_layers:
+        raise AssertionError(f"fixed decode step: {counted} B1 launches "
+                             f"(expected 7 x {cfg.n_layers})")
+    library = collections.Counter(_library_gemm_records(path))
+    plain = collections.Counter()
+    for _ in range(cfg.n_layers):
+        plain.update(_library_gemm_records(attn))
+    plain.update(_library_gemm_records(unembed))
+    if library != plain:
+        raise AssertionError(f"fixed decode step: library GEMMs "
+                             f"{dict(library)}, but {cfg.n_layers} cached "
+                             f"attentions and the f32 unembedding alone run "
+                             f"{dict(plain)}")
+    busy, _, by_name = _device_time(path, marker=True)
+    b1 = sum(v[0] for k, v in by_name.items() if _kernel_of(k) == "contract")
+    return busy, b1, wall, dict(library)
+
+
+def phase_fixed_serve(engine, serve_stats, serve_peak, smi):
+    """qwen3-8b at full size through ``FixedEngine``, sharing the serve
+    phase's parameters, on the serve phase's trace."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.serving import FixedEngine, synthetic_trace
+
+    args = serve.parse_args(SERVE_ARGS)
+    cfg = engine.cfg
+    max_ctx = args.prompt_len + args.max_new + 1
+
+    def trace():
+        return synthetic_trace(
+            args.requests, vocab=cfg.vocab, seed=args.seed,
+            rate_hz=args.rate_hz,
+            prompt_lens=tuple(sorted({args.prompt_len // 4,
+                                      args.prompt_len // 2,
+                                      args.prompt_len})),
+            max_news=tuple(sorted({args.max_new // 4, args.max_new})))
+
+    fixed = FixedEngine(cfg, lanes=args.lanes, max_ctx=max_ctx,
+                        params=engine.params, device="cuda")
+    served = trace()
+    stats, launches, peak, took = _fixed_run(fixed, served, "fixed-serve")
+    per = _b1_per_forward(cfg)
+    _check_b1(launches, stats, per, "fixed-serve")
+    server = fixed.server
+    reqs = _as_requests(trace())
+    logits, caches, _, solos = _first_logits(server, server.params, cfg,
+                                             reqs, max_ctx)
+    worst = max(_scaled(logits[i], solo) for i, solo in enumerate(solos))
+    if not worst <= TOL["bfloat16"][0]:
+        raise AssertionError(f"fixed-serve: batched and batch-1 first-token "
+                             f"logits differ by {worst:.4g} of max |logit| "
+                             f"(bf16 TOL {TOL['bfloat16'][0]})")
+    nxt = torch.argmax(logits, dim=-1)
+    firsts = [r.out_tokens[0] for r in served]
+    if nxt.tolist()[:len(firsts)] != firsts:
+        raise AssertionError("fixed-serve: re-run batched prefill disagrees "
+                             "with the engine's first tokens")
+    busy, b1_ms, wall, library = _fixed_decode_profile(fixed, caches, nxt)
+    summary = {k: v for k, v in stats.items() if k != "tenant_tokens"}
+    print(f"[fixed-serve] {cfg.arch_id} {cfg.n_layers} layers through "
+          f"FixedEngine (lanes {args.lanes}, max_ctx {max_ctx}): "
+          f"{json.dumps(summary)}", flush=True)
+    print(f"[fixed-serve] prompts {[len(r.prompt) for r in served]}, "
+          f"max_new {[r.max_new for r in served]}; B1 launches {launches} "
+          f"= 7 x {cfg.n_layers} x ({stats['prefills']} prefill group + "
+          f"{stats['decode_steps']} decode steps); batched vs batch-1 "
+          f"first-token logits {worst:.4g} of max |logit|", flush=True)
+    print(f"[fixed-serve] fixed: prefill {stats['prefill_s'] * 1e3:.1f} ms "
+          f"(one group of {args.lanes}), decode {stats['tok_per_s']:.2f} "
+          f"tok/s, max_memory_allocated {peak / 2**30:.2f} GiB; continuous "
+          f"(phase serve): prefill {serve_stats['prefill_s'] * 1e3:.1f} ms "
+          f"({serve_stats['prefills']} prefills), decode "
+          f"{serve_stats['tok_per_s']:.2f} tok/s, max_memory_allocated "
+          f"{serve_peak / 2**30:.2f} GiB; on {smi}", flush=True)
+    print(f"[fixed-serve] profiled decode step (batch {args.lanes}): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms, B1 {b1_ms:.3f} ms over "
+          f"{7 * cfg.n_layers} launches, library GEMMs {library} (those "
+          f"of {cfg.n_layers} cached attentions and the f32 unembedding)",
+          flush=True)
+    return dict(stats=summary, launches=launches, peak=peak, wall_s=took,
+                batched_vs_solo=worst, decode_busy_ms=busy, decode_b1_ms=b1_ms,
+                decode_wall_ms=wall, library=library)
+
+
+def phase_families(smi):
+    """mamba2-130m, zamba2-2.7b, whisper-base and internvl2-1b at full
+    width and depth, bf16, seeded weights, through ``FixedEngine``: 4
+    requests of one prompt length, max_new 16, lanes 4."""
+    import torch
+
+    from repro_torch.codegen import CONTRACT
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serving import FixedEngine, synthetic_trace
+    from repro_torch.models.api import N_PATCHES, get_api
+
+    out = {}
+    for arch, plen in FAMILY_PROMPTS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        api = get_api(cfg)
+        with torch.inference_mode():
+            params = api.init(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0), "cuda")
+        n_params = sum(t.numel() for t in _tensors(params))
+        max_ctx = (plen + FAMILY_NEW + 1
+                   + (N_PATCHES if cfg.family == "vlm" else 0))
+
+        def trace():
+            return synthetic_trace(FAMILY_LANES, vocab=cfg.vocab, seed=0,
+                                   rate_hz=0.0, prompt_lens=(plen,),
+                                   max_news=(FAMILY_NEW,))
+
+        engine = FixedEngine(cfg, lanes=FAMILY_LANES, max_ctx=max_ctx,
+                             params=params, device="cuda",
+                             extra_batch=_extra_inputs(cfg, FAMILY_LANES, 1,
+                                                       "cuda"))
+        served = trace()
+        stats, launches, peak, took = _fixed_run(engine, served, arch)
+        per = _b1_per_forward(cfg)
+        _check_b1(launches, stats, per, arch)
+        server = engine.server
+        reqs = _as_requests(trace())
+        logits, caches, at_prefill, solos = _first_logits(
+            server, server.params, cfg, reqs, max_ctx)
+        nxt = torch.argmax(logits, dim=-1)
+        if nxt.tolist() != [r.out_tokens[0] for r in served]:
+            raise AssertionError(f"{arch}: re-run batched prefill disagrees "
+                                 f"with the engine's first tokens")
+        # a counted decode step after the batched prefill: the per-forward
+        # counts apart
+        with torch.inference_mode():
+            before = CONTRACT.launches
+            step, _ = server.api.decode_step(server.params, cfg, caches,
+                                             nxt[:, None])
+            at_decode = CONTRACT.launches - before
+            if not bool(torch.isfinite(step).all()):
+                raise AssertionError(f"{arch}: non-finite decode logits")
+        if (at_prefill, at_decode) != per:
+            raise AssertionError(f"{arch}: a prefill and a decode step "
+                                 f"launched B1 {at_prefill} and {at_decode} "
+                                 f"times, expected {per}")
+        del caches, step
+        # the same weights and inputs in f32: batched vs batch-1 there, and
+        # how far bf16's own rounding moves each row
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        with torch.inference_mode():
+            params32 = _tree_float(params)
+        logits32, _, _, solos32 = _first_logits(server, params32, cfg32,
+                                                reqs, max_ctx)
+        del params32
+        bvs = [_scaled(logits[i], s) for i, s in enumerate(solos)]
+        bvs32 = [_scaled(logits32[i], s) for i, s in enumerate(solos32)]
+        rounding = [_scaled(s, s32) for s, s32 in zip(solos, solos32)]
+        same = _replicated(server, server.params, cfg, reqs, logits,
+                           max_ctx)
+        for what, got, bound in (
+                ("batched vs batch-1", bvs, TOL["bfloat16"][0]),
+                ("batched vs a batch of the same prompt", same,
+                 TOL["bfloat16"][0]),
+                ("f32 batched vs batch-1", bvs32, F32_BATCH_TOL)):
+            if not all(d <= bound for d in got):
+                raise AssertionError(f"{arch}: {what} first-token logits "
+                                     f"{got} of max |logit| (bound {bound})")
+        summary = {k: v for k, v in stats.items() if k != "tenant_tokens"}
+        extra = {k: tuple(v.shape) for k, v in engine.server.extra_batch
+                 .items()}
+        print(f"[families] {arch} ({cfg.family}) {cfg.n_layers} layers"
+              f"{f' + {cfg.enc_layers} encoder' if cfg.enc_layers else ''} "
+              f"d_model {cfg.d_model} vocab {cfg.vocab} {cfg.dtype}, "
+              f"{n_params / 1e9:.3f} B params; prompts {plen} x "
+              f"{FAMILY_LANES}, {extra or 'no frontend input'}, max_ctx "
+              f"{max_ctx}: {json.dumps(summary)}", flush=True)
+        print(f"[families] {arch}: B1 {launches} launches = {per[0]} a "
+              f"prefill x {stats['prefills']} + {per[1]} a decode step x "
+              f"{stats['decode_steps']}; first-token logits of max "
+              f"|logit|: batched vs batch-1 {_fmt(bvs)}, vs a batch of the "
+              f"same prompt {_fmt(same)} (bound {TOL['bfloat16'][0]}), in "
+              f"f32 {_fmt(bvs32)} (bound {F32_BATCH_TOL}); batch-1 bf16 vs "
+              f"f32 {_fmt(rounding)}; first tokens "
+              f"batched {nxt.tolist()}, batch-1 "
+              f"{[int(s.argmax()) for s in solos]}, batch-1 f32 "
+              f"{[int(s.argmax()) for s in solos32]}; prefill "
+              f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{stats['tok_per_s']:.2f} tok/s, max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB, wall {time.perf_counter() - t0:.1f} "
+              f"s; on {smi}", flush=True)
+        out[arch] = dict(stats=summary, launches=launches,
+                         per_forward=list(per), peak=peak, params=n_params,
+                         batched_vs_solo=bvs, batched_vs_same_prompt=same,
+                         batched_vs_solo_f32=bvs32,
+                         bf16_rounding=rounding, wall_s=took)
+        del engine, server, params, logits, logits32
+        _free()
+    return out
+
+
+def _tree_float(tree):
+    """An f32 copy of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def _fmt(xs):
+    return "[" + ", ".join(f"{x:.4g}" for x in xs) + "]"
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def phase_fixed_small():
+    """The f32 smoke config of each of the six families through
+    ``FixedEngine`` on the card and on the CPU from the same weights and
+    frontend inputs: greedy tokens equal, the first group's prefill logits
+    within 1e-4 of max |ref|; weight-only int8 for dense and hybrid.
+    ``REPRO_MOE_GROUPED=1`` is set, so the MoE config runs B3."""
+    import torch
+
+    from repro_torch.codegen import CONTRACT, GROUPED
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serving import FixedEngine, synthetic_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import N_PATCHES, get_api
+
+    if os.environ.get("REPRO_MOE_GROUPED") != "1":
+        raise AssertionError("fixed-small runs the MoE leg with "
+                             "REPRO_MOE_GROUPED=1")
+    legs = [(arch, None) for arch in FIXED_SMALL] + [
+        ("qwen3-8b", "int8"), ("zamba2-2.7b", "int8")]
+    rows = []
+    for arch, quant in legs:
+        cfg = get_config(arch).smoke()
+        cpu_params = get_api(cfg).init(cfg, torch.Generator().manual_seed(3),
+                                       "cpu")
+        extra = _extra_inputs(cfg, 2, 4, "cpu", frames=12,
+                              dtype=torch.float32)
+        max_ctx = 9 + 5 + 1 + (N_PATCHES if cfg.family == "vlm" else 0)
+        outs, firsts, counts = {}, {}, {}
+        for device in ("cpu", "cuda"):
+            params = (cpu_params if device == "cpu" else
+                      T._tree_map(lambda t: t.to(device), cpu_params))
+            trace = synthetic_trace(5, vocab=cfg.vocab, seed=5, rate_hz=0.0,
+                                    prompt_lens=(4, 6, 9), max_news=(2, 5))
+            engine = FixedEngine(cfg, lanes=2, max_ctx=max_ctx, quant=quant,
+                                 params=params, device=device,
+                                 extra_batch={k: v.to(device)
+                                              for k, v in extra.items()})
+            before = (CONTRACT.launches, GROUPED.launches)
+            engine.run(trace)
+            counts[device] = (CONTRACT.launches - before[0],
+                              GROUPED.launches - before[1])
+            outs[device] = [list(r.out_tokens) for r in trace]
+            with torch.inference_mode():
+                toks, lengths = engine.server._pack(_as_requests(trace[:2]))
+                logits, _ = engine.server._prefill(toks, lengths)
+            firsts[device] = logits.float().cpu()
+        tag = f"{arch}{' --quant int8' if quant else ''}"
+        if outs["cpu"] != outs["cuda"]:
+            raise AssertionError(f"fixed-small {tag}: greedy tokens differ, "
+                                 f"card {outs['cuda']} vs CPU {outs['cpu']}")
+        worst = ((firsts["cuda"] - firsts["cpu"]).abs().max().item()
+                 / firsts["cpu"].abs().max().item())
+        if not worst <= 1e-4:
+            raise AssertionError(f"fixed-small {tag}: card and CPU prefill "
+                                 f"logits differ by {worst:.3g} (scaled)")
+        per = _b1_per_forward(cfg)
+        if counts["cpu"] != (0, 0) or (per[0] and not counts["cuda"][0]):
+            raise AssertionError(f"fixed-small {tag}: kernel launches "
+                                 f"{counts} (B1, B3) by device")
+        if cfg.family == "moe" and not counts["cuda"][1]:
+            raise AssertionError(f"fixed-small {tag}: B3 did not launch")
+        print(f"[fixed-small] {tag} ({cfg.family}, f32): card vs CPU prefill "
+              f"logits {worst:.3g} scaled, greedy tokens equal "
+              f"{outs['cuda']}; card launches B1 {counts['cuda'][0]}, B3 "
+              f"{counts['cuda'][1]}", flush=True)
+        rows.append(dict(arch=arch, quant=quant, scaled_diff=worst,
+                         launches=counts["cuda"]))
+    return rows
+
+
 def attention_entry(small, path):
     """The ``kernels`` entry of B2: the sums over the attn-path's four timed
     forwards (a, b, d, e), its launches over that path's run (a-e), the
@@ -4523,7 +5067,14 @@ def main() -> int:
     # the serving paths of the earlier slices
     serve_launches, stats, peak, trace, engine = _phase("serve", phase_serve)
     profiled = _phase("profile", phase_profile, engine, trace[0])
+    # this slice's path: the fixed-slot server on qwen3-8b's parameters,
+    # the four families only it serves, the six families card vs CPU
+    fixed = _phase("fixed-serve", phase_fixed_serve, engine, stats, peak,
+                   smi)
     del trace, engine  # free qwen3-8b's 16.4 GB before kimi-k2's 39.9 GB
+    _free()
+    families = _phase("families", phase_families, smi)
+    fixed_small = _phase("fixed-small", phase_fixed_small)
     _free()
     moe_launches, moe_stats, moe_peak, moe_trace, moe_engine = _phase(
         "moe-serve", phase_moe_serve)
@@ -4569,6 +5120,8 @@ def main() -> int:
                    "attn_small": attn_small, "attn_path": attn,
                    "hof": hof,
                    "serve_int8": serve_int8, "search": search,
+                   "fixed_serve": fixed, "families": families,
+                   "fixed_small": fixed_small,
                    "takes": TAKEN, "seconds": SECONDS, **line}, f, indent=1)
     # the takes each profiled check needed for a whole trace
     print(f"[takes] {json.dumps(TAKEN)}", flush=True)

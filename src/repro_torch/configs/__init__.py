@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-This slice registers the dense family and the two MoE configs; the other
-families' configs come with their models (ROADMAP.md queue A item 6).
+The reference's ten configs, in its order: the dense family, the encoder-
+decoder (whisper-base) and vision-language (internvl2-1b) models, the two
+MoE configs, the pure SSM (mamba2-130m) and the hybrid (zamba2-2.7b).
 """
 
 from __future__ import annotations
@@ -19,8 +20,12 @@ _MODULES = {
     "qwen3-8b": "qwen3_8b",
     "granite-34b": "granite_34b",
     "qwen2-72b": "qwen2_72b",
+    "whisper-base": "whisper_base",
+    "internvl2-1b": "internvl2_1b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "mamba2-130m": "mamba2_130m",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

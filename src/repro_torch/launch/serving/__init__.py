@@ -9,14 +9,16 @@ Layers, bottom to top:
   runs dry.
 * :mod:`.runners` — the prefill (compute-bound) and decode
   (bandwidth-bound, skinny-M) phases, each scoped with its serving phase.
-* :mod:`.engine` — :class:`ContinuousEngine`.
+* :mod:`.engine` — :class:`ContinuousEngine` (slot-free continuous
+  batching) and :class:`FixedEngine` (the fixed-slot server, the only
+  engine of the ssm, hybrid, encdec and vlm families).
 * :mod:`.gateway` / :mod:`.trace` — drive a seeded multi-tenant Poisson
   trace through the engine with per-request observability.
 
 ``python -m repro_torch.launch.serve`` is the CLI entry point.
 """
 
-from .engine import ContinuousEngine
+from .engine import ContinuousEngine, FixedEngine
 from .gateway import Gateway
 from .paged import PagePool, pool_init
 from .scheduler import Scheduler, ServeRequest
@@ -24,6 +26,7 @@ from .trace import synthetic_trace
 
 __all__ = [
     "ContinuousEngine",
+    "FixedEngine",
     "Gateway",
     "PagePool",
     "pool_init",

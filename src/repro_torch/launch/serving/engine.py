@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine over paged KV.
+"""Serving engines: continuous batching over paged KV, and fixed slots.
 
 :class:`ContinuousEngine` is slot-free.  Each loop iteration:
 
@@ -29,8 +29,15 @@ and every prefill and decode step expands it one layer at a time
 (``runners``).  ``search_gemms`` ((m, k, n) shapes, ``serve
 --search-gemms``) has each runner search and persist its phase's ladders
 before the first request (the prefill runner with the derived backward
-specs when ``search_grads``); a restart finds them in the plan DB.  The
-fixed-slot engine is a later slice (ROADMAP.md queue A).
+specs when ``search_grads``); a restart finds them in the plan DB.
+
+:class:`FixedEngine` is the fixed-slot ``launch.serve.BatchServer``
+behind the same ``run()``: requests chunked FCFS into groups of ``lanes``,
+each prefilled together and decoded until its last member finishes (every
+group rounds up to its longest request).  It is the only engine of the
+families whose state cannot be paged (ssm, hybrid, encdec, vlm), and
+the continuous engine's differential baseline: under greedy decoding both
+give the same tokens per request.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from ...configs.base import ModelConfig
 from ...device import resolve_device
 from ...models.api import get_api
 from . import paged
-from .runners import DecodeRunner, PrefillRunner
+from .runners import DecodeRunner, PrefillRunner, quantize_params
 from .scheduler import Scheduler, ServeRequest
 
 
@@ -97,14 +104,7 @@ class ContinuousEngine:
             # expanded layer by layer inside each model call
             self.quant = quant
             if quant:
-                from ...obs import log
-                from ...optim.quant import quantize_tree, tree_quant_bytes
-
-                params = quantize_tree(params, fmt=quant)
-                qb = tree_quant_bytes(params)
-                obs.gauge("serve.quant_bytes").set(qb)
-                log.info("serve", f"weight-only {quant}: "
-                         f"{qb / 2**20:.2f} MiB held as quantized leaves")
+                params = quantize_params(params, quant)
             self.params = params
             self.pools = paged.pool_init(cfg, n_pages, page_size,
                                          device=self.device)
@@ -232,4 +232,66 @@ class ContinuousEngine:
         st["tok_per_s"] = st["decode_tokens"] / max(st["decode_s"], 1e-9)
         st["requests"] = len(requests)
         obs.gauge("serve.tok_per_s").set(st["tok_per_s"])
+        return st
+
+
+class FixedEngine:
+    """The fixed-slot ``BatchServer`` behind the continuous engine's
+    ``run()`` interface.
+
+    ``server_kw`` goes to ``BatchServer`` (``device``, ``quant``,
+    ``extra_batch``, ``warm_gemms``, ``search_gemms``, ``search_grads``);
+    ``params`` shares an existing parameter tree, as in the reference,
+    and is handed to the server, so a tree already on the card is not
+    drawn a second time."""
+
+    def __init__(self, cfg: ModelConfig, *, lanes: int = 4,
+                 max_ctx: int = 128, params=None, **server_kw):
+        from ..serve import BatchServer
+
+        self.lanes = lanes
+        self.server = BatchServer(cfg, batch_size=lanes, max_len=max_ctx,
+                                  params=params, **server_kw)
+        self.cfg = cfg
+        self.device = self.server.device
+
+    @property
+    def params(self):
+        return self.server.params
+
+    def run(
+        self, requests: List[ServeRequest], *, eos_id: Optional[int] = None
+    ) -> Dict:
+        from ..serve import Request
+
+        ordered = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
+        st = dict(prefill_s=0.0, decode_s=0.0, decode_steps=0,
+                  prefill_tokens=0, decode_tokens=0, preemptions=0,
+                  prefills=0)
+        with obs.span("serve.engine", engine="fixed",
+                      requests=len(requests)):
+            for i in range(0, len(ordered), self.lanes):
+                group = ordered[i:i + self.lanes]
+                batch = [
+                    Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+                    for r in group
+                ]
+                t_sub = time.perf_counter()
+                for r in group:
+                    r.t_submit = t_sub
+                s = self.server.run(batch, eos_id=eos_id)
+                done = time.perf_counter()
+                for r, b in zip(group, batch):
+                    r.out_tokens = list(b.out_tokens)
+                    r.state = "finished"
+                    r.t_done = done
+                st["prefill_s"] += s["prefill_s"]
+                st["decode_s"] += s["decode_s"]
+                st["decode_steps"] += s["decode_steps"]
+                st["decode_tokens"] += s["decode_tokens"]
+                st["prefill_tokens"] += s["tokens"] - s["decode_tokens"]
+                st["prefills"] += 1
+        st["tokens"] = st["prefill_tokens"] + st["decode_tokens"]
+        st["tok_per_s"] = st["decode_tokens"] / max(st["decode_s"], 1e-9)
+        st["requests"] = len(requests)
         return st

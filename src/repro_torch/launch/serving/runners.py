@@ -50,18 +50,45 @@ def _sweep(phase: str, shapes, *, with_grads: bool,
     return n
 
 
+#: the parameter trees' stacked layer groups besides the ``seg*`` segments
+#: of the decoder-only LM: the SSM stack (ssm, hybrid) and the encoder and
+#: decoder stacks (encdec)
+STACKED = ("ssm_layers", "enc_layers", "dec_layers")
+
+
+def _stacked(key: str) -> bool:
+    return key.startswith("seg") or key in STACKED
+
+
 def _deq_fn(quant: Optional[str]):
     """The parameter expansion of the weight-only tier: identity at full
-    precision.  Under ``--quant`` the embedding and final norm are
+    precision.  Under ``--quant`` the unstacked parts (the embedding,
+    final norms, the hybrid's shared block, the VLM's projector) are
     expanded for the call (``optim.quant.dequantize_tree``); the stacked
-    layers (``seg*``) stay quantized and the model expands them one layer
-    at a time (``models.transformer._run_segments``)."""
+    layers (``seg*``, ``ssm_layers``, ``enc_layers``, ``dec_layers``)
+    stay quantized and the model expands them one layer at a time inside
+    its layer loop (``models.transformer._unstack``)."""
     if not quant:
         return lambda p: p
     from ...optim.quant import dequantize_tree
 
-    return lambda p: {k: v if k.startswith("seg") else dequantize_tree(v)
+    return lambda p: {k: v if _stacked(k) else dequantize_tree(v)
                       for k, v in p.items()}
+
+
+def quantize_params(params, quant: str):
+    """The weight-only tier at load: ``params`` quantized once
+    (``optim.quant.quantize_tree``; a tree already quantized passes as it
+    is), the ``serve.quant_bytes`` gauge set to what it holds."""
+    from ...obs import log
+    from ...optim.quant import quantize_tree, tree_quant_bytes
+
+    params = quantize_tree(params, fmt=quant)
+    qb = tree_quant_bytes(params)
+    obs.gauge("serve.quant_bytes").set(qb)
+    log.info("serve", f"weight-only {quant}: {qb / 2**20:.2f} MiB held as "
+             f"quantized leaves")
+    return params
 
 
 class PrefillRunner:

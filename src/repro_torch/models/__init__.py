@@ -1,1 +1,2 @@
-"""Models of the port: the dense decoder-only LM."""
+"""Models of the port: the decoder-only LM (dense, MoE), the SSM and hybrid
+stacks, the encoder-decoder and the vision-language model (``api``)."""

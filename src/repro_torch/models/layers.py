@@ -1,6 +1,6 @@
-"""Shared model layers of the dense and MoE families: norms, rotary, GQA
-attention (blockwise online-softmax prefill path + cached decode path), the
-MLP, embeddings and logits.
+"""Shared model layers: norms (RMS and layer), rotary, GQA attention
+(blockwise online-softmax prefill path + cached decode path), the MLPs,
+embeddings and logits.
 
 A port of the reference's ``models/layers.py``: parameter trees are nested
 dicts of tensors with the reference's names, shapes, dtypes and layouts
@@ -95,6 +95,29 @@ def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def layernorm_init(cfg: ModelConfig, dim=None, device="cpu", out=None):
+    dim = dim or cfg.d_model
+    return {"scale": _fill((dim,), 1.0, F32, device, _leaf(out, "scale")),
+            "bias": _fill((dim,), 0.0, F32, device, _leaf(out, "bias"))}
+
+
+def layernorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    h = x.to(F32)
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(h - mu), dim=-1, keepdim=True)
+    out = (h - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return out.to(x.dtype)
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jnp.dot(x, w, preferred_element_type=f32)
+    .astype(x.dtype)`` where it calls no kernel (the SSM and cross-attention
+    projections): a plain product accumulated in f32 (the engines turn
+    TF32 and reduced-precision bf16 reductions off), rounded once to x's
+    dtype."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
@@ -183,10 +206,10 @@ def blockwise_attention(
     """Flash-style online-softmax attention in plain PyTorch.
 
     The key/value sequence is cut into ``k_block`` blocks and the softmax
-    reduction regrouped over them with a running max and sum; a Python
-    loop over query and key blocks stands in for the reference's
-    ``vmap``/``lax.scan``.  ``kv_lengths`` masks keys at positions >= the
-    per-sequence length (right-padded prefill).
+    reduction regrouped over them with a running max and sum; the query
+    blocks run together (the reference's ``vmap``) and a Python loop over
+    the key blocks stands in for its ``lax.scan``.  ``kv_lengths`` masks
+    keys at positions >= the per-sequence length (right-padded prefill).
     """
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -218,37 +241,34 @@ def blockwise_attention(
         out = out.reshape(B, H, S, hd).permute(0, 2, 1, 3)
         return out.to(q.dtype)
 
-    qs = q.reshape(B, nq, q_block, KV, G, hd)
+    # every query block at once, as the reference vmaps over them; a
+    # Python loop over the key blocks stands in for its lax.scan
+    qs = q.reshape(B, nq, q_block, KV, G, hd).to(F32)
     ks = k.reshape(B, nk, k_block, KV, hd)
     vs = v.reshape(B, nk, k_block, KV, hd)
-    outs = []
-    for qi in range(nq):
-        qc = qs[:, qi].to(F32)  # (B, qb, KV, G, hd)
-        q_pos = qi * q_block + torch.arange(q_block, device=dev)
-        m = torch.full((B, KV, G, q_block), NEG_INF, dtype=F32, device=dev)
-        l = torch.zeros((B, KV, G, q_block), dtype=F32, device=dev)
-        acc = torch.zeros((B, KV, G, q_block, hd), dtype=F32, device=dev)
-        for ki in range(nk):
-            s = torch.einsum(
-                "bqkgh,bpkh->bkgqp", qc, ks[:, ki].to(F32)
-            ) * scale
-            k_pos = ki * k_block + torch.arange(k_block, device=dev)
-            if causal:
-                mask = q_pos[:, None] >= k_pos[None, :]
-                s = torch.where(mask, s, NEG_INF)
-            if kv_lengths is not None:
-                valid = k_pos[None, :] < kv_lengths[:, None]  # (B, kb)
-                s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqp,bpkh->bkgqh", p, vs[:, ki].to(F32)
-            )
-            m = m_new
-        outs.append(acc / l[..., None])  # (B, KV, G, qb, hd)
-    out = torch.stack(outs, dim=1)  # (B, nq, KV, G, qb, hd)
+    q_pos = torch.arange(S, device=dev).reshape(nq, 1, 1, q_block, 1)
+    m = torch.full((B, nq, KV, G, q_block), NEG_INF, dtype=F32, device=dev)
+    l = torch.zeros((B, nq, KV, G, q_block), dtype=F32, device=dev)
+    acc = torch.zeros((B, nq, KV, G, q_block, hd), dtype=F32, device=dev)
+    for ki in range(nk):
+        s = torch.einsum(
+            "bnqkgh,bpkh->bnkgqp", qs, ks[:, ki].to(F32)
+        ) * scale
+        k_pos = ki * k_block + torch.arange(k_block, device=dev)
+        if causal:
+            s = torch.where(q_pos >= k_pos, s, NEG_INF)
+        if kv_lengths is not None:
+            valid = k_pos[None, :] < kv_lengths[:, None]  # (B, kb)
+            s = torch.where(valid[:, None, None, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bnkgqp,bpkh->bnkgqh", p, vs[:, ki].to(F32)
+        )
+        m = m_new
+    out = acc / l[..., None]  # (B, nq, KV, G, qb, hd)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, H, hd)
     return out.to(q.dtype)
 
@@ -312,7 +332,11 @@ def attention_apply(
         y = decode_attention(q, cache["k"], cache["v"], idx + 1)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + 1}
     else:
-        # prefill into an empty cache
+        # prefill into an empty cache; one longer than the cache raises
+        # (the reference's dynamic_update_slice would clamp the write)
+        if S > cache["k"].shape[1]:
+            raise ValueError(f"a {S}-position prefill overruns a "
+                             f"{cache['k'].shape[1]}-position KV cache")
         cache["k"][:, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :S] = v.to(cache["v"].dtype)
         y = blockwise_attention(

@@ -1,5 +1,6 @@
-"""Decoder-only LM covering the dense and MoE families: init, the training
-forward and loss, KV caches, prefill and decode.
+"""Decoder-only LM covering the dense and MoE families (and the language
+backbone of the vision-language model): init, the training forward and
+loss, KV caches, prefill and decode.
 
 A port of the reference's ``models/transformer.py``.  Layers keep the
 reference's *segment* layout (``segment_plan``):
@@ -50,12 +51,8 @@ def _tree_map(fn: Callable, tree):
 
 
 def segment_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense and MoE "
-            f"families; the others come with ROADMAP.md queue A item 6"
-        )
-    if cfg.family == "dense":
+    """The reference's rule: every family but MoE is one dense segment."""
+    if cfg.family != "moe":
         return [(("dense",), cfg.n_layers)]
     m = cfg.moe
     plan: List[Tuple[Tuple[str, ...], int]] = []
@@ -97,55 +94,59 @@ def _layer_init(cfg: ModelConfig, kind: str, generator, device, out=None):
     return p
 
 
+def stacked_init(layer_init: Callable, count: int, generator,
+                 device) -> Dict:
+    """``count`` layers of ``layer_init(generator, device, out)`` stacked
+    along a leading axis: each leaf allocated once (its shape from a pass
+    on the meta device) and every layer drawn straight into its slice."""
+    tree = _tree_map(
+        lambda t: torch.empty((count, *t.shape), dtype=t.dtype,
+                              device=device),
+        layer_init(None, torch.device("meta"), None),
+    )
+    for layer in range(count):
+        layer_init(generator, device,
+                   _tree_map(lambda t: t[layer], tree))
+    return tree
+
+
 def init(cfg: ModelConfig, generator: torch.Generator,
          device="cuda") -> Dict:
     """Seeded random params on ``device``, in the reference's tree, shapes,
     dtypes and scales (``generator`` must live on ``device``).
 
-    Each stacked leaf is allocated once (its shape from a pass on the meta
-    device) and every layer is drawn straight into its slice of it, so the
-    peak is the model plus one leaf's f32 draw (one expert slab for the
-    MoE stacks).
+    Each stacked leaf is allocated once and every layer is drawn straight
+    into its slice of it (``stacked_init``), so the peak is the model plus
+    one leaf's f32 draw (one expert slab for the MoE stacks).
     """
     device = resolve_device(device)
     params: Dict = {
         "embedding": L.embedding_init(cfg, generator, device),
         "final_norm": L.rmsnorm_init(cfg, device=device),
     }
-    meta = torch.device("meta")
     for si, (pattern, count) in enumerate(segment_plan(cfg)):
-        seg = {
-            kind: _tree_map(
-                lambda t: torch.empty((count, *t.shape), dtype=t.dtype,
-                                      device=device),
-                _layer_init(cfg, kind, None, meta),
-            )
-            for kind in pattern
-        }
-        for layer in range(count):
-            for kind in pattern:
-                _layer_init(cfg, kind, generator, device,
-                            out=_tree_map(lambda t: t[layer], seg[kind]))
-        params[f"seg{si}"] = seg
+        params[f"seg{si}"] = stacked_init(
+            lambda g, d, out, pattern=pattern: {
+                kind: _layer_init(cfg, kind, g, d, out=L._leaf(out, kind))
+                for kind in pattern},
+            count, generator, device)
     return params
 
 
-#: leaves the reference keeps in float32 whatever ``cfg.dtype`` is
-_F32_LEAVES = ("scale", "q_norm", "k_norm", "router")
-
-
 def params_from_reference(cfg: ModelConfig, tree, device="cuda") -> Dict:
-    """The reference's params (the same tree, leaves as numpy arrays) as
-    the port's tensors: weights in ``cfg.param_dtype``, norm scales and the
-    MoE router in float32, on ``device``."""
+    """The reference's params (the same tree, leaves as numpy arrays of
+    the reference's dtypes) as the port's tensors on ``device``: float32
+    where the array is float32 (norm scales and biases, the MoE router,
+    the SSM's decay, skip, step bias and gated-norm scale),
+    ``cfg.param_dtype`` where it is another float type."""
     device = resolve_device(device)
 
-    def convert(tree, name=None):
+    def convert(tree):
         if isinstance(tree, dict):
-            return {k: convert(v, k) for k, v in tree.items()}
-        dt = torch.float32 if name in _F32_LEAVES else cfg.param_dtype
-        return torch.tensor(np.asarray(tree, dtype=np.float32), dtype=dt,
-                            device=device)
+            return {k: convert(v) for k, v in tree.items()}
+        arr = np.asarray(tree)
+        dt = torch.float32 if arr.dtype == np.float32 else cfg.param_dtype
+        return torch.tensor(arr.astype(np.float32), dtype=dt, device=device)
 
     return convert(tree)
 

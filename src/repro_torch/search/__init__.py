@@ -30,7 +30,9 @@ pairs the analytic winner's ``Schedule`` (kept for parity) with the top
 ``core.cost.card_plan_cost`` (``beam.card_beam``), plus the launcher's own
 heuristic plan in the reference's ``source="default"`` role: the measured
 winner is by construction never slower than the heuristic on the
-measurement harness.  Every measured candidate differs in what B1
+measurement harness, and displaces it only by beating its median by more
+than the larger of the two rungs' interquartile ranges (a smaller gap is
+a tie, which keeps the heuristic).  Every measured candidate differs in what B1
 launches.  The rungs carry their plan (``card``), and ``ops._tuned_kernel``
 compiles the winner's.  Fused families (attention, grouped) and the other
 B1 modes (weighted, chain, 8-bit) take no plan yet: they keep the analytic
@@ -283,6 +285,26 @@ def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device):
     return ladder, stats, tensors
 
 
+def _keep_heuristic_within_spread(plans: List[RankedPlan]) -> None:
+    """On the card, move the heuristic's rung back to the front of a
+    measured ladder (in place) unless the fastest rung's median beats it
+    by more than the larger of their spreads (interquartile ranges): a
+    plan that wins by less than the timing's own scatter is a tie, and a
+    tie keeps the launcher's choice.  Host-timed ladders carry no spread
+    and keep their order."""
+    if not plans or plans[0].source == "default":
+        return
+    base = next((p for p in plans if p.source == "default"), None)
+    best = plans[0]
+    if (base is None or base.measured_s is None or best.spread_s is None
+            or base.spread_s is None):
+        return
+    if base.measured_s - best.measured_s <= max(best.spread_s,
+                                                base.spread_s):
+        plans.remove(base)
+        plans.insert(0, base)
+
+
 def _default_device(device: Optional[str]) -> str:
     """``device``, or the card where one is visible, else "cpu"."""
     if device is not None:
@@ -451,6 +473,7 @@ def search_schedule(
                 p.score,
             )
         )
+        _keep_heuristic_within_spread(plans)
     else:
         plans.sort(key=lambda p: (not p.fits_vmem, p.score))
 

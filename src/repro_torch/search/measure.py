@@ -44,7 +44,7 @@ from ..core.schedule import MESH_TIERS, Schedule
 
 #: the fewest rounds of event-timed launches a candidate's median is
 #: taken over (each round times every candidate once, in turns)
-CARD_REPEATS = 15
+CARD_REPEATS = 31
 #: bytes zeroed before each timed launch: twenty times the card's 50 MB
 #: L2, and long enough (about 0.3 ms at the HBM rate) that the host has
 #: enqueued the launch before the device reaches it, so the events time

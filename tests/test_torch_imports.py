@@ -23,7 +23,7 @@ import torch
 
 import repro  # noqa: F401
 from repro_torch.configs import get_config
-from repro_torch.launch.serving import ContinuousEngine
+from repro_torch.launch.serving import ContinuousEngine, FixedEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -66,7 +66,11 @@ def test_port_sources_exist():
                    "kernels/fused_rnz/ops.py", "kernels/fused_rnz/ref.py",
                    "codegen/modes.py", "optim/quant.py",
                    "configs/kimi_k2_1t_a32b.py",
-                   "configs/llama4_maverick_400b_a17b.py"):
+                   "configs/llama4_maverick_400b_a17b.py",
+                   "models/ssm.py", "models/hybrid.py", "models/encdec.py",
+                   "models/vlm.py", "configs/mamba2_130m.py",
+                   "configs/zamba2_2p7b.py", "configs/whisper_base.py",
+                   "configs/internvl2_1b.py"):
         assert PORT / module in SOURCES, module
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 20
@@ -87,8 +91,10 @@ def test_serve_imports_with_jax_unimportable():
         "import repro_torch.launch.serve, repro_torch.ops\n"
         "import repro_torch.codegen.build, repro_torch.codegen.fused_gen\n"
         "import repro_torch.models.moe\n"
-        "from repro_torch.configs import get_config\n"
-        "get_config('kimi-k2-1t-a32b'), get_config('llama4-maverick-400b-a17b')\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "from repro_torch.launch.serving import FixedEngine\n"
+        "from repro_torch.models.api import get_api\n"
+        "[get_api(get_config(a)) for a in ARCH_IDS]\n"
         "assert 'repro' not in sys.modules, 'reference package imported'\n"
         "print('ok')\n"
     )
@@ -176,6 +182,12 @@ def test_engine_default_device_raises_without_card():
     _require_no_card()
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousEngine(get_config("qwen3-8b").smoke())
+
+
+def test_fixed_engine_default_device_raises_without_card():
+    _require_no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FixedEngine(get_config("mamba2-130m").smoke())
 
 
 def test_serve_cli_default_device_raises_without_card():

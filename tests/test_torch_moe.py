@@ -289,7 +289,7 @@ def _configs(arch, **overrides):
 
 def _reference_params(ref_cfg, seed):
     params, _ = RT.init(ref_cfg, jax.random.key(seed))
-    return params, jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    return params, jax.tree.map(np.asarray, params)
 
 
 @pytest.fixture(scope="module", params=MOE_ARCHS)

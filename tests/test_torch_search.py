@@ -503,6 +503,30 @@ def test_card_beam_cuts_and_keeps_the_heuristic():
     assert P.card_beam([], 1, 1, 1, 1)[0] == []
 
 
+@pytest.mark.parametrize("gap_us, spread_us, winner", [
+    (0.3, 1.3, "default"),   # inside the scatter: a tie keeps the heuristic
+    (1.3, 1.3, "default"),   # exactly the spread: still a tie
+    (2.4, 0.5, "search"),    # beyond the scatter: the faster plan wins
+    (2.4, None, "search"),   # host-timed rungs carry no spread: order kept
+])
+def test_measured_ladder_keeps_the_heuristic_on_a_tie(gap_us, spread_us,
+                                                      winner):
+    spread = None if spread_us is None else spread_us * 1e-6
+    rung = lambda source, ms, tile: P.RankedPlan(  # noqa: E731
+        schedule=None, score=1.0, lower_bound=0.0, fits_vmem=True,
+        measured_s=ms * 1e-3, spread_s=spread, source=source,
+        card=cuda_gen.CardPlan("ring", tile, 1))
+    base = 0.0230
+    plans = [rung("search", base - gap_us * 1e-3, 256),
+             rung("search", base - gap_us * 1e-3 / 2, 64),
+             rung("default", base, 128)]
+    P._keep_heuristic_within_spread(plans)
+    assert plans[0].source == winner
+    assert sorted(p.card.tile_n for p in plans) == [64, 128, 256]
+    if winner == "default":
+        assert [p.card.tile_n for p in plans[1:]] == [256, 64]
+
+
 def test_card_geometry_matches_the_kernel_constants():
     assert p_cost.CARD_BODIES["ring"] == (cuda_gen.RING_BM, cuda_gen.RING_BK,
                                           1)

@@ -166,7 +166,7 @@ def test_adamw_step_matches_reference(moments, param_dtype):
             pp = PT.params_from_reference(
                 dataclasses.replace(port_get_config("qwen3-8b"),
                                     dtype=param_dtype),
-                jax.tree.map(lambda a: np.asarray(a, np.float32), rp),
+                jax.tree.map(np.asarray, rp),
                 device="cpu")
             pp = {"a": {"w": pp["a"]["w"].to(tdt), "b": pp["a"]["b"].to(tdt)},
                   "emb": pp["emb"].to(tdt)}
@@ -244,7 +244,7 @@ def _models(arch, seed):
     ref_cfg = ref_get_config(arch).smoke()
     port_cfg = port_get_config(arch).smoke()
     ref_params, _ = RT.init(ref_cfg, jax.random.key(seed))
-    np_params = jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params)
+    np_params = jax.tree.map(np.asarray, ref_params)
     return ref_cfg, port_cfg, ref_params, np_params
 
 
@@ -401,7 +401,7 @@ def _runs(tmp_path, steps, ckpt_every=2, name="ck"):
 def test_train_losses_match_reference(tmp_path):
     ref_run, port_run = _runs(tmp_path, steps=3)
     ref_params, _ = RT.init(ref_run.cfg, jax.random.key(0))
-    np_params = jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params)
+    np_params = jax.tree.map(np.asarray, ref_params)
     _, rlosses, _ = ref_train.train(ref_run, params=ref_params,
                                     verbose=False)
     params = PT.params_from_reference(port_run.cfg, np_params, device="cpu")
