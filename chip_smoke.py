@@ -4984,6 +4984,290 @@ def kernels_line(k_rows, b1_rows, g_rows, dw_rows, base_rows, launches,
     )]}
 
 
+#: the remat phase: B1 launches of one qwen3-8b layer's loss + gradients
+#: (7 forward, 14 backward, and 7 recomputed where nothing is saved) and
+#: B3 / B4 launches of one kimi-k2 MoE layer (3 forward, 3 dX, 3 recomputed
+#: where nothing is saved; 3 dW), by ``REPRO_REMAT_POLICY``
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch")
+B1_PER_LAYER_REMAT = {"nothing": 28, "dots": 21, "dots_no_batch": 21}
+B3_PER_MOE_REMAT = {"nothing": 9, "dots": 6}
+CAUSAL_SKIP_S = 4096
+#: timed loss + gradients a policy (the median is reported)
+REMAT_REPS = 3
+#: the production cells the remat phase dry-runs on fake CUDA tensors
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+                ("qwen3-8b", "decode_32k"), (MOE_ARCH, "train_4k"))
+#: the ladder phase ``search`` wrote whose card rows explain renders
+EXPLAIN_SELECTOR = "matmul@512x4096x1024"
+
+
+def _scaled_err(got, want):
+    scale = float(want.detach().float().abs().max()) or 1.0
+    return float((got.detach().float() - want.detach().float()).abs().max()
+                 ) / scale
+
+
+def _loss_grads(cfg, params, batch):
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.api import get_api
+
+    api = get_api(cfg)
+    return value_and_grad(lambda p, b: api.loss(p, cfg, b), params, batch)
+
+
+def _seeded_batch(cfg, batch, seq, device):
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, batch_at
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch_at(data, 0).items()}
+
+
+def _attention_bmm_ms(prof):
+    """Device ms of ``aten::bmm`` (the attention's einsums; the
+    projections are B1 and the unembedding an ``aten::mm``)."""
+    for evt in prof.key_averages():
+        if evt.key == "aten::bmm":
+            us = getattr(evt, "device_time_total", None)
+            if us is None:
+                us = evt.cuda_time_total
+            return us / 1e3
+    return float("nan")
+
+
+def phase_remat_dryrun(smi):
+    """The remat policies, causal skip, the one-card dry-run and plan
+    explain (queue A item 6d).
+
+    (a) qwen3-8b at full width cut to ``TRAIN_LAYERS`` layers, 4 x 512
+    tokens, bf16, seeded: one loss + gradients (``steps.value_and_grad``)
+    under each ``REPRO_REMAT_POLICY``, after one warm-up under a
+    ``FlopCounterMode`` (the flops the launches imply), ``REMAT_REPS``
+    times: B1 launches ``B1_PER_LAYER_REMAT`` a layer in each (hard), the
+    median wall ms, peak memory, the loss
+    and every gradient against ``nothing`` at the bf16 TOL (hard; bit for
+    bit printed); beside each, the dry-run of the same function on fake
+    CUDA tensors (``roofline.op_count``): dot flops, peak and saved bytes.
+    (b) kimi-k2 cut as phase ``moe-train`` (2 layers, 32 experts, 2 x 512)
+    under ``nothing`` and ``dots``: B3 ``B3_PER_MOE_REMAT`` and B4 3 a MoE
+    layer (hard).  (c) (a)'s model forward at 1 x ``CAUSAL_SKIP_S``
+    without and with ``REPRO_CAUSAL_SKIP``: logits within the bf16 TOL
+    (hard), wall ms and the profiler's device ms in ``aten::bmm``.  (d)
+    ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` at production size on
+    fake CUDA tensors: status ``ok`` (hard), trace seconds, dot TFLOP,
+    peak GiB and the analytic H100 roofline terms; ``launch.perf``'s
+    ``remat_dots`` against the first as baseline.  (e) ``obs.explain`` of
+    ``EXPLAIN_SELECTOR`` in phase ``search``'s plan DB: the text names
+    each card rung's measured ms (hard)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.codegen import CONTRACT, GROUPED, GROUPED_DW
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.launch.steps import eval_params
+    from repro_torch.models.api import get_api
+    from repro_torch.obs import explain as explain_mod
+    from repro_torch.optim.adamw import at_path, leaves
+    from repro_torch.roofline.analysis import analyze_cell, param_counts
+    from repro_torch.roofline.op_count import count_step
+
+    out = {"policies": {}, "moe": {}, "causal_skip": {}, "dryrun": {}}
+    old_policy = os.environ.get("REPRO_REMAT_POLICY")
+    tol = TOL["bfloat16"]
+    # (a) the remat policies on the dense model
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=TRAIN_LAYERS)
+    api = get_api(cfg)
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      "cuda")
+    batch = _seeded_batch(cfg, 4, 512, "cuda")
+    base = None
+    try:
+        for pol in REMAT_POLICIES:
+            os.environ["REPRO_REMAT_POLICY"] = pol
+            fc = FlopCounterMode(display=False)
+            with fc:
+                _loss_grads(cfg, params, batch)
+            implied = fc.get_total_flops()
+            walls = []
+            for rep in range(REMAT_REPS):
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_launch_counts()
+                t0 = time.perf_counter()
+                loss, grads = _loss_grads(cfg, params, batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if rep < REMAT_REPS - 1:
+                    del loss, grads
+            ms = sorted(walls)[len(walls) // 2]
+            launches = CONTRACT.launches
+            peak = torch.cuda.max_memory_allocated()
+            want = B1_PER_LAYER_REMAT[pol] * cfg.n_layers
+            if launches != want:
+                raise AssertionError(f"remat {pol}: {launches} B1 launches, "
+                                     f"expected {want} ("
+                                     f"{B1_PER_LAYER_REMAT[pol]} x "
+                                     f"{cfg.n_layers} layers)")
+            with FakeTensorMode():
+                fparams = eval_params(cfg, api, "cuda")
+                fbatch = {k: torch.empty(v.shape, dtype=v.dtype,
+                                         device="cuda")
+                          for k, v in batch.items()}
+                dry = count_step(lambda p, b: _loss_grads(cfg, p, b),
+                                 fparams, fbatch)
+            row = dict(launches=launches, ms=ms, walls_ms=walls,
+                       peak_bytes=peak,
+                       loss=float(loss), implied_flops=implied,
+                       dry_flops=dry["dot_flops"],
+                       dry_peak_bytes=dry["peak_live_bytes"],
+                       dry_saved_bytes=dry["saved_bytes"])
+            if base is None:
+                base = (loss, grads)
+            else:
+                errs = [_scaled_err(loss, base[0])] + [
+                    _scaled_err(g, at_path(base[1], path))
+                    for path, g in leaves(grads)]
+                equal = torch.equal(loss, base[0]) and all(
+                    torch.equal(g, at_path(base[1], path))
+                    for path, g in leaves(grads))
+                row.update(max_scaled_err=max(errs), bitwise=equal)
+                if max(errs) > tol[0]:
+                    raise AssertionError(
+                        f"remat {pol}: loss / gradients {max(errs):.3g} of "
+                        f"max |nothing| from nothing's (bf16 TOL {tol[0]})")
+                del grads
+            out["policies"][pol] = row
+            print(f"[remat-dryrun] {pol}: B1 {launches} = {want}; loss + "
+                  f"grads {ms:.1f} ms (median of "
+                  f"{[round(w, 1) for w in walls]}), peak "
+                  f"{peak / 2**30:.2f} GiB; "
+                  + (f"vs nothing {row['max_scaled_err']:.3g} scaled, "
+                     f"bit for bit {row['bitwise']}; " if pol != "nothing"
+                     else "")
+                  + f"flops by the launches {implied / 1e12:.3f} T; "
+                  f"dry-run {dry['dot_flops'] / 1e12:.3f} T, peak "
+                  f"{dry['peak_live_bytes'] / 2**30:.2f} GiB, saved "
+                  f"{dry['saved_bytes'] / 2**30:.2f} GiB ({smi})",
+                  flush=True)
+        del base
+        os.environ["REPRO_REMAT_POLICY"] = "nothing"
+        # (c) causal skip on the same model, one 4096-token forward
+        tokens = _seeded_batch(cfg, 1, CAUSAL_SKIP_S, "cuda")["tokens"]
+        logits = {}
+        for skip in ("0", "1"):
+            os.environ["REPRO_CAUSAL_SKIP"] = skip
+            with torch.no_grad():
+                api.forward(params, cfg, {"tokens": tokens})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits[skip] = api.forward(params, cfg, {"tokens": tokens})
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    api.forward(params, cfg, {"tokens": tokens})
+                    torch.cuda.synchronize()
+            out["causal_skip"][skip] = dict(ms=ms,
+                                            bmm_ms=_attention_bmm_ms(prof))
+            print(f"[remat-dryrun] causal skip {skip}: forward 1 x "
+                  f"{CAUSAL_SKIP_S} {ms:.1f} ms, attention einsums "
+                  f"{out['causal_skip'][skip]['bmm_ms']:.3f} ms device",
+                  flush=True)
+        os.environ.pop("REPRO_CAUSAL_SKIP", None)
+        err = _scaled_err(logits["1"], logits["0"])
+        out["causal_skip"]["max_scaled_err"] = err
+        out["causal_skip"]["bitwise"] = torch.equal(logits["1"],
+                                                    logits["0"])
+        print(f"[remat-dryrun] causal skip logits vs unskipped: {err:.3g} "
+              f"scaled, bit for bit {out['causal_skip']['bitwise']}",
+              flush=True)
+        if err > tol[0]:
+            raise AssertionError(f"causal skip: logits {err:.3g} of max "
+                                 f"|logit| from the unskipped forward's")
+        del params, logits, batch
+        _free()
+        # (b) the MoE cut under nothing and dots
+        mcfg = get_config(MOE_ARCH)
+        mcfg = dataclasses.replace(
+            mcfg, n_layers=MOE_LAYERS,
+            moe=dataclasses.replace(mcfg.moe, n_experts=MOE_TRAIN_EXPERTS))
+        mapi = get_api(mcfg)
+        mparams = mapi.init(mcfg, torch.Generator(device="cuda").manual_seed(
+            0), "cuda")
+        mbatch = _seeded_batch(mcfg, 2, 512, "cuda")
+        n_moe = _moe_layers(mcfg)
+        for pol, b3 in B3_PER_MOE_REMAT.items():
+            os.environ["REPRO_REMAT_POLICY"] = pol
+            _zero_launch_counts()
+            _loss_grads(mcfg, mparams, mbatch)
+            torch.cuda.synchronize()
+            got = (GROUPED.launches, GROUPED_DW.launches)
+            out["moe"][pol] = dict(grouped=got[0], grouped_dw=got[1])
+            print(f"[remat-dryrun] {MOE_ARCH} cut, {pol}: B3 {got[0]}, B4 "
+                  f"{got[1]} over {n_moe} MoE layer(s)", flush=True)
+            if got != (b3 * n_moe, B4_PER_MOE_STEP * n_moe):
+                raise AssertionError(f"remat {pol}: B3 / B4 launches {got}, "
+                                     f"expected ({b3 * n_moe}, "
+                                     f"{B4_PER_MOE_STEP * n_moe})")
+        del mparams, mbatch
+        _free()
+    finally:
+        if old_policy is None:
+            os.environ.pop("REPRO_REMAT_POLICY", None)
+        else:
+            os.environ["REPRO_REMAT_POLICY"] = old_policy
+        os.environ.pop("REPRO_CAUSAL_SKIP", None)
+    # (d) the dry-run at production size
+    res = os.path.join(OUT, "dryrun")
+    os.makedirs(res, exist_ok=True)
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, device="cuda")
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run {arch} {shape}: {rec}")
+        with open(os.path.join(res, f"{arch}__{shape}__1.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        row = analyze_cell(rec, param_counts(arch))
+        out["dryrun"][f"{arch}/{shape}"] = {
+            k: row[k] for k in ("lower_s", "flops", "bytes_accessed",
+                                "memory", "compute_s", "memory_s",
+                                "memory_fused_s", "dominant",
+                                "useful_ratio")}
+        print(f"[remat-dryrun] dry-run {arch} {shape}: ok, traced in "
+              f"{rec['lower_s']} s, dot {rec['flops'] / 1e12:.2f} TFLOP, "
+              f"peak {rec['memory']['peak_memory_in_bytes'] / 2**30:.1f} "
+              f"GiB, saved {rec['memory']['saved_bytes'] / 2**30:.1f} GiB; "
+              f"analytic H100 compute {row['compute_s'] * 1e3:.1f} ms, "
+              f"memory {row['memory_s'] * 1e3:.1f} ms (products alone "
+              f"{row['memory_fused_s'] * 1e3:.1f}), {row['dominant']}, "
+              f"MODEL/counted flops {row['useful_ratio']:.2f}", flush=True)
+    arch, shape = DRYRUN_CELLS[0]
+    knob = perf.run(arch, shape, ["remat_dots"], device="cuda",
+                    out=os.path.join(OUT, "perf"), baseline_dir=res)
+    out["perf_remat_dots"] = knob.get("vs_baseline")
+    # (e) plan-explain of a ladder the search measured on the card
+    text = explain_mod.explain(os.path.join(OUT, "plans_search.json"),
+                               EXPLAIN_SELECTOR)
+    print(text, flush=True)
+    with open(os.path.join(OUT, "plans_search.json")) as f:
+        entries = explain_mod.match_entries(json.load(f), EXPLAIN_SELECTOR)
+    measured = [f"{r['measured_s'] * 1e3:.4f}" for _, e in entries
+                for r in e["ranked"] if r.get("card")
+                and r.get("measured_s") is not None]
+    if not measured or not all(ms in text for ms in measured):
+        raise AssertionError(f"explain {EXPLAIN_SELECTOR}: the card's "
+                             f"measured ms {measured} not in its text")
+    out["explain_card_ms"] = measured
+    return out
+
+
 def _phase(name, fn, *args, **kwargs):
     """Run one phase; print and keep its wall seconds."""
     t0 = time.perf_counter()
@@ -5089,6 +5373,10 @@ def main() -> int:
     # this slice's path: the variant search, its ladders served
     search = _phase("search", phase_search, stats)
     _free()
+    # this slice's path: the remat policies over the kernels' ops, causal
+    # skip, the one-card dry-run and plan-explain
+    remat = _phase("remat-dryrun", phase_remat_dryrun, smi)
+    _free()
 
     line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches,
                         b1_mode_rows)
@@ -5121,7 +5409,7 @@ def main() -> int:
                    "hof": hof,
                    "serve_int8": serve_int8, "search": search,
                    "fixed_serve": fixed, "families": families,
-                   "fixed_small": fixed_small,
+                   "fixed_small": fixed_small, "remat_dryrun": remat,
                    "takes": TAKEN, "seconds": SECONDS, **line}, f, indent=1)
     # the takes each profiled check needed for a whole trace
     print(f"[takes] {json.dumps(TAKEN)}", flush=True)

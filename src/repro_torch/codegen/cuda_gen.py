@@ -1267,18 +1267,34 @@ class CompiledKernel:
                             f"(the epilogue takes {list(vec_names)})")
         out_dtype = self.out_dtype or _default_out_dtype(
             self.spec, self.epilogue, arrays[0].dtype)
-        tensors: List[torch.Tensor] = list(arrays) + [vectors[v]
-                                                      for v in vec_names]
+        vecs = [vectors[v] for v in vec_names]
+        tensors: List[torch.Tensor] = list(arrays) + vecs
         devices = {x.device.type for x in tensors}
-        if devices == {"cpu"}:
+        if devices not in ({"cpu"}, {"cuda"}):
+            raise ValueError(f"{self.spec.name}: operands on "
+                             f"{sorted(devices)}; all CPU (plain version) "
+                             f"or all CUDA (kernel)")
+        from ..ops import library
+
+        if library.through_op(tensors):
+            return library.CONTRACT_OP(library.key_of(self), list(arrays),
+                                       vecs, out_dtype)
+        return self.run(arrays, vecs, out_dtype)
+
+    def run(self, arrays, vectors, out_dtype: torch.dtype) -> torch.Tensor:
+        """The launch, called directly or as ``repro_torch::contract``
+        (``ops.library.through_op``): CUDA tensors launch B1
+        (``_launch_cuda``), CPU tensors run its plain version
+        (``contract_ref``).  ``vectors`` are the epilogue's, in
+        ``Epilogue.vector_names`` order."""
+        names = self.epilogue.vector_names if self.epilogue else ()
+        vecs = dict(zip(names, vectors))
+        if arrays[0].device.type == "cpu":
             return contract_ref(self.spec, *arrays, out_dtype=out_dtype,
-                                epilogue=self.epilogue, vectors=vectors)
-        if devices == {"cuda"}:
-            return _launch_cuda(self.spec, *arrays, out_dtype=out_dtype,
-                                epilogue=self.epilogue, vectors=vectors,
-                                fold=self.fold, card=self.card)
-        raise ValueError(f"{self.spec.name}: operands on {sorted(devices)}; "
-                         f"all CPU (plain version) or all CUDA (kernel)")
+                                epilogue=self.epilogue, vectors=vecs)
+        return _launch_cuda(self.spec, *arrays, out_dtype=out_dtype,
+                            epilogue=self.epilogue, vectors=vecs,
+                            fold=self.fold, card=self.card)
 
 
 def compile_kernel(

@@ -668,48 +668,68 @@ class FusedKernel:
                     f"got {tuple(arr.shape)}"
                 )
         devices = {arr.device.type for arr in arrays}
+        if devices not in ({"cpu"}, {"cuda"}):
+            raise ValueError(f"{self.spec.name}: operands on "
+                             f"{sorted(devices)}; all CPU (plain version) "
+                             f"or all CUDA (kernel)")
+        from ..ops import library
+
+        direct = not library.through_op(arrays)
+
         if self.kind == "attention":
-            return self._attention(arrays, kv_lengths, devices)
+            q = arrays[0]
+            lengths = None
+            if kv_lengths is not None:
+                lengths = torch.as_tensor(kv_lengths, device=q.device).to(
+                    torch.int32).reshape(-1).contiguous()
+                h = self.spec.extents["h"]
+                if lengths.shape[0] != h:
+                    raise ValueError(f"kv_lengths: expected {h} entries, "
+                                     f"got {lengths.shape[0]}")
+            out_dtype = self.out_dtype or q.dtype
+            if direct:
+                return self.run_attention(*arrays, lengths, out_dtype)
+            return library.ATTENTION_OP(library.key_of(self), *arrays,
+                                        lengths, out_dtype)
         if kv_lengths is not None:
             raise TypeError("kv_lengths only applies to attention kernels")
-        x, w = arrays
-        out_dtype = self.out_dtype or x.dtype
+        out_dtype = self.out_dtype or arrays[0].dtype
+        if direct:
+            return self.run_grouped(*arrays, out_dtype)
+        op = library.GROUPED_DW_OP if self.dw else library.GROUPED_OP
+        return op(library.key_of(self), *arrays, out_dtype)
+
+    def run_grouped(self, x: torch.Tensor, w: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+        """The launch, called directly or as ``repro_torch::grouped`` /
+        ``::grouped_dw`` (``ops.library.through_op``; ``x`` and ``w`` the
+        spec's operands in its order): CUDA tensors launch B3 or B4, CPU
+        tensors run ``grouped_ref`` / ``grouped_dw_ref``."""
         sizes = tuple(self.spec.root().group_sizes)
-        if self.dw and devices == {"cpu"}:
-            return grouped_dw_ref(*self._dw_operands(arrays), sizes,
-                                  out_dtype=out_dtype)
-        if self.dw and devices == {"cuda"}:
-            return GROUPED_DW(*self._dw_operands(arrays),
-                              self._table(x.device)[0], out_dtype)
-        if devices == {"cpu"}:
+        cpu = x.device.type == "cpu"
+        if self.dw:
+            lhs, rhs = self._dw_operands((x, w))
+            if cpu:
+                return grouped_dw_ref(lhs, rhs, sizes, out_dtype=out_dtype)
+            return GROUPED_DW(lhs, rhs, self._table(x.device)[0], out_dtype)
+        if cpu:
             return grouped_ref(x, w, sizes, out_dtype=out_dtype,
                                contract_last=self.contract_last)
-        if devices == {"cuda"}:
-            table, max_rows, band = self._table(x.device)
-            return GROUPED(x, w, table, max(max_rows, 1), out_dtype,
-                           contract_last=self.contract_last, band=band)
-        raise ValueError(f"{self.spec.name}: operands on {sorted(devices)}; "
-                         f"all CPU (plain version) or all CUDA (kernel)")
+        table, max_rows, band = self._table(x.device)
+        return GROUPED(x, w, table, max(max_rows, 1), out_dtype,
+                       contract_last=self.contract_last, band=band)
 
-    def _attention(self, arrays, kv_lengths, devices):
-        q, k, v = arrays
-        out_dtype = self.out_dtype or q.dtype
+    def run_attention(self, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, lengths: Optional[torch.Tensor],
+                      out_dtype: torch.dtype) -> torch.Tensor:
+        """The launch, called directly or as ``repro_torch::attention``
+        (``ops.library.through_op``): CUDA tensors launch B2, CPU tensors
+        run ``attention_ref``."""
         causal = bool(self.spec.root().causal)
-        lengths = None
-        if kv_lengths is not None:
-            lengths = torch.as_tensor(kv_lengths, device=q.device).to(
-                torch.int32).reshape(-1).contiguous()
-            h = self.spec.extents["h"]
-            if lengths.shape[0] != h:
-                raise ValueError(f"kv_lengths: expected {h} entries, got "
-                                 f"{lengths.shape[0]}")
-        if devices == {"cpu"}:
+        if q.device.type == "cpu":
             return attention_ref(q, k, v, causal=causal, kv_lengths=lengths,
                                  out_dtype=out_dtype)
-        if devices == {"cuda"}:
-            return ATTENTION(q, k, v, causal, lengths, out_dtype)
-        raise ValueError(f"{self.spec.name}: operands on {sorted(devices)}; "
-                         f"all CPU (plain version) or all CUDA (kernel)")
+        return ATTENTION(q, k, v, causal, lengths, out_dtype)
 
 
 def compile_fused(

@@ -1,9 +1,15 @@
 """``torch.autograd.Function``s: primal and cotangent GEMMs through codegen.
 
-The port's kernels launch through ctypes into fresh output tensors, so a
-kernel's result carries no ``grad_fn``: without these wrappers autograd
-through a model on the card gives no gradient to any projection or expert
-weight.  Each wrapper here pairs an ``ops`` primal with the reference's
+A kernel launch writes through ctypes into a fresh output, directly or,
+under a dispatch mode, as one ``torch.library`` custom op of the
+``repro_torch`` namespace (``ops.library``: ``contract``, ``attention``,
+``grouped``, ``grouped_dw``), which has no autograd formula of its own:
+either way a launch's result carries no gradient, so without these
+wrappers autograd through a model on the card gives no gradient to any
+projection or expert weight.  As an op, each launch is seen by the mode:
+a selective-checkpoint policy (``models.layers.remat``) can save a
+forward's launch output and a dry-run (``launch.dryrun``) can trace it on
+fake tensors.  Each wrapper here pairs an ``ops`` primal with the reference's
 hand-derived VJP (``repro/grad/vjp.py``), whose GEMMs are the derived
 ContractionSpecs of ``grad.derive`` lowered through the very same pipeline
 as the forward pass (``ops._tuned_kernel``: the plan DB first, the tuner

@@ -1,28 +1,73 @@
-"""The train step: loss, gradient and optimizer update.
+"""Step builders: the train step, and the one-card bundles a dry-run
+traces.
 
-A port of the reference's ``launch/steps.py``, training part.  Autograd
-differentiates straight through the hand-written kernels: every model
-matmul is a ``repro_torch.ops`` entry point that registers an
-``autograd.Function`` (``repro_torch.grad``) whose backward GEMMs are the
-derived specs on the same kernels, so on the card both sides of the tape
-run them (B1, and under ``REPRO_MOE_GROUPED=1`` B3 and B4).
+A port of the reference's ``launch/steps.py``.  Autograd differentiates
+straight through the hand-written kernels: every model matmul is a
+``repro_torch.ops`` entry point that registers an ``autograd.Function``
+(``repro_torch.grad``) whose backward GEMMs are the derived specs on the
+same kernels, so on the card both sides of the tape run them (B1, and
+under ``REPRO_MOE_GROUPED=1`` B3 and B4).
 
-Sharded bundles (``train_bundle``, the ``mesh=`` argument), capture
-(``capture=True`` or ``$REPRO_CAPTURE=1``) and the serving bundles come
-with the mesh tier and capture, ROADMAP.md queue A item 6.
+``train_bundle`` / ``prefill_bundle`` / ``serve_bundle`` give a
+(arch x shape) cell's step function and its arguments (``StepBundle``), as
+the reference's do, without its shardings: the arguments are built on the
+device asked for under the active ``FakeTensorMode`` (``eval_params``), so
+a cell of production size is traced (``launch.dryrun``) and never
+allocated.  Sharded bundles (the ``mesh=`` argument) and capture
+(``capture=True`` or ``$REPRO_CAPTURE=1``) come with the mesh tier and
+capture, ROADMAP.md queue A items 6c and 6b.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from ..configs.base import ModelConfig
-from ..models.api import get_api
+from ..configs.base import ModelConfig, ShapeConfig
+from ..models.api import ModelAPI, batch_spec, get_api
 from ..optim import AdamWConfig
 from ..optim import adamw as optim
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """Everything needed to trace or run one (arch x shape) cell."""
+
+    fn: Callable                      # the step function
+    in_shapes: Tuple                  # its arguments (fake under a dry-run)
+    static_name: str                  # train_step | prefill_step | serve_step
+    out_shardings: Any = None         # the mesh tier's (item 6c); None here
+
+
+def _fake_mode():
+    mode = torch._guards.detect_fake_mode()
+    if mode is None:
+        raise RuntimeError(
+            "the step bundles build their arguments at production size; "
+            "build them under a torch._subclasses.FakeTensorMode (as "
+            "launch.dryrun does), so that nothing is allocated"
+        )
+    return mode
+
+
+def eval_params(cfg: ModelConfig, api: ModelAPI, device="cuda"):
+    """The params of ``cfg`` as fake tensors on ``device`` under the
+    active ``FakeTensorMode``: the model's own ``init`` on the meta device
+    (the tree, shapes and dtypes, no draw, nothing allocated; the
+    reference's ``jax.eval_shape`` of its init), each leaf then made a
+    fake tensor."""
+    _fake_mode()
+    shapes = api.init(cfg, None, torch.device("meta"))
+    return optim.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device=device), shapes)
+
+
+def _batch(cfg: ModelConfig, shape: ShapeConfig, device) -> dict:
+    return {name: torch.zeros(shp, dtype=dt, device=device)
+            for name, (shp, dt) in batch_spec(cfg, shape).items()}
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -112,3 +157,59 @@ def make_train_step(
         return params, opt_state, metrics
 
     return train_step
+
+
+def train_bundle(cfg: ModelConfig, shape: ShapeConfig,
+                 opt_cfg: Optional[AdamWConfig] = None,
+                 microbatch: int = 1, capture: Optional[bool] = None,
+                 device="cuda") -> StepBundle:
+    """The train step of a cell and its (params, opt_state, batch), built
+    under the active ``FakeTensorMode``.  As in the reference, a model of
+    256 experts or more keeps int8 moments (it needs them to fit), and
+    ``$REPRO_OPT_INT8=1`` forces them for every model."""
+    api = get_api(cfg)
+    if opt_cfg is None:
+        big = cfg.moe is not None and cfg.moe.n_experts >= 256
+        use_int8 = big or os.environ.get("REPRO_OPT_INT8") == "1"
+        opt_cfg = AdamWConfig(moments_dtype="int8" if use_int8 else "float32")
+    params = eval_params(cfg, api, device)
+    opt_state = optim.init(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, microbatch=microbatch,
+                           capture=capture)
+    return StepBundle(fn=step,
+                      in_shapes=(params, opt_state, _batch(cfg, shape, device)),
+                      static_name="train_step")
+
+
+def serve_bundle(cfg: ModelConfig, shape: ShapeConfig,
+                 device="cuda") -> StepBundle:
+    """decode_*: one new token against a ``seq_len``-deep cache."""
+    api = get_api(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    params = eval_params(cfg, api, device)
+    caches = api.cache_init(cfg, B, S, device=device)
+    tokens = torch.zeros((B, 1), dtype=torch.int32, device=device)
+
+    def serve_step(params, caches, tokens):
+        with torch.no_grad():
+            return api.decode_step(params, cfg, caches, tokens)
+
+    return StepBundle(fn=serve_step, in_shapes=(params, caches, tokens),
+                      static_name="serve_step")
+
+
+def prefill_bundle(cfg: ModelConfig, shape: ShapeConfig,
+                   device="cuda") -> StepBundle:
+    """prefill_*: the prompt of ``seq_len`` tokens, building caches as
+    deep."""
+    api = get_api(cfg)
+    params = eval_params(cfg, api, device)
+    max_len = shape.seq_len
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return api.prefill(params, cfg, batch, max_len)
+
+    return StepBundle(fn=prefill_step,
+                      in_shapes=(params, _batch(cfg, shape, device)),
+                      static_name="prefill_step")

@@ -13,6 +13,7 @@ float32 as the reference does.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Callable, Dict, Optional, Tuple
@@ -27,25 +28,65 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
+#: ``$REPRO_REMAT_POLICY``'s names, as the reference's
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch")
+
+
+def _save_products(batched: bool):
+    """The selective-checkpoint policy that saves every product's output
+    (``batched``) or only those of products without batch dimensions:
+    ``ops.library.product_batched`` names the products (the kernels'
+    ``repro_torch`` ops, ``aten.mm`` / ``addmm`` / ``bmm`` /
+    ``baddbmm``); everything else is recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from ..ops.library import product_batched
+
+    def policy(ctx, func, *args, **kwargs):
+        kind = product_batched(func, args)
+        if kind is not None and (batched or not kind):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
 def remat(fn: Callable) -> Callable:
     """Activation-checkpoint a layer step under the active remat policy.
 
     ``$REPRO_REMAT_POLICY`` as in the reference: ``nothing`` (the default)
-    saves nothing inside the step and recomputes it in the backward, which
-    is ``torch.utils.checkpoint(use_reentrant=False)``.  The reference's
-    ``dots`` and ``dots_no_batch`` (save the matmul outputs) have no port
-    yet and raise.
+    saves nothing inside the step and recomputes all of it in the
+    backward; ``dots`` saves the output of every product (the reference's
+    ``checkpoint_dots``) and ``dots_no_batch`` of every product without
+    batch dimensions (``checkpoint_dots_with_no_batch_dims``: the
+    projections, the MoE router, B3's grouped products; not attention's
+    batched einsums nor ``batched_dense``), and recompute the rest.  An
+    unknown name raises.  ``torch.utils.checkpoint(use_reentrant=False)``,
+    with ``create_selective_checkpoint_contexts`` for the two ``dots``
+    policies: the policy is a dispatch mode, so it sees each kernel launch
+    as one op, ``repro_torch::contract`` / ``::grouped`` / ``::attention``
+    (``ops.library``), and the plain products of the CPU as ``aten`` ops.
+    The RNG state is not stashed: the models draw no random numbers in a
+    step (the reference threads its keys explicitly).
     """
     pol = os.environ.get("REPRO_REMAT_POLICY", "nothing")
+    if pol not in REMAT_POLICIES:
+        raise ValueError(f"REPRO_REMAT_POLICY={pol!r}: one of "
+                         f"{REMAT_POLICIES}")
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    kw = {}
     if pol != "nothing":
-        raise NotImplementedError(
-            f"REPRO_REMAT_POLICY={pol!r}: only 'nothing' (recompute the "
-            f"whole layer) is ported"
-        )
-    from torch.utils.checkpoint import checkpoint
+        policy = _save_products(batched=pol == "dots")
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
 
     def wrapped(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw, **kwargs)
 
     return wrapped
 
@@ -210,6 +251,9 @@ def blockwise_attention(
     blocks run together (the reference's ``vmap``) and a Python loop over
     the key blocks stands in for its ``lax.scan``.  ``kv_lengths`` masks
     keys at positions >= the per-sequence length (right-padded prefill).
+    ``REPRO_CAUSAL_SKIP=1`` (causal only) skips the fully masked blocks:
+    key block ki updates only the query blocks from ki * k_block //
+    q_block on, with the same result.
     """
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -250,7 +294,21 @@ def blockwise_attention(
     m = torch.full((B, nq, KV, G, q_block), NEG_INF, dtype=F32, device=dev)
     l = torch.zeros((B, nq, KV, G, q_block), dtype=F32, device=dev)
     acc = torch.zeros((B, nq, KV, G, q_block, hd), dtype=F32, device=dev)
+    # REPRO_CAUSAL_SKIP=1 (the reference's knob): key block ki updates only
+    # the query blocks its causal frontier reaches, ki * k_block // q_block
+    # on; the blocks before it are finished (a fully masked block would
+    # leave their m, l and acc as they are), so the result is the same
+    causal_skip = causal and os.environ.get("REPRO_CAUSAL_SKIP") == "1"
+    done = []  # finished query blocks' outputs, in order
     for ki in range(nk):
+        if causal_skip:
+            cut = min(ki * k_block // q_block, nq) - (nq - qs.shape[1])
+            if cut > 0:
+                done.append(acc[:, :cut] / l[:, :cut, ..., None])
+                qs, q_pos = qs[:, cut:], q_pos[cut:]
+                m, l, acc = m[:, cut:], l[:, cut:], acc[:, cut:]
+            if not qs.shape[1]:
+                break
         s = torch.einsum(
             "bnqkgh,bpkh->bnkgqp", qs, ks[:, ki].to(F32)
         ) * scale
@@ -269,6 +327,8 @@ def blockwise_attention(
         )
         m = m_new
     out = acc / l[..., None]  # (B, nq, KV, G, qb, hd)
+    if done:
+        out = torch.cat(done + [out], dim=1)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, H, hd)
     return out.to(q.dtype)
 

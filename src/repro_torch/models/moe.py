@@ -42,6 +42,8 @@ def _expert_stack(generator: torch.Generator, shape, dtype, device,
     more than one (a, b) slab (kimi-k2's full (384, 7168, 2048) stack would
     be 22.5 GB of f32)."""
     w = torch.empty(shape, dtype=dtype, device=device) if out is None else out
+    if w.device.type == "meta":  # shapes only: nothing to draw into
+        return w
     for e in range(shape[0]):
         slab = torch.randn(shape[1:], generator=generator, device=device,
                            dtype=F32)

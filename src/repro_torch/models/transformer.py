@@ -104,6 +104,8 @@ def stacked_init(layer_init: Callable, count: int, generator,
                               device=device),
         layer_init(None, torch.device("meta"), None),
     )
+    if torch.device(device).type == "meta":  # shapes only
+        return tree
     for layer in range(count):
         layer_init(generator, device,
                    _tree_map(lambda t: t[layer], tree))

@@ -41,9 +41,10 @@ where a call dispatches to a kernel, ``differentiable=True`` routes it
 through the ``repro_torch.grad`` ``autograd.Function``s, whose backward
 GEMMs are the derived specs on the same kernels (B1 for ``matmul.dA/.dB``
 and ``weighted_matmul.dA/.dB/.dg``, B3's dX orientation and B4 for
-``grouped_matmul.dX/.dW``).  The kernels
-write through ctypes into fresh tensors that carry no ``grad_fn``, so
-without the wrapper a kernel path would give no gradient at all.
+``grouped_matmul.dX/.dW``).  A launch (called directly, or under a
+dispatch mode as a ``repro_torch`` custom op, ``ops.library``) has no
+autograd formula, so without the wrapper a kernel path would give no
+gradient at all.
 ``differentiable=False`` on a kernel path returns an output detached from
 the graph (nothing can be differentiated through it, as the reference's
 bare Pallas primal has no VJP); the non-kernel paths stay plain torch ops

@@ -1,0 +1,319 @@
+"""The kernels' launches as ``torch.library`` custom ops.
+
+A compiled kernel (``codegen.CompiledKernel``: B1 in every mode, plain,
+epilogue, weighted, 8-bit, upcast and chain; ``codegen.FusedKernel``: B2
+attention, B3 grouped rows, B4 grouped dW) launches through one of four
+ops of the ``repro_torch`` namespace:
+
+* ``repro_torch::contract(key, arrays, vectors, out_dtype)``
+* ``repro_torch::attention(key, q, k, v, kv_lengths, out_dtype)``
+* ``repro_torch::grouped(key, x, w, out_dtype)``
+* ``repro_torch::grouped_dw(key, x, w, out_dtype)``
+
+so that a dispatch mode sees each launch as one op (``through_op``: with
+no dispatch mode active the kernel is called directly, the same launch
+without the op's host time).  That is what lets
+
+* a selective-checkpoint policy save a kernel's output
+  (``models.layers.remat``: ``REPRO_REMAT_POLICY=dots`` /
+  ``dots_no_batch``, ``torch.utils.checkpoint``'s
+  ``create_selective_checkpoint_contexts`` is a dispatch mode), and
+* a dry-run trace a whole step on fake CUDA tensors
+  (``FakeTensorMode``, ``roofline.op_count``, ``launch.dryrun``): each op
+  has a fake implementation and a flop formula
+  (``torch.utils.flop_counter``).
+
+An op takes tensors and scalars only, so the kernel object (its spec,
+plan, epilogue and searched ``CardPlan``) stays out of the signature:
+``key_of(kernel)`` registers the kernel under an integer key the first
+time it launches, and the implementation looks it up (``kernel_of``).
+
+The implementation is the kernel's own device rule: on CUDA tensors it
+launches the kernel exactly as before (the same launcher, checks and
+refusals, the per-stream scratch, the launch counts); on CPU tensors it
+runs the kernel's plain version (``contract_ref``, ``attention_ref``,
+``grouped_ref``, ``grouped_dw_ref``).  The fake implementation checks the
+operands as the launcher does (device, dtype, rank and extents) and
+returns an empty output of the launch's shape and dtype: it builds,
+loads and launches nothing, and allocates nothing on a device.  Every
+output is a fresh tensor, never an input.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+#: every kernel that has launched through an op, by key
+_KERNELS: list = []
+
+#: operand dtypes each op's kernel takes
+_WIDE = (torch.float32, torch.bfloat16)
+_B1_IN = _WIDE + (torch.int8, torch.float8_e4m3fn, torch.int32)
+_B1_OUT = _WIDE + (torch.int32,)
+
+
+def through_op(tensors) -> bool:
+    """Whether a launch on ``tensors`` goes through its op: only while a
+    dispatch mode is active (a selective-checkpoint policy, a
+    ``FakeTensorMode``, a ``FlopCounterMode``, ``roofline.op_count``), the
+    callers that need to see it as one op.  Otherwise the kernel's
+    ``run`` is called directly: the same launch, without the op's host
+    time (about 50 us a call on the card's host, which cost batch-1 decode
+    13 % of its tokens/s; PERF.md section 6, PR 27).  A CPU call that
+    autograd records through always runs the plain version directly,
+    which autograd differentiates (the ops have no autograd formula)."""
+    if not torch._C._len_torch_dispatch_stack():
+        return False
+    return not (torch.is_grad_enabled() and any(
+        x.requires_grad and x.device.type == "cpu" for x in tensors))
+
+
+def key_of(kernel) -> int:
+    """The op key of a compiled kernel (``CompiledKernel`` or
+    ``FusedKernel``), registered on first use."""
+    key = getattr(kernel, "op_key", None)
+    if key is None:
+        key = len(_KERNELS)
+        _KERNELS.append(kernel)
+        kernel.op_key = key
+    return key
+
+
+def kernel_of(key: int):
+    """The kernel registered under ``key``."""
+    return _KERNELS[key]
+
+
+def _check_devices(what: str, tensors) -> None:
+    dev = tensors[0].device
+    if any(x.device != dev for x in tensors):
+        raise ValueError(f"{what} takes tensors on one device, got "
+                         f"{[str(x.device) for x in tensors]}")
+
+
+def _check_extents(what: str, tensors) -> None:
+    for x in tensors:
+        if x.dim() and (min(x.stride()) < 0
+                        or max(*x.shape, *x.stride()) >= 2**31):
+            raise ValueError(f"{what} takes non-negative strides and extents "
+                             f"and strides below 2**31")
+
+
+def _out_shape(kernel) -> List[int]:
+    spec = kernel.spec
+    return [spec.extents[i] for i in spec.output]
+
+
+# -- B1: every mode of the contraction kernel ---------------------------------
+
+
+@torch.library.custom_op("repro_torch::contract", mutates_args=())
+def contract(key: int, arrays: List[torch.Tensor],
+             vectors: List[torch.Tensor],
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of B1 (``codegen.CompiledKernel``) on ``arrays`` (the
+    spec's operands) and ``vectors`` (its epilogue's, in
+    ``Epilogue.vector_names`` order)."""
+    return kernel_of(key).run(arrays, vectors, out_dtype)
+
+
+@contract.register_fake
+def _contract_fake(key, arrays, vectors, out_dtype):
+    kernel = kernel_of(key)
+    what = f"contract kernel ({kernel.spec.name})"
+    _check_devices(what, arrays + vectors)
+    if any(x.dtype not in _B1_IN for x in arrays):
+        raise TypeError(f"{what} takes float32, bfloat16, int8, fp8 or "
+                        f"int32 operands, got {[x.dtype for x in arrays]}")
+    if out_dtype not in _B1_OUT:
+        raise TypeError(f"{what} writes float32, bfloat16 or int32, not "
+                        f"{out_dtype}")
+    _check_extents(what, arrays)
+    return arrays[0].new_empty(_out_shape(kernel), dtype=out_dtype)
+
+
+def contract_flops(spec) -> int:
+    """2 x the multiply-adds of one launch of ``spec`` (a root
+    ContractionSpec) as B1 folds it: ``2 * batch * M * N * K`` for a
+    product (plain, epilogue, weighted, row reduce); for a chain of three
+    operands, the two products of its left association."""
+    ext = spec.extents
+    ops = list(spec.operands.values())
+    size = lambda idx: math.prod(ext[i] for i in idx)  # noqa: E731
+    if len(ops) == 3 and all(len(o) == 2 for o in ops) and len(
+        set(ops[0]) | set(ops[1]) | set(ops[2])
+    ) == 4:
+        first = set(ops[0]) | set(ops[1])
+        dropped = (set(ops[0]) & set(ops[1])) - set(ops[2]) - set(
+            spec.output)
+        second = (first - dropped) | set(ops[2])
+        return 2 * (size(first) + size(second))
+    a, b = sorted(ops, key=len, reverse=True)[:2]
+    return 2 * size(set(a) | set(b))
+
+
+@register_flop_formula(torch.ops.repro_torch.contract)
+def _contract_flop_formula(key, arrays, vectors, out_dtype, *args,
+                           out_shape=None, **kwargs) -> int:
+    return contract_flops(kernel_of(key).spec.root())
+
+
+# -- B2: attention -------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::attention", mutates_args=())
+def attention(key: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_lengths: Optional[torch.Tensor],
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of B2 (``codegen.FusedKernel`` of an attention spec)."""
+    return kernel_of(key).run_attention(q, k, v, kv_lengths, out_dtype)
+
+
+@attention.register_fake
+def _attention_fake(key, q, k, v, kv_lengths, out_dtype):
+    from ..codegen.fused_gen import ATTN_MAX_HEAD
+
+    what = "attention kernel"
+    tensors = [q, k, v] + ([] if kv_lengths is None else [kv_lengths])
+    _check_devices(what, tensors)
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _WIDE or (
+        out_dtype not in _WIDE
+    ):
+        raise TypeError(f"{what} takes and writes float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype} -> {out_dtype}")
+    h, s, d = q.shape
+    t, e = k.shape[1], v.shape[2]
+    if k.shape[0] != h or v.shape[0] != h or k.shape[2] != d or (
+        v.shape[1] != t
+    ):
+        raise ValueError(f"{what} takes q (H, S, D), k (H, T, D) and v (H, "
+                         f"T, E), got {tuple(q.shape)}, {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if max(d, e) > ATTN_MAX_HEAD:
+        raise ValueError(f"{what} takes d and e up to {ATTN_MAX_HEAD}, got "
+                         f"d {d}, e {e}")
+    if kv_lengths is not None and (kv_lengths.dtype != torch.int32
+                                   or tuple(kv_lengths.shape) != (h,)):
+        raise ValueError(f"{what} takes kv_lengths as an int32 ({h},) "
+                         f"tensor")
+    _check_extents(what, [q, k, v])
+    return q.new_empty((h, s, e), dtype=out_dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.attention)
+def _attention_flop_formula(key, q, k, v, kv_lengths, out_dtype, *args,
+                            out_shape=None, **kwargs) -> int:
+    h, s, d = q
+    t, e = k[1], v[2]
+    return 2 * h * s * t * d + 2 * h * s * t * e  # QK^T and PV
+
+
+# -- B3 and B4: the grouped products ---------------------------------------
+
+
+def _check_grouped(what, x, w, out_dtype):
+    _check_devices(what, [x, w])
+    if x.dtype != w.dtype or x.dtype not in _WIDE or out_dtype not in _WIDE:
+        raise TypeError(f"{what} takes two float32 or two bfloat16 operands "
+                        f"and writes either, got {x.dtype}, {w.dtype} -> "
+                        f"{out_dtype}")
+    _check_extents(what, [x, w])
+
+
+@torch.library.custom_op("repro_torch::grouped", mutates_args=())
+def grouped(key: int, x: torch.Tensor, w: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of B3 (the grouped rows of ``codegen.FusedKernel``)."""
+    return kernel_of(key).run_grouped(x, w, out_dtype)
+
+
+@grouped.register_fake
+def _grouped_fake(key, x, w, out_dtype):
+    kernel = kernel_of(key)
+    _check_grouped("grouped kernel", x, w, out_dtype)
+    k_ax = 2 if kernel.contract_last else 1
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[k_ax]:
+        raise ValueError(f"grouped kernel takes x (rows, K) and w with K on "
+                         f"axis {k_ax}, got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    return x.new_empty(_out_shape(kernel), dtype=out_dtype)
+
+
+@torch.library.custom_op("repro_torch::grouped_dw", mutates_args=())
+def grouped_dw(key: int, x: torch.Tensor, w: torch.Tensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of B4 (the dW mode of ``codegen.FusedKernel``): ``x`` and
+    ``w`` are the spec's two operands in its order."""
+    return kernel_of(key).run_grouped(x, w, out_dtype)
+
+
+@grouped_dw.register_fake
+def _grouped_dw_fake(key, x, w, out_dtype):
+    kernel = kernel_of(key)
+    _check_grouped("grouped dW kernel", x, w, out_dtype)
+    if x.dim() != 2 or w.dim() != 2 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"grouped dW kernel takes two (N, K) operands, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    return x.new_empty(_out_shape(kernel), dtype=out_dtype)
+
+
+@register_flop_formula([torch.ops.repro_torch.grouped,
+                        torch.ops.repro_torch.grouped_dw])
+def _grouped_flop_formula(key, x, w, out_dtype, *args, out_shape=None,
+                          **kwargs) -> int:
+    # each of the sum(group_sizes) rows meets one group's slab
+    spec = kernel_of(key).spec.root()
+    return 2 * sum(spec.group_sizes) * math.prod(
+        v for i, v in spec.extents.items() if i not in ("n", "g"))
+
+
+# -- what a checkpoint policy reads --------------------------------------------
+
+#: the op overloads the kernels call
+CONTRACT_OP = torch.ops.repro_torch.contract.default
+ATTENTION_OP = torch.ops.repro_torch.attention.default
+GROUPED_OP = torch.ops.repro_torch.grouped.default
+GROUPED_DW_OP = torch.ops.repro_torch.grouped_dw.default
+
+#: the ops of this module, each a product
+PRODUCT_OPS = (CONTRACT_OP, ATTENTION_OP, GROUPED_OP, GROUPED_DW_OP)
+
+
+def product_batched(func, args) -> Optional[bool]:
+    """Whether the op ``func`` called on ``args`` is a product with batch
+    dimensions (True), one without (False), or no product (None).
+
+    The products are this module's ops and ``aten.mm``, ``addmm``,
+    ``bmm`` and ``baddbmm`` (what ``torch.matmul`` and ``torch.einsum``
+    lower to).  A B1 launch has batch dimensions where its spec folds a
+    batch group (``batched_dense``, attention's backward products);
+    attention (B2) has its heads; the grouped products (B3, B4) have
+    none, as the reference's ragged GEMM.  A ``bmm`` of batch 1 (an
+    einsum over no batch index) has none.
+    """
+    aten = torch.ops.aten
+    packet = getattr(func, "overloadpacket", None)
+    if packet in (aten.mm, aten.addmm):
+        return False
+    if packet in (aten.bmm, aten.baddbmm):
+        a = args[1] if packet is aten.baddbmm else args[0]
+        return a.shape[0] > 1
+    if func is CONTRACT_OP:
+        from ..codegen.cuda_gen import _classify, _fold
+
+        spec = kernel_of(args[0]).spec.root()
+        fold = _classify(spec)
+        if fold.kind == "chain":
+            return False
+        batch = _fold(spec.operands[fold.a], spec.operands[fold.b],
+                      fold.target)[0]
+        return math.prod(spec.extents[i] for i in batch) > 1
+    if func is ATTENTION_OP:
+        return True
+    if func in (GROUPED_OP, GROUPED_DW_OP):
+        return False
+    return None

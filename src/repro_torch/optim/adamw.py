@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
+from ..roofline.op_count import repeated, repeats
 from .quant import BLOCK, Quantized, dequantize_blocks, quantize_blocks
 
 #: elements per f32 temporary in ``update`` and ``global_norm``: 64 MiB
@@ -99,8 +100,16 @@ def init(params, cfg: AdamWConfig) -> AdamWState:
 
 
 def _chunks(n: int):
-    for a in range(0, n, CHUNK):
-        yield a, min(n, a + CHUNK)
+    """(a, b, times): the chunks of a flat leaf of ``n`` elements, each
+    once (``times`` 1).  While a dry-run counts the step
+    (``roofline.op_count``), the full chunks run as one counted ``times``
+    times, then the tail."""
+    full = n // CHUNK
+    once = repeats(full)
+    for i in range(once):
+        yield i * CHUNK, (i + 1) * CHUNK, full // once
+    if n % CHUNK:
+        yield full * CHUNK, n, 1
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -110,9 +119,10 @@ def global_norm(tree) -> torch.Tensor:
     with torch.no_grad():
         for _, g in leaves(tree):
             flat = g.reshape(-1)
-            for a, b in _chunks(flat.numel()):
-                s = torch.sum(torch.square(flat[a:b].to(torch.float32)))
-                total = s if total is None else total + s
+            for a, b, times in _chunks(flat.numel()):
+                with repeated(times):
+                    s = torch.sum(torch.square(flat[a:b].to(torch.float32)))
+                    total = s if total is None else total + s
     return torch.sqrt(total)
 
 
@@ -151,20 +161,26 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
                 raise ValueError(f"parameter {'/'.join(path)} is not "
                                  f"contiguous; the update writes it in place")
             flat = p.view(-1)
-            for a, b in _chunks(flat.numel()):
-                gc = g[a:b].to(torch.float32) * scale
-                m_new = cfg.b1 * _decode(m, a, b) + (1 - cfg.b1) * gc
-                v_new = cfg.b2 * _decode(v, a, b) + (1 - cfg.b2) * gc * gc
-                upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
-                pf = flat[a:b].to(torch.float32)
-                flat[a:b] = (pf - lr * (upd + cfg.weight_decay * pf)).to(
-                    p.dtype
-                )
-                _encode_into(m, a, b, m_new)
-                _encode_into(v, a, b, v_new)
+            for a, b, times in _chunks(flat.numel()):
+                with repeated(times):
+                    _update_chunk(flat, g, m, v, a, b, scale, b1c, b2c, lr,
+                                  cfg, p.dtype)
     metrics: Dict[str, torch.Tensor] = {"grad_norm": gnorm,
                                         "clip_scale": scale}
     return params, AdamWState(step, state.m, state.v), metrics
+
+
+def _update_chunk(flat, g, m, v, a, b, scale, b1c, b2c, lr, cfg, dtype):
+    """AdamW's step on the chunk [a, b) of a flat leaf, written in
+    place."""
+    gc = g[a:b].to(torch.float32) * scale
+    m_new = cfg.b1 * _decode(m, a, b) + (1 - cfg.b1) * gc
+    v_new = cfg.b2 * _decode(v, a, b) + (1 - cfg.b2) * gc * gc
+    upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
+    pf = flat[a:b].to(torch.float32)
+    flat[a:b] = (pf - lr * (upd + cfg.weight_decay * pf)).to(dtype)
+    _encode_into(m, a, b, m_new)
+    _encode_into(v, a, b, v_new)
 
 
 # ---------------------------------------------------------------------------

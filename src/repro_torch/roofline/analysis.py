@@ -1,7 +1,9 @@
-"""Roofline model helpers the variant search scores with.
+"""Roofline helpers the variant search scores with, and the roofline
+table of the dry-run records.
 
-The reference's ``roofline/analysis.py`` has two halves.  This module is
-the first: the interconnect byte model of a collective, the exposed time
+The reference's ``roofline/analysis.py`` has two halves, both here.
+
+The first is the interconnect byte model of a collective, the exposed time
 of a mesh-sharded reduction, the online-softmax rescale term of fused
 attention, the ragged-tail factor of a grouped matmul and the byte model
 of the int8 / fp8 tiers, which ``search.beam.estimate`` adds to its
@@ -10,15 +12,35 @@ every candidate exactly as the reference's does; the constants are the
 reference's TPU (``core.cost.TPU`` keeps the same numbers), never the
 card's (``core.cost.H100``).
 
-The other half -- the table of the dry-run records (``param_counts``,
-``model_flops``, ``analyze_cell``, ``load_results``, ``analyze_all``,
-``markdown_table``, ``main``) -- reads ``launch/dryrun``'s output and
-comes with it (``ROADMAP.md`` queue A, item 6d).
+The second reads the per-cell records ``launch.dryrun`` writes and derives
+three terms per (arch x shape):
+
+    compute_s    = dot FLOPs / peak
+    memory_s     = (dot bytes + other ops' output bytes) / HBM bandwidth
+    collective_s = collective bytes / link bandwidth
+
+A record of the port (``"hw": "h100"``) is priced at ``core.cost.H100``'s
+bf16 peak and HBM rate (its collectives are 0 on one card); a record
+without ``hw`` (the reference's) at the reference's TPU constants below,
+so that both packages read the same numbers off the same record.
+``param_counts`` reads the model's params off its ``init`` on the meta
+device (never allocated).  ``MODEL_FLOPS`` is 6 N_active tokens for
+training and 2 N_active tokens for inference.  These terms are analytic: the card's
+times come from ``chip_smoke.py`` and ``scripts/chip_compare.py``.
+
+Usage:  PYTHONPATH=src python -m repro_torch.roofline.analysis --results
+results/
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import math
+import os
+from typing import Dict, List, Optional
+
+from ..core.cost import H100
 
 PEAK_FLOPS = 197e12   # bf16 / chip
 HBM_BW = 819e9        # B/s / chip
@@ -155,3 +177,214 @@ def quant_hbm_bytes(spec, elem_bytes: int = 4) -> float:
     )
     write = math.prod(root.extents[i] for i in root.output) * out_b
     return float(read + write)
+
+
+# ---------------------------------------------------------------------------
+# the roofline table of the dry-run records
+# ---------------------------------------------------------------------------
+
+#: (peak FLOP/s, HBM B/s, link B/s) by a record's ``hw``; None is the
+#: reference's TPU.  The H100's link is NVLink 4's 450 GB/s a direction
+#: (its collectives are 0 bytes until the mesh tier, item 6c).
+HW_TERMS = {
+    None: (PEAK_FLOPS, HBM_BW, ICI_BW),
+    "h100": (H100["peak_bf16"], H100["hbm_bw"], 450e9),
+}
+
+_SUGGEST = {
+    "compute": "raise arithmetic efficiency: larger per-chip batch or less "
+               "remat recompute (MODEL/HLO flops ratio shows the headroom)",
+    "memory": "cut HBM traffic: fuse elementwise chains into the matmul "
+              "epilogues (paper eq 27) and keep KV/activations in bf16",
+    "collective": "re-shard to cheaper collectives: move the all-gather off "
+                  "the critical path (overlapped collective matmul) or "
+                  "shard the other operand dim (paper's flip exchange)",
+}
+
+
+def param_counts(arch: str) -> Dict[str, float]:
+    """Total and active parameter counts of ``arch``'s params, from the
+    model's ``init`` on the meta device (no allocation); expert leaves
+    (under ``moe``, not the shared expert or the router) count ``top_k /
+    n_experts`` toward the active count."""
+    import torch
+
+    from ..configs import get_config
+    from ..models.api import get_api
+    from ..optim.adamw import leaves
+
+    cfg = get_config(arch)
+    params = get_api(cfg).init(cfg, None, torch.device("meta"))
+    total = 0
+    expert = 0
+    for path, leaf in leaves(params):
+        n = math.prod(leaf.shape)
+        total += n
+        keys = "/".join(path)
+        if "moe" in keys and "shared" not in keys and "router" not in keys:
+            expert += n
+    active = total
+    if cfg.moe is not None and expert:
+        active = total - expert * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    return {"total": float(total), "active": float(active)}
+
+
+def model_flops(arch: str, shape_name: str, counts: Dict[str, float]) -> float:
+    from ..configs import SHAPES
+
+    s = SHAPES[shape_name]
+    n = counts["active"]
+    if s.kind == "train":
+        tokens = s.global_batch * s.seq_len
+        return 6.0 * n * tokens
+    if s.kind == "prefill":
+        tokens = s.global_batch * s.seq_len
+        return 2.0 * n * tokens
+    # decode: one token per sequence
+    return 2.0 * n * s.global_batch
+
+
+def analyze_cell(rec: Dict, counts: Optional[Dict] = None) -> Dict:
+    if rec["status"] != "ok":
+        return dict(rec)
+    peak, hbm, link = HW_TERMS[rec.get("hw")]
+    chips = rec["chips"]
+    parsed = rec.get("parsed")
+    if parsed:  # the op counts (the reference: trip-count-aware HLO)
+        flops = parsed["dot_flops"]
+        # memory: dot operand/output traffic + non-dot materialized
+        # outputs; legacy records (no dot_bytes) fall back to the proxy
+        if "dot_bytes" in parsed:
+            mem_bytes = parsed["dot_bytes"] + parsed["out_bytes_proxy"]
+        else:
+            mem_bytes = parsed["out_bytes_proxy"]
+        coll_bytes = parsed["collective_bytes"]
+    else:  # legacy records: while bodies counted once (undercounts!)
+        flops = rec["flops"]
+        mem_bytes = rec["bytes_accessed"]
+        coll_bytes = sum(
+            v for k, v in rec["collectives"].items() if k != "count"
+        )
+    compute_s = flops / peak
+    memory_s = mem_bytes / hbm
+    collective_s = coll_bytes / link
+    dominant = max(
+        ("compute", compute_s), ("memory", memory_s),
+        ("collective", collective_s),
+        key=lambda kv: kv[1],
+    )[0]
+    out = dict(rec)
+    out.update(
+        compute_s=compute_s,
+        memory_s=memory_s,
+        collective_s=collective_s,
+        collective_bytes=coll_bytes,
+        dominant=dominant,
+        suggestion=_SUGGEST[dominant],
+    )
+    if counts:
+        mf = model_flops(rec["arch"], rec["shape"], counts)
+        total_hlo = flops * chips
+        out["model_flops"] = mf
+        out["useful_ratio"] = mf / total_hlo if total_hlo else 0.0
+        # roofline fraction: the time the chip must spend over the time
+        # its bound says it spends; fused = the memory floor of the
+        # products' traffic alone
+        ideal = (mf / chips) / peak
+        bound = max(compute_s, memory_s, collective_s)
+        out["roofline_fraction"] = ideal / bound if bound else 0.0
+        if parsed and "dot_bytes" in parsed:
+            mem_fused_s = parsed["dot_bytes"] / hbm
+            bound_fused = max(compute_s, mem_fused_s, collective_s)
+            out["memory_fused_s"] = mem_fused_s
+            out["roofline_fraction_fused"] = (
+                ideal / bound_fused if bound_fused else 0.0
+            )
+            out["dominant_fused"] = max(
+                ("compute", compute_s), ("memory", mem_fused_s),
+                ("collective", collective_s),
+                key=lambda kv: kv[1],
+            )[0]
+    return out
+
+
+def load_results(results_dir: str) -> List[Dict]:
+    out = []
+    for path in sorted(glob.glob(os.path.join(results_dir, "*.json"))):
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+def analyze_all(results_dir: str, with_counts: bool = True) -> List[Dict]:
+    cache: Dict[str, Dict] = {}
+    rows = []
+    for rec in load_results(results_dir):
+        counts = None
+        if with_counts and rec["status"] == "ok":
+            if rec["arch"] not in cache:
+                cache[rec["arch"]] = param_counts(rec["arch"])
+            counts = cache[rec["arch"]]
+        rows.append(analyze_cell(rec, counts))
+    return rows
+
+
+def _fmt_s(x: float) -> str:
+    if x >= 1:
+        return f"{x:.2f}s"
+    if x >= 1e-3:
+        return f"{x*1e3:.1f}ms"
+    return f"{x*1e6:.0f}us"
+
+
+def markdown_table(rows: List[Dict], mesh: Optional[str] = None) -> str:
+    lines = [
+        "| arch | shape | mesh | step | compute | memory(ub) | mem(fused) "
+        "| collective | bound(fused) | MODEL/HLO | frac | frac(fused) |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        if mesh and r.get("mesh") != mesh:
+            continue
+        if r["status"] == "skipped":
+            lines.append(
+                f"| {r['arch']} | {r['shape']} | {r.get('mesh','-')} | — | "
+                f"skipped | — | — | — | — | — | — | — |"
+            )
+            continue
+        if r["status"] != "ok":
+            lines.append(
+                f"| {r['arch']} | {r['shape']} | {r.get('mesh','-')} | — | "
+                f"ERROR | — | — | — | — | — | — | — |"
+            )
+            continue
+        lines.append(
+            "| {arch} | {shape} | {mesh} | {step} | {c} | {m} | {mf} | {k} "
+            "| {dom} | {ur:.2f} | {rf:.3f} | {rff:.3f} |".format(
+                arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+                step=r["step"].replace("_step", ""),
+                c=_fmt_s(r["compute_s"]), m=_fmt_s(r["memory_s"]),
+                mf=_fmt_s(r.get("memory_fused_s", 0.0)),
+                k=_fmt_s(r["collective_s"]),
+                dom=r.get("dominant_fused", r["dominant"]),
+                ur=r.get("useful_ratio", 0.0),
+                rf=r.get("roofline_fraction", 0.0),
+                rff=r.get("roofline_fraction_fused", 0.0),
+            )
+        )
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--results", default="results")
+    ap.add_argument("--mesh", default=None)
+    args = ap.parse_args(argv)
+    rows = analyze_all(args.results)
+    print(markdown_table(rows, mesh=args.mesh))
+
+
+if __name__ == "__main__":
+    main()

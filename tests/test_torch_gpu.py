@@ -2542,3 +2542,78 @@ def test_measured_tuning_on_the_card_without_a_plan(cuda_device, tmp_path):
     (entry,) = json.load(open(cache.path)).values()
     assert entry["measured"] is True and "card" not in entry
     assert entry["measured_s"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy,want", [
+    ("nothing", 28), ("dots", 21), ("dots_no_batch", 21),
+])
+def test_fake_cuda_train_step_product_ops(cuda_device, policy, want,
+                                          monkeypatch):
+    """A train step on fake CUDA tensors (``launch.steps.train_bundle``):
+    every projection is one ``repro_torch::contract`` op, 7 forward, 7
+    recomputed under ``nothing`` (an autograd Function saves its inputs
+    after its forward, so the recompute reaches the layer's last product
+    too), 14 backward; nothing is built or launched."""
+    import collections
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import train_bundle
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setenv("REPRO_REMAT_POLICY", policy)
+    before = cuda_gen.CONTRACT.launches
+    counts = []
+    for n_layers in (2, 3):
+        cfg = dataclasses.replace(get_config("qwen3-8b").smoke(),
+                                  n_layers=n_layers)
+        with FakeTensorMode():
+            b = train_bundle(cfg, ShapeConfig("t", 16, 2, "train"))
+            with Count() as c:
+                b.fn(*b.in_shapes)
+        counts.append(c.n["repro_torch.contract"])
+    assert counts[1] - counts[0] == want
+    assert cuda_gen.CONTRACT.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy,want", [
+    ("nothing", 8), ("dots", 6), ("dots_no_batch", 6),
+])
+def test_remat_policy_saves_b1_launches(cuda_device, policy, want,
+                                        monkeypatch):
+    """A checkpointed block of two ``ops.dense`` on the card: B1 launches
+    2 forward, 4 backward and, under ``nothing``, 2 recomputed; the
+    gradients equal ``nothing``'s bit for bit."""
+    from repro_torch.models import layers as L
+
+    def block(x, w1, w2):
+        return ops.dense(torch.tanh(ops.dense(x, w1)), w2)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, w1, w2 = (torch.randn(256, 256, device=cuda_device, generator=gen,
+                             dtype=torch.bfloat16).requires_grad_(True)
+                 for _ in range(3))
+    monkeypatch.setenv("REPRO_REMAT_POLICY", policy)
+    before = cuda_gen.CONTRACT.launches
+    out = L.remat(block)(x, w1, w2)
+    grads = torch.autograd.grad(out.float().square().sum(), (x, w1, w2))
+    assert cuda_gen.CONTRACT.launches - before == want
+    monkeypatch.setenv("REPRO_REMAT_POLICY", "nothing")
+    out0 = L.remat(block)(x, w1, w2)
+    for g, g0 in zip(grads, torch.autograd.grad(out0.float().square().sum(),
+                                                (x, w1, w2))):
+        assert torch.equal(g, g0)

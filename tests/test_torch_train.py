@@ -305,8 +305,8 @@ def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
             lambda p, b: port_get_api(cfg).loss(p, cfg, b), params, pb)
         assert len(calls) == want, remat
     monkeypatch.setenv("REPRO_REMAT_POLICY", "dots")
-    with pytest.raises(NotImplementedError, match="REPRO_REMAT_POLICY"):
-        port_get_api(port_cfg).loss(params, port_cfg, pb)
+    loss = port_get_api(port_cfg).loss(params, port_cfg, pb)
+    assert bool(torch.isfinite(loss))
 
 
 def test_cross_entropy_and_load_balance_loss_match_reference():
