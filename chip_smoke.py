@@ -276,6 +276,28 @@ raises and the script exits non-zero without the final result line:
     tally of the launcher's calls, 7 x 36 x (prefills + decode steps) of
     them), a restart that hits every ladder in the plan DB, and
     ``tune_schedule(measure_with=)`` on CUDA operands;
+16d. remat-dryrun — the remat policies, causal skip, the one-card
+    dry-run and plan-explain (``phase_remat_dryrun``);
+16e. capture — whole-model capture (``repro_torch.capture``): (a) the
+    conformance trio (``capture.demo_configs``, f32) captured on the card
+    against the CPU's ``interpret=True`` capture: the same sites, ops and
+    specs, loss and every gradient within 2e-4 scaled, and the launches
+    of one loss + gradients each from its sites (B1 per dense site and
+    its ``.dA`` / ``.dB``, B2 per motif, B3 / B4 per grouped site, with
+    the remat recompute); (b) phase 13's serving run with ``--capture``
+    (both steps harvested on fake tensors and swept, no backward specs):
+    every request complete, B1 7 x 36 + 1 (the f32 unembedding) a
+    forward, B2 36 a prefill (the single-block attention motif), each
+    request's first-token logits within 6e-2 of max |logit| of the
+    uncaptured prefill's, prefill ms and decode tok/s beside an uncaptured
+    engine's on the same weights, each run twice (the second warm: every
+    step signature traced);
+    (c) phase 10's training cut with ``--capture`` for 3 steps: finite
+    losses, step 1's within the bf16 TOL of phase 10's, B1 and B2 a step,
+    step ms and peak beside phase 10's; the f32 unembedding's device ms
+    on B1 (forward, ``.dA``, ``.dB``, each one launch, with its body and
+    ``torch.matmul``'s ms and the plain version's) at M = 2048 and at
+    M = 4;
 17. the phases' seconds, the ``kernels`` JSON line (contract, grouped,
     grouped_dw, matmul, fused_dense_act, fused_rnz, contract_int8,
     contract_fp8, contract_upcast, contract_chain, attention), then the
@@ -5268,6 +5290,349 @@ def phase_remat_dryrun(smi):
     return out
 
 
+#: phase capture's training cut: phase 10's flags for 3 steps
+CAPTURE_TRAIN_STEPS = 3
+#: the card-vs-CPU tolerance of the captured trio's loss and gradients
+#: (f32, scaled by max |CPU|; B1's and B2's 3xTF32 against f32 sums)
+CAPTURE_TOL = 2e-4
+
+
+def _capture_launches(cfg):
+    """The launches of one captured loss + gradients of a demo config,
+    from its layers (every layer checkpointed under ``nothing``): a dense
+    site runs B1 forward, again in the recompute and twice backward (.dA,
+    .dB), 4; the unembedding, outside the layers, 3; the attention motif
+    B2 forward and in the recompute, and its three backward products on
+    B1; a grouped site B3 forward, recomputed and its dX, and B4 its dW.
+    On the card the MoE router (128 x 128 x 4) launches too; the SSM's
+    scan products stay plain (no layout the kernels take)."""
+    want = {"contract": 3, "attention": 0, "grouped": 0, "grouped_dw": 0}
+    m = cfg.moe
+    for layer in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            want["contract"] += 2 * 4  # in_proj, out_proj
+            continue
+        want["contract"] += 4 * 4 + 3  # q, k, v, o; the motif's backward
+        want["attention"] += 2
+        if m is not None and layer >= m.first_dense:
+            want["contract"] += 4  # the router
+            want["grouped"] += 3 * 3
+            want["grouped_dw"] += 3
+        else:
+            want["contract"] += 3 * 4  # gate, up, down
+    return want
+
+
+def _counts_all():
+    from repro_torch.codegen import ATTENTION
+
+    return {**_launch_counts(), "attention": ATTENTION.launches}
+
+
+def _zero_counts_all():
+    from repro_torch.codegen import ATTENTION
+
+    _zero_launch_counts()
+    ATTENTION.launches = 0
+
+
+def phase_capture(smi, train_summary):
+    """Whole-model capture on the card: (a) the trio card vs CPU, (b)
+    qwen3-8b ``serve --capture`` at full width and depth, (c) qwen3-8b
+    ``train --capture`` on phase 10's cut.  See the module docstring."""
+    out = {"trio": {}}
+    # (a) the conformance trio, card vs CPU, on the reference's MoE path:
+    # batched einsums the grouped taint sends to B3 (REPRO_MOE_GROUPED,
+    # which phase small-moe set, would make the CPU's experts a loop of
+    # plain products and the card's B3 launches, two reports)
+    grouped_env = os.environ.pop("REPRO_MOE_GROUPED", None)
+    try:
+        _capture_trio(out, smi)
+    finally:
+        if grouped_env is not None:
+            os.environ["REPRO_MOE_GROUPED"] = grouped_env
+    _free()
+    _capture_serve_train(out, smi, train_summary)
+    return out
+
+
+def _capture_trio(out, smi):
+    """Phase capture (a): the conformance trio card vs CPU."""
+    import torch
+
+    from repro_torch import capture
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.api import get_api
+    from repro_torch.optim.adamw import leaves, tree_map
+
+    for name, cfg in sorted(capture.demo_configs().items()):
+        api = get_api(cfg)
+        params = api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.randint(0, cfg.vocab, (capture.DEMO_BATCH,
+                                            capture.DEMO_SEQ),
+                             generator=torch.Generator().manual_seed(7),
+                             dtype=torch.int32)
+        batch = {"tokens": toks, "labels": toks}
+        gparams = tree_map(lambda t: t.to("cuda"), params)
+        gbatch = {k: v.to("cuda") for k, v in batch.items()}
+
+        def loss(p, b, api=api, cfg=cfg):
+            return api.loss(p, cfg, b)
+
+        cpu = capture.optimize(loss, interpret=True, label=f"{name}:cpu")
+        card = capture.optimize(loss, label=f"{name}:card")
+        rep_cpu = cpu.report_for(params, batch)
+        rep_card = card.report_for(gparams, gbatch)
+        sig = lambda r: [(s.op, s.spec and s.spec.name,  # noqa: E731
+                          s.spec and dict(s.spec.extents)) for s in r.sites]
+        if sig(rep_card) != sig(rep_cpu):
+            raise AssertionError(f"capture {name}: the card's sites "
+                                 f"{sig(rep_card)} differ from the CPU's "
+                                 f"{sig(rep_cpu)}")
+        value_and_grad(card, gparams, gbatch)  # builds, first launches
+        torch.cuda.synchronize()
+        _zero_counts_all()
+        l_card, g_card = value_and_grad(card, gparams, gbatch)
+        torch.cuda.synchronize()
+        got = _counts_all()
+        l_cpu, g_cpu = value_and_grad(cpu, params, batch)
+        errs = [_scaled_err(l_card.cpu(), l_cpu)] + [
+            _scaled_err(a.cpu(), b)
+            for (_, a), (_, b) in zip(leaves(g_card), leaves(g_cpu))]
+        want = _capture_launches(cfg)
+        out["trio"][name] = dict(cpu=rep_cpu.summary(),
+                                 card=rep_card.summary(), launches=got,
+                                 max_scaled_err=max(errs))
+        print(f"[capture] {name}: {rep_card.summary()} (CPU "
+              f"{rep_cpu.dispatched} dispatched); loss + grads card vs CPU "
+              f"{max(errs):.3g} scaled; launches {got}", flush=True)
+        if max(errs) > CAPTURE_TOL:
+            raise AssertionError(f"capture {name}: loss / gradients "
+                                 f"{max(errs):.3g} of max |CPU| from the "
+                                 f"CPU's (tol {CAPTURE_TOL})")
+        if got != want:
+            raise AssertionError(f"capture {name}: launches {got}, "
+                                 f"expected {want}")
+
+
+def _capture_serve_train(out, smi, train_summary):
+    """Phase capture (b) and (c): qwen3-8b served and trained through
+    captured steps."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serving import Gateway, ServeRequest
+    from repro_torch.models.api import get_api
+
+    # (b) qwen3-8b serve --capture at full width and depth, beside the
+    # uncaptured engine on the same seeded weights; each engine serves
+    # phase 13's trace, then the same trace again (warm: every step
+    # signature traced, every kernel looked up)
+    def again(trace):
+        return [ServeRequest(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
+                             arrival_s=r.arrival_s, tenant=r.tenant)
+                for r in trace]
+
+    plain_stats, trace, engine = serve.main(SERVE_ARGS)
+    plain_warm = Gateway(engine).run(again(trace))
+    del engine, trace
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts_all()
+    t0 = time.perf_counter()
+    stats, trace, engine = serve.main(SERVE_ARGS + ["--capture",
+                                                    "--no-search-grads"])
+    took = time.perf_counter() - t0
+    cfg = engine.cfg
+    for r in trace:
+        if len(r.out_tokens) != r.max_new or r.state != "finished":
+            raise AssertionError(f"capture serve: request {r.rid} ended "
+                                 f"with {len(r.out_tokens)}/{r.max_new}")
+        if not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            raise AssertionError(f"capture serve: request {r.rid}: token "
+                                 f"outside the vocab")
+    forwards = stats["prefills"] + stats["decode_steps"]
+    want_b1 = (7 * cfg.n_layers + 1) * forwards
+    want_b2 = cfg.n_layers * stats["prefills"]
+    got_b1, got_b2 = stats["kernel_launches"], stats["attention_launches"]
+    peak = torch.cuda.max_memory_allocated()
+    cs = engine.capture_stats
+    for kind, rep in cs["reports"].items():
+        print(f"[capture] serve harvest {kind}: {rep.summary()}",
+              flush=True)
+    print(f"[capture] serve sweep: {cs['points']} plan point(s) of "
+          f"{cs['specs']} spec(s) in {cs['sweep_s']:.1f} s", flush=True)
+    for label, fn in (("prefill", engine.prefill.step),
+                      ("decode", engine.decode.step)):
+        for rep in fn.reports:
+            print(f"[capture] serve {label} trace: {rep.summary()}",
+                  flush=True)
+    # each request's first-token logits, captured vs the uncaptured path
+    api = get_api(cfg)
+    errs = []
+    with torch.inference_mode():
+        for r in trace:
+            toks = torch.as_tensor(r.prompt, dtype=torch.long,
+                                   device="cuda")[None]
+            n = toks.shape[1]
+            lengths = torch.full((1,), n, dtype=torch.long, device="cuda")
+            got, _ = engine.prefill.step(engine.params, {"tokens": toks}, n)
+            ref, _ = api.prefill(engine.params, cfg,
+                                 {"tokens": toks, "lengths": lengths}, n)
+            errs.append(_scaled_err(got[0, -1], ref[0, -1]))
+            del got, ref
+    out["serve"] = dict(
+        stats={k: v for k, v in stats.items() if k != "tenant_tokens"},
+        b1=got_b1, b2=got_b2, peak_bytes=peak, wall_s=took,
+        sweep_points=cs["points"], sweep_s=cs["sweep_s"],
+        first_logits_err=errs)
+    print(f"[capture] serve {cfg.arch_id} --capture: B1 {got_b1} (want "
+          f"{want_b1} = (7 x {cfg.n_layers} + 1) x {forwards} forwards), "
+          f"B2 {got_b2} (want {want_b2} = {cfg.n_layers} x "
+          f"{stats['prefills']} prefills); prefill "
+          f"{stats['prefill_s'] * 1e3:.1f} ms with its traces (uncaptured "
+          f"{plain_stats['prefill_s'] * 1e3:.1f}), decode "
+          f"{stats['tok_per_s']:.2f} tok/s with its trace (uncaptured "
+          f"{plain_stats['tok_per_s']:.2f}); first-token logits vs "
+          f"uncaptured {[round(e, 4) for e in errs]} of max |logit|; "
+          f"peak {peak / 2**30:.2f} GiB; wall {took:.1f} s ({smi})",
+          flush=True)
+    if (got_b1, got_b2) != (want_b1, want_b2):
+        raise AssertionError(f"capture serve: B1 {got_b1}, B2 {got_b2}; "
+                             f"expected {want_b1}, {want_b2}")
+    if max(errs) > TOL["bfloat16"][0]:
+        raise AssertionError(f"capture serve: first-token logits "
+                             f"{max(errs):.3g} of max |logit| from the "
+                             f"uncaptured prefill's")
+    _zero_counts_all()
+    warm = Gateway(engine).run(again(trace))
+    keep = lambda st: {k: v for k, v in st.items()  # noqa: E731
+                       if k != "tenant_tokens"}
+    out["serve"].update(warm=keep(warm), uncaptured=keep(plain_stats),
+                        uncaptured_warm=keep(plain_warm))
+    print(f"[capture] serve again (warm: traces cached): prefill "
+          f"{warm['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{warm['tok_per_s']:.2f} tok/s, B1 {_counts_all()['contract']}, "
+          f"B2 {_counts_all()['attention']}; uncaptured again: prefill "
+          f"{plain_warm['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{plain_warm['tok_per_s']:.2f} tok/s ({smi})", flush=True)
+    del engine, trace
+    _free()
+
+    # the f32 unembedding on B1, alone: train M = 2048, decode M = 4; its
+    # forward and the two derived specs of its backward, one launch each
+    from repro_torch.codegen.cuda_gen import contract_ref
+    from repro_torch.core.enumerate import matmul_spec
+    from repro_torch.grad import COTANGENT, derived_specs
+    from repro_torch.grad.vjp import apply_spec
+
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn(cfg.d_model, cfg.vocab, device=dev, generator=gen)
+    out["unembed"] = {}
+    for m in (TRAIN_M, 4):
+        x = torch.randn(m, cfg.d_model, device=dev, generator=gen)
+        g = torch.randn(m, cfg.vocab, device=dev, generator=gen)
+        dsp_fwd = matmul_spec(m, cfg.d_model, cfg.vocab)
+        dsp = derived_specs(dsp_fwd)
+        calls = {
+            "fwd": lambda: ops.dense(x, w, differentiable=False),
+            ".dA": lambda: apply_spec(dsp["A"], {COTANGENT: g, "B": w},
+                                      out_dtype=torch.float32,
+                                      use_kernel=True),
+            ".dB": lambda: apply_spec(dsp["B"], {COTANGENT: g, "A": x},
+                                      out_dtype=torch.float32,
+                                      use_kernel=True),
+        }
+        libs = {"fwd": lambda: torch.matmul(x, w),
+                ".dA": lambda: torch.matmul(g, w.t()),
+                ".dB": lambda: torch.matmul(x.t(), g)}
+        plains = {"fwd": lambda: contract_ref(dsp_fwd, x, w,
+                                              out_dtype=torch.float32),
+                  ".dA": lambda: apply_spec(dsp["A"], {COTANGENT: g, "B": w},
+                                            out_dtype=torch.float32),
+                  ".dB": lambda: apply_spec(dsp["B"], {COTANGENT: g, "A": x},
+                                            out_dtype=torch.float32)}
+        bound = _bound(2 * m * cfg.d_model * cfg.vocab,
+                       4 * (m * cfg.d_model + cfg.d_model * cfg.vocab
+                            + m * cfg.vocab), "float32",
+                       peak=PEAK_3XTF32)[0]
+        rows = {}
+        with torch.no_grad():
+            for what, fn in calls.items():
+                ms = _kernel_ms(fn, flush, "contract")[0]
+                rows[what] = dict(device_ms=ms,
+                                  body=_body(_launcher("contract")),
+                                  library_ms=_timed(libs[what], flush,
+                                                    reps=3, warmup=1),
+                                  plain_ms=_timed(plains[what], flush,
+                                                  **PLAIN_REPS),
+                                  bound_ms=bound)
+        out["unembed"][m] = rows
+        print(f"[capture] f32 unembedding {m} x {cfg.d_model} x "
+              f"{cfg.vocab} on B1, device ms (body; torch.matmul f32 ms; "
+              f"the plain version's ms): "
+              + ", ".join(f"{k} {v['device_ms']:.3f} ({v['body']}; "
+                          f"{v['library_ms']:.3f}; plain {v['plain_ms']:.3f})"
+                          for k, v in rows.items())
+              + f"; bound {bound:.3f} ms each (3xTF32) ({smi})", flush=True)
+        del x, g
+    del w, flush
+    _free()
+
+    # (c) qwen3-8b train --capture on phase 10's cut
+    flags = list(TRAIN_FLAGS)
+    flags[flags.index("--steps") + 1] = str(CAPTURE_TRAIN_STEPS)
+    args = train_mod.parse_args(flags + ["--capture"])
+    tcfg = dataclasses.replace(get_config("qwen3-8b"),
+                               n_layers=TRAIN_LAYERS)
+    run = train_mod.run_from_args(tcfg, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts_all()
+    (params, state), losses, report = train_mod.train(run, verbose=False)
+    torch.cuda.synchronize()
+    got = {k: v / args.steps for k, v in _counts_all().items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps_ms = [v * 1e3 for v in report.step_times]
+    want = {"contract": B1_PER_LAYER_STEP * tcfg.n_layers + 3
+            + 3 * tcfg.n_layers,
+            "attention": 2 * tcfg.n_layers, "grouped": 0, "grouped_dw": 0}
+    base = train_summary["losses"][0]
+    err = abs(losses[0] - base) / abs(base)
+    out["train"] = dict(losses=losses, launches_per_step=got,
+                        step_ms=steps_ms, peak_bytes=peak,
+                        uncaptured_step_ms=train_summary["steady_step_s"]
+                        * 1e3,
+                        uncaptured_peak_bytes=train_summary[
+                            "max_memory_allocated"],
+                        step1_err=err)
+    print(f"[capture] train {tcfg.arch_id} ({tcfg.n_layers} layers, "
+          f"{args.batch} x {args.seq}) --capture: losses "
+          f"{[round(v, 4) for v in losses]} (uncaptured step 1 "
+          f"{base:.4f}, {err:.3g} relative); launches a step {got} (want "
+          f"{want}); step ms {[round(v, 1) for v in steps_ms]} (uncaptured "
+          f"steady {train_summary['steady_step_s'] * 1e3:.1f}); peak "
+          f"{peak / 2**30:.2f} GiB (uncaptured "
+          f"{train_summary['max_memory_allocated'] / 2**30:.2f}) ({smi})",
+          flush=True)
+    del params, state
+    _free()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"capture train: non-finite loss {losses}")
+    if err > TOL["bfloat16"][0]:
+        raise AssertionError(f"capture train: step 1 loss {losses[0]} vs "
+                             f"the uncaptured {base}")
+    if got != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"capture train: launches a step {got}, "
+                             f"expected {want}")
+
+
 def _phase(name, fn, *args, **kwargs):
     """Run one phase; print and keep its wall seconds."""
     t0 = time.perf_counter()
@@ -5377,6 +5742,10 @@ def main() -> int:
     # skip, the one-card dry-run and plan-explain
     remat = _phase("remat-dryrun", phase_remat_dryrun, smi)
     _free()
+    # this slice's path: whole-model capture, the trio card vs CPU, then
+    # qwen3-8b served and trained through captured steps
+    captured = _phase("capture", phase_capture, smi, train)
+    _free()
 
     line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches,
                         b1_mode_rows)
@@ -5410,6 +5779,7 @@ def main() -> int:
                    "serve_int8": serve_int8, "search": search,
                    "fixed_serve": fixed, "families": families,
                    "fixed_small": fixed_small, "remat_dryrun": remat,
+                   "capture": captured,
                    "takes": TAKEN, "seconds": SECONDS, **line}, f, indent=1)
     # the takes each profiled check needed for a whole trace
     print(f"[takes] {json.dumps(TAKEN)}", flush=True)

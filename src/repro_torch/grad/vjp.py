@@ -3,10 +3,13 @@
 A kernel launch writes through ctypes into a fresh output, directly or,
 under a dispatch mode, as one ``torch.library`` custom op of the
 ``repro_torch`` namespace (``ops.library``: ``contract``, ``attention``,
-``grouped``, ``grouped_dw``), which has no autograd formula of its own:
-either way a launch's result carries no gradient, so without these
-wrappers autograd through a model on the card gives no gradient to any
-projection or expert weight.  As an op, each launch is seen by the mode:
+``grouped``, ``grouped_dw``).  A launch inside an ``ops`` entry point is
+differentiated by the wrapper around it: without these wrappers autograd
+through a model on the card gives no gradient to any projection or
+expert weight.  (The ops carry the same cotangents as their own autograd
+formula, ``launch_cotangents`` and kin, for a graph that holds a launch
+without its wrapper: a ``capture`` replay.)  As an op, each launch is
+seen by the mode:
 a selective-checkpoint policy (``models.layers.remat``) can save a
 forward's launch output and a dry-run (``launch.dryrun``) can trace it on
 fake tensors.  Each wrapper here pairs an ``ops`` primal with the reference's
@@ -96,6 +99,29 @@ def _cotangent_gemms(spec, g, operands, *, interpret, use_kernel,
             interpret=interpret, use_kernel=use_kernel,
         )
     return out
+
+
+def launch_cotangents(kernel, g, arrays, wanted):
+    """The operand cotangents of one B1 launch (a ``codegen.CompiledKernel``
+    called on ``arrays``, the root spec's operands in order): each the
+    derived spec of its operand on the same kernel pipeline, as the
+    ``ops`` wrappers of this module run them, None where ``wanted`` is
+    false.  What ``ops.library`` registers as the autograd formula of
+    ``repro_torch::contract``, so a launch replayed from a traced graph
+    (``capture``) differentiates as the wrapper around it did.  A launch
+    with an epilogue or of an 8-bit spec has no such rule and raises."""
+    spec = kernel.spec.root()
+    if kernel.epilogue is not None or spec.quant is not None or getattr(
+            spec, "fused_kind", ""):
+        raise RuntimeError(
+            f"a {spec.name} launch with an epilogue, an 8-bit or a fused "
+            f"spec has no gradient rule of its own; differentiate through "
+            f"its ops entry point instead")
+    names = tuple(spec.operands)
+    cots = _cotangent_gemms(
+        spec, g, dict(zip(names, arrays)), interpret=kernel.interpret,
+        use_kernel=True, wrt=[n for n, w in zip(names, wanted) if w])
+    return [cots.get(n) for n in names]
 
 
 def _wanted(ctx, names: Sequence[str]):
@@ -309,47 +335,58 @@ class _Grouped(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from .. import ops
-        from ..codegen.fused_gen import _group_offsets
-        from ..core.enumerate import grouped_matmul_spec
 
         x, w = ctx.saved_tensors
-        sizes = ctx.group_sizes
-        need_x, need_w = ctx.needs_input_grad[:2]
-        n, kdim = x.shape
-        fdim = w.shape[2]
-        dx = dw = None
-        if n and ops._grouped_kernel_ok(x, ctx.interpret):
-            dsp = derived_specs(grouped_matmul_spec(sizes, kdim, fdim))
-            with _annotate("grouped"):
-                if need_x:
-                    dx = apply_spec(
-                        dsp["X"], {COTANGENT: g.to(x.dtype), "W": w},
-                        out_dtype=x.dtype, interpret=ctx.interpret,
-                        use_kernel=True,
-                    )
-                if need_w:
-                    dw = apply_spec(
-                        dsp["W"], {COTANGENT: g.to(w.dtype), "X": x},
-                        out_dtype=w.dtype, interpret=ctx.interpret,
-                        use_kernel=True,
-                    )
-            return dx, dw, None, None, None
-        # the per-group loop: an einsum here would sum over the group axis
-        gf, xf = g.float(), x.float()
-        if need_x:
-            dx = torch.zeros((n, kdim), dtype=torch.float32, device=x.device)
-        if need_w:
-            dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-        for gi, (off, size) in enumerate(zip(_group_offsets(sizes), sizes)):
-            if not size:
-                continue  # empty group: zero dW slab, no dX rows
-            rows = slice(off, off + size)
+        dx, dw = grouped_cotangents(
+            x, w, g, ctx.group_sizes, interpret=ctx.interpret,
+            use_kernel=bool(x.shape[0]) and ops._grouped_kernel_ok(
+                x, ctx.interpret),
+            need=ctx.needs_input_grad[:2])
+        return dx, dw, None, None, None
+
+
+def grouped_cotangents(x, w, g, sizes, *, interpret: bool, use_kernel: bool,
+                       need=(True, True)):
+    """(dX, dW) of the ragged grouped GEMM x (N, K), w (G, K, F), each
+    None where ``need`` says so: on the kernel path ``grouped_matmul.dX``
+    (B3's dX orientation) and ``.dW`` (B4); otherwise the per-group loop."""
+    from ..codegen.fused_gen import _group_offsets
+    from ..core.enumerate import grouped_matmul_spec
+
+    need_x, need_w = need
+    n, kdim = x.shape
+    fdim = w.shape[2]
+    dx = dw = None
+    if use_kernel:
+        dsp = derived_specs(grouped_matmul_spec(sizes, kdim, fdim))
+        with _annotate("grouped"):
             if need_x:
-                dx[rows] = gf[rows] @ w[gi].float().T
+                dx = apply_spec(
+                    dsp["X"], {COTANGENT: g.to(x.dtype), "W": w},
+                    out_dtype=x.dtype, interpret=interpret, use_kernel=True,
+                )
             if need_w:
-                dw[gi] = xf[rows].T @ gf[rows]
-        return (None if dx is None else dx.to(x.dtype),
-                None if dw is None else dw.to(w.dtype), None, None, None)
+                dw = apply_spec(
+                    dsp["W"], {COTANGENT: g.to(w.dtype), "X": x},
+                    out_dtype=w.dtype, interpret=interpret, use_kernel=True,
+                )
+        return dx, dw
+    # the per-group loop: an einsum here would sum over the group axis
+    gf, xf = g.float(), x.float()
+    if need_x:
+        dx = torch.zeros((n, kdim), dtype=torch.float32, device=x.device)
+    if need_w:
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    for gi, (off, size) in enumerate(zip(_group_offsets(sizes), sizes)):
+        if not size:
+            continue  # empty group: zero dW slab, no dX rows
+        rows = slice(off, off + size)
+        if need_x:
+            dx[rows] = gf[rows] @ w[gi].float().T
+        if need_w:
+            dw[gi] = xf[rows].T @ gf[rows]
+    return (None if dx is None else dx.to(x.dtype),
+            None if dw is None else dw.to(w.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -437,46 +474,56 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from .. import ops
-        from ..core.enumerate import attention_spec
 
         q, k, v = ctx.saved_tensors
-        h, s, d = q.shape
-        t, e = k.shape[1], v.shape[2]
-        dsp = derived_specs(attention_spec(h, s, t, d, e=e,
-                                           causal=ctx.causal))
-        use_kernel = ops._attention_kernel_ok(q, ctx.interpret)
-        need_q, need_k, need_v = ctx.needs_input_grad[:3]
-        scale = d ** -0.5
-        dq = dk = dv = None
-        with _annotate("attention"):
-            # the forward kept no probabilities: recompute them in f32
-            # under the forward's masks (plain products, as the reference's
-            # einsums outside a kernel); a row with no visible column has
-            # P = 0, hence dS = 0
-            big_p = attention_probs(q, k, causal=ctx.causal,
-                                    kv_lengths=ctx.kv_lengths)
-            if need_v:
-                dv = apply_spec(
-                    dsp["V"], {COTANGENT: g.to(v.dtype),
-                               "P": big_p.to(v.dtype)},
-                    out_dtype=v.dtype, interpret=ctx.interpret,
-                    use_kernel=use_kernel)
-            if need_q or need_k:
-                dp = torch.matmul(g.float(), v.float().transpose(1, 2))
-                dterm = (dp * big_p).sum(dim=-1, keepdim=True)
-                ds = big_p * (dp - dterm) * scale
-                del dp
-                if need_q:
-                    dq = apply_spec(
-                        dsp["Q"], {COTANGENT: ds.to(q.dtype), "K": k},
-                        out_dtype=q.dtype, interpret=ctx.interpret,
-                        use_kernel=use_kernel)
-                if need_k:
-                    dk = apply_spec(
-                        dsp["K"], {COTANGENT: ds.to(k.dtype), "Q": q},
-                        out_dtype=k.dtype, interpret=ctx.interpret,
-                        use_kernel=use_kernel)
+        dq, dk, dv = attention_cotangents(
+            q, k, v, g, ctx.kv_lengths, causal=ctx.causal,
+            interpret=ctx.interpret,
+            use_kernel=ops._attention_kernel_ok(q, ctx.interpret),
+            need=ctx.needs_input_grad[:3])
         return dq, dk, dv, None, None, None, None
+
+
+def attention_cotangents(q, k, v, g, kv_lengths, *, causal: bool,
+                         interpret: bool, use_kernel: bool,
+                         need=(True, True, True)):
+    """(dQ, dK, dV) of fused attention, each None where ``need`` says so:
+    the forward kept no probabilities, so they are recomputed in f32 under
+    the forward's masks (plain products, as the reference's einsums
+    outside a kernel); a row with no visible column has P = 0, hence
+    dS = 0.  The three GEMMs are the derived specs
+    ``attention.dQ/.dK/.dV``, on B1 where ``use_kernel``."""
+    from ..core.enumerate import attention_spec
+
+    h, s, d = q.shape
+    t, e = k.shape[1], v.shape[2]
+    dsp = derived_specs(attention_spec(h, s, t, d, e=e, causal=causal))
+    need_q, need_k, need_v = need
+    scale = d ** -0.5
+    dq = dk = dv = None
+    with _annotate("attention"):
+        big_p = attention_probs(q, k, causal=causal, kv_lengths=kv_lengths)
+        if need_v:
+            dv = apply_spec(
+                dsp["V"], {COTANGENT: g.to(v.dtype), "P": big_p.to(v.dtype)},
+                out_dtype=v.dtype, interpret=interpret,
+                use_kernel=use_kernel)
+        if need_q or need_k:
+            dp = torch.matmul(g.float(), v.float().transpose(1, 2))
+            dterm = (dp * big_p).sum(dim=-1, keepdim=True)
+            ds = big_p * (dp - dterm) * scale
+            del dp
+            if need_q:
+                dq = apply_spec(
+                    dsp["Q"], {COTANGENT: ds.to(q.dtype), "K": k},
+                    out_dtype=q.dtype, interpret=interpret,
+                    use_kernel=use_kernel)
+            if need_k:
+                dk = apply_spec(
+                    dsp["K"], {COTANGENT: ds.to(k.dtype), "Q": q},
+                    out_dtype=k.dtype, interpret=interpret,
+                    use_kernel=use_kernel)
+    return dq, dk, dv
 
 
 @functools.lru_cache(maxsize=None)

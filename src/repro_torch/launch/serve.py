@@ -42,9 +42,14 @@ reference's does), and on the card each ladder ranks and measures B1's
 tile plans, so the projections then launch with the measured winner's
 plan; a restart finds the ladders in the plan DB.  ``--warm-gemms``
 pre-tunes schedules through the codegen cache
-(``ops.warm_dense_cache``).  ``--capture`` and ``--mesh`` raise: they
-come with capture (ROADMAP.md queue A item 6b) and the mesh tier (item
-6c).  ``--metrics-out`` / ``--trace-out`` write the ``obs`` registry and
+(``ops.warm_dense_cache``).  ``--capture`` (both engines) harvests the
+prefill and decode steps on fake tensors, sweeps their specs into the
+plan DB and serves through ``capture.optimize``d steps: on the card the
+single-block prefill attention launches B2 and the f32 unembedding B1
+(``attention kernel launches``); a prefill with no padded row drops its
+lengths mask, which masks nothing, so that it takes the single-block
+path.  ``--mesh`` raises: it comes with the mesh tier (ROADMAP.md queue
+A item 6c).  ``--metrics-out`` / ``--trace-out`` write the ``obs`` registry and
 the Chrome trace after the run.
 """
 
@@ -59,12 +64,13 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..codegen import CONTRACT, GROUPED
+from ..codegen import ATTENTION, CONTRACT, GROUPED
 from ..configs import get_config
 from ..device import resolve_device
 from ..models.api import get_api
 from ..obs import log
-from .serving.runners import _deq_fn, quantize_params
+from .serving.runners import (_deq_fn, capture_warmup, model_step,
+                              prefill_lengths, quantize_params)
 
 
 def _warm(shapes) -> None:
@@ -79,12 +85,8 @@ def _warm(shapes) -> None:
              f"{cache.hits} hit, {cache.misses} miss)")
 
 
-def _refuse(capture: bool, mesh_shape) -> None:
-    """``--capture`` and ``--mesh`` are later slices of the port."""
-    if capture:
-        raise NotImplementedError(
-            "serve --capture (whole-model capture) comes with the capture "
-            "slice, ROADMAP.md queue A item 6b")
+def _refuse(mesh_shape) -> None:
+    """``--mesh`` is a later slice of the port."""
     if mesh_shape:
         raise NotImplementedError(
             f"serve --mesh {mesh_shape} comes with the mesh tier, "
@@ -122,7 +124,7 @@ class BatchServer:
                  search_grads: bool = True, capture: bool = False,
                  mesh_shape=None, quant: Optional[str] = None, params=None,
                  device="cuda"):
-        _refuse(capture, mesh_shape)
+        _refuse(mesh_shape)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -136,6 +138,15 @@ class BatchServer:
         self.extra_batch = {k: torch.as_tensor(v).to(self.device)
                             for k, v in (extra_batch or {}).items()}
         self.quant = quant
+        # whole-model capture: harvest prefill + decode on fake tensors,
+        # sweep their specs, and serve through the captured steps below
+        self.capture = capture
+        self.capture_stats = None
+        if capture:
+            self.capture_stats = capture_warmup(
+                cfg, {"prefill": (batch_size, max_len),
+                      "decode": (batch_size, max_len)},
+                search_grads=search_grads, quant=quant, device=self.device)
         if warm_gemms:
             _warm(warm_gemms)
         if search_gemms:
@@ -163,6 +174,13 @@ class BatchServer:
                 params = quantize_params(params, quant)
         self.params = params
         self._deq = _deq_fn(quant)
+        api, deq = self.api, self._deq
+        self._prefill_step = model_step(
+            lambda p, b, n: api.prefill(deq(p), cfg, b, n), capture,
+            f"{cfg.arch_id}:prefill", quant)
+        self._decode_step = model_step(
+            lambda p, c, t: api.decode_step(deq(p), cfg, c, t), capture,
+            f"{cfg.arch_id}:decode", quant)
 
     def _sync(self) -> None:
         # host clocks below time device work: wait for it to finish
@@ -173,10 +191,11 @@ class BatchServer:
         batch = {"tokens": torch.as_tensor(tokens, dtype=torch.long)
                  .to(self.device), **self.extra_batch}
         if lengths is not None:
+            lengths = prefill_lengths(lengths, tokens.shape[1], self.capture)
+        if lengths is not None:
             batch["lengths"] = torch.as_tensor(
                 lengths, dtype=torch.long).to(self.device)
-        return self.api.prefill(self._deq(self.params), self.cfg, batch,
-                                self.max_len)
+        return self._prefill_step(self.params, batch, self.max_len)
 
     def _pack(self, requests: List[Request]):
         """Pack prompts into the slot matrix; returns (tokens, lengths).
@@ -255,9 +274,8 @@ class BatchServer:
             # the loop exits without a wasted trailing decode dispatch
             while not all(r.done for r in requests):
                 with obs.span("serve.decode.step", step=steps):
-                    logits, caches = self.api.decode_step(
-                        self._deq(self.params), self.cfg, caches,
-                        next_tok[:, None])
+                    logits, caches = self._decode_step(
+                        self.params, caches, next_tok[:, None])
                     next_tok = torch.argmax(logits[:, -1], dim=-1)
                     next_host = next_tok.cpu().numpy()
                 steps += 1
@@ -342,8 +360,16 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--no-search-grads", action="store_true",
         help="with --search-gemms, sweep only the forward specs",
     )
-    ap.add_argument("--capture", action="store_true",
-                    help="whole-model capture (a later slice: raises)")
+    ap.add_argument(
+        "--capture", action="store_true",
+        help="whole-model capture (repro_torch.capture): harvest the "
+             "prefill and decode steps' products on fake tensors, sweep "
+             "their specs (with the derived backward specs unless "
+             "--no-search-grads) into the ranked plan DB, and serve "
+             "through the captured steps, so the remaining plain "
+             "products (the attention motif, the unembedding) launch "
+             "kernels too; with --quant the dispatched dense sites take "
+             "the 8-bit tier")
     ap.add_argument("--mesh", default=None, metavar="AxB",
                     help="mesh shape for the mesh tier (a later slice: "
                          "raises)")
@@ -386,7 +412,7 @@ def run(cfg, args: argparse.Namespace):
     from .serving import (ContinuousEngine, FixedEngine, Gateway,
                           synthetic_trace)
 
-    _refuse(args.capture, args.mesh)
+    _refuse(args.mesh)
     trace = synthetic_trace(
         args.requests,
         vocab=cfg.vocab,
@@ -420,6 +446,7 @@ def run(cfg, args: argparse.Namespace):
             quant=quant,
             search_gemms=args.search_gemms,
             search_grads=not args.no_search_grads,
+            capture=args.capture,
         )
     else:
         engine = FixedEngine(
@@ -431,12 +458,15 @@ def run(cfg, args: argparse.Namespace):
             warm_gemms=args.warm_gemms,
             search_gemms=args.search_gemms,
             search_grads=not args.no_search_grads,
+            capture=args.capture,
         )
     launches0, grouped0 = CONTRACT.launches, GROUPED.launches
+    attention0 = ATTENTION.launches
     plans0 = _card_plan_counts()
     stats = Gateway(engine).run(trace, eos_id=args.eos_id)
     stats["kernel_launches"] = CONTRACT.launches - launches0
     stats["grouped_launches"] = GROUPED.launches - grouped0
+    stats["attention_launches"] = ATTENTION.launches - attention0
     for what, n in _card_plan_counts().items():
         stats[f"card_plans_{what}"] = n - plans0[what]
     log.info(
@@ -447,6 +477,9 @@ def run(cfg, args: argparse.Namespace):
         f"at {stats['tok_per_s']:.1f} decode tok/s on {engine.device}"
     )
     log.info("serve", f"contract kernel launches: {stats['kernel_launches']}")
+    if args.capture:
+        log.info("serve", f"attention kernel launches: "
+                 f"{stats['attention_launches']}")
     if stats["card_plans_applied"] or stats["card_plans_skipped"]:
         log.info("serve", f"searched B1 plans: applied to "
                  f"{stats['card_plans_applied']} launch(es), skipped by "

@@ -30,6 +30,9 @@ and every prefill and decode step expands it one layer at a time
 --search-gemms``) has each runner search and persist its phase's ladders
 before the first request (the prefill runner with the derived backward
 specs when ``search_grads``); a restart finds them in the plan DB.
+``capture`` (``serve --capture``) harvests both steps on fake tensors,
+sweeps their specs and runs the runners through captured steps
+(``capture.optimize``).
 
 :class:`FixedEngine` is the fixed-slot ``launch.serve.BatchServer``
 behind the same ``run()``: requests chunked FCFS into groups of ``lanes``,
@@ -54,7 +57,8 @@ from ...configs.base import ModelConfig
 from ...device import resolve_device
 from ...models.api import get_api
 from . import paged
-from .runners import DecodeRunner, PrefillRunner, quantize_params
+from .runners import (DecodeRunner, PrefillRunner, capture_warmup,
+                      quantize_params)
 from .scheduler import Scheduler, ServeRequest
 
 
@@ -75,6 +79,7 @@ class ContinuousEngine:
         quant: Optional[str] = None,
         search_gemms=(),
         search_grads: bool = False,
+        capture: bool = False,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -108,10 +113,20 @@ class ContinuousEngine:
             self.params = params
             self.pools = paged.pool_init(cfg, n_pages, page_size,
                                          device=self.device)
+        # whole-model capture (serve --capture): harvest both steps on fake
+        # tensors (prefill batch-1, decode at the lanes), sweep their specs,
+        # and run both runners through captured steps
+        self.capture_stats = None
+        if capture:
+            self.capture_stats = capture_warmup(
+                cfg, {"prefill": (1, self.max_ctx),
+                      "decode": (lanes, self.max_ctx)},
+                search_grads=search_grads, quant=quant, device=self.device)
         self.prefill = PrefillRunner(cfg, self.api, page_size, self.device,
-                                     quant=quant)
+                                     quant=quant, capture=capture)
         self.decode = DecodeRunner(cfg, self.api, page_size, lanes,
-                                   self.max_pages, self.device, quant=quant)
+                                   self.max_pages, self.device, quant=quant,
+                                   capture=capture)
         if search_gemms:
             # each runner ladders the shapes it runs, under its phase key
             self.prefill.sweep(search_gemms, with_grads=search_grads)

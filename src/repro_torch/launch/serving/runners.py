@@ -15,10 +15,15 @@ are expanded for the call only: the embedding and final norm before it,
 each stacked layer inside the model's layer loop, so at most one layer
 is live at full precision beside the 8-bit tree.  The values are those
 of ``dequantize_tree``.
+
+With ``capture`` (``serve --capture``) each runner's model step is
+``capture.optimize``d: on the card the prefill's single-block attention
+runs B2 and the unembedding B1, beside the projections' own launches.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -91,6 +96,68 @@ def quantize_params(params, quant: str):
     return params
 
 
+def model_step(fn, capture: bool, label: str, quant: Optional[str]):
+    """A serving engine's model step: ``fn`` itself, or under ``capture``
+    (``serve --capture``) ``capture.optimize(fn)``, traced once per input
+    signature and replayed with its eligible products on the kernels;
+    ``quant`` sends its dispatched dense sites to the 8-bit tier, as the
+    reference's fixed server does."""
+    if not capture:
+        return fn
+    from ...capture import optimize
+
+    return optimize(fn, label=label, quant=quant)
+
+
+def prefill_lengths(lengths, width: int, capture: bool):
+    """A prefill's ``lengths`` (host values, one a row), or None under
+    ``capture`` where no row of the ``width``-wide prefill is padded: the
+    mask would mask nothing, and without it the prefill takes the
+    unmasked single-block attention that ``capture`` fuses into one
+    ``ops.attention`` launch."""
+    if capture and min(int(n) for n in lengths) >= width:
+        return None
+    return lengths
+
+
+def capture_warmup(cfg, points, *, search_grads: bool, quant, device):
+    """``serve --capture``'s warm-up, as the reference's: harvest each
+    serving entry point on fake tensors (``points``: kind -> (batch,
+    seq); no allocation), log each report's summary, and sweep the union
+    of their dispatched specs into the ranked plan DB (with the derived
+    backward specs when ``search_grads``, so a co-located training fleet
+    finds them too; with ``quant``, each forward spec's quantized leg).
+    The harvest runs on fake tensors of ``device`` (a ``torch.device``)
+    with ``interpret=True``, as the reference's does: on the CPU the
+    aligned sites are eligible, on the card every non-empty one; the
+    sweep measures its candidates there.  Returns the reports by kind and
+    the sweep's points and seconds."""
+    from ... import capture as _capture
+    from ...obs import log
+    from ...search import default_plan_db
+
+    reports, specs = {}, {}
+    for kind, (batch, seq) in points.items():
+        _, rep = _capture.model_capture(
+            cfg, batch=batch, seq=seq, kind=kind, interpret=True,
+            device=device.type)
+        log.info("serve", rep.summary())
+        reports[kind] = rep
+        for spec, dt in rep.unique_specs():
+            specs.setdefault(_capture.spec_key(spec, dt),
+                             (f"{kind}:{spec.name}", spec, dt))
+    db = default_plan_db()
+    t0 = time.perf_counter()
+    n = _capture.sweep_captured(
+        list(specs.values()), with_grads=search_grads, plan_db=db,
+        interpret=device.type != "cuda", quant=quant, device=device.type)
+    took = time.perf_counter() - t0
+    log.info("serve", f"capture swept {n} plan point(s) ({len(specs)} "
+             f"unique GEMM spec(s)) in {took:.1f} s -> {db.path}")
+    return {"reports": reports, "points": n, "specs": len(specs),
+            "sweep_s": took}
+
+
 class PrefillRunner:
     """Batch-1 bucketed prefill: pads the context to a page multiple,
     masks the pads via ``lengths``, and copies the resulting cache pages
@@ -99,12 +166,17 @@ class PrefillRunner:
     phase = "prefill"
 
     def __init__(self, cfg: ModelConfig, api: ModelAPI, page_size: int,
-                 device: torch.device, quant: Optional[str] = None):
+                 device: torch.device, quant: Optional[str] = None,
+                 capture: bool = False):
         self.cfg = cfg
         self.api = api
         self.page_size = page_size
         self.device = device
         self.deq = _deq_fn(quant)
+        self.capture = capture
+        self.step = model_step(
+            lambda p, b, n: api.prefill(self.deq(p), cfg, b, n),
+            capture, f"{cfg.arch_id}:prefill", quant)
 
     def sweep(self, shapes, *, with_grads: bool = True) -> int:
         """Search the prefill ladders of (m, k, n) GEMMs (with their
@@ -123,14 +195,13 @@ class PrefillRunner:
         toks = torch.zeros((1, padded), dtype=torch.long)
         toks[0, :plen] = torch.as_tensor(context, dtype=torch.long)
         toks = toks.to(self.device)
-        lengths = torch.full((1,), plen, dtype=torch.long, device=self.device)
+        batch = {"tokens": toks}
+        if prefill_lengths([plen], padded, self.capture) is not None:
+            batch["lengths"] = torch.full((1,), plen, dtype=torch.long,
+                                          device=self.device)
         with serving_phase(self.phase):
             with obs.span("serve.prefill", tokens=plen, padded=padded):
-                logits, caches = self.api.prefill(
-                    self.deq(params), self.cfg,
-                    {"tokens": toks, "lengths": lengths},
-                    padded,
-                )
+                logits, caches = self.step(params, batch, padded)
                 tok = int(torch.argmax(logits[0, -1]))
                 pools = paged.store_prefill(
                     pools, caches,
@@ -150,7 +221,7 @@ class DecodeRunner:
 
     def __init__(self, cfg: ModelConfig, api: ModelAPI, page_size: int,
                  lanes: int, max_pages: int, device: torch.device,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, capture: bool = False):
         self.cfg = cfg
         self.api = api
         self.page_size = page_size
@@ -158,6 +229,9 @@ class DecodeRunner:
         self.max_pages = max_pages
         self.device = device
         self.deq = _deq_fn(quant)
+        self.step = model_step(
+            lambda p, c, t: api.decode_step(self.deq(p), cfg, c, t),
+            capture, f"{cfg.arch_id}:decode", quant)
 
     def sweep(self, shapes, *, with_grads: bool = False) -> int:
         """Search the decode ladders: decode dispatches M = lanes
@@ -176,9 +250,7 @@ class DecodeRunner:
         bt, lens, toks = as_dev(block_table), as_dev(lens), as_dev(tokens)
         with serving_phase(self.phase):
             caches = paged.paged_view(pools, bt, lens, self.page_size)
-            logits, new_caches = self.api.decode_step(
-                self.deq(params), self.cfg, caches, toks[:, None]
-            )
+            logits, new_caches = self.step(params, caches, toks[:, None])
             pools = paged.scatter_token(
                 pools, new_caches, bt, lens, self.page_size
             )

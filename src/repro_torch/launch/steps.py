@@ -13,9 +13,9 @@ under ``REPRO_MOE_GROUPED=1`` B3 and B4).
 the reference's do, without its shardings: the arguments are built on the
 device asked for under the active ``FakeTensorMode`` (``eval_params``), so
 a cell of production size is traced (``launch.dryrun``) and never
-allocated.  Sharded bundles (the ``mesh=`` argument) and capture
-(``capture=True`` or ``$REPRO_CAPTURE=1``) come with the mesh tier and
-capture, ROADMAP.md queue A items 6c and 6b.
+allocated.  ``capture=True`` (or ``$REPRO_CAPTURE=1``) routes the loss
+through ``capture.optimize``.  Sharded bundles (the ``mesh=`` argument)
+come with the mesh tier, ROADMAP.md queue A item 6c.
 """
 
 from __future__ import annotations
@@ -106,23 +106,33 @@ def make_train_step(
     along its leading axis and the gradients are accumulated in f32, each
     divided by ``microbatch``, as the reference's scan does; the update
     then takes the f32 sums.
+
+    ``capture`` (or ``$REPRO_CAPTURE=1``) routes the loss through
+    ``repro_torch.capture.optimize``, as the reference does: the model's
+    remaining plain products (the attention motif, the unembedding, the
+    MoE experts' batched einsums) are harvested into ContractionSpecs and,
+    where eligible, dispatched through the same plan-DB pipeline, fwd and
+    bwd; the model's own ``ops`` launches replay as they are, and each
+    layer's checkpoint region keeps its remat policy.  Ineligible sites
+    run untouched, so this is a strict superset of the uncaptured step.
     """
     if capture is None:
         capture = os.environ.get("REPRO_CAPTURE", "") == "1"
-    if capture:
-        raise NotImplementedError(
-            "capture of the train step comes with the capture slice, "
-            "ROADMAP.md queue A item 6"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "a mesh-bound train step comes with the mesh tier, ROADMAP.md "
-            "queue A item 6"
+            "queue A item 6c"
         )
     api = get_api(cfg)
 
     def loss_fn(p, b):
         return api.loss(p, cfg, b)
+
+    if capture:
+        from .. import capture as _capture
+
+        loss_fn = _capture.optimize(loss_fn,
+                                    label=f"{cfg.arch_id}:train_step")
 
     def train_step(params, opt_state, batch):
         if microbatch > 1:

@@ -14,8 +14,11 @@ Every step's grad norm also goes to the ``obs`` histogram
 fails without a card; pass ``--device cpu`` for the plain PyTorch
 versions.  A run cut in depth goes through
 ``train(TrainRun(cfg=dataclasses.replace(cfg, n_layers=...), ...))``, or
-``train(run_from_args(cut_cfg, parse_args(flags)))``.  ``--capture``
-comes with the capture slice (ROADMAP.md queue A item 6).
+``train(run_from_args(cut_cfg, parse_args(flags)))``.  ``--capture`` (or
+``$REPRO_CAPTURE=1``) trains through the captured loss
+(``capture.optimize``): the model's remaining plain products, the
+attention motif and the unembedding, run the kernels forward and
+backward too.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ class TrainRun:
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
     log_every: int = 10
-    #: capture is a later slice; None reads $REPRO_CAPTURE
+    #: route the loss through capture.optimize; None reads $REPRO_CAPTURE
     capture: Optional[bool] = None
     #: torch device of the params, state and batches
     device: str = "cuda"
@@ -142,7 +145,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--moments", default="float32",
                     choices=["float32", "bfloat16", "int8"])
     ap.add_argument("--capture", action="store_true",
-                    help="capture the whole model (a later slice: raises)")
+                    help="capture the whole model: harvest its plain "
+                         "products and dispatch the eligible ones through "
+                         "the plan-DB pipeline, fwd and bwd "
+                         "(repro_torch.capture; also $REPRO_CAPTURE=1)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     return ap.parse_args(argv)

@@ -100,7 +100,8 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor,
     x = (frames + sinusoid(S, D, device=frames.device)[None]).to(
         cfg.param_dtype)
     positions = torch.arange(S, device=frames.device)[None, :]
-    for lp in _layers(params["enc_layers"], cfg.enc_layers):
+
+    def step(x, lp):
         z = L.layernorm(lp["attn_norm"], x, cfg.norm_eps)
         y, _ = L.attention_apply(
             lp["attn"], cfg, z, positions=positions, causal=False,
@@ -108,7 +109,11 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor,
         )
         x = x + y
         z = L.layernorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], cfg, z)
+        return x + L.mlp_apply(lp["mlp"], cfg, z)
+
+    step = L.scan_body(step, name="enc_layers")
+    for lp in _layers(params["enc_layers"], cfg.enc_layers):
+        x = step(x, lp)
     return L.layernorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -164,8 +169,8 @@ def _decoder(params, cfg: ModelConfig, tokens, enc_out=None, caches=None,
         h = h + L.mlp_apply(lp["mlp"], cfg, z)
         return h, new_self, ck, cv
 
-    if cfg.remat and caches is None:
-        step = L.remat(step)
+    step = L.scan_body(step, name="dec_layers",
+                       remat_on=cfg.remat and caches is None)
     lens = []
     for layer, lp in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
         lc = None

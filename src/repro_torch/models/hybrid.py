@@ -92,9 +92,8 @@ def _run(params, cfg: ModelConfig, x, *, positions, caches=None,
     ae = cfg.attn_every or cfg.n_layers
     groups = cfg.n_layers // ae if cfg.attn_every else 1
     layers = _tree_map(_unstack, params["ssm_layers"])
-    step = _ssm_step(cfg)
-    if cfg.remat and caches is None:
-        step = L.remat(step)
+    step = L.scan_body(_ssm_step(cfg), name="ssm_layers",
+                       remat_on=cfg.remat and caches is None)
     site_lens = []
     for g in range(groups):
         lo, hi = g * ae, min((g + 1) * ae, cfg.n_layers)

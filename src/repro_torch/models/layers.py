@@ -51,7 +51,7 @@ def _save_products(batched: bool):
     return policy
 
 
-def remat(fn: Callable) -> Callable:
+def remat(fn: Callable, policy: Optional[str] = None) -> Callable:
     """Activation-checkpoint a layer step under the active remat policy.
 
     ``$REPRO_REMAT_POLICY`` as in the reference: ``nothing`` (the default)
@@ -67,9 +67,11 @@ def remat(fn: Callable) -> Callable:
     as one op, ``repro_torch::contract`` / ``::grouped`` / ``::attention``
     (``ops.library``), and the plain products of the CPU as ``aten`` ops.
     The RNG state is not stashed: the models draw no random numbers in a
-    step (the reference threads its keys explicitly).
+    step (the reference threads its keys explicitly).  ``policy`` names
+    the policy instead of the environment (a captured replay keeps the
+    policy its trace saw).
     """
-    pol = os.environ.get("REPRO_REMAT_POLICY", "nothing")
+    pol = policy or remat_policy()
     if pol not in REMAT_POLICIES:
         raise ValueError(f"REPRO_REMAT_POLICY={pol!r}: one of "
                          f"{REMAT_POLICIES}")
@@ -87,6 +89,40 @@ def remat(fn: Callable) -> Callable:
     def wrapped(*args, **kwargs):
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw, **kwargs)
+
+    return wrapped
+
+
+def remat_policy() -> str:
+    """``$REPRO_REMAT_POLICY`` (``nothing`` when unset)."""
+    return os.environ.get("REPRO_REMAT_POLICY", "nothing")
+
+
+#: the capture trace in progress (``capture.harvest``), which records each
+#: call of a ``scan_body`` as one region of its graph; None otherwise
+_CAPTURE = None
+
+
+def scan_body(fn: Callable, *, name: str, remat_on: bool = False) -> Callable:
+    """The step a loop over stacked layers calls once a layer: the
+    counterpart of the reference's ``lax.scan`` body, checkpointed under
+    the active remat policy where ``remat_on`` (``remat``).
+
+    Outside a capture trace it is ``fn`` (or ``remat(fn)``).  While
+    ``capture`` traces (``_CAPTURE`` set), each call is recorded as one
+    region of the traced graph, named ``name``: the harvest reports the
+    sites of a body once, as the reference's walk of a scan body does,
+    and the replay runs each remat region under ``torch.utils.checkpoint``
+    with the policy the trace saw, so a captured train step keeps the
+    uncaptured one's recompute and peak.
+    """
+    policy = remat_policy() if remat_on else None
+    step = remat(fn, policy) if remat_on else fn
+
+    def wrapped(*args, **kwargs):
+        if _CAPTURE is not None:
+            return _CAPTURE.region(name, wrapped, policy, fn, args, kwargs)
+        return step(*args, **kwargs)
 
     return wrapped
 

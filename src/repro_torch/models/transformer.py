@@ -247,8 +247,8 @@ def _run_segments(params, cfg: ModelConfig, x, *, positions, caches=None,
                     lens[kind].append(nc["len"])
             return h
 
-        if cfg.remat and caches is None:
-            step = L.remat(step)
+        step = L.scan_body(step, name=f"seg{si}",
+                           remat_on=cfg.remat and caches is None)
         for layer in range(count):
             lps = {kind: _tree_map(lambda t: t[layer], seg[kind])
                    for kind in pattern}

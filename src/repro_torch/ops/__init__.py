@@ -41,10 +41,11 @@ where a call dispatches to a kernel, ``differentiable=True`` routes it
 through the ``repro_torch.grad`` ``autograd.Function``s, whose backward
 GEMMs are the derived specs on the same kernels (B1 for ``matmul.dA/.dB``
 and ``weighted_matmul.dA/.dB/.dg``, B3's dX orientation and B4 for
-``grouped_matmul.dX/.dW``).  A launch (called directly, or under a
-dispatch mode as a ``repro_torch`` custom op, ``ops.library``) has no
-autograd formula, so without the wrapper a kernel path would give no
-gradient at all.
+``grouped_matmul.dX/.dW``).  A launch called directly has no gradient, so
+without the wrapper a kernel path would give none at all (under a
+dispatch mode a launch is a ``repro_torch`` custom op, ``ops.library``,
+whose autograd formula is the same derived-spec backward, for a traced
+graph replayed without its wrapper: ``capture``).
 ``differentiable=False`` on a kernel path returns an output detached from
 the graph (nothing can be differentiated through it, as the reference's
 bare Pallas primal has no VJP); the non-kernel paths stay plain torch ops

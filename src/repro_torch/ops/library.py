@@ -65,7 +65,7 @@ def through_op(tensors) -> bool:
     time (about 50 us a call on the card's host, which cost batch-1 decode
     13 % of its tokens/s; PERF.md section 6, PR 27).  A CPU call that
     autograd records through always runs the plain version directly,
-    which autograd differentiates (the ops have no autograd formula)."""
+    which autograd differentiates natively."""
     if not torch._C._len_torch_dispatch_stack():
         return False
     return not (torch.is_grad_enabled() and any(
@@ -269,6 +269,78 @@ def _grouped_flop_formula(key, x, w, out_dtype, *args, out_shape=None,
     spec = kernel_of(key).spec.root()
     return 2 * sum(spec.group_sizes) * math.prod(
         v for i, v in spec.extents.items() if i not in ("n", "g"))
+
+
+# -- autograd: a launch replayed from a traced graph ------------------------
+#
+# A launch inside an ``ops`` entry point is differentiated by the
+# ``grad.vjp`` wrapper around it, never through the op.  A graph traced
+# below autograd (``capture``: ``make_fx``) holds the launch itself, so
+# replaying it needs the op's own formula: the same cotangents as the
+# wrapper (``launch_cotangents``, ``attention_cotangents``,
+# ``grouped_cotangents``), on the same kernels.
+
+
+def _contract_setup(ctx, inputs, output):
+    key, arrays, vectors, _ = inputs
+    ctx.key, ctx.n_vectors = key, len(vectors)
+    ctx.wanted = [x.requires_grad for x in arrays]
+    ctx.save_for_backward(*arrays)
+
+
+def _contract_backward(ctx, grad):
+    from ..grad.vjp import launch_cotangents
+
+    cots = launch_cotangents(kernel_of(ctx.key), grad,
+                             list(ctx.saved_tensors), ctx.wanted)
+    return None, cots, [None] * ctx.n_vectors, None
+
+
+def _attention_setup(ctx, inputs, output):
+    key, q, k, v, kv_lengths, _ = inputs
+    ctx.key, ctx.kv_lengths = key, kv_lengths
+    ctx.need = (q.requires_grad, k.requires_grad, v.requires_grad)
+    ctx.save_for_backward(q, k, v)
+
+
+def _attention_backward(ctx, grad):
+    from ..grad.vjp import attention_cotangents
+
+    kernel = kernel_of(ctx.key)
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = attention_cotangents(
+        q, k, v, grad, ctx.kv_lengths, causal=bool(kernel.spec.root().causal),
+        interpret=kernel.interpret, use_kernel=True, need=ctx.need)
+    return None, dq, dk, dv, None, None
+
+
+def _grouped_setup(ctx, inputs, output):
+    key, x, w, _ = inputs
+    ctx.key, ctx.need = key, (x.requires_grad, w.requires_grad)
+    ctx.save_for_backward(x, w)
+
+
+def _grouped_backward(ctx, grad):
+    from ..grad.vjp import grouped_cotangents
+
+    kernel = kernel_of(ctx.key)
+    if kernel.contract_last:
+        raise RuntimeError("a grouped dX launch has no gradient rule of its "
+                           "own; differentiate through ops.grouped_dense")
+    x, w = ctx.saved_tensors
+    dx, dw = grouped_cotangents(
+        x, w, grad, tuple(kernel.spec.root().group_sizes),
+        interpret=kernel.interpret, use_kernel=True, need=ctx.need)
+    return None, dx, dw, None
+
+
+torch.library.register_autograd("repro_torch::contract", _contract_backward,
+                                setup_context=_contract_setup)
+torch.library.register_autograd("repro_torch::attention",
+                                _attention_backward,
+                                setup_context=_attention_setup)
+torch.library.register_autograd("repro_torch::grouped", _grouped_backward,
+                                setup_context=_grouped_setup)
 
 
 # -- what a checkpoint policy reads --------------------------------------------

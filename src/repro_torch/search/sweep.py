@@ -12,9 +12,17 @@ there the ladder ranks and measures B1's tile plans on the card (the
 package docstring of ``repro_torch.search``); ``--device cpu`` gives the
 reference's ladder with the kernel's plain version timed on the host,
 keyed ``cpu`` where a card is visible (``codegen.cache.measured_on``).
-``--no-measure`` ranks analytically only.  ``--from-model`` (the capture
-harvest, ``ROADMAP.md`` queue A item 6b) and ``--mesh`` (the mesh tier,
-item 6c) are later slices and raise.
+``--no-measure`` ranks analytically only.  ``--from-model ARCH``
+harvests the points from a model instead of ``--spec`` / ``--shapes``:
+``repro_torch.capture`` traces the arch's train, prefill and decode steps
+on fake tensors (``--kinds``, at ``--batch`` x ``--seq``; ``--model-smoke``
+for the reduced config) and sweeps every dispatched site's spec under the
+model's own dtype, so the plan keys match the lookups ``ops`` performs.
+``--mesh`` (the mesh tier, ``ROADMAP.md`` queue A item 6c) is a later
+slice and raises.
+
+    python -m repro_torch.search.sweep --from-model qwen3-8b \
+        --model-smoke --with-grads --device cpu
 
 The exit code is non-zero if any sweep point produces no plan or its
 persisted winner does not round-trip.
@@ -30,23 +38,41 @@ from typing import List, Optional, Tuple
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="cost-guided variant search "
                                              "sweep")
-    ap.add_argument("--spec", default="matmul",
+    ap.add_argument("--spec", default=None,
                     help="spec family (matmul, matvec, weighted_matmul, "
                          "batched_matmul, chain_matmul, transposed_matmul, "
-                         "attention, grouped_matmul)")
+                         "attention, grouped_matmul); default matmul.  "
+                         "Incompatible with --from-model")
     ap.add_argument("--shapes", default=None,
                     help="semicolon-separated extent tuples, e.g. "
-                         "'512,4096,4096;4,4096,4096' (required)")
+                         "'512,4096,4096;4,4096,4096' (required unless "
+                         "--from-model)")
     ap.add_argument("--from-model", default=None, metavar="ARCH",
-                    help="harvest the points from a model (queue A item 6b)")
+                    help="harvest the sweep points from a model config: "
+                         "repro_torch.capture traces its train, prefill "
+                         "and decode steps on fake tensors and collects "
+                         "every dispatched site's ContractionSpec")
+    ap.add_argument("--model-smoke", action="store_true",
+                    help="with --from-model, use the reduced smoke config")
+    ap.add_argument("--model-batch", "--batch", dest="model_batch",
+                    type=int, default=2,
+                    help="batch size of the --from-model trace")
+    ap.add_argument("--model-seq", "--seq", dest="model_seq", type=int,
+                    default=64, help="sequence length of the --from-model "
+                                     "trace")
+    ap.add_argument("--model-kinds", "--kinds", dest="model_kinds",
+                    default="train,prefill,decode",
+                    help="comma-separated trace points for --from-model")
     ap.add_argument("--mesh", default=None, metavar="AxB",
                     help="also sweep the mesh tier (queue A item 6c)")
     ap.add_argument("--beam", type=int, default=8, help="beam width")
     ap.add_argument("--topk", type=int, default=4,
                     help="survivors compiled + measured")
-    ap.add_argument("--dtype", default="float32",
-                    help="operand dtype: float32 or bfloat16 (int8 / "
-                         "float8_e4m3fn for a quantized spec)")
+    ap.add_argument("--dtype", default=None,
+                    help="operand dtype: float32 (the default) or bfloat16 "
+                         "(int8 / float8_e4m3fn for a quantized spec).  "
+                         "Incompatible with --from-model, which sweeps "
+                         "under the model's own dtype")
     ap.add_argument("--no-measure", action="store_true",
                     help="analytic ranking only, no compile or timing")
     ap.add_argument("--repeats", type=int, default=2,
@@ -79,30 +105,61 @@ def run(argv=None) -> Tuple[int, List[tuple]]:
     from .space import sweep_specs
 
     args = parse_args(argv)
-    if args.from_model:
-        raise NotImplementedError(
-            "--from-model harvests a model's GEMMs through capture, "
-            "ROADMAP.md queue A item 6b")
     if args.mesh:
         raise NotImplementedError(
             "--mesh sweeps the mesh tier, ROADMAP.md queue A item 6c")
-    if not args.shapes:
-        raise SystemExit("sweep: --shapes is required")
     device = str(resolve_device(args.device).type)
     db = PlanDB(args.plan_db) if args.plan_db else default_plan_db()
-    shapes = [tuple(int(x) for x in part.split(","))
-              for part in args.shapes.split(";") if part.strip()]
-    points = [(label, spec, shape)
-              for shape in shapes
-              for label, spec in sweep_specs(spec_from_name(args.spec, shape),
-                                             with_grads=args.with_grads)]
+    if args.from_model:
+        # harvested points carry their own specs and dtypes: a --spec,
+        # --dtype or --shapes beside them would be silently ignored
+        for flag, val in (("--spec", args.spec), ("--dtype", args.dtype),
+                          ("--shapes", args.shapes)):
+            if val is not None:
+                raise SystemExit(f"sweep: {flag} cannot be combined with "
+                                 f"--from-model (the harvest determines "
+                                 f"specs and dtypes)")
+        from ..capture import model_gemm_specs
+        from ..configs import get_config
+
+        cfg = get_config(args.from_model)
+        if args.model_smoke:
+            cfg = cfg.smoke()
+        kinds = tuple(k.strip() for k in args.model_kinds.split(",")
+                      if k.strip())
+        harvested = model_gemm_specs(
+            cfg, batch=args.model_batch, seq=args.model_seq, kinds=kinds,
+            interpret=True, device=device)
+        if not harvested:
+            print(f"--from-model {args.from_model}: no dispatchable GEMM "
+                  f"sites harvested")
+            return 1, []
+        points = [(f"{hlabel}/{label}", spec,
+                   tuple(spec.extents[i] for i in spec.indices), dtype)
+                  for hlabel, root, dtype in harvested
+                  for label, spec in sweep_specs(
+                      root, with_grads=args.with_grads)]
+        family = f"{args.from_model}(captured)"
+    else:
+        if not args.shapes:
+            raise SystemExit("sweep: --shapes is required unless "
+                             "--from-model")
+        family = args.spec or "matmul"
+        dtype = args.dtype or "float32"
+        shapes = [tuple(int(x) for x in part.split(","))
+                  for part in args.shapes.split(";") if part.strip()]
+        points = [(label, spec, shape, dtype)
+                  for shape in shapes
+                  for label, spec in sweep_specs(
+                      spec_from_name(family, shape),
+                      with_grads=args.with_grads)]
     failures, results = 0, []
-    for label, spec, shape in points:
-        print(f"== {args.spec} {'x'.join(map(str, shape))} [{label}] "
-              f"(beam={args.beam}, topk={args.topk}, dtype={args.dtype}, "
+    for label, spec, shape, dtype in points:
+        print(f"== {family} {'x'.join(map(str, shape))} [{label}] "
+              f"(beam={args.beam}, topk={args.topk}, dtype={dtype}, "
               f"device={device}) ==", flush=True)
         res = search_schedule(
-            spec, dtype=args.dtype, beam_width=args.beam, topk=args.topk,
+            spec, dtype=dtype, beam_width=args.beam, topk=args.topk,
             measure=not args.no_measure, repeats=args.repeats, plan_db=db,
             use_cached_plan=not args.fresh, device=device,
         )
@@ -124,7 +181,7 @@ def run(argv=None) -> Tuple[int, List[tuple]]:
             failures += 1
             continue
         # the lookup ops.dense performs must return the winner just stored
-        stored, rung = db.best_entry(spec, args.dtype, measured_on(device))
+        stored, rung = db.best_entry(spec, dtype, measured_on(device))
         want = None if res.best.card is None else res.best.card.as_dict()
         if stored is None or rung.get("card") != want or (
             json.dumps(schedule_to_dict(stored), sort_keys=True)

@@ -23,7 +23,9 @@ bit, fp8 at the f32 TOL, its row reduce equal over five launches, the
 ring's modes refused off it), B5, B6 and B7's ring body (TMA and wgmma:
 the fused path's shape, ragged, M < 128, bf16 and f32 outputs, B6 with
 every activation, B7 with g = 0 and of mixed sign, two streams at once,
-forced and refused bodies), and a failed launch of B1 or B2 dropping its
+forced and refused bodies), whole-model capture (a replayed launch
+differentiating through its op, the demo configs card vs CPU), and a
+failed launch of B1 or B2 dropping its
 stream's counters.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
@@ -2617,3 +2619,83 @@ def test_remat_policy_saves_b1_launches(cuda_device, policy, want,
     for g, g0 in zip(grads, torch.autograd.grad(out0.float().square().sum(),
                                                 (x, w1, w2))):
         assert torch.equal(g, g0)
+
+
+# --------------------------------------------------------------------------
+# whole-model capture on the card (repro_torch.capture)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_capture_replayed_launch_differentiates_on_the_card(cuda_device):
+    """``ops.dense`` on CUDA traces to a ``repro_torch::contract`` node;
+    the replay launches it through the op, whose autograd formula runs
+    ``matmul.dA`` / ``.dB`` on B1: 1 + 2 launches, the gradients the
+    uncaptured call's bit for bit."""
+    from repro_torch import capture
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, w = (torch.randn(256, 256, device=cuda_device, generator=gen)
+            for _ in range(2))
+
+    def loss(x_, w_):
+        return ops.dense(x_, w_).sum()
+
+    cf = capture.optimize(loss)
+    report = cf.report_for(x, w)
+    assert [(s.op, s.status) for s in report.sites] == [
+        ("dense", "dispatched")]
+    grads = []
+    for fn in (loss, cf):
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(
+            True)
+        before = cuda_gen.CONTRACT.launches
+        fn(xr, wr).backward()
+        assert cuda_gen.CONTRACT.launches - before == 3
+        grads.append((xr.grad, wr.grad))
+    for g, g0 in zip(grads[1], grads[0]):
+        assert torch.equal(g, g0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dense", "moe"])
+def test_captured_demo_model_on_the_card(cuda_device, name):
+    """The conformance trio's dense and MoE configs on CUDA: the report
+    names the CPU's sites, ops and specs with ``interpret`` (a status may
+    differ: the card launches unaligned products the CPU's gate refuses),
+    the motif launches B2 once a layer forward and once in its remat
+    recompute, and the loss and every gradient equal the CPU's at the f32
+    TOL (B1's 3xTF32)."""
+    from repro_torch import capture
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.api import get_api
+    from repro_torch.optim.adamw import leaves, tree_map
+
+    cfg = capture.demo_configs()[name]
+    api = get_api(cfg)
+    params = api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (capture.DEMO_BATCH,
+                                        capture.DEMO_SEQ),
+                         generator=torch.Generator().manual_seed(7),
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+
+    def loss(p, b):
+        return api.loss(p, cfg, b)
+
+    cpu = capture.optimize(loss, interpret=True)
+    card = capture.optimize(loss)
+    gparams = tree_map(lambda t: t.to(cuda_device), params)
+    gbatch = {k: v.to(cuda_device) for k, v in batch.items()}
+    want = [(s.op, s.spec and s.spec.name, s.spec and s.spec.extents)
+            for s in cpu.report_for(params, batch).sites]
+    got = [(s.op, s.spec and s.spec.name, s.spec and s.spec.extents)
+           for s in card.report_for(gparams, gbatch).sites]
+    assert got == want
+    before = fused_gen.ATTENTION.launches
+    l_card, g_card = value_and_grad(card, gparams, gbatch)
+    assert fused_gen.ATTENTION.launches - before == 2 * cfg.n_layers
+    l_cpu, g_cpu = value_and_grad(cpu, params, batch)
+    _assert_close_scaled(l_card.cpu(), l_cpu, torch.float32)
+    for (path, a), (_, b) in zip(leaves(g_card), leaves(g_cpu)):
+        _assert_close_scaled(a.cpu(), b, torch.float32)

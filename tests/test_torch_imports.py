@@ -70,7 +70,9 @@ def test_port_sources_exist():
                    "models/ssm.py", "models/hybrid.py", "models/encdec.py",
                    "models/vlm.py", "configs/mamba2_130m.py",
                    "configs/zamba2_2p7b.py", "configs/whisper_base.py",
-                   "configs/internvl2_1b.py"):
+                   "configs/internvl2_1b.py", "capture/__init__.py",
+                   "capture/harvest.py", "capture/rewrite.py",
+                   "capture/sweep.py", "capture/report.py"):
         assert PORT / module in SOURCES, module
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 20
@@ -95,6 +97,12 @@ def test_serve_imports_with_jax_unimportable():
         "from repro_torch.launch.serving import FixedEngine\n"
         "from repro_torch.models.api import get_api\n"
         "[get_api(get_config(a)) for a in ARCH_IDS]\n"
+        "import torch, repro_torch.capture.report\n"
+        "from repro_torch import capture\n"
+        "x = torch.ones(128, 128)\n"
+        "cf = capture.optimize(lambda a, b: a @ b, interpret=True)\n"
+        "assert cf.report_for(x, x).dispatched == 1\n"
+        "assert torch.equal(cf(x, x), x @ x)\n"
         "assert 'repro' not in sys.modules, 'reference package imported'\n"
         "print('ok')\n"
     )
