@@ -298,6 +298,35 @@ raises and the script exits non-zero without the final result line:
     on B1 (forward, ``.dA``, ``.dB``, each one launch, with its body and
     ``torch.matmul``'s ms and the plain version's) at M = 2048 and at
     M = 4;
+16f. mesh — the mesh tier (``codegen.{collectives,mesh_gen}``,
+    ``launch.mesh``, ``ops._mesh_plan_kernel``, the search on a mesh,
+    ``serve --mesh``, ``make_train_step(mesh=)``) on ranks that share the
+    card: spawned processes joined by gloo, every payload staged through
+    pinned host memory (``MESH_TRANSPORT``; the kernels built by the
+    parent first).  One world of 4 ranks: (a) ``ring_psum``,
+    ``all_reduce``, the ring and naive gather-matmuls on CUDA tensors for
+    p in {1, 2, 4} against their oracles (rtol 1e-4, atol 1e-5), a 16 MiB
+    all-reduce timed; (b) every sharded variant x collective of
+    ``mesh_variants`` on a 2x2 mesh, f32 and bf16, at 256 x 512 x 384
+    and qwen3-8b's MLP shapes at M = 512: one B1 launch a call on each
+    rank, outputs against single-card B1 and the plain version at the
+    reference's TOL, each call timed; (c) ``search_schedule_with_grads``
+    of a 256 x 1024 x 1024 f32 product with ``mesh_shape=(2, 2)``, then
+    ``ops.dense``'s loss and gradients under the mesh: a
+    ``MeshBoundKernel`` forward, ``.dA`` and ``.dB`` (3 B1 launches),
+    against the unsharded run at the f32 TOL; (e) 3 steps of
+    ``make_train_step(mesh=)`` on qwen3-8b at full width cut to 2 of 36
+    layers (four replicas share the card), batch 1 x 256, int8 moments,
+    its GEMMs' mesh ladders searched first: finite losses within the bf16
+    TOL of rank 0's single-rank steps, 28 x 2 x 3 B1 launches a rank,
+    all mesh-bound, every rank's parameters equal, step ms.  Then a world
+    of 2 ranks: (d) ``serve.run`` of qwen3-8b at full width and depth
+    with ``--engine fixed --mesh 1x2`` (2 x 16.4 GB of weights): 7 x 36
+    x forwards B1 launches a rank, all mesh-bound, first-token logits
+    against a single-rank prefill within 6e-2 of max |logit|, tokens
+    against the same trace served single-rank, prefill ms, decode tok/s,
+    bytes staged and peak memory a rank.  A rank that fails or hangs
+    fails the phase;
 17. the phases' seconds, the ``kernels`` JSON line (contract, grouped,
     grouped_dw, matmul, fused_dense_act, fused_rnz, contract_int8,
     contract_fp8, contract_upcast, contract_chain, attention), then the
@@ -5016,9 +5045,14 @@ B3_PER_MOE_REMAT = {"nothing": 9, "dots": 6}
 CAUSAL_SKIP_S = 4096
 #: timed loss + gradients a policy (the median is reported)
 REMAT_REPS = 3
-#: the production cells the remat phase dry-runs on fake CUDA tensors
+#: the production cells the remat phase dry-runs on fake CUDA tensors, at
+#: full width and shape cut in depth to ``DRYRUN_LAYERS`` (kimi-k2: one
+#: dense and three MoE layers): a cell's trace time grows with its layers
+#: (about a minute for kimi-k2's 61), and the run's time limit holds the
+#: mesh phase too
 DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
                 ("qwen3-8b", "decode_32k"), (MOE_ARCH, "train_4k"))
+DRYRUN_LAYERS = 4
 #: the ladder phase ``search`` wrote whose card rows explain renders
 EXPLAIN_SELECTOR = "matmul@512x4096x1024"
 
@@ -5078,8 +5112,9 @@ def phase_remat_dryrun(smi):
     layer (hard).  (c) (a)'s model forward at 1 x ``CAUSAL_SKIP_S``
     without and with ``REPRO_CAUSAL_SKIP``: logits within the bf16 TOL
     (hard), wall ms and the profiler's device ms in ``aten::bmm``.  (d)
-    ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` at production size on
-    fake CUDA tensors: status ``ok`` (hard), trace seconds, dot TFLOP,
+    ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` at production width and
+    shape cut to ``DRYRUN_LAYERS`` layers on fake CUDA tensors: status
+    ``ok`` (hard), trace seconds, dot TFLOP,
     peak GiB and the analytic H100 roofline terms; ``launch.perf``'s
     ``remat_dots`` against the first as baseline.  (e) ``obs.explain`` of
     ``EXPLAIN_SELECTOR`` in phase ``search``'s plan DB: the text names
@@ -5247,22 +5282,26 @@ def phase_remat_dryrun(smi):
         else:
             os.environ["REPRO_REMAT_POLICY"] = old_policy
         os.environ.pop("REPRO_CAUSAL_SKIP", None)
-    # (d) the dry-run at production size
+    # (d) the dry-run at production width and shape, cut in depth
     res = os.path.join(OUT, "dryrun")
     os.makedirs(res, exist_ok=True)
+    cuts = {arch: dataclasses.replace(get_config(arch),
+                                      n_layers=DRYRUN_LAYERS)
+            for arch, _ in DRYRUN_CELLS}
     for arch, shape in DRYRUN_CELLS:
-        rec = dryrun.run_cell(arch, shape, device="cuda")
+        rec = dryrun.run_cell(arch, shape, device="cuda", cfg=cuts[arch])
         if rec["status"] != "ok":
             raise AssertionError(f"dry-run {arch} {shape}: {rec}")
         with open(os.path.join(res, f"{arch}__{shape}__1.json"), "w") as f:
             json.dump(rec, f, indent=1)
-        row = analyze_cell(rec, param_counts(arch))
+        row = analyze_cell(rec, param_counts(arch, cuts[arch]))
         out["dryrun"][f"{arch}/{shape}"] = {
             k: row[k] for k in ("lower_s", "flops", "bytes_accessed",
                                 "memory", "compute_s", "memory_s",
                                 "memory_fused_s", "dominant",
                                 "useful_ratio")}
-        print(f"[remat-dryrun] dry-run {arch} {shape}: ok, traced in "
+        print(f"[remat-dryrun] dry-run {arch} {shape} ({DRYRUN_LAYERS} of "
+              f"{get_config(arch).n_layers} layers): ok, traced in "
               f"{rec['lower_s']} s, dot {rec['flops'] / 1e12:.2f} TFLOP, "
               f"peak {rec['memory']['peak_memory_in_bytes'] / 2**30:.1f} "
               f"GiB, saved {rec['memory']['saved_bytes'] / 2**30:.1f} GiB; "
@@ -5272,7 +5311,8 @@ def phase_remat_dryrun(smi):
               f"MODEL/counted flops {row['useful_ratio']:.2f}", flush=True)
     arch, shape = DRYRUN_CELLS[0]
     knob = perf.run(arch, shape, ["remat_dots"], device="cuda",
-                    out=os.path.join(OUT, "perf"), baseline_dir=res)
+                    out=os.path.join(OUT, "perf"), baseline_dir=res,
+                    cfg=cuts[arch])
     out["perf_remat_dots"] = knob.get("vs_baseline")
     # (e) plan-explain of a ladder the search measured on the card
     text = explain_mod.explain(os.path.join(OUT, "plans_search.json"),
@@ -5633,6 +5673,502 @@ def _capture_serve_train(out, smi, train_summary):
                              f"expected {want}")
 
 
+# ---------------------------------------------------------------------------
+# phase mesh: the mesh tier on ranks that share the card
+# ---------------------------------------------------------------------------
+
+#: the mesh phase's worlds are ranks of one process each that share the
+#: card, joined by gloo, every collective's payload staged through pinned
+#: host memory (gloo takes no CUDA tensor for a point-to-point transfer)
+MESH_TRANSPORT = "host"
+#: (b): a small product and qwen3-8b's MLP projections at M = 512
+MESH_BIND_SHAPES = ((256, 512, 384), (512, 4096, 12288), (512, 12288, 4096))
+#: (c): the dense op searched on the mesh with its gradients, f32
+MESH_DENSE = (256, 1024, 1024)
+#: (d): qwen3-8b at full width and depth served on 2 ranks (2 requests of
+#: 128 tokens in one fixed-slot group: prefill M = 2 x 128, decode M = 2),
+#: the serving GEMMs swept at the mesh tier first
+MESH_SERVE_FLAGS = [
+    "--arch", "qwen3-8b", "--requests", "2", "--prompt-len", "128",
+    "--max-new", "8", "--lanes", "2", "--rate-hz", "0", "--seed", "0",
+    "--device", "cuda", "--engine", "fixed", "--mesh", "1x2",
+    "--mesh-transport", MESH_TRANSPORT, "--no-search-grads",
+    "--search-gemms", ";".join(f"{m},{k},{n}" for m in (256, 2)
+                               for (k, n) in LAYER_GEMMS)]
+#: (e): qwen3-8b at full width cut to 2 of 36 layers (four ranks sharing
+#: the card each hold a replica: bf16 params and gradients, int8 moments),
+#: batch 1 x 256 tokens, 3 steps, peak lr 3e-4
+MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 256, 3
+
+
+def _mesh_rank_setup(db_path):
+    import torch
+
+    os.environ["REPRO_PLAN_DB"] = db_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _mesh_collectives():
+    """(a): the collectives over 4 ranks' CUDA tensors for p in {1, 2, 4}
+    (a (4 / p) x p mesh), each against its oracle at the reference's rtol
+    1e-4 / atol 1e-5, remainder payloads among them; then a 16 MiB f32
+    all-reduce over the 4 ranks, psum and ring, timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.codegen import collectives as C
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    out = {"cases": []}
+    staged0 = obs.metrics_json()["counters"].get("mesh.host_staged_bytes", 0)
+    for p in (1, 2, 4):
+        mesh = make_debug_mesh((4 // p, p), ("data", "model"),
+                               transport=MESH_TRANSPORT, device="cuda")
+        c, dev = mesh.coordinate("model"), mesh.device
+        rng = np.random.default_rng(100 + p)
+        worst = 0.0
+        for case in range(3):
+            m_loc = int(rng.integers(1, 65))
+            k, n = int(rng.integers(1, 129)), int(rng.integers(1, 129))
+            x = rng.standard_normal((p * m_loc, k))
+            w = rng.standard_normal((k, n))
+            y = rng.standard_normal((p, int(rng.integers(1, 300)),
+                                     int(rng.integers(1, 37))))
+            xs = torch.tensor(x[c * m_loc:(c + 1) * m_loc],
+                              dtype=torch.float32, device=dev)
+            wt = torch.tensor(w, dtype=torch.float32, device=dev)
+            mine = torch.tensor(y[c], dtype=torch.float32, device=dev)
+            for name, got, want in (
+                    ("ring_gather_matmul",
+                     C.ring_gather_matmul(xs, wt, "model", mesh), x @ w),
+                    ("naive_gather_matmul",
+                     C.naive_gather_matmul(xs, wt, "model", mesh), x @ w),
+                    ("ring_psum", C.ring_psum(mine, "model", mesh),
+                     y.sum(0)),
+                    ("psum", C.all_reduce(mine, ("model",), "psum", mesh),
+                     y.sum(0))):
+                if not got.is_cuda:
+                    raise AssertionError(f"mesh (a) {name}: a host result")
+                worst = max(worst, _check_close(
+                    got.double().cpu(), torch.tensor(want), "float32",
+                    f"mesh (a) {name} p={p} case {case}",
+                    tol=(1e-4, 1e-5))[1])
+        out["cases"].append(dict(p=p, max_scaled_err=worst))
+    mesh = make_debug_mesh((1, 4), ("data", "model"),
+                           transport=MESH_TRANSPORT, device="cuda")
+    big = torch.randn(4 * 2**20, device=mesh.device)
+    for coll in ("psum", "ring"):
+        C.all_reduce(big, ("model",), coll, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            C.all_reduce(big, ("model",), coll, mesh)
+        torch.cuda.synchronize()
+        out[f"allreduce_16mib_{coll}_ms"] = (time.perf_counter() - t0) / 3e-3
+    out["staged_bytes"] = obs.metrics_json()["counters"].get(
+        "mesh.host_staged_bytes", 0) - staged0
+    return out
+
+
+def _mesh_bind(mesh):
+    """(b): every sharded variant x collective of ``mesh_variants`` on the
+    2x2 mesh, f32 and bf16, at ``MESH_BIND_SHAPES``: one B1 launch a call
+    on each rank, the output against single-card B1 and the plain version
+    at the reference's TOL, one warm call timed (its collectives
+    included)."""
+    import torch
+
+    from repro_torch.codegen import (CONTRACT, cached_compile, contract_ref,
+                                     default_schedule)
+    from repro_torch.core.enumerate import matmul_spec
+    from repro_torch.search.space import make_candidate, mesh_variants
+
+    def timed(kern, a, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern(a, b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rows = []
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    for m, k, n in MESH_BIND_SHAPES:
+        spec = matmul_spec(m, k, n)
+        for dt_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dt_name)
+            a = torch.randn(m, k, generator=gen, device=mesh.device).to(dt)
+            b = torch.randn(k, n, generator=gen, device=mesh.device).to(dt)
+            single = cached_compile(spec, default_schedule(spec))
+            n0 = CONTRACT.launches
+            b1 = single(a, b)
+            if CONTRACT.launches - n0 != 1:
+                raise AssertionError("mesh (b): single-card B1 not one "
+                                     "launch")
+            plain = contract_ref(spec, a, b, out_dtype=dt)
+            worst, ms, variants = 0.0, [], 0
+            for v in mesh_variants(spec, (2, 2)):
+                if not v.assignment:
+                    continue
+                sched = make_candidate(spec, spec.indices, {},
+                                       mesh=v.as_dict(),
+                                       collective=v.collective).to_schedule()
+                kern = cached_compile(spec, sched, mesh=mesh,
+                                      collective=v.collective or "psum")
+                what = (f"mesh (b) {m}x{k}x{n} {dt_name} {v.assignment} "
+                        f"{v.collective or '-'}")
+                n0 = CONTRACT.launches
+                got = kern(a, b)
+                if CONTRACT.launches - n0 != 1:
+                    raise AssertionError(f"{what}: {CONTRACT.launches - n0} "
+                                         f"B1 launches in a call")
+                worst = max(worst, _check_close(got, b1, dt_name,
+                                                what + " vs B1")[1],
+                            _check_close(got, plain, dt_name,
+                                         what + " vs plain")[1])
+                ms.append(timed(kern, a, b))
+                variants += 1
+            rows.append(dict(shape=(m, k, n), dtype=dt_name,
+                             variants=variants, max_scaled_err=worst,
+                             ms_min=min(ms), ms_median=sorted(ms)[len(ms) // 2],
+                             ms_max=max(ms), b1_ms=timed(single, a, b)))
+    return rows
+
+
+def _mesh_dense(mesh):
+    """(c): ``search_schedule_with_grads(mesh_shape=(2, 2))`` on the card,
+    then ``ops.dense``'s loss and gradients under the mesh: a
+    ``MeshBoundKernel`` forward, ``.dA`` and ``.dB``, held against the
+    unsharded B1 run at the f32 TOL."""
+    import torch
+
+    from repro_torch import obs, ops
+    from repro_torch.codegen import CONTRACT, MeshBoundKernel
+    from repro_torch.core.enumerate import matmul_spec
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.search import default_plan_db, search_schedule_with_grads
+
+    m, k, n = MESH_DENSE
+    spec = matmul_spec(m, k, n)
+    t0 = time.perf_counter()
+    with set_mesh(mesh):  # the search measures over this mesh's ranks
+        res = search_schedule_with_grads(
+            spec, dtype=torch.float32, beam_width=4, topk=2, repeats=2,
+            plan_db=default_plan_db(), mesh_shape=(2, 2), device="cuda")
+    search_s = time.perf_counter() - t0
+    ladders = {}
+    for label, r in res.items():
+        best = r.best_sharded()
+        if best is None:
+            raise AssertionError(f"mesh (c) {label}: no sharded rung")
+        single = next((p for p in r.ranked if not p.sharded), None)
+        ladders[label] = dict(
+            winner=r.best.source, winner_sharded=r.best.sharded,
+            sharded_ms=(best.measured_s or float("nan")) * 1e3,
+            sharded_plan=" ".join(f"{lvl.index}:{lvl.tier}"
+                                  for lvl in best.schedule.levels
+                                  if lvl.tier.startswith("mesh:")),
+            collective=best.collective or "-",
+            single_ms=(single.measured_s if single and single.measured_s
+                       else float("nan")) * 1e3)
+    with set_mesh(mesh):
+        kern = ops._mesh_plan_kernel(spec, torch.float32)
+    if not isinstance(kern, MeshBoundKernel):
+        raise AssertionError(f"mesh (c): {type(kern).__name__}, not a "
+                             f"MeshBoundKernel")
+    gen = torch.Generator(device=mesh.device).manual_seed(1)
+    x = torch.randn(m, k, generator=gen, device=mesh.device)
+    w = torch.randn(k, n, generator=gen, device=mesh.device)
+
+    def run():
+        a, b = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        loss = (ops.dense(a, b) ** 2).mean()
+        loss.backward()
+        return loss.detach(), a.grad, b.grad
+
+    base = run()
+    obs.metrics_reset()
+    n0 = CONTRACT.launches
+    with set_mesh(mesh):
+        sharded = run()
+    launches = CONTRACT.launches - n0
+    calls = {k_: v for k_, v in obs.metrics_json()["counters"].items()
+             if k_.startswith("mesh.calls.")}
+    want = {f"mesh.calls.{s}": 1 for s in ("matmul", "matmul.dA",
+                                           "matmul.dB")}
+    if calls != want or launches != 3:
+        raise AssertionError(f"mesh (c): mesh-bound calls {calls}, B1 "
+                             f"launches {launches}; want {want} and 3")
+    errs = [_check_close(s, b_, "float32", f"mesh (c) {what}")[1]
+            for s, b_, what in zip(sharded, base, ("loss", "dx", "dw"))]
+    return dict(shape=MESH_DENSE, search_s=search_s, ladders=ladders,
+                calls=calls, launches=launches, scaled_errs=errs)
+
+
+def _mesh_train(mesh, rank):
+    """(e): ``make_train_step(mesh=)`` on the 2x2 mesh at qwen3-8b width,
+    depth cut, after the step's GEMMs (with their derived specs) were
+    searched at the mesh tier; then on rank 0 the same steps from the same
+    weights without the mesh."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.codegen import CONTRACT
+    from repro_torch.configs import get_config
+    from repro_torch.core.enumerate import matmul_spec
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw as optim
+    from repro_torch.search import default_plan_db, search_schedule_with_grads
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"),
+                              n_layers=MESH_TRAIN_LAYERS)
+    from repro_torch.launch.mesh import set_mesh
+
+    t0 = time.perf_counter()
+    with set_mesh(mesh):  # the search measures over this mesh's ranks
+        for k, n in LAYER_GEMMS:
+            search_schedule_with_grads(
+                matmul_spec(MESH_TRAIN_SEQ, k, n), dtype=torch.bfloat16,
+                beam_width=4, topk=2, repeats=2, plan_db=default_plan_db(),
+                mesh_shape=(2, 2), device="cuda")
+    search_s = time.perf_counter() - t0
+    api = get_api(cfg)
+    ocfg = AdamWConfig(lr=3e-4, moments_dtype="int8")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=MESH_TRAIN_SEQ, global_batch=1)
+    batches = [{k: torch.as_tensor(np.asarray(v)).to(mesh.device)
+                for k, v in batch_at(dc, i).items()}
+               for i in range(MESH_TRAIN_STEPS)]
+
+    def steps(mesh_or_none):
+        params = api.init(cfg, torch.Generator(device=mesh.device)
+                          .manual_seed(0), mesh.device)
+        state = optim.init(params, ocfg)
+        step = make_train_step(cfg, ocfg, mesh=mesh_or_none)
+        losses, times = [], []
+        obs.metrics_reset()
+        n0 = CONTRACT.launches
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            t = time.perf_counter()
+            params, state, mtr = step(params, state, b)
+            losses.append(float(mtr["loss"]))
+            times.append(time.perf_counter() - t)
+        calls = sum(v for k, v in obs.metrics_json()["counters"].items()
+                    if k.startswith("mesh.calls."))
+        digest = sum(float(t.detach().double().sum()) for _, t in
+                     optim.leaves(params))
+        out = dict(losses=losses, step_ms=[v * 1e3 for v in times],
+                   launches=CONTRACT.launches - n0, mesh_calls=calls,
+                   digest=digest, peak=torch.cuda.max_memory_allocated())
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    meshed = steps(mesh)
+    dist.barrier()
+    single = steps(None) if rank == 0 else None
+    dist.barrier()
+    meshed["single"] = single
+    meshed["search_s"] = search_s
+    meshed["steady_ms"] = statistics.median(meshed["step_ms"][1:])
+    return meshed
+
+
+def _mesh_rank4(rank, db_path):
+    """The 4-rank world of phase mesh: (a), then (b), (c) and (e) on a 2x2
+    mesh."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    _mesh_rank_setup(db_path)
+    out = {"a": _mesh_collectives()}
+    mesh = make_debug_mesh((2, 2), ("data", "model"),
+                           transport=MESH_TRANSPORT, device="cuda")
+    out["b"] = _mesh_bind(mesh)
+    out["c"] = _mesh_dense(mesh)
+    out["e"] = _mesh_train(mesh, rank)
+    return out
+
+
+def _mesh_serve_rank(rank, db_path):
+    """(d): ``serve --mesh 1x2`` of qwen3-8b on this rank (``serve.run``
+    of ``MESH_SERVE_FLAGS``); then, outside the mesh on the same weights,
+    the first-token logits of one batched prefill with and without the
+    mesh and the same trace served single-rank."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.serving import (FixedEngine, Gateway,
+                                            synthetic_trace)
+
+    _mesh_rank_setup(db_path)
+    args = serve.parse_args(MESH_SERVE_FLAGS)
+    cfg = get_config("qwen3-8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats, trace, engine = serve.run(cfg, args)
+    wall = time.perf_counter() - t0
+    server = engine.server
+    if server.mesh is None:
+        raise AssertionError("mesh (d): the world did not host the mesh")
+    peak = torch.cuda.max_memory_allocated()
+    forwards = stats["prefills"] + stats["decode_steps"]
+    reqs = [serve.Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+            for r in trace]
+    toks, lengths = server._pack(reqs)
+    with torch.inference_mode():
+        with set_mesh(server.mesh):
+            meshed, _ = server._prefill(toks, lengths)
+        single, _ = server._prefill(toks, lengths)
+    rows = []
+    for i in range(len(reqs)):  # equal prompts: the last position each
+        want, got = single[i, -1].float(), meshed[i, -1].float()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("mesh (d): non-finite first-token logits")
+        rows.append(float((got - want).abs().max() / want.abs().max()))
+    plain = FixedEngine(cfg, lanes=args.lanes, max_ctx=server.max_len,
+                        params=server.params, device="cuda")
+    trace2 = synthetic_trace(
+        args.requests, vocab=cfg.vocab, seed=args.seed, rate_hz=args.rate_hz,
+        prompt_lens=tuple(sorted({max(1, args.prompt_len // 4),
+                                  max(1, args.prompt_len // 2),
+                                  args.prompt_len})),
+        max_news=tuple(sorted({max(1, args.max_new // 4), args.max_new})))
+    single_stats = Gateway(plain).run(trace2)
+    same = [r.out_tokens == s.out_tokens for r, s in zip(trace, trace2)]
+    return dict(launches=stats["kernel_launches"],
+                mesh_calls=stats["mesh_calls"], forwards=forwards,
+                staged_bytes=stats["host_staged_bytes"],
+                prefill_ms=stats["prefill_s"] * 1e3,
+                tok_per_s=stats["tok_per_s"],
+                single_prefill_ms=single_stats["prefill_s"] * 1e3,
+                single_tok_per_s=single_stats["tok_per_s"],
+                logit_errs=rows, same_tokens=same, peak=peak, wall_s=wall,
+                tokens=[list(r.out_tokens) for r in trace])
+
+
+def phase_mesh(smi):
+    """The mesh tier (``codegen.{collectives,mesh_gen}``, ``launch.mesh``,
+    ``ops._mesh_plan_kernel``, the search on a mesh, ``serve --mesh``,
+    ``make_train_step(mesh=)``) on ranks that share the card: one world of
+    4 spawned ranks for (a), (b), (c) and (e), one of 2 for (d), gloo
+    between them with host-staged payloads.  The parent built every
+    kernel already; a rank that fails or hangs fails the phase."""
+    import chip_smoke as cs  # the ranks import their bodies by this name
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    _free()
+    db = os.path.join(OUT, "plans_mesh.json")
+    t0 = time.perf_counter()
+    four = spawn_ranks(cs._mesh_rank4, 4, (db,), store_dir=OUT,
+                       timeout_s=540)
+    four_s = time.perf_counter() - t0
+    r0 = four[0]
+    for out in four[1:]:
+        if out["e"]["losses"] != r0["e"]["losses"] or \
+                out["e"]["digest"] != r0["e"]["digest"]:
+            raise AssertionError("mesh (e): the ranks' losses or "
+                                 "parameters differ")
+        if out["c"]["ladders"].keys() != r0["c"]["ladders"].keys():
+            raise AssertionError("mesh (c): the ranks' ladders differ")
+    a = r0["a"]
+    print(f"[mesh] (a) collectives over 4 ranks sharing the card (gloo, "
+          f"{MESH_TRANSPORT}-staged): "
+          + ", ".join(f"p={c['p']} max scaled err {c['max_scaled_err']:.3g}"
+                      for c in a["cases"])
+          + f" (limit 1e-4 / 1e-5); 16 MiB f32 all-reduce psum "
+          f"{a['allreduce_16mib_psum_ms']:.2f} ms, ring "
+          f"{a['allreduce_16mib_ring_ms']:.2f} ms; staged "
+          f"{a['staged_bytes'] / 2**20:.1f} MiB a rank ({smi})", flush=True)
+    for row in r0["b"]:
+        m, k, n = row["shape"]
+        print(f"[mesh] (b) bind_mesh 2x2 {m}x{k}x{n} {row['dtype']}: "
+              f"{row['variants']} sharded variants, one B1 launch a call, "
+              f"max scaled err vs B1 and plain {row['max_scaled_err']:.3g} "
+              f"(TOL {TOL[row['dtype']][0]}); ms a call {row['ms_min']:.2f} "
+              f"/ {row['ms_median']:.2f} / {row['ms_max']:.2f} "
+              f"(min / median / max) vs single-card B1 {row['b1_ms']:.3f} "
+              f"({smi})", flush=True)
+    c = r0["c"]
+    print(f"[mesh] (c) search {c['shape']} f32 with grads on the 2x2 mesh "
+          f"in {c['search_s']:.1f} s: "
+          + "; ".join(f"{lbl} winner {d['winner']}"
+                      f"{' (sharded)' if d['winner_sharded'] else ''}, best "
+                      f"sharded {d['sharded_plan']} {d['collective']} "
+                      f"{d['sharded_ms']:.3f} ms vs single-rank "
+                      f"{d['single_ms']:.3f} ms"
+                      for lbl, d in c["ladders"].items())
+          + f"; ops.dense under the mesh: {c['calls']}, {c['launches']} B1 "
+          f"launches, loss / dx / dw scaled err "
+          f"{[round(e, 8) for e in c['scaled_errs']]} (f32 TOL 1e-4) "
+          f"({smi})", flush=True)
+    e = r0["e"]
+    single = e["single"]
+    if not all(map(math.isfinite, e["losses"])):
+        raise AssertionError(f"mesh (e): non-finite losses {e['losses']}")
+    for got, want in zip(e["losses"], single["losses"]):
+        if abs(got - want) > TOL["bfloat16"][1] + TOL["bfloat16"][0] * abs(
+                want):
+            raise AssertionError(f"mesh (e): losses {e['losses']} vs "
+                                 f"single-rank {single['losses']}")
+    per_step = B1_PER_LAYER_STEP * MESH_TRAIN_LAYERS * MESH_TRAIN_STEPS
+    if e["launches"] != per_step or e["mesh_calls"] != per_step:
+        raise AssertionError(f"mesh (e): B1 {e['launches']}, mesh-bound "
+                             f"{e['mesh_calls']}; want {per_step} each")
+    print(f"[mesh] (e) train qwen3-8b width, {MESH_TRAIN_LAYERS} of 36 "
+          f"layers, batch 1 x {MESH_TRAIN_SEQ}, int8 moments, on the 2x2 "
+          f"mesh (mesh ladders searched in {e['search_s']:.1f} s): losses "
+          f"{[round(v, 4) for v in e['losses']]} vs single-rank "
+          f"{[round(v, 4) for v in single['losses']]}; B1 {e['launches']} "
+          f"launches a rank, all mesh-bound; step ms "
+          f"{[round(v, 1) for v in e['step_ms']]} (single-rank "
+          f"{[round(v, 1) for v in single['step_ms']]}); peak "
+          f"{e['peak'] / 2**30:.2f} GiB a rank; every rank's parameters "
+          f"equal ({smi})", flush=True)
+    t1 = time.perf_counter()
+    two = spawn_ranks(cs._mesh_serve_rank, 2, (db,), store_dir=OUT,
+                      timeout_s=600)
+    two_s = time.perf_counter() - t1
+    want = 7 * 36 * two[0]["forwards"]
+    for rank, d in enumerate(two):
+        if d["launches"] != want or d["mesh_calls"] != want:
+            raise AssertionError(f"mesh (d) rank {rank}: B1 {d['launches']}, "
+                                 f"mesh-bound {d['mesh_calls']}; want {want}")
+        if max(d["logit_errs"]) > TOL["bfloat16"][1]:
+            raise AssertionError(f"mesh (d) rank {rank}: first-token logits "
+                                 f"vs single-rank {d['logit_errs']}")
+        if d["tokens"] != two[0]["tokens"]:
+            raise AssertionError("mesh (d): the ranks served different "
+                                 "tokens")
+    for rank, d in enumerate(two):
+        print(f"[mesh] (d) serve --mesh 1x2 qwen3-8b full width and depth, "
+              f"rank {rank}: B1 {d['launches']} = 7 x 36 x {d['forwards']} "
+              f"forwards, all mesh-bound; first-token logits vs single-rank "
+              f"{[round(v, 5) for v in d['logit_errs']]} of max |logit| "
+              f"(limit 6e-2); tokens equal single-rank {d['same_tokens']}; "
+              f"prefill {d['prefill_ms']:.1f} ms, decode "
+              f"{d['tok_per_s']:.2f} tok/s (single-rank on the same weights "
+              f"{d['single_prefill_ms']:.1f} ms, "
+              f"{d['single_tok_per_s']:.2f} tok/s); staged "
+              f"{d['staged_bytes'] / 2**20:.1f} MiB; peak "
+              f"{d['peak'] / 2**30:.2f} GiB; run {d['wall_s']:.1f} s "
+              f"({smi})", flush=True)
+    print(f"[mesh] worlds: 4 ranks {four_s:.1f} s, 2 ranks {two_s:.1f} s",
+          flush=True)
+    return dict(four=r0, serve=two, four_s=four_s, two_s=two_s)
+
+
 def _phase(name, fn, *args, **kwargs):
     """Run one phase; print and keep its wall seconds."""
     t0 = time.perf_counter()
@@ -5746,6 +6282,8 @@ def main() -> int:
     # qwen3-8b served and trained through captured steps
     captured = _phase("capture", phase_capture, smi, train)
     _free()
+    # this slice's path: the mesh tier on ranks that share the card
+    mesh = _phase("mesh", phase_mesh, smi)
 
     line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches,
                         b1_mode_rows)
@@ -5779,7 +6317,7 @@ def main() -> int:
                    "serve_int8": serve_int8, "search": search,
                    "fixed_serve": fixed, "families": families,
                    "fixed_small": fixed_small, "remat_dryrun": remat,
-                   "capture": captured,
+                   "capture": captured, "mesh": mesh,
                    "takes": TAKEN, "seconds": SECONDS, **line}, f, indent=1)
     # the takes each profiled check needed for a whole trace
     print(f"[takes] {json.dumps(TAKEN)}", flush=True)

@@ -141,8 +141,8 @@ def sweep_captured(
     its dtype-qualified plan key — skipping the fused and derived specs
     that refuse quantization.  ``device`` is where candidates are
     measured (``search.search_schedule``; by default the card where one
-    is visible).  ``mesh_shape`` raises: the mesh tier is ROADMAP.md
-    queue A item 6c.  Returns the number of (spec, dtype) sweep points
+    is visible).  ``mesh_shape`` raises: capture on a mesh is ROADMAP.md
+    queue A item 6c (part 2).  Returns the number of (spec, dtype) sweep points
     persisted.
     """
     from ..core.enumerate import QUANT_FORMATS, quantize_spec
@@ -150,8 +150,8 @@ def sweep_captured(
 
     if mesh_shape is not None:
         raise NotImplementedError(
-            f"sweep_captured on a mesh ({mesh_shape}) comes with the mesh "
-            f"tier, ROADMAP.md queue A item 6c")
+            f"sweep_captured on a mesh ({mesh_shape}) comes with ROADMAP.md "
+            f"queue A item 6c (part 2)")
     db = plan_db if plan_db is not None else default_plan_db()
     if quant is not None and quant not in QUANT_FORMATS:
         raise ValueError(

@@ -11,7 +11,10 @@ and ``csrc/contract_chain.cu`` for the chain (their launchers in
 ``modes``); the fused families lower onto ``csrc/attention.cu`` (flash
 attention, B2), ``csrc/grouped.cu`` (the grouped MoE forward and dX) and
 ``csrc/grouped_dw.cu`` (dW) (``fused_gen``).  All are built by
-``nvcc`` at first use (``build``).
+``nvcc`` at first use (``build``).  A schedule's ``mesh:*`` levels bind
+the kernel to a mesh of ranks (``mesh_gen.bind_mesh``, ``compile(...,
+mesh=)``): each rank launches the kernel on its shard, and sharded reduce
+indices finish with a ``torch.distributed`` collective (``collectives``).
 
 Entry point::
 
@@ -28,6 +31,12 @@ from .cache import (
     hardware_fingerprint,
     schedule_from_dict,
     schedule_to_dict,
+)
+from .collectives import (
+    all_reduce,
+    naive_gather_matmul,
+    ring_gather_matmul,
+    ring_psum,
 )
 from .cuda_gen import (
     CONTRACT,
@@ -47,6 +56,13 @@ from .fused_gen import (
     compile_fused,
     grouped_dw_ref,
     grouped_ref,
+)
+from .mesh_gen import (
+    MeshBoundKernel,
+    Placements,
+    bind_mesh,
+    operand_partition_spec,
+    output_partition_spec,
 )
 from .plan import AxisPlan, KernelPlan, build_plan
 from .schedules import (
@@ -72,9 +88,13 @@ __all__ = [
     "GROUPED",
     "GROUPED_DW",
     "KernelPlan",
+    "MeshBoundKernel",
+    "Placements",
+    "all_reduce",
     "attention_mask",
     "attention_ref",
     "batched_matmul_schedule",
+    "bind_mesh",
     "build_plan",
     "cache_key",
     "cached_compile",
@@ -89,6 +109,11 @@ __all__ = [
     "grouped_ref",
     "dtype_name",
     "hardware_fingerprint",
+    "naive_gather_matmul",
+    "operand_partition_spec",
+    "output_partition_spec",
+    "ring_gather_matmul",
+    "ring_psum",
     "schedule_from_dict",
     "schedule_to_dict",
     "transposed_matmul_schedule",

@@ -284,6 +284,13 @@ class AutotuneCache:
                         pass
                     raise
 
+    def reload(self) -> None:
+        """Drop the in-memory copy: the next lookup reads the file, which
+        another process may have written since."""
+        _changed()
+        with self._lock:
+            self._data = None
+
     def clear(self) -> None:
         _changed()
         with self._lock:

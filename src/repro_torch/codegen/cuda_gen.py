@@ -1305,8 +1305,9 @@ def compile_kernel(
     out_dtype=None,
     interpret: bool = False,
     mesh=None,
+    collective: str = "psum",
     card: Optional[CardPlan] = None,
-) -> CompiledKernel:
+):
     """Compile a ContractionSpec + Schedule into a kernel.
 
     ``spec`` may be the root spec or the schedule's own (subdivided) spec;
@@ -1314,7 +1315,10 @@ def compile_kernel(
     the ``ops`` level (eligibility off the device rule); the kernel itself
     is chosen by the operands' device.  ``card`` is a searched tile plan
     for B1 (``CardPlan``), which its launches take where they run its
-    body; a fused spec takes none.
+    body; a fused spec takes none.  With ``mesh`` (a ``launch.mesh.Mesh``)
+    the kernel is bound to it (``mesh_gen.bind_mesh``): a
+    ``MeshBoundKernel`` called on global tensors, whose mesh-sharded
+    reduce indices ``collective`` ("psum" or "ring") finishes.
     """
     root = spec.root()
     if root is not schedule.spec.root() and (
@@ -1331,11 +1335,6 @@ def compile_kernel(
         return compile_fused(spec, schedule, epilogue=epilogue,
                              out_dtype=out_dtype, interpret=interpret,
                              mesh=mesh)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-bound kernels come with the mesh tier, ROADMAP.md queue A "
-            "item 6"
-        )
     if epilogue is not None and not isinstance(epilogue, Epilogue):
         raise TypeError(f"epilogue must be a codegen.Epilogue, got "
                         f"{type(epilogue).__name__}")
@@ -1352,9 +1351,9 @@ def compile_kernel(
         )
     from ..obs import span
 
-    with span("codegen.compile", spec=root.name, sharded=False):
+    with span("codegen.compile", spec=root.name, sharded=mesh is not None):
         plan = build_plan(schedule)
-        return CompiledKernel(
+        kernel = CompiledKernel(
             spec=plan.spec,
             schedule=schedule,
             plan=plan,
@@ -1364,6 +1363,11 @@ def compile_kernel(
             fold=fold,
             card=card,
         )
+        if mesh is not None:
+            from .mesh_gen import bind_mesh
+
+            return bind_mesh(kernel, mesh, collective=collective)
+        return kernel
 
 
 _KERNEL_MEMO: Dict[tuple, CompiledKernel] = {}
@@ -1377,27 +1381,36 @@ def cached_compile(
     out_dtype=None,
     interpret: bool = False,
     mesh=None,
+    collective: str = "psum",
     card: Optional[CardPlan] = None,
-) -> CompiledKernel:
+):
     """compile_kernel memoized on (spec, schedule, epilogue, dtype,
-    interpret, card plan).
+    interpret, mesh identity, collective, card plan).
 
     Hot-path entry for ``ops``: repeated calls with the same contraction
-    reuse one ``CompiledKernel``; feeds ``codegen.memo.hit/miss``.
+    reuse one kernel; feeds ``codegen.memo.hit/miss``.  Mesh-bound kernels
+    key on the mesh's axis names, shape and global ranks, so two distinct
+    meshes of the same shape get distinct bindings.
     """
     from ..obs import counter
     from .cache import schedule_to_dict, spec_signature
 
+    mesh_key = None
     if mesh is not None:
-        return compile_kernel(spec, schedule, epilogue=epilogue, mesh=mesh,
-                              out_dtype=out_dtype, interpret=interpret,
-                              card=card)
+        mesh_key = (
+            tuple(mesh.axis_names),
+            tuple(int(s) for s in mesh.devices.shape),
+            tuple(int(r) for r in mesh.devices.flat),
+            mesh.transport,
+        )
     key = (
         json.dumps(spec_signature(spec), sort_keys=True),
         json.dumps(schedule_to_dict(schedule), sort_keys=True),
         epilogue,
         dtype_name(out_dtype) if out_dtype is not None else None,
         interpret,
+        mesh_key,
+        collective if mesh is not None else None,
         card,
     )
     kern = _KERNEL_MEMO.get(key)
@@ -1405,6 +1418,6 @@ def cached_compile(
     if kern is None:
         kern = compile_kernel(spec, schedule, epilogue=epilogue,
                               out_dtype=out_dtype, interpret=interpret,
-                              card=card)
+                              mesh=mesh, collective=collective, card=card)
         _KERNEL_MEMO[key] = kern
     return kern

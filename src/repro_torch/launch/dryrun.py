@@ -29,8 +29,8 @@ Usage:
       --shape train_4k --out results/
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/
 
-The meshes (``--mesh pod|multipod``) come with the mesh tier, ROADMAP.md
-queue A item 6c.
+The meshes (``--mesh pod|multipod``, with their collective bytes) come
+with ROADMAP.md queue A item 6c (part 2).
 """
 
 from __future__ import annotations
@@ -55,8 +55,8 @@ from .steps import prefill_bundle, serve_bundle, train_bundle
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 
-MESH_REFUSAL = ("a dry-run over a pod or multi-pod mesh comes with the "
-                "mesh tier, ROADMAP.md queue A item 6c")
+MESH_REFUSAL = ("a dry-run over a pod or multi-pod mesh comes with "
+                "ROADMAP.md queue A item 6c (part 2)")
 
 
 def collective_bytes(hlo_text: str) -> Dict[str, int]:

@@ -9,8 +9,8 @@ The reference's knobs (combinable via --knob a,b), as the port takes them:
   donate       accepted, changes nothing: the port's optimizer already
                updates params and moments in place (``optim.adamw``)
   dp, zero1, moe_constraint, unembed
-               sharding knobs: they come with the mesh tier (ROADMAP.md
-               queue A item 6c) and raise
+               sharding knobs: they come with ROADMAP.md queue A item 6c
+               (part 2) and raise
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.perf --arch qwen3-8b \\
@@ -49,8 +49,8 @@ def run(arch: str, shape: str, knobs, device="cuda", out="results_perf",
     for k in knobs:
         if k in MESH_KNOBS:
             raise NotImplementedError(
-                f"knob {k!r} shards the step: it comes with the mesh tier, "
-                f"ROADMAP.md queue A item 6c")
+                f"knob {k!r} shards the step: it comes with ROADMAP.md "
+                f"queue A item 6c (part 2)")
         if k not in _KNOB_ENV:
             raise ValueError(f"unknown knob {k!r}; have "
                              f"{sorted(_KNOB_ENV) + list(MESH_KNOBS)}")
@@ -76,7 +76,7 @@ def run(arch: str, shape: str, knobs, device="cuda", out="results_perf",
     with open(os.path.join(out, tag + ".json"), "w") as f:
         json.dump(rec, f, indent=1)
 
-    counts = param_counts(arch)
+    counts = param_counts(arch, cfg)
     row = analyze_cell(rec, counts)
     print(f"\n=== {tag}: {rec['status']} ===")
     if rec["status"] != "ok":

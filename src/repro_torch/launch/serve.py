@@ -48,8 +48,16 @@ plan DB and serves through ``capture.optimize``d steps: on the card the
 single-block prefill attention launches B2 and the f32 unembedding B1
 (``attention kernel launches``); a prefill with no padded row drops its
 lengths mask, which masks nothing, so that it takes the single-block
-path.  ``--mesh`` raises: it comes with the mesh tier (ROADMAP.md queue
-A item 6c).  ``--metrics-out`` / ``--trace-out`` write the ``obs`` registry and
+path.  ``--mesh AxB`` (data x model) sweeps the ``--search-gemms`` shapes
+at the mesh tier too (mesh-qualified ladders), and where the process is
+one of a world that holds the mesh's ranks (``torchrun``-style variables,
+or a caller that joined the process group first) both engines serve under
+the mesh: a GEMM with a mesh-qualified plan runs as a mesh-bound kernel,
+each rank launching B1 on its shard, and every rank serves the same trace;
+otherwise the CLI logs and serves single-rank, as the reference does.
+``--mesh-transport host`` stages collectives through pinned host memory
+(gloo between ranks that share a card).  ``--capture`` with ``--mesh``
+raises (ROADMAP.md queue A item 6c, part 2).  ``--metrics-out`` / ``--trace-out`` write the ``obs`` registry and
 the Chrome trace after the run.
 """
 
@@ -69,6 +77,7 @@ from ..configs import get_config
 from ..device import resolve_device
 from ..models.api import get_api
 from ..obs import log
+from .mesh import set_mesh
 from .serving.runners import (_deq_fn, capture_warmup, model_step,
                               prefill_lengths, quantize_params)
 
@@ -83,14 +92,6 @@ def _warm(shapes) -> None:
     n = warm_dense_cache(shapes)
     log.info("serve", f"warmed {n} GEMM schedule(s) (cache {cache.path}: "
              f"{cache.hits} hit, {cache.misses} miss)")
-
-
-def _refuse(mesh_shape) -> None:
-    """``--mesh`` is a later slice of the port."""
-    if mesh_shape:
-        raise NotImplementedError(
-            f"serve --mesh {mesh_shape} comes with the mesh tier, "
-            f"ROADMAP.md queue A item 6c")
 
 
 @dataclasses.dataclass
@@ -114,6 +115,9 @@ class BatchServer:
     instead of drawing seeded ones; with ``quant="int8"`` it is quantized
     once here (a tree already quantized passes as it is) and expanded for
     each call, the stacked layers one at a time (``runners._deq_fn``).
+    ``mesh_shape`` sweeps ``search_gemms`` at the mesh tier too and, where
+    the world holds the mesh's ranks, runs every call under the mesh
+    (``engine._mesh_of``, over ``mesh_transport``).
     The run is under ``torch.inference_mode()`` on ``device`` ("cuda" by
     default, raising without a card), with TF32 and reduced-precision
     bf16 reductions off, since the reference accumulates in f32.
@@ -123,9 +127,19 @@ class BatchServer:
                  extra_batch=None, warm_gemms=(), search_gemms=(),
                  search_grads: bool = True, capture: bool = False,
                  mesh_shape=None, quant: Optional[str] = None, params=None,
-                 device="cuda"):
-        _refuse(mesh_shape)
+                 device="cuda", mesh_transport: str = "device"):
+        from .serving.engine import _mesh_of
+
         self.device = resolve_device(device)
+        self.mesh = _mesh_of(mesh_shape, capture, mesh_transport,
+                             self.device)
+        self.mesh_shape = None
+        if mesh_shape:
+            from ..search import parse_mesh_shape
+
+            self.mesh_shape = (parse_mesh_shape(mesh_shape)
+                               if isinstance(mesh_shape, str)
+                               else tuple(mesh_shape))
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
@@ -155,12 +169,16 @@ class BatchServer:
             # bf16, the dtype ops.dense derives the serving plan keys from;
             # unphased, as the reference's fixed server sweeps
             db = default_plan_db()
-            n = search_gemm_plans(
-                search_gemms, dtype=torch.bfloat16, plan_db=db,
-                with_grads=search_grads, device=self.device.type,
-            )
+            with set_mesh(self.mesh):
+                n = search_gemm_plans(
+                    search_gemms, dtype=torch.bfloat16, plan_db=db,
+                    with_grads=search_grads, device=self.device.type,
+                    mesh_shape=self.mesh_shape,
+                )
             what = "fwd + derived bwd" if search_grads else "fwd only"
-            log.info("serve", f"searched {n} GEMM plan(s) ({what}) -> "
+            at = (f" + mesh={'x'.join(map(str, self.mesh_shape))}"
+                  if self.mesh_shape else "")
+            log.info("serve", f"searched {n} GEMM plan(s) ({what}{at}) -> "
                      f"{db.path}")
         # pre-register so a metrics dump always carries the cache counters
         for name in ("plandb.hit", "plandb.miss", "autotune.hit",
@@ -222,7 +240,7 @@ class BatchServer:
         if len(requests) > self.batch_size:
             raise ValueError(f"{len(requests)} requests for "
                              f"{self.batch_size} slots")
-        with torch.inference_mode():
+        with torch.inference_mode(), set_mesh(self.mesh):
             return self._run(requests, eos_id)
 
     def _run(self, requests: List[Request], eos_id: Optional[int]):
@@ -370,9 +388,18 @@ def parse_args(argv=None) -> argparse.Namespace:
              "products (the attention motif, the unembedding) launch "
              "kernels too; with --quant the dispatched dense sites take "
              "the 8-bit tier")
-    ap.add_argument("--mesh", default=None, metavar="AxB",
-                    help="mesh shape for the mesh tier (a later slice: "
-                         "raises)")
+    ap.add_argument(
+        "--mesh", default=None, metavar="AxB",
+        help="mesh shape ('2x4' = data x model) for the distributed "
+             "schedule tier: --search-gemms sweeps also persist "
+             "mesh-qualified sharded ladders, and where the process is one "
+             "of a world that holds the mesh's ranks the engines serve "
+             "under it, so eligible GEMMs run as mesh-bound kernels")
+    ap.add_argument(
+        "--mesh-transport", default="device", choices=("device", "host"),
+        help="how a collective's payload travels between ranks: 'device' "
+             "as the backend takes it, 'host' staged through pinned host "
+             "memory (gloo between ranks that share a card)")
     ap.add_argument("--metrics-out", default=None, metavar="FILE",
                     help="write the obs metrics registry as JSON")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
@@ -399,6 +426,15 @@ def _parse_shapes(ap: argparse.ArgumentParser, flag: str, raw: str):
         ap.error(f"{flag} expects 'M,K,N[;M,K,N...]', got {raw!r}")
 
 
+def _mesh_counts():
+    """(mesh-bound GEMM calls, bytes staged through host memory) so far
+    (``obs``'s ``mesh.calls.*``, ``mesh.host_staged_bytes``)."""
+    counters = obs.metrics_json()["counters"]
+    return (sum(v for k, v in counters.items()
+                if k.startswith("mesh.calls.")),
+            counters.get("mesh.host_staged_bytes", 0))
+
+
 def _card_plan_counts():
     """``ops.card_plan.applied`` / ``.skipped`` so far (``obs``)."""
     counters = obs.metrics_json()["counters"]
@@ -406,13 +442,13 @@ def _card_plan_counts():
             for what in ("applied", "skipped")}
 
 
-def run(cfg, args: argparse.Namespace):
+def run(cfg, args: argparse.Namespace, params=None):
     """Serve ``cfg`` with the flags of ``parse_args``; returns (stats,
-    trace, engine)."""
+    trace, engine).  ``params`` serves an existing parameter tree instead
+    of the seeded one."""
     from .serving import (ContinuousEngine, FixedEngine, Gateway,
                           synthetic_trace)
 
-    _refuse(args.mesh)
     trace = synthetic_trace(
         args.requests,
         vocab=cfg.vocab,
@@ -447,6 +483,9 @@ def run(cfg, args: argparse.Namespace):
             search_gemms=args.search_gemms,
             search_grads=not args.no_search_grads,
             capture=args.capture,
+            mesh_shape=args.mesh,
+            mesh_transport=args.mesh_transport,
+            params=params,
         )
     else:
         engine = FixedEngine(
@@ -459,11 +498,18 @@ def run(cfg, args: argparse.Namespace):
             search_gemms=args.search_gemms,
             search_grads=not args.no_search_grads,
             capture=args.capture,
+            mesh_shape=args.mesh,
+            mesh_transport=args.mesh_transport,
+            params=params,
         )
     launches0, grouped0 = CONTRACT.launches, GROUPED.launches
     attention0 = ATTENTION.launches
     plans0 = _card_plan_counts()
+    mesh0 = _mesh_counts()
     stats = Gateway(engine).run(trace, eos_id=args.eos_id)
+    mesh1 = _mesh_counts()
+    stats["mesh_calls"] = mesh1[0] - mesh0[0]
+    stats["host_staged_bytes"] = mesh1[1] - mesh0[1]
     stats["kernel_launches"] = CONTRACT.launches - launches0
     stats["grouped_launches"] = GROUPED.launches - grouped0
     stats["attention_launches"] = ATTENTION.launches - attention0
@@ -477,6 +523,10 @@ def run(cfg, args: argparse.Namespace):
         f"at {stats['tok_per_s']:.1f} decode tok/s on {engine.device}"
     )
     log.info("serve", f"contract kernel launches: {stats['kernel_launches']}")
+    if args.mesh:
+        log.info("serve", f"mesh {args.mesh}: {stats['mesh_calls']} "
+                 f"mesh-bound GEMM call(s), {stats['host_staged_bytes']} "
+                 f"byte(s) staged through host memory")
     if args.capture:
         log.info("serve", f"attention kernel launches: "
                  f"{stats['attention_launches']}")

@@ -32,7 +32,12 @@ before the first request (the prefill runner with the derived backward
 specs when ``search_grads``); a restart finds them in the plan DB.
 ``capture`` (``serve --capture``) harvests both steps on fake tensors,
 sweeps their specs and runs the runners through captured steps
-(``capture.optimize``).
+(``capture.optimize``).  ``mesh_shape`` (``serve --mesh``) has each
+runner sweep its phase's ladders at the mesh tier too, and where the world
+holds the mesh's ranks (``launch.mesh.world_mesh``, over
+``mesh_transport``) the engine runs under the mesh, so a GEMM with a
+mesh-qualified plan (``ops._mesh_plan_kernel``) runs as a mesh-bound
+kernel; every rank then runs the same engine on the same trace.
 
 :class:`FixedEngine` is the fixed-slot ``launch.serve.BatchServer``
 behind the same ``run()``: requests chunked FCFS into groups of ``lanes``,
@@ -60,6 +65,23 @@ from . import paged
 from .runners import (DecodeRunner, PrefillRunner, capture_warmup,
                       quantize_params)
 from .scheduler import Scheduler, ServeRequest
+from ..mesh import world_mesh, set_mesh
+
+
+def _mesh_of(mesh_shape, capture: bool, transport: str, device):
+    """The engine's serving mesh (``launch.mesh.world_mesh``) or None;
+    capture on a mesh is refused."""
+    if not mesh_shape:
+        return None
+    from ...search import parse_mesh_shape
+
+    if isinstance(mesh_shape, str):
+        mesh_shape = parse_mesh_shape(mesh_shape)
+    if capture:
+        raise NotImplementedError(
+            f"serve --capture --mesh {'x'.join(map(str, mesh_shape))} "
+            f"comes with ROADMAP.md queue A item 6c (part 2)")
+    return world_mesh(mesh_shape, transport=transport, device=device.type)
 
 
 class ContinuousEngine:
@@ -80,8 +102,12 @@ class ContinuousEngine:
         search_gemms=(),
         search_grads: bool = False,
         capture: bool = False,
+        mesh_shape=None,
+        mesh_transport: str = "device",
     ):
         self.device = resolve_device(device)
+        self.mesh = _mesh_of(mesh_shape, capture, mesh_transport,
+                             self.device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
@@ -129,8 +155,10 @@ class ContinuousEngine:
                                    capture=capture)
         if search_gemms:
             # each runner ladders the shapes it runs, under its phase key
-            self.prefill.sweep(search_gemms, with_grads=search_grads)
-            self.decode.sweep(search_gemms)
+            with set_mesh(self.mesh):
+                self.prefill.sweep(search_gemms, with_grads=search_grads,
+                                   mesh_shape=mesh_shape)
+                self.decode.sweep(search_gemms, mesh_shape=mesh_shape)
         # pre-register so a metrics dump always carries the cache counters
         for name in ("plandb.hit", "plandb.miss",
                      "autotune.hit", "autotune.miss"):
@@ -139,7 +167,7 @@ class ContinuousEngine:
     def run(
         self, requests: List[ServeRequest], *, eos_id: Optional[int] = None
     ) -> Dict:
-        with torch.inference_mode():
+        with torch.inference_mode(), set_mesh(self.mesh):
             return self._run(requests, eos_id)
 
     def _sync(self) -> None:

@@ -36,19 +36,19 @@ from . import paged
 
 
 def _sweep(phase: str, shapes, *, with_grads: bool,
-           device: torch.device) -> int:
+           device: torch.device, mesh_shape=None) -> int:
     """Search (``search.search_gemm_plans``) and persist the ``phase``
     ladders of (m, k, n) GEMMs in bf16, the dtype ``ops.dense`` derives
     the serving plan keys from (as the reference sweeps), measured on
     ``device``: the card's tile plans there, the plain version on the
-    CPU."""
+    CPU; with ``mesh_shape`` also at the mesh tier."""
     from ...obs import log
     from ...search import default_plan_db, search_gemm_plans
 
     db = default_plan_db()
     n = search_gemm_plans(
         shapes, dtype=torch.bfloat16, plan_db=db, with_grads=with_grads,
-        phase=phase, device=device.type,
+        phase=phase, device=device.type, mesh_shape=mesh_shape,
     )
     log.info("serve", f"searched {n} {phase}-phase GEMM plan(s) -> "
              f"{db.path}")
@@ -178,11 +178,13 @@ class PrefillRunner:
             lambda p, b, n: api.prefill(self.deq(p), cfg, b, n),
             capture, f"{cfg.arch_id}:prefill", quant)
 
-    def sweep(self, shapes, *, with_grads: bool = True) -> int:
+    def sweep(self, shapes, *, with_grads: bool = True,
+              mesh_shape=None) -> int:
         """Search the prefill ladders of (m, k, n) GEMMs (with their
-        derived backward specs unless ``with_grads`` is off)."""
+        derived backward specs unless ``with_grads`` is off; at the mesh
+        tier too with ``mesh_shape``)."""
         return _sweep(self.phase, shapes, with_grads=with_grads,
-                      device=self.device)
+                      device=self.device, mesh_shape=mesh_shape)
 
     def __call__(self, params, pools: Dict, context: Sequence[int],
                  pages: Sequence[int]) -> Tuple[int, Dict]:
@@ -233,13 +235,14 @@ class DecodeRunner:
             lambda p, c, t: api.decode_step(self.deq(p), cfg, c, t),
             capture, f"{cfg.arch_id}:decode", quant)
 
-    def sweep(self, shapes, *, with_grads: bool = False) -> int:
+    def sweep(self, shapes, *, with_grads: bool = False,
+              mesh_shape=None) -> int:
         """Search the decode ladders: decode dispatches M = lanes
         activations whatever the fleet swept for training or prefill, so
         each (m, k, n) is laddered as (lanes, k, n)."""
         skinny = tuple((self.lanes, k, n) for (_, k, n) in shapes)
         return _sweep(self.phase, skinny, with_grads=with_grads,
-                      device=self.device)
+                      device=self.device, mesh_shape=mesh_shape)
 
     def __call__(self, params, pools, block_table, lens, tokens):
         """Returns (next token per lane as a host int64 tensor, the pools,

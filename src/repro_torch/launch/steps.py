@@ -10,12 +10,22 @@ under ``REPRO_MOE_GROUPED=1`` B3 and B4).
 
 ``train_bundle`` / ``prefill_bundle`` / ``serve_bundle`` give a
 (arch x shape) cell's step function and its arguments (``StepBundle``), as
-the reference's do, without its shardings: the arguments are built on the
-device asked for under the active ``FakeTensorMode`` (``eval_params``), so
-a cell of production size is traced (``launch.dryrun``) and never
-allocated.  ``capture=True`` (or ``$REPRO_CAPTURE=1``) routes the loss
-through ``capture.optimize``.  Sharded bundles (the ``mesh=`` argument)
-come with the mesh tier, ROADMAP.md queue A item 6c.
+the reference's do: the arguments are built on the device asked for under
+the active ``FakeTensorMode`` (``eval_params``), so a cell of production
+size is traced (``launch.dryrun``) and never allocated.  ``capture=True``
+(or ``$REPRO_CAPTURE=1``) routes the loss through ``capture.optimize``.
+With ``mesh=`` a bundle also carries the reference's output shardings
+(``StepBundle.out_shardings``: ``launch.sharding`` placements from the
+logical axes, ``param_shardings`` / ``opt_shardings`` /
+``batch_shardings`` / ``cache_shardings``), and its train step runs under
+the mesh.
+
+``make_train_step(mesh=)`` activates the mesh for the step body, as the
+reference's does, so ``ops._tuned_kernel`` consults the mesh-qualified
+plans a ``--mesh`` sweep persisted and eligible GEMMs, forward and
+backward, run as ``codegen.bind_mesh`` kernels over the mesh's ranks.  As
+in the reference, no step runs on sharded parameters: the parameters are
+replicated on every rank, and every rank runs the same step.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models.api import ModelAPI, batch_spec, get_api
-from ..optim import AdamWConfig
+from ..optim import AdamWConfig, Quantized
 from ..optim import adamw as optim
+from . import sharding as shd
+from .mesh import set_mesh
 
 
 @dataclasses.dataclass
@@ -39,7 +51,7 @@ class StepBundle:
     fn: Callable                      # the step function
     in_shapes: Tuple                  # its arguments (fake under a dry-run)
     static_name: str                  # train_step | prefill_step | serve_step
-    out_shardings: Any = None         # the mesh tier's (item 6c); None here
+    out_shardings: Any = None         # placements of the outputs, or None
 
 
 def _fake_mode():
@@ -63,6 +75,69 @@ def eval_params(cfg: ModelConfig, api: ModelAPI, device="cuda"):
     shapes = api.init(cfg, None, torch.device("meta"))
     return optim.tree_map(
         lambda t: torch.empty(t.shape, dtype=t.dtype, device=device), shapes)
+
+
+def _meta_params(cfg: ModelConfig, api: ModelAPI):
+    return api.init(cfg, None, torch.device("meta"))
+
+
+def param_shardings(mesh, cfg: ModelConfig, api: ModelAPI):
+    """(param shapes on the meta device, logical axes, placements)."""
+    shapes = _meta_params(cfg, api)
+    axes = api.param_axes(cfg)
+    return shapes, axes, shd.tree_shardings(mesh, shapes, axes)
+
+
+def opt_shardings(mesh, opt_shapes, param_shardings_tree):
+    """Moments inherit the param sharding; Quantized moments shard their
+    flat block axis across the whole mesh."""
+    from ..codegen.mesh_gen import Placements
+
+    def like_params(moments, psh):
+        if isinstance(moments, dict):
+            return {k: like_params(moments[k], psh[k]) for k in moments}
+        if isinstance(moments, Quantized):
+            q = shd.quantized_sharding(mesh, moments)
+            return Quantized(q["q"], q["scale"], moments.shape,
+                             moments.dtype)
+        return psh
+
+    return optim.AdamWState(
+        step=Placements((), mesh.axis_names),
+        m=like_params(opt_shapes.m, param_shardings_tree),
+        v=like_params(opt_shapes.v, param_shardings_tree),
+    )
+
+
+def batch_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Each step input's placements (``batch_spec_for``, the sequence as
+    the fallback axis)."""
+    return {name: shd.batch_spec_for(mesh, shp, seq_axis=1)
+            for name, (shp, _) in batch_spec(cfg, shape).items()}
+
+
+def cache_shardings(mesh, cfg: ModelConfig, api: ModelAPI, batch, max_len):
+    """(cache shapes on the meta device, their placements)."""
+    c_shapes = api.cache_init(cfg, batch, max_len, device="meta")
+    c_axes = api.cache_axes(cfg)
+    rules = {**shd.PARAM_RULES, "heads": shd.PARAM_RULES["heads"]}
+
+    def walk(s, a):
+        if isinstance(s, dict):
+            return {k: walk(v, a[k] if isinstance(a, dict) and k in a
+                            else a)
+                    for k, v in s.items()}
+        ax = a if isinstance(a, (tuple, type(None))) else None
+        return shd.spec_for(mesh, ax, tuple(s.shape), rules=rules)
+
+    return c_shapes, walk(c_shapes, c_axes)
+
+
+def _metrics_shardings(mesh) -> dict:
+    from ..codegen.mesh_gen import Placements
+
+    return {k: Placements((), mesh.axis_names)
+            for k in ("grad_norm", "clip_scale", "loss")}
 
 
 def _batch(cfg: ModelConfig, shape: ShapeConfig, device) -> dict:
@@ -115,14 +190,17 @@ def make_train_step(
     bwd; the model's own ``ops`` launches replay as they are, and each
     layer's checkpoint region keeps its remat policy.  Ineligible sites
     run untouched, so this is a strict superset of the uncaptured step.
+
+    ``mesh`` activates that mesh for the step body (``launch.mesh
+    .set_mesh``), so ``ops._tuned_kernel`` consults the mesh-shape-qualified
+    plan keys a ``--mesh`` sweep persisted and eligible GEMMs, forward and
+    backward, dispatch through the mesh-bound kernels
+    (``codegen.bind_mesh``).  Every rank of the mesh must call the step,
+    with the same parameters and batch.  Callers that already run under
+    ``set_mesh(mesh)`` get the same behaviour without passing it.
     """
     if capture is None:
         capture = os.environ.get("REPRO_CAPTURE", "") == "1"
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh-bound train step comes with the mesh tier, ROADMAP.md "
-            "queue A item 6c"
-        )
     api = get_api(cfg)
 
     def loss_fn(p, b):
@@ -135,6 +213,10 @@ def make_train_step(
                                     label=f"{cfg.arch_id}:train_step")
 
     def train_step(params, opt_state, batch):
+        with set_mesh(mesh):  # no change where mesh is None
+            return _body(params, opt_state, batch)
+
+    def _body(params, opt_state, batch):
         if microbatch > 1:
             loss = None
             grads = None
@@ -172,11 +254,13 @@ def make_train_step(
 def train_bundle(cfg: ModelConfig, shape: ShapeConfig,
                  opt_cfg: Optional[AdamWConfig] = None,
                  microbatch: int = 1, capture: Optional[bool] = None,
-                 device="cuda") -> StepBundle:
+                 device="cuda", mesh=None) -> StepBundle:
     """The train step of a cell and its (params, opt_state, batch), built
     under the active ``FakeTensorMode``.  As in the reference, a model of
     256 experts or more keeps int8 moments (it needs them to fit), and
-    ``$REPRO_OPT_INT8=1`` forces them for every model."""
+    ``$REPRO_OPT_INT8=1`` forces them for every model.  With ``mesh`` the
+    step runs under it and ``out_shardings`` holds the placements of
+    (params, opt_state, metrics)."""
     api = get_api(cfg)
     if opt_cfg is None:
         big = cfg.moe is not None and cfg.moe.n_experts >= 256
@@ -185,15 +269,22 @@ def train_bundle(cfg: ModelConfig, shape: ShapeConfig,
     params = eval_params(cfg, api, device)
     opt_state = optim.init(params, opt_cfg)
     step = make_train_step(cfg, opt_cfg, microbatch=microbatch,
-                           capture=capture)
+                           capture=capture, mesh=mesh)
+    out = None
+    if mesh is not None:
+        p_shapes, _, p_shard = param_shardings(mesh, cfg, api)
+        o_shard = opt_shardings(mesh, optim.init(p_shapes, opt_cfg), p_shard)
+        out = (p_shard, o_shard, _metrics_shardings(mesh))
     return StepBundle(fn=step,
                       in_shapes=(params, opt_state, _batch(cfg, shape, device)),
-                      static_name="train_step")
+                      static_name="train_step", out_shardings=out)
 
 
 def serve_bundle(cfg: ModelConfig, shape: ShapeConfig,
-                 device="cuda") -> StepBundle:
-    """decode_*: one new token against a ``seq_len``-deep cache."""
+                 device="cuda", mesh=None) -> StepBundle:
+    """decode_*: one new token against a ``seq_len``-deep cache; with
+    ``mesh``, ``out_shardings`` holds the placements of (logits,
+    caches)."""
     api = get_api(cfg)
     B, S = shape.global_batch, shape.seq_len
     params = eval_params(cfg, api, device)
@@ -204,14 +295,19 @@ def serve_bundle(cfg: ModelConfig, shape: ShapeConfig,
         with torch.no_grad():
             return api.decode_step(params, cfg, caches, tokens)
 
+    out = None
+    if mesh is not None:
+        _, c_shard = cache_shardings(mesh, cfg, api, B, S)
+        out = (shd.batch_spec_for(mesh, (B, 1, cfg.vocab)), c_shard)
     return StepBundle(fn=serve_step, in_shapes=(params, caches, tokens),
-                      static_name="serve_step")
+                      static_name="serve_step", out_shardings=out)
 
 
 def prefill_bundle(cfg: ModelConfig, shape: ShapeConfig,
-                   device="cuda") -> StepBundle:
+                   device="cuda", mesh=None) -> StepBundle:
     """prefill_*: the prompt of ``seq_len`` tokens, building caches as
-    deep."""
+    deep; with ``mesh``, ``out_shardings`` holds the placements of
+    (logits, caches)."""
     api = get_api(cfg)
     params = eval_params(cfg, api, device)
     max_len = shape.seq_len
@@ -220,6 +316,13 @@ def prefill_bundle(cfg: ModelConfig, shape: ShapeConfig,
         with torch.no_grad():
             return api.prefill(params, cfg, batch, max_len)
 
+    out = None
+    if mesh is not None:
+        dec_len = batch_spec(cfg, shape)["tokens"][0][1]
+        _, c_shard = cache_shardings(mesh, cfg, api, shape.global_batch,
+                                     max_len)
+        out = (shd.batch_spec_for(
+            mesh, (shape.global_batch, dec_len, cfg.vocab)), c_shard)
     return StepBundle(fn=prefill_step,
                       in_shapes=(params, _batch(cfg, shape, device)),
-                      static_name="prefill_step")
+                      static_name="prefill_step", out_shardings=out)

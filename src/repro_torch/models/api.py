@@ -9,6 +9,8 @@ to models through this adapter:
     loss = api.loss(params, cfg, batch)            # scalar f32
     logits, caches = api.prefill(params, cfg, batch, max_len)
     logits, caches = api.decode_step(params, cfg, caches, tokens)
+    axes = api.param_axes(cfg)      # logical axes twin of params
+    cache_axes = api.cache_axes(cfg)
 
 The dense and MoE families take ``tokens`` (and ``lengths`` at a
 right-padded prefill); ssm and hybrid take ``tokens`` only (their state
@@ -16,6 +18,12 @@ folds every token in, so they refuse ``lengths``); encdec also takes
 ``frames`` (B, S_enc, d_model) and vlm ``patches`` (B, ``N_PATCHES``,
 ``vlm.VIT_DIM``), the precomputed embeddings of their stubbed frontends.
 ``batch_spec`` names the step inputs of every (family x shape kind).
+
+The reference's ``init`` returns ``(params, logical_axes)``; the port's
+returns the params, and ``param_axes(cfg)`` gives their logical-axes twin
+(the same tree, each leaf a tuple of logical axis names), which
+``launch.sharding`` maps onto a mesh.  ``cache_axes(cfg)`` is the same for
+the decode caches.
 """
 
 from __future__ import annotations
@@ -39,6 +47,17 @@ class ModelAPI:
     prefill: Callable        # (params, cfg, batch, max_len) -> (logits, caches)
     decode_step: Callable    # (params, cfg, caches, tokens) -> (logits, caches)
     cache_init: Callable     # (cfg, batch, max_len, device) -> caches
+    cache_axes: Callable = None  # (cfg) -> logical axes tree of the caches
+    param_axes: Callable = None  # (cfg) -> logical axes tree of the params
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``cfg``'s parameters (``layers.tree_axes`` of
+    its init on the meta device: the tree, no draw, nothing allocated)."""
+    from .layers import tree_axes
+
+    return tree_axes(_APIS[cfg.family]().init(cfg, None,
+                                              torch.device("meta")))
 
 
 def _lm_api() -> ModelAPI:
@@ -55,6 +74,8 @@ def _lm_api() -> ModelAPI:
         ),
         decode_step=transformer.decode_step,
         cache_init=transformer.cache_init,
+        cache_axes=transformer.cache_axes,
+        param_axes=param_axes,
     )
 
 
@@ -91,6 +112,8 @@ def _hybrid_api() -> ModelAPI:
         prefill=_hybrid_prefill,
         decode_step=hybrid.decode_step,
         cache_init=hybrid.cache_init,
+        cache_axes=hybrid.cache_axes,
+        param_axes=param_axes,
     )
 
 
@@ -112,6 +135,8 @@ def _encdec_api() -> ModelAPI:
         cache_init=lambda c, batch, max_len, device="cpu": encdec.cache_init(
             c, batch, max_len, enc_len=max_len, device=device
         ),
+        cache_axes=encdec.cache_axes,
+        param_axes=param_axes,
     )
 
 
@@ -130,6 +155,8 @@ def _vlm_api() -> ModelAPI:
         ),
         decode_step=vlm.decode_step,
         cache_init=vlm.cache_init,
+        cache_axes=vlm.cache_axes,
+        param_axes=param_axes,
     )
 
 

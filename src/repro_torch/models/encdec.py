@@ -221,6 +221,15 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
     }
 
 
+def cache_axes(cfg: ModelConfig) -> Dict:
+    """Logical axes tree matching cache_init's structure."""
+    return {
+        "self": {k: ("layers",) + tuple(v) for k, v in L.CACHE_AXES.items()},
+        "cross_k": ("layers", "batch", "seq_kv", "kv", None),
+        "cross_v": ("layers", "batch", "seq_kv", "kv", None),
+    }
+
+
 def prefill(params, cfg: ModelConfig, frames, tokens, max_len: int):
     B, S = tokens.shape
     enc_out = encode(params, cfg, frames)

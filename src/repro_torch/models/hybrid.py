@@ -27,7 +27,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
-from .ssm import ssm_apply, ssm_cache_init, ssm_init
+from .ssm import SSM_CACHE_AXES, ssm_apply, ssm_cache_init, ssm_init
 from .transformer import _tree_map, _unstack, stacked_init
 
 
@@ -149,6 +149,18 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int,
         caches["attn"] = {k: v.new_zeros((_n_shared_sites(cfg), *v.shape))
                           for k, v in site.items()}
     return caches
+
+
+def cache_axes(cfg: ModelConfig) -> Dict:
+    """Logical axes tree matching cache_init's structure."""
+    axes: Dict = {
+        "ssm": {k: ("layers",) + tuple(v) for k, v in SSM_CACHE_AXES.items()}
+    }
+    if cfg.attn_every:
+        axes["attn"] = {
+            k: ("layers",) + tuple(v) for k, v in L.CACHE_AXES.items()
+        }
+    return axes
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens):

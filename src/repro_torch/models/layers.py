@@ -459,6 +459,80 @@ def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+#: logical axes of the attention cache (for sharding long-context decode)
+CACHE_AXES = {"k": ("batch", "seq_kv", "kv", None),
+              "v": ("batch", "seq_kv", "kv", None),
+              "len": ("batch",)}
+
+
+# ---------------------------------------------------------------------------
+# logical axes of the parameters
+# ---------------------------------------------------------------------------
+
+#: a leaf's logical axes by the kind of the dict that holds it: the
+#: reference annotates each leaf as its ``*_init`` builds it (``PA``); the
+#: port's trees carry the same names, so one table per kind of block
+#: gives the same axes
+_NORM = {"scale": ("embed",), "bias": ("embed",)}
+_ATTENTION = {
+    "wq": ("embed", "heads"), "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+    "wo": ("heads", "embed"), "bq": ("heads",), "bk": ("kv",),
+    "bv": ("kv",), "q_norm": (None,), "k_norm": (None,),
+}
+_MLP = {
+    "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"), "w1": ("embed", "mlp"), "b1": ("mlp",),
+    "w2": ("mlp", "embed"), "b2": ("embed",),
+}
+_MOE = {
+    "router": ("embed", "experts"),
+    "w_gate": ("experts", "embed", "mlp"),
+    "w_up": ("experts", "embed", "mlp"),
+    "w_down": ("experts", "mlp", "embed"),
+}
+_SSM = {
+    "in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"),
+    "conv_b": ("mlp",), "A_log": ("heads",), "D": ("heads",),
+    "dt_bias": ("heads",), "norm_scale": ("mlp",),
+    "out_proj": ("mlp", "embed"),
+}
+_BLOCKS = {
+    "embedding": {"tok": ("vocab", "embed"), "unembed": ("embed", "vocab")},
+    "attn": _ATTENTION, "self_attn": _ATTENTION, "cross_attn": _ATTENTION,
+    "mlp": _MLP, "shared": _MLP, "moe": _MOE, "ssm": _SSM,
+    "projector": {"w": (None, "embed"), "b": ("embed",)},
+}
+#: top-level subtrees whose leaves are stacked along a leading layers axis
+STACKED = ("ssm_layers", "enc_layers", "dec_layers")
+
+
+def _leaf_axes(block: str, leaf: str):
+    table = _NORM if block.endswith("norm") else _BLOCKS.get(block)
+    if table is None or leaf not in table:
+        raise KeyError(f"no logical axes for parameter {block}/{leaf}")
+    return table[leaf]
+
+
+def tree_axes(tree: Dict) -> Dict:
+    """The logical-axes twin of a parameter tree: the second half of the
+    reference's ``split_params`` of an annotated init, with ``"layers"``
+    prepended under the stacked segments (``seg*`` and ``STACKED``), as
+    the reference's ``init``s do."""
+
+    def walk(node, block, stacked):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, k, stacked)
+            else:
+                axes = _leaf_axes(block, k)
+                out[k] = ("layers",) + tuple(axes) if stacked else axes
+        return out
+
+    return {k: walk(v, k, k.startswith("seg") or k in STACKED)
+            for k, v in tree.items()}
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

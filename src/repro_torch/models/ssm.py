@@ -216,6 +216,13 @@ def ssm_apply(params, cfg: ModelConfig, x: torch.Tensor,
     return dot(g.to(x.dtype), params["out_proj"]), new_cache
 
 
+#: logical axes of an SSM layer's cache
+SSM_CACHE_AXES = {
+    "conv": ("batch", None, "mlp"),
+    "state": ("batch", "heads", None, None),
+}
+
+
 def ssm_cache_init(cfg: ModelConfig, batch: int, device="cpu") -> Dict:
     s = cfg.ssm
     d_inner, H, conv_dim = _dims(cfg)

@@ -297,6 +297,15 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def cache_axes(cfg: ModelConfig) -> Dict:
+    """Logical axes tree matching cache_init's structure."""
+    def one():
+        return {k: ("layers",) + tuple(v) for k, v in L.CACHE_AXES.items()}
+
+    return {f"seg{si}": {kind: one() for kind in pattern}
+            for si, (pattern, _) in enumerate(segment_plan(cfg))}
+
+
 def _first_cache_len(caches) -> torch.Tensor:
     for seg in caches.values():
         for kind in seg.values():

@@ -79,3 +79,4 @@ def prefill(params, cfg: ModelConfig, tokens, patches, max_len: int):
 
 decode_step = T.decode_step  # identical once the cache holds the image prefix
 cache_init = T.cache_init
+cache_axes = T.cache_axes

@@ -122,35 +122,88 @@ def _spec_key(spec) -> tuple:
             (kind, repr(sorted(root.fused_meta().items()))) if kind else None)
 
 
+def _mesh_plan_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
+                      interpret=False):
+    """A mesh-bound kernel from a mesh-qualified plan, or None.
+
+    When the caller runs under a mesh of more than one rank
+    (``launch.mesh.set_mesh``), the plan DB is consulted under the
+    mesh-shape-qualified key ('2x4'-style, ``plandb.plan_key(mesh=...)``)
+    for the best rung that actually distributes (``best_sharded_entry``).
+    A sharded plan whose mesh axes match the active mesh compiles through
+    ``codegen.bind_mesh`` with the plan's measured collective strategy:
+    each rank launches the kernel on its shard.  Any mismatch (axis names
+    or sizes, no plan) returns None and the caller falls back to the
+    single-rank lookup, as in the reference -- a replica without mesh
+    sweeps behaves exactly as before.
+    """
+    from ..launch.mesh import active_mesh, mesh_shape_descriptor
+    from ..search import schedule_mesh_axes
+
+    mesh = active_mesh()
+    if mesh is None:
+        return None
+    sched, entry = default_plan_db().best_sharded_entry(
+        spec, dtype, mesh=mesh_shape_descriptor(mesh))
+    if sched is None:
+        return None
+    if any(mesh.shape.get(a) != n
+           for a, n in schedule_mesh_axes(sched).items()):
+        return None
+    return cached_compile(
+        spec, sched, epilogue=epilogue, out_dtype=out_dtype,
+        interpret=interpret, mesh=mesh,
+        collective=entry.get("collective") or "psum",
+    )
+
+
+def _mesh_key(mesh):
+    if mesh is None:
+        return None
+    return (tuple(mesh.axis_names), tuple(int(r) for r in mesh.devices.flat),
+            tuple(mesh.devices.shape), mesh.transport)
+
+
 def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
                   interpret=False):
     """Generated kernel for ``spec``: searched plan first, tuned fallback.
 
-    Lookup order as in the reference (no mesh tier yet): the active
-    serving phase's ladder, then the unphased ladder, then the analytic
-    tuner with its persistent cache.  A winning rung's ``card`` (the B1
+    Lookup order as in the reference: under an active mesh the
+    mesh-qualified plan first (``_mesh_plan_kernel``, a
+    ``MeshBoundKernel``), then the active serving phase's ladder, then the
+    unphased ladder, then the analytic tuner with its persistent cache.  A winning rung's ``card`` (the B1
     tile plan a card ladder measured) is compiled into the kernel
     (``cached_compile(card=)``, whose memo keys it), except under an
     epilogue, where the launch runs another body than the measured plain
     product.  The answer is kept for the process
     (the reference looks up once per trace), keyed on the spec, dtype,
-    epilogue, output dtype, ``interpret``, the active phase and the plan
-    DB's and tuner cache's paths, and dropped when either cache is opened,
+    epilogue, output dtype, ``interpret``, the active phase, the plan
+    DB's and tuner cache's paths and the active mesh, and dropped when
+    either cache is opened,
     written or cleared (``codegen.cache.generation``), so a new ladder's
     plan replaces the kept kernel (whose ``card`` is the plan it was
     compiled with); ``obs`` counts
     ``ops.lookup.memo_hit`` / ``.memo_miss``.  A hit skips the plan DB,
     the tuner cache and ``cached_compile``, and their counters.
     """
+    from ..launch.mesh import active_mesh
+
     db = default_plan_db()
     phase = active_phase()
+    mesh = active_mesh()
     key = (_spec_key(spec), dtype, epilogue, out_dtype, interpret, phase,
-           getattr(db, "path", None), default_cache().path)
+           getattr(db, "path", None), default_cache().path, _mesh_key(mesh))
     kept = _LOOKUPS.get(key)
     if kept is not None and kept[0] == cache_generation():
         counter("ops.lookup.memo_hit").inc()
         return kept[1]
     counter("ops.lookup.memo_miss").inc()
+    if mesh is not None:
+        kern = _mesh_plan_kernel(spec, dtype, epilogue=epilogue,
+                                 out_dtype=out_dtype, interpret=interpret)
+        if kern is not None:
+            _keep(key, kern)
+            return kern
     schedule, rung = None, {}
     if phase is not None:
         schedule, rung = db.best_entry(spec, dtype, phase=phase)
@@ -166,10 +219,14 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
     kern = cached_compile(spec, schedule, epilogue=epilogue,
                           out_dtype=out_dtype, interpret=interpret,
                           card=card)
+    _keep(key, kern)
+    return kern
+
+
+def _keep(key, kern) -> None:
     if len(_LOOKUPS) >= _MEMO_MAX:
         _LOOKUPS.clear()
     _LOOKUPS[key] = (cache_generation(), kern)
-    return kern
 
 
 def warm_dense_cache(shapes, dtype=torch.bfloat16) -> int:

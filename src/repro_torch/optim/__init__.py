@@ -1,6 +1,7 @@
 """repro_torch.optim — AdamW with f32, bf16 or block-quantized int8 moments
-(``optim.adamw``, ``optim.quant``).  Gradient compression
-(``optim/compress.py``) comes with the mesh tier, ROADMAP.md queue A item 6.
+(``optim.adamw``, ``optim.quant``), and the int8 gradient compression of
+the cross-pod all-reduce (``optim.compress``, on the mesh tier's
+collectives).
 """
 
 from .adamw import (  # noqa: F401

@@ -185,7 +185,7 @@ def quant_hbm_bytes(spec, elem_bytes: int = 4) -> float:
 
 #: (peak FLOP/s, HBM B/s, link B/s) by a record's ``hw``; None is the
 #: reference's TPU.  The H100's link is NVLink 4's 450 GB/s a direction
-#: (its collectives are 0 bytes until the mesh tier, item 6c).
+#: (a dry-run's collectives are 0 bytes until item 6c part 2).
 HW_TERMS = {
     None: (PEAK_FLOPS, HBM_BW, ICI_BW),
     "h100": (H100["peak_bf16"], H100["hbm_bw"], 450e9),
@@ -202,18 +202,18 @@ _SUGGEST = {
 }
 
 
-def param_counts(arch: str) -> Dict[str, float]:
-    """Total and active parameter counts of ``arch``'s params, from the
-    model's ``init`` on the meta device (no allocation); expert leaves
-    (under ``moe``, not the shared expert or the router) count ``top_k /
-    n_experts`` toward the active count."""
+def param_counts(arch: str, cfg=None) -> Dict[str, float]:
+    """Total and active parameter counts of ``arch``'s params (or of
+    ``cfg``, a cut of it), from the model's ``init`` on the meta device
+    (no allocation); expert leaves (under ``moe``, not the shared expert
+    or the router) count ``top_k / n_experts`` toward the active count."""
     import torch
 
     from ..configs import get_config
     from ..models.api import get_api
     from ..optim.adamw import leaves
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     params = get_api(cfg).init(cfg, None, torch.device("meta"))
     total = 0
     expert = 0

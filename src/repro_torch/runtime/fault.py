@@ -17,7 +17,8 @@ A copy of the reference's ``runtime/fault.py`` over the port's ``obs``.
     ``fault.step_median_s`` gauges, ``fault.straggler_events`` counter).
 
 Checkpoints are layout-free (see checkpoint/); re-sharding on restore
-comes with the mesh tier (ROADMAP.md queue A item 6).
+(``restore(shardings=)``) and this module's mesh part come with ROADMAP.md
+queue A item 6c (part 2).
 """
 
 from __future__ import annotations

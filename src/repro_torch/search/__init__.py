@@ -45,7 +45,21 @@ sweep (``python -m repro_torch.search.sweep``) or one ``serve
 --search-gemms`` warmup upgrades every later call for the same
 spec/shape/dtype.  With ``--with-grads`` (or ``search_schedule_with_grads``)
 the sweep also covers the derived backward specs of ``repro_torch.grad``.
-Mesh searches raise (``ROADMAP.md`` queue A item 6c).
+``mesh_shape`` ('2x4') extends a search to the mesh tier, as in the
+reference: mesh subdivisions x collective strategies join the beam under
+the communication-aware cost, a "mesh-naive" baseline rides through
+measurement, and the ladder persists under the mesh-qualified key that
+``ops._mesh_plan_kernel`` consults under an active mesh.  Sharded
+candidates are measured through ``codegen.bind_mesh`` over the world's
+ranks (``measure.mesh_for_schedules``); a process that cannot host the
+mesh keeps them on their analytic rank behind the measured single-rank
+plans.  In a world of several ranks every rank runs the same search: each
+times every candidate, the ranks take each time's maximum over the world
+(one ``all_reduce(MAX)``), so they rank the ladder alike, and only rank 0
+writes the plan DB, behind a barrier after which the others re-read it.
+A mesh ladder is measured on the host clock on the card too (the
+collectives run between launches), and its rungs carry no B1 tile plan:
+each rank's local product runs the launcher's own.
 """
 
 from __future__ import annotations
@@ -198,13 +212,42 @@ class SearchResult:
         return None
 
 
-def _mesh_refusal(mesh_shape) -> None:
-    if isinstance(mesh_shape, str):
-        mesh_shape = parse_mesh_shape(mesh_shape)
-    if mesh_descriptor(mesh_shape) is not None:
-        raise NotImplementedError(
-            f"a mesh search ({mesh_descriptor(mesh_shape)}) comes with the "
-            f"mesh tier, ROADMAP.md queue A item 6c")
+def _multi_rank() -> bool:
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _agree(measured: List["RankedPlan"]) -> None:
+    """Every rank's measured times (and spreads) replaced, in place, by
+    their maxima over the world, so that every rank ranks alike."""
+    from ..codegen.collectives import world_max
+
+    if not measured or not _multi_rank():
+        return
+    n = len(measured)
+    vals = world_max([p.measured_s for p in measured]
+                     + [p.spread_s or 0.0 for p in measured])
+    for p, t, sp in zip(measured, vals[:n], vals[n:]):
+        p.measured_s = t
+        if p.spread_s is not None:
+            p.spread_s = sp
+
+
+def _persist_once(plan_db, write) -> None:
+    """``write()`` on rank 0 only; in a world of several ranks the others
+    wait at a barrier and then re-read the DB."""
+    if not _multi_rank():
+        write()
+        return
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        write()
+    dist.barrier()
+    if dist.get_rank() != 0:
+        plan_db.reload()
 
 
 def _ladder_from(cached: dict, spec: ContractionSpec) -> List[RankedPlan]:
@@ -354,13 +397,28 @@ def search_schedule(
     (``measure=False``) ladder never satisfies a measured request.
     ``phase`` ('prefill'/'decode') persists the ladder under the
     serving-phase-qualified key (``plandb.plan_key(phase=...)``), the one
-    the serving runners consult via ``plandb.serving_phase``.  A
-    ``mesh_shape`` raises (the mesh tier, queue A item 6c).
+    the serving runners consult via ``plandb.serving_phase``.
+
+    ``mesh_shape`` ('2x4' or (2, 4)) extends the search to the mesh tier:
+    legal mesh subdivisions x collective strategies join the beam under
+    the communication-aware cost (``beam.estimate``), the ladder always
+    surfaces at least one ``mesh:*`` plan, and a "mesh-naive" baseline
+    (the plain-psum, unblocked lowering of the best sharded subdivision)
+    rides through measurement, so the searched sharded winner is by
+    construction never slower than it.  Sharded candidates are measured
+    over the world's ranks (the package docstring); where the process
+    cannot host the mesh they keep their analytic rank behind the
+    measured single-rank plans.  The ladder persists under the
+    mesh-qualified plan key.
     """
     from ..codegen.cache import dtype_itemsize, dtype_name, measured_on
 
     spec = spec.root()
-    _mesh_refusal(mesh_shape)
+    if isinstance(mesh_shape, str):
+        mesh_shape = parse_mesh_shape(mesh_shape)
+    mesh_desc = mesh_descriptor(mesh_shape)
+    if mesh_desc is None:
+        mesh_shape = None
     device = _default_device(device)
     hardware = measured_on(device)
     dt = dtype
@@ -368,7 +426,8 @@ def search_schedule(
         elem_bytes = dtype_itemsize(dt)
 
     if plan_db is not None and use_cached_plan:
-        cached = plan_db.get(spec, dt, hardware, phase=phase)
+        cached = plan_db.get(spec, dt, hardware, mesh=mesh_desc,
+                             phase=phase)
         if (
             cached
             and cached.get("ranked")
@@ -388,13 +447,15 @@ def search_schedule(
                 return SearchResult(
                     spec=spec, dtype=dtype_name(dt), ranked=ranked,
                     stats=stats,
-                    db_key=plan_key(spec, dt, hardware, phase=phase),
+                    db_key=plan_key(spec, dt, hardware, mesh=mesh_desc,
+                                    phase=phase),
+                    mesh=mesh_desc,
                 )
 
-    with obs.span("search.beam", spec=spec.name, mesh=None):
+    with obs.span("search.beam", spec=spec.name, mesh=mesh_desc):
         survivors, stats = beam_search(
             spec, beam_width=beam_width, topk=topk,
-            elem_bytes=elem_bytes, hw=hw,
+            elem_bytes=elem_bytes, hw=hw, mesh_shape=mesh_shape,
         )
     obs.counter("search.candidates").inc(stats.considered)
     obs.counter("search.pruned_bound").inc(stats.pruned_bound)
@@ -437,10 +498,56 @@ def search_schedule(
                 if _sched_dict(p.schedule) == base_dict:
                     p.source = "default"
 
+    # mesh searches also measure the NAIVE lowering of the best sharded
+    # subdivision — same mesh assignment, plain psum, no inner blocking —
+    # so "searched-sharded never slower than naive psum" holds by
+    # construction on the measurement harness (the mesh analogue of the
+    # include_default guarantee)
+    if mesh_shape is not None:
+        best_sharded_sc = next(
+            (sc for sc in survivors if sc.candidate.mesh), None
+        )
+        if best_sharded_sc is not None:
+            naive_sched = candidate_schedule(
+                spec, spec.indices, {},
+                mesh=best_sharded_sc.candidate.mesh_dict,
+            )
+            naive_dict = _sched_dict(naive_sched)
+            naive_hit = [
+                p for p in plans
+                if _sched_dict(p.schedule) == naive_dict
+                and (p.collective or "psum") == "psum"
+            ]
+            if naive_hit:
+                for p in naive_hit:
+                    p.source = "mesh-naive"
+            else:
+                from .space import local_extents
+
+                naive_mesh = best_sharded_sc.candidate.mesh_dict
+                est = estimate(
+                    spec, spec.indices,
+                    local_extents(spec, naive_mesh),
+                    elem_bytes=elem_bytes, hw=hw,
+                    mesh=naive_mesh, collective="psum",
+                )
+                plans.append(
+                    RankedPlan(
+                        schedule=naive_sched,
+                        score=est.score,
+                        lower_bound=est.lower_bound,
+                        fits_vmem=est.fits_vmem,
+                        source="mesh-naive",
+                        collective="psum",
+                        explain=_explain_of(est),
+                    )
+                )
+
     on_card = device != "cpu"
     measured: List[RankedPlan] = []
     tensors = arrays
-    if measure and on_card:
+    mesh = None
+    if measure and on_card and mesh_shape is None:
         card = _card_ladder(spec, survivors, arrays, dt, beam_width, topk,
                             device)
         if card is not None:
@@ -450,19 +557,31 @@ def search_schedule(
             # no B1 plan to search: one measurement of the default
             measured = [p for p in plans if p.source == "default"][:1]
     elif measure:
-        measured = list(plans)
+        import torch
+
+        sharded = [p for p in plans if p.sharded]
+        mesh = mesh_for_schedules([p.schedule for p in sharded],
+                                  device=torch.device(device).type)
+        if mesh is None and sharded:
+            # the process cannot host the mesh: measure the single-rank
+            # candidates, keep sharded ones on their analytic rank
+            measured = [p for p in plans if not p.sharded]
+        else:
+            measured = list(plans)
     if measured:
         with obs.span("search.measure", spec=spec.name, n=len(measured)):
             ms = measure_schedules(
                 spec, [p.schedule for p in measured],
                 arrays=tensors, dtype=dt, interpret=interpret,
-                repeats=repeats, device=device,
+                repeats=repeats, device=device, mesh=mesh,
+                collectives=[p.collective for p in measured],
                 cards=[p.card for p in measured],
             )
         for p, m in zip(measured, ms):
             p.measured_s = m.seconds
             p.max_err = m.max_err
             p.spread_s = m.spread_s
+        _agree(measured)
         stats.measured += len(ms)
         obs.counter("search.measured").inc(len(ms))
     if measure:
@@ -479,10 +598,21 @@ def search_schedule(
 
     result = SearchResult(
         spec=spec, dtype=dtype_name(dt), ranked=plans, stats=stats,
+        mesh=mesh_desc,
     )
+    if mesh_desc is not None:
+        sharded_best = result.best_sharded()
+        if sharded_best is not None:
+            # which finishing collective won the mesh tier — the
+            # ring-vs-psum pick, surfaced through obs
+            obs.counter(
+                f"search.collective.{sharded_best.collective or 'psum'}"
+            ).inc()
     if plan_db is not None and plans:
-        with obs.span("search.persist", spec=spec.name, mesh=None):
-            result.db_key = plan_db.put(
+        result.db_key = plan_key(spec, dt, hardware, mesh=mesh_desc,
+                                 phase=phase)
+        with obs.span("search.persist", spec=spec.name, mesh=mesh_desc):
+            _persist_once(plan_db, lambda: plan_db.put(
                 spec, dt,
                 [
                     entry_from(
@@ -500,13 +630,13 @@ def search_schedule(
                 ],
                 stats=stats.as_dict(),
                 hardware=hardware,
-                mesh=None,
+                mesh=mesh_desc,
                 cuts=[
                     {"key": k, "lower_bound": lb, "best_score": bs}
                     for k, lb, bs in stats.bound_log[:_MAX_CUTS]
                 ],
                 phase=phase,
-            )
+            ))
     return result
 
 
@@ -627,10 +757,12 @@ def search_gemm_plans(
     ``with_grads`` each GEMM's derived backward specs are swept too (the
     count then includes them).  With ``phase`` the ladders persist under
     the serving-phase-qualified keys — how the prefill/decode runners each
-    sweep their own ladder for the same shape family.  ``device`` as in
-    ``search_schedule``; a ``mesh_shape`` raises (queue A item 6c).
+    sweep their own ladder for the same shape family.  With ``mesh_shape``
+    ('2x4') every point is additionally swept at the mesh tier, persisting
+    sharded ladders under the mesh-qualified keys that
+    ``ops._tuned_kernel`` consults when a matching mesh is active (the
+    count includes those sweeps).  ``device`` as in ``search_schedule``.
     """
-    _mesh_refusal(mesh_shape)
     db = plan_db if plan_db is not None else default_plan_db()
     n = 0
     for m, k, nn in shapes:
@@ -640,11 +772,15 @@ def search_gemm_plans(
             interpret=interpret, measure=measure, plan_db=db,
             phase=phase, device=device,
         )
-        if with_grads:
-            n += len(search_schedule_with_grads(spec, **kw))
-        else:
-            search_schedule(spec, **kw)
-            n += 1
+        meshes = [None] + ([mesh_shape] if mesh_shape is not None else [])
+        for ms in meshes:
+            if with_grads:
+                n += len(
+                    search_schedule_with_grads(spec, mesh_shape=ms, **kw)
+                )
+            else:
+                search_schedule(spec, mesh_shape=ms, **kw)
+                n += 1
     return n
 
 

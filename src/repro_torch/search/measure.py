@@ -26,8 +26,19 @@ The operands' device decides what is timed, as everywhere in the port:
   passes (``ops.dense``'s folded x, the backward's cotangent and saved
   operands for ``.dA`` / ``.dB``), so the measured body is the served one.
 
-Schedules with ``mesh:*`` levels need the mesh tier (``ROADMAP.md`` queue
-A, item 6c) and raise.
+Schedules with ``mesh:*`` levels are compiled through
+``codegen.bind_mesh`` over a mesh of the world's ranks
+(``launch.mesh``): on the card, ranks of one process each; on the CPU,
+gloo ranks (``tests/test_torch_mesh_gen.py``).  ``mesh_for_schedules``
+builds the mesh the candidate set needs when the world holds its ranks,
+and returns None otherwise -- in which case sharded candidates keep their
+analytic score and only the single-rank ones are timed.  Measuring on a
+mesh times every candidate on every rank on the host clock (each call
+synchronized on the card, since the collectives run between launches),
+min over ``repeats`` after a warm-up, and the ranks agree on each time by
+taking its maximum over the world (``collectives.world_max``): every rank
+then ranks the ladder alike, as it must, or a later collective would pair
+different kernels.
 """
 
 from __future__ import annotations
@@ -78,15 +89,61 @@ def schedule_mesh_axes(schedule: Schedule) -> Dict[str, int]:
     return out
 
 
-def mesh_for_schedules(schedules: Sequence[Schedule]):
-    """None where no schedule has mesh levels; a sharded schedule needs
-    the mesh tier and raises."""
+def mesh_for_schedules(schedules: Sequence[Schedule], *, transport=None,
+                       device=None):
+    """The mesh hosting every sharded schedule, or None.
+
+    Every schedule that uses a mesh axis must use the whole axis (that is
+    what ``space.mesh_variants`` emits), so conflicting sizes for one axis
+    are a caller bug and raise.  The mesh takes the needed axes in the
+    canonical order (pod, data, model) over the ranks of the world
+    (``launch.mesh.make_debug_mesh``); where they number fewer than the
+    world, the rest of the world becomes a leading replica axis named
+    after the first canonical axis no schedule uses (the schedules leave
+    it replicated).  The active mesh (``launch.mesh.set_mesh``) serves
+    as it is where it spans the world and has every needed axis at its
+    size.  Returns None when no schedule has mesh levels or the world
+    cannot host them (fewer ranks, or a count they do not divide).
+    ``transport`` and ``device`` are the mesh's (default: the active
+    mesh's, else "device" and the CPU).
+    """
+    need: Dict[str, int] = {}
     for s in schedules:
-        if schedule_mesh_axes(s):
-            raise NotImplementedError(
-                f"schedule {s.levels} is sharded over a device mesh: the "
-                f"mesh tier comes with ROADMAP.md queue A item 6c")
-    return None
+        for axis, size in schedule_mesh_axes(s).items():
+            if need.setdefault(axis, size) != size:
+                raise ValueError(
+                    f"schedules disagree on mesh axis {axis!r} size: "
+                    f"{need[axis]} vs {size}"
+                )
+    if not need:
+        return None
+    import math
+
+    from ..codegen.collectives import current_mesh
+    from ..launch.mesh import make_debug_mesh, world_size
+
+    order = [t.split(":", 1)[1] for t in MESH_TIERS]
+    axes = [a for a in order if a in need]
+    shape = [need[a] for a in axes]
+    world = world_size()
+    active = current_mesh()
+    if active is not None and active.size == world and all(
+            active.shape.get(a) == n for a, n in need.items()):
+        return active
+    if world % math.prod(shape):
+        return None
+    if world > math.prod(shape):
+        spare = next((a for a in order if a not in need), None)
+        if spare is None:
+            return None
+        axes.insert(0, spare)
+        shape.insert(0, world // math.prod(shape))
+    if transport is None:
+        transport = getattr(active, "transport", "device")
+    if device is None:
+        device = getattr(active, "device", None)
+    return make_debug_mesh(tuple(shape), tuple(axes), transport=transport,
+                           device=device)
 
 
 def reference_arrays(
@@ -246,8 +303,17 @@ def measure_schedules(
     schedule's ``cards`` entry (a ``CardPlan`` or None) is the B1 plan its
     launches must run; see the module docstring for the timing.
     ``interpret`` is the reference's flag and changes nothing here: the
-    device decides.  ``mesh`` and ``collectives`` belong to the mesh tier,
-    which raises.
+    device decides.
+
+    Schedules with ``mesh:*`` levels compile through ``codegen.bind_mesh``
+    over ``mesh`` (default: ``mesh_for_schedules`` over the world's ranks,
+    on the operands' device; a sharded schedule with no hostable mesh
+    raises).  ``collectives`` optionally names the finishing-collective
+    lowering per schedule ("psum" / "ring", ignored for unsharded
+    entries); the operands stay global tensors either way, so the oracle
+    check is identical for sharded and single-rank candidates.  With a
+    mesh every candidate is timed on the host clock on every rank and the
+    times are the world's maxima (module docstring).
     """
     import torch
 
@@ -255,10 +321,6 @@ def measure_schedules(
     from ..codegen.cache import dtype_name
 
     spec = spec.root()
-    if mesh is not None:
-        raise NotImplementedError("measuring on a device mesh comes with "
-                                  "ROADMAP.md queue A item 6c")
-    mesh_for_schedules(schedules)
     tdt = getattr(torch, dtype_name(dtype))
     quantized = tdt.itemsize == 1
     if tol is None:
@@ -282,16 +344,28 @@ def measure_schedules(
     b1 = card and _plain_product(spec, tensors[0].dtype)
     ref = _oracle(spec, tensors) if check else None
     scale = max(float(ref.abs().max()), 1e-30) if check else 1.0
+    sharded = [bool(schedule_mesh_axes(s)) for s in schedules]
+    if mesh is None and any(sharded):
+        mesh = mesh_for_schedules(
+            [s for s, sh in zip(schedules, sharded) if sh],
+            device=tensors[0].device.type)
     flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8,
-                         device=tensors[0].device) if card else None)
+                         device=tensors[0].device)
+             if card and mesh is None else None)
 
     checked = []
-    for sched, plan in zip(schedules, cards):
+    for pos, (sched, plan) in enumerate(zip(schedules, cards)):
+        if sharded[pos] and mesh is None:
+            raise ValueError(
+                f"schedule {sched.levels} needs a mesh of ranks but the "
+                f"world cannot host one")
+        coll = (collectives[pos] if collectives else "") or "psum"
         kern = cached_compile(
             spec, sched, interpret=interpret,
             # 1-byte operands must not round-trip the accumulator through
             # int8/fp8 storage on the way out — measure the f32 result
             out_dtype=torch.float32 if quantized else None,
+            mesh=mesh if sharded[pos] else None, collective=coll,
             card=plan,
         )
         what = f"schedule {sched.levels}" + (f", plan {tuple(plan)}"
@@ -305,17 +379,24 @@ def measure_schedules(
                     f"{what} produced wrong output (rel err {err:.3g} > "
                     f"{tol}) — refusing to rank it")
         checked.append((sched, plan, kern, what, err))
-    if not card:
-        out = []
-        for sched, plan, kern, _, err in checked:
+    if not card or mesh is not None:
+        times = []
+        for _, plan, kern, what, _ in checked:
             seconds = float("inf")
             for _ in range(max(repeats, 1)):
                 t0 = time.perf_counter()
-                kern(*tensors)
+                _call(kern, tensors, b1, plan, what)
+                if card:
+                    torch.cuda.synchronize(tensors[0].device)
                 seconds = min(seconds, time.perf_counter() - t0)
-            out.append(Measurement(schedule=sched, seconds=seconds,
-                                   max_err=err, card=plan))
-        return out
+            times.append(seconds)
+        if mesh is not None:
+            from ..codegen.collectives import world_max
+
+            times = world_max(times)
+        return [Measurement(schedule=sched, seconds=t, max_err=err,
+                            card=plan)
+                for t, (sched, plan, _, _, err) in zip(times, checked)]
     # the candidates in turns, a round at a time, so that a slow spell of
     # the card falls on every candidate alike
     times = [[] for _ in checked]

@@ -258,6 +258,38 @@ class PlanDB:
         except Exception:
             return None, {}
 
+    def best_sharded_entry(
+        self, spec: ContractionSpec, dtype: Any,
+        hardware: Optional[str] = None,
+        mesh: Optional[str] = None,
+    ) -> Tuple[Optional[Schedule], Dict[str, Any]]:
+        """The best rung with ``mesh:*`` levels, or (None, {}).
+
+        A mesh-qualified ladder keeps the single-rank plans as reference
+        rungs (they often out-measure a sharded product, whose collective
+        runs between launches), but a caller running *under a live mesh*
+        wants the best plan that actually distributes.  This is the lookup
+        ``ops._mesh_plan_kernel`` performs.
+        """
+        entry = self.get(spec, dtype, hardware, mesh=mesh)
+        if not entry or not entry.get("ranked"):
+            return None, {}
+        from ..core.schedule import MESH_TIERS
+
+        for rung in entry["ranked"]:
+            try:
+                sched = schedule_from_dict(rung["schedule"], spec.root())
+            except Exception:
+                continue
+            if any(lvl.tier in MESH_TIERS for lvl in sched.levels):
+                return sched, rung
+        return None, {}
+
+    def reload(self) -> None:
+        """Re-read the DB file at the next lookup (another rank wrote
+        it)."""
+        self._cache.reload()
+
     def clear(self) -> None:
         self._cache.clear()
 

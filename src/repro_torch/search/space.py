@@ -27,9 +27,8 @@ a candidate onto that quotient so the beam search deduplicates variants that
 the exchange rules prove equivalent (see ``core.rules`` eq 36-43).
 
 Everything above is the reference's, copied (pure Python): the port's beam
-ranks the same candidates with the same scores.  The mesh enumeration is
-kept for parity; binding a sharded schedule to devices is the mesh tier
-(``ROADMAP.md`` queue A, item 6c).
+ranks the same candidates with the same scores.  A sharded schedule is
+bound to a mesh of ranks by ``codegen.bind_mesh``.
 
 On the card B1 ignores a schedule's blocking: what a launch runs is its
 body and that body's tile plan (``codegen.cuda_gen.CardPlan``).

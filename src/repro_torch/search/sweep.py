@@ -18,8 +18,17 @@ harvests the points from a model instead of ``--spec`` / ``--shapes``:
 on fake tensors (``--kinds``, at ``--batch`` x ``--seq``; ``--model-smoke``
 for the reduced config) and sweeps every dispatched site's spec under the
 model's own dtype, so the plan keys match the lookups ``ops`` performs.
-``--mesh`` (the mesh tier, ``ROADMAP.md`` queue A item 6c) is a later
-slice and raises.
+``--mesh AxB`` also sweeps every point at the mesh tier (data x model, a
+third leading axis a pod axis): mesh subdivisions x collective strategies
+join the beam, the ladder persists under the mesh-qualified plan key, and
+the sharded candidates are measured over a mesh of the world's ranks when
+the process is one of a world that holds them (``torchrun``-style
+``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``, which
+``launch.mesh.init_world`` joins; every rank runs the same sweep, and
+rank 0 writes the plan DB); otherwise they keep their analytic rank.
+
+    torchrun --nproc-per-node 8 -m repro_torch.search.sweep \
+        --spec matmul --shapes 128,128,128 --with-grads --mesh 2x4 --device cpu
 
     python -m repro_torch.search.sweep --from-model qwen3-8b \
         --model-smoke --with-grads --device cpu
@@ -33,6 +42,8 @@ from __future__ import annotations
 import argparse
 import sys
 from typing import List, Optional, Tuple
+
+from ..launch.mesh import set_mesh, world_mesh
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -64,7 +75,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default="train,prefill,decode",
                     help="comma-separated trace points for --from-model")
     ap.add_argument("--mesh", default=None, metavar="AxB",
-                    help="also sweep the mesh tier (queue A item 6c)")
+                    help="also sweep every point at the mesh tier of the "
+                         "given shape (data x model; a leading pod axis "
+                         "for three): sharded ladders persist under the "
+                         "mesh-qualified plan key, measured over the "
+                         "world's ranks where the world holds the mesh"),
     ap.add_argument("--beam", type=int, default=8, help="beam width")
     ap.add_argument("--topk", type=int, default=4,
                     help="survivors compiled + measured")
@@ -97,18 +112,28 @@ def _fmt_sched(sched) -> str:
 
 def run(argv=None) -> Tuple[int, List[tuple]]:
     """(exit code, [(label, spec, shape, SearchResult)]) of one sweep."""
+    from ..device import resolve_device
+    from . import parse_mesh_shape
+
+    args = parse_args(argv)
+    device = str(resolve_device(args.device).type)
+    meshes = [None]
+    active = None
+    if args.mesh:
+        mesh_shape = parse_mesh_shape(args.mesh)
+        meshes.append(mesh_shape)
+        active = world_mesh(mesh_shape, device=device, what="sweep")
+    with set_mesh(active):
+        return _sweep(args, device, meshes)
+
+
+def _sweep(args, device, meshes) -> Tuple[int, List[tuple]]:
     import json
 
     from ..codegen.cache import measured_on, schedule_to_dict
-    from ..device import resolve_device
     from . import PlanDB, default_plan_db, search_schedule, spec_from_name
     from .space import sweep_specs
 
-    args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh sweeps the mesh tier, ROADMAP.md queue A item 6c")
-    device = str(resolve_device(args.device).type)
     db = PlanDB(args.plan_db) if args.plan_db else default_plan_db()
     if args.from_model:
         # harvested points carry their own specs and dtypes: a --spec,
@@ -154,31 +179,53 @@ def run(argv=None) -> Tuple[int, List[tuple]]:
                       spec_from_name(family, shape),
                       with_grads=args.with_grads)]
     failures, results = 0, []
-    for label, spec, shape, dtype in points:
-        print(f"== {family} {'x'.join(map(str, shape))} [{label}] "
+    for (label, spec, shape, dtype), mesh_shape in (
+            (pt, ms) for pt in points for ms in meshes):
+        at = (f" @mesh={'x'.join(map(str, mesh_shape))}"
+              if mesh_shape else "")
+        print(f"== {family} {'x'.join(map(str, shape))} [{label}]{at} "
               f"(beam={args.beam}, topk={args.topk}, dtype={dtype}, "
               f"device={device}) ==", flush=True)
         res = search_schedule(
             spec, dtype=dtype, beam_width=args.beam, topk=args.topk,
             measure=not args.no_measure, repeats=args.repeats, plan_db=db,
             use_cached_plan=not args.fresh, device=device,
+            mesh_shape=mesh_shape,
         )
         results.append((label, spec, shape, res))
         s = res.stats
         print(f"   candidates considered={s.considered} "
               f"deduped={s.deduped} pruned(bound)={s.pruned_bound} "
-              f"pruned(beam)={s.pruned_beam} measured={s.measured}")
+              f"pruned(beam)={s.pruned_beam} measured={s.measured} "
+              f"mesh_variants={s.mesh_variants}")
         for rank, p in enumerate(res.ranked):
             t = ("-" if p.measured_s is None
                  else f"{p.measured_s * 1e3:8.4f}ms")
             plan = "" if p.card is None else f" plan={tuple(p.card)}"
+            coll = f" coll={p.collective}" if p.collective else ""
             print(f"   #{rank} [{p.source:10s}] measured={t} "
                   f"score={p.score:.3e} bound={p.lower_bound:.3e} "
-                  f"vmem_ok={p.fits_vmem}{plan}")
+                  f"vmem_ok={p.fits_vmem}{plan}{coll}")
             print(f"      {_fmt_sched(p.schedule)}")
         if not res.ranked:
             print("   FAIL: search produced no plan")
             failures += 1
+            continue
+        if mesh_shape is not None:
+            if res.best_sharded() is None:
+                print("   FAIL: mesh sweep surfaced no mesh:* plan")
+                failures += 1
+                continue
+            stored, _ = db.best_sharded_entry(spec, dtype,
+                                              measured_on(device),
+                                              mesh=res.mesh)
+            if stored is None:
+                print("   FAIL: no sharded rung round-tripped through the "
+                      "plan DB")
+                failures += 1
+                continue
+            print(f"   mesh plan persisted & round-tripped (db={db.path})",
+                  flush=True)
             continue
         # the lookup ops.dense performs must return the winner just stored
         stored, rung = db.best_entry(spec, dtype, measured_on(device))

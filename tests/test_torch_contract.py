@@ -8,8 +8,10 @@
   launcher replaced by a CPU batched product, against ``contract_ref``;
 * ``ops.dense(interpret=True)`` on both sides at a 128-aligned shape, and
   an unaligned shape taking the ``torch.matmul`` route on both sides;
-* ``NotImplementedError`` for mesh requests and an unported tuner
-  option; the dequant epilogue, the chain and the quant specs, once
+* ``NotImplementedError`` for a mesh request on a fused family (the
+  reference's refusal; a product binds to a mesh, ``tests/
+  test_torch_mesh_gen.py``) and an unported tuner option; the dequant
+  epilogue, the chain and the quant specs, once
   refused, now compile (``tests/test_torch_quant.py`` and
   ``tests/test_torch_chain.py`` hold them to the reference; attention
   specs, ``tests/test_torch_attention.py``).
@@ -229,8 +231,12 @@ def test_dense_on_cpu_without_interpret_is_plain_matmul():
 def test_unsupported_requests_raise_not_implemented():
     spec = PE.matmul_spec(8, 8, 8)
     sched = port_codegen.default_schedule(spec)
+    # a product binds to a mesh since the mesh tier (item 6c); the fused
+    # families keep the reference's refusal
+    fused = PE.attention_spec(2, 8, 8, 4)
     with pytest.raises(NotImplementedError, match="mesh"):
-        port_codegen.compile(spec, sched, mesh=object())
+        port_codegen.compile(fused, port_codegen.default_schedule(fused),
+                             mesh=object())
     # once refused, now ported (B1's chain and int8/fp8 modes): the dequant
     # epilogue, the chain, a quantized spec and dense(quant=) compute
     x = torch.randn(8, 8)

@@ -349,15 +349,26 @@ def test_cli_names_the_missing_frontend_input(arch, key):
 
 @pytest.mark.parametrize("flags,item", [(["--mesh", "2x4"], "6c")])
 @pytest.mark.parametrize("engine", ["continuous", "fixed"])
-def test_cli_refuses_capture_and_mesh(flags, item, engine):
+def test_cli_refuses_capture_and_mesh(flags, item, engine, capsys):
     # --capture serves since the capture slice
-    # (tests/test_torch_capture_launch.py); --mesh waits for item 6c
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(["--arch", "qwen3-8b", "--engine", engine] + CLI + flags)
+    # (tests/test_torch_capture_launch.py), and --mesh since the mesh tier
+    # (item 6c): a world of one rank cannot host 2x4, so the CLI logs and
+    # serves single-rank, as the reference does
+    stats, trace, eng = serve.main(["--arch", "qwen3-8b", "--engine",
+                                    engine] + CLI + flags)
+    assert stats["tokens"] == sum(r.max_new for r in trace)
+    assert all(r.state == "finished" for r in trace)
+    assert getattr(eng, "server", eng).mesh is None
+    assert "serving single-rank" in capsys.readouterr().out, item
 
 
 def test_batch_server_refuses_capture_and_mesh(small):
     cfg, params = small
-    with pytest.raises(NotImplementedError, match="6c"):
+    # a mesh the world cannot host serves single-rank; capture on a mesh
+    # stays refused (item 6c, part 2)
+    server = BatchServer(cfg, batch_size=1, max_len=8, params=params,
+                         device="cpu", mesh_shape="2x4")
+    assert server.mesh is None and server.mesh_shape == (2, 4)
+    with pytest.raises(NotImplementedError, match="6c \\(part 2\\)"):
         BatchServer(cfg, batch_size=1, max_len=8, params=params,
-                    device="cpu", mesh_shape="2x4")
+                    device="cpu", mesh_shape="2x4", capture=True)

@@ -72,7 +72,11 @@ def test_port_sources_exist():
                    "configs/zamba2_2p7b.py", "configs/whisper_base.py",
                    "configs/internvl2_1b.py", "capture/__init__.py",
                    "capture/harvest.py", "capture/rewrite.py",
-                   "capture/sweep.py", "capture/report.py"):
+                   "capture/sweep.py", "capture/report.py",
+                   "codegen/collectives.py", "codegen/mesh_gen.py",
+                   "launch/mesh.py", "launch/sharding.py",
+                   "launch/overlap.py", "launch/pipeline.py",
+                   "optim/compress.py"):
         assert PORT / module in SOURCES, module
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 20
@@ -175,6 +179,41 @@ def test_search_imports_with_jax_unimportable():
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_mesh_tier_imports_with_jax_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "import repro_torch.launch.overlap, repro_torch.launch.pipeline\n"
+        "import repro_torch.optim.compress\n"
+        "from repro_torch import codegen\n"
+        "from repro_torch.core.enumerate import matmul_spec\n"
+        "from repro_torch.launch import sharding\n"
+        "from repro_torch.launch.mesh import (make_debug_mesh, "
+        "make_production_mesh, set_mesh, active_mesh)\n"
+        "p = sharding.spec_for(make_production_mesh(), ('embed', 'mlp'), "
+        "(4096, 11008))\n"
+        "assert p.spec == ('data', 'model'), p\n"
+        "mesh = make_debug_mesh((1, 1))  # a world of one rank\n"
+        "spec = matmul_spec(8, 8, 8)\n"
+        "k = codegen.compile(spec, codegen.default_schedule(spec), "
+        "mesh=mesh)\n"
+        "x = torch.ones(8, 8)\n"
+        "assert torch.equal(k(x, x), x @ x)\n"
+        "with set_mesh(mesh):\n"
+        "    assert active_mesh() is None  # a mesh of one rank is none\n"
+        "assert 'repro' not in sys.modules, 'reference package imported'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for var in ("RANK", "WORLD_SIZE"):
+        env.pop(var, None)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr

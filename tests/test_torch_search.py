@@ -675,24 +675,31 @@ def test_tune_schedule_measure_with_on_cpu(tmp_path):
     assert all("card" not in v for v in stored)
 
 
-def test_mesh_and_capture_requests_raise():
+def test_mesh_and_capture_requests_raise(tmp_path):
+    # the mesh tier (item 6c) searches, sweeps and measures where it used
+    # to raise: a single process persists analytic mesh ladders
     spec = PE.matmul_spec(16, 16, 16)
-    with pytest.raises(NotImplementedError, match="6c"):
-        P.search_schedule(spec, measure=False, mesh_shape="2x4")
-    with pytest.raises(NotImplementedError, match="6c"):
-        P.search_gemm_plans([(16, 16, 16)], measure=False, mesh_shape=(2, 2))
+    db = P.PlanDB(str(tmp_path / "plans.json"))
+    res = P.search_schedule(spec, measure=False, mesh_shape="2x4",
+                            plan_db=db)
+    assert res.mesh == "2x4" and res.best_sharded() is not None
+    assert P.search_gemm_plans([(16, 16, 16)], measure=False,
+                               mesh_shape=(2, 2), plan_db=db) == 2
     # a trivial mesh is no mesh, as in the reference
-    P.search_schedule(spec, measure=False, mesh_shape="1x1")
+    assert P.search_schedule(spec, measure=False, mesh_shape="1x1",
+                             plan_db=db).mesh is None
     sched = P.candidate_schedule(spec, spec.indices, {"i": 8},
                                  mesh={"j": ("data", 2)})
-    with pytest.raises(NotImplementedError, match="6c"):
+    # no world of ranks hosts the mesh: measuring a sharded schedule raises
+    with pytest.raises(ValueError, match="mesh of ranks"):
         P.measure_schedules(spec, [sched])
     from repro_torch.search import sweep
 
     # --from-model harvests since the capture slice
-    # (tests/test_torch_capture_launch.py); --mesh waits for item 6c
-    with pytest.raises(NotImplementedError, match="6c"):
-        sweep.main(["--shapes", "8,8,8", "--mesh", "2x4", "--device", "cpu"])
+    # (tests/test_torch_capture_launch.py); --mesh sweeps since item 6c
+    assert sweep.main(["--shapes", "8,8,8", "--mesh", "2x4", "--device",
+                       "cpu", "--plan-db", str(tmp_path / "sweep.json"),
+                       "--beam", "2", "--topk", "1"]) == 0
 
 
 def test_sweep_cli_on_cpu_round_trips(tmp_path, capsys):

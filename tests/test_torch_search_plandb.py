@@ -5,8 +5,7 @@ reference's, and the card plan's way from a rung to a launch.
   reference's; a ``card`` field only where one is given;
 * the golden fixture (``tests/data/plan_db_golden.json``) rebuilt through
   the port's search and write side, entry for entry, byte for byte, for
-  every single-device point (its mesh points need the mesh tier, which
-  raises);
+  every point, the two ``@mesh=2x4`` points through the mesh tier;
 * the concurrency contract of ``tests/test_plandb_concurrency.py`` for
   the port's writers: two processes writing forward and backward ladders
   of the same shapes lose no entry, one lock file, exact counts under
@@ -165,9 +164,28 @@ def test_golden_plan_db_rebuilt_through_the_write_side(
     assert rung == fixture[key]["ranked"][0] and "card" not in rung
 
 
-def test_golden_mesh_points_need_the_mesh_tier():
-    with pytest.raises(NotImplementedError, match="6c"):
-        P.search_schedule(_P_FWD, measure=False, mesh_shape=(2, 4))
+def test_golden_mesh_points_need_the_mesh_tier(tmp_path, monkeypatch):
+    """The fixture's mesh points (``matmul@mesh=2x4`` and its ``.dA``),
+    rebuilt through the port's mesh tier (queue A item 6c) by the
+    reference's recipe: the same keys and entries, byte for byte."""
+    monkeypatch.setattr(p_cache, "hardware_fingerprint", lambda: GOLDEN_HW)
+    with open(FIXTURE) as f:
+        fixture = json.load(f)
+    db = P.PlanDB(str(tmp_path / "plans.json"))
+    for r_spec, p_spec in ((_R_FWD, _P_FWD),
+                           (r_derived(_R_FWD)["A"], p_derived(_P_FWD)["A"])):
+        res = P.search_schedule(p_spec, dtype=torch.float32, beam_width=4,
+                                topk=3, measure=False, plan_db=db,
+                                use_cached_plan=False, mesh_shape=(2, 4))
+        key = r_plan_key(r_spec, np.dtype("float32"), hardware=GOLDEN_HW,
+                         mesh="2x4")
+        assert res.db_key == key and res.mesh == "2x4"
+        with open(db.path) as f:
+            written = json.load(f)
+        assert _blob(written[key]) == _blob(fixture[key]), p_spec.name
+        sched, rung = db.best_sharded_entry(p_spec, torch.float32,
+                                            mesh="2x4")
+        assert sched is not None and "collective" in rung
 
 
 _WRITER = """

@@ -374,11 +374,23 @@ def test_train_steps_match_reference(arch, microbatch, moments, steps):
 
 def test_train_step_refuses_capture_and_mesh():
     # capture=True trains since the capture slice
-    # (tests/test_torch_capture_launch.py); a mesh waits for item 6c
+    # (tests/test_torch_capture_launch.py), and a step under a mesh since
+    # the mesh tier, item 6c (tests/test_torch_mesh_launch.py runs one on
+    # ranks): a mesh of one rank is no mesh, and the step is the plain one
+    from repro_torch.launch.mesh import MeshShape
+
     cfg = port_get_config("qwen3-8b").smoke()
     opt = port_adamw.AdamWConfig()
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        port_steps.make_train_step(cfg, opt, mesh=object())
+    params = PT.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.zeros((2, 16), dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    losses = []
+    for mesh in (None, MeshShape((1, 1), ("data", "model"))):
+        p = port_adamw.tree_map(lambda t: t.clone(), params)
+        step = port_steps.make_train_step(cfg, opt, mesh=mesh)
+        _, _, m = step(p, port_adamw.init(p, opt), batch)
+        losses.append(float(m["loss"]))
+    assert losses[0] == losses[1]
 
 
 def _runs(tmp_path, steps, ckpt_every=2, name="ck"):
