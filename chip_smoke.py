@@ -327,6 +327,39 @@ raises and the script exits non-zero without the final result line:
     against the same trace served single-rank, prefill ms, decode tok/s,
     bytes staged and peak memory a rank.  A rank that fails or hangs
     fails the phase;
+16g. sharded -- steps on DTensor-sharded parameters (the ops' sharding
+    rules, ``ops.library.sharded_launch``; ``launch.steps.shard_tree``;
+    the model, MoE and AdamW on DTensors; elastic restore; the mesh
+    dry-run; capture on a mesh) on ranks that share the card over gloo,
+    DTensor's collectives staged through host memory (a ``host`` mesh).
+    One world of 4 ranks: (a) every strategy pair of B1 (qwen3-8b's MLP
+    projections at M = 512, f32 and bf16; the bias / norm / gelu
+    epilogue, the weighted and transposed modes in bf16), B2 (attn-path
+    (a)) and B3 / B4 (the MoE train shapes) on DTensors over 2x2, each
+    gathered output against the single-card launch and the plain version
+    at the TOL, one launch a call a rank; (b) qwen3-8b at full width cut
+    to 8 layers on a 2x2 ``tp`` mesh, 2 x 256 tokens, f32 moments, 3
+    steps: finite losses, 28 x 8 B1 launches a rank a step, peak a rank
+    against the single-card 8-layer step's, step ms, the first step's
+    collective bytes a rank equal to the fake 2x2 dry-run's; at 2 layers
+    the losses within the bf16 TOL of rank 0 alone; (c) kimi-k2 at the
+    MoE train cut, experts on ``model``, grouped, one step with the tokens
+    gathered and one under ``REPRO_MOE_CONSTRAINT=1`` (the dispatched
+    slots sent by all-to-alls): B3 9 / B4 3 a rank each, each loss within
+    the bf16 TOL of rank 0 alone, each step's collective bytes; (d) the
+    smoke qwen3-8b, 2 steps and a checkpoint on 2x2.  Then a world of 2: (d) the
+    checkpoint restored on 1x2 (every parameter leaf bit for bit, equal
+    to the file too), step 3 through a fault loop whose first attempt
+    raises ``StepFailure``, within the bf16 TOL of the uninterrupted 2x2
+    run; (f) ``serve --capture --mesh 1x2`` of qwen3-8b cut to 4 layers,
+    2 x 128 tokens, 4 new: tokens equal uncaptured ``--mesh 1x2``, B1
+    and B2 launches a rank.  Meanwhile, in a process of its own: (e) the
+    mesh dry-run of qwen3-8b train_4k, prefill_32k, decode_32k and
+    kimi-k2 train_4k cut to ``DRYRUN_LAYERS`` at pod and multi-pod on
+    fake CUDA tensors (status, per-device flops against one card's, peak,
+    collective bytes), ``perf``'s four sharding knobs (and
+    ``moe_constraint`` on kimi-k2), and the 2x2 cell
+    of (b).  A rank that fails or hangs fails the phase;
 17. the phases' seconds, the ``kernels`` JSON line (contract, grouped,
     grouped_dw, matmul, fused_dense_act, fused_rnz, contract_int8,
     contract_fp8, contract_upcast, contract_chain, attention), then the
@@ -6169,6 +6202,826 @@ def phase_mesh(smi):
     return dict(four=r0, serve=two, four_s=four_s, two_s=two_s)
 
 
+#: phase sharded: steps on DTensor parameters, each rank running the
+#: kernels on its own shards (the ops' sharding rules, ``ops.library``), on
+#: 2x2 and 1x2 meshes of ranks that share the card (gloo).  (a) the four
+#: ops at these shapes: B1 at qwen3-8b's MLP projections (M = 512), B2 at
+#: the attention path's (a), B3 / B4 at the MoE training shapes
+SHARD_B1 = ((512, 4096, 12288), (512, 12288, 4096))
+SHARD_ATTN = (ATTN_HEADS, ATTN_SEQ, ATTN_DIM)
+SHARD_GROUPS = (MOE_TRAIN_C,) * MOE_TRAIN_EXPERTS
+#: (b) qwen3-8b at full width cut to 8 of 36 layers (the train cell's
+#: cut), batch 2 x 256 tokens, f32 moments, 3 steps; the losses also at
+#: a 2-layer cut against rank 0 alone
+SHARD_LAYERS, SHARD_CHECK_LAYERS = TRAIN_LAYERS, 2
+SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 2, 256, 3
+#: (c) kimi-k2 at the MoE train cut (2 layers, 32 experts), batch 1 x 256
+#: tokens, bf16 moments, one step
+SHARD_MOE_SEQ = 256
+#: (e) the mesh dry-run's cells, cut to DRYRUN_LAYERS on fake CUDA tensors
+SHARD_DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+                      ("qwen3-8b", "decode_32k"), (MOE_ARCH, "train_4k"))
+#: (f) serve --capture --mesh 1x2: qwen3-8b cut to 4 layers, 2 requests of
+#: 128 tokens with 4 new
+SHARD_CAPTURE_LAYERS = 4
+SHARD_CAPTURE_FLAGS = [
+    "--arch", "qwen3-8b", "--requests", "2", "--prompt-len", "128",
+    "--max-new", "4", "--lanes", "2", "--rate-hz", "0", "--seed", "0",
+    "--device", "cuda", "--engine", "fixed", "--mesh", "1x2",
+    "--mesh-transport", MESH_TRANSPORT, "--no-search-grads"]
+
+
+def _in_turns(make):
+    """``make()`` on each rank in turn (rank order, a barrier between), so
+    only one rank at a time holds what ``make`` allocates beyond its
+    result: the whole-model init a rank then shards and drops."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = make()
+            _free()
+        dist.barrier()
+    return out
+
+
+def _sharded_init(cfg, mesh, seed=0):
+    """``cfg``'s seeded params on the card, placed on ``mesh`` by the
+    reference's rules (``shard_tree``), one rank's whole copy at a time."""
+    import torch
+
+    from repro_torch.launch.steps import param_shardings, shard_tree
+    from repro_torch.models.api import get_api
+
+    api = get_api(cfg)
+
+    def make():
+        full = api.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+        return shard_tree(mesh, full, param_shardings(mesh, cfg, api)[2])
+
+    return _in_turns(make)
+
+
+def _strategy_pairs(rules):
+    """Every (data, model) pair of an op's single-dimension strategies:
+    its strategies expanded over the 2x2 mesh, each as (output placements,
+    operand placements) per mesh dim."""
+    return [(a, b) for a in rules for b in rules]
+
+
+def _place(full, mesh, pls):
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(full, mesh.device_mesh, list(pls),
+                             src_data_rank=None)
+
+
+def _op_cases(mesh, call, single, plain, inputs, rules, dt_name, what,
+              counter):
+    """Each strategy pair of ``rules``: the operands placed as it says,
+    ``call`` on them (one launch of the kernel a rank, at local extents,
+    the pair's layout chosen by the op's rule at no cost), the output
+    gathered and held against ``single`` (the same op on whole tensors)
+    and ``plain`` at the TOL.  Returns (pairs, max scaled err, launches a
+    call)."""
+    from repro_torch import obs
+
+    worst, pairs, launches = 0.0, 0, set()
+    for data, model in _strategy_pairs(rules):
+        pls = list(zip(data[1], model[1]))
+        try:
+            args = [_place(x, mesh, pl) for x, pl in zip(inputs, pls)]
+        except (RuntimeError, ValueError):
+            continue  # a layout the extents cannot take
+        obs.metrics_reset()
+        n0 = counter()
+        out = call(*args)
+        n = counter() - n0
+        got = out.full_tensor()
+        for want, tag in ((single, "single-card"), (plain, "plain")):
+            worst = max(worst, _check_close(got, want, dt_name,
+                                            f"sharded (a) {what} vs {tag}")[1])
+        ruled = sum(v for k, v in obs.metrics_json()["counters"].items()
+                    if k.startswith("ops.dtensor."))
+        if n != 1 or ruled != 1:
+            raise AssertionError(f"sharded (a) {what} {pls}: {n} launches, "
+                                 f"{ruled} calls through the op's rule a "
+                                 f"rank; want 1")
+        launches.add(n)
+        pairs += 1
+    return pairs, worst, sorted(launches)
+
+
+def _sharded_ops():
+    """(a): each op's strategies on DTensors over the 2x2 mesh."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.codegen import (ATTENTION, CONTRACT, GROUPED, GROUPED_DW,
+                                     attention_ref, contract_ref, grouped_ref)
+    from repro_torch.core.enumerate import (grouped_matmul_spec, matmul_spec,
+                                            transposed_matmul_spec,
+                                            weighted_matmul_spec)
+    from repro_torch.grad.derive import derived_specs
+    from repro_torch.kernels.fused_dense_act.ref import fused_dense_act_ref
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.ops import library
+
+    mesh = make_debug_mesh((2, 2), ("data", "model"), device="cuda",
+                           transport=MESH_TRANSPORT)
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    rows = []
+
+    def randn(*shape, dt):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    def kern(spec, dt, **kw):
+        return ops._tuned_kernel(spec, dt, sharded=True, **kw)
+
+    for m, k, n in SHARD_B1:
+        for dt_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dt_name)
+            x, w = randn(m, k, dt=dt), randn(k, n, dt=dt)
+            spec = matmul_spec(m, k, n)
+            rules = library.contract_strategies(kern(spec, dt), 0)
+            single = ops.dense(x, w, differentiable=False)
+            plain = contract_ref(spec, x, w, out_dtype=dt)
+            pairs, err, _ = _op_cases(
+                mesh, lambda a, b: ops.dense(a, b, differentiable=False),
+                single, plain, (x, w), rules, dt_name,
+                f"B1 {m}x{k}x{n} {dt_name}", lambda: CONTRACT.launches)
+            rows.append(dict(op="B1 plain", shape=(m, k, n), dtype=dt_name,
+                             pairs=pairs, err=err))
+    m, k, n = SHARD_B1[0]
+    bf16 = torch.bfloat16
+    x, w = randn(m, k, dt=bf16), randn(k, n, dt=bf16)
+    beta, mean = randn(n, dt=bf16), randn(n, dt=bf16)
+    var = randn(n, dt=bf16).abs() + 1
+    from repro_torch.codegen import Epilogue
+
+    epi = Epilogue(act="gelu", bias=True, norm=True, eps=1e-5)
+    rules = library.contract_strategies(
+        kern(matmul_spec(m, k, n), bf16, epilogue=epi), 3)
+    if any(out[0].is_partial() for out, _ in rules):
+        raise AssertionError("sharded (a): an epilogue offered a Partial "
+                             "output")
+    pairs, err, _ = _op_cases(
+        mesh, lambda *a: ops.dense_act(*a, act="gelu", differentiable=False),
+        ops.dense_act(x, w, beta, mean, var, act="gelu",
+                      differentiable=False),
+        fused_dense_act_ref(x, w, beta, mean, var, act="gelu",
+                            eps=1e-5).to(bf16),
+        (x, w, beta, mean, var), rules, "bfloat16",
+        "B1 epilogue (bias, norm, gelu)", lambda: CONTRACT.launches)
+    rows.append(dict(op="B1 epilogue", shape=(m, k, n), dtype="bfloat16",
+                     pairs=pairs, err=err))
+    g = randn(k, dt=bf16)
+    spec = weighted_matmul_spec(m, k, n)
+    pairs, err, _ = _op_cases(
+        mesh, lambda a, b, c: ops.weighted_dense(a, b, c,
+                                                 differentiable=False),
+        ops.weighted_dense(x, w, g, differentiable=False),
+        contract_ref(spec, x, w, g, out_dtype=bf16), (x, w, g),
+        library.contract_strategies(kern(spec, bf16), 0), "bfloat16",
+        "B1 weighted", lambda: CONTRACT.launches)
+    rows.append(dict(op="B1 weighted", shape=(m, k, n), dtype="bfloat16",
+                     pairs=pairs, err=err))
+    xt = x.t().contiguous()
+    spec = transposed_matmul_spec(m, k, n)
+    pairs, err, _ = _op_cases(
+        mesh, lambda a, b: ops.dense_transposed(a, b, differentiable=False),
+        ops.dense_transposed(xt, w, differentiable=False),
+        contract_ref(spec, xt, w, out_dtype=bf16), (xt, w),
+        library.contract_strategies(kern(spec, bf16), 0), "bfloat16",
+        "B1 transposed", lambda: CONTRACT.launches)
+    rows.append(dict(op="B1 transposed", shape=(m, k, n), dtype="bfloat16",
+                     pairs=pairs, err=err))
+    # B2: heads
+    h, s, d = SHARD_ATTN
+    q, kk, v = (randn(h, s, d, dt=bf16) for _ in range(3))
+    att_rules = library.attention_strategies(3)
+    pairs, err, _ = _op_cases(
+        mesh, lambda a, b, c: ops.attention(a, b, c, causal=True,
+                                            differentiable=False),
+        ops.attention(q, kk, v, causal=True, differentiable=False),
+        attention_ref(q, kk, v, causal=True, kv_lengths=None,
+                      out_dtype=bf16), (q, kk, v),
+        att_rules, "bfloat16", f"B2 {h}x{s}x{d} causal",
+        lambda: ATTENTION.launches)
+    rows.append(dict(op="B2", shape=SHARD_ATTN, dtype="bfloat16",
+                     pairs=pairs, err=err))
+    # B3 and B4 at the MoE training shapes
+    kd, fd = GROUPED_GATE
+    sizes = SHARD_GROUPS
+    xg, wg = randn(sum(sizes), kd, dt=bf16), randn(len(sizes), kd, fd,
+                                                     dt=bf16)
+    spec = grouped_matmul_spec(sizes, kd, fd)
+    gk = kern(spec, bf16)
+    ok_rules = library.grouped_strategies(gk)
+    pairs, err, _ = _op_cases(
+        mesh, lambda a, b: ops.grouped_dense(a, b, sizes,
+                                             differentiable=False),
+        ops.grouped_dense(xg, wg, sizes, differentiable=False),
+        grouped_ref(xg, wg, sizes, out_dtype=bf16), (xg, wg), ok_rules,
+        "bfloat16", f"B3 {len(sizes)}x{sizes[0]} rows, {kd}->{fd}",
+        lambda: GROUPED.launches)
+    rows.append(dict(op="B3", shape=(len(sizes), sizes[0], kd, fd),
+                     dtype="bfloat16", pairs=pairs, err=err))
+    cot = randn(sum(sizes), fd, dt=bf16)
+    dw_spec = derived_specs(spec)["W"]
+    dwk = kern(dw_spec, bf16)
+    names = tuple(dw_spec.operands)
+    by_name = {names[0]: cot if "f" in dw_spec.operands[names[0]] else xg,
+               names[1]: xg if "f" in dw_spec.operands[names[0]] else cot}
+    args = [by_name[nm] for nm in names]
+    from repro_torch.codegen.fused_gen import grouped_dw_ref
+
+    lhs = next(by_name[nm] for nm in names
+               if dw_spec.output[1] in dw_spec.operands[nm])
+    rhs = next(by_name[nm] for nm in names
+               if dw_spec.output[2] in dw_spec.operands[nm])
+    pairs, err, _ = _op_cases(
+        mesh, lambda a, b: dwk(a, b), dwk(*args),
+        grouped_dw_ref(lhs, rhs, sizes, out_dtype=bf16), args,
+        library.grouped_strategies(dwk), "bfloat16",
+        f"B4 {len(sizes)}x{sizes[0]} rows", lambda: GROUPED_DW.launches)
+    rows.append(dict(op="B4", shape=(len(sizes), sizes[0], kd, fd),
+                     dtype="bfloat16", pairs=pairs, err=err))
+    return rows
+
+
+def _sharded_train(mesh, rank):
+    """(b): qwen3-8b cut to SHARD_LAYERS on the 2x2 ``tp`` mesh, then at
+    SHARD_CHECK_LAYERS against rank 0 alone."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.codegen import CONTRACT
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.dtensor import local
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.launch.steps import make_train_step, shard_tree
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw as optim
+
+    ocfg = AdamWConfig(lr=3e-4, moments_dtype="float32")
+
+    def batches(cfg):
+        dc = DataConfig(vocab=cfg.vocab, seq_len=SHARD_SEQ,
+                        global_batch=SHARD_BATCH)
+        out = []
+        for i in range(SHARD_STEPS):
+            b = {k: torch.as_tensor(np.asarray(v)).cuda()
+                 for k, v in batch_at(dc, i).items()}
+            out.append(b)
+        return out
+
+    def place(b):
+        return shard_tree(mesh, b, {k: shd.batch_spec_for(
+            mesh, tuple(v.shape), seq_axis=1) for k, v in b.items()})
+
+    def run(layers, on_mesh, record=False):
+        cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=layers)
+        if on_mesh:
+            params = _sharded_init(cfg, mesh)
+        else:
+            params = get_api(cfg).init(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        state = optim.init(params, ocfg)
+        step = make_train_step(cfg, ocfg, mesh=mesh if on_mesh else None)
+        losses, times, colls = [], [], None
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = CONTRACT.launches
+        for i, b in enumerate(batches(cfg)):
+            b = place(b) if on_mesh else b
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if record and i == 0:
+                box = {}
+                colls = collective_bytes(
+                    lambda: box.update(out=step(params, state, b)))
+                params, state, mtr = box["out"]
+            else:
+                params, state, mtr = step(params, state, b)
+            losses.append(float(local(mtr["loss"])))
+            times.append(time.perf_counter() - t)
+        out = dict(losses=losses, step_ms=[v * 1e3 for v in times],
+                   launches=CONTRACT.launches - n0,
+                   peak=torch.cuda.max_memory_allocated(), collectives=colls)
+        del params, state, step
+        _free()
+        return out
+
+    full = run(SHARD_LAYERS, True, record=True)
+    full["steady_ms"] = statistics.median(full["step_ms"][1:])
+    dist.barrier()
+    check = run(SHARD_CHECK_LAYERS, True)
+    dist.barrier()
+    single = run(SHARD_CHECK_LAYERS, False) if rank == 0 else None
+    dist.barrier()
+    return dict(full=full, check=check, single=single)
+
+
+def _sharded_moe(mesh, rank):
+    """(c): kimi-k2 at the MoE train cut, experts on ``model``, one step
+    through B3 / B4 at the local groups; rank 0's first loss alone."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.codegen import GROUPED, GROUPED_DW
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.dtensor import local
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.launch.steps import make_train_step, shard_tree
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw as optim
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS, moe=dataclasses.replace(
+        full.moe, n_experts=MOE_TRAIN_EXPERTS))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=SHARD_MOE_SEQ, global_batch=1)
+    b = {k: torch.as_tensor(np.asarray(v)).cuda()
+         for k, v in batch_at(dc, 0).items()}
+    ocfg = AdamWConfig(lr=3e-4, moments_dtype="bfloat16")
+    bs = shard_tree(mesh, b, {k: shd.batch_spec_for(
+        mesh, tuple(v.shape), seq_axis=1) for k, v in b.items()})
+    out = {}
+    for key, constraint in (("", False), ("constraint_", True)):
+        # REPRO_MOE_CONSTRAINT=1: the dispatched slots reach their
+        # experts' ranks by all-to-alls (``models.moe``)
+        if constraint:
+            os.environ["REPRO_MOE_CONSTRAINT"] = "1"
+        try:
+            params = _sharded_init(cfg, mesh)
+            state = optim.init(params, ocfg)
+            step = make_train_step(cfg, ocfg, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launch_counts()
+            box = {}
+            t = time.perf_counter()
+            colls = collective_bytes(
+                lambda: box.update(out=step(params, state, bs)))
+            params, state, mtr = box["out"]
+            loss = float(local(mtr["loss"]))
+            step_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            os.environ.pop("REPRO_MOE_CONSTRAINT", None)
+        out.update({key + "loss": loss, key + "step_ms": step_ms,
+                    key + "grouped": GROUPED.launches,
+                    key + "grouped_dw": GROUPED_DW.launches,
+                    key + "peak": torch.cuda.max_memory_allocated(),
+                    key + "collectives": colls})
+        del params, state, step
+        _free()
+    dist.barrier()
+    if rank == 0:
+        api = get_api(cfg)
+        p = api.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     "cuda")
+        with torch.no_grad():
+            out["single_loss"] = float(api.loss(p, cfg, b))
+        del p
+        _free()
+    dist.barrier()
+    return out
+
+
+def _leaf_digests(params):
+    """sha1 of each parameter leaf's bytes, gathered whole."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.dtensor import is_dtensor
+    from repro_torch.optim import adamw as optim
+
+    out = {}
+    for path, t in optim.leaves(params):
+        full = (t.full_tensor() if is_dtensor(t) else t).detach().cpu()
+        bits = full.view(torch.int16 if full.dtype == torch.bfloat16
+                         else torch.uint8)
+        out["/".join(path)] = hashlib.sha1(bits.numpy().tobytes()).hexdigest()
+    return out
+
+
+def _ckpt_digests(ckpt_dir, step):
+    """The same digests of the parameter leaves a checkpoint holds."""
+    import hashlib
+
+    import numpy as np
+
+    with np.load(os.path.join(ckpt_dir, f"step_{step}", "arrays.npz")) as z:
+        return {k.split("\x1f", 1)[1].replace("\x1f", "/"):
+                hashlib.sha1(np.ascontiguousarray(z[k]).tobytes()).hexdigest()
+                for k in z.files if k.startswith("#0\x1f")}
+
+
+def _elastic_run(rank, shape, ckpt_dir, resume):
+    """(d): the smoke qwen3-8b on a ``shape`` mesh.  Without ``resume``:
+    steps 0 and 1, a checkpoint at step 2 (``checkpoint.save`` of the
+    DTensor tree: gathered, written by rank 0), then step 2 uninterrupted.
+    With it: the checkpoint restored with this mesh's shardings, and step
+    2 through a fault loop whose first attempt raises ``StepFailure``, so
+    it restores again and replays."""
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.dtensor import local
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import (_meta_params, make_train_step,
+                                          opt_shardings, param_shardings,
+                                          shard_tree)
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw as optim
+    from repro_torch.runtime.fault import (FaultTolerantLoop, LoopConfig,
+                                           StepFailure)
+
+    cfg = get_config("qwen3-8b").smoke()
+    api = get_api(cfg)
+    mesh = make_debug_mesh(shape, ("data", "model"), device="cuda",
+                           transport=MESH_TRANSPORT)
+    ocfg = AdamWConfig(lr=1e-2)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8)
+    step_fn = make_train_step(cfg, ocfg, mesh=mesh)
+    losses = {}
+
+    def run(step, state):
+        b = {k: torch.as_tensor(np.asarray(v)).cuda()
+             for k, v in batch_at(dc, step).items()}
+        b = shard_tree(mesh, b, {k: shd.batch_spec_for(
+            mesh, tuple(v.shape), seq_axis=1) for k, v in b.items()})
+        p, o, m = step_fn(state[0], state[1], b)
+        losses[step] = float(local(m["loss"]))
+        return (p, o)
+
+    if not resume:
+        params = _sharded_init(cfg, mesh)
+        state = (params, optim.init(params, ocfg))
+        for step in (0, 1):
+            state = run(step, state)
+        ckpt.save(ckpt_dir, 2, state)
+        saved = _leaf_digests(state[0])
+        run(2, state)
+        return dict(losses=losses, saved=saved)
+    p_shard = param_shardings(mesh, cfg, api)[2]
+    meta = _meta_params(cfg, api)
+    shardings = (p_shard, opt_shardings(mesh, optim.init(meta, ocfg),
+                                        p_shard))
+    template = (meta, optim.init(meta, ocfg))
+
+    def restore():
+        tree, manifest = ckpt.restore(ckpt_dir, template,
+                                      shardings=shardings, mesh=mesh)
+        return manifest["step"], tree
+
+    start, state = restore()
+    restored = _leaf_digests(state[0])
+    failed = []
+
+    def one(step, st):
+        if not failed:
+            failed.append(step)
+            raise StepFailure(f"injected at step {step}")
+        return run(step, st)
+
+    loop = FaultTolerantLoop(step_fn=one, save_fn=lambda s, st: None,
+                             restore_fn=restore,
+                             config=LoopConfig(checkpoint_every=1000))
+    loop.run(state, start, 1)
+    return dict(restored=restored, start=start, losses=losses,
+                restores=loop.report.restores, failures=loop.report.failures)
+
+
+def _capture_mesh_rank(rank, db_path):
+    """(f): ``serve --capture --mesh 1x2`` of qwen3-8b cut in depth, then
+    the same trace served uncaptured under the mesh; tokens and the B1 /
+    B2 launches of the captured run a rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    _mesh_rank_setup(db_path)
+    cfg = dataclasses.replace(get_config("qwen3-8b"),
+                              n_layers=SHARD_CAPTURE_LAYERS)
+    params = None
+    out = {}
+    for tag, extra in (("captured", ["--capture"]), ("plain", [])):
+        args = serve.parse_args(SHARD_CAPTURE_FLAGS + extra)
+        _free()
+        t0 = time.perf_counter()
+        stats, trace, engine = serve.run(cfg, args, params=params)
+        server = engine.server
+        if server.mesh is None:
+            raise AssertionError("sharded (f): the world did not host the "
+                                 "mesh")
+        params = server.params
+        # the serving's own launches (the engine's counts from 0 after
+        # the capture warm-up's sweep)
+        out[tag] = dict(tokens=[list(r.out_tokens) for r in trace],
+                        b1=stats["kernel_launches"],
+                        b2=stats["attention_launches"],
+                        mesh_calls=stats["mesh_calls"],
+                        forwards=stats["prefills"] + stats["decode_steps"],
+                        wall_s=time.perf_counter() - t0)
+        del engine, server, trace
+    del params
+    _free()
+    return out
+
+
+def _sharded_rank4(rank, db_path, ckpt_dir):
+    """The 4-rank world of phase sharded: (a), (b), (c) and the 2x2 half
+    of (d)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    _mesh_rank_setup(db_path)
+    out = {"a": _sharded_ops()}
+    _free()
+    mesh = make_debug_mesh((2, 2), ("data", "model"), device="cuda",
+                           transport=MESH_TRANSPORT)
+    out["b"] = _sharded_train(mesh, rank)
+    _free()
+    os.environ["REPRO_MOE_GROUPED"] = "1"
+    out["c"] = _sharded_moe(mesh, rank)
+    _free()
+    out["d"] = _elastic_run(rank, (2, 2), ckpt_dir, resume=False)
+    return out
+
+
+def _sharded_rank2(rank, db_path, ckpt_dir):
+    """The 2-rank world of phase sharded: the 1x2 half of (d), then
+    (f)."""
+    _mesh_rank_setup(db_path)
+    out = {"d": _elastic_run(rank, (1, 2), ckpt_dir, resume=True)}
+    _free()
+    out["f"] = _capture_mesh_rank(rank, db_path)
+    return out
+
+
+def _sharded_dryrun(out_path):
+    """(e), in a process of its own while the ranks run: the mesh
+    dry-run's cells at pod and multi-pod, the 2x2 cell of (b) on a fake
+    world, and ``perf``'s four sharding knobs on qwen3-8b train_4k."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.roofline.analysis import analyze_cell, param_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = os.path.join(OUT, "dryrun_mesh")
+    os.makedirs(res, exist_ok=True)
+    out = {"cells": {}, "knobs": {}}
+
+    def cut(arch):
+        return dataclasses.replace(get_config(arch), n_layers=DRYRUN_LAYERS)
+
+    for arch, shape in SHARD_DRYRUN_CELLS:
+        one = dryrun.run_cell(arch, shape, device="cuda", cfg=cut(arch))
+        for mesh in ("pod", "multipod"):
+            rec = dryrun.run_cell(arch, shape, device="cuda", cfg=cut(arch),
+                                  mesh=mesh)
+            tag = f"{arch}__{shape}__{dryrun.MESHES[mesh][2]}"
+            with open(os.path.join(res, tag + ".json"), "w") as f:
+                json.dump(rec, f, indent=1)
+            row = (analyze_cell(rec, param_counts(arch, cut(arch)))
+                   if rec["status"] == "ok" else {})
+            out["cells"][tag] = dict(
+                status=rec["status"], error=rec.get("error"),
+                lower_s=rec.get("lower_s"), flops=rec.get("flops"),
+                flops_x_chips_vs_one=(rec["flops"] * rec["chips"]
+                                      / one["flops"]
+                                      if rec["status"] == "ok" else None),
+                memory=rec.get("memory"), collectives=rec.get("collectives"),
+                compute_s=row.get("compute_s"), memory_s=row.get("memory_s"),
+                collective_s=row.get("collective_s"))
+    dense, shape = SHARD_DRYRUN_CELLS[0]
+    # the four knobs on qwen3-8b, and moe_constraint where it acts: on
+    # kimi-k2's MoE layers
+    for arch, knob in ([(dense, k) for k in perf.MESH_KNOBS]
+                       + [(MOE_ARCH, "moe_constraint")]):
+        row = perf.run(arch, shape, [knob], device="cuda",
+                       out=os.path.join(OUT, "perf_mesh"), baseline_dir=res,
+                       cfg=cut(arch), mesh="pod")
+        with open(os.path.join(OUT, "perf_mesh",
+                               f"{arch}__{shape}__sp__{knob}.json")) as f:
+            colls = json.load(f).get("collectives")
+        out["knobs"][f"{knob} {arch}"] = dict(
+            status=row["status"], vs_baseline=row.get("vs_baseline"),
+            collectives=colls)
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=SHARD_LAYERS)
+    rec = dryrun.run_cell("qwen3-8b", "train_4k", device="cuda", cfg=cfg,
+                          shape=ShapeConfig("train", SHARD_SEQ, SHARD_BATCH,
+                                            "train"), mesh="2x2")
+    out["b_2x2"] = dict(status=rec["status"], error=rec.get("error"),
+                        collectives=rec.get("collectives"))
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+
+
+def phase_sharded(smi, train_summary):
+    """Steps on DTensor-sharded parameters, on ranks that share the card
+    over gloo: one world of 4 for (a) the four ops' sharding rules, (b)
+    the sharded train step, (c) the sharded MoE step and the 2x2 half of
+    (d), one of 2 for (d)'s elastic restart on 1x2 and (f) capture on a
+    mesh; (e) the mesh dry-run runs meanwhile in a process of its own.
+    The parent built every kernel already; a rank that fails or hangs
+    fails the phase."""
+    import chip_smoke as cs  # the ranks import their bodies by this name
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    _free()
+    db = os.path.join(OUT, "plans_sharded.json")
+    ckpt_dir = os.path.join(OUT, "ckpt_sharded")
+    dry_path = os.path.join(OUT, "sharded_dryrun.json")
+    dry = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, %r); "
+         "import chip_smoke as c; c._sharded_dryrun(%r)" % (SRC, dry_path)],
+        cwd=HERE)
+    try:
+        t0 = time.perf_counter()
+        four = spawn_ranks(cs._sharded_rank4, 4, (db, ckpt_dir),
+                           store_dir=OUT, timeout_s=600)
+        four_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        two = spawn_ranks(cs._sharded_rank2, 2, (db, ckpt_dir),
+                          store_dir=OUT, timeout_s=420)
+        two_s = time.perf_counter() - t1
+        if dry.wait(timeout=600) != 0:
+            raise AssertionError(f"sharded (e): the dry-run process exited "
+                                 f"{dry.returncode}")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    with open(dry_path) as f:
+        e = json.load(f)
+    r0 = four[0]
+    for row in r0["a"]:
+        print(f"[sharded] (a) {row['op']} {row['shape']} {row['dtype']} on "
+              f"DTensors over the 2x2 mesh: {row['pairs']} strategy pairs, "
+              f"one launch a call a rank at local extents, max scaled err vs "
+              f"single-card and plain {row['err']:.3g} (TOL "
+              f"{TOL[row['dtype']][0]}) ({smi})", flush=True)
+    b = r0["b"]
+    full, check, single = b["full"], b["check"], b["single"]
+    per_step = B1_PER_LAYER_STEP * SHARD_LAYERS * SHARD_STEPS
+    for rank, out in enumerate(four):
+        got = out["b"]["full"]
+        if not all(map(math.isfinite, got["losses"])):
+            raise AssertionError(f"sharded (b) rank {rank}: losses "
+                                 f"{got['losses']}")
+        if got["launches"] != per_step:
+            raise AssertionError(f"sharded (b) rank {rank}: B1 "
+                                 f"{got['launches']}, want {per_step}")
+    for got, want in zip(check["losses"], single["losses"]):
+        if abs(got - want) > TOL["bfloat16"][1] + TOL["bfloat16"][0] * abs(
+                want):
+            raise AssertionError(f"sharded (b): {SHARD_CHECK_LAYERS}-layer "
+                                 f"losses {check['losses']} vs rank 0 alone "
+                                 f"{single['losses']}")
+    want_coll = e["b_2x2"]["collectives"]
+    got_coll = full["collectives"]
+    if e["b_2x2"]["status"] != "ok" or got_coll != want_coll:
+        raise AssertionError(f"sharded (b): collective bytes a rank "
+                             f"{got_coll} vs the 2x2 dry-run {e['b_2x2']}")
+    single_peak = train_summary.get("max_memory_allocated")
+    print(f"[sharded] (b) train qwen3-8b width, {SHARD_LAYERS} of 36 layers, "
+          f"2x2 tp, batch {SHARD_BATCH} x {SHARD_SEQ}, f32 moments: losses "
+          f"{[round(v, 4) for v in full['losses']]}; B1 {full['launches']} "
+          f"launches a rank = {B1_PER_LAYER_STEP} x {SHARD_LAYERS} x "
+          f"{SHARD_STEPS}; step ms {[round(v, 1) for v in full['step_ms']]} "
+          f"(steady {full['steady_ms']:.1f}); peak "
+          f"{full['peak'] / 2**30:.2f} GiB a rank vs the single-card "
+          f"{TRAIN_LAYERS}-layer step's {single_peak / 2**30:.2f} GiB "
+          f"(ratio {full['peak'] / single_peak:.3f}); collective bytes a "
+          f"rank a step {got_coll} = the 2x2 dry-run's exactly; "
+          f"{SHARD_CHECK_LAYERS}-layer losses "
+          f"{[round(v, 5) for v in check['losses']]} vs rank 0 alone "
+          f"{[round(v, 5) for v in single['losses']]} (bf16 TOL) ({smi})",
+          flush=True)
+    c = r0["c"]
+    n_moe = MOE_LAYERS - 1
+    for key, how in (("", "tokens gathered"),
+                     ("constraint_", "REPRO_MOE_CONSTRAINT=1, all-to-all")):
+        for rank, out in enumerate(four):
+            got = (out["c"][key + "grouped"], out["c"][key + "grouped_dw"])
+            if got != (B3_PER_MOE_STEP * n_moe, B4_PER_MOE_STEP * n_moe):
+                raise AssertionError(f"sharded (c) {how} rank {rank}: "
+                                     f"B3 / B4 {got}")
+        loss, colls = c[key + "loss"], c[key + "collectives"]
+        if abs(loss - c["single_loss"]) > TOL["bfloat16"][1] + \
+                TOL["bfloat16"][0] * abs(c["single_loss"]):
+            raise AssertionError(f"sharded (c) {how}: loss {loss} vs rank "
+                                 f"0 alone {c['single_loss']}")
+        if key and not colls["all-to-all"]:
+            raise AssertionError(f"sharded (c) {how}: no all-to-all ran")
+        print(f"[sharded] (c) train {MOE_ARCH} cut ({MOE_LAYERS} layers, "
+              f"{MOE_TRAIN_EXPERTS} experts on model), REPRO_MOE_GROUPED=1, "
+              f"{how}, 1 x {SHARD_MOE_SEQ} tokens: B3 {c[key + 'grouped']} "
+              f"/ B4 {c[key + 'grouped_dw']} launches a rank at "
+              f"{MOE_TRAIN_EXPERTS // 2} local groups; loss {loss:.5f} vs "
+              f"rank 0 alone {c['single_loss']:.5f} (bf16 TOL); step "
+              f"{c[key + 'step_ms']:.1f} ms; peak "
+              f"{c[key + 'peak'] / 2**30:.2f} GiB a rank; collective bytes "
+              f"a rank {json.dumps(colls)} ({smi})", flush=True)
+    d4, d2 = r0["d"], two[0]["d"]
+    on_disk = _ckpt_digests(ckpt_dir, 2)
+    for rank, out in enumerate(two):
+        if out["d"]["restored"] != d4["saved"] or on_disk != d4["saved"]:
+            raise AssertionError(f"sharded (d) rank {rank}: the restored "
+                                 f"parameters differ from the saved ones")
+    want = d4["losses"][2]
+    got = d2["losses"][2]
+    if d2["start"] != 2 or d2["restores"] != 1 or d2["failures"] != 1:
+        raise AssertionError(f"sharded (d): resumed at {d2['start']}, "
+                             f"{d2['failures']} failure(s), "
+                             f"{d2['restores']} restore(s)")
+    if abs(got - want) > TOL["bfloat16"][1] + TOL["bfloat16"][0] * abs(want):
+        raise AssertionError(f"sharded (d): step 3 on 1x2 {got} vs 2x2 "
+                             f"uninterrupted {want}")
+    print(f"[sharded] (d) elastic: qwen3-8b smoke trained 3 steps on 2x2 "
+          f"(checkpoint at step 2), restarted as 1x2: restored at step "
+          f"{d2['start']}, a StepFailure at step 2 restored and replayed "
+          f"({d2['restores']} restore); every parameter leaf restored bit "
+          f"for bit ({len(on_disk)} leaves, = the file); step 3 loss "
+          f"{got:.6f} vs 2x2 "
+          f"uninterrupted {want:.6f} (bf16 TOL) ({smi})", flush=True)
+    for tag, cell in e["cells"].items():
+        if cell["status"] != "ok":
+            raise AssertionError(f"sharded (e) {tag}: {cell}")
+        mem = cell["memory"]
+        colls = cell["collectives"]
+        print(f"[sharded] (e) dry-run {tag} ({DRYRUN_LAYERS} layers, fake "
+              f"CUDA): ok in {cell['lower_s']} s; per device "
+              f"{cell['flops'] / 1e12:.4f} TFLOP (x chips / one card "
+              f"{cell['flops_x_chips_vs_one']:.3f}); peak "
+              f"{mem['peak_memory_in_bytes'] / 2**30:.2f} GiB (fits 80 GB: "
+              f"{mem['peak_memory_in_bytes'] < 80e9}); collectives "
+              + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in
+                          colls.items() if k != "count")
+              + f" ({colls['count']} ops); analytic H100 compute "
+              f"{cell['compute_s'] * 1e3:.2f} ms, memory "
+              f"{cell['memory_s'] * 1e3:.2f} ms, collective "
+              f"{cell['collective_s'] * 1e3:.2f} ms", flush=True)
+    for knob, row in e["knobs"].items():
+        if row["status"] != "ok":
+            raise AssertionError(f"sharded (e) knob {knob}: {row}")
+        deltas = row["vs_baseline"] or {}
+        print(f"[sharded] (e) perf --mesh pod --knob {knob} "
+              f"train_4k: " + ", ".join(
+                  f"{k} {b_ * 1e3:.2f} -> {n_ * 1e3:.2f} ms"
+                  for k, (b_, n_) in deltas.items()) + "; collectives "
+              + json.dumps(row["collectives"]) + " (analytic)", flush=True)
+    f0 = two[0]["f"]
+    for rank, out in enumerate(two):
+        f = out["f"]
+        if f["captured"]["tokens"] != f["plain"]["tokens"]:
+            raise AssertionError(f"sharded (f) rank {rank}: captured tokens "
+                                 f"{f['captured']['tokens']} vs uncaptured "
+                                 f"{f['plain']['tokens']}")
+        per = f["captured"]["forwards"]
+        want = ((7 * SHARD_CAPTURE_LAYERS + 1) * per, SHARD_CAPTURE_LAYERS)
+        if (f["captured"]["b1"], f["captured"]["b2"]) != want:
+            raise AssertionError(f"sharded (f) rank {rank}: B1 / B2 "
+                                 f"{f['captured']['b1']} / "
+                                 f"{f['captured']['b2']}, want {want}")
+    print(f"[sharded] (f) serve --capture --mesh 1x2 qwen3-8b width, "
+          f"{SHARD_CAPTURE_LAYERS} layers, 2 x 128 tokens + 4 new: tokens "
+          f"{f0['captured']['tokens']} = uncaptured --mesh 1x2; B1 "
+          f"{f0['captured']['b1']} = (7 x {SHARD_CAPTURE_LAYERS} + 1) x "
+          f"{f0['captured']['forwards']} forwards, B2 "
+          f"{f0['captured']['b2']} (one a layer's prefill) a rank, "
+          f"{f0['captured']['mesh_calls']} mesh-bound (uncaptured B1 "
+          f"{f0['plain']['b1']}, B2 {f0['plain']['b2']}, "
+          f"{f0['plain']['mesh_calls']} mesh-bound); run "
+          f"{f0['captured']['wall_s']:.1f} s, the capture sweep included "
+          f"({smi})",
+          flush=True)
+    print(f"[sharded] worlds: 4 ranks {four_s:.1f} s, 2 ranks {two_s:.1f} s",
+          flush=True)
+    return dict(four=r0, two=two[0], dryrun=e, four_s=four_s, two_s=two_s)
+
+
 def _phase(name, fn, *args, **kwargs):
     """Run one phase; print and keep its wall seconds."""
     t0 = time.perf_counter()
@@ -6282,8 +7135,11 @@ def main() -> int:
     # qwen3-8b served and trained through captured steps
     captured = _phase("capture", phase_capture, smi, train)
     _free()
-    # this slice's path: the mesh tier on ranks that share the card
+    # the earlier slice's path: the mesh tier on ranks that share the card
     mesh = _phase("mesh", phase_mesh, smi)
+    _free()
+    # this slice's path: steps on DTensor-sharded parameters
+    sharded = _phase("sharded", phase_sharded, smi, train)
 
     line = kernels_line(rows, b1_rows, grows, dw_rows, base_rows, launches,
                         b1_mode_rows)
@@ -6317,7 +7173,7 @@ def main() -> int:
                    "serve_int8": serve_int8, "search": search,
                    "fixed_serve": fixed, "families": families,
                    "fixed_small": fixed_small, "remat_dryrun": remat,
-                   "capture": captured, "mesh": mesh,
+                   "capture": captured, "mesh": mesh, "sharded": sharded,
                    "takes": TAKEN, "seconds": SECONDS, **line}, f, indent=1)
     # the takes each profiled check needed for a whole trace
     print(f"[takes] {json.dumps(TAKEN)}", flush=True)

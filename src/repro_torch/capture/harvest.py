@@ -604,10 +604,12 @@ class Traced:
 def trace(fn, flat_args: Sequence[torch.Tensor]) -> Traced:
     """``fn(*flat_args)`` (a function of tensors returning a pytree of
     tensors) traced into an aten graph on fake tensors, under
-    ``torch.no_grad()``, with its products and regions recorded."""
+    ``torch.no_grad()`` and no mesh (``codegen.collectives.single_rank``),
+    with its products and regions recorded."""
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.utils import _pytree as pytree
 
+    from ..codegen.collectives import single_rank
     from ..models import layers
 
     rec = _Recorder()
@@ -625,7 +627,7 @@ def trace(fn, flat_args: Sequence[torch.Tensor]) -> Traced:
         raise RuntimeError("capture traces do not nest")
     layers._CAPTURE = rec
     try:
-        with torch.no_grad():
+        with torch.no_grad(), single_rank():
             gm = make_fx(recorded, tracing_mode="fake")(*flat_args)
     finally:
         layers._CAPTURE = None

@@ -136,31 +136,35 @@ def sweep_captured(
     Each point expands through ``search.space.sweep_specs`` (fwd plus the
     derived dA/dB/... specs when ``with_grads``), so the plan DB ends up
     covering the captured model's full fwd+bwd GEMM traffic.  With
-    ``quant`` ('int8' | 'fp8') every *forward* sweep point also gets a
-    quantized leg — the spec re-searched at the low-precision tier under
-    its dtype-qualified plan key — skipping the fused and derived specs
-    that refuse quantization.  ``device`` is where candidates are
-    measured (``search.search_schedule``; by default the card where one
-    is visible).  ``mesh_shape`` raises: capture on a mesh is ROADMAP.md
-    queue A item 6c (part 2).  Returns the number of (spec, dtype) sweep points
+    ``mesh_shape`` ('2x4') every sweep point is *additionally* swept at
+    the mesh tier, persisting sharded ladders under the mesh-qualified
+    keys, as the reference does: a captured model then serves and trains
+    through mesh-bound kernels whenever a matching mesh is active
+    (``ops._mesh_plan_kernel``); a fused-family point (attention, the
+    grouped products) has no mesh tier and is swept at mesh=None only.  With ``quant`` ('int8' | 'fp8') every
+    *forward* sweep point also gets a quantized leg — the spec re-searched
+    at the low-precision tier under its dtype-qualified plan key, at
+    mesh=None only — skipping the fused and derived specs that refuse
+    quantization.  ``device`` is where candidates are measured
+    (``search.search_schedule``; by default the card where one is
+    visible).  Returns the number of (spec, dtype, mesh) sweep points
     persisted.
     """
     from ..core.enumerate import QUANT_FORMATS, quantize_spec
     from ..search import default_plan_db, search_schedule, sweep_specs
 
-    if mesh_shape is not None:
-        raise NotImplementedError(
-            f"sweep_captured on a mesh ({mesh_shape}) comes with ROADMAP.md "
-            f"queue A item 6c (part 2)")
     db = plan_db if plan_db is not None else default_plan_db()
     if quant is not None and quant not in QUANT_FORMATS:
         raise ValueError(
             f"quant must be one of {sorted(QUANT_FORMATS)}, got {quant!r}"
         )
     n = 0
+    meshes = [None] + ([mesh_shape] if mesh_shape is not None else [])
     for label, spec, dtype in points:
         for sub_label, sub in sweep_specs(spec, with_grads=with_grads):
-            legs = [(sub_label, sub, str(dtype))]
+            # the fused families have no mesh tier (``compile_fused``)
+            fused = getattr(sub.root(), "fused_kind", "")
+            legs = [(sub_label, sub, str(dtype), [None] if fused else meshes)]
             if quant is not None and sub_label == "fwd":
                 try:
                     qspec = quantize_spec(sub, fmt=quant)
@@ -168,23 +172,26 @@ def sweep_captured(
                 except (NotImplementedError, ValueError, TypeError):
                     qspec = None  # fused family
                 if qspec is not None:
-                    legs.append((f"{sub_label}@{quant}", qspec, qdt))
-            for leg_label, leg_spec, leg_dt in legs:
-                res = search_schedule(
-                    leg_spec, dtype=leg_dt, beam_width=beam_width,
-                    topk=topk, interpret=interpret, measure=measure,
-                    repeats=repeats, plan_db=db, device=device,
-                )
-                n += 1
-                if verbose:
-                    from ..obs import log
+                    legs.append((f"{sub_label}@{quant}", qspec, qdt, [None]))
+            for leg_label, leg_spec, leg_dt, leg_meshes in legs:
+                for ms in leg_meshes:
+                    res = search_schedule(
+                        leg_spec, dtype=leg_dt, beam_width=beam_width,
+                        topk=topk, interpret=interpret, measure=measure,
+                        repeats=repeats, plan_db=db, device=device,
+                        mesh_shape=ms,
+                    )
+                    n += 1
+                    if verbose:
+                        from ..obs import log
 
-                    best = res.best
-                    t = ("-" if best.measured_s is None
-                         else f"{best.measured_s * 1e3:.2f}ms")
-                    log.info("capture-sweep",
-                             f"{label}/{leg_label} dtype={leg_dt} best={t} "
-                             f"(db={db.path})")
+                        best = res.best
+                        t = ("-" if best.measured_s is None
+                             else f"{best.measured_s * 1e3:.2f}ms")
+                        at = f"@mesh={res.mesh}" if res.mesh else ""
+                        log.info("capture-sweep",
+                                 f"{label}/{leg_label}{at} dtype={leg_dt} "
+                                 f"best={t} (db={db.path})")
     return n
 
 

@@ -31,6 +31,9 @@ tensors); ``"host"`` copies each CUDA payload to pinned host memory, runs
 the collective there and copies the result back, because gloo cannot carry
 CUDA tensors for most collectives.  The bytes copied each way are counted
 in ``obs``'s ``mesh.host_staged_bytes``; a CPU payload is never staged.
+A mesh of CUDA ranks made with ``"host"`` stages DTensor's functional
+collectives on its process groups the same way
+(``stage_functional_collectives``); other groups keep the stock path.
 """
 
 from __future__ import annotations
@@ -72,6 +75,21 @@ def mesh_scope(mesh):
         _ACTIVE.pop()
 
 
+class _OneRank:
+    """The active mesh inside ``single_rank``: one rank, so none is
+    (``launch.mesh.active_mesh``)."""
+
+    size = 1
+
+
+def single_rank():
+    """A context in which no mesh is active, whatever the caller's: a
+    capture trace records the model's products on fake tensors, where a
+    mesh-bound kernel's collectives must not run (the replayed graph's
+    ``ops`` sites find the mesh plans again when they run)."""
+    return mesh_scope(_OneRank())
+
+
 def _mesh(mesh):
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
@@ -107,15 +125,21 @@ def _count_staged(nbytes: int) -> None:
     counter("mesh.host_staged_bytes").inc(int(nbytes))
 
 
-def _to_host(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` where the collective runs: a pinned host copy of a CUDA
-    payload under the ``host`` transport, else ``x`` itself."""
-    if mesh.transport != "host" or not x.is_cuda:
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of a CUDA ``x`` (its bytes counted), else ``x``
+    itself: a CPU payload is never staged."""
+    if not x.is_cuda:
         return x
     h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     h.copy_(x)
     _count_staged(x.numel() * x.element_size())
     return h
+
+
+def _to_host(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` where the collective runs: a pinned host copy of a CUDA
+    payload under the ``host`` transport, else ``x`` itself."""
+    return _pinned(x) if mesh.transport == "host" else x
 
 
 def _back(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -124,6 +148,108 @@ def _back(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return y
     _count_staged(y.numel() * y.element_size())
     return y.to(like.device)
+
+
+#: names of the process groups whose functional collectives are staged
+#: (``stage_functional_collectives``)
+_HOST_GROUPS: set = set()
+#: dispatch key -> the ``_c10d_functional`` kernels installed for it
+_STAGED_LIBS: dict = {}
+
+_REDUCE_OPS = {"sum": "SUM", "avg": "AVG", "max": "MAX", "min": "MIN",
+               "product": "PRODUCT"}
+
+
+def _group_name(group) -> str:
+    return group if isinstance(group, str) else group.group_name
+
+
+def stage_functional_collectives(groups, key: str = "CUDA") -> None:
+    """Run the functional collectives (the ``_c10d_functional`` ops DTensor
+    redistributes with) of the process groups ``groups`` through the host:
+    the ``host`` transport for DTensors, whose CUDA payloads gloo's
+    functional path cannot carry (it crashes waiting on them, PyTorch
+    2.11).  Each such op copies a CUDA payload to pinned host memory, runs
+    the blocking ``torch.distributed`` call there, copies the result back
+    (``mesh.host_staged_bytes`` counts both ways, ``mesh.staged_calls``
+    the calls) and is complete on return, so no work is left for
+    ``wait_tensor`` to wait on.  The kernels are installed once per
+    dispatch ``key`` (the tensors' device type); a collective of any other
+    group passes through to the stock kernel, so a ``device`` mesh in the
+    same process keeps its backend's own path."""
+    _HOST_GROUPS.update(_group_name(g) for g in groups)
+    if key in _STAGED_LIBS:
+        return
+    import torch.distributed as dist
+    from torch._C import DispatchKey
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    from ..obs import counter
+
+    dk = getattr(DispatchKey, key)
+    functional = torch.ops._c10d_functional
+
+    def op(name):
+        return getattr(dist.ReduceOp, _REDUCE_OPS[name])
+
+    def all_gather_into_tensor(x, group_size, group):
+        h = _pinned(x.contiguous())
+        out = torch.empty((group_size * h.shape[0], *h.shape[1:]),
+                          dtype=h.dtype, device=h.device)
+        dist.all_gather_into_tensor(out, h, group=group)
+        return _back(out, x)
+
+    def all_reduce(x, reduce_op, group):
+        h = _pinned(x.contiguous())
+        if h is x:
+            h = x.clone()  # the functional op leaves its input as it was
+        dist.all_reduce(h, op=op(reduce_op), group=group)
+        return _back(h, x)
+
+    def all_reduce_(x, reduce_op, group):
+        return x.copy_(all_reduce(x, reduce_op, group))
+
+    def reduce_scatter_tensor(x, reduce_op, group_size, group):
+        h = _pinned(x.contiguous())
+        out = torch.empty((h.shape[0] // group_size, *h.shape[1:]),
+                          dtype=h.dtype, device=h.device)
+        dist.reduce_scatter_tensor(out, h, op=op(reduce_op), group=group)
+        return _back(out, x)
+
+    def all_to_all_single(x, output_split_sizes, input_split_sizes, group):
+        h = _pinned(x.contiguous())
+        rows = (sum(output_split_sizes) if output_split_sizes
+                else h.shape[0])
+        out = torch.empty((rows, *h.shape[1:]), dtype=h.dtype,
+                          device=h.device)
+        dist.all_to_all_single(out, h, output_split_sizes or None,
+                               input_split_sizes or None, group=group)
+        return _back(out, x)
+
+    def broadcast(x, src, group):
+        h = _pinned(x.contiguous())
+        if h is x:
+            h = x.clone()
+        dist.broadcast(h, src=src, group=group)
+        return _back(h, x)
+
+    def staged(fn):
+        stock = getattr(functional, fn.__name__).default
+
+        def impl(keyset, *args):
+            name = _group_name(args[-1])
+            if name not in _HOST_GROUPS:
+                return stock.redispatch(keyset.remove(dk), *args)
+            counter("mesh.staged_calls").inc()
+            return fn(*args[:-1], _resolve_process_group(name))
+
+        return impl
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for fn in (all_gather_into_tensor, all_reduce, all_reduce_,
+               reduce_scatter_tensor, all_to_all_single, broadcast):
+        lib.impl(fn.__name__, staged(fn), key, with_keyset=True)
+    _STAGED_LIBS[key] = lib
 
 
 def _all_reduce_axis(x: torch.Tensor, axis: str, mesh) -> torch.Tensor:

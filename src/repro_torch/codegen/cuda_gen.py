@@ -1276,6 +1276,10 @@ class CompiledKernel:
                              f"or all CUDA (kernel)")
         from ..ops import library
 
+        if any(library.is_dtensor(x) for x in tensors):
+            # the op's sharding rule places the operands (a plain one is
+            # taken as replicated) and each rank runs its shard
+            return library.sharded_contract(self, arrays, vecs, out_dtype)
         if library.through_op(tensors):
             return library.CONTRACT_OP(library.key_of(self), list(arrays),
                                        vecs, out_dtype)

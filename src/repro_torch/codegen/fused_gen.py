@@ -675,6 +675,9 @@ class FusedKernel:
         from ..ops import library
 
         direct = not library.through_op(arrays)
+        # on DTensors the op's sharding rule places the operands (a plain
+        # one is taken as replicated) and each rank runs its shard
+        sharded = any(library.is_dtensor(x) for x in arrays)
 
         if self.kind == "attention":
             q = arrays[0]
@@ -687,6 +690,9 @@ class FusedKernel:
                     raise ValueError(f"kv_lengths: expected {h} entries, "
                                      f"got {lengths.shape[0]}")
             out_dtype = self.out_dtype or q.dtype
+            if sharded:
+                return library.sharded_attention(self, *arrays, lengths,
+                                                 out_dtype)
             if direct:
                 return self.run_attention(*arrays, lengths, out_dtype)
             return library.ATTENTION_OP(library.key_of(self), *arrays,
@@ -694,6 +700,8 @@ class FusedKernel:
         if kv_lengths is not None:
             raise TypeError("kv_lengths only applies to attention kernels")
         out_dtype = self.out_dtype or arrays[0].dtype
+        if sharded:
+            return library.sharded_grouped(self, *arrays, out_dtype)
         if direct:
             return self.run_grouped(*arrays, out_dtype)
         op = library.GROUPED_DW_OP if self.dw else library.GROUPED_OP

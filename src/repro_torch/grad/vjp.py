@@ -73,9 +73,12 @@ def apply_spec(spec, arrays: Dict[str, torch.Tensor], *, out_dtype,
     """
     if use_kernel:
         from ..ops import _tuned_kernel
+        from ..ops.library import is_dtensor
 
         first = next(iter(spec.operands))
-        kern = _tuned_kernel(spec, arrays[first].dtype, interpret=interpret)
+        kern = _tuned_kernel(spec, arrays[first].dtype, interpret=interpret,
+                             sharded=any(is_dtensor(a)
+                                         for a in arrays.values()))
         return kern(*(arrays[n] for n in spec.operands)).to(out_dtype)
     return contract_ref(spec, *(arrays[n] for n in spec.operands),
                         out_dtype=out_dtype)

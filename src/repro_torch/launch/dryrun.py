@@ -1,4 +1,5 @@
-"""One-card dry-run: trace every (arch x shape) cell at production size.
+"""Dry-run: trace every (arch x shape) cell at production size, on one
+card or one rank's share of a pod.
 
 The reference lowers and compiles each cell's step over a 256- or
 512-chip mesh and reads XLA's memory and cost analyses.  The port's
@@ -16,21 +17,35 @@ For each cell this records the reference's keys: ``status``, ``step``,
 ``bytes_accessed`` (the products' operands and outputs plus every other
 op's output), ``memory`` (``argument_size_in_bytes``,
 ``peak_memory_in_bytes``: the highest sum of live storages, and
-``saved_bytes``: what the backward holds), ``collectives`` (all zero on
-one card) and ``parsed`` (``op_count``'s keys, read by
-``roofline.analysis``); ``"mesh": "1"``, ``"chips": 1`` and ``"hw":
-"h100"``.  ``--device cpu`` traces the plain path (fake CPU tensors: the
-products are ``aten`` ops of the same flops), for a machine whose PyTorch
-has no CUDA build: there autograd's engine refuses even a fake CUDA
-tensor.
+``saved_bytes``: what the backward holds), ``collectives`` (bytes by the
+reference's kinds and ``count``; all zero on one card) and ``parsed``
+(``op_count``'s keys, read by ``roofline.analysis``); ``"hw": "h100"``.
+``--device cpu`` traces the plain path (fake CPU tensors: the products
+are ``aten`` ops of the same flops), for a machine whose PyTorch has no
+CUDA build: there autograd's engine refuses even a fake CUDA tensor.
+
+``--mesh 1`` (the default; ``"mesh": "1"``, ``"chips": 1``, tag ``__1``)
+traces the one-card step.  ``--mesh pod`` / ``multipod`` / ``both`` trace
+the step over the reference's production meshes, (data 16, model 16)
+and (pod 2, data 16, model 16): inside ``launch.mesh.fake_world`` of 256
+or 512 ranks, the bundle's arguments are DTensors placed by the
+reference's sharding rules (``launch.sharding``, ``$REPRO_SHARDING``) and
+the step runs as rank 0 runs it, on fake tensors, with every collective
+a no-op of the fake process group.  The record is per device, as the
+reference's partitioned HLO is: ``flops``, ``bytes_accessed``,
+``memory`` (the local storages) and ``collectives`` (the bytes of each
+collective's output, ``op_count.CollectiveRecorder``), with ``"mesh":
+"16x16"`` / ``"2x16x16"`` and ``"chips"`` 256 / 512, tags ``__sp`` /
+``__mp``; every output's placements are checked against the bundle's
+``out_shardings``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
       --shape train_4k --out results/
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/
 
-The meshes (``--mesh pod|multipod``, with their collective bytes) come
-with ROADMAP.md queue A item 6c (part 2).
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \
+      --shape train_4k --mesh both --out results/
 """
 
 from __future__ import annotations
@@ -48,58 +63,93 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..configs import ARCH_IDS, SHAPES, cell_is_applicable, get_config
 from ..configs.base import ModelConfig, ShapeConfig
-from ..roofline.op_count import count_step
-from .steps import prefill_bundle, serve_bundle, train_bundle
+from ..roofline.op_count import COLLECTIVES, CollectiveRecorder, count_step
+from .mesh import fake_world, make_debug_mesh, make_production_mesh
+from .steps import (check_placements, prefill_bundle, serve_bundle,
+                    train_bundle)
 
-#: the reference's collective kinds, each 0 bytes on one card
-COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-               "collective-permute")
-
-MESH_REFUSAL = ("a dry-run over a pod or multi-pod mesh comes with "
-                "ROADMAP.md queue A item 6c (part 2)")
-
-
-def collective_bytes(hlo_text: str) -> Dict[str, int]:
-    """The reference parses the collectives of compiled HLO; the port has
-    no HLO and no mesh yet."""
-    raise NotImplementedError(MESH_REFUSAL)
+#: --mesh -> (descriptor, chips, tag, multi_pod)
+MESHES = {"1": ("1", 1, "1", None), "pod": ("16x16", 256, "sp", False),
+          "multipod": ("2x16x16", 512, "mp", True)}
 
 
-def _bundle(cfg: ModelConfig, shape: ShapeConfig, device):
+def _mesh_entry(mesh: str):
+    """``MESHES[mesh]``, or for ``"AxB"`` a data x model mesh of A * B
+    ranks (a stand-in for the card's worlds)."""
+    if mesh in MESHES:
+        return MESHES[mesh]
+    a, b = (int(n) for n in mesh.split("x"))
+    return mesh, a * b, mesh, None
+
+
+def collective_bytes(fn, *args, **kwargs) -> Dict[str, int]:
+    """The bytes of the collectives one call ``fn(*args, **kwargs)`` runs
+    on this rank, by the reference's kinds, with ``count``: the port's
+    counterpart of the reference's parse of a compiled step's HLO (the
+    port has no HLO), recorded as the collectives run
+    (``op_count.CollectiveRecorder``) on a real world or a
+    ``fake_world``."""
+    rec = CollectiveRecorder()
+    with rec:
+        fn(*args, **kwargs)
+    return {k: int(v) for k, v in rec.collectives.items()}
+
+
+def _bundle(cfg: ModelConfig, shape: ShapeConfig, device, mesh=None):
     if shape.kind == "train":
-        return train_bundle(cfg, shape, device=device)
+        return train_bundle(cfg, shape, device=device, mesh=mesh)
     if shape.kind == "prefill":
-        return prefill_bundle(cfg, shape, device=device)
-    return serve_bundle(cfg, shape, device=device)
+        return prefill_bundle(cfg, shape, device=device, mesh=mesh)
+    return serve_bundle(cfg, shape, device=device, mesh=mesh)
+
+
+def _trace(cfg, shape, device, mesh):
+    with FakeTensorMode():
+        bundle = _bundle(cfg, shape, device, mesh)
+        counts = count_step(bundle.fn, *bundle.in_shapes)
+    if mesh is not None:
+        check_placements(counts["output"], bundle.out_shardings)
+    counts.pop("output")
+    return bundle, counts
 
 
 def run_cell(arch: str, shape_name: str, *, device="cuda",
              cfg: Optional[ModelConfig] = None,
-             shape: Optional[ShapeConfig] = None) -> Dict:
-    """Trace one cell on fake tensors of ``device`` and return its record.
+             shape: Optional[ShapeConfig] = None, mesh: str = "1") -> Dict:
+    """Trace one cell on fake tensors of ``device`` and return its record;
+    ``mesh`` is ``"1"`` (one card), ``"pod"`` or ``"multipod"`` (one
+    rank's share of the step over that production mesh, per device), or
+    ``"AxB"`` (a data x model mesh of that shape).
 
     ``cfg`` and ``shape`` stand in for the registry's (a cut model, a
     smaller shape); by default the cell is traced at production size."""
     cfg = cfg or get_config(arch)
     shape = shape or SHAPES[shape_name]
     ok, why = cell_is_applicable(cfg, shape)
-    rec: Dict = {"arch": arch, "shape": shape_name, "mesh": "1", "chips": 1,
-                 "hw": "h100", "device": str(torch.device(device))}
+    desc, chips, _, multi_pod = _mesh_entry(mesh)
+    rec: Dict = {"arch": arch, "shape": shape_name, "mesh": desc,
+                 "chips": chips, "hw": "h100",
+                 "device": str(torch.device(device))}
     if not ok:
         rec.update(status="skipped", reason=why)
         return rec
     t0 = time.time()
-    with FakeTensorMode():
-        bundle = _bundle(cfg, shape, device)
-        counts = count_step(bundle.fn, *bundle.in_shapes)
-    counts.pop("output")
+    if chips == 1:
+        bundle, counts = _trace(cfg, shape, device, None)
+    else:
+        with fake_world(chips):
+            if multi_pod is None:  # a mesh of data x model
+                m = make_debug_mesh(tuple(int(n) for n in desc.split("x")),
+                                    ("data", "model"), device=device)
+            else:
+                m = make_production_mesh(multi_pod=multi_pod, device=device)
+            bundle, counts = _trace(cfg, shape, device, m)
     t_trace = time.time() - t0
-    colls = {k: 0 for k in COLLECTIVES}
-    colls["count"] = 0
+    colls = {k: int(v) for k, v in counts["collectives"].items()}
     parsed = {k: counts[k] for k in ("dot_flops", "collective_bytes",
                                      "out_bytes_proxy", "dot_bytes",
                                      "n_ops")}
-    parsed.update({f"coll_{k}": 0.0 for k in COLLECTIVES})
+    parsed.update({f"coll_{k}": float(colls[k]) for k in COLLECTIVES})
     rec.update(
         status="ok",
         step=bundle.static_name,
@@ -128,41 +178,42 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="the fake tensors' device (cpu: the plain path)")
     args = ap.parse_args(argv)
-    if args.mesh != "1":
-        raise NotImplementedError(MESH_REFUSAL)
 
     os.makedirs(args.out, exist_ok=True)
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    meshes = (["pod", "multipod"] if args.mesh == "both" else [args.mesh])
     limit = int(os.environ.get("DRYRUN_TIMEOUT", "1800"))
-    for arch in archs:
-        for shape in shapes:
-            tag = f"{arch}__{shape}__1"
-            path = os.path.join(args.out, tag + ".json")
-            if os.path.exists(path):
-                print(f"[skip-existing] {tag}")
-                continue
-            print(f"[dryrun] {tag} ...", flush=True)
-            try:
-                def _alarm(sig, frm):
-                    raise TimeoutError(f"cell exceeded {limit}s")
+    for arch, shape, mesh in ((a, s, m) for a in archs for s in shapes
+                              for m in meshes):
+        desc, chips, suffix, _ = MESHES[mesh]
+        tag = f"{arch}__{shape}__{suffix}"
+        path = os.path.join(args.out, tag + ".json")
+        if os.path.exists(path):
+            print(f"[skip-existing] {tag}")
+            continue
+        print(f"[dryrun] {tag} ...", flush=True)
+        try:
+            def _alarm(sig, frm):
+                raise TimeoutError(f"cell exceeded {limit}s")
 
-                signal.signal(signal.SIGALRM, _alarm)
-                signal.alarm(limit)
-                try:
-                    rec = run_cell(arch, shape, device=args.device)
-                finally:
-                    signal.alarm(0)
-            except Exception as e:
-                rec = {
-                    "arch": arch, "shape": shape, "mesh": "1", "chips": 1,
-                    "hw": "h100", "status": "error",
-                    "error": f"{type(e).__name__}: {e}",
-                    "trace": traceback.format_exc()[-3000:],
-                }
-            with open(path, "w") as f:
-                json.dump(rec, f, indent=1)
-            print(f"[done] {tag}: {rec['status']}", flush=True)
+            signal.signal(signal.SIGALRM, _alarm)
+            signal.alarm(limit)
+            try:
+                rec = run_cell(arch, shape, device=args.device,
+                               mesh=mesh)
+            finally:
+                signal.alarm(0)
+        except Exception as e:
+            rec = {
+                "arch": arch, "shape": shape, "mesh": desc,
+                "chips": chips, "hw": "h100", "status": "error",
+                "error": f"{type(e).__name__}: {e}",
+                "trace": traceback.format_exc()[-3000:],
+            }
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"[done] {tag}: {rec['status']}", flush=True)
 
 
 if __name__ == "__main__":

@@ -19,18 +19,20 @@ the card smoke's ranks that share one card).
 The payload ``transport`` is fixed when the mesh is made, never probed:
 ``"device"`` (the default) hands tensors to the backend as they are, as
 NCCL takes CUDA tensors; ``"host"`` stages CUDA payloads through pinned
-host memory around each collective, for gloo
-(``codegen.collectives``).
+host memory around each collective, for gloo (``codegen.collectives``),
+DTensor's redistributions on a CUDA mesh included.
 
 ``make_production_mesh`` gives the reference's production shapes --
-(data 16, model 16) and (pod 2, data 16, model 16) -- as shapes only
-(``MeshShape``: no process group, nothing to run on), which the sharding
-rules and the dry-run read.
+(data 16, model 16) and (pod 2, data 16, model 16) -- as a real ``Mesh``
+where a world of that size is up, as ``fake_world`` makes one in a single
+process for the dry-run, and otherwise as shapes only (``MeshShape``: no
+process group), which the sharding rules read.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import datetime
 import math
 import os
@@ -105,6 +107,14 @@ class Mesh(MeshShape):
         self.device_mesh = DeviceMesh(
             self.device.type, torch.as_tensor(self.devices),
             mesh_dim_names=self.axis_names)
+        if self.device.type == "cuda" and transport == "host":
+            # DTensors on this mesh redistribute through the host too: its
+            # axes' groups and the world (the optimizer's norm)
+            from ..codegen.collectives import stage_functional_collectives
+
+            stage_functional_collectives(
+                [self.group(a) for a in self.axis_names]
+                + [dist.group.WORLD])
         self._coords = tuple(int(c) for c in
                              np.argwhere(self.devices == self.rank)[0])
 
@@ -216,12 +226,38 @@ def world_mesh(mesh_shape, *, transport: str = "device", device=None,
     return None
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The reference's production shapes: (data 16, model 16), 256 chips,
-    or (pod 2, data 16, model 16), 512; shapes only."""
+    or (pod 2, data 16, model 16), 512.  A real ``Mesh`` over the world
+    where one of that size is up (``fake_world`` for a dry-run; ``device``
+    as in ``Mesh``), else shapes only (``MeshShape``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if world_size() == math.prod(shape):
+        return make_debug_mesh(shape, axes, device=device)
     return MeshShape(shape, axes)
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A world of ``n`` ranks in which this process is rank 0 and every
+    collective returns at once without moving data: PyTorch's ``fake``
+    process group (``FakeStore``).  A dry-run traces one rank's share of a
+    step over a pod this way, on fake tensors.  The group, and every mesh
+    made over it, is destroyed on exit, so no default group outlives the
+    context."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a default "
+                           "process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        _MESHES.clear()
+        dist.destroy_process_group()
 
 
 def batch_axes(mesh) -> tuple:
@@ -330,6 +366,7 @@ __all__ = [
     "active_mesh",
     "axis_size",
     "batch_axes",
+    "fake_world",
     "init_world",
     "make_debug_mesh",
     "make_production_mesh",

@@ -57,8 +57,10 @@ each rank launching B1 on its shard, and every rank serves the same trace;
 otherwise the CLI logs and serves single-rank, as the reference does.
 ``--mesh-transport host`` stages collectives through pinned host memory
 (gloo between ranks that share a card).  ``--capture`` with ``--mesh``
-raises (ROADMAP.md queue A item 6c, part 2).  ``--metrics-out`` / ``--trace-out`` write the ``obs`` registry and
-the Chrome trace after the run.
+sweeps the harvested specs at the mesh tier too, and the captured steps'
+``ops`` sites then find the mesh plans as uncaptured serving does.
+``--metrics-out`` / ``--trace-out`` write the ``obs`` registry and the
+Chrome trace after the run.
 """
 
 from __future__ import annotations
@@ -131,7 +133,7 @@ class BatchServer:
         from .serving.engine import _mesh_of
 
         self.device = resolve_device(device)
-        self.mesh = _mesh_of(mesh_shape, capture, mesh_transport,
+        self.mesh = _mesh_of(mesh_shape, mesh_transport,
                              self.device)
         self.mesh_shape = None
         if mesh_shape:
@@ -157,10 +159,14 @@ class BatchServer:
         self.capture = capture
         self.capture_stats = None
         if capture:
-            self.capture_stats = capture_warmup(
-                cfg, {"prefill": (batch_size, max_len),
-                      "decode": (batch_size, max_len)},
-                search_grads=search_grads, quant=quant, device=self.device)
+            # on this mesh's ranks and transport, as the --search-gemms
+            # sweep below
+            with set_mesh(self.mesh):
+                self.capture_stats = capture_warmup(
+                    cfg, {"prefill": (batch_size, max_len),
+                          "decode": (batch_size, max_len)},
+                    search_grads=search_grads, quant=quant,
+                    device=self.device, mesh_shape=mesh_shape)
         if warm_gemms:
             _warm(warm_gemms)
         if search_gemms:

@@ -31,8 +31,8 @@ and every prefill and decode step expands it one layer at a time
 before the first request (the prefill runner with the derived backward
 specs when ``search_grads``); a restart finds them in the plan DB.
 ``capture`` (``serve --capture``) harvests both steps on fake tensors,
-sweeps their specs and runs the runners through captured steps
-(``capture.optimize``).  ``mesh_shape`` (``serve --mesh``) has each
+sweeps their specs (at the mesh tier too with ``mesh_shape``) and runs
+the runners through captured steps (``capture.optimize``).  ``mesh_shape`` (``serve --mesh``) has each
 runner sweep its phase's ladders at the mesh tier too, and where the world
 holds the mesh's ranks (``launch.mesh.world_mesh``, over
 ``mesh_transport``) the engine runs under the mesh, so a GEMM with a
@@ -68,19 +68,14 @@ from .scheduler import Scheduler, ServeRequest
 from ..mesh import world_mesh, set_mesh
 
 
-def _mesh_of(mesh_shape, capture: bool, transport: str, device):
-    """The engine's serving mesh (``launch.mesh.world_mesh``) or None;
-    capture on a mesh is refused."""
+def _mesh_of(mesh_shape, transport: str, device):
+    """The engine's serving mesh (``launch.mesh.world_mesh``) or None."""
     if not mesh_shape:
         return None
     from ...search import parse_mesh_shape
 
     if isinstance(mesh_shape, str):
         mesh_shape = parse_mesh_shape(mesh_shape)
-    if capture:
-        raise NotImplementedError(
-            f"serve --capture --mesh {'x'.join(map(str, mesh_shape))} "
-            f"comes with ROADMAP.md queue A item 6c (part 2)")
     return world_mesh(mesh_shape, transport=transport, device=device.type)
 
 
@@ -106,7 +101,7 @@ class ContinuousEngine:
         mesh_transport: str = "device",
     ):
         self.device = resolve_device(device)
-        self.mesh = _mesh_of(mesh_shape, capture, mesh_transport,
+        self.mesh = _mesh_of(mesh_shape, mesh_transport,
                              self.device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -144,10 +139,13 @@ class ContinuousEngine:
         # and run both runners through captured steps
         self.capture_stats = None
         if capture:
-            self.capture_stats = capture_warmup(
-                cfg, {"prefill": (1, self.max_ctx),
-                      "decode": (lanes, self.max_ctx)},
-                search_grads=search_grads, quant=quant, device=self.device)
+            # on this mesh's ranks and transport, as the runners' sweeps
+            with set_mesh(self.mesh):
+                self.capture_stats = capture_warmup(
+                    cfg, {"prefill": (1, self.max_ctx),
+                          "decode": (lanes, self.max_ctx)},
+                    search_grads=search_grads, quant=quant,
+                    device=self.device, mesh_shape=mesh_shape)
         self.prefill = PrefillRunner(cfg, self.api, page_size, self.device,
                                      quant=quant, capture=capture)
         self.decode = DecodeRunner(cfg, self.api, page_size, lanes,

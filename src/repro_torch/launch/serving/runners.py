@@ -120,7 +120,8 @@ def prefill_lengths(lengths, width: int, capture: bool):
     return lengths
 
 
-def capture_warmup(cfg, points, *, search_grads: bool, quant, device):
+def capture_warmup(cfg, points, *, search_grads: bool, quant, device,
+                   mesh_shape=None):
     """``serve --capture``'s warm-up, as the reference's: harvest each
     serving entry point on fake tensors (``points``: kind -> (batch,
     seq); no allocation), log each report's summary, and sweep the union
@@ -130,8 +131,9 @@ def capture_warmup(cfg, points, *, search_grads: bool, quant, device):
     The harvest runs on fake tensors of ``device`` (a ``torch.device``)
     with ``interpret=True``, as the reference's does: on the CPU the
     aligned sites are eligible, on the card every non-empty one; the
-    sweep measures its candidates there.  Returns the reports by kind and
-    the sweep's points and seconds."""
+    sweep measures its candidates there, and with ``mesh_shape`` sweeps
+    each point at the mesh tier too.  Returns the reports by kind and the
+    sweep's points and seconds."""
     from ... import capture as _capture
     from ...obs import log
     from ...search import default_plan_db
@@ -150,7 +152,8 @@ def capture_warmup(cfg, points, *, search_grads: bool, quant, device):
     t0 = time.perf_counter()
     n = _capture.sweep_captured(
         list(specs.values()), with_grads=search_grads, plan_db=db,
-        interpret=device.type != "cuda", quant=quant, device=device.type)
+        interpret=device.type != "cuda", quant=quant, device=device.type,
+        mesh_shape=mesh_shape)
     took = time.perf_counter() - t0
     log.info("serve", f"capture swept {n} plan point(s) ({len(specs)} "
              f"unique GEMM spec(s)) in {took:.1f} s -> {db.path}")

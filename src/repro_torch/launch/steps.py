@@ -22,10 +22,17 @@ the mesh.
 
 ``make_train_step(mesh=)`` activates the mesh for the step body, as the
 reference's does, so ``ops._tuned_kernel`` consults the mesh-qualified
-plans a ``--mesh`` sweep persisted and eligible GEMMs, forward and
-backward, run as ``codegen.bind_mesh`` kernels over the mesh's ranks.  As
-in the reference, no step runs on sharded parameters: the parameters are
-replicated on every rank, and every rank runs the same step.
+plans a ``--mesh`` sweep persisted and eligible GEMMs on plain
+(replicated) parameters, forward and backward, run as
+``codegen.bind_mesh`` kernels over the mesh's ranks.  A step whose
+parameters are DTensors (``shard_tree``, placed by the reference's
+sharding rules) runs sharded instead, as the reference's is sharded by
+its arrays' shardings: every kernel launch goes through its op's sharding
+rule (``ops.library.sharded_launch``) and runs on each rank's shards,
+every other op through DTensor, and the optimizer updates each rank's
+shards.  A bundle built on a mesh with ranks (a ``launch.mesh.Mesh``,
+``fake_world``'s too) places its arguments by its ``in_shardings``;
+``check_placements`` holds its outputs to its ``out_shardings``.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ class StepBundle:
     in_shapes: Tuple                  # its arguments (fake under a dry-run)
     static_name: str                  # train_step | prefill_step | serve_step
     out_shardings: Any = None         # placements of the outputs, or None
+    in_shardings: Any = None          # placements of the arguments, or None
 
 
 def _fake_mode():
@@ -63,6 +71,64 @@ def _fake_mode():
             "launch.dryrun does), so that nothing is allocated"
         )
     return mode
+
+
+def shard_tree(mesh, tree, shardings):
+    """``tree`` (nested dicts, named tuples such as ``AdamWState`` and
+    ``Quantized`` moments) placed leaf by leaf on ``mesh`` by its twin
+    ``shardings`` (``Placements`` leaves): each leaf becomes a DTensor
+    whose local shard every rank slices from its own copy of the leaf
+    (``distribute_tensor(src_data_rank=None)``: no collective) and copies,
+    so the ranks must hold the same values, as a seeded init or a restored
+    checkpoint gives them.  One leaf is placed at a time; the caller may
+    drop the whole-leaf tree afterwards."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..dtensor import from_local
+
+    dm = mesh.device_mesh
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(t[k], s[k]) for k in t}
+        if isinstance(t, Quantized):
+            return Quantized(walk(t.q, s.q), walk(t.scale, s.scale),
+                             t.shape, t.dtype)
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(getattr(t, f), getattr(s, f))
+                             for f in t._fields))
+        d = distribute_tensor(t.detach(), dm, list(s), src_data_rank=None)
+        # a shard of its own: the slice may be a view of ``t``, which the
+        # in-place optimizer must not write through
+        return from_local(d.to_local().clone(), dm, d.placements, d.shape)
+
+    return walk(tree, shardings)
+
+
+def check_placements(tree, shardings, what: str = "output") -> None:
+    """Raise unless every leaf of ``tree`` is a DTensor with the
+    placements of its twin in ``shardings``."""
+    from ..dtensor import is_dtensor
+
+    def walk(t, s, path):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], s[k], path + (k,))
+        elif isinstance(t, Quantized):
+            walk(t.q, s.q, path + ("q",))
+            walk(t.scale, s.scale, path + ("scale",))
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for f in t._fields:
+                walk(getattr(t, f), getattr(s, f), path + (f,))
+        elif isinstance(t, (tuple, list)):
+            for i, (x, y) in enumerate(zip(t, s)):
+                walk(x, y, path + (f"#{i}",))
+        elif not is_dtensor(t) or tuple(t.placements) != tuple(s):
+            have = tuple(t.placements) if is_dtensor(t) else "a plain tensor"
+            raise AssertionError(f"{what} {'/'.join(path)}: placements "
+                                 f"{have}, the shardings say {tuple(s)}")
+
+    walk(tree, shardings, ())
 
 
 def eval_params(cfg: ModelConfig, api: ModelAPI, device="cuda"):
@@ -143,6 +209,12 @@ def _metrics_shardings(mesh) -> dict:
 def _batch(cfg: ModelConfig, shape: ShapeConfig, device) -> dict:
     return {name: torch.zeros(shp, dtype=dt, device=device)
             for name, (shp, dt) in batch_spec(cfg, shape).items()}
+
+
+def _runs_on(mesh) -> bool:
+    """Whether ``mesh`` has ranks (a ``launch.mesh.Mesh``), so a bundle's
+    arguments are placed on it, rather than shapes only."""
+    return getattr(mesh, "device_mesh", None) is not None
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -258,71 +330,107 @@ def train_bundle(cfg: ModelConfig, shape: ShapeConfig,
     """The train step of a cell and its (params, opt_state, batch), built
     under the active ``FakeTensorMode``.  As in the reference, a model of
     256 experts or more keeps int8 moments (it needs them to fit), and
-    ``$REPRO_OPT_INT8=1`` forces them for every model.  With ``mesh`` the
-    step runs under it and ``out_shardings`` holds the placements of
-    (params, opt_state, metrics)."""
+    ``$REPRO_OPT_INT8=1`` forces them for every model.  With ``mesh``
+    ``out_shardings`` holds the placements of (params, opt_state,
+    metrics) and ``in_shardings`` those of (params, opt_state, batch); on
+    a mesh with ranks (a ``Mesh``, ``fake_world``'s included) the
+    arguments are DTensors placed by them (``shard_tree``), so the step
+    runs sharded, one rank's share of it."""
     api = get_api(cfg)
     if opt_cfg is None:
         big = cfg.moe is not None and cfg.moe.n_experts >= 256
         use_int8 = big or os.environ.get("REPRO_OPT_INT8") == "1"
         opt_cfg = AdamWConfig(moments_dtype="int8" if use_int8 else "float32")
     params = eval_params(cfg, api, device)
-    opt_state = optim.init(params, opt_cfg)
+    batch = _batch(cfg, shape, device)
     step = make_train_step(cfg, opt_cfg, microbatch=microbatch,
                            capture=capture, mesh=mesh)
-    out = None
+    out = ins = None
     if mesh is not None:
         p_shapes, _, p_shard = param_shardings(mesh, cfg, api)
         o_shard = opt_shardings(mesh, optim.init(p_shapes, opt_cfg), p_shard)
         out = (p_shard, o_shard, _metrics_shardings(mesh))
-    return StepBundle(fn=step,
-                      in_shapes=(params, opt_state, _batch(cfg, shape, device)),
-                      static_name="train_step", out_shardings=out)
+        ins = (p_shard, o_shard, batch_shardings(mesh, cfg, shape))
+        if _runs_on(mesh):
+            params = shard_tree(mesh, params, p_shard)
+            batch = shard_tree(mesh, batch, ins[2])
+    opt_state = optim.init(params, opt_cfg)
+    return StepBundle(fn=step, in_shapes=(params, opt_state, batch),
+                      static_name="train_step", out_shardings=out,
+                      in_shardings=ins)
 
 
 def serve_bundle(cfg: ModelConfig, shape: ShapeConfig,
                  device="cuda", mesh=None) -> StepBundle:
     """decode_*: one new token against a ``seq_len``-deep cache; with
-    ``mesh``, ``out_shardings`` holds the placements of (logits,
-    caches)."""
+    ``mesh``, ``out_shardings`` holds the placements of (logits, caches)
+    and ``in_shardings`` those of (params, caches, tokens), by which the
+    arguments are placed on a mesh with ranks (the dense and MoE
+    families)."""
     api = get_api(cfg)
     B, S = shape.global_batch, shape.seq_len
     params = eval_params(cfg, api, device)
     caches = api.cache_init(cfg, B, S, device=device)
     tokens = torch.zeros((B, 1), dtype=torch.int32, device=device)
-
-    def serve_step(params, caches, tokens):
-        with torch.no_grad():
-            return api.decode_step(params, cfg, caches, tokens)
-
-    out = None
+    out = ins = None
     if mesh is not None:
         _, c_shard = cache_shardings(mesh, cfg, api, B, S)
         out = (shd.batch_spec_for(mesh, (B, 1, cfg.vocab)), c_shard)
+        ins = (param_shardings(mesh, cfg, api)[2], c_shard,
+               shd.batch_spec_for(mesh, (B, 1)))
+        if _runs_on(mesh):
+            params, caches, tokens = (shard_tree(mesh, t, s) for t, s in
+                                      zip((params, caches, tokens), ins))
+
+    def serve_step(params, caches, tokens):
+        with torch.no_grad():
+            logits, new = api.decode_step(params, cfg, caches, tokens)
+        return _placed(logits, mesh, out), new
+
     return StepBundle(fn=serve_step, in_shapes=(params, caches, tokens),
-                      static_name="serve_step", out_shardings=out)
+                      static_name="serve_step", out_shardings=out,
+                      in_shardings=ins)
 
 
 def prefill_bundle(cfg: ModelConfig, shape: ShapeConfig,
                    device="cuda", mesh=None) -> StepBundle:
     """prefill_*: the prompt of ``seq_len`` tokens, building caches as
     deep; with ``mesh``, ``out_shardings`` holds the placements of
-    (logits, caches)."""
+    (logits, caches) and ``in_shardings`` those of (params, batch), by
+    which the arguments are placed on a mesh with ranks (the dense and
+    MoE families)."""
     api = get_api(cfg)
     params = eval_params(cfg, api, device)
+    batch = _batch(cfg, shape, device)
     max_len = shape.seq_len
-
-    def prefill_step(params, batch):
-        with torch.no_grad():
-            return api.prefill(params, cfg, batch, max_len)
-
-    out = None
+    out = ins = None
     if mesh is not None:
         dec_len = batch_spec(cfg, shape)["tokens"][0][1]
         _, c_shard = cache_shardings(mesh, cfg, api, shape.global_batch,
                                      max_len)
         out = (shd.batch_spec_for(
             mesh, (shape.global_batch, dec_len, cfg.vocab)), c_shard)
-    return StepBundle(fn=prefill_step,
-                      in_shapes=(params, _batch(cfg, shape, device)),
-                      static_name="prefill_step", out_shardings=out)
+        ins = (param_shardings(mesh, cfg, api)[2],
+               batch_shardings(mesh, cfg, shape))
+        if _runs_on(mesh):
+            params, batch = (shard_tree(mesh, t, s) for t, s in
+                             zip((params, batch), ins))
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, caches = api.prefill(params, cfg, batch, max_len)
+        return _placed(logits, mesh, out), caches
+
+    return StepBundle(fn=prefill_step, in_shapes=(params, batch),
+                      static_name="prefill_step", out_shardings=out,
+                      in_shardings=ins)
+
+
+def _placed(logits, mesh, out):
+    """The step's logits on their ``out_shardings`` placements (the
+    vocab-sharded unembedding gathered), where the step runs sharded."""
+    from ..dtensor import is_dtensor, to_placements
+
+    if not is_dtensor(logits):
+        return logits
+    return to_placements(logits, mesh.device_mesh, list(out[0]))

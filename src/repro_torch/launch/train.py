@@ -19,6 +19,13 @@ versions.  A run cut in depth goes through
 (``capture.optimize``): the model's remaining plain products, the
 attention motif and the unembedding, run the kernels forward and
 backward too.
+
+``TrainRun(mesh=)`` (a ``launch.mesh.Mesh``; every rank of its world
+calls ``train``) trains sharded: the parameters, the optimizer state and
+each batch are DTensors placed by the reference's sharding rules
+(``launch.steps.shard_tree``), and a checkpoint is restored with the
+current mesh's shardings (``checkpoint.restore(shardings=, mesh=)``),
+whatever mesh saved it: a run restarted on another mesh resumes there.
 """
 
 from __future__ import annotations
@@ -40,7 +47,10 @@ from ..obs import histogram, log
 from ..optim import AdamWConfig, warmup_cosine
 from ..optim import adamw as optim
 from ..runtime.fault import FaultTolerantLoop, LoopConfig
-from .steps import make_train_step
+from ..dtensor import local
+from .sharding import batch_spec_for
+from .steps import (_meta_params, make_train_step, opt_shardings,
+                    param_shardings, shard_tree)
 
 
 @dataclasses.dataclass
@@ -56,11 +66,18 @@ class TrainRun:
     capture: Optional[bool] = None
     #: torch device of the params, state and batches
     device: str = "cuda"
+    #: a ``launch.mesh.Mesh`` to train sharded on, or None
+    mesh: object = None
 
 
 def _batch(run: TrainRun, step: int, device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch_at(run.data_cfg, step).items()}
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in batch_at(run.data_cfg, step).items()}
+    if run.mesh is not None:
+        batch = shard_tree(run.mesh, batch, {
+            k: batch_spec_for(run.mesh, tuple(v.shape), seq_axis=1)
+            for k, v in batch.items()})
+    return batch
 
 
 def train(run: TrainRun, params=None, verbose: bool = True):
@@ -73,7 +90,15 @@ def train(run: TrainRun, params=None, verbose: bool = True):
     if params is None:
         params = api.init(cfg, torch.Generator(device=device).manual_seed(0),
                           device)
+    shardings = None
+    if run.mesh is not None:
+        _, _, p_shard = param_shardings(run.mesh, cfg, api)
+        params = shard_tree(run.mesh, params, p_shard)
     opt_state = optim.init(params, run.opt_cfg)
+    if run.mesh is not None:
+        o_shard = opt_shardings(run.mesh, optim.init(
+            _meta_params(cfg, api), run.opt_cfg), p_shard)
+        shardings = (p_shard, o_shard)
     schedule = warmup_cosine(
         warmup=min(100, run.steps // 10 + 1), total=run.steps
     )
@@ -86,7 +111,8 @@ def train(run: TrainRun, params=None, verbose: bool = True):
     start_step = 0
     if run.ckpt_dir and ckpt.latest_step(run.ckpt_dir) is not None:
         (params, opt_state), manifest = ckpt.restore(
-            run.ckpt_dir, (params, opt_state)
+            run.ckpt_dir, (params, opt_state), shardings=shardings,
+            mesh=run.mesh if shardings else None,
         )
         start_step = manifest["step"]
         if verbose:
@@ -99,15 +125,13 @@ def train(run: TrainRun, params=None, verbose: bool = True):
         params, opt_state = state
         params, opt_state, metrics = step_fn(params, opt_state,
                                              _batch(run, step, device))
-        losses.append(float(metrics["loss"]))  # waits for the step
-        histogram("train.grad_norm").observe(float(metrics["grad_norm"]))
+        loss, gnorm = (float(local(metrics[k]))  # waits for the step
+                       for k in ("loss", "grad_norm"))
+        losses.append(loss)
+        histogram("train.grad_norm").observe(gnorm)
         if verbose and step % run.log_every == 0:
-            log.info(
-                None,
-                f"step {step:5d} loss {float(metrics['loss']):.4f} "
-                f"gnorm {float(metrics['grad_norm']):.3f}",
-                flush=True,
-            )
+            log.info(None, f"step {step:5d} loss {loss:.4f} "
+                     f"gnorm {gnorm:.3f}", flush=True)
         return (params, opt_state)
 
     def save_fn(step, state):
@@ -117,7 +141,9 @@ def train(run: TrainRun, params=None, verbose: bool = True):
     def restore_fn():
         if mgr:
             mgr.wait()
-        (p, o), manifest = ckpt.restore(run.ckpt_dir, state)
+        (p, o), manifest = ckpt.restore(
+            run.ckpt_dir, state, shardings=shardings,
+            mesh=run.mesh if shardings else None)
         return manifest["step"], (p, o)
 
     loop = FaultTolerantLoop(

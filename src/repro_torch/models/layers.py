@@ -13,6 +13,7 @@ float32 as the reference does.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
@@ -23,6 +24,9 @@ import torch.nn.functional as F
 
 from .. import ops
 from ..configs.base import ModelConfig
+from ..dtensor import (batch_placements, from_local, is_dtensor,
+                       local_block, merge_heads, offset, replicate,
+                       sharded_ops, split_last, to_placements, whole_heads)
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -156,6 +160,57 @@ def _leaf(out: Optional[Dict], name: str) -> Optional[torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# DTensor parameters
+# ---------------------------------------------------------------------------
+#
+# A model whose parameters are DTensors (``launch.steps.shard_tree``) runs
+# sharded: every ``ops`` product goes through its kernel's op and sharding
+# rule (``ops.library.sharded_launch``), every other op through DTensor's
+# own propagation, and a plain tensor made inside (positions, masks,
+# rotary tables) is taken as replicated (``sharded_ops``).  Where an op has
+# no DTensor rule, or where propagation would pick another layout than the
+# reference's sharding rules imply, the layout is named explicitly: the
+# embedding gather on a replicated table, attention on each rank's
+# sequences and heads (``on_local_heads``), the f32 cross-entropy on each
+# rank's rows, and MoE routing (``models.moe``).
+
+
+def on_local_heads(fn, q, k, v, *, kv_lengths=None, **kw):
+    """``fn(q, k, v, kv_lengths=, **kw)`` of (batch, seq, heads, hd)
+    DTensors run on each rank's sequences and heads (``batch_placements``)
+    as plain tensors: the attention the reference's sharding gives each
+    chip, with no collective inside."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    pl = batch_placements(mesh, q.shape[0], (H,))
+    pl_kv = batch_placements(mesh, q.shape[0], (H, KV))
+    q_loc = local_block(to_placements(q, mesh, pl))
+    if pl_kv == pl:
+        k_loc, v_loc = (local_block(to_placements(t, mesh, pl))
+                        for t in (k, v))
+    else:
+        # the query heads split over ``model`` and the key / value heads
+        # do not: each rank takes the key / value heads its query heads
+        # read (GQA), whose gradients the ranks then sum
+        dim = next(i for i, p in enumerate(pl) if p.is_shard(2))
+        h_loc = H // mesh.size(dim)
+        first = mesh.get_coordinate()[dim] * h_loc
+        g = H // KV
+        heads = slice(first // g, (first + h_loc - 1) // g + 1)
+        grads = [Partial() if i == dim else p for i, p in enumerate(pl_kv)]
+        k_loc, v_loc = (local_block(to_placements(t, mesh, pl_kv),
+                                    grads)[:, :, heads] for t in (k, v))
+    lens = None
+    if kv_lengths is not None:
+        lens = to_placements(kv_lengths, mesh, [
+            p if p.is_shard(0) else Replicate() for p in pl]).to_local()
+    out = fn(q_loc, k_loc, v_loc, kv_lengths=lens, **kw)
+    return from_local(out.contiguous(), mesh, pl, (*q.shape[:3], v.shape[3]))
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
@@ -212,6 +267,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     ang = positions[..., None].to(F32) * freqs  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
+    if is_dtensor(x) and not is_dtensor(cos):
+        # replicated tables, named here: the backward saves them
+        cos, sin = (to_placements(t, x.device_mesh,
+                                  replicate(x.device_mesh))
+                    for t in (cos, sin))
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1)
     return out.to(x.dtype)
@@ -254,9 +314,9 @@ def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor, positions):
     B, S, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     x2 = x.reshape(B * S, -1)
-    q = ops.dense(x2, params["wq"]).reshape(B, S, h, hd)
-    k = ops.dense(x2, params["wk"]).reshape(B, S, kv, hd)
-    v = ops.dense(x2, params["wv"]).reshape(B, S, kv, hd)
+    q = split_last(ops.dense(x2, params["wq"]), B, S, h, hd)
+    k = split_last(ops.dense(x2, params["wk"]), B, S, kv, hd)
+    v = split_last(ops.dense(x2, params["wv"]), B, S, kv, hd)
     if cfg.qkv_bias:
         q = q + params["bq"].reshape(h, hd)
         k = k + params["bk"].reshape(kv, hd)
@@ -390,6 +450,51 @@ def decode_attention(
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _plain(fn, *args, **kw):
+    return fn(*args, **kw)
+
+
+def _write_prefix(cache, new) -> None:
+    """``cache[:, :S] = new`` for DTensors: the prompt's keys (or values)
+    on the cache's layout with their positions whole, each rank copying
+    the positions its block of the cache holds."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = cache.device_mesh, cache.placements
+    rows = to_placements(new.to(cache.dtype), mesh, [
+        Replicate() if p.is_shard(1) else p for p in pl]).to_local()
+    local = cache.to_local()
+    first = offset(mesh, [Shard(0) if p.is_shard(1) else Replicate()
+                          for p in pl], cache.shape[1])
+    lo, hi = first, min(first + local.shape[1], new.shape[1])
+    if hi > lo:
+        local[:, :hi - lo] = rows[:, lo:hi]
+
+
+def _write_token(cache, new, idx) -> None:
+    """``cache[b, idx[b]] = new[b]`` for DTensors: each rank writes the rows
+    of its batch block whose position falls in its block of the sequence
+    (a cache sharded over its sequence keeps each row on one rank)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = cache.device_mesh, cache.placements
+    # the new row: the cache's layout, its sequence dim dropped
+    row_pl = [Replicate() if p.is_shard(1) else
+              (type(p)(p.dim - 1) if p.is_shard() and p.dim > 1 else p)
+              for p in pl]
+    row = to_placements(new.to(cache.dtype), mesh, row_pl).to_local()
+    pos = to_placements(idx, mesh, [p if p.is_shard(0) else Replicate()
+                                    for p in pl]).to_local()
+    local = cache.to_local()
+    first = offset(mesh, [Shard(0) if p.is_shard(1) else Replicate()
+                          for p in pl], cache.shape[1])
+    mine = (pos >= first) & (pos < first + local.shape[1])
+    rows = torch.arange(local.shape[0], device=local.device)
+    at = (pos - first).clamp(0, local.shape[1] - 1)
+    keep = local[rows, at]  # rows whose position another rank holds
+    local[rows, at] = torch.where(mine[:, None, None], row, keep)
+
+
 def attention_apply(
     params,
     cfg: ModelConfig,
@@ -415,16 +520,21 @@ def attention_apply(
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
     if cache is None:
-        y = blockwise_attention(
-            q, k, v, causal=causal, q_block=q_block, k_block=k_block,
-            kv_lengths=lengths,
+        y = (on_local_heads if is_dtensor(q) else _plain)(
+            blockwise_attention, q, k, v, causal=causal, q_block=q_block,
+            k_block=k_block, kv_lengths=lengths,
         )
         new_cache = None
     elif S == 1:
         idx = cache["len"]  # (B,) current write positions
-        bidx = torch.arange(B, device=x.device)
-        cache["k"][bidx, idx] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, idx] = v[:, 0].to(cache["v"].dtype)
+        if is_dtensor(idx):
+            _write_token(cache["k"], k[:, 0], idx)
+            _write_token(cache["v"], v[:, 0], idx)
+            q = whole_heads(q, 2, cfg.n_kv_heads)
+        else:
+            bidx = torch.arange(B, device=x.device)
+            cache["k"][bidx, idx] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][bidx, idx] = v[:, 0].to(cache["v"].dtype)
         y = decode_attention(q, cache["k"], cache["v"], idx + 1)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + 1}
     else:
@@ -433,18 +543,25 @@ def attention_apply(
         if S > cache["k"].shape[1]:
             raise ValueError(f"a {S}-position prefill overruns a "
                              f"{cache['k'].shape[1]}-position KV cache")
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
-        y = blockwise_attention(
-            q, k, v, causal=causal, q_block=q_block, k_block=k_block,
-            kv_lengths=lengths,
+        sharded = is_dtensor(cache["k"])
+        if sharded:
+            _write_prefix(cache["k"], k)
+            _write_prefix(cache["v"], v)
+        else:
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+        y = (on_local_heads if is_dtensor(q) else _plain)(
+            blockwise_attention, q, k, v, causal=causal, q_block=q_block,
+            k_block=k_block, kv_lengths=lengths,
         )
-        new_cache = {
-            "k": cache["k"], "v": cache["v"],
-            "len": (torch.full((B,), S, dtype=torch.long, device=x.device)
-                    if lengths is None else lengths.to(torch.long)),
-        }
-    y = ops.dense(y.reshape(B * S, -1), params["wo"]).reshape(B, S, -1)
+        lens = (torch.full((B,), S, dtype=torch.long, device=x.device)
+                if lengths is None else lengths.to(torch.long))
+        if sharded:
+            lens = to_placements(lens, cache["len"].device_mesh,
+                                 cache["len"].placements)
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": lens}
+    y = ops.dense(merge_heads(y).reshape(B * S, -1),
+                  params["wo"]).reshape(B, S, -1)
     return y, new_cache
 
 
@@ -591,7 +708,12 @@ def embedding_init(cfg: ModelConfig, generator: torch.Generator, device):
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens]
+    tok = params["tok"]
+    if is_dtensor(tok):
+        # the gather reads a whole table: the vocab-sharded one replicated
+        tok = tok.redistribute(tok.device_mesh, replicate(tok.device_mesh))
+        return F.embedding(tokens, tok)
+    return tok[tokens]
 
 
 def logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -599,9 +721,19 @@ def logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     a bf16 product here would round the logits and move greedy ties."""
     B, S, D = x.shape
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
-    return torch.matmul(x.reshape(B * S, D).to(F32), w.to(F32)).reshape(
-        B, S, -1
-    )
+    x2 = x.reshape(B * S, D)
+    if is_dtensor(x2):
+        # each rank's rows against its vocab columns, the table gathered
+        # over the rest (FSDP), not a sum of partial products over the
+        # whole batch
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = x2.device_mesh
+        x2 = to_placements(x2, mesh, batch_placements(mesh, B * S))
+        cols = [Shard(1) if n == "model" and w.shape[1] % mesh.size(i) == 0
+                else Replicate() for i, n in enumerate(mesh.mesh_dim_names)]
+        w = to_placements(w, mesh, cols)
+    return torch.matmul(x2.to(F32), w.to(F32)).reshape(B, S, -1)
 
 
 def cross_entropy(logits_: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -611,7 +743,27 @@ def cross_entropy(logits_: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     here it is a ``gather`` (the one-hot would be a (tokens, vocab) f32
     tensor, 1.24 GB at 2048 x 151936).
     """
+    if is_dtensor(logits_):
+        return _sharded_cross_entropy(logits_, labels)
     logits_ = logits_.to(F32)
     lse = torch.logsumexp(logits_, dim=-1)
     gold = torch.gather(logits_, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
+
+
+def _sharded_cross_entropy(logits_, labels) -> torch.Tensor:
+    """The f32 cross-entropy of DTensor logits: each rank's rows with
+    their whole vocab (the vocab-sharded logits gathered), the local sum of
+    NLLs over the global token count, summed over the ranks."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = logits_.device_mesh
+    pl = batch_placements(mesh, logits_.shape[0])
+    loc = local_block(to_placements(logits_, mesh, pl)).to(F32)
+    lab = to_placements(labels, mesh, pl).to_local()
+    lse = torch.logsumexp(loc, dim=-1)
+    gold = torch.gather(loc, -1, lab.long()[..., None])[..., 0]
+    part = torch.sum(lse - gold) / labels.numel()
+    loss = from_local(part, mesh, [Partial() if p.is_shard() else Replicate()
+                                   for p in pl], ())
+    return loss.redistribute(mesh, replicate(mesh))

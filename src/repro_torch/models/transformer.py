@@ -29,6 +29,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..dtensor import is_dtensor
 from ..optim.quant import Quantized, QuantizedLayers
 from . import layers as L
 from .moe import moe_apply, moe_init
@@ -195,17 +196,40 @@ def opt_state_from_reference(state, device="cuda"):
 
 def _block(lp, cfg: ModelConfig, kind: str, x, *, positions, cache=None,
            q_block=512, k_block=512, lengths=None):
+    # entered here as well as in ``forward``: a checkpointed layer is
+    # recomputed in the backward, outside the forward's context
+    with L.sharded_ops(lp):
+        return _block_body(lp, cfg, kind, x, positions=positions,
+                           cache=cache, q_block=q_block, k_block=k_block,
+                           lengths=lengths)
+
+
+def _block_body(lp, cfg: ModelConfig, kind: str, x, *, positions,
+                cache=None, q_block=512, k_block=512, lengths=None):
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     y, new_cache = L.attention_apply(
         lp["attn"], cfg, h,
         positions=positions, cache=cache,
         q_block=q_block, k_block=k_block, lengths=lengths,
     )
-    x = x + y
+    x = _residual(x + y)
     h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
     if kind == "moe":
-        return x + moe_apply(lp["moe"], cfg, h), new_cache
-    return x + L.mlp_apply(lp["mlp"], cfg, h), new_cache
+        return _residual(x + moe_apply(lp["moe"], cfg, h)), new_cache
+    return _residual(x + L.mlp_apply(lp["mlp"], cfg, h)), new_cache
+
+
+def _residual(x):
+    """The residual stream on the reference's layout where it is a
+    DTensor: batch over ``pod`` / ``data``, whole on ``model`` (DTensor
+    would sum a ``Partial`` branch into a sequence-sharded stream, whose
+    flattened rows come back strided)."""
+    if not is_dtensor(x):
+        return x
+    from ..dtensor import batch_placements, to_placements
+
+    return to_placements(x, x.device_mesh,
+                         batch_placements(x.device_mesh, x.shape[0]))
 
 
 def _unstack(t):
@@ -266,18 +290,22 @@ def forward(params, cfg: ModelConfig, tokens, *, q_block=512, k_block=512):
     """Training forward without cache: tokens (B, S) -> f32 logits
     (B, S, vocab).  With ``cfg.remat`` each layer step is checkpointed
     (``layers.remat``) and recomputed in the backward, as the reference
-    wraps its scan body."""
-    x = L.embed(params["embedding"], tokens).to(cfg.param_dtype)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    x, _ = _run_segments(params, cfg, x, positions=positions,
-                         q_block=q_block, k_block=k_block)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.logits(params["embedding"], cfg, x)
+    wraps its scan body.  DTensor parameters run it sharded
+    (``layers.sharded_ops``)."""
+    with L.sharded_ops(params):
+        x = L.embed(params["embedding"], tokens).to(cfg.param_dtype)
+        positions = torch.arange(tokens.shape[1],
+                                 device=tokens.device)[None, :]
+        x, _ = _run_segments(params, cfg, x, positions=positions,
+                             q_block=q_block, k_block=k_block)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return L.logits(params["embedding"], cfg, x)
 
 
 def loss_fn(params, cfg: ModelConfig, tokens, labels, **kw):
     lg = forward(params, cfg, tokens, **kw)
-    return L.cross_entropy(lg, labels)
+    with L.sharded_ops(params):
+        return L.cross_entropy(lg, labels)
 
 
 # --------------------------------------------------------------------------
@@ -286,7 +314,12 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, **kw):
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int,
-               device="cpu") -> Dict:
+               device="cpu", like=None) -> Dict:
+    """Zero KV caches; where ``like`` (the step's tokens) is a DTensor, as
+    DTensors on its mesh placed by the reference's cache rules
+    (``launch.steps.cache_shardings``), each rank allocating its shard."""
+    if is_dtensor(like):
+        return _sharded_cache_init(cfg, batch, max_len, like.device_mesh)
     caches: Dict = {}
     for si, (pattern, count) in enumerate(segment_plan(cfg)):
         one = L.attention_cache_init(cfg, batch, max_len, device=device)
@@ -295,6 +328,27 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int,
             for kind in pattern
         }
     return caches
+
+
+def _sharded_cache_init(cfg: ModelConfig, batch: int, max_len: int, dm):
+    from torch.distributed import tensor as dt
+
+    from ..launch.mesh import MeshShape
+    from ..launch.steps import cache_shardings
+    from .api import get_api
+
+    mesh = MeshShape([dm.size(i) for i in range(dm.ndim)],
+                     dm.mesh_dim_names)
+    shapes, places = cache_shardings(mesh, cfg, get_api(cfg), batch, max_len)
+    return _tree_zip(lambda t, pl: dt.zeros(
+        t.shape, dtype=t.dtype, device_mesh=dm, placements=list(pl)),
+        shapes, places)
+
+
+def _tree_zip(fn: Callable, a, b):
+    if isinstance(a, dict):
+        return {k: _tree_zip(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
 
 
 def cache_axes(cfg: ModelConfig) -> Dict:
@@ -315,14 +369,16 @@ def _first_cache_len(caches) -> torch.Tensor:
 
 def decode_step(params, cfg: ModelConfig, caches, tokens):
     """One-token decode: tokens (B, 1); caches hold the context."""
-    x = L.embed(params["embedding"], tokens).to(cfg.param_dtype)
-    # current position per sequence = cache length (same for every layer)
-    positions = _first_cache_len(caches)[:, None]
+    with L.sharded_ops(params):
+        x = L.embed(params["embedding"], tokens).to(cfg.param_dtype)
+        # current position per sequence = cache length (same every layer)
+        positions = _first_cache_len(caches)[:, None]
     x, new_caches = _run_segments(
         params, cfg, x, positions=positions, caches=caches
     )
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.logits(params["embedding"], cfg, x), new_caches
+    with L.sharded_ops(params):
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        return L.logits(params["embedding"], cfg, x), new_caches
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, lengths=None):
@@ -334,8 +390,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, lengths=None):
     position.  Only that position is unembedded.
     """
     B, S = tokens.shape
-    caches = cache_init(cfg, B, max_len, device=tokens.device)
-    x = L.embed(params["embedding"], tokens).to(cfg.param_dtype)
+    caches = cache_init(cfg, B, max_len, device=tokens.device, like=tokens)
+    with L.sharded_ops(params):
+        x = L.embed(params["embedding"], tokens).to(cfg.param_dtype)
     positions = torch.arange(S, device=tokens.device)[None, :]
     x, new_caches = _run_segments(
         params, cfg, x, positions=positions, caches=caches, lengths=lengths
@@ -345,5 +402,6 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, lengths=None):
     else:
         idx = torch.clamp(lengths.to(torch.long) - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=x.device), idx][:, None]
-    x = L.rmsnorm(params["final_norm"], x_last, cfg.norm_eps)
-    return L.logits(params["embedding"], cfg, x), new_caches
+    with L.sharded_ops(params):
+        x = L.rmsnorm(params["final_norm"], x_last, cfg.norm_eps)
+        return L.logits(params["embedding"], cfg, x), new_caches

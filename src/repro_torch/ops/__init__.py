@@ -65,6 +65,15 @@ backward raises.  ``chain_dense`` is ``a @ b @ c`` on B1's chain mode, the
 intermediate never in device memory, forward and (``grad.chain_dense_vjp``)
 the three derived backward specs, one launch each.
 
+Every entry point takes DTensor operands (parameters placed by
+``launch.steps.shard_tree``), on the CPU too: such a call always takes
+the kernel path, its plan looked up at the global extents for the op's
+identity (never the mesh-qualified route, ``_tuned_kernel(sharded=)``),
+and its launch goes through the op's sharding rule
+(``ops.library.sharded_launch``), which runs the kernel's twin at each
+rank's local extents (its plan looked up at those); the derived backward
+specs take the same route.
+
 ``attention`` is fused QK^T -> online softmax -> PV over folded heads, q
 (H, S, D), k (H, T, D), v (H, T, E): on a CUDA tensor (or with
 ``interpret=True``) a 3-D call compiles the ``AttentionSpec`` and runs
@@ -102,6 +111,7 @@ from ..codegen.cache import generation as cache_generation
 from ..codegen.cuda_gen import CardPlan
 from ..obs import counter
 from ..search import active_phase, default_plan_db
+from .library import is_dtensor
 
 
 #: ``_tuned_kernel``'s answers for the process: key -> (cache generation
@@ -165,8 +175,12 @@ def _mesh_key(mesh):
 
 
 def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
-                  interpret=False):
+                  interpret=False, sharded=False):
     """Generated kernel for ``spec``: searched plan first, tuned fallback.
+
+    ``sharded`` marks a call on DTensor operands (or a rank's twin of one,
+    ``ops.library.local_kernel``): the op's sharding rule distributes it,
+    so the mesh-qualified route is never taken for it.
 
     Lookup order as in the reference: under an active mesh the
     mesh-qualified plan first (``_mesh_plan_kernel``, a
@@ -190,7 +204,7 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
 
     db = default_plan_db()
     phase = active_phase()
-    mesh = active_mesh()
+    mesh = None if sharded else active_mesh()
     key = (_spec_key(spec), dtype, epilogue, out_dtype, interpret, phase,
            getattr(db, "path", None), default_cache().path, _mesh_key(mesh))
     kept = _LOOKUPS.get(key)
@@ -251,7 +265,7 @@ def _dense_kernel_ok(x: torch.Tensor, w: torch.Tensor,
     # every non-empty 2-D CUDA call runs B1 (``dense`` folds x's leading
     # axes into M first; B1 masks ragged edges); off the card ``interpret``
     # keeps the reference's gate, a 2-D GEMM with M, K and N multiples of 128
-    if x.is_cuda:
+    if x.is_cuda or is_dtensor(x):
         return x.dim() == 2 and x.numel() > 0 and w.numel() > 0
     return interpret and x.dim() == 2 and all(
         s % 128 == 0 for s in (*x.shape, w.shape[1])
@@ -260,11 +274,14 @@ def _dense_kernel_ok(x: torch.Tensor, w: torch.Tensor,
 
 def _batched_kernel_ok(x: torch.Tensor, w: torch.Tensor,
                        interpret: bool) -> bool:
-    return (x.is_cuda or interpret) and x.dim() == 3 and w.dim() == 3
+    return (x.is_cuda or interpret or is_dtensor(x)) and x.dim() == 3 and (
+        w.dim() == 3)
 
 
 def _generic_kernel_ok(x: torch.Tensor, interpret: bool) -> bool:
-    return x.is_cuda or interpret
+    # a DTensor operand always takes the kernel's op, whose sharding rule
+    # distributes it (``ops.library.sharded_launch``), on the CPU too
+    return x.is_cuda or interpret or is_dtensor(x)
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor,
@@ -286,7 +303,7 @@ def _dense_raw(x, w, out_dtype, interpret):
     if _dense_kernel_ok(x, w, interpret):
         m, d = x.shape
         kern = _tuned_kernel(matmul_spec(m, d, w.shape[1]), x.dtype,
-                             interpret=interpret)
+                             interpret=interpret, sharded=is_dtensor(x))
         return kern(x, w).to(out_dtype)
     return _matmul_f32(x, w, out_dtype)
 
@@ -316,7 +333,8 @@ def _quant_kernel_ok(x2: torch.Tensor, w: torch.Tensor,
     # 128-aligned shapes the reference's kernel path takes
     if not x2.shape[0]:
         return False
-    return x2.is_cuda or _dense_kernel_ok(x2, w, interpret)
+    return x2.is_cuda or is_dtensor(x2) or _dense_kernel_ok(x2, w,
+                                                            interpret)
 
 
 def _dense_quant(x, w, fmt, out_dtype, interpret):
@@ -348,7 +366,7 @@ def _dense_quant(x, w, fmt, out_dtype, interpret):
         kern = _tuned_kernel(
             quantized_matmul_spec(m, d, w.shape[1], fmt), qx.dtype,
             epilogue=Epilogue(dequant=True), out_dtype=torch.float32,
-            interpret=interpret,
+            interpret=interpret, sharded=is_dtensor(x),
         )
         with torch.no_grad():
             out = kern(qx, qw, qscale=qscale)
@@ -377,7 +395,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
     out_dtype = out_dtype or x.dtype
     if quant is not None:
         return _dense_quant(x, w, quant, out_dtype, interpret)
-    if x.is_cuda and x.dim() != 2:
+    if (x.is_cuda or is_dtensor(x)) and x.dim() != 2:
         return _fold_rows(dense, x, w, out_dtype=out_dtype,
                           interpret=interpret, differentiable=differentiable)
     if _dense_kernel_ok(x, w, interpret):
@@ -394,7 +412,7 @@ def _weighted_kernel_ok(x: torch.Tensor, interpret: bool) -> bool:
     # every CUDA call runs B1 (``weighted_dense`` folds x's leading axes
     # into M first); off the card ``interpret`` reaches the kernel's plain
     # version for a 2-D x only, as in the reference
-    return x.is_cuda or (interpret and x.dim() == 2)
+    return x.is_cuda or is_dtensor(x) or (interpret and x.dim() == 2)
 
 
 def _fold_rows(op, x, w, *rest, **kw):
@@ -408,7 +426,7 @@ def _weighted_dense_raw(x, w, g, out_dtype, interpret):
     if _weighted_kernel_ok(x, interpret):
         m, d = x.shape
         kern = _tuned_kernel(weighted_matmul_spec(m, d, w.shape[1]), x.dtype,
-                             interpret=interpret)
+                             interpret=interpret, sharded=is_dtensor(x))
         return kern(x, w, g).to(out_dtype)
     # the zipper x * g rounds in x's dtype, then an f32-accumulated product
     return _matmul_f32(x * g[None, :], w, out_dtype)
@@ -427,7 +445,7 @@ def weighted_dense(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     three-operand contraction, dg[j] = sum_ik dout[i,k] A[i,j] B[j,k].
     """
     out_dtype = out_dtype or x.dtype
-    if x.is_cuda and x.dim() != 2:
+    if (x.is_cuda or is_dtensor(x)) and x.dim() != 2:
         return _fold_rows(weighted_dense, x, w, g, out_dtype=out_dtype,
                           interpret=interpret, differentiable=differentiable)
     if _weighted_kernel_ok(x, interpret):
@@ -445,7 +463,8 @@ def _batched_dense_raw(x, w, out_dtype, interpret):
     if _batched_kernel_ok(x, w, interpret):
         b, m, d = x.shape
         kern = _tuned_kernel(batched_matmul_spec(b, m, d, w.shape[2]),
-                             x.dtype, interpret=interpret)
+                             x.dtype, interpret=interpret,
+                             sharded=is_dtensor(x))
         return kern(x, w).to(out_dtype)
     return torch.einsum("bmd,bdf->bmf", x.float(), w.float()).to(out_dtype)
 
@@ -471,7 +490,7 @@ def _chain_dense_raw(a, b, c, out_dtype, interpret):
         m, k1 = a.shape
         kern = _tuned_kernel(
             chain_matmul_spec(m, k1, b.shape[1], c.shape[1]), a.dtype,
-            interpret=interpret)
+            interpret=interpret, sharded=is_dtensor(a))
         return kern(a, b, c).to(out_dtype)
     # the reference's fallback: a @ b accumulated in f32 and rounded to
     # a's dtype, then the second product
@@ -505,7 +524,8 @@ def _dense_transposed_raw(a, b, out_dtype, interpret):
     if _generic_kernel_ok(a, interpret):
         d, m = a.shape
         kern = _tuned_kernel(transposed_matmul_spec(m, d, b.shape[1]),
-                             a.dtype, interpret=interpret)
+                             a.dtype, interpret=interpret,
+                             sharded=is_dtensor(a))
         return kern(a, b).to(out_dtype)
     return torch.einsum("dm,df->mf", a.float(), b.float()).to(out_dtype)
 
@@ -527,14 +547,14 @@ def dense_transposed(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
 
 
 def _grouped_kernel_ok(x: torch.Tensor, interpret: bool) -> bool:
-    return (x.is_cuda or interpret) and x.dim() == 2
+    return (x.is_cuda or interpret or is_dtensor(x)) and x.dim() == 2
 
 
 def _grouped_raw(x, w, group_sizes, out_dtype, interpret):
     if x.shape[0] and _grouped_kernel_ok(x, interpret):
         kern = _tuned_kernel(
             grouped_matmul_spec(group_sizes, x.shape[1], w.shape[2]),
-            x.dtype, interpret=interpret,
+            x.dtype, interpret=interpret, sharded=is_dtensor(x),
         )
         # as in the reference, the kernel stores in x.dtype and only then
         # casts: in bf16 the f32 accumulator is rounded to bf16 first
@@ -588,7 +608,8 @@ def _dense_act_raw(x, w, beta, mean, var, *, act, eps, out_dtype, interpret):
         m, d = x.shape
         epi = Epilogue(act=act, bias=True, norm=True, eps=eps)
         kern = _tuned_kernel(matmul_spec(m, d, w.shape[1]), x.dtype,
-                             epilogue=epi, interpret=interpret)
+                             epilogue=epi, interpret=interpret,
+                             sharded=is_dtensor(x))
         return kern(x, w, bias=beta, mean=mean, var=var).to(out_dtype)
     from ..kernels.fused_dense_act.ref import fused_dense_act_ref
 
@@ -610,7 +631,7 @@ def dense_act(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
     ``Epilogue.apply`` and routes dacc through ``matmul.dA``/``.dB``.
     """
     out_dtype = out_dtype or x.dtype
-    if x.is_cuda and x.dim() != 2:
+    if (x.is_cuda or is_dtensor(x)) and x.dim() != 2:
         return _fold_rows(dense_act, x, w, beta, mean, var, act=act, eps=eps,
                           out_dtype=out_dtype, interpret=interpret,
                           differentiable=differentiable)
@@ -628,7 +649,7 @@ def dense_act(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
 
 
 def _attention_kernel_ok(q: torch.Tensor, interpret: bool) -> bool:
-    return (q.is_cuda or interpret) and q.dim() == 3
+    return (q.is_cuda or interpret or is_dtensor(q)) and q.dim() == 3
 
 
 def _attention_raw(q, k, v, *, causal, kv_lengths, out_dtype, interpret):
@@ -637,7 +658,7 @@ def _attention_raw(q, k, v, *, causal, kv_lengths, out_dtype, interpret):
         kern = _tuned_kernel(
             attention_spec(h, s, k.shape[1], d, e=v.shape[2],
                            causal=causal),
-            q.dtype, interpret=interpret,
+            q.dtype, interpret=interpret, sharded=is_dtensor(q),
         )
         return kern(q, k, v, kv_lengths=kv_lengths).to(out_dtype)
     return attention_ref(q, k, v, causal=causal, kv_lengths=kv_lengths,

@@ -24,6 +24,7 @@ division, round-half-to-even, clip to +-127 and cast to
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -47,6 +48,22 @@ class Quantized:
     scale: torch.Tensor   # (nblocks, 1) f32
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+def block_placements(device_mesh, nblocks: int) -> list:
+    """The DTensor placements of a ``Quantized`` moment's (nblocks, ...)
+    tensors on ``device_mesh``: the block axis sharded over the mesh's
+    ``data`` and ``model`` dims together where their product divides it,
+    else replicated -- ``launch.sharding.quantized_sharding``'s layout."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = device_mesh.mesh_dim_names
+    dims = [i for i, n in enumerate(names) if n in ("data", "model")]
+    ranks = math.prod(device_mesh.size(i) for i in dims)
+    if not dims or nblocks % ranks:
+        return [Replicate()] * device_mesh.ndim
+    return [Shard(0) if i in dims else Replicate()
+            for i in range(device_mesh.ndim)]
 
 
 def quantize_blocks(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -184,8 +184,11 @@ def quant_hbm_bytes(spec, elem_bytes: int = 4) -> float:
 # ---------------------------------------------------------------------------
 
 #: (peak FLOP/s, HBM B/s, link B/s) by a record's ``hw``; None is the
-#: reference's TPU.  The H100's link is NVLink 4's 450 GB/s a direction
-#: (a dry-run's collectives are 0 bytes until item 6c part 2).
+#: reference's TPU.  The H100's link is NVLink 4's 450 GB/s a direction,
+#: from the data sheet: a pod or multi-pod dry-run's per-device collective
+#: bytes over it give the collective term.  A 16-wide mesh axis spans two
+#: 8-card NVLink domains, whose slower inter-node links the term leaves
+#: out, so it is a lower bound.
 HW_TERMS = {
     None: (PEAK_FLOPS, HBM_BW, ICI_BW),
     "h100": (H100["peak_bf16"], H100["hbm_bw"], 450e9),

@@ -16,9 +16,11 @@ A copy of the reference's ``runtime/fault.py`` over the port's ``obs``.
     ``fault.step_wall_s`` histogram, ``fault.last_step_wall_s`` /
     ``fault.step_median_s`` gauges, ``fault.straggler_events`` counter).
 
-Checkpoints are layout-free (see checkpoint/); re-sharding on restore
-(``restore(shardings=)``) and this module's mesh part come with ROADMAP.md
-queue A item 6c (part 2).
+Checkpoints are layout-free (see checkpoint/), so a loop whose world
+restarts on another mesh (say 2x2 -> 1x2) resumes there: its
+``restore_fn`` restores with the new mesh's shardings
+(``checkpoint.restore(shardings=, mesh=)``, as ``launch.train`` does),
+every rank slicing its own shards, and the replay is exact.
 """
 
 from __future__ import annotations

@@ -208,14 +208,45 @@ def test_serve_cli_capture_serves_both_engines(engine):
 
 @pytest.mark.parametrize("engine", ["continuous", "fixed"])
 def test_serve_cli_still_refuses_a_mesh(engine):
-    with pytest.raises(NotImplementedError, match="6c"):
-        port_serve.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
-                         "--engine", engine, "--capture", "--mesh", "2x4"])
+    """``serve --capture --mesh`` now serves: a world of one cannot host
+    the 2x4 mesh, so it sweeps the captured specs at the mesh tier and
+    serves single-rank, the same tokens as ``--capture`` alone."""
+    flags = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--engine",
+             engine, "--capture", "--requests", "2", "--prompt-len", "8",
+             "--max-new", "3", "--lanes", "2", "--rate-hz", "0",
+             "--no-search-grads"]
+    _, meshed, eng = port_serve.main(flags + ["--mesh", "2x4"])
+    _, plain, _ = port_serve.main(flags)
+    assert getattr(eng, "server", eng).mesh is None
+    assert [r.out_tokens for r in meshed] == [r.out_tokens for r in plain]
+    assert all(r.state == "finished" for r in meshed)
 
 
-def test_sweep_captured_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="6c"):
-        capture.sweep_captured([], mesh_shape="2x4")
+def test_sweep_captured_refuses_a_mesh(tmp_path):
+    """``sweep_captured(mesh_shape=)`` sweeps each plain point at the mesh
+    tier too, under the reference's mesh-qualified key, and a fused point
+    at mesh=None only (the fused families have no mesh tier)."""
+    from repro.core.enumerate import matmul_spec as ref_matmul_spec
+    from repro.search.plandb import plan_key as ref_plan_key
+    from repro_torch.core.enumerate import attention_spec, matmul_spec
+    from repro_torch.search import PlanDB
+    from repro_torch.search.plandb import plan_key
+
+    db = PlanDB(str(tmp_path / "plans.json"))
+    points = [("train:matmul", matmul_spec(128, 128, 128), "float32"),
+              ("prefill:attention", attention_spec(2, 8, 8, 16), "float32")]
+    n = capture.sweep_captured(points, with_grads=False, plan_db=db,
+                               measure=False, mesh_shape="2x4",
+                               device="cpu")
+    assert n == 3  # matmul at mesh=None and 2x4, attention at mesh=None
+    sched, entry = db.best_sharded_entry(points[0][1], "float32", mesh="2x4")
+    assert sched is not None and "collective" in entry
+    assert db.best_sharded_entry(points[1][1], "float32",
+                                 mesh="2x4")[0] is None
+    assert plan_key(points[0][1], torch.float32, hardware="h100",
+                    mesh="2x4") == ref_plan_key(
+        ref_matmul_spec(128, 128, 128), np.dtype("float32"), hardware="h100",
+        mesh="2x4")
 
 
 # --------------------------------------------------------------------------

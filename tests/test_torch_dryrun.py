@@ -223,9 +223,18 @@ def test_dryrun_cli_records_skips_errors_and_refuses_meshes(tmp_path,
     cfg = port_get_config("qwen3-8b").smoke()
     real = dryrun.run_cell
 
-    def small(arch, shape, device="cuda"):
+    # on the pod mesh a stand-in whose extents the 16-wide axes divide
+    pod_cfg = dataclasses.replace(cfg, n_layers=1, d_model=256, n_heads=16,
+                                  n_kv_heads=16, head_dim=16, d_ff=512,
+                                  vocab=512)
+
+    def small(arch, shape, device="cuda", mesh="1"):
         if arch != "qwen3-8b":
             raise RuntimeError("boom")
+        if mesh != "1":
+            return real(arch, shape, device=device, cfg=pod_cfg,
+                        shape=ShapeConfig("prefill", 32, 32, "prefill"),
+                        mesh=mesh)
         return real(arch, shape, device=device, cfg=cfg,
                     shape=ShapeConfig("prefill", S, B, "prefill"))
 
@@ -242,10 +251,29 @@ def test_dryrun_cli_records_skips_errors_and_refuses_meshes(tmp_path,
     monkeypatch.setattr(dryrun, "run_cell", None)  # skip-existing: not run
     dryrun.main(["--arch", "qwen3-8b", "--shape", "prefill_32k", "--out",
                  out, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="6c"):
-        dryrun.main(["--mesh", "pod", "--out", out])
-    with pytest.raises(NotImplementedError, match="6c"):
-        dryrun.collective_bytes("")
+    # the meshes: one rank's share of the step, under the reference's tag
+    monkeypatch.setattr(dryrun, "run_cell", small)
+    dryrun.main(["--arch", "qwen3-8b", "--shape", "prefill_32k", "--mesh",
+                 "pod", "--out", out, "--device", "cpu"])
+    with open(os.path.join(out, "qwen3-8b__prefill_32k__sp.json")) as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok", rec
+    assert (rec["mesh"], rec["chips"]) == ("16x16", 256)
+    # collective_bytes: what a call's collectives move on this rank
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import fake_world, make_debug_mesh
+
+    with fake_world(4):
+        mesh = make_debug_mesh((2, 2), ("data", "model"))
+        x = distribute_tensor(torch.ones(8, 4), mesh.device_mesh,
+                              [Shard(0), Replicate()])
+        got = dryrun.collective_bytes(
+            lambda: x.redistribute(mesh.device_mesh,
+                                   [Replicate(), Replicate()]))
+    assert got == {"all-gather": 8 * 4 * 4, "all-reduce": 0,
+                   "reduce-scatter": 0, "all-to-all": 0,
+                   "collective-permute": 0, "count": 1}
 
 
 def _fake_cuda(*shapes, dtype=torch.bfloat16):
@@ -326,6 +354,9 @@ def test_perf_knobs(tmp_path, capsys):
         row["vs_baseline"]["compute_s"][1]
     row = perf.run("qwen3-8b", "train_4k", ["causal_skip"], **kw)
     assert row["status"] == "ok"
-    for knob in perf.MESH_KNOBS:
-        with pytest.raises(NotImplementedError, match="6c"):
+    for knob in perf.MESH_KNOBS:  # a sharding knob needs a mesh
+        with pytest.raises(ValueError, match="--mesh pod"):
             perf.run("qwen3-8b", "train_4k", [knob], **kw)
+    row = perf.run("qwen3-8b", "train_4k", ["dp"], mesh="pod", **kw)
+    assert row["status"] == "ok" and row["mesh"] == "16x16"
+    assert os.environ.get("REPRO_SHARDING") is None  # restored

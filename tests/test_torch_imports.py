@@ -76,7 +76,9 @@ def test_port_sources_exist():
                    "codegen/collectives.py", "codegen/mesh_gen.py",
                    "launch/mesh.py", "launch/sharding.py",
                    "launch/overlap.py", "launch/pipeline.py",
-                   "optim/compress.py"):
+                   "optim/compress.py", "dtensor.py", "launch/dryrun.py",
+                   "launch/perf.py", "roofline/op_count.py",
+                   "checkpoint/checkpoint.py", "runtime/fault.py"):
         assert PORT / module in SOURCES, module
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 20
@@ -208,6 +210,43 @@ def test_mesh_tier_imports_with_jax_unimportable():
         "assert torch.equal(k(x, x), x @ x)\n"
         "with set_mesh(mesh):\n"
         "    assert active_mesh() is None  # a mesh of one rank is none\n"
+        "assert 'repro' not in sys.modules, 'reference package imported'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for var in ("RANK", "WORLD_SIZE"):
+        env.pop(var, None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sharded_tier_imports_with_jax_unimportable():
+    """The sharded tier (DTensor helpers, the ops' sharding rules, the
+    collective recorder, the mesh dry-run, elastic restore) imports and
+    runs with jax made unimportable: one sharded product on a fake world
+    of 4 ranks, its collectives recorded."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from torch.distributed.tensor import Replicate, Shard, "
+        "distribute_tensor\n"
+        "import repro_torch.dtensor, repro_torch.checkpoint\n"
+        "import repro_torch.runtime.fault, repro_torch.launch.perf\n"
+        "from repro_torch import ops\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.launch.mesh import fake_world, make_debug_mesh\n"
+        "with fake_world(4):\n"
+        "    dm = make_debug_mesh((2, 2)).device_mesh\n"
+        "    x = distribute_tensor(torch.ones(8, 8), dm, [Shard(1), "
+        "Replicate()])\n"
+        "    w = distribute_tensor(torch.ones(8, 8), dm, [Shard(0), "
+        "Replicate()])\n"
+        "    y = ops.dense(x, w, differentiable=False)\n"
+        "    got = dryrun.collective_bytes(y.full_tensor)\n"
+        "assert got['all-reduce'] == 8 * 8 * 4, got\n"
         "assert 'repro' not in sys.modules, 'reference package imported'\n"
         "print('ok')\n"
     )
