@@ -3460,7 +3460,9 @@ def phase_search(serve13):
     every one checked against the f64 oracle at the bf16 TOL with one B1
     launch a timed call on its plan (``search.measure``); the search
     keeps the heuristic's plan first unless another beat its median by
-    more than the larger of their spreads; where the
+    more than the larger of their spreads, in the ladder's timing and in
+    a second of the two alone (``search._keep_heuristic_within_spread``);
+    where the
     winner is not the heuristic's plan, the two re-timed by
     ``measure_schedules`` and the winner no slower than the heuristic by
     more than the larger of their spreads (interquartile ranges); for
@@ -3531,7 +3533,7 @@ def phase_search(serve13):
                     for n in spec.operands]
             dev = {"retimed": None}
             if res.best.card != base.card:
-                # the winner won one timing: it must not lose a second
+                # the winner won two timings: it must not lose a third
                 again = measure_schedules(
                     spec, [res.best.schedule, base.schedule],
                     arrays=dict(zip(spec.operands, args)),
@@ -3545,7 +3547,10 @@ def phase_search(serve13):
                         f"{tuple(res.best.card)} re-timed at "
                         f"{dev['retimed'][0]:.4f} ms, the heuristic "
                         f"{tuple(base.card)} at {dev['retimed'][1]:.4f} ms, "
-                        f"spread {dev['retimed'][2]:.4f} ms")
+                        f"spread {dev['retimed'][2]:.4f} ms; the ladder "
+                        + " ".join(f"{tuple(p.card)}={p.measured_s * 1e3:.4f}"
+                                   f"+-{(p.spread_s or 0) * 1e3:.4f}ms"
+                                   for p in res.ranked))
             for tag, rung in (("winner", res.best), ("heuristic", base)):
                 kern = cached_compile(spec, rung.schedule, card=rung.card)
                 dev[tag] = _kernel_ms(lambda k=kern: k(*args), flush,
@@ -4109,6 +4114,10 @@ HOF_LOWER_TOL = 1e-10
 #: Table 1 and Table 2 at the reference scripts' size, the lowered Table 1
 #: also at the paper's; Fig 3 at the paper's size and block
 HOF_N, HOF_PAPER_N, HOF_B2, HOF_FIG3 = 384, 1024, 16, (1024, 64)
+#: Table 2 through ``execute`` at a smaller n: its two variants that map
+#: over A's and B's rows both call n^2 host einsums (147456 at n = 384,
+#: 7-14 s a call, four calls a variant, most of the phase)
+HOF_T2_EXECUTE_N = 192
 HOF_TUNE_N, HOF_TUNE_SPLITS = 256, {"j": [16, 64]}
 #: worker processes for the interpreter's cases (the card's host has 8
 #: cores; the two 4-index cases at extent 32 take about 10 s each)
@@ -4247,7 +4256,8 @@ def phase_hof():
     (1e-4, 1e-4), ``contraction_to_torch`` on CUDA f64 at 1e-10, one B1
     launch a case.
     (b) The paper's tables in f64 through ``repro_torch.paper``: Table 1
-    and Table 2 (b = 16) at n = 384 through ``execute`` and ``lower``,
+    and Table 2 (b = 16) at n = 384 through ``execute`` (Table 2 at
+    ``HOF_T2_EXECUTE_N``) and ``lower``,
     Table 1 lowered at n = 1024, Fig 3 at n = 1024, b = 64 through both;
     each variant against ``torch.matmul`` at rtol 1e-8 and timed (median
     of 3 event-timed runs after a warm-up).  (c) The tuner:
@@ -4298,8 +4308,9 @@ def phase_hof():
     with contextlib.redirect_stdout(csv):
         for executor in ("execute", "lower"):
             tables[f"table1.{executor}"] = table1.run(HOF_N, executor=executor)
-            tables[f"table2.{executor}"] = table2.run(HOF_N, HOF_B2,
-                                                      executor=executor)
+            tables[f"table2.{executor}"] = table2.run(
+                HOF_T2_EXECUTE_N if executor == "execute" else HOF_N,
+                HOF_B2, executor=executor)
             tables[f"fig3.{executor}"] = fig3.run(*HOF_FIG3,
                                                   executor=executor)
         tables["table1.lower.paper_n"] = table1.run(HOF_PAPER_N,
@@ -5596,8 +5607,11 @@ def _capture_serve_train(out, smi, train_summary):
     _free()
 
     # the f32 unembedding on B1, alone: train M = 2048, decode M = 4; its
-    # forward and the two derived specs of its backward, one launch each
-    from repro_torch.codegen.cuda_gen import contract_ref
+    # forward and the two derived specs of its backward, each one launch on
+    # the tc32 body (the narrow x tile at decode's forward and .dA,
+    # matmul.dB's x^T transposed as it is split) and no other device work,
+    # within the f32 TOL of its plain version
+    from repro_torch.codegen.cuda_gen import contract_ref, tc32_width
     from repro_torch.core.enumerate import matmul_spec
     from repro_torch.grad import COTANGENT, derived_specs
     from repro_torch.grad.vjp import apply_spec
@@ -5635,22 +5649,40 @@ def _capture_serve_train(out, smi, train_summary):
                             + m * cfg.vocab), "float32",
                        peak=PEAK_3XTF32)[0]
         rows = {}
+        launcher = _launcher("contract")
         with torch.no_grad():
             for what, fn in calls.items():
+                tag = f"capture unembedding M = {m} {what}"
+                got = fn()
+                body = _body(launcher)
+                width = launcher.last_plan and launcher.last_plan.tile_n
+                # the product's M: the tokens, or D for matmul.dB's x^T
+                # (m-contiguous: the 128-wide tile)
+                want_width = (tc32_width(m, narrow_x=True) if what != ".dB"
+                              else tc32_width(cfg.d_model))
+                if launcher.last_body != "tc32" or width != want_width:
+                    raise AssertionError(f"{tag}: body {body}, expected tc32 "
+                                         f"with an x tile {want_width} wide")
+                err = _check_close(got, plains[what](), "float32", tag)
+                del got
+                _alone(fn, "contract", 1, tag)
                 ms = _kernel_ms(fn, flush, "contract")[0]
-                rows[what] = dict(device_ms=ms,
-                                  body=_body(_launcher("contract")),
+                rows[what] = dict(device_ms=ms, body=body,
+                                  max_abs_err=err[0], scaled_err=err[1],
                                   library_ms=_timed(libs[what], flush,
                                                     reps=3, warmup=1),
                                   plain_ms=_timed(plains[what], flush,
                                                   **PLAIN_REPS),
                                   bound_ms=bound)
+                torch.cuda.empty_cache()
         out["unembed"][m] = rows
         print(f"[capture] f32 unembedding {m} x {cfg.d_model} x "
-              f"{cfg.vocab} on B1, device ms (body; torch.matmul f32 ms; "
-              f"the plain version's ms): "
+              f"{cfg.vocab} on B1, each one launch alone, device ms (body; "
+              f"scaled err vs the plain version; torch.matmul f32 ms; the "
+              f"plain version's ms): "
               + ", ".join(f"{k} {v['device_ms']:.3f} ({v['body']}; "
-                          f"{v['library_ms']:.3f}; plain {v['plain_ms']:.3f})"
+                          f"{v['scaled_err']:.3g}; {v['library_ms']:.3f}; "
+                          f"plain {v['plain_ms']:.3f})"
                           for k, v in rows.items())
               + f"; bound {bound:.3f} ms each (3xTF32) ({smi})", flush=True)
         del x, g
@@ -6210,10 +6242,11 @@ def phase_mesh(smi):
 SHARD_B1 = ((512, 4096, 12288), (512, 12288, 4096))
 SHARD_ATTN = (ATTN_HEADS, ATTN_SEQ, ATTN_DIM)
 SHARD_GROUPS = (MOE_TRAIN_C,) * MOE_TRAIN_EXPERTS
-#: (b) qwen3-8b at full width cut to 8 of 36 layers (the train cell's
-#: cut), batch 2 x 256 tokens, f32 moments, 3 steps; the losses also at
-#: a 2-layer cut against rank 0 alone
-SHARD_LAYERS, SHARD_CHECK_LAYERS = TRAIN_LAYERS, 2
+#: (b) qwen3-8b at full width cut to 4 of 36 layers (half the train
+#: cell's cut: each step is host-bound on gloo, 12-21 s at 8 layers),
+#: batch 2 x 256 tokens, f32 moments, 3 steps; the losses also at a
+#: 2-layer cut against rank 0 alone
+SHARD_LAYERS, SHARD_CHECK_LAYERS = 4, 2
 SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 2, 256, 3
 #: (c) kimi-k2 at the MoE train cut (2 layers, 32 experts), batch 1 x 256
 #: tokens, bf16 moments, one step

@@ -60,8 +60,10 @@ each kernel's profiler device ms and event-timed ms (L2 flushed before
 each launch), and its body where the tree records it.  With ``--f32``:
 B1's f32 products through ``ops`` at the fused path's shape (M = 2048, K
 = 4096, N = 12288): the plain product and the ten epilogue variants of
-``b1-modes``, and phase ``kernel``'s f32 case (M = 128, K = N = 4096)
-through the launcher; each turn prints the tree, every row's profiler
+``b1-modes``, phase ``kernel``'s f32 case (M = 128, K = N = 4096)
+through the launcher, and qwen3-8b's f32 unembedding (K = 4096, N =
+151936) as phase ``capture`` launches it: the forward, ``.dA`` and ``.dB``
+at M = 2048 and M = 4; each turn prints the tree, every row's profiler
 device ms of B1's f32 kernels (whatever body) and event-timed ms, and the
 body that ran.  With ``--dw``: B4 through ``ops`` at the MoE training
 path's shapes (32 groups of C = 320, gate/up and down) and kimi-k2's full
@@ -482,6 +484,32 @@ for name, run in runs.items():
     device[name] = device_ms(run, "contract_f32")
     event[name] = cs._timed(run, flush)
     body[name] = CONTRACT.last_body
+del x, w, a, b
+# qwen3-8b's f32 unembedding on B1 (phase capture's rows): the forward and
+# the two derived specs of its backward at train's M = 2048 and decode's 4
+from repro_torch.configs import get_config
+from repro_torch.grad import COTANGENT, derived_specs
+from repro_torch.grad.vjp import apply_spec
+cfg = get_config("qwen3-8b")
+w = torch.randn(cfg.d_model, cfg.vocab, generator=gen, device="cuda")
+for m in (cs.TRAIN_M, 4):
+    x = torch.randn(m, cfg.d_model, generator=gen, device="cuda")
+    g = torch.randn(m, cfg.vocab, generator=gen, device="cuda")
+    dsp = derived_specs(matmul_spec(m, cfg.d_model, cfg.vocab))
+    calls = {
+        "fwd": lambda: ops.dense(x, w, differentiable=False),
+        ".dA": lambda: apply_spec(dsp["A"], {COTANGENT: g, "B": w},
+                                  out_dtype=f32, use_kernel=True),
+        ".dB": lambda: apply_spec(dsp["B"], {COTANGENT: g, "A": x},
+                                  out_dtype=f32, use_kernel=True)}
+    with torch.no_grad():
+        for what, run in calls.items():
+            name = f"unembedding M={m} {what}"
+            device[name] = device_ms(run, "contract_f32", reps=3)
+            event[name] = cs._timed(run, flush, reps=3, warmup=1)
+            body[name] = CONTRACT.last_body
+            torch.cuda.empty_cache()
+    del x, g
 print("COMPARE " + json.dumps({"tree": sys.argv[1], "f32_device_ms": device,
                                "f32_ms": event, "body": body}), flush=True)
 """

@@ -113,7 +113,7 @@
 //     aligned), else element-wise.  Loads and math alternate;
 //   * the tc32 body (body 3), for f32 products, plain or with the
 //     epilogue and multiplier modes, whose x (A) has unit stride along k
-//     and whose W (B) unit stride along n or k, as TMA reads them
+//     or m and whose W (B) unit stride along n or k, as TMA reads them
 //     (codegen.cuda_gen.contract_body; launch_tc32 refuses the rest):
 //     3xTF32 on the tensor cores.  Each operand is split into hi + lo,
 //     each rounded to TF32 (to nearest, ties away: cvt.rna's rounding),
@@ -123,15 +123,30 @@
 //     (no transpose bits), and the fused path's W is N-major, so the
 //     roles are swapped as in the narrow body: C^T = W^T x^T, W^T
 //     wgmma's register A operand and x^T its K-major shared B.  A CTA of
-//     three warpgroups owns 128 of N by 128 of M: thread 0 keeps TMA
-//     loads of 32-deep K steps in flight into a ring of four 48 KB
-//     stages; warps 1-3 split each landed x tile into hi (in place) and
-//     lo rows, fence them for the async proxy and release the stage on a
-//     second ("ready") mbarrier; the two consumer warpgroups read W^T's
-//     fragments with 8-byte shared loads (either of W's layouts), split
-//     them in registers and run three m64n128k8 wgmmas a k8 step.  Where
-//     the output has few tiles (M = 128) the K steps are split across
-//     CTAs as the ring's (cuda_gen.tc32_tiles).  The
+//     three warpgroups owns 128 of N by BMX of M: thread 0 keeps TMA
+//     loads of 32-deep K steps in flight into a ring of up to 192 KB;
+//     warps 1-3 split each landed x tile into hi and lo rows, fence them
+//     for the async proxy and release the stage on a second ("ready")
+//     mbarrier; the two consumer warpgroups read W^T's fragments with
+//     8-byte shared loads (either of W's layouts), split them in registers
+//     and run three m64nBMXk8 wgmmas a k8 step.  An x with unit stride
+//     along k lands k-major and is split in place (four 48 KB stages at
+//     BMX 128); one with unit stride along m only (matmul.dB's x^T, the
+//     weighted dB's) lands m-major in a tile of its own, four boxes of 32
+//     m x 32 k, and the splitting warps transpose it as they split: 4 m at
+//     one k read as a float4, 4 x 4 transposed in registers, hi and lo
+//     written in the stage's k order, so the consumers see the same tiles
+//     (three 64 KB stages); no copy of x^T is made.  A plain product at M
+//     < 64 whose x is k-major takes a narrow x tile, BMX = M rounded up
+//     to 8, 16, 32 or 64, so a stage holds 18-32 KB and the ring 6-10
+//     stages of W in flight (decode: W's bytes bound it, and a 128-wide
+//     tile would spend its wgmmas on zero columns); the fused modes
+//     keep BMX 128 (fused_store's 128 rows).  A plain unsplit product
+//     runs one CTA an SM, each walking its tiles in turn with its ring
+//     running on, so the next tile's loads are in flight while a tile is
+//     stored (decode's matmul.dB, K = 4: the 2.49 GB store bounds it).
+//     Where the output has few tiles the K steps are split across CTAs
+//     as the ring's (cuda_gen.tc32_tiles picks BMX and the split).  The
 //     tensor cores round their own accumulation toward zero, so a sum
 //     over all of K drifts with K; each stage's twelve products are
 //     summed from zero and added to the accumulator in f32 instead.  The
@@ -1496,19 +1511,33 @@ int launch_narrow(const ContractParams& p, cudaStream_t stream) {
 // the operands' roles swapped, C^T = W^T x^T (see the header of this file).
 // ---------------------------------------------------------------------------
 constexpr int T_BN = 128;  // the product's N a CTA: wgmma's 128 rows
-constexpr int T_BM = 128;  // the product's M a CTA: wgmma's n128
+constexpr int T_BM = 128;  // the widest x tile (the product's M a CTA)
 constexpr int T_BK = 32;   // k a stage: one 128-byte swizzled row of f32
-constexpr int T_X_BYTES = T_BM * T_BK * 4;  // x's tile (split hi in place)
 constexpr int T_W_BYTES = T_BN * T_BK * 4;  // W's tile
-// a stage: x (hi), x's lo, W; 48 KB
-constexpr int T_STAGE = 2 * T_X_BYTES + T_W_BYTES;
-constexpr int T_STAGES = 4;
+constexpr int T_RING_BYTES = 192 * 1024;    // the stages' bytes, at most
 constexpr int T_SPLIT = 96;  // the splitting threads: warps 1-3
-// the ring, 1024 bytes to align it, full, ready and empty barriers
-constexpr int T_SMEM = T_STAGES * T_STAGE + 1024 + 3 * T_STAGES * 8 + 16;
-static_assert(R_BM * ETile<T_BN>::LD * 4 <= T_STAGES * T_STAGE,
-              "the epilogue tile fits the drained ring");
 static_assert(T_BM == R_BM, "fused_store's 128 rows");
+
+// The ring of one instantiation: x's tile BMX (the product's M) wide --
+// wgmma's n, 8 to 128 -- split into hi and lo tiles; XM: x arrives
+// m-major in a tile of its own (four boxes of 32 m x 32 k) that the
+// splitting threads transpose, else k-major into the hi tile, split in
+// place.  A stage: hi, lo, W, then (XM) the m-major tile; as many stages
+// as T_RING_BYTES holds (4 at 128 wide, 3 with XM, 6 to 10 narrow).
+template <bool XM, int BMX>
+struct Tc32 {
+  static_assert(!XM || BMX == T_BM, "an m-major x takes the 128-wide tile");
+  static constexpr int X_BYTES = BMX * T_BK * 4;
+  static constexpr int STAGE = (XM ? 3 : 2) * X_BYTES + T_W_BYTES;
+  static constexpr int STAGES = T_RING_BYTES / STAGE;
+  static constexpr int ACC = BMX / 2;  // f32 accumulators of a consumer
+  // the ring, 1024 bytes to align it, full, ready and empty barriers
+  static constexpr int SMEM = STAGES * STAGE + 1024 + 3 * STAGES * 8 + 16;
+  static_assert(STAGE % 1024 == 0, "every tile 1024-byte aligned");
+};
+static_assert(R_BM * ETile<T_BN>::LD * 4 <=
+                  Tc32<true, T_BM>::STAGES * Tc32<true, T_BM>::STAGE,
+              "the epilogue tile fits the drained ring");
 
 // The stage's k order.  wgmma k8 step q's slot j (j < 4: A's registers a0
 // and a1, j >= 4: a2 and a3, at thread t = j % 4) holds
@@ -1516,19 +1545,21 @@ static_assert(T_BM == R_BM, "fused_store's 128 rows");
 // of the stage's 32, a permutation of them: a thread's two k of steps 0
 // and 1 (and of 2 and 3) are neighbours, and the rows of W it reads hit
 // distinct banks in either layout.  The splitting threads write x's hi
-// and lo rows in this order, so each product pairs equal k.
+// and lo rows in this order, so each product pairs equal k: row m of a
+// tile holds 32 k, 128-byte swizzled, output chunk o = 2q + h (k-slots 4h
+// .. 4h + 3 of step q) at o ^ m % 8.
 //
-// One half of a row of the landed x tile (32 f32 along k, 128-byte
-// swizzled: chunk c of 4 k at c ^ row % 8) split into hi (in place) and lo
-// (at the stage's lo tile), each permuted to the k order: output chunk o =
-// 2q + h holds k-slots 4h .. 4h + 3 of step q.  Half u, chunks 4u .. 4u +
-// 3 (k 16u .. 16u + 15), holds exactly the k of steps 2u and 2u + 1, so a
-// half is read whole and then written over by one thread, and no other
-// thread touches it.
-__device__ __forceinline__ void tc32_split_half(unsigned char* xs, int row,
+// One half of a row of the landed k-major x tile (32 f32 along k, 128-byte
+// swizzled: chunk c of 4 k at c ^ row % 8) split into hi (in place) and lo,
+// each permuted to the k order.  Half u, chunks 4u .. 4u + 3 (k 16u ..
+// 16u + 15), holds exactly the k of steps 2u and 2u + 1, so a half is read
+// whole and then written over by one thread, and no other thread touches
+// it.
+__device__ __forceinline__ void tc32_split_half(unsigned char* his,
+                                                unsigned char* los, int row,
                                                 int u) {
-  float4* hi = reinterpret_cast<float4*>(xs + row * 128);
-  float4* lo = reinterpret_cast<float4*>(xs + T_X_BYTES + row * 128);
+  float4* hi = reinterpret_cast<float4*>(his + row * 128);
+  float4* lo = reinterpret_cast<float4*>(los + row * 128);
   const int sw = row & 7;
   float in[4][4];
 #pragma unroll
@@ -1551,6 +1582,52 @@ __device__ __forceinline__ void tc32_split_half(unsigned char* xs, int row,
                              __uint_as_float(hb[2]), __uint_as_float(hb[3]));
     lo[o ^ sw] = make_float4(__uint_as_float(lb[0]), __uint_as_float(lb[1]),
                              __uint_as_float(lb[2]), __uint_as_float(lb[3]));
+  }
+}
+
+// One of the 256 tasks of transposing a landed m-major x tile (four boxes
+// j of 32 m: row k of 128 bytes, chunk c of 4 m at c ^ k % 8) into the
+// stage's hi and lo tiles (rows m, the k order): 4 m (4c .. 4c + 3 of box
+// j) by the 4 k of output chunk o.  The four k are read as four float4 of
+// 4 m each, transposed in registers, split and written as rows 4c + e's
+// chunk o.  Task bits: o (0-2), c's parity p (3), a rotation r (4-5), j
+// (6-7); c = 2 ((o % 2 + 2 (o / 4) + r) % 4) + p.  Eight neighbouring
+// threads (a 16-byte access's phase) take o = 0..7 with one p: their
+// reads (chunk c ^ k % 8, k % 8 = 2i + q % 2) and their writes (chunk o ^
+// (4p + e)) each hit 8 distinct 16-byte bank groups.
+__device__ __forceinline__ void tc32_split_transpose(const unsigned char* xm,
+                                                     unsigned char* his,
+                                                     unsigned char* los,
+                                                     int task) {
+  const int o = task & 7, p = (task >> 3) & 1, r = (task >> 4) & 3;
+  const int j = task >> 6;
+  const int q = o >> 1, h = o & 1;
+  const int c = 2 * (((o & 1) + 2 * (o >> 2) + r) & 3) + p;
+  const unsigned char* box = xm + j * 4096;
+  float in[4][4];  // [slot i of the chunk][m 4c + e]
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = 2 * i + (q & 1) + 16 * (q >> 1) + 8 * h;
+    const float4 v = *reinterpret_cast<const float4*>(
+        box + k * 128 + ((c ^ (k & 7)) << 4));
+    in[i][0] = v.x;
+    in[i][1] = v.y;
+    in[i][2] = v.z;
+    in[i][3] = v.w;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int m = 32 * j + 4 * c + e;
+    uint32_t hb[4], lb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hopper::split_tf32(in[i][e], hb[i], lb[i]);
+    const int at = m * 128 + ((o ^ (m & 7)) << 4);
+    *reinterpret_cast<float4*>(his + at) =
+        make_float4(__uint_as_float(hb[0]), __uint_as_float(hb[1]),
+                    __uint_as_float(hb[2]), __uint_as_float(hb[3]));
+    *reinterpret_cast<float4*>(los + at) =
+        make_float4(__uint_as_float(lb[0]), __uint_as_float(lb[1]),
+                    __uint_as_float(lb[2]), __uint_as_float(lb[3]));
   }
 }
 
@@ -1603,25 +1680,31 @@ __device__ __forceinline__ void tc32_fragments(const unsigned char* ws,
     for (int r = 0; r < 4; ++r) hopper::split_tf32(a[q][r], ah[q][r], al[q][r]);
 }
 
-// The body of the two tc32 kernels.  Grid (tiles, 1, batch x splits): the
-// (N / 128) x (M / 128) tiles in bands of R_BAND row tiles (rows: the
-// product's N), the K steps of each split across ``splits`` CTAs as the
-// ring's (the last CTA of a tile sums the partial tiles in split order).
-// Warpgroup 0: thread 0 keeps TMA loads of x (tmX: (K, M, batch), boxes of
-// 32 k x 128 m) and W (tmW: N-major (N, K, batch), four boxes of 32 n x 32
-// k; WK: K-major (K, N, batch), one box of 32 k x 128 n) in flight; warps
-// 1-3 split each landed x tile (tc32_split_half), fence it for the async
+// The body of the tc32 kernels.  Grid (CTAs, 1, batch x splits) over the
+// (N / 128) x (M / BMX) tiles in bands of R_BAND row tiles (rows: the
+// product's N): a CTA takes tiles blockIdx.x, + gridDim.x, ... in turn,
+// its ring and barriers running on from one tile to the next, so the next
+// tile's loads are in flight while a tile is stored (a plain product
+// unsplit: one CTA an SM; otherwise one tile a CTA).  The K steps of each
+// split run across ``splits`` CTAs as the ring's (the last CTA of a tile
+// sums the partial tiles in split order).
+// Warpgroup 0: thread 0 keeps TMA loads of x (tmX: k-major (K, M, batch),
+// boxes of 32 k x BMX m; XM: m-major (M, K, batch), four boxes of 32 m x
+// 32 k) and W (tmW: N-major (N, K, batch), four boxes of 32 n x 32 k; WK:
+// K-major (K, N, batch), one box of 32 k x 128 n) in flight; warps 1-3
+// split each landed x tile (tc32_split_half in place, or XM
+// tc32_split_transpose from the m-major tile), fence it for the async
 // proxy and arrive on the stage's ready barrier.  Warpgroups 1 and 2 take
 // 64 of the tile's n each: W^T's fragments by 8-byte shared loads, split
 // in registers, and x^T's hi and lo tiles from shared memory, three
-// m64n128k8 wgmmas a k8 step (lo.hi, hi.lo, then hi.hi), a stage's twelve
+// m64nBMXk8 wgmmas a k8 step (lo.hi, hi.lo, then hi.hi), a stage's twelve
 // summed from zero and added to the accumulator in f32.  A warpgroup
 // waits for its own group before it writes the next fragments (C7513
 // otherwise, as ring_mainloop_ks); the other one's keeps the tensor cores
-// busy.  FEAT_FUSED applies ``p``'s epilogue and multiplier through the
-// staged tile (fused_store), else the fragments are stored as they are,
-// two neighbouring n of one row a word where C allows.
-template <int FEAT, bool WK>
+// busy.  FEAT_FUSED (BMX 128 only) applies ``p``'s epilogue and multiplier
+// through the staged tile (fused_store), else the fragments are stored as
+// they are, two neighbouring n of one row a word where C allows.
+template <int FEAT, bool WK, bool XM, int BMX>
 __device__ __forceinline__ void tc32_body(const CUtensorMap* tmX,
                                           const CUtensorMap* tmW, void* C,
                                           int M, int N, int K, long long sCb,
@@ -1629,22 +1712,21 @@ __device__ __forceinline__ void tc32_body(const CUtensorMap* tmX,
                                           int out_bf16, int splits,
                                           float* partial, int* counter,
                                           const ContractParams* p) {
+  using TG = Tc32<XM, BMX>;
+  static_assert(FEAT == FEAT_PLAIN || BMX == T_BM, "fused_store's 128 rows");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* tiles =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + T_STAGES * T_STAGE);
-  uint64_t* ready = full + T_STAGES;
-  uint64_t* empty = ready + T_STAGES;
-  int* last = reinterpret_cast<int*>(empty + T_STAGES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + TG::STAGES * TG::STAGE);
+  uint64_t* ready = full + TG::STAGES;
+  uint64_t* empty = ready + TG::STAGES;
+  int* last = reinterpret_cast<int*>(empty + TG::STAGES);
   FusedSmem* fs = reinterpret_cast<FusedSmem*>(
       (reinterpret_cast<uintptr_t>(last + 4) + 127) & ~uintptr_t(127));
 
-  const int gx = (M + T_BM - 1) / T_BM;
+  const int gx = (M + BMX - 1) / BMX;
   const int gy = (N + T_BN - 1) / T_BN;
-  int r_t, c_t;
-  hopper::raster(blockIdx.x, gx, gy, R_BAND, r_t, c_t);
-  const int n0 = r_t * T_BN;
-  const int m0 = c_t * T_BM;
+  const int ntiles = gx * gy;
   const int b = blockIdx.z / splits;
   const int split = blockIdx.z % splits;
   const int nk = (K + T_BK - 1) / T_BK;
@@ -1652,7 +1734,7 @@ __device__ __forceinline__ void tc32_body(const CUtensorMap* tmX,
   const int k_first = split * per;
   const int steps = min(nk, k_first + per) - k_first;  // >= 1 (the host's)
   if (threadIdx.x == 0) {
-    for (int s = 0; s < T_STAGES; ++s) {
+    for (int s = 0; s < TG::STAGES; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&ready[s], T_SPLIT);
       hopper::mbar_init(&empty[s], 2);  // one arrival per consumer group
@@ -1666,31 +1748,56 @@ __device__ __forceinline__ void tc32_body(const CUtensorMap* tmX,
     if (threadIdx.x == 0) {  // the producer
       hopper::tma_prefetch(tmX);
       hopper::tma_prefetch(tmW);
-      for (int i = 0; i < steps; ++i) {
-        const int s = i % T_STAGES;
-        hopper::mbar_wait(&empty[s], ((i / T_STAGES) & 1) ^ 1);
-        hopper::mbar_arrive_tx(&full[s], T_X_BYTES + T_W_BYTES);
-        unsigned char* xs = tiles + s * T_STAGE;
-        unsigned char* ws = xs + 2 * T_X_BYTES;
-        const int k0 = (k_first + i) * T_BK;
-        hopper::tma_load(xs, tmX, &full[s], k0, m0, b);
-        if (WK) {
-          hopper::tma_load(ws, tmW, &full[s], k0, n0, b);
-        } else {
+      int it = 0;  // the ring's step count, over this CTA's tiles
+      for (int job = blockIdx.x; job < ntiles; job += gridDim.x) {
+        int r_t, c_t;
+        hopper::raster(job, gx, gy, R_BAND, r_t, c_t);
+        const int n0 = r_t * T_BN;
+        const int m0 = c_t * BMX;
+        for (int i = 0; i < steps; ++i, ++it) {
+          const int s = it % TG::STAGES;
+          hopper::mbar_wait(&empty[s], ((it / TG::STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_tx(&full[s], TG::X_BYTES + T_W_BYTES);
+          unsigned char* xs = tiles + s * TG::STAGE;
+          unsigned char* ws = xs + 2 * TG::X_BYTES;
+          const int k0 = (k_first + i) * T_BK;
+          if (XM) {
 #pragma unroll
-          for (int j = 0; j < T_BN / 32; ++j)
-            hopper::tma_load(ws + j * 4096, tmW, &full[s], n0 + 32 * j, k0,
-                             b);
+            for (int j = 0; j < BMX / 32; ++j)
+              hopper::tma_load(ws + T_W_BYTES + j * 4096, tmX, &full[s],
+                               m0 + 32 * j, k0, b);
+          } else {
+            hopper::tma_load(xs, tmX, &full[s], k0, m0, b);
+          }
+          if (WK) {
+            hopper::tma_load(ws, tmW, &full[s], k0, n0, b);
+          } else {
+#pragma unroll
+            for (int j = 0; j < T_BN / 32; ++j)
+              hopper::tma_load(ws + j * 4096, tmW, &full[s], n0 + 32 * j,
+                               k0, b);
+          }
         }
       }
     } else if (threadIdx.x >= 32) {  // the splitters
       const int st = threadIdx.x - 32;
-      for (int i = 0; i < steps; ++i) {
-        const int s = i % T_STAGES;
-        hopper::mbar_wait(&full[s], (i / T_STAGES) & 1);
-        // 256 half rows over 96 threads: 3, 3 and 2 a thread by warp
-        for (int task = st; task < 2 * T_BM; task += T_SPLIT)
-          tc32_split_half(tiles + s * T_STAGE, task >> 1, task & 1);
+      const int total =
+          steps * ((ntiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                   (int)gridDim.x);
+      for (int it = 0; it < total; ++it) {
+        const int s = it % TG::STAGES;
+        unsigned char* xs = tiles + s * TG::STAGE;
+        hopper::mbar_wait(&full[s], (it / TG::STAGES) & 1);
+        if (XM) {
+          // 256 tasks over 96 threads: 3, 3 and 2 a thread by warp
+          for (int task = st; task < 256; task += T_SPLIT)
+            tc32_split_transpose(xs + 2 * TG::X_BYTES + T_W_BYTES, xs,
+                                 xs + TG::X_BYTES, task);
+        } else {
+          // 2 BMX half rows over 96 threads
+          for (int task = st; task < 2 * BMX; task += T_SPLIT)
+            tc32_split_half(xs, xs + TG::X_BYTES, task >> 1, task & 1);
+        }
         hopper::fence_proxy_async();
         hopper::mbar_arrive(&ready[s]);
       }
@@ -1705,206 +1812,269 @@ __device__ __forceinline__ void tc32_body(const CUtensorMap* tmX,
   const int t = lane & 3;
   // the thread's two neighbouring n of the tile (wgmma rows g and g + 8)
   const int nl = 64 * half + 16 * ((ct >> 5) & 3) + 2 * (lane >> 2);
-  // acc: the sum over the stages, each stage's 12 wgmmas summed in part
-  // (its first from zero) and added to acc in f32 (the tensor cores' own
-  // accumulation rounds toward zero, so a running sum over all of K would
-  // drift with K)
-  float acc[64], part[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
-  if constexpr (FEAT == FEAT_FUSED) stage_vectors<T_BN>(fs, *p, b, m0, n0, ct);
   const uint32_t base = hopper::smem_u32(tiles);
-  for (int i = 0; i < steps; ++i) {
-    const int s = i % T_STAGES;
-    const uint32_t parity = (i / T_STAGES) & 1;
-    hopper::mbar_wait(&full[s], parity);
-    hopper::mbar_wait(&ready[s], parity);
-    uint32_t ah[4][4], al[4][4];
-    tc32_fragments<WK>(tiles + s * T_STAGE + 2 * T_X_BYTES, nl, t, ah, al);
-    const uint32_t xh = base + s * T_STAGE;
-    const uint32_t xl = xh + T_X_BYTES;
-    hopper::fence_regs(part);
-    hopper::wgmma_fence();
+  int it = 0;
+  for (int job = blockIdx.x; job < ntiles; job += gridDim.x) {
+    int r_t, c_t;
+    hopper::raster(job, gx, gy, R_BAND, r_t, c_t);
+    const int n0 = r_t * T_BN;
+    const int m0 = c_t * BMX;
+    // acc: the sum over the stages, each stage's 12 wgmmas summed in part
+    // (its first from zero) and added to acc in f32 (the tensor cores' own
+    // accumulation rounds toward zero, so a running sum over all of K would
+    // drift with K)
+    float acc[TG::ACC], part[TG::ACC];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      hopper::wgmma_tf32_rs(part, al[q], hopper::desc(xh + q * 32, 16, 1024),
-                            q > 0);
-      hopper::wgmma_tf32_rs(part, ah[q], hopper::desc(xl + q * 32, 16, 1024));
-      hopper::wgmma_tf32_rs(part, ah[q], hopper::desc(xh + q * 32, 16, 1024));
+    for (int i = 0; i < TG::ACC; ++i) acc[i] = part[i] = 0.f;
+    if constexpr (FEAT == FEAT_FUSED)
+      stage_vectors<T_BN>(fs, *p, b, m0, n0, ct);
+    for (int i = 0; i < steps; ++i, ++it) {
+      const int s = it % TG::STAGES;
+      const uint32_t parity = (it / TG::STAGES) & 1;
+      hopper::mbar_wait(&full[s], parity);
+      hopper::mbar_wait(&ready[s], parity);
+      uint32_t ah[4][4], al[4][4];
+      tc32_fragments<WK>(tiles + s * TG::STAGE + 2 * TG::X_BYTES, nl, t, ah,
+                         al);
+      const uint32_t xh = base + s * TG::STAGE;
+      const uint32_t xl = xh + TG::X_BYTES;
+      hopper::fence_regs(part);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        hopper::wgmma_tf32_rs(part, al[q],
+                              hopper::desc(xh + q * 32, 16, 1024), q > 0);
+        hopper::wgmma_tf32_rs(part, ah[q],
+                              hopper::desc(xl + q * 32, 16, 1024));
+        hopper::wgmma_tf32_rs(part, ah[q],
+                              hopper::desc(xh + q * 32, 16, 1024));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(part);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        hopper::fence_regs(ah[q]);
+        hopper::fence_regs(al[q]);
+      }
+      if (ct % 128 == 0) hopper::mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int j = 0; j < TG::ACC; ++j) acc[j] += part[j];
     }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(part);
+
+    if (splits > 1) {
+      // as the ring's (a split launch takes one tile a CTA): this split's
+      // partial tile to scratch ([tile][split][i][thread]), then the last
+      // CTA of the tile to arrive sums every split in split order and sets
+      // the tile's counter back to 0 for the next launch
+      const long long tile = ((long long)b * gy + r_t) * gx + c_t;
+      float* mine = partial + (tile * splits + split) * (BMX * T_BN);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      hopper::fence_regs(ah[q]);
-      hopper::fence_regs(al[q]);
+      for (int i = 0; i < TG::ACC; ++i)
+        __stcg(mine + i * R_CONSUMERS + ct, acc[i]);
+      __threadfence();
+      hopper::bar_sync(1, R_CONSUMERS);
+      if (ct == 0) *last = atomicAdd(counter + tile, 1) == splits - 1;
+      hopper::bar_sync(1, R_CONSUMERS);
+      if (!*last) return;
+      __threadfence();
+      if (ct == 0) counter[tile] = 0;
+      const float* all = partial + tile * splits * (BMX * T_BN);
+#pragma unroll
+      for (int i = 0; i < TG::ACC; ++i) acc[i] = 0.f;
+      for (int sp = 0; sp < splits; ++sp)
+#pragma unroll
+        for (int i = 0; i < TG::ACC; ++i)
+          acc[i] += __ldcg(all + sp * (BMX * T_BN) + i * R_CONSUMERS + ct);
     }
-    if (ct % 128 == 0) hopper::mbar_arrive(&empty[s]);
-#pragma unroll
-    for (int j = 0; j < 64; ++j) acc[j] += part[j];
-  }
 
-  if (splits > 1) {
-    // as the ring's: this split's partial tile to scratch
-    // ([tile][split][i][thread]), then the last CTA of the tile to arrive
-    // sums every split in split order and sets the tile's counter back to
-    // 0 for the next launch
-    const long long tile = ((long long)b * gy + r_t) * gx + c_t;
-    float* mine = partial + (tile * splits + split) * (T_BM * T_BN);
+    // accumulator d[4j + 2h + e]: wgmma row g + 8h (n0 + nl + h), column
+    // 8j + 2t + e (m0 + 8j + 2t + e)
+    if constexpr (FEAT == FEAT_FUSED) {
+      // both warpgroups are past their last wgmma, every stage consumed:
+      // the ring is free for the f32 tile, rows m, columns n
+      hopper::bar_sync(1, R_CONSUMERS);
+      float* tile = reinterpret_cast<float*>(tiles);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) __stcg(mine + i * R_CONSUMERS + ct, acc[i]);
-    __threadfence();
-    hopper::bar_sync(1, R_CONSUMERS);
-    if (ct == 0) *last = atomicAdd(counter + tile, 1) == splits - 1;
-    hopper::bar_sync(1, R_CONSUMERS);
-    if (!*last) return;
-    __threadfence();
-    if (ct == 0) counter[tile] = 0;
-    const float* all = partial + tile * splits * (T_BM * T_BN);
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    for (int sp = 0; sp < splits; ++sp)
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<float2*>(tile + (8 * j + 2 * t + e) *
+                                                ETile<T_BN>::LD + nl) =
+              make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+      hopper::bar_sync(1, R_CONSUMERS);
+      if (out_bf16)
+        fused_store_act<T_BN>(tile, *p, fs,
+                              static_cast<__nv_bfloat16*>(C) + b * sCb, m0,
+                              n0, ct);
+      else
+        fused_store_act<T_BN>(tile, *p, fs, static_cast<float*>(C) + b * sCb,
+                              m0, n0, ct);
+      return;
+    }
+    const bool pair = sCn == 1 && sCm % 2 == 0 && sCb % 2 == 0;
+    const int n = n0 + nl;
 #pragma unroll
-      for (int i = 0; i < 64; ++i)
-        acc[i] += __ldcg(all + sp * (T_BM * T_BN) + i * R_CONSUMERS + ct);
-  }
-
-  // accumulator d[4j + 2h + e]: wgmma row g + 8h (n0 + nl + h), column
-  // 8j + 2t + e (m0 + 8j + 2t + e)
-  if constexpr (FEAT == FEAT_FUSED) {
-    // both warpgroups are past their last wgmma, every stage consumed:
-    // the ring is free for the f32 tile, rows m, columns n
-    hopper::bar_sync(1, R_CONSUMERS);
-    float* tile = reinterpret_cast<float*>(tiles);
+    for (int j = 0; j < BMX / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        *reinterpret_cast<float2*>(tile + (8 * j + 2 * t + e) *
-                                              ETile<T_BN>::LD + nl) =
-            make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
-    hopper::bar_sync(1, R_CONSUMERS);
-    if (out_bf16)
-      fused_store_act<T_BN>(tile, *p, fs,
-                            static_cast<__nv_bfloat16*>(C) + b * sCb, m0, n0,
-                            ct);
-    else
-      fused_store_act<T_BN>(tile, *p, fs, static_cast<float*>(C) + b * sCb,
-                            m0, n0, ct);
-    return;
-  }
-  const bool pair = sCn == 1 && sCm % 2 == 0 && sCb % 2 == 0;
-  const int n = n0 + nl;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int m = m0 + 8 * j + 2 * t + e;
-      if (m >= M) continue;
-      const float v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
-      const long long at = b * sCb + m * sCm;
-      if (out_bf16) {
-        __nv_bfloat16* row = static_cast<__nv_bfloat16*>(C) + at;
-        if (pair && n + 1 < N) {
-          store2_from_f32(row + n, v0, v1);
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * t + e;
+        if (m >= M) continue;
+        const float v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
+        const long long at = b * sCb + m * sCm;
+        if (out_bf16) {
+          __nv_bfloat16* row = static_cast<__nv_bfloat16*>(C) + at;
+          if (pair && n + 1 < N) {
+            store2_from_f32(row + n, v0, v1);
+          } else {
+            if (n < N) store_from_f32(row + n * sCn, v0);
+            if (n + 1 < N) store_from_f32(row + (n + 1) * sCn, v1);
+          }
         } else {
-          if (n < N) store_from_f32(row + n * sCn, v0);
-          if (n + 1 < N) store_from_f32(row + (n + 1) * sCn, v1);
-        }
-      } else {
-        float* row = static_cast<float*>(C) + at;
-        if (pair && n + 1 < N) {
-          store2_from_f32(row + n, v0, v1);
-        } else {
-          if (n < N) store_from_f32(row + n * sCn, v0);
-          if (n + 1 < N) store_from_f32(row + (n + 1) * sCn, v1);
+          float* row = static_cast<float*>(C) + at;
+          if (pair && n + 1 < N) {
+            store2_from_f32(row + n, v0, v1);
+          } else {
+            if (n < N) store_from_f32(row + n * sCn, v0);
+            if (n + 1 < N) store_from_f32(row + (n + 1) * sCn, v1);
+          }
         }
       }
-    }
+  }
 }
 
 // The plain product in 3xTF32: scalar parameters only, as the plain ring.
-template <bool WK>
+template <bool WK, bool XM, int BMX>
 __global__ void __launch_bounds__(R_THREADS, 1)
 contract_f32_tc_kernel(const __grid_constant__ CUtensorMap tmX,
                        const __grid_constant__ CUtensorMap tmW, void* C, int M,
                        int N, int K, long long sCb, long long sCm,
                        long long sCn, int out_bf16, int splits,
                        float* partial, int* counter) {
-  tc32_body<FEAT_PLAIN, WK>(&tmX, &tmW, C, M, N, K, sCb, sCm, sCn, out_bf16,
-                            splits, partial, counter, nullptr);
+  tc32_body<FEAT_PLAIN, WK, XM, BMX>(&tmX, &tmW, C, M, N, K, sCb, sCm, sCn,
+                                     out_bf16, splits, partial, counter,
+                                     nullptr);
 }
 
-// The epilogue and the multiplier vector in 3xTF32.
-template <bool WK>
+// The epilogue and the multiplier vector in 3xTF32 (the 128-wide tile).
+template <bool WK, bool XM>
 __global__ void __launch_bounds__(R_THREADS, 1)
 contract_f32_tc_fused_kernel(const __grid_constant__ CUtensorMap tmX,
                              const __grid_constant__ CUtensorMap tmW,
                              const __grid_constant__ ContractParams p) {
-  tc32_body<FEAT_FUSED, WK>(&tmX, &tmW, p.C, (int)p.M, (int)p.N, (int)p.K,
-                            p.sCb, p.sCm, p.sCn, p.out_dtype == 1,
-                            (int)p.splits, p.partial, p.counter, &p);
+  tc32_body<FEAT_FUSED, WK, XM, T_BM>(
+      &tmX, &tmW, p.C, (int)p.M, (int)p.N, (int)p.K, p.sCb, p.sCm, p.sCn,
+      p.out_dtype == 1, (int)p.splits, p.partial, p.counter, &p);
 }
 
-template <bool WK>
+template <bool WK, bool XM, int BMX>
 int launch_tc32_maps(const ContractParams& p, const CUtensorMap& tx,
                      const CUtensorMap& tw, cudaStream_t stream) {
-  const long long tiles = ((p.M + T_BM - 1) / T_BM) * ((p.N + T_BN - 1) / T_BN);
-  const dim3 grid((unsigned)tiles, 1, (unsigned)(p.batch * p.splits));
+  using TG = Tc32<XM, BMX>;
+  const long long tiles = ((p.M + BMX - 1) / BMX) * ((p.N + T_BN - 1) / T_BN);
+  // a plain unsplit product: one CTA an SM, each walking its tiles in
+  // turn; otherwise one tile a CTA (the fused store stages its tile in the
+  // drained ring, and a split's last CTA sums the tile)
+  long long ctas = tiles;
+  if (features(p) == FEAT_PLAIN && p.splits == 1) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (sms < ctas) ctas = sms;
+  }
+  const dim3 grid((unsigned)ctas, 1, (unsigned)(p.batch * p.splits));
   if (features(p) != FEAT_PLAIN) {
-    constexpr int smem = T_SMEM + (int)sizeof(FusedSmem) + 128;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        contract_f32_tc_fused_kernel<WK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    contract_f32_tc_fused_kernel<WK><<<grid, R_THREADS, smem, stream>>>(tx, tw,
-                                                                       p);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (BMX == T_BM) {
+      constexpr int smem = TG::SMEM + (int)sizeof(FusedSmem) + 128;
+      static const cudaError_t attr = cudaFuncSetAttribute(
+          contract_f32_tc_fused_kernel<WK, XM>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (attr != cudaSuccess) return static_cast<int>(attr);
+      contract_f32_tc_fused_kernel<WK, XM>
+          <<<grid, R_THREADS, smem, stream>>>(tx, tw, p);
+      return static_cast<int>(cudaGetLastError());
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      contract_f32_tc_kernel<WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T_SMEM);
+      contract_f32_tc_kernel<WK, XM, BMX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, TG::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  contract_f32_tc_kernel<WK><<<grid, R_THREADS, T_SMEM, stream>>>(
+  contract_f32_tc_kernel<WK, XM, BMX><<<grid, R_THREADS, TG::SMEM, stream>>>(
       tx, tw, p.C, (int)p.M, (int)p.N, (int)p.K, p.sCb, p.sCm, p.sCn,
       p.out_dtype == 1, (int)p.splits, p.partial, p.counter);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tc32 body's launch: f32 operands, no k-scale and no row reduce, x
-// (the product's A) with unit stride along k and W (B) with unit stride
-// along n (N-major) or k (K-major), as TMA reads them (hopper::tma_ok:
-// 16-byte aligned bases, other strides multiples of 16 bytes); a K split
-// that leaves every CTA a step, with its scratch; grid limits.
-// cudaErrorInvalidValue for anything else: nothing switches body
-// (codegen.cuda_gen.contract_body states the same rule).
-int launch_tc32(const ContractParams& p, cudaStream_t stream) {
+// W's tensor map, N-major where W has unit stride along n, else K-major
+// where it has unit stride along k, and the launch of that layout.
+template <bool XM, int BMX>
+int launch_tc32_w(const ContractParams& p, const CUtensorMap& tx,
+                  cudaStream_t stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = ((p.M + T_BM - 1) / T_BM) * ((p.N + T_BN - 1) / T_BN);
-  const long long nk = (p.K + T_BK - 1) / T_BK;
-  if (p.in_dtype != 0 || p.T || p.kscale.p || p.M < 1 || p.N < 1 ||
-      p.K < 1 || p.batch < 1 || tiles >= (1LL << 31) || p.splits < 1 ||
-      p.splits > nk || p.batch * p.splits > 65535 ||
-      (p.splits > 1 && (!p.partial || !p.counter)))
-    return invalid;
-  const long long per = (nk + p.splits - 1) / p.splits;
-  if ((p.splits - 1) * per >= nk) return invalid;
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  CUtensorMap tx, tw;
-  const hopper::Operand x_k{p.A, p.K, p.M, p.sAm, p.batch, p.sAb};
-  if (!((p.sAk == 1 || p.K == 1) && hopper::tma_ok(x_k, 4)) ||
-      !hopper::make_map(&tx, x_k, 4, f32, T_BK, T_BM))
-    return invalid;
+  CUtensorMap tw;
   const hopper::Operand w_n{p.B, p.N, p.K, p.sBk, p.batch, p.sBb};
   const hopper::Operand w_k{p.B, p.K, p.N, p.sBn, p.batch, p.sBb};
   if ((p.sBn == 1 || p.N == 1) && hopper::tma_ok(w_n, 4)) {
     if (!hopper::make_map(&tw, w_n, 4, f32, 32, T_BK)) return invalid;
-    return launch_tc32_maps<false>(p, tx, tw, stream);
+    return launch_tc32_maps<false, XM, BMX>(p, tx, tw, stream);
   }
   if ((p.sBk == 1 || p.K == 1) && hopper::tma_ok(w_k, 4)) {
     if (!hopper::make_map(&tw, w_k, 4, f32, T_BK, T_BN)) return invalid;
-    return launch_tc32_maps<true>(p, tx, tw, stream);
+    return launch_tc32_maps<true, XM, BMX>(p, tx, tw, stream);
+  }
+  return invalid;
+}
+
+// The tc32 body's launch: f32 operands, no k-scale and no row reduce, x
+// (the product's A) with unit stride along k (k-major) or, where it has
+// none, along m (m-major: matmul.dB's x^T), and W (B) with unit stride
+// along n (N-major) or k (K-major), as TMA reads them (hopper::tma_ok:
+// 16-byte aligned bases, other strides multiples of 16 bytes); x's tile
+// ``tile_n`` wide: 128, or 8, 16, 32 or 64 for a plain product whose x is
+// k-major (decode's M < 64); a K split that leaves every CTA a step, with
+// its scratch; grid limits.  cudaErrorInvalidValue for anything else:
+// nothing switches body (codegen.cuda_gen.contract_body and tc32_tiles
+// state the same rule).
+int launch_tc32(const ContractParams& p, cudaStream_t stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const int w = p.tile_n;
+  if (w != 8 && w != 16 && w != 32 && w != 64 && w != T_BM) return invalid;
+  const long long tiles = ((p.M + w - 1) / w) * ((p.N + T_BN - 1) / T_BN);
+  const long long nk = (p.K + T_BK - 1) / T_BK;
+  if (p.in_dtype != 0 || p.T || p.kscale.p || p.M < 1 || p.N < 1 ||
+      p.K < 1 || p.batch < 1 || tiles >= (1LL << 31) || p.splits < 1 ||
+      p.splits > nk || p.batch * p.splits > 65535 ||
+      (p.splits > 1 && (!p.partial || !p.counter)) ||
+      (w != T_BM && features(p) != FEAT_PLAIN))
+    return invalid;
+  const long long per = (nk + p.splits - 1) / p.splits;
+  if ((p.splits - 1) * per >= nk) return invalid;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tx;
+  const hopper::Operand x_k{p.A, p.K, p.M, p.sAm, p.batch, p.sAb};
+  const hopper::Operand x_m{p.A, p.M, p.K, p.sAk, p.batch, p.sAb};
+  if ((p.sAk == 1 || p.K == 1) && hopper::tma_ok(x_k, 4)) {
+    if (!hopper::make_map(&tx, x_k, 4, f32, T_BK, w)) return invalid;
+    switch (w) {
+      case 8:
+        return launch_tc32_w<false, 8>(p, tx, stream);
+      case 16:
+        return launch_tc32_w<false, 16>(p, tx, stream);
+      case 32:
+        return launch_tc32_w<false, 32>(p, tx, stream);
+      case 64:
+        return launch_tc32_w<false, 64>(p, tx, stream);
+      default:
+        return launch_tc32_w<false, T_BM>(p, tx, stream);
+    }
+  }
+  if (w == T_BM && (p.sAm == 1 || p.M == 1) && hopper::tma_ok(x_m, 4)) {
+    if (!hopper::make_map(&tx, x_m, 4, f32, 32, T_BK)) return invalid;
+    return launch_tc32_w<true, T_BM>(p, tx, stream);
   }
   return invalid;
 }
@@ -1923,10 +2093,11 @@ extern "C" {
 // modes at tile_n 128), body 2 the narrow body (tile_n 8, 16, 32 or 64 >=
 // M; with splits > 1 batch x (N / 128) x splits x 128 x tile_n floats and
 // one zeroed int per 128 columns of N), body 3 the tc32 body (f32
-// operands, no k-scale, no row reduce; tile_n 128; with splits > 1 a
-// partial buffer of batch x row tiles x column tiles x splits x 128 x 128
-// floats and one zeroed int per output tile, as the ring's), or
-// refuses.  Body 0 runs mma.sync for bf16 and the FMA pipes for f32.  Every counter is 0
+// operands, no k-scale, no row reduce; tile_n x's tile width along M: 128,
+// or 8, 16, 32 or 64 for a plain product with x k-major; with splits > 1
+// a partial buffer of batch x (M / tile_n) x (N / 128) x splits x 128 x
+// tile_n floats and one zeroed int per output tile), or refuses.  Body 0
+// runs mma.sync for bf16 and the FMA pipes for f32.  Every counter is 0
 // again when the launch ends, so the caller zeroes a counter buffer once
 // and reuses it.  Returns cudaGetLastError() after the launch (0 =
 // launched); nothing is synchronised, and nothing is allocated here.

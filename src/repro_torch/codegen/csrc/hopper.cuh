@@ -398,7 +398,58 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32],
 // K-major only (tf32 takes no transpose bits): rows of 128 bytes along k,
 // 128-byte swizzled, a k8 step 32 bytes along the row.  The registers
 // must hold until the wgmma has retired (wgmma_wait).
-// (accumulate 0: d = A . B, the accumulator's old values unread)
+// (accumulate 0: d = A . B, the accumulator's old values unread).  The
+// narrower B (8, 16, 32 or 64 columns: n = 2 x the accumulator's length)
+// are decode's x^T in B1's tc32 body.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " HOPPER_REGS8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : HOPPER_OP8(HOPPER_F, d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " HOPPER_REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : HOPPER_OP8(HOPPER_F, d, 0), HOPPER_OP8(HOPPER_F, d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HOPPER_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HOPPER_OP8(HOPPER_F, d, 0), HOPPER_OP8(HOPPER_F, d, 8),
+        HOPPER_OP8(HOPPER_F, d, 16), HOPPER_OP8(HOPPER_F, d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t db,

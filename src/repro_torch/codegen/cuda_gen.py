@@ -24,12 +24,14 @@ whose operands TMA can read runs the ring body, plain or with its fused
 modes (``contract_body``: each operand with unit stride on one of its two
 axes, so the backward's transposed operands go as the views they are); a
 plain one at M < 64 (decode) the narrow body, C^T = W^T x^T on the same
-ring (``narrow_tiles``); an f32 product whose x is k-contiguous the tc32
-body (3xTF32 on wgmma, the same swap; the k-scale prologue and the row
-reduce keep the FMA pipes); on the mma.sync body (unaligned operands, the
-fused modes at M < 64) an operand whose innermost folded axis is not
-unit-stride is copied contiguous first, so that body takes its 16-byte
-loads.
+ring (``narrow_tiles``); an f32 product whose x is k- or m-contiguous the
+tc32 body (3xTF32 on wgmma, the same swap; an m-contiguous x, such as
+``matmul.dB``'s x^T, is transposed in shared memory as it is split; a
+plain one at M < 64 with x k-contiguous takes a narrow x tile,
+``tc32_tiles``; the k-scale prologue and the row reduce keep the FMA
+pipes); on the mma.sync body (unaligned operands, the fused modes at M <
+64) an operand whose innermost folded axis is not unit-stride is copied
+contiguous first, so that body takes its 16-byte loads.
 
 Three-operand specs are classified by their index sets, not their names
 (``_classify``), into the kernel's extra modes, one launch each:
@@ -80,7 +82,8 @@ kernel's grid: the reference tuner scores a TPU and often picks a single
 block, while the CUDA kernels tile the output into their own CTAs (128 x
 128 or 128 x 256 on the ring, ``ring_tiles``; 128 of N by 8 to 64 tokens
 on the narrow body, ``narrow_tiles``; 64 x 128 on the mma.sync body; 128
-of N by 128 of M on the tc32 body; 128 x 64 on the FMA pipes for f32).
+of N by 8 to 128 of M on the tc32 body, ``tc32_tiles``; 128 x 64 on the
+FMA pipes for f32).
 A searched ``CardPlan`` (the plan DB's ``card`` field, ``search``) takes
 the place of the ring's, the narrow body's or tc32's heuristic tile width
 and K split where a launch runs its body.
@@ -89,9 +92,9 @@ Devices: on a CUDA tensor the call launches a kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
 falls back from one to the other.  Fused specs (``fused_kind`` set) go to
 ``fused_gen.compile_fused`` (flash attention, kernel B2; the grouped
-matmul, kernels B3 and B4).
-Meshes are a later slice and raise ``NotImplementedError`` naming the
-``ROADMAP.md`` queue-A item.
+matmul, kernels B3 and B4).  ``compile(..., mesh=)`` binds the kernel to a
+mesh (``mesh_gen.bind_mesh``): a ``MeshBoundKernel`` that runs B1 on each
+rank's shards and sums over the reduced mesh axes.
 """
 
 from __future__ import annotations
@@ -292,11 +295,12 @@ def contract_body(a: torch.Tensor, b: torch.Tensor, *,
     """Which body of ``contract.cu`` takes a (batch, M, K) @ b (batch, K,
     N).  Two f32 operands: ``"tc32"`` (3xTF32 on wgmma, C^T = W^T x^T)
     for a product with no ``kscale`` vector and no ``row_reduce`` (plain,
-    or the epilogue and multiplier modes) whose A (x) TMA reads
-    k-contiguous and whose B (W) TMA reads n- or k-contiguous, at any M,
-    N, K >= 1; else ``"fma"`` (the k-scale prologue and the row reduce
-    stay on the FMA pipes, as do unaligned bases, element strides and an
-    m-contiguous A such as ``matmul.dB``'s x^T).  Two bf16 operands:
+    or the epilogue and multiplier modes) whose A (x) TMA reads k- or
+    m-contiguous (``matmul.dB``'s x^T, transposed in shared memory as it
+    is split) and whose B (W) TMA reads n- or k-contiguous, at any M, N, K
+    >= 1; else ``"fma"`` (the k-scale prologue and the row reduce stay on
+    the FMA pipes, as do unaligned bases and element strides).  Two bf16
+    operands:
     ``"ring"`` (TMA and wgmma) at M >= 64 where
     TMA reads both layouts as they lie -- each operand with unit stride
     on one of its two axes (A on k or m, B on k or n), every other stride
@@ -316,8 +320,8 @@ def contract_body(a: torch.Tensor, b: torch.Tensor, *,
     n = b.shape[2]
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         takes = kscale is None and not row_reduce and min(m, k, n) >= 1 and (
-            tma_operand(a, 2, 4)) and (tma_operand(b, 2, 4)
-                                       or tma_operand(b, 1, 4))
+            tma_operand(a, 2, 4) or tma_operand(a, 1, 4)) and (
+                tma_operand(b, 2, 4) or tma_operand(b, 1, 4))
         return "tc32" if takes else "fma"
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         return "mma"
@@ -377,28 +381,44 @@ def ring_tiles(batch: int, m: int, n: int, k: int,
     return RingPlan(bn, splits)
 
 
-#: the tc32 body's tile (128 of N by 128 of M), its K step (32 f32) and
-#: the fewest K steps a split of it takes (contract.cu's T_BN, T_BM, T_BK)
+#: the tc32 body's tile (128 of N by 128 of M at the widest), its K step
+#: (32 f32) and the fewest K steps a split of it takes (contract.cu's T_BN,
+#: T_BM, T_BK)
 TC32_TILE, TC32_BK, TC32_MIN_STEPS = 128, 32, 8
+#: the tc32 body's x tile widths (its M a CTA, wgmma's n): the narrow ones
+#: for a plain product at M < 64 whose x is k-contiguous, else 128
+TC32_WIDTHS = (8, 16, 32, 64, TC32_TILE)
+
+
+def tc32_width(m: int, narrow_x: bool = False) -> int:
+    """The tc32 body's x tile width for M = ``m``: where ``narrow_x`` (a
+    plain product whose x is k-contiguous, as TMA reads it) and M < 64, M
+    rounded up to 8, 16, 32 or 64; else 128 (the fused modes' staged tile
+    and the transposing split of an m-contiguous x are 128 wide)."""
+    if narrow_x and m < 64:
+        return next(w for w in TC32_WIDTHS if w >= m)
+    return TC32_TILE
 
 
 def tc32_tiles(batch: int, m: int, n: int, k: int,
-               sms: int = H100_SMS) -> RingPlan:
+               sms: int = H100_SMS, *, narrow_x: bool = False) -> RingPlan:
     """The tc32 body's tile for a (batch, M, K) @ (batch, K, N) f32 product
-    on a card of ``sms`` multiprocessors (one CTA each): 128 x 128, and
+    on a card of ``sms`` multiprocessors (one CTA each): ``tile_n`` the x
+    tile's width (``tc32_width``: the product's M a CTA) by 128 of N, and
     where the output has fewer tiles than ``sms / 2`` (phase ``kernel``'s
     M = 128: 32 tiles) the K steps split over up to 16 CTAs a tile, at
     least ``TC32_MIN_STEPS`` steps each, so the grid fills the card,
     evened out so no split is empty."""
+    width = tc32_width(m, narrow_x)
     nk = -(-k // TC32_BK)
-    tiles = batch * -(-m // TC32_TILE) * -(-n // TC32_TILE)
+    tiles = batch * -(-m // width) * -(-n // TC32_TILE)
     splits = 1
     if tiles < sms // 2:
         splits = max(1, min(sms // tiles, nk // TC32_MIN_STEPS, 16,
                             _MAX_GRID_YZ // batch))
         per = -(-nk // splits)
         splits = -(-nk // per)
-    return RingPlan(TC32_TILE, splits)
+    return RingPlan(width, splits)
 
 
 class NarrowPlan(NamedTuple):
@@ -441,8 +461,8 @@ def scratch_sizes(body: str, batch: int, m: int, n: int, plan=None, *,
     body's (rows, columns)) and a counter per column block; a K split
     (``plan.splits`` > 1) one partial tile per split of every output tile
     and a counter per tile (the ring's 128 x ``plan.tile_n`` tiles, the
-    tc32 body's 128 x 128; the narrow body's 128 of N by ``plan.tile_n``
-    tokens); else none."""
+    tc32 body's ``plan.tile_n`` of M by 128 of N; the narrow body's 128 of
+    N by ``plan.tile_n`` tokens); else none."""
     if row_reduce:
         tm, tn = (RING_BM, RING_FUSED_BN) if body == "ring" else tile
         return -(-m // tm) * n, -(-n // tn)
@@ -450,6 +470,8 @@ def scratch_sizes(body: str, batch: int, m: int, n: int, plan=None, *,
         return 0, 0
     if body == "narrow":
         tiles = batch * -(-n // RING_BM)
+    elif body == "tc32":
+        tiles = batch * -(-m // plan.tile_n) * -(-n // TC32_TILE)
     else:
         tiles = batch * -(-m // RING_BM) * -(-n // plan.tile_n)
     return tiles * plan.splits * RING_BM * plan.tile_n, tiles
@@ -460,7 +482,8 @@ class CardPlan(NamedTuple):
     (a rung's ``card`` field): the ``body`` (``"ring"``, ``"narrow"``,
     ``"tc32"``; ``"mma"`` / ``"fma"`` with ``tile_n`` 0 where a body takes
     no plan), its ``tile_n`` (the ring's 128 or 256 columns, the narrow
-    body's token width, tc32's 128) and its K ``splits``."""
+    body's token width, tc32's x width: 128, or 8 to 64 at decode) and its
+    K ``splits``."""
 
     body: str
     tile_n: int
@@ -483,27 +506,31 @@ PLAN_BODIES = ("ring", "narrow", "tc32")
 
 
 def _heuristic_tiles(body: str, batch: int, m: int, n: int, k: int,
-                     sms: int, kscale: bool, row_reduce: bool):
+                     sms: int, kscale: bool, row_reduce: bool,
+                     narrow_x: bool = False):
     """The launcher's ``RingPlan`` / ``NarrowPlan`` for ``body`` without a
     searched plan: ``ring_tiles`` (the fused ring's 128 x 128, unsplit,
-    for the row reduce), ``narrow_tiles`` or ``tc32_tiles``; None for a
-    body with no plan."""
+    for the row reduce), ``narrow_tiles`` or ``tc32_tiles`` (a narrow x
+    tile where ``narrow_x``: a plain product with x k-contiguous); None for
+    a body with no plan."""
     if body == "ring":
         return (RingPlan(RING_FUSED_BN, 1) if row_reduce else
                 ring_tiles(batch, m, n, k, sms, narrow_tile=kscale))
     if body == "narrow":
         return narrow_tiles(m, n, k, sms, batch=batch)
     if body == "tc32":
-        return tc32_tiles(batch, m, n, k, sms)
+        return tc32_tiles(batch, m, n, k, sms, narrow_x=narrow_x)
     return None
 
 
 def heuristic_plan(body: str, batch: int, m: int, n: int, k: int,
                    sms: int = H100_SMS, *, kscale: bool = False,
-                   row_reduce: bool = False) -> Optional[CardPlan]:
+                   row_reduce: bool = False,
+                   narrow_x: bool = False) -> Optional[CardPlan]:
     """The ``CardPlan`` the launcher takes for ``body`` without a searched
     one (``_heuristic_tiles``); None for a body with no plan."""
-    tiles = _heuristic_tiles(body, batch, m, n, k, sms, kscale, row_reduce)
+    tiles = _heuristic_tiles(body, batch, m, n, k, sms, kscale, row_reduce,
+                             narrow_x)
     return None if tiles is None else card_of(body, tiles)
 
 
@@ -511,22 +538,23 @@ def _tiles_of(card: CardPlan):
     """The launcher's ``RingPlan`` / ``NarrowPlan`` of a ``CardPlan``."""
     if card.body == "narrow":
         return NarrowPlan(card.tile_n, RING_BM, card.splits)
-    if card.body == "tc32" and card.tile_n != TC32_TILE:
-        raise ValueError(f"tc32 plan {card}: the tc32 body's tile is "
-                         f"{TC32_TILE} wide")
+    if card.body == "tc32" and card.tile_n not in TC32_WIDTHS:
+        raise ValueError(f"tc32 plan {card}: the tc32 body's x tile is one "
+                         f"of {TC32_WIDTHS} wide")
     return RingPlan(card.tile_n, card.splits)
 
 
 def launch_plan(body: str, plan: Optional[CardPlan], batch: int, m: int,
                 n: int, k: int, sms: int = H100_SMS, *, kscale: bool = False,
-                row_reduce: bool = False):
+                row_reduce: bool = False, narrow_x: bool = False):
     """(the launch's ``RingPlan`` / ``NarrowPlan`` or None, what became of
     the searched ``plan``: "applied", "skipped" or None without one): the
     plan's tile and split where the launch runs ``plan.body``, else the
     body's heuristic plan (``_heuristic_tiles``)."""
     if plan is not None and plan.body == body:
         return _tiles_of(plan), "applied"
-    return (_heuristic_tiles(body, batch, m, n, k, sms, kscale, row_reduce),
+    return (_heuristic_tiles(body, batch, m, n, k, sms, kscale, row_reduce,
+                             narrow_x),
             None if plan is None else "skipped")
 
 
@@ -590,8 +618,9 @@ class ContractLauncher:
     else, so a run can show that its GEMMs went through the kernel.
     ``last_body`` names the body of the latest launch (``"ring"``,
     ``"narrow"``, ``"mma"``, ``"tc32"`` or ``"fma"``, ``contract_body``'s
-    words) and ``last_plan`` its ``RingPlan`` (the ring's, the tc32
-    body's) or ``NarrowPlan`` (None on the mma.sync and FMA bodies);
+    words) and ``last_plan`` its ``RingPlan`` (the ring's; the tc32
+    body's, whose ``tile_n`` is x's tile width) or ``NarrowPlan`` (None on
+    the mma.sync and FMA bodies);
     ``last_card`` is the two as a ``CardPlan``.
     Split and row-reduce scratch comes from a pool that grows and is
     reused (``_Scratch``), so a launch allocates nothing in the common
@@ -751,7 +780,8 @@ class ContractLauncher:
         plan, taken = launch_plan(body, plan, batch, m, n, k,
                                   _sm_count(a.device),
                                   kscale=kscale is not None,
-                                  row_reduce=t is not None)
+                                  row_reduce=t is not None,
+                                  narrow_x=plain and tma_operand(a, 2, 4))
         if taken:
             from ..obs import counter
 

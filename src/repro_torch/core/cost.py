@@ -333,6 +333,8 @@ def card_plan_cost(body: str, plan, batch: int, m: int, n: int, k: int,
     tile_n, splits = int(plan.tile_n), int(plan.splits)
     if body == "narrow":  # C^T = W^T x^T: 128 of N by tile_n tokens a CTA
         tiles = batch * -(-n // rows)
+    elif body == "tc32":  # the same swap: 128 of N by tile_n of M a CTA
+        tiles = batch * -(-m // tile_n) * -(-n // rows)
     else:
         tiles = batch * -(-m // rows) * -(-n // tile_n)
     nk = -(-k // bk)

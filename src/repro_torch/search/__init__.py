@@ -32,7 +32,8 @@ heuristic plan in the reference's ``source="default"`` role: the measured
 winner is by construction never slower than the heuristic on the
 measurement harness, and displaces it only by beating its median by more
 than the larger of the two rungs' interquartile ranges (a smaller gap is
-a tie, which keeps the heuristic).  Every measured candidate differs in what B1
+a tie, which keeps the heuristic), and then again in a second timing of
+the two alone.  Every measured candidate differs in what B1
 launches.  The rungs carry their plan (``card``), and ``ops._tuned_kernel``
 compiles the winner's.  Fused families (attention, grouped) and the other
 B1 modes (weighted, chain, 8-bit) take no plan yet: they keep the analytic
@@ -328,13 +329,20 @@ def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device):
     return ladder, stats, tensors
 
 
-def _keep_heuristic_within_spread(plans: List[RankedPlan]) -> None:
+def _keep_heuristic_within_spread(plans: List[RankedPlan],
+                                  retime=None) -> None:
     """On the card, move the heuristic's rung back to the front of a
     measured ladder (in place) unless the fastest rung's median beats it
     by more than the larger of their spreads (interquartile ranges): a
     plan that wins by less than the timing's own scatter is a tie, and a
-    tie keeps the launcher's choice.  Host-timed ladders carry no spread
-    and keep their order."""
+    tie keeps the launcher's choice.  Where ``retime`` is given, a rung
+    that wins must win again: ``retime(best, base)`` times the two afresh,
+    in turns, and returns ``((seconds, spread), (seconds, spread))``, and
+    the same rule is applied to those.  One timing can favour a plan by a
+    slow spell of the card that fell on its rival's launches more than on
+    its own, and the plan DB would keep that plan for every later call.
+    The rungs keep the first timing's numbers.  Host-timed ladders carry
+    no spread and keep their order."""
     if not plans or plans[0].source == "default":
         return
     base = next((p for p in plans if p.source == "default"), None)
@@ -342,8 +350,14 @@ def _keep_heuristic_within_spread(plans: List[RankedPlan]) -> None:
     if (base is None or base.measured_s is None or best.spread_s is None
             or base.spread_s is None):
         return
-    if base.measured_s - best.measured_s <= max(best.spread_s,
-                                                base.spread_s):
+    gap = base.measured_s - best.measured_s
+    spread = max(best.spread_s, base.spread_s)
+    if gap > spread and retime is not None:
+        (win_s, win_sp), (base_s, base_sp) = retime(best, base)
+        gap, spread = base_s - win_s, max(win_sp, base_sp)
+        obs.counter("search.confirm." + ("kept" if gap > spread
+                                         else "reverted")).inc()
+    if gap <= spread:
         plans.remove(base)
         plans.insert(0, base)
 
@@ -592,7 +606,23 @@ def search_schedule(
                 p.score,
             )
         )
-        _keep_heuristic_within_spread(plans)
+        retime = None
+        if measured and on_card and mesh is None:
+
+            def retime(best, base):
+                again = measure_schedules(
+                    spec, [best.schedule, base.schedule], arrays=tensors,
+                    dtype=dt, device=device, check=False,
+                    cards=[best.card, base.card])
+                vals = [m.seconds for m in again] + [m.spread_s or 0.0
+                                                     for m in again]
+                if _multi_rank():  # every rank must keep the same plan
+                    from ..codegen.collectives import world_max
+
+                    vals = world_max(vals)
+                return (vals[0], vals[2]), (vals[1], vals[3])
+
+        _keep_heuristic_within_spread(plans, retime)
     else:
         plans.sort(key=lambda p: (not p.fits_vmem, p.score))
 

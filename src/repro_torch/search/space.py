@@ -555,7 +555,9 @@ def card_candidates(spec: ContractionSpec, a, b, dtype=None, *,
       reduce);
     * narrow: ``tile_n`` each of ``NARROW_WIDTHS`` holding the M tokens,
       ``splits`` 1 to ``NARROW_MAX_SPLITS``;
-    * tc32: ``splits`` 1 to ``CARD_MAX_SPLITS``, each split at least
+    * tc32: ``tile_n`` (x's tile width) 128 and, for a plain product at
+      M < 64 whose x is k-contiguous, each narrower one of ``TC32_WIDTHS``
+      holding M; ``splits`` 1 to ``CARD_MAX_SPLITS``, each split at least
       ``TC32_MIN_STEPS`` K steps.
 
     Only the plans ``contract.cu``'s checks accept are kept (no split
@@ -587,8 +589,9 @@ def card_candidates(spec: ContractionSpec, a, b, dtype=None, *,
     body = cg.contract_body(a, b, plain=plain, kscale=vec,
                             row_reduce=row_reduce)
     sms = sms or cg.H100_SMS
+    narrow_x = plain and cg.tma_operand(a, 2, 4)
     heur = cg.heuristic_plan(body, batch, m, n, k, sms, kscale=kscale,
-                             row_reduce=row_reduce)
+                             row_reduce=row_reduce, narrow_x=narrow_x)
     if heur is None:
         return []
     out = []
@@ -605,7 +608,9 @@ def card_candidates(spec: ContractionSpec, a, b, dtype=None, *,
                if _split_ok(nk, s, batch)]
     elif body == "tc32":
         nk = -(-k // cg.TC32_BK)
-        out = [cg.CardPlan("tc32", cg.TC32_TILE, s)
+        widths = [w for w in cg.TC32_WIDTHS
+                  if w >= cg.tc32_width(m, narrow_x)]
+        out = [cg.CardPlan("tc32", w, s) for w in widths
                for s in range(1, CARD_MAX_SPLITS + 1)
                if _split_ok(nk, s, batch)
                and (s == 1 or -(-nk // s) >= cg.TC32_MIN_STEPS)]

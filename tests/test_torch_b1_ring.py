@@ -219,14 +219,15 @@ def test_fused_modes_pick_their_body(monkeypatch, m, what):
     """The fused modes (k-scale, multiplier on n and on m, row reduce, the
     epilogue) of two bf16 operands take the ring where the product's M is
     64 or more and keep the mma.sync body below.  f32 takes the tc32 body
-    at any M for the epilogue and ``.dA``'s multiplier (x k-contiguous,
-    W^T k-contiguous); the k-scale prologue, the row reduce and ``.dB``
-    (whose A, x^T, is m-contiguous) keep the FMA body.  ``.dB``'s product
-    is x^T . dout, whose M is D (256) whatever m."""
+    at any M for the epilogue, ``.dA``'s multiplier (x k-contiguous, W^T
+    k-contiguous) and ``.dB``'s (its A, x^T, m-contiguous, transposed as
+    it is split); the k-scale prologue and the row reduce keep the FMA
+    body.  ``.dB``'s product is x^T . dout, whose M is D (256) whatever
+    m."""
     rec = _Recorder()
     monkeypatch.setattr(cuda_gen, "CONTRACT", rec)
     rows = 256 if what == "dB" else m
-    f32 = "tc32" if what in ("dA", "epilogue") else "fma"
+    f32 = "tc32" if what in ("dA", "dB", "epilogue") else "fma"
     for dt, want in ((torch.bfloat16, "ring" if rows >= 64 else "mma"),
                      (torch.float32, f32)):
         rec.calls.clear()

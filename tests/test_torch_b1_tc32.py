@@ -7,11 +7,13 @@ launches, and its arithmetic emulated:
 * ``cuda_gen.contract_body`` at every f32 main-path layout as
   ``_launch_cuda`` folds it: the fused path's epilogue and plain rows
   (M = 2048, K = 4096, N = 12288), a small f32 model's forward GEMMs,
-  decode's M = 4, ``matmul.dA`` (W^T k-contiguous) take tc32;
-  ``matmul.dB`` (x^T m-contiguous), the k-scale prologue, the row reduce
-  and layouts TMA cannot read keep the FMA body;
+  decode's M = 4, ``matmul.dA`` (W^T k-contiguous) and ``matmul.dB`` (x^T
+  m-contiguous, transposed as it is split) take tc32; the k-scale
+  prologue, the row reduce and layouts TMA cannot read keep the FMA body;
 * ``cuda_gen.tc32_tiles``: K split only where the grid is short (phase
-  ``kernel``'s M = 128), no split empty, the scratch it needs;
+  ``kernel``'s M = 128), no split empty, the scratch it needs; the x
+  tile's width (M rounded up to 8, 16, 32 or 64 for a plain product at M <
+  64 with x k-contiguous, else 128);
 * ``ContractParams``' ctypes mirror, field for field and in size, and the
   body codes ``contract_launch`` dispatches on;
 * the 3xTF32 split emulated in torch on the bit pattern (cvt.rna): a
@@ -20,11 +22,15 @@ launches, and its arithmetic emulated:
   apart (as the body does) keeps it;
 * the stage's k order: the splitting threads' gather, W's fragments in
   either layout and wgmma's k slots agree on one permutation of the 32 k;
+* the transposing split of an m-contiguous x: the m-major boxes read as
+  the kernel reads them give, bit for bit, the hi and lo tiles of the
+  k-major split, each task's 16-byte accesses free of bank conflicts;
 * a whole 128 x 128 tile emulated fragment by fragment in the swapped
   orientation (C^T = W^T x^T, wgmma's rows the product's n permuted): the
   plain store and the staged tile put every value at its (m, n), and the
   fused epilogue's row and column factors (a vector along m, along n)
-  give ``Epilogue.apply``'s values.
+  give ``Epilogue.apply``'s values; a narrow tile (8 to 64 of M) stores
+  exactly the M < 64 rows it holds.
 """
 
 from __future__ import annotations
@@ -83,9 +89,9 @@ def _f32(*shape):
     ("plain", 16, 256, 512, "tc32"),     # a small f32 model's forward
     ("plain", 4, 4096, 1024, "tc32"),    # decode's M
     ("dA", *FUSED, "tc32"),         # dout @ W^T, W^T k-contiguous
-    ("dB", *FUSED, "fma"),          # x^T @ dout, x^T m-contiguous
+    ("dB", *FUSED, "tc32"),         # x^T @ dout, x^T m-contiguous
     ("dA", 16, 256, 512, "tc32"),
-    ("dB", 16, 256, 512, "fma"),
+    ("dB", 16, 256, 512, "tc32"),
 ])
 def test_f32_main_path_layouts_take_their_body(monkeypatch, what, m, k, n,
                                                want):
@@ -122,7 +128,7 @@ def _weighted(what, m=256, d=128, f=192):
 @pytest.mark.parametrize("what,want", [
     ("fwd", "fma"),   # the k-scale prologue stays on the FMA pipes
     ("dA", "tc32"),   # the multiplier on n, W^T k-contiguous
-    ("dB", "fma"),    # the multiplier on m, x^T m-contiguous
+    ("dB", "tc32"),   # the multiplier on m, x^T m-contiguous
     ("dg", "fma"),    # the row reduce stays on the FMA pipes
 ])
 def test_f32_weighted_family_takes_its_body(monkeypatch, what, want):
@@ -135,8 +141,9 @@ def test_f32_weighted_family_takes_its_body(monkeypatch, what, want):
 def test_f32_layouts_tma_cannot_read_keep_the_fma_body():
     """An element stride along k, rows that are not 16-byte multiples (K
     = 130), an unaligned base, a zero batch stride, an empty extent, a
-    k-scale vector and the row reduce: FMA.  W n- or k-contiguous, M = 1
-    and K = 4 (one 16-byte row): tc32."""
+    k-scale vector and the row reduce: FMA, with x k- or m-contiguous.  W
+    n- or k-contiguous, x k- or m-contiguous, M = 1 and K = 4 (one 16-byte
+    row): tc32."""
     body = cuda_gen.contract_body
     w = _f32(1, 64, 64)
     assert body(_f32(1, 256, 128)[:, :, ::2], w) == "fma"
@@ -154,6 +161,15 @@ def test_f32_layouts_tma_cannot_read_keep_the_fma_body():
     assert body(_f32(1, 256, 64), _f32(1, 64, 96).transpose(1, 2)
                 .contiguous().transpose(1, 2)) == "tc32"
     assert body(_f32(1, 1, 4), _f32(1, 4, 8)) == "tc32"
+    # x m-contiguous (matmul.dB's x^T): tc32 where TMA reads it
+    xm = _f32(1, 64, 256).transpose(1, 2)            # (1, 256, 64)
+    assert body(xm, w) == "tc32"
+    assert body(xm, w, plain=False) == "tc32"
+    assert body(_f32(1, 4, 256).transpose(1, 2), _f32(1, 4, 8)) == "tc32"
+    assert body(xm, w, plain=False, kscale=ks) == "fma"
+    assert body(xm, w, plain=False, row_reduce=True) == "fma"
+    assert body(_f32(1, 64, 258).transpose(1, 2)[:, :256], w) == "fma"
+    assert body(_f32(1, 64, 512).transpose(1, 2)[:, ::2], w) == "fma"
     # bf16 keeps its own rule: the ring for these layouts
     bf = torch.empty(1, 256, 64, dtype=torch.bfloat16)
     assert body(bf, torch.empty(1, 64, 64, dtype=torch.bfloat16)) == "ring"
@@ -241,9 +257,17 @@ def test_body_codes_are_the_ones_contract_launch_dispatches():
     # the C side's tile constants the emulation below assumes
     for name, want in (("T_BN", cuda_gen.TC32_TILE),
                        ("T_BM", cuda_gen.TC32_TILE),
-                       ("T_BK", cuda_gen.TC32_BK), ("T_STAGES", 4),
-                       ("T_SPLIT", 96)):
-        assert re.search(r"constexpr int %s = %d;" % (name, want), src), name
+                       ("T_BK", cuda_gen.TC32_BK),
+                       ("T_RING_BYTES", "192 \\* 1024"), ("T_SPLIT", 96)):
+        assert re.search(r"constexpr int %s = %s;" % (name, want), src), name
+    # the x tile widths launch_tc32 dispatches, and the narrow ones only
+    # for a plain product
+    tc = src[src.index("int launch_tc32("):]
+    assert "w != 8 && w != 16 && w != 32 && w != 64 && w != T_BM" in tc
+    assert "(w != T_BM && features(p) != FEAT_PLAIN)" in tc
+    for w in cuda_gen.TC32_WIDTHS[:-1]:
+        assert f"return launch_tc32_w<false, {w}>(p, tx, stream);" in tc
+    assert "return launch_tc32_w<true, T_BM>(p, tx, stream);" in tc
 
 
 # --------------------------------------------------------------------------
@@ -400,21 +424,25 @@ def test_w_fragments_hold_the_slot_k_and_the_row_n(w_layout):
         assert n == 16 * base + 2 * (r % 8) + r // 8
 
 
-def emulate_tile(x, w, w_layout):
-    """A 128 x 128 output tile of x (128, K) @ w (K, 128) as the tc32 body
-    computes it: per 32-deep stage, the split row positions of x^T (wgmma's
-    B), W^T's fragments (wgmma's A, rows permuted), three products a k8
-    step, the stage summed apart and added in f32; then the accumulator
-    fragments of every thread stored to (m, n) as the plain store does.
-    Returns (C, the staged tile as the fused store reads it)."""
+def emulate_tile(x, w, w_layout, rows=None):
+    """A BMX x 128 output tile of x (BMX, K) @ w (K, 128) as the tc32 body
+    computes it, BMX = x's rows (128, or a narrow 8 to 64): per 32-deep
+    stage, the split row positions of x^T (wgmma's B), W^T's fragments
+    (wgmma's A, rows permuted), three products a k8 step, the stage summed
+    apart and added in f32; then the accumulator fragments of every thread
+    stored to (m, n) as the plain store does, the rows m < ``rows`` only
+    (all by default).  Returns (C, the staged tile as the fused store reads
+    it; 128 wide only)."""
     kdim = x.shape[1]
+    width = x.shape[0]
+    rows = width if rows is None else rows
     frags = w_fragments(None, w_layout)
     pos = split_row_positions()
-    acc = torch.zeros(128, 128)  # wgmma (row, column) = (n permuted, m)
+    acc = torch.zeros(128, width)  # wgmma (row, column) = (n permuted, m)
     for k0 in range(0, kdim, 32):
         xs = x[:, k0 + torch.tensor(pos)]  # (m, position)
         xh, xl = split(xs)
-        part = torch.zeros(128, 128, dtype=torch.float64)
+        part = torch.zeros(128, width, dtype=torch.float64)
         for q in range(4):
             a = torch.zeros(128, 8)
             for row in range(128):
@@ -428,16 +456,18 @@ def emulate_tile(x, w, w_layout):
         acc = acc + part.float()
     # the store: thread (half, wp, g, t), d[4j + 2h + e] at wgmma row
     # 64 half + 16 wp + g + 8h, column 8j + 2t + e -> C[m][n], n = nl + h
-    c = torch.full((128, 128), float("nan"))
-    tile = torch.full((128, 136), float("nan"))
+    c = torch.full((width, 128), float("nan"))
+    tile = torch.full((width, 136), float("nan"))
     for half in range(2):
         for wp in range(4):
             for g in range(8):
                 for t in range(4):
                     nl = 64 * half + 16 * wp + 2 * g
-                    for j in range(16):
+                    for j in range(width // 8):
                         for e in range(2):
                             m = 8 * j + 2 * t + e
+                            if m >= rows:  # the store's mask
+                                continue
                             for h in range(2):
                                 row = 64 * half + 16 * wp + g + 8 * h
                                 assert torch.isnan(c[m, nl + h])
@@ -446,7 +476,8 @@ def emulate_tile(x, w, w_layout):
                             tile[m, nl:nl + 2] = acc[
                                 64 * half + 16 * wp + g + torch.tensor(
                                     [0, 8]), m]
-    assert not bool(c.isnan().any())  # every (m, n) written once
+    assert not bool(c[:rows].isnan().any())  # every (m, n) written once
+    assert bool(c[rows:].isnan().all())      # and no row past M
     return c, tile[:, :128]
 
 
@@ -503,3 +534,206 @@ def test_staged_tile_row_and_column_factors():
         acc = acc * (mul[:, None] if mul_axis == 1 else mul[None, :])
         want = epi.apply(acc, vec)
         assert _scaled_err(got, want.numpy()) <= TOL_F32
+
+
+# --------------------------------------------------------------------------
+# the m-contiguous x: the transposing split, emulated from the source's maps
+# --------------------------------------------------------------------------
+
+
+def k_major_landed(x):
+    """x (128 m, 32 k) as TMA lands a k-major box (128-byte swizzle): row m,
+    16-byte chunk c (k 4c .. 4c + 3) at position c ^ m % 8 -> (128, 8, 4)."""
+    out = torch.empty(128, 8, 4)
+    for m in range(128):
+        for c in range(8):
+            out[m, c ^ (m & 7)] = x[m, 4 * c:4 * c + 4]
+    return out
+
+
+def m_major_landed(x):
+    """x (128 m, 32 k) as TMA lands the four m-major boxes of 32 m x 32 k:
+    box j, row k, chunk c (m 32j + 4c .. + 3) at position c ^ k % 8 -> (4,
+    32, 8, 4)."""
+    out = torch.empty(4, 32, 8, 4)
+    for j in range(4):
+        for k in range(32):
+            for c in range(8):
+                m = 32 * j + 4 * c
+                out[j, k, c ^ (k & 7)] = x[m:m + 4, k]
+    return out
+
+
+def split_half_emulated(landed):
+    """The hi tile (in place) and the lo tile ``tc32_split_half`` leaves
+    for every (row, half) of a k-major landed tile."""
+    hi = landed.clone()
+    lo = torch.full_like(landed, float("nan"))
+    for row in range(128):
+        sw = row & 7
+        for u in range(2):
+            inp = [landed[row, (4 * u + c) ^ sw].clone() for c in range(4)]
+            for c in range(4):
+                o, q, h = 4 * u + c, c >> 1, c & 1
+                vals = torch.stack([inp[(i >> 1) + 2 * h][2 * (i & 1) + (q & 1)]
+                                    for i in range(4)])
+                hi[row, o ^ sw], lo[row, o ^ sw] = split(vals)
+    return hi, lo
+
+
+def split_transpose_emulated(landed):
+    """The hi and lo tiles ``tc32_split_transpose``'s 256 tasks write from
+    an m-major landed tile, and each task's 16-byte read and write
+    positions ({task: ([read positions by slot i], [write positions by
+    row e])})."""
+    hi = torch.full((128, 8, 4), float("nan"))
+    lo = torch.full((128, 8, 4), float("nan"))
+    reads = torch.zeros(4, 32, 8, dtype=torch.int64)
+    where = {}
+    for task in range(256):
+        o, p, r, j = task & 7, (task >> 3) & 1, (task >> 4) & 3, task >> 6
+        q, h = o >> 1, o & 1
+        c = 2 * (((o & 1) + 2 * (o >> 2) + r) & 3) + p
+        inp, rpos, wpos = [], [], []
+        for i in range(4):
+            k = 2 * i + (q & 1) + 16 * (q >> 1) + 8 * h
+            inp.append(landed[j, k, c ^ (k & 7)])
+            reads[j, k, c ^ (k & 7)] += 1
+            rpos.append(c ^ (k & 7))
+        for e in range(4):
+            m = 32 * j + 4 * c + e
+            at = o ^ (m & 7)
+            assert bool(hi[m, at].isnan().all())  # written once
+            hi[m, at], lo[m, at] = split(torch.stack([v[e] for v in inp]))
+            wpos.append(at)
+        where[task] = (rpos, wpos)
+    assert bool((reads == 1).all())  # every landed chunk read once
+    return hi, lo, where
+
+
+def test_transposing_split_gives_the_k_major_split_bit_for_bit():
+    """An m-contiguous x tile landed m-major and split by the transposing
+    tasks gives the same hi and lo tiles, bit for bit, as the same values
+    landed k-major and split in place: the consumers read one layout."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((128, 32)).astype(np.float32))
+    want_hi, want_lo = split_half_emulated(k_major_landed(x))
+    hi, lo, _ = split_transpose_emulated(m_major_landed(x))
+    assert torch.equal(hi.view(torch.int32), want_hi.view(torch.int32))
+    assert torch.equal(lo.view(torch.int32), want_lo.view(torch.int32))
+    # and those tiles hold the stage's k order: row m, step q, slot s
+    pos = split_row_positions()
+    flat = hi.clone()
+    for m in range(128):
+        flat[m] = hi[m, [o ^ (m & 7) for o in range(8)]]
+    assert torch.equal(flat.reshape(128, 32), tf32(x[:, pos]))
+
+
+def test_transposing_split_accesses_are_free_of_bank_conflicts():
+    """Eight neighbouring splitting threads (one phase of a 16-byte shared
+    access) hold eight consecutive tasks in every round of the loop
+    (``task = st + 96 i``); each of their four reads and four writes hits
+    eight distinct 16-byte positions of a 128-byte line."""
+    _, _, where = split_transpose_emulated(torch.zeros(4, 32, 8, 4))
+    for st0 in range(0, 96, 8):
+        for task0 in range(st0, 256, 96):
+            group = [where[t] for t in range(task0, task0 + 8)]
+            for i in range(4):
+                assert len({rp[i] for rp, _ in group}) == 8
+                assert len({wp[i] for _, wp in group}) == 8
+
+
+# --------------------------------------------------------------------------
+# the narrow x tile of decode's M < 64
+# --------------------------------------------------------------------------
+
+
+def test_tc32_width_rule():
+    """M rounded up to 8, 16, 32 or 64 for a plain product at M < 64 whose
+    x is k-contiguous (``narrow_x``), 128 for the fused modes and an
+    m-contiguous x at any M, and for every M >= 64; the heuristic plan, the
+    launcher's plan and the search's candidates carry the width."""
+    n, k = 151936, 4096  # the unembedding's decode forward
+    for m in range(1, 64):
+        w = cuda_gen.tc32_width(m, narrow_x=True)
+        assert w in (8, 16, 32, 64) and w >= m
+        assert w == 8 or w // 2 < m  # the narrowest that holds M
+        assert cuda_gen.tc32_width(m) == cuda_gen.TC32_TILE
+        plan = cuda_gen.tc32_tiles(1, m, n, k, narrow_x=True)
+        assert plan.tile_n == w
+        assert cuda_gen.tc32_tiles(1, m, n, k).tile_n == 128
+        assert cuda_gen.launch_plan("tc32", None, 1, m, n, k,
+                                    narrow_x=True) == (plan, None)
+        assert cuda_gen.heuristic_plan("tc32", 1, m, n, k, narrow_x=True) \
+            == cuda_gen.CardPlan("tc32", w, plan.splits)
+    for m in (64, 65, 127, 2048):
+        assert cuda_gen.tc32_width(m, narrow_x=True) == 128
+        assert cuda_gen.tc32_tiles(1, m, n, k, narrow_x=True).tile_n == 128
+    # a searched plan of any width is taken; others are refused
+    for w in cuda_gen.TC32_WIDTHS:
+        assert cuda_gen._tiles_of(cuda_gen.CardPlan("tc32", w, 2)) == \
+            cuda_gen.RingPlan(w, 2)
+    with pytest.raises(ValueError, match="tc32"):
+        cuda_gen._tiles_of(cuda_gen.CardPlan("tc32", 24, 1))
+
+
+def test_narrow_width_only_for_plain_k_contiguous_x():
+    """What the search offers for an f32 product at M = 4: a plain one
+    with x k-contiguous every width holding M and 128; the multiplier mode
+    (fused) and an m-contiguous x only 128."""
+    from repro_torch.search import space as P
+
+    x, w = _f32(1, 4, 4096), _f32(1, 4096, 1024)
+    plain = P.card_candidates(PE.matmul_spec(4, 4096, 1024), x, w)
+    assert {p.body for p in plain} == {"tc32"}
+    assert {p.tile_n for p in plain} == set(cuda_gen.TC32_WIDTHS)
+    heur = cuda_gen.heuristic_plan("tc32", 1, 4, 1024, 4096, narrow_x=True)
+    assert heur.tile_n == 8 and heur in plain
+    xm = _f32(1, 4096, 4).transpose(1, 2)
+    assert {p.tile_n for p in P.card_candidates(
+        PE.matmul_spec(4, 4096, 1024), xm, w)} == {128}
+    spec = port_grad.derived_specs(PE.weighted_matmul_spec(4, 1024, 4096))[
+        "A"]
+    fused = P.card_candidates(spec, x, w)
+    assert fused and {p.tile_n for p in fused} == {128}
+
+
+@pytest.mark.parametrize("batch,m,n,k", [
+    (1, 4, 151936, 4096),   # the unembedding's decode forward: 1187 tiles
+    (1, 4, 4096, 151936),   # its .dA: 32 tiles, K split
+    (2, 17, 1024, 4096),
+    (1, 63, 256, 8192),
+    (3, 1, 128, 64),
+])
+def test_narrow_tiles_split_and_scratch(batch, m, n, k):
+    """A narrow tile's grid is (M / width) x (N / 128) a batch; K splits
+    only where it is short, and its scratch is one width x 128 partial a
+    split of every tile."""
+    plan = cuda_gen.tc32_tiles(batch, m, n, k, narrow_x=True)
+    w = plan.tile_n
+    tiles = batch * -(-m // w) * -(-n // 128)
+    assert tiles == batch * -(-n // 128)  # M < 64: one x tile
+    if tiles >= cuda_gen.H100_SMS // 2:
+        assert plan.splits == 1
+    else:
+        assert plan.splits > 1 or -(-k // 32) < 2 * cuda_gen.TC32_MIN_STEPS
+    floats, ints = cuda_gen.scratch_sizes("tc32", batch, m, n, plan)
+    if plan.splits > 1:
+        assert (floats, ints) == (tiles * plan.splits * 128 * w, tiles)
+    else:
+        assert (floats, ints) == (0, 0)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 17, 63])
+def test_narrow_tile_emulation_stores_its_rows(m):
+    """A narrow tile (rows past M zero-filled by TMA) emulated fragment by
+    fragment: the rows m < M equal x @ w, and no row past M is stored."""
+    width = cuda_gen.tc32_width(m, narrow_x=True)
+    rng = np.random.default_rng(m)
+    x = torch.zeros(width, 64)
+    x[:m] = torch.from_numpy(rng.standard_normal((m, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    c, _ = emulate_tile(x, w, "n", rows=m)
+    assert c.shape == (width, 128)
+    want = (x[:m].double() @ w.double()).numpy()
+    assert _scaled_err(c[:m], want) <= 1e-6

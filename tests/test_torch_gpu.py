@@ -2069,10 +2069,17 @@ def test_decode_layer_launches_only_the_contract_kernel(cuda_device,
 
 
 def _f32_operands(device, batch, m, k, n, w_layout, seed):
-    """(a (batch, m, k) k-contiguous, b (batch, k, n) n-contiguous or, for
-    ``w_layout == "k"``, a k-contiguous view), f32, scaled by 1/8."""
+    """(a (batch, m, k) k-contiguous or, where ``w_layout`` starts with
+    ``xm-``, an m-contiguous view (``matmul.dB``'s x^T); b (batch, k, n)
+    n-contiguous or, for ``w_layout`` ``"k"`` / ``"xm-k"``, a k-contiguous
+    view), f32, scaled by 1/8."""
     g = torch.Generator(device=device).manual_seed(seed)
-    a = torch.randn(batch, m, k, generator=g, device=device) / 8
+    if w_layout.startswith("xm-"):
+        w_layout = w_layout[3:]
+        a = (torch.randn(batch, k, m, generator=g, device=device)
+             / 8).transpose(1, 2)
+    else:
+        a = torch.randn(batch, m, k, generator=g, device=device) / 8
     if w_layout == "n":
         b = torch.randn(batch, k, n, generator=g, device=device) / 8
     else:
@@ -2093,13 +2100,32 @@ def _f32_operands(device, batch, m, k, n, w_layout, seed):
     (1, 1, 8, 1, "n"),          # one output
     (1, 128, 4096, 512, "n"),   # 4 tiles: K split 16 ways
     (2, 64, 1024, 256, "k"),    # batched, K split 4 ways
+    # x m-contiguous (matmul.dB's x^T), transposed as it is split
+    (1, 100, 100, 136, "xm-n"),  # ragged M, N, K
+    (3, 68, 64, 200, "xm-n"),    # batched
+    (2, 132, 96, 72, "xm-k"),    # W k-contiguous
+    (1, 128, 4096, 512, "xm-n"),  # K split 16 ways
+    (2, 64, 1024, 256, "xm-k"),  # batched, K split 4 ways
+    (1, 256, 4, 384, "xm-n"),    # K = 4: decode's matmul.dB
+    # the narrow x tile (M < 64, x k-contiguous): widths 8, 16, 32, 64
+    (1, 1, 512, 1024, "n"),
+    (1, 4, 4096, 4096, "k"),
+    (1, 8, 1024, 1000, "n"),
+    (2, 17, 768, 640, "k"),
+    (1, 63, 2048, 384, "n"),
+    # more tiles than SMs: one CTA an SM walks its tiles in turn
+    (1, 2048, 64, 2048, "n"),
+    (2, 2048, 4, 1536, "xm-n"),
+    (1, 4, 256, 32768, "n"),
 ])
 def test_tc32_body_matches_plain_version(cuda_device, batch, m, k, n,
                                          w_layout, out):
     """Aligned f32 operands take the tc32 body, one launch, at ragged
-    shapes, batched, with W n- or k-contiguous, K split where the grid is
-    short, and f32 or bf16 output, within the f32 TOL of the f64 product
-    (bf16 output: its own TOL); a second launch gives the same bits."""
+    shapes, batched, with x k- or m-contiguous and W n- or k-contiguous,
+    K split where the grid is short, the narrow x tile at M < 64, more
+    tiles than SMs (each CTA walking several), and f32 or bf16 output,
+    within the f32 TOL of the f64 product (bf16 output: its own TOL); a
+    second launch gives the same bits."""
     a, b = _f32_operands(cuda_device, batch, m, k, n, w_layout, m + k + n)
     assert cuda_gen.contract_body(a, b) == "tc32"
     before = cuda_gen.CONTRACT.launches
@@ -2111,8 +2137,31 @@ def test_tc32_body_matches_plain_version(cuda_device, batch, m, k, n,
     _assert_close_scaled(got, want, out)
     assert cuda_gen.CONTRACT.last_plan == cuda_gen.tc32_tiles(
         batch, m, n, k, torch.cuda.get_device_properties(
-            cuda_device).multi_processor_count)
+            cuda_device).multi_processor_count,
+        narrow_x=not w_layout.startswith("xm-"))
     assert torch.equal(cuda_gen.CONTRACT(a, b, out), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 256])
+def test_tc32_weighted_db_matches_plain_version(cuda_device, m):
+    """The f32 weighted ``.dB`` (x^T m-contiguous, the multiplier g on the
+    product's m) runs the tc32 body, one launch, within the f32 TOL of its
+    plain version, at decode's 4 tokens (K = 4) and at 256."""
+    from repro_torch.grad import derived_specs
+
+    spec = derived_specs(PE.weighted_matmul_spec(m, 256, 384))["B"]
+    g = torch.Generator(device=cuda_device).manual_seed(37)
+    dout = torch.randn(m, 384, generator=g, device=cuda_device)
+    x = torch.randn(m, 256, generator=g, device=cuda_device)
+    gv = torch.randn(256, generator=g, device=cuda_device)
+    before = cuda_gen.CONTRACT.launches
+    got = cuda_gen._launch_cuda(spec, dout, x, gv, out_dtype=torch.float32)
+    assert cuda_gen.CONTRACT.launches == before + 1
+    assert cuda_gen.CONTRACT.last_body == "tc32"
+    want = cuda_gen.contract_ref(spec, dout, x, gv, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _assert_close_scaled(got, want, torch.float32)
 
 
 @pytest.mark.gpu
@@ -2407,12 +2456,13 @@ def test_tune_measures_on_the_card(cuda_device, tmp_path):
 
 
 #: (M, K, N, dtype): a ring shape, decode's narrow body, a narrow M of 40,
-#: a ragged ring shape, and tc32
+#: a ragged ring shape, and tc32 (and its narrow x tile at M = 4)
 CARD_SHAPES = [(256, 1024, 512, torch.bfloat16),
                (4, 2048, 1024, torch.bfloat16),
                (40, 512, 640, torch.bfloat16),
                (200, 1000, 136, torch.bfloat16),
-               (128, 1024, 384, torch.float32)]
+               (128, 1024, 384, torch.float32),
+               (4, 2048, 1024, torch.float32)]
 
 
 @pytest.mark.gpu
@@ -2440,7 +2490,7 @@ def test_every_card_candidate_matches_the_plain_version(cuda_device, m, k,
         a3, b3 = cuda_gen.card_views(s, *args)
         plans = card_candidates(s, a3, b3)
         body = cuda_gen.contract_body(a3, b3)
-        # f32's matmul.dB reads an m-major x^T: the FMA body, no plan
+        # f32's matmul.dB reads an m-major x^T: tc32, transposed as split
         assert bool(plans) == (body in cuda_gen.PLAN_BODIES), (s.name, body)
         want = cuda_gen.contract_ref(s, *args, out_dtype=dtype)
         sched = codegen.default_schedule(s)

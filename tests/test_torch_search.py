@@ -341,8 +341,11 @@ def _meta(batch, m, k, n, dtype=torch.bfloat16, a_t=False, b_t=False):
     return a, b
 
 
-def _legal(plan, batch, m, n, k, kscale=False, row_reduce=False):
-    """``contract.cu``'s checks for ``plan``, written out again."""
+def _legal(plan, batch, m, n, k, kscale=False, row_reduce=False,
+           narrow_x=False):
+    """``contract.cu``'s checks for ``plan``, written out again
+    (``narrow_x``: a plain product whose x is k-contiguous, which alone
+    takes a tc32 x tile narrower than 128)."""
     body, tile_n, splits = plan
     bk = cuda_gen.TC32_BK if body == "tc32" else cuda_gen.RING_BK
     nk = -(-k // bk)
@@ -356,7 +359,8 @@ def _legal(plan, batch, m, n, k, kscale=False, row_reduce=False):
     elif body == "narrow":
         ok &= tile_n in cuda_gen.NARROW_WIDTHS and m <= tile_n
     elif body == "tc32":
-        ok &= tile_n == cuda_gen.TC32_TILE
+        ok &= tile_n in cuda_gen.TC32_WIDTHS and (
+            tile_n == cuda_gen.TC32_TILE or narrow_x)
     return ok
 
 
@@ -404,7 +408,8 @@ def test_card_candidates_are_legal_and_hold_the_heuristic(
     assert len(set(plans)) == len(plans)
     for plan in plans:
         assert plan.body == body
-        assert _legal(plan, batch, m, n, k, kscale, row_reduce), plan
+        assert _legal(plan, batch, m, n, k, kscale, row_reduce,
+                      mode == "plain" and cuda_gen.tma_operand(a, 2, 4)), plan
     # every plan is a distinct launch: its grid differs
     grids = {(p.tile_n, p.splits) for p in plans}
     assert len(grids) == len(plans)
@@ -458,7 +463,8 @@ def test_heuristic_plans_at_the_prefill_shapes():
 def test_card_plan_cost_score_never_below_bound(body, batch, m, n, k, wide,
                                                 splits):
     """On every plan the kernel takes: the ring's 128 / 256 in bf16, the
-    narrow body's token widths holding M in bf16, tc32's 128 in f32."""
+    narrow body's token widths holding M in bf16, tc32's 128 or (M < 64)
+    its narrow x tile in f32."""
     if body == "ring":
         tile_n, dtype = (256 if wide else 128), "bfloat16"
     elif body == "narrow":
@@ -466,7 +472,9 @@ def test_card_plan_cost_score_never_below_bound(body, batch, m, n, k, wide,
         tile_n = next(w for w in cuda_gen.NARROW_WIDTHS if w >= m)
         tile_n, dtype = (64 if wide else tile_n), "bfloat16"
     else:
-        tile_n, dtype = cuda_gen.TC32_TILE, "float32"
+        tile_n = (cuda_gen.TC32_TILE if wide
+                  else cuda_gen.tc32_width(m, narrow_x=True))
+        dtype = "float32"
     plan = cuda_gen.CardPlan(body, tile_n, splits)
     c = p_cost.card_plan_cost(body, plan, batch, m, n, k, dtype)
     assert c.score >= c.lower_bound > 0
@@ -526,6 +534,43 @@ def test_measured_ladder_keeps_the_heuristic_on_a_tie(gap_us, spread_us,
     if winner == "default":
         assert [p.card.tile_n for p in plans[1:]] == [256, 64]
 
+
+
+@pytest.mark.parametrize("first, again_us, winner, retimed", [
+    ("search", (22.0, 23.0, 0.4, 0.4), "search", True),    # wins again
+    ("search", (23.1, 23.0, 0.4, 0.4), "default", True),   # loses again
+    ("search", (22.8, 23.0, 0.4, 0.4), "default", True),   # a tie again
+    ("default", None, "default", False),  # the heuristic already leads
+    ("host", None, "search", False),      # host-timed: no spread, kept
+])
+def test_measured_ladder_confirms_a_winner_on_a_second_timing(
+        first, again_us, winner, retimed):
+    spread = None if first == "host" else 0.4e-6
+    rung = lambda source, ms, tile: P.RankedPlan(  # noqa: E731
+        schedule=None, score=1.0, lower_bound=0.0, fits_vmem=True,
+        measured_s=ms * 1e-3, spread_s=spread, source=source,
+        card=cuda_gen.CardPlan("ring", tile, 1))
+    if first == "default":
+        plans = [rung("default", 0.0200, 128), rung("search", 0.0210, 256)]
+    else:
+        plans = [rung("search", 0.0200, 256), rung("search", 0.0210, 64),
+                 rung("default", 0.0230, 128)]
+    calls = []
+
+    def retime(best, base):
+        calls.append((best.card.tile_n, base.card.tile_n))
+        w, b, wsp, bsp = (x * 1e-6 for x in again_us)
+        return (w, wsp), (b, bsp)
+
+    P._keep_heuristic_within_spread(plans, retime)
+    assert plans[0].source == winner
+    assert calls == ([(256, 128)] if retimed else [])
+    assert sorted(p.card.tile_n for p in plans) == sorted(
+        {"default": [128, 256]}.get(first, [64, 128, 256]))
+    if winner == "default" and first == "search":
+        # the first timing's order of the rest is kept, and its numbers
+        assert [p.card.tile_n for p in plans[1:]] == [256, 64]
+        assert plans[1].measured_s == 0.0200e-3
 
 def test_card_geometry_matches_the_kernel_constants():
     assert p_cost.CARD_BODIES["ring"] == (cuda_gen.RING_BM, cuda_gen.RING_BK,
