@@ -683,6 +683,19 @@ def _launcher(kernel):
             "fused_rnz": _baselines.FUSED_RNZ}[kernel]
 
 
+def _searched_card(spec, dtype):
+    """The B1 plan (``CardPlan``) the plan DB's unphased ladder holds for
+    ``spec`` at ``dtype``, which ``ops`` launches in place of the
+    launcher's heuristic; None where no card ladder stored one."""
+    from repro_torch.codegen.cuda_gen import CardPlan
+    from repro_torch.codegen.fused_gen import plan_from_dict
+    from repro_torch.search import default_plan_db
+
+    _, rung = default_plan_db().best_entry(spec, dtype)
+    card = plan_from_dict(rung.get("card"))
+    return card if isinstance(card, CardPlan) else None
+
+
 #: takes each ``_alone`` check needed, by its row, in this run
 TAKEN = {}
 
@@ -721,8 +734,9 @@ def _alone(run, kernel, launches, what, reps=3):
 def _body(launcher):
     """The body of the launcher's latest launch, with the ring's tile."""
     plan = getattr(launcher, "last_plan", None)
-    return launcher.last_body + (
-        f" {plan.tile_n}x{plan.splits}" if plan is not None else "")
+    if not hasattr(plan, "splits"):  # no tile plan, or a fused kernel's
+        return launcher.last_body
+    return f"{launcher.last_body} {plan.tile_n}x{plan.splits}"
 
 
 def phase_device():
@@ -2206,6 +2220,8 @@ def _kernel_of(name):
                     r"(\d)\b", name)
     if hit:  # B5, B6, B7 by the kind, the template's second argument
         return BASELINES[int(hit.group(2))]
+    if re.search(r"\bgrouped_(wgmma|serve)_kernel", name):
+        return "grouped"  # B3's 128-row and serving bodies
     hit = re.search(r"\b(grouped_dw|grouped|contract)_"
                     r"(bf16_ring|bf16_narrow|bf16_mma|bf16|f32_tc|f32)"
                     r"(_fused)?_kernel", name)
@@ -3450,6 +3466,254 @@ def _ladder_line(label, spec, res, dev):
                        for p in rungs])
 
 
+#: phase search (d): the seed of the fused sweeps' operands
+FUSED_SWEEP_SEED = 22
+
+
+def _fused_points():
+    """Phase search (d)'s sweep points, (tag, forward spec, whether its
+    backward specs are swept too): attention at the attn-path's shapes (a)
+    and (e), causal; the grouped forward at the MoE training shape (32
+    groups of C = 320, with its dX and dW) and at B3's serving shape (384
+    groups of C = 16), kimi-k2's gate/up widths."""
+    from repro_torch.core.enumerate import (attention_spec,
+                                            uniform_grouped_spec)
+
+    return [
+        ("attn (a)", attention_spec(ATTN_HEADS, ATTN_SEQ, ATTN_SEQ, ATTN_DIM,
+                                    causal=True), False),
+        ("attn (e)", attention_spec(ATTN_LONG_HEADS, ATTN_LONG_SEQ,
+                                    ATTN_LONG_SEQ, ATTN_DIM, causal=True),
+         False),
+        ("moe train", uniform_grouped_spec(MOE_TRAIN_EXPERTS, MOE_TRAIN_C,
+                                           *GROUPED_GATE), True),
+        ("moe serve", uniform_grouped_spec(N_EXPERTS, 16, *GROUPED_GATE),
+         False),
+    ]
+
+
+def _fused_kernel_name(spec):
+    """The ``_kernel_of`` name of the fused kernel that runs ``spec``."""
+    root = spec.root()
+    if root.fused_kind == "attention":
+        return "attention"
+    return "grouped_dw" if "g" in root.output else "grouped"
+
+
+def _plan_text(card):
+    return "none" if card is None else f"{card.body} {card.block}x{card.ctas}"
+
+
+class _FusedTally:
+    """Every B2 / B3 / B4 launch made inside a ``with`` block, counted by
+    (kernel, orientation, the plan it ran) in ``counts`` and listed in
+    launch order in ``order``: the launchers' ``__call__`` wrapped for the
+    block and restored after it."""
+
+    def __enter__(self):
+        from repro_torch.codegen import fused_gen
+
+        self.counts, self.order = collections.Counter(), []
+        self._launchers = {"attention": fused_gen.ATTENTION,
+                           "grouped": fused_gen.GROUPED,
+                           "grouped_dw": fused_gen.GROUPED_DW}
+        self._calls = {name: type(l).__call__
+                       for name, l in self._launchers.items()}
+        for name, launcher in self._launchers.items():
+            type(launcher).__call__ = self._tallied(name)
+        return self
+
+    def _tallied(self, name):
+        real, counts, order = self._calls[name], self.counts, self.order
+
+        def call(launcher, *a, **kw):
+            n0 = launcher.launches
+            out = real(launcher, *a, **kw)
+            if launcher.launches > n0:
+                orient = "dX" if kw.get("contract_last") else ""
+                counts[(name, orient, launcher.last_plan)] += 1
+                order.append((name, orient, launcher.last_plan))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for name, launcher in self._launchers.items():
+            type(launcher).__call__ = self._calls[name]
+        return False
+
+    @staticmethod
+    def text(counts):
+        return ", ".join(f"{n}{' ' + o if o else ''} on {_plan_text(p)} x{c}"
+                         for (n, o, p), c in counts.items()) or "none"
+
+    def split(self, name, last):
+        """(the counts of ``name``'s launches before its ``last`` ones, the
+        counts of those ``last``)."""
+        mine = [key for key in self.order if key[0] == name]
+        cut = len(mine) - last
+        return (collections.Counter(mine[:cut]),
+                collections.Counter(mine[cut:]))
+
+
+def _fused_ladder(tag, spec, gen, flush):
+    """One card ladder of phase search (d), checked and printed; returns
+    (its record, the winner's plan)."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.codegen import cached_compile
+    from repro_torch.search import search_schedule
+
+    root = spec.root()
+    args = [torch.randn(tuple(root.extents[i] for i in axes), generator=gen,
+                        device="cuda", dtype=torch.bfloat16)
+            for axes in root.operands.values()]
+    res = search_schedule(spec, dtype=torch.bfloat16, device="cuda",
+                          arrays=dict(zip(root.operands, args)),
+                          plan_db=ops.default_plan_db())
+    cards = [p.card for p in res.ranked]
+    base, best = res.baseline(), res.best
+    what = f"search (d) {spec.name} [{tag}]"
+    if (len(cards) < 2 or None in cards or base is None
+            or len(set(cards)) != len(cards)):
+        raise AssertionError(f"{what}: plans {cards}: at least two distinct "
+                             f"plans, the heuristic's among them")
+    if any(p.measured_s is None or not p.max_err <= 5e-2 for p in res.ranked):
+        raise AssertionError(f"{what}: a rung unmeasured or off the bf16 TOL")
+    if best.measured_s > base.measured_s + max(best.spread_s, base.spread_s):
+        raise AssertionError(f"{what}: the kept winner {best.card} is slower "
+                             f"than the heuristic {base.card} by more than "
+                             f"the larger spread")
+    kernel = _fused_kernel_name(spec)
+    dev = {}
+    for role, rung in (("winner", best), ("heuristic", base)):
+        if role == "heuristic" and rung is best:
+            dev[role] = dev["winner"]
+            continue
+        kern = cached_compile(spec, rung.schedule, card=rung.card)
+        dev[role] = _kernel_ms(lambda k=kern: k(*args), flush, kernel)[0]
+    ext = "x".join(str(root.extents[i]) for i in root.indices)
+    rungs = " ".join(f"{_plan_text(p.card)}={p.measured_s * 1e3:.4f}"
+                     f"+-{p.spread_s * 1e3:.4f}ms/err{p.max_err:.2e}"
+                     + ("*" if p is base else "") for p in res.ranked)
+    print(f"[search] (d) {spec.name} {ext} [{tag}] {kernel} "
+          f"{best.card.body}: {len(cards)} plans measured; winner "
+          f"{_plan_text(best.card)} {best.measured_s * 1e3:.4f} ms, device "
+          f"{dev['winner']:.4f} ms; heuristic {_plan_text(base.card)} "
+          f"{base.measured_s * 1e3:.4f} ms, device {dev['heuristic']:.4f} ms "
+          f"({base.measured_s / best.measured_s:.3f}x); rungs {rungs} "
+          f"(* the heuristic)", flush=True)
+    record = dict(
+        tag=tag, spec=spec.name, extents=ext, kernel=kernel,
+        winner=tuple(best.card), winner_ms=best.measured_s * 1e3,
+        winner_device_ms=dev["winner"], heuristic=tuple(base.card),
+        heuristic_ms=base.measured_s * 1e3,
+        heuristic_device_ms=dev["heuristic"],
+        rungs=[dict(plan=tuple(p.card), ms=p.measured_s * 1e3,
+                    spread_ms=p.spread_s * 1e3, err=p.max_err)
+               for p in res.ranked])
+    return record, best.card
+
+
+def _fused_ops(tag, fwd, grads, winners, gen):
+    """``ops.attention`` / ``ops.grouped_dense`` (and, with ``grads``, its
+    backward) at a point of ``_fused_points`` under the stored plan DB;
+    returns ((kernel, orientation) -> the plan each launch of the tally
+    must have run, the largest error against the plain versions)."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.codegen import fused_gen
+
+    root = fwd.root()
+    if root.fused_kind == "attention":
+        h, s, t, d = (root.extents[i] for i in "hstd")
+        q, k, v = (torch.randn(h, n, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for n in (s, t, t))
+        got = ops.attention(q, k, v, causal=True, differentiable=False)
+        want = fused_gen.attention_ref(q, k, v, causal=True,
+                                       kv_lengths=None,
+                                       out_dtype=torch.bfloat16)
+        err = _check_rows(got, want, "bfloat16",
+                          f"search (d) ops.attention [{tag}]")[1]
+        return {("attention", "", winners[(tag, "attention")]): 1}, err
+    sizes = tuple(root.group_sizes)
+    kdim, fdim = root.extents["k"], root.extents["f"]
+    x = torch.randn(sum(sizes), kdim, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_(grads)
+    w = torch.randn(len(sizes), kdim, fdim, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_(grads)
+    got = ops.grouped_dense(x, w, sizes, differentiable=grads)
+    xd, wd = x.detach(), w.detach()
+    want = fused_gen.grouped_ref(xd, wd, sizes, out_dtype=torch.bfloat16)
+    err = _check_close(got.detach(), want, "bfloat16",
+                       f"search (d) ops.grouped_dense [{tag}]")[1]
+    expect = {("grouped", "", winners[(tag, "grouped_matmul")]): 1}
+    if grads:
+        g = torch.randn(got.shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        dx, dw = torch.autograd.grad(got, (x, w), g)
+        err = max(err, _check_close(
+            dx, fused_gen.grouped_ref(g, wd, sizes, out_dtype=torch.bfloat16,
+                                      contract_last=True),
+            "bfloat16", f"search (d) grouped dX [{tag}]")[1], _check_close(
+            dw, fused_gen.grouped_dw_ref(xd, g, sizes,
+                                         out_dtype=torch.bfloat16),
+            "bfloat16", f"search (d) grouped dW [{tag}]")[1])
+        expect[("grouped", "dX", winners[(tag, "grouped_matmul.dX")])] = 1
+        expect[("grouped_dw", "", winners[(tag, "grouped_matmul.dW")])] = 1
+    return expect, err
+
+
+def _search_fused(flush):
+    """Phase search (d): ``search_schedule`` on the card, bf16, at full
+    width, of ``attention`` at the attn-path's shapes (a) and (e) (causal),
+    ``grouped_matmul`` with its backward specs at the MoE training shape
+    (ladders of B3's forward, B3's dX and B4's dW) and at B3's serving
+    shape, into the plan DB ``REPRO_PLAN_DB`` names (``_fused_ladder``:
+    every candidate of ``space.fused_card_candidates`` measured, the
+    heuristic's plan among them, each checked against the f64 oracle at
+    the bf16 TOL with one launch of its kernel a timed call, on its plan;
+    at least two plans; the kept winner no slower than the heuristic by
+    more than the larger of their spreads; every rung printed, and the
+    winner's and the heuristic's device ms on the profiler).  Then
+    ``ops.attention`` and ``ops.grouped_dense`` (its backward too, at the
+    training shape) under the stored DB (``_fused_ops``): every launch of
+    B2, B3 and B4, tallied by kernel, orientation and the ``FusedPlan``
+    it ran, on its ladder's winner, and each result within the bf16 TOL
+    of its plain version."""
+    import torch
+
+    from repro_torch.search import sweep_specs
+
+    gen = torch.Generator(device="cuda").manual_seed(FUSED_SWEEP_SEED)
+    ladders, winners = [], {}
+    for tag, fwd, grads in _fused_points():
+        for _, spec in sweep_specs(fwd, with_grads=grads):
+            record, winners[(tag, spec.name)] = _fused_ladder(tag, spec, gen,
+                                                              flush)
+            ladders.append(record)
+            _free()
+
+    # every B2 / B3 / B4 launch of the ops, by (kernel, orientation, plan)
+    checked = []
+    for tag, fwd, grads in _fused_points():
+        with _FusedTally() as tally:
+            expect, err = _fused_ops(tag, fwd, grads, winners, gen)
+        if dict(tally.counts) != expect:
+            raise AssertionError(
+                f"search (d) [{tag}]: launches by (kernel, orientation, "
+                f"plan) {dict(tally.counts)}, each ladder's winner {expect}")
+        print(f"[search] (d) ops under the plan DB [{tag}]: "
+              f"{tally.text(tally.counts)}, "
+              f"each its ladder's winner; error {err:.3e} within the bf16 "
+              f"TOL", flush=True)
+        checked.append(dict(tag=tag, err=err, launches={
+            f"{n} {o}".strip(): tuple(p) for n, o, p in tally.counts}))
+        _free()
+    return dict(ladders=ladders, ops=checked)
+
+
 def phase_search(serve13):
     """The variant search on the card, under its own plan DB
     (``$CHIP_SMOKE_OUT/plans_search.json``; ``REPRO_PLAN_DB`` restored
@@ -3483,7 +3747,11 @@ def phase_search(serve13):
     ``TUNE_SHAPE`` (no ladder of (a) or (b) holds it): the search
     measures its card ladder into the plan DB, the stored entry is
     measured with the ladder winner's time and plan, and a second call is
-    a hit."""
+    a hit.  (d) ``_search_fused``: the fused kernels' card ladders (B2 at
+    the attn-path's two shapes, B3's forward and dX and B4's dW at the
+    MoE training shape, B3 at its serving shape) under the same plan DB,
+    and ``ops.attention`` / ``ops.grouped_dense`` launching each ladder's
+    winner."""
     import torch
 
     from repro_torch import obs
@@ -3723,6 +3991,15 @@ def phase_search(serve13):
               f" card: measured plan {entry['card']} at "
               f"{entry['measured_s'] * 1e3:.4f} ms, the plan DB's winner; "
               f"the second call a hit", flush=True)
+        del arrays
+        _free()
+
+        # (d) the fused kernels' card plans
+        t0 = time.perf_counter()
+        fused = _search_fused(flush)
+        fused_s = time.perf_counter() - t0
+        print(f"[search] (d) {len(fused['ladders'])} fused ladders and the "
+              f"ops under them: {fused_s:.1f} s", flush=True)
     finally:
         if old is None:
             os.environ.pop("REPRO_PLAN_DB", None)
@@ -3733,7 +4010,8 @@ def phase_search(serve13):
                        if k != "tenant_tokens"},
                 serve_plans=dict(by_source), serve_ladders=served,
                 serve_s=serve_s,
-                restart_hits=hits, restart_s=restart_s, tune=entry)
+                restart_hits=hits, restart_s=restart_s, tune=entry,
+                fused=fused, fused_s=fused_s)
 
 
 # --------------------------------------------------------------------------
@@ -5527,8 +5805,9 @@ def _capture_serve_train(out, smi, train_summary):
     torch.cuda.reset_peak_memory_stats()
     _zero_counts_all()
     t0 = time.perf_counter()
-    stats, trace, engine = serve.main(SERVE_ARGS + ["--capture",
-                                                    "--no-search-grads"])
+    with _FusedTally() as tally:
+        stats, trace, engine = serve.main(SERVE_ARGS + ["--capture",
+                                                        "--no-search-grads"])
     took = time.perf_counter() - t0
     cfg = engine.cfg
     for r in trace:
@@ -5547,8 +5826,11 @@ def _capture_serve_train(out, smi, train_summary):
     for kind, rep in cs["reports"].items():
         print(f"[capture] serve harvest {kind}: {rep.summary()}",
               flush=True)
+    swept, served = tally.split("attention", got_b2)
     print(f"[capture] serve sweep: {cs['points']} plan point(s) of "
-          f"{cs['specs']} spec(s) in {cs['sweep_s']:.1f} s", flush=True)
+          f"{cs['specs']} spec(s) in {cs['sweep_s']:.1f} s; B2 launches by "
+          f"plan: the sweep's {tally.text(swept)}; the serving's "
+          f"{tally.text(served)}", flush=True)
     for label, fn in (("prefill", engine.prefill.step),
                       ("decode", engine.decode.step)):
         for rep in fn.reports:
@@ -5572,6 +5854,10 @@ def _capture_serve_train(out, smi, train_summary):
         stats={k: v for k, v in stats.items() if k != "tenant_tokens"},
         b1=got_b1, b2=got_b2, peak_bytes=peak, wall_s=took,
         sweep_points=cs["points"], sweep_s=cs["sweep_s"],
+        b2_plans=dict(sweep={_plan_text(p): c for (_, _, p), c in
+                             swept.items()},
+                      served={_plan_text(p): c for (_, _, p), c in
+                              served.items()}),
         first_logits_err=errs)
     print(f"[capture] serve {cfg.arch_id} --capture: B1 {got_b1} (want "
           f"{want_b1} = (7 x {cfg.n_layers} + 1) x {forwards} forwards), "
@@ -5648,6 +5934,7 @@ def _capture_serve_train(out, smi, train_summary):
                        4 * (m * cfg.d_model + cfg.d_model * cfg.vocab
                             + m * cfg.vocab), "float32",
                        peak=PEAK_3XTF32)[0]
+        specs = {"fwd": dsp_fwd, ".dA": dsp["A"], ".dB": dsp["B"]}
         rows = {}
         launcher = _launcher("contract")
         with torch.no_grad():
@@ -5656,11 +5943,21 @@ def _capture_serve_train(out, smi, train_summary):
                 got = fn()
                 body = _body(launcher)
                 width = launcher.last_plan and launcher.last_plan.tile_n
-                # the product's M: the tokens, or D for matmul.dB's x^T
-                # (m-contiguous: the 128-wide tile)
+                # the plan a ladder stored for this spec (serve --capture's
+                # warm-up sweep measures the decode unembedding's forward),
+                # which ops launches in place of the heuristic's
+                searched = _searched_card(specs[what], torch.float32)
+                # else the product's M: the tokens, or D for matmul.dB's
+                # x^T (m-contiguous: the 128-wide tile)
                 want_width = (tc32_width(m, narrow_x=True) if what != ".dB"
                               else tc32_width(cfg.d_model))
-                if launcher.last_body != "tc32" or width != want_width:
+                if searched is not None:
+                    if (launcher.last_body != "tc32"
+                            or launcher.last_card != searched):
+                        raise AssertionError(
+                            f"{tag}: body {body} on {launcher.last_card}, "
+                            f"expected the plan DB's tc32 plan {searched}")
+                elif launcher.last_body != "tc32" or width != want_width:
                     raise AssertionError(f"{tag}: body {body}, expected tc32 "
                                          f"with an x tile {want_width} wide")
                 err = _check_close(got, plains[what](), "float32", tag)
@@ -5668,6 +5965,8 @@ def _capture_serve_train(out, smi, train_summary):
                 _alone(fn, "contract", 1, tag)
                 ms = _kernel_ms(fn, flush, "contract")[0]
                 rows[what] = dict(device_ms=ms, body=body,
+                                  plan="searched" if searched else
+                                  "heuristic",
                                   max_abs_err=err[0], scaled_err=err[1],
                                   library_ms=_timed(libs[what], flush,
                                                     reps=3, warmup=1),
@@ -5677,10 +5976,12 @@ def _capture_serve_train(out, smi, train_summary):
                 torch.cuda.empty_cache()
         out["unembed"][m] = rows
         print(f"[capture] f32 unembedding {m} x {cfg.d_model} x "
-              f"{cfg.vocab} on B1, each one launch alone, device ms (body; "
+              f"{cfg.vocab} on B1, each one launch alone, device ms (body, "
+              f"searched or heuristic plan; "
               f"scaled err vs the plain version; torch.matmul f32 ms; the "
               f"plain version's ms): "
-              + ", ".join(f"{k} {v['device_ms']:.3f} ({v['body']}; "
+              + ", ".join(f"{k} {v['device_ms']:.3f} ({v['body']}, "
+                          f"{v['plan']}; "
                           f"{v['scaled_err']:.3g}; {v['library_ms']:.3f}; "
                           f"plain {v['plain_ms']:.3f})"
                           for k, v in rows.items())

@@ -3,7 +3,8 @@
 
     python3 scripts/chip_compare.py \
         [--serve | --kernels | --moe-serve | --quant | --modes |
-         --attention | --baselines | --f32 | --dw] OLD_CHECKOUT NEW_CHECKOUT
+         --attention | --baselines | --f32 | --dw | --capture-serve]
+        OLD_CHECKOUT NEW_CHECKOUT
 
 Runs, in a fresh process per turn and in the order old, new, new, old,
 phases of each checkout's own ``chip_smoke.py``, after building the
@@ -70,7 +71,15 @@ path's shapes (32 groups of C = 320, gate/up and down) and kimi-k2's full
 expert shapes (384 groups of C = 28); each turn prints the tree, every
 row's profiler device ms and event-timed ms, the body where the tree
 records it, and the training step's three dW calls of a MoE layer
-summed.  Needs one NVIDIA card;
+summed.  With ``--capture-serve``: qwen3-8b served at full width and depth
+with ``--capture --no-search-grads`` and the smoke's serving flags, on a
+plan DB and autotune cache of the turn's own (empty at its start), B1 and
+B2 built before the run; each turn prints the tree, the capture warm-up
+sweep's seconds, points and specs, the B2 launches by the plan they ran
+(``last_plan`` where the tree's launcher records one, else "none"), the
+sweep's apart from the serving's, the serving's B1 and B2 launches,
+prefill ms, decode tok/s and the run's wall seconds.  Needs one NVIDIA
+card;
 compare two versions only within one run of this script.
 """
 
@@ -561,11 +570,58 @@ print("COMPARE " + json.dumps({"tree": sys.argv[1], "dw_device_ms": device,
                                "train_three_ms": three(event)}), flush=True)
 """
 
+CAPTURE_SERVE_TURN = r"""
+import collections, json, os, sys, time
+sys.path.insert(0, "src")
+import chip_smoke as cs
+import torch
+
+os.makedirs(cs.OUT, exist_ok=True)
+for var, name in (("REPRO_AUTOTUNE_CACHE", "autotune"),
+                  ("REPRO_PLAN_DB", "plans")):
+    path = os.path.join(cs.OUT, f"{name}_capture_{os.getpid()}.json")
+    if os.path.exists(path):
+        os.remove(path)
+    os.environ[var] = path
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+from repro_torch.codegen import build, fused_gen
+from repro_torch.launch import serve
+for name in ("contract", "attention"):
+    build.build(name)
+    build.load(name)
+launcher = fused_gen.ATTENTION
+real, plans = type(launcher).__call__, []
+def call(self, *a, **kw):
+    n0 = self.launches
+    out = real(self, *a, **kw)
+    if self.launches > n0:
+        p = getattr(self, "last_plan", None)
+        plans.append("none" if p is None else
+                     f"{p.body} {p.block}x{p.ctas}")
+    return out
+type(launcher).__call__ = call
+t0 = time.perf_counter()
+stats, trace, engine = serve.main(cs.SERVE_ARGS + ["--capture",
+                                                   "--no-search-grads"])
+wall = time.perf_counter() - t0
+cap = engine.capture_stats
+served = stats["attention_launches"]
+print("COMPARE " + json.dumps({
+    "tree": sys.argv[1], "sweep_s": cap["sweep_s"], "points": cap["points"],
+    "specs": cap["specs"],
+    "b2_sweep": collections.Counter(plans[:len(plans) - served]),
+    "b2_served": collections.Counter(plans[len(plans) - served:]),
+    "b1": stats["kernel_launches"], "b2": served,
+    "prefill_ms": stats["prefill_s"] * 1e3,
+    "decode_tok_s": stats["tok_per_s"], "wall_s": wall}), flush=True)
+"""
+
 TURNS = {"--serve": SERVE_TURN, "--kernels": KERNELS_TURN,
          "--moe-serve": MOE_SERVE_TURN, "--quant": QUANT_TURN,
          "--modes": MODES_TURN, "--attention": ATTENTION_TURN,
          "--baselines": BASELINES_TURN, "--f32": F32_TURN,
-         "--dw": DW_TURN}
+         "--dw": DW_TURN, "--capture-serve": CAPTURE_SERVE_TURN}
 
 
 def main(argv) -> int:

@@ -26,14 +26,14 @@
 // (fused_gen.attention_body; attention_launch re-checks the rules and
 // refuses a body they exclude):
 //
-//   * "ring" (attn_bf16_ring_kernel<DB, EB>, bf16, d and e multiples of 8
-//     up to 128, q, k and v as TMA reads them): persistent CTAs of three
-//     warpgroups, one an SM, on hopper.cuh's skeleton, each taking tiles
+//   * "ring" (attn_bf16_ring_kernel<DB, EB, BN>, bf16, d and e multiples
+//     of 8 up to 128, q, k and v as TMA reads them): persistent CTAs of
+//     three warpgroups, one an SM, on hopper.cuh's skeleton, each taking tiles
 //     of (head, 128 rows of s) from a global counter in head order,
 //     heaviest causal rows first.  One thread of warpgroup 0 (its
 //     registers given away) keeps TMA loads in flight: a tile's Q, then
-//     its K and V blocks of 128 columns into a ring of stages (3 at d = e
-//     = 128), each with a "full" mbarrier for K, one for V and an "empty"
+//     its K and V blocks of BN = 128 columns into a ring of stages (3 at d
+//     = e = 128), each with a "full" mbarrier for K, one for V and an "empty"
 //     one; the next tile's Q loads once the consumers are past the last
 //     Q.K^T, under the tile's last P.V and its store.  Each map is 3-D (d,
 //     s|t, head) with the caller's strides, so TMA zero-fills rows past S
@@ -62,9 +62,9 @@
 //     ldmatrix.trans.  K and V tiles stream through a two-stage cp.async
 //     ring (16-byte copies; element-wise loads when d or e is not a
 //     multiple of 8 or a pointer or stride is not 16-byte aligned).
-//   * "tc32" (attn_f32_tc_kernel<DP, EP>, f32, d and e up to 128, padded
-//     with zeros to 64 or 128): 3xTF32 on the tensor cores, 8 warps of 16
-//     rows, KV blocks of 32 columns.  Each operand is split into a hi and
+//   * "tc32" (attn_f32_tc_kernel<DP, EP, BC>, f32, d and e up to 128,
+//     padded with zeros to 64 or 128): 3xTF32 on the tensor cores, 8 warps
+//     of 16 rows, KV blocks of BC = 32 columns.  Each operand is split into a hi and
 //     a lo part, each rounded to TF32 (to nearest, ties away: cvt.rna's
 //     rounding), and each product accumulates lo.hi + hi.lo + hi.hi in f32
 //     on mma.sync m16n8k8: about 2^-21 relative, against TF32's 2^-11 that
@@ -80,6 +80,14 @@
 //     the FMA pipes: 256 threads, each a 4 x 4 micro-tile of the 64 x 64
 //     scores, then four threads per row for the softmax, then a 4 x EP/16
 //     micro-tile of the accumulator; tiles are loaded synchronously.
+// Every launch of the ring or the 3xTF32 body runs a plan
+// (attention_launch_plan, fused_gen.FusedPlan: the searched one, else
+// fused_gen.attention_plan's) of two knobs: the ring's KV block (BN = 128
+// or 64, the S fragments and P's k16 steps halved with it) and its
+// persistent grid's CTA count, or the 3xTF32 body's KV block (BC = 32, or
+// 64 where its tiles fit).  A smaller KV block moves the causal diagonal's
+// masked work and the stages' depth; a wider one halves the softmax
+// steps.
 // The ring, mma and tc32 bodies share the online softmax (softmax_step).  The reference
 // multiplies P and V in f32: the bf16 bodies' rounding of P to bf16 is held
 // at the bf16 tolerance.
@@ -258,23 +266,26 @@ __device__ __forceinline__ void finish_sums(float (&l)[2]) {
 // ----------------------------------------------------------------------------
 
 constexpr int RG_BM = 128;  // rows of s per CTA
-constexpr int RG_BN = 128;  // columns of t per KV block
+constexpr int RG_BN = 128;  // columns of t per KV block (the heuristic's)
+constexpr int RG_BN_NARROW = 64;  // the KV block a plan may take instead
 constexpr int RG_THREADS = 384;
 constexpr int RG_BOX = 64;                // bf16 along d or e of one box
 constexpr int RG_BOX_BYTES = 128 * 128;   // a box: 128 rows of 128 bytes
 constexpr int RG_MAX_HEAD = 2 * RG_BOX;   // d and e up to 128
 constexpr int SMEM_MAX = 232448;          // an H100 block's shared memory
 
-// Shared memory of a ring CTA whose d takes DB boxes and e EB: Q, then
-// each stage's K and V tiles (as many stages as fit, up to 4: 3 at d = e
-// = 128), then the barriers (Q's full and empty, the stages' full K, full
-// V and empty) and the slot of the tile in hand, after 1024 bytes to align
-// the tiles.
-template <int DB, int EB>
+// Shared memory of a ring CTA whose d takes DB boxes and e EB, on KV
+// blocks of BN columns: Q, then each stage's K and V tiles (boxes of BN
+// rows of 128 bytes; as many stages as fit, up to 4: 3 at d = e = 128 and
+// BN = 128), then the barriers (Q's full and empty, the stages' full K,
+// full V and empty) and the slot of the tile in hand, after 1024 bytes to
+// align the tiles.
+template <int DB, int EB, int BN>
 struct RingLayout {
+  static constexpr int KV_BOX = BN * 128;  // a K or V box
   static constexpr int Q = DB * RG_BOX_BYTES;
-  static constexpr int KB = DB * RG_BOX_BYTES;
-  static constexpr int VB = EB * RG_BOX_BYTES;
+  static constexpr int KB = DB * KV_BOX;
+  static constexpr int VB = EB * KV_BOX;
   static constexpr int STAGE = KB + VB;
   static constexpr int FIT = (SMEM_MAX - Q - 1024 - 15 * 8) / STAGE;
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
@@ -285,32 +296,34 @@ struct RingLayout {
 
 // The fences of a step's registers: the compiler keeps their reads and
 // writes on their side of a wgmma's issue and wait.
-template <int NO>
-__device__ __forceinline__ void ring_fence(float (&sc)[64], float (&o)[NO],
-                                           uint32_t (&pa)[8][4]) {
+// (a thread's S fragments of a KV block of BN columns: BN / 2 floats; P's
+// register-A fragments: BN / 16 k16 steps of four words)
+template <int NS, int NO, int NP>
+__device__ __forceinline__ void ring_fence(float (&sc)[NS], float (&o)[NO],
+                                           uint32_t (&pa)[NP][4]) {
   hopper::fence_regs(sc);
   hopper::fence_regs(o);
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) hopper::fence_regs(pa[kk]);
+  for (int kk = 0; kk < NP; ++kk) hopper::fence_regs(pa[kk]);
 }
 
-// O += P.V_j: eight register-A k16 steps over the stage's V tile (N-major
-// boxes of 64 e, RG_BOX_BYTES apart), not committed
-template <int NO>
+// O += P.V_j: BN / 16 register-A k16 steps over the stage's V tile
+// (N-major boxes of 64 e, BN rows of 128 bytes apart), not committed
+template <int NO, int NP>
 __device__ __forceinline__ void ring_pv_issue(float (&o)[NO],
-                                              uint32_t (&pa)[8][4],
+                                              uint32_t (&pa)[NP][4],
                                               uint32_t vt) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < NP; ++kk)
     hopper::wgmma_bf16_rs<1>(
-        o, pa[kk], hopper::desc(vt + kk * 2048, RG_BOX_BYTES, 1024));
+        o, pa[kk], hopper::desc(vt + kk * 2048, NP * 16 * 128, 1024));
 }
 
-// S = Q.K_j^T: the warpgroup's 64 rows of Q against the stage's 128 rows
+// S = Q.K_j^T: the warpgroup's 64 rows of Q against the stage's BN rows
 // of K, both K-major, DB boxes of four k16 steps, the first overwriting
 // the accumulator, not committed
-template <int DB>
-__device__ __forceinline__ void ring_qk_issue(float (&sc)[64], uint32_t qa,
+template <int DB, int NS>
+__device__ __forceinline__ void ring_qk_issue(float (&sc)[NS], uint32_t qa,
                                               uint32_t kt) {
 #pragma unroll
   for (int b = 0; b < DB; ++b)
@@ -318,13 +331,13 @@ __device__ __forceinline__ void ring_qk_issue(float (&sc)[64], uint32_t qa,
     for (int ks = 0; ks < 4; ++ks)
       hopper::wgmma_bf16<0, 0>(
           sc, hopper::desc(qa + b * RG_BOX_BYTES + ks * 32, 16, 1024),
-          hopper::desc(kt + b * RG_BOX_BYTES + ks * 32, 16, 1024),
+          hopper::desc(kt + b * NS * 2 * 128 + ks * 32, 16, 1024),
           b + ks > 0);
 }
 
 // The first step: S_0 alone, one group
-template <int DB>
-__device__ __forceinline__ void ring_qk(float (&sc)[64], uint32_t qa,
+template <int DB, int NS>
+__device__ __forceinline__ void ring_qk(float (&sc)[NS], uint32_t qa,
                                         uint32_t kt) {
   hopper::fence_regs(sc);
   hopper::wgmma_fence();
@@ -334,10 +347,10 @@ __device__ __forceinline__ void ring_qk(float (&sc)[64], uint32_t qa,
 
 // A middle step: S_j, then O += P_{j-1}.V_{j-1}, two groups, so the
 // softmax of S_j can start while the second runs
-template <int DB, int NO>
-__device__ __forceinline__ void ring_qk(float (&sc)[64], uint32_t qa,
+template <int DB, int NS, int NO, int NP>
+__device__ __forceinline__ void ring_qk(float (&sc)[NS], uint32_t qa,
                                         uint32_t kt, float (&o)[NO],
-                                        uint32_t (&pa)[8][4], uint32_t vt) {
+                                        uint32_t (&pa)[NP][4], uint32_t vt) {
   ring_fence(sc, o, pa);
   hopper::wgmma_fence();
   ring_qk_issue<DB>(sc, qa, kt);
@@ -347,41 +360,43 @@ __device__ __forceinline__ void ring_qk(float (&sc)[64], uint32_t qa,
 }
 
 // The last step's group: O += P.V alone
-template <int NO>
-__device__ __forceinline__ void ring_pv(float (&o)[NO], uint32_t (&pa)[8][4],
+template <int NO, int NP>
+__device__ __forceinline__ void ring_pv(float (&o)[NO], uint32_t (&pa)[NP][4],
                                         uint32_t vt) {
   hopper::fence_regs(o);
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) hopper::fence_regs(pa[kk]);
+  for (int kk = 0; kk < NP; ++kk) hopper::fence_regs(pa[kk]);
   hopper::wgmma_fence();
   ring_pv_issue(o, pa, vt);
   hopper::wgmma_commit();
 }
 
-// S_j (columns c0 ..) into P_j in place: the softmax step, masks only on
-// a block that crosses the diagonal or the head's length; returns O's
-// rescale in ``alpha``
-__device__ __forceinline__ void ring_softmax(float (&sc)[64], float (&m)[2],
+// S_j (columns c0 .. c0 + 2 NS) into P_j in place: the softmax step,
+// masks only on a block that crosses the diagonal or the head's length;
+// returns O's rescale in ``alpha``
+template <int NS>
+__device__ __forceinline__ void ring_softmax(float (&sc)[NS], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              const AttnArgs& a, int tlen,
                                              int row, int col, int first,
                                              int c0, float scale) {
   const bool edge =
-      c0 + RG_BN > tlen || (a.causal && c0 + RG_BN - 1 > first);
+      c0 + 2 * NS > tlen || (a.causal && c0 + 2 * NS - 1 > first);
   softmax_step(sc, m, l, alpha, a, tlen, row, c0 + col, scale, edge);
 }
 
 // O rescaled and P rounded to bf16: the S fragments of columns 16 kk ..
 // 16 kk + 15 are the register-A fragment of P.V's k16 step kk
-template <int NO>
-__device__ __forceinline__ void ring_rescale_pack(const float (&sc)[64],
+template <int NS, int NO, int NP>
+__device__ __forceinline__ void ring_rescale_pack(const float (&sc)[NS],
                                                   float (&o)[NO],
-                                                  uint32_t (&pa)[8][4],
+                                                  uint32_t (&pa)[NP][4],
                                                   const float (&alpha)[2]) {
+  static_assert(NS == 8 * NP, "a k16 step of P is 8 S fragments");
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < NP; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
@@ -393,21 +408,22 @@ __device__ __forceinline__ void ring_rescale_pack(const float (&sc)[64],
 // K and V stay in L2, and the light tiles come last.
 struct RingTile {
   int h, r0, tlen, nblk;
-  __device__ __forceinline__ RingTile(const AttnArgs& a, int nrb, int t) {
+  __device__ __forceinline__ RingTile(const AttnArgs& a, int nrb, int t,
+                                      int bn) {
     h = t / nrb;
     r0 = (nrb - 1 - (t - h * nrb)) * RG_BM;
     tlen = kv_len(a, h);
-    nblk = (kv_stop(a, tlen, r0, RG_BM) + RG_BN - 1) / RG_BN;
+    nblk = (kv_stop(a, tlen, r0, RG_BM) + bn - 1) / bn;
   }
 };
 
-template <int DB, int EB>
+template <int DB, int EB, int BN>
 __global__ void __launch_bounds__(RG_THREADS, 1)
     attn_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmQ,
                           const __grid_constant__ CUtensorMap tmK,
                           const __grid_constant__ CUtensorMap tmV,
                           const AttnArgs a) {
-  using L = RingLayout<DB, EB>;
+  using L = RingLayout<DB, EB, BN>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* tiles =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -453,7 +469,7 @@ __global__ void __launch_bounds__(RG_THREADS, 1)
           }
           break;
         }
-        const RingTile tile(a, nrb, t);
+        const RingTile tile(a, nrb, t, BN);
         *slot = t;
         if (tile.nblk == 0) {  // a head of length 0: zeros, no loads
           hopper::mbar_arrive(qfull);
@@ -471,13 +487,13 @@ __global__ void __launch_bounds__(RG_THREADS, 1)
           hopper::mbar_arrive_tx(&fullk[s], L::KB);
 #pragma unroll
           for (int b = 0; b < DB; ++b)
-            hopper::tma_load(kt + b * RG_BOX_BYTES, &tmK, &fullk[s],
-                             b * RG_BOX, j * RG_BN, tile.h);
+            hopper::tma_load(kt + b * L::KV_BOX, &tmK, &fullk[s],
+                             b * RG_BOX, j * BN, tile.h);
           hopper::mbar_arrive_tx(&fullv[s], L::VB);
 #pragma unroll
           for (int b = 0; b < EB; ++b)
-            hopper::tma_load(kt + L::KB + b * RG_BOX_BYTES, &tmV, &fullv[s],
-                             b * RG_BOX, j * RG_BN, tile.h);
+            hopper::tma_load(kt + L::KB + b * L::KV_BOX, &tmV, &fullv[s],
+                             b * RG_BOX, j * BN, tile.h);
         }
       }
     }
@@ -500,7 +516,7 @@ __global__ void __launch_bounds__(RG_THREADS, 1)
     hopper::mbar_wait(qfull, tc & 1);  // a tile in the slot (and its Q)
     const int t = *slot;
     if (t < 0) break;
-    const RingTile tile(a, nrb, t);
+    const RingTile tile(a, nrb, t, BN);
     const int nblk = tile.nblk;
     const int first = tile.r0 + wg * 64 + warp * 16;  // the warp's first row
     const int row = first + (lane >> 2);              // and row + 8
@@ -509,9 +525,9 @@ __global__ void __launch_bounds__(RG_THREADS, 1)
     for (int i = 0; i < EB * 32; ++i) o[i] = 0.f;
     float m[2] = {MASK_VALUE, MASK_VALUE};  // rows row, row + 8; log2
     float l[2] = {0.f, 0.f};                // this thread's partial sums
-    float sc[64];
+    float sc[BN / 2];
     float alpha[2];
-    uint32_t pa[8][4];  // P of the block before, bf16: P.V's register A
+    uint32_t pa[BN / 16][4];  // P of the block before, bf16: P.V's register A
     // Step j issues S_j = Q.K_j^T, then O += P_{j-1}.V_{j-1}, as two
     // groups; waits for S_j alone and runs its softmax in place while the
     // P.V runs; then waits for that, releases stage j - 1 (and Q after the
@@ -539,7 +555,7 @@ __global__ void __launch_bounds__(RG_THREADS, 1)
         hopper::fence_regs(sc);
         if (leader && j == nblk - 1) hopper::mbar_arrive(qempty);
         ring_softmax(sc, m, l, alpha, a, tile.tlen, row, col, first,
-                     j * RG_BN, scale);
+                     j * BN, scale);
         hopper::wgmma_wait<0>();
         ring_fence(sc, o, pa);
         if (leader) hopper::mbar_arrive(&empty[sp]);
@@ -767,26 +783,29 @@ __global__ void __launch_bounds__(BF_THREADS) attn_bf16_kernel(
 // ----------------------------------------------------------------------------
 
 constexpr int TC_BR = 128;  // rows of s per CTA: 8 warps of 16
-constexpr int TC_BC = 32;   // columns of t per KV block
+constexpr int TC_BC = 32;   // columns of t per KV block (the heuristic's)
+constexpr int TC_BC_WIDE = 64;  // the KV block a plan may take instead
 constexpr int TC_THREADS = 256;
 constexpr int TC_MAX_HEAD = 128;
 
 // The 3xTF32 body's shared memory, in floats, for d up to DP and e up to EP
-// (64 or 128; columns past d and e are zeros): Q as it lies (rows of DP +
+// (64 or 128; columns past d and e are zeros) on KV blocks of BC columns
+// (TC_BC, or TC_BC_WIDE where it fits: all but d = e = 128): Q as it lies (rows of DP +
 // 8: a k8 step's float2 loads of a half-warp hit 32 distinct banks); the
 // landing K and V blocks (cp.async); and the block split for the tensor
 // cores, as float4s {hi, hi, lo, lo}: K's columns 2c and 2c + 1 of each
 // row (rows of DP / 2 + 4 float4s), V's rows 2p and 2p + 1 of each column
 // (rows of EP + 2) -- one conflict-free 16-byte load is a B fragment's hi
 // and lo register pairs.
-template <int DP, int EP>
+template <int DP, int EP, int BC>
 struct TcLayout {
   static constexpr int LDQ = DP + 8, LDK4 = DP / 2 + 4, LDV4 = EP + 2;
   static constexpr int KRAW = TC_BR * LDQ;
-  static constexpr int VRAW = KRAW + TC_BC * DP;
-  static constexpr int KS4 = VRAW + TC_BC * EP;
-  static constexpr int VS4 = KS4 + 4 * TC_BC * LDK4;
-  static constexpr int FLOATS = VS4 + 4 * (TC_BC / 2) * LDV4;
+  static constexpr int VRAW = KRAW + BC * DP;
+  static constexpr int KS4 = VRAW + BC * EP;
+  static constexpr int VS4 = KS4 + 4 * BC * LDK4;
+  static constexpr int FLOATS = VS4 + 4 * (BC / 2) * LDV4;
+  static constexpr bool FITS = FLOATS * 4 <= SMEM_MAX;
 };
 
 using hopper::split_tf32;  // hi + lo, each rounded to TF32 (hopper.cuh)
@@ -849,10 +868,10 @@ __device__ __forceinline__ void load_rows_f32(float* T, int ldt,
   }
 }
 
-template <int DP, int EP>
+template <int DP, int EP, int BC>
 __global__ void __launch_bounds__(TC_THREADS, 1) attn_f32_tc_kernel(
     const AttnArgs a) {
-  using L = TcLayout<DP, EP>;
+  using L = TcLayout<DP, EP, BC>;
   extern __shared__ __align__(16) float smt[];
   const float* Qs = smt;
   float* Kr = smt + L::KRAW;
@@ -868,7 +887,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_f32_tc_kernel(
   const int h = blockIdx.y;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * TC_BR;
   const int tlen = kv_len(a, h);
-  const int nblk = (kv_stop(a, tlen, r0, TC_BR) + TC_BC - 1) / TC_BC;
+  const int nblk = (kv_stop(a, tlen, r0, TC_BR) + BC - 1) / BC;
   const float* Q = static_cast<const float*>(a.Q) + h * a.sQh;
   const float* K = static_cast<const float*>(a.K) + h * a.sKh;
   const float* V = static_cast<const float*>(a.V) + h * a.sVh;
@@ -880,8 +899,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_f32_tc_kernel(
   __syncthreads();
   load_rows_f32<TC_BR>(smt, L::LDQ, Q, a.sQs, r0, a.S, a.D, vec);
   if (nblk > 0) {
-    load_rows_f32<TC_BC>(Kr, DP, K, a.sKt, 0, a.T, a.D, vec);
-    load_rows_f32<TC_BC>(Vr, EP, V, a.sVt, 0, a.T, a.E, vec);
+    load_rows_f32<BC>(Kr, DP, K, a.sKt, 0, a.T, a.D, vec);
+    load_rows_f32<BC>(Vr, EP, V, a.sVt, 0, a.T, a.E, vec);
   }
   cp_async_commit();
 
@@ -899,30 +918,30 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_f32_tc_kernel(
     __syncthreads();     // ... and everyone's; the split block j - 1 is read
     // split block j once for all warps: K by column pairs, V by row pairs
 #pragma unroll
-    for (int i = tid; i < TC_BC * DP / 2; i += TC_THREADS) {
+    for (int i = tid; i < BC * DP / 2; i += TC_THREADS) {
       const int r = i / (DP / 2), c = i % (DP / 2);
       const float2 x = reinterpret_cast<const float2*>(Kr + r * DP)[c];
       Ks4[r * L::LDK4 + c] = split_pair(x.x, x.y);
     }
 #pragma unroll
-    for (int i = tid; i < TC_BC / 2 * EP; i += TC_THREADS) {
+    for (int i = tid; i < BC / 2 * EP; i += TC_THREADS) {
       const int p = i / EP, c = i % EP;
       Vs4[p * L::LDV4 + c] =
           split_pair(Vr[2 * p * EP + c], Vr[(2 * p + 1) * EP + c]);
     }
     __syncthreads();  // the split block is ready; the landing tiles free
     if (j + 1 < nblk) {
-      load_rows_f32<TC_BC>(Kr, DP, K, a.sKt, (j + 1) * TC_BC, a.T, a.D, vec);
-      load_rows_f32<TC_BC>(Vr, EP, V, a.sVt, (j + 1) * TC_BC, a.T, a.E, vec);
+      load_rows_f32<BC>(Kr, DP, K, a.sKt, (j + 1) * BC, a.T, a.D, vec);
+      load_rows_f32<BC>(Vr, EP, V, a.sVt, (j + 1) * BC, a.T, a.E, vec);
       cp_async_commit();
     }
 
     // S = Q.K^T; k slot t of a k8 step holds column 2t, slot t + 4 column
     // 2t + 1, for A (one float2 of Q, split here) and B (one float4 of
     // the split K) alike
-    float sc[TC_BC / 8][4];
+    float sc[BC / 8][4];
 #pragma unroll
-    for (int ni = 0; ni < TC_BC / 8; ++ni)
+    for (int ni = 0; ni < BC / 8; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[ni][e] = 0.f;
     const float* qrow = Qs + (first + g) * L::LDQ + 2 * t4;
@@ -938,16 +957,16 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_f32_tc_kernel(
       split_tf32(q0.y, ah[2], al[2]);
       split_tf32(q1.y, ah[3], al[3]);
 #pragma unroll
-      for (int ni = 0; ni < TC_BC / 8; ++ni) {
+      for (int ni = 0; ni < BC / 8; ++ni) {
         mma_3xtf32(sc[ni], ah, al, krow[ni * 8 * L::LDK4 + ks * 4]);
       }
     }
 
-    const int c0 = j * TC_BC;
-    const bool edge = c0 + TC_BC > tlen ||
-                      (a.causal && c0 + TC_BC - 1 > r0 + first);
+    const int c0 = j * BC;
+    const bool edge = c0 + BC > tlen ||
+                      (a.causal && c0 + BC - 1 > r0 + first);
     float alpha[2];
-    softmax_step(reinterpret_cast<float(&)[TC_BC / 2]>(sc), m, l, alpha, a,
+    softmax_step(reinterpret_cast<float(&)[BC / 2]>(sc), m, l, alpha, a,
                  tlen, r0 + first + g, c0 + 2 * t4, scale, edge);
 #pragma unroll
     for (int ni = 0; ni < EP / 8; ++ni) {
@@ -961,7 +980,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_f32_tc_kernel(
     // above (slot t: column 2t, slot t + 4: 2t + 1); V's split row pair
     // 4 kk + t holds rows 8 kk + 2t and 8 kk + 2t + 1 to match
 #pragma unroll
-    for (int kk = 0; kk < TC_BC / 8; ++kk) {
+    for (int kk = 0; kk < BC / 8; ++kk) {
       uint32_t ph[4], pl[4];
       split_tf32(sc[kk][0], ph[0], pl[0]);
       split_tf32(sc[kk][2], ph[1], pl[1]);
@@ -1166,72 +1185,73 @@ bool aligned16(const void* p) {
 }
 
 // The ring's three tensor maps: (d, s, head) of Q, (d, t, head) of K and
-// (e, t, head) of V, boxes of 64 x 128 x 1; false where TMA cannot read
-// one (hopper::tma_ok: 16-byte aligned data, every stride of an axis
-// longer than 1 a positive multiple of 16 bytes).
+// (e, t, head) of V, boxes of 64 x 128 x 1 (64 x bn x 1 for K and V);
+// false where TMA cannot read one (hopper::tma_ok: 16-byte aligned data,
+// every stride of an axis longer than 1 a positive multiple of 16 bytes).
 bool ring_maps(const AttnArgs& a, CUtensorMap* tq, CUtensorMap* tk,
-               CUtensorMap* tv) {
+               CUtensorMap* tv, int bn) {
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const hopper::Operand q{a.Q, a.D, a.S, a.sQs, a.H, a.sQh};
   const hopper::Operand k{a.K, a.D, a.T, a.sKt, a.H, a.sKh};
   const hopper::Operand v{a.V, a.E, a.T, a.sVt, a.H, a.sVh};
   return hopper::make_map(tq, q, 2, bf16, RG_BOX, RG_BM) &&
-         hopper::make_map(tk, k, 2, bf16, RG_BOX, RG_BN) &&
-         hopper::make_map(tv, v, 2, bf16, RG_BOX, RG_BN);
+         hopper::make_map(tk, k, 2, bf16, RG_BOX, bn) &&
+         hopper::make_map(tv, v, 2, bf16, RG_BOX, bn);
 }
 
-template <int DP, int EP>
+template <int DP, int EP, int BC>
 int launch_tc32(const AttnArgs& a, cudaStream_t s) {
+  static_assert(TcLayout<DP, EP, BC>::FITS, "the 3xTF32 body's tiles fit");
   const dim3 grid((unsigned)((a.S + TC_BR - 1) / TC_BR), (unsigned)a.H);
-  return launch(attn_f32_tc_kernel<DP, EP>, grid, TC_THREADS,
-                TcLayout<DP, EP>::FLOATS * sizeof(float), s, a);
+  return launch(attn_f32_tc_kernel<DP, EP, BC>, grid, TC_THREADS,
+                TcLayout<DP, EP, BC>::FLOATS * sizeof(float), s, a);
 }
 
-// The ring's persistent grid: one CTA an SM, at most one a tile.
-int ring_grid(int ntiles) {
-  int sms = 0, dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return -1;
-  return ntiles < sms ? ntiles : sms;
+// The 3xTF32 body at d up to DP and e up to EP on KV blocks of ``block``
+// columns (TC_BC or TC_BC_WIDE where its tiles fit)
+template <int DP, int EP>
+int launch_tc32_block(const AttnArgs& a, int block, cudaStream_t s) {
+  if (block == TC_BC) return launch_tc32<DP, EP, TC_BC>(a, s);
+  if constexpr (TcLayout<DP, EP, TC_BC_WIDE>::FITS) {
+    if (block == TC_BC_WIDE) return launch_tc32<DP, EP, TC_BC_WIDE>(a, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int DB, int EB>
+// ``ctas`` persistent CTAs (at most one a tile) on KV blocks of BN columns
+template <int DB, int EB, int BN>
 int launch_ring(const AttnArgs& a, const CUtensorMap& tq,
-                const CUtensorMap& tk, const CUtensorMap& tv,
+                const CUtensorMap& tk, const CUtensorMap& tv, int ctas,
                 cudaStream_t s) {
   const int nrb = (a.S + RG_BM - 1) / RG_BM;
-  if ((long long)nrb * a.H > 0x7fffffff)
+  if ((long long)nrb * a.H > 0x7fffffff || ctas < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = ring_grid(nrb * a.H);
-  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(attn_bf16_ring_kernel<DB, EB>, dim3((unsigned)grid),
-                RG_THREADS, RingLayout<DB, EB>::SMEM, s, tq, tk, tv, a);
+  const int grid = nrb * a.H < ctas ? nrb * a.H : ctas;
+  return launch(attn_bf16_ring_kernel<DB, EB, BN>, dim3((unsigned)grid),
+                RG_THREADS, RingLayout<DB, EB, BN>::SMEM, s, tq, tk, tv, a);
 }
 
-}  // namespace
+template <int BN>
+int launch_ring_heads(const AttnArgs& a, int ctas, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  if (!ring_maps(a, &tq, &tk, &tv, BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.D <= RG_BOX)
+    return a.E <= RG_BOX ? launch_ring<1, 1, BN>(a, tq, tk, tv, ctas, s)
+                         : launch_ring<1, 2, BN>(a, tq, tk, tv, ctas, s);
+  return a.E <= RG_BOX ? launch_ring<2, 1, BN>(a, tq, tk, tv, ctas, s)
+                       : launch_ring<2, 2, BN>(a, tq, tk, tv, ctas, s);
+}
 
-extern "C" {
-
-// dtype codes: 0 float32, 1 bfloat16; body: 0 ring, 1 mma, 2 tc32, 3 fma
-// (the header's bodies; fused_gen.attention_body picks one).  Q (H, S, D),
-// K (H, T, D), V (H, T, E), O (H, S, E), each unit-stride along its last
-// axis; strides in elements.  lengths: nullptr or (H,) int32 on the
-// device.  sched: two int32 on the device, zero before the first launch,
-// which the ring's launches take tiles from and leave at zero (launches
-// that share them must be ordered on one stream).  A body whose rules the
-// call fails is refused with
-// cudaErrorInvalidValue, never swapped for another.  Returns
-// cudaGetLastError() after the launch (0 = launched); nothing is
-// synchronised or allocated here.
-int attention_launch(int in_dtype, int out_dtype, int causal, int body,
-                     const void* Q, const void* K, const void* V, void* O,
-                     const int* lengths, int* sched, int H, int S, int T,
-                     int D, int E, long long sQh, long long sQs,
-                     long long sKh, long long sKt, long long sVh,
-                     long long sVt, long long sOh, long long sOs,
-                     void* stream) {
+// One launch of ``body`` on the plan (``block``, ``ctas``); the arguments
+// as attention_launch_plan's below.
+int attention_run(int block, int ctas, int in_dtype, int out_dtype,
+                  int causal, int body, const void* Q, const void* K,
+                  const void* V, void* O, const int* lengths, int* sched,
+                  int H, int S, int T, int D, int E, long long sQh,
+                  long long sQs, long long sKh, long long sKt, long long sVh,
+                  long long sVt, long long sOh, long long sOs,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if ((in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1) ||
@@ -1269,14 +1289,13 @@ int attention_launch(int in_dtype, int out_dtype, int causal, int body,
         T < 1 || sOh % 2 || sOs % 2 || reinterpret_cast<uintptr_t>(O) % 8 ||
         !sched)
       return invalid;
-    CUtensorMap tq, tk, tv;
-    if (!ring_maps(a, &tq, &tk, &tv)) return invalid;
-    if (D <= RG_BOX)
-      return E <= RG_BOX ? launch_ring<1, 1>(a, tq, tk, tv, s)
-                         : launch_ring<1, 2>(a, tq, tk, tv, s);
-    return E <= RG_BOX ? launch_ring<2, 1>(a, tq, tk, tv, s)
-                       : launch_ring<2, 2>(a, tq, tk, tv, s);
+    if (block == RG_BN) return launch_ring_heads<RG_BN>(a, ctas, s);
+    if (block == RG_BN_NARROW)
+      return launch_ring_heads<RG_BN_NARROW>(a, ctas, s);
+    return invalid;
   }
+  if ((block != 0 || ctas != 0) && body != BODY_TC32)
+    return invalid;  // a body that takes no plan
   if (body == BODY_MMA) {
     if (!bf16) return invalid;
     a.vec = D % 8 == 0 && E % 8 == 0 && aligned16(Q) && aligned16(K) &&
@@ -1297,9 +1316,12 @@ int attention_launch(int in_dtype, int out_dtype, int causal, int body,
     a.vec = D % 4 == 0 && E % 4 == 0 && aligned16(Q) && aligned16(K) &&
             aligned16(V) && sQh % 4 == 0 && sQs % 4 == 0 && sKh % 4 == 0 &&
             sKt % 4 == 0 && sVh % 4 == 0 && sVt % 4 == 0;
+    if (ctas != 0) return invalid;  // one CTA a (head, row block)
     if (D <= 64)
-      return E <= 64 ? launch_tc32<64, 64>(a, s) : launch_tc32<64, 128>(a, s);
-    return E <= 64 ? launch_tc32<128, 64>(a, s) : launch_tc32<128, 128>(a, s);
+      return E <= 64 ? launch_tc32_block<64, 64>(a, block, s)
+                     : launch_tc32_block<64, 128>(a, block, s);
+    return E <= 64 ? launch_tc32_block<128, 64>(a, block, s)
+                   : launch_tc32_block<128, 128>(a, block, s);
   }
   if (body == BODY_FMA) {
     if (bf16) return invalid;
@@ -1314,6 +1336,64 @@ int attention_launch(int in_dtype, int out_dtype, int causal, int body,
     return launch(attn_f32_kernel<256>, grid, F_THREADS, smem, s, a);
   }
   return invalid;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype codes: 0 float32, 1 bfloat16; body: 0 ring, 1 mma, 2 tc32, 3 fma
+// (the header's bodies; fused_gen.attention_body picks one).  The plan
+// (fused_gen.FusedPlan): the ring takes a KV block of ``block`` = RG_BN or
+// RG_BN_NARROW columns and a persistent grid of ``ctas`` >= 1 CTAs (at
+// most one a tile); the 3xTF32 body a KV block of TC_BC or TC_BC_WIDE
+// columns (the latter where its tiles fit: not at d = e = 128) and
+// ``ctas`` 0; the mma.sync and FMA bodies take no plan (``block`` and
+// ``ctas`` 0).  Q (H, S, D), K (H, T, D), V (H, T, E), O (H, S, E), each
+// unit-stride along its last axis; strides in elements.  lengths: nullptr
+// or (H,) int32 on the device.  sched: two int32 on the device, zero
+// before the first launch, which the ring's launches take tiles from and
+// leave at zero (launches that share them must be ordered on one stream).
+// A body or a plan the call cannot take is refused with
+// cudaErrorInvalidValue, never swapped for another.  Returns
+// cudaGetLastError() after the launch (0 = launched); nothing is
+// synchronised or allocated here.
+int attention_launch_plan(int block, int ctas, int in_dtype, int out_dtype,
+                          int causal, int body, const void* Q, const void* K,
+                          const void* V, void* O, const int* lengths,
+                          int* sched, int H, int S, int T, int D, int E,
+                          long long sQh, long long sQs, long long sKh,
+                          long long sKt, long long sVh, long long sVt,
+                          long long sOh, long long sOs, void* stream) {
+  return attention_run(block, ctas, in_dtype, out_dtype, causal, body, Q, K,
+                       V, O, lengths, sched, H, S, T, D, E, sQh, sQs, sKh,
+                       sKt, sVh, sVt, sOh, sOs, stream);
+}
+
+// attention_launch_plan on fused_gen.attention_plan's plan for ``body``
+// (the ring's RG_BN on one CTA an SM, the 3xTF32 body's TC_BC): a
+// launch of a named body for callers that hold no plan.
+int attention_launch(int in_dtype, int out_dtype, int causal, int body,
+                     const void* Q, const void* K, const void* V, void* O,
+                     const int* lengths, int* sched, int H, int S, int T,
+                     int D, int E, long long sQh, long long sQs,
+                     long long sKh, long long sKt, long long sVh,
+                     long long sVt, long long sOh, long long sOs,
+                     void* stream) {
+  int block = 0, ctas = 0;
+  if (body == BODY_RING) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&ctas, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return static_cast<int>(cudaErrorInvalidValue);
+    block = RG_BN;
+  } else if (body == BODY_TC32) {
+    block = TC_BC;
+  }
+  return attention_run(block, ctas, in_dtype, out_dtype, causal, body, Q, K,
+                       V, O, lengths, sched, H, S, T, D, E, sQh, sQs, sKh,
+                       sKt, sVh, sVt, sOh, sOs, stream);
 }
 
 }  // extern "C"

@@ -20,8 +20,10 @@
 // through shared memory and keeps the f32 accumulator in registers.  The
 // tile is 16, 32 or 64 rows by 128 columns (4 warps side by side along the
 // columns, 32-deep K steps) or, where groups average more than 64 rows,
-// 128 x 128 (64-deep K steps, two warpgroups on wgmma); the host picks the
-// tile from the group sizes (fused_gen.grouped_tile_m).  Rows past a
+// 128 x 128 (64-deep K steps, two warpgroups on wgmma); the launch's plan
+// names the tile (grouped_launch_plan, fused_gen.FusedPlan: a searched
+// one, else the tile fused_gen.grouped_tile_m picks from the group
+// sizes).  Rows past a
 // block's end are zero on load and masked on store, so ragged and size-1
 // groups come out exactly.  The grid is one dimension, rasterized in bands:
 // the row blocks of one band (as many as the largest group has) run side by
@@ -798,6 +800,19 @@ void run_serve(const __nv_bfloat16* x, const __nv_bfloat16* w, TOut* o,
       x, w, o, table, N, K, sXm, sWg, sWk, sOm, sOn);
 }
 
+// Whether bf16 operands take 16-byte copies (the bodies of the M tiles;
+// fused_gen.grouped_body's "ring"); else the element-wise 128-row body.
+bool bf16_vec(const void* X, const void* W, int N, int K, long long sXm,
+              long long sXk, long long sWg, long long sWk, long long sWn) {
+  // W [n][k] (the dX orientation) when k is its unit-stride axis
+  const bool wnk = sWk == 1 && sWn != 1;
+  const bool w_vec = wnk ? sWn % 8 == 0 && K % 8 == 0
+                         : sWn == 1 && sWk % 8 == 0 && N % 8 == 0;
+  return w_vec && sXk == 1 && K % 8 == 0 && sXm % 8 == 0 && sWg % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(W) % 16 == 0;
+}
+
 template <typename TOut, class C>
 void launch_bf16(const void* X, const void* W, void* O, const int* table,
                  int n_blocks, int band, int N, int K, long long sXm,
@@ -805,11 +820,7 @@ void launch_bf16(const void* X, const void* W, void* O, const int* table,
                  long long sOm, long long sOn, cudaStream_t stream) {
   // W [n][k] (the dX orientation) when k is its unit-stride axis
   const bool wnk = sWk == 1 && sWn != 1;
-  const bool w_vec = wnk ? sWn % 8 == 0 && K % 8 == 0
-                         : sWn == 1 && sWk % 8 == 0 && N % 8 == 0;
-  const bool vec = w_vec && sXk == 1 && K % 8 == 0 && sXm % 8 == 0 &&
-                   sWg % 8 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(W) % 16 == 0;
+  const bool vec = bf16_vec(X, W, N, K, sXm, sXk, sWg, sWk, sWn);
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(X);
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(W);
   TOut* o = static_cast<TOut*>(O);
@@ -843,29 +854,33 @@ void launch_bf16(const void* X, const void* W, void* O, const int* table,
   }
 }
 
-// The body for a table whose largest block holds max_rows rows (<= 128).
+// The body of the M tile ``tile_m`` (16, 32, 64 or 128; 0, which no
+// aligned call takes, for the element-wise body); false for another tile.
 template <typename TOut>
-void launch_bf16_rows(int max_rows, const void* X, const void* W, void* O,
+bool launch_bf16_tile(int tile_m, const void* X, const void* W, void* O,
                       const int* table, int n_blocks, int band, int N, int K,
                       long long sXm, long long sXk, long long sWg,
                       long long sWk, long long sWn, long long sOm,
                       long long sOn, cudaStream_t stream) {
-  if (max_rows <= 16)
+  if (tile_m == 16)
     launch_bf16<TOut, Cfg<16, 32, 1>>(X, W, O, table, n_blocks, band, N, K,
                                       sXm, sXk, sWg, sWk, sWn, sOm, sOn,
                                       stream);
-  else if (max_rows <= 32)
+  else if (tile_m == 32)
     launch_bf16<TOut, Cfg<32, 32, 1>>(X, W, O, table, n_blocks, band, N, K,
                                       sXm, sXk, sWg, sWk, sWn, sOm, sOn,
                                       stream);
-  else if (max_rows <= 64)
+  else if (tile_m == 64)
     launch_bf16<TOut, Cfg<64, 32, 1>>(X, W, O, table, n_blocks, band, N, K,
                                       sXm, sXk, sWg, sWk, sWn, sOm, sOn,
                                       stream);
-  else
+  else if (tile_m == 128 || tile_m == 0)
     launch_bf16<TOut, Cfg<128, 64, 2>>(X, W, O, table, n_blocks, band, N, K,
                                        sXm, sXk, sWg, sWk, sWn, sOm, sOn,
                                        stream);
+  else
+    return false;
+  return true;
 }
 
 template <typename TOut>
@@ -885,23 +900,31 @@ extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Strides are in elements.  table
 // is a device array of n_blocks (group id, first row, rows) triples, one per
-// row block: no block spans two groups, and max_rows (at most 128) is the
-// largest row count among them; it picks the bf16 body's M tile.  band is
-// the number of row blocks rasterized side by side (the most any group
-// has).  W's element (g, k, n) of the product is
-// W[g * sWg + k * sWk + n * sWn].  Returns cudaGetLastError() after the
+// row block: no block spans two groups, and none holds more rows than the
+// plan's M tile.  The plan (fused_gen.FusedPlan: the searched one, else
+// the tile fused_gen picks from the table) is the M tile ``tile_m``: 16,
+// 32, 64 or 128 for bf16 operands that take 16-byte copies (bf16_vec), 0
+// for the bodies that take no plan (f32 operands, element-wise copies).  A
+// plan the call cannot take is refused with cudaErrorInvalidValue, never
+// swapped for another.  band is the number of row blocks rasterized side
+// by side (the most any group has).  W's element (g, k, n) of the product
+// is W[g * sWg + k * sWk + n * sWn].  Returns cudaGetLastError() after the
 // launch (0 = launched); nothing is synchronised, and nothing is allocated
 // here.
-int grouped_launch(int in_dtype, int out_dtype, const void* X, const void* W,
-                   void* O, const int* table, int n_blocks, int max_rows,
-                   int band, int N, int K, long long sXm, long long sXk,
-                   long long sWg, long long sWk, long long sWn, long long sOm,
-                   long long sOn, void* stream) {
+int grouped_launch_plan(int tile_m, int in_dtype, int out_dtype,
+                        const void* X, const void* W, void* O,
+                        const int* table, int n_blocks, int band, int N,
+                        int K, long long sXm, long long sXk, long long sWg,
+                        long long sWk, long long sWn, long long sOm,
+                        long long sOn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1 ||
-      n_blocks < 1 || max_rows < 1 || max_rows > GROUPED_MAX_ROWS ||
-      band < 1 || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+      n_blocks < 1 || band < 1 || N < 1)
+    return invalid;
+  const bool planned =
+      in_dtype == 1 && bf16_vec(X, W, N, K, sXm, sXk, sWg, sWk, sWn);
+  if (planned != (tile_m != 0)) return invalid;
   switch (in_dtype * 2 + out_dtype) {
     case 0:
       launch_f32<float>(X, W, O, table, n_blocks, N, K, sXm, sXk, sWg, sWk,
@@ -912,16 +935,15 @@ int grouped_launch(int in_dtype, int out_dtype, const void* X, const void* W,
                                 sWg, sWk, sWn, sOm, sOn, s);
       break;
     case 2:
-      launch_bf16_rows<float>(max_rows, X, W, O, table, n_blocks, band, N, K,
-                              sXm, sXk, sWg, sWk, sWn, sOm, sOn, s);
-      break;
-    case 3:
-      launch_bf16_rows<__nv_bfloat16>(max_rows, X, W, O, table, n_blocks,
-                                      band, N, K, sXm, sXk, sWg, sWk, sWn,
-                                      sOm, sOn, s);
+      if (!launch_bf16_tile<float>(tile_m, X, W, O, table, n_blocks, band, N,
+                                   K, sXm, sXk, sWg, sWk, sWn, sOm, sOn, s))
+        return invalid;
       break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (!launch_bf16_tile<__nv_bfloat16>(tile_m, X, W, O, table, n_blocks,
+                                           band, N, K, sXm, sXk, sWg, sWk,
+                                           sWn, sOm, sOn, s))
+        return invalid;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,8 @@
 //     bytes, 16-byte aligned bases): hopper.cuh's skeleton, persistent.
 //     One CTA an SM walks the (group, 128-row K1 tile, 256-column K2
 //     tile) tiles with a static stride (no tile counter, so no scratch);
+//     a searched plan (grouped_dw_launch_plan, fused_gen.FusedPlan) may
+//     take 128-column tiles and a CTA count of its own instead;
 //     one producer thread keeps TMA loads of 64-row K steps in flight
 //     across tiles into three 48 KB stages; two consumer warpgroups run
 //     wgmma m64n256k16 with x_g^T (M-major) and dout_g (N-major) read
@@ -366,18 +368,23 @@ grouped_dw_f32_kernel(const float* __restrict__ X, const float* __restrict__ D,
 // skeleton, persistent
 // ---------------------------------------------------------------------------
 constexpr int W_BM = 128;  // K1 rows of the output tile: 64 a warpgroup
-constexpr int W_BN = 256;  // K2 columns
+constexpr int W_BN = 256;  // K2 columns (without a plan)
+constexpr int W_BN_NARROW = 128;  // the K2 width a plan may take instead
 constexpr int W_BK = 64;   // group rows a step (the reduction)
 constexpr int W_THREADS = 384;
 constexpr int W_A_BYTES = W_BM * W_BK * 2;               // 16 KB of x
-constexpr int W_STAGE = W_A_BYTES + W_BK * W_BN * 2;     // + 32 KB of dout
 constexpr int W_STAGES = 3;
-constexpr int W_ACC = W_BN / 2;  // f32 accumulators of a consumer thread
-constexpr int W_HALF_OUT = 64 * W_BN * 2;  // a warpgroup's staged bf16 rows
-// the ring, the two warpgroups' staged output, 1024 bytes to align them,
-// full and empty barriers
-constexpr int W_SMEM =
-    W_STAGES * W_STAGE + 2 * W_HALF_OUT + 1024 + 2 * W_STAGES * 8;
+// The ring's shared memory at a tile of BN K2 columns (W_BN or
+// W_BN_NARROW): three stages of x and dout, the two warpgroups' staged
+// output, 1024 bytes to align them, full and empty barriers.
+template <int BN>
+struct DwRing {
+  static constexpr int STAGE = W_A_BYTES + W_BK * BN * 2;  // + dout's rows
+  static constexpr int ACC = BN / 2;  // f32 accumulators of a consumer
+  static constexpr int HALF_OUT = 64 * BN * 2;  // a warpgroup's bf16 rows
+  static constexpr int SMEM =
+      W_STAGES * STAGE + 2 * HALF_OUT + 1024 + 2 * W_STAGES * 8;
+};
 
 // The ring's tile walk: tile ``t`` of the (group, K1 tile, K2 tile)
 // tiles, the K1 tiles of one K2 tile of a group walked first, so CTAs
@@ -414,7 +421,7 @@ __device__ __forceinline__ DwTile dw_tile(const int* table, int t, int tm,
 // next tile; the buffer is written again once those stores have read it.
 // f32 output is stored from the fragments.  An empty group's tiles store
 // zeros, the reference's exact-zero slab.
-template <typename TOut>
+template <typename TOut, int BN>
 __global__ void __launch_bounds__(W_THREADS, 1)
 grouped_dw_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmX,
                             const __grid_constant__ CUtensorMap tmD,
@@ -423,15 +430,16 @@ grouped_dw_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmX,
                             const int* __restrict__ table, int n_groups,
                             int K1, int K2, long long sOg, long long sOm,
                             long long sOn) {
+  using R = DwRing<BN>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* tiles =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* staged = tiles + W_STAGES * W_STAGE;  // 1024-aligned
-  uint64_t* full = reinterpret_cast<uint64_t*>(staged + 2 * W_HALF_OUT);
+  unsigned char* staged = tiles + W_STAGES * R::STAGE;  // 1024-aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + 2 * R::HALF_OUT);
   uint64_t* empty = full + W_STAGES;
 
   const int tm = (K1 + W_BM - 1) / W_BM;
-  const int tn = (K2 + W_BN - 1) / W_BN;
+  const int tn = (K2 + BN - 1) / BN;
   const int count = n_groups * tm * tn;
   if (threadIdx.x == 0) {
     for (int s = 0; s < W_STAGES; ++s) {
@@ -454,17 +462,17 @@ grouped_dw_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmX,
         for (int i = 0; i < steps; ++i, ++it) {
           const int s = it % W_STAGES;
           hopper::mbar_wait(&empty[s], ((it / W_STAGES) & 1) ^ 1);
-          hopper::mbar_arrive_tx(&full[s], W_STAGE);
-          unsigned char* a = tiles + s * W_STAGE;
+          hopper::mbar_arrive_tx(&full[s], R::STAGE);
+          unsigned char* a = tiles + s * R::STAGE;
           unsigned char* b = a + W_A_BYTES;
           const int row = d.start + i * W_BK;
           hopper::tma_load(a, &tmX, &full[s], d.m_t * W_BM, row, 0);
           hopper::tma_load(a + 8192, &tmX, &full[s], d.m_t * W_BM + 64, row,
                            0);
 #pragma unroll
-          for (int j = 0; j < W_BN / 64; ++j)
+          for (int j = 0; j < BN / 64; ++j)
             hopper::tma_load(b + j * 8192, &tmD, &full[s],
-                             d.n_t * W_BN + 64 * j, row, 0);
+                             d.n_t * BN + 64 * j, row, 0);
         }
       }
     }
@@ -479,23 +487,23 @@ grouped_dw_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmX,
   const int g = lane >> 2, q = lane & 3;
   const int r_w = 16 * ((ct >> 5) & 3) + g;  // the thread's rows r_w, + 8
   const uint32_t base = hopper::smem_u32(tiles);
-  unsigned char* mine = staged + half * W_HALF_OUT;
-  float acc[W_ACC];
+  unsigned char* mine = staged + half * R::HALF_OUT;
+  float acc[R::ACC];
   int it = 0;
   for (int t = blockIdx.x; t < count; t += gridDim.x) {
     const DwTile d = dw_tile(table, t, tm, tn);
     const int steps = (d.size + W_BK - 1) / W_BK;
 #pragma unroll
-    for (int i = 0; i < W_ACC; ++i) acc[i] = 0.f;
+    for (int i = 0; i < R::ACC; ++i) acc[i] = 0.f;
     for (int i = 0; i < steps; ++i, ++it) {
       const int s = it % W_STAGES;
       hopper::mbar_wait(&full[s], (it / W_STAGES) & 1);
-      const uint32_t a = base + s * W_STAGE + half * 8192;
-      const uint32_t b = base + s * W_STAGE + W_A_BYTES;
+      const uint32_t a = base + s * R::STAGE + half * 8192;
+      const uint32_t b = base + s * R::STAGE + W_A_BYTES;
       const int valid = d.size - i * W_BK;
       if (valid < W_BK) {
         // rows [valid, 64) of this warpgroup's x atom are the next group's
-        uint4* atom = reinterpret_cast<uint4*>(tiles + s * W_STAGE +
+        uint4* atom = reinterpret_cast<uint4*>(tiles + s * R::STAGE +
                                                half * 8192 + valid * 128);
         for (int c = wt; c < (W_BK - valid) * 8; c += 128)
           atom[c] = make_uint4(0u, 0u, 0u, 0u);
@@ -521,12 +529,12 @@ grouped_dw_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmX,
     // accumulator d[4j + 2h + e]: row r_w + 8h of the warpgroup's 64,
     // column 8j + 2q + e of the tile's 256
     const int row0 = d.m_t * W_BM + half * 64;
-    const int col0 = d.n_t * W_BN;
+    const int col0 = d.n_t * BN;
     if constexpr (sizeof(TOut) == 2) {
       if (wt == 0) hopper::bulk_wait_read<0>();  // the last tile's stores
       hopper::bar_sync(2 + half, 128);
 #pragma unroll
-      for (int j = 0; j < W_ACC / 4; ++j)
+      for (int j = 0; j < R::ACC / 4; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = r_w + 8 * h;
@@ -540,7 +548,7 @@ grouped_dw_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmX,
       hopper::bar_sync(2 + half, 128);
       if (wt == 0) {
 #pragma unroll
-        for (int j = 0; j < W_BN / 64; ++j)
+        for (int j = 0; j < BN / 64; ++j)
           hopper::tma_store(&tmO, mine + j * 8192, col0 + 64 * j, row0,
                             d.gid);
         hopper::bulk_commit();
@@ -554,7 +562,7 @@ grouped_dw_bf16_ring_kernel(const __grid_constant__ CUtensorMap tmX,
         if (row >= K1) continue;
         TOut* Orow = Og + row * sOm;
 #pragma unroll
-        for (int j = 0; j < W_ACC / 4; ++j) {
+        for (int j = 0; j < R::ACC / 4; ++j) {
           const int n = col0 + 8 * j + 2 * q;
           const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
           if (pair && n + 1 < K2) {
@@ -595,11 +603,12 @@ bool ring_ok(int in_dtype, int out_dtype, const void* X, const void* D,
           (aligned(O) && sOn == 1 && sOm % 8 == 0 && sOg % 8 == 0));
 }
 
-template <typename TOut>
+// ``ctas`` persistent CTAs, at most one a tile, on tiles of BN K2 columns
+template <typename TOut, int BN>
 int launch_ring(const void* X, const void* D, void* O, const int* table,
                 int n_rows, int n_groups, int K1, int K2, long long sXn,
                 long long sDn, long long sOg, long long sOm, long long sOn,
-                cudaStream_t stream) {
+                int ctas, cudaStream_t stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tx, td, to{};
@@ -613,21 +622,45 @@ int launch_ring(const void* X, const void* D, void* O, const int* table,
     if (!hopper::make_map(&to, o, 2, bf16, 64, 64)) return invalid;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      grouped_dw_bf16_ring_kernel<TOut>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+      grouped_dw_bf16_ring_kernel<TOut, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, DwRing<BN>::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (ctas < 1) return invalid;
   const long long tiles = (long long)n_groups * ((K1 + W_BM - 1) / W_BM) *
-                          ((K2 + W_BN - 1) / W_BN);
-  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  grouped_dw_bf16_ring_kernel<TOut><<<grid, W_THREADS, W_SMEM, stream>>>(
+                          ((K2 + BN - 1) / BN);
+  if (tiles >= (1LL << 31)) return invalid;  // (ring_ok counts W_BN's)
+  const unsigned grid = (unsigned)(tiles < ctas ? tiles : ctas);
+  grouped_dw_bf16_ring_kernel<TOut, BN>
+      <<<grid, W_THREADS, DwRing<BN>::SMEM, stream>>>(
       tx, td, to, static_cast<TOut*>(O), table, n_groups, K1, K2, sOg, sOm,
       sOn);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The ring at a tile width of ``width`` K2 columns (W_BN or W_BN_NARROW)
+// and ``ctas`` CTAs, into an output of ``out_dtype``
+int launch_ring_width(int width, int ctas, int out_dtype, const void* X,
+                      const void* D, void* O, const int* table, int n_rows,
+                      int n_groups, int K1, int K2, long long sXn,
+                      long long sDn, long long sOg, long long sOm,
+                      long long sOn, cudaStream_t s) {
+  if (width == W_BN)
+    return out_dtype == 1
+               ? launch_ring<__nv_bfloat16, W_BN>(X, D, O, table, n_rows,
+                                                  n_groups, K1, K2, sXn, sDn,
+                                                  sOg, sOm, sOn, ctas, s)
+               : launch_ring<float, W_BN>(X, D, O, table, n_rows, n_groups,
+                                          K1, K2, sXn, sDn, sOg, sOm, sOn,
+                                          ctas, s);
+  if (width == W_BN_NARROW)
+    return out_dtype == 1
+               ? launch_ring<__nv_bfloat16, W_BN_NARROW>(
+                     X, D, O, table, n_rows, n_groups, K1, K2, sXn, sDn, sOg,
+                     sOm, sOn, ctas, s)
+               : launch_ring<float, W_BN_NARROW>(X, D, O, table, n_rows,
+                                                 n_groups, K1, K2, sXn, sDn,
+                                                 sOg, sOm, sOn, ctas, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename TOut>
@@ -667,37 +700,36 @@ void launch_f32(const void* X, const void* D, void* O, const int* table,
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16; body codes: 0 mma.sync (bf16)
-// or FMA (f32) by the operands' dtype, 1 the ring (bf16 operands TMA can
-// read, ring_ok).  A body the call cannot take is refused
-// (cudaErrorInvalidValue), never swapped.  Strides are in elements.
-// table is a device array of n_groups (group id, first row, row count)
-// triples, one for every group of the partition, empty ones included, in
-// row order and covering rows [0, n_rows); x is (n_rows, K1) and dout
-// (n_rows, K2) with element (n, k) at n * sXn + k * sXk (sDn, sDk), and
-// out's element (g, k1, k2) is at g * sOg + k1 * sOm + k2 * sOn.  Returns
-// cudaGetLastError() after the launch (0 = launched); nothing is
-// synchronised, and nothing is allocated here.
-int grouped_dw_launch(int body, int in_dtype, int out_dtype, const void* X,
-                      const void* D, void* O, const int* table, int n_rows,
-                      int n_groups, int K1, int K2, long long sXn,
-                      long long sXk, long long sDn, long long sDk,
-                      long long sOg, long long sOm, long long sOn,
-                      void* stream) {
+// dtype codes: 0 = float32, 1 = bfloat16.  The plan (fused_gen.FusedPlan:
+// the searched one, else fused_gen.grouped_dw_plan's) picks the body: the
+// ring (bf16 operands TMA can read, ring_ok) on tiles of ``tile_n`` K2
+// columns (W_BN or W_BN_NARROW) and a persistent grid of ``ctas`` >= 1
+// CTAs (at most one a tile); no plan (``tile_n`` and ``ctas`` 0) the body
+// of the operands' dtype, mma.sync (bf16) or FMA (f32).  A plan the call
+// cannot take is refused (cudaErrorInvalidValue), never swapped.  Strides
+// are in elements.  table is a device array of n_groups (group id, first
+// row, row count) triples, one for every group of the partition, empty
+// ones included, in row order and covering rows [0, n_rows); x is
+// (n_rows, K1) and dout (n_rows, K2) with element (n, k) at n * sXn + k *
+// sXk (sDn, sDk), and out's element (g, k1, k2) is at g * sOg + k1 * sOm +
+// k2 * sOn.  Returns cudaGetLastError() after the launch (0 = launched);
+// nothing is synchronised, and nothing is allocated here.
+int grouped_dw_launch_plan(int tile_n, int ctas, int in_dtype, int out_dtype,
+                           const void* X, const void* D, void* O,
+                           const int* table, int n_rows, int n_groups, int K1,
+                           int K2, long long sXn, long long sXk,
+                           long long sDn, long long sDk, long long sOg,
+                           long long sOm, long long sOn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1 ||
-      n_groups < 1 || K1 < 1 || K2 < 1 || body < 0 || body > 1)
+      n_groups < 1 || K1 < 1 || K2 < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (body == 1) {
+  if (tile_n != 0 || ctas != 0) {
     if (!ring_ok(in_dtype, out_dtype, X, D, O, n_rows, n_groups, K1, K2, sXn,
                  sXk, sDn, sDk, sOg, sOm, sOn))
       return static_cast<int>(cudaErrorInvalidValue);
-    return out_dtype == 1
-               ? launch_ring<__nv_bfloat16>(X, D, O, table, n_rows, n_groups,
-                                            K1, K2, sXn, sDn, sOg, sOm, sOn,
-                                            s)
-               : launch_ring<float>(X, D, O, table, n_rows, n_groups, K1, K2,
-                                    sXn, sDn, sOg, sOm, sOn, s);
+    return launch_ring_width(tile_n, ctas, out_dtype, X, D, O, table, n_rows,
+                             n_groups, K1, K2, sXn, sDn, sOg, sOm, sOn, s);
   }
   switch (in_dtype * 2 + out_dtype) {
     case 0:
@@ -712,14 +744,36 @@ int grouped_dw_launch(int body, int in_dtype, int out_dtype, const void* X,
       launch_bf16<float>(X, D, O, table, n_groups, K1, K2, sXn, sXk, sDn,
                          sDk, sOg, sOm, sOn, s);
       break;
-    case 3:
+    default:
       launch_bf16<__nv_bfloat16>(X, D, O, table, n_groups, K1, K2, sXn, sXk,
                                  sDn, sDk, sOg, sOm, sOn, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// grouped_dw_launch_plan of a named body for callers that hold no plan:
+// body 0 the mma.sync or FMA body, 1 the ring on grouped_dw_plan's plan
+// (W_BN, one CTA an SM); the other arguments as grouped_dw_launch_plan's.
+int grouped_dw_launch(int body, int in_dtype, int out_dtype, const void* X,
+                      const void* D, void* O, const int* table, int n_rows,
+                      int n_groups, int K1, int K2, long long sXn,
+                      long long sXk, long long sDn, long long sDk,
+                      long long sOg, long long sOm, long long sOn,
+                      void* stream) {
+  int tile_n = 0, ctas = 0;
+  if (body == 1) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&ctas, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return static_cast<int>(cudaErrorInvalidValue);
+    tile_n = W_BN;
+  } else if (body != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return grouped_dw_launch_plan(tile_n, ctas, in_dtype, out_dtype, X, D, O,
+                                table, n_rows, n_groups, K1, K2, sXn, sXk,
+                                sDn, sDk, sOg, sOm, sOn, stream);
 }
 
 }  // extern "C"

@@ -311,16 +311,17 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da,
       : HOPPER_OP8(HOPPER_F, d, 0), HOPPER_OP8(HOPPER_F, d, 8)
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
+// (accumulate 0: d = A . B, as the m64n128k16 form below)
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
-                                           uint64_t db) {
+                                           uint64_t db, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
       ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : HOPPER_OP8(HOPPER_F, d, 0), HOPPER_OP8(HOPPER_F, d, 8),
         HOPPER_OP8(HOPPER_F, d, 16), HOPPER_OP8(HOPPER_F, d, 24)
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 // (accumulate 0: d = A . B, the accumulator's old values unread)
 template <int TA, int TB>

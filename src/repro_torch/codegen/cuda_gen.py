@@ -86,7 +86,8 @@ of N by 8 to 128 of M on the tc32 body, ``tc32_tiles``; 128 x 64 on the
 FMA pipes for f32).
 A searched ``CardPlan`` (the plan DB's ``card`` field, ``search``) takes
 the place of the ring's, the narrow body's or tc32's heuristic tile width
-and K split where a launch runs its body.
+and K split where a launch runs its body; a fused spec's plan is a
+``fused_gen.FusedPlan``, which ``compile_fused`` hands to its kernel.
 
 Devices: on a CUDA tensor the call launches a kernel (or raises); on a
 CPU tensor it runs ``contract_ref``, the plain PyTorch version.  Nothing
@@ -1340,16 +1341,16 @@ def compile_kernel(
     interpret: bool = False,
     mesh=None,
     collective: str = "psum",
-    card: Optional[CardPlan] = None,
+    card=None,
 ):
     """Compile a ContractionSpec + Schedule into a kernel.
 
     ``spec`` may be the root spec or the schedule's own (subdivided) spec;
     they must share a root.  ``interpret`` keeps its reference meaning at
     the ``ops`` level (eligibility off the device rule); the kernel itself
-    is chosen by the operands' device.  ``card`` is a searched tile plan
-    for B1 (``CardPlan``), which its launches take where they run its
-    body; a fused spec takes none.  With ``mesh`` (a ``launch.mesh.Mesh``)
+    is chosen by the operands' device.  ``card`` is a searched tile plan,
+    which the launches take where they run its body: B1's ``CardPlan``,
+    or for a fused spec ``fused_gen.FusedPlan``.  With ``mesh`` (a ``launch.mesh.Mesh``)
     the kernel is bound to it (``mesh_gen.bind_mesh``): a
     ``MeshBoundKernel`` called on global tensors, whose mesh-sharded
     reduce indices ``collective`` ("psum" or "ring") finishes.
@@ -1363,12 +1364,12 @@ def compile_kernel(
     if getattr(root, "fused_kind", ""):
         from .fused_gen import compile_fused
 
-        if card is not None:
+        if isinstance(card, CardPlan):
             raise ValueError(f"{root.name}: the fused kernels take no B1 "
                              f"tile plan, got {card}")
         return compile_fused(spec, schedule, epilogue=epilogue,
                              out_dtype=out_dtype, interpret=interpret,
-                             mesh=mesh)
+                             mesh=mesh, card=card)
     if epilogue is not None and not isinstance(epilogue, Epilogue):
         raise TypeError(f"epilogue must be a codegen.Epilogue, got "
                         f"{type(epilogue).__name__}")
@@ -1416,10 +1417,11 @@ def cached_compile(
     interpret: bool = False,
     mesh=None,
     collective: str = "psum",
-    card: Optional[CardPlan] = None,
+    card=None,
 ):
     """compile_kernel memoized on (spec, schedule, epilogue, dtype,
-    interpret, mesh identity, collective, card plan).
+    interpret, mesh identity, collective, card plan: a ``CardPlan`` or a
+    fused spec's ``FusedPlan``).
 
     Hot-path entry for ``ops``: repeated calls with the same contraction
     reuse one kernel; feeds ``codegen.memo.hit/miss``.  Mesh-bound kernels

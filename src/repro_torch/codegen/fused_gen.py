@@ -47,9 +47,20 @@ Devices decide, as for ``cuda_gen``: CUDA tensors launch the kernel (or
 raise), CPU tensors run the plain version (``grouped_ref``, the per-group
 loop that upcasts to f32 and stores in the kernel's dtype, or
 ``grouped_dw_ref``).  Group offsets are static: they live on the spec
-(``group_sizes``), so the table is built once per compiled kernel and
-device.  The plan fixes the operand shapes and the memo key; the kernels
-take their own grids, not the plan's blocks.
+(``group_sizes``), so the table is built once per compiled kernel, device
+and M tile.  The ``KernelPlan`` fixes the operand shapes and the memo key;
+the schedule's blocks are the TPU's and do not reach the card.  What a
+launch runs on the card is its body's card plan (``FusedPlan``): B2's KV
+block and persistent CTA count (the ring) or KV block (tc32), B3's M tile
+and B4's tile width and CTA count.  Without one each launcher takes its
+heuristic (``attention_plan``, ``grouped_plan``, ``grouped_dw_plan``:
+``RG_BN``, ``TC_BC``, ``grouped_tile_m``, 256-column tiles, one ring CTA
+an SM) and launches exactly what it did before plans existed; a searched
+plan (the plan DB's ``card`` field, ``search``) reaches ``FusedKernel``
+through ``compile_fused(card=)`` and takes the heuristic's place where a
+launch runs its body (``ops.card_plan.applied``; ``.skipped`` on another
+body).  The mma.sync and FMA bodies take no plan.  On CPU tensors a plan
+is ignored: the plain versions have no tiles.
 
 ``compile_fused`` keeps the reference's refusals of an epilogue and a mesh,
 with its messages.
@@ -59,13 +70,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.enumerate import ContractionSpec
 from ..core.schedule import Schedule
-from .cuda_gen import _Scratch, _torch_dtype
+from .cuda_gen import H100_SMS, CardPlan, _Scratch, _sm_count, _torch_dtype
 from .modes import tma_operand
 from .plan import KernelPlan, build_plan
 
@@ -87,6 +98,81 @@ ATTENTION_BODIES = ("ring", "mma", "tc32", "fma")
 #: the widest d and e of the bf16 ring and of the 3xTF32 body
 #: (attention.cu's RG_MAX_HEAD and TC_MAX_HEAD)
 ATTN_RING_MAX_HEAD = ATTN_TC32_MAX_HEAD = 128
+#: B2's KV blocks a plan may name, the heuristic's first: the ring's
+#: (attention.cu's RG_BN, RG_BN_NARROW) and the 3xTF32 body's (TC_BC,
+#: TC_BC_WIDE; the wider only where its tiles fit, ``tc32_block_fits``)
+ATTN_RING_BLOCKS = (128, 64)
+ATTN_TC32_BLOCKS = (32, 64)
+#: B2's ring and B4's ring: rows of s a tile (RG_BM), K1 rows of a tile
+#: (W_BM)
+ATTN_RING_BM = DW_RING_BM = 128
+#: B4's ring tile widths (K2 columns) a plan may name, the heuristic's
+#: first (grouped_dw.cu's W_BN, W_BN_NARROW)
+DW_RING_WIDTHS = (256, 128)
+#: an H100 block's shared memory (attention.cu's SMEM_MAX)
+_SMEM_MAX = 232448
+
+
+class FusedPlan(NamedTuple):
+    """One card plan of a fused kernel as the search ranks it and the plan
+    DB keeps it (a rung's ``card`` field, beside B1's
+    ``cuda_gen.CardPlan``): the ``kernel`` (``"attention"`` (B2),
+    ``"grouped"`` (B3) or ``"grouped_dw"`` (B4)), the ``body`` that takes
+    it (B2's ``"ring"`` or ``"tc32"``, B3's and B4's ``"ring"``), its
+    ``block`` (B2: the KV block's columns, ``ATTN_RING_BLOCKS`` /
+    ``ATTN_TC32_BLOCKS``; B3: the M tile, one of ``GROUPED_TILES``; B4: the
+    tile's K2 columns, ``DW_RING_WIDTHS``) and the persistent grid's
+    ``ctas`` (B2's and B4's rings; 0 where the grid is one CTA a tile)."""
+
+    kernel: str
+    body: str
+    block: int
+    ctas: int
+
+    def as_dict(self) -> Dict[str, object]:
+        return {"kernel": self.kernel, "body": self.body,
+                "block": int(self.block), "ctas": int(self.ctas)}
+
+    @classmethod
+    def from_dict(cls, d) -> Optional["FusedPlan"]:
+        """The plan of a rung's ``card`` field, or None without one."""
+        if not d:
+            return None
+        return cls(str(d["kernel"]), str(d["body"]), int(d["block"]),
+                   int(d["ctas"]))
+
+
+def plan_from_dict(d):
+    """The card plan of a rung's ``card`` field: a ``FusedPlan`` where it
+    names a ``kernel``, else B1's ``cuda_gen.CardPlan`` (every plan DB
+    written before fused plans existed), or None without one."""
+    if d and "kernel" in d:
+        return FusedPlan.from_dict(d)
+    return CardPlan.from_dict(d)
+
+
+def _plan_state(plan, kernel: str, body: str) -> Optional[FusedPlan]:
+    """The plan where a launch of ``kernel``'s ``body`` takes it, else None;
+    ``obs`` counts a given plan under ``ops.card_plan.applied`` or
+    ``.skipped``."""
+    if plan is None:
+        return None
+    taken = isinstance(plan, FusedPlan) and (plan.kernel, plan.body) == (
+        kernel, body)
+    from ..obs import counter
+
+    counter(f"ops.card_plan.{'applied' if taken else 'skipped'}").inc()
+    return plan if taken else None
+
+
+def _knobs(plan: Optional[FusedPlan]) -> Tuple[int, int]:
+    """The plan arguments of a kernel's launch entry: (block, ctas), (0, 0)
+    for a body that takes no plan."""
+    return (0, 0) if plan is None else (plan.block, plan.ctas)
+
+
+def _on(plan: Optional[FusedPlan]) -> str:
+    return "" if plan is None else f" on {tuple(plan)}"
 
 
 def attention_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -99,8 +185,8 @@ def attention_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     ``"tc32"`` (3xTF32 on the tensor cores) where d and e are at most 128,
     else ``"fma"``.  Mixed dtypes name the body of q's dtype (the launcher
     refuses them).  A pure function of the tensors' dtypes, shapes,
-    strides and addresses; ``attention_launch`` checks the same rules and
-    refuses a body they exclude."""
+    strides and addresses; ``attention_launch_plan`` checks the same rules
+    and refuses a body they exclude."""
     d, e = q.shape[2], v.shape[2]
     if q.dtype == k.dtype == v.dtype == torch.float32:
         return "tc32" if max(d, e) <= ATTN_TC32_MAX_HEAD else "fma"
@@ -111,6 +197,44 @@ def attention_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
             and k.shape[1] >= 1
             and all(tma_operand(x, 2, 2) for x in (q, k, v)))
     return "ring" if ring else "mma"
+
+
+def attention_ring_tiles(h: int, s: int) -> int:
+    """The ring's tiles: (head, 128 rows of s) pairs."""
+    return h * -(-s // ATTN_RING_BM)
+
+
+def tc32_block_fits(d: int, e: int, block: int) -> bool:
+    """Whether the 3xTF32 body's tiles (attention.cu's TcLayout) fit a
+    block's shared memory at d, e (padded to 64 or 128) and a KV block of
+    ``block`` columns."""
+    dp, ep = (64 if x <= 64 else 128 for x in (d, e))
+    floats = (128 * (dp + 8) + block * dp + block * ep
+              + 4 * block * (dp // 2 + 4) + 4 * (block // 2) * (ep + 2))
+    return floats * 4 <= _SMEM_MAX
+
+
+def attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   sms: Optional[int] = None) -> Optional[FusedPlan]:
+    """B2's launch without a searched plan, as a ``FusedPlan``: the ring's
+    KV block of 128 columns on one persistent CTA an SM (``sms``, the
+    card's count; an H100's 132 by default), at most one a tile; the
+    3xTF32 body's KV block of 32; None for the mma.sync and FMA bodies,
+    which take no plan.  Reads only dtypes, shapes, strides and
+    addresses."""
+    return _attention_plan_of(attention_body(q, k, v), q.shape[0],
+                              q.shape[1], sms)
+
+
+def _attention_plan_of(body: str, h: int, s: int,
+                       sms: Optional[int]) -> Optional[FusedPlan]:
+    """``attention_plan`` of a body already picked, at h heads of s rows."""
+    if body == "ring":
+        return FusedPlan("attention", "ring", ATTN_RING_BLOCKS[0],
+                         min(attention_ring_tiles(h, s), sms or H100_SMS))
+    if body == "tc32":
+        return FusedPlan("attention", "tc32", ATTN_TC32_BLOCKS[0], 0)
+    return None
 
 
 def attention_mask(h: int, s: int, t: int, *, causal: bool,
@@ -161,9 +285,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class AttentionLauncher:
-    """The ctypes wrapper of ``attention_launch`` (kernel B2); counts its
-    launches, one per call, and nothing else.  ``last_body`` names the body
-    of the latest launch (``attention_body``'s).  The ring's tile counter
+    """The ctypes wrapper of ``attention_launch_plan`` (kernel B2); counts
+    its launches, one per call, and nothing else.  ``last_body`` names the
+    body of the latest launch (``attention_body``'s), ``last_plan`` the
+    ``FusedPlan`` it ran (the searched one, else ``attention_plan``'s;
+    None on a body with no plan).  The ring's tile counter
     (two ints, which each launch leaves at zero) comes from a pool kept per
     (device, stream), as B1's scratch (``cuda_gen._Scratch``): launches on
     one stream run in order, so they share it safely."""
@@ -171,6 +297,7 @@ class AttentionLauncher:
     def __init__(self):
         self.launches = 0
         self.last_body = None
+        self.last_plan: Optional[FusedPlan] = None
         self._lib = None
         self._scratch = _Scratch()
 
@@ -179,23 +306,30 @@ class AttentionLauncher:
             from .build import load
 
             lib = load("attention")
-            lib.attention_launch.argtypes = (
-                [ctypes.c_int] * 4
-                + [ctypes.c_void_p] * 6
-                + [ctypes.c_int] * 5
-                + [ctypes.c_longlong] * 8
-                + [ctypes.c_void_p]
-            )
+            args = ([ctypes.c_int] * 4
+                    + [ctypes.c_void_p] * 6
+                    + [ctypes.c_int] * 5
+                    + [ctypes.c_longlong] * 8
+                    + [ctypes.c_void_p])
+            # a named body on its heuristic plan, for callers with no plan
+            lib.attention_launch.argtypes = args
             lib.attention_launch.restype = ctypes.c_int
+            # (block, ctas, ...): the plan first
+            lib.attention_launch_plan.argtypes = [ctypes.c_int] * 2 + args
+            lib.attention_launch_plan.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool, kv_lengths: Optional[torch.Tensor],
-                 out_dtype: torch.dtype) -> torch.Tensor:
+                 out_dtype: torch.dtype,
+                 plan: Optional[FusedPlan] = None) -> torch.Tensor:
         """q (H, S, D), k (H, T, D), v (H, T, E) -> new (H, S, E) tensor;
         ``kv_lengths`` is None or an int32 (H,) tensor on q's device.
-        ``attention_body`` picks the body."""
+        ``attention_body`` picks the body.  The launch runs ``plan`` (a
+        searched ``FusedPlan``) where it names that body, else the body's
+        heuristic (``attention_plan``); a plan the kernel refuses
+        raises."""
         tensors = (q, k, v) + (() if kv_lengths is None else (kv_lengths,))
         if q.device.type != "cuda" or any(x.device != q.device
                                           for x in tensors):
@@ -243,10 +377,12 @@ class AttentionLauncher:
         out = torch.empty((h, s, e), dtype=out_dtype, device=q.device)
         if out.numel() == 0:
             return out
+        plan = _plan_state(plan, "attention", body) or _attention_plan_of(
+            body, h, s, _sm_count(q.device))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _, sched = self._scratch.get(q.device, stream, 0, 2)
         lib = self._fn()
-        rc = lib.attention_launch(
+        args = (
             _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[out_dtype], int(causal),
             ATTENTION_BODIES.index(body),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -255,12 +391,14 @@ class AttentionLauncher:
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1), stream,
         )
+        rc = lib.attention_launch_plan(*_knobs(plan), *args)
         if rc != 0:
             self._scratch.drop(q.device, stream)
             raise RuntimeError(f"attention kernel launch failed ({body} "
-                               f"body): cudaGetLastError() = {rc}")
+                               f"body{_on(plan)}): cudaGetLastError() = {rc}")
         self.launches += 1
         self.last_body = body
+        self.last_plan = plan
         return out
 
 
@@ -315,15 +453,61 @@ def grouped_dw_ref(lhs: torch.Tensor, rhs: torch.Tensor,
     return out.to(out_dtype)
 
 
+#: B3's bodies: the M tiles' bodies on 16-byte copies (bf16 operands as
+#: ``grouped_body`` reads them; the only ones that take a plan), the
+#: element-wise mma.sync body (other bf16 operands), the FMA pipes (f32)
+GROUPED_BODIES = ("ring", "mma", "fma")
+
+
+def grouped_body(x: torch.Tensor, w: torch.Tensor,
+                 contract_last: bool = False) -> str:
+    """Which body of ``grouped.cu`` takes x (rows, K) and w (G, K, N)
+    (``(G, N, K)`` with ``contract_last``): ``"fma"`` for f32; for bf16
+    ``"ring"`` (the 16-, 32-, 64-row mma.sync bodies, the serving body and
+    the 128-row wgmma body, picked by the M tile, all fed by 16-byte
+    cp.async copies) where ``grouped.cu``'s ``bf16_vec`` holds -- x
+    k-contiguous, K a multiple of 8, w's unit-stride axis k (then n's
+    stride a multiple of 8) or n (then k's stride and N multiples of 8),
+    the row and group strides multiples of 8 elements, both bases 16-byte
+    aligned -- else ``"mma"`` (element-wise copies into one 128-row
+    mma.sync body).  A pure function of dtypes, shapes, strides and
+    addresses."""
+    if x.dtype != torch.bfloat16:
+        return "fma"
+    k_ax, n_ax = (2, 1) if contract_last else (1, 2)
+    k, n = x.shape[1], w.shape[n_ax]
+    s_wg, s_wk, s_wn = w.stride(0), w.stride(k_ax), w.stride(n_ax)
+    wnk = s_wk == 1 and s_wn != 1
+    w_vec = (s_wn % 8 == 0 and k % 8 == 0) if wnk else (
+        s_wn == 1 and s_wk % 8 == 0 and n % 8 == 0)
+    vec = (w_vec and x.stride(1) == 1 and k % 8 == 0
+           and x.stride(0) % 8 == 0 and s_wg % 8 == 0
+           and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    return "ring" if vec else "mma"
+
+
+def _tile_of(max_rows: int) -> int:
+    """The M tile the launcher runs without a searched plan for blocks of
+    up to ``max_rows`` rows: the smallest of ``GROUPED_TILES`` that holds
+    them."""
+    return next(t for t in GROUPED_TILES if max_rows <= t)
+
+
 class GroupedLauncher:
-    """The ctypes wrapper of ``grouped_launch``; counts its launches.
+    """The ctypes wrapper of ``grouped_launch_plan``; counts its launches.
 
     ``launches`` goes up by one for every kernel launch and for nothing
     else, so a run can show that its expert products went through B3.
+    ``last_body`` names the body of the latest launch (``grouped_body``'s),
+    ``last_plan`` the ``FusedPlan`` it ran (its M tile: the searched
+    plan's, else the one ``max_rows`` picks; None on a body with no
+    plan).
     """
 
     def __init__(self):
         self.launches = 0
+        self.last_body: Optional[str] = None
+        self.last_plan: Optional[FusedPlan] = None
         self._lib = None
 
     def _fn(self):
@@ -331,14 +515,12 @@ class GroupedLauncher:
             from .build import load
 
             lib = load("grouped")
-            lib.grouped_launch.argtypes = (
-                [ctypes.c_int, ctypes.c_int]
-                + [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 5
-                + [ctypes.c_longlong] * 7
-                + [ctypes.c_void_p]
-            )
-            lib.grouped_launch.restype = ctypes.c_int
+            # (tile_m, dtypes, pointers, n_blocks, band, N, K, strides)
+            lib.grouped_launch_plan.argtypes = (
+                [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 7
+                + [ctypes.c_void_p])
+            lib.grouped_launch_plan.restype = ctypes.c_int
             lib.grouped_max_rows.restype = ctypes.c_int
             if lib.grouped_max_rows() != GROUPED_MAX_ROWS:
                 raise RuntimeError(f"grouped.cu takes row blocks of up to "
@@ -350,14 +532,18 @@ class GroupedLauncher:
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, table: torch.Tensor,
                  max_rows: int, out_dtype: torch.dtype,
-                 contract_last: bool = False, band: int = 1) -> torch.Tensor:
+                 contract_last: bool = False, band: int = 1,
+                 plan: Optional[FusedPlan] = None) -> torch.Tensor:
         """x (rows, K) and w (G, K, N) (``(G, N, K)`` with
         ``contract_last``) -> new (rows, N) tensor.  ``table`` is the int32
         (n_blocks, 3) table of row blocks (group id, first row, rows; no
         block across two groups, ``group_table``) on x's device;
         ``max_rows`` its largest row count (at most ``GROUPED_MAX_ROWS``),
         which picks the M tile; ``band`` the row blocks rasterized side by
-        side (the most any group has)."""
+        side (the most any group has).  ``plan`` (a searched
+        ``FusedPlan``) names the M tile instead where the launch runs its
+        body (its blocks must hold at most that many rows); a plan the
+        kernel refuses raises."""
         if x.device.type != "cuda" or w.device != x.device or (
             table.device != x.device
         ):
@@ -389,11 +575,20 @@ class GroupedLauncher:
             raise ValueError(f"grouped kernel takes row blocks of 1 to "
                              f"{GROUPED_MAX_ROWS} rows and a band of 1 or "
                              f"more, got {max_rows} and {band}")
+        body = grouped_body(x, w, contract_last)
+        plan = _plan_state(plan, "grouped", body)
+        if plan is not None and max_rows > plan.block:
+            raise ValueError(f"grouped kernel: plan {tuple(plan)} takes "
+                             f"blocks of up to {plan.block} rows, the table "
+                             f"holds {max_rows}")
+        if plan is None and body == "ring":
+            plan = FusedPlan("grouped", "ring", _tile_of(max_rows), 0)
         rows, k = x.shape
         n = w.shape[n_ax]
         n_live = table.shape[0]
         # the f32 and the 16-row serving bodies put the blocks on grid y
-        if (n_live > _MAX_GRID_Y if x.dtype == torch.float32 or max_rows <= 16
+        if (n_live > _MAX_GRID_Y if x.dtype == torch.float32 or (
+                plan is not None and plan.block <= 16)
                 else n_live * -(-n // 128) >= 2**31):
             raise ValueError(f"grouped kernel grid too large: {n_live} "
                              f"row blocks")
@@ -404,18 +599,19 @@ class GroupedLauncher:
         if n_live == 0 or n == 0:
             return out
         lib = self._fn()
-        rc = lib.grouped_launch(
-            _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[out_dtype],
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), table.data_ptr(),
-            n_live, max_rows, band, n, k,
-            *x.stride(), w.stride(0), w.stride(k_ax), w.stride(n_ax),
-            *out.stride(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        dtypes = (_KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[out_dtype])
+        ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr(), table.data_ptr())
+        tail = (n, k, *x.stride(), w.stride(0), w.stride(k_ax),
+                w.stride(n_ax), *out.stride(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        rc = lib.grouped_launch_plan(_knobs(plan)[0], *dtypes, *ptrs, n_live,
+                                     band, *tail)
         if rc != 0:
-            raise RuntimeError(f"grouped kernel launch failed: "
-                               f"cudaGetLastError() = {rc}")
+            raise RuntimeError(f"grouped kernel launch failed ({body} "
+                               f"body{_on(plan)}): cudaGetLastError() = {rc}")
         self.launches += 1
+        self.last_body = body
+        self.last_plan = plan
         return out
 
 
@@ -451,14 +647,42 @@ def grouped_dw_body(lhs: torch.Tensor, rhs: torch.Tensor) -> str:
     return "ring" if both and ok(lhs) and ok(rhs) else "mma"
 
 
+def dw_ring_tiles(n_groups: int, k1: int, k2: int, width: int) -> int:
+    """B4's ring tiles: (group, 128 rows of K1, ``width`` columns of K2)."""
+    return n_groups * -(-k1 // DW_RING_BM) * -(-k2 // width)
+
+
+def grouped_dw_plan(lhs: torch.Tensor, rhs: torch.Tensor, n_groups: int,
+                    sms: Optional[int] = None) -> Optional[FusedPlan]:
+    """B4's launch without a searched plan, as a ``FusedPlan``: the ring's
+    256-column tiles on one persistent CTA an SM (``sms``, the card's
+    count; an H100's 132 by default), at most one a tile; None for the
+    mma.sync and FMA bodies, which take no plan."""
+    return _dw_plan_of(grouped_dw_body(lhs, rhs), n_groups, lhs.shape[1],
+                       rhs.shape[1], sms)
+
+
+def _dw_plan_of(body: str, n_groups: int, k1: int, k2: int,
+                sms: Optional[int]) -> Optional[FusedPlan]:
+    """``grouped_dw_plan`` of a body already picked."""
+    if body != "ring":
+        return None
+    width = DW_RING_WIDTHS[0]
+    tiles = dw_ring_tiles(n_groups, k1, k2, width)
+    return FusedPlan("grouped_dw", "ring", width, min(tiles, sms or H100_SMS))
+
+
 class GroupedDwLauncher:
-    """The ctypes wrapper of ``grouped_dw_launch`` (kernel B4); counts its
-    launches, one per call, and nothing else.  ``last_body`` names the
-    body of the latest launch (``DW_BODIES``)."""
+    """The ctypes wrapper of ``grouped_dw_launch_plan`` (kernel B4); counts
+    its launches, one per call, and nothing else.  ``last_body`` names the
+    body of the latest launch (``DW_BODIES``), ``last_plan`` the
+    ``FusedPlan`` it ran (the searched one, else ``grouped_dw_plan``'s;
+    None on a body with no plan)."""
 
     def __init__(self):
         self.launches = 0
         self.last_body: Optional[str] = None
+        self.last_plan: Optional[FusedPlan] = None
         self._lib = None
 
     def _fn(self):
@@ -466,25 +690,27 @@ class GroupedDwLauncher:
             from .build import load
 
             lib = load("grouped_dw")
-            lib.grouped_dw_launch.argtypes = (
-                [ctypes.c_int] * 3
-                + [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] * 7
-                + [ctypes.c_void_p]
-            )
-            lib.grouped_dw_launch.restype = ctypes.c_int
+            # (tile_n, ctas, dtypes, pointers, n_rows, n_groups, K1, K2,
+            # strides, stream)
+            lib.grouped_dw_launch_plan.argtypes = (
+                [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 7
+                + [ctypes.c_void_p])
+            lib.grouped_dw_launch_plan.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
     def __call__(self, lhs: torch.Tensor, rhs: torch.Tensor,
                  table: torch.Tensor, out_dtype: torch.dtype, *,
-                 body: Optional[str] = None) -> torch.Tensor:
+                 body: Optional[str] = None,
+                 plan: Optional[FusedPlan] = None) -> torch.Tensor:
         """lhs (N, K1) and rhs (N, K2) -> new (G, K1, K2) tensor, G the
         rows of ``table``: the int32 (G, 3) table of every group (id,
         first row, rows), in row order, on lhs's device.  ``body`` forces
         a body (``DW_BODIES``; default ``grouped_dw_body``'s choice); one
-        the operands cannot take raises."""
+        the operands cannot take raises.  The ring runs ``plan`` (a
+        searched ``FusedPlan``) where one is given, else its heuristic
+        (``grouped_dw_plan``); a plan the kernel refuses raises."""
         if lhs.device.type != "cuda" or rhs.device != lhs.device or (
             table.device != lhs.device
         ):
@@ -541,20 +767,23 @@ class GroupedDwLauncher:
                           device=lhs.device)
         if out.numel() == 0:
             return out
+        plan = _plan_state(plan, "grouped_dw", body) or _dw_plan_of(
+            body, n_groups, k1, k2, _sm_count(lhs.device))
         lib = self._fn()
-        rc = lib.grouped_dw_launch(
-            1 if body == "ring" else 0,
+        args = (
             _KERNEL_DTYPES[lhs.dtype], _KERNEL_DTYPES[out_dtype],
             lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), table.data_ptr(),
             n_rows, n_groups, k1, k2, *lhs.stride(), *rhs.stride(),
             *out.stride(),
             torch.cuda.current_stream(lhs.device).cuda_stream,
         )
+        rc = lib.grouped_dw_launch_plan(*_knobs(plan), *args)
         if rc != 0:
             raise RuntimeError(f"grouped dW kernel launch failed ({body} "
-                               f"body): cudaGetLastError() = {rc}")
+                               f"body{_on(plan)}): cudaGetLastError() = {rc}")
         self.launches += 1
         self.last_body = body
+        self.last_plan = plan
         return out
 
 
@@ -574,11 +803,46 @@ def grouped_tile_m(group_sizes: Tuple[int, ...]) -> int:
                 <= t)
 
 
-def group_table(group_sizes: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
+def contracts_last(spec: ContractionSpec) -> bool:
+    """Whether a grouped row-mode spec is the dX orientation: the shared
+    axis is w's last (w's trailing strides are passed swapped)."""
+    root = spec.root()
+    xname, wname = root.operands
+    return root.operands[wname].index(root.operands[xname][1]) == 2
+
+
+def dw_operands(spec: ContractionSpec, arrays) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """(lhs (n, o1), rhs (n, o2)) of a dW-mode spec, output (g, o1, o2),
+    from ``arrays`` in spec order, whichever order the spec lists them in,
+    as the reference's ``order``."""
+    root = spec.root()
+    _, o1, o2 = root.output
+    by_name = dict(zip(root.operands, arrays))
+    return tuple(by_name[next(n for n in root.operands
+                              if o in root.operands[n])] for o in (o1, o2))
+
+
+def grouped_plan(x: torch.Tensor, w: torch.Tensor,
+                 group_sizes: Tuple[int, ...],
+                 contract_last: bool = False) -> Optional[FusedPlan]:
+    """B3's launch without a searched plan, as a ``FusedPlan``: the M tile
+    ``grouped_tile_m`` picks (the tile the launcher runs for its
+    table); None for the element-wise mma.sync and FMA bodies, which take
+    no plan (``grouped_body``)."""
+    if grouped_body(x, w, contract_last) != "ring":
+        return None
+    return FusedPlan("grouped", "ring", grouped_tile_m(group_sizes), 0)
+
+
+def group_table(group_sizes: Tuple[int, ...],
+                tile_m: Optional[int] = None) -> List[Tuple[int, int, int]]:
     """(group id, first row, rows) of every row block, in order: each
-    non-empty group cut into blocks of ``grouped_tile_m`` rows and a ragged
-    tail, so no block spans two groups and empty groups have none."""
-    tile_m = grouped_tile_m(group_sizes)
+    non-empty group cut into blocks of ``tile_m`` rows (default
+    ``grouped_tile_m``'s; a plan's M tile) and a ragged tail, so no block
+    spans two groups and empty groups have none."""
+    if tile_m is None:
+        tile_m = grouped_tile_m(group_sizes)
     return [(g, o + r, min(tile_m, s - r)) for g, (o, s) in
             enumerate(zip(_group_offsets(group_sizes), group_sizes))
             for r in range(0, s, tile_m)]
@@ -591,9 +855,10 @@ class FusedKernel:
     Call with the operand tensors in ``spec.operands`` order, shaped as the
     plan's local extents; attention also takes ``kv_lengths=`` (one int32
     per folded head).  CUDA tensors launch ``csrc/attention.cu``,
-    ``csrc/grouped.cu`` (row mode) or ``csrc/grouped_dw.cu`` (dW mode);
-    CPU tensors run ``attention_ref``, ``grouped_ref`` or
-    ``grouped_dw_ref``.
+    ``csrc/grouped.cu`` (row mode) or ``csrc/grouped_dw.cu`` (dW mode),
+    on ``card`` (a searched ``FusedPlan``) where the launch runs its body,
+    else on the launcher's heuristic; CPU tensors run ``attention_ref``,
+    ``grouped_ref`` or ``grouped_dw_ref``.
     """
 
     spec: ContractionSpec
@@ -602,7 +867,8 @@ class FusedKernel:
     out_dtype: Optional[torch.dtype]
     interpret: bool
     kind: str
-    _tables: Dict[torch.device, Tuple[torch.Tensor, int, int]] = (
+    card: Optional[FusedPlan] = None
+    _tables: Dict[tuple, Tuple[torch.Tensor, int, int]] = (
         dataclasses.field(repr=False, default_factory=dict))
 
     @property
@@ -617,24 +883,19 @@ class FusedKernel:
     @property
     def contract_last(self) -> bool:
         """True for the dX orientation: the shared axis is w's last."""
-        xname, wname = self.names
-        c_ax = self.spec.operands[xname][1]
-        return self.spec.operands[wname].index(c_ax) == 2
+        return contracts_last(self.spec)
 
     def _dw_operands(self, arrays) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(lhs (n, o1), rhs (n, o2)) for the output (g, o1, o2), whichever
-        order the spec lists them in, as the reference's ``order``."""
-        _, o1, o2 = self.spec.output
-        by_name = dict(zip(self.names, arrays))
-        lhs = next(n for n in self.names if o1 in self.spec.operands[n])
-        rhs = next(n for n in self.names if o2 in self.spec.operands[n])
-        return by_name[lhs], by_name[rhs]
+        """(lhs (n, o1), rhs (n, o2)): ``dw_operands`` of the spec."""
+        return dw_operands(self.spec, arrays)
 
-    def _table(self, device: torch.device) -> Tuple[torch.Tensor, int, int]:
+    def _table(self, device: torch.device, tile_m: Optional[int] = None
+               ) -> Tuple[torch.Tensor, int, int]:
         """(the device table, its largest row count, the band): every group
         for the dW mode (an empty one's CTAs store zeros), else
-        ``group_table``'s row blocks."""
-        entry = self._tables.get(device)
+        ``group_table``'s row blocks at the M tile ``tile_m`` (default
+        ``grouped_tile_m``'s)."""
+        entry = self._tables.get((device, tile_m))
         if entry is None:
             sizes = tuple(self.spec.root().group_sizes)
             if self.dw:
@@ -642,12 +903,13 @@ class FusedKernel:
                         enumerate(zip(_group_offsets(sizes), sizes))]
                 band = 1
             else:
-                rows = group_table(sizes)
-                band = max(1, -(-max(sizes) // grouped_tile_m(sizes)))
+                tile = tile_m or grouped_tile_m(sizes)
+                rows = group_table(sizes, tile)
+                band = max(1, -(-max(sizes) // tile))
             table = torch.tensor(rows, dtype=torch.int32,
                                  device=device).reshape(-1, 3)
             entry = (table, max((r[2] for r in rows), default=0), band)
-            self._tables[device] = entry
+            self._tables[(device, tile_m)] = entry
         return entry
 
     def __call__(self, *arrays: torch.Tensor, kv_lengths=None):
@@ -719,13 +981,21 @@ class FusedKernel:
             lhs, rhs = self._dw_operands((x, w))
             if cpu:
                 return grouped_dw_ref(lhs, rhs, sizes, out_dtype=out_dtype)
-            return GROUPED_DW(lhs, rhs, self._table(x.device)[0], out_dtype)
+            return GROUPED_DW(lhs, rhs, self._table(x.device)[0], out_dtype,
+                              plan=self.card)
         if cpu:
             return grouped_ref(x, w, sizes, out_dtype=out_dtype,
                                contract_last=self.contract_last)
-        table, max_rows, band = self._table(x.device)
+        # the plan's M tile cuts the table where the launch takes it
+        card = self.card
+        tile = (card.block if isinstance(card, FusedPlan)
+                and (card.kernel, card.body) == (
+                    "grouped", grouped_body(x, w, self.contract_last))
+                else None)
+        table, max_rows, band = self._table(x.device, tile)
         return GROUPED(x, w, table, max(max_rows, 1), out_dtype,
-                       contract_last=self.contract_last, band=band)
+                       contract_last=self.contract_last, band=band,
+                       plan=card)
 
     def run_attention(self, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -737,7 +1007,7 @@ class FusedKernel:
         if q.device.type == "cpu":
             return attention_ref(q, k, v, causal=causal, kv_lengths=lengths,
                                  out_dtype=out_dtype)
-        return ATTENTION(q, k, v, causal, lengths, out_dtype)
+        return ATTENTION(q, k, v, causal, lengths, out_dtype, plan=self.card)
 
 
 def compile_fused(
@@ -748,9 +1018,12 @@ def compile_fused(
     out_dtype=None,
     interpret: bool = False,
     mesh=None,
+    card: Optional[FusedPlan] = None,
 ) -> FusedKernel:
     """Lower a fused-family spec + Schedule; ``cuda_gen.compile_kernel``
-    dispatches here whenever ``spec.root().fused_kind`` is set."""
+    dispatches here whenever ``spec.root().fused_kind`` is set.  ``card``
+    is a searched ``FusedPlan``, which the kernel's launches take where
+    they run its body."""
     root = spec.root()
     kind = getattr(root, "fused_kind", "")
     if not kind:
@@ -759,6 +1032,9 @@ def compile_fused(
         raise NotImplementedError("fused kernels take no epilogue")
     if mesh is not None:
         raise NotImplementedError("fused families have no mesh tier yet")
+    if card is not None and not isinstance(card, FusedPlan):
+        raise ValueError(f"{root.name}: the fused kernels take a FusedPlan, "
+                         f"got {card!r}")
     from ..obs import span
 
     with span("codegen.compile_fused", spec=root.name, kind=kind):
@@ -770,4 +1046,5 @@ def compile_fused(
             out_dtype=None if out_dtype is None else _torch_dtype(out_dtype),
             interpret=interpret,
             kind=kind,
+            card=card,
         )

@@ -3,11 +3,13 @@
 A copy of the reference's ``obs/explain.py`` (the same selector grammar,
 matching and text), plus the card's columns: a rung of a card ladder
 carries a ``card`` record (``search.plandb.entry_from``: the B1 tile plan,
-body x tile width x K split, it was measured with), and its entry gains a
-table of each such rung's plan, its measured milliseconds on the card
-(``measured_s``) and ``core.cost.card_plan_cost``'s prediction (the
-rung's ``score``) with its wave count.  A DB without card records renders
-as the reference renders it.
+body x tile width x K split, or a fused kernel's plan, kernel, body, block
+x CTAs, it was measured with), and its entry gains a table of each such
+rung's plan, its measured milliseconds on the card (``measured_s``) and,
+for B1, ``core.cost.card_plan_cost``'s prediction (the rung's ``score``)
+with its wave count; a fused ladder is measured whole and predicts
+nothing ("-").  A DB without card records renders as the reference
+renders it.
 
 ``search_schedule`` persists, per rung, the roofline terms its decision
 was made from (``explain``: compute/HBM/collective seconds, penalty,
@@ -106,6 +108,16 @@ def _fmt_s(v: Any) -> str:
     return f"{float(v):.3g}"
 
 
+def _card_plan(c: Dict[str, Any]) -> str:
+    """A rung's card plan as text: B1's "body tile_nxsplits", a fused
+    kernel's "kernel body blockxctas"."""
+    if "kernel" in c:
+        return (f"{c['kernel']} {c.get('body', '?')} "
+                f"{c.get('block', '?')}x{c.get('ctas', '?')}")
+    return (f"{c.get('body', '?')} {c.get('tile_n', '?')}x"
+            f"{c.get('splits', '?')}")
+
+
 def format_entry(key: str, entry: Dict[str, Any]) -> str:
     """The ranked why-this-plan table for one plan-DB entry."""
     lines: List[str] = []
@@ -149,17 +161,19 @@ def format_entry(key: str, entry: Dict[str, Any]) -> str:
     card_rows = [(i, r) for i, r in enumerate(entry.get("ranked", []))
                  if r.get("card")]
     if card_rows:
-        lines.append(f"  card  {'#':>2} {'plan':<14} {'measured_ms':>11} "
-                     f"{'predicted_ms':>12} {'waves':>5}")
-        for i, rung in card_rows:
-            c = rung["card"]
-            plan = (f"{c.get('body', '?')} {c.get('tile_n', '?')}x"
-                    f"{c.get('splits', '?')}")
+        plans = [_card_plan(r["card"]) for _, r in card_rows]
+        width = max([14] + [len(p) for p in plans])
+        lines.append(f"  card  {'#':>2} {'plan':<{width}} "
+                     f"{'measured_ms':>11} {'predicted_ms':>12} "
+                     f"{'waves':>5}")
+        for (i, rung), plan in zip(card_rows, plans):
             ms = rung.get("measured_s")
             measured = "-" if ms is None else f"{float(ms) * 1e3:.4f}"
-            predicted = f"{float(rung.get('score', 0.0)) * 1e3:.4f}"
+            score = float(rung.get("score", 0.0))
+            predicted = ("-" if score == float("inf")
+                         else f"{score * 1e3:.4f}")
             waves = (rung.get("explain") or {}).get("waves", "-")
-            lines.append(f"        {i:>2} {plan:<14} {measured:>11} "
+            lines.append(f"        {i:>2} {plan:<{width}} {measured:>11} "
                          f"{predicted:>12} {waves:>5}")
     cuts = entry.get("cuts") or []
     if cuts:

@@ -109,6 +109,7 @@ from ..core.enumerate import (
 from ..codegen.cache import default_cache
 from ..codegen.cache import generation as cache_generation
 from ..codegen.cuda_gen import CardPlan
+from ..codegen.fused_gen import FusedPlan, plan_from_dict
 from ..obs import counter
 from ..search import active_phase, default_plan_db
 from .library import is_dtensor
@@ -186,10 +187,11 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
     mesh-qualified plan first (``_mesh_plan_kernel``, a
     ``MeshBoundKernel``), then the active serving phase's ladder, then the
     unphased ladder, then the analytic tuner with its persistent cache.  A winning rung's ``card`` (the B1
-    tile plan a card ladder measured) is compiled into the kernel
-    (``cached_compile(card=)``, whose memo keys it), except under an
-    epilogue, where the launch runs another body than the measured plain
-    product.  The answer is kept for the process
+    tile plan a card ladder measured, or a fused spec's ``FusedPlan``)
+    is compiled into the kernel (``cached_compile(card=)``, whose memo
+    keys it), except a B1 plan under an epilogue, where the launch runs
+    another body than the measured plain product, and a plan of the
+    other family than the spec's.  The answer is kept for the process
     (the reference looks up once per trace), keyed on the spec, dtype,
     epilogue, output dtype, ``interpret``, the active phase, the plan
     DB's and tuner cache's paths and the active mesh, and dropped when
@@ -225,11 +227,13 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
         schedule, rung = db.best_entry(spec, dtype)
     if schedule is None:
         schedule = tune_schedule(spec, dtype=dtype)
-    # a card ladder's winner carries the B1 tile plan it was measured with
-    card = CardPlan.from_dict(rung.get("card"))
-    if card is not None and (epilogue is not None or getattr(
-            spec.root(), "fused_kind", "")):
+    # a card ladder's winner carries the tile plan it was measured with
+    card = plan_from_dict(rung.get("card"))
+    fused = bool(getattr(spec.root(), "fused_kind", ""))
+    if isinstance(card, CardPlan) and (epilogue is not None or fused):
         card = None  # measured on the plain product: not this call's body
+    if isinstance(card, FusedPlan) and not fused:
+        card = None
     kern = cached_compile(spec, schedule, epilogue=epilogue,
                           out_dtype=out_dtype, interpret=interpret,
                           card=card)

@@ -34,10 +34,20 @@ measurement harness, and displaces it only by beating its median by more
 than the larger of the two rungs' interquartile ranges (a smaller gap is
 a tie, which keeps the heuristic), and then again in a second timing of
 the two alone.  Every measured candidate differs in what B1
-launches.  The rungs carry their plan (``card``), and ``ops._tuned_kernel``
-compiles the winner's.  Fused families (attention, grouped) and the other
-B1 modes (weighted, chain, 8-bit) take no plan yet: they keep the analytic
-ladder, and only its default is measured.  A card ladder persists under
+launches.  The fused families take their kernels' card plans
+(``codegen.fused_gen.FusedPlan``): an attention spec B2's KV block and
+the ring's persistent CTA count (or the 3xTF32 body's KV block), a
+grouped spec's forward and ``.dX`` B3's M tile, its ``.dW`` B4's tile
+width and CTA count -- the card's stand-ins for the reference's ``bt``,
+``bm`` and ``bn`` (``space.fused_card_candidates``).  Their lists are
+short (six at most), so the ladder pairs the analytic winner's
+``Schedule`` with every one of them, no cost model ranking them first,
+the launcher's own plan (``space.fused_heuristic_plan``) in the default
+role, under the same rule.  The rungs carry their plan (``card``), and
+``ops._tuned_kernel`` compiles the winner's.  The other B1 modes
+(weighted, chain, 8-bit) and the bodies without a plan (mma.sync, FMA)
+keep the analytic ladder, and only its default is measured.  A card
+ladder persists under
 the card's hardware fingerprint (``cuda/<device name>``), a ladder timed
 on the host of that machine under ``cpu`` (``codegen.cache.measured_on``).
 
@@ -119,6 +129,8 @@ from .space import (
     candidate_schedule,
     card_candidates,
     dtype_tier_specs,
+    fused_card_candidates,
+    fused_heuristic_plan,
     make_candidate,
     mesh_descriptor,
     mesh_variants,
@@ -252,7 +264,7 @@ def _persist_once(plan_db, write) -> None:
 
 
 def _ladder_from(cached: dict, spec: ContractionSpec) -> List[RankedPlan]:
-    from ..codegen.cuda_gen import CardPlan
+    from ..codegen.fused_gen import plan_from_dict
 
     ranked = []
     for e in cached["ranked"]:
@@ -270,7 +282,7 @@ def _ladder_from(cached: dict, spec: ContractionSpec) -> List[RankedPlan]:
                 source=e.get("source", "search"),
                 collective=e.get("collective", ""),
                 explain=dict(e.get("explain") or {}),
-                card=CardPlan.from_dict(e.get("card")),
+                card=plan_from_dict(e.get("card")),
             )
         )
     return ranked
@@ -279,10 +291,10 @@ def _ladder_from(cached: dict, spec: ContractionSpec) -> List[RankedPlan]:
 def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device):
     """The card ladder of a plain two-operand product: (plans, stats,
     tensors) -- the analytic winner's schedule with each plan of
-    ``beam.card_beam`` over ``space.card_candidates`` and the heuristic's,
-    or None where the spec is not such a product.  ``arrays`` (numpy,
-    placed on ``device``, or tensors, kept as given) default to
-    ``reference_arrays``."""
+    ``beam.card_beam`` over ``space.card_candidates`` and the heuristic's
+    -- or of a fused spec (``_fused_card_ladder``), or None where the spec
+    is neither.  ``arrays`` (numpy, placed on ``device``, or tensors, kept
+    as given) default to ``reference_arrays``."""
     import torch
 
     from ..codegen import cuda_gen
@@ -290,16 +302,13 @@ def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device):
     from ..codegen.schedules import default_schedule
 
     tdt = getattr(torch, dtype_name(dt))
-    if not (len(spec.operands) == 2 and not getattr(spec, "fused_kind", "")
-            and spec.quant is None
+    if getattr(spec, "fused_kind", ""):
+        return _fused_card_ladder(spec, survivors, arrays, dt, device)
+    if not (len(spec.operands) == 2 and spec.quant is None
             and tdt in (torch.float32, torch.bfloat16)
             and cuda_gen._classify(spec).kind == "gemm"):
         return None
-    if arrays is None:
-        arrays = reference_arrays(spec, dtype=tdt)
-    tensors = {n: a if isinstance(a, torch.Tensor) else
-               torch.from_numpy(np.ascontiguousarray(a)).to(device).to(tdt)
-               for n, a in arrays.items()}
+    tensors = _card_tensors(spec, arrays, tdt, device)
     a3, b3 = cuda_gen.card_views(spec, *(tensors[n] for n in spec.operands))
     batch, m, k = a3.shape
     n = b3.shape[2]
@@ -326,6 +335,56 @@ def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device):
         )
         for plan, cost in scored
     ]
+    return ladder, stats, tensors
+
+
+def _card_tensors(spec, arrays, tdt, device):
+    """The operands a card ladder measures on: ``arrays`` (numpy, placed
+    on ``device`` in ``tdt``, or tensors, kept as given), by default
+    ``reference_arrays``."""
+    import torch
+
+    if arrays is None:
+        arrays = reference_arrays(spec, dtype=tdt)
+    return {n: a if isinstance(a, torch.Tensor) else
+            torch.from_numpy(np.ascontiguousarray(a)).to(device).to(tdt)
+            for n, a in arrays.items()}
+
+
+def _fused_card_ladder(spec, survivors, arrays, dt, device):
+    """The card ladder of a fused spec (attention; the grouped forward, dX
+    and dW): (plans, stats, tensors) -- the analytic winner's schedule
+    with each plan of ``space.fused_card_candidates`` (a dozen at most,
+    so every one is measured: no cost model ranks them first), the
+    heuristic's in the ``source="default"`` role; None for a dtype the
+    kernels do not take.  A body with no plan (mma.sync, FMA) gives the
+    one rung of the heuristic, card None."""
+    import torch
+
+    from ..codegen import cuda_gen
+    from ..codegen.cache import dtype_name
+    from ..codegen.schedules import default_schedule
+
+    tdt = getattr(torch, dtype_name(dt))
+    if tdt not in (torch.float32, torch.bfloat16):
+        return None
+    tensors = _card_tensors(spec, arrays, tdt, device)
+    ops = [tensors[n] for n in spec.operands]
+    sched = (survivors[0].candidate.to_schedule() if survivors
+             else default_schedule(spec))
+    sms = (cuda_gen._sm_count(ops[0].device) if ops[0].is_cuda
+           else cuda_gen.H100_SMS)
+    plans = fused_card_candidates(spec, *ops, sms=sms)
+    heur = fused_heuristic_plan(spec, *ops, sms=sms)
+    stats = SearchStats(considered=len(plans))
+    ladder = [
+        RankedPlan(schedule=sched, score=float("inf"), lower_bound=0.0,
+                   fits_vmem=True,
+                   source="default" if plan == heur else "search",
+                   card=plan)
+        for plan in plans
+    ] or [RankedPlan(schedule=sched, score=float("inf"), lower_bound=0.0,
+                     fits_vmem=True, source="default")]
     return ladder, stats, tensors
 
 
@@ -568,7 +627,7 @@ def search_schedule(
             plans, stats, tensors = card
             measured = list(plans)
         else:
-            # no B1 plan to search: one measurement of the default
+            # no card plan to search: one measurement of the default
             measured = [p for p in plans if p.source == "default"][:1]
     elif measure:
         import torch

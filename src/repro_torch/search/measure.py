@@ -19,12 +19,18 @@ The operands' device decides what is timed, as everywhere in the port:
   interquartile range), the 50 MB L2 flushed before each (a
   serving step meets its weights cold; the flush also keeps the device
   busy while the host enqueues the launch).  Candidates
-  carry B1's tile plan (``cards``, ``codegen.cuda_gen.CardPlan``), since
-  on the card B1 ignores a schedule's blocks; every timed call of a
-  plain product must be one B1 launch, run on the requested plan
-  (``CONTRACT.last_card``).  The operands go as the views the caller
-  passes (``ops.dense``'s folded x, the backward's cotangent and saved
-  operands for ``.dA`` / ``.dB``), so the measured body is the served one.
+  carry their card plan (``cards``: B1's ``codegen.cuda_gen.CardPlan``,
+  a fused spec's ``codegen.fused_gen.FusedPlan``), since on the card the
+  kernels ignore a schedule's blocks; every timed call of a plain
+  product must be one B1 launch, run on the requested plan
+  (``CONTRACT.last_card``), and every timed call of a fused spec one
+  launch of its kernel (B2, B3 or B4), on the requested plan where one
+  is given (the launcher's ``last_plan``).  The operands go as the views
+  the caller passes (``ops.dense``'s folded x, the backward's cotangent
+  and saved operands for ``.dA`` / ``.dB``), so the measured body is the
+  served one.  The f64 oracle of a fused spec runs on the operands'
+  device there (``fused_oracle``): numpy's loops would take minutes at a
+  full-width attention.
 
 Schedules with ``mesh:*`` levels are compiled through
 ``codegen.bind_mesh`` over a mesh of the world's ranks
@@ -245,17 +251,62 @@ def einsum_reference(
     )
 
 
+def fused_oracle(spec: ContractionSpec, tensors):
+    """``einsum_reference`` of a fused spec in torch, in f64 on the
+    tensors' device: attention's stable softmax (masked columns -inf, as
+    the reference's oracle), a head at a time; the grouped row and dW
+    modes a group at a time."""
+    import torch
+
+    from ..codegen import fused_gen
+
+    spec = spec.root()
+    vals = [t.double() for t in tensors]
+    if spec.fused_kind == "attention":
+        q, k, v = vals
+        s_len, t_len = q.shape[1], k.shape[1]
+        scale = spec.extents["d"] ** -0.5
+        keep = (torch.arange(t_len, device=q.device)[None, :]
+                <= torch.arange(s_len, device=q.device)[:, None])
+        out = torch.empty(q.shape[0], s_len, v.shape[2],
+                          dtype=torch.float64, device=q.device)
+        for h in range(q.shape[0]):
+            sc = (q[h] @ k[h].T) * scale
+            if spec.causal:
+                sc = sc.masked_fill(~keep, float("-inf"))
+            p = torch.softmax(sc, dim=-1)
+            out[h] = p @ v[h]
+        return out
+    out = torch.zeros(tuple(spec.extents[i] for i in spec.output),
+                      dtype=torch.float64, device=vals[0].device)
+    o = 0
+    if "g" in spec.output:
+        lhs, rhs = fused_gen.dw_operands(spec, vals)
+        for g, s_g in enumerate(spec.group_sizes):
+            out[g] = lhs[o:o + s_g].T @ rhs[o:o + s_g]
+            o += s_g
+        return out
+    x, w = vals
+    last = fused_gen.contracts_last(spec)
+    for g, s_g in enumerate(spec.group_sizes):
+        out[o:o + s_g] = x[o:o + s_g] @ (w[g].T if last else w[g])
+        o += s_g
+    return out
+
+
 def _oracle(spec: ContractionSpec, tensors):
     """The f64 oracle of ``tensors`` on their device: ``torch.einsum`` in
     f64 for a plain contraction (on the card a full-width product takes
-    milliseconds there, minutes in numpy's loops), ``einsum_reference``
-    for a fused family."""
+    milliseconds there, minutes in numpy's loops); for a fused family
+    ``einsum_reference`` on CPU tensors, ``fused_oracle`` on the card."""
     import torch
 
     from ..core.enumerate import einsum_formula
 
     spec = spec.root()
     if getattr(spec, "fused_kind", ""):
+        if tensors[0].is_cuda:
+            return fused_oracle(spec, tensors)
         host = {n: t.double().cpu().numpy()
                 for n, t in zip(spec.operands, tensors)}
         return torch.from_numpy(einsum_reference(spec, host)).to(
@@ -295,7 +346,8 @@ def measure_schedules(
     wrong answer must never win the search.  The default tolerance is
     dtype-appropriate: 1e-3 relative for >= 32-bit floats and 8-bit
     operands, 5e-2 for half-precision (bf16 rounds the *stored* output
-    even though the kernels accumulate in f32).
+    even though the kernels accumulate in f32), of the oracle's largest
+    magnitude, or of each row's for attention (``_scale``).
 
     ``arrays`` maps operand names to numpy arrays (default:
     ``reference_arrays``), placed on ``device`` ("cpu" unless given), or
@@ -341,9 +393,9 @@ def measure_schedules(
     if card and not torch.cuda.is_available():
         raise RuntimeError("measuring on CUDA tensors needs a card")
     cards = list(cards) if cards is not None else [None] * len(schedules)
-    b1 = card and _plain_product(spec, tensors[0].dtype)
+    launcher = _launcher_of(spec, tensors[0].dtype) if card else None
     ref = _oracle(spec, tensors) if check else None
-    scale = max(float(ref.abs().max()), 1e-30) if check else 1.0
+    scale = _scale(spec, ref) if check else None
     sharded = [bool(schedule_mesh_axes(s)) for s in schedules]
     if mesh is None and any(sharded):
         mesh = mesh_for_schedules(
@@ -370,10 +422,10 @@ def measure_schedules(
         )
         what = f"schedule {sched.levels}" + (f", plan {tuple(plan)}"
                                              if plan is not None else "")
-        result = _call(kern, tensors, b1, plan, what)  # warm-up, checked
+        result = _call(kern, tensors, launcher, plan, what)  # warm-up
         err = None
         if check:
-            err = float((result.double() - ref).abs().max()) / scale
+            err = float(((result.double() - ref).abs() / scale).max())
             if not err <= tol:
                 raise AssertionError(
                     f"{what} produced wrong output (rel err {err:.3g} > "
@@ -385,7 +437,7 @@ def measure_schedules(
             seconds = float("inf")
             for _ in range(max(repeats, 1)):
                 t0 = time.perf_counter()
-                _call(kern, tensors, b1, plan, what)
+                _call(kern, tensors, launcher, plan, what)
                 if card:
                     torch.cuda.synchronize(tensors[0].device)
                 seconds = min(seconds, time.perf_counter() - t0)
@@ -406,7 +458,7 @@ def measure_schedules(
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            _call(kern, tensors, b1, plan, what)
+            _call(kern, tensors, launcher, plan, what)
             end.record()
             end.synchronize()
             row.append(start.elapsed_time(end) * 1e-3)
@@ -418,15 +470,50 @@ def measure_schedules(
     return out
 
 
-def _call(kern, tensors, b1: bool, plan, what: str):
-    """One call of ``kern``; for a plain product on the card, exactly one
-    B1 launch, on ``plan`` where one is given (else raises)."""
-    from ..codegen import CONTRACT
+def _scale(spec: ContractionSpec, ref):
+    """What a candidate's error is divided by: the oracle's largest
+    magnitude; for attention each row's own (1 for an all-zero row), so
+    that late causal rows, whose values are small, are held as tightly as
+    row 0."""
+    if getattr(spec, "fused_kind", "") == "attention":
+        rows = ref.abs().amax(dim=-1, keepdim=True)
+        return rows.masked_fill(rows == 0, 1.0)
+    return max(float(ref.abs().max()), 1e-30)
 
-    n0 = CONTRACT.launches
+
+def _launcher_of(spec: ContractionSpec, dtype):
+    """The launcher whose one launch a timed call on the card must be: B1's
+    for a plain product, B2's, B3's or B4's for a fused spec; None for
+    another spec (the weighted, chain and 8-bit modes)."""
+    from ..codegen import CONTRACT
+    from ..codegen import fused_gen
+
+    root = spec.root()
+    kind = getattr(root, "fused_kind", "")
+    if kind == "attention":
+        return fused_gen.ATTENTION
+    if kind:
+        return (fused_gen.GROUPED_DW if "g" in root.output
+                else fused_gen.GROUPED)
+    return CONTRACT if _plain_product(spec, dtype) else None
+
+
+def _ran(launcher):
+    """The plan a launcher's latest launch ran: B1's ``last_card``, a
+    fused launcher's ``last_plan``."""
+    return (launcher.last_card if hasattr(launcher, "last_card")
+            else launcher.last_plan)
+
+
+def _call(kern, tensors, launcher, plan, what: str):
+    """One call of ``kern``; where ``launcher`` is given, exactly one of its
+    launches, on ``plan`` where one is given (else raises)."""
+    if launcher is None:
+        return kern(*tensors)
+    n0 = launcher.launches
     out = kern(*tensors)
-    if b1 and (CONTRACT.launches - n0 != 1 or (
-            plan is not None and CONTRACT.last_card != plan)):
-        raise AssertionError(f"{what}: {CONTRACT.launches - n0} B1 launches "
-                             f"in a call, the last on {CONTRACT.last_card}")
+    if launcher.launches - n0 != 1 or (plan is not None
+                                       and _ran(launcher) != plan):
+        raise AssertionError(f"{what}: {launcher.launches - n0} launches "
+                             f"in a call, the last on {_ran(launcher)}")
     return out

@@ -10,9 +10,13 @@ key derivation are the reference's, byte for byte, so a plan DB written by
 the reference's sweep (e.g. ``tests/data/plan_db_golden.json``) resolves
 through the port, and a rung the port writes (``entry_from``) is the
 reference's JSON.  The one addition: a rung measured on the card may carry
-a ``card`` field, the B1 tile plan it ran (``{"body", "tile_n",
-"splits"}``, ``codegen.cuda_gen.CardPlan``), which ``ops._tuned_kernel``
-hands to the compiled kernel; a rung without one is the reference's.  A
+a ``card`` field, the card plan it ran -- B1's tile plan (``{"body",
+"tile_n", "splits"}``, ``codegen.cuda_gen.CardPlan``) or a fused
+kernel's (``{"kernel", "body", "block", "ctas"}``,
+``codegen.fused_gen.FusedPlan``; ``fused_gen.plan_from_dict`` tells them
+apart by the ``kernel`` key, so a DB written before fused plans existed
+loads as it was) -- which ``ops._tuned_kernel`` hands to the compiled
+kernel; a rung without one is the reference's.  A
 card ladder lives under the card's hardware fingerprint
 (``cuda/<device name>``), which no reference key carries.  Storage reuses
 ``codegen.cache.AutotuneCache`` (atomic JSON, concurrent-writer safe) in a
@@ -246,8 +250,8 @@ class PlanDB:
         The entry dict carries the plan metadata the schedule alone cannot
         (notably ``collective`` — the finishing-reduction strategy a
         mesh-sharded plan was measured with, for the mesh tier — and a
-        card ladder's ``card``, the B1 tile plan ``ops._tuned_kernel``
-        compiles with).
+        card ladder's ``card``, the B1 or fused card plan
+        ``ops._tuned_kernel`` compiles with).
         """
         entry = self.get(spec, dtype, hardware, mesh=mesh, phase=phase)
         if not entry or not entry.get("ranked"):
@@ -323,9 +327,10 @@ def entry_from(
     """One ranked rung.  ``explain`` carries the roofline terms the rank
     was decided from (``beam.CostEstimate``: compute_s/hbm_s/comm_s/
     penalty/seq_steps/shards).  ``card`` (``CardPlan.as_dict()``: body,
-    tile_n, splits) is the B1 tile plan a card ladder measured; it is
-    written only when given, so a rung without one is the reference's
-    JSON byte for byte."""
+    tile_n, splits; or ``FusedPlan.as_dict()``: kernel, body, block,
+    ctas) is the card plan a card ladder measured; it is written only
+    when given, so a rung without one is the reference's JSON byte for
+    byte."""
     out = {
         "schedule": schedule_to_dict(schedule),
         "score": float(score),

@@ -617,3 +617,99 @@ def card_candidates(spec: ContractionSpec, a, b, dtype=None, *,
     if heur not in out:
         out.append(heur)
     return out
+
+
+def fused_cta_choices(tiles: int, sms: int) -> List[int]:
+    """The persistent grids a fused ring's plan may take over ``tiles``
+    tiles on a card of ``sms`` multiprocessors: one CTA an SM (the
+    heuristic's), three quarters and half of that, each at most one a
+    tile, widest first."""
+    return sorted({max(1, min(tiles, c)) for c in (sms, 3 * sms // 4,
+                                                  sms // 2)}, reverse=True)
+
+
+def fused_heuristic_plan(spec: ContractionSpec, *tensors,
+                         sms: Optional[int] = None):
+    """The ``FusedPlan`` the fused kernel's launcher takes for ``spec`` on
+    ``tensors`` without a searched one (``attention_plan``,
+    ``grouped_plan``, ``grouped_dw_plan``), or None on a body with no
+    plan."""
+    from ..codegen import fused_gen as fg
+
+    root = spec.root()
+    if getattr(root, "fused_kind", "") == "attention":
+        return fg.attention_plan(*tensors, sms)
+    if "g" in root.output:
+        return fg.grouped_dw_plan(*fg.dw_operands(root, tensors),
+                                  len(root.group_sizes), sms)
+    return fg.grouped_plan(*tensors, tuple(root.group_sizes),
+                           fg.contracts_last(root))
+
+
+def fused_card_candidates(spec: ContractionSpec, *tensors,
+                          sms: Optional[int] = None) -> list:
+    """The legal card plans (``codegen.fused_gen.FusedPlan``) of the fused
+    kernel that runs ``spec`` (an attention or grouped spec) on
+    ``tensors``, its operands in ``spec.operands`` order as the caller
+    passes them -- any device, the meta device too, since only dtypes,
+    shapes, strides and alignment are read.  The body is the one the
+    launcher picks (``attention_body``, ``grouped_body``,
+    ``grouped_dw_body``), and the heuristic's plan
+    (``fused_heuristic_plan``) is always among them:
+
+    * B2's ring: a KV block of ``ATTN_RING_BLOCKS`` columns (128, 64) by
+      each of ``fused_cta_choices`` persistent CTAs;
+    * B2's 3xTF32 body: a KV block of 32, and 64 where its tiles fit
+      (``tc32_block_fits``: not at d = e = 128);
+    * B3 (forward and dX): each M tile of ``GROUPED_TILES`` whose table
+      the grid holds;
+    * B4's ring: 256- and 128-column tiles by each of
+      ``fused_cta_choices``.
+
+    The mma.sync and FMA bodies take no plan: their list is empty.  The
+    reference's plan axes that the card's knobs stand in for: the KV
+    chunk ``bt`` of its attention grid is B2's KV block, the row block
+    ``bm`` of its grouped row kernel B3's M tile, and the column block
+    ``bn`` of its dW grid B4's tile width.  (The reference's ``bh`` and
+    ``bs`` have no knob: B2 takes one head and 128 rows of s a tile.)"""
+    from ..codegen import cuda_gen as cg
+    from ..codegen import fused_gen as fg
+
+    root = spec.root()
+    if not getattr(root, "fused_kind", ""):
+        raise ValueError(f"{root.name} is not a fused spec")
+    sms = sms or cg.H100_SMS
+    heur = fused_heuristic_plan(root, *tensors, sms=sms)
+    if heur is None:
+        return []
+    if heur.kernel == "attention" and heur.body == "ring":
+        q = tensors[0]
+        tiles = fg.attention_ring_tiles(q.shape[0], q.shape[1])
+        out = [fg.FusedPlan("attention", "ring", b, c)
+               for b in fg.ATTN_RING_BLOCKS
+               for c in fused_cta_choices(tiles, sms)]
+    elif heur.kernel == "attention":
+        d, e = tensors[0].shape[2], tensors[2].shape[2]
+        out = [fg.FusedPlan("attention", "tc32", b, 0)
+               for b in fg.ATTN_TC32_BLOCKS if fg.tc32_block_fits(d, e, b)]
+    elif heur.kernel == "grouped_dw":
+        lhs, rhs = fg.dw_operands(root, tensors)
+        n_groups = len(root.group_sizes)
+        out = []
+        for w in fg.DW_RING_WIDTHS:
+            tiles = fg.dw_ring_tiles(n_groups, lhs.shape[1], rhs.shape[1], w)
+            if tiles < 2**31:
+                out += [fg.FusedPlan("grouped_dw", "ring", w, c)
+                        for c in fused_cta_choices(tiles, sms)]
+    else:
+        w = tensors[1]
+        n = w.shape[1] if fg.contracts_last(root) else w.shape[2]
+        out = []
+        for t in fg.GROUPED_TILES:
+            blocks = sum(-(-g // t) for g in root.group_sizes)
+            if (blocks <= fg._MAX_GRID_Y if t <= 16
+                    else blocks * -(-n // 128) < 2**31):
+                out.append(fg.FusedPlan("grouped", "ring", t, 0))
+    if heur not in out:
+        out.append(heur)
+    return out

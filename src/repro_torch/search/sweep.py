@@ -7,9 +7,12 @@ runs the full ``repro_torch.search`` pipeline for each spec/shape point
 (and with ``--with-grads`` each point's derived backward specs), persists
 the ranked ladders in the plan DB, prints each ladder, and checks that the
 winner round-trips through the plan DB -- the same lookup ``ops.dense``
-performs, the B1 tile plan included.  ``--device`` defaults to ``cuda``:
-there the ladder ranks and measures B1's tile plans on the card (the
-package docstring of ``repro_torch.search``); ``--device cpu`` gives the
+performs, the card plan included.  ``--device`` defaults to ``cuda``:
+there the ladder ranks and measures B1's tile plans, or for ``attention``
+and ``grouped_matmul`` the fused kernels' plans (B2's KV block and CTA
+count, B3's M tile, B4's tile width and CTA count), on the card (the
+package docstring of ``repro_torch.search``; ``--causal`` gives attention
+its causal mask); ``--device cpu`` gives the
 reference's ladder with the kernel's plain version timed on the host,
 keyed ``cpu`` where a card is visible (``codegen.cache.measured_on``).
 ``--no-measure`` ranks analytically only.  ``--from-model ARCH``
@@ -100,6 +103,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--with-grads", action="store_true",
                     help="also sweep each spec's derived backward specs "
                          "(grad.derive: dA, dB, ...)")
+    ap.add_argument("--causal", action="store_true",
+                    help="with --spec attention: the causal mask (the "
+                         "serving and training paths' attention, a plan "
+                         "key of its own)")
     ap.add_argument("--device", default="cuda",
                     help="where candidates are measured; 'cpu' times the "
                          "plain versions on the host")
@@ -128,6 +135,7 @@ def run(argv=None) -> Tuple[int, List[tuple]]:
 
 
 def _sweep(args, device, meshes) -> Tuple[int, List[tuple]]:
+    import dataclasses
     import json
 
     from ..codegen.cache import measured_on, schedule_to_dict
@@ -171,13 +179,20 @@ def _sweep(args, device, meshes) -> Tuple[int, List[tuple]]:
                              "--from-model")
         family = args.spec or "matmul"
         dtype = args.dtype or "float32"
+        if args.causal and family != "attention":
+            raise SystemExit("sweep: --causal takes --spec attention")
         shapes = [tuple(int(x) for x in part.split(","))
                   for part in args.shapes.split(";") if part.strip()]
+
+        def root_of(shape):
+            spec = spec_from_name(family, shape)
+            return (dataclasses.replace(spec, causal=True) if args.causal
+                    else spec)
+
         points = [(label, spec, shape, dtype)
                   for shape in shapes
                   for label, spec in sweep_specs(
-                      spec_from_name(family, shape),
-                      with_grads=args.with_grads)]
+                      root_of(shape), with_grads=args.with_grads)]
     failures, results = 0, []
     for (label, spec, shape, dtype), mesh_shape in (
             (pt, ms) for pt in points for ms in meshes):

@@ -989,7 +989,7 @@ def test_failed_attention_launch_drops_its_streams_counter(cuda_device,
     _, sched = launcher._scratch.get(q.device, stream, 0, 2)
     real = launcher._fn()
     monkeypatch.setattr(launcher, "_fn", lambda: types.SimpleNamespace(
-        attention_launch=lambda *args: 9))
+        attention_launch_plan=lambda *args: 9))
     with pytest.raises(RuntimeError, match="launch failed"):
         launcher(q, k, v, True, None, torch.bfloat16)
     assert (q.device, stream) not in launcher._scratch._bufs
@@ -2749,3 +2749,297 @@ def test_captured_demo_model_on_the_card(cuda_device, name):
     _assert_close_scaled(l_card.cpu(), l_cpu, torch.float32)
     for (path, a), (_, b) in zip(leaves(g_card), leaves(g_cpu)):
         _assert_close_scaled(a.cpu(), b, torch.float32)
+
+
+# --------------------------------------------------------------------------
+# the fused kernels' card plans (B2, B3, B4): every candidate plan of
+# ``search.space.fused_card_candidates`` against the plain version, the
+# kernels' refusals of a plan they cannot take, and a card ladder whose
+# winner the ops launch
+# --------------------------------------------------------------------------
+
+
+def _fused_candidates(spec, *tensors):
+    from repro_torch.search.space import fused_card_candidates
+
+    return fused_card_candidates(
+        spec, *tensors, sms=cuda_gen._sm_count(tensors[0].device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,s,t,d,e,causal,dtype", [
+    (4, 512, 512, 128, 128, True, torch.bfloat16),   # the attn-path's (a)
+    (40, 512, 512, 128, 128, True, torch.bfloat16),  # 160 tiles: every CTA
+                                                     # count walks several
+    (3, 300, 190, 64, 64, False, torch.bfloat16),    # ragged S and T
+    (2, 130, 250, 64, 128, True, torch.bfloat16),    # e > d, S < T
+    (2, 200, 130, 128, 64, True, torch.float32),     # tc32 at 32 and 64
+    (2, 150, 170, 64, 128, False, torch.float32),
+    (2, 140, 100, 128, 128, True, torch.float32),    # tc32 at 32 only
+])
+def test_attention_plans_match_plain_version(cuda_device, h, s, t, d, e,
+                                             causal, dtype):
+    """Each candidate plan of B2 (the ring's KV blocks of 128 and 64 at
+    each CTA count, fewer CTAs than tiles at 160 tiles; the 3xTF32 body's
+    KV blocks of 32, and 64 where its tiles fit) runs as asked
+    (``last_plan``) and matches ``attention_ref`` at the reference's TOL,
+    row by row."""
+    q, k, v = _attn_operands(cuda_device, h, s, t, d, e, dtype, 31)
+    spec = PE.attention_spec(h, s, t, d, e=e, causal=causal)
+    plans = _fused_candidates(spec, q, k, v)
+    assert len(plans) >= 2 or (dtype == torch.float32 and d == e == 128)
+    if h * -(-s // 128) > cuda_gen._sm_count(cuda_device):
+        assert len({p.ctas for p in plans}) == 3
+    want = fused_gen.attention_ref(q, k, v, causal=causal, kv_lengths=None,
+                                   out_dtype=dtype)
+    for plan in plans:
+        got = fused_gen.ATTENTION(q, k, v, causal, None, dtype, plan=plan)
+        assert fused_gen.ATTENTION.last_plan == plan
+        _assert_rows_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,k,n,contract_last", [
+    ((320,) * 4, 512, 256, False),      # the training path's C
+    ((320,) * 4, 512, 256, True),       # its dX orientation
+    ((16,) * 24, 256, 384, False),      # the serving C
+    (RAGGED, 128, 136, False),          # ragged, empty groups
+    (RAGGED, 128, 136, True),
+])
+def test_grouped_plans_match_plain_version(cuda_device, sizes, k, n,
+                                           contract_last):
+    """Each M tile of B3 (16, 32, 64, 128) as a plan, through the compiled
+    kernel (``compile(card=)``: the table cut at the plan's tile), against
+    ``grouped_ref`` at the bf16 TOL."""
+    x, w = _grouped_operands(cuda_device, sizes, k, n, torch.bfloat16,
+                             contract_last, 32)
+    spec = _grouped_spec(sizes, k, n, contract_last)
+    want = fused_gen.grouped_ref(x, w, sizes, out_dtype=torch.bfloat16,
+                                 contract_last=contract_last)
+    plans = _fused_candidates(spec, x, w)
+    assert sorted(p.block for p in plans) == list(fused_gen.GROUPED_TILES)
+    for plan in plans:
+        kern = codegen.compile(spec, codegen.default_schedule(spec),
+                               card=plan)
+        got = kern(x, w)
+        assert fused_gen.GROUPED.last_plan == plan
+        _assert_close_scaled(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,k1,k2,out", [
+    ((320,) * 4, 896, 512, torch.bfloat16),
+    ((0, 1, 63, 64, 65, 320), 256, 384, torch.bfloat16),
+    ((28,) * 96, 512, 256, torch.float32),
+])
+def test_grouped_dw_plans_match_plain_version(cuda_device, sizes, k1, k2,
+                                              out):
+    """Each candidate plan of B4's ring (256- and 128-column tiles at each
+    CTA count) against ``grouped_dw_ref``, empty groups' slabs exact
+    zeros."""
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    x = torch.randn(sum(sizes), k1, generator=g, device=cuda_device).bfloat16()
+    d = torch.randn(sum(sizes), k2, generator=g, device=cuda_device).bfloat16()
+    spec = _dw_spec(sizes, k1, k2)
+    want = fused_gen.grouped_dw_ref(x, d, sizes, out_dtype=out)
+    plans = _fused_candidates(spec, d, x)
+    assert {p.block for p in plans} == set(fused_gen.DW_RING_WIDTHS)
+    table = _dw_table(sizes, cuda_device)
+    for plan in plans:
+        got = fused_gen.GROUPED_DW(x, d, table, out, plan=plan)
+        assert fused_gen.GROUPED_DW.last_plan == plan
+        _assert_close_scaled(got, want, out)
+        for i, size in enumerate(sizes):
+            if not size:
+                assert not got[i].any()
+
+
+@pytest.mark.gpu
+def test_fused_kernels_refuse_a_plan_they_cannot_take(cuda_device):
+    """A plan the body cannot take is refused by the kernel
+    (cudaErrorInvalidValue, raised by the launcher), never swapped: the
+    ring's KV block of 96 or no CTA, the 3xTF32 body's 64-column block at
+    d = e = 128 or a CTA count, B3's 48-row tile, B4's 192-column tile or
+    no CTA; the plan entries refuse a plan for the bodies that take none,
+    and no plan for the ring, the 3xTF32 body and B3's tiles.  A plan of
+    another body is skipped (the heuristic's runs), and a B3 plan whose
+    tile is smaller than the table's blocks raises."""
+    FP = fused_gen.FusedPlan
+    q, k, v = _attn_operands(cuda_device, 2, 128, 128, 64, 64,
+                             torch.bfloat16, 34)
+    for plan in (FP("attention", "ring", 96, 132),
+                 FP("attention", "ring", 128, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_gen.ATTENTION(q, k, v, True, None, torch.bfloat16,
+                                plan=plan)
+    qf, kf, vf = _attn_operands(cuda_device, 2, 128, 128, 128, 128,
+                                torch.float32, 35)
+    for plan in (FP("attention", "tc32", 64, 0),
+                 FP("attention", "tc32", 32, 8)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_gen.ATTENTION(qf, kf, vf, True, None, torch.float32,
+                                plan=plan)
+    # the plan entry refuses the mma.sync and FMA bodies
+    lib = fused_gen.ATTENTION._fn()
+    h, s, d = q.shape
+    o = torch.empty_like(q)
+    sched = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    for body in ("mma", "fma"):
+        rc = lib.attention_launch_plan(
+            128, 132, 1, 1, 0, fused_gen.ATTENTION_BODIES.index(body),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+            sched.data_ptr(), h, s, k.shape[1], d, d, q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            o.stride(0), o.stride(1),
+            torch.cuda.current_stream(cuda_device).cuda_stream)
+        assert rc == 1, body
+    # and the ring and the 3xTF32 body refuse a launch with no plan
+    for (a, b, c), dt, body in (((q, k, v), 1, "ring"),
+                                ((qf, kf, vf), 0, "tc32")):
+        oo = torch.empty_like(a)
+        rc = lib.attention_launch_plan(
+            0, 0, dt, dt, 0, fused_gen.ATTENTION_BODIES.index(body),
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), oo.data_ptr(), None,
+            sched.data_ptr(), a.shape[0], a.shape[1], b.shape[1], a.shape[2],
+            c.shape[2], a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+            c.stride(0), c.stride(1), oo.stride(0), oo.stride(1),
+            torch.cuda.current_stream(cuda_device).cuda_stream)
+        assert rc == 1, body
+    # another body's plan is skipped: the ring's heuristic runs
+    want = fused_gen.ATTENTION(q, k, v, True, None, torch.bfloat16)
+    heur = fused_gen.ATTENTION.last_plan
+    got = fused_gen.ATTENTION(q, k, v, True, None, torch.bfloat16,
+                              plan=FP("attention", "tc32", 32, 0))
+    assert fused_gen.ATTENTION.last_plan == heur and torch.equal(got, want)
+
+    sizes = (40, 0, 70)
+    x, w = _grouped_operands(cuda_device, sizes, 64, 128, torch.bfloat16,
+                             False, 36)
+    table = torch.tensor(fused_gen.group_table(sizes, 32), dtype=torch.int32,
+                         device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_gen.GROUPED(x, w, table, 32, torch.bfloat16,
+                          plan=FP("grouped", "ring", 48, 0))
+    with pytest.raises(ValueError, match="holds 32"):
+        fused_gen.GROUPED(x, w, table, 32, torch.bfloat16,
+                          plan=FP("grouped", "ring", 16, 0))
+    xf, wf = x.float(), w.float()
+    rc = fused_gen.GROUPED._fn().grouped_launch_plan(
+        32, 0, 0, xf.data_ptr(), wf.data_ptr(),
+        torch.empty(110, 128, device=cuda_device).data_ptr(),
+        table.data_ptr(), table.shape[0], 3, 128, 64, *xf.stride(),
+        *wf.stride(), 128, 1, torch.cuda.current_stream(
+            cuda_device).cuda_stream)
+    assert rc == 1  # f32 operands: the FMA body takes no plan
+    rc = fused_gen.GROUPED._fn().grouped_launch_plan(
+        0, 1, 1, x.data_ptr(), w.data_ptr(),
+        torch.empty(110, 128, device=cuda_device,
+                    dtype=torch.bfloat16).data_ptr(),
+        table.data_ptr(), table.shape[0], 3, 128, 64, *x.stride(),
+        *w.stride(), 128, 1, torch.cuda.current_stream(
+            cuda_device).cuda_stream)
+    assert rc == 1  # aligned bf16 operands: the tiles' bodies take a plan
+
+    xd = torch.randn(110, 256, device=cuda_device).bfloat16()
+    dd = torch.randn(110, 128, device=cuda_device).bfloat16()
+    dtab = _dw_table(sizes, cuda_device)
+    for plan in (FP("grouped_dw", "ring", 192, 132),
+                 FP("grouped_dw", "ring", 256, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_gen.GROUPED_DW(xd, dd, dtab, torch.bfloat16, plan=plan)
+
+
+@pytest.mark.gpu
+def test_fused_card_ladders_and_the_ops_launch_their_winners(cuda_device):
+    """``search_schedule`` on the card for attention and for the grouped
+    matmul with its dX and dW: every ladder measures at least two distinct
+    plans, the heuristic's among them, each checked against the oracle;
+    the plan DB keeps them; ``ops.attention`` and ``ops.grouped_dense``
+    (and its backward) then launch each ladder's winner, within the TOL of
+    their plain versions."""
+    from repro_torch import search
+
+    db = search.default_plan_db()
+    attn = PE.attention_spec(8, 256, 256, 64, causal=True)
+    res = search.search_schedule(attn, dtype=torch.bfloat16, device="cuda",
+                                 plan_db=db)
+    assert len(res.ranked) >= 2 and res.baseline() is not None
+    assert all(p.max_err <= 5e-2 and p.card is not None for p in res.ranked)
+    q, k, v = (torch.randn(8, 256, 64, device=cuda_device).bfloat16()
+               for _ in range(3))
+    got = ops.attention(q, k, v, causal=True, differentiable=False)
+    assert fused_gen.ATTENTION.last_plan == res.best.card
+    _assert_rows_close(got, fused_gen.attention_ref(
+        q, k, v, causal=True, kv_lengths=None, out_dtype=torch.bfloat16),
+        torch.bfloat16)
+
+    sizes = (64,) * 6
+    fwd = PE.grouped_matmul_spec(sizes, 256, 128)
+    results = search.search_schedule_with_grads(
+        fwd, dtype=torch.bfloat16, device="cuda", plan_db=db)
+    assert sorted(results) == ["dW", "dX", "fwd"]
+    for res in results.values():
+        assert len(res.ranked) >= 2 and res.baseline() is not None
+    x = torch.randn(sum(sizes), 256, device=cuda_device).bfloat16()
+    w = torch.randn(6, 256, 128, device=cuda_device).bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = ops.grouped_dense(x, w, sizes)
+    assert fused_gen.GROUPED.last_plan == results["fwd"].best.card
+    dy = torch.randn_like(y)
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    assert fused_gen.GROUPED.last_plan == results["dX"].best.card
+    assert fused_gen.GROUPED_DW.last_plan == results["dW"].best.card
+    xd, wd = x.detach(), w.detach()
+    _assert_close_scaled(y, fused_gen.grouped_ref(
+        xd, wd, sizes, out_dtype=torch.bfloat16), torch.bfloat16)
+    _assert_close_scaled(dx, fused_gen.grouped_ref(
+        dy, wd, sizes, out_dtype=torch.bfloat16, contract_last=True),
+        torch.bfloat16)
+    _assert_close_scaled(dw, fused_gen.grouped_dw_ref(
+        xd, dy, sizes, out_dtype=torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_ops_dense_launches_a_stored_tc32_plan_the_smoke_expects(cuda_device):
+    """A ladder stored for the f32 decode unembedding (M = 4, qwen3-8b's D
+    and vocab) whose winner is not the heuristic's x tile: ``ops.dense``
+    launches the stored plan, ``chip_smoke._searched_card`` (what phase
+    ``capture``'s unembedding rows expect) names it, and the product
+    stays within the f32 TOL of its plain version."""
+    import os
+    import sys
+
+    from repro_torch import search
+    from repro_torch.codegen.schedules import default_schedule
+    from repro_torch.search.plandb import entry_from
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    m, d, vocab = 4, 4096, 151936
+    spec = PE.matmul_spec(m, d, vocab)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(m, d, device=cuda_device, generator=g)
+    w = torch.randn(d, vocab, device=cuda_device, generator=g)
+    want = cuda_gen.contract_ref(spec, x, w, out_dtype=torch.float32)
+    ops.dense(x, w, differentiable=False)
+    heur = codegen.CONTRACT.last_card
+    assert chip_smoke._searched_card(spec, torch.float32) is None
+    assert heur == cuda_gen.CardPlan("tc32", 8, 1)
+    for won in (cuda_gen.CardPlan("tc32", 16, 1),
+                cuda_gen.CardPlan("tc32", 8, 2)):
+        search.default_plan_db().put(spec, torch.float32, [
+            entry_from(default_schedule(spec), score=float("inf"),
+                       lower_bound=0.0, fits_vmem=True, measured_s=1e-4,
+                       card=won.as_dict()),
+            entry_from(default_schedule(spec), score=float("inf"),
+                       lower_bound=0.0, fits_vmem=True, measured_s=2e-4,
+                       source="default", card=heur.as_dict())])
+        got = ops.dense(x, w, differentiable=False)
+        assert codegen.CONTRACT.last_card == won
+        assert chip_smoke._searched_card(spec, torch.float32) == won
+        _assert_close_scaled(got, want, torch.float32)
