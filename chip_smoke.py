@@ -2208,7 +2208,8 @@ def _kernel_of(name):
 
     if re.search(r"\battn_(bf16|f32)(_ring|_tc)?_kernel", name):
         return "attention"
-    hit = re.search(r"\b(q8_(mma|ring)_kernel<(true|false)(, \d)?>|"
+    hit = re.search(r"\b(q8_(mma|ring|ring_persistent)_kernel<(true|false)"
+                    r"(, \d)?>|"
                     r"upcast_kernel|chain_(bf16|scalar)_kernel)", name)
     if hit:
         word = hit.group(1)
@@ -3714,6 +3715,360 @@ def _search_fused(flush):
     return dict(ladders=ladders, ops=checked)
 
 
+#: phase search (e): the seed of the B1 mode sweeps' operands, and
+#: ``dense_act``'s epilogue there (the fused path's)
+B1_MODES_SEED = 23
+B1_MODES_ACT, B1_MODES_EPS = "gelu", 1e-5
+
+
+def _b1_mode_points():
+    """Phase search (e)'s ladders, (tag, spec, dtype, epilogue):
+    ``weighted_matmul`` and its ``.dA``, ``.dB``, ``.dg`` and
+    ``dense_act``'s forward (the epilogue ladder) at the fused path's M =
+    2048, D = 4096, F = 12288 in bf16; the int8 and fp8 tiers of
+    ``matmul`` at ``QUANT_SHAPES[0]`` under the dequant epilogue
+    ``ops.dense(quant=)`` launches them with (``quant_tier_epilogue``) and
+    the int8 weighted forward there; the chain at ``CHAIN_SHAPE`` in bf16
+    and f32."""
+    import torch
+
+    from repro_torch import codegen
+    from repro_torch.core import enumerate as E
+    from repro_torch.search import quant_tier_epilogue, sweep_specs
+
+    bf16 = torch.bfloat16
+    weighted = E.weighted_matmul_spec(FUSED_M, FUSED_D, FUSED_F)
+    points = [(f"weighted {label}", spec, bf16, None)
+              for label, spec in sweep_specs(weighted, with_grads=True)]
+    points.append(("dense_act", E.matmul_spec(FUSED_M, FUSED_D, FUSED_F),
+                   bf16, codegen.Epilogue(act=B1_MODES_ACT, bias=True,
+                                          norm=True, eps=B1_MODES_EPS)))
+    for fmt in ("int8", "fp8"):
+        spec = E.quantize_spec(E.matmul_spec(*QUANT_SHAPES[0]), fmt=fmt)
+        points.append((fmt, spec, getattr(torch, spec.quant.dtype),
+                       quant_tier_epilogue(spec, "cuda")))
+    points.append(("int8 weighted", E.quantize_spec(weighted, fmt="int8"),
+                   torch.int8, None))
+    for dt in (bf16, torch.float32):
+        points.append((f"chain {str(dt)[6:]}",
+                       E.chain_matmul_spec(*CHAIN_SHAPE), dt, None))
+    return points
+
+
+def _mode_operand(shape, dt, gen, kmajor=False):
+    """A seeded operand on the card: normals in ``dt`` (rounded to e4m3 for
+    fp8), ints in [-4, 4] for int8 (every product and int32 sum exact, so
+    the f64 oracle is the int8 one); ``kmajor`` a matrix laid out with its
+    first axis unit-stride (an 8-bit W as ``ops.dense(quant=)`` writes
+    it)."""
+    import torch
+
+    if dt == torch.int8:
+        x = torch.randint(-4, 5, shape, generator=gen, device="cuda",
+                          dtype=torch.int32).to(dt)
+    else:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    return x.t().contiguous().t() if kmajor else x
+
+
+def _b1_mode_kernel(spec, dt):
+    """The ``_kernel_of`` name of the kernel a ladder of ``spec`` at ``dt``
+    times."""
+    import torch
+
+    root = spec.root()
+    if len(root.operands) == 3 and root.name.startswith("chain"):
+        return "contract_chain"
+    return {torch.int8: "contract_int8",
+            torch.float8_e4m3fn: "contract_fp8"}.get(dt, "contract")
+
+
+def _b1_plan_text(card):
+    if card is None:
+        return "none"
+    if hasattr(card, "tile_n"):
+        return f"{card.body} {card.tile_n}x{card.splits}"
+    if hasattr(card, "assoc"):
+        return f"{card.assoc} cluster {card.cluster}"
+    return f"ring ctas {card.ctas}"
+
+
+def _b1_mode_ladder(tag, spec, dt, epi, gen, flush):
+    """One card ladder of phase search (e), checked and printed; returns
+    (its record, the winner's plan).  A winner other than the heuristic
+    must have won its re-time (``search.confirm.kept``)."""
+    from repro_torch import obs, ops
+    from repro_torch.codegen import cached_compile
+    from repro_torch.search import search_schedule
+    from repro_torch.search.measure import epilogue_vectors
+
+    root = spec.root()
+    gemm8 = dt.itemsize == 1 and len(root.operands) == 2
+    args = [_mode_operand(tuple(root.extents[i] for i in axes), dt, gen,
+                          kmajor=gemm8 and axes[0] not in root.output)
+            for axes in root.operands.values()]
+    kept0 = obs.metrics_json()["counters"].get("search.confirm.kept", 0)
+    res = search_schedule(spec, dtype=dt, device="cuda",
+                          arrays=dict(zip(root.operands, args)),
+                          plan_db=ops.default_plan_db(), epilogue=epi)
+    retimed = (obs.metrics_json()["counters"].get("search.confirm.kept", 0)
+               - kept0)
+    cards = [p.card for p in res.ranked]
+    base, best = res.baseline(), res.best
+    what = f"search (e) {spec.name} [{tag}]"
+    if best is not base and retimed != 1:
+        raise AssertionError(f"{what}: the winner {best.card} was kept "
+                             f"without surviving its re-time")
+    tol = 5e-2 if dt.itemsize == 2 else 1e-3
+    if (len(cards) < 2 or None in cards or base is None
+            or len(set(cards)) != len(cards)):
+        raise AssertionError(f"{what}: plans {cards}: at least two distinct "
+                             f"plans, the heuristic's among them")
+    if any(p.measured_s is None or not p.max_err <= tol for p in res.ranked):
+        raise AssertionError(f"{what}: a rung unmeasured or off the TOL")
+    if best.measured_s > base.measured_s + max(best.spread_s, base.spread_s):
+        raise AssertionError(f"{what}: the kept winner {best.card} is slower "
+                             f"than the heuristic {base.card} by more than "
+                             f"the larger spread")
+    kernel = _b1_mode_kernel(spec, dt)
+    vecs = ({} if epi is None else
+            epilogue_vectors(spec, epi, args[0].device))
+    dev = {}
+    for role, rung in (("winner", best), ("heuristic", base)):
+        if role == "heuristic" and rung is best:
+            dev[role] = dev["winner"]
+            continue
+        kern = cached_compile(spec, rung.schedule, card=rung.card,
+                              epilogue=epi,
+                              out_dtype="float32" if dt.itemsize == 1
+                              else None)
+        dev[role] = _kernel_ms(lambda k=kern: k(*args, **vecs), flush,
+                               kernel)[0]
+    ext = "x".join(str(root.extents[i]) for i in root.indices)
+    rungs = " ".join(f"{_b1_plan_text(p.card)}={p.measured_s * 1e3:.4f}"
+                     f"+-{p.spread_s * 1e3:.4f}ms/err{p.max_err:.2e}"
+                     + ("*" if p is base else "") for p in res.ranked)
+    print(f"[search] (e) {spec.name} {ext} [{tag}] {kernel}: {len(cards)} "
+          f"plans measured; winner {_b1_plan_text(best.card)} "
+          f"{best.measured_s * 1e3:.4f} ms, device {dev['winner']:.4f} ms; "
+          f"heuristic {_b1_plan_text(base.card)} {base.measured_s * 1e3:.4f}"
+          f" ms, device {dev['heuristic']:.4f} ms "
+          f"({base.measured_s / best.measured_s:.3f}x"
+          f"{', re-timed and kept' if best is not base else ''}); rungs "
+          f"{rungs} (* the heuristic)", flush=True)
+    record = dict(
+        tag=tag, spec=spec.name, extents=ext, kernel=kernel,
+        winner=best.card.as_dict(), retimed=best is not base, winner_ms=best.measured_s * 1e3,
+        winner_device_ms=dev["winner"], heuristic=base.card.as_dict(),
+        heuristic_ms=base.measured_s * 1e3,
+        heuristic_device_ms=dev["heuristic"],
+        rungs=[dict(plan=p.card.as_dict(), ms=p.measured_s * 1e3,
+                    spread_ms=p.spread_s * 1e3, err=p.max_err)
+               for p in res.ranked])
+    return record, best.card
+
+
+class _B1Tally:
+    """Every launch of ``CONTRACT``, ``CONTRACT_INT8``, ``CONTRACT_FP8``
+    and ``CONTRACT_CHAIN`` made inside a ``with`` block, counted by
+    (launcher, the plan it ran) in ``counts``: the launchers' classes'
+    ``__call__`` wrapped for the block and restored after it."""
+
+    def __enter__(self):
+        from repro_torch.codegen import cuda_gen, modes
+
+        self.counts = collections.Counter()
+        self._names = {id(cuda_gen.CONTRACT): "contract",
+                       id(modes.CONTRACT_INT8): "contract_int8",
+                       id(modes.CONTRACT_FP8): "contract_fp8",
+                       id(modes.CONTRACT_UPCAST): "contract_upcast",
+                       id(modes.CONTRACT_CHAIN): "contract_chain"}
+        self._classes = (cuda_gen.ContractLauncher, modes.Contract8Launcher,
+                         modes.ChainLauncher)
+        self._calls = [c.__call__ for c in self._classes]
+        for cls, real in zip(self._classes, self._calls):
+            cls.__call__ = self._tallied(real)
+        return self
+
+    def _tallied(self, real):
+        counts, names = self.counts, self._names
+
+        def call(launcher, *a, **kw):
+            n0 = launcher.launches
+            out = real(launcher, *a, **kw)
+            if launcher.launches > n0:
+                ran = (launcher.last_card if hasattr(launcher, "last_card")
+                       else launcher.last_plan)
+                counts[(names[id(launcher)], ran)] += 1
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for cls, real in zip(self._classes, self._calls):
+            cls.__call__ = real
+        return False
+
+    @staticmethod
+    def text(counts):
+        return ", ".join(f"{n} on {_b1_plan_text(p)} x{c}"
+                         for (n, p), c in counts.items()) or "none"
+
+
+def _b1_mode_ops(winners, gen):
+    """The ops under the stored plan DB at phase search (e)'s points:
+    ``weighted_dense`` forward and backward, ``dense_act``'s forward,
+    ``dense(quant="int8" / "fp8")``, the int8 weighted forward through
+    ``ops._tuned_kernel`` (no op takes it) and ``chain_dense`` in bf16 and
+    f32.  Returns [(tag, the tally's expected counts, the largest error
+    against the plain versions, the call)]: each call is made inside the
+    caller's tally."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.codegen import Epilogue, contract_ref
+    from repro_torch.core import enumerate as E
+    from repro_torch.optim.quant import (quantize_channels_kmajor,
+                                         quantize_tensor)
+
+    bf16 = torch.bfloat16
+    m, d, f = FUSED_M, FUSED_D, FUSED_F
+    calls = []
+
+    def weighted():
+        x = _mode_operand((m, d), bf16, gen).requires_grad_(True)
+        w = _mode_operand((d, f), bf16, gen).requires_grad_(True)
+        g = _mode_operand((d,), bf16, gen).requires_grad_(True)
+        out = ops.weighted_dense(x, w, g)
+        cot = _mode_operand((m, f), bf16, gen)
+        dx, dw, dg = torch.autograd.grad(out, (x, w, g), cot)
+        spec = E.weighted_matmul_spec(m, d, f)
+        from repro_torch.grad import derived_specs
+
+        dsp = derived_specs(spec)
+        xd, wd, gd = x.detach(), w.detach(), g.detach()
+        pairs = [(out.detach(), contract_ref(spec, xd, wd, gd,
+                                             out_dtype=bf16)),
+                 (dx, contract_ref(dsp["A"], cot, wd, gd, out_dtype=bf16)),
+                 (dw, contract_ref(dsp["B"], cot, xd, gd, out_dtype=bf16)),
+                 (dg, contract_ref(dsp["g"], cot, xd, wd, out_dtype=bf16))]
+        return max(_check_close(a, b, "bfloat16",
+                                f"search (e) weighted_dense [{i}]")[1]
+                   for i, (a, b) in enumerate(pairs))
+
+    calls.append(("weighted_dense", [
+        ("contract", winners["weighted fwd"]),
+        ("contract", winners["weighted dA"]),
+        ("contract", winners["weighted dB"]),
+        ("contract", winners["weighted dg"])], weighted))
+
+    def dense_act():
+        x = _mode_operand((m, d), bf16, gen)
+        w = _mode_operand((d, f), bf16, gen)
+        beta, mean = (_mode_operand((f,), torch.float32, gen)
+                      for _ in range(2))
+        var = torch.rand(f, generator=gen, device="cuda") + 0.5
+        got = ops.dense_act(x, w, beta, mean, var, act=B1_MODES_ACT,
+                            eps=B1_MODES_EPS, differentiable=False)
+        epi = Epilogue(act=B1_MODES_ACT, bias=True, norm=True,
+                       eps=B1_MODES_EPS)
+        want = epi.apply((x.float() @ w.float()), {
+            "bias": beta[None], "mean": mean[None], "var": var[None]}).to(
+                bf16)
+        return _check_close(got, want, "bfloat16",
+                            "search (e) ops.dense_act")[1]
+
+    calls.append(("dense_act", [("contract", winners["dense_act"])],
+                  dense_act))
+
+    for fmt in ("int8", "fp8"):
+        def dense_quant(fmt=fmt):
+            qm, qd, qf = QUANT_SHAPES[0]
+            x = _mode_operand((qm, qd), bf16, gen)
+            w = _mode_operand((qd, qf), bf16, gen)
+            with torch.no_grad():
+                got = ops.dense(x, w, out_dtype=torch.float32, quant=fmt)
+            qx, sx = quantize_tensor(x, fmt)
+            qwt, sw = quantize_channels_kmajor(w, fmt)
+            want = (qx.float() @ qwt.t().float()) * (sx * sw).float()[None]
+            return _check_close(got, want, "float32",
+                                f"search (e) ops.dense(quant={fmt!r})")[1]
+
+        calls.append((f"dense {fmt}", [(f"contract_{fmt}", winners[fmt])],
+                      dense_quant))
+
+    def weighted_int8():
+        spec = E.quantize_spec(E.weighted_matmul_spec(m, d, f), fmt="int8")
+        a, b, g = (_mode_operand(shape, torch.int8, gen)
+                   for shape in ((m, d), (d, f), (d,)))
+        got = ops._tuned_kernel(spec, torch.int8)(a, b, g)
+        want = contract_ref(spec, a, b, g, out_dtype=torch.int32)
+        return _check_exact(got, want, "search (e) int8 weighted")[1]
+
+    calls.append(("int8 weighted", [("contract_int8",
+                                     winners["int8 weighted"])],
+                  weighted_int8))
+
+    for dt in (bf16, torch.float32):
+        def chain(dt=dt):
+            r, p, q, c = CHAIN_SHAPE
+            a, b, cc = (_mode_operand(shape, dt, gen)
+                        for shape in ((r, p), (p, q), (q, c)))
+            got = ops.chain_dense(a, b, cc, differentiable=False)
+            want = contract_ref(E.chain_matmul_spec(*CHAIN_SHAPE), a, b, cc,
+                                out_dtype=dt)
+            return _check_close(got, want, str(dt)[6:],
+                                f"search (e) ops.chain_dense {dt}")[1]
+
+        tag = f"chain {str(dt)[6:]}"
+        calls.append((tag, [("contract_chain", winners[tag])], chain))
+    return calls
+
+
+def _search_b1_modes(flush):
+    """Phase search (e): ``search_schedule`` on the card of B1's modes
+    into the plan DB ``REPRO_PLAN_DB`` names (``_b1_mode_points``): the
+    weighted family's four specs and ``dense_act``'s epilogue ladder on
+    ``card_candidates`` ranked by the cost model, the int8 / fp8 tiers and
+    the int8 weighted forward on every plan of the 8-bit ring
+    (``Q8Plan``), the chain on every association x cluster
+    (``ChainPlan``); each ladder two or more distinct plans, the
+    heuristic's among them, every rung checked against the f64 oracle
+    (the bf16 TOL; 1e-3 for f32 and the 8-bit tiers), the kept winner no
+    slower than the heuristic by more than the larger spread, every rung
+    printed, and the winner's and the heuristic's device ms on the
+    profiler (``_b1_mode_ladder``).  Then the ops under the stored DB
+    (``_b1_mode_ops``): every launch of B1's launchers, tallied by
+    (launcher, the plan it ran), on its ladder's winner, and each result
+    within its TOL of the plain version (int8 exact)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(B1_MODES_SEED)
+    ladders, winners = [], {}
+    for tag, spec, dt, epi in _b1_mode_points():
+        record, winners[tag] = _b1_mode_ladder(tag, spec, dt, epi, gen,
+                                               flush)
+        ladders.append(record)
+        _free()
+    checked = []
+    for tag, expect, call in _b1_mode_ops(winners, gen):
+        with _B1Tally() as tally:
+            err = call()
+            torch.cuda.synchronize()
+        want = collections.Counter(expect)
+        if dict(tally.counts) != dict(want):
+            raise AssertionError(
+                f"search (e) [{tag}]: launches by (launcher, plan) "
+                f"{dict(tally.counts)}, each ladder's winner {dict(want)}")
+        print(f"[search] (e) ops under the plan DB [{tag}]: "
+              f"{_B1Tally.text(tally.counts)}, each its ladder's winner; "
+              f"error {err:.3e} within its TOL", flush=True)
+        checked.append(dict(tag=tag, err=err, launches={
+            f"{n} {_b1_plan_text(p)}": c for (n, p), c in tally.counts.items()
+        }))
+        _free()
+    return dict(ladders=ladders, ops=checked)
+
+
 def phase_search(serve13):
     """The variant search on the card, under its own plan DB
     (``$CHIP_SMOKE_OUT/plans_search.json``; ``REPRO_PLAN_DB`` restored
@@ -3751,7 +4106,8 @@ def phase_search(serve13):
     the attn-path's two shapes, B3's forward and dX and B4's dW at the
     MoE training shape, B3 at its serving shape) under the same plan DB,
     and ``ops.attention`` / ``ops.grouped_dense`` launching each ladder's
-    winner."""
+    winner.  (e) ``_search_b1_modes``: B1's weighted family, epilogue,
+    8-bit and chain ladders, and the ops launching each winner."""
     import torch
 
     from repro_torch import obs
@@ -4000,6 +4356,13 @@ def phase_search(serve13):
         fused_s = time.perf_counter() - t0
         print(f"[search] (d) {len(fused['ladders'])} fused ladders and the "
               f"ops under them: {fused_s:.1f} s", flush=True)
+
+        # (e) B1's weighted, epilogue, 8-bit and chain modes' card plans
+        t0 = time.perf_counter()
+        modes = _search_b1_modes(flush)
+        modes_s = time.perf_counter() - t0
+        print(f"[search] (e) {len(modes['ladders'])} B1 mode ladders and "
+              f"the ops under them: {modes_s:.1f} s", flush=True)
     finally:
         if old is None:
             os.environ.pop("REPRO_PLAN_DB", None)
@@ -4011,7 +4374,8 @@ def phase_search(serve13):
                 serve_plans=dict(by_source), serve_ladders=served,
                 serve_s=serve_s,
                 restart_hits=hits, restart_s=restart_s, tune=entry,
-                fused=fused, fused_s=fused_s)
+                fused=fused, fused_s=fused_s, b1_modes=modes,
+                b1_modes_s=modes_s)
 
 
 # --------------------------------------------------------------------------

@@ -1051,8 +1051,10 @@ __device__ __forceinline__ void fused_store_act(const float* tile,
   }
 }
 
-// The row-reduce mode on the ring (batch 1, no K split): C[n] = sum_m
-// acc[m, n] T[m, n].  A thread sums its two rows, shuffles sum the 8 row
+// The row-reduce mode on the ring (batch 1): C[n] = sum_m acc[m, n]
+// T[m, n], a K split's column sums a row block of their own (``m_t`` the
+// split's x ``gy`` row tiles + the row tile, ``gy`` the row tiles x the
+// splits).  A thread sums its two rows, shuffles sum the 8 row
 // groups of a warp, and the 8 consumer warps' rows are summed in shared
 // memory in warp order: one partial row a 128-row tile.  The last CTA of
 // the column block to arrive sums the partial rows in row-tile order,
@@ -1254,7 +1256,11 @@ __device__ __forceinline__ void ring_body(
     }
   }
 
-  if (splits > 1) {
+  // the row reduce takes a split's column sums as a row block of their
+  // own (they are linear in acc), so its splits are never summed here
+  bool row_reduce = false;
+  if constexpr (FEAT == FEAT_FUSED) row_reduce = p->T != nullptr;
+  if (splits > 1 && !row_reduce) {
     // this split's partial tile to scratch ([tile][split][i][thread]), then
     // the last CTA of the tile to arrive sums every split in split order
     // and sets the tile's counter back to 0 for the next launch
@@ -1285,11 +1291,12 @@ __device__ __forceinline__ void ring_body(
   if constexpr (FEAT == FEAT_FUSED) {
     if constexpr (BN == R_FUSED_BN) if (p->T) {
       if (out_bf16)
-        ring_row_reduce<__nv_bfloat16>(acc, *p, fs, last, r0, c0, n0, m_t,
-                                       n_t, gy, ct);
+        ring_row_reduce<__nv_bfloat16>(acc, *p, fs, last, r0, c0, n0,
+                                       split * gy + m_t, n_t, gy * splits,
+                                       ct);
       else
-        ring_row_reduce<float>(acc, *p, fs, last, r0, c0, n0, m_t, n_t, gy,
-                               ct);
+        ring_row_reduce<float>(acc, *p, fs, last, r0, c0, n0,
+                               split * gy + m_t, n_t, gy * splits, ct);
       return;
     }
     // both warpgroups are past their last wgmma (and the producer
@@ -1417,7 +1424,7 @@ bool split_ok(const ContractParams& p, long long tiles) {
 // one fails; nothing switches body), encodes the two tensor maps and
 // launches the plain ring, or the fused one where ``p`` sets a mode (the
 // k-scale and row-reduce modes at tile width R_FUSED_BN; the row reduce
-// unsplit, with its scratch).
+// with its scratch: a partial row a row tile and split).
 template <int BN>
 int launch_ring(const ContractParams& p, cudaStream_t stream) {
   using R = Ring<BN>;
@@ -1426,7 +1433,7 @@ int launch_ring(const ContractParams& p, cudaStream_t stream) {
   const long long tiles = ((p.M + R_BM - 1) / R_BM) * ((p.N + BN - 1) / BN);
   if (p.in_dtype != 1 || p.M < 64 || !split_ok(p, tiles) ||
       ((p.T || p.kscale.p) && BN != R_FUSED_BN) ||
-      (p.T && (p.splits != 1 || !p.partial || !p.counter)))
+      (p.T && (!p.partial || !p.counter)))
     return invalid;
   CUtensorMap ta, tb;
   int layout = 0;
@@ -2086,7 +2093,8 @@ extern "C" {
 // Strides are in elements.  The row-reduce mode (T set) needs batch 1, a
 // (row blocks, N) f32 partial buffer and one zeroed int per column block
 // (the row and column block counts of the chosen body: contract_tile_* for
-// bodies 0, 128 x contract_ring_fused_tile_n() on the ring).  body 1 runs
+// bodies 0, 128 x contract_ring_fused_tile_n() on the ring, whose row
+// blocks are the row tiles x splits).  body 1 runs
 // the ring (tile_n, splits; with splits > 1 a partial buffer of batch x
 // row tiles x column tiles x splits x 128 x tile_n floats and one zeroed
 // int per output tile, (batch, row tile, column tile) order; the fused

@@ -15,11 +15,12 @@
 // chain Z^T Y^T X^T into C^T, whichever forms less of T (chain_cost below).
 //
 // Grid: one CTA per (r block, c block), and the CTAs of a thread-block
-// cluster (up to 8 along the column blocks, chain_cluster) share one r
-// block.  For each chunk of q, every CTA of the cluster forms a partial T
-// over its own share of the p reduction; the partials are summed through
-// distributed shared memory in rank order (each rank sums its slice of T's
-// rows over all ranks, then every rank gathers the others' slices), so each
+// cluster (up to 8 along the column blocks: chain_cluster, or the
+// searched plan's, codegen.modes.ChainPlan) share one r block.  For each
+// chunk of q, every CTA of the cluster forms a partial T over its own
+// share of the p reduction; the partials are summed through distributed
+// shared memory in rank order (each rank sums its slice of T's rows over
+// all ranks, then every rank gathers the others' slices), so each
 // CTA holds the whole T chunk, rounded once, and multiplies it into its own
 // column block.  The sum has a fixed order and no atomics: two launches on
 // the same inputs give the same bits.  Relative to one CTA forming T alone,
@@ -86,6 +87,7 @@ struct ChainParams {
   int act;  // 0 id, 1 relu, 2 gelu (tanh), 3 tanh, 4 silu
   int in_dtype;
   int out_dtype;
+  int cluster;  // CTAs a cluster: 1, 2, 4 or 8; 0 takes cluster_for's
 };
 
 }  // extern "C"
@@ -825,8 +827,14 @@ cudaError_t launch_clustered(int threads, int smem, long long cols,
   return cudaLaunchKernelEx(&cfg, Kernel, p);
 }
 
+// The launch's cluster size: the plan's (``p.cluster``), else cluster_for's
+// for the body's p steps of ``step``.
+int cluster_of(const ChainParams& p, int step) {
+  return p.cluster ? p.cluster : cluster_for((p.P + step - 1) / step);
+}
+
 cudaError_t launch_bf16(const ChainParams& p, cudaStream_t s) {
-  const int cs = cluster_for((p.P + CBP - 1) / CBP);
+  const int cs = cluster_of(p, CBP);
   const long long cols = (p.N + CBN - 1) / CBN, rows = (p.R + CBR - 1) / CBR;
   // Y kept [p][q] when q is its unit-stride axis
   return p.sYq == 1 && p.sYp != 1
@@ -840,7 +848,7 @@ template <typename TIn>
 cudaError_t launch_scalar(const ChainParams& p, cudaStream_t s) {
   return launch_clustered<&chain_scalar_kernel<TIn>>(
       STHREADS, SCALAR_SMEM, (p.N + SBN - 1) / SBN, (p.R + SBR - 1) / SBR,
-      cluster_for((p.P + SBP - 1) / SBP), p, s);
+      cluster_of(p, SBP), p, s);
 }
 
 }  // namespace
@@ -848,7 +856,10 @@ cudaError_t launch_scalar(const ChainParams& p, cudaStream_t s) {
 extern "C" {
 
 // Strides are in elements.  in_dtype 1 (bf16) runs the tensor-core body;
-// 0, 2, 3, 4 the CUDA-core body (int32 accumulation for 2 and 4).  Returns
+// 0, 2, 3, 4 the CUDA-core body (int32 accumulation for 2 and 4).  The
+// cluster size is the plan's where ``cluster`` is set (a power of two up
+// to MAX_CLUSTER: a rank whose share of p is empty adds a zero partial),
+// else cluster_for's.  Returns
 // the launch's error (0 = launched); nothing is synchronised or allocated
 // here.
 int chain_launch(const ChainParams* p, void* stream) {
@@ -857,7 +868,8 @@ int chain_launch(const ChainParams* p, void* stream) {
   if (p->in_dtype < 0 || p->in_dtype > 4 ||
       (out != 0 && out != 1 && out != 4) ||
       (p->mean.p == nullptr) != (p->var.p == nullptr) || p->act < 0 ||
-      p->act > 4)
+      p->act > 4 || p->cluster < 0 || p->cluster > MAX_CLUSTER ||
+      (p->cluster & (p->cluster - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (p->in_dtype) {

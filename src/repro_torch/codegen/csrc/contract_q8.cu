@@ -59,7 +59,10 @@
 //   a 128 x 128 tile; one producer thread keeps TMA loads of 128 k-bytes a
 //   stage (four k32 steps, 128-byte swizzled boxes) in flight on a
 //   six-stage ring of 192 KB with full and empty mbarriers; two consumer
-//   warpgroups run wgmma m64n128k32 on 64 rows each.
+//   warpgroups run wgmma m64n128k32 on 64 rows each.  Its plan (the
+//   search's, codegen.modes.Q8Plan) is the grid: one CTA a tile
+//   (q8_ring_kernel), or a persistent grid of fewer CTAs each walking its
+//   tiles (q8_ring_persistent_kernel, q8_plan_launch).
 //   * int8: .s32.s8.s8 into int32 accumulators, one group in flight across
 //     K steps; no .satfinite, so it wraps modulo 2^32 like the reference
 //     and stays exact.
@@ -952,6 +955,180 @@ q8_ring_kernel(const __grid_constant__ CUtensorMap tmA,
   }
 }
 
+// The ring on a persistent grid (a searched plan, codegen.modes.Q8Plan):
+// gridDim.x CTAs, CTA c taking tiles c, c + gridDim.x, ... of batch x (M /
+// 128) x (N / 128), each tile in q8_ring_kernel's raster order, with its
+// sums, multiplier, row reduce and stores, so the grid changes no value.
+// The ring's stages and phases run on across a CTA's tiles (``i0``, the
+// ring's step at a tile's start), so one tile's epilogue overlaps the next
+// one's loads; the fp8 walk releases its last stage for the next tile.  A
+// kernel of its own: q8_ring_kernel's one-tile launch, folded into this
+// loop, ran 4-10 % slower on an H100.
+template <bool INT, int PLANES>
+__global__ void __launch_bounds__(QR_THREADS, 1)
+q8_ring_persistent_kernel(const __grid_constant__ CUtensorMap tmA,
+                          const __grid_constant__ CUtensorMap tmB,
+                          const __grid_constant__ Q8Params p) {
+  using TAcc = typename AccOf<INT>::type;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* tiles =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  TAcc (*red)[QR_BN] =
+      reinterpret_cast<TAcc (*)[QR_BN]>(tiles + QR_STAGES * QR_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + QR_STAGES * QR_STAGE +
+                                               QR_RED_BYTES);
+  uint64_t* empty = full + QR_STAGES;
+  int* last = reinterpret_cast<int*>(empty + QR_STAGES);
+
+  const int gx = (int)((p.N + QR_BN - 1) / QR_BN);
+  const int gy = (int)((p.M + QR_BM - 1) / QR_BM);
+  const int nk = (int)((p.K + QR_BK - 1) / QR_BK);
+  const int per = gx * gy;
+  const int items = p.batch * per;  // < 2^31: the launch checks
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < QR_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer group
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tmA);
+      hopper::tma_prefetch(&tmB);
+      int i = 0;  // the ring's step, across this CTA's tiles
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        int m_t, n_t;
+        hopper::raster(t % per, gx, gy, 8, m_t, n_t);
+        const int b = t / per;
+        for (int j = 0; j < PLANES * nk; ++j, ++i) {
+          const int s = i % QR_STAGES;
+          const int plane = j / nk;
+          const int k0 = (j - plane * nk) * QR_BK;
+          hopper::mbar_wait(&empty[s], ((i / QR_STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_tx(&full[s], QR_STAGE);
+          unsigned char* a = tiles + s * QR_STAGE;
+          hopper::tma_load(a, &tmA, &full[s], k0, m_t * QR_BM, b + plane);
+          hopper::tma_load(a + QR_A_BYTES, &tmB, &full[s], k0, n_t * QR_BN,
+                           b);
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::regs_inc<232>();
+  const int ct = threadIdx.x - 128;  // consumer thread 0..255
+  const int half = ct >> 7;          // its warpgroup's 64 rows
+  const int lane = ct & 31;
+  const uint32_t base = hopper::smem_u32(tiles);
+  int i0 = 0;  // the ring's step at the tile's start, as the producer's
+  for (int t = blockIdx.x; t < items; t += gridDim.x, i0 += PLANES * nk) {
+    int m_t, n_t;
+    hopper::raster(t % per, gx, gy, 8, m_t, n_t);
+    const int b = t / per;
+    const int n0 = n_t * QR_BN;
+    const int m0 = m_t * QR_BM;
+    TAcc acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0;
+
+    if constexpr (INT) {
+      q8_int_walk(acc, base, full, empty, i0, nk, half);
+      if constexpr (PLANES == 2) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e)
+          acc[e] = static_cast<int>(static_cast<unsigned>(acc[e]) << 8);
+        q8_int_walk(acc, base, full, empty, i0 + nk, nk, half);
+      }
+    } else {
+      float part[2][64];
+      for (int j = 0; j < nk; ++j) {
+        const int i = i0 + j;
+        const int s = i % QR_STAGES;
+        hopper::mbar_wait(&full[s], (i / QR_STAGES) & 1);
+        const uint32_t a = base + s * QR_STAGE + half * 8192;
+        const uint32_t bt = base + s * QR_STAGE + QR_A_BYTES;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          float (&cur)[64] = part[ks & 1];
+          float (&prev)[64] = part[(ks + 1) & 1];
+          hopper::fence_regs(cur);
+          hopper::wgmma_fence();
+          hopper::wgmma_e4m3(cur, hopper::desc(a + ks * 32, 16, 1024),
+                             hopper::desc(bt + ks * 32, 16, 1024));
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();
+          hopper::fence_regs(prev);
+          if (j > 0 || ks > 0) {
+#pragma unroll
+            for (int e = 0; e < 64; ++e) acc[e] += prev[e];
+          }
+          if (ks == 0 && j > 0 && threadIdx.x % 128 == 0)
+            hopper::mbar_arrive(&empty[(i - 1) % QR_STAGES]);
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(part[1]);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] += part[1][e];
+      // the last step's stage, for the CTA's next tile
+      if (threadIdx.x % 128 == 0)
+        hopper::mbar_arrive(&empty[(i0 + nk - 1) % QR_STAGES]);
+    }
+
+    const long long r0 = m0 + half * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
+    const long long c0 = n0 + 2 * (lane & 3);
+    if (p.mul.p) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long m = r0 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long long n = c0 + 8 * j + e;
+            if (m < p.M && n < p.N)
+              acc[4 * j + 2 * h + e] = acc_mul(
+                  acc[4 * j + 2 * h + e], vec_at<TAcc>(p.mul, b, m, n, 0));
+          }
+      }
+    }
+    if (p.T) {
+      q8_ring_row_reduce<TAcc>(acc, p, red, last, r0, c0, m_t, n_t, gy, ct);
+      continue;
+    }
+    const bool epi = has_epilogue(p);
+    const bool pair = p.sCn == 1 && p.sCm % 2 == 0 &&
+                      (p.batch == 1 || p.sCb % 2 == 0) &&
+                      reinterpret_cast<uintptr_t>(p.C) % 8 == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = r0 + 8 * h;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const long long n = c0 + 8 * j;
+        const long long off = b * p.sCb + m * p.sCm + n * p.sCn;
+        if (pair && n + 1 < p.N) {
+          store_pair<TAcc>(p, epi, off, b, m, n, acc[4 * j + 2 * h],
+                           acc[4 * j + 2 * h + 1]);
+          continue;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (n + e < p.N)
+            store_out<TAcc>(p, epi, off + e * p.sCn, b, m, n + e,
+                            acc[4 * j + 2 * h + e]);
+      }
+    }
+  }
+}
+
 template <bool INT, int PLANES>
 int q8_ring_start(const CUtensorMap& ta, const CUtensorMap& tb,
                   const Q8Params& p, dim3 grid, cudaStream_t stream) {
@@ -964,16 +1141,32 @@ int q8_ring_start(const CUtensorMap& ta, const CUtensorMap& tb,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool INT, int PLANES>
+int q8_ring_persistent_start(const CUtensorMap& ta, const CUtensorMap& tb,
+                             const Q8Params& p, unsigned ctas,
+                             cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      q8_ring_persistent_kernel<INT, PLANES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, QR_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  q8_ring_persistent_kernel<INT, PLANES>
+      <<<ctas, QR_THREADS, QR_SMEM, stream>>>(ta, tb, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The ring's launch: checks its preconditions (cudaErrorInvalidValue when
 // one fails; nothing switches body), encodes the two tensor maps and
 // launches.  With ``planes`` 2, A holds the two int8 planes as its batch.
-int q8_ring_launch(const Q8Params& p, cudaStream_t stream) {
+// ``ctas`` 0: one CTA a tile (q8_ring_kernel); else that many persistent
+// CTAs, at most one a tile (q8_ring_persistent_kernel).
+int q8_ring_launch(const Q8Params& p, int ctas, cudaStream_t stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   const long long tiles =
       ((p.M + QR_BM - 1) / QR_BM) * ((p.N + QR_BN - 1) / QR_BN);
   if (p.M < 64 || p.K < 1 || p.N < 1 || p.batch < 1 || p.batch > 65535 ||
       tiles >= (1LL << 31) ||
-      (p.planes == 2 && (p.a_dtype != 2 || p.batch != 1 || p.T)))
+      (p.planes == 2 && (p.a_dtype != 2 || p.batch != 1 || p.T)) ||
+      ctas < 0 || (ctas > 0 && tiles * p.batch >= (1LL << 31)))
     return invalid;
   const hopper::Operand a{p.A, p.K, p.M, p.sAm, p.planes == 2 ? 2 : p.batch,
                           p.sAb};
@@ -984,6 +1177,15 @@ int q8_ring_launch(const Q8Params& p, cudaStream_t stream) {
   if (!hopper::make_map(&ta, a, 1, u8, QR_BK, QR_BM) ||
       !hopper::make_map(&tb, bo, 1, u8, QR_BK, QR_BN))
     return invalid;
+  if (ctas > 0) {
+    const unsigned grid =
+        (unsigned)(ctas < tiles * p.batch ? ctas : tiles * p.batch);
+    if (p.a_dtype != 2)
+      return q8_ring_persistent_start<false, 1>(ta, tb, p, grid, stream);
+    if (p.planes == 2)
+      return q8_ring_persistent_start<true, 2>(ta, tb, p, grid, stream);
+    return q8_ring_persistent_start<true, 1>(ta, tb, p, grid, stream);
+  }
   const dim3 grid((unsigned)tiles, 1, (unsigned)p.batch);
   if (p.a_dtype != 2) return q8_ring_start<false, 1>(ta, tb, p, grid, stream);
   if (p.planes == 2) return q8_ring_start<true, 2>(ta, tb, p, grid, stream);
@@ -1001,6 +1203,26 @@ bool valid(const Q8Params& p) {
 
 extern "C" {
 
+// q8_launch (below) on a plan: ``ctas`` 0 (one CTA a tile) or the ring's
+// persistent CTAs; the mma.sync body refuses ctas other than 0.
+int q8_plan_launch(const Q8Params* p, int ctas, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!valid(*p) || p->a_dtype != p->b_dtype ||
+      (p->a_dtype != 2 && p->a_dtype != 3) || p->kscale.p ||
+      p->acc_int != (p->a_dtype == 2) || p->body < 0 || p->body > 1 ||
+      p->planes < 1 || p->planes > 2 ||
+      (p->body == 0 && (p->T || p->mul.p || p->planes != 1 || ctas != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p->body == 1) return q8_ring_launch(*p, ctas, s);
+  const dim3 grid((unsigned)((p->N + QBN - 1) / QBN),
+                  (unsigned)((p->M + QBM - 1) / QBM), (unsigned)p->batch);
+  if (p->a_dtype == 2)
+    q8_mma_kernel<true><<<grid, QTHREADS, 0, s>>>(*p);
+  else
+    q8_mma_kernel<false><<<grid, QTHREADS, 0, s>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Two 8-bit operands of one type (a_dtype == b_dtype, 2 int8 or 3 fp8) on
 // the tensor cores: q8_mma_kernel (body 0) or the ring (body 1, or
 // refused).  Only the ring takes the multiplier, the row reduce (its
@@ -1010,21 +1232,7 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 = launched); nothing is
 // synchronised or allocated here.
 int q8_launch(const Q8Params* p, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!valid(*p) || p->a_dtype != p->b_dtype ||
-      (p->a_dtype != 2 && p->a_dtype != 3) || p->kscale.p ||
-      p->acc_int != (p->a_dtype == 2) || p->body < 0 || p->body > 1 ||
-      p->planes < 1 || p->planes > 2 ||
-      (p->body == 0 && (p->T || p->mul.p || p->planes != 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (p->body == 1) return q8_ring_launch(*p, s);
-  const dim3 grid((unsigned)((p->N + QBN - 1) / QBN),
-                  (unsigned)((p->M + QBM - 1) / QBM), (unsigned)p->batch);
-  if (p->a_dtype == 2)
-    q8_mma_kernel<true><<<grid, QTHREADS, 0, s>>>(*p);
-  else
-    q8_mma_kernel<false><<<grid, QTHREADS, 0, s>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  return q8_plan_launch(p, 0, stream);
 }
 
 // Any operand types on the CUDA cores (int accumulation: int8 or int32

@@ -117,6 +117,8 @@ from .modes import (
     CONTRACT_FP8,
     CONTRACT_INT8,
     CONTRACT_UPCAST,
+    ChainPlan,
+    Q8Plan,
     VecArg,
     _Vec,
     chain_cluster,
@@ -458,15 +460,17 @@ def scratch_sizes(body: str, batch: int, m: int, n: int, plan=None, *,
                   tile: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
     """(f32 partials, int counters) a launch of ``body`` needs: the row
     reduce one partial row per row block of the body's CTA tile (the
-    ring's 128 x ``RING_FUSED_BN``, else ``tile``, the mma.sync or FMA
-    body's (rows, columns)) and a counter per column block; a K split
+    ring's 128 x ``RING_FUSED_BN``, a row block a K split of each; else
+    ``tile``, the mma.sync or FMA body's (rows, columns)) and a counter per
+    column block; a K split
     (``plan.splits`` > 1) one partial tile per split of every output tile
     and a counter per tile (the ring's 128 x ``plan.tile_n`` tiles, the
     tc32 body's ``plan.tile_n`` of M by 128 of N; the narrow body's 128 of
     N by ``plan.tile_n`` tokens); else none."""
     if row_reduce:
         tm, tn = (RING_BM, RING_FUSED_BN) if body == "ring" else tile
-        return -(-m // tm) * n, -(-n // tn)
+        splits = plan.splits if body == "ring" and plan is not None else 1
+        return -(-m // tm) * splits * n, -(-n // tn)
     if plan is None or plan.splits == 1:
         return 0, 0
     if body == "narrow":
@@ -925,17 +929,37 @@ def _chain_cost(r, p, q, c, dtype) -> int:
     return r * p * q * -(-blocks // chain_cluster(dtype, p)) + r * q * c
 
 
-def _launch_chain(spec: ContractionSpec, fold: Fold, operands, out_dtype,
-                  epilogue, vectors) -> torch.Tensor:
-    """One launch of the chain kernel, in the association that recomputes
-    less: (X.Y).Z as written, or X.(Y.Z) as the transposed chain
-    Z^T Y^T X^T written into C^T.  Operands go as (transposed) views with
-    their strides: no copies."""
-    arrays = dict(zip(spec.operands, operands))
+def chain_extents(spec: ContractionSpec, fold: Fold) -> Tuple[str, ...]:
+    """The chain's indices (r, p, q, c): X(r, p), Y(p, q), Z(q, c)."""
     ops = spec.operands
     r, c = spec.output
     (p,) = [i for i in ops[fold.a] if i != r]
     (q,) = [i for i in ops[fold.extra] if i != c]
+    return r, p, q, c
+
+
+def chain_plan(r: int, p: int, q: int, c: int,
+               dtype: torch.dtype) -> ChainPlan:
+    """The chain's launch without a searched plan, for X(r,p) Y(p,q) Z(q,c)
+    of ``dtype``: the association that recomputes less (``_chain_cost``;
+    X.(Y.Z) runs the transposed chain, whose first reduction is q) and
+    ``chain_cluster``'s cluster for that first reduction."""
+    right = _chain_cost(c, q, p, r, dtype) < _chain_cost(r, p, q, c, dtype)
+    return ChainPlan("yz" if right else "xy",
+                     chain_cluster(dtype, q if right else p))
+
+
+def _launch_chain(spec: ContractionSpec, fold: Fold, operands, out_dtype,
+                  epilogue, vectors, plan: Optional[ChainPlan] = None
+                  ) -> torch.Tensor:
+    """One launch of the chain kernel on ``plan`` (a searched
+    ``ChainPlan``, counted ``ops.card_plan.applied``), else ``chain_plan``'s:
+    (X.Y).Z as written, or X.(Y.Z) as the transposed chain Z^T Y^T X^T
+    written into C^T.  Operands go as (transposed) views with their
+    strides: no copies."""
+    arrays = dict(zip(spec.operands, operands))
+    ops = spec.operands
+    r, p, q, c = chain_extents(spec, fold)
     mat = lambda name, rows: (arrays[name] if ops[name][0] == rows  # noqa
                               else arrays[name].t())
     x, y, z = mat(fold.a, r), mat(fold.b, p), mat(fold.extra, q)
@@ -944,8 +968,16 @@ def _launch_chain(spec: ContractionSpec, fold: Fold, operands, out_dtype,
                                  z.dtype)
         x, y, z = x.to(dt), y.to(dt), z.to(dt)
     ext = spec.extents
-    right = _chain_cost(ext[c], ext[q], ext[p], ext[r], x.dtype) < (
-        _chain_cost(ext[r], ext[p], ext[q], ext[c], x.dtype))
+    if plan is not None:
+        if plan.assoc not in ("xy", "yz"):
+            raise ValueError(f"chain plan {tuple(plan)}: the association is "
+                             f"'xy' or 'yz'")
+        from ..obs import counter
+
+        counter("ops.card_plan.applied").inc()
+    else:
+        plan = chain_plan(ext[r], ext[p], ext[q], ext[c], x.dtype)
+    right = plan.assoc == "yz"
     kw = {}
     if epilogue is not None and not epilogue.is_identity:
         vecs = {}
@@ -959,9 +991,10 @@ def _launch_chain(spec: ContractionSpec, fold: Fold, operands, out_dtype,
         kw.update(epilogue=epilogue, vectors=vecs)
     out = torch.empty((ext[r], ext[c]), dtype=out_dtype, device=x.device)
     if right:
-        CONTRACT_CHAIN(z.t(), y.t(), x.t(), out_dtype, out=out.t(), **kw)
+        CONTRACT_CHAIN(z.t(), y.t(), x.t(), out_dtype, out=out.t(),
+                       plan=plan, **kw)
     else:
-        CONTRACT_CHAIN(x, y, z, out_dtype, out=out, **kw)
+        CONTRACT_CHAIN(x, y, z, out_dtype, out=out, plan=plan, **kw)
     return out
 
 
@@ -1079,72 +1112,33 @@ def _product_views(spec: ContractionSpec, fold: Fold, arrays, int_acc: bool):
     return a3, b3, (batch, m, n, k)
 
 
-def card_views(spec: ContractionSpec, *operands: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (batch, M, K) and (batch, K, N) views B1 launches on for the
-    plain product of a two-operand ``spec`` (the ``gemm`` fold) of f32 or
-    bf16 operands, given in ``spec.operands`` order as the caller passes
-    them (``ops.dense``'s folded x; the backward's cotangent and saved
-    operands for ``.dA`` / ``.dB``): the layouts ``contract_body`` and the
-    search's ``card_candidates`` read.  Raises for any other fold."""
-    spec = spec.root()
-    fold = _classify(spec)
-    if fold.kind != "gemm" or _int_accum(spec) or getattr(spec, "quant",
-                                                          None):
-        raise ValueError(f"{spec.name}: B1's tile plans are searched for "
-                         f"the plain product of two f32 / bf16 operands")
-    a3, b3, _ = _product_views(spec, fold, dict(zip(spec.operands,
-                                                    operands)), False)
-    return a3, b3
+def _as_vec(x: torch.Tensor, plain: bool, int_acc: bool) -> torch.Tensor:
+    """A vector operand as its launcher reads it: contract.cu (``plain``)
+    f32 and bf16 as they are; the 8-bit kernels int32 (``int_acc``) or
+    f32."""
+    if not (plain and x.dtype in _VEC_DTYPES):
+        x = x.to(torch.int32 if int_acc else torch.float32)
+    return x.reshape(-1).contiguous()
 
 
-def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
-                 out_dtype: torch.dtype, epilogue: Optional[Epilogue] = None,
-                 vectors: Optional[Dict[str, torch.Tensor]] = None,
-                 fold: Optional[Fold] = None,
-                 card: Optional[CardPlan] = None) -> torch.Tensor:
-    """Fold the spec onto a kernel (``fold``: ``_classify``'s, computed
-    here when not given), launch it once and unfold the result.  ``card``
-    (a searched ``CardPlan``) goes to ``CONTRACT``, which takes it where
-    the launch runs its body; the other launchers take no plan and count
-    it ``ops.card_plan.skipped``.
-
-    Launcher by operands: a chain runs ``CONTRACT_CHAIN``; f32 and bf16
-    ``CONTRACT``; 8-bit or integer operands as ``eight_bit_route`` says:
-    ``CONTRACT_INT8`` / ``CONTRACT_FP8`` (a product of two 8-bit operands
-    of one format; the weighted family's modes on the ring, after K-major
-    copies of a transposed operand), ``CONTRACT`` (fp8's k-scale over
-    bf16 upcasts) or ``CONTRACT_UPCAST``."""
-    fold = fold or _classify(spec)
-    if fold.kind == "chain":
-        if card is not None:
-            from ..obs import counter
-
-            counter("ops.card_plan.skipped").inc()
-        return _launch_chain(spec, fold, operands, out_dtype, epilogue,
-                             vectors)
-    int_acc = _int_accum(spec)
-    arrays = dict(zip(spec.operands, operands))
-    ext = spec.extents
+def _mode_views(spec: ContractionSpec, fold: Fold, arrays, int_acc: bool,
+                out_dtype: torch.dtype, epilogue: Optional[Epilogue] = None):
+    """What ``_launch_cuda`` launches on for ``fold`` of ``arrays`` (under
+    ``epilogue``): (a3, b3, (batch, m, n, k) groups, the vector as a
+    ``VecArg`` or None, the 8-bit route or None, whether the launch is
+    ``CONTRACT``'s).  The product views (``_product_views``); the 8-bit
+    route's operands (``eight_bit_route``: fp8's k-scale upcast to bf16,
+    K-major copies for the ring's weighted modes); the vector in the type
+    its launcher reads; and, where the bf16 launch runs the mma.sync body,
+    operands copied to the layout its 16-byte loads take."""
     a3, b3, groups = _product_views(spec, fold, arrays, int_acc)
-    batch, m, n, k = groups
     wide = {torch.float32, torch.bfloat16}
     plain = a3.dtype in wide and b3.dtype in wide
-    size = lambda idx: math.prod(ext[i] for i in idx)  # noqa: E731
-    vec_dtype = torch.int32 if int_acc else torch.float32
-
-    def as_vec(x):
-        # contract.cu reads f32 and bf16 vectors as they are; the 8-bit
-        # kernels take vec_dtype
-        if not (plain and x.dtype in _VEC_DTYPES):
-            x = x.to(vec_dtype)
-        return x.reshape(-1).contiguous()
-
     vec = None
     if fold.kind == "vector":
         (j,) = spec.operands[fold.extra]
         vec = VecArg(arrays[fold.extra].reshape(-1).contiguous(),
-                     *_group_of(j, *groups, ext))
+                     *_group_of(j, *groups, spec.extents))
     route = None
     if not plain:
         route = eight_bit_route(
@@ -1162,7 +1156,7 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
             b3 = _kmajor(b3, 1)
     if vec is not None and not (route == "tensor cores" and vec.axis == 3):
         # int8's byte planes take g as it is (int8)
-        vec = vec._replace(tensor=as_vec(vec.tensor))
+        vec = vec._replace(tensor=_as_vec(vec.tensor, plain, int_acc))
     if plain and a3.dtype == torch.bfloat16 and contract_body(
         a3, b3, plain=fold.kind == "gemm" and (
             epilogue is None or epilogue.is_identity),
@@ -1176,25 +1170,124 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
             a3 = a3.contiguous()
         if b3.stride(2) != 1:
             b3 = b3.contiguous()
-    if plain:
-        launcher, kw = CONTRACT, ({} if card is None else {"plan": card})
-    else:
-        if card is not None:
-            from ..obs import counter
+    return a3, b3, groups, vec, route, plain
 
+
+def _row_reduce_t(spec: ContractionSpec, fold: Fold, arrays, groups,
+                  dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The row reduce's T as the (M, N) view of its indices (``dtype``:
+    the launch's operand type on ``CONTRACT``, else T's own)."""
+    _, m, n, _ = groups
+    it = spec.operands[fold.extra]
+    t = arrays[fold.extra]
+    if dtype is not None:
+        t = t.to(dtype)
+    size = lambda idx: math.prod(spec.extents[i] for i in idx)  # noqa: E731
+    return t.permute([it.index(i) for i in m + n]).reshape(size(m), size(n))
+
+
+def card_views(spec: ContractionSpec, *operands: torch.Tensor,
+               out_dtype: torch.dtype = torch.float32,
+               epilogue: Optional[Epilogue] = None) -> tuple:
+    """The views B1 launches on for ``spec`` of ``operands``, given in
+    ``spec.operands`` order as the caller passes them (``ops.dense``'s
+    folded x; the backward's cotangent and saved operands for ``.dA`` /
+    ``.dB``): the layouts ``contract_body``, ``modes.q8_body`` and the
+    search's ``card_candidates`` read.  (a3 (batch, M, K), b3 (batch, K,
+    N)) for a two-operand spec; for a three-operand one also its vector
+    (a ``VecArg``: the k-scale on axis 3, a multiplier on another) or the
+    row reduce's T as an (M, N) view.  8-bit operands go as their route
+    launches them (``eight_bit_route``; ``out_dtype`` the launch's, f32 as
+    the search measures), and under ``epilogue`` as that launch takes
+    them.  Raises for the chain, which has plans of its own
+    (``modes.ChainPlan``) and no product views."""
+    spec = spec.root()
+    fold = _classify(spec)
+    if fold.kind == "chain":
+        raise ValueError(f"{spec.name}: the chain has no product views; its "
+                         f"plans are modes.ChainPlan")
+    arrays = dict(zip(spec.operands, operands))
+    a3, b3, groups, vec, _, plain = _mode_views(
+        spec, fold, arrays, _int_accum(spec), out_dtype, epilogue)
+    if fold.kind == "gemm":
+        return a3, b3
+    if fold.kind == "vector":
+        return a3, b3, vec
+    return a3, b3, _row_reduce_t(spec, fold, arrays, groups,
+                                 a3.dtype if plain else None)
+
+
+def _launcher(a3: torch.Tensor, route: Optional[str], plain: bool):
+    """(the launcher of a launch on ``_mode_views``' a3, route and
+    ``plain``, the plan kind it takes or None)."""
+    if plain:
+        return CONTRACT, CardPlan
+    if route == "tensor cores":
+        return (CONTRACT_INT8 if a3.dtype == torch.int8
+                else CONTRACT_FP8), Q8Plan
+    return CONTRACT_UPCAST, None
+
+
+def launcher_of(spec: ContractionSpec, *operands: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32,
+                epilogue: Optional[Epilogue] = None):
+    """The launcher whose one launch a call of ``spec`` on ``operands``
+    (under ``epilogue``, writing ``out_dtype``) makes: ``CONTRACT_CHAIN``
+    for a chain, else as ``_launch_cuda`` picks it."""
+    spec = spec.root()
+    fold = _classify(spec)
+    if fold.kind == "chain":
+        return CONTRACT_CHAIN
+    a3, _, _, _, route, plain = _mode_views(
+        spec, fold, dict(zip(spec.operands, operands)), _int_accum(spec),
+        out_dtype, epilogue)
+    return _launcher(a3, route, plain)[0]
+
+
+def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
+                 out_dtype: torch.dtype, epilogue: Optional[Epilogue] = None,
+                 vectors: Optional[Dict[str, torch.Tensor]] = None,
+                 fold: Optional[Fold] = None,
+                 card=None) -> torch.Tensor:
+    """Fold the spec onto a kernel (``fold``: ``_classify``'s, computed
+    here when not given), launch it once and unfold the result.  ``card``
+    (a searched plan) goes to the launcher that takes its kind, which
+    applies it where the launch runs its body: a ``CardPlan`` to
+    ``CONTRACT``, a ``modes.Q8Plan`` to ``CONTRACT_INT8`` /
+    ``CONTRACT_FP8``, a ``modes.ChainPlan`` to ``CONTRACT_CHAIN``; a plan
+    of another kind is counted ``ops.card_plan.skipped``.
+
+    Launcher by operands: a chain runs ``CONTRACT_CHAIN``; f32 and bf16
+    ``CONTRACT``; 8-bit or integer operands as ``eight_bit_route`` says:
+    ``CONTRACT_INT8`` / ``CONTRACT_FP8`` (a product of two 8-bit operands
+    of one format; the weighted family's modes on the ring, after K-major
+    copies of a transposed operand), ``CONTRACT`` (fp8's k-scale over
+    bf16 upcasts) or ``CONTRACT_UPCAST``."""
+    from ..obs import counter
+
+    fold = fold or _classify(spec)
+    if fold.kind == "chain":
+        if card is not None and not isinstance(card, ChainPlan):
             counter("ops.card_plan.skipped").inc()
-        kw = {"int_acc": int_acc}
-        if route == "tensor cores":
-            launcher = (CONTRACT_INT8 if a3.dtype == torch.int8
-                        else CONTRACT_FP8)
+            card = None
+        return _launch_chain(spec, fold, operands, out_dtype, epilogue,
+                             vectors, plan=card)
+    int_acc = _int_accum(spec)
+    arrays = dict(zip(spec.operands, operands))
+    ext = spec.extents
+    a3, b3, groups, vec, route, plain = _mode_views(
+        spec, fold, arrays, int_acc, out_dtype, epilogue)
+    batch, m, n, k = groups
+    launcher, kind = _launcher(a3, route, plain)
+    kw = {} if plain else {"int_acc": int_acc}
+    if card is not None:
+        if kind is not None and isinstance(card, kind):
+            kw["plan"] = card
         else:
-            launcher = CONTRACT_UPCAST
+            counter("ops.card_plan.skipped").inc()
     if fold.kind == "row_reduce":
-        it = spec.operands[fold.extra]
-        t = arrays[fold.extra]
-        if plain:
-            t = t.to(a3.dtype)
-        t2 = t.permute([it.index(i) for i in m + n]).reshape(size(m), size(n))
+        t2 = _row_reduce_t(spec, fold, arrays, groups,
+                           a3.dtype if plain else None)
         return launcher(a3, b3, out_dtype, t=t2, **kw).reshape(
             [ext[i] for i in spec.output])
     if vec is not None:
@@ -1204,7 +1297,7 @@ def _launch_cuda(spec: ContractionSpec, *operands: torch.Tensor,
         axis, div = _group_of(last, *groups, ext)
         vecs = {}
         for name in epilogue.vector_names:
-            v = (as_vec(vectors[name]) if plain
+            v = (_as_vec(vectors[name], plain, int_acc) if plain
                  else vectors[name].float().reshape(-1).contiguous())
             if v.numel() != ext[last]:
                 raise ValueError(f"epilogue vector {name}: {v.numel()} "

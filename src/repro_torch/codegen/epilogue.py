@@ -73,6 +73,14 @@ class Epilogue:
         return tuple(names)
 
     @property
+    def kind(self) -> str:
+        """The stages the kernel runs, as a plan-DB key names them (an
+        epilogue ladder's, ``search.search_schedule(epilogue=)``): its
+        vectors and activation, e.g. ``"bias+mean+var:gelu"``; ``eps``
+        changes no launch."""
+        return f"{'+'.join(self.vector_names) or 'none'}:{self.act}"
+
+    @property
     def is_identity(self) -> bool:
         return not self.vector_names and self.act == "id"
 

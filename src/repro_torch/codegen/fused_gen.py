@@ -77,7 +77,7 @@ import torch
 from ..core.enumerate import ContractionSpec
 from ..core.schedule import Schedule
 from .cuda_gen import H100_SMS, CardPlan, _Scratch, _sm_count, _torch_dtype
-from .modes import tma_operand
+from .modes import ChainPlan, Q8Plan, tma_operand
 from .plan import KernelPlan, build_plan
 
 #: operand / output dtypes the kernel takes, with its dtype codes
@@ -143,11 +143,14 @@ class FusedPlan(NamedTuple):
 
 
 def plan_from_dict(d):
-    """The card plan of a rung's ``card`` field: a ``FusedPlan`` where it
-    names a ``kernel``, else B1's ``cuda_gen.CardPlan`` (every plan DB
-    written before fused plans existed), or None without one."""
+    """The card plan of a rung's ``card`` field: by the ``kernel`` it names,
+    the 8-bit ring's ``modes.Q8Plan`` ("q8"), the chain's
+    ``modes.ChainPlan`` ("chain") or a fused kernel's ``FusedPlan``; with
+    no ``kernel``, B1's ``cuda_gen.CardPlan`` (every plan DB written before
+    fused plans existed); or None without one."""
     if d and "kernel" in d:
-        return FusedPlan.from_dict(d)
+        kinds = {"q8": Q8Plan, "chain": ChainPlan}
+        return kinds.get(d["kernel"], FusedPlan).from_dict(d)
     return CardPlan.from_dict(d)
 
 

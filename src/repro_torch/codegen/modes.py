@@ -80,8 +80,55 @@ class _ChainParams(ctypes.Structure):
             "sCr", "sCn")]
         + [(f, _Vec) for f in ("qscale", "scale", "bias", "mean", "var")]
         + [("eps", ctypes.c_float), ("act", ctypes.c_int),
-           ("in_dtype", ctypes.c_int), ("out_dtype", ctypes.c_int)]
+           ("in_dtype", ctypes.c_int), ("out_dtype", ctypes.c_int),
+           ("cluster", ctypes.c_int)]
     )
+
+
+class Q8Plan(NamedTuple):
+    """One plan of the 8-bit ring (``q8_ring_kernel``) as the search ranks
+    it and the plan DB keeps it (a rung's ``card`` field, beside B1's
+    ``cuda_gen.CardPlan``): ``ctas`` the persistent grid's CTAs, each
+    walking its tiles (0: one CTA a tile, the launch before plans).  The
+    grid changes no value: every tile sums its K in the same order."""
+
+    ctas: int
+
+    def as_dict(self) -> Dict[str, object]:
+        return {"kernel": "q8", "body": "ring", "ctas": int(self.ctas)}
+
+    @classmethod
+    def from_dict(cls, d) -> "Q8Plan":
+        return cls(int(d["ctas"]))
+
+
+#: the 8-bit ring's launch without a searched plan: one CTA a tile
+Q8_HEURISTIC = Q8Plan(0)
+
+
+class ChainPlan(NamedTuple):
+    """One plan of the chain kernel: the association ``assoc`` (``"xy"``:
+    (X.Y).Z as written; ``"yz"``: X.(Y.Z), run as the transposed chain
+    Z^T Y^T X^T into C^T) and the CTAs a cluster ``cluster`` that split
+    the chain's first reduction (1, 2, 4 or 8).  Both change the summation
+    order, not the products summed."""
+
+    assoc: str
+    cluster: int
+
+    def as_dict(self) -> Dict[str, object]:
+        return {"kernel": "chain", "assoc": self.assoc,
+                "cluster": int(self.cluster)}
+
+    @classmethod
+    def from_dict(cls, d) -> "ChainPlan":
+        return cls(str(d["assoc"]), int(d["cluster"]))
+
+
+def _count_plan(taken: bool) -> None:
+    from ..obs import counter
+
+    counter(f"ops.card_plan.{'applied' if taken else 'skipped'}").inc()
 
 
 class VecArg(NamedTuple):
@@ -263,8 +310,8 @@ def _check_strides(*tensors):
                              "2**31")
 
 
-def _launch(lib, entry: str, p, device):
-    rc = getattr(lib, entry)(ctypes.byref(p),
+def _launch(lib, entry: str, p, device, *args):
+    rc = getattr(lib, entry)(ctypes.byref(p), *args,
                              torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} failed: cudaGetLastError() = {rc}")
@@ -274,13 +321,16 @@ class Contract8Launcher:
     """``contract_q8.cu``: ``entry`` ``"q8_launch"`` (two operands of
     ``dtype``, int8 or fp8, on the tensor cores: the ring or the mma.sync
     body, ``q8_body``) or ``"upcast_launch"`` (any operand types, CUDA
-    cores).  ``last_body`` names the body of the latest launch."""
+    cores).  ``last_body`` names the body of the latest launch and
+    ``last_card`` the ``Q8Plan`` a ring launch ran (None on the mma.sync
+    and upcast bodies, which take no plan)."""
 
     def __init__(self, entry: str, dtype: Optional[torch.dtype] = None):
         self.entry = entry
         self.dtype = dtype
         self.launches = 0
         self.last_body = None
+        self.last_card = None
         self._lib = None
 
     def _fn(self):
@@ -290,6 +340,9 @@ class Contract8Launcher:
             for name in ("q8_tile_m", "q8_tile_n", "upcast_tile_m",
                          "upcast_tile_n", "q8_ring_tile"):
                 getattr(lib, name).restype = ctypes.c_int
+            lib.q8_plan_launch.argtypes = [ctypes.POINTER(_Q8Params),
+                                           ctypes.c_int, ctypes.c_void_p]
+            lib.q8_plan_launch.restype = ctypes.c_int
             if lib.q8_ring_tile() != Q8_RING_TILE:
                 raise RuntimeError(f"contract_q8.cu's ring tile is "
                                    f"{lib.q8_ring_tile()}, Q8_RING_TILE "
@@ -304,7 +357,8 @@ class Contract8Launcher:
                  epilogue: Optional[Epilogue] = None,
                  vectors: Optional[Dict[str, VecArg]] = None,
                  t: Optional[torch.Tensor] = None,
-                 body: Optional[str] = None) -> torch.Tensor:
+                 body: Optional[str] = None,
+                 plan: Optional[Q8Plan] = None) -> torch.Tensor:
         """a (batch, M, K) @ b (batch, K, N) -> new (batch, M, N) tensor,
         accumulated in int32 (``int_acc``) or f32.  ``kscale`` scales A
         along k, ``mul`` multiplies the accumulator (both in the
@@ -316,7 +370,11 @@ class Contract8Launcher:
         (``"ring"`` or ``"mma"``; ``q8_body`` by default); the kernel
         refuses a forced ring it cannot take, and this raises.  On the
         tensor cores only the ring takes ``kscale``, ``mul`` or ``t``: a
-        call with one that ``q8_body`` sends to the mma.sync body raises."""
+        call with one that ``q8_body`` sends to the mma.sync body raises.
+        ``plan`` (a searched ``Q8Plan``) takes the place of the ring's
+        ``Q8_HEURISTIC`` where the launch runs the ring (``obs`` counts
+        ``ops.card_plan.applied``); on the mma.sync and upcast bodies it is
+        counted ``.skipped``.  A plan the ring refuses raises."""
         tc = self.entry == "q8_launch"
         if a.device.type != "cuda" or b.device != a.device:
             raise ValueError(f"the 8-bit kernels take CUDA tensors on one "
@@ -371,10 +429,14 @@ class Contract8Launcher:
             body = q8_body(a, b)
         if fused and tc:
             tile_m = tile_n = Q8_RING_TILE
+        ring = tc and body == "ring"
+        if plan is not None:
+            _count_plan(ring)
+        ran = (plan or Q8_HEURISTIC) if ring else None
         p = _Q8Params(A=a.data_ptr(), B=b.data_ptr(), batch=batch, M=m, N=n,
                       K=k, a_dtype=codes[0], b_dtype=codes[1],
                       out_dtype=OUT_CODES[out_dtype], acc_int=int(int_acc),
-                      body=int(body == "ring"), planes=1)
+                      body=int(ring), planes=1)
         p.sAb, p.sAm, p.sAk = a.stride()
         p.sBb, p.sBk, p.sBn = b.stride()
         planes = None  # int8's k-scale on the ring: A's byte planes
@@ -418,17 +480,23 @@ class Contract8Launcher:
                 return c
             p.sCb, p.sCm, p.sCn = c.stride()
         p.C = c.data_ptr()
-        _launch(lib, self.entry, p, a.device)
+        if ring and ran.ctas:  # the persistent grid
+            _launch(lib, "q8_plan_launch", p, a.device, ran.ctas)
+        else:
+            _launch(lib, self.entry, p, a.device)
         self.launches += 1
         self.last_body = body if tc else "upcast"
+        self.last_card = ran
         return c
 
 
 class ChainLauncher:
-    """``contract_chain.cu``: C = (X @ Y) @ Z in one launch."""
+    """``contract_chain.cu``: C = (X @ Y) @ Z in one launch.  ``last_plan``
+    is the ``ChainPlan`` of the latest launch."""
 
     def __init__(self):
         self.launches = 0
+        self.last_plan = None
         self._lib = None
 
     def _fn(self):
@@ -458,10 +526,16 @@ class ChainLauncher:
                  out_dtype: torch.dtype, *,
                  epilogue: Optional[Epilogue] = None,
                  vectors: Optional[Dict[str, VecArg]] = None,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None,
+                 plan: Optional[ChainPlan] = None) -> torch.Tensor:
         """x (R, P) @ y (P, Q) @ z (Q, N) -> (R, N), into ``out`` when
         given (any strides, e.g. the transposed view of a (N, R) tensor).
-        Epilogue vectors run along axis 1 (rows) or 2 (columns)."""
+        Epilogue vectors run along axis 1 (rows) or 2 (columns).  ``plan``
+        is the ``ChainPlan`` the caller runs (its association is how the
+        caller oriented x, y and z): its cluster size takes the place of
+        ``chain_cluster``'s, and the kernel refuses one that is not a power
+        of two up to ``CHAIN_MAX_CLUSTER``.  Without one the launch is
+        (X.Y).Z on ``chain_cluster``'s cluster."""
         ts = (x, y, z)
         if any(t.device.type != "cuda" or t.device != x.device for t in ts):
             raise ValueError("the chain kernel takes CUDA tensors on one "
@@ -494,9 +568,12 @@ class ChainLauncher:
             raise ValueError(f"chain kernel grid too large for R {r}")
         if out.numel() == 0:
             return out
+        if plan is None:
+            plan = ChainPlan("xy", chain_cluster(x.dtype, pdim))
         p = _ChainParams(X=x.data_ptr(), Y=y.data_ptr(), Z=z.data_ptr(),
                          C=out.data_ptr(), R=r, P=pdim, Q=q, N=n,
-                         in_dtype=code, out_dtype=OUT_CODES[out_dtype])
+                         in_dtype=code, out_dtype=OUT_CODES[out_dtype],
+                         cluster=plan.cluster)
         p.sXr, p.sXp = x.stride()
         p.sYp, p.sYq = y.stride()
         p.sZq, p.sZn = z.stride()
@@ -504,6 +581,7 @@ class ChainLauncher:
         set_epilogue(p, epilogue, vectors, x.device, (1, 2), (0, r, n, 0))
         _launch(lib, "chain_launch", p, x.device)
         self.launches += 1
+        self.last_plan = plan
         return out
 
 

@@ -109,8 +109,13 @@ def _fmt_s(v: Any) -> str:
 
 
 def _card_plan(c: Dict[str, Any]) -> str:
-    """A rung's card plan as text: B1's "body tile_nxsplits", a fused
-    kernel's "kernel body blockxctas"."""
+    """A rung's card plan as text: B1's "body tile_nxsplits", the 8-bit
+    ring's "q8 ring ctas", the chain's "chain assoc xcluster", a
+    fused kernel's "kernel body blockxctas"."""
+    if c.get("kernel") == "q8":
+        return f"q8 ring {c.get('ctas', '?')}"
+    if c.get("kernel") == "chain":
+        return f"chain {c.get('assoc', '?')} x{c.get('cluster', '?')}"
     if "kernel" in c:
         return (f"{c['kernel']} {c.get('body', '?')} "
                 f"{c.get('block', '?')}x{c.get('ctas', '?')}")

@@ -186,12 +186,16 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
     Lookup order as in the reference: under an active mesh the
     mesh-qualified plan first (``_mesh_plan_kernel``, a
     ``MeshBoundKernel``), then the active serving phase's ladder, then the
-    unphased ladder, then the analytic tuner with its persistent cache.  A winning rung's ``card`` (the B1
-    tile plan a card ladder measured, or a fused spec's ``FusedPlan``)
-    is compiled into the kernel (``cached_compile(card=)``, whose memo
-    keys it), except a B1 plan under an epilogue, where the launch runs
-    another body than the measured plain product, and a plan of the
-    other family than the spec's.  The answer is kept for the process
+    unphased ladder, then the analytic tuner with its persistent cache;
+    under an epilogue its own ladder (``search_schedule(epilogue=)``,
+    the epilogue-qualified key, phased then unphased) comes before the
+    product's.  A winning rung's ``card`` (the B1 tile plan a card
+    ladder measured, the 8-bit ring's ``Q8Plan``, the chain's
+    ``ChainPlan``, or a fused spec's ``FusedPlan``) is compiled into the
+    kernel (``cached_compile(card=)``, whose memo keys it), except a plan
+    measured without the epilogue a call runs under (B1's launch runs
+    another body there, the 8-bit ring's time was not taken with it) and
+    a plan of the other family than the spec's.  The answer is kept for the process
     (the reference looks up once per trace), keyed on the spec, dtype,
     epilogue, output dtype, ``interpret``, the active phase, the plan
     DB's and tuner cache's paths and the active mesh, and dropped when
@@ -220,18 +224,33 @@ def _tuned_kernel(spec, dtype, *, epilogue=None, out_dtype=None,
         if kern is not None:
             _keep(key, kern)
             return kern
-    schedule, rung = None, {}
-    if phase is not None:
-        schedule, rung = db.best_entry(spec, dtype, phase=phase)
-    if schedule is None:
-        schedule, rung = db.best_entry(spec, dtype)
+    fused = bool(getattr(spec.root(), "fused_kind", ""))
+    # the ladders to ask, first hit wins: under an epilogue its own
+    # (measured on the body the launch runs), then the product's
+    quals = [None]
+    if epilogue is not None and not fused:
+        quals.insert(0, epilogue.kind)
+    schedule, rung, own = None, {}, False
+    for qual in quals:
+        kw = {} if qual is None else {"epilogue": qual}
+        for ph in ((phase, None) if phase is not None else (None,)):
+            schedule, rung = db.best_entry(spec, dtype, phase=ph, **kw)
+            if schedule is not None:
+                break
+        if schedule is not None:
+            own = qual is not None
+            break
     if schedule is None:
         schedule = tune_schedule(spec, dtype=dtype)
-    # a card ladder's winner carries the tile plan it was measured with
+    # a card ladder's winner carries the plan it was measured with
     card = plan_from_dict(rung.get("card"))
-    fused = bool(getattr(spec.root(), "fused_kind", ""))
-    if isinstance(card, CardPlan) and (epilogue is not None or fused):
-        card = None  # measured on the plain product: not this call's body
+    if not fused and epilogue is not None and not own:
+        # measured without the epilogue: B1's launch under one runs
+        # another body (the fused ring, tc32's epilogue mode), and the
+        # 8-bit ring's time under it was never taken
+        card = None
+    if isinstance(card, CardPlan) and fused:
+        card = None
     if isinstance(card, FusedPlan) and not fused:
         card = None
     kern = cached_compile(spec, schedule, epilogue=epilogue,

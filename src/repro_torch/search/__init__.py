@@ -44,10 +44,18 @@ short (six at most), so the ladder pairs the analytic winner's
 ``Schedule`` with every one of them, no cost model ranking them first,
 the launcher's own plan (``space.fused_heuristic_plan``) in the default
 role, under the same rule.  The rungs carry their plan (``card``), and
-``ops._tuned_kernel`` compiles the winner's.  The other B1 modes
-(weighted, chain, 8-bit) and the bodies without a plan (mma.sync, FMA)
-keep the analytic ladder, and only its default is measured.  A card
-ladder persists under
+``ops._tuned_kernel`` compiles the winner's.  B1's other modes rank
+their own plans the same way: the weighted family's k-scale, multiplier
+and row reduce over ``space.card_candidates`` as a plain product does; a
+product under an epilogue (``search_schedule(epilogue=)``, the fused
+ring's epilogue mode) likewise, into a ladder of its own key; the 8-bit
+ring (the int8 and fp8 tiers, under the dequant epilogue
+``ops.dense(quant=)`` launches them with, and the 8-bit weighted modes)
+its grid (``codegen.modes.Q8Plan``, ``space.q8_card_candidates``);
+the chain its association and cluster (``codegen.modes.ChainPlan``,
+``space.chain_card_candidates``) -- those two lists short, every plan
+measured.  The bodies without a plan (mma.sync, FMA, upcast) keep one
+rung, their default, measured once.  A card ladder persists under
 the card's hardware fingerprint (``cuda/<device name>``), a ladder timed
 on the host of that machine under ``cpu`` (``codegen.cache.measured_on``).
 
@@ -128,6 +136,7 @@ from .space import (
     candidate_orders,
     candidate_schedule,
     card_candidates,
+    chain_card_candidates,
     dtype_tier_specs,
     fused_card_candidates,
     fused_heuristic_plan,
@@ -135,6 +144,7 @@ from .space import (
     mesh_descriptor,
     mesh_variants,
     parse_mesh_shape,
+    q8_card_candidates,
     sweep_specs,
 )
 
@@ -288,40 +298,72 @@ def _ladder_from(cached: dict, spec: ContractionSpec) -> List[RankedPlan]:
     return ranked
 
 
-def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device):
-    """The card ladder of a plain two-operand product: (plans, stats,
-    tensors) -- the analytic winner's schedule with each plan of
-    ``beam.card_beam`` over ``space.card_candidates`` and the heuristic's
-    -- or of a fused spec (``_fused_card_ladder``), or None where the spec
-    is neither.  ``arrays`` (numpy, placed on ``device``, or tensors, kept
-    as given) default to ``reference_arrays``."""
+def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device,
+                 epilogue=None):
+    """The card ladder of a B1 spec or a fused one: (plans, stats,
+    tensors), or None for a dtype no kernel of the spec takes.  ``arrays``
+    (numpy, placed on ``device``, or tensors, kept as given) default to
+    ``reference_arrays``.
+
+    * a product of f32 / bf16 operands (plain, under ``epilogue``, or the
+      weighted family's k-scale, multiplier or row reduce): the analytic
+      winner's schedule with each plan of ``beam.card_beam`` over
+      ``space.card_candidates`` and the heuristic's;
+    * 8-bit operands on the 8-bit ring (the int8 and fp8 tiers, and the
+      8-bit weighted modes ``eight_bit_route`` sends there): every plan of
+      ``space.q8_card_candidates``;
+    * a chain: every plan of ``space.chain_card_candidates``;
+    * a fused spec: ``_fused_card_ladder``.
+
+    A body that takes no plan (mma.sync, FMA, upcast) gives the one rung
+    of the heuristic, card None."""
     import torch
 
     from ..codegen import cuda_gen
     from ..codegen.cache import dtype_name
+    from ..codegen.modes import Q8_HEURISTIC
     from ..codegen.schedules import default_schedule
 
     tdt = getattr(torch, dtype_name(dt))
     if getattr(spec, "fused_kind", ""):
         return _fused_card_ladder(spec, survivors, arrays, dt, device)
-    if not (len(spec.operands) == 2 and spec.quant is None
-            and tdt in (torch.float32, torch.bfloat16)
-            and cuda_gen._classify(spec).kind == "gemm"):
+    eight = tdt.itemsize == 1
+    if not eight and (getattr(spec.root(), "quant", None) is not None
+                      or tdt not in (torch.float32, torch.bfloat16)):
         return None
+    fold = cuda_gen._classify(spec.root())
     tensors = _card_tensors(spec, arrays, tdt, device)
-    a3, b3 = cuda_gen.card_views(spec, *(tensors[n] for n in spec.operands))
-    batch, m, k = a3.shape
-    n = b3.shape[2]
+    ops = [tensors[n] for n in spec.operands]
     sched = (survivors[0].candidate.to_schedule() if survivors
              else default_schedule(spec))
-    plans = card_candidates(spec, a3, b3)
     stats = SearchStats()
+    if fold.kind == "chain" or eight:
+        if fold.kind == "chain":
+            plans = chain_card_candidates(spec, ops[0].dtype)
+            r, p, q, c = (spec.root().extents[i]
+                          for i in cuda_gen.chain_extents(spec.root(), fold))
+            heur = cuda_gen.chain_plan(r, p, q, c, ops[0].dtype)
+        else:
+            sms = (cuda_gen._sm_count(ops[0].device) if ops[0].is_cuda
+                   else cuda_gen.H100_SMS)
+            plans = q8_card_candidates(spec, *ops, sms=sms)
+            heur = Q8_HEURISTIC
+        stats.considered = len(plans)
+        return _listed_ladder(plans, heur, sched), stats, tensors
+    views = cuda_gen.card_views(spec, *ops, out_dtype=tdt, epilogue=epilogue)
+    a3, b3 = views[:2]
+    batch, m, k = a3.shape
+    n = b3.shape[2]
+    plans = card_candidates(spec, a3, b3, epilogue=epilogue is not None)
     if not plans:  # the mma.sync / FMA body: no plan, one measurement
-        return [RankedPlan(schedule=sched, score=float("inf"),
-                           lower_bound=0.0, fits_vmem=True,
-                           source="default")], stats, tensors
-    heur = cuda_gen.heuristic_plan(plans[0].body, batch, m, n, k,
-                                   cuda_gen._sm_count(a3.device))
+        return _listed_ladder([], None, sched), stats, tensors
+    kscale = fold.kind == "vector" and views[2].axis == 3
+    heur = cuda_gen.heuristic_plan(
+        plans[0].body, batch, m, n, k, cuda_gen._sm_count(a3.device)
+        if a3.is_cuda else cuda_gen.H100_SMS, kscale=kscale,
+        row_reduce=fold.kind == "row_reduce",
+        narrow_x=(fold.kind == "gemm" and epilogue is None
+                  and cuda_gen.tma_operand(a3, 2, 4)))
     scored, stats = card_beam(plans, batch, m, n, k, dtype_name(tdt),
                               beam_width=beam_width, topk=topk,
                               heuristic=heur, stats=stats)
@@ -338,17 +380,44 @@ def _card_ladder(spec, survivors, arrays, dt, beam_width, topk, device):
     return ladder, stats, tensors
 
 
+def _listed_ladder(plans, heur, sched) -> List[RankedPlan]:
+    """A ladder measuring every plan of ``plans`` (a short list: no cost
+    model ranks them first), ``heur`` in the ``source="default"`` role; a
+    body with no plan the one default rung, card None."""
+    return [
+        RankedPlan(schedule=sched, score=float("inf"), lower_bound=0.0,
+                   fits_vmem=True,
+                   source="default" if plan == heur else "search",
+                   card=plan)
+        for plan in plans
+    ] or [RankedPlan(schedule=sched, score=float("inf"), lower_bound=0.0,
+                     fits_vmem=True, source="default")]
+
+
 def _card_tensors(spec, arrays, tdt, device):
     """The operands a card ladder measures on: ``arrays`` (numpy, placed
     on ``device`` in ``tdt``, or tensors, kept as given), by default
-    ``reference_arrays``."""
+    ``reference_arrays``; an 8-bit product's operands laid out k-major (its
+    reduced index unit-stride), as ``ops.dense(quant=)`` writes its W for
+    the 8-bit ring, which reads only K-major operands."""
     import torch
+
+    from ..codegen import cuda_gen
 
     if arrays is None:
         arrays = reference_arrays(spec, dtype=tdt)
-    return {n: a if isinstance(a, torch.Tensor) else
-            torch.from_numpy(np.ascontiguousarray(a)).to(device).to(tdt)
-            for n, a in arrays.items()}
+    root = spec.root()
+    kmajor = (tdt.itemsize == 1
+              and cuda_gen._classify(root).kind == "gemm")
+    out = {}
+    for n, a in arrays.items():
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a)).to(device).to(tdt)
+            axes = root.operands[n]
+            if kmajor and len(axes) == 2 and axes[0] not in root.output:
+                a = a.t().contiguous().t()
+        out[n] = a
+    return out
 
 
 def _fused_card_ladder(spec, survivors, arrays, dt, device):
@@ -377,15 +446,7 @@ def _fused_card_ladder(spec, survivors, arrays, dt, device):
     plans = fused_card_candidates(spec, *ops, sms=sms)
     heur = fused_heuristic_plan(spec, *ops, sms=sms)
     stats = SearchStats(considered=len(plans))
-    ladder = [
-        RankedPlan(schedule=sched, score=float("inf"), lower_bound=0.0,
-                   fits_vmem=True,
-                   source="default" if plan == heur else "search",
-                   card=plan)
-        for plan in plans
-    ] or [RankedPlan(schedule=sched, score=float("inf"), lower_bound=0.0,
-                     fits_vmem=True, source="default")]
-    return ladder, stats, tensors
+    return _listed_ladder(plans, heur, sched), stats, tensors
 
 
 def _keep_heuristic_within_spread(plans: List[RankedPlan],
@@ -448,6 +509,7 @@ def search_schedule(
     mesh_shape=None,
     phase: Optional[str] = None,
     device: Optional[str] = None,
+    epilogue=None,
 ) -> SearchResult:
     """The end-to-end pipeline: enumerate -> prune -> measure -> persist.
 
@@ -483,10 +545,25 @@ def search_schedule(
     cannot host the mesh they keep their analytic rank behind the
     measured single-rank plans.  The ladder persists under the
     mesh-qualified plan key.
+
+    ``epilogue`` (a ``codegen.Epilogue``: ``ops.dense_act``'s) searches
+    the product under it on the card: a launch under an epilogue runs
+    another body (the fused ring, tc32's epilogue mode) than the plain
+    product, so its plans are measured there, every candidate compiled
+    with the epilogue and held against the f64 oracle with it applied,
+    and the ladder persists under the epilogue-qualified key
+    (``plandb.plan_key(epilogue=)``), which only a lookup under the same
+    epilogue finds.  Measured on the card only (a ``ValueError``
+    elsewhere, or with ``mesh_shape``).
     """
     from ..codegen.cache import dtype_itemsize, dtype_name, measured_on
 
     spec = spec.root()
+    epi = None if epilogue is None else epilogue.kind
+    if epi is not None and (_default_device(device) == "cpu" or mesh_shape
+                            or not measure):
+        raise ValueError("an epilogue ladder is measured on the card, one "
+                         "rank, and nowhere else")
     if isinstance(mesh_shape, str):
         mesh_shape = parse_mesh_shape(mesh_shape)
     mesh_desc = mesh_descriptor(mesh_shape)
@@ -500,7 +577,7 @@ def search_schedule(
 
     if plan_db is not None and use_cached_plan:
         cached = plan_db.get(spec, dt, hardware, mesh=mesh_desc,
-                             phase=phase)
+                             phase=phase, epilogue=epi)
         if (
             cached
             and cached.get("ranked")
@@ -521,7 +598,7 @@ def search_schedule(
                     spec=spec, dtype=dtype_name(dt), ranked=ranked,
                     stats=stats,
                     db_key=plan_key(spec, dt, hardware, mesh=mesh_desc,
-                                    phase=phase),
+                                    phase=phase, epilogue=epi),
                     mesh=mesh_desc,
                 )
 
@@ -622,7 +699,7 @@ def search_schedule(
     mesh = None
     if measure and on_card and mesh_shape is None:
         card = _card_ladder(spec, survivors, arrays, dt, beam_width, topk,
-                            device)
+                            device, epilogue)
         if card is not None:
             plans, stats, tensors = card
             measured = list(plans)
@@ -648,7 +725,7 @@ def search_schedule(
                 arrays=tensors, dtype=dt, interpret=interpret,
                 repeats=repeats, device=device, mesh=mesh,
                 collectives=[p.collective for p in measured],
-                cards=[p.card for p in measured],
+                cards=[p.card for p in measured], epilogue=epilogue,
             )
         for p, m in zip(measured, ms):
             p.measured_s = m.seconds
@@ -672,7 +749,7 @@ def search_schedule(
                 again = measure_schedules(
                     spec, [best.schedule, base.schedule], arrays=tensors,
                     dtype=dt, device=device, check=False,
-                    cards=[best.card, base.card])
+                    cards=[best.card, base.card], epilogue=epilogue)
                 vals = [m.seconds for m in again] + [m.spread_s or 0.0
                                                      for m in again]
                 if _multi_rank():  # every rank must keep the same plan
@@ -699,7 +776,7 @@ def search_schedule(
             ).inc()
     if plan_db is not None and plans:
         result.db_key = plan_key(spec, dt, hardware, mesh=mesh_desc,
-                                 phase=phase)
+                                 phase=phase, epilogue=epi)
         with obs.span("search.persist", spec=spec.name, mesh=mesh_desc):
             _persist_once(plan_db, lambda: plan_db.put(
                 spec, dt,
@@ -725,6 +802,7 @@ def search_schedule(
                     for k, lb, bs in stats.bound_log[:_MAX_CUTS]
                 ],
                 phase=phase,
+                epilogue=epi,
             ))
     return result
 
@@ -793,14 +871,38 @@ def search_dtype_ladder(
     ``space.dtype_tier_specs`` — the caller's spec at its full/half
     precision, then the int8 and fp8 re-taggings at their 1-byte storage
     dtypes.  Every tier persists under its own dtype-qualified plan key,
-    so ``ops.dense(quant=...)`` picks up the matching ladder.  Returns
-    ``{tier -> SearchResult}`` with ``"baseline"`` always present; rank
-    tiers against each other with ``best_dtype_tier``.
+    so ``ops.dense(quant=...)`` picks up the matching ladder; on the card
+    a quant tier is measured under ``quant_tier_epilogue``'s dequant, the
+    launch that op makes.  Returns ``{tier -> SearchResult}`` with
+    ``"baseline"`` always present; rank tiers against each other with
+    ``best_dtype_tier``.
     """
+    epi = quant_tier_epilogue(spec, kwargs.get("device"),
+                              kwargs.get("measure", True),
+                              kwargs.get("mesh_shape"))
     return {
-        tier: search_schedule(s, dtype=dt, **kwargs)
+        tier: search_schedule(
+            s, dtype=dt, **kwargs,
+            **({} if tier == "baseline" or epi is None
+               else {"epilogue": epi}))
         for tier, s, dt in dtype_tier_specs(spec, dtype=dtype, tiers=tiers)
     }
+
+
+def quant_tier_epilogue(spec: ContractionSpec, device=None,
+                        measure: bool = True, mesh_shape=None):
+    """The epilogue the quant tier of ``spec`` is measured under: for a
+    two-operand product on the card (measured, one rank)
+    ``Epilogue(dequant=True)``, the launch ``ops.dense(quant=)`` makes, so
+    the ladder lives under that epilogue's key and the op's lookup under it
+    finds the plan measured there; otherwise None (the reference's
+    unqualified key)."""
+    from ..codegen.epilogue import Epilogue
+
+    if (len(spec.root().operands) != 2 or not measure or mesh_shape
+            or _default_device(device) == "cpu"):
+        return None
+    return Epilogue(dequant=True)
 
 
 def best_dtype_tier(results: Dict[str, SearchResult]) -> str:
@@ -907,6 +1009,7 @@ __all__ = [
     "mesh_variants",
     "parse_mesh_shape",
     "plan_key",
+    "quant_tier_epilogue",
     "reference_arrays",
     "schedule_mesh_axes",
     "search_dtype_ladder",

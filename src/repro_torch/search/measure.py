@@ -294,11 +294,43 @@ def fused_oracle(spec: ContractionSpec, tensors):
     return out
 
 
+def pairwise_f64(spec: ContractionSpec, tensors):
+    """``spec`` (a root of three operands) of ``tensors`` in f64, read
+    from the spec's own indices alone and folded pairwise: first the pair
+    whose intermediate (the indices the third operand or the output still
+    needs) is smallest, then that with the third operand, each fold one
+    two-operand ``torch.einsum`` -- never the (i, j, k) intermediate an
+    einsum of three may form.  It shares nothing with the kernels' fold
+    (``cuda_gen._classify``), so a misread fold cannot agree with it."""
+    import math
+
+    import torch
+
+    letters = {i: chr(ord("a") + n) for n, i in enumerate(spec.indices)}
+    sub = lambda axes: "".join(letters[i] for i in axes)  # noqa: E731
+    axes = [tuple(a) for a in spec.operands.values()]
+    vals = [t.double() for t in tensors]
+
+    def keep(x, y):
+        z = 3 - x - y
+        return [i for i in dict.fromkeys(axes[x] + axes[y])
+                if i in axes[z] or i in spec.output]
+
+    x, y = min(((0, 1), (0, 2), (1, 2)), key=lambda xy: math.prod(
+        spec.extents[i] for i in keep(*xy)))
+    z, mid = 3 - x - y, keep(x, y)
+    inner = torch.einsum(f"{sub(axes[x])},{sub(axes[y])}->{sub(mid)}",
+                         vals[x], vals[y])
+    return torch.einsum(f"{sub(mid)},{sub(axes[z])}->{sub(spec.output)}",
+                        inner, vals[z])
+
+
 def _oracle(spec: ContractionSpec, tensors):
     """The f64 oracle of ``tensors`` on their device: ``torch.einsum`` in
     f64 for a plain contraction (on the card a full-width product takes
-    milliseconds there, minutes in numpy's loops); for a fused family
-    ``einsum_reference`` on CPU tensors, ``fused_oracle`` on the card."""
+    milliseconds there, minutes in numpy's loops), ``pairwise_f64`` for
+    one of three operands; for a fused family ``einsum_reference`` on CPU
+    tensors, ``fused_oracle`` on the card."""
     import torch
 
     from ..core.enumerate import einsum_formula
@@ -311,17 +343,9 @@ def _oracle(spec: ContractionSpec, tensors):
                 for n, t in zip(spec.operands, tensors)}
         return torch.from_numpy(einsum_reference(spec, host)).to(
             tensors[0].device)
+    if len(spec.operands) == 3:
+        return pairwise_f64(spec, tensors)
     return torch.einsum(einsum_formula(spec), *(t.double() for t in tensors))
-
-
-def _plain_product(spec: ContractionSpec, dtype) -> bool:
-    """A two-operand f32 / bf16 product: one B1 launch a call."""
-    import torch
-
-    root = spec.root()
-    return (len(root.operands) == 2 and not getattr(root, "fused_kind", "")
-            and getattr(root, "quant", None) is None
-            and dtype in (torch.float32, torch.bfloat16))
 
 
 def measure_schedules(
@@ -338,6 +362,7 @@ def measure_schedules(
     collectives: Optional[Sequence[str]] = None,
     device: Optional[str] = None,
     cards: Optional[Sequence[object]] = None,
+    epilogue=None,
 ) -> List[Measurement]:
     """Compile + time each schedule; same operand data for every candidate.
 
@@ -352,8 +377,11 @@ def measure_schedules(
     ``arrays`` maps operand names to numpy arrays (default:
     ``reference_arrays``), placed on ``device`` ("cpu" unless given), or
     to tensors, whose device and layout are kept.  On CUDA tensors each
-    schedule's ``cards`` entry (a ``CardPlan`` or None) is the B1 plan its
-    launches must run; see the module docstring for the timing.
+    schedule's ``cards`` entry (a ``CardPlan``, ``FusedPlan``, ``Q8Plan``
+    or ``ChainPlan``, or None) is the plan its launches must run; see the
+    module docstring for the timing.  ``epilogue`` (a ``codegen.Epilogue``)
+    compiles every candidate under it, with its vectors drawn from a seed
+    (``epilogue_vectors``), and the oracle applies it in f64.
     ``interpret`` is the reference's flag and changes nothing here: the
     device decides.
 
@@ -393,8 +421,17 @@ def measure_schedules(
     if card and not torch.cuda.is_available():
         raise RuntimeError("measuring on CUDA tensors needs a card")
     cards = list(cards) if cards is not None else [None] * len(schedules)
-    launcher = _launcher_of(spec, tensors[0].dtype) if card else None
-    ref = _oracle(spec, tensors) if check else None
+    launcher = (_launcher_of(spec, tensors[0].dtype, tensors, epilogue)
+                if card else None)
+    vecs = ({} if epilogue is None else
+            epilogue_vectors(spec, epilogue, tensors[0].device))
+    ref = None
+    if check:
+        ref = _oracle(spec, tensors)
+        if epilogue is not None:
+            lead = (1,) * (len(spec.output) - 1)
+            ref = epilogue.apply(ref, {n: v.double().reshape(lead + (-1,))
+                                       for n, v in vecs.items()})
     scale = _scale(spec, ref) if check else None
     sharded = [bool(schedule_mesh_axes(s)) for s in schedules]
     if mesh is None and any(sharded):
@@ -413,7 +450,7 @@ def measure_schedules(
                 f"world cannot host one")
         coll = (collectives[pos] if collectives else "") or "psum"
         kern = cached_compile(
-            spec, sched, interpret=interpret,
+            spec, sched, interpret=interpret, epilogue=epilogue,
             # 1-byte operands must not round-trip the accumulator through
             # int8/fp8 storage on the way out — measure the f32 result
             out_dtype=torch.float32 if quantized else None,
@@ -422,7 +459,7 @@ def measure_schedules(
         )
         what = f"schedule {sched.levels}" + (f", plan {tuple(plan)}"
                                              if plan is not None else "")
-        result = _call(kern, tensors, launcher, plan, what)  # warm-up
+        result = _call(kern, tensors, launcher, plan, what, vecs)  # warm-up
         err = None
         if check:
             err = float(((result.double() - ref).abs() / scale).max())
@@ -437,7 +474,7 @@ def measure_schedules(
             seconds = float("inf")
             for _ in range(max(repeats, 1)):
                 t0 = time.perf_counter()
-                _call(kern, tensors, launcher, plan, what)
+                _call(kern, tensors, launcher, plan, what, vecs)
                 if card:
                     torch.cuda.synchronize(tensors[0].device)
                 seconds = min(seconds, time.perf_counter() - t0)
@@ -458,7 +495,7 @@ def measure_schedules(
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            _call(kern, tensors, launcher, plan, what)
+            _call(kern, tensors, launcher, plan, what, vecs)
             end.record()
             end.synchronize()
             row.append(start.elapsed_time(end) * 1e-3)
@@ -467,6 +504,25 @@ def measure_schedules(
         q1, _, q3 = statistics.quantiles(row, n=4)
         out.append(Measurement(schedule=sched, seconds=statistics.median(row),
                                max_err=err, card=plan, spread_s=q3 - q1))
+    return out
+
+
+def epilogue_vectors(spec: ContractionSpec, epilogue, device, seed: int = 1):
+    """The f32 vectors of ``epilogue`` a measurement calls ``spec`` with,
+    one element a coordinate of the last output axis, from ``seed``:
+    standard normals, ``var`` drawn from [0.5, 1.5) and ``qscale`` from
+    [0.01, 0.02) (positive, as the quantizers' scales are)."""
+    import torch
+
+    spec = spec.root()
+    rng = np.random.default_rng(seed)
+    n = spec.extents[spec.output[-1]]
+    lows = {"var": (0.5, 1.5), "qscale": (0.01, 0.02)}
+    out = {}
+    for name in epilogue.vector_names:
+        v = (rng.uniform(*lows[name], n) if name in lows
+             else rng.standard_normal(n))
+        out[name] = torch.from_numpy(v.astype(np.float32)).to(device)
     return out
 
 
@@ -481,11 +537,18 @@ def _scale(spec: ContractionSpec, ref):
     return max(float(ref.abs().max()), 1e-30)
 
 
-def _launcher_of(spec: ContractionSpec, dtype):
-    """The launcher whose one launch a timed call on the card must be: B1's
-    for a plain product, B2's, B3's or B4's for a fused spec; None for
-    another spec (the weighted, chain and 8-bit modes)."""
-    from ..codegen import CONTRACT
+def _launcher_of(spec: ContractionSpec, dtype, tensors=None,
+                 epilogue=None):
+    """The launcher whose one launch a timed call on the card must be: B2's,
+    B3's or B4's for a fused spec; B1's ``CONTRACT`` for a product of f32 /
+    bf16 operands, the weighted family's modes and a product under an
+    ``epilogue`` included; the chain's for a chain; for 8-bit operands the
+    one their route takes (``cuda_gen.launcher_of`` on ``tensors``: the
+    8-bit ring's, the upcast body's, or ``CONTRACT`` for fp8's k-scale),
+    None without ``tensors``."""
+    import torch
+
+    from ..codegen import CONTRACT, cuda_gen
     from ..codegen import fused_gen
 
     root = spec.root()
@@ -495,7 +558,14 @@ def _launcher_of(spec: ContractionSpec, dtype):
     if kind:
         return (fused_gen.GROUPED_DW if "g" in root.output
                 else fused_gen.GROUPED)
-    return CONTRACT if _plain_product(spec, dtype) else None
+    if cuda_gen._classify(root).kind == "chain":
+        return cuda_gen.CONTRACT_CHAIN
+    if getattr(root, "quant", None) is None and dtype in (torch.float32,
+                                                          torch.bfloat16):
+        return CONTRACT
+    if tensors is None:
+        return None
+    return cuda_gen.launcher_of(root, *tensors, epilogue=epilogue)
 
 
 def _ran(launcher):
@@ -505,13 +575,15 @@ def _ran(launcher):
             else launcher.last_plan)
 
 
-def _call(kern, tensors, launcher, plan, what: str):
-    """One call of ``kern``; where ``launcher`` is given, exactly one of its
-    launches, on ``plan`` where one is given (else raises)."""
+def _call(kern, tensors, launcher, plan, what: str, vectors=None):
+    """One call of ``kern`` (its epilogue's ``vectors`` by keyword); where
+    ``launcher`` is given, exactly one of its launches, on ``plan`` where
+    one is given (else raises)."""
+    vectors = vectors or {}
     if launcher is None:
-        return kern(*tensors)
+        return kern(*tensors, **vectors)
     n0 = launcher.launches
-    out = kern(*tensors)
+    out = kern(*tensors, **vectors)
     if launcher.launches - n0 != 1 or (plan is not None
                                        and _ran(launcher) != plan):
         raise AssertionError(f"{what}: {launcher.launches - n0} launches "

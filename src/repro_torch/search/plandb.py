@@ -11,12 +11,17 @@ the reference's sweep (e.g. ``tests/data/plan_db_golden.json``) resolves
 through the port, and a rung the port writes (``entry_from``) is the
 reference's JSON.  The one addition: a rung measured on the card may carry
 a ``card`` field, the card plan it ran -- B1's tile plan (``{"body",
-"tile_n", "splits"}``, ``codegen.cuda_gen.CardPlan``) or a fused
-kernel's (``{"kernel", "body", "block", "ctas"}``,
-``codegen.fused_gen.FusedPlan``; ``fused_gen.plan_from_dict`` tells them
-apart by the ``kernel`` key, so a DB written before fused plans existed
-loads as it was) -- which ``ops._tuned_kernel`` hands to the compiled
-kernel; a rung without one is the reference's.  A
+"tile_n", "splits"}``, ``codegen.cuda_gen.CardPlan``), the 8-bit ring's
+(``{"kernel": "q8", "body", "ctas"}``, ``codegen.modes.Q8Plan``),
+the chain's (``{"kernel": "chain", "assoc", "cluster"}``,
+``codegen.modes.ChainPlan``) or a fused kernel's (``{"kernel", "body",
+"block", "ctas"}``, ``codegen.fused_gen.FusedPlan``;
+``fused_gen.plan_from_dict`` tells them apart by the ``kernel`` key, so a
+DB written before these plans existed loads as it was) -- which
+``ops._tuned_kernel`` hands to the compiled kernel; a rung without one is
+the reference's.  A ladder measured under an epilogue lives under a key
+qualified by it (``plan_key(epilogue=)``), which no reference key
+carries.  A
 card ladder lives under the card's hardware fingerprint
 (``cuda/<device name>``), which no reference key carries.  Storage reuses
 ``codegen.cache.AutotuneCache`` (atomic JSON, concurrent-writer safe) in a
@@ -72,6 +77,7 @@ def plan_key(
     mesh: Optional[str] = None,
     version: int = PLAN_VERSION,
     phase: Optional[str] = None,
+    epilogue: Optional[str] = None,
 ) -> str:
     """Plan-DB key; ``mesh`` is a ``search.space.mesh_descriptor`` string
     ('2x4') qualifying sharded ladders — conceptually ``matmul@mesh=2x4``
@@ -82,11 +88,17 @@ def plan_key(
     inheriting the compute-bound prefill winner for the same shape.  A
     ``None`` phase is omitted from the hashed payload entirely, keeping
     every pre-phase key byte-identical (the golden fixtures pin this).
+    ``epilogue`` (``codegen.Epilogue.kind``) qualifies a ladder measured
+    under an epilogue on the card (the fused ring's or tc32's epilogue
+    mode, a body of its own), which only a lookup under that epilogue
+    finds; omitted when None, by the same rule.
     ``version`` is overridable only so ``PlanDB.get`` can probe whether a
     miss is really a stale-format entry (a *version* miss)."""
     extra: Dict[str, Any] = {"what": "search.plan", "v": version, "mesh": mesh}
     if phase is not None:
         extra["phase"] = phase
+    if epilogue is not None:
+        extra["epilogue"] = epilogue
     return cache_key(
         spec,
         dtype=dtype_name(dtype),
@@ -173,6 +185,7 @@ class PlanDB:
         mesh: Optional[str] = None,
         cuts: Optional[List[Dict[str, Any]]] = None,
         phase: Optional[str] = None,
+        epilogue: Optional[str] = None,
     ) -> str:
         """Store ranked entries (best first). Each entry must carry a
         ``schedule`` dict from ``schedule_to_dict``; score/measured_s/
@@ -182,8 +195,11 @@ class PlanDB:
         ladder ('prefill'/'decode').  ``cuts`` is the bound-cut sample
         ``obs.explain`` shows as the why-not side of the table.  The
         entry records its own ``spec`` signature + ``dtype`` (since v3)
-        so explain selectors can find it without recomputing keys."""
-        key = plan_key(spec, dtype, hardware, mesh=mesh, phase=phase)
+        so explain selectors can find it without recomputing keys;
+        ``epilogue`` (``Epilogue.kind``) an epilogue ladder's, stored in
+        the entry too."""
+        key = plan_key(spec, dtype, hardware, mesh=mesh, phase=phase,
+                       epilogue=epilogue)
         payload = {
             "v": PLAN_VERSION,
             "mesh": mesh,
@@ -195,6 +211,8 @@ class PlanDB:
         }
         if phase is not None:
             payload["phase"] = phase
+        if epilogue is not None:
+            payload["epilogue"] = epilogue
         self._cache.put(key, payload)
         return key
 
@@ -203,11 +221,13 @@ class PlanDB:
         hardware: Optional[str] = None,
         mesh: Optional[str] = None,
         phase: Optional[str] = None,
+        epilogue: Optional[str] = None,
     ) -> Optional[Dict[str, Any]]:
         entry = self._cache.get(
-            plan_key(spec, dtype, hardware, mesh=mesh, phase=phase)
+            plan_key(spec, dtype, hardware, mesh=mesh, phase=phase,
+                     epilogue=epilogue)
         )
-        if entry is None and phase is None:
+        if entry is None and phase is None and epilogue is None:
             # classify the miss: an entry under an older PLAN_VERSION key
             # means the fleet DB predates a format bump (plans went cold
             # deliberately) rather than never having been swept — an
@@ -244,6 +264,7 @@ class PlanDB:
         hardware: Optional[str] = None,
         mesh: Optional[str] = None,
         phase: Optional[str] = None,
+        epilogue: Optional[str] = None,
     ) -> Tuple[Optional[Schedule], Dict[str, Any]]:
         """(winner schedule, its raw entry dict) — or (None, {}).
 
@@ -253,7 +274,8 @@ class PlanDB:
         card ladder's ``card``, the B1 or fused card plan
         ``ops._tuned_kernel`` compiles with).
         """
-        entry = self.get(spec, dtype, hardware, mesh=mesh, phase=phase)
+        entry = self.get(spec, dtype, hardware, mesh=mesh, phase=phase,
+                         epilogue=epilogue)
         if not entry or not entry.get("ranked"):
             return None, {}
         try:

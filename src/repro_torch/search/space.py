@@ -539,20 +539,21 @@ def _split_ok(nk: int, splits: int, batch: int) -> bool:
 
 
 def card_candidates(spec: ContractionSpec, a, b, dtype=None, *,
-                    sms: Optional[int] = None) -> list:
+                    sms: Optional[int] = None, epilogue: bool = False) -> list:
     """The legal tile plans (``codegen.cuda_gen.CardPlan``) of the B1 body
     that ``contract_body`` picks for ``spec``'s product a (batch, M, K) @ b
-    (batch, K, N) -- ``cuda_gen.card_views`` gives a two-operand spec's
-    views as the caller passes them; any device, the meta device too,
-    since only dtypes, shapes, strides and alignment are read.  ``dtype``
-    (a torch dtype or its name) overrides the operands' dtype.  The spec's
-    fold (``cuda_gen._classify``) names the mode: a plain product, the
-    weighted family's k-scale (a vector on the reduced index) or
-    multiplier, or the row reduce.
+    (batch, K, N) -- ``cuda_gen.card_views`` gives a spec's views as the
+    caller passes them; any device, the meta device too, since only
+    dtypes, shapes, strides and alignment are read.  ``dtype`` (a torch
+    dtype or its name) overrides the operands' dtype.  The spec's fold
+    (``cuda_gen._classify``) names the mode: a plain product, the weighted
+    family's k-scale (a vector on the reduced index) or multiplier, or the
+    row reduce; ``epilogue`` a product under an epilogue (the fused ring's
+    or tc32's epilogue mode, whose plans its own ladder measures).
 
     * ring: ``tile_n`` 128 or 256 (128 only in the k-scale and row-reduce
-      modes), ``splits`` 1 to ``CARD_MAX_SPLITS`` (1 only in the row
-      reduce);
+      modes), ``splits`` 1 to ``CARD_MAX_SPLITS`` (the row reduce's splits
+      each a row block of its partial rows);
     * narrow: ``tile_n`` each of ``NARROW_WIDTHS`` holding the M tokens,
       ``splits`` 1 to ``NARROW_MAX_SPLITS``;
     * tc32: ``tile_n`` (x's tile width) 128 and, for a plain product at
@@ -585,7 +586,7 @@ def card_candidates(spec: ContractionSpec, a, b, dtype=None, *,
         for x in (fold.a, fold.b))
     vec = (VecArg(torch.empty(k, dtype=torch.float32, device="meta"), 3)
            if kscale else None)
-    plain = fold.kind == "gemm"
+    plain = fold.kind == "gemm" and not epilogue
     body = cg.contract_body(a, b, plain=plain, kscale=vec,
                             row_reduce=row_reduce)
     sms = sms or cg.H100_SMS
@@ -598,9 +599,9 @@ def card_candidates(spec: ContractionSpec, a, b, dtype=None, *,
     if body == "ring":
         nk = -(-k // cg.RING_BK)
         widths = (128,) if kscale or row_reduce else (128, 256)
-        top = 1 if row_reduce else CARD_MAX_SPLITS
         out = [cg.CardPlan("ring", w, s) for w in widths
-               for s in range(1, top + 1) if _split_ok(nk, s, batch)]
+               for s in range(1, CARD_MAX_SPLITS + 1)
+               if _split_ok(nk, s, batch)]
     elif body == "narrow":
         nk = -(-k // cg.RING_BK)
         out = [cg.CardPlan("narrow", w, s) for w in cg.NARROW_WIDTHS
@@ -614,6 +615,73 @@ def card_candidates(spec: ContractionSpec, a, b, dtype=None, *,
                for s in range(1, CARD_MAX_SPLITS + 1)
                if _split_ok(nk, s, batch)
                and (s == 1 or -(-nk // s) >= cg.TC32_MIN_STEPS)]
+    if heur not in out:
+        out.append(heur)
+    return out
+
+
+def q8_card_candidates(spec: ContractionSpec, *operands,
+                       sms: Optional[int] = None) -> list:
+    """The legal plans (``codegen.modes.Q8Plan``) of the 8-bit ring for
+    ``spec`` on ``operands`` (in ``spec.operands`` order, as the caller
+    passes them), or [] where the launch does not run the ring
+    (``cuda_gen.launcher_of``: the upcast body, or fp8's k-scale on
+    contract.cu; ``modes.q8_body``: the mma.sync body) -- those take no
+    plan.  Any device, the meta device too.
+
+    * one CTA a tile (``ctas`` 0, the heuristic's,
+      ``modes.Q8_HEURISTIC``), and, where the tiles outnumber the SMs, one
+      CTA an SM, each walking its tiles.
+
+    The ring's tile is 128 x 128, so the reference's blocks have no knob
+    here; the grid is the one axis that changes the launch, and it changes
+    no value."""
+    from ..codegen import cuda_gen as cg
+    from ..codegen.modes import (CONTRACT_FP8, CONTRACT_INT8, Q8_HEURISTIC,
+                                 Q8_RING_TILE, Q8Plan, q8_body)
+
+    root = spec.root()
+    a, b = cg.card_views(root, *operands)[:2]
+    # the weighted family's modes take the ring alone on the tensor cores
+    ring = cg.launcher_of(root, *operands) in (CONTRACT_INT8, CONTRACT_FP8)
+    if not ring or (cg._classify(root).kind == "gemm"
+                    and q8_body(a, b) != "ring"):
+        return []
+    batch, m, _ = a.shape
+    n = b.shape[2]
+    sms = sms or cg.H100_SMS
+    tiles = batch * -(-m // Q8_RING_TILE) * -(-n // Q8_RING_TILE)
+    return [Q8_HEURISTIC] + ([Q8Plan(sms)] if tiles > sms else [])
+
+
+def chain_card_candidates(spec: ContractionSpec, dtype) -> list:
+    """The plans (``codegen.modes.ChainPlan``) of the chain kernel for
+    ``spec`` (a chain X(r,p) Y(p,q) Z(q,c) and its derived specs) on
+    operands of ``dtype``: each association, (X.Y).Z (``"xy"``) and
+    X.(Y.Z) (``"yz"``, the transposed chain, whose first reduction is q),
+    by each cluster of 1, 2, 4 ... ``CHAIN_MAX_CLUSTER`` CTAs that leaves
+    every CTA a step of that reduction (64 for bf16, 32 otherwise); the
+    launch's own (``cuda_gen.chain_plan``) among them.  The reference's
+    blocks of the two reductions are what the association and the cluster
+    stand in for: both change the summation order only."""
+    import torch
+
+    from ..codegen import cuda_gen as cg
+    from ..codegen.cache import dtype_name
+    from ..codegen.modes import CHAIN_MAX_CLUSTER, ChainPlan
+
+    root = spec.root()
+    dt = getattr(torch, dtype_name(dtype))
+    r, p, q, c = (root.extents[i]
+                  for i in cg.chain_extents(root, cg._classify(root)))
+    step = 64 if dt == torch.bfloat16 else 32
+    out = []
+    for assoc, first in (("xy", p), ("yz", q)):
+        cs = 1
+        while cs <= CHAIN_MAX_CLUSTER and (cs == 1 or cs <= -(-first // step)):
+            out.append(ChainPlan(assoc, cs))
+            cs *= 2
+    heur = cg.chain_plan(r, p, q, c, dt)
     if heur not in out:
         out.append(heur)
     return out

@@ -29,6 +29,17 @@ the process is one of a world that holds them (``torchrun``-style
 ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``, which
 ``launch.mesh.init_world`` joins; every rank runs the same sweep, and
 rank 0 writes the plan DB); otherwise they keep their analytic rank.
+B1's other modes sweep the same way: ``--spec weighted_matmul`` (its
+k-scale, and with ``--with-grads`` its ``.dA`` / ``.dB`` multiplier and
+``.dg`` row reduce), ``--spec chain_matmul`` (the chain's association and
+cluster), and ``--quant int8`` / ``--quant fp8`` any spec's 8-bit tier
+(the 8-bit ring's grid, on the card under the dequant epilogue that
+``ops.dense(quant=)`` launches with):
+
+    python -m repro_torch.search.sweep --spec weighted_matmul \
+        --shapes 2048,4096,12288 --dtype bfloat16 --with-grads
+    python -m repro_torch.search.sweep --spec matmul \
+        --shapes 2048,4096,12288 --quant int8
 
     torchrun --nproc-per-node 8 -m repro_torch.search.sweep \
         --spec matmul --shapes 128,128,128 --with-grads --mesh 2x4 --device cpu
@@ -107,6 +118,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="with --spec attention: the causal mask (the "
                          "serving and training paths' attention, a plan "
                          "key of its own)")
+    ap.add_argument("--quant", default=None, choices=("int8", "fp8"),
+                    help="sweep each point's int8 or fp8 tier (the spec "
+                         "re-tagged by core.enumerate.quantize_spec, at "
+                         "its 1-byte storage dtype): the ladder "
+                         "ops.dense(quant=) reads; on the card the 8-bit "
+                         "ring's plans")
     ap.add_argument("--device", default="cuda",
                     help="where candidates are measured; 'cpu' times the "
                          "plain versions on the host")
@@ -139,7 +156,9 @@ def _sweep(args, device, meshes) -> Tuple[int, List[tuple]]:
     import json
 
     from ..codegen.cache import measured_on, schedule_to_dict
-    from . import PlanDB, default_plan_db, search_schedule, spec_from_name
+    from ..core.enumerate import QUANT_FORMATS, quantize_spec
+    from . import (PlanDB, default_plan_db, quant_tier_epilogue,
+                   search_schedule, spec_from_name)
     from .space import sweep_specs
 
     db = PlanDB(args.plan_db) if args.plan_db else default_plan_db()
@@ -181,13 +200,22 @@ def _sweep(args, device, meshes) -> Tuple[int, List[tuple]]:
         dtype = args.dtype or "float32"
         if args.causal and family != "attention":
             raise SystemExit("sweep: --causal takes --spec attention")
+        if args.quant and (args.dtype or args.with_grads):
+            raise SystemExit("sweep: --quant sweeps its tier's storage dtype "
+                             "and no backward specs (the 8-bit path has no "
+                             "gradient)")
         shapes = [tuple(int(x) for x in part.split(","))
                   for part in args.shapes.split(";") if part.strip()]
 
         def root_of(shape):
             spec = spec_from_name(family, shape)
+            if args.quant:
+                return quantize_spec(spec, fmt=args.quant)
             return (dataclasses.replace(spec, causal=True) if args.causal
                     else spec)
+
+        if args.quant:
+            dtype = QUANT_FORMATS[args.quant].dtype
 
         points = [(label, spec, shape, dtype)
                   for shape in shapes
@@ -206,6 +234,9 @@ def _sweep(args, device, meshes) -> Tuple[int, List[tuple]]:
             measure=not args.no_measure, repeats=args.repeats, plan_db=db,
             use_cached_plan=not args.fresh, device=device,
             mesh_shape=mesh_shape,
+            epilogue=(quant_tier_epilogue(spec, device,
+                                          not args.no_measure, mesh_shape)
+                      if args.quant else None),
         )
         results.append((label, spec, shape, res))
         s = res.stats

@@ -293,7 +293,8 @@ def _emulated_chain(calls):
     accumulator (rounded once to bf16 for bf16 operands), then T.Z, the
     epilogue on f32, written through ``out``'s strides."""
 
-    def run(x, y, z, out_dtype, *, epilogue=None, vectors=None, out=None):
+    def run(x, y, z, out_dtype, *, epilogue=None, vectors=None, out=None,
+            plan=None):
         calls.append((tuple(x.shape), tuple(y.shape), tuple(z.shape),
                       out is not None and not out.is_contiguous()))
         ints = x.dtype in (torch.int8, torch.int32)

@@ -3043,3 +3043,270 @@ def test_ops_dense_launches_a_stored_tc32_plan_the_smoke_expects(cuda_device):
         assert codegen.CONTRACT.last_card == won
         assert chip_smoke._searched_card(spec, torch.float32) == won
         _assert_close_scaled(got, want, torch.float32)
+
+
+# -- B1's weighted, epilogue, 8-bit and chain modes on their searched plans --
+
+MODE_SHAPE = (512, 1024, 384)  # (M, K, N): 12 ring tiles, so splits matter
+Q8_SHAPE = (2048, 512, 2048)  # 256 8-bit ring tiles: more than the SMs
+
+
+def _mode_args(spec, dtype, gen, kmajor=False):
+    """Seeded operands of ``spec`` on the card: normals, or ints in [-4, 4]
+    for int8; ``kmajor`` lays an 8-bit product's W k-major."""
+    out = []
+    for axes in spec.operands.values():
+        shape = tuple(spec.extents[i] for i in axes)
+        if dtype == torch.int8:
+            x = torch.randint(-4, 5, shape, generator=gen, device="cuda",
+                              dtype=torch.int32).to(dtype)
+        else:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if kmajor and len(axes) == 2 and axes[0] not in spec.output:
+            x = x.t().contiguous().t()
+        out.append(x)
+    return out
+
+
+def _launched(launcher, kern, args, plan, **vectors):
+    """One call of ``kern``: one launch of ``launcher``, on ``plan``."""
+    n0 = launcher.launches
+    out = kern(*args, **vectors)
+    torch.cuda.synchronize()
+    assert launcher.launches == n0 + 1
+    ran = (launcher.last_card if hasattr(launcher, "last_card")
+           else launcher.last_plan)
+    assert ran == plan, (ran, plan)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_weighted_mode_plans_match_the_plain_version(cuda_device, dtype):
+    """Every tile plan ``card_candidates`` offers the weighted family's
+    k-scale, multiplier and row reduce (its splits each a row block of
+    partial rows), launched on its body: one ``CONTRACT`` launch on the
+    plan, the plain version's output."""
+    from repro_torch.grad import derived_specs
+    from repro_torch.search import card_candidates
+
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    fwd = PE.weighted_matmul_spec(*MODE_SHAPE)
+    seen = set()
+    for spec in (fwd, *derived_specs(fwd).values()):
+        args = _mode_args(spec, dtype, gen)
+        views = cuda_gen.card_views(spec, *args, out_dtype=dtype)
+        plans = card_candidates(spec, *views[:2])
+        want = cuda_gen.contract_ref(spec, *args, out_dtype=dtype)
+        sched = codegen.default_schedule(spec)
+        for plan in plans:
+            kern = codegen.cached_compile(spec, sched, card=plan)
+            got = _launched(cuda_gen.CONTRACT, kern, args, plan)
+            _assert_close_scaled(got, want, dtype)
+            seen.add((spec.name, plan.body))
+    if dtype == torch.bfloat16:
+        assert {n for n, b in seen if b == "ring"} == {
+            "weighted_matmul", "weighted_matmul.dA", "weighted_matmul.dB",
+            "weighted_matmul.dg"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_epilogue_plans_match_the_plain_version(cuda_device, dtype):
+    """Every plan of an epilogue ladder (``card_candidates(epilogue=True)``:
+    the fused ring's, tc32's epilogue mode), launched under
+    ``dense_act``'s epilogue."""
+    from repro_torch.search import card_candidates
+    from repro_torch.search.measure import epilogue_vectors
+
+    gen = torch.Generator(device=cuda_device).manual_seed(32)
+    spec = PE.matmul_spec(*MODE_SHAPE)
+    epi = codegen.Epilogue(act="gelu", bias=True, norm=True)
+    args = _mode_args(spec, dtype, gen)
+    vecs = epilogue_vectors(spec, epi, cuda_device)
+    plans = card_candidates(
+        spec, *cuda_gen.card_views(spec, *args, epilogue=epi), epilogue=True)
+    assert len(plans) >= 2
+    want = cuda_gen.contract_ref(spec, *args, out_dtype=dtype, epilogue=epi,
+                                 vectors=vecs)
+    sched = codegen.default_schedule(spec)
+    for plan in plans:
+        kern = codegen.cached_compile(spec, sched, card=plan, epilogue=epi)
+        got = _launched(cuda_gen.CONTRACT, kern, args, plan, **vecs)
+        _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_q8_plans_match_the_plain_version(cuda_device, fmt):
+    """Every plan of the 8-bit ring (``q8_card_candidates``: one CTA a
+    tile here, 12 tiles) and persistent grids of 1 and 5 CTAs, each CTA
+    walking several tiles, and of one CTA an SM, on the product (under
+    the dequant epilogue too) and the weighted family's modes: int8
+    equal element for element, fp8 at the f32 TOL."""
+    from repro_torch.grad import derived_specs
+    from repro_torch.search import q8_card_candidates
+
+    gen = torch.Generator(device=cuda_device).manual_seed(33)
+    dt = torch.int8 if fmt == "int8" else torch.float8_e4m3fn
+    gemm = PE.quantize_spec(PE.matmul_spec(*MODE_SHAPE), fmt=fmt)
+    fwd = PE.weighted_matmul_spec(*MODE_SHAPE)
+    specs = [gemm] + [PE.quantize_spec(s, fmt=fmt)
+                      for s in (fwd, *derived_specs(fwd).values())]
+    launcher = modes.CONTRACT_INT8 if fmt == "int8" else modes.CONTRACT_FP8
+    ringed = 0
+    for spec in specs:
+        args = _mode_args(spec, dt, gen, kmajor=spec is gemm)
+        plans = q8_card_candidates(spec, *args)
+        if fmt == "fp8" and spec.name == "weighted_matmul":
+            assert plans == []  # fp8's k-scale runs contract.cu's bf16 ring
+            continue
+        assert plans == [modes.Q8_HEURISTIC]  # 12 tiles: no SM's grid
+        plans += [modes.Q8Plan(1), modes.Q8Plan(5),
+                  modes.Q8Plan(cuda_gen._sm_count(args[0].device))]
+        ringed += 1
+        want = cuda_gen.contract_ref(spec, *args, out_dtype=torch.float32)
+        sched = codegen.default_schedule(spec)
+        for plan in plans:
+            kern = codegen.cached_compile(spec, sched, card=plan,
+                                          out_dtype=torch.float32)
+            got = _launched(launcher, kern, args, plan)
+            if fmt == "int8":
+                assert torch.equal(got, want), (spec.name, plan)
+            else:
+                _assert_close_scaled(got, want, torch.float32)
+        if spec is gemm:  # the dequant epilogue on each grid
+            qscale = torch.rand(spec.extents["k"], generator=gen,
+                                device=cuda_device) * 0.01
+            epi = codegen.Epilogue(dequant=True)
+            want = cuda_gen.contract_ref(spec, *args, out_dtype=torch.float32,
+                                         epilogue=epi,
+                                         vectors={"qscale": qscale})
+            for plan in plans:
+                kern = codegen.cached_compile(spec, sched, card=plan,
+                                              epilogue=epi,
+                                              out_dtype=torch.float32)
+                got = _launched(launcher, kern, args, plan, qscale=qscale)
+                _assert_close_scaled(got, want, torch.float32)
+    assert ringed == (5 if fmt == "int8" else 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_chain_plans_match_the_plain_version(cuda_device, dtype):
+    """Every association x cluster plan of the chain
+    (``chain_card_candidates``) on the chain and its derived specs: one
+    ``CONTRACT_CHAIN`` launch on the plan, the plain version's output."""
+    from repro_torch.grad import derived_specs
+    from repro_torch.search import chain_card_candidates
+
+    gen = torch.Generator(device=cuda_device).manual_seed(34)
+    fwd = PE.chain_matmul_spec(512, 128, 1024, 128)
+    for spec in (fwd, *derived_specs(fwd).values()):
+        args = _mode_args(spec, dtype, gen)
+        plans = chain_card_candidates(spec, dtype)
+        assert {p.assoc for p in plans} == {"xy", "yz"}
+        want = cuda_gen.contract_ref(spec, *args, out_dtype=dtype)
+        sched = codegen.default_schedule(spec)
+        for plan in plans:
+            kern = codegen.cached_compile(spec, sched, card=plan)
+            got = _launched(modes.CONTRACT_CHAIN, kern, args, plan)
+            _assert_close_scaled(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_mode_kernels_refuse_a_plan(cuda_device):
+    """A plan the kernel cannot take raises; nothing falls back."""
+    gen = torch.Generator(device=cuda_device).manual_seed(35)
+    sched = lambda s: codegen.default_schedule(s)  # noqa: E731
+    fp8 = PE.quantize_spec(PE.matmul_spec(*MODE_SHAPE), fmt="fp8")
+    args = _mode_args(fp8, torch.float8_e4m3fn, gen, kmajor=True)
+    with pytest.raises(RuntimeError, match="q8_plan_launch failed"):
+        codegen.cached_compile(fp8, sched(fp8), card=modes.Q8Plan(-1),
+                               out_dtype=torch.float32)(*args)
+    int8 = PE.quantize_spec(PE.matmul_spec(*MODE_SHAPE), fmt="int8")
+    args = _mode_args(int8, torch.int8, gen, kmajor=True)
+    with pytest.raises(RuntimeError, match="q8_plan_launch failed"):
+        codegen.cached_compile(int8, sched(int8), card=modes.Q8Plan(-1),
+                               out_dtype=torch.float32)(*args)
+    chain = PE.chain_matmul_spec(512, 128, 1024, 128)
+    args = _mode_args(chain, torch.bfloat16, gen)
+    for plan in (modes.ChainPlan("xy", 3), modes.ChainPlan("yz", 16)):
+        with pytest.raises(RuntimeError, match="chain_launch failed"):
+            codegen.cached_compile(chain, sched(chain), card=plan)(*args)
+    with pytest.raises(ValueError, match="association"):
+        codegen.cached_compile(chain, sched(chain),
+                               card=modes.ChainPlan("zx", 1))(*args)
+    dg = __import__("repro_torch.grad", fromlist=["derived_specs"]
+                    ).derived_specs(PE.weighted_matmul_spec(*MODE_SHAPE))["g"]
+    args = _mode_args(dg, torch.bfloat16, gen)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        codegen.cached_compile(dg, sched(dg),  # a row reduce 128 wide only
+                               card=cuda_gen.CardPlan("ring", 256, 1))(*args)
+    # the launches after refused ones run
+    out = codegen.cached_compile(chain, sched(chain))(*_mode_args(
+        chain, torch.bfloat16, gen))
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.gpu
+def test_mode_ladders_and_the_ops_launch_their_winners(cuda_device):
+    """Card ladders of the new modes at small shapes -- the weighted
+    forward, ``dense_act``'s epilogue, the int8 tier (256 tiles, under
+    the dequant epilogue), the bf16 chain -- each two or more plans, the
+    heuristic's among them; then the ops launch each stored winner."""
+    from repro_torch import search
+
+    gen = torch.Generator(device=cuda_device).manual_seed(36)
+    bf16 = torch.bfloat16
+    db = search.default_plan_db()
+    epi = codegen.Epilogue(act="gelu", bias=True, norm=True, eps=1e-5)
+    m, k, n = MODE_SHAPE
+    points = {
+        "weighted": (PE.weighted_matmul_spec(m, k, n), bf16, None),
+        "dense_act": (PE.matmul_spec(m, k, n), bf16, epi),
+        "int8": (PE.quantize_spec(PE.matmul_spec(*Q8_SHAPE), fmt="int8"),
+                 torch.int8, None),
+        "chain": (PE.chain_matmul_spec(512, 128, 1024, 128), bf16, None),
+    }
+    win = {}
+    for tag, (spec, dt, e) in points.items():
+        if tag == "int8":
+            e = search.quant_tier_epilogue(spec, "cuda")
+        args = _mode_args(spec, dt, gen, kmajor=dt == torch.int8)
+        res = search.search_schedule(spec, dtype=dt, device="cuda",
+                                     plan_db=db, epilogue=e,
+                                     arrays=dict(zip(spec.operands, args)))
+        cards = [p.card for p in res.ranked]
+        assert len(cards) >= 2 and None not in cards, tag
+        assert res.baseline() is not None, tag
+        win[tag] = res.best.card
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(bf16)
+    w = torch.randn(k, n, generator=gen, device=cuda_device).to(bf16)
+    g = torch.randn(k, generator=gen, device=cuda_device).to(bf16)
+    ops.weighted_dense(x, w, g, differentiable=False)
+    assert cuda_gen.CONTRACT.last_card == win["weighted"]
+    beta, mean = torch.randn(2, n, device=cuda_device)
+    var = torch.rand(n, device=cuda_device) + 0.5
+    ops.dense_act(x, w, beta, mean, var, differentiable=False)
+    assert cuda_gen.CONTRACT.last_card == win["dense_act"]
+    xq = torch.randn(Q8_SHAPE[:2], generator=gen, device=cuda_device)
+    wq = torch.randn(Q8_SHAPE[1:], generator=gen, device=cuda_device)
+    with torch.no_grad():
+        ops.dense(xq, wq, quant="int8")
+    assert modes.CONTRACT_INT8.last_card == win["int8"]
+    a, b, c = (torch.randn(s, device=cuda_device).to(bf16)
+               for s in ((512, 128), (128, 1024), (1024, 128)))
+    ops.chain_dense(a, b, c, differentiable=False)
+    assert modes.CONTRACT_CHAIN.last_plan == win["chain"]
+    # the plain product's own ladder stays apart: dense_act still runs
+    # its epilogue ladder's winner, ops.dense the product's
+    plain = search.search_schedule(PE.matmul_spec(m, k, n), dtype=bf16,
+                                   device="cuda", plan_db=db)
+    ops.dense_act(x, w, beta, mean, var, differentiable=False)
+    assert cuda_gen.CONTRACT.last_card == win["dense_act"]
+    ops.dense(x, w, differentiable=False)
+    assert cuda_gen.CONTRACT.last_card == plain.best.card

@@ -145,7 +145,7 @@ def test_chain_association_at_chain_shape(monkeypatch, dtype, which):
     calls = []
 
     def record(x, y, z, out_dtype, *, epilogue=None, vectors=None,
-               out=None):
+               out=None, plan=None):
         calls.append((tuple(x.shape), tuple(y.shape), tuple(z.shape),
                       not out.is_contiguous()))
         return out

@@ -353,9 +353,10 @@ def _legal(plan, batch, m, n, k, kscale=False, row_reduce=False,
     ok = 1 <= splits <= nk and (splits - 1) * per < nk and (
         batch * splits <= 65535)
     if body == "ring":
+        # the row reduce takes a K split: each split's column sums are a
+        # row block of their own (contract.cu's ring_row_reduce)
         ok &= tile_n in (128, 256) and m >= 64
         ok &= not (kscale or row_reduce) or tile_n == 128
-        ok &= not row_reduce or splits == 1
     elif body == "narrow":
         ok &= tile_n in cuda_gen.NARROW_WIDTHS and m <= tile_n
     elif body == "tc32":
@@ -637,10 +638,15 @@ def test_card_views_are_the_launch_views():
     a3, b3 = cuda_gen.card_views(d["A"], g, w)
     assert a3.shape == (1, 64, 48) and b3.shape == (1, 48, 32)
     assert b3.stride(1) == 1  # w^T read k-major as it lies
+    # a three-operand spec's views carry its vector; the chain has none
+    a3, b3, vec = cuda_gen.card_views(PE.weighted_matmul_spec(4, 4, 4),
+                                      torch.ones(4, 4), torch.ones(4, 4),
+                                      torch.ones(4))
+    assert a3.shape == b3.shape == (1, 4, 4) and vec.axis == 3
     with pytest.raises(ValueError):
-        cuda_gen.card_views(PE.weighted_matmul_spec(4, 4, 4),
+        cuda_gen.card_views(PE.chain_matmul_spec(4, 4, 4, 4),
                             torch.ones(4, 4), torch.ones(4, 4),
-                            torch.ones(4))
+                            torch.ones(4, 4))
 
 
 def test_launcher_takes_the_plan_of_its_body():
